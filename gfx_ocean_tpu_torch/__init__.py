@@ -1,0 +1,38 @@
+"""gfx_ocean_tpu_torch: the FFT ocean in PyTorch, with hand-written CUDA
+kernels for an NVIDIA H100.
+
+The port of ``gfx_ocean_tpu`` (JAX on a TPU), module for module. It imports
+torch and numpy only: never jax, and never the JAX package, whose own
+``__init__`` imports jax. The framework-free pieces (config, golden model,
+bincode loader, spectrum envelopes, DFT tables) are copies, proven equal to
+the originals by ``tests/test_torch_*.py``.
+
+The main path is the 512^2 Hermitian-packed step (``fft_impl="pallas"``):
+kernel K1, ``ops/fused_step.py`` and ``csrc/packed_step.cu``.
+"""
+
+from gfx_ocean_tpu_torch.config import CompatFlags, OceanConfig, PhillipsConfig
+from gfx_ocean_tpu_torch.models.ocean import (
+    OceanFields,
+    OceanState,
+    make_rollout,
+    make_step,
+    ocean_state_from_assets,
+    ocean_state_from_phillips,
+    step,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "CompatFlags",
+    "OceanConfig",
+    "OceanFields",
+    "OceanState",
+    "PhillipsConfig",
+    "make_rollout",
+    "make_step",
+    "ocean_state_from_assets",
+    "ocean_state_from_phillips",
+    "step",
+]

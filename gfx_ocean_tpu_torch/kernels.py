@@ -1,0 +1,91 @@
+"""Build the CUDA sources of ``csrc/`` with nvcc and bind them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and becomes
+``build/kernels/lib<name>_<hash>.so`` at the repository root on first use:
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``.
+The hash of the source is in the file name, so an edited source is rebuilt
+and a stale library is never loaded. The compiler's output (``-Xptxas -v``:
+registers, shared memory and spills a kernel) is kept beside the library as
+``lib<name>_<hash>.log``.
+
+Nothing here runs at import: the CPU tests import every module, and this
+host has no nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# argtypes / restype of each library's C entry points.
+SIGNATURES = {
+    "packed_step": {
+        "packed_step": ([_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _F,
+                         _P, _P, _P, _I, _F, _I, _P], _I),
+        "packed_step_error_string": ([_I], ctypes.c_char_p),
+    },
+}
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler; raises when there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
+                       "CUDA toolkit is installed")
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` is built to, keyed by the source's hash."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library exists; return its path."""
+    so = library_path(name)
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return so
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """Build (first use) and load ``csrc/<name>.cu``, with its entry points typed."""
+    lib = ctypes.CDLL(str(build(name)))
+    for fn, (argtypes, restype) in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib

@@ -1,0 +1,244 @@
+"""The ocean model in PyTorch: ``step`` and rollouts.
+
+Counterpart of ``gfx_ocean_tpu/models/ocean.py``. State is time-invariant
+(h0, omega), exactly as in the reference (SURVEY.md §5): every frame is
+computed directly from h0 and the absolute time t.
+
+Routes through ``step`` / ``make_rollout``, by ``config.fft_impl``:
+
+- "pallas": kernel K1 (``ops/fused_step.py``): the hand-written CUDA
+  kernels for CUDA tensors, their plain PyTorch version for CPU tensors.
+- "matmul": the PyTorch direct-DFT matmul path (``ops/fft.py``), packed or
+  unpacked by ``config.hermitian_pack``.
+
+Not ported yet, and raising ``NotImplementedError``: "pallas" with
+``hermitian_pack=False`` (K4/K5/K6) or N > 512 (K2/K3), "xla", foam and
+cascades. ``time_batch`` frames run as one batch axis; the hoisted
+propagate planes are computed once per rollout call.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from gfx_ocean_tpu_torch.config import OceanConfig, PhillipsConfig
+from gfx_ocean_tpu_torch.ops import fused_step
+from gfx_ocean_tpu_torch.ops.derived import finite_difference_normals
+from gfx_ocean_tpu_torch.ops.fft import ifft2_planes_unnorm, ifft2_real_unnorm
+from gfx_ocean_tpu_torch.ops.propagate import (precompute_propagate,
+                                               precompute_propagate_packed,
+                                               propagate_packed_planes,
+                                               propagate_planes_pre)
+from gfx_ocean_tpu_torch.utils.complexpair import to_pair
+
+
+class OceanState(NamedTuple):
+    """Time-invariant simulation state: h0 as (re, im) float32 planes
+    (2, N, N) and the dispersion omega (N, N), on one device."""
+
+    h0: torch.Tensor
+    omega: torch.Tensor
+
+
+class OceanFields(NamedTuple):
+    """Per-frame outputs: the displacement texture of
+    ``shader/correction.comp`` plus derived maps (leading time axis in a
+    rollout)."""
+
+    displacement: torch.Tensor             # (..., N, N, 3) (disp_x, height, disp_z)
+    normals: Optional[torch.Tensor]        # (..., N, N, 3) or None
+    foam: Optional[torch.Tensor]           # always None until foam is ported
+
+    @property
+    def height(self) -> torch.Tensor:
+        return self.displacement[..., 1]
+
+
+def _check_supported(state: OceanState, config: OceanConfig) -> None:
+    if config.compute_foam:
+        raise NotImplementedError(
+            'compute_foam is not ported yet (ROADMAP.md queue 1, "ops/derived.py")')
+    if config.num_cascades != 1 or state.h0.ndim != 3:
+        raise NotImplementedError(
+            'cascades (batched states) are not ported yet (ROADMAP.md queue 1, '
+            '"models/ocean.py")')
+    if config.fft_impl == "xla":
+        raise NotImplementedError(
+            'fft_impl="xla" is not ported yet (ROADMAP.md queue 1, "ops/fft.py")')
+    if config.fft_impl == "pallas":
+        fused_step.check_supported(config, state.h0.shape[-1])
+
+
+def _precompute(state: OceanState, config: OceanConfig):
+    """The rollout-hoistable time-invariant inputs of the active route."""
+    if config.fft_impl == "pallas":
+        return fused_step.hoist_packed(state.h0, state.omega, config)
+    if config.hermitian_pack:
+        return precompute_propagate_packed(state.h0, state.omega, config.compat)
+    return precompute_propagate(state.h0, config.compat)
+
+
+def _displacement(state: OceanState, ts: torch.Tensor, config: OceanConfig,
+                  pre) -> torch.Tensor:
+    """Displacement maps (tb, N, N, 3) for the frame times ts (tb,)."""
+    if config.fft_impl == "pallas":
+        return torch.movedim(fused_step.packed_planes(pre, ts, config), -3, -1)
+    t = ts[:, None, None]
+    centered = "ref" if config.compat.ref_sign else "canonical"
+    common = dict(impl=config.fft_impl, direct_max=config.direct_dft_max,
+                  centered=centered)
+    choppy_prec = config.choppy_precision or config.matmul_precision
+    if config.hermitian_pack:
+        pre_planes, pre_rho, omega_rho = pre
+        h_r, h_i, z_r, z_i = propagate_packed_planes(
+            pre_planes, pre_rho, state.omega, omega_rho, t,
+            config.domain_size, config.compat)
+        height = ifft2_real_unnorm(h_r, h_i, precision=config.matmul_precision, **common)
+        dxf, dzf = ifft2_planes_unnorm(z_r, z_i, precision=choppy_prec, **common)
+        return torch.stack([dxf, height, dzf], dim=-1)
+    specs_r, specs_i = propagate_planes_pre(pre, state.omega, t,
+                                            config.domain_size, config.compat)
+    height = ifft2_real_unnorm(specs_r[0], specs_i[0],
+                               precision=config.matmul_precision, **common)
+    choppy = ifft2_real_unnorm(specs_r[1:], specs_i[1:], precision=choppy_prec, **common)
+    return torch.stack([choppy[0], height, choppy[1]], dim=-1)
+
+
+def _fields(disp: torch.Tensor, config: OceanConfig) -> OceanFields:
+    normals = None
+    if config.compute_normals:
+        normals = finite_difference_normals(disp[..., 1], config.normal_height_scale)
+    return OceanFields(displacement=disp, normals=normals, foam=None)
+
+
+def step(state: OceanState, t, config: OceanConfig, pre=None) -> OceanFields:
+    """One frame: propagate -> 2-D inverse DFT -> correction (+ normals).
+
+    ``pre`` optionally passes the hoisted inputs of the active route (what
+    ``make_rollout`` computes once per call).
+    """
+    _check_supported(state, config)
+    if pre is None:
+        pre = _precompute(state, config)
+    ts = fused_step.as_times(t, state.omega.device)[:1]
+    disp = _displacement(state, ts, config, pre)[0]
+    return _fields(disp, config)
+
+
+def make_step(config: OceanConfig, device: torch.device | str | None = None):
+    """``step(state, t)`` closure over a config; with ``device`` the state is
+    moved there first (a no-op when it already lies there)."""
+
+    def fn(state: OceanState, t) -> OceanFields:
+        if device is not None:
+            state = OceanState(state.h0.to(device), state.omega.to(device))
+        return step(state, t, config)
+
+    return fn
+
+
+def make_rollout(config: OceanConfig, keep_fields: bool = True, time_batch: int = 1):
+    """``rollout(state, ts)`` over a vector of frame times.
+
+    Returns OceanFields with a leading time axis, or with
+    ``keep_fields=False`` one float32 checksum per frame (sum of the
+    displacement planes plus sum of the normals), which keeps the output
+    O(steps). Frames run ``time_batch`` at a time as one batch axis;
+    ``len(ts)`` must be a multiple of it. On the "pallas" route the
+    checksum is reduced by K1's checksum kernel from the plane-major
+    planes. The checksums stay on the state's device.
+    """
+    if time_batch < 1:
+        raise ValueError(f"time_batch must be >= 1, got {time_batch}")
+
+    def rollout(state: OceanState, ts):
+        _check_supported(state, config)
+        ts = fused_step.as_times(ts, state.omega.device)
+        if ts.shape[0] % time_batch:
+            raise ValueError(
+                f"len(ts)={ts.shape[0]} not a multiple of time_batch={time_batch}")
+        pre = _precompute(state, config)
+        chunks = [ts[i:i + time_batch] for i in range(0, ts.shape[0], time_batch)]
+        if not keep_fields:
+            if config.fft_impl == "pallas":
+                out = [fused_step.packed_checksums(pre, c, config) for c in chunks]
+            else:
+                out = [_checksums(_fields(_displacement(state, c, config, pre), config))
+                       for c in chunks]
+            return torch.cat(out)
+        fields = [_fields(_displacement(state, c, config, pre), config) for c in chunks]
+        return OceanFields(
+            displacement=torch.cat([f.displacement for f in fields]),
+            normals=(torch.cat([f.normals for f in fields])
+                     if config.compute_normals else None),
+            foam=None)
+
+    return rollout
+
+
+def _checksums(fields: OceanFields) -> torch.Tensor:
+    out = fields.displacement.sum(dim=(-3, -2, -1))
+    if fields.normals is not None:
+        out = out + fields.normals.sum(dim=(-3, -2, -1))
+    return out
+
+
+def state_from_numpy(h0_pair: np.ndarray, omega: np.ndarray,
+                     device: torch.device | str | None = None) -> OceanState:
+    """An OceanState from numpy arrays in the JAX package's layout:
+    h0 as (2, N, N) float32 planes and omega as (N, N)."""
+    device = device or "cpu"
+    h0 = torch.tensor(np.asarray(h0_pair, dtype=np.float32), device=device)
+    om = torch.tensor(np.asarray(omega, dtype=np.float32), device=device)
+    return OceanState(h0=h0, omega=om)
+
+
+def ocean_state_from_assets(
+    spectrum_path: str | None = None,
+    omega_path: str | None = None,
+    resolution: int = 512,
+    device: torch.device | str | None = None,
+) -> OceanState:
+    """Load the reference's shipped initial conditions (bincode files)."""
+    from gfx_ocean_tpu_torch.assets.bincode import load_omega, load_spectrum  # noqa: PLC0415
+
+    h0 = load_spectrum(spectrum_path, resolution)
+    om = load_omega(omega_path, resolution)
+    return state_from_numpy(to_pair(h0), om, device)
+
+
+def ocean_state_from_phillips(
+    config: OceanConfig,
+    phillips: PhillipsConfig | None = None,
+    generator: torch.Generator | None = None,
+    device: torch.device | str | None = None,
+) -> OceanState:
+    """Synthesize initial conditions; the draw comes from ``generator``
+    (a CPU generator seeded with ``phillips.seed`` when None)."""
+    from gfx_ocean_tpu_torch.spectra.phillips import synthesize  # noqa: PLC0415
+
+    if config.num_cascades != 1:
+        raise NotImplementedError(
+            'cascades are not ported yet (ROADMAP.md queue 1, "models/ocean.py")')
+    phillips = phillips or PhillipsConfig()
+    h0, om = synthesize(config.resolution, config.domain_size, phillips, generator)
+    return OceanState(h0=h0.to(device or "cpu"), omega=om.to(device or "cpu"))
+
+
+def downsample_state(state: OceanState, resolution: int) -> OceanState:
+    """Crop a state to a lower resolution, keeping the lowest wavenumbers of
+    the centered layout (the central crop)."""
+    n = state.h0.shape[-1]
+    if resolution == n:
+        return state
+    if resolution > n:
+        raise ValueError(f"cannot upsample {n} -> {resolution}")
+    lo = (n - resolution) // 2
+    hi = lo + resolution
+    return OceanState(
+        h0=state.h0[..., lo:hi, lo:hi].contiguous(),
+        omega=state.omega[..., lo:hi, lo:hi].contiguous(),
+    )

@@ -1,0 +1,297 @@
+"""The Hermitian-packed ocean step for N <= 512 (kernel K1) on the card.
+
+Replaces ``gfx_ocean_tpu/ops/pallas_step.py::_packed_grid_kernel`` (launched
+by ``_packed_single_fields``; the JAX entry points ``pallas_planes`` /
+``pallas_fields`` / ``pallas_checksums`` become ``fused_planes`` /
+``fused_fields`` / ``fused_checksums`` here). Per frame it computes:
+
+1. the packed propagate from 10 hoisted planes (P1..P4, their rho-gathered
+   twins, omega and omega o rho): the symmetrized height spectrum H and
+   Z = H_dx + i H_dz, with the Dekker phase, the polynomial sincos and
+   k-hat pairs from indices (``pallas_step.py:568-611``). The Q2 flip
+   rides the symmetrization's 1/2 (``half = -0.5`` when ``ref_sign``);
+2. the row DFT Y = X A^T and the column DFT A Y with A = D_alt W
+   (``ops/fft._dft_matrix_out_alt_np(n, 1, 0, False)``): height is
+   Re F(H), disp_x / disp_z are Re / Im F(Z);
+3. optionally the forcing checksum sum(planes) + sum(normal terms).
+
+Two implementations sit side by side:
+
+- ``packed_planes_reference`` / ``packed_checksums_reference``: the plain
+  PyTorch version (matmuls against A, FP32 with TF32 off). The CPU tests
+  and the kernel-vs-plain comparison on the card use it.
+- ``launch_packed_step``: the hand-written CUDA kernels of
+  ``csrc/packed_step.cu`` (a row pass, a column pass, checksum partials;
+  a radix-2 Stockham FFT in shared memory instead of the TPU's MXU dots).
+
+``packed_planes`` / ``packed_checksums`` pick between them by where the
+tensors lie: CPU tensors take the plain version, CUDA tensors launch the
+kernels or raise. Nothing falls back.
+
+What bounds K1 on the H100: at 512^2 each frame reads 10 MB of hoisted
+inputs (the same 10 MB for every frame of a time batch, so they can stay
+in the 50 MB L2), writes and rereads the 4 MB row-pass planes Y, writes
+3 MB of planes and rereads them for the checksum. The FFT form does
+~50 MFLOP a frame, so the kernels are bound by bandwidth and by latency
+(a barrier between FFT stages), not by arithmetic (``PERF.md`` has the
+measured split). Later PRs: ``wgmma`` matmul DFTs, TMA loads, and fusing
+the two passes through a cluster so Y never leaves the chip.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from gfx_ocean_tpu_torch.config import OceanConfig
+from gfx_ocean_tpu_torch.ops.derived import finite_difference_normals_planes
+from gfx_ocean_tpu_torch.ops.fft import (_dft_matrix_np, _dft_matrix_out_alt_np,
+                                         effective_precision, pin_fp32_matmul)
+from gfx_ocean_tpu_torch.ops.propagate import (_f32, _sincos_phase,
+                                               precompute_propagate_packed)
+
+MAX_N = 512
+# Rows of the output reduced by one block of the checksum kernel.
+CHECKSUM_ROWS = 4
+
+
+class PackedInputs(NamedTuple):
+    """Per-rollout hoisted inputs of K1 (all float32, one device)."""
+
+    pre: torch.Tensor        # (4, N, N) P1..P4
+    pre_rho: torch.Tensor    # (4, N, N) rho-gathered P1..P4
+    omega: torch.Tensor      # (N, N)
+    omega_rho: torch.Tensor  # (N, N) rho-gathered omega
+    a_re: torch.Tensor       # (N, N) Re(D_alt W), the plain version's table
+    a_im: torch.Tensor       # (N, N) Im(D_alt W)
+    twiddle: torch.Tensor    # (2, N/2) cos, sin of 2 pi k / N: the kernel's table
+
+
+def check_supported(config: OceanConfig, n: int) -> str:
+    """Raise for configurations K1 does not cover; return the effective tier."""
+    if n > MAX_N:
+        raise NotImplementedError(
+            f'fft_impl="pallas" at N={n} > {MAX_N} runs through kernels K2+K3, '
+            "which are not ported yet (ROADMAP.md queue 2, K2+K3)")
+    if not config.hermitian_pack:
+        raise NotImplementedError(
+            'fft_impl="pallas" with hermitian_pack=False runs through kernels '
+            "K4/K5/K6, which are not ported yet (ROADMAP.md queue 2, K4-K6)")
+    return effective_precision(config.matmul_precision)
+
+
+def hoist_packed(h0_pair: torch.Tensor, omega: torch.Tensor,
+                 config: OceanConfig) -> PackedInputs:
+    """Gather the time-invariant inputs once (per rollout, not per frame)."""
+    if h0_pair.ndim != 3:
+        raise ValueError("the fused step takes a single unbatched state")
+    n = h0_pair.shape[-1]
+    check_supported(config, n)
+    dev = h0_pair.device
+    h0_pair = h0_pair.to(torch.float32).contiguous()
+    omega = omega.to(device=dev, dtype=torch.float32).contiguous()
+    pre, pre_rho, omega_rho = precompute_propagate_packed(h0_pair, omega, config.compat)
+    a_re, a_im = (torch.from_numpy(a).to(dev)
+                  for a in _dft_matrix_out_alt_np(n, 1, 0, False))
+    wr, wi = _dft_matrix_np(n, 1)
+    twiddle = torch.from_numpy(np.stack([wr[1, : n // 2], wi[1, : n // 2]])).to(dev)
+    return PackedInputs(pre.contiguous(), pre_rho.contiguous(), omega,
+                        omega_rho.contiguous(), a_re, a_im, twiddle.contiguous())
+
+
+def as_times(ts, device: torch.device) -> torch.Tensor:
+    """Frame times (a float, a sequence or a tensor) as a float32 (tb,) tensor."""
+    return torch.as_tensor(ts, dtype=torch.float32, device=device).reshape(-1).contiguous()
+
+
+# --------------------------------------------------------------------------
+# The plain PyTorch version.
+# --------------------------------------------------------------------------
+
+def khat_pair(n: int, domain_size: float, wrap: bool,
+              device: torch.device | str = "cpu"):
+    """(khx, khy, khx o rho, khy o rho) from indices, as the kernel computes
+    them (``pallas_step._khat_pair_in_kernel``): f32 coordinates, the
+    uint32 wrap as a float add of 2^32, and ``rsqrt`` with a q > 1e-20 guard
+    (the XLA path's host grids use k_len > 1e-10 instead)."""
+    idx = torch.arange(n, dtype=torch.float32, device=device)
+    ix = idx[None, :].expand(n, n)
+    iy = idx[:, None].expand(n, n)
+    scale = _f32(np.pi / domain_size)
+
+    def grids(ix, iy):
+        cx = 2.0 * ix - float(n + 1)
+        cy = 2.0 * iy - float(n + 1)
+        if wrap:
+            cx = torch.where(cx < 0, cx + 2.0 ** 32, cx)
+            cy = torch.where(cy < 0, cy + 2.0 ** 32, cy)
+        kx = cx * scale
+        ky = cy * scale
+        q = kx * kx + ky * ky
+        safe = q > 1.0e-20
+        inv = torch.where(safe, torch.rsqrt(torch.where(safe, q, 1.0)), 0.0)
+        return kx * inv, ky * inv
+
+    khx, khy = grids(ix, iy)
+    ixq = torch.where(ix == 0, 0.0, float(n) - ix)
+    iyq = torch.where(iy == 0, 0.0, float(n) - iy)
+    khxq, khyq = grids(ixq, iyq)
+    return khx, khy, khxq, khyq
+
+
+def packed_planes_reference(inputs: PackedInputs, ts,
+                            config: OceanConfig) -> torch.Tensor:
+    """Plain PyTorch K1: ts (tb,) -> (tb, 3, N, N) (disp_x, height, disp_z)."""
+    pre, pre_rho, om, omq, ar, ai, _ = inputs
+    n = om.shape[-1]
+    ts = as_times(ts, om.device)[:, None, None]
+    pin_fp32_matmul(om)
+    c, s = _sincos_phase(om, ts)
+    cq, sq = _sincos_phase(omq, ts)
+    sr = c * pre[0] + s * pre[1]
+    si = s * pre[2] + c * pre[3]
+    tr = cq * pre_rho[0] + sq * pre_rho[1]
+    ti = sq * pre_rho[2] + cq * pre_rho[3]
+    half = -0.5 if config.compat.ref_sign else 0.5
+    h_r = half * (sr + tr)
+    h_i = half * (si - ti)
+    khx, khy, khxq, khyq = khat_pair(n, config.domain_size, config.compat.wrap_k,
+                                     om.device)
+    dx_r = half * (khx * si + khxq * ti)
+    dx_i = half * (khxq * tr - khx * sr)
+    dz_r = half * (khy * si + khyq * ti)
+    dz_i = half * (khyq * tr - khy * sr)
+    z_r = dx_r - dz_i
+    z_i = dx_i + dz_r
+    art, ait = ar.T, ai.T
+    yh_r = h_r @ art - h_i @ ait
+    yh_i = h_r @ ait + h_i @ art
+    yz_r = z_r @ art - z_i @ ait
+    yz_i = z_r @ ait + z_i @ art
+    height = ar @ yh_r - ai @ yh_i
+    disp_x = ar @ yz_r - ai @ yz_i
+    disp_z = ar @ yz_i + ai @ yz_r
+    return torch.stack([disp_x, height, disp_z], dim=-3)
+
+
+def _normals_scale(config: OceanConfig) -> Optional[float]:
+    return float(config.normal_height_scale) if config.compute_normals else None
+
+
+def checksums_of_planes(planes: torch.Tensor, config: OceanConfig) -> torch.Tensor:
+    """Per-frame sum(planes) [+ sum(normal terms)] of (tb, 3, N, N) planes."""
+    sums = planes.sum(dim=(-3, -2, -1))
+    scale = _normals_scale(config)
+    if scale is not None:
+        normals = finite_difference_normals_planes(planes[:, 1], scale)
+        sums = sums + normals.sum(dim=(-3, -2, -1))
+    return sums
+
+
+def packed_checksums_reference(inputs: PackedInputs, ts,
+                               config: OceanConfig) -> torch.Tensor:
+    """Plain PyTorch K1 checksums: ts (tb,) -> (tb,)."""
+    return checksums_of_planes(packed_planes_reference(inputs, ts, config), config)
+
+
+# --------------------------------------------------------------------------
+# The CUDA kernels.
+# --------------------------------------------------------------------------
+
+def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
+    return None if x is None else x.data_ptr()
+
+
+def launch_packed_step(inputs: PackedInputs, ts: torch.Tensor, config: OceanConfig,
+                       checksum: bool):
+    """Launch the K1 kernels on the current stream.
+
+    Returns ``(planes, partials)``: planes (tb, 3, N, N) and, when
+    ``checksum``, the per-block checksum partials (tb, N / CHECKSUM_ROWS),
+    else None. Adds one to ``launch_packed_step.launches`` per launch.
+    """
+    from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
+
+    dev = inputs.omega.device
+    if dev.type != "cuda":
+        raise ValueError(f"launch_packed_step needs CUDA tensors, got {dev}")
+    n = inputs.omega.shape[-1]
+    check_supported(config, n)
+    shapes = dict(pre=(4, n, n), pre_rho=(4, n, n), omega=(n, n), omega_rho=(n, n),
+                  a_re=(n, n), a_im=(n, n), twiddle=(2, n // 2))
+    for name, x in inputs._asdict().items():
+        if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous float32 on {dev}")
+        if tuple(x.shape) != shapes[name]:
+            raise ValueError(f"{name}: expected shape {shapes[name]}, got {tuple(x.shape)}")
+    ts = as_times(ts, dev)
+    tb = ts.shape[0]
+    y = torch.empty((tb, 2, 2, n, n), dtype=torch.float32, device=dev)
+    planes = torch.empty((tb, 3, n, n), dtype=torch.float32, device=dev)
+    partials = (torch.empty((tb, n // CHECKSUM_ROWS), dtype=torch.float32, device=dev)
+                if checksum else None)
+    nscale = _normals_scale(config)
+    lib = kernels.load("packed_step")
+    err = lib.packed_step(
+        _ptr(inputs.pre), _ptr(inputs.pre_rho), _ptr(inputs.omega),
+        _ptr(inputs.omega_rho), _ptr(inputs.twiddle), _ptr(ts), tb, n,
+        _f32(np.pi / config.domain_size), int(config.compat.wrap_k),
+        -0.5 if config.compat.ref_sign else 0.5,
+        _ptr(y), _ptr(planes), _ptr(partials), CHECKSUM_ROWS,
+        nscale if nscale is not None else 0.0, int(nscale is not None),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        msg = lib.packed_step_error_string(err).decode()
+        raise RuntimeError(f"packed_step kernels failed to launch: CUDA error {err} ({msg})")
+    launch_packed_step.launches += 1
+    return planes, partials
+
+
+launch_packed_step.launches = 0
+
+
+def packed_planes(inputs: PackedInputs, ts, config: OceanConfig) -> torch.Tensor:
+    """K1 planes for ts (tb,): the kernels on CUDA, the plain version on CPU."""
+    if inputs.omega.is_cuda:
+        return launch_packed_step(inputs, ts, config, checksum=False)[0]
+    return packed_planes_reference(inputs, ts, config)
+
+
+def packed_checksums(inputs: PackedInputs, ts, config: OceanConfig) -> torch.Tensor:
+    """K1 checksums for ts (tb,): the kernels on CUDA, the plain version on CPU.
+
+    On CUDA the per-block partials are summed outside the kernel by
+    ``torch.sum``, in an order fixed by their shape (no float atomics).
+    """
+    if inputs.omega.is_cuda:
+        _, partials = launch_packed_step(inputs, ts, config, checksum=True)
+        return partials.sum(dim=-1)
+    return packed_checksums_reference(inputs, ts, config)
+
+
+# --------------------------------------------------------------------------
+# Entry points mirroring pallas_planes / pallas_fields / pallas_checksums.
+# --------------------------------------------------------------------------
+
+def fused_planes(h0_pair: torch.Tensor, omega: torch.Tensor, t,
+                 config: OceanConfig) -> torch.Tensor:
+    """(2, N, N) h0 planes + omega + t -> (3, N, N) (disp_x, height, disp_z)."""
+    inputs = hoist_packed(h0_pair, omega, config)
+    return packed_planes(inputs, as_times(t, omega.device), config)[0]
+
+
+def fused_fields(h0_pair: torch.Tensor, omega: torch.Tensor, t,
+                 config: OceanConfig) -> torch.Tensor:
+    """Channel-last (N, N, 3) displacement of :func:`fused_planes`."""
+    return torch.movedim(fused_planes(h0_pair, omega, t, config), 0, -1)
+
+
+def fused_checksums(h0_pair: torch.Tensor, omega: torch.Tensor, ts,
+                    config: OceanConfig) -> torch.Tensor:
+    """Forcing checksums for ts (tb,) -> (tb,): sum(planes) + sum(normals)."""
+    inputs = hoist_packed(h0_pair, omega, config)
+    return packed_checksums(inputs, ts, config)
+

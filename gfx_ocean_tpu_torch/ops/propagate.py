@@ -1,0 +1,207 @@
+"""Spectrum time evolution (``shader/propagate.comp``) in PyTorch.
+
+Counterpart of ``gfx_ocean_tpu/ops/propagate.py``, op for op. Arrays are
+indexed [y, x]:
+
+    h(k,t) = h0[y, x] e^{iwt} + h0[N-1-y, N-1-x] e^{-iwt}
+             (conjugate on the flipped sample only if ``compat.conj_neg``)
+    k      = pi (2i - N - 1) / L per axis (uint32 wrap iff ``compat.wrap_k``)
+    disp_x = -i k_hat_x h ;  disp_z = -i k_hat_y h
+
+``t`` may be a Python float, a 0-d tensor, or a tensor that broadcasts
+against the (N, N) planes, e.g. (tb, 1, 1) for a batch of frames.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from gfx_ocean_tpu_torch.config import CompatFlags
+from gfx_ocean_tpu_torch.golden.reference import wavenumber_1d
+
+
+def _f32(x: float) -> float:
+    """A Python float that is exactly a float32 value, so that torch gives
+    the same result whether it applies the scalar in float32 or wider."""
+    return float(np.float32(x))
+
+
+@functools.lru_cache(maxsize=None)
+def _khat_np(n: int, domain_size: float, wrap: bool) -> Tuple[np.ndarray, np.ndarray]:
+    """Normalized wavenumber grids (f64 on host, stored f32)."""
+    kx = wavenumber_1d(n, domain_size, wrap)[None, :]
+    ky = wavenumber_1d(n, domain_size, wrap)[:, None]
+    k_len = np.sqrt(kx * kx + ky * ky)
+    safe = k_len > 1.0e-10
+    with np.errstate(invalid="ignore", divide="ignore"):
+        kxn = np.where(safe, kx / k_len, 0.0)
+        kyn = np.where(safe, ky / k_len, 0.0)
+    return (
+        np.broadcast_to(kxn, (n, n)).astype(np.float32),
+        np.broadcast_to(kyn, (n, n)).astype(np.float32),
+    )
+
+
+def wavenumber_grid(n: int, domain_size: float, wrap: bool = False,
+                    device: torch.device | str = "cpu"):
+    """(k_hat_x, k_hat_y) as (N, N) float32 tensors on ``device``."""
+    kxn, kyn = _khat_np(n, float(domain_size), bool(wrap))
+    return torch.from_numpy(kxn).to(device), torch.from_numpy(kyn).to(device)
+
+
+def _as_time(t, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(t, dtype=torch.float32, device=like.device)
+
+
+def precompute_propagate(h0_pair: torch.Tensor,
+                         compat: CompatFlags = CompatFlags()) -> torch.Tensor:
+    """Time-invariant planes (P1, P2, P3, P4), stacked as (4, ..., N, N):
+    hr = c P1 + s P2, hi = s P3 + c P4."""
+    h0r = h0_pair[..., 0, :, :]
+    h0i = h0_pair[..., 1, :, :]
+    h0nr = torch.flip(h0r, dims=(-2, -1))
+    h0ni = torch.flip(h0i, dims=(-2, -1))
+    if compat.conj_neg:
+        h0ni = -h0ni
+    return torch.stack([h0r + h0nr, h0ni - h0i, h0r - h0nr, h0i + h0ni], dim=0)
+
+
+# Cody-Waite constants: 2*pi = C1 + C2 + C3 with C1/C2 carrying <= 12
+# mantissa bits, so k * C1 and k * C2 are exact for k < 2^12.
+_C1 = _f32(6.28125)
+_C2 = _f32(0.0019350051879882812)
+_C3 = _f32(3.019916050561733e-07)
+_INV_2PI = _f32(1.0 / (2.0 * np.pi))
+
+
+def _split_f32_12bit(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dekker split a = hi + lo, hi carrying the top 12 mantissa bits.
+    Eager PyTorch runs each op as its own kernel, so nothing fuses
+    ``c - (c - a)`` into an FMA."""
+    c = a * 4097.0  # 2^12 + 1
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def _phase_mod_2pi(omega: torch.Tensor, t) -> torch.Tensor:
+    """omega * t reduced mod 2*pi with Dekker two-product accuracy in f32.
+
+    A plain f32 product loses ~|omega t| 2^-24 rad (~3e-4 rad at t ~ 1000 s).
+    """
+    t = _as_time(t, omega)
+    p = omega * t
+    o_hi, o_lo = _split_f32_12bit(omega)
+    t_hi, t_lo = _split_f32_12bit(t)
+    err = (((o_hi * t_hi - p) + o_hi * t_lo) + o_lo * t_hi) + o_lo * t_lo
+    k = torch.round(p * _INV_2PI)  # half to even, as jnp.round
+    return (((p - k * _C1) - k * _C2) - k * _C3) + err
+
+
+# pi/2 = P1 + P2 + P3; q * P1 is exact for the quadrant index q in {-2..2}.
+_P1 = _f32(1.5703125)
+_P2 = _f32(4.8375129699707031e-4)
+_P3 = _f32(7.5497899487686475e-8)
+_TWO_OVER_PI = _f32(2.0 / np.pi)
+# Cephes f32 minimax coefficients on [-pi/4, pi/4].
+_SS1 = _f32(-1.6666654611e-1)
+_SS2 = _f32(8.3321608736e-3)
+_SS3 = _f32(-1.9515295891e-4)
+_CC1 = _f32(4.166664568298827e-2)
+_CC2 = _f32(-1.388731625493765e-3)
+_CC3 = _f32(2.443315711809948e-5)
+
+
+def _sincos_phase(omega: torch.Tensor, t) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) of omega*t: Dekker phase, one exact pi/2 quadrant step,
+    and a degree-7/8 minimax pair on [-pi/4, pi/4] (~1e-7 abs)."""
+    x = _phase_mod_2pi(omega, t)
+    q = torch.round(x * _TWO_OVER_PI)
+    r = ((x - q * _P1) - q * _P2) - q * _P3
+    r2 = r * r
+    sin_r = r + r * r2 * (_SS1 + r2 * (_SS2 + r2 * _SS3))
+    cos_r = 1.0 - 0.5 * r2 + r2 * r2 * (_CC1 + r2 * (_CC2 + r2 * _CC3))
+    iq = q.to(torch.int32) & 3  # two's complement: -1 & 3 == 3
+    swap = (iq & 1) == 1
+    s_base = torch.where(swap, cos_r, sin_r)
+    c_base = torch.where(swap, sin_r, cos_r)
+    s_neg = iq >= 2
+    c_neg = (iq == 1) | (iq == 2)
+    return torch.where(c_neg, -c_base, c_base), torch.where(s_neg, -s_base, s_base)
+
+
+def propagate_from_cs(pre: torch.Tensor, c: torch.Tensor, s: torch.Tensor,
+                      domain_size: float, compat: CompatFlags = CompatFlags()):
+    """Unpacked propagate from (cos, sin) of the phase: returns (specs_r,
+    specs_i), each (3, ..., N, N) in the order (h, dx, dz)."""
+    n = pre.shape[-1]
+    hr = c * pre[0] + s * pre[1]
+    hi = s * pre[2] + c * pre[3]
+    kxn, kyn = wavenumber_grid(n, domain_size, compat.wrap_k, pre.device)
+    specs_r = torch.stack([hr, kxn * hi, kyn * hi], dim=0)
+    specs_i = torch.stack([hi, -kxn * hr, -kyn * hr], dim=0)
+    return specs_r, specs_i
+
+
+def propagate_planes_pre(pre: torch.Tensor, omega: torch.Tensor, t,
+                         domain_size: float, compat: CompatFlags = CompatFlags()):
+    """Unpacked propagate from :func:`precompute_propagate` planes."""
+    phase = _phase_mod_2pi(omega, t)
+    return propagate_from_cs(pre, torch.cos(phase), torch.sin(phase),
+                             domain_size, compat)
+
+
+def roll_flip(x: torch.Tensor) -> torch.Tensor:
+    """DFT-index negation rho: y[i, j] = x[(-i) mod N, (-j) mod N] over the
+    last two axes. Not the propagate pairing flip [N-1-i]."""
+    return torch.roll(torch.flip(x, dims=(-2, -1)), shifts=(1, 1), dims=(-2, -1))
+
+
+def precompute_propagate_packed(h0_pair: torch.Tensor, omega: torch.Tensor,
+                                compat: CompatFlags = CompatFlags()):
+    """Time-invariant planes of the Hermitian-symmetrized propagate:
+    ``(pre, pre_rho, omega_rho)``, gathered once per rollout."""
+    pre = precompute_propagate(h0_pair, compat)
+    return pre, roll_flip(pre), roll_flip(omega)
+
+
+def propagate_packed_planes(
+    pre: torch.Tensor,
+    pre_rho: torch.Tensor,
+    omega: torch.Tensor,
+    omega_rho: torch.Tensor,
+    t,
+    domain_size: float,
+    compat: CompatFlags = CompatFlags(),
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Hermitian-symmetrized evolved spectra, packed for 2-for-1 transforms.
+
+    With H = (S + conj(S o rho)) / 2, F(H) = Re(F(S)) exactly, and the two
+    choppy spectra share one transform: Z = H_dx + i H_dz. Returns
+    ``(h_r, h_i, z_r, z_i)``. Uses ``torch.cos``/``torch.sin`` of the
+    Dekker phase and the host k-hat grids, as the JAX function does.
+    """
+    n = pre.shape[-1]
+    phase = _phase_mod_2pi(omega, t)
+    c, s = torch.cos(phase), torch.sin(phase)
+    phase_rho = _phase_mod_2pi(omega_rho, t)
+    cq, sq = torch.cos(phase_rho), torch.sin(phase_rho)
+
+    sr = c * pre[0] + s * pre[1]
+    si = s * pre[2] + c * pre[3]
+    tr = cq * pre_rho[0] + sq * pre_rho[1]
+    ti = sq * pre_rho[2] + cq * pre_rho[3]
+
+    h_r = 0.5 * (sr + tr)
+    h_i = 0.5 * (si - ti)
+
+    kxn, kyn = wavenumber_grid(n, domain_size, compat.wrap_k, pre.device)
+    kxq, kyq = roll_flip(kxn), roll_flip(kyn)
+    dx_r = 0.5 * (kxn * si + kxq * ti)
+    dx_i = 0.5 * (kxq * tr - kxn * sr)
+    dz_r = 0.5 * (kyn * si + kyq * ti)
+    dz_i = 0.5 * (kyq * tr - kyn * sr)
+    return h_r, h_i, dx_r - dz_i, dx_i + dz_r
