@@ -3,22 +3,43 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path: the 512^2 Hermitian-packed step
-(``OceanConfig(fft_impl="pallas", matmul_precision="bf16x3")``) through
-kernel K1, a 600-frame checksum rollout at time_batch 6, gated against the
-float64 golden model. It imports no jax. Phases, one line each:
+Drives the port's two paths and gates them against the float64 golden
+model. It imports no jax.
+
+- The 512^2 Hermitian-packed step (``OceanConfig(fft_impl="pallas",
+  matmul_precision="bf16x3")``) through kernel K1, a 600-frame checksum
+  rollout at time_batch 6.
+- The 4096^2 four-step step, config 5 of ``benchmarks/run_all.py``
+  (``resolution=4096, domain_size=2000.0, fft_impl="pallas",
+  matmul_precision="high"``), through kernels K2 + K3, 120-frame checksum
+  rollouts at time_batch 1 and 4.
+
+Phases, one line each:
 
 1. device: nvidia-smi name and power limit, torch's device name;
-2. build: nvcc builds the kernels from ``gfx_ocean_tpu_torch/csrc``;
+2. build: nvcc builds both libraries of ``gfx_ocean_tpu_torch/csrc`` at
+   once, with the ptxas lines (registers, spills) of each;
 3. state: the 512^2 state from the shipped bins, else synthesized from a
    torch.Generator seeded 0;
 4. kernel vs plain: K1 against its plain PyTorch version on the card;
 5. golden: the step's fields against the float64 golden model;
 6. time: one K1 call against one plain call (CUDA events);
 7. rollout: make_rollout through K1 (launch count, finite checksums,
-   steps/s) and the same rollout through the plain version.
+   steps/s) and the same rollout through the plain version;
+8. fourstep_state: the 4096^2 state synthesized from a torch.Generator
+   seeded 0 (the shipped bins are 512^2 only);
+9. fourstep_kernel_vs_plain: K2 alone, K3 alone (fed K2's Y) and both
+   chained against the plain version, planes and checksums, at 1024^2 and
+   4096^2 over the six frames of T_COMPARE and at 8192^2 over two;
+10. fourstep_golden: the 4096^2 step at t = 11.25 against the golden model;
+11. fourstep_time_one_call: K2, K3 and the whole step at tb 1 and 4 against
+    the plain version (CUDA events);
+12. fourstep_rollout: make_rollout(keep_fields=False) at tb 1 and 4 through
+    the kernels (launch counts, finite checksums that agree with the plain
+    rollout, steps/s) and through the plain version;
+13. fourstep_profile: torch.profiler's device time by kernel over a rollout.
 
-Then one JSON line with the kernels, and as the last line
+Then one JSON line with the kernels (K1, K2, K3), and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero with no
 result; so does a machine without CUDA.
 """
@@ -49,6 +70,17 @@ TOL_CHECKSUM = 1e-5
 # Relative L-inf against the float64 golden model (bench.py's gate).
 GOLDEN_GATE = 1e-4
 TIMING_CALLS = 50
+
+# The four-step path (K2 + K3): config 5 of benchmarks/run_all.py.
+FS_N = 4096
+# (grid, frames) of the kernel-vs-plain check: T_COMPARE's first frames.
+FS_COMPARE = ((1024, len(T_COMPARE)), (FS_N, len(T_COMPARE)), (8192, 2))
+FS_STEPS = 120
+FS_REPEATS = 3
+FS_TIME_BATCHES = (1, 4)
+FS_TIMING_CALLS = 20
+FS_PLAIN_TIMING_CALLS = 5
+FS_PROFILE_STEPS = 8
 
 
 def fail(msg: str) -> None:
@@ -89,36 +121,45 @@ def main() -> None:
     kind = torch.cuda.get_device_name(0)
     phase("device", name=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
           torch=torch.__version__, cuda=torch.version.cuda)
-    run(dev, N)
+    build()
+    kernels_line = [run(dev, N)]
+    kernels_line += run_fourstep(dev)
+    print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)
 
 
-def run(dev, n: int) -> None:
-    """Phases 2-7 on ``dev`` at an n x n grid; prints the kernels line."""
+def build() -> None:
+    """Phase 2: one nvcc for each library, all started together."""
+    from gfx_ocean_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    libs = kernels.build_all(sorted(kernels.SIGNATURES))
+    build_s = time.perf_counter() - t0
+    for name in libs:
+        kernels.load(name)
+    root = kernels.BUILD_DIR.parent.parent
+    phase("build", seconds=build_s, libraries={
+        name: {"library": str(so.relative_to(root)),
+               "ptxas": [ln.strip() for ln in so.with_suffix(".log").read_text().splitlines()
+                         if "registers" in ln or "bytes stack frame" in ln]}
+        for name, so in libs.items()})
+
+
+def run(dev, n: int) -> dict:
+    """Phases 3-7 on ``dev`` at an n x n grid; returns K1's kernels entry."""
     import torch
 
     import numpy as np
 
     import gfx_ocean_tpu_torch as ot
-    from gfx_ocean_tpu_torch import kernels
     from gfx_ocean_tpu_torch.assets.bincode import reference_data_dir
     from gfx_ocean_tpu_torch.golden.reference import golden_fields, golden_normals
     from gfx_ocean_tpu_torch.ops import fused_step
     from gfx_ocean_tpu_torch.ops.derived import finite_difference_normals_planes
     from gfx_ocean_tpu_torch.utils.complexpair import from_pair_np
     from gfx_ocean_tpu_torch.utils.profiling import time_rollout
-
-    # --- 2. build -----------------------------------------------------------
-    t0 = time.perf_counter()
-    so = kernels.build("packed_step")
-    build_s = time.perf_counter() - t0
-    kernels.load("packed_step")
-    ptxas = [ln.strip() for ln in so.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "bytes stack frame" in ln]
-    phase("build", seconds=build_s, library=str(so.relative_to(kernels.BUILD_DIR.parent.parent)),
-          ptxas=ptxas)
 
     # --- 3. state -----------------------------------------------------------
     cfg = ot.OceanConfig(resolution=n, fft_impl="pallas", matmul_precision="bf16x3")
@@ -211,7 +252,7 @@ def run(dev, n: int) -> None:
     if not (ck_diff <= TOL_CHECKSUM * float(summands.max())):
         fail(f"rollout checksums differ from the plain version by {ck_diff:.3e}")
 
-    print(json.dumps({"kernels": [{
+    return {
         "name": "K1 packed_step (row pass, column pass, checksum partials)",
         "route": "cuda",
         "source": "gfx_ocean_tpu_torch/csrc/packed_step.cu",
@@ -220,7 +261,201 @@ def run(dev, n: int) -> None:
         "max_abs_err": max_abs,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-    }]}), flush=True)
+    }
+
+
+def max_err(got, want) -> tuple:
+    """(max |got - want|, that over max |want|)."""
+    max_abs = float((got - want).abs().max())
+    return max_abs, max_abs / float(want.abs().max())
+
+
+def run_fourstep(dev) -> list:
+    """Phases 8-13: the 4096^2 path through K2 + K3; returns their entries."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import gfx_ocean_tpu_torch as ot
+    from gfx_ocean_tpu_torch.golden.reference import golden_fields, golden_normals
+    from gfx_ocean_tpu_torch.ops import fourstep_step as fs
+    from gfx_ocean_tpu_torch.ops import fused_step
+    from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, finite_difference_normals_planes
+    from gfx_ocean_tpu_torch.utils.complexpair import from_pair_np
+    from gfx_ocean_tpu_torch.utils.profiling import time_rollout
+
+    cfg = ot.OceanConfig(resolution=FS_N, domain_size=2000.0, fft_impl="pallas",
+                         matmul_precision="high")
+    tier = fused_step.check_supported(cfg, FS_N)
+
+    def state_at(n: int):
+        return ot.ocean_state_from_phillips(dataclasses.replace(cfg, resolution=n),
+                                            ot.PhillipsConfig(),
+                                            generator=torch.Generator().manual_seed(0),
+                                            device=dev)
+
+    # --- 8. state -----------------------------------------------------------
+    state = state_at(FS_N)
+    phase("fourstep_state", source="phillips synthesize, torch.Generator seed 0",
+          resolution=FS_N, domain_size=cfg.domain_size, matmul_precision=cfg.matmul_precision,
+          h0_absmax=float(state.h0.abs().max()), omega_max=float(state.omega.max()))
+
+    # --- 9. kernel vs plain at 1024^2, 4096^2, 8192^2 -----------------------
+    errs = {}
+    for n, frames in FS_COMPARE:
+        c = dataclasses.replace(cfg, resolution=n)
+        st = state if n == FS_N else state_at(n)
+        inputs = fused_step.hoist_packed(st.h0, st.omega, c)
+        ts = torch.tensor(T_COMPARE[:frames], dtype=torch.float32, device=dev)
+        y = fs.launch_fourstep_row(inputs, ts, c)
+        y_want = fs.fourstep_row_reference(inputs, ts, c)
+        planes, partials = fs.launch_fourstep_col(y, inputs.twiddle, c, checksum=True)
+        torch.cuda.synchronize()
+        k2 = max_err(y, y_want)
+        k3 = max_err(planes, fs.fourstep_col_reference(y, c))
+        del y
+        want = fs.fourstep_col_reference(y_want, c)
+        del y_want
+        chained = max_err(planes, want)
+        summands = (want.abs().sum(dim=(-3, -2, -1))
+                    + finite_difference_normals_planes(want[:, 1], c.normal_height_scale)
+                    .abs().sum(dim=(-3, -2, -1)))
+        ck_rel = float(((partials.sum(dim=-1) - checksums_of_planes(want, c)).abs()
+                        / summands).max())
+        errs[n] = dict(k2=k2, k3=k3, chained=chained, checksum=ck_rel,
+                       summands_max=float(summands.max()))
+        phase("fourstep_kernel_vs_plain", resolution=n, frames=list(T_COMPARE[:frames]),
+              k2_y_max_abs=k2[0], k2_y_rel=k2[1], k3_planes_max_abs=k3[0],
+              k3_planes_rel=k3[1], planes_max_abs=chained[0], planes_rel=chained[1],
+              checksum_rel_to_summands=ck_rel, tolerance=TOL_KERNEL,
+              checksum_tolerance=TOL_CHECKSUM)
+        del inputs, planes, partials, want, summands
+        torch.cuda.empty_cache()
+        for what, rel in (("K2 Y", k2[1]), ("K3 planes", k3[1]), ("planes", chained[1])):
+            if not (rel <= TOL_KERNEL):
+                fail(f"{n}^2 kernel vs plain, {what}: {rel:.3e} > {TOL_KERNEL}")
+        if not (ck_rel <= TOL_CHECKSUM):
+            fail(f"{n}^2 kernel vs plain checksums: {ck_rel:.3e} > {TOL_CHECKSUM}")
+
+    # --- 10. golden gate ----------------------------------------------------
+    fields = ot.make_step(cfg)(state, T_CHECK)
+    disp = fields.displacement.cpu().numpy()
+    gold = golden_fields(from_pair_np(state.h0.cpu().numpy()), state.omega.cpu().numpy(),
+                         T_CHECK, cfg.domain_size, cfg.compat)
+    abs_linf = float(np.abs(disp - gold).max())
+    rel_linf = abs_linf / float(np.abs(gold).max())
+    nrm_linf = float(np.abs(fields.normals.cpu().numpy()
+                            - golden_normals(gold[..., 1], cfg.normal_height_scale)).max())
+    del fields, gold
+    phase("fourstep_golden", resolution=FS_N, t=T_CHECK, rel_linf=rel_linf, abs_linf=abs_linf,
+          normals_abs_linf=nrm_linf, gate="rel_linf", gate_limit=GOLDEN_GATE,
+          effective_precision=tier)
+    if not (np.isfinite(disp).all() and rel_linf <= GOLDEN_GATE):
+        fail(f"4096^2 golden gate: relative L-inf {rel_linf:.3e} > {GOLDEN_GATE}")
+    del disp
+
+    # --- 11. one call of K2, K3 and the step against the plain version ------
+    inputs = fused_step.hoist_packed(state.h0, state.omega, cfg)
+    one_call = {}
+    for tb in FS_TIME_BATCHES:
+        ts = torch.arange(tb, dtype=torch.float32, device=dev) / 60.0
+        y = fs.launch_fourstep_row(inputs, ts, cfg)
+        rec = dict(
+            k2_ms=event_ms(lambda: fs.launch_fourstep_row(inputs, ts, cfg), FS_TIMING_CALLS),
+            k3_ms=event_ms(lambda: fs.launch_fourstep_col(y, inputs.twiddle, cfg, checksum=True),
+                           FS_TIMING_CALLS),
+            step_ms=event_ms(lambda: fused_step.packed_checksums(inputs, ts, cfg),
+                             FS_TIMING_CALLS),
+            k2_plain_ms=event_ms(lambda: fs.fourstep_row_reference(inputs, ts, cfg),
+                                 FS_PLAIN_TIMING_CALLS),
+            k3_plain_ms=event_ms(lambda: checksums_of_planes(fs.fourstep_col_reference(y, cfg),
+                                                             cfg), FS_PLAIN_TIMING_CALLS),
+            step_plain_ms=event_ms(lambda: fs.fourstep_checksums_reference(inputs, ts, cfg),
+                                   FS_PLAIN_TIMING_CALLS))
+        one_call[tb] = rec
+        phase("fourstep_time_one_call", resolution=FS_N, frames=tb, calls=FS_TIMING_CALLS,
+              plain_calls=FS_PLAIN_TIMING_CALLS, clock="cuda events", **rec)
+        del y
+    torch.cuda.empty_cache()
+
+    # --- 12. rollouts -------------------------------------------------------
+    ts = torch.arange(FS_STEPS, dtype=torch.float32, device=dev) / 60.0
+    main_launches = None
+    for tb in FS_TIME_BATCHES:
+        rollout = ot.make_rollout(cfg, keep_fields=False, time_batch=tb)
+        fused_step.launch_packed_step.launches = 0
+        fs.launch_fourstep_row.launches = 0
+        fs.launch_fourstep_col.launches = 0
+        rec = time_rollout(rollout, state, ts, repeats=FS_REPEATS)
+        launches = dict(k1=fused_step.launch_packed_step.launches,
+                        k2=fs.launch_fourstep_row.launches,
+                        k3=fs.launch_fourstep_col.launches)
+        expected = (FS_REPEATS + 1) * FS_STEPS // tb
+
+        def plain_rollout(st, tt, tb=tb):
+            pre = fused_step.hoist_packed(st.h0, st.omega, cfg)
+            return torch.cat([fs.fourstep_checksums_reference(pre, tt[i:i + tb], cfg)
+                              for i in range(0, tt.shape[0], tb)])
+
+        plain = time_rollout(plain_rollout, state, ts, repeats=FS_REPEATS)
+        cks, plain_cks = rec["checksums"], plain["checksums"]
+        ck_diff = float(np.abs(cks - plain_cks).max())
+        ck_limit = TOL_CHECKSUM * errs[FS_N]["summands_max"]
+        phase("fourstep_rollout", resolution=FS_N, steps=FS_STEPS, time_batch=tb,
+              repeats=FS_REPEATS, steps_per_sec=rec["steps_per_sec"],
+              repeats_sec=rec["repeats_sec"], plain_steps_per_sec=plain["steps_per_sec"],
+              plain_repeats_sec=plain["repeats_sec"], launches=launches,
+              expected_launches=expected, checksums_finite=bool(np.isfinite(cks).all()),
+              checksum_max_abs_diff_vs_plain=ck_diff, checksum_limit=ck_limit,
+              checksum_first=float(cks[0]), checksum_last=float(cks[-1]))
+        if launches != dict(k1=0, k2=expected, k3=expected):
+            fail(f"4096^2 rollout at tb {tb} launched {launches}, expected {expected} of K2 and K3")
+        if cks.shape != (FS_STEPS,) or not np.isfinite(cks).all():
+            fail(f"4096^2 rollout checksums: shape {cks.shape}, "
+                 f"finite {bool(np.isfinite(cks).all())}")
+        if not (ck_diff <= ck_limit):
+            fail(f"4096^2 rollout checksums differ from the plain version by {ck_diff:.3e}")
+        if tb == 1:
+            main_launches = launches
+
+    # --- 13. device time by kernel -------------------------------------------
+    from torch.profiler import ProfilerActivity, profile
+
+    rollout = ot.make_rollout(cfg, keep_fields=False, time_batch=1)
+    ts_prof = ts[:FS_PROFILE_STEPS]
+    rollout(state, ts_prof).cpu()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rollout(state, ts_prof).cpu()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = sorted(((e.key, e.device_time_total / 1e3, e.count)
+                        for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA),
+                       key=lambda k: -k[1])
+    busy_ms = sum(ms for _, ms, _ in by_kernel)
+    phase("fourstep_profile", resolution=FS_N, frames=FS_PROFILE_STEPS, time_batch=1,
+          wall_ms=wall_ms, device_busy_ms=busy_ms,
+          kernels=[{"name": k[:90], "ms_per_frame": ms / FS_PROFILE_STEPS, "calls": cnt}
+                   for k, ms, cnt in by_kernel[:12]])
+
+    entries = []
+    for key, name, line, ms, plain_ms in (
+            ("k2", "K2 fourstep_row_pass (packed propagate + row FFT)", 614,
+             one_call[1]["k2_ms"], one_call[1]["k2_plain_ms"]),
+            ("k3", "K3 fourstep_col (column FFT in two stages, checksum partials)", 757,
+             one_call[1]["k3_ms"], one_call[1]["k3_plain_ms"])):
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "gfx_ocean_tpu_torch/csrc/fourstep_step.cu",
+            "replaces": f"gfx_ocean_tpu/ops/pallas_step.py:{line}",
+            "launches": main_launches[key],
+            "max_abs_err": errs[FS_N][key][0],
+            "ms": ms,
+            "plain_ms": plain_ms,
+        })
+    return entries
 
 
 if __name__ == "__main__":

@@ -1,0 +1,182 @@
+// Device code shared by the ocean-step kernels (packed_step.cu: K1,
+// fourstep_step.cu: K2 + K3): the Hermitian-packed propagate of one element
+// and the checksum partials. Each .cu includes it and builds into its own
+// library (gfx_ocean_tpu_torch/kernels.py hashes this header with each source).
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace ocean {
+
+// Cody-Waite 2*pi = C1 + C2 + C3 and pi/2 = P1 + P2 + P3 (ops/propagate.py).
+constexpr float kC1 = 0x1.92p+2f;
+constexpr float kC2 = 0x1.fb4p-10f;
+constexpr float kC3 = 0x1.4442d2p-22f;
+constexpr float kInv2Pi = 0x1.45f306p-3f;
+constexpr float kP1 = 0x1.92p+0f;
+constexpr float kP2 = 0x1.fb4p-12f;
+constexpr float kP3 = 0x1.4442d2p-24f;
+constexpr float kTwoOverPi = 0x1.45f306p-1f;
+// Cephes f32 minimax sin/cos on [-pi/4, pi/4].
+constexpr float kSS1 = -0x1.555546p-3f;
+constexpr float kSS2 = 0x1.11073cp-7f;
+constexpr float kSS3 = -0x1.9943f2p-13f;
+constexpr float kCC1 = 0x1.55554ap-5f;
+constexpr float kCC2 = -0x1.6c0c34p-10f;
+constexpr float kCC3 = 0x1.99eb9cp-16f;
+
+constexpr int kSumThreads = 256;
+
+// The propagate arithmetic is written with explicit round-to-nearest
+// intrinsics, which nvcc never contracts into an FMA. That matters for the
+// Dekker split: with c = a * 4097, a contracted c - (c - a) computes
+// fma(a, 4097, -a) exactly, which silently changes hi and lo and the phase.
+// Writing every step this way also keeps the operation order of the plain
+// version, so kernel and plain version differ only in the transform.
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+
+__device__ __forceinline__ void split12(float a, float& hi, float& lo) {
+  const float c = mul(a, 4097.0f);  // 2^12 + 1
+  hi = sub(c, sub(c, a));
+  lo = sub(a, hi);
+}
+
+// ops/propagate._phase_mod_2pi: omega * t mod 2 pi with the Dekker residual.
+__device__ __forceinline__ float phase_mod_2pi(float omega, float t) {
+  const float p = mul(omega, t);
+  float o_hi, o_lo, t_hi, t_lo;
+  split12(omega, o_hi, o_lo);
+  split12(t, t_hi, t_lo);
+  float err = sub(mul(o_hi, t_hi), p);
+  err = add(err, mul(o_hi, t_lo));
+  err = add(err, mul(o_lo, t_hi));
+  err = add(err, mul(o_lo, t_lo));
+  const float k = rintf(mul(p, kInv2Pi));  // half to even, as jnp.round / torch.round
+  float x = sub(p, mul(k, kC1));
+  x = sub(x, mul(k, kC2));
+  x = sub(x, mul(k, kC3));
+  return add(x, err);
+}
+
+// ops/propagate._sincos_phase: one exact quadrant step and a minimax pair.
+__device__ __forceinline__ void sincos_phase(float omega, float t, float& c, float& s) {
+  const float x = phase_mod_2pi(omega, t);
+  const float q = rintf(mul(x, kTwoOverPi));
+  float r = sub(x, mul(q, kP1));
+  r = sub(r, mul(q, kP2));
+  r = sub(r, mul(q, kP3));
+  const float r2 = mul(r, r);
+  const float ps = add(kSS1, mul(r2, add(kSS2, mul(r2, kSS3))));
+  const float sin_r = add(r, mul(mul(r, r2), ps));
+  const float pc = add(kCC1, mul(r2, add(kCC2, mul(r2, kCC3))));
+  const float cos_r = add(sub(1.0f, mul(0.5f, r2)), mul(mul(r2, r2), pc));
+  const int iq = static_cast<int>(q) & 3;  // two's complement: -1 & 3 == 3
+  const bool swap = (iq & 1) == 1;
+  const float s_base = swap ? cos_r : sin_r;
+  const float c_base = swap ? sin_r : cos_r;
+  s = (iq >= 2) ? -s_base : s_base;
+  c = (iq == 1 || iq == 2) ? -c_base : c_base;
+}
+
+// pallas_step._khat_pair_in_kernel's grids(): normalized centered
+// wavenumber at float indices (ix, iy). The uint32 wrap of Q1 is a float
+// add of 2^32; 1/sqrt is taken as two correctly rounded steps.
+__device__ __forceinline__ void khat(float ix, float iy, float np1, float scale,
+                                     bool wrap, float& khx, float& khy) {
+  float cx = sub(mul(2.0f, ix), np1);
+  float cy = sub(mul(2.0f, iy), np1);
+  if (wrap) {
+    if (cx < 0.0f) cx = add(cx, 4294967296.0f);
+    if (cy < 0.0f) cy = add(cy, 4294967296.0f);
+  }
+  const float kx = mul(cx, scale);
+  const float ky = mul(cy, scale);
+  const float q = add(mul(kx, kx), mul(ky, ky));
+  const float inv = q > 1.0e-20f ? __frcp_rn(__fsqrt_rn(q)) : 0.0f;
+  khx = mul(kx, inv);
+  khy = mul(ky, inv);
+}
+
+// The symmetrized height spectrum H = half (S + conj(S o rho)) and the packed
+// choppy spectrum Z = H_dx + i H_dz of one element.
+struct PackedSpectra {
+  float hr, hi, zr, zi;
+};
+
+// ops/propagate.packed_spectra for the element at flat index idx of the 10
+// hoisted planes (P1..P4 and their rho-gathered twins `plane` floats apart,
+// omega and omega o rho) at time t. (ix, iy) are the element's global
+// indices and (ixq, iyq) their images under rho; np1 = N + 1.
+__device__ __forceinline__ PackedSpectra packed_propagate(
+    const float* __restrict__ pre, const float* __restrict__ pre_rho,
+    const float* __restrict__ omega, const float* __restrict__ omega_rho,
+    size_t idx, size_t plane, float t, float ix, float iy, float ixq, float iyq,
+    float np1, float scale, bool wrap, float half) {
+  float c, s, cq, sq;
+  sincos_phase(omega[idx], t, c, s);
+  sincos_phase(omega_rho[idx], t, cq, sq);
+  const float sr = add(mul(c, pre[idx]), mul(s, pre[plane + idx]));           // S
+  const float si = add(mul(s, pre[2 * plane + idx]), mul(c, pre[3 * plane + idx]));
+  const float tr = add(mul(cq, pre_rho[idx]), mul(sq, pre_rho[plane + idx]));  // S o rho
+  const float ti = add(mul(sq, pre_rho[2 * plane + idx]), mul(cq, pre_rho[3 * plane + idx]));
+  float khx, khy, khxq, khyq;
+  khat(ix, iy, np1, scale, wrap, khx, khy);
+  khat(ixq, iyq, np1, scale, wrap, khxq, khyq);
+  const float dx_r = mul(half, add(mul(khx, si), mul(khxq, ti)));
+  const float dx_i = mul(half, sub(mul(khxq, tr), mul(khx, sr)));
+  const float dz_r = mul(half, add(mul(khy, si), mul(khyq, ti)));
+  const float dz_i = mul(half, sub(mul(khyq, tr), mul(khy, sr)));
+  PackedSpectra p;
+  p.hr = mul(half, add(sr, tr));
+  p.hi = mul(half, sub(si, ti));
+  p.zr = sub(dx_r, dz_i);  // Z = H_dx + i H_dz
+  p.zi = add(dx_i, dz_r);
+  return p;
+}
+
+// pallas_step._normals_checksum_terms summed with the three planes of
+// out (tb, 3, n, n): one block per (`rows` rows, frame), reduced in a fixed
+// tree order to one partial per block, written to partials (tb, gridDim.x).
+// The caller sums the partials; no float atomics. Neighbours wrap
+// periodically in both axes, so it is right for any n.
+__global__ void __launch_bounds__(kSumThreads) checksum_partials(
+    const float* __restrict__ out, int n, int rows, float hs, int with_normals,
+    float* __restrict__ partials) {
+  __shared__ float red[kSumThreads];
+  const int r0 = blockIdx.x * rows;
+  const int frame = blockIdx.y;
+  const size_t nn = static_cast<size_t>(n) * n;
+  const float* of = out + static_cast<size_t>(frame) * 3 * nn;
+  const float* h = of + nn;
+  const float diff = 2.0f / static_cast<float>(n);
+  float acc = 0.0f;
+  for (int i = threadIdx.x; i < rows * n; i += blockDim.x) {
+    const int r = r0 + i / n;
+    const int x = i % n;
+    const size_t o = static_cast<size_t>(r) * n + x;
+    acc += of[o] + h[o] + of[2 * nn + o];
+    if (with_normals) {
+      const size_t rowo = static_cast<size_t>(r) * n;
+      const float x0 = h[rowo + (x == 0 ? n - 1 : x - 1)];
+      const float x1 = h[rowo + (x == n - 1 ? 0 : x + 1)];
+      const float z0 = h[static_cast<size_t>(r == 0 ? n - 1 : r - 1) * n + x];
+      const float z1 = h[static_cast<size_t>(r == n - 1 ? 0 : r + 1) * n + x];
+      const float cx = ((x1 - x0) / hs) * diff;
+      const float cz = -diff * ((z1 - z0) / hs);
+      const float cy = diff * diff;
+      acc += (cx + cy + cz) / sqrtf(cx * cx + cy * cy + cz * cz);
+    }
+  }
+  red[threadIdx.x] = acc;
+  __syncthreads();
+  for (int s = kSumThreads / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) partials[static_cast<size_t>(frame) * gridDim.x + blockIdx.x] = red[0];
+}
+
+}  // namespace ocean

@@ -12,11 +12,13 @@
 //   packed_col_pass          one block per (8 columns, frame): the
 //                            y-transform of H and Z read back from Y; writes
 //                            (tb, 3, N, N) = (disp_x, height, disp_z).
-//   packed_checksum_partials one block per (4 rows, frame): sum of the three
+//   checksum_partials        one block per (4 rows, frame): sum of the three
 //                            planes plus the normal-map terms, reduced in a
 //                            fixed tree order to one partial per block. The
 //                            caller sums the partials; no float atomics.
 //
+// The propagate arithmetic and checksum_partials live in ocean_common.cuh,
+// shared with K2 + K3 (fourstep_step.cu).
 // The TPU kernel's column pass ran at the last step of a sequential grid off a
 // scratch every earlier step filled. Blocks on the card run in no order, so
 // the two passes are two launches and Y goes through device memory.
@@ -37,101 +39,15 @@
 
 #include <cuda_runtime.h>
 
+#include "ocean_common.cuh"
+
 namespace {
+
+using ocean::sub;
 
 constexpr int kMaxN = 512;
 constexpr int kColCols = 8;       // columns per column-pass block: one 32 B sector a row
 constexpr int kColThreads = 256;
-constexpr int kSumThreads = 256;
-
-// Cody-Waite 2*pi = C1 + C2 + C3 and pi/2 = P1 + P2 + P3 (ops/propagate.py).
-constexpr float kC1 = 0x1.92p+2f;
-constexpr float kC2 = 0x1.fb4p-10f;
-constexpr float kC3 = 0x1.4442d2p-22f;
-constexpr float kInv2Pi = 0x1.45f306p-3f;
-constexpr float kP1 = 0x1.92p+0f;
-constexpr float kP2 = 0x1.fb4p-12f;
-constexpr float kP3 = 0x1.4442d2p-24f;
-constexpr float kTwoOverPi = 0x1.45f306p-1f;
-// Cephes f32 minimax sin/cos on [-pi/4, pi/4].
-constexpr float kSS1 = -0x1.555546p-3f;
-constexpr float kSS2 = 0x1.11073cp-7f;
-constexpr float kSS3 = -0x1.9943f2p-13f;
-constexpr float kCC1 = 0x1.55554ap-5f;
-constexpr float kCC2 = -0x1.6c0c34p-10f;
-constexpr float kCC3 = 0x1.99eb9cp-16f;
-
-// The propagate arithmetic is written with explicit round-to-nearest
-// intrinsics, which nvcc never contracts into an FMA. That matters for the
-// Dekker split: with c = a * 4097, a contracted c - (c - a) computes
-// fma(a, 4097, -a) exactly, which silently changes hi and lo and the phase.
-// Writing every step this way also keeps the operation order of the plain
-// version, so kernel and plain version differ only in the transform.
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-
-__device__ __forceinline__ void split12(float a, float& hi, float& lo) {
-  const float c = mul(a, 4097.0f);  // 2^12 + 1
-  hi = sub(c, sub(c, a));
-  lo = sub(a, hi);
-}
-
-// ops/propagate._phase_mod_2pi: omega * t mod 2 pi with the Dekker residual.
-__device__ __forceinline__ float phase_mod_2pi(float omega, float t) {
-  const float p = mul(omega, t);
-  float o_hi, o_lo, t_hi, t_lo;
-  split12(omega, o_hi, o_lo);
-  split12(t, t_hi, t_lo);
-  float err = sub(mul(o_hi, t_hi), p);
-  err = add(err, mul(o_hi, t_lo));
-  err = add(err, mul(o_lo, t_hi));
-  err = add(err, mul(o_lo, t_lo));
-  const float k = rintf(mul(p, kInv2Pi));  // half to even, as jnp.round / torch.round
-  float x = sub(p, mul(k, kC1));
-  x = sub(x, mul(k, kC2));
-  x = sub(x, mul(k, kC3));
-  return add(x, err);
-}
-
-// ops/propagate._sincos_phase: one exact quadrant step and a minimax pair.
-__device__ __forceinline__ void sincos_phase(float omega, float t, float& c, float& s) {
-  const float x = phase_mod_2pi(omega, t);
-  const float q = rintf(mul(x, kTwoOverPi));
-  float r = sub(x, mul(q, kP1));
-  r = sub(r, mul(q, kP2));
-  r = sub(r, mul(q, kP3));
-  const float r2 = mul(r, r);
-  const float ps = add(kSS1, mul(r2, add(kSS2, mul(r2, kSS3))));
-  const float sin_r = add(r, mul(mul(r, r2), ps));
-  const float pc = add(kCC1, mul(r2, add(kCC2, mul(r2, kCC3))));
-  const float cos_r = add(sub(1.0f, mul(0.5f, r2)), mul(mul(r2, r2), pc));
-  const int iq = static_cast<int>(q) & 3;  // two's complement: -1 & 3 == 3
-  const bool swap = (iq & 1) == 1;
-  const float s_base = swap ? cos_r : sin_r;
-  const float c_base = swap ? sin_r : cos_r;
-  s = (iq >= 2) ? -s_base : s_base;
-  c = (iq == 1 || iq == 2) ? -c_base : c_base;
-}
-
-// pallas_step._khat_pair_in_kernel's grids(): normalized centered
-// wavenumber at float indices (ix, iy). The uint32 wrap of Q1 is a float
-// add of 2^32; 1/sqrt is taken as two correctly rounded steps.
-__device__ __forceinline__ void khat(float ix, float iy, float np1, float scale,
-                                     bool wrap, float& khx, float& khy) {
-  float cx = sub(mul(2.0f, ix), np1);
-  float cy = sub(mul(2.0f, iy), np1);
-  if (wrap) {
-    if (cx < 0.0f) cx = add(cx, 4294967296.0f);
-    if (cy < 0.0f) cy = add(cy, 4294967296.0f);
-  }
-  const float kx = mul(cx, scale);
-  const float ky = mul(cy, scale);
-  const float q = add(mul(kx, kx), mul(ky, ky));
-  const float inv = q > 1.0e-20f ? __frcp_rn(__fsqrt_rn(q)) : 0.0f;
-  khx = mul(kx, inv);
-  khy = mul(ky, inv);
-}
 
 // One radix-2 Stockham stage (decimation in frequency, natural order out):
 // for len = n >> s_log, m = len / 2, stride = 1 << s_log and butterfly
@@ -184,27 +100,15 @@ __global__ void __launch_bounds__(kMaxN / 2) packed_row_pass(
   float* dst = smem + 4 * n;
 
   for (int x = threadIdx.x; x < n; x += blockDim.x) {
-    const size_t idx = static_cast<size_t>(row) * n + x;
-    float c, s, cq, sq;
-    sincos_phase(omega[idx], t, c, s);
-    sincos_phase(omega_rho[idx], t, cq, sq);
-    const float sr = add(mul(c, pre[idx]), mul(s, pre[nn + idx]));           // S
-    const float si = add(mul(s, pre[2 * nn + idx]), mul(c, pre[3 * nn + idx]));
-    const float tr = add(mul(cq, pre_rho[idx]), mul(sq, pre_rho[nn + idx]));  // S o rho
-    const float ti = add(mul(sq, pre_rho[2 * nn + idx]), mul(cq, pre_rho[3 * nn + idx]));
     const float ix = static_cast<float>(x);
     const float ixq = x == 0 ? 0.0f : sub(fn, ix);
-    float khx, khy, khxq, khyq;
-    khat(ix, iy, np1, scale, wrap, khx, khy);
-    khat(ixq, iyq, np1, scale, wrap, khxq, khyq);
-    const float dx_r = mul(half, add(mul(khx, si), mul(khxq, ti)));
-    const float dx_i = mul(half, sub(mul(khxq, tr), mul(khx, sr)));
-    const float dz_r = mul(half, add(mul(khy, si), mul(khyq, ti)));
-    const float dz_i = mul(half, sub(mul(khyq, tr), mul(khy, sr)));
-    src[x] = mul(half, add(sr, tr));      // Re H
-    src[n + x] = mul(half, sub(si, ti));  // Im H
-    src[2 * n + x] = sub(dx_r, dz_i);     // Re Z, Z = H_dx + i H_dz
-    src[3 * n + x] = add(dx_i, dz_r);     // Im Z
+    const ocean::PackedSpectra p = ocean::packed_propagate(
+        pre, pre_rho, omega, omega_rho, static_cast<size_t>(row) * n + x, nn, t,
+        ix, iy, ixq, iyq, np1, scale, wrap, half);
+    src[x] = p.hr;
+    src[n + x] = p.hi;
+    src[2 * n + x] = p.zr;
+    src[3 * n + x] = p.zi;
   }
   __syncthreads();
 
@@ -284,44 +188,6 @@ __global__ void __launch_bounds__(kColThreads) packed_col_pass(
   }
 }
 
-// pallas_step._normals_checksum_terms summed with the three planes.
-__global__ void __launch_bounds__(kSumThreads) packed_checksum_partials(
-    const float* __restrict__ out, int n, int rows, float hs, int with_normals,
-    float* __restrict__ partials) {
-  __shared__ float red[kSumThreads];
-  const int r0 = blockIdx.x * rows;
-  const int frame = blockIdx.y;
-  const size_t nn = static_cast<size_t>(n) * n;
-  const float* of = out + static_cast<size_t>(frame) * 3 * nn;
-  const float* h = of + nn;
-  const float diff = 2.0f / static_cast<float>(n);
-  float acc = 0.0f;
-  for (int i = threadIdx.x; i < rows * n; i += blockDim.x) {
-    const int r = r0 + i / n;
-    const int x = i % n;
-    const size_t o = static_cast<size_t>(r) * n + x;
-    acc += of[o] + h[o] + of[2 * nn + o];
-    if (with_normals) {
-      const size_t rowo = static_cast<size_t>(r) * n;
-      const float x0 = h[rowo + (x == 0 ? n - 1 : x - 1)];
-      const float x1 = h[rowo + (x == n - 1 ? 0 : x + 1)];
-      const float z0 = h[static_cast<size_t>(r == 0 ? n - 1 : r - 1) * n + x];
-      const float z1 = h[static_cast<size_t>(r == n - 1 ? 0 : r + 1) * n + x];
-      const float cx = ((x1 - x0) / hs) * diff;
-      const float cz = -diff * ((z1 - z0) / hs);
-      const float cy = diff * diff;
-      acc += (cx + cy + cz) / sqrtf(cx * cx + cy * cy + cz * cz);
-    }
-  }
-  red[threadIdx.x] = acc;
-  __syncthreads();
-  for (int s = kSumThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) partials[static_cast<size_t>(frame) * gridDim.x + blockIdx.x] = red[0];
-}
-
 }  // namespace
 
 extern "C" {
@@ -359,7 +225,7 @@ int packed_step(const float* pre, const float* pre_rho, const float* omega,
   if (err != cudaSuccess) return static_cast<int>(err);
 
   if (partials != nullptr) {
-    packed_checksum_partials<<<dim3(n / ck_rows, tb), kSumThreads, 0, st>>>(
+    ocean::checksum_partials<<<dim3(n / ck_rows, tb), ocean::kSumThreads, 0, st>>>(
         out, n, ck_rows, normals_scale, with_normals, partials);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and becomes
 ``build/kernels/lib<name>_<hash>.so`` at the repository root on first use:
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``.
-The hash of the source is in the file name, so an edited source is rebuilt
-and a stale library is never loaded. The compiler's output (``-Xptxas -v``:
+The hash of the source together with every shared header ``csrc/*.cuh`` is
+in the file name, so an edited source or header is rebuilt and a stale
+library is never loaded. The compiler's output (``-Xptxas -v``:
 registers, shared memory and spills a kernel) is kept beside the library as
 ``lib<name>_<hash>.log``.
 
@@ -21,7 +22,9 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -37,6 +40,11 @@ SIGNATURES = {
         "packed_step": ([_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _F,
                          _P, _P, _P, _I, _F, _I, _P], _I),
         "packed_step_error_string": ([_I], ctypes.c_char_p),
+    },
+    "fourstep_step": {
+        "fourstep_row": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P], _I),
+        "fourstep_col": ([_P, _P, _P, _I, _I, _I, _F, _P, _P, _I, _F, _I, _P], _I),
+        "fourstep_error_string": ([_I], ctypes.c_char_p),
     },
 }
 
@@ -54,9 +62,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is built to, keyed by the source's hash."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """Where ``csrc/<name>.cu`` is built to, keyed by the hash of the source
+    and of every ``csrc/*.cuh`` it may include."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> Path:
@@ -79,6 +91,12 @@ def build(name: str) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return so
+
+
+def build_all(names: Sequence[str]) -> Dict[str, Path]:
+    """Build several libraries at once, one nvcc process each."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 @functools.lru_cache(maxsize=None)

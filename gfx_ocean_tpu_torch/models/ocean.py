@@ -6,15 +6,18 @@ computed directly from h0 and the absolute time t.
 
 Routes through ``step`` / ``make_rollout``, by ``config.fft_impl``:
 
-- "pallas": kernel K1 (``ops/fused_step.py``): the hand-written CUDA
-  kernels for CUDA tensors, their plain PyTorch version for CPU tensors.
-- "matmul": the PyTorch direct-DFT matmul path (``ops/fft.py``), packed or
-  unpacked by ``config.hermitian_pack``.
+- "pallas": the fused step (``ops/fused_step.py``), routed by N as
+  ``pallas_planes`` routes it: kernel K1 for N <= 512, kernels K2 + K3
+  (``ops/fourstep_step.py``) for 1024 <= N <= 8192 whatever
+  ``hermitian_pack`` says. The hand-written CUDA kernels run for CUDA
+  tensors, their plain PyTorch version for CPU tensors.
+- "matmul": the PyTorch matmul DFT (``ops/fft.py``; the four-step split
+  above ``direct_dft_max``), packed or unpacked by ``config.hermitian_pack``.
 
 Not ported yet, and raising ``NotImplementedError``: "pallas" with
-``hermitian_pack=False`` (K4/K5/K6) or N > 512 (K2/K3), "xla", foam and
-cascades. ``time_batch`` frames run as one batch axis; the hoisted
-propagate planes are computed once per rollout call.
+``hermitian_pack=False`` at N <= 512 (K4/K5/K6) or at N = 16384, "xla",
+foam and cascades. ``time_batch`` frames run as one batch axis; the
+hoisted inputs are computed once per rollout call.
 """
 
 from __future__ import annotations
@@ -148,8 +151,9 @@ def make_rollout(config: OceanConfig, keep_fields: bool = True, time_batch: int 
     displacement planes plus sum of the normals), which keeps the output
     O(steps). Frames run ``time_batch`` at a time as one batch axis;
     ``len(ts)`` must be a multiple of it. On the "pallas" route the
-    checksum is reduced by K1's checksum kernel from the plane-major
-    planes. The checksums stay on the state's device.
+    checksum is reduced by the fused kernels' checksum pass (K1's, or
+    K3's above 512) from the plane-major planes. The checksums stay on the
+    state's device.
     """
     if time_batch < 1:
         raise ValueError(f"time_batch must be >= 1, got {time_batch}")

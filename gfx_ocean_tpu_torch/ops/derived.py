@@ -6,7 +6,11 @@ Counterpart of ``gfx_ocean_tpu/ops/derived.py:54-101``. Foam
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from gfx_ocean_tpu_torch.config import OceanConfig
 
 
 def finite_difference_normals_planes(
@@ -42,3 +46,18 @@ def finite_difference_normals(height: torch.Tensor,
     """Central-difference normal map, channel-last (..., N, N, 3)."""
     return torch.movedim(
         finite_difference_normals_planes(height, height_scale), -3, -1)
+
+
+def normals_scale(config: OceanConfig) -> Optional[float]:
+    """The normals' height scale when the config computes normals, else None."""
+    return float(config.normal_height_scale) if config.compute_normals else None
+
+
+def checksums_of_planes(planes: torch.Tensor, config: OceanConfig) -> torch.Tensor:
+    """Per-frame sum(planes) [+ sum(normal terms)] of (tb, 3, N, N) planes."""
+    sums = planes.sum(dim=(-3, -2, -1))
+    scale = normals_scale(config)
+    if scale is not None:
+        normals = finite_difference_normals_planes(planes[:, 1], scale)
+        sums = sums + normals.sum(dim=(-3, -2, -1))
+    return sums

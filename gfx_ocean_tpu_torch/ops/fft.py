@@ -1,17 +1,19 @@
 """Unnormalized inverse 2-D DFT on (re, im) planes, in PyTorch.
 
-Counterpart of ``gfx_ocean_tpu/ops/fft.py:185-281, 452-526``. The reference
+Counterpart of ``gfx_ocean_tpu/ops/fft.py:185-333, 393-526``. The reference
 computes ``y[n] = sum_k x[k] e^{+2 pi i n k / N}`` with no 1/N factor
 (SURVEY.md Q3). Here, as in the JAX package's "matmul" route, a transform
 of N <= ``direct_max`` points is a dense matmul against a DFT table built
-in float64 on the host and rounded once to float32. The (-1)^(x+y)
-correction sign and the reference's global Q2 flip are folded into the
-output side of the tables, so the correction pass costs nothing.
+in float64 on the host and rounded once to float32; above ``direct_max``
+it is the four-step split N = N1 N2 (``_foursteps_last``): a small DFT
+matmul, a twiddle, a small DFT matmul. The (-1)^(x+y) correction sign and
+the reference's global Q2 flip are folded into the output side of the
+tables, so the correction pass costs nothing.
 
-Not ported yet (ROADMAP.md queue 1, "ops/fft.py"): the four-step split for
-N > ``direct_max``, ``impl="xla"``, and tensor-core precision schemes.
-Every named tier runs as plain FP32 (``torch.matmul`` with TF32 off),
-which is at least as exact as each of them; ``effective_precision`` says so.
+Not ported yet (ROADMAP.md queue 1, "ops/fft.py"): ``impl="xla"`` and
+tensor-core precision schemes. Every named tier runs as plain FP32
+(``torch.matmul`` with TF32 off), which is at least as exact as each of
+them; ``effective_precision`` says so.
 """
 
 from __future__ import annotations
@@ -93,25 +95,28 @@ def _dft_matrix_out_alt_np(n: int, sign: int, axis: int,
     return wr * alt[:, None], wi * alt[:, None]
 
 
+def _split(n: int) -> Tuple[int, int]:
+    """Balanced N = N1 * N2 split with both factors powers of two."""
+    log = n.bit_length() - 1
+    l1 = log // 2
+    return 1 << l1, 1 << (log - l1)
+
+
 def _table(pair: Tuple[np.ndarray, np.ndarray],
            device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     return tuple(torch.from_numpy(a).to(device) for a in pair)
 
 
 # --------------------------------------------------------------------------
-# Plane-pair transforms (direct DFT only).
+# Plane-pair transforms.
 # --------------------------------------------------------------------------
 
-def _check_impl(impl: str, n: int, direct_max: int, precision: str) -> None:
+def _check_impl(impl: str, precision: str) -> None:
     if impl == "xla":
         raise NotImplementedError(
             'impl="xla" is not ported yet (ROADMAP.md queue 1, "ops/fft.py")')
     if impl != "matmul":
         raise ValueError(f"unknown impl {impl!r}")
-    if n > direct_max:
-        raise NotImplementedError(
-            f"N={n} > direct_max={direct_max} needs the four-step split, which is "
-            'not ported yet (ROADMAP.md queue 1, "ops/fft.py")')
     effective_precision(precision)
 
 
@@ -121,18 +126,78 @@ def _fold(centered: Optional[str]) -> Tuple[bool, bool]:
     return centered is not None, centered == "ref"
 
 
-def _row_pass(xr: torch.Tensor, xi: torch.Tensor, fold: bool):
-    """Complex DFT along the last axis, Y = X @ W, the x-half of the
-    centering sign folded into the output index."""
+def _direct_last(xr: torch.Tensor, xi: torch.Tensor, real_out: bool,
+                 out_alt: bool = False, negate: bool = False):
+    """Dense DFT along the last axis, Y = X @ W; ``out_alt`` folds
+    (-1)^(output index) into W, ``negate`` flips the global sign."""
     n = xr.shape[-1]
-    pair = _dft_matrix_out_alt_np(n, 1, 1, False) if fold else _dft_matrix_np(n, 1)
+    pair = (_dft_matrix_out_alt_np(n, 1, 1, negate) if out_alt
+            else _dft_matrix_np(n, 1))
     wr, wi = _table(pair, xr.device)
-    return xr @ wr - xi @ wi, xr @ wi + xi @ wr
+    yr = xr @ wr - xi @ wi
+    return yr, None if real_out else xr @ wi + xi @ wr
 
 
-def _col_table(m: int, fold: bool, negate: bool, device: torch.device):
-    pair = _dft_matrix_out_alt_np(m, 1, 0, negate) if fold else _dft_matrix_np(m, 1)
-    return _table(pair, device)
+def _foursteps_last(xr: torch.Tensor, xi: torch.Tensor, real_out: bool,
+                    out_alt: bool = False, negate: bool = False):
+    """Four-step split along the last axis: O(N (N1 + N2)) as batched matmuls.
+
+    With k = N2 k1 + k2 and n = n1 + N1 n2:
+      y[n1 + N1 n2] = sum_k2 W_N[n1 k2] (sum_k1 X[k1, k2] W_N1[n1 k1]) W_N2[n2 k2].
+    ``out_alt`` folds (-1)^n = (-1)^n1 (N1 even) into the rows of W1."""
+    n = xr.shape[-1]
+    n1, n2 = _split(n)
+    batch = xr.shape[:-1]
+    xr = xr.reshape(*batch, n1, n2)  # X[k1, k2]
+    xi = xi.reshape(*batch, n1, n2)
+    dev = xr.device
+    w1r, w1i = _table(_dft_matrix_out_alt_np(n1, 1, 0, negate) if out_alt
+                      else _dft_matrix_np(n1, 1), dev)
+    w2r, w2i = _table(_dft_matrix_np(n2, 1), dev)
+    tr, ti = _table(_twiddle_np(n1, n2, 1), dev)
+    ar = w1r @ xr - w1i @ xi
+    ai = w1r @ xi + w1i @ xr
+    br = ar * tr - ai * ti
+    bi = ar * ti + ai * tr
+    # Y = B @ W2^T over k2, then y_flat[n1 + N1 n2] = Y[n1, n2].
+    yr = (br @ w2r.T - bi @ w2i.T).transpose(-1, -2).reshape(*batch, n)
+    if real_out:
+        return yr, None
+    yi = (br @ w2i.T + bi @ w2r.T).transpose(-1, -2).reshape(*batch, n)
+    return yr, yi
+
+
+def row_pass_complex(xr: torch.Tensor, xi: torch.Tensor, direct_max: int, fold: bool):
+    """Complex DFT along the last axis, the x-half of the centering sign
+    optionally folded into the output table."""
+    last = _direct_last if xr.shape[-1] <= direct_max else _foursteps_last
+    return last(xr, xi, real_out=False, out_alt=fold)
+
+
+def _col_pass(ar: torch.Tensor, ai: torch.Tensor, direct_max: int, fold: bool,
+              negate: bool, real_out: bool):
+    m = ar.shape[-2]
+    if m <= direct_max:
+        pair = _dft_matrix_out_alt_np(m, 1, 0, negate) if fold else _dft_matrix_np(m, 1)
+        wr, wi = _table(pair, ar.device)
+        yr = wr @ ar - wi @ ai
+        return yr, None if real_out else wr @ ai + wi @ ar
+    yr, yi = _foursteps_last(ar.transpose(-1, -2), ai.transpose(-1, -2), real_out,
+                             out_alt=fold, negate=negate)
+    return yr.transpose(-1, -2), None if real_out else yi.transpose(-1, -2)
+
+
+def col_pass_real(ar: torch.Tensor, ai: torch.Tensor, direct_max: int, fold: bool,
+                  negate: bool) -> torch.Tensor:
+    """Real-output DFT along axis -2; folds the y-half of the centering sign
+    and the reference's global Q2 flip (``negate``)."""
+    return _col_pass(ar, ai, direct_max, fold, negate, real_out=True)[0]
+
+
+def col_pass_complex(ar: torch.Tensor, ai: torch.Tensor, direct_max: int, fold: bool,
+                     negate: bool):
+    """Complex-output DFT along axis -2, the twin of :func:`col_pass_real`."""
+    return _col_pass(ar, ai, direct_max, fold, negate, real_out=False)
 
 
 def ifft2_real_unnorm(
@@ -150,11 +215,10 @@ def ifft2_real_unnorm(
     tables; None is the plain transform.
     """
     fold, negate = _fold(centered)
-    _check_impl(impl, max(xr.shape[-2:]), direct_max, precision)
+    _check_impl(impl, precision)
     pin_fp32_matmul(xr)
-    ar, ai = _row_pass(xr, xi, fold)
-    wr, wi = _col_table(xr.shape[-2], fold, negate, xr.device)
-    return wr @ ar - wi @ ai
+    ar, ai = row_pass_complex(xr, xi, direct_max, fold)
+    return col_pass_real(ar, ai, direct_max, fold, negate)
 
 
 def ifft2_planes_unnorm(
@@ -168,8 +232,7 @@ def ifft2_planes_unnorm(
     """Both planes of the unnormalized 2-D inverse DFT (the complex-output
     twin of :func:`ifft2_real_unnorm`, used under Hermitian field packing)."""
     fold, negate = _fold(centered)
-    _check_impl(impl, max(xr.shape[-2:]), direct_max, precision)
+    _check_impl(impl, precision)
     pin_fp32_matmul(xr)
-    ar, ai = _row_pass(xr, xi, fold)
-    wr, wi = _col_table(xr.shape[-2], fold, negate, xr.device)
-    return wr @ ar - wi @ ai, wr @ ai + wi @ ar
+    ar, ai = row_pass_complex(xr, xi, direct_max, fold)
+    return col_pass_complex(ar, ai, direct_max, fold, negate)

@@ -1,0 +1,378 @@
+"""The four-step ocean step for 1024 <= N <= 8192 (kernels K2 + K3) on the card.
+
+Counterpart of the four-step half of ``gfx_ocean_tpu/ops/pallas_step.py``
+(``:568-1192``). K2 replaces ``_fourstep_row_kernel`` (launched by
+``_fourstep_row_call``), K3 ``_fourstep_col_kernel`` (``_fourstep_col_call``).
+Per frame:
+
+- K2, the row pass: the packed propagate of ``ops/propagate.packed_spectra``
+  with ``half = +0.5`` (unlike K1, the Q2 flip is not folded here), then the
+  complex x-transform of H and Z with (-1)^x folded in. Its contract is
+  Y (tb, 2, 2, rows, N) = ((Re, Im) of F_x(H), (Re, Im) of F_x(Z)) in true
+  x order, on ``rows`` rows from the global row ``row_base`` (0 on one
+  device; the row-sharded caller of ``parallel/distributed_fft.py`` passes
+  its band's base).
+- K3, the column pass: the y-transform of Y with (-1)^y and the Q2 flip
+  folded in: (tb, 3, N, C) = (disp_x, height, disp_z), height = Re F(H),
+  disp_x / disp_z = Re / Im F(Z); optionally the forcing checksum.
+
+The JAX kernels read x-permuted planes so that stage 1 is a free view on
+the MXU (``_fourstep_permute_inputs``); that is a TPU layout device. Here
+both the plain version and the kernels read K1's hoisted planes in true
+order, and the contract is pinned in true order.
+
+Two implementations sit side by side:
+
+- ``fourstep_row_reference`` / ``fourstep_col_reference``: the plain
+  PyTorch version, matmuls against the same stacked tables as the JAX
+  kernels (``fourstep_tables``: W1cat, the twiddle, W2cat or its block
+  diagonal, W2top), FP32 with TF32 off. A dense N-point DFT table would
+  cost ~2 TFLOP a frame at 4096^2; the factored tables ~0.1.
+- ``launch_fourstep_row`` / ``launch_fourstep_col``: the hand-written CUDA
+  kernels of ``csrc/fourstep_step.cu`` (radix-4 FFTs in shared memory; the
+  column transform split 128 x N/128 with one device-memory round trip).
+
+``fourstep_planes`` / ``fourstep_checksums`` pick by where the tensors lie:
+CPU tensors take the plain version, CUDA tensors launch the kernels or
+raise. Nothing falls back. N = 16384 raises ``NotImplementedError``: K2's
+row of 4 N floats does not fit one block's shared memory there.
+
+What bounds K2 + K3 on the H100 at 4096^2 (tb = 1): ~2 GB of device memory
+traffic a frame (671 MB of hoisted planes, Y and the column pass's scratch
+each written and read once, the planes written and read by the checksum)
+against ~5 GFLOP, so bandwidth; ``PERF.md`` has the measured split.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from gfx_ocean_tpu_torch.config import OceanConfig
+from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, normals_scale
+from gfx_ocean_tpu_torch.ops.fft import (_dft_matrix_np, _dft_matrix_out_alt_np,
+                                         _twiddle_np, effective_precision,
+                                         pin_fp32_matmul)
+from gfx_ocean_tpu_torch.ops.propagate import (_f32, as_times, packed_spectra,
+                                               precompute_propagate_packed)
+
+MIN_N = 1024
+# Largest N the kernels take; 16384 is ROADMAP.md queue 2, "K2 + K3 at 16384".
+MAX_KERNEL_N = 8192
+# Rows of the output reduced by one block of the checksum kernel.
+CHECKSUM_ROWS = 4
+# Columns per K3 block (csrc/fourstep_step.cu, kColCols).
+COL_BAND = 32
+
+
+class FourstepInputs(NamedTuple):
+    """Per-rollout hoisted inputs of K2 + K3 (all float32, one device):
+    K1's planes, in true x order, on ``rows`` rows of the grid."""
+
+    pre: torch.Tensor        # (4, rows, N) P1..P4
+    pre_rho: torch.Tensor    # (4, rows, N) rho-gathered P1..P4
+    omega: torch.Tensor      # (rows, N)
+    omega_rho: torch.Tensor  # (rows, N) rho-gathered omega
+    twiddle: torch.Tensor    # (2, N/2) cos, sin of 2 pi k / N: the kernels' table
+
+
+def fourstep_plan(n: int, config: OceanConfig) -> Tuple[int, int, int, int]:
+    """(n1, n2, row band, column band) of ``pallas_step._fourstep_plan``.
+
+    The same split and the same ``ValueError`` outside [1024, 16384]; the
+    TPU's HBM warning at 16384 does not apply to an 80 GB card. The bands
+    are the TPU kernels' block sizes, kept for the record: the CUDA kernels
+    choose their own."""
+    n1 = 128
+    n2 = n // n1
+    block, cblock = 16, 128
+    if n % block or n % cblock or n2 < 8 or n2 > 128:
+        raise ValueError(
+            f"four-step pallas pipeline supports N in [1024, 16384], got {n}")
+    return n1, n2, block, cblock
+
+
+def check_supported(config: OceanConfig, n: int) -> str:
+    """Raise for grids the four-step route does not cover; return the tier."""
+    fourstep_plan(n, config)
+    if n > MAX_KERNEL_N:
+        raise NotImplementedError(
+            f"N={n} > {MAX_KERNEL_N} on the four-step route is not ported yet: "
+            "K2's row does not fit one block's shared memory "
+            "(ROADMAP.md queue 2, K2 + K3 at 16384)")
+    return effective_precision(config.matmul_precision)
+
+
+def _cat_complex_np(wr, wi):
+    """[[Wr, -Wi], [Wi, Wr]]: one stacked real matmul = a complex matmul
+    (``pallas_step._cat_complex_np``). Block rows select the (re, im)
+    output, block columns the (re, im) contraction operand."""
+    return np.concatenate([np.concatenate([wr, -wi], axis=1),
+                           np.concatenate([wi, wr], axis=1)], axis=0)
+
+
+@functools.lru_cache(maxsize=None)
+def fourstep_tables(n: int, n1: int, n2: int, negate: bool):
+    """Numpy copy of ``pallas_step._fourstep_tables``.
+
+    Row: (W1cat (2n1, 2n1), stage-2 table, Ttr, Tti (n2, n1)); col: (W1cat
+    with (-1)^n1 and the Q2 flip when ``negate``, stage-2 table, W2top
+    (n2, 2n2), Ttr, Tti (n1, n2)). When 4 n2 <= 128 the stage-2 tables are
+    block diagonal: diag(W2cat, W2cat) (4n2, 4n2) for the row pass and
+    diag(W2top, W2cat) (3n2, 4n2) for the column pass."""
+    w1_row = _cat_complex_np(*_dft_matrix_out_alt_np(n1, 1, 0, False))
+    w1_col = _cat_complex_np(*_dft_matrix_out_alt_np(n1, 1, 0, negate))
+    w2r, w2i = _dft_matrix_np(n2, 1)
+    w2cat = _cat_complex_np(w2r, w2i)
+    w2top = w2cat[:n2]
+    if 4 * n2 <= 128:
+        z22 = np.zeros((2 * n2, 2 * n2), w2cat.dtype)
+        w2_row = np.block([[w2cat, z22], [z22, w2cat]])
+        w2_col = np.block([[w2top, np.zeros((n2, 2 * n2), w2cat.dtype)],
+                           [z22, w2cat]])
+    else:
+        w2_row, w2_col = w2cat, w2cat
+    ttr_row, tti_row = _twiddle_np(n2, n1, 1)
+    ttr, tti = _twiddle_np(n1, n2, 1)
+    return ((w1_row, w2_row, ttr_row, tti_row),
+            (w1_col, w2_col, w2top, ttr, tti))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables(n: int, negate: bool, device: torch.device):
+    """``fourstep_tables`` as float32 tensors on ``device``, made once."""
+    n1, n2 = 128, n // 128
+    row, col = fourstep_tables(n, n1, n2, negate)
+    return (tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in row),
+            tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in col))
+
+
+def hoist_fourstep(h0_pair: torch.Tensor, omega: torch.Tensor,
+                   config: OceanConfig) -> FourstepInputs:
+    """Gather the time-invariant inputs once (per rollout, not per frame)."""
+    n = h0_pair.shape[-1]
+    check_supported(config, n)
+    dev = h0_pair.device
+    h0_pair = h0_pair.to(torch.float32).contiguous()
+    omega = omega.to(device=dev, dtype=torch.float32).contiguous()
+    pre, pre_rho, omega_rho = precompute_propagate_packed(h0_pair, omega, config.compat)
+    theta = (2.0 * np.pi / n) * np.arange(n // 2, dtype=np.float64)  # row 1 of _dft_matrix_np
+    twiddle = torch.from_numpy(np.stack([np.cos(theta), np.sin(theta)]).astype(np.float32))
+    return FourstepInputs(pre.contiguous(), pre_rho.contiguous(), omega,
+                          omega_rho.contiguous(), twiddle.to(dev))
+
+
+# --------------------------------------------------------------------------
+# The plain PyTorch version.
+# --------------------------------------------------------------------------
+
+def fourstep_row_reference(inputs: FourstepInputs, ts, config: OceanConfig,
+                           row_base: int = 0) -> torch.Tensor:
+    """Plain PyTorch K2: ts (tb,) -> Y (tb, 2, 2, rows, N) in true x order.
+
+    With k = n2 k1 + k2 and x = n1 + 128 n2 (``ops/fft._foursteps_last``):
+    stage 1 over k1 against W1cat, the twiddle T[k2, n1], stage 2 over k2
+    against W2cat (or diag(W2cat, W2cat), both spectra in one matmul)."""
+    om = inputs.omega
+    rows, n = om.shape
+    n1, n2, _, _ = fourstep_plan(n, config)
+    (w1, w2, ttr, tti), _ = _device_tables(n, config.compat.ref_sign, om.device)
+    ts = as_times(ts, om.device)
+    tb = ts.shape[0]
+    pin_fp32_matmul(om)
+    h_r, h_i, z_r, z_i = packed_spectra(
+        inputs.pre, inputs.pre_rho, om, inputs.omega_rho, ts, config.domain_size,
+        config.compat.wrap_k, 0.5, row_base)
+
+    def stage12(xr, xi):
+        # (tb, rows, N) -> (tb, rows, k2, [k1 of re | k1 of im])
+        x = torch.cat([xr.reshape(tb, rows, n1, n2).transpose(-1, -2),
+                       xi.reshape(tb, rows, n1, n2).transpose(-1, -2)], dim=-1)
+        a = x @ w1.T                                   # (tb, rows, k2, [n1 | n1])
+        ar, ai = a[..., :n1], a[..., n1:]
+        return ar * ttr - ai * tti, ar * tti + ai * ttr  # (tb, rows, k2, n1)
+
+    bh = stage12(h_r, h_i)
+    bz = stage12(z_r, z_i)
+    if w2.shape[0] == 4 * n2:
+        parts = (w2 @ torch.cat([*bh, *bz], dim=-2)).split(n2, dim=-2)
+    else:
+        parts = ((w2 @ torch.cat(bh, dim=-2)).split(n2, dim=-2)
+                 + (w2 @ torch.cat(bz, dim=-2)).split(n2, dim=-2))
+    # each (tb, rows, n2, n1) -> (tb, rows, N): x = n2 * 128 + n1
+    return torch.stack([p.reshape(tb, rows, n) for p in parts], dim=1).reshape(
+        tb, 2, 2, rows, n)
+
+
+def fourstep_col_reference(y: torch.Tensor, config: OceanConfig) -> torch.Tensor:
+    """Plain PyTorch K3: Y (tb, 2, 2, N, C) -> (tb, 3, N, C) = (disp_x,
+    height, disp_z), rows in true y order.
+
+    With m = n2 m1 + m2 and y = n1 + 128 n2: stage 1 over m1 against W1cat
+    (the (-1)^y sign and the Q2 flip folded in), the twiddle T[n1, m2],
+    stage 2 over m2: height through W2top, Z through W2cat (or both through
+    diag(W2top, W2cat))."""
+    tb, _, _, n, c = y.shape
+    n1, n2, _, _ = fourstep_plan(n, config)
+    _, (w1, w2, w2top, ttr, tti) = _device_tables(n, config.compat.ref_sign, y.device)
+    pin_fp32_matmul(y)
+
+    def stages(yr, yi):
+        a = w1 @ torch.cat([yr.reshape(tb, n1, n2 * c), yi.reshape(tb, n1, n2 * c)], dim=1)
+        ar = a[:, :n1].reshape(tb, n1, n2, c)
+        ai = a[:, n1:].reshape(tb, n1, n2, c)
+        br = ar * ttr[..., None] - ai * tti[..., None]
+        bi = ar * tti[..., None] + ai * ttr[..., None]
+        return (br.transpose(1, 2).reshape(tb, n2, n1 * c),
+                bi.transpose(1, 2).reshape(tb, n2, n1 * c))
+
+    bh = stages(y[:, 0, 0], y[:, 0, 1])
+    bz = stages(y[:, 1, 0], y[:, 1, 1])
+    if w2.shape[0] == 3 * n2:
+        h_out, x_out, z_out = (w2 @ torch.cat([*bh, *bz], dim=1)).split(n2, dim=1)
+    else:
+        h_out = w2top @ torch.cat(bh, dim=1)
+        x_out, z_out = (w2 @ torch.cat(bz, dim=1)).split(n2, dim=1)
+    # each (tb, n2, n1 * C) -> (tb, N, C): y = n2 * 128 + n1
+    return torch.stack([x_out, h_out, z_out], dim=1).reshape(tb, 3, n, c)
+
+
+def fourstep_planes_reference(inputs: FourstepInputs, ts,
+                              config: OceanConfig) -> torch.Tensor:
+    """Plain PyTorch K2 + K3: ts (tb,) -> (tb, 3, N, N)."""
+    return fourstep_col_reference(fourstep_row_reference(inputs, ts, config), config)
+
+
+def fourstep_checksums_reference(inputs: FourstepInputs, ts,
+                                 config: OceanConfig) -> torch.Tensor:
+    """Plain PyTorch K2 + K3 checksums: ts (tb,) -> (tb,)."""
+    return checksums_of_planes(fourstep_planes_reference(inputs, ts, config), config)
+
+
+# --------------------------------------------------------------------------
+# The CUDA kernels.
+# --------------------------------------------------------------------------
+
+def _check_kernel_n(n: int, who: str) -> None:
+    if n < MIN_N or n > MAX_KERNEL_N or n & (n - 1):
+        raise ValueError(f"{who} takes a power of two N in [{MIN_N}, {MAX_KERNEL_N}], got {n}")
+
+
+def _check_tensor(name: str, x: torch.Tensor, shape: tuple, dev: torch.device) -> None:
+    if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous float32 on {dev}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name}: expected shape {shape}, got {tuple(x.shape)}")
+
+
+def _raise_on_error(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.fourstep_error_string(err).decode()
+        raise RuntimeError(f"{what} failed to launch: CUDA error {err} ({msg})")
+
+
+def launch_fourstep_row(inputs: FourstepInputs, ts, config: OceanConfig,
+                        row_base: int = 0) -> torch.Tensor:
+    """Launch K2 on the current stream: ts (tb,) -> Y (tb, 2, 2, rows, N).
+
+    Adds one to ``launch_fourstep_row.launches`` per launch."""
+    from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
+
+    dev = inputs.omega.device
+    if dev.type != "cuda":
+        raise ValueError(f"launch_fourstep_row needs CUDA tensors, got {dev}")
+    rows, n = inputs.omega.shape
+    _check_kernel_n(n, "K2")
+    check_supported(config, n)
+    if not 0 <= row_base <= n - rows:
+        raise ValueError(f"rows {row_base}..{row_base + rows - 1} lie outside the {n}-row grid")
+    shapes = dict(pre=(4, rows, n), pre_rho=(4, rows, n), omega=(rows, n),
+                  omega_rho=(rows, n), twiddle=(2, n // 2))
+    for name, x in inputs._asdict().items():
+        _check_tensor(name, x, shapes[name], dev)
+    ts = as_times(ts, dev)
+    tb = ts.shape[0]
+    y = torch.empty((tb, 2, 2, rows, n), dtype=torch.float32, device=dev)
+    lib = kernels.load("fourstep_step")
+    err = lib.fourstep_row(
+        inputs.pre.data_ptr(), inputs.pre_rho.data_ptr(), inputs.omega.data_ptr(),
+        inputs.omega_rho.data_ptr(), inputs.twiddle.data_ptr(), ts.data_ptr(), tb, n,
+        rows, row_base, _f32(np.pi / config.domain_size), int(config.compat.wrap_k),
+        y.data_ptr(), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on_error(lib, err, "K2 (fourstep_row)")
+    launch_fourstep_row.launches += 1
+    return y
+
+
+launch_fourstep_row.launches = 0
+
+
+def launch_fourstep_col(y: torch.Tensor, twiddle: torch.Tensor, config: OceanConfig,
+                        checksum: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch K3 on the current stream: Y (tb, 2, 2, N, C) -> ``(planes,
+    partials)``, planes (tb, 3, N, C) and, when ``checksum`` (C = N), the
+    per-block checksum partials (tb, N / CHECKSUM_ROWS), else None.
+
+    The kernel's first stage writes a scratch shaped like Y. Adds one to
+    ``launch_fourstep_col.launches`` per launch."""
+    from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
+
+    dev = y.device
+    if dev.type != "cuda":
+        raise ValueError(f"launch_fourstep_col needs CUDA tensors, got {dev}")
+    if y.ndim != 5 or tuple(y.shape[1:3]) != (2, 2):
+        raise ValueError(f"y: expected shape (tb, 2, 2, N, C), got {tuple(y.shape)}")
+    tb, _, _, n, c = y.shape
+    _check_kernel_n(n, "K3")
+    check_supported(config, n)
+    if c % COL_BAND or (checksum and c != n):
+        raise ValueError(f"K3 takes a multiple of {COL_BAND} columns, all N of them "
+                         f"for the checksum; got {c} of {n}")
+    _check_tensor("y", y, (tb, 2, 2, n, c), dev)
+    _check_tensor("twiddle", twiddle, (2, n // 2), dev)
+    scratch = torch.empty_like(y)
+    planes = torch.empty((tb, 3, n, c), dtype=torch.float32, device=dev)
+    partials = (torch.empty((tb, n // CHECKSUM_ROWS), dtype=torch.float32, device=dev)
+                if checksum else None)
+    nscale = normals_scale(config)
+    lib = kernels.load("fourstep_step")
+    err = lib.fourstep_col(
+        y.data_ptr(), scratch.data_ptr(), twiddle.data_ptr(), tb, n, c,
+        -1.0 if config.compat.ref_sign else 1.0, planes.data_ptr(),
+        None if partials is None else partials.data_ptr(), CHECKSUM_ROWS,
+        nscale if nscale is not None else 0.0, int(nscale is not None),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on_error(lib, err, "K3 (fourstep_col)")
+    launch_fourstep_col.launches += 1
+    return planes, partials
+
+
+launch_fourstep_col.launches = 0
+
+
+def launch_fourstep_step(inputs: FourstepInputs, ts, config: OceanConfig,
+                         checksum: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K2 then K3 for ts (tb,): ``(planes (tb, 3, N, N), partials or None)``."""
+    y = launch_fourstep_row(inputs, ts, config)
+    return launch_fourstep_col(y, inputs.twiddle, config, checksum)
+
+
+def fourstep_planes(inputs: FourstepInputs, ts, config: OceanConfig) -> torch.Tensor:
+    """K2 + K3 planes for ts (tb,): the kernels on CUDA, the plain version on CPU."""
+    if inputs.omega.is_cuda:
+        return launch_fourstep_step(inputs, ts, config, checksum=False)[0]
+    return fourstep_planes_reference(inputs, ts, config)
+
+
+def fourstep_checksums(inputs: FourstepInputs, ts, config: OceanConfig) -> torch.Tensor:
+    """K2 + K3 checksums for ts (tb,): the kernels on CUDA, the plain
+    version on CPU. On CUDA the per-block partials are summed outside the
+    kernel by ``torch.sum``, in an order fixed by their shape."""
+    if inputs.omega.is_cuda:
+        _, partials = launch_fourstep_step(inputs, ts, config, checksum=True)
+        return partials.sum(dim=-1)
+    return fourstep_checksums_reference(inputs, ts, config)

@@ -1,15 +1,14 @@
-"""The Hermitian-packed ocean step for N <= 512 (kernel K1) on the card.
+"""The fused ocean step on the card: kernel K1 for N <= 512, and the
+entry points that route by N.
 
-Replaces ``gfx_ocean_tpu/ops/pallas_step.py::_packed_grid_kernel`` (launched
-by ``_packed_single_fields``; the JAX entry points ``pallas_planes`` /
-``pallas_fields`` / ``pallas_checksums`` become ``fused_planes`` /
-``fused_fields`` / ``fused_checksums`` here). Per frame it computes:
+K1 replaces ``gfx_ocean_tpu/ops/pallas_step.py::_packed_grid_kernel``
+(launched by ``_packed_single_fields``). Per frame it computes:
 
 1. the packed propagate from 10 hoisted planes (P1..P4, their rho-gathered
    twins, omega and omega o rho): the symmetrized height spectrum H and
    Z = H_dx + i H_dz, with the Dekker phase, the polynomial sincos and
-   k-hat pairs from indices (``pallas_step.py:568-611``). The Q2 flip
-   rides the symmetrization's 1/2 (``half = -0.5`` when ``ref_sign``);
+   k-hat pairs from indices (``ops/propagate.packed_spectra``). The Q2
+   flip rides the symmetrization's 1/2 (``half = -0.5`` when ``ref_sign``);
 2. the row DFT Y = X A^T and the column DFT A Y with A = D_alt W
    (``ops/fft._dft_matrix_out_alt_np(n, 1, 0, False)``): height is
    Re F(H), disp_x / disp_z are Re / Im F(Z);
@@ -24,9 +23,14 @@ Two implementations sit side by side:
   ``csrc/packed_step.cu`` (a row pass, a column pass, checksum partials;
   a radix-2 Stockham FFT in shared memory instead of the TPU's MXU dots).
 
-``packed_planes`` / ``packed_checksums`` pick between them by where the
-tensors lie: CPU tensors take the plain version, CUDA tensors launch the
-kernels or raise. Nothing falls back.
+The JAX entry points ``pallas_planes`` / ``pallas_fields`` /
+``pallas_checksums`` become ``fused_planes`` / ``fused_fields`` /
+``fused_checksums`` here. As in ``pallas_planes``, N > 512 takes the
+four-step pipeline (K2 + K3, ``ops/fourstep_step.py``) before
+``hermitian_pack`` is looked at; ``check_supported``, ``hoist_packed``,
+``packed_planes`` and ``packed_checksums`` route the same way. Each picks
+by where the tensors lie: CPU tensors take the plain version, CUDA tensors
+launch the kernels or raise. Nothing falls back.
 
 What bounds K1 on the H100: at 512^2 each frame reads 10 MB of hoisted
 inputs (the same 10 MB for every frame of a time batch, so they can stay
@@ -41,16 +45,18 @@ the two passes through a cluster so Y never leaves the chip.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
 from gfx_ocean_tpu_torch.config import OceanConfig
-from gfx_ocean_tpu_torch.ops.derived import finite_difference_normals_planes
+from gfx_ocean_tpu_torch.ops import fourstep_step
+from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, normals_scale
 from gfx_ocean_tpu_torch.ops.fft import (_dft_matrix_np, _dft_matrix_out_alt_np,
                                          effective_precision, pin_fp32_matmul)
-from gfx_ocean_tpu_torch.ops.propagate import (_f32, _sincos_phase,
+from gfx_ocean_tpu_torch.ops.fourstep_step import FourstepInputs
+from gfx_ocean_tpu_torch.ops.propagate import (_f32, as_times, packed_spectra,
                                                precompute_propagate_packed)
 
 MAX_N = 512
@@ -71,11 +77,11 @@ class PackedInputs(NamedTuple):
 
 
 def check_supported(config: OceanConfig, n: int) -> str:
-    """Raise for configurations K1 does not cover; return the effective tier."""
+    """Raise for configurations the fused step does not cover; return the
+    effective tier. N > 512 takes the four-step route whatever
+    ``hermitian_pack`` says, as ``pallas_planes`` does."""
     if n > MAX_N:
-        raise NotImplementedError(
-            f'fft_impl="pallas" at N={n} > {MAX_N} runs through kernels K2+K3, '
-            "which are not ported yet (ROADMAP.md queue 2, K2+K3)")
+        return fourstep_step.check_supported(config, n)
     if not config.hermitian_pack:
         raise NotImplementedError(
             'fft_impl="pallas" with hermitian_pack=False runs through kernels '
@@ -83,13 +89,19 @@ def check_supported(config: OceanConfig, n: int) -> str:
     return effective_precision(config.matmul_precision)
 
 
+FusedInputs = Union[PackedInputs, FourstepInputs]
+
+
 def hoist_packed(h0_pair: torch.Tensor, omega: torch.Tensor,
-                 config: OceanConfig) -> PackedInputs:
-    """Gather the time-invariant inputs once (per rollout, not per frame)."""
+                 config: OceanConfig) -> FusedInputs:
+    """Gather the time-invariant inputs once (per rollout, not per frame):
+    K1's for N <= 512, K2 + K3's above."""
     if h0_pair.ndim != 3:
         raise ValueError("the fused step takes a single unbatched state")
     n = h0_pair.shape[-1]
     check_supported(config, n)
+    if n > MAX_N:
+        return fourstep_step.hoist_fourstep(h0_pair, omega, config)
     dev = h0_pair.device
     h0_pair = h0_pair.to(torch.float32).contiguous()
     omega = omega.to(device=dev, dtype=torch.float32).contiguous()
@@ -102,70 +114,18 @@ def hoist_packed(h0_pair: torch.Tensor, omega: torch.Tensor,
                         omega_rho.contiguous(), a_re, a_im, twiddle.contiguous())
 
 
-def as_times(ts, device: torch.device) -> torch.Tensor:
-    """Frame times (a float, a sequence or a tensor) as a float32 (tb,) tensor."""
-    return torch.as_tensor(ts, dtype=torch.float32, device=device).reshape(-1).contiguous()
-
-
 # --------------------------------------------------------------------------
 # The plain PyTorch version.
 # --------------------------------------------------------------------------
-
-def khat_pair(n: int, domain_size: float, wrap: bool,
-              device: torch.device | str = "cpu"):
-    """(khx, khy, khx o rho, khy o rho) from indices, as the kernel computes
-    them (``pallas_step._khat_pair_in_kernel``): f32 coordinates, the
-    uint32 wrap as a float add of 2^32, and ``rsqrt`` with a q > 1e-20 guard
-    (the XLA path's host grids use k_len > 1e-10 instead)."""
-    idx = torch.arange(n, dtype=torch.float32, device=device)
-    ix = idx[None, :].expand(n, n)
-    iy = idx[:, None].expand(n, n)
-    scale = _f32(np.pi / domain_size)
-
-    def grids(ix, iy):
-        cx = 2.0 * ix - float(n + 1)
-        cy = 2.0 * iy - float(n + 1)
-        if wrap:
-            cx = torch.where(cx < 0, cx + 2.0 ** 32, cx)
-            cy = torch.where(cy < 0, cy + 2.0 ** 32, cy)
-        kx = cx * scale
-        ky = cy * scale
-        q = kx * kx + ky * ky
-        safe = q > 1.0e-20
-        inv = torch.where(safe, torch.rsqrt(torch.where(safe, q, 1.0)), 0.0)
-        return kx * inv, ky * inv
-
-    khx, khy = grids(ix, iy)
-    ixq = torch.where(ix == 0, 0.0, float(n) - ix)
-    iyq = torch.where(iy == 0, 0.0, float(n) - iy)
-    khxq, khyq = grids(ixq, iyq)
-    return khx, khy, khxq, khyq
-
 
 def packed_planes_reference(inputs: PackedInputs, ts,
                             config: OceanConfig) -> torch.Tensor:
     """Plain PyTorch K1: ts (tb,) -> (tb, 3, N, N) (disp_x, height, disp_z)."""
     pre, pre_rho, om, omq, ar, ai, _ = inputs
-    n = om.shape[-1]
-    ts = as_times(ts, om.device)[:, None, None]
     pin_fp32_matmul(om)
-    c, s = _sincos_phase(om, ts)
-    cq, sq = _sincos_phase(omq, ts)
-    sr = c * pre[0] + s * pre[1]
-    si = s * pre[2] + c * pre[3]
-    tr = cq * pre_rho[0] + sq * pre_rho[1]
-    ti = sq * pre_rho[2] + cq * pre_rho[3]
-    half = -0.5 if config.compat.ref_sign else 0.5
-    h_r = half * (sr + tr)
-    h_i = half * (si - ti)
-    khx, khy, khxq, khyq = khat_pair(n, config.domain_size, config.compat.wrap_k,
-                                     om.device)
-    dx_r = half * (khx * si + khxq * ti)
-    dx_i = half * (khxq * tr - khx * sr)
-    dz_r = half * (khy * si + khyq * ti)
-    dz_i = half * (khyq * tr - khy * sr)
-    z_r = dx_r - dz_i
-    z_i = dx_i + dz_r
+    h_r, h_i, z_r, z_i = packed_spectra(
+        pre, pre_rho, om, omq, as_times(ts, om.device), config.domain_size,
+        config.compat.wrap_k, -0.5 if config.compat.ref_sign else 0.5)
     art, ait = ar.T, ai.T
     yh_r = h_r @ art - h_i @ ait
     yh_i = h_r @ ait + h_i @ art
@@ -175,20 +135,6 @@ def packed_planes_reference(inputs: PackedInputs, ts,
     disp_x = ar @ yz_r - ai @ yz_i
     disp_z = ar @ yz_i + ai @ yz_r
     return torch.stack([disp_x, height, disp_z], dim=-3)
-
-
-def _normals_scale(config: OceanConfig) -> Optional[float]:
-    return float(config.normal_height_scale) if config.compute_normals else None
-
-
-def checksums_of_planes(planes: torch.Tensor, config: OceanConfig) -> torch.Tensor:
-    """Per-frame sum(planes) [+ sum(normal terms)] of (tb, 3, N, N) planes."""
-    sums = planes.sum(dim=(-3, -2, -1))
-    scale = _normals_scale(config)
-    if scale is not None:
-        normals = finite_difference_normals_planes(planes[:, 1], scale)
-        sums = sums + normals.sum(dim=(-3, -2, -1))
-    return sums
 
 
 def packed_checksums_reference(inputs: PackedInputs, ts,
@@ -219,6 +165,8 @@ def launch_packed_step(inputs: PackedInputs, ts: torch.Tensor, config: OceanConf
     if dev.type != "cuda":
         raise ValueError(f"launch_packed_step needs CUDA tensors, got {dev}")
     n = inputs.omega.shape[-1]
+    if n > MAX_N:
+        raise ValueError(f"K1 takes N <= {MAX_N}, got {n}")
     check_supported(config, n)
     shapes = dict(pre=(4, n, n), pre_rho=(4, n, n), omega=(n, n), omega_rho=(n, n),
                   a_re=(n, n), a_im=(n, n), twiddle=(2, n // 2))
@@ -233,7 +181,7 @@ def launch_packed_step(inputs: PackedInputs, ts: torch.Tensor, config: OceanConf
     planes = torch.empty((tb, 3, n, n), dtype=torch.float32, device=dev)
     partials = (torch.empty((tb, n // CHECKSUM_ROWS), dtype=torch.float32, device=dev)
                 if checksum else None)
-    nscale = _normals_scale(config)
+    nscale = normals_scale(config)
     lib = kernels.load("packed_step")
     err = lib.packed_step(
         _ptr(inputs.pre), _ptr(inputs.pre_rho), _ptr(inputs.omega),
@@ -253,19 +201,25 @@ def launch_packed_step(inputs: PackedInputs, ts: torch.Tensor, config: OceanConf
 launch_packed_step.launches = 0
 
 
-def packed_planes(inputs: PackedInputs, ts, config: OceanConfig) -> torch.Tensor:
-    """K1 planes for ts (tb,): the kernels on CUDA, the plain version on CPU."""
+def packed_planes(inputs: FusedInputs, ts, config: OceanConfig) -> torch.Tensor:
+    """Planes (tb, 3, N, N) for ts (tb,): K1 for N <= 512, K2 + K3 above;
+    the kernels on CUDA, the plain version on CPU."""
+    if inputs.omega.shape[-1] > MAX_N:
+        return fourstep_step.fourstep_planes(inputs, ts, config)
     if inputs.omega.is_cuda:
         return launch_packed_step(inputs, ts, config, checksum=False)[0]
     return packed_planes_reference(inputs, ts, config)
 
 
-def packed_checksums(inputs: PackedInputs, ts, config: OceanConfig) -> torch.Tensor:
-    """K1 checksums for ts (tb,): the kernels on CUDA, the plain version on CPU.
+def packed_checksums(inputs: FusedInputs, ts, config: OceanConfig) -> torch.Tensor:
+    """Checksums (tb,) for ts (tb,): K1 for N <= 512, K2 + K3 above; the
+    kernels on CUDA, the plain version on CPU.
 
     On CUDA the per-block partials are summed outside the kernel by
     ``torch.sum``, in an order fixed by their shape (no float atomics).
     """
+    if inputs.omega.shape[-1] > MAX_N:
+        return fourstep_step.fourstep_checksums(inputs, ts, config)
     if inputs.omega.is_cuda:
         _, partials = launch_packed_step(inputs, ts, config, checksum=True)
         return partials.sum(dim=-1)

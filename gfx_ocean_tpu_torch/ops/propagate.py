@@ -15,7 +15,7 @@ against the (N, N) planes, e.g. (tb, 1, 1) for a batch of frames.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +55,11 @@ def wavenumber_grid(n: int, domain_size: float, wrap: bool = False,
 
 def _as_time(t, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(t, dtype=torch.float32, device=like.device)
+
+
+def as_times(ts, device: torch.device) -> torch.Tensor:
+    """Frame times (a float, a sequence or a tensor) as a float32 (tb,) tensor."""
+    return torch.as_tensor(ts, dtype=torch.float32, device=device).reshape(-1).contiguous()
 
 
 def precompute_propagate(h0_pair: torch.Tensor,
@@ -204,4 +209,70 @@ def propagate_packed_planes(
     dx_i = 0.5 * (kxq * tr - kxn * sr)
     dz_r = 0.5 * (kyn * si + kyq * ti)
     dz_i = 0.5 * (kyq * tr - kyn * sr)
+    return h_r, h_i, dx_r - dz_i, dx_i + dz_r
+
+
+def khat_pair(n: int, domain_size: float, wrap: bool,
+              device: torch.device | str = "cpu", rows: Optional[int] = None,
+              row_base: int = 0):
+    """(khx, khy, khx o rho, khy o rho) from indices, as the kernels compute
+    them (``pallas_step._khat_pair_in_kernel``): f32 coordinates, the
+    uint32 wrap as a float add of 2^32, and ``rsqrt`` with a q > 1e-20 guard
+    (the XLA path's host grids use k_len > 1e-10 instead).
+
+    The band form: ``rows`` rows (default n) starting at the global row
+    ``row_base``, each (rows, n) in true x order."""
+    rows = n if rows is None else rows
+    ix = torch.arange(n, dtype=torch.float32, device=device)[None, :].expand(rows, n)
+    iy = (torch.arange(rows, dtype=torch.float32, device=device)
+          + float(row_base))[:, None].expand(rows, n)
+    scale = _f32(np.pi / domain_size)
+
+    def grids(ix, iy):
+        cx = 2.0 * ix - float(n + 1)
+        cy = 2.0 * iy - float(n + 1)
+        if wrap:
+            cx = torch.where(cx < 0, cx + 2.0 ** 32, cx)
+            cy = torch.where(cy < 0, cy + 2.0 ** 32, cy)
+        kx = cx * scale
+        ky = cy * scale
+        q = kx * kx + ky * ky
+        safe = q > 1.0e-20
+        inv = torch.where(safe, torch.rsqrt(torch.where(safe, q, 1.0)), 0.0)
+        return kx * inv, ky * inv
+
+    khx, khy = grids(ix, iy)
+    ixq = torch.where(ix == 0, 0.0, float(n) - ix)
+    iyq = torch.where(iy == 0, 0.0, float(n) - iy)
+    khxq, khyq = grids(ixq, iyq)
+    return khx, khy, khxq, khyq
+
+
+def packed_spectra(pre: torch.Tensor, pre_rho: torch.Tensor, omega: torch.Tensor,
+                   omega_rho: torch.Tensor, ts: torch.Tensor, domain_size: float,
+                   wrap_k: bool, half: float, row_base: int = 0):
+    """The packed propagate as the fused kernels compute it, for frames ts (tb,).
+
+    The algebra of :func:`propagate_packed_planes`, with the kernels' own
+    arithmetic: the polynomial sincos of the Dekker phase, the k-hat pairs
+    of :func:`khat_pair` and the symmetrization's factor ``half`` (K1 folds
+    the Q2 flip into it as -0.5; K2 keeps +0.5). The planes hold ``rows``
+    rows of the grid from the global row ``row_base``: pre, pre_rho
+    (4, rows, N), omega, omega_rho (rows, N). Returns (h_r, h_i, z_r, z_i),
+    each (tb, rows, N)."""
+    rows, n = omega.shape
+    ts = ts[:, None, None]
+    c, s = _sincos_phase(omega, ts)
+    cq, sq = _sincos_phase(omega_rho, ts)
+    sr = c * pre[0] + s * pre[1]
+    si = s * pre[2] + c * pre[3]
+    tr = cq * pre_rho[0] + sq * pre_rho[1]
+    ti = sq * pre_rho[2] + cq * pre_rho[3]
+    h_r = half * (sr + tr)
+    h_i = half * (si - ti)
+    khx, khy, khxq, khyq = khat_pair(n, domain_size, wrap_k, omega.device, rows, row_base)
+    dx_r = half * (khx * si + khxq * ti)
+    dx_i = half * (khxq * tr - khx * sr)
+    dz_r = half * (khy * si + khyq * ti)
+    dz_i = half * (khyq * tr - khy * sr)
     return h_r, h_i, dx_r - dz_i, dx_i + dz_r

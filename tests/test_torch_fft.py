@@ -98,7 +98,8 @@ def test_unported_and_unknown_options_raise():
         tfft.ifft2_real_unnorm(x, x, impl="xla")
     with pytest.raises(ValueError, match="unknown impl"):
         tfft.ifft2_real_unnorm(x, x, impl="fft")
-    with pytest.raises(NotImplementedError, match="four-step"):
-        tfft.ifft2_planes_unnorm(x, x, direct_max=16)
+    # the four-step route (N > direct_max) has no "default" tier either
+    with pytest.raises(NotImplementedError, match="default"):
+        tfft.ifft2_planes_unnorm(x, x, direct_max=16, precision="default")
     with pytest.raises(ValueError, match="centered"):
         tfft.ifft2_real_unnorm(x, x, centered="both")

@@ -130,8 +130,12 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_unsupported_configurations_raise():
-    with pytest.raises(NotImplementedError, match="K2"):
-        fused_step.check_supported(T.OceanConfig(resolution=1024, fft_impl="pallas"), 1024)
+    # N > 512 takes the four-step route (K2 + K3): the plan's range, and
+    # 16384, which the kernels do not take yet. No state is allocated.
+    with pytest.raises(ValueError, match=r"\[1024, 16384\]"):
+        fused_step.check_supported(T.OceanConfig(resolution=32768, fft_impl="pallas"), 32768)
+    with pytest.raises(NotImplementedError, match="16384"):
+        fused_step.check_supported(T.OceanConfig(resolution=16384, fft_impl="pallas"), 16384)
     with pytest.raises(NotImplementedError, match="K4"):
         fused_step.check_supported(
             T.OceanConfig(resolution=64, fft_impl="pallas", hermitian_pack=False), 64)

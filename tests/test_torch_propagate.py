@@ -20,7 +20,7 @@ import torch
 import gfx_ocean_tpu as J
 import gfx_ocean_tpu_torch as T
 from gfx_ocean_tpu.ops.pallas_step import _khat_pair_in_kernel
-from gfx_ocean_tpu_torch.ops.fused_step import khat_pair
+from gfx_ocean_tpu_torch.ops.propagate import khat_pair
 
 jp = importlib.import_module("gfx_ocean_tpu.ops.propagate")
 tp = importlib.import_module("gfx_ocean_tpu_torch.ops.propagate")
