@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths and gates them against the float64 golden
-model. It imports no jax.
+Drives the port's three paths: the two step paths, gated against the
+float64 golden model, and the frame renderer, gated against a frame the JAX
+package rendered. It imports no jax.
 
 - The 512^2 Hermitian-packed step (``OceanConfig(fft_impl="pallas",
   matmul_precision="bf16x3")``) through kernel K1, a 600-frame checksum
@@ -13,6 +14,10 @@ model. It imports no jax.
   (``resolution=4096, domain_size=2000.0, fft_impl="pallas",
   matmul_precision="high"``), through kernels K2 + K3, 120-frame checksum
   rollouts at time_batch 1 and 4.
+- The interactive frame renderer at the reference's 1200x700 window
+  (``make_frame_renderer(OceanConfig(fft_impl="pallas"), 1200, 700)``,
+  mesh 128 x 4, 512^2 state from numpy noise of seed 0, default camera)
+  through kernels K1, K7 and K8.
 
 Phases, one line each:
 
@@ -37,20 +42,37 @@ Phases, one line each:
 12. fourstep_rollout: make_rollout(keep_fields=False) at tb 1 and 4 through
     the kernels (launch counts, finite checksums that agree with the plain
     rollout, steps/s) and through the plain version;
-13. fourstep_profile: torch.profiler's device time by kernel over a rollout.
+13. fourstep_profile: torch.profiler's device time by kernel over a rollout;
+14. render_kernel_vs_plain: K7 and K8 on the real inputs of the 1200x700
+    frame at the default camera and at a low camera whose giant pass has
+    active groups, and K8 on 735,784 synthetic entries with runs that span
+    blocks: bit-equal to their plain versions;
+15. render_frame: the fused 1200x700 renderer through K1 + K7 + K8 against
+    the same pipeline with K7 and K8's plain versions (bit-equal uint8
+    frames), the giant-pass tripwire, the pool overflow, the coverage, and
+    a 4-band stack bit-equal to the full frame through the kernels;
+16. render_vs_jax: the frame against the stored JAX frame
+    (``gfx_ocean_tpu_torch/golden/frame_jax_1200x700.npz``);
+17. render_time: one frame through the kernels and through the plain
+    versions, K7 and K8 alone against theirs (CUDA events), 60 frames of
+    the main path by wall clock with every launch count, and
+    torch.profiler's top device ops of a frame.
 
-Then one JSON line with the kernels (K1, K2, K3), and as the last line
+Then one JSON line with the kernels (K1, K2, K3, K7, K8), and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero with no
 result; so does a machine without CUDA.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 N = 512
 STEPS = 600
@@ -81,6 +103,26 @@ FS_TIME_BATCHES = (1, 4)
 FS_TIMING_CALLS = 20
 FS_PLAIN_TIMING_CALLS = 5
 FS_PROFILE_STEPS = 8
+
+# The frame renderer: the reference's window, the 512^2 state from numpy
+# noise of seed 0 (as the stored JAX frame was made), t = 11.25 s.
+R_W, R_H, R_N, R_SEED, R_T = 1200, 700, 512, 0, 11.25
+R_GIANTS = 512
+# A camera just above the water whose giant pass has active groups.
+R_LOW = ((127.0, 2.5, 200.0), (0.0, 0.0, 0.0))
+R_BANDS = 4
+R_FRAMES = 60
+R_TIMING_CALLS = 10
+R_PLAIN_TIMING_CALLS = 3
+R_KERNEL_CALLS = 50
+R_PROFILE_FRAMES = 3
+# K8 at the resolve size of the 1200x700 frame (pool 630,784 + 105,000 octs)
+# with one run of 30,000 entries, ~30 of the kernel's 1024-entry blocks.
+K8_N, K8_N_OCT, K8_LONG_RUN = 735_784, 105_000, 30_000
+# The stored JAX frame's envelope (tests/test_render.py:259-264): quantized-z
+# near-ties flip a sliver of silhouette pixels between implementations.
+JAX_FRAME_PIXELS_OFF = 1e-3
+JAX_FRAME_MEAN_COLOR = 0.5
 
 
 def fail(msg: str) -> None:
@@ -124,6 +166,7 @@ def main() -> None:
     build()
     kernels_line = [run(dev, N)]
     kernels_line += run_fourstep(dev)
+    kernels_line += run_render(dev)
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
@@ -456,6 +499,263 @@ def run_fourstep(dev) -> list:
             "plain_ms": plain_ms,
         })
     return entries
+
+
+def render_stages(dev, state, cfg, disp, vp, cp, k7_ms: float) -> dict:
+    """CUDA-event ms of each stage of one 1200x700 frame at the default
+    camera, each fed the previous stage's output. The giant pass and the
+    frame include the host sync that reads the giant pass's group count."""
+    import torch
+
+    import gfx_ocean_tpu_torch as ot
+    from gfx_ocean_tpu_torch.render import raster as rr
+
+    positions, uvs, tris = rr._mesh_constants(cfg.mesh_resolution, cfg.num_patches, dev)
+    interp = rr._interp_matrices(cfg.mesh_resolution, R_N, dev)
+    grid_shape = (cfg.num_patches, cfg.mesh_resolution)
+    pool = rr._auto_pool(R_W, R_H)
+    step_cfg = dataclasses.replace(cfg, compute_normals=False)
+
+    def tables():
+        return rr._slot_tables(disp, positions, uvs, tris, vp, R_W, R_H, pool, interp, grid_shape)
+
+    tabs = tables()
+    n_oct = tabs.octs_w * tabs.octs_h
+    keysp, octid = rr.slot_stage(tabs.crow, tabs.total_covered, R_W, R_H, tabs.octs_w, n_oct,
+                                 32 - tabs.id_bits, tabs.id_bits)
+    key_img = rr._resolve(keysp, octid, tabs, R_W, R_H)
+    key_img = rr._giant_pass(tabs.clip, tris, tabs.score, key_img, R_W, R_H, R_GIANTS,
+                             tabs.id_bits)
+    wc = rr._tri_corners(tabs.world, tris, grid_shape)
+    dtab = torch.cat([tabs.ftab, wc.reshape(wc.shape[0], 9)], dim=1)
+    calls = R_TIMING_CALLS
+    return dict(
+        step=event_ms(lambda: ot.step(state, R_T, step_cfg), calls),
+        slot_tables=event_ms(tables, calls),
+        k7=k7_ms,
+        resolve_with_k8=event_ms(lambda: rr._resolve(keysp, octid, tabs, R_W, R_H), calls),
+        giant_selection=event_ms(lambda: rr._giant_selection(tabs.score, R_GIANTS), calls),
+        giant_pass=event_ms(lambda: rr._giant_pass(tabs.clip, tris, tabs.score, key_img, R_W,
+                                                   R_H, R_GIANTS, tabs.id_bits), calls),
+        deferred_shade=event_ms(lambda: rr._deferred_shade(disp, dtab, key_img, cp, R_W, R_H,
+                                                           tabs.id_bits, grid_shape), calls),
+        giant_groups=rr._giant_selection(tabs.score, R_GIANTS)[2])
+
+
+@contextlib.contextmanager
+def plain_raster():
+    """Route the rasterizer's K7 and K8 dispatchers to their plain versions
+    (on the card) inside the block."""
+    from gfx_ocean_tpu_torch.render import raster as rr
+
+    saved = rr.slot_stage, rr.segmin_stage
+
+    def slot(crow, total_covered, width, full_height, octs_w, spill_oct, bw_bits, id_bits,
+             y_origin=0):
+        cov = rr._stage_scalars(total_covered, y_origin, crow.device)
+        return rr.slot_stage_reference(crow, cov, width, full_height, octs_w, spill_oct,
+                                       bw_bits, id_bits)
+
+    rr.slot_stage, rr.segmin_stage = slot, rr.segmin_stage_reference
+    try:
+        yield
+    finally:
+        rr.slot_stage, rr.segmin_stage = saved
+
+
+def key_err(got, want) -> tuple:
+    """(entries that differ, max |difference| of the uint32 values)."""
+    from gfx_ocean_tpu_torch.render.raster import _u32_value
+
+    d = (_u32_value(got) - _u32_value(want)).abs()
+    return int((d != 0).sum()), float(d.max())
+
+
+def run_render(dev) -> list:
+    """Phases 14-17: the 1200x700 frame renderer through K1 + K7 + K8;
+    returns the entries of K7 and K8."""
+    import numpy as np
+    import torch
+
+    import gfx_ocean_tpu_torch as ot
+    from gfx_ocean_tpu_torch.ops import fourstep_step as fs
+    from gfx_ocean_tpu_torch.ops import fused_step
+    from gfx_ocean_tpu_torch.render import raster as rr
+    from gfx_ocean_tpu_torch.render.camera import Camera
+    from gfx_ocean_tpu_torch.spectra.phillips import synthesize
+
+    cfg = ot.OceanConfig(fft_impl="pallas")
+    noise = np.random.default_rng(R_SEED).standard_normal((2, R_N, R_N)).astype(np.float32)
+    h0, omega = synthesize(R_N, cfg.domain_size, ot.PhillipsConfig(),
+                           noise=torch.from_numpy(noise))
+    state = ot.OceanState(h0.to(dev), omega.to(dev))
+    cam = Camera()
+    vp = rr._view_proj(cam, R_W, R_H, dev)
+    cp = torch.tensor(cam.position.astype(np.float32), device=dev)
+    disp = ot.step(state, R_T, dataclasses.replace(cfg, compute_normals=False)).displacement
+    positions, uvs, tris = rr._mesh_constants(cfg.mesh_resolution, cfg.num_patches, dev)
+    interp = rr._interp_matrices(cfg.mesh_resolution, R_N, dev)
+    grid_shape = (cfg.num_patches, cfg.mesh_resolution)
+    pool = rr._auto_pool(R_W, R_H)
+
+    # --- 14. K7 and K8 against their plain versions -------------------------
+    low = Camera()
+    low.position, low.rotation = np.array(R_LOW[0]), np.array(R_LOW[1])
+    k7_err = k8_err = 0.0
+    for name, camera in (("default", cam), ("low", low)):
+        tabs = rr._slot_tables(disp, positions, uvs, tris, rr._view_proj(camera, R_W, R_H, dev),
+                               R_W, R_H, pool, interp, grid_shape)
+        n_oct = tabs.octs_w * tabs.octs_h
+        cov = rr._stage_scalars(tabs.total_covered, 0, dev)
+        slot_args = (tabs.crow, cov, R_W, R_H, tabs.octs_w, n_oct, 32 - tabs.id_bits,
+                     tabs.id_bits)
+        keys, octs = rr.launch_slot_kernel(*slot_args)
+        want_keys, want_octs = rr.slot_stage_reference(*slot_args)
+        so, sk = rr._oct_sort(keys, octs, n_oct)
+        mins, skey = rr.launch_segmin_kernel(so, sk, n_oct, tabs.id_bits)
+        want_mins, want_skey = rr.segmin_stage_reference(so, sk, n_oct, tabs.id_bits)
+        torch.cuda.synchronize()
+        groups = rr._giant_selection(tabs.score, R_GIANTS)[2]
+        k7 = key_err(keys, want_keys)
+        k8 = key_err(mins, want_mins)
+        rec = dict(k7_keys_differ=k7[0], k7_octs_differ=int((octs != want_octs).sum()),
+                   k8_mins_differ=k8[0], k8_skey_differ=int((skey != want_skey).sum()))
+        phase("render_kernel_vs_plain", camera=name, position=list(camera.position),
+              rotation=list(camera.rotation), width=R_W, height=R_H, id_bits=tabs.id_bits,
+              slots=pool, covered_slots=int(tabs.total_covered), resolve_entries=so.shape[0],
+              giant_groups=groups, k7_max_abs=k7[1], k8_max_abs=k8[1], **rec)
+        if any(rec.values()):
+            fail(f"K7/K8 differ from their plain versions at the {name} camera: {rec}")
+        if name == "low" and groups == 0:
+            fail("the low camera left the giant pass without an active group")
+        k7_err, k8_err = max(k7_err, k7[1]), max(k8_err, k8[1])
+        if name == "default":
+            k7_args, k8_args = slot_args, (so, sk, n_oct, tabs.id_bits)
+            covered_slots = int(tabs.total_covered)
+    rng = np.random.default_rng(1)
+    so_s = np.sort(np.concatenate([rng.integers(0, K8_N_OCT + 1, K8_N - K8_LONG_RUN),
+                                   np.full(K8_LONG_RUN, K8_N_OCT // 3)])).astype(np.int32)
+    so_s = torch.from_numpy(so_s).to(dev)
+    for id_bits in (17, 10):
+        sk_s = torch.from_numpy(rng.integers(-2**31, 2**31, (rr._zq_key_rows(id_bits), K8_N),
+                                             dtype=np.int64).astype(np.int32)).to(dev)
+        mins, skey = rr.launch_segmin_kernel(so_s, sk_s, K8_N_OCT, id_bits)
+        want_mins, want_skey = rr.segmin_stage_reference(so_s, sk_s, K8_N_OCT, id_bits)
+        torch.cuda.synchronize()
+        k8 = key_err(mins, want_mins)
+        rec = dict(k8_mins_differ=k8[0], k8_skey_differ=int((skey != want_skey).sum()))
+        phase("render_kernel_vs_plain", inputs="synthetic", entries=K8_N, n_oct=K8_N_OCT,
+              longest_run=K8_LONG_RUN, id_bits=id_bits, k8_max_abs=k8[1], **rec)
+        if any(rec.values()):
+            fail(f"K8 differs from its plain version on synthetic runs: {rec}")
+        k8_err = max(k8_err, k8[1])
+    del so_s, sk_s, mins, skey, want_mins, want_skey
+
+    # --- 15. the fused frame through the kernels and through the plain versions
+    fr = rr.make_frame_renderer(cfg, R_W, R_H, R_GIANTS, diag=True)
+    frame, dropped = fr(state, R_T, vp, cp)
+    with plain_raster():
+        plain_frame, plain_dropped = fr(state, R_T, vp, cp)
+    img, depth = rr._rasterize_pool(disp, positions, uvs, tris, vp, cp, R_W, R_H, pool,
+                                    R_GIANTS, interp, grid_shape)
+    overflow, demand = rr.pool_overflow(disp, positions, uvs, tris, vp, R_W, R_H,
+                                        return_demand=True)
+    bh = R_H // R_BANDS
+    bands = [rr._rasterize_pool(disp, positions, uvs, tris, vp, cp, R_W, bh,
+                                rr._auto_pool(R_W, bh, R_BANDS), R_GIANTS, interp, grid_shape,
+                                y_origin=k * bh, full_height=R_H, with_diag=True)
+             for k in range(R_BANDS)]
+    rec = dict(
+        frame_differ_vs_plain=int((frame != plain_frame).sum()),
+        frame_differ_vs_render_frame=int((frame != rr.srgb8(img)).sum()),
+        band_color_differ=int((torch.cat([b[0] for b in bands]) != img).sum()),
+        band_depth_differ=int((torch.cat([b[1] for b in bands]) != depth).sum()))
+    drops = dict(frame=int(dropped), plain=int(plain_dropped),
+                 bands=[int(b[2]) for b in bands])
+    phase("render_frame", width=R_W, height=R_H, shape=list(frame.shape),
+          dtype=str(frame.dtype), t=R_T, coverage=float(torch.isfinite(depth).float().mean()),
+          pool=pool, covered_slots=covered_slots, pool_overflow=overflow, slot_demand=demand,
+          giants=R_GIANTS, dropped=drops, bands=R_BANDS, **rec)
+    if tuple(frame.shape) != (R_H, R_W, 3) or frame.dtype != torch.uint8:
+        fail(f"frame: shape {tuple(frame.shape)}, {frame.dtype}")
+    if any(rec.values()):
+        fail(f"render_frame: {rec}")
+    if drops["frame"] or drops["plain"] or any(drops["bands"]):
+        fail(f"giant-pass candidates dropped: {drops}")
+    if overflow > R_GIANTS:
+        fail(f"{overflow} triangles overflow the pool, past the {R_GIANTS} giant slots")
+
+    # --- 16. against the frame the JAX package rendered ---------------------
+    stored = np.load(Path(ot.__file__).resolve().parent / "golden" / "frame_jax_1200x700.npz")
+    want = stored["frame"]
+    got = frame.cpu().numpy()
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    off = float((diff > 2).mean())
+    mean_color = float(np.abs(got.reshape(-1, 3).mean(0) - want.reshape(-1, 3).mean(0)).max())
+    phase("render_vs_jax", jax_commit=str(stored["jax_commit"]), seed=int(stored["seed"]),
+          t=float(stored["t"]), values_off_by_more_than_2=off,
+          pixels_differing=int((diff.max(-1) > 0).sum()), max_abs_diff=int(diff.max()),
+          mean_color_diff=mean_color, limit_off=JAX_FRAME_PIXELS_OFF,
+          limit_mean_color=JAX_FRAME_MEAN_COLOR)
+    if not (off < JAX_FRAME_PIXELS_OFF and mean_color < JAX_FRAME_MEAN_COLOR):
+        fail(f"frame vs the stored JAX frame: {off:.2e} values off, mean color {mean_color:.3f}")
+
+    # --- 17. time --------------------------------------------------------------
+    frame_ms = event_ms(lambda: fr(state, R_T, vp, cp), R_TIMING_CALLS)
+    with plain_raster():
+        plain_frame_ms = event_ms(lambda: fr(state, R_T, vp, cp), R_PLAIN_TIMING_CALLS)
+    k7_ms = event_ms(lambda: rr.launch_slot_kernel(*k7_args), R_KERNEL_CALLS)
+    k7_plain_ms = event_ms(lambda: rr.slot_stage_reference(*k7_args), R_PLAIN_TIMING_CALLS)
+    k8_ms = event_ms(lambda: rr.launch_segmin_kernel(*k8_args), R_KERNEL_CALLS)
+    k8_plain_ms = event_ms(lambda: rr.segmin_stage_reference(*k8_args), R_PLAIN_TIMING_CALLS)
+    stage_ms = render_stages(dev, state, cfg, disp, vp, cp, k7_ms)
+
+    ts = [R_T + i / 60.0 for i in range(R_FRAMES)]
+    fused_step.launch_packed_step.launches = 0
+    fs.launch_fourstep_row.launches = 0
+    fs.launch_fourstep_col.launches = 0
+    rr.launch_slot_kernel.launches = 0
+    rr.launch_segmin_kernel.launches = 0
+    t0 = time.perf_counter()
+    for t in ts:
+        fr(state, t, vp, cp)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / R_FRAMES
+    launches = dict(k1=fused_step.launch_packed_step.launches,
+                    k2=fs.launch_fourstep_row.launches, k3=fs.launch_fourstep_col.launches,
+                    k7=rr.launch_slot_kernel.launches, k8=rr.launch_segmin_kernel.launches)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for t in ts[:R_PROFILE_FRAMES]:
+            fr(state, t, vp, cp)
+        torch.cuda.synchronize()
+    by_op = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA), key=lambda k: -k[1])
+    busy_ms = sum(ms for _, ms, _ in by_op) / R_PROFILE_FRAMES
+    phase("render_time", width=R_W, height=R_H, clock="cuda events",
+          frame_ms=frame_ms, plain_frame_ms=plain_frame_ms, k7_ms=k7_ms,
+          k7_plain_ms=k7_plain_ms, k8_ms=k8_ms, k8_plain_ms=k8_plain_ms,
+          stage_ms=stage_ms, frames=R_FRAMES, wall_ms_per_frame=wall_ms,
+          frames_per_sec=1e3 / wall_ms, launches=launches,
+          profiled_frames=R_PROFILE_FRAMES, device_busy_ms_per_frame=busy_ms,
+          idle_share=1.0 - busy_ms / wall_ms,
+          top_device_ops=[{"name": k[:90], "ms_per_frame": ms / R_PROFILE_FRAMES,
+                           "calls": cnt} for k, ms, cnt in by_op[:15]])
+    if launches != dict(k1=R_FRAMES, k2=0, k3=0, k7=R_FRAMES, k8=R_FRAMES):
+        fail(f"the {R_FRAMES}-frame run launched {launches}, expected {R_FRAMES} of K1, K7, K8")
+
+    return [
+        {"name": "K7 slot_kernel (per-slot oct tile tests, packed keys)", "route": "cuda",
+         "source": "gfx_ocean_tpu_torch/csrc/raster.cu",
+         "replaces": "gfx_ocean_tpu/render/raster.py:666", "launches": launches["k7"],
+         "max_abs_err": k7_err, "ms": k7_ms, "plain_ms": k7_plain_ms},
+        {"name": "K8 segmin (segmented min over oct runs: block scan, carry, apply)",
+         "route": "cuda", "source": "gfx_ocean_tpu_torch/csrc/raster.cu",
+         "replaces": "gfx_ocean_tpu/render/raster.py:816", "launches": launches["k8"],
+         "max_abs_err": k8_err, "ms": k8_ms, "plain_ms": k8_plain_ms},
+    ]
 
 
 if __name__ == "__main__":

@@ -15,9 +15,9 @@ Routes through ``step`` / ``make_rollout``, by ``config.fft_impl``:
   above ``direct_dft_max``), packed or unpacked by ``config.hermitian_pack``.
 
 Not ported yet, and raising ``NotImplementedError``: "pallas" with
-``hermitian_pack=False`` at N <= 512 (K4/K5/K6) or at N = 16384, "xla",
-foam and cascades. ``time_batch`` frames run as one batch axis; the
-hoisted inputs are computed once per rollout call.
+``hermitian_pack=False`` at N <= 512 (K4/K5/K6) or at N = 16384, "xla"
+and cascades. ``time_batch`` frames run as one batch axis; the hoisted
+inputs are computed once per rollout call.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import torch
 
 from gfx_ocean_tpu_torch.config import OceanConfig, PhillipsConfig
 from gfx_ocean_tpu_torch.ops import fused_step
-from gfx_ocean_tpu_torch.ops.derived import finite_difference_normals
+from gfx_ocean_tpu_torch.ops.derived import finite_difference_normals, jacobian_foam
 from gfx_ocean_tpu_torch.ops.fft import ifft2_planes_unnorm, ifft2_real_unnorm
 from gfx_ocean_tpu_torch.ops.propagate import (precompute_propagate,
                                                precompute_propagate_packed,
@@ -53,7 +53,7 @@ class OceanFields(NamedTuple):
 
     displacement: torch.Tensor             # (..., N, N, 3) (disp_x, height, disp_z)
     normals: Optional[torch.Tensor]        # (..., N, N, 3) or None
-    foam: Optional[torch.Tensor]           # always None until foam is ported
+    foam: Optional[torch.Tensor]           # (..., N, N) whitecap mask or None
 
     @property
     def height(self) -> torch.Tensor:
@@ -61,9 +61,6 @@ class OceanFields(NamedTuple):
 
 
 def _check_supported(state: OceanState, config: OceanConfig) -> None:
-    if config.compute_foam:
-        raise NotImplementedError(
-            'compute_foam is not ported yet (ROADMAP.md queue 1, "ops/derived.py")')
     if config.num_cascades != 1 or state.h0.ndim != 3:
         raise NotImplementedError(
             'cascades (batched states) are not ported yet (ROADMAP.md queue 1, '
@@ -114,11 +111,12 @@ def _fields(disp: torch.Tensor, config: OceanConfig) -> OceanFields:
     normals = None
     if config.compute_normals:
         normals = finite_difference_normals(disp[..., 1], config.normal_height_scale)
-    return OceanFields(displacement=disp, normals=normals, foam=None)
+    foam = jacobian_foam(disp, config) if config.compute_foam else None
+    return OceanFields(displacement=disp, normals=normals, foam=foam)
 
 
 def step(state: OceanState, t, config: OceanConfig, pre=None) -> OceanFields:
-    """One frame: propagate -> 2-D inverse DFT -> correction (+ normals).
+    """One frame: propagate -> 2-D inverse DFT -> correction (+ normals, foam).
 
     ``pre`` optionally passes the hoisted inputs of the active route (what
     ``make_rollout`` computes once per call).
@@ -148,12 +146,14 @@ def make_rollout(config: OceanConfig, keep_fields: bool = True, time_batch: int 
 
     Returns OceanFields with a leading time axis, or with
     ``keep_fields=False`` one float32 checksum per frame (sum of the
-    displacement planes plus sum of the normals), which keeps the output
-    O(steps). Frames run ``time_batch`` at a time as one batch axis;
-    ``len(ts)`` must be a multiple of it. On the "pallas" route the
-    checksum is reduced by the fused kernels' checksum pass (K1's, or
-    K3's above 512) from the plane-major planes. The checksums stay on the
-    state's device.
+    displacement planes plus sum of the normals, plus sum of the foam mask
+    when ``compute_foam``), which keeps the output O(steps). Frames run
+    ``time_batch`` at a time as one batch axis; ``len(ts)`` must be a
+    multiple of it. On the "pallas" route without foam the checksum is
+    reduced by the fused kernels' checksum pass (K1's, or K3's above 512)
+    from the plane-major planes; foam needs the channel-last fields, so it
+    takes the fields' sums, as in the JAX package. The checksums stay on
+    the state's device.
     """
     if time_batch < 1:
         raise ValueError(f"time_batch must be >= 1, got {time_batch}")
@@ -167,7 +167,7 @@ def make_rollout(config: OceanConfig, keep_fields: bool = True, time_batch: int 
         pre = _precompute(state, config)
         chunks = [ts[i:i + time_batch] for i in range(0, ts.shape[0], time_batch)]
         if not keep_fields:
-            if config.fft_impl == "pallas":
+            if config.fft_impl == "pallas" and not config.compute_foam:
                 out = [fused_step.packed_checksums(pre, c, config) for c in chunks]
             else:
                 out = [_checksums(_fields(_displacement(state, c, config, pre), config))
@@ -178,7 +178,7 @@ def make_rollout(config: OceanConfig, keep_fields: bool = True, time_batch: int 
             displacement=torch.cat([f.displacement for f in fields]),
             normals=(torch.cat([f.normals for f in fields])
                      if config.compute_normals else None),
-            foam=None)
+            foam=torch.cat([f.foam for f in fields]) if config.compute_foam else None)
 
     return rollout
 
@@ -187,6 +187,8 @@ def _checksums(fields: OceanFields) -> torch.Tensor:
     out = fields.displacement.sum(dim=(-3, -2, -1))
     if fields.normals is not None:
         out = out + fields.normals.sum(dim=(-3, -2, -1))
+    if fields.foam is not None:
+        out = out + fields.foam.sum(dim=(-2, -1))
     return out
 
 

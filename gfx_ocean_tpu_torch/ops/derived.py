@@ -1,13 +1,14 @@
-"""Finite-difference normals (``shader/ocean.frag:50-67``) in PyTorch.
+"""Finite-difference normals (``shader/ocean.frag:50-67``) and the Jacobian
+whitecap mask in PyTorch.
 
-Counterpart of ``gfx_ocean_tpu/ops/derived.py:54-101``. Foam
-(``jacobian_foam``) is not ported yet (ROADMAP.md queue 1, "ops/derived.py").
+Counterpart of ``gfx_ocean_tpu/ops/derived.py:54-135``.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from gfx_ocean_tpu_torch.config import OceanConfig
@@ -61,3 +62,34 @@ def checksums_of_planes(planes: torch.Tensor, config: OceanConfig) -> torch.Tens
         normals = finite_difference_normals_planes(planes[:, 1], scale)
         sums = sums + normals.sum(dim=(-3, -2, -1))
     return sums
+
+
+def jacobian_foam(displacement: torch.Tensor, config: OceanConfig,
+                  domain_size: Optional[float] = None) -> torch.Tensor:
+    """Whitecap mask from the Jacobian of the horizontal displacement map.
+
+    J = (1 + l dDx/dx)(1 + l dDz/dz) - (l dDx/dz)(l dDz/dx); foam = J < thr,
+    as float32. Central differences with wrap; grid spacing L / N (pass
+    ``domain_size`` for a cascade's own patch size). Every product and sum
+    is rounded separately (XLA on the CPU may contract them, so texels
+    within ~1e-6 of the threshold can differ from the JAX package).
+    """
+    n = displacement.shape[-2]
+    spacing = (domain_size if domain_size is not None else config.domain_size) / n
+    lam = float(np.float32(config.foam_lambda))
+    inv2h = float(np.float32(1.0 / (2.0 * spacing)))
+    fx = displacement[..., 0]
+    fz = displacement[..., 2]
+
+    def ddx(f):  # texture x = axis -1
+        return (torch.roll(f, -1, dims=-1) - torch.roll(f, 1, dims=-1)) * inv2h
+
+    def ddz(f):  # texture y = axis -2
+        return (torch.roll(f, -1, dims=-2) - torch.roll(f, 1, dims=-2)) * inv2h
+
+    jxx = 1.0 + lam * ddx(fx)
+    jzz = 1.0 + lam * ddz(fz)
+    jxz = lam * ddz(fx)
+    jzx = lam * ddx(fz)
+    jac = jxx * jzz - jxz * jzx
+    return (jac < float(np.float32(config.foam_threshold))).to(torch.float32)

@@ -1,6 +1,6 @@
-"""Kernels K1 (``gfx_ocean_tpu_torch/csrc/packed_step.cu``) and K2 + K3
-(``csrc/fourstep_step.cu``) against their plain PyTorch versions, and two
-checks that run anywhere.
+"""Kernels K1 (``gfx_ocean_tpu_torch/csrc/packed_step.cu``), K2 + K3
+(``csrc/fourstep_step.cu``) and K7 + K8 (``csrc/raster.cu``) against their
+plain PyTorch versions, and two checks that run anywhere.
 
 The CUDA tests are marked ``cuda`` and skip without a GPU: a CUDA kernel
 has no CPU mode. This file imports no jax, so on a machine with a GPU and
@@ -25,6 +25,8 @@ from gfx_ocean_tpu_torch.config import CompatFlags, OceanConfig, PhillipsConfig
 from gfx_ocean_tpu_torch.ops import fourstep_step as fs
 from gfx_ocean_tpu_torch.ops import fused_step
 from gfx_ocean_tpu_torch.ops.derived import finite_difference_normals_planes
+from gfx_ocean_tpu_torch.render import raster as rr
+from gfx_ocean_tpu_torch.render.camera import Camera
 from gfx_ocean_tpu_torch.spectra.phillips import synthesize
 
 REPO = Path(__file__).resolve().parent.parent
@@ -218,9 +220,174 @@ def test_fourstep_counts_launches_and_rejects_bad_inputs(cuda):
     assert fs.launch_fourstep_col.launches == cols + 2
 
 
+def _render_disp(device) -> torch.Tensor:
+    """A 64^2 displacement map (t = 5 s) of a Phillips state from a numpy
+    draw seeded 64, on ``device``."""
+    h0, omega = _state(64)
+    from gfx_ocean_tpu_torch.models.ocean import OceanState, step  # noqa: PLC0415
+
+    cfg = OceanConfig(resolution=64, fft_impl="matmul", compute_normals=False)
+    return step(OceanState(h0, omega), 5.0, cfg).displacement.to(device)
+
+
+SKIMMING = (np.array([31.0, 2.5, 55.0]), np.zeros(3))   # activates the giant pass
+LOW = (np.array([60.0, 4.0, 150.0]), np.array([-0.2, 0.0, 0.0]))      # giant groups at 128 x 4
+NEAR = (np.array([10.0, 4.0, 25.0]), np.array([-0.3, 0.0, 0.0]))     # in view of a 20 x 1 mesh
+
+
+def _slot_tables(device, width, height, mesh=(128, 4), pose=None, y_origin=0,
+                 full_height=None):
+    disp = _render_disp(device)
+    cam = Camera()
+    if pose is not None:
+        cam.position, cam.rotation = pose[0].copy(), pose[1].copy()
+    res, patches = mesh
+    positions, uvs, tris = rr._mesh_constants(res, patches, device)
+    interp = rr._interp_matrices(res, 64, device)
+    fh = full_height or height
+    bands = fh // height
+    tabs = rr._slot_tables(disp, positions, uvs, tris, rr._view_proj(cam, width, fh, device),
+                           width, height, rr._auto_pool(width, height, bands), interp,
+                           (patches, res), y_origin=y_origin, full_height=fh)
+    return tabs, fh
+
+
+# (width, height, mesh, pose, y_origin, full_height): 96x64 up to 1200x700,
+# id_bits 17 (mesh 128 x 4) and 10 (mesh 20 x 1), a band at an odd y_origin.
+SLOT_CASES = [
+    (96, 64, (128, 4), None, 0, None),
+    (96, 64, (20, 1), NEAR, 0, None),
+    (96, 64, (32, 4), SKIMMING, 0, None),
+    (480, 280, (128, 4), LOW, 0, None),
+    (1200, 700, (128, 4), None, 0, None),
+    (1200, 175, (128, 4), None, 175, 700),
+]
+SLOT_IDS = ["96x64", "96x64-id10", "96x64-skim", "480x280-low", "1200x700",
+            "1200x700-band-175"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,height,mesh,pose,y_origin,full_height", SLOT_CASES, ids=SLOT_IDS)
+def test_raster_kernels_match_plain(cuda, width, height, mesh, pose, y_origin, full_height):
+    """K7 on the frame's real slot table, then K8 on the real oct-sorted
+    entries: bit-equal to the plain versions."""
+    tabs, fh = _slot_tables(cuda, width, height, mesh, pose, y_origin, full_height)
+    n_oct = tabs.octs_w * tabs.octs_h
+    cov = rr._stage_scalars(tabs.total_covered, y_origin, cuda)
+    args = (tabs.crow, cov, width, fh, tabs.octs_w, n_oct, 32 - tabs.id_bits, tabs.id_bits)
+    keys, octs = rr.launch_slot_kernel(*args)
+    want_keys, want_octs = rr.slot_stage_reference(*args)
+    assert keys.shape == (rr._zq_key_rows(tabs.id_bits), tabs.crow.shape[1])
+    assert torch.equal(keys, want_keys) and torch.equal(octs, want_octs)
+    assert int((octs < n_oct).sum()) == int(tabs.total_covered) > 0
+    so, sk = rr._oct_sort(keys, octs, n_oct)
+    mins, skey = rr.launch_segmin_kernel(so, sk, n_oct, tabs.id_bits)
+    want_mins, want_skey = rr.segmin_stage_reference(so, sk, n_oct, tabs.id_bits)
+    assert torch.equal(mins, want_mins) and torch.equal(skey, want_skey)
+    assert int((skey < n_oct).sum()) == n_oct
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("id_bits", [17, 10])
+def test_segmin_kernel_runs_spanning_blocks(cuda, id_bits):
+    """K8 at the 1200x700 resolve size with a run over ~30 blocks of 1024
+    and random packed rows, against the plain log-shift."""
+    n, n_oct = 735_784, 105_000
+    rng = np.random.default_rng(id_bits)
+    so = np.sort(np.concatenate([rng.integers(0, n_oct + 1, n - 30_000), np.full(30_000, 5_000)]))
+    sk = rng.integers(-2**31, 2**31, (rr._zq_key_rows(id_bits), n), dtype=np.int64)
+    so_t = torch.from_numpy(so.astype(np.int32)).to(cuda)
+    sk_t = torch.from_numpy(sk.astype(np.int32)).to(cuda)
+    mins, skey = rr.launch_segmin_kernel(so_t, sk_t, n_oct, id_bits)
+    want_mins, want_skey = rr.segmin_stage_reference(so_t, sk_t, n_oct, id_bits)
+    assert torch.equal(mins, want_mins) and torch.equal(skey, want_skey)
+
+
+class _PlainRaster:
+    """Routes the rasterizer's K7 / K8 dispatchers to their plain versions
+    (on the card) for the duration of a ``with`` block."""
+
+    def __enter__(self):
+        self.saved = rr.slot_stage, rr.segmin_stage
+
+        def slot(crow, total_covered, width, full_height, octs_w, spill_oct, bw_bits,
+                 id_bits, y_origin=0):
+            cov = rr._stage_scalars(total_covered, y_origin, crow.device)
+            return rr.slot_stage_reference(crow, cov, width, full_height, octs_w, spill_oct,
+                                           bw_bits, id_bits)
+
+        rr.slot_stage, rr.segmin_stage = slot, rr.segmin_stage_reference
+        return self
+
+    def __exit__(self, *exc):
+        rr.slot_stage, rr.segmin_stage = self.saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pose", [None, SKIMMING], ids=["default", "skimming"])
+def test_frame_through_kernels_equals_plain_and_bands(cuda, pose):
+    """A 96x64 frame through K7 + K8 equals the plain-version frame bit for
+    bit, and 4 bands stack to it; each frame launches K7 and K8 once."""
+    disp = _render_disp(cuda)
+    cam = Camera()
+    if pose is not None:
+        cam.position, cam.rotation = pose[0].copy(), pose[1].copy()
+    res, patches, w, h = 32, 4, 96, 64
+    positions, uvs, tris = rr._mesh_constants(res, patches, cuda)
+    interp = rr._interp_matrices(res, 64, cuda)
+    vp = rr._view_proj(cam, w, h, cuda)
+    cp = torch.tensor(cam.position.astype(np.float32), device=cuda)
+    args = (disp, positions, uvs, tris, vp, cp)
+    k7, k8 = rr.launch_slot_kernel.launches, rr.launch_segmin_kernel.launches
+    full, fz = rr._rasterize_pool(*args, w, h, rr._auto_pool(w, h), 512, interp, (patches, res))
+    assert rr.launch_slot_kernel.launches == k7 + 1
+    assert rr.launch_segmin_kernel.launches == k8 + 1
+    with _PlainRaster():
+        plain, pz = rr._rasterize_pool(*args, w, h, rr._auto_pool(w, h), 512, interp,
+                                       (patches, res))
+    assert torch.equal(full, plain) and torch.equal(fz, pz)
+    bh = h // 4
+    bands = [rr._rasterize_pool(*args, w, bh, rr._auto_pool(w, bh, 4), 512, interp,
+                                (patches, res), y_origin=k * bh, full_height=h)
+             for k in range(4)]
+    assert torch.equal(torch.cat([b[0] for b in bands]), full)
+    assert torch.equal(torch.cat([b[1] for b in bands]), fz)
+
+
+@pytest.mark.cuda
+def test_raster_kernels_reject_bad_inputs(cuda):
+    tabs, _ = _slot_tables(cuda, 96, 64)
+    cov = rr._stage_scalars(tabs.total_covered, 0, cuda)
+    ib = tabs.id_bits
+    k7, k8 = rr.launch_slot_kernel.launches, rr.launch_segmin_kernel.launches
+
+    def rejected(match, fn):
+        with pytest.raises(ValueError, match=match):
+            fn()
+
+    rejected("contiguous", lambda: rr.launch_slot_kernel(
+        tabs.crow.to(torch.int64), cov, 96, 64, 24, 768, 32 - ib, ib))
+    rejected("expected shape", lambda: rr.launch_slot_kernel(
+        tabs.crow[:18].contiguous(), cov, 96, 64, 24, 768, 32 - ib, ib))
+    rejected("needs CUDA tensors", lambda: rr.launch_slot_kernel(
+        tabs.crow.cpu(), cov.cpu(), 96, 64, 24, 768, 32 - ib, ib))
+    rejected("out of range", lambda: rr.launch_slot_kernel(
+        tabs.crow, cov, 96, 64, 24, 768, 32 - ib, 25))
+    so = torch.zeros(16, dtype=torch.int32, device=cuda)
+    rejected("expected shape", lambda: rr.launch_segmin_kernel(
+        so, torch.zeros((4, 16), dtype=torch.int32, device=cuda), 8, 17))
+    rejected("contiguous", lambda: rr.launch_segmin_kernel(
+        so.to(torch.int64), torch.zeros((5, 16), dtype=torch.int32, device=cuda), 8, 17))
+    rejected("needs CUDA tensors", lambda: rr.launch_segmin_kernel(
+        so.cpu(), torch.zeros((5, 16), dtype=torch.int32), 8, 17))
+    assert rr.launch_slot_kernel.launches == k7
+    assert rr.launch_segmin_kernel.launches == k8
+
+
 def test_import_leaves_out_jax():
     code = ("import sys, gfx_ocean_tpu_torch, gfx_ocean_tpu_torch.kernels, "
-            "gfx_ocean_tpu_torch.ops.fused_step, gfx_ocean_tpu_torch.ops.fourstep_step;"
+            "gfx_ocean_tpu_torch.ops.fused_step, gfx_ocean_tpu_torch.ops.fourstep_step, "
+            "gfx_ocean_tpu_torch.render, gfx_ocean_tpu_torch.render.raster;"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gfx_ocean_tpu')];"
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -153,12 +153,50 @@ def test_matmul_checksum_rollout_matches_jax():
     assert np.all(np.abs(got - want) < CHECKSUM_TOL * scale)
 
 
+@pytest.mark.parametrize("time_batch", [1, 2])
+@pytest.mark.parametrize("fft_impl", ["pallas", "matmul"])
+def test_foam_and_its_checksum_match_jax(fft_impl, time_batch, interpret_pallas):
+    """compute_foam: the Jacobian whitecap mask of every frame and the
+    checksum that adds it, against the JAX package. The mask is exact
+    except at texels whose Jacobian lies within 1e-5 of the threshold
+    (XLA contracts the Jacobian's products into FMAs on the CPU)."""
+    kw = dict(fft_impl=fft_impl, matmul_precision="highest", compute_foam=True,
+              foam_threshold=0.9, foam_lambda=1.5)
+    jc, tc = _configs(**kw)
+    jst, tst = _states(seed=6)
+    ts = np.asarray([0.5, 3.0, 11.25, 40.0], np.float32)
+    want = J.make_rollout(jc, keep_fields=True, time_batch=time_batch)(jst, jnp.asarray(ts))
+    got = T.make_rollout(tc, keep_fields=True, time_batch=time_batch)(tst, torch.from_numpy(ts))
+    assert got.foam.shape == (4, N, N) and got.foam.dtype == torch.float32
+    assert 0.005 < float(got.foam.mean()) < 0.5
+    differ = got.foam.numpy() != np.asarray(want.foam)
+    disp = got.displacement.double()
+    inv2h = N / (2.0 * 1000.0)
+    lam = 1.5
+
+    def d(f, axis):
+        return (torch.roll(f, -1, dims=axis) - torch.roll(f, 1, dims=axis)) * inv2h
+
+    jac = ((1 + lam * d(disp[..., 0], -1)) * (1 + lam * d(disp[..., 2], -2))
+           - lam * d(disp[..., 0], -2) * lam * d(disp[..., 2], -1))
+    assert np.all(np.abs(jac.numpy()[differ] - 0.9) < 1e-5)
+    assert torch.equal(T.step(tst, 11.25, tc).foam, got.foam[2])
+
+    want_ck = np.asarray(J.make_rollout(jc, keep_fields=False, time_batch=time_batch)(
+        jst, jnp.asarray(ts)))
+    got_ck = T.make_rollout(tc, keep_fields=False, time_batch=time_batch)(tst, ts).numpy()
+    scale = (got.displacement.abs().sum(dim=(-3, -2, -1)) + got.normals.abs().sum(dim=(-3, -2, -1))
+             + got.foam.sum(dim=(-2, -1))).numpy()
+    assert np.all(np.abs(got_ck - want_ck) < CHECKSUM_TOL * scale + differ.sum(axis=(-2, -1)))
+
+
 UNPORTED = [
     (dict(fft_impl="pallas", hermitian_pack=False), N, "K4"),
     # 1024 takes the four-step route (K2 + K3), whose tier check still raises
     (dict(fft_impl="pallas", resolution=1024, matmul_precision="default"), 1024, "default"),
     (dict(fft_impl="xla"), N, "xla"),
-    (dict(fft_impl="matmul", compute_foam=True), N, "foam"),
+    # foam is ported; its cascade branch is not
+    (dict(fft_impl="matmul", compute_foam=True, num_cascades=2), N, "cascades"),
     (dict(fft_impl="pallas", num_cascades=2), N, "cascades"),
     (dict(fft_impl="pallas", matmul_precision="default"), N, "default"),
 ]
