@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths: the two step paths, gated against the
+Drives the port's four paths: the three step paths, gated against the
 float64 golden model, and the frame renderer, gated against a frame the JAX
 package rendered. It imports no jax.
 
@@ -18,17 +18,22 @@ package rendered. It imports no jax.
   (``make_frame_renderer(OceanConfig(fft_impl="pallas"), 1200, 700)``,
   mesh 128 x 4, 512^2 state from numpy noise of seed 0, default camera)
   through kernels K1, K7 and K8.
+- The unpacked 512^2 step, the accuracy tier (``OceanConfig(fft_impl=
+  "pallas", hermitian_pack=False)``) on phase 3's state: through kernel K4
+  at ``matmul_precision="bf16x3"`` and through K5 + K6 at "highest",
+  600-frame checksum rollouts at time_batch 6.
 
 Phases, one line each:
 
 1. device: nvidia-smi name and power limit, torch's device name;
-2. build: nvcc builds both libraries of ``gfx_ocean_tpu_torch/csrc`` at
+2. build: nvcc builds every library of ``gfx_ocean_tpu_torch/csrc`` at
    once, with the ptxas lines (registers, spills) of each;
 3. state: the 512^2 state from the shipped bins, else synthesized from a
    torch.Generator seeded 0;
 4. kernel vs plain: K1 against its plain PyTorch version on the card;
 5. golden: the step's fields against the float64 golden model;
-6. time: one K1 call against one plain call (CUDA events);
+6. time: one K1 call against one plain call and torch.fft.ifft2 of the
+   same spectra (CUDA events);
 7. rollout: make_rollout through K1 (launch count, finite checksums,
    steps/s) and the same rollout through the plain version;
 8. fourstep_state: the 4096^2 state synthesized from a torch.Generator
@@ -38,7 +43,8 @@ Phases, one line each:
    4096^2 over the six frames of T_COMPARE and at 8192^2 over two;
 10. fourstep_golden: the 4096^2 step at t = 11.25 against the golden model;
 11. fourstep_time_one_call: K2, K3 and the whole step at tb 1 and 4 against
-    the plain version (CUDA events);
+    the plain version, and at tb 1 torch.fft along x, y and both (CUDA
+    events);
 12. fourstep_rollout: make_rollout(keep_fields=False) at tb 1 and 4 through
     the kernels (launch counts, finite checksums that agree with the plain
     rollout, steps/s) and through the plain version;
@@ -54,11 +60,25 @@ Phases, one line each:
 16. render_vs_jax: the frame against the stored JAX frame
     (``gfx_ocean_tpu_torch/golden/frame_jax_1200x700.npz``);
 17. render_time: one frame through the kernels and through the plain
-    versions, K7 and K8 alone against theirs (CUDA events), 60 frames of
-    the main path by wall clock with every launch count, and
-    torch.profiler's top device ops of a frame.
+    versions, K7 and K8 alone against theirs and K8 against one
+    scatter_reduce("amin") (CUDA events), 60 frames of the main path by wall
+    clock with every launch count, and torch.profiler's top device ops of a
+    frame;
+18. unpacked_kernel_vs_plain: K4, K5 alone, K6 alone (fed K5's Y) and
+    K5 + K6 chained against the plain version, planes and checksums, at
+    64^2, 256^2 and 512^2 over the six frames of T_COMPARE, with the
+    default flags and with conj_neg;
+19. unpacked_golden: 512^2 at t = 11.25 through K4 and through K5 + K6
+    against the golden model (rel and abs L-inf);
+20. unpacked_time_one_call: a 6-frame call of K4, K5, K6 and their plain
+    versions, and torch.fft of the same three spectra (CUDA events);
+21. unpacked_rollout: make_rollout(keep_fields=False, time_batch=6) over
+    600 frames for both routes through the kernels (launch counts, finite
+    checksums that agree with the plain rollout, steps/s, torch.profiler's
+    device time) and through the plain version.
 
-Then one JSON line with the kernels (K1, K2, K3, K7, K8), and as the last line
+Then one JSON line with the kernels K1-K8 (times, bounds from this run's
+shapes, library yardsticks), and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero with no
 result; so does a machine without CUDA.
 """
@@ -68,6 +88,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -124,6 +145,29 @@ K8_N, K8_N_OCT, K8_LONG_RUN = 735_784, 105_000, 30_000
 JAX_FRAME_PIXELS_OFF = 1e-3
 JAX_FRAME_MEAN_COLOR = 0.5
 
+# The unpacked step (K4, K5 + K6): phase 3's 512^2 state, OceanConfig(
+# fft_impl="pallas", hermitian_pack=False) at "bf16x3" (the single route,
+# K4) and at "highest" (the blocked route, K5 + K6); the kernel-vs-plain
+# check also at the central 64^2 and 256^2 crops of that state.
+U_COMPARE = (64, 256, 512)
+U_TIMING_CALLS = 50
+U_PLAIN_TIMING_CALLS = 10
+U_PROFILE_STEPS = 60
+
+# The card's published peaks (H100 SXM data sheet, dense, 700 W): a
+# kernel's bound is max(bytes / HBM rate, operations / FP32 rate), with
+# each input read once and each output written once. The inputs of a step
+# kernel are the state's (h0, omega), the twiddles and the times: the planes
+# a hoist derives from the state (K1's pre, pre_rho, omega_rho) are not
+# compulsory traffic. Integer work counts at the FP32 rate of the CUDA cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# Operations a pixel of K7 (pixel center 8, 3 edge functions 12, the
+# denominator 2, w and z 11, tests 7), counted from csrc/raster.cu.
+K7_OPS_PER_PIXEL = 40
+# Operations an entry and key of K8: unpack, compare, select, min.
+K8_OPS_PER_KEY = 4
+
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
@@ -132,6 +176,24 @@ def fail(msg: str) -> None:
 
 def phase(label: str, **fields) -> None:
     print(json.dumps({"phase": label, **fields}), flush=True)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def fft_ops(n: int, transforms: int) -> float:
+    """Operations of ``transforms`` complex n-point FFTs, 5 n log2 n each."""
+    return 5.0 * n * math.log2(n) * transforms
+
+
+def bound(n_bytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes over the HBM rate or
+    operations over the FP32 rate, whichever is larger."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def event_ms(fn, calls: int) -> float:
@@ -167,7 +229,8 @@ def main() -> None:
     kernels_line = [run(dev, N)]
     kernels_line += run_fourstep(dev)
     kernels_line += run_render(dev)
-    print(json.dumps({"kernels": kernels_line}), flush=True)
+    kernels_line += run_unpacked(dev)
+    print(json.dumps({"kernels": sorted(kernels_line, key=lambda k: k["name"])}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)
@@ -190,6 +253,23 @@ def build() -> None:
         for name, so in libs.items()})
 
 
+def main_state(dev, cfg):
+    """Phase 3's state: the shipped bins where they are, else a Phillips
+    state from a torch.Generator seeded 0. Returns (state, source)."""
+    import torch
+
+    import gfx_ocean_tpu_torch as ot
+    from gfx_ocean_tpu_torch.assets.bincode import reference_data_dir
+
+    data = reference_data_dir()
+    if all(os.path.exists(os.path.join(data, f)) for f in ("spectrum.bin", "omega.bin")):
+        return (ot.ocean_state_from_assets(resolution=cfg.resolution, device=dev),
+                f"bincode files in {data}")
+    return (ot.ocean_state_from_phillips(cfg, generator=torch.Generator().manual_seed(0),
+                                         device=dev),
+            "phillips synthesize, torch.Generator seed 0")
+
+
 def run(dev, n: int) -> dict:
     """Phases 3-7 on ``dev`` at an n x n grid; returns K1's kernels entry."""
     import torch
@@ -197,7 +277,6 @@ def run(dev, n: int) -> dict:
     import numpy as np
 
     import gfx_ocean_tpu_torch as ot
-    from gfx_ocean_tpu_torch.assets.bincode import reference_data_dir
     from gfx_ocean_tpu_torch.golden.reference import golden_fields, golden_normals
     from gfx_ocean_tpu_torch.ops import fused_step
     from gfx_ocean_tpu_torch.ops.derived import finite_difference_normals_planes
@@ -207,14 +286,7 @@ def run(dev, n: int) -> dict:
     # --- 3. state -----------------------------------------------------------
     cfg = ot.OceanConfig(resolution=n, fft_impl="pallas", matmul_precision="bf16x3")
     tier = fused_step.check_supported(cfg, n)
-    data = reference_data_dir()
-    if all(os.path.exists(os.path.join(data, f)) for f in ("spectrum.bin", "omega.bin")):
-        state = ot.ocean_state_from_assets(resolution=n, device=dev)
-        source = f"bincode files in {data}"
-    else:
-        state = ot.ocean_state_from_phillips(
-            cfg, generator=torch.Generator().manual_seed(0), device=dev)
-        source = "phillips synthesize, torch.Generator seed 0"
+    state, source = main_state(dev, cfg)
     phase("state", source=source, resolution=n, h0_absmax=float(state.h0.abs().max()),
           omega_max=float(state.omega.max()))
 
@@ -262,8 +334,15 @@ def run(dev, n: int) -> dict:
                          TIMING_CALLS)
     plain_ms = event_ms(lambda: fused_step.packed_checksums_reference(inputs, ts_tb, cfg),
                         TIMING_CALLS)
+    # The library yardstick: torch.fft.ifft2 of the H and Z spectra of each frame.
+    spectra = torch.randn((TIME_BATCH, 2, n, n), dtype=torch.complex64, device=dev)
+    library_ms = event_ms(lambda: torch.fft.ifft2(spectra), TIMING_CALLS)
+    del spectra
+    k1_bound = bound(nbytes(state.h0, state.omega, inputs.twiddle, ts_tb)
+                     + 4 * TIME_BATCH * (3 * n * n + n // fused_step.CHECKSUM_ROWS),
+                     fft_ops(n, TIME_BATCH * 4 * n))
     phase("time_one_call", frames=TIME_BATCH, kernel_ms=kernel_ms, plain_ms=plain_ms,
-          calls=TIMING_CALLS, clock="cuda events")
+          library_ifft2_ms=library_ms, calls=TIMING_CALLS, clock="cuda events", **k1_bound)
 
     # --- 7. rollout ---------------------------------------------------------
     rollout = ot.make_rollout(cfg, keep_fields=False, time_batch=TIME_BATCH)
@@ -304,6 +383,8 @@ def run(dev, n: int) -> dict:
         "max_abs_err": max_abs,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        **k1_bound,
+        "library_ms": library_ms,
     }
 
 
@@ -416,6 +497,21 @@ def run_fourstep(dev) -> list:
                                                              cfg), FS_PLAIN_TIMING_CALLS),
             step_plain_ms=event_ms(lambda: fs.fourstep_checksums_reference(inputs, ts, cfg),
                                    FS_PLAIN_TIMING_CALLS))
+        if tb == 1:
+            # Library yardsticks: torch.fft of the H and Z spectra along x
+            # (K2), along y (K3) and both (the step).
+            spectra = torch.randn((tb, 2, FS_N, FS_N), dtype=torch.complex64, device=dev)
+            rec.update(
+                k2_library_ms=event_ms(lambda: torch.fft.ifft(spectra, dim=-1), FS_TIMING_CALLS),
+                k3_library_ms=event_ms(lambda: torch.fft.ifft(spectra, dim=-2), FS_TIMING_CALLS),
+                step_library_ifft2_ms=event_ms(lambda: torch.fft.ifft2(spectra),
+                                               FS_TIMING_CALLS))
+            del spectra
+            rec["k2_bound"] = bound(nbytes(state.h0, state.omega, inputs.twiddle, ts, y),
+                                    fft_ops(FS_N, tb * 2 * FS_N))
+            rec["k3_bound"] = bound(nbytes(y) + 4 * tb * (3 * FS_N * FS_N
+                                                           + FS_N // fs.CHECKSUM_ROWS),
+                                    fft_ops(FS_N, tb * 2 * FS_N))
         one_call[tb] = rec
         phase("fourstep_time_one_call", resolution=FS_N, frames=tb, calls=FS_TIMING_CALLS,
               plain_calls=FS_PLAIN_TIMING_CALLS, clock="cuda events", **rec)
@@ -463,24 +559,10 @@ def run_fourstep(dev) -> list:
             main_launches = launches
 
     # --- 13. device time by kernel -------------------------------------------
-    from torch.profiler import ProfilerActivity, profile
-
     rollout = ot.make_rollout(cfg, keep_fields=False, time_batch=1)
-    ts_prof = ts[:FS_PROFILE_STEPS]
-    rollout(state, ts_prof).cpu()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        rollout(state, ts_prof).cpu()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel = sorted(((e.key, e.device_time_total / 1e3, e.count)
-                        for e in prof.key_averages()
-                        if e.device_type == torch.autograd.DeviceType.CUDA),
-                       key=lambda k: -k[1])
-    busy_ms = sum(ms for _, ms, _ in by_kernel)
-    phase("fourstep_profile", resolution=FS_N, frames=FS_PROFILE_STEPS, time_batch=1,
-          wall_ms=wall_ms, device_busy_ms=busy_ms,
-          kernels=[{"name": k[:90], "ms_per_frame": ms / FS_PROFILE_STEPS, "calls": cnt}
-                   for k, ms, cnt in by_kernel[:12]])
+    phase("fourstep_profile", resolution=FS_N, time_batch=1,
+          **device_profile(lambda: rollout(state, ts[:FS_PROFILE_STEPS]).cpu(),
+                           FS_PROFILE_STEPS))
 
     entries = []
     for key, name, line, ms, plain_ms in (
@@ -497,6 +579,8 @@ def run_fourstep(dev) -> list:
             "max_abs_err": errs[FS_N][key][0],
             "ms": ms,
             "plain_ms": plain_ms,
+            **one_call[1][f"{key}_bound"],
+            "library_ms": one_call[1][f"{key}_library_ms"],
         })
     return entries
 
@@ -708,6 +792,21 @@ def run_render(dev) -> list:
     k7_plain_ms = event_ms(lambda: rr.slot_stage_reference(*k7_args), R_PLAIN_TIMING_CALLS)
     k8_ms = event_ms(lambda: rr.launch_segmin_kernel(*k8_args), R_KERNEL_CALLS)
     k8_plain_ms = event_ms(lambda: rr.segmin_stage_reference(*k8_args), R_PLAIN_TIMING_CALLS)
+    # K8's library yardstick: one scatter_reduce("amin") of the unpacked keys
+    # by run id, the run minima K8 leaves on each run's last entry.
+    so, sk, n_oct, id_bits = k8_args
+    keys64 = rr._zq_unpack_keys(rr._u32_value(sk), id_bits)
+    runs = so.long().expand_as(keys64).contiguous()
+    empty = torch.full((keys64.shape[0], n_oct + 1), rr.KEY_MAX, dtype=torch.int64, device=dev)
+    k8_library_ms = event_ms(lambda: empty.scatter_reduce(1, runs, keys64, "amin",
+                                                          include_self=False), R_KERNEL_CALLS)
+    del keys64, runs, empty
+    k7_keys, k7_octs = rr.launch_slot_kernel(*k7_args)
+    k8_mins, k8_skey = rr.launch_segmin_kernel(*k8_args)
+    k7_bound = bound(nbytes(k7_args[0], k7_args[1], k7_keys, k7_octs),
+                     K7_OPS_PER_PIXEL * 8 * k7_args[0].shape[1])
+    k8_bound = bound(nbytes(so, sk, k8_mins, k8_skey), K8_OPS_PER_KEY * 8 * so.shape[0])
+    del k7_keys, k7_octs, k8_mins, k8_skey
     stage_ms = render_stages(dev, state, cfg, disp, vp, cp, k7_ms)
 
     ts = [R_T + i / 60.0 for i in range(R_FRAMES)]
@@ -725,24 +824,17 @@ def run_render(dev) -> list:
                     k2=fs.launch_fourstep_row.launches, k3=fs.launch_fourstep_col.launches,
                     k7=rr.launch_slot_kernel.launches, k8=rr.launch_segmin_kernel.launches)
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for t in ts[:R_PROFILE_FRAMES]:
-            fr(state, t, vp, cp)
-        torch.cuda.synchronize()
-    by_op = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA), key=lambda k: -k[1])
-    busy_ms = sum(ms for _, ms, _ in by_op) / R_PROFILE_FRAMES
+    prof = device_profile(lambda: [fr(state, t, vp, cp) for t in ts[:R_PROFILE_FRAMES]],
+                          R_PROFILE_FRAMES)
+    busy_ms = prof["device_busy_ms"] / R_PROFILE_FRAMES
     phase("render_time", width=R_W, height=R_H, clock="cuda events",
           frame_ms=frame_ms, plain_frame_ms=plain_frame_ms, k7_ms=k7_ms,
           k7_plain_ms=k7_plain_ms, k8_ms=k8_ms, k8_plain_ms=k8_plain_ms,
+          k8_library_scatter_amin_ms=k8_library_ms, k7_bound=k7_bound, k8_bound=k8_bound,
           stage_ms=stage_ms, frames=R_FRAMES, wall_ms_per_frame=wall_ms,
           frames_per_sec=1e3 / wall_ms, launches=launches,
-          profiled_frames=R_PROFILE_FRAMES, device_busy_ms_per_frame=busy_ms,
-          idle_share=1.0 - busy_ms / wall_ms,
-          top_device_ops=[{"name": k[:90], "ms_per_frame": ms / R_PROFILE_FRAMES,
-                           "calls": cnt} for k, ms, cnt in by_op[:15]])
+          device_busy_ms_per_frame=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
+          profile=prof)
     if launches != dict(k1=R_FRAMES, k2=0, k3=0, k7=R_FRAMES, k8=R_FRAMES):
         fail(f"the {R_FRAMES}-frame run launched {launches}, expected {R_FRAMES} of K1, K7, K8")
 
@@ -750,12 +842,224 @@ def run_render(dev) -> list:
         {"name": "K7 slot_kernel (per-slot oct tile tests, packed keys)", "route": "cuda",
          "source": "gfx_ocean_tpu_torch/csrc/raster.cu",
          "replaces": "gfx_ocean_tpu/render/raster.py:666", "launches": launches["k7"],
-         "max_abs_err": k7_err, "ms": k7_ms, "plain_ms": k7_plain_ms},
+         "max_abs_err": k7_err, "ms": k7_ms, "plain_ms": k7_plain_ms, **k7_bound,
+         "library_ms": None},
         {"name": "K8 segmin (segmented min over oct runs: block scan, carry, apply)",
          "route": "cuda", "source": "gfx_ocean_tpu_torch/csrc/raster.cu",
          "replaces": "gfx_ocean_tpu/render/raster.py:816", "launches": launches["k8"],
-         "max_abs_err": k8_err, "ms": k8_ms, "plain_ms": k8_plain_ms},
+         "max_abs_err": k8_err, "ms": k8_ms, "plain_ms": k8_plain_ms, **k8_bound,
+         "library_ms": k8_library_ms},
     ]
+
+
+def device_profile(fn, frames: int, top: int = 15) -> dict:
+    """torch.profiler's device time of ``fn()`` (after one warm-up call) by
+    kernel, per frame, and the idle share of its wall clock."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_op = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA), key=lambda k: -k[1])
+    busy_ms = sum(ms for _, ms, _ in by_op)
+    return dict(frames=frames, wall_ms=wall_ms, device_busy_ms=busy_ms,
+                idle_share=1.0 - busy_ms / wall_ms,
+                top_device_ops=[{"name": k[:90], "ms_per_frame": ms / frames, "calls": cnt}
+                                for k, ms, cnt in by_op[:top]])
+
+
+def run_unpacked(dev) -> list:
+    """Phases 18-21: the unpacked 512^2 step through K4 (the single route)
+    and K5 + K6 (the blocked route); returns their kernels entries."""
+    import numpy as np
+    import torch
+
+    import gfx_ocean_tpu_torch as ot
+    from gfx_ocean_tpu_torch import kernels
+    from gfx_ocean_tpu_torch.golden.reference import golden_fields, golden_normals
+    from gfx_ocean_tpu_torch.models.ocean import downsample_state
+    from gfx_ocean_tpu_torch.ops import fourstep_step as fs
+    from gfx_ocean_tpu_torch.ops import fused_step
+    from gfx_ocean_tpu_torch.ops import unpacked_step as us
+    from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, finite_difference_normals_planes
+    from gfx_ocean_tpu_torch.render import raster as rr
+    from gfx_ocean_tpu_torch.utils.complexpair import from_pair_np
+    from gfx_ocean_tpu_torch.utils.profiling import time_rollout
+
+    single = ot.OceanConfig(resolution=N, fft_impl="pallas", hermitian_pack=False,
+                            matmul_precision="bf16x3")
+    blocked = dataclasses.replace(single, matmul_precision="highest")
+    if (us.unpacked_route(single, N), us.unpacked_route(blocked, N)) != ("single", "blocked"):
+        fail("the unpacked 512^2 configs do not take the single and blocked routes")
+    state, _ = main_state(dev, single)
+
+    # --- 18. K4, K5, K6 and K5 + K6 against the plain version -------------
+    ts_cmp = torch.tensor(T_COMPARE, dtype=torch.float32, device=dev)
+    errs = {}
+    for n in U_COMPARE:
+        st = downsample_state(state, n)
+        for flags in (ot.CompatFlags(), ot.CompatFlags(conj_neg=True)):
+            cfg = dataclasses.replace(single, resolution=n, compat=flags)
+            inputs = fused_step.hoist_packed(st.h0, st.omega, cfg)
+            k4_planes = us.launch_unpacked_step(inputs, ts_cmp, cfg)
+            y = us.launch_unpacked_rows(inputs, ts_cmp, cfg)
+            k6_planes = us.launch_unpacked_cols(y, inputs)
+            y_want = us.unpacked_rows_reference(inputs, ts_cmp, cfg)
+            want = us.unpacked_cols_reference(y_want, inputs)
+            torch.cuda.synchronize()
+            summands = (want.abs().sum(dim=(-3, -2, -1))
+                        + finite_difference_normals_planes(want[:, 1], cfg.normal_height_scale)
+                        .abs().sum(dim=(-3, -2, -1)))
+            ck_want = checksums_of_planes(want, cfg)
+
+            def ck_rel(planes):
+                return float(((checksums_of_planes(planes, cfg) - ck_want).abs()
+                              / summands).max())
+
+            rec = dict(k4=max_err(k4_planes, want), k5=max_err(y, y_want),
+                       k6=max_err(k6_planes, us.unpacked_cols_reference(y, inputs)),
+                       k5_k6=max_err(k6_planes, want))
+            cks = dict(k4=ck_rel(k4_planes), k5_k6=ck_rel(k6_planes))
+            conj = bool(flags.conj_neg)
+            errs[(n, conj)] = dict(rec, summands_max=float(summands.max()))
+            phase("unpacked_kernel_vs_plain", resolution=n, conj_neg=conj,
+                  frames=list(T_COMPARE), k4_planes_max_abs=rec["k4"][0],
+                  k4_planes_rel=rec["k4"][1], k5_y_max_abs=rec["k5"][0], k5_y_rel=rec["k5"][1],
+                  k6_planes_max_abs=rec["k6"][0], k6_planes_rel=rec["k6"][1],
+                  k5_k6_planes_max_abs=rec["k5_k6"][0], k5_k6_planes_rel=rec["k5_k6"][1],
+                  k4_checksum_rel_to_summands=cks["k4"],
+                  k5_k6_checksum_rel_to_summands=cks["k5_k6"],
+                  k4_bit_equal_k5_k6=bool(torch.equal(k4_planes, k6_planes)),
+                  tolerance=TOL_KERNEL, checksum_tolerance=TOL_CHECKSUM)
+            del inputs, k4_planes, y, k6_planes, y_want, want
+            for what, (_, rel) in rec.items():
+                if not (rel <= TOL_KERNEL):
+                    fail(f"{n}^2 unpacked kernel vs plain, {what}: {rel:.3e} > {TOL_KERNEL}")
+            for what, rel in cks.items():
+                if not (rel <= TOL_CHECKSUM):
+                    fail(f"{n}^2 unpacked checksums through {what}: {rel:.3e} > {TOL_CHECKSUM}")
+    torch.cuda.empty_cache()
+
+    # --- 19. both routes against the golden model --------------------------
+    gold = golden_fields(from_pair_np(state.h0.cpu().numpy()), state.omega.cpu().numpy(),
+                         T_CHECK, single.domain_size, single.compat)
+    gold_normals = golden_normals(gold[..., 1], single.normal_height_scale)
+    for route, cfg in (("single", single), ("blocked", blocked)):
+        fields = ot.make_step(cfg)(state, T_CHECK)
+        disp = fields.displacement.cpu().numpy()
+        abs_linf = float(np.abs(disp - gold).max())
+        rel_linf = abs_linf / float(np.abs(gold).max())
+        nrm_linf = float(np.abs(fields.normals.cpu().numpy() - gold_normals).max())
+        phase("unpacked_golden", route=route, matmul_precision=cfg.matmul_precision,
+              resolution=N, t=T_CHECK, shape=list(disp.shape), rel_linf=rel_linf,
+              abs_linf=abs_linf, normals_abs_linf=nrm_linf, gate="rel_linf",
+              gate_limit=GOLDEN_GATE, effective_precision=fused_step.check_supported(cfg, N))
+        if disp.shape != (N, N, 3) or not (np.isfinite(disp).all() and rel_linf <= GOLDEN_GATE):
+            fail(f"unpacked {route} golden gate: shape {disp.shape}, "
+                 f"relative L-inf {rel_linf:.3e} > {GOLDEN_GATE}")
+
+    # --- 20. one call of K4, K5, K6 against the plain version and torch.fft -
+    inputs = fused_step.hoist_packed(state.h0, state.omega, single)
+    ts_tb = torch.arange(TIME_BATCH, dtype=torch.float32, device=dev) / 60.0
+    y = us.launch_unpacked_rows(inputs, ts_tb, single)
+    spectra = torch.randn((TIME_BATCH, 3, N, N), dtype=torch.complex64, device=dev)
+    calls, plain_calls = U_TIMING_CALLS, U_PLAIN_TIMING_CALLS
+    one_call = dict(
+        k4_ms=event_ms(lambda: us.launch_unpacked_step(inputs, ts_tb, single), calls),
+        k5_ms=event_ms(lambda: us.launch_unpacked_rows(inputs, ts_tb, single), calls),
+        k6_ms=event_ms(lambda: us.launch_unpacked_cols(y, inputs), calls),
+        k4_plain_ms=event_ms(lambda: us.unpacked_planes_reference(inputs, ts_tb, single),
+                             plain_calls),
+        k5_plain_ms=event_ms(lambda: us.unpacked_rows_reference(inputs, ts_tb, single),
+                             plain_calls),
+        k6_plain_ms=event_ms(lambda: us.unpacked_cols_reference(y, inputs), plain_calls),
+        k4_library_ms=event_ms(lambda: torch.fft.ifft2(spectra), calls),
+        k5_library_ms=event_ms(lambda: torch.fft.ifft(spectra, dim=-1), calls),
+        k6_library_ms=event_ms(lambda: torch.fft.ifft(spectra, dim=-2), calls))
+    planes_bytes = 4 * TIME_BATCH * 3 * N * N
+    in_bytes = nbytes(inputs.h0, inputs.omega, inputs.twiddle, ts_tb)
+    bounds = dict(k4=bound(in_bytes + planes_bytes, fft_ops(N, TIME_BATCH * 6 * N)),
+                  k5=bound(in_bytes + nbytes(y), fft_ops(N, TIME_BATCH * 3 * N)),
+                  k6=bound(nbytes(y) + planes_bytes, fft_ops(N, TIME_BATCH * 3 * N)))
+    phase("unpacked_time_one_call", resolution=N, frames=TIME_BATCH, calls=calls,
+          plain_calls=plain_calls, clock="cuda events",
+          k4_grid_blocks=kernels.load("unpacked_step").unpacked_step_grid(TIME_BATCH, N),
+          bounds=bounds, **one_call)
+    del y, spectra, inputs
+    torch.cuda.empty_cache()
+
+    # --- 21. the 600-frame checksum rollouts --------------------------------
+    counters = (fused_step.launch_packed_step, fs.launch_fourstep_row, fs.launch_fourstep_col,
+                us.launch_unpacked_step, us.launch_unpacked_rows, us.launch_unpacked_cols,
+                rr.launch_slot_kernel, rr.launch_segmin_kernel)
+    names = ("k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8")
+    ts = torch.arange(STEPS, dtype=torch.float32, device=dev) / 60.0
+    calls_per_rollout = STEPS // TIME_BATCH
+    main_launches = {}
+    for route, cfg, kernels in (("single", single, ("k4",)), ("blocked", blocked, ("k5", "k6"))):
+        rollout = ot.make_rollout(cfg, keep_fields=False, time_batch=TIME_BATCH)
+        for c in counters:
+            c.launches = 0
+        rec = time_rollout(rollout, state, ts, repeats=REPEATS)
+        launches = {k: c.launches for k, c in zip(names, counters)}
+        expected = {k: (REPEATS + 1) * calls_per_rollout if k in kernels else 0 for k in names}
+
+        def plain_rollout(st, tt, cfg=cfg):
+            pre = fused_step.hoist_packed(st.h0, st.omega, cfg)
+            return torch.cat([checksums_of_planes(
+                us.unpacked_planes_reference(pre, tt[i:i + TIME_BATCH], cfg), cfg)
+                for i in range(0, tt.shape[0], TIME_BATCH)])
+
+        plain = time_rollout(plain_rollout, state, ts, repeats=REPEATS)
+        cks, plain_cks = rec["checksums"], plain["checksums"]
+        ck_diff = float(np.abs(cks - plain_cks).max())
+        ck_limit = TOL_CHECKSUM * errs[(N, False)]["summands_max"]
+        prof = device_profile(lambda: rollout(state, ts[:U_PROFILE_STEPS]).cpu(),
+                              U_PROFILE_STEPS)
+        phase("unpacked_rollout", route=route, matmul_precision=cfg.matmul_precision,
+              steps=STEPS, time_batch=TIME_BATCH, repeats=REPEATS,
+              steps_per_sec=rec["steps_per_sec"], repeats_sec=rec["repeats_sec"],
+              plain_steps_per_sec=plain["steps_per_sec"], plain_repeats_sec=plain["repeats_sec"],
+              launches=launches, expected_launches=expected,
+              launches_per_rollout={k: launches[k] // (REPEATS + 1) for k in kernels},
+              checksums_finite=bool(np.isfinite(cks).all()),
+              checksum_max_abs_diff_vs_plain=ck_diff, checksum_limit=ck_limit,
+              checksum_first=float(cks[0]), checksum_last=float(cks[-1]), profile=prof)
+        if launches != expected:
+            fail(f"unpacked {route} rollout launched {launches}, expected {expected}")
+        if cks.shape != (STEPS,) or not np.isfinite(cks).all():
+            fail(f"unpacked {route} rollout checksums: shape {cks.shape}, "
+                 f"finite {bool(np.isfinite(cks).all())}")
+        if not (ck_diff <= ck_limit):
+            fail(f"unpacked {route} rollout checksums differ from the plain version "
+                 f"by {ck_diff:.3e}")
+        main_launches.update({k: launches[k] for k in kernels})
+
+    entries = []
+    for key, name, line in (
+            ("k4", "K4 unpacked_fused (one cooperative launch: propagate + row FFT, "
+                   "grid sync, column FFT)", 128),
+            ("k5", "K5 unpacked_row_pass (unpacked propagate + row FFT of 3 spectra)", 184),
+            ("k6", "K6 unpacked_col_pass (real-output column FFT)", 241)):
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "gfx_ocean_tpu_torch/csrc/unpacked_step.cu",
+            "replaces": f"gfx_ocean_tpu/ops/pallas_step.py:{line}",
+            "launches": main_launches[key],
+            "max_abs_err": max(errs[(N, c)][key][0] for c in (False, True)),
+            "ms": one_call[f"{key}_ms"],
+            "plain_ms": one_call[f"{key}_plain_ms"],
+            **bounds[key],
+            "library_ms": one_call[f"{key}_library_ms"],
+        })
+    return entries
 
 
 if __name__ == "__main__":

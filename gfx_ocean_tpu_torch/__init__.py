@@ -8,9 +8,12 @@ bincode loader, spectrum envelopes, DFT tables) are copies, proven equal to
 the originals by ``tests/test_torch_*.py``.
 
 The main path is the 512^2 Hermitian-packed step (``fft_impl="pallas"``):
-kernel K1, ``ops/fused_step.py`` and ``csrc/packed_step.cu``; above 512 the
+kernel K1, ``ops/fused_step.py`` and ``csrc/packed_step.cu``; unpacked
+(``hermitian_pack=False``) the accuracy tier, kernels K4-K6
+(``ops/unpacked_step.py``, ``csrc/unpacked_step.cu``); above 512 the
 four-step path (K2 + K3). The frame renderer (``render/``, kernels K7 + K8
-in ``csrc/raster.cu``) turns a step into a shaded frame.
+in ``csrc/raster.cu``) turns a step into a shaded frame. States are built
+on the card unless a device is given.
 """
 
 from gfx_ocean_tpu_torch.config import CompatFlags, OceanConfig, PhillipsConfig

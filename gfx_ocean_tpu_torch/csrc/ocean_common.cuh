@@ -1,6 +1,7 @@
 // Device code shared by the ocean-step kernels (packed_step.cu: K1,
-// fourstep_step.cu: K2 + K3): the Hermitian-packed propagate of one element
-// and the checksum partials. Each .cu includes it and builds into its own
+// fourstep_step.cu: K2 + K3, unpacked_step.cu: K4-K6): the Dekker phase,
+// k-hat, the Hermitian-packed propagate of one element, the radix-2 Stockham
+// butterfly and the checksum partials. Each .cu includes it and builds into its own
 // library (gfx_ocean_tpu_torch/kernels.py hashes this header with each source).
 
 #pragma once
@@ -98,6 +99,35 @@ __device__ __forceinline__ void khat(float ix, float iy, float np1, float scale,
   const float inv = q > 1.0e-20f ? __frcp_rn(__fsqrt_rn(q)) : 0.0f;
   khx = mul(kx, inv);
   khy = mul(ky, inv);
+}
+
+// One radix-2 Stockham stage (decimation in frequency, natural order out):
+// for len = n >> s_log, m = len / 2, stride = 1 << s_log and butterfly
+// b = p * stride + q (p < m, q < stride):
+//   dst[q + stride*2p]       = a + b
+//   dst[q + stride*(2p + 1)] = (a - b) e^{+2 pi i p / len}
+// with a = src[q + stride*p], b = src[q + stride*(p + m)]. Element e of a
+// sequence lives at re[e * step], im[e * step] (step = 1 for rows, the
+// column count for interleaved columns). e^{2 pi i p / len} = tw[p * stride].
+__device__ __forceinline__ void stockham_butterfly(
+    const float* __restrict__ src_re, const float* __restrict__ src_im,
+    float* __restrict__ dst_re, float* __restrict__ dst_im,
+    int b, int s_log, int half_n, int step, float wr, float wi) {
+  const int stride = 1 << s_log;
+  const int m = half_n >> s_log;
+  const int p = b >> s_log;
+  const int q = b & (stride - 1);
+  const int ia = (q + (p << s_log)) * step;
+  const int ib = ia + (m << s_log) * step;
+  const int oa = (q + (p << (s_log + 1))) * step;
+  const int ob = oa + stride * step;
+  const float ar = src_re[ia], ai = src_im[ia];
+  const float br = src_re[ib], bi = src_im[ib];
+  dst_re[oa] = ar + br;
+  dst_im[oa] = ai + bi;
+  const float er = ar - br, ei = ai - bi;
+  dst_re[ob] = er * wr - ei * wi;
+  dst_im[ob] = er * wi + ei * wr;
 }
 
 // The symmetrized height spectrum H = half (S + conj(S o rho)) and the packed

@@ -17,8 +17,9 @@
 //                            fixed tree order to one partial per block. The
 //                            caller sums the partials; no float atomics.
 //
-// The propagate arithmetic and checksum_partials live in ocean_common.cuh,
-// shared with K2 + K3 (fourstep_step.cu).
+// The propagate arithmetic, the Stockham butterfly and checksum_partials
+// live in ocean_common.cuh, shared with K2 + K3 (fourstep_step.cu) and
+// K4-K6 (unpacked_step.cu).
 // The TPU kernel's column pass ran at the last step of a sequential grid off a
 // scratch every earlier step filled. Blocks on the card run in no order, so
 // the two passes are two launches and Y goes through device memory.
@@ -43,40 +44,12 @@
 
 namespace {
 
+using ocean::stockham_butterfly;
 using ocean::sub;
 
 constexpr int kMaxN = 512;
 constexpr int kColCols = 8;       // columns per column-pass block: one 32 B sector a row
 constexpr int kColThreads = 256;
-
-// One radix-2 Stockham stage (decimation in frequency, natural order out):
-// for len = n >> s_log, m = len / 2, stride = 1 << s_log and butterfly
-// b = p * stride + q (p < m, q < stride):
-//   dst[q + stride*2p]       = a + b
-//   dst[q + stride*(2p + 1)] = (a - b) e^{+2 pi i p / len}
-// with a = src[q + stride*p], b = src[q + stride*(p + m)]. Element e of a
-// sequence lives at re[e * step], im[e * step] (step = 1 for rows, the
-// column count for interleaved columns). e^{2 pi i p / len} = tw[p * stride].
-__device__ __forceinline__ void stockham_butterfly(
-    const float* __restrict__ src_re, const float* __restrict__ src_im,
-    float* __restrict__ dst_re, float* __restrict__ dst_im,
-    int b, int s_log, int half_n, int step, float wr, float wi) {
-  const int stride = 1 << s_log;
-  const int m = half_n >> s_log;
-  const int p = b >> s_log;
-  const int q = b & (stride - 1);
-  const int ia = (q + (p << s_log)) * step;
-  const int ib = ia + (m << s_log) * step;
-  const int oa = (q + (p << (s_log + 1))) * step;
-  const int ob = oa + stride * step;
-  const float ar = src_re[ia], ai = src_im[ia];
-  const float br = src_re[ib], bi = src_im[ib];
-  dst_re[oa] = ar + br;
-  dst_im[oa] = ai + bi;
-  const float er = ar - br, ei = ai - bi;
-  dst_re[ob] = er * wr - ei * wi;
-  dst_im[ob] = er * wi + ei * wr;
-}
 
 // blockDim.x = n / 2: one x pair in the propagate, one butterfly per
 // sequence and stage in the transform.

@@ -6,18 +6,24 @@ computed directly from h0 and the absolute time t.
 
 Routes through ``step`` / ``make_rollout``, by ``config.fft_impl``:
 
-- "pallas": the fused step (``ops/fused_step.py``), routed by N as
-  ``pallas_planes`` routes it: kernel K1 for N <= 512, kernels K2 + K3
-  (``ops/fourstep_step.py``) for 1024 <= N <= 8192 whatever
-  ``hermitian_pack`` says. The hand-written CUDA kernels run for CUDA
-  tensors, their plain PyTorch version for CPU tensors.
+- "pallas": the fused step (``ops/fused_step.py``), routed as
+  ``pallas_planes`` routes it: at N <= 512 kernel K1, or with
+  ``hermitian_pack=False`` the unpacked step (``ops/unpacked_step.py``:
+  kernel K4, or K5 + K6 at 512 with ``matmul_precision="highest"``);
+  kernels K2 + K3 (``ops/fourstep_step.py``) for 1024 <= N <= 8192
+  whatever ``hermitian_pack`` says. The hand-written CUDA kernels run for
+  CUDA tensors, their plain PyTorch version for CPU tensors.
 - "matmul": the PyTorch matmul DFT (``ops/fft.py``; the four-step split
   above ``direct_dft_max``), packed or unpacked by ``config.hermitian_pack``.
 
-Not ported yet, and raising ``NotImplementedError``: "pallas" with
-``hermitian_pack=False`` at N <= 512 (K4/K5/K6) or at N = 16384, "xla"
-and cascades. ``time_batch`` frames run as one batch axis; the hoisted
-inputs are computed once per rollout call.
+Not ported yet, and raising ``NotImplementedError``: "pallas" at
+N = 16384, the "default" precision tier, "xla" and cascades.
+``time_batch`` frames run as one batch axis; the hoisted inputs are
+computed once per rollout call.
+
+The state constructors put the state on the card unless the caller asks
+for another device (``device="cpu"``, as the CPU tests do); without a card
+they raise rather than build a CPU state.
 """
 
 from __future__ import annotations
@@ -150,8 +156,9 @@ def make_rollout(config: OceanConfig, keep_fields: bool = True, time_batch: int 
     when ``compute_foam``), which keeps the output O(steps). Frames run
     ``time_batch`` at a time as one batch axis; ``len(ts)`` must be a
     multiple of it. On the "pallas" route without foam the checksum is
-    reduced by the fused kernels' checksum pass (K1's, or K3's above 512)
-    from the plane-major planes; foam needs the channel-last fields, so it
+    reduced from the plane-major planes: by the fused kernels' checksum
+    pass (K1's, or K3's above 512), or, unpacked, by
+    ``checksums_of_planes``; foam needs the channel-last fields, so it
     takes the fields' sums, as in the JAX package. The checksums stay on
     the state's device.
     """
@@ -192,11 +199,22 @@ def _checksums(fields: OceanFields) -> torch.Tensor:
     return out
 
 
+def _state_device(device: torch.device | str | None) -> torch.device | str:
+    """``device``, or the card when None; raises when None and there is no card."""
+    if device is not None:
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the state goes to the card unless a device "
+                           "is given; pass device='cpu' for a CPU state")
+    return torch.device("cuda")
+
+
 def state_from_numpy(h0_pair: np.ndarray, omega: np.ndarray,
                      device: torch.device | str | None = None) -> OceanState:
     """An OceanState from numpy arrays in the JAX package's layout:
-    h0 as (2, N, N) float32 planes and omega as (N, N)."""
-    device = device or "cpu"
+    h0 as (2, N, N) float32 planes and omega as (N, N), on ``device`` (the
+    card when None)."""
+    device = _state_device(device)
     h0 = torch.tensor(np.asarray(h0_pair, dtype=np.float32), device=device)
     om = torch.tensor(np.asarray(omega, dtype=np.float32), device=device)
     return OceanState(h0=h0, omega=om)
@@ -208,9 +226,11 @@ def ocean_state_from_assets(
     resolution: int = 512,
     device: torch.device | str | None = None,
 ) -> OceanState:
-    """Load the reference's shipped initial conditions (bincode files)."""
+    """Load the reference's shipped initial conditions (bincode files) onto
+    ``device`` (the card when None)."""
     from gfx_ocean_tpu_torch.assets.bincode import load_omega, load_spectrum  # noqa: PLC0415
 
+    device = _state_device(device)
     h0 = load_spectrum(spectrum_path, resolution)
     om = load_omega(omega_path, resolution)
     return state_from_numpy(to_pair(h0), om, device)
@@ -222,16 +242,18 @@ def ocean_state_from_phillips(
     generator: torch.Generator | None = None,
     device: torch.device | str | None = None,
 ) -> OceanState:
-    """Synthesize initial conditions; the draw comes from ``generator``
-    (a CPU generator seeded with ``phillips.seed`` when None)."""
+    """Synthesize initial conditions onto ``device`` (the card when None);
+    the draw comes from ``generator`` (a CPU generator seeded with
+    ``phillips.seed`` when None)."""
     from gfx_ocean_tpu_torch.spectra.phillips import synthesize  # noqa: PLC0415
 
     if config.num_cascades != 1:
         raise NotImplementedError(
             'cascades are not ported yet (ROADMAP.md queue 1, "models/ocean.py")')
+    device = _state_device(device)
     phillips = phillips or PhillipsConfig()
     h0, om = synthesize(config.resolution, config.domain_size, phillips, generator)
-    return OceanState(h0=h0.to(device or "cpu"), omega=om.to(device or "cpu"))
+    return OceanState(h0=h0.to(device), omega=om.to(device))
 
 
 def downsample_state(state: OceanState, resolution: int) -> OceanState:

@@ -95,6 +95,13 @@ def _dft_matrix_out_alt_np(n: int, sign: int, axis: int,
     return wr * alt[:, None], wi * alt[:, None]
 
 
+def twiddle_table(n: int, device) -> torch.Tensor:
+    """(2, n/2) float32 cos, sin of 2 pi k / n (row 1 of ``_dft_matrix_np``,
+    without the n x n table): the FFT kernels' twiddles."""
+    theta = (2.0 * np.pi / n) * np.arange(n // 2, dtype=np.float64)
+    return torch.from_numpy(np.stack([np.cos(theta), np.sin(theta)]).astype(np.float32)).to(device)
+
+
 def _split(n: int) -> Tuple[int, int]:
     """Balanced N = N1 * N2 split with both factors powers of two."""
     log = n.bit_length() - 1

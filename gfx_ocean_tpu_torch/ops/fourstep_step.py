@@ -56,7 +56,7 @@ from gfx_ocean_tpu_torch.config import OceanConfig
 from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, normals_scale
 from gfx_ocean_tpu_torch.ops.fft import (_dft_matrix_np, _dft_matrix_out_alt_np,
                                          _twiddle_np, effective_precision,
-                                         pin_fp32_matmul)
+                                         pin_fp32_matmul, twiddle_table)
 from gfx_ocean_tpu_torch.ops.propagate import (_f32, as_times, packed_spectra,
                                                precompute_propagate_packed)
 
@@ -160,10 +160,8 @@ def hoist_fourstep(h0_pair: torch.Tensor, omega: torch.Tensor,
     h0_pair = h0_pair.to(torch.float32).contiguous()
     omega = omega.to(device=dev, dtype=torch.float32).contiguous()
     pre, pre_rho, omega_rho = precompute_propagate_packed(h0_pair, omega, config.compat)
-    theta = (2.0 * np.pi / n) * np.arange(n // 2, dtype=np.float64)  # row 1 of _dft_matrix_np
-    twiddle = torch.from_numpy(np.stack([np.cos(theta), np.sin(theta)]).astype(np.float32))
     return FourstepInputs(pre.contiguous(), pre_rho.contiguous(), omega,
-                          omega_rho.contiguous(), twiddle.to(dev))
+                          omega_rho.contiguous(), twiddle_table(n, dev))
 
 
 # --------------------------------------------------------------------------

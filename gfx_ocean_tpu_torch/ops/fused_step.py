@@ -1,5 +1,5 @@
 """The fused ocean step on the card: kernel K1 for N <= 512, and the
-entry points that route by N.
+entry points that route by N and ``hermitian_pack``.
 
 K1 replaces ``gfx_ocean_tpu/ops/pallas_step.py::_packed_grid_kernel``
 (launched by ``_packed_single_fields``). Per frame it computes:
@@ -27,10 +27,12 @@ The JAX entry points ``pallas_planes`` / ``pallas_fields`` /
 ``pallas_checksums`` become ``fused_planes`` / ``fused_fields`` /
 ``fused_checksums`` here. As in ``pallas_planes``, N > 512 takes the
 four-step pipeline (K2 + K3, ``ops/fourstep_step.py``) before
-``hermitian_pack`` is looked at; ``check_supported``, ``hoist_packed``,
-``packed_planes`` and ``packed_checksums`` route the same way. Each picks
-by where the tensors lie: CPU tensors take the plain version, CUDA tensors
-launch the kernels or raise. Nothing falls back.
+``hermitian_pack`` is looked at; at N <= 512 ``hermitian_pack=False``
+takes the unpacked step (K4, or K5 + K6, ``ops/unpacked_step.py``).
+``check_supported`` and ``hoist_packed`` route by N and ``hermitian_pack``;
+``packed_planes`` and ``packed_checksums`` by the type of the hoisted
+inputs. Each picks by where the tensors lie: CPU tensors take the plain
+version, CUDA tensors launch the kernels or raise. Nothing falls back.
 
 What bounds K1 on the H100: at 512^2 each frame reads 10 MB of hoisted
 inputs (the same 10 MB for every frame of a time batch, so they can stay
@@ -51,13 +53,14 @@ import numpy as np
 import torch
 
 from gfx_ocean_tpu_torch.config import OceanConfig
-from gfx_ocean_tpu_torch.ops import fourstep_step
+from gfx_ocean_tpu_torch.ops import fourstep_step, unpacked_step
 from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, normals_scale
-from gfx_ocean_tpu_torch.ops.fft import (_dft_matrix_np, _dft_matrix_out_alt_np,
-                                         effective_precision, pin_fp32_matmul)
+from gfx_ocean_tpu_torch.ops.fft import (_dft_matrix_out_alt_np, effective_precision,
+                                         pin_fp32_matmul, twiddle_table)
 from gfx_ocean_tpu_torch.ops.fourstep_step import FourstepInputs
 from gfx_ocean_tpu_torch.ops.propagate import (_f32, as_times, packed_spectra,
                                                precompute_propagate_packed)
+from gfx_ocean_tpu_torch.ops.unpacked_step import UnpackedInputs
 
 MAX_N = 512
 # Rows of the output reduced by one block of the checksum kernel.
@@ -83,35 +86,33 @@ def check_supported(config: OceanConfig, n: int) -> str:
     if n > MAX_N:
         return fourstep_step.check_supported(config, n)
     if not config.hermitian_pack:
-        raise NotImplementedError(
-            'fft_impl="pallas" with hermitian_pack=False runs through kernels '
-            "K4/K5/K6, which are not ported yet (ROADMAP.md queue 2, K4-K6)")
+        return unpacked_step.check_supported(config, n)
     return effective_precision(config.matmul_precision)
 
 
-FusedInputs = Union[PackedInputs, FourstepInputs]
+FusedInputs = Union[PackedInputs, UnpackedInputs, FourstepInputs]
 
 
 def hoist_packed(h0_pair: torch.Tensor, omega: torch.Tensor,
                  config: OceanConfig) -> FusedInputs:
     """Gather the time-invariant inputs once (per rollout, not per frame):
-    K1's for N <= 512, K2 + K3's above."""
+    K1's for N <= 512, K4-K6's for N <= 512 unpacked, K2 + K3's above."""
     if h0_pair.ndim != 3:
         raise ValueError("the fused step takes a single unbatched state")
     n = h0_pair.shape[-1]
     check_supported(config, n)
     if n > MAX_N:
         return fourstep_step.hoist_fourstep(h0_pair, omega, config)
+    if not config.hermitian_pack:
+        return unpacked_step.hoist_unpacked(h0_pair, omega, config)
     dev = h0_pair.device
     h0_pair = h0_pair.to(torch.float32).contiguous()
     omega = omega.to(device=dev, dtype=torch.float32).contiguous()
     pre, pre_rho, omega_rho = precompute_propagate_packed(h0_pair, omega, config.compat)
     a_re, a_im = (torch.from_numpy(a).to(dev)
                   for a in _dft_matrix_out_alt_np(n, 1, 0, False))
-    wr, wi = _dft_matrix_np(n, 1)
-    twiddle = torch.from_numpy(np.stack([wr[1, : n // 2], wi[1, : n // 2]])).to(dev)
     return PackedInputs(pre.contiguous(), pre_rho.contiguous(), omega,
-                        omega_rho.contiguous(), a_re, a_im, twiddle.contiguous())
+                        omega_rho.contiguous(), a_re, a_im, twiddle_table(n, dev))
 
 
 # --------------------------------------------------------------------------
@@ -202,24 +203,29 @@ launch_packed_step.launches = 0
 
 
 def packed_planes(inputs: FusedInputs, ts, config: OceanConfig) -> torch.Tensor:
-    """Planes (tb, 3, N, N) for ts (tb,): K1 for N <= 512, K2 + K3 above;
-    the kernels on CUDA, the plain version on CPU."""
-    if inputs.omega.shape[-1] > MAX_N:
+    """Planes (tb, 3, N, N) for ts (tb,): K1, K4-K6 or K2 + K3 by the type
+    of the hoisted inputs; the kernels on CUDA, the plain version on CPU."""
+    if isinstance(inputs, FourstepInputs):
         return fourstep_step.fourstep_planes(inputs, ts, config)
+    if isinstance(inputs, UnpackedInputs):
+        return unpacked_step.unpacked_planes(inputs, ts, config)
     if inputs.omega.is_cuda:
         return launch_packed_step(inputs, ts, config, checksum=False)[0]
     return packed_planes_reference(inputs, ts, config)
 
 
 def packed_checksums(inputs: FusedInputs, ts, config: OceanConfig) -> torch.Tensor:
-    """Checksums (tb,) for ts (tb,): K1 for N <= 512, K2 + K3 above; the
-    kernels on CUDA, the plain version on CPU.
+    """Checksums (tb,) for ts (tb,): K1, K4-K6 or K2 + K3 by the type of
+    the hoisted inputs; the kernels on CUDA, the plain version on CPU.
 
-    On CUDA the per-block partials are summed outside the kernel by
-    ``torch.sum``, in an order fixed by their shape (no float atomics).
+    On CUDA the per-block partials of K1 and K3 are summed outside the
+    kernel by ``torch.sum``, in an order fixed by their shape (no float
+    atomics); the unpacked route reduces its planes outside its kernels.
     """
-    if inputs.omega.shape[-1] > MAX_N:
+    if isinstance(inputs, FourstepInputs):
         return fourstep_step.fourstep_checksums(inputs, ts, config)
+    if isinstance(inputs, UnpackedInputs):
+        return unpacked_step.unpacked_checksums(inputs, ts, config)
     if inputs.omega.is_cuda:
         _, partials = launch_packed_step(inputs, ts, config, checksum=True)
         return partials.sum(dim=-1)

@@ -1,0 +1,287 @@
+"""The unpacked fused step on the card: kernels K4, K5 and K6 for N <= 512.
+
+Counterpart of the unpacked half of ``gfx_ocean_tpu/ops/pallas_step.py``,
+the route of ``OceanConfig(fft_impl="pallas", hermitian_pack=False)``.
+K4 replaces ``_step_kernel`` (the single-block kernel of ``pallas_planes``),
+K5 ``_row_block_kernel`` and K6 ``_col_block_kernel`` (the row- and
+column-blocked pair of ``_blocked_fields``). Per frame:
+
+1. the unpacked propagate from h0 and its flip h0n = h0[:, ::-1, ::-1]
+   (the [N-1-i] pairing, not ``roll_flip``; the kernels read h0 at the
+   flipped index): cos / sin of the Dekker phase,
+   the imaginary part of h0n negated under ``conj_neg``, the Q2 sign g on h,
+   and k-hat from indices;
+2. three complex 2-D transforms with real output, ``Re(A (X A^T))`` with
+   A = D_alt W (``ops/fft._dft_matrix_out_alt_np(n, 1, 0, False)``), for
+   (disp_x, height, disp_z) = ``(khx hi, -khx hr)``, ``(hr, hi)``,
+   ``(khy hi, -khy hr)``. K5 is the propagate and the row pass, writing
+   Y (tb, 3, 2, N, N); K6 the real-output column pass ``Re(A Y)``.
+
+The route is ``pallas_planes``'s predicate (``unpacked_route``): the single
+kernel K4 unless ``matmul_precision == "highest"`` and N > 256, where
+K5 + K6 run. Both routes return (3, N, N) planes and (N, N, 3) fields; the
+JAX blocked route's channel-last planes (fault F2, ``ROADMAP.md`` queue 3)
+are not carried. The checksum has no kernel, as in ``pallas_checksums``:
+``ops/derived.checksums_of_planes`` reduces the planes.
+
+Two implementations sit side by side:
+
+- ``unpacked_planes_reference`` / ``unpacked_rows_reference`` /
+  ``unpacked_cols_reference``: the plain PyTorch version, written as K4's
+  arithmetic (FP32 matmuls against A, TF32 off; A is made once per N and
+  device, and only this version reads it).
+- ``launch_unpacked_step`` (K4), ``launch_unpacked_rows`` (K5),
+  ``launch_unpacked_cols`` (K6): the hand-written CUDA kernels of
+  ``csrc/unpacked_step.cu`` (K1's radix-2 Stockham FFT in shared memory; K4
+  is one cooperative launch of a persistent grid that runs K5's and K6's
+  device functions with one grid sync between them).
+
+``unpacked_planes`` / ``unpacked_checksums`` pick by where the tensors lie:
+CPU tensors take the plain version, CUDA tensors launch the kernels or
+raise. Nothing falls back.
+
+What bounds the kernels on the H100 at 512^2: a frame reads 3 MB of inputs
+(once a call), writes and rereads 6 MB of Y and writes 3 MB of planes,
+against ~71 MFLOP of FFT, so bandwidth and the barriers between FFT stages,
+not arithmetic (``PERF.md`` has the measured split).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from gfx_ocean_tpu_torch.config import OceanConfig
+from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes
+from gfx_ocean_tpu_torch.ops.fft import (_dft_matrix_out_alt_np, effective_precision,
+                                         pin_fp32_matmul, twiddle_table)
+from gfx_ocean_tpu_torch.ops.fourstep_step import _check_tensor
+from gfx_ocean_tpu_torch.ops.propagate import _f32, _phase_mod_2pi, as_times
+
+MAX_N = 512
+
+
+class UnpackedInputs(NamedTuple):
+    """Per-rollout hoisted inputs of K4 / K5 + K6 (all float32, one device)."""
+
+    h0: torch.Tensor       # (2, N, N) re, im
+    omega: torch.Tensor    # (N, N)
+    twiddle: torch.Tensor  # (2, N/2) cos, sin of 2 pi k / N: the kernels' table
+
+
+def unpacked_route(config: OceanConfig, n: int) -> str:
+    """"single" (K4) or "blocked" (K5 + K6): ``pallas_planes``'s
+    ``single_block`` predicate."""
+    single = n <= (256 if config.matmul_precision == "highest" else 512)
+    return "single" if single else "blocked"
+
+
+def check_supported(config: OceanConfig, n: int) -> str:
+    """Raise for grids the unpacked step does not cover; return the tier.
+    Every f32-grade tier runs as FP32; "default" raises, as on K1."""
+    if n > MAX_N:
+        raise ValueError(f"the unpacked step takes N <= {MAX_N}, got {n}")
+    return effective_precision(config.matmul_precision)
+
+
+def hoist_unpacked(h0_pair: torch.Tensor, omega: torch.Tensor,
+                   config: OceanConfig) -> UnpackedInputs:
+    """Gather the time-invariant inputs once (per rollout, not per frame)."""
+    n = h0_pair.shape[-1]
+    check_supported(config, n)
+    dev = h0_pair.device
+    return UnpackedInputs(h0_pair.to(torch.float32).contiguous(),
+                          omega.to(device=dev, dtype=torch.float32).contiguous(),
+                          twiddle_table(n, dev))
+
+
+# --------------------------------------------------------------------------
+# The plain PyTorch version.
+# --------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def dft_table(n: int, device: torch.device) -> tuple:
+    """(Re, Im) of A = D_alt W, each (N, N) float32 on ``device``, made
+    once: the plain version's table (the kernels run an FFT instead)."""
+    return tuple(torch.from_numpy(a).to(device) for a in _dft_matrix_out_alt_np(n, 1, 0, False))
+
+
+def khat_grid(n: int, domain_size: float, wrap: bool, device) -> tuple:
+    """(khx, khy), each (N, N), as ``pallas_step._khat_in_kernel`` computes
+    them: f32 coordinates 2i - N - 1, the uint32 wrap as a float add of
+    2^32, and 1 / sqrt(kx^2 + ky^2) with a k_len > 1e-10 guard."""
+    c = 2.0 * torch.arange(n, dtype=torch.float32, device=device) - float(n + 1)
+    if wrap:
+        c = torch.where(c < 0, c + 2.0 ** 32, c)
+    k = c * _f32(np.pi / domain_size)
+    kx, ky = k[None, :], k[:, None]
+    k_len = torch.sqrt(kx * kx + ky * ky)
+    safe = k_len > 1.0e-10
+    inv = torch.where(safe, 1.0 / torch.where(safe, k_len, 1.0), 0.0)
+    return kx * inv, ky * inv
+
+
+def _spectra(inputs: UnpackedInputs, ts, config: OceanConfig):
+    """K4's propagate for frames ts (tb,): (xr, xi), each (tb, 3, N, N) in
+    the order (disp_x, height, disp_z)."""
+    h0, om = inputs.h0, inputs.omega
+    h0n = torch.flip(h0, dims=(-2, -1))
+    phase = _phase_mod_2pi(om, as_times(ts, om.device)[:, None, None])
+    c, s = torch.cos(phase), torch.sin(phase)
+    h0r, h0i, h0nr, h0ni = h0[0], h0[1], h0n[0], h0n[1]
+    if config.compat.conj_neg:
+        h0ni = -h0ni
+    g = -1.0 if config.compat.ref_sign else 1.0
+    hr = g * (c * (h0r + h0nr) + s * (h0ni - h0i))
+    hi = g * (s * (h0r - h0nr) + c * (h0i + h0ni))
+    khx, khy = khat_grid(om.shape[-1], config.domain_size, config.compat.wrap_k, om.device)
+    xr = torch.stack([khx * hi, hr, khy * hi], dim=1)
+    xi = torch.stack([-khx * hr, hi, -khy * hr], dim=1)
+    return xr, xi
+
+
+def unpacked_rows_reference(inputs: UnpackedInputs, ts, config: OceanConfig) -> torch.Tensor:
+    """Plain PyTorch K5: ts (tb,) -> Y (tb, 3, 2, N, N), Y = X A^T."""
+    pin_fp32_matmul(inputs.omega)
+    xr, xi = _spectra(inputs, ts, config)
+    a_re, a_im = dft_table(inputs.omega.shape[-1], inputs.omega.device)
+    art, ait = a_re.T, a_im.T
+    return torch.stack([xr @ art - xi @ ait, xr @ ait + xi @ art], dim=2)
+
+
+def unpacked_cols_reference(y: torch.Tensor, inputs: UnpackedInputs) -> torch.Tensor:
+    """Plain PyTorch K6: Y (tb, 3, 2, N, N) -> (tb, 3, N, N) = Re(A Y)."""
+    pin_fp32_matmul(y)
+    a_re, a_im = dft_table(inputs.omega.shape[-1], inputs.omega.device)
+    return a_re @ y[:, :, 0] - a_im @ y[:, :, 1]
+
+
+def unpacked_planes_reference(inputs: UnpackedInputs, ts,
+                              config: OceanConfig) -> torch.Tensor:
+    """Plain PyTorch K4: ts (tb,) -> (tb, 3, N, N) (disp_x, height, disp_z)."""
+    return unpacked_cols_reference(unpacked_rows_reference(inputs, ts, config), inputs)
+
+
+# --------------------------------------------------------------------------
+# The CUDA kernels.
+# --------------------------------------------------------------------------
+
+def _checked(inputs: UnpackedInputs, who: str) -> int:
+    """Check the hoisted inputs for a launch; return N."""
+    dev = inputs.omega.device
+    if dev.type != "cuda":
+        raise ValueError(f"{who} needs CUDA tensors, got {dev}")
+    n = inputs.omega.shape[-1]
+    if n < 16 or n > MAX_N or n & (n - 1):
+        raise ValueError(f"{who} takes a power of two N in [16, {MAX_N}], got {n}")
+    shapes = dict(h0=(2, n, n), omega=(n, n), twiddle=(2, n // 2))
+    for name, x in inputs._asdict().items():
+        _check_tensor(name, x, shapes[name], dev)
+    return n
+
+
+def _propagate_args(inputs: UnpackedInputs, ts: torch.Tensor, config: OceanConfig) -> tuple:
+    """The C entry points' leading arguments, through g."""
+    n = inputs.omega.shape[-1]
+    return (inputs.h0.data_ptr(), inputs.omega.data_ptr(),
+            inputs.twiddle.data_ptr(), ts.data_ptr(), ts.shape[0], n,
+            _f32(np.pi / config.domain_size), int(config.compat.wrap_k),
+            int(config.compat.conj_neg), -1.0 if config.compat.ref_sign else 1.0)
+
+
+def _stream(dev: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _raise_on_error(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.unpacked_error_string(err).decode()
+        raise RuntimeError(f"{what} failed to launch: CUDA error {err} ({msg})")
+
+
+def launch_unpacked_rows(inputs: UnpackedInputs, ts, config: OceanConfig) -> torch.Tensor:
+    """Launch K5 on the current stream: ts (tb,) -> Y (tb, 3, 2, N, N).
+    Adds one to ``launch_unpacked_rows.launches`` per launch."""
+    from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
+
+    n = _checked(inputs, "launch_unpacked_rows")
+    check_supported(config, n)
+    dev = inputs.omega.device
+    ts = as_times(ts, dev)
+    y = torch.empty((ts.shape[0], 3, 2, n, n), dtype=torch.float32, device=dev)
+    lib = kernels.load("unpacked_step")
+    err = lib.unpacked_rows(*_propagate_args(inputs, ts, config), y.data_ptr(), _stream(dev))
+    _raise_on_error(lib, err, "K5 (unpacked_rows)")
+    launch_unpacked_rows.launches += 1
+    return y
+
+
+launch_unpacked_rows.launches = 0
+
+
+def launch_unpacked_cols(y: torch.Tensor, inputs: UnpackedInputs) -> torch.Tensor:
+    """Launch K6 on the current stream: Y (tb, 3, 2, N, N) -> planes
+    (tb, 3, N, N). Adds one to ``launch_unpacked_cols.launches`` per launch."""
+    from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
+
+    n = _checked(inputs, "launch_unpacked_cols")
+    dev = inputs.omega.device
+    if y.ndim != 5:
+        raise ValueError(f"y: expected shape (tb, 3, 2, N, N), got {tuple(y.shape)}")
+    tb = y.shape[0]
+    _check_tensor("y", y, (tb, 3, 2, n, n), dev)
+    planes = torch.empty((tb, 3, n, n), dtype=torch.float32, device=dev)
+    lib = kernels.load("unpacked_step")
+    err = lib.unpacked_cols(y.data_ptr(), inputs.twiddle.data_ptr(), tb, n, planes.data_ptr(),
+                            _stream(dev))
+    _raise_on_error(lib, err, "K6 (unpacked_cols)")
+    launch_unpacked_cols.launches += 1
+    return planes
+
+
+launch_unpacked_cols.launches = 0
+
+
+def launch_unpacked_step(inputs: UnpackedInputs, ts, config: OceanConfig) -> torch.Tensor:
+    """Launch K4 on the current stream: ts (tb,) -> planes (tb, 3, N, N) in
+    one cooperative launch (Y is its scratch). Adds one to
+    ``launch_unpacked_step.launches`` per launch."""
+    from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
+
+    n = _checked(inputs, "launch_unpacked_step")
+    check_supported(config, n)
+    dev = inputs.omega.device
+    ts = as_times(ts, dev)
+    tb = ts.shape[0]
+    y = torch.empty((tb, 3, 2, n, n), dtype=torch.float32, device=dev)
+    planes = torch.empty((tb, 3, n, n), dtype=torch.float32, device=dev)
+    lib = kernels.load("unpacked_step")
+    err = lib.unpacked_step(*_propagate_args(inputs, ts, config), y.data_ptr(),
+                            planes.data_ptr(), _stream(dev))
+    _raise_on_error(lib, err, "K4 (unpacked_step)")
+    launch_unpacked_step.launches += 1
+    return planes
+
+
+launch_unpacked_step.launches = 0
+
+
+def unpacked_planes(inputs: UnpackedInputs, ts, config: OceanConfig) -> torch.Tensor:
+    """Planes (tb, 3, N, N) for ts (tb,): K4 on the single route, K5 + K6 on
+    the blocked one; the kernels on CUDA, the plain version on CPU."""
+    if not inputs.omega.is_cuda:
+        return unpacked_planes_reference(inputs, ts, config)
+    if unpacked_route(config, inputs.omega.shape[-1]) == "single":
+        return launch_unpacked_step(inputs, ts, config)
+    return launch_unpacked_cols(launch_unpacked_rows(inputs, ts, config), inputs)
+
+
+def unpacked_checksums(inputs: UnpackedInputs, ts, config: OceanConfig) -> torch.Tensor:
+    """Checksums (tb,) for ts (tb,): ``checksums_of_planes`` of
+    :func:`unpacked_planes`, as ``pallas_checksums`` reduces this route
+    outside its kernels."""
+    return checksums_of_planes(unpacked_planes(inputs, ts, config), config)

@@ -135,7 +135,7 @@ def test_assets_state_equals_jax(tmp_path, monkeypatch):
     tbin.save_omega(str(tmp_path / "omega.bin"), om)
     monkeypatch.setenv("GFX_OCEAN_REFERENCE_DATA", str(tmp_path))
     want = J.ocean_state_from_assets(resolution=64)
-    got = T.ocean_state_from_assets(resolution=64)
+    got = T.ocean_state_from_assets(resolution=64, device="cpu")
     assert got.h0.dtype == torch.float32 and got.h0.shape == (2, 64, 64)
     assert np.array_equal(got.h0.numpy(), np.asarray(want.h0))
     assert np.array_equal(got.omega.numpy(), np.asarray(want.omega))
@@ -214,7 +214,7 @@ def test_synthesize_generator_is_reproducible():
     a, _ = tspec.synthesize(32, 1000.0, cfg, generator=torch.Generator().manual_seed(4))
     b, _ = tspec.synthesize(32, 1000.0, cfg, generator=torch.Generator().manual_seed(4))
     c, _ = tspec.synthesize(32, 1000.0, cfg)  # seeded with cfg.seed
-    d = T.ocean_state_from_phillips(T.OceanConfig(resolution=32)).h0
+    d = T.ocean_state_from_phillips(T.OceanConfig(resolution=32), device="cpu").h0
     assert torch.equal(a, b) and torch.equal(c, d) and not torch.equal(a, c)
     with pytest.raises(ValueError, match="noise must have shape"):
         tspec.synthesize(32, 1000.0, cfg, noise=torch.zeros(2, 16, 16))
@@ -234,7 +234,7 @@ def test_state_from_numpy_and_downsample_equal_jax():
     rng = np.random.default_rng(8)
     h0 = rng.standard_normal((2, 64, 64)).astype(np.float32)
     om = rng.random((64, 64)).astype(np.float32)
-    st = state_from_numpy(h0, om)
+    st = state_from_numpy(h0, om, device="cpu")
     assert st.h0.dtype == torch.float32 and st.omega.shape == (64, 64)
     got = downsample_state(st, 32)
     want = j_downsample(J.OceanState(h0=h0, omega=om), 32)

@@ -242,7 +242,7 @@ def test_checksum_rollout_time_batch_2_matches_jax(monkeypatch):
     ts = np.asarray([0.5, 1.0, 7.25, 1000.0], np.float32)
     want = np.asarray(J.make_rollout(jc, keep_fields=False, time_batch=2)(
         J.OceanState(h0=jnp.asarray(h0), omega=jnp.asarray(om)), jnp.asarray(ts)))
-    tst = state_from_numpy(h0, om)
+    tst = state_from_numpy(h0, om, device="cpu")
     got = T.make_rollout(tc, keep_fields=False, time_batch=2)(tst, torch.from_numpy(ts))
     assert got.shape == (4,) and torch.isfinite(got).all()
     inputs = fused_step.hoist_packed(tst.h0, tst.omega, tc)

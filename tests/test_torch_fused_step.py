@@ -26,7 +26,7 @@ import gfx_ocean_tpu as J
 import gfx_ocean_tpu_torch as T
 from gfx_ocean_tpu.golden.reference import golden_fields
 from gfx_ocean_tpu.ops.pallas_step import pallas_checksums, pallas_fields, pallas_planes
-from gfx_ocean_tpu_torch.ops import fused_step
+from gfx_ocean_tpu_torch.ops import fused_step, unpacked_step
 from gfx_ocean_tpu_torch.ops.derived import finite_difference_normals_planes
 from gfx_ocean_tpu_torch.spectra.phillips import dispersion, phillips_spectrum
 
@@ -136,9 +136,25 @@ def test_unsupported_configurations_raise():
         fused_step.check_supported(T.OceanConfig(resolution=32768, fft_impl="pallas"), 32768)
     with pytest.raises(NotImplementedError, match="16384"):
         fused_step.check_supported(T.OceanConfig(resolution=16384, fft_impl="pallas"), 16384)
-    with pytest.raises(NotImplementedError, match="K4"):
+    # hermitian_pack=False at N <= 512 runs the unpacked step (K4-K6): its
+    # hoisted inputs, routes and plane shapes; its "default" tier raises.
+    unpacked = T.OceanConfig(resolution=64, fft_impl="pallas", hermitian_pack=False)
+    assert fused_step.check_supported(unpacked, 64) == "fp32"
+    h0, om = _state(64, 6)
+    inputs = fused_step.hoist_packed(torch.from_numpy(h0), torch.from_numpy(om), unpacked)
+    assert isinstance(inputs, fused_step.UnpackedInputs)
+    assert fused_step.packed_planes(inputs, [1.0, 2.0], unpacked).shape == (2, 3, 64, 64)
+    assert fused_step.fused_fields(torch.from_numpy(h0), torch.from_numpy(om), 1.0,
+                                   unpacked).shape == (64, 64, 3)
+    assert fused_step.packed_checksums(inputs, [1.0, 2.0], unpacked).shape == (2,)
+    assert unpacked_step.unpacked_route(unpacked, 64) == "single"
+    assert unpacked_step.unpacked_route(
+        T.OceanConfig(resolution=512, fft_impl="pallas", hermitian_pack=False,
+                      matmul_precision="highest"), 512) == "blocked"
+    with pytest.raises(NotImplementedError, match="default"):
         fused_step.check_supported(
-            T.OceanConfig(resolution=64, fft_impl="pallas", hermitian_pack=False), 64)
+            T.OceanConfig(resolution=64, fft_impl="pallas", hermitian_pack=False,
+                          matmul_precision="default"), 64)
     with pytest.raises(NotImplementedError, match="default"):
         fused_step.check_supported(
             T.OceanConfig(resolution=64, fft_impl="pallas", matmul_precision="default"), 64)

@@ -1,6 +1,7 @@
 """Kernels K1 (``gfx_ocean_tpu_torch/csrc/packed_step.cu``), K2 + K3
-(``csrc/fourstep_step.cu``) and K7 + K8 (``csrc/raster.cu``) against their
-plain PyTorch versions, and two checks that run anywhere.
+(``csrc/fourstep_step.cu``), K4-K6 (``csrc/unpacked_step.cu``) and K7 + K8
+(``csrc/raster.cu``) against their plain PyTorch versions, and two checks
+that run anywhere.
 
 The CUDA tests are marked ``cuda`` and skip without a GPU: a CUDA kernel
 has no CPU mode. This file imports no jax, so on a machine with a GPU and
@@ -24,6 +25,7 @@ import torch
 from gfx_ocean_tpu_torch.config import CompatFlags, OceanConfig, PhillipsConfig
 from gfx_ocean_tpu_torch.ops import fourstep_step as fs
 from gfx_ocean_tpu_torch.ops import fused_step
+from gfx_ocean_tpu_torch.ops import unpacked_step as us
 from gfx_ocean_tpu_torch.ops.derived import finite_difference_normals_planes
 from gfx_ocean_tpu_torch.render import raster as rr
 from gfx_ocean_tpu_torch.render.camera import Camera
@@ -220,6 +222,105 @@ def test_fourstep_counts_launches_and_rejects_bad_inputs(cuda):
     assert fs.launch_fourstep_col.launches == cols + 2
 
 
+def _unpacked_inputs(n: int, flags: CompatFlags, device, precision: str = "bf16x3") -> tuple:
+    h0, omega = _state(n)
+    cfg = OceanConfig(resolution=n, fft_impl="pallas", hermitian_pack=False, compat=flags,
+                      matmul_precision=precision)
+    return cfg, fused_step.hoist_packed(h0.to(device), omega.to(device), cfg)
+
+
+def _checksum_rel(got_ck: torch.Tensor, want: torch.Tensor, cfg) -> float:
+    want_ck = fused_step.checksums_of_planes(want, cfg)
+    summands = (want.abs().sum(dim=(-3, -2, -1))
+                + finite_difference_normals_planes(want[:, 1]).abs().sum(dim=(-3, -2, -1)))
+    return float(((got_ck - want_ck).abs() / summands).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 64, 128, 512])
+@pytest.mark.parametrize("flags", FLAGS, ids=["default", "wrap_k", "canonical_sign", "conj_neg"])
+def test_unpacked_step_kernel_matches_plain(cuda, n, flags):
+    """K4 (the single route) against its plain version, t up to 1000 s."""
+    cfg, inputs = _unpacked_inputs(n, flags, cuda)
+    assert isinstance(inputs, us.UnpackedInputs) and us.unpacked_route(cfg, n) == "single"
+    ts = torch.tensor([0.0, 3.25, 11.25, 1000.0], device=cuda)
+    before = us.launch_unpacked_step.launches
+    got = fused_step.packed_planes(inputs, ts, cfg)
+    assert us.launch_unpacked_step.launches == before + 1
+    want = us.unpacked_planes_reference(inputs, ts, cfg)
+    assert got.shape == (4, 3, n, n) and torch.isfinite(got).all()
+    assert _rel(got, want) < TOL_PLANES
+    assert _checksum_rel(fused_step.packed_checksums(inputs, ts, cfg), want, cfg) < TOL_CHECKSUM
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [128, 256, 512])
+def test_unpacked_blocked_kernels_match_plain(cuda, n):
+    """K5 alone (Y), K6 alone (fed K5's Y), both chained, and K4, which
+    runs the same device functions, bit-equal to the chain."""
+    cfg, inputs = _unpacked_inputs(n, CompatFlags(conj_neg=True), cuda, "highest")
+    ts = torch.tensor([0.0, 11.25, 1000.0], device=cuda)
+    y = us.launch_unpacked_rows(inputs, ts, cfg)
+    assert y.shape == (3, 3, 2, n, n) and torch.isfinite(y).all()
+    assert _rel(y, us.unpacked_rows_reference(inputs, ts, cfg)) < TOL_PLANES
+    planes = us.launch_unpacked_cols(y, inputs)
+    assert _rel(planes, us.unpacked_cols_reference(y, inputs)) < TOL_PLANES
+    want = us.unpacked_planes_reference(inputs, ts, cfg)
+    assert _rel(planes, want) < TOL_PLANES
+    assert torch.equal(us.launch_unpacked_step(inputs, ts, cfg), planes)
+    if n == 512:
+        assert us.unpacked_route(cfg, n) == "blocked"
+        k5, k6 = us.launch_unpacked_rows.launches, us.launch_unpacked_cols.launches
+        k4 = us.launch_unpacked_step.launches
+        assert torch.equal(fused_step.packed_planes(inputs, ts, cfg), planes)
+        assert _checksum_rel(fused_step.packed_checksums(inputs, ts, cfg), want, cfg) < TOL_CHECKSUM
+        assert (us.launch_unpacked_rows.launches, us.launch_unpacked_cols.launches,
+                us.launch_unpacked_step.launches) == (k5 + 2, k6 + 2, k4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bf16x3", "highest"], ids=["k4", "k5+k6"])
+def test_unpacked_frames_identical_for_every_time_batch(cuda, precision):
+    cfg, inputs = _unpacked_inputs(512, CompatFlags(), cuda, precision)
+    ts = torch.arange(6, dtype=torch.float32, device=cuda) * 0.7 + 1.0
+    batch = fused_step.packed_planes(inputs, ts, cfg)
+    for j in range(6):
+        assert torch.equal(batch[j], fused_step.packed_planes(inputs, ts[j:j + 1], cfg)[0])
+
+
+@pytest.mark.cuda
+def test_unpacked_counts_launches_and_rejects_bad_inputs(cuda):
+    cfg, inputs = _unpacked_inputs(64, CompatFlags(), cuda)
+    counts = (us.launch_unpacked_step.launches, us.launch_unpacked_rows.launches,
+              us.launch_unpacked_cols.launches)
+    fused_step.packed_checksums(inputs, [1.0, 2.0], cfg)
+    assert us.launch_unpacked_step.launches == counts[0] + 1
+    k1 = fused_step.launch_packed_step.launches
+
+    def rejected(match, fn):
+        with pytest.raises(ValueError, match=match):
+            fn()
+
+    for launch in (lambda i: us.launch_unpacked_step(i, [1.0], cfg),
+                   lambda i: us.launch_unpacked_rows(i, [1.0], cfg)):
+        rejected("contiguous float32", lambda: launch(inputs._replace(h0=inputs.h0.double())))
+        rejected("contiguous float32", lambda: launch(inputs._replace(omega=inputs.omega.t())))
+        rejected("expected shape", lambda: launch(
+            inputs._replace(h0=inputs.h0[:, :32, :32].contiguous())))
+        rejected("needs CUDA tensors", lambda: launch(us.UnpackedInputs(*(x.cpu() for x in inputs))))
+    y = torch.zeros(1, 3, 2, 64, 64, device=cuda)
+    rejected("expected shape", lambda: us.launch_unpacked_cols(y[:, :2].contiguous(), inputs))
+    rejected("contiguous float32", lambda: us.launch_unpacked_cols(y.double(), inputs))
+    rejected("needs CUDA tensors", lambda: us.launch_unpacked_cols(
+        y.cpu(), us.UnpackedInputs(*(x.cpu() for x in inputs))))
+    big = us.UnpackedInputs(torch.zeros(2, 1024, 1024, device=cuda),
+                            torch.zeros(1024, 1024, device=cuda), torch.zeros(2, 512, device=cuda))
+    rejected("power of two N", lambda: us.launch_unpacked_step(big, [1.0], cfg))
+    assert (us.launch_unpacked_step.launches, us.launch_unpacked_rows.launches,
+            us.launch_unpacked_cols.launches) == (counts[0] + 1, counts[1], counts[2])
+    assert fused_step.launch_packed_step.launches == k1
+
+
 def _render_disp(device) -> torch.Tensor:
     """A 64^2 displacement map (t = 5 s) of a Phillips state from a numpy
     draw seeded 64, on ``device``."""
@@ -387,6 +488,7 @@ def test_raster_kernels_reject_bad_inputs(cuda):
 def test_import_leaves_out_jax():
     code = ("import sys, gfx_ocean_tpu_torch, gfx_ocean_tpu_torch.kernels, "
             "gfx_ocean_tpu_torch.ops.fused_step, gfx_ocean_tpu_torch.ops.fourstep_step, "
+            "gfx_ocean_tpu_torch.ops.unpacked_step, "
             "gfx_ocean_tpu_torch.render, gfx_ocean_tpu_torch.render.raster;"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gfx_ocean_tpu')];"
             "print(bad); sys.exit(1 if bad else 0)")

@@ -74,7 +74,7 @@ def _numpy_state(n: int, seed: int = 0):
 
 def _states(n: int, seed: int = 0):
     h0, om = _numpy_state(n, seed)
-    return J.OceanState(h0=jnp.asarray(h0), omega=jnp.asarray(om)), state_from_numpy(h0, om)
+    return J.OceanState(h0=jnp.asarray(h0), omega=jnp.asarray(om)), state_from_numpy(h0, om, device="cpu")
 
 
 def _disp64() -> np.ndarray:

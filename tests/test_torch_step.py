@@ -51,7 +51,7 @@ def _numpy_state(n: int = N, seed: int = 0):
 
 def _states(n: int = N, seed: int = 0):
     h0, om = _numpy_state(n, seed)
-    return J.OceanState(h0=jnp.asarray(h0), omega=jnp.asarray(om)), state_from_numpy(h0, om)
+    return J.OceanState(h0=jnp.asarray(h0), omega=jnp.asarray(om)), state_from_numpy(h0, om, device="cpu")
 
 
 def _configs(**kwargs):
@@ -191,7 +191,8 @@ def test_foam_and_its_checksum_match_jax(fft_impl, time_batch, interpret_pallas)
 
 
 UNPORTED = [
-    (dict(fft_impl="pallas", hermitian_pack=False), N, "K4"),
+    # the unpacked step (K4-K6) is ported; its "default" tier is not, as on K1
+    (dict(fft_impl="pallas", hermitian_pack=False, matmul_precision="default"), N, "default"),
     # 1024 takes the four-step route (K2 + K3), whose tier check still raises
     (dict(fft_impl="pallas", resolution=1024, matmul_precision="default"), 1024, "default"),
     (dict(fft_impl="xla"), N, "xla"),
@@ -222,12 +223,13 @@ def test_batched_state_raises():
     with pytest.raises(NotImplementedError, match="cascades"):
         T.step(st, 1.0, cfg)
     with pytest.raises(NotImplementedError, match="cascades"):
-        T.ocean_state_from_phillips(T.OceanConfig(resolution=32, num_cascades=2))
+        T.ocean_state_from_phillips(T.OceanConfig(resolution=32, num_cascades=2), device="cpu")
 
 
 def test_phillips_state_runs_end_to_end():
     cfg = T.OceanConfig(resolution=32, fft_impl="pallas")
-    st = T.ocean_state_from_phillips(cfg, generator=torch.Generator().manual_seed(1))
+    st = T.ocean_state_from_phillips(cfg, generator=torch.Generator().manual_seed(1),
+                                     device="cpu")
     assert st.h0.shape == (2, 32, 32) and st.omega.shape == (32, 32)
     out = T.make_step(cfg, device="cpu")(st, 1.0)
     assert torch.isfinite(out.displacement).all()
