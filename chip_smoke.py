@@ -33,7 +33,8 @@ Phases, one line each:
 4. kernel vs plain: K1 against its plain PyTorch version on the card;
 5. golden: the step's fields against the float64 golden model;
 6. time: one K1 call against one plain call and torch.fft.ifft2 of the
-   same spectra (CUDA events);
+   same spectra (CUDA events), and K1's own device time a call
+   (``device_ms``: torch.profiler, the kernels' launches only);
 7. rollout: make_rollout through K1 (launch count, finite checksums,
    steps/s) and the same rollout through the plain version;
 8. fourstep_state: the 4096^2 state synthesized from a torch.Generator
@@ -44,7 +45,7 @@ Phases, one line each:
 10. fourstep_golden: the 4096^2 step at t = 11.25 against the golden model;
 11. fourstep_time_one_call: K2, K3 and the whole step at tb 1 and 4 against
     the plain version, and at tb 1 torch.fft along x, y and both (CUDA
-    events);
+    events) and K2's own device time (``k2_device_ms``, torch.profiler);
 12. fourstep_rollout: make_rollout(keep_fields=False) at tb 1 and 4 through
     the kernels (launch counts, finite checksums that agree with the plain
     rollout, steps/s) and through the plain version;
@@ -78,7 +79,8 @@ Phases, one line each:
     device time) and through the plain version.
 
 Then one JSON line with the kernels K1-K8 (times, bounds from this run's
-shapes, library yardsticks), and as the last line
+shapes, library yardsticks; K1 and K2 also their ``device_ms``), and as
+the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero with no
 result; so does a machine without CUDA.
 """
@@ -157,9 +159,9 @@ U_PROFILE_STEPS = 60
 # The card's published peaks (H100 SXM data sheet, dense, 700 W): a
 # kernel's bound is max(bytes / HBM rate, operations / FP32 rate), with
 # each input read once and each output written once. The inputs of a step
-# kernel are the state's (h0, omega), the twiddles and the times: the planes
-# a hoist derives from the state (K1's pre, pre_rho, omega_rho) are not
-# compulsory traffic. Integer work counts at the FP32 rate of the CUDA cores.
+# kernel are the state's (h0, omega), the twiddles and the times, which is
+# what the step kernels read. Integer work counts at the FP32 rate of the
+# CUDA cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # Operations a pixel of K7 (pixel center 8, 3 edge functions 12, the
@@ -210,6 +212,59 @@ def event_ms(fn, calls: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / calls
+
+
+# The kernels' own launches in torch.profiler (substrings of their symbols):
+# K1's two passes and its checksum, K2's row pass.
+K1_KERNELS = ("packed_row_pass", "packed_col_pass", "checksum_partials")
+K2_KERNELS = ("fourstep_row_pass",)
+
+
+def kernel_device_ms(fn, names, calls: int) -> dict:
+    """torch.profiler's device time of one call of ``fn``: the mean time of
+    a launch of each kernel named in ``names`` (each launched once a call),
+    and their sum under "total", over ``calls`` calls after one warm-up
+    call. The kernels' time without the wrapper's host work. A mean over
+    the launches the profiler recorded, since it can drop a record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per_launch_us = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.count:
+            for name in names:
+                if name in e.key:
+                    per_launch_us[name] = e.device_time_total / e.count
+    if sorted(per_launch_us) != sorted(names):
+        fail(f"torch.profiler saw {sorted(per_launch_us)} of {names}")
+    ms = {name: us / 1e3 for name, us in per_launch_us.items()}
+    return {**ms, "total": sum(ms.values())}
+
+
+def k1_device_ms(state, cfg, ts, calls: int) -> dict:
+    """K1's device ms a ``packed_checksums`` call of the frames ts; reaches
+    the kernels only through ``hoist_packed`` and ``packed_checksums``."""
+    from gfx_ocean_tpu_torch.ops import fused_step
+
+    inputs = fused_step.hoist_packed(state.h0, state.omega, cfg)
+    return kernel_device_ms(lambda: fused_step.packed_checksums(inputs, ts, cfg), K1_KERNELS,
+                            calls)
+
+
+def k2_device_ms(state, cfg, ts, calls: int) -> dict:
+    """K2's device ms a ``launch_fourstep_row`` call of the frames ts;
+    reaches the kernel only through ``hoist_fourstep`` and
+    ``launch_fourstep_row``."""
+    from gfx_ocean_tpu_torch.ops import fourstep_step as fs
+
+    inputs = fs.hoist_fourstep(state.h0, state.omega, cfg)
+    return kernel_device_ms(lambda: fs.launch_fourstep_row(inputs, ts, cfg), K2_KERNELS, calls)
 
 
 def main() -> None:
@@ -338,11 +393,14 @@ def run(dev, n: int) -> dict:
     spectra = torch.randn((TIME_BATCH, 2, n, n), dtype=torch.complex64, device=dev)
     library_ms = event_ms(lambda: torch.fft.ifft2(spectra), TIMING_CALLS)
     del spectra
+    k1_device = k1_device_ms(state, cfg, ts_tb, TIMING_CALLS)
+    device_ms = k1_device["total"]
     k1_bound = bound(nbytes(state.h0, state.omega, inputs.twiddle, ts_tb)
                      + 4 * TIME_BATCH * (3 * n * n + n // fused_step.CHECKSUM_ROWS),
                      fft_ops(n, TIME_BATCH * 4 * n))
-    phase("time_one_call", frames=TIME_BATCH, kernel_ms=kernel_ms, plain_ms=plain_ms,
-          library_ifft2_ms=library_ms, calls=TIMING_CALLS, clock="cuda events", **k1_bound)
+    phase("time_one_call", frames=TIME_BATCH, kernel_ms=kernel_ms, device_ms=k1_device,
+          plain_ms=plain_ms, library_ifft2_ms=library_ms, calls=TIMING_CALLS,
+          clock="cuda events; device_ms: torch.profiler, K1's launches only", **k1_bound)
 
     # --- 7. rollout ---------------------------------------------------------
     rollout = ot.make_rollout(cfg, keep_fields=False, time_batch=TIME_BATCH)
@@ -382,6 +440,7 @@ def run(dev, n: int) -> dict:
         "launches": launches,
         "max_abs_err": max_abs,
         "ms": kernel_ms,
+        "device_ms": device_ms,
         "plain_ms": plain_ms,
         **k1_bound,
         "library_ms": library_ms,
@@ -509,6 +568,7 @@ def run_fourstep(dev) -> list:
             del spectra
             rec["k2_bound"] = bound(nbytes(state.h0, state.omega, inputs.twiddle, ts, y),
                                     fft_ops(FS_N, tb * 2 * FS_N))
+            rec["k2_device_ms"] = k2_device_ms(state, cfg, ts, FS_TIMING_CALLS)
             rec["k3_bound"] = bound(nbytes(y) + 4 * tb * (3 * FS_N * FS_N
                                                            + FS_N // fs.CHECKSUM_ROWS),
                                     fft_ops(FS_N, tb * 2 * FS_N))
@@ -578,6 +638,7 @@ def run_fourstep(dev) -> list:
             "launches": main_launches[key],
             "max_abs_err": errs[FS_N][key][0],
             "ms": ms,
+            **({"device_ms": one_call[1]["k2_device_ms"]["total"]} if key == "k2" else {}),
             "plain_ms": plain_ms,
             **one_call[1][f"{key}_bound"],
             "library_ms": one_call[1][f"{key}_library_ms"],

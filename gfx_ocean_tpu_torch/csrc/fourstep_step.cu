@@ -5,15 +5,22 @@
 // PyTorch version in ops/fourstep_step.py (fourstep_row_reference,
 // fourstep_col_reference) with its own algorithm: where the TPU kernels
 // multiply 128-lane bands by small stacked DFT tables on the MXU, these
-// kernels run radix-4 FFTs in shared memory.
+// kernels run FFTs, in registers (K2) and in shared memory (K3).
 //
-//   fourstep_row_pass    K2. One block per row, looping over the tb frames
-//                        (the row's 10 hoisted planes are read from device
-//                        memory once and from L2 for the later frames):
-//                        packed propagate with half = +0.5, then the
-//                        N-point x-transform of H and Z in shared memory
-//                        (4 N floats, in place). Writes Y (tb, 2, 2, rows, N)
-//                        in true x order, (-1)^x folded in.
+//   fourstep_row_pass    K2. One block per row of the band, N / 8 threads,
+//                        looping over the tb frames: each thread reads the
+//                        state for its 8 elements x = tid + r N / 8 (h0 at
+//                        (y, x), its flip, rho and rho's flip; omega at two
+//                        places; the partners of a band's rows lie outside
+//                        it, so K2 takes the whole state and the global
+//                        row), forms the packed propagate (half = +0.5) in
+//                        registers, and runs the x-transform of H and Z as
+//                        register-resident radix-8 passes (fft_reg.cuh:
+//                        8 x 8 x 8 x 8 at 4096, a last radix 2 / 4
+//                        elsewhere) with padded, conflict-free exchanges,
+//                        at most 64 registers a thread (1,024 threads a SM).
+//                        Writes Y (tb, 2, 2, rows, N) in coalesced rows,
+//                        true x order, (-1)^x folded in.
 //   fourstep_col_stage1  K3, first half. The column transform is split
 //                        N = 128 * N2, row m = N2 m1 + m2 in, row
 //                        n = n1 + 128 n2 out. One block per (m2, 32 columns,
@@ -34,36 +41,52 @@
 //                        partial per lane of a 128-lane row; neither carry
 //                        nor cap exists here.
 //
-// Every transform is y[j] = sum_k x[k] e^{+2 pi i j k / len}: a
+// K3's transforms are y[j] = sum_k x[k] e^{+2 pi i j k / len}: a
 // decimation-in-time FFT on a sequence loaded in bit-reversed order, in
 // place, its radix-2 stages fused in pairs into radix-4 passes, one barrier
-// a pass. The twiddles of every length come from one
-// table tw (2, N/2) = (cos, sin) of 2 pi j / N, built in float64 on the host.
+// a pass (dit_fft). All twiddles come from one table tw (2, N/2) = (cos,
+// sin) of 2 pi j / N, built in float64 on the host.
 //
-// Bounds on the H100 (4096^2, per frame at tb = 1): 671 MB of hoisted inputs
-// in, 268 MB of Y out and read back, 268 MB of B written and read back,
-// 201 MB of planes out and 201 MB read by the checksum; ~2 GB in all, so
-// device-memory bandwidth bounds it (~0.6 ms at 3.35 TB/s), not the ~5 GFLOP
-// of arithmetic. The column transform's device-memory round trip
-// between stage 1 and stage 2 is the price of a simple design: a full column
-// band (4 N floats a column) does not fit one block's shared memory at
-// N >= 4096. wgmma DFT stages, a cluster-resident column pass and TMA loads
-// are later work.
+// Bounds on the H100 (4096^2, per frame at tb = 1): K2 reads the 201 MB
+// state and writes 268 MB of Y; K3 reads Y, writes and rereads 268 MB of B,
+// writes 201 MB of planes, and the checksum rereads them; ~5 GFLOP in all,
+// so device-memory bandwidth bounds the step, not arithmetic. K2 itself
+// runs at under 3x its byte bound: latency of its per-element work (ten
+// scattered reads, two Dekker phases, two k-hat with IEEE sqrt and
+// reciprocal: half its time) and of four passes with three
+// barriered exchanges, at 32 warps a SM. Its design reads the state, not
+// 10 hoisted planes (671 MB a frame), and keeps each thread's points in
+// registers between passes, with no bank conflicts. It is not a wgmma DFT:
+// see fft_reg.cuh. The column transform's device-memory round trip between
+// stage 1 and stage 2 is the price of a simple design: a full column band
+// (4 N floats a column) does not fit one block's shared memory at
+// N >= 4096. A cluster-resident column pass and TMA loads are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (gfx_ocean_tpu_torch/kernels.py). Plain C entry points, bound with ctypes.
 
 #include <cuda_runtime.h>
 
+#include "fft_reg.cuh"
 #include "ocean_common.cuh"
 
 namespace {
 
-using ocean::sub;
+using ocean::reg::static_for;
 
 constexpr int kMinN = 1024;
 constexpr int kMaxN = 8192;
-constexpr int kRowThreads = 512;
+constexpr int kLog2Radix = 3;  // K2: radix 8, N / 8 threads a row
+// Threads a SM the launch bounds ask for: 64 registers a thread. Radix 16
+// (16 points a thread) takes 255 registers and runs 8 warps a SM; radix 8
+// at 64 registers runs about 1.4x faster, and fewer registers spill
+// (tools/torch_kernel_variants.py, PERF.md).
+constexpr int kSmThreads = 1024;
+constexpr int kRadix = 1 << kLog2Radix;
+// K2's transform: T = N / 8 >= 128 threads a row, so every warp holds 32
+// consecutive j; one shared buffer (73.7 KB at 4096, 147 KB at 8192).
+template <int LOG2N>
+using RowFft = ocean::reg::RegFft<LOG2N, kLog2Radix, 5, 1>;
 constexpr int kLog2N1 = 7;          // the column split N = 128 * N2
 constexpr int kN1 = 1 << kLog2N1;
 constexpr int kColCols = 32;        // columns per column block: one 128 B line a row
@@ -143,49 +166,80 @@ __device__ __forceinline__ void dit_fft(float* smem, int bits, int cols, int seq
   }
 }
 
-// K2: blockIdx.x = row. smem: (Hr, Hi, Zr, Zi) x n.
-__global__ void __launch_bounds__(kRowThreads) fourstep_row_pass(
-    const float* __restrict__ pre, const float* __restrict__ pre_rho,
-    const float* __restrict__ omega, const float* __restrict__ omega_rho,
-    const float* __restrict__ tw, const float* __restrict__ ts, int tb, int n,
-    int log2n, int rows, int row_base, float scale, int wrap_k, float* __restrict__ y) {
+// K2: blockIdx.x = row of the band, N / 8 threads, looping over the
+// frames. smem: (Hr, Hi, Zr, Zi) x kLen, one buffer. (Rho pairs of rows in
+// one block, as K1 runs them, measured slower here: 1,024-thread blocks
+// and two more barriers a frame cost more than the shared propagate saves.)
+template <int LOG2N>
+__global__ void __launch_bounds__(RowFft<LOG2N>::kT, kSmThreads / RowFft<LOG2N>::kT)
+    fourstep_row_pass(
+    const float* __restrict__ h0, const float* __restrict__ omega,
+    const float* __restrict__ tw, const float* __restrict__ ts, int tb, int rows, int row_base,
+    float scale, int wrap_k, int conj_neg, float* __restrict__ y) {
+  using Fft = RowFft<LOG2N>;
+  constexpr int n = Fft::kN;
   extern __shared__ float smem[];
+  // threadIdx.x < kT; the modulo, which nvcc folds, changes its register
+  // allocation: without it K2 spills at 64 registers and runs 1.2x slower
+  // (tools/torch_kernel_variants.py, k2_tid_plain).
+  const int tid = threadIdx.x % Fft::kT;
   const int row = blockIdx.x;
+  const int gy = row_base + row;  // the global row: the reads and k-hat need it
   const size_t plane = static_cast<size_t>(rows) * n;
-  const int gy = row_base + row;  // the global row: the k-hat grids need it
-  const float fn = static_cast<float>(n);
-  const float np1 = static_cast<float>(n + 1);
-  const float iy = static_cast<float>(gy);
-  const float iyq = gy == 0 ? 0.0f : sub(fn, iy);
-  const bool wrap = wrap_k != 0;
+  auto sm = [&](int q, int, int a) -> float& { return smem[q * Fft::kLen + a]; };
 
   for (int frame = 0; frame < tb; ++frame) {
     const float t = ts[frame];
-    for (int x = threadIdx.x; x < n; x += blockDim.x) {
-      const float ix = static_cast<float>(x);
-      const float ixq = x == 0 ? 0.0f : sub(fn, ix);
+    float v[4][kRadix];
+    static_for<0, kRadix>([&](auto k_) {
+      constexpr int k = decltype(k_)::value;
       const ocean::PackedSpectra p = ocean::packed_propagate(
-          pre, pre_rho, omega, omega_rho, static_cast<size_t>(row) * n + x, plane, t,
-          ix, iy, ixq, iyq, np1, scale, wrap, 0.5f);
-      const int j = bit_reverse(x, log2n);
-      smem[j] = p.hr;
-      smem[n + j] = p.hi;
-      smem[2 * n + j] = p.zr;
-      smem[3 * n + j] = p.zi;
-    }
-    __syncthreads();
-    dit_fft(smem, log2n, 1, 2, tw, log2n);  // H and Z
+          h0, omega, n, gy, tid + k * Fft::kT, t, scale, wrap_k != 0, conj_neg != 0, 0.5f);
+      v[0][k] = p.hr;
+      v[1][k] = p.hi;
+      v[2][k] = p.zr;
+      v[3][k] = p.zi;
+    });
+    if (frame > 0) __syncthreads();  // the last frame's exchange reads are done
+    Fft::template run<0>(v, tid, tw, sm);
 
     float* yf = y + static_cast<size_t>(frame) * 4 * plane + static_cast<size_t>(row) * n;
-    for (int x = threadIdx.x; x < n; x += blockDim.x) {
+    static_for<0, kRadix>([&](auto i_) {
+      constexpr int i = decltype(i_)::value;
+      const int x = Fft::out_index(tid, i);
       const float sg = (x & 1) ? -1.0f : 1.0f;
-      yf[x] = sg * smem[x];
-      yf[plane + x] = sg * smem[n + x];
-      yf[2 * plane + x] = sg * smem[2 * n + x];
-      yf[3 * plane + x] = sg * smem[3 * n + x];
-    }
-    __syncthreads();  // the next frame reuses the buffer
+      yf[x] = sg * v[0][i];
+      yf[plane + x] = sg * v[1][i];
+      yf[2 * plane + x] = sg * v[2][i];
+      yf[3 * plane + x] = sg * v[3][i];
+    });
   }
+}
+
+// What a K2 launch reads and writes.
+struct RowArgs {
+  const float* h0;
+  const float* omega;
+  const float* tw;
+  const float* ts;
+  int tb;
+  int rows;
+  int row_base;
+  float scale;
+  int wrap_k;
+  int conj_neg;
+  float* y;
+};
+
+template <int LOG2N>
+int launch_row(const RowArgs& a, cudaStream_t st) {
+  constexpr size_t smem = 4 * static_cast<size_t>(RowFft<LOG2N>::kLen) * sizeof(float);
+  static bool ready[ocean::kMaxDevices];
+  const cudaError_t err = ocean::allow_smem(fourstep_row_pass<LOG2N>, smem, ready);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fourstep_row_pass<LOG2N><<<a.rows, RowFft<LOG2N>::kT, smem, st>>>(
+      a.h0, a.omega, a.tw, a.ts, a.tb, a.rows, a.row_base, a.scale, a.wrap_k, a.conj_neg, a.y);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K3 stage 1: blockIdx = (m2, column band, frame). smem: 4 planes x 128 x 32.
@@ -278,23 +332,23 @@ bool valid_n(int n) { return n >= kMinN && n <= kMaxN && (n & (n - 1)) == 0; }
 extern "C" {
 
 // Launches K2 for tb frames on `stream`; returns the first error (0 when it
-// launched). Inputs: pre, pre_rho (4, rows, n); omega, omega_rho (rows, n),
-// the rows row_base .. row_base + rows - 1 of the grid; tw (2, n/2); ts (tb,).
-// Output: y (tb, 2, 2, rows, n).
-int fourstep_row(const float* pre, const float* pre_rho, const float* omega,
-                 const float* omega_rho, const float* tw, const float* ts, int tb, int n,
-                 int rows, int row_base, float scale, int wrap_k, float* y, void* stream) {
+// launched). Inputs: the state h0 (2, n, n), omega (n, n); tw (2, n/2); ts
+// (tb,). Output: y (tb, 2, 2, rows, n), the rows row_base .. row_base +
+// rows - 1 of the grid.
+int fourstep_row(const float* h0, const float* omega, const float* tw, const float* ts, int tb,
+                 int n, int rows, int row_base, float scale, int wrap_k, int conj_neg, float* y,
+                 void* stream) {
   if (!valid_n(n) || tb < 1 || rows < 1 || row_base < 0 || row_base + rows > n) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = 4 * static_cast<size_t>(n) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fourstep_row_pass, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fourstep_row_pass<<<rows, kRowThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      pre, pre_rho, omega, omega_rho, tw, ts, tb, n, log2_of(n), rows, row_base, scale,
-      wrap_k, y);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const RowArgs a{h0, omega, tw, ts, tb, rows, row_base, scale, wrap_k, conj_neg, y};
+  switch (n) {
+    case 1024: return launch_row<10>(a, st);
+    case 2048: return launch_row<11>(a, st);
+    case 4096: return launch_row<12>(a, st);
+    default: return launch_row<13>(a, st);
+  }
 }
 
 // Launches K3 for tb frames on `stream`; returns the first error. Input:

@@ -1,8 +1,9 @@
 // Device code shared by the ocean-step kernels (packed_step.cu: K1,
 // fourstep_step.cu: K2 + K3, unpacked_step.cu: K4-K6): the Dekker phase,
-// k-hat, the Hermitian-packed propagate of one element, the radix-2 Stockham
-// butterfly and the checksum partials. Each .cu includes it and builds into its own
-// library (gfx_ocean_tpu_torch/kernels.py hashes this header with each source).
+// k-hat, the Hermitian-packed propagate of one element read from the state,
+// the radix-2 Stockham butterfly and the checksum partials. Each .cu
+// includes it and builds into its own library (gfx_ocean_tpu_torch/kernels.py
+// hashes this header with each source).
 
 #pragma once
 
@@ -28,6 +29,21 @@ constexpr float kCC2 = -0x1.6c0c34p-10f;
 constexpr float kCC3 = 0x1.99eb9cp-16f;
 
 constexpr int kSumThreads = 256;
+constexpr int kMaxDevices = 64;
+
+// Raises the dynamic shared-memory limit of kernel f to `bytes`, once a
+// device (`done` is the caller's per-kernel flag array).
+template <class F>
+cudaError_t allow_smem(F* f, size_t bytes, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices || done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) done[dev] = true;
+  return err;
+}
 
 // The propagate arithmetic is written with explicit round-to-nearest
 // intrinsics, which nvcc never contracts into an FMA. That matters for the
@@ -136,22 +152,58 @@ struct PackedSpectra {
   float hr, hi, zr, zi;
 };
 
-// ops/propagate.packed_spectra for the element at flat index idx of the 10
-// hoisted planes (P1..P4 and their rho-gathered twins `plane` floats apart,
-// omega and omega o rho) at time t. (ix, iy) are the element's global
-// indices and (ixq, iyq) their images under rho; np1 = N + 1.
-__device__ __forceinline__ PackedSpectra packed_propagate(
-    const float* __restrict__ pre, const float* __restrict__ pre_rho,
-    const float* __restrict__ omega, const float* __restrict__ omega_rho,
-    size_t idx, size_t plane, float t, float ix, float iy, float ixq, float iyq,
-    float np1, float scale, bool wrap, float half) {
+// P1..P4 of ops/propagate.precompute_propagate at flat index i of the
+// n x n grid (nn = n * n), from h0 (2, n, n) at i and at its flip
+// nn - 1 - i, each one correctly rounded add or subtract, as the plain
+// version forms them (ops/propagate.gather_packed_planes).
+__device__ __forceinline__ void pre_planes(const float* __restrict__ h0, size_t nn, size_t i,
+                                           bool conj_neg, float* p) {
+  const size_t f = nn - 1 - i;
+  const float h0r = __ldg(h0 + i), h0i = __ldg(h0 + nn + i);
+  const float h0nr = __ldg(h0 + f);
+  const float h0ni = conj_neg ? -__ldg(h0 + nn + f) : __ldg(h0 + nn + f);
+  p[0] = add(h0r, h0nr);
+  p[1] = sub(h0ni, h0i);
+  p[2] = sub(h0r, h0nr);
+  p[3] = add(h0i, h0ni);
+}
+
+// The packed spectra of an element e and of its partner rho(e).
+struct PackedPair {
+  PackedSpectra e, rho;
+};
+
+// ops/propagate.packed_spectra for element e = (y, x) of the n x n grid at
+// time t, read from the state: h0 at (y, x), at its flip, at rho = (-y, -x)
+// mod n and at rho's flip (y - 1, x - 1), omega at (y, x) and at rho. The
+// ten values the plain version hoists (P1..P4, their rho twins, omega,
+// omega o rho) are formed here in registers with the same roundings.
+// The same reads give rho(e)'s spectra: its S and S o rho are e's swapped,
+// and so are its k-hat pairs, so H(rho e) = conj(H(e)) and Z(rho e) =
+// (dx_r + dz_i) + i (dz_r - dx_i), bit for bit what rho(e)'s own
+// propagate computes (IEEE add is commutative and a - b = -(b - a)).
+__device__ __forceinline__ PackedPair packed_propagate_pair(
+    const float* __restrict__ h0, const float* __restrict__ omega, int n, int y, int x,
+    float t, float scale, bool wrap, bool conj_neg, float half) {
+  const size_t nn = static_cast<size_t>(n) * n;
+  const int m = n - 1;
+  const size_t idx = static_cast<size_t>(y) * n + x;
+  const size_t rho = static_cast<size_t>((n - y) & m) * n + ((n - x) & m);
+  float p[4], q[4];
+  pre_planes(h0, nn, idx, conj_neg, p);
+  pre_planes(h0, nn, rho, conj_neg, q);
   float c, s, cq, sq;
-  sincos_phase(omega[idx], t, c, s);
-  sincos_phase(omega_rho[idx], t, cq, sq);
-  const float sr = add(mul(c, pre[idx]), mul(s, pre[plane + idx]));           // S
-  const float si = add(mul(s, pre[2 * plane + idx]), mul(c, pre[3 * plane + idx]));
-  const float tr = add(mul(cq, pre_rho[idx]), mul(sq, pre_rho[plane + idx]));  // S o rho
-  const float ti = add(mul(sq, pre_rho[2 * plane + idx]), mul(cq, pre_rho[3 * plane + idx]));
+  sincos_phase(__ldg(omega + idx), t, c, s);
+  sincos_phase(__ldg(omega + rho), t, cq, sq);
+  const float sr = add(mul(c, p[0]), mul(s, p[1]));  // S
+  const float si = add(mul(s, p[2]), mul(c, p[3]));
+  const float tr = add(mul(cq, q[0]), mul(sq, q[1]));  // S o rho
+  const float ti = add(mul(sq, q[2]), mul(cq, q[3]));
+  const float fn = static_cast<float>(n);
+  const float np1 = static_cast<float>(n + 1);
+  const float ix = static_cast<float>(x), iy = static_cast<float>(y);
+  const float ixq = x == 0 ? 0.0f : sub(fn, ix);
+  const float iyq = y == 0 ? 0.0f : sub(fn, iy);
   float khx, khy, khxq, khyq;
   khat(ix, iy, np1, scale, wrap, khx, khy);
   khat(ixq, iyq, np1, scale, wrap, khxq, khyq);
@@ -159,12 +211,22 @@ __device__ __forceinline__ PackedSpectra packed_propagate(
   const float dx_i = mul(half, sub(mul(khxq, tr), mul(khx, sr)));
   const float dz_r = mul(half, add(mul(khy, si), mul(khyq, ti)));
   const float dz_i = mul(half, sub(mul(khyq, tr), mul(khy, sr)));
-  PackedSpectra p;
-  p.hr = mul(half, add(sr, tr));
-  p.hi = mul(half, sub(si, ti));
-  p.zr = sub(dx_r, dz_i);  // Z = H_dx + i H_dz
-  p.zi = add(dx_i, dz_r);
-  return p;
+  PackedPair r;
+  r.e.hr = mul(half, add(sr, tr));
+  r.e.hi = mul(half, sub(si, ti));
+  r.e.zr = sub(dx_r, dz_i);  // Z = H_dx + i H_dz
+  r.e.zi = add(dx_i, dz_r);
+  r.rho.hr = r.e.hr;
+  r.rho.hi = -r.e.hi;
+  r.rho.zr = add(dx_r, dz_i);
+  r.rho.zi = sub(dz_r, dx_i);
+  return r;
+}
+
+__device__ __forceinline__ PackedSpectra packed_propagate(
+    const float* __restrict__ h0, const float* __restrict__ omega, int n, int y, int x,
+    float t, float scale, bool wrap, bool conj_neg, float half) {
+  return packed_propagate_pair(h0, omega, n, y, x, t, scale, wrap, conj_neg, half).e;
 }
 
 // pallas_step._normals_checksum_terms summed with the three planes of

@@ -1,164 +1,262 @@
-// K1 on Hopper: the Hermitian-packed ocean step for N <= 512.
+// K1 on Hopper: the Hermitian-packed ocean step for 16 <= N <= 512.
 //
 // Replaces gfx_ocean_tpu/ops/pallas_step.py::_packed_grid_kernel. It computes
 // the same function as the plain PyTorch version in ops/fused_step.py
 // (packed_planes_reference / packed_checksums_reference) with its own
 // algorithm: where the TPU kernel multiplies by a dense DFT table on the MXU,
-// these kernels run a radix-2 Stockham FFT in shared memory.
+// these kernels run register-resident radix-8 FFTs (fft_reg.cuh).
 //
-//   packed_row_pass          one block per (row, frame): packed propagate of
-//                            the row from the 10 hoisted planes, then the
-//                            x-transform of H and Z; writes Y (tb, 2, 2, N, N).
-//   packed_col_pass          one block per (8 columns, frame): the
-//                            y-transform of H and Z read back from Y; writes
-//                            (tb, 3, N, N) = (disp_x, height, disp_z).
-//   checksum_partials        one block per (4 rows, frame): sum of the three
-//                            planes plus the normal-map terms, reduced in a
-//                            fixed tree order to one partial per block. The
-//                            caller sums the partials; no float atomics.
-//
-// The propagate arithmetic, the Stockham butterfly and checksum_partials
-// live in ocean_common.cuh, shared with K2 + K3 (fourstep_step.cu) and
-// K4-K6 (unpacked_step.cu).
-// The TPU kernel's column pass ran at the last step of a sequential grid off a
-// scratch every earlier step filled. Blocks on the card run in no order, so
-// the two passes are two launches and Y goes through device memory.
+//   packed_row_pass    one block per (kRows rows, frame), N / 8 threads a
+//                      row, the rows in rho pairs (y, N - y): each element
+//                      e's state reads (h0 at four places, omega at two)
+//                      and phases give the packed propagate of e and of
+//                      rho(e) in registers (propagate_row_pair), so
+//                      each pair is computed once and staged through shared
+//                      memory; then each thread runs the x-transform of H
+//                      and Z on its 8 elements x = tid + r N / 8 (radix 8,
+//                      8, ..., a last 2 or 4), one barrier an exchange, and
+//                      writes Y (tb, 2, 2, N, N) in coalesced rows, (-1)^x
+//                      folded in.
+//   packed_col_pass    one block per (8 columns, frame), N / 8 threads a
+//                      column: the y-transform of H and Z together, read
+//                      from Y in whole 32-byte sectors a row; writes
+//                      (tb, 3, N, N) = (disp_x, height, disp_z).
+//   checksum_partials  one block per (4 rows, frame) (ocean_common.cuh):
+//                      sum of the three planes plus the normal-map terms,
+//                      one partial per block, summed by the caller.
 //
 // Both transforms are y[j] = (-1)^j sum_k x[k] e^{+2 pi i j k / N}: the
 // output-alternating inverse DFT of ops/fft._dft_matrix_out_alt_np(n, 1, 0,
 // False). The (-1)^(x+y) correction folds into the two output signs and the
 // reference's Q2 flip into half = -0.5 of the symmetrization.
 //
-// Bounds on the H100 (512^2, per frame): 10 MB of hoisted inputs in, 4 MB of
-// Y out and back in, 3 MB of planes out, ~50 MFLOP. Bandwidth and the
-// barriers between FFT stages bound it, not arithmetic. wgmma DFTs, TMA loads
-// and a fused two-pass kernel (Y kept in a cluster's shared memory) are later
-// work.
+// What bounds it on the H100 (512^2, a frame): the 3 MB state in (once a
+// call: later frames of a time batch find it in L2), 4 MB of Y out and back,
+// 3 MB of planes out and back for the checksum; ~50 MFLOP. Bytes and
+// latency bound it, not arithmetic; the propagate (two Dekker phases, two
+// k-hat with IEEE sqrt and reciprocal, ten scattered reads an element) is
+// half the row pass, hence the rho pairs. The design reads the state
+// instead of 10 hoisted planes (10 MB a frame), keeps each thread's points in
+// registers between passes (2 exchanges through padded, conflict-free
+// shared memory instead of 9 barriered radix-2 stages), loads one twiddle a
+// point a pass shared by H and Z, and runs H and Z together in the column
+// pass. Not wgmma: see fft_reg.cuh.
+//
+// Occupancy at 512^2: the row pass runs 2 rows of 64 threads a block, 256
+// blocks a frame (1,536 at tb = 6) on 132 SMs. The column pass runs 8
+// columns (one 32-byte sector a row) of 64 threads each, 512 threads and
+// 72 KB of shared memory a block, 64 blocks a frame (half the SMs at tb = 1,
+// the renderer's call) and 384 at tb = 6 (2 a SM at 63 registers). Wider
+// or narrower bands and launch bounds for one wave measured no faster
+// (tools/torch_kernel_variants.py).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (gfx_ocean_tpu_torch/kernels.py). Plain C entry points, bound with ctypes.
 
 #include <cuda_runtime.h>
 
+#include "fft_reg.cuh"
 #include "ocean_common.cuh"
 
 namespace {
 
-using ocean::stockham_butterfly;
-using ocean::sub;
+using ocean::allow_smem;
+using ocean::kMaxDevices;
+using ocean::reg::RegFft;
+using ocean::reg::ilog2;
+using ocean::reg::static_for;
 
-constexpr int kMaxN = 512;
-constexpr int kColCols = 8;       // columns per column-pass block: one 32 B sector a row
-constexpr int kColThreads = 256;
+constexpr int kLog2Radix = 3;
+constexpr int kRadix = 1 << kLog2Radix;
+constexpr int kRowThreads = 128;  // threads of a row-pass block (kRows x N / 8)
+constexpr int kColCols = 8;       // columns a column-pass block: one 32 B sector a row
 
-// blockDim.x = n / 2: one x pair in the propagate, one butterfly per
-// sequence and stage in the transform.
-__global__ void __launch_bounds__(kMaxN / 2) packed_row_pass(
-    const float* __restrict__ pre, const float* __restrict__ pre_rho,
-    const float* __restrict__ omega, const float* __restrict__ omega_rho,
-    const float* __restrict__ tw, const float* __restrict__ ts,
-    int n, int log2n, float scale, int wrap_k, float half, float* __restrict__ y) {
-  extern __shared__ float smem[];  // 2 ping-pong buffers x (Hr, Hi, Zr, Zi) x n
-  const int row = blockIdx.x;
-  const int frame = blockIdx.y;
-  const size_t nn = static_cast<size_t>(n) * n;
-  const int half_n = n >> 1;
-  const float t = ts[frame];
-  const float fn = static_cast<float>(n);
-  const float np1 = static_cast<float>(n + 1);
-  const float iy = static_cast<float>(row);
-  const float iyq = row == 0 ? 0.0f : sub(fn, iy);
-  const bool wrap = wrap_k != 0;
-  float* src = smem;
-  float* dst = smem + 4 * n;
+template <int LOG2N>
+struct Shape {
+  static constexpr int kN = 1 << LOG2N;
+  static constexpr int kT = kN >> kLog2Radix;  // threads a sequence
+  static constexpr int kRows = kN < kRowThreads / kT ? kN : kRowThreads / kT;
+  static_assert(kRows % 2 == 0, "a row-pass block holds whole rho pairs of rows");
+  // Row pass: a warp holds min(T, 32) consecutive j of one row.
+  using RowFft = RegFft<LOG2N, kLog2Radix, ilog2(kT < 32 ? kT : 32), 2>;
+  // A warp spanning 32 / T rows finds them an odd multiple of T banks apart.
+  static constexpr int kStride =
+      kT >= 32 ? RowFft::kLen : (RowFft::kLen + 31) / 32 * 32 + kT;
+  static constexpr size_t kRowSmem = 2 * 4 * kRows * kStride * sizeof(float);
+  // Column pass: lanes run over the 8 columns first, 32 / 8 j a warp.
+  static constexpr int kColW = 32 / kColCols;
+  using ColFft = RegFft<LOG2N, kLog2Radix, ilog2(kT < kColW ? kT : kColW), 1>;
+  static constexpr int kColThreads = kColCols * kT;
+  static constexpr size_t kColSmem =
+      4 * static_cast<size_t>(ColFft::kLen) * kColCols * sizeof(float);
+};
 
-  for (int x = threadIdx.x; x < n; x += blockDim.x) {
-    const float ix = static_cast<float>(x);
-    const float ixq = x == 0 ? 0.0f : sub(fn, ix);
-    const ocean::PackedSpectra p = ocean::packed_propagate(
-        pre, pre_rho, omega, omega_rho, static_cast<size_t>(row) * n + x, nn, t,
-        ix, iy, ixq, iyq, np1, scale, wrap, half);
-    src[x] = p.hr;
-    src[n + x] = p.hi;
-    src[2 * n + x] = p.zr;
-    src[3 * n + x] = p.zi;
+// The first FFT pass's points v[q][k] (q: Hr, Hi, Zr, Zi) of element
+// x = tid + k T of row `rows[side]`, for a block that holds the rho pair of
+// rows (y, (n - y) mod n) with T threads on each side. The two sides split
+// the pairs (e, rho e) with e in row rows[0]: each thread computes R / 2 of
+// them, writes both into the staging rows st(q, side, x) (natural x order)
+// and reads its own R points back after a barrier. Rows 0 and n / 2 pair
+// with themselves: a block given them (self_paired) computes every element
+// directly, and still meets the barrier. Every thread of the block must
+// call it.
+template <int R, int T, class Stage>
+__device__ __forceinline__ void propagate_row_pair(
+    float (&v)[4][R], const float* __restrict__ h0, const float* __restrict__ omega, int n,
+    const int (&rows)[2], int side, bool self_paired, int tid, float t, float scale, bool wrap,
+    bool conj_neg, float half, Stage st) {
+  const int m = n - 1;
+  if (self_paired) {
+    static_for<0, R>([&](auto k_) {
+      constexpr int k = decltype(k_)::value;
+      const ocean::PackedSpectra p = ocean::packed_propagate(
+          h0, omega, n, rows[side], tid + k * T, t, scale, wrap, conj_neg, half);
+      v[0][k] = p.hr;
+      v[1][k] = p.hi;
+      v[2][k] = p.zr;
+      v[3][k] = p.zi;
+    });
+  } else {
+    static_for<0, R / 2>([&](auto k_) {
+      constexpr int k = decltype(k_)::value;
+      const int x = tid + (k + side * (R / 2)) * T;
+      const ocean::PackedPair p = ocean::packed_propagate_pair(
+          h0, omega, n, rows[0], x, t, scale, wrap, conj_neg, half);
+      const int xr = (n - x) & m;
+      st(0, 0, x) = p.e.hr;
+      st(1, 0, x) = p.e.hi;
+      st(2, 0, x) = p.e.zr;
+      st(3, 0, x) = p.e.zi;
+      st(0, 1, xr) = p.rho.hr;
+      st(1, 1, xr) = p.rho.hi;
+      st(2, 1, xr) = p.rho.zr;
+      st(3, 1, xr) = p.rho.zi;
+    });
   }
   __syncthreads();
-
-  for (int s_log = 0; s_log < log2n; ++s_log) {
-    for (int b = threadIdx.x; b < half_n; b += blockDim.x) {
-      const int k = (b >> s_log) << s_log;
-      const float wr = tw[k], wi = tw[half_n + k];
-      stockham_butterfly(src, src + n, dst, dst + n, b, s_log, half_n, 1, wr, wi);
-      stockham_butterfly(src + 2 * n, src + 3 * n, dst + 2 * n, dst + 3 * n,
-                         b, s_log, half_n, 1, wr, wi);
-    }
-    __syncthreads();
-    float* tmp = src;
-    src = dst;
-    dst = tmp;
-  }
-
-  float* yf = y + static_cast<size_t>(frame) * 4 * nn + static_cast<size_t>(row) * n;
-  for (int x = threadIdx.x; x < n; x += blockDim.x) {
-    const float sg = (x & 1) ? -1.0f : 1.0f;
-    yf[x] = sg * src[x];
-    yf[nn + x] = sg * src[n + x];
-    yf[2 * nn + x] = sg * src[2 * n + x];
-    yf[3 * nn + x] = sg * src[3 * n + x];
+  if (!self_paired) {
+    static_for<0, R>([&](auto k_) {
+      constexpr int k = decltype(k_)::value;
+      const int x = tid + k * T;
+      v[0][k] = st(0, side, x);
+      v[1][k] = st(1, side, x);
+      v[2][k] = st(2, side, x);
+      v[3][k] = st(3, side, x);
+    });
   }
 }
 
-__global__ void __launch_bounds__(kColThreads) packed_col_pass(
-    const float* __restrict__ y, const float* __restrict__ tw, int n, int log2n,
-    float* __restrict__ out) {
-  extern __shared__ float smem[];  // 2 ping-pong buffers x (re, im) x n x kColCols
-  const int c0 = blockIdx.x * kColCols;
+template <int LOG2N>
+__global__ void __launch_bounds__(Shape<LOG2N>::kRows * Shape<LOG2N>::kT) packed_row_pass(
+    const float* __restrict__ h0, const float* __restrict__ omega,
+    const float* __restrict__ tw, const float* __restrict__ ts, float scale, int wrap_k,
+    int conj_neg, float half, float* __restrict__ y) {
+  using S = Shape<LOG2N>;
+  constexpr int n = S::kN;
+  constexpr size_t nn = static_cast<size_t>(n) * n;
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x % S::kT;
+  const int rl = threadIdx.x / S::kT;  // rows 2 p and 2 p + 1: a rho pair
+  const int side = rl & 1;
+  const int pair = blockIdx.x * (S::kRows / 2) + (rl >> 1);
+  const int rows[2] = {pair == 0 ? 0 : pair, pair == 0 ? n / 2 : n - pair};
+  const int row = rows[side];
   const int frame = blockIdx.y;
-  const size_t nn = static_cast<size_t>(n) * n;
-  const int half_n = n >> 1;
-  const int len = n * kColCols;
-  float* of = out + static_cast<size_t>(frame) * 3 * nn;
+  const float t = ts[frame];
 
-  for (int spec = 0; spec < 2; ++spec) {  // 0: H, 1: Z
-    const float* yr = y + (static_cast<size_t>(frame) * 4 + 2 * spec) * nn;
-    const float* yi = yr + nn;
-    float* src = smem;
-    float* dst = smem + 2 * len;
-    for (int i = threadIdx.x; i < len; i += blockDim.x) {
-      const size_t g = static_cast<size_t>(i / kColCols) * n + c0 + i % kColCols;
-      src[i] = yr[g];
-      src[len + i] = yi[g];
-    }
-    __syncthreads();
+  // The propagate stages through buffer 1, which the first exchange leaves.
+  float v[4][kRadix];
+  auto stage = [&](int q, int s, int x) -> float& {
+    return smem[((4 + q) * S::kRows + (rl & ~1) + s) * S::kStride + x];
+  };
+  propagate_row_pair<kRadix, S::kT>(v, h0, omega, n, rows, side, pair == 0, tid, t,
+                                           scale, wrap_k != 0, conj_neg != 0, half, stage);
+  auto sm = [&](int q, int buf, int a) -> float& {
+    return smem[((buf * 4 + q) * S::kRows + rl) * S::kStride + a];
+  };
+  S::RowFft::template run<0>(v, tid, tw, sm);
 
-    for (int s_log = 0; s_log < log2n; ++s_log) {
-      for (int b = threadIdx.x; b < half_n * kColCols; b += blockDim.x) {
-        const int col = b % kColCols;
-        const int bf = b / kColCols;
-        const int k = (bf >> s_log) << s_log;
-        stockham_butterfly(src + col, src + len + col, dst + col, dst + len + col,
-                           bf, s_log, half_n, kColCols, tw[k], tw[half_n + k]);
-      }
-      __syncthreads();
-      float* tmp = src;
-      src = dst;
-      dst = tmp;
-    }
+  float* yf = y + static_cast<size_t>(frame) * 4 * nn + static_cast<size_t>(row) * n;
+  static_for<0, kRadix>([&](auto i_) {
+    constexpr int i = decltype(i_)::value;
+    const int x = S::RowFft::out_index(tid, i);
+    const float sg = (x & 1) ? -1.0f : 1.0f;
+    yf[x] = sg * v[0][i];
+    yf[nn + x] = sg * v[1][i];
+    yf[2 * nn + x] = sg * v[2][i];
+    yf[3 * nn + x] = sg * v[3][i];
+  });
+}
 
-    for (int i = threadIdx.x; i < len; i += blockDim.x) {
-      const int r = i / kColCols;
-      const size_t g = static_cast<size_t>(r) * n + c0 + i % kColCols;
-      const float sg = (r & 1) ? -1.0f : 1.0f;
-      if (spec == 0) {
-        of[nn + g] = sg * src[i];           // height = Re F(H)
-      } else {
-        of[g] = sg * src[i];                // disp_x = Re F(Z)
-        of[2 * nn + g] = sg * src[len + i]; // disp_z = Im F(Z)
-      }
-    }
-    __syncthreads();  // the next spectrum reuses the buffers
-  }
+template <int LOG2N>
+__global__ void __launch_bounds__(Shape<LOG2N>::kColThreads) packed_col_pass(
+    const float* __restrict__ y, const float* __restrict__ tw, float* __restrict__ out) {
+  using S = Shape<LOG2N>;
+  constexpr int n = S::kN;
+  constexpr size_t nn = static_cast<size_t>(n) * n;
+  extern __shared__ float smem[];
+  const int c = threadIdx.x % kColCols;
+  const int tid = threadIdx.x / kColCols;
+  const int col = blockIdx.x * kColCols + c;
+  const int frame = blockIdx.y;
+  const float* yf = y + static_cast<size_t>(frame) * 4 * nn + col;
+
+  float v[4][kRadix];
+  static_for<0, kRadix>([&](auto k_) {
+    constexpr int k = decltype(k_)::value;
+    const size_t g = static_cast<size_t>(tid + k * S::kT) * n;
+    v[0][k] = yf[g];
+    v[1][k] = yf[nn + g];
+    v[2][k] = yf[2 * nn + g];
+    v[3][k] = yf[3 * nn + g];
+  });
+  auto sm = [&](int q, int, int a) -> float& {
+    return smem[(q * S::ColFft::kLen + a) * kColCols + c];
+  };
+  S::ColFft::template run<0>(v, tid, tw, sm);
+
+  float* of = out + static_cast<size_t>(frame) * 3 * nn + col;
+  static_for<0, kRadix>([&](auto i_) {
+    constexpr int i = decltype(i_)::value;
+    const int r = S::ColFft::out_index(tid, i);
+    const size_t g = static_cast<size_t>(r) * n;
+    const float sg = (r & 1) ? -1.0f : 1.0f;
+    of[nn + g] = sg * v[0][i];      // height = Re F(H)
+    of[g] = sg * v[2][i];           // disp_x = Re F(Z)
+    of[2 * nn + g] = sg * v[3][i];  // disp_z = Im F(Z)
+  });
+}
+
+// What a K1 launch reads and writes.
+struct StepArgs {
+  const float* h0;
+  const float* omega;
+  const float* tw;
+  const float* ts;
+  int tb;
+  float scale;
+  int wrap_k;
+  int conj_neg;
+  float half;
+  float* y;
+  float* out;
+};
+
+template <int LOG2N>
+int launch(const StepArgs& a, cudaStream_t st) {
+  using S = Shape<LOG2N>;
+  static bool row_ready[kMaxDevices], col_ready[kMaxDevices];
+  cudaError_t err = allow_smem(packed_row_pass<LOG2N>, S::kRowSmem, row_ready);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  packed_row_pass<LOG2N><<<dim3(S::kN / S::kRows, a.tb), S::kRows * S::kT, S::kRowSmem, st>>>(
+      a.h0, a.omega, a.tw, a.ts, a.scale, a.wrap_k, a.conj_neg, a.half, a.y);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = allow_smem(packed_col_pass<LOG2N>, S::kColSmem, col_ready);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  packed_col_pass<LOG2N><<<dim3(S::kN / kColCols, a.tb), S::kColThreads, S::kColSmem, st>>>(
+      a.y, a.tw, a.out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -166,42 +264,33 @@ __global__ void __launch_bounds__(kColThreads) packed_col_pass(
 extern "C" {
 
 // Launches the K1 kernels for tb frames on `stream` and returns the first
-// cudaGetLastError() that is not cudaSuccess (0 when all launched).
-// Inputs: pre, pre_rho (4, n, n); omega, omega_rho (n, n); tw (2, n/2);
-// ts (tb,). Outputs: y (tb, 2, 2, n, n) scratch; out (tb, 3, n, n);
-// partials (tb, n / ck_rows) or null for no checksum.
-int packed_step(const float* pre, const float* pre_rho, const float* omega,
-                const float* omega_rho, const float* tw, const float* ts, int tb,
-                int n, float scale, int wrap_k, float half, float* y, float* out,
+// error that is not cudaSuccess (0 when all launched). Inputs: h0 (2, n, n);
+// omega (n, n); tw (2, n/2); ts (tb,). Outputs: y (tb, 2, 2, n, n) scratch;
+// out (tb, 3, n, n); partials (tb, n / ck_rows) or null for no checksum.
+int packed_step(const float* h0, const float* omega, const float* tw, const float* ts, int tb,
+                int n, float scale, int wrap_k, int conj_neg, float half, float* y, float* out,
                 float* partials, int ck_rows, float normals_scale, int with_normals,
                 void* stream) {
-  if (n < 16 || n > kMaxN || (n & (n - 1)) != 0 || tb < 1 || tb > 65535 ||
-      ck_rows < 1 || n % ck_rows != 0) {
+  if (tb < 1 || tb > 65535 || ck_rows < 1 || n % ck_rows != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int log2n = 0;
-  while ((1 << log2n) < n) ++log2n;
-
-  const size_t row_smem = 8 * static_cast<size_t>(n) * sizeof(float);
-  packed_row_pass<<<dim3(n, tb), n / 2, row_smem, st>>>(
-      pre, pre_rho, omega, omega_rho, tw, ts, n, log2n, scale, wrap_k, half, y);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const size_t col_smem = 4 * static_cast<size_t>(n) * kColCols * sizeof(float);
-  err = cudaFuncSetAttribute(packed_col_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(col_smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  packed_col_pass<<<dim3(n / kColCols, tb), kColThreads, col_smem, st>>>(y, tw, n, log2n, out);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
+  const StepArgs a{h0, omega, tw, ts, tb, scale, wrap_k, conj_neg, half, y, out};
+  int err;
+  switch (n) {
+    case 16: err = launch<4>(a, st); break;
+    case 32: err = launch<5>(a, st); break;
+    case 64: err = launch<6>(a, st); break;
+    case 128: err = launch<7>(a, st); break;
+    case 256: err = launch<8>(a, st); break;
+    case 512: err = launch<9>(a, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != 0) return err;
   if (partials != nullptr) {
     ocean::checksum_partials<<<dim3(n / ck_rows, tb), ocean::kSumThreads, 0, st>>>(
         out, n, ck_rows, normals_scale, with_normals, partials);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
   }
   return 0;
 }

@@ -97,7 +97,13 @@ def _dft_matrix_out_alt_np(n: int, sign: int, axis: int,
 
 def twiddle_table(n: int, device) -> torch.Tensor:
     """(2, n/2) float32 cos, sin of 2 pi k / n (row 1 of ``_dft_matrix_np``,
-    without the n x n table): the FFT kernels' twiddles."""
+    without the n x n table): the FFT kernels' twiddles, made once per n and
+    device. Read only: every caller shares the one tensor."""
+    return _twiddle_table(n, torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _twiddle_table(n: int, device: torch.device) -> torch.Tensor:
     theta = (2.0 * np.pi / n) * np.arange(n // 2, dtype=np.float64)
     return torch.from_numpy(np.stack([np.cos(theta), np.sin(theta)]).astype(np.float32)).to(device)
 

@@ -16,10 +16,11 @@ Per frame:
   folded in: (tb, 3, N, C) = (disp_x, height, disp_z), height = Re F(H),
   disp_x / disp_z = Re / Im F(Z); optionally the forcing checksum.
 
-The JAX kernels read x-permuted planes so that stage 1 is a free view on
-the MXU (``_fourstep_permute_inputs``); that is a TPU layout device. Here
-both the plain version and the kernels read K1's hoisted planes in true
-order, and the contract is pinned in true order.
+The JAX kernels read x-permuted hoisted planes so that stage 1 is a free
+view on the MXU (``_fourstep_permute_inputs``); that is a TPU layout
+device. Here K2 reads the state itself (h0 and omega of the whole grid: a
+row's partners under the flip and rho lie outside any band), as K1 does,
+and the contract is pinned in true order.
 
 Two implementations sit side by side:
 
@@ -29,16 +30,17 @@ Two implementations sit side by side:
   diagonal, W2top), FP32 with TF32 off. A dense N-point DFT table would
   cost ~2 TFLOP a frame at 4096^2; the factored tables ~0.1.
 - ``launch_fourstep_row`` / ``launch_fourstep_col``: the hand-written CUDA
-  kernels of ``csrc/fourstep_step.cu`` (radix-4 FFTs in shared memory; the
-  column transform split 128 x N/128 with one device-memory round trip).
+  kernels of ``csrc/fourstep_step.cu`` (K2 a register-resident radix-8
+  FFT a row; K3 radix-4 FFTs in shared memory, the column transform split
+  128 x N/128 with one device-memory round trip).
 
 ``fourstep_planes`` / ``fourstep_checksums`` pick by where the tensors lie:
 CPU tensors take the plain version, CUDA tensors launch the kernels or
 raise. Nothing falls back. N = 16384 raises ``NotImplementedError``: K2's
 row of 4 N floats does not fit one block's shared memory there.
 
-What bounds K2 + K3 on the H100 at 4096^2 (tb = 1): ~2 GB of device memory
-traffic a frame (671 MB of hoisted planes, Y and the column pass's scratch
+What bounds K2 + K3 on the H100 at 4096^2 (tb = 1): ~1.5 GB of device
+memory traffic a frame (the 201 MB state, Y and the column pass's scratch
 each written and read once, the planes written and read by the checksum)
 against ~5 GFLOP, so bandwidth; ``PERF.md`` has the measured split.
 """
@@ -57,8 +59,8 @@ from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, normals_scale
 from gfx_ocean_tpu_torch.ops.fft import (_dft_matrix_np, _dft_matrix_out_alt_np,
                                          _twiddle_np, effective_precision,
                                          pin_fp32_matmul, twiddle_table)
-from gfx_ocean_tpu_torch.ops.propagate import (_f32, as_times, packed_spectra,
-                                               precompute_propagate_packed)
+from gfx_ocean_tpu_torch.ops.propagate import (_f32, as_times, gather_packed_planes,
+                                               packed_spectra)
 
 MIN_N = 1024
 # Largest N the kernels take; 16384 is ROADMAP.md queue 2, "K2 + K3 at 16384".
@@ -70,14 +72,12 @@ COL_BAND = 32
 
 
 class FourstepInputs(NamedTuple):
-    """Per-rollout hoisted inputs of K2 + K3 (all float32, one device):
-    K1's planes, in true x order, on ``rows`` rows of the grid."""
+    """Per-rollout inputs of K2 + K3 (all float32, one device): the state
+    itself, the whole grid."""
 
-    pre: torch.Tensor        # (4, rows, N) P1..P4
-    pre_rho: torch.Tensor    # (4, rows, N) rho-gathered P1..P4
-    omega: torch.Tensor      # (rows, N)
-    omega_rho: torch.Tensor  # (rows, N) rho-gathered omega
-    twiddle: torch.Tensor    # (2, N/2) cos, sin of 2 pi k / N: the kernels' table
+    h0: torch.Tensor       # (2, N, N) re, im
+    omega: torch.Tensor    # (N, N)
+    twiddle: torch.Tensor  # (2, N/2) cos, sin of 2 pi k / N: the kernels' table
 
 
 def fourstep_plan(n: int, config: OceanConfig) -> Tuple[int, int, int, int]:
@@ -153,15 +153,24 @@ def _device_tables(n: int, negate: bool, device: torch.device):
 
 def hoist_fourstep(h0_pair: torch.Tensor, omega: torch.Tensor,
                    config: OceanConfig) -> FourstepInputs:
-    """Gather the time-invariant inputs once (per rollout, not per frame)."""
+    """The time-invariant inputs (per rollout, not per frame): a float32
+    contiguous state as it is, and the twiddle table made once per N and
+    device. Copies nothing and launches nothing."""
     n = h0_pair.shape[-1]
     check_supported(config, n)
     dev = h0_pair.device
-    h0_pair = h0_pair.to(torch.float32).contiguous()
-    omega = omega.to(device=dev, dtype=torch.float32).contiguous()
-    pre, pre_rho, omega_rho = precompute_propagate_packed(h0_pair, omega, config.compat)
-    return FourstepInputs(pre.contiguous(), pre_rho.contiguous(), omega,
-                          omega_rho.contiguous(), twiddle_table(n, dev))
+    return FourstepInputs(h0_pair.to(torch.float32).contiguous(),
+                          omega.to(device=dev, dtype=torch.float32).contiguous(),
+                          twiddle_table(n, dev))
+
+
+def _band(inputs: FourstepInputs, row_base: int, rows: Optional[int]) -> int:
+    """The band's row count (all rows when None); raises outside the grid."""
+    n = inputs.omega.shape[-1]
+    rows = n - row_base if rows is None else rows
+    if rows < 1 or not 0 <= row_base <= n - rows:
+        raise ValueError(f"rows {row_base}..{row_base + rows - 1} lie outside the {n}-row grid")
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -169,22 +178,25 @@ def hoist_fourstep(h0_pair: torch.Tensor, omega: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def fourstep_row_reference(inputs: FourstepInputs, ts, config: OceanConfig,
-                           row_base: int = 0) -> torch.Tensor:
-    """Plain PyTorch K2: ts (tb,) -> Y (tb, 2, 2, rows, N) in true x order.
+                           row_base: int = 0, rows: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch K2: ts (tb,) -> Y (tb, 2, 2, rows, N) in true x order,
+    on ``rows`` rows (default: to the last) from the global row ``row_base``.
 
     With k = n2 k1 + k2 and x = n1 + 128 n2 (``ops/fft._foursteps_last``):
     stage 1 over k1 against W1cat, the twiddle T[k2, n1], stage 2 over k2
     against W2cat (or diag(W2cat, W2cat), both spectra in one matmul)."""
     om = inputs.omega
-    rows, n = om.shape
+    n = om.shape[-1]
+    rows = _band(inputs, row_base, rows)
     n1, n2, _, _ = fourstep_plan(n, config)
     (w1, w2, ttr, tti), _ = _device_tables(n, config.compat.ref_sign, om.device)
     ts = as_times(ts, om.device)
     tb = ts.shape[0]
     pin_fp32_matmul(om)
-    h_r, h_i, z_r, z_i = packed_spectra(
-        inputs.pre, inputs.pre_rho, om, inputs.omega_rho, ts, config.domain_size,
-        config.compat.wrap_k, 0.5, row_base)
+    pre, pre_rho, om_band, omq = gather_packed_planes(inputs.h0, om, config.compat.conj_neg,
+                                                      rows, row_base)
+    h_r, h_i, z_r, z_i = packed_spectra(pre, pre_rho, om_band, omq, ts, config.domain_size,
+                                        config.compat.wrap_k, 0.5, row_base)
 
     def stage12(xr, xi):
         # (tb, rows, N) -> (tb, rows, k2, [k1 of re | k1 of im])
@@ -274,8 +286,9 @@ def _raise_on_error(lib, err: int, what: str) -> None:
 
 
 def launch_fourstep_row(inputs: FourstepInputs, ts, config: OceanConfig,
-                        row_base: int = 0) -> torch.Tensor:
-    """Launch K2 on the current stream: ts (tb,) -> Y (tb, 2, 2, rows, N).
+                        row_base: int = 0, rows: Optional[int] = None) -> torch.Tensor:
+    """Launch K2 on the current stream: ts (tb,) -> Y (tb, 2, 2, rows, N) on
+    ``rows`` rows (default: to the last) from the global row ``row_base``.
 
     Adds one to ``launch_fourstep_row.launches`` per launch."""
     from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
@@ -283,24 +296,22 @@ def launch_fourstep_row(inputs: FourstepInputs, ts, config: OceanConfig,
     dev = inputs.omega.device
     if dev.type != "cuda":
         raise ValueError(f"launch_fourstep_row needs CUDA tensors, got {dev}")
-    rows, n = inputs.omega.shape
+    n = inputs.omega.shape[-1]
     _check_kernel_n(n, "K2")
     check_supported(config, n)
-    if not 0 <= row_base <= n - rows:
-        raise ValueError(f"rows {row_base}..{row_base + rows - 1} lie outside the {n}-row grid")
-    shapes = dict(pre=(4, rows, n), pre_rho=(4, rows, n), omega=(rows, n),
-                  omega_rho=(rows, n), twiddle=(2, n // 2))
+    shapes = dict(h0=(2, n, n), omega=(n, n), twiddle=(2, n // 2))
     for name, x in inputs._asdict().items():
         _check_tensor(name, x, shapes[name], dev)
+    rows = _band(inputs, row_base, rows)
     ts = as_times(ts, dev)
     tb = ts.shape[0]
     y = torch.empty((tb, 2, 2, rows, n), dtype=torch.float32, device=dev)
     lib = kernels.load("fourstep_step")
     err = lib.fourstep_row(
-        inputs.pre.data_ptr(), inputs.pre_rho.data_ptr(), inputs.omega.data_ptr(),
-        inputs.omega_rho.data_ptr(), inputs.twiddle.data_ptr(), ts.data_ptr(), tb, n,
-        rows, row_base, _f32(np.pi / config.domain_size), int(config.compat.wrap_k),
-        y.data_ptr(), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        inputs.h0.data_ptr(), inputs.omega.data_ptr(), inputs.twiddle.data_ptr(),
+        ts.data_ptr(), tb, n, rows, row_base, _f32(np.pi / config.domain_size),
+        int(config.compat.wrap_k), int(config.compat.conj_neg), y.data_ptr(),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _raise_on_error(lib, err, "K2 (fourstep_row)")
     launch_fourstep_row.launches += 1
     return y

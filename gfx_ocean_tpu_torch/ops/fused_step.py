@@ -4,11 +4,13 @@ entry points that route by N and ``hermitian_pack``.
 K1 replaces ``gfx_ocean_tpu/ops/pallas_step.py::_packed_grid_kernel``
 (launched by ``_packed_single_fields``). Per frame it computes:
 
-1. the packed propagate from 10 hoisted planes (P1..P4, their rho-gathered
-   twins, omega and omega o rho): the symmetrized height spectrum H and
-   Z = H_dx + i H_dz, with the Dekker phase, the polynomial sincos and
-   k-hat pairs from indices (``ops/propagate.packed_spectra``). The Q2
-   flip rides the symmetrization's 1/2 (``half = -0.5`` when ``ref_sign``);
+1. the packed propagate from the state: per element, h0 at (y, x), at its
+   flip, at rho = (-y, -x) and at rho's flip, omega at (y, x) and at rho
+   (``ops/propagate.gather_packed_planes``), then the symmetrized height
+   spectrum H and Z = H_dx + i H_dz, with the Dekker phase, the polynomial
+   sincos and k-hat pairs from indices (``ops/propagate.packed_spectra``).
+   The Q2 flip rides the symmetrization's 1/2 (``half = -0.5`` when
+   ``ref_sign``);
 2. the row DFT Y = X A^T and the column DFT A Y with A = D_alt W
    (``ops/fft._dft_matrix_out_alt_np(n, 1, 0, False)``): height is
    Re F(H), disp_x / disp_z are Re / Im F(Z);
@@ -17,11 +19,12 @@ K1 replaces ``gfx_ocean_tpu/ops/pallas_step.py::_packed_grid_kernel``
 Two implementations sit side by side:
 
 - ``packed_planes_reference`` / ``packed_checksums_reference``: the plain
-  PyTorch version (matmuls against A, FP32 with TF32 off). The CPU tests
-  and the kernel-vs-plain comparison on the card use it.
+  PyTorch version (matmuls against A, made once per N and device, FP32
+  with TF32 off). The CPU tests and the kernel-vs-plain comparison on the
+  card use it.
 - ``launch_packed_step``: the hand-written CUDA kernels of
-  ``csrc/packed_step.cu`` (a row pass, a column pass, checksum partials;
-  a radix-2 Stockham FFT in shared memory instead of the TPU's MXU dots).
+  ``csrc/packed_step.cu`` (a row pass and a column pass of register-resident
+  radix-8 FFTs, then checksum partials).
 
 The JAX entry points ``pallas_planes`` / ``pallas_fields`` /
 ``pallas_checksums`` become ``fused_planes`` / ``fused_fields`` /
@@ -34,14 +37,14 @@ takes the unpacked step (K4, or K5 + K6, ``ops/unpacked_step.py``).
 inputs. Each picks by where the tensors lie: CPU tensors take the plain
 version, CUDA tensors launch the kernels or raise. Nothing falls back.
 
-What bounds K1 on the H100: at 512^2 each frame reads 10 MB of hoisted
-inputs (the same 10 MB for every frame of a time batch, so they can stay
-in the 50 MB L2), writes and rereads the 4 MB row-pass planes Y, writes
-3 MB of planes and rereads them for the checksum. The FFT form does
-~50 MFLOP a frame, so the kernels are bound by bandwidth and by latency
-(a barrier between FFT stages), not by arithmetic (``PERF.md`` has the
-measured split). Later PRs: ``wgmma`` matmul DFTs, TMA loads, and fusing
-the two passes through a cluster so Y never leaves the chip.
+Hoisting copies nothing and launches nothing: the inputs are the state's
+own h0 and omega and the twiddle table made once per N and device.
+
+What bounds K1 on the H100: at 512^2 a frame reads the 3 MB state (once a
+call; later frames find it in the 50 MB L2), writes and rereads the 4 MB
+row-pass planes Y, writes 3 MB of planes and rereads them for the
+checksum. The FFT does ~50 MFLOP a frame, so bytes and latency bound the
+kernels, not arithmetic (``PERF.md`` has the measured split).
 """
 
 from __future__ import annotations
@@ -55,12 +58,11 @@ import torch
 from gfx_ocean_tpu_torch.config import OceanConfig
 from gfx_ocean_tpu_torch.ops import fourstep_step, unpacked_step
 from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, normals_scale
-from gfx_ocean_tpu_torch.ops.fft import (_dft_matrix_out_alt_np, effective_precision,
-                                         pin_fp32_matmul, twiddle_table)
+from gfx_ocean_tpu_torch.ops.fft import effective_precision, pin_fp32_matmul, twiddle_table
 from gfx_ocean_tpu_torch.ops.fourstep_step import FourstepInputs
-from gfx_ocean_tpu_torch.ops.propagate import (_f32, as_times, packed_spectra,
-                                               precompute_propagate_packed)
-from gfx_ocean_tpu_torch.ops.unpacked_step import UnpackedInputs
+from gfx_ocean_tpu_torch.ops.propagate import (_f32, as_times, gather_packed_planes,
+                                               packed_spectra)
+from gfx_ocean_tpu_torch.ops.unpacked_step import UnpackedInputs, dft_table
 
 MAX_N = 512
 # Rows of the output reduced by one block of the checksum kernel.
@@ -68,15 +70,11 @@ CHECKSUM_ROWS = 4
 
 
 class PackedInputs(NamedTuple):
-    """Per-rollout hoisted inputs of K1 (all float32, one device)."""
+    """Per-rollout inputs of K1 (all float32, one device): the state itself."""
 
-    pre: torch.Tensor        # (4, N, N) P1..P4
-    pre_rho: torch.Tensor    # (4, N, N) rho-gathered P1..P4
-    omega: torch.Tensor      # (N, N)
-    omega_rho: torch.Tensor  # (N, N) rho-gathered omega
-    a_re: torch.Tensor       # (N, N) Re(D_alt W), the plain version's table
-    a_im: torch.Tensor       # (N, N) Im(D_alt W)
-    twiddle: torch.Tensor    # (2, N/2) cos, sin of 2 pi k / N: the kernel's table
+    h0: torch.Tensor       # (2, N, N) re, im
+    omega: torch.Tensor    # (N, N)
+    twiddle: torch.Tensor  # (2, N/2) cos, sin of 2 pi k / N: the kernels' table
 
 
 def check_supported(config: OceanConfig, n: int) -> str:
@@ -95,8 +93,9 @@ FusedInputs = Union[PackedInputs, UnpackedInputs, FourstepInputs]
 
 def hoist_packed(h0_pair: torch.Tensor, omega: torch.Tensor,
                  config: OceanConfig) -> FusedInputs:
-    """Gather the time-invariant inputs once (per rollout, not per frame):
-    K1's for N <= 512, K4-K6's for N <= 512 unpacked, K2 + K3's above."""
+    """The time-invariant inputs of the route (per rollout, not per frame):
+    K1's for N <= 512, K4-K6's for N <= 512 unpacked, K2 + K3's above. A
+    float32 contiguous state is passed through as it is."""
     if h0_pair.ndim != 3:
         raise ValueError("the fused step takes a single unbatched state")
     n = h0_pair.shape[-1]
@@ -106,13 +105,9 @@ def hoist_packed(h0_pair: torch.Tensor, omega: torch.Tensor,
     if not config.hermitian_pack:
         return unpacked_step.hoist_unpacked(h0_pair, omega, config)
     dev = h0_pair.device
-    h0_pair = h0_pair.to(torch.float32).contiguous()
-    omega = omega.to(device=dev, dtype=torch.float32).contiguous()
-    pre, pre_rho, omega_rho = precompute_propagate_packed(h0_pair, omega, config.compat)
-    a_re, a_im = (torch.from_numpy(a).to(dev)
-                  for a in _dft_matrix_out_alt_np(n, 1, 0, False))
-    return PackedInputs(pre.contiguous(), pre_rho.contiguous(), omega,
-                        omega_rho.contiguous(), a_re, a_im, twiddle_table(n, dev))
+    return PackedInputs(h0_pair.to(torch.float32).contiguous(),
+                        omega.to(device=dev, dtype=torch.float32).contiguous(),
+                        twiddle_table(n, dev))
 
 
 # --------------------------------------------------------------------------
@@ -122,11 +117,13 @@ def hoist_packed(h0_pair: torch.Tensor, omega: torch.Tensor,
 def packed_planes_reference(inputs: PackedInputs, ts,
                             config: OceanConfig) -> torch.Tensor:
     """Plain PyTorch K1: ts (tb,) -> (tb, 3, N, N) (disp_x, height, disp_z)."""
-    pre, pre_rho, om, omq, ar, ai, _ = inputs
+    om = inputs.omega
     pin_fp32_matmul(om)
+    pre, pre_rho, _, omq = gather_packed_planes(inputs.h0, om, config.compat.conj_neg)
     h_r, h_i, z_r, z_i = packed_spectra(
         pre, pre_rho, om, omq, as_times(ts, om.device), config.domain_size,
         config.compat.wrap_k, -0.5 if config.compat.ref_sign else 0.5)
+    ar, ai = dft_table(om.shape[-1], om.device)
     art, ait = ar.T, ai.T
     yh_r = h_r @ art - h_i @ ait
     yh_i = h_r @ ait + h_i @ art
@@ -166,11 +163,10 @@ def launch_packed_step(inputs: PackedInputs, ts: torch.Tensor, config: OceanConf
     if dev.type != "cuda":
         raise ValueError(f"launch_packed_step needs CUDA tensors, got {dev}")
     n = inputs.omega.shape[-1]
-    if n > MAX_N:
-        raise ValueError(f"K1 takes N <= {MAX_N}, got {n}")
+    if n < 16 or n > MAX_N or n & (n - 1):
+        raise ValueError(f"K1 takes a power of two N in [16, {MAX_N}], got {n}")
     check_supported(config, n)
-    shapes = dict(pre=(4, n, n), pre_rho=(4, n, n), omega=(n, n), omega_rho=(n, n),
-                  a_re=(n, n), a_im=(n, n), twiddle=(2, n // 2))
+    shapes = dict(h0=(2, n, n), omega=(n, n), twiddle=(2, n // 2))
     for name, x in inputs._asdict().items():
         if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"{name}: expected contiguous float32 on {dev}")
@@ -185,10 +181,9 @@ def launch_packed_step(inputs: PackedInputs, ts: torch.Tensor, config: OceanConf
     nscale = normals_scale(config)
     lib = kernels.load("packed_step")
     err = lib.packed_step(
-        _ptr(inputs.pre), _ptr(inputs.pre_rho), _ptr(inputs.omega),
-        _ptr(inputs.omega_rho), _ptr(inputs.twiddle), _ptr(ts), tb, n,
+        _ptr(inputs.h0), _ptr(inputs.omega), _ptr(inputs.twiddle), _ptr(ts), tb, n,
         _f32(np.pi / config.domain_size), int(config.compat.wrap_k),
-        -0.5 if config.compat.ref_sign else 0.5,
+        int(config.compat.conj_neg), -0.5 if config.compat.ref_sign else 0.5,
         _ptr(y), _ptr(planes), _ptr(partials), CHECKSUM_ROWS,
         nscale if nscale is not None else 0.0, int(nscale is not None),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))

@@ -173,6 +173,36 @@ def precompute_propagate_packed(h0_pair: torch.Tensor, omega: torch.Tensor,
     return pre, roll_flip(pre), roll_flip(omega)
 
 
+def gather_packed_planes(h0_pair: torch.Tensor, omega: torch.Tensor, conj_neg: bool,
+                         rows: Optional[int] = None, row_base: int = 0):
+    """:func:`precompute_propagate_packed` on ``rows`` rows (default all)
+    from the global row ``row_base``, read the way K1 and K2 read the state:
+    per element (y, x), mod n, h0 at (y, x), at its flip (n-1-y, n-1-x), at
+    rho = (-y, -x) and at the flip of rho (y-1, x-1), omega at (y, x) and at
+    rho, each P one float add or subtract of those reads. Index arithmetic,
+    no flip / roll; bit-equal to the band of the full planes. Returns
+    ``(pre, pre_rho, omega, omega_rho)``: (4, rows, n) and (rows, n)."""
+    n = h0_pair.shape[-1]
+    rows = n if rows is None else rows
+    dev = h0_pair.device
+    y = torch.arange(row_base, row_base + rows, device=dev)[:, None]
+    x = torch.arange(n, device=dev)[None, :]
+    idx = y * n + x
+    rho = ((n - y) % n) * n + (n - x) % n
+    nn = n * n
+    h0 = h0_pair.reshape(2, nn)
+    om = omega.reshape(nn)
+
+    def planes(i):
+        h0r, h0i = h0[0][i], h0[1][i]
+        h0nr, h0ni = h0[0][nn - 1 - i], h0[1][nn - 1 - i]
+        if conj_neg:
+            h0ni = -h0ni
+        return torch.stack([h0r + h0nr, h0ni - h0i, h0r - h0nr, h0i + h0ni], dim=0)
+
+    return planes(idx), planes(rho), om[idx], om[rho]
+
+
 def propagate_packed_planes(
     pre: torch.Tensor,
     pre_rho: torch.Tensor,

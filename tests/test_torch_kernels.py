@@ -59,7 +59,7 @@ FLAGS = [CompatFlags(), CompatFlags(wrap_k=True), CompatFlags(ref_sign=False),
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [16, 64, 128, 512])
+@pytest.mark.parametrize("n", [16, 32, 64, 128, 256, 512])
 @pytest.mark.parametrize("flags", FLAGS, ids=["default", "wrap_k", "canonical_sign", "conj_neg"])
 def test_packed_step_kernel_matches_plain(cuda, n, flags):
     """t = 1000 s checks the kernel's Dekker phase: a split that nvcc had
@@ -97,13 +97,32 @@ def test_packed_step_counts_launches_and_rejects_bad_inputs(cuda):
     fused_step.packed_checksums(inputs, [1.0, 2.0], cfg)
     assert fused_step.launch_packed_step.launches == before + 1
     with pytest.raises(ValueError, match="contiguous float32"):
-        fused_step.launch_packed_step(inputs._replace(pre=inputs.pre.double()),
+        fused_step.launch_packed_step(inputs._replace(h0=inputs.h0.double()),
+                                      [1.0], cfg, checksum=False)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        fused_step.launch_packed_step(inputs._replace(omega=inputs.omega.t()),
                                       [1.0], cfg, checksum=False)
     with pytest.raises(ValueError, match="expected shape"):
         fused_step.launch_packed_step(
-            inputs._replace(omega_rho=inputs.omega_rho[:32, :32].contiguous()),
+            inputs._replace(h0=inputs.h0[:, :32, :32].contiguous()),
             [1.0], cfg, checksum=False)
     assert fused_step.launch_packed_step.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 512, 1024])
+def test_hoist_passes_the_state_through(cuda, n):
+    """K1's and K2's hoist copies nothing: the inputs are the state's own
+    tensors and one twiddle table a grid size and device."""
+    h0, omega = _state(n)
+    h0, omega = h0.to(cuda), omega.to(cuda)
+    cfg = OceanConfig(resolution=n, fft_impl="pallas")
+    inputs = fused_step.hoist_packed(h0, omega, cfg)
+    assert isinstance(inputs, fs.FourstepInputs if n > 512 else fused_step.PackedInputs)
+    assert inputs.h0.data_ptr() == h0.data_ptr()
+    assert inputs.omega.data_ptr() == omega.data_ptr()
+    again = fused_step.hoist_packed(h0, omega, cfg)
+    assert again.twiddle.data_ptr() == inputs.twiddle.data_ptr()
 
 
 @functools.lru_cache(maxsize=None)
@@ -152,17 +171,19 @@ def test_fourstep_kernels_match_plain(cuda, n, flags):
 
 
 @pytest.mark.cuda
-def test_fourstep_row_band_at_row_base(cuda):
-    cfg, inputs = _fourstep_inputs(1024, CompatFlags(), cuda)
-    rows = slice(512, 528)
-    band = inputs._replace(pre=inputs.pre[:, rows].contiguous(),
-                           pre_rho=inputs.pre_rho[:, rows].contiguous(),
-                           omega=inputs.omega[rows].contiguous(),
-                           omega_rho=inputs.omega_rho[rows].contiguous())
-    got = fs.launch_fourstep_row(band, [7.5], cfg, row_base=512)
-    assert _rel(got, fs.fourstep_row_reference(band, [7.5], cfg, row_base=512)) < TOL_PLANES
-    whole = fs.launch_fourstep_row(inputs, [7.5], cfg)
-    assert torch.equal(got, whole[..., rows, :])
+@pytest.mark.parametrize("n", [1024, 2048, 4096, 8192])
+def test_fourstep_row_band_at_row_base(cuda, n):
+    """A 16-row band at global row N/2 - 3 (its partners under the flip and
+    rho lie outside it) and a 16-row band through row 0, both equal to the
+    same rows of the whole pass."""
+    cfg, inputs = _fourstep_inputs(n, CompatFlags(conj_neg=True), cuda)
+    whole = fs.launch_fourstep_row(inputs, [7.5, 1000.0], cfg)
+    for base in (n // 2 - 3, 0):
+        got = fs.launch_fourstep_row(inputs, [7.5, 1000.0], cfg, row_base=base, rows=16)
+        assert got.shape == (2, 2, 2, 16, n)
+        want = fs.fourstep_row_reference(inputs, [7.5, 1000.0], cfg, row_base=base, rows=16)
+        assert _rel(got, want) < TOL_PLANES
+        assert torch.equal(got, whole[..., base:base + 16, :])
 
 
 @pytest.mark.cuda
@@ -193,19 +214,19 @@ def test_fourstep_counts_launches_and_rejects_bad_inputs(cuda):
             fn()
 
     rejected("contiguous float32", lambda: fs.launch_fourstep_row(
-        inputs._replace(pre=inputs.pre.double()), [1.0], cfg))
+        inputs._replace(h0=inputs.h0.double()), [1.0], cfg))
     rejected("contiguous float32", lambda: fs.launch_fourstep_row(
         inputs._replace(omega=inputs.omega.t()), [1.0], cfg))
     rejected("expected shape", lambda: fs.launch_fourstep_row(
-        inputs._replace(omega_rho=inputs.omega_rho[:512].contiguous()), [1.0], cfg))
-    rejected("outside", lambda: fs.launch_fourstep_row(inputs, [1.0], cfg, row_base=16))
+        inputs._replace(h0=inputs.h0[:, :512].contiguous()), [1.0], cfg))
+    rejected("outside", lambda: fs.launch_fourstep_row(inputs, [1.0], cfg, row_base=16,
+                                                       rows=1024))
+    rejected("outside", lambda: fs.launch_fourstep_row(inputs, [1.0], cfg, rows=0))
     rejected("needs CUDA tensors", lambda: fs.launch_fourstep_row(
         fs.FourstepInputs(*(x.cpu() for x in inputs)), [1.0], cfg))
     for n in (512, 1536):  # below the range, not a power of two
-        bad = fs.FourstepInputs(
-            torch.zeros(4, n, n, device=cuda), torch.zeros(4, n, n, device=cuda),
-            torch.zeros(n, n, device=cuda), torch.zeros(n, n, device=cuda),
-            torch.zeros(2, n // 2, device=cuda))
+        bad = fs.FourstepInputs(torch.zeros(2, n, n, device=cuda), torch.zeros(n, n, device=cuda),
+                                torch.zeros(2, n // 2, device=cuda))
         rejected("power of two N", lambda: fs.launch_fourstep_row(bad, [1.0], cfg))
         rejected("power of two N", lambda: fs.launch_fourstep_col(
             torch.zeros(1, 2, 2, n, n, device=cuda), bad.twiddle, cfg, checksum=False))

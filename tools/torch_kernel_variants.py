@@ -1,0 +1,194 @@
+#!/usr/bin/env python3
+"""Launch-shape and register variants of the port's kernels K1 and K2,
+timed on one NVIDIA GPU.
+
+    python3 tools/torch_kernel_variants.py [variant ...]
+
+Each variant is ``gfx_ocean_tpu_torch/csrc/packed_step.cu`` (K1) or
+``fourstep_step.cu`` (K2) with a few source edits (the radix, the launch
+bounds, the block shape), built with the port's nvcc flags into
+``build/variants/`` and called through its C entry point on the main
+path's shapes: a 6-frame call at 512^2 (K1, with its checksum) and one
+4096^2 frame (K2), on Phillips states from a torch.Generator seeded 0.
+``k1_unpaired`` computes every element's propagate in its own thread,
+without sharing the reads of a rho pair of rows. The
+``*_loads_only`` variants cut the packed propagate to loads of the
+element's own h0 and omega: the time of the staging, passes and stores
+alone, so the propagate's share of the kernel. Names on the command line pick variants.
+Prints, per variant and repeat, one JSON line: the ptxas register / stack
+lines, the CUDA-event ms of a call, the device ms of the kernels' own
+launches (``chip_smoke.kernel_device_ms``; K1 per kernel) and the largest
+difference from the repository's kernel relative to its largest value.
+Imports no jax.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import shutil
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import chip_smoke as smoke  # noqa: E402
+import gfx_ocean_tpu_torch as ot  # noqa: E402
+from gfx_ocean_tpu_torch import kernels  # noqa: E402
+from gfx_ocean_tpu_torch.ops import fourstep_step as fs  # noqa: E402
+from gfx_ocean_tpu_torch.ops import fused_step  # noqa: E402
+from gfx_ocean_tpu_torch.ops.propagate import _f32  # noqa: E402
+
+OUT = ROOT / "build" / "variants"
+REPEATS = 2
+
+K2_BOUNDS = "kSmThreads / RowFft<LOG2N>::kT)"
+
+
+def k2(log2_radix: int, sm_threads: int | None) -> list:
+    """K2 at radix 2^log2_radix, launch bounds for sm_threads threads a SM
+    (None: one block a SM)."""
+    bounds = "1)" if sm_threads is None else f"{sm_threads} / RowFft<LOG2N>::kT)"
+    return [("constexpr int kLog2Radix = 3;", f"constexpr int kLog2Radix = {log2_radix};"),
+            (K2_BOUNDS, bounds)]
+
+
+# ocean::packed_propagate_pair cut to the reads of the element's h0 and
+# omega: the kernels keep their staging, passes and stores.
+LOADS_ONLY = [("ocean_common.cuh", """  float p[4], q[4];
+  pre_planes(h0, nn, idx, conj_neg, p);""", """  if (nn > 0) {
+    PackedPair r;
+    r.e.hr = half * __ldg(h0 + idx);
+    r.e.hi = __ldg(h0 + nn + idx);
+    r.e.zr = t * __ldg(omega + idx);
+    r.e.zi = 0.0f;
+    r.rho = r.e;
+    r.rho.hi = -r.e.hi;
+    return r;
+  }
+  float p[4], q[4];
+  pre_planes(h0, nn, idx, conj_neg, p);""")]
+
+K1_ROW = "__launch_bounds__(Shape<LOG2N>::kRows * Shape<LOG2N>::kT)"
+K1_COL = "__launch_bounds__(Shape<LOG2N>::kColThreads)"
+VARIANTS = {
+    "k2_repo": ("fourstep_step", []),
+    "k2_r16": ("fourstep_step", k2(4, None)),
+    "k2_r16_t1024": ("fourstep_step", k2(4, 1024)),
+    "k2_r8_t2048": ("fourstep_step", k2(3, 2048)),
+    "k2_tid_plain": ("fourstep_step", [("const int tid = threadIdx.x % Fft::kT;",
+                                        "const int tid = threadIdx.x;")]),
+    "k2_loads_only": ("fourstep_step", LOADS_ONLY),
+    "k1_repo": ("packed_step", []),
+    "k1_cols4": ("packed_step", [("kColCols = 8;", "kColCols = 4;")]),
+    "k1_cols16": ("packed_step", [("kColCols = 8;", "kColCols = 16;")]),
+    "k1_row256": ("packed_step", [("kRowThreads = 128;", "kRowThreads = 256;")]),
+    "k1_row_min12": ("packed_step", [(K1_ROW, K1_ROW[:-1] + ", 12)")]),
+    "k1_row_min16": ("packed_step", [(K1_ROW, K1_ROW[:-1] + ", 16)")]),
+    "k1_col_min3": ("packed_step", [(K1_COL, K1_COL[:-1] + ", 3)")]),
+    "k1_unpaired": ("packed_step", [("rows, side, pair == 0, tid", "rows, side, true, tid")]),
+    "k1_loads_only": ("packed_step", LOADS_ONLY),
+}
+
+
+def build(name: str):
+    """Write and compile one variant; returns (name, library, ptxas lines)."""
+    src, edits = VARIANTS[name]
+    d = OUT / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    for header in kernels.CSRC.glob("*.cuh"):
+        shutil.copy(header, d)
+    shutil.copy(kernels.CSRC / f"{src}.cu", d)
+    for edit in edits:  # (old, new) in the .cu, or (header, old, new)
+        path = d / (edit[0] if len(edit) == 3 else f"{src}.cu")
+        old, new = edit[-2:]
+        text = path.read_text()
+        if old not in text:
+            raise RuntimeError(f"{name}: {old!r} not in {path.name}")
+        path.write_text(text.replace(old, new))
+    so = d / f"lib{name}.so"
+    cmd = [kernels.nvcc(), *kernels.NVCC_FLAGS, "-o", str(so), str(d / f"{src}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise RuntimeError(f"{name}: nvcc failed\n{proc.stderr}")
+    ptxas = [ln.split(":", 1)[-1].strip() for ln in proc.stderr.splitlines()
+             if "registers" in ln or "stack frame" in ln]
+    lib = ctypes.CDLL(str(so))
+    for fn, (argtypes, restype) in kernels.SIGNATURES[src].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return name, lib, ptxas
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        smoke.fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
+    names = sys.argv[1:] or list(VARIANTS)
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(build, names))
+    dev = torch.device("cuda", 0)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+
+    def stream():
+        return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+    c5 = ot.OceanConfig(resolution=4096, domain_size=2000.0, fft_impl="pallas",
+                        matmul_precision="high")
+    st5 = ot.ocean_state_from_phillips(c5, ot.PhillipsConfig(),
+                                       generator=torch.Generator().manual_seed(0), device=dev)
+    in5 = fs.hoist_fourstep(st5.h0, st5.omega, c5)
+    ts1 = torch.zeros(1, device=dev)
+    want2 = fs.launch_fourstep_row(in5, ts1, c5)
+    c1 = ot.OceanConfig(resolution=512, fft_impl="pallas", matmul_precision="bf16x3")
+    st1 = ot.ocean_state_from_phillips(c1, generator=torch.Generator().manual_seed(0), device=dev)
+    in1 = fused_step.hoist_packed(st1.h0, st1.omega, c1)
+    ts6 = torch.arange(6, dtype=torch.float32, device=dev) / 60.0
+    want1, _ = fused_step.launch_packed_step(in1, ts6, c1, checksum=False)
+
+    for rep in range(REPEATS):
+        for name, lib, ptxas in built:
+            if name.startswith("k2"):
+                out = torch.empty_like(want2)
+
+                def call():
+                    err = lib.fourstep_row(
+                        in5.h0.data_ptr(), in5.omega.data_ptr(), in5.twiddle.data_ptr(),
+                        ts1.data_ptr(), 1, 4096, 4096, 0, _f32(np.pi / c5.domain_size), 0, 0,
+                        out.data_ptr(), stream())
+                    if err:
+                        smoke.fail(f"{name}: CUDA error {err}")
+
+                want, names, calls = want2, smoke.K2_KERNELS, 20
+            else:
+                y = torch.empty((6, 2, 2, 512, 512), device=dev)
+                out = torch.empty_like(want1)
+                partials = torch.empty((6, 512 // fused_step.CHECKSUM_ROWS), device=dev)
+
+                def call():
+                    err = lib.packed_step(
+                        in1.h0.data_ptr(), in1.omega.data_ptr(), in1.twiddle.data_ptr(),
+                        ts6.data_ptr(), 6, 512, _f32(np.pi / c1.domain_size), 0, 0, -0.5,
+                        y.data_ptr(), out.data_ptr(), partials.data_ptr(),
+                        fused_step.CHECKSUM_ROWS, float(c1.normal_height_scale), 1, stream())
+                    if err:
+                        smoke.fail(f"{name}: CUDA error {err}")
+
+                want, names, calls = want1, smoke.K1_KERNELS, 50
+            event = smoke.event_ms(call, calls)
+            torch.cuda.synchronize()
+            rel = float((out - want).abs().max() / want.abs().max())  # large for loads_only
+            print(json.dumps(dict(repeat=rep, variant=name, ptxas=ptxas, event_ms=event,
+                                  device_ms=smoke.kernel_device_ms(call, names, calls),
+                                  rel_vs_repo=rel)), flush=True)
+
+
+if __name__ == "__main__":
+    main()
