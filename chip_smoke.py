@@ -45,7 +45,8 @@ Phases, one line each:
 10. fourstep_golden: the 4096^2 step at t = 11.25 against the golden model;
 11. fourstep_time_one_call: K2, K3 and the whole step at tb 1 and 4 against
     the plain version, and at tb 1 torch.fft along x, y and both (CUDA
-    events) and K2's own device time (``k2_device_ms``, torch.profiler);
+    events) and K2's and K3's own device time (``k2_device_ms``,
+    ``k3_device_ms`` by stage, torch.profiler);
 12. fourstep_rollout: make_rollout(keep_fields=False) at tb 1 and 4 through
     the kernels (launch counts, finite checksums that agree with the plain
     rollout, steps/s) and through the plain version;
@@ -66,20 +67,23 @@ Phases, one line each:
     clock with every launch count, and torch.profiler's top device ops of a
     frame;
 18. unpacked_kernel_vs_plain: K4, K5 alone, K6 alone (fed K5's Y) and
-    K5 + K6 chained against the plain version, planes and checksums, at
-    64^2, 256^2 and 512^2 over the six frames of T_COMPARE, with the
-    default flags and with conj_neg;
+    K5 + K6 chained against the plain version, planes and the checksum
+    kernel's partial sums behind K4 and behind K6, at 64^2, 256^2 and 512^2
+    over the six frames of T_COMPARE, with the default flags and with
+    conj_neg;
 19. unpacked_golden: 512^2 at t = 11.25 through K4 and through K5 + K6
     against the golden model (rel and abs L-inf);
-20. unpacked_time_one_call: a 6-frame call of K4, K5, K6 and their plain
-    versions, and torch.fft of the same three spectra (CUDA events);
+20. unpacked_time_one_call: a 6-frame call of K4, K5, K6, of the checksums
+    through K4 and their plain versions, and torch.fft of the same three
+    spectra (CUDA events); the kernels' own device time (``k4_device_ms``,
+    ``k5_device_ms``, ``k6_device_ms``, torch.profiler);
 21. unpacked_rollout: make_rollout(keep_fields=False, time_batch=6) over
     600 frames for both routes through the kernels (launch counts, finite
     checksums that agree with the plain rollout, steps/s, torch.profiler's
     device time) and through the plain version.
 
 Then one JSON line with the kernels K1-K8 (times, bounds from this run's
-shapes, library yardsticks; K1 and K2 also their ``device_ms``), and as
+shapes, library yardsticks; K1-K6 also their ``device_ms``), and as
 the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero with no
 result; so does a machine without CUDA.
@@ -106,7 +110,7 @@ T_CHECK = 11.25
 # an hour, so the Dekker phase is exercised far from the origin.
 T_COMPARE = (T_CHECK, 0.0, 1.0 / 60.0, 100.5, 1000.25, 3599.0)
 # Kernel vs plain version, |diff| / max |field|. Both are FP32; they differ
-# in the transform (radix-2 FFT against dense matmul) and so in summation
+# in the transform (FFT against dense matmul) and so in summation
 # order, which costs a few float32 ulps of the field's scale.
 TOL_KERNEL = 1e-5
 # Checksums of kernel vs plain, |diff| / sum of |summands|: the checksum of
@@ -215,9 +219,15 @@ def event_ms(fn, calls: int) -> float:
 
 
 # The kernels' own launches in torch.profiler (substrings of their symbols):
-# K1's two passes and its checksum, K2's row pass.
+# K1's two passes and its checksum, K2's row pass, K3's two stages and its
+# checksum, K4 (and the checksum behind it), K5, K6.
 K1_KERNELS = ("packed_row_pass", "packed_col_pass", "checksum_partials")
 K2_KERNELS = ("fourstep_row_pass",)
+K3_KERNELS = ("fourstep_col_stage1", "fourstep_col_stage2", "checksum_partials")
+K4_KERNELS = ("unpacked_fused",)
+K4_CHECKSUM_KERNELS = ("unpacked_fused", "checksum_partials")
+K5_KERNELS = ("unpacked_row_pass",)
+K6_KERNELS = ("unpacked_col_pass",)
 
 
 def kernel_device_ms(fn, names, calls: int) -> dict:
@@ -265,6 +275,27 @@ def k2_device_ms(state, cfg, ts, calls: int) -> dict:
 
     inputs = fs.hoist_fourstep(state.h0, state.omega, cfg)
     return kernel_device_ms(lambda: fs.launch_fourstep_row(inputs, ts, cfg), K2_KERNELS, calls)
+
+
+def k3_device_ms(state, cfg, ts, calls: int) -> dict:
+    """K3's device ms a ``launch_fourstep_col`` call with its checksum, by
+    kernel (stage 1, stage 2, the normals' pass), on K2's Y of the frames
+    ts."""
+    from gfx_ocean_tpu_torch.ops import fourstep_step as fs
+
+    inputs = fs.hoist_fourstep(state.h0, state.omega, cfg)
+    y = fs.launch_fourstep_row(inputs, ts, cfg)
+    return kernel_device_ms(lambda: fs.launch_fourstep_col(y, inputs.twiddle, cfg, checksum=True),
+                            K3_KERNELS, calls)
+
+
+def k4_device_ms(state, cfg, ts, calls: int) -> dict:
+    """K4's device ms a ``launch_unpacked_step`` call of the frames ts (cfg
+    an unpacked config, ``hermitian_pack=False``)."""
+    from gfx_ocean_tpu_torch.ops import unpacked_step as us
+
+    inputs = us.hoist_unpacked(state.h0, state.omega, cfg)
+    return kernel_device_ms(lambda: us.launch_unpacked_step(inputs, ts, cfg), K4_KERNELS, calls)
 
 
 def main() -> None:
@@ -569,9 +600,11 @@ def run_fourstep(dev) -> list:
             rec["k2_bound"] = bound(nbytes(state.h0, state.omega, inputs.twiddle, ts, y),
                                     fft_ops(FS_N, tb * 2 * FS_N))
             rec["k2_device_ms"] = k2_device_ms(state, cfg, ts, FS_TIMING_CALLS)
-            rec["k3_bound"] = bound(nbytes(y) + 4 * tb * (3 * FS_N * FS_N
-                                                           + FS_N // fs.CHECKSUM_ROWS),
+            k3_out = fs.launch_fourstep_col(y, inputs.twiddle, cfg, checksum=True)
+            rec["k3_bound"] = bound(nbytes(y, inputs.twiddle, *k3_out),
                                     fft_ops(FS_N, tb * 2 * FS_N))
+            del k3_out
+            rec["k3_device_ms"] = k3_device_ms(state, cfg, ts, FS_TIMING_CALLS)
         one_call[tb] = rec
         phase("fourstep_time_one_call", resolution=FS_N, frames=tb, calls=FS_TIMING_CALLS,
               plain_calls=FS_PLAIN_TIMING_CALLS, clock="cuda events", **rec)
@@ -638,7 +671,7 @@ def run_fourstep(dev) -> list:
             "launches": main_launches[key],
             "max_abs_err": errs[FS_N][key][0],
             "ms": ms,
-            **({"device_ms": one_call[1]["k2_device_ms"]["total"]} if key == "k2" else {}),
+            "device_ms": one_call[1][f"{key}_device_ms"]["total"],
             "plain_ms": plain_ms,
             **one_call[1][f"{key}_bound"],
             "library_ms": one_call[1][f"{key}_library_ms"],
@@ -914,20 +947,28 @@ def run_render(dev) -> list:
 
 
 def device_profile(fn, frames: int, top: int = 15) -> dict:
-    """torch.profiler's device time of ``fn()`` (after one warm-up call) by
-    kernel, per frame, and the idle share of its wall clock."""
+    """torch.profiler's device time of ``fn()`` by kernel, per frame, and
+    the idle share of its wall clock. One call of ``fn`` runs before the
+    profiler and one inside it as the schedule's warm-up step, whose
+    records are dropped: the tracer loses the first launches after it
+    starts."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_op = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA), key=lambda k: -k[1])
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.key.startswith("ProfilerStep")), key=lambda k: -k[1])
     busy_ms = sum(ms for _, ms, _ in by_op)
     return dict(frames=frames, wall_ms=wall_ms, device_busy_ms=busy_ms,
                 idle_share=1.0 - busy_ms / wall_ms,
@@ -968,9 +1009,9 @@ def run_unpacked(dev) -> list:
         for flags in (ot.CompatFlags(), ot.CompatFlags(conj_neg=True)):
             cfg = dataclasses.replace(single, resolution=n, compat=flags)
             inputs = fused_step.hoist_packed(st.h0, st.omega, cfg)
-            k4_planes = us.launch_unpacked_step(inputs, ts_cmp, cfg)
+            k4_planes, k4_partials = us.launch_unpacked_step_checksums(inputs, ts_cmp, cfg)
             y = us.launch_unpacked_rows(inputs, ts_cmp, cfg)
-            k6_planes = us.launch_unpacked_cols(y, inputs)
+            k6_planes, k6_partials = us.launch_unpacked_cols_checksums(y, inputs, cfg)
             y_want = us.unpacked_rows_reference(inputs, ts_cmp, cfg)
             want = us.unpacked_cols_reference(y_want, inputs)
             torch.cuda.synchronize()
@@ -979,14 +1020,13 @@ def run_unpacked(dev) -> list:
                         .abs().sum(dim=(-3, -2, -1)))
             ck_want = checksums_of_planes(want, cfg)
 
-            def ck_rel(planes):
-                return float(((checksums_of_planes(planes, cfg) - ck_want).abs()
-                              / summands).max())
+            def ck_rel(partials):
+                return float(((partials.sum(dim=-1) - ck_want).abs() / summands).max())
 
             rec = dict(k4=max_err(k4_planes, want), k5=max_err(y, y_want),
                        k6=max_err(k6_planes, us.unpacked_cols_reference(y, inputs)),
                        k5_k6=max_err(k6_planes, want))
-            cks = dict(k4=ck_rel(k4_planes), k5_k6=ck_rel(k6_planes))
+            cks = dict(k4=ck_rel(k4_partials), k5_k6=ck_rel(k6_partials))
             conj = bool(flags.conj_neg)
             errs[(n, conj)] = dict(rec, summands_max=float(summands.max()))
             phase("unpacked_kernel_vs_plain", resolution=n, conj_neg=conj,
@@ -997,7 +1037,10 @@ def run_unpacked(dev) -> list:
                   k4_checksum_rel_to_summands=cks["k4"],
                   k5_k6_checksum_rel_to_summands=cks["k5_k6"],
                   k4_bit_equal_k5_k6=bool(torch.equal(k4_planes, k6_planes)),
+                  checksum="the kernel's partials, summed",
                   tolerance=TOL_KERNEL, checksum_tolerance=TOL_CHECKSUM)
+            if not torch.equal(k4_planes, k6_planes):
+                fail(f"{n}^2 unpacked: K4 is not bit-equal to K5 + K6")
             del inputs, k4_planes, y, k6_planes, y_want, want
             for what, (_, rel) in rec.items():
                 if not (rel <= TOL_KERNEL):
@@ -1035,6 +1078,9 @@ def run_unpacked(dev) -> list:
         k4_ms=event_ms(lambda: us.launch_unpacked_step(inputs, ts_tb, single), calls),
         k5_ms=event_ms(lambda: us.launch_unpacked_rows(inputs, ts_tb, single), calls),
         k6_ms=event_ms(lambda: us.launch_unpacked_cols(y, inputs), calls),
+        k4_checksums_ms=event_ms(lambda: us.unpacked_checksums(inputs, ts_tb, single), calls),
+        k4_checksums_plain_ms=event_ms(lambda: checksums_of_planes(
+            us.unpacked_planes_reference(inputs, ts_tb, single), single), plain_calls),
         k4_plain_ms=event_ms(lambda: us.unpacked_planes_reference(inputs, ts_tb, single),
                              plain_calls),
         k5_plain_ms=event_ms(lambda: us.unpacked_rows_reference(inputs, ts_tb, single),
@@ -1048,8 +1094,18 @@ def run_unpacked(dev) -> list:
     bounds = dict(k4=bound(in_bytes + planes_bytes, fft_ops(N, TIME_BATCH * 6 * N)),
                   k5=bound(in_bytes + nbytes(y), fft_ops(N, TIME_BATCH * 3 * N)),
                   k6=bound(nbytes(y) + planes_bytes, fft_ops(N, TIME_BATCH * 3 * N)))
+    device_ms = dict(
+        k4=k4_device_ms(state, single, ts_tb, calls),
+        k4_checksums=kernel_device_ms(lambda: us.unpacked_checksums(inputs, ts_tb, single),
+                                      K4_CHECKSUM_KERNELS, calls),
+        k5=kernel_device_ms(lambda: us.launch_unpacked_rows(inputs, ts_tb, single), K5_KERNELS,
+                            calls),
+        k6=kernel_device_ms(lambda: us.launch_unpacked_cols(y, inputs), K6_KERNELS, calls))
     phase("unpacked_time_one_call", resolution=N, frames=TIME_BATCH, calls=calls,
-          plain_calls=plain_calls, clock="cuda events",
+          plain_calls=plain_calls,
+          clock="cuda events; device_ms: torch.profiler, the kernels' launches only",
+          k4_device_ms=device_ms["k4"], k4_checksums_device_ms=device_ms["k4_checksums"],
+          k5_device_ms=device_ms["k5"], k6_device_ms=device_ms["k6"],
           k4_grid_blocks=kernels.load("unpacked_step").unpacked_step_grid(TIME_BATCH, N),
           bounds=bounds, **one_call)
     del y, spectra, inputs
@@ -1116,6 +1172,7 @@ def run_unpacked(dev) -> list:
             "launches": main_launches[key],
             "max_abs_err": max(errs[(N, c)][key][0] for c in (False, True)),
             "ms": one_call[f"{key}_ms"],
+            "device_ms": device_ms[key]["total"],
             "plain_ms": one_call[f"{key}_plain_ms"],
             **bounds[key],
             "library_ms": one_call[f"{key}_library_ms"],

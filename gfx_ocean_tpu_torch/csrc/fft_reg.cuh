@@ -1,6 +1,8 @@
-// Register-resident FFT passes for K1 (packed_step.cu) and K2
-// (fourstep_step.cu): y[x] = sum_k v[k] e^{+2 pi i x k / N} of two spectra
-// (H and Z) at once, N = 2^LOG2N.
+// Register-resident FFT passes for K1 (packed_step.cu), K2 + K3
+// (fourstep_step.cu) and K4-K6 (unpacked_step.cu):
+// y[x] = sum_k v[k] e^{+2 pi i x k / N} of NP / 2 spectra at once (H and Z
+// for K1-K3; one, two or three of the unpacked step's spectra),
+// N = 2^LOG2N.
 //
 // A sequence is spread over T = N / RM threads; each thread holds RM points
 // of each spectrum in registers (RM = 8 for K1 and K2). Pass p is a
@@ -23,8 +25,10 @@
 // passes and checks both the result and the banks at every N).
 //
 // Twiddles: one e^{2 pi i m / N} a point a pass, read from the (2, N/2)
-// table (L1-resident) into registers and shared by H and Z; the DFT's own
-// twiddles are constants.
+// table (L1-resident) into registers and shared by the spectra; the DFT's
+// own twiddles are constants. A sub-transform of a longer one (K3's 128-
+// and N/128-point stages) reads the longer transform's (2, 2^LOG2TW / 2)
+// table at a stride.
 //
 // Why not wgmma: these transforms cost ~5 N log2 N FP32 operations, orders
 // below the card's FP32 rate per byte moved, so the kernels are bound by
@@ -119,12 +123,15 @@ __device__ __forceinline__ void dft(float* re, float* im) {
   });
 }
 
-// v[q][i]: q = 0..3 the planes (Hr, Hi, Zr, Zi) of this thread's points;
-// LOG2W = log2 of the run of consecutive j a warp holds; NBUF = shared
-// buffers (2: one barrier an exchange). Smem sm(q, buf, a) is a float&
-// into shared memory for plane q, buffer buf, padded index a < kLen.
-template <int LOG2N, int LOG2RM, int LOG2W, int NBUF>
+// v[q][i]: q < NP the planes (re, im of each spectrum: Hr, Hi, Zr, Zi for
+// K1-K3) of this thread's points; LOG2W = log2 of the run of consecutive j
+// a warp holds (0 where the lanes of a warp run over columns: no padding);
+// NBUF = shared buffers (2: one barrier an exchange); LOG2TW = log2 of the
+// twiddle table's transform length. Smem sm(q, buf, a) is a float& into
+// shared memory for plane q, buffer buf, padded index a < kLen.
+template <int LOG2N, int LOG2RM, int LOG2W, int NBUF, int NP = 4, int LOG2TW = LOG2N>
 struct RegFft {
+  static_assert(NP % 2 == 0 && LOG2TW >= LOG2N, "whole spectra; a table at least as long");
   static constexpr int kN = 1 << LOG2N;
   static constexpr int kRM = 1 << LOG2RM;
   static constexpr int kT = kN >> LOG2RM;
@@ -145,21 +152,21 @@ struct RegFft {
     }
   }
 
-  // e^{+2 pi i m / N} from tw (2, N/2), m < N.
+  // e^{+2 pi i m / N} from tw (2, 2^LOG2TW / 2), m < N.
   __device__ static __forceinline__ void twiddle(const float* __restrict__ tw, int m, float& wr,
                                                  float& wi) {
-    constexpr int kHalf = kN / 2;
+    constexpr int kHalf = kN / 2, kS = LOG2TW - LOG2N;
     if (m < kHalf) {
-      wr = __ldg(tw + m);
-      wi = __ldg(tw + kHalf + m);
+      wr = __ldg(tw + (m << kS));
+      wi = __ldg(tw + ((kHalf + m) << kS));
     } else {
-      wr = -__ldg(tw + m - kHalf);
-      wi = -__ldg(tw + m);
+      wr = -__ldg(tw + ((m - kHalf) << kS));
+      wi = -__ldg(tw + (m << kS));
     }
   }
 
   template <int P>
-  __device__ static __forceinline__ void butterflies(float (&v)[4][kRM], int tid,
+  __device__ static __forceinline__ void butterflies(float (&v)[NP][kRM], int tid,
                                                      const float* __restrict__ tw) {
     constexpr int lr = log2r(P), R = 1 << lr, ls = P * LOG2RM;
     static_for<0, kRM / R>([&](auto u_) {
@@ -170,7 +177,7 @@ struct RegFft {
           constexpr int k = decltype(k_)::value;
           float wr, wi;
           twiddle(tw, (jm * k) << (LOG2N - ls - lr), wr, wi);
-          static_for<0, 4, 2>([&](auto q_) {
+          static_for<0, NP, 2>([&](auto q_) {
             constexpr int q = decltype(q_)::value;
             const float xr = v[q][u * R + k], xi = v[q + 1][u * R + k];
             v[q][u * R + k] = xr * wr - xi * wi;
@@ -178,15 +185,17 @@ struct RegFft {
           });
         });
       }
-      dft<R>(&v[0][u * R], &v[1][u * R]);
-      dft<R>(&v[2][u * R], &v[3][u * R]);
+      static_for<0, NP, 2>([&](auto q_) {
+        constexpr int q = decltype(q_)::value;
+        dft<R>(&v[q][u * R], &v[q + 1][u * R]);
+      });
     });
   }
 
   // Passes P.. on v; on return point i = u * kLastR + r of v sits at
   // x = out_index(tid, i).
   template <int P, class Smem>
-  __device__ static __forceinline__ void run(float (&v)[4][kRM], int tid,
+  __device__ static __forceinline__ void run(float (&v)[NP][kRM], int tid,
                                              const float* __restrict__ tw, Smem sm) {
     butterflies<P>(v, tid, tw);
     if constexpr (P + 1 < kPasses) {
@@ -199,10 +208,10 @@ struct RegFft {
         static_for<0, R>([&](auto k_) {
           constexpr int k = decltype(k_)::value;
           const int a = pad<P>(d + (k << ls));
-          sm(0, buf, a) = v[0][u * R + k];
-          sm(1, buf, a) = v[1][u * R + k];
-          sm(2, buf, a) = v[2][u * R + k];
-          sm(3, buf, a) = v[3][u * R + k];
+          static_for<0, NP>([&](auto q_) {
+            constexpr int q = decltype(q_)::value;
+            sm(q, buf, a) = v[q][u * R + k];
+          });
         });
       });
       __syncthreads();
@@ -212,10 +221,10 @@ struct RegFft {
         static_for<0, R2>([&](auto k_) {
           constexpr int k = decltype(k_)::value;
           const int a = pad<P>(tid + u * kT + (k << (LOG2N - lr2)));
-          v[0][u * R2 + k] = sm(0, buf, a);
-          v[1][u * R2 + k] = sm(1, buf, a);
-          v[2][u * R2 + k] = sm(2, buf, a);
-          v[3][u * R2 + k] = sm(3, buf, a);
+          static_for<0, NP>([&](auto q_) {
+            constexpr int q = decltype(q_)::value;
+            v[q][u * R2 + k] = sm(q, buf, a);
+          });
         });
       });
       run<P + 1>(v, tid, tw, sm);

@@ -5,7 +5,7 @@
 // PyTorch version in ops/fourstep_step.py (fourstep_row_reference,
 // fourstep_col_reference) with its own algorithm: where the TPU kernels
 // multiply 128-lane bands by small stacked DFT tables on the MXU, these
-// kernels run FFTs, in registers (K2) and in shared memory (K3).
+// kernels run register-resident FFTs (fft_reg.cuh).
 //
 //   fourstep_row_pass    K2. One block per row of the band, N / 8 threads,
 //                        looping over the tb frames: each thread reads the
@@ -24,43 +24,60 @@
 //   fourstep_col_stage1  K3, first half. The column transform is split
 //                        N = 128 * N2, row m = N2 m1 + m2 in, row
 //                        n = n1 + 128 n2 out. One block per (m2, 32 columns,
-//                        frame): the 128-point DFT over m1 of H and Z, the
-//                        sign (-1)^n1 with the Q2 flip, and the twiddle
-//                        e^{2 pi i n1 m2 / N}. It reads the 128 rows
-//                        N2 m1 + m2 of Y and writes B[n1, m2] to row
-//                        N2 n1 + m2 of a scratch B shaped like Y.
-//   fourstep_col_stage2  K3, second half. One block per (n1, 32 columns,
-//                        frame): the N2-point DFT over m2 of the contiguous
-//                        rows N2 n1 .. N2 n1 + N2 - 1 of B, written to output
-//                        rows n1 + 128 n2 of (tb, 3, N, C) = (disp_x,
-//                        height, disp_z).
-//   checksum_partials    K3's checksum (ocean_common.cuh): per-block partials
-//                        summed outside in a fixed order. The TPU kernel
+//                        frame), 16 threads a column with the lanes of a warp
+//                        over the 32 columns: each thread loads its 8 points
+//                        m1 = tid + 16 k of the four planes straight from Y
+//                        into registers (32 loads in flight, a 128 B line a
+//                        warp and row), runs the 128-point DFT over m1 as
+//                        radix 8 x 8 x 2 passes with two exchanges
+//                        (conflict-free: 32 columns, 32 banks), applies the
+//                        sign (-1)^n1 with the Q2 flip and the twiddle
+//                        e^{2 pi i n1 m2 / N} in registers, and writes
+//                        B[band][n1][plane][m2][32 columns], a scratch as
+//                        large as Y in the kernel's own layout.
+//   fourstep_col_stage2  K3, second half. One block per (16 / (N2 / 8)
+//                        adjacent n1, 32 columns, frame), N2 / 8 threads a
+//                        column and n1: the N2-point DFT over m2 (one thread
+//                        a column at N2 = 8, no exchange) of one contiguous
+//                        64 KB chunk of B, written to output rows
+//                        n1 + 128 n2 of (tb, 3, N, C) = (disp_x, height,
+//                        disp_z); only the real part of H's last pass is
+//                        computed. With a checksum it also sums its outputs:
+//                        one partial a block, in a fixed order.
+//   checksum_partials    K3's checksum (ocean_common.cuh): stage 2 has summed
+//                        the planes, so this pass reads the height alone for
+//                        the normals' terms; per-block partials, summed
+//                        outside in a fixed order. The TPU kernel
 //                        carried the normals' x-seam across column bands in
 //                        scratch (pallas_step.py:857-898) and kept one
 //                        partial per lane of a 128-lane row; neither carry
 //                        nor cap exists here.
 //
-// K3's transforms are y[j] = sum_k x[k] e^{+2 pi i j k / len}: a
-// decimation-in-time FFT on a sequence loaded in bit-reversed order, in
-// place, its radix-2 stages fused in pairs into radix-4 passes, one barrier
-// a pass (dit_fft). All twiddles come from one table tw (2, N/2) = (cos,
-// sin) of 2 pi j / N, built in float64 on the host.
+// K3's transforms are y[j] = sum_k x[k] e^{+2 pi i j k / len}, len = 128
+// and N2 = N / 128 (8 ... 64; 128 builds too, for N = 16384). All twiddles
+// come from one table tw (2, N/2) = (cos, sin) of 2 pi j / N, built in
+// float64 on the host; the sub-transforms read it at a stride.
 //
 // Bounds on the H100 (4096^2, per frame at tb = 1): K2 reads the 201 MB
 // state and writes 268 MB of Y; K3 reads Y, writes and rereads 268 MB of B,
-// writes 201 MB of planes, and the checksum rereads them; ~5 GFLOP in all,
-// so device-memory bandwidth bounds the step, not arithmetic. K2 itself
-// runs at under 3x its byte bound: latency of its per-element work (ten
-// scattered reads, two Dekker phases, two k-hat with IEEE sqrt and
-// reciprocal: half its time) and of four passes with three
+// writes 201 MB of planes, and the normals' terms reread the 67 MB height;
+// ~5 GFLOP in all, so device-memory bandwidth bounds the step, not
+// arithmetic. K2 itself runs at under 3x its byte bound: latency of its
+// per-element work (ten scattered reads, two Dekker phases, two k-hat with
+// IEEE sqrt and reciprocal: half its time) and of four passes with three
 // barriered exchanges, at 32 warps a SM. Its design reads the state, not
 // 10 hoisted planes (671 MB a frame), and keeps each thread's points in
-// registers between passes, with no bank conflicts. It is not a wgmma DFT:
-// see fft_reg.cuh. The column transform's device-memory round trip between
-// stage 1 and stage 2 is the price of a simple design: a full column band
-// (4 N floats a column) does not fit one block's shared memory at
-// N >= 4096. A cluster-resident column pass and TMA loads are later work.
+// registers between passes, with no bank conflicts. K3's two stages are
+// bound by bytes (537 MB and 470 MB a frame): their design keeps many loads
+// in flight a thread (registers, not a tile loaded and then transformed),
+// overlaps one block's loads with another's passes and stores (two
+// 512-thread blocks a SM at 64 registers), writes and reads B in whole
+// 128 B lines of one contiguous chunk a block, and takes the planes' sums
+// out of the checksum's reread. It is not a wgmma DFT: see fft_reg.cuh.
+// The column transform's device-memory round trip between stage 1 and
+// stage 2 is the price of a simple design: a full column band (4 N floats a
+// column) does not fit one block's shared memory at N >= 4096. A
+// cluster-resident column pass and TMA loads are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (gfx_ocean_tpu_torch/kernels.py). Plain C entry points, bound with ctypes.
@@ -75,7 +92,8 @@ namespace {
 using ocean::reg::static_for;
 
 constexpr int kMinN = 1024;
-constexpr int kMaxN = 8192;
+constexpr int kMaxN = 8192;      // K2: N / 8 threads a row, at most 1,024
+constexpr int kMaxColN = 16384;  // K3
 constexpr int kLog2Radix = 3;  // K2: radix 8, N / 8 threads a row
 // Threads a SM the launch bounds ask for: 64 registers a thread. Radix 16
 // (16 points a thread) takes 255 registers and runs 8 warps a SM; radix 8
@@ -90,81 +108,28 @@ using RowFft = ocean::reg::RegFft<LOG2N, kLog2Radix, 5, 1>;
 constexpr int kLog2N1 = 7;          // the column split N = 128 * N2
 constexpr int kN1 = 1 << kLog2N1;
 constexpr int kColCols = 32;        // columns per column block: one 128 B line a row
-constexpr int kColThreads = 256;
-constexpr int kStage1Threads = 512;  // stage 1's 64 KB tiles allow 3 blocks an SM
+constexpr int kColThreads = (kN1 / kRadix) * kColCols;  // both stages: 16 threads a column
+// Blocks a SM the launch bounds ask of K3's stages: 2 caps a thread at 64
+// registers (32 of them the 8 points of 4 planes).
+constexpr int kColBlocksPerSm = 2;
 
-__device__ __forceinline__ int bit_reverse(int i, int bits) {
-  return static_cast<int>(__brev(static_cast<unsigned>(i)) >> (32 - bits));
-}
-
-// Transforms `seqs` interleaved sequences of len = 2^bits points in shared
-// memory, in place: y[j] = sum_e x[e] e^{+2 pi i j e / len}. Sequence q
-// (< seqs) holds element e at re[(2 (q / cols) len + e) cols + q % cols],
-// its im `len cols` floats after re; bit-reversed order on entry, natural
-// order on return. Ends with a barrier.
-//
-// Decimation in time: radix-2 stage s (half-length h = 2^s) pairs
-// x[i0], x[i0 + h] (i0 = 2 g h + k, k < h) into x[i0] +- w x[i0 + h] with
-// w = e^{2 pi i k / 2h}. Stages s and s + 1 run fused as one radix-4 pass
-// over x[i0 + {0, h, 2h, 3h}] (i0 = 4 g h + k): the two stage-s pairs take
-// w1 = e^{2 pi i k / 2h}, then x[i0], x[i0 + 2h] take w2 = e^{2 pi i k / 4h}
-// and x[i0 + h], x[i0 + 3h] take i w2. An odd `bits` starts with one radix-2
-// stage (w = 1). The twiddles come from tw (2, N/2), N = 2^log2n >= len.
-__device__ __forceinline__ void dit_fft(float* smem, int bits, int cols, int seqs,
-                                        const float* __restrict__ tw, int log2n) {
-  const int plane = (1 << bits) * cols;  // one (re or im) plane of one spectrum
-  const int half_n = 1 << (log2n - 1);
-  int s = 0;
-  if (bits & 1) {
-    const int half_len = 1 << (bits - 1);
-    for (int i = threadIdx.x; i < seqs * half_len; i += blockDim.x) {
-      const int c = i % cols;
-      const int b = (i / cols) % half_len;
-      float* re = smem + 2 * (i / (cols * half_len)) * plane + c + 2 * b * cols;
-      float* im = re + plane;
-      const float ar = re[0], ai = im[0], br = re[cols], bi = im[cols];
-      re[0] = ar + br;
-      im[0] = ai + bi;
-      re[cols] = ar - br;
-      im[cols] = ai - bi;
-    }
-    __syncthreads();
-    s = 1;
-  }
-  const int quarter = 1 << (bits - 2);
-  for (; s < bits; s += 2) {
-    for (int i = threadIdx.x; i < seqs * quarter; i += blockDim.x) {
-      const int c = i % cols;
-      const int q = (i / cols) % quarter;
-      const int k = q & ((1 << s) - 1);
-      float* re = smem + 2 * (i / (cols * quarter)) * plane + c
-                  + ((((q >> s) << (s + 2)) + k) * cols);
-      float* im = re + plane;
-      const int d = cols << s;  // h elements apart
-      const int j1 = k << (log2n - 1 - s);
-      const int j2 = k << (log2n - 2 - s);
-      const float w1r = __ldg(tw + j1), w1i = __ldg(tw + half_n + j1);
-      const float w2r = __ldg(tw + j2), w2i = __ldg(tw + half_n + j2);
-      const float a0r = re[0], a0i = im[0], a1r = re[d], a1i = im[d];
-      const float a2r = re[2 * d], a2i = im[2 * d], a3r = re[3 * d], a3i = im[3 * d];
-      const float t1r = a1r * w1r - a1i * w1i, t1i = a1r * w1i + a1i * w1r;
-      const float t3r = a3r * w1r - a3i * w1i, t3i = a3r * w1i + a3i * w1r;
-      const float b0r = a0r + t1r, b0i = a0i + t1i, b1r = a0r - t1r, b1i = a0i - t1i;
-      const float b2r = a2r + t3r, b2i = a2i + t3i, b3r = a2r - t3r, b3i = a2i - t3i;
-      const float ur = b2r * w2r - b2i * w2i, ui = b2r * w2i + b2i * w2r;
-      const float vr = -(b3r * w2i + b3i * w2r), vi = b3r * w2r - b3i * w2i;  // i w2 b3
-      re[0] = b0r + ur;
-      im[0] = b0i + ui;
-      re[2 * d] = b0r - ur;
-      im[2 * d] = b0i - ui;
-      re[d] = b1r + vr;
-      im[d] = b1i + vi;
-      re[3 * d] = b1r - vr;
-      im[3 * d] = b1i - vi;
-    }
-    __syncthreads();
-  }
-}
+// K3's shapes at N = 2^LOG2N. The lanes of a warp run over columns, so
+// the exchanges need no padding (LOG2W = 0) and a stage's buffer holds
+// 4 planes x 128 points x kColCols columns.
+template <int LOG2N>
+struct ColShape {
+  static constexpr int kN = 1 << LOG2N;
+  static constexpr int kLog2N2 = LOG2N - kLog2N1;
+  static constexpr int kN2 = 1 << kLog2N2;
+  using Fft1 = ocean::reg::RegFft<kLog2N1, kLog2Radix, 0, 1, 4, LOG2N>;
+  using Fft2 = ocean::reg::RegFft<kLog2N2, kLog2Radix, 0, 1, 4, LOG2N>;
+  using FullFft = ocean::reg::RegFft<LOG2N, kLog2Radix, 0, 1>;  // for its twiddle()
+  static constexpr int kT2 = kN2 / kRadix;               // threads a column and n1
+  static constexpr int kGroup = (kN1 / kRadix) / kT2;    // adjacent n1 a stage-2 block
+  static constexpr size_t kSmem = 4 * static_cast<size_t>(kN1) * kColCols * sizeof(float);
+  static constexpr size_t kSmem2 = Fft2::kPasses > 1 ? kSmem : 0;
+  static constexpr int kBandFloats = 4 * kN * kColCols;  // B of one (frame, band)
+};
 
 // K2: blockIdx.x = row of the band, N / 8 threads, looping over the
 // frames. smem: (Hr, Hi, Zr, Zi) x kLen, one buffer. (Rho pairs of rows in
@@ -242,90 +207,162 @@ int launch_row(const RowArgs& a, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3 stage 1: blockIdx = (m2, column band, frame). smem: 4 planes x 128 x 32.
-__global__ void __launch_bounds__(kStage1Threads) fourstep_col_stage1(
-    const float* __restrict__ y, const float* __restrict__ tw, int n, int log2n, int cols,
-    float sign, float* __restrict__ b) {
+// K3 stage 1: blockIdx = (m2, column band, frame). smem: 4 planes x 128 x
+// kColCols.
+template <int LOG2N>
+__global__ void __launch_bounds__(kColThreads, kColBlocksPerSm) fourstep_col_stage1(
+    const float* __restrict__ y, const float* __restrict__ tw, int cols, float sign,
+    float* __restrict__ b) {
+  using S = ColShape<LOG2N>;
+  using Fft = typename S::Fft1;
+  constexpr int n2 = S::kN2;
   extern __shared__ float smem[];
-  constexpr int kTile = kN1 * kColCols;
+  const int c = threadIdx.x % kColCols;
+  const int tid = threadIdx.x / kColCols;
   const int m2 = blockIdx.x;
-  const int n2 = n >> kLog2N1;
-  const int c0 = blockIdx.y * kColCols;
-  const int half_n = n >> 1;
-  const size_t plane = static_cast<size_t>(n) * cols;
-  const float* yf = y + static_cast<size_t>(blockIdx.z) * 4 * plane;
-  float* bf = b + static_cast<size_t>(blockIdx.z) * 4 * plane;
+  const int plane = S::kN * cols;  // < 2^31 / 4 floats up to 16384^2
+  const float* yf = y + static_cast<size_t>(blockIdx.z) * 4 * plane + m2 * cols +
+                    blockIdx.y * kColCols + c;
 
-  for (int i = threadIdx.x; i < 4 * kTile; i += blockDim.x) {
-    const int c = i % kColCols;
-    const int m1 = (i / kColCols) % kN1;
-    const int p = i / kTile;
-    const size_t g = p * plane + static_cast<size_t>(m1 * n2 + m2) * cols + c0 + c;
-    smem[p * kTile + bit_reverse(m1, kLog2N1) * kColCols + c] = yf[g];
-  }
-  __syncthreads();
-  dit_fft(smem, kLog2N1, kColCols, 2 * kColCols, tw, log2n);  // H and Z, 32 columns
+  float v[4][kRadix];
+  static_for<0, kRadix>([&](auto k_) {
+    constexpr int k = decltype(k_)::value;
+    const int g = (tid + k * Fft::kT) * n2 * cols;  // row N2 m1 + m2, m1 = tid + 16 k
+    static_for<0, 4>([&](auto q_) {
+      constexpr int q = decltype(q_)::value;
+      v[q][k] = __ldg(yf + q * plane + g);
+    });
+  });
+  auto sm = [&](int q, int, int a) -> float& { return smem[(q * kN1 + a) * kColCols + c]; };
+  Fft::template run<0>(v, tid, tw, sm);
 
-  for (int i = threadIdx.x; i < 2 * kTile; i += blockDim.x) {
-    const int c = i % kColCols;
-    const int n1 = (i / kColCols) % kN1;
-    const int spec = i / kTile;
-    float* re = smem + 2 * spec * kTile;
-    const float ar = re[n1 * kColCols + c];
-    const float ai = re[kTile + n1 * kColCols + c];
-    const int e = n1 * m2;  // < N: e^{2 pi i e / N}, the upper half by symmetry
-    const int e2 = e & (half_n - 1);
-    const float flip = e >= half_n ? -1.0f : 1.0f;
-    const float wr = flip * __ldg(tw + e2);
-    const float wi = flip * __ldg(tw + half_n + e2);
+  float* bf = b + (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) * S::kBandFloats +
+              m2 * kColCols + c;
+  static_for<0, kRadix>([&](auto i_) {
+    constexpr int i = decltype(i_)::value;
+    const int n1 = Fft::out_index(tid, i);
+    float wr, wi;
+    S::FullFft::twiddle(tw, n1 * m2, wr, wi);  // e^{2 pi i n1 m2 / N}, n1 m2 < N
     const float sg = (n1 & 1) ? -sign : sign;
-    const size_t g = static_cast<size_t>(n1 * n2 + m2) * cols + c0 + c;
-    bf[2 * spec * plane + g] = sg * (ar * wr - ai * wi);
-    bf[(2 * spec + 1) * plane + g] = sg * (ar * wi + ai * wr);
-  }
+    wr *= sg;
+    wi *= sg;
+    float* bo = bf + n1 * (4 * n2 * kColCols);
+    static_for<0, 4, 2>([&](auto q_) {
+      constexpr int q = decltype(q_)::value;
+      const float xr = v[q][i], xi = v[q + 1][i];
+      bo[q * n2 * kColCols] = xr * wr - xi * wi;
+      bo[(q + 1) * n2 * kColCols] = xr * wi + xi * wr;
+    });
+  });
 }
 
-// K3 stage 2: blockIdx = (n1, column band, frame). smem: 4 planes x N2 x 32.
-__global__ void __launch_bounds__(kColThreads) fourstep_col_stage2(
-    const float* __restrict__ b, const float* __restrict__ tw, int n, int log2n, int cols,
-    float* __restrict__ out) {
+// K3 stage 2: blockIdx = (group of kGroup adjacent n1, column band, frame).
+// smem: 4 planes x kGroup x N2 x kColCols (none at N2 = 8). partials: null,
+// or one sum of the block's outputs at
+// partials[frame * stride + band * gridDim.x + group].
+template <int LOG2N>
+__global__ void __launch_bounds__(kColThreads, kColBlocksPerSm) fourstep_col_stage2(
+    const float* __restrict__ b, const float* __restrict__ tw, int cols,
+    float* __restrict__ out, float* __restrict__ partials, int stride) {
+  using S = ColShape<LOG2N>;
+  using Fft = typename S::Fft2;
+  constexpr int n2 = S::kN2;
   extern __shared__ float smem[];
-  const int n1 = blockIdx.x;
-  const int log2n2 = log2n - kLog2N1;
-  const int n2 = 1 << log2n2;
-  const int tile = n2 * kColCols;
-  const int c0 = blockIdx.y * kColCols;
-  const size_t plane = static_cast<size_t>(n) * cols;
-  const float* bf = b + static_cast<size_t>(blockIdx.z) * 4 * plane;
-  float* of = out + static_cast<size_t>(blockIdx.z) * 3 * plane;
+  __shared__ float red[kColThreads / 32];
+  const int c = threadIdx.x % kColCols;
+  const int tid = (threadIdx.x / kColCols) % S::kT2;
+  const int g = threadIdx.x / (kColCols * S::kT2);
+  const int n1 = blockIdx.x * S::kGroup + g;
+  const size_t plane = static_cast<size_t>(S::kN) * cols;
+  const float* bf = b + (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) * S::kBandFloats +
+                    n1 * (4 * n2 * kColCols) + c;
 
-  for (int i = threadIdx.x; i < 4 * tile; i += blockDim.x) {
-    const int c = i % kColCols;
-    const int m2 = (i / kColCols) % n2;
-    const int p = i / tile;
-    const size_t g = p * plane + static_cast<size_t>(n1 * n2 + m2) * cols + c0 + c;
-    smem[p * tile + bit_reverse(m2, log2n2) * kColCols + c] = bf[g];
-  }
-  __syncthreads();
-  dit_fft(smem, log2n2, kColCols, 2 * kColCols, tw, log2n);
+  float v[4][kRadix];
+  static_for<0, kRadix>([&](auto k_) {
+    constexpr int k = decltype(k_)::value;
+    static_for<0, 4>([&](auto q_) {
+      constexpr int q = decltype(q_)::value;
+      v[q][k] = __ldg(bf + (q * n2 + tid + k * S::kT2) * kColCols);
+    });
+  });
+  auto sm = [&](int q, int, int a) -> float& {
+    return smem[((q * S::kGroup + g) * n2 + a) * kColCols + c];
+  };
+  Fft::template run<0>(v, tid, tw, sm);
 
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    const int c = i % kColCols;
-    const int k2 = i / kColCols;
-    const size_t o = static_cast<size_t>(n1 + (k2 << kLog2N1)) * cols + c0 + c;
-    of[o] = smem[2 * tile + i];           // disp_x = Re F(Z)
-    of[plane + o] = smem[i];              // height = Re F(H)
-    of[2 * plane + o] = smem[3 * tile + i];  // disp_z = Im F(Z)
+  // v[1] (Im F(H)) is not read: the compiler drops its last pass.
+  float* of = out + static_cast<size_t>(blockIdx.z) * 3 * plane + blockIdx.y * kColCols + c;
+  float acc = 0.0f;
+  static_for<0, kRadix>([&](auto i_) {
+    constexpr int i = decltype(i_)::value;
+    const size_t o = static_cast<size_t>(n1 + (Fft::out_index(tid, i) << kLog2N1)) * cols;
+    of[o] = v[2][i];              // disp_x = Re F(Z)
+    of[plane + o] = v[0][i];      // height = Re F(H)
+    of[2 * plane + o] = v[3][i];  // disp_z = Im F(Z)
+    acc += v[0][i] + v[2][i] + v[3][i];
+  });
+  if (partials != nullptr) {
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+    if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = acc;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float sum = 0.0f;
+      for (int w = 0; w < kColThreads / 32; ++w) sum += red[w];
+      partials[static_cast<size_t>(blockIdx.z) * stride + blockIdx.y * gridDim.x + blockIdx.x] =
+          sum;
+    }
   }
 }
 
-int log2_of(int n) {
-  int l = 0;
-  while ((1 << l) < n) ++l;
-  return l;
+// What a K3 launch reads and writes.
+struct ColArgs {
+  const float* y;
+  float* b;
+  const float* tw;
+  int tb;
+  int cols;
+  float sign;
+  float* out;
+  float* partials;
+  int ck_rows;
+  float normals_scale;
+  int with_normals;
+};
+
+template <int LOG2N>
+int launch_col(const ColArgs& a, cudaStream_t st) {
+  using S = ColShape<LOG2N>;
+  static bool ready1[ocean::kMaxDevices], ready2[ocean::kMaxDevices];
+  const int bands = a.cols / kColCols;
+  cudaError_t err = ocean::allow_smem(fourstep_col_stage1<LOG2N>, S::kSmem, ready1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fourstep_col_stage1<LOG2N><<<dim3(S::kN2, bands, a.tb), kColThreads, S::kSmem, st>>>(
+      a.y, a.tw, a.cols, a.sign, a.b);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // partials (tb, stride): one a stage-2 block, then one a block of the
+  // normals' pass.
+  constexpr int groups = kN1 / S::kGroup;
+  const int plane_blocks = groups * bands;
+  const bool normals = a.partials != nullptr && a.with_normals;
+  const int stride = plane_blocks + (normals ? S::kN / a.ck_rows : 0);
+  err = ocean::allow_smem(fourstep_col_stage2<LOG2N>, S::kSmem2, ready2);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fourstep_col_stage2<LOG2N><<<dim3(groups, bands, a.tb), kColThreads, S::kSmem2, st>>>(
+      a.b, a.tw, a.cols, a.out, a.partials, stride);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  if (normals) {
+    ocean::checksum_partials<<<dim3(S::kN / a.ck_rows, a.tb), ocean::kSumThreads, 0, st>>>(
+        a.out, S::kN, a.ck_rows, a.normals_scale, 0, 1, a.partials + plane_blocks, stride);
+    err = cudaGetLastError();
+  }
+  return static_cast<int>(err);
 }
 
-bool valid_n(int n) { return n >= kMinN && n <= kMaxN && (n & (n - 1)) == 0; }
+bool valid_n(int n, int max_n) { return n >= kMinN && n <= max_n && (n & (n - 1)) == 0; }
 
 }  // namespace
 
@@ -338,7 +375,7 @@ extern "C" {
 int fourstep_row(const float* h0, const float* omega, const float* tw, const float* ts, int tb,
                  int n, int rows, int row_base, float scale, int wrap_k, int conj_neg, float* y,
                  void* stream) {
-  if (!valid_n(n) || tb < 1 || rows < 1 || row_base < 0 || row_base + rows > n) {
+  if (!valid_n(n, kMaxN) || tb < 1 || rows < 1 || row_base < 0 || row_base + rows > n) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -352,41 +389,29 @@ int fourstep_row(const float* h0, const float* omega, const float* tw, const flo
 }
 
 // Launches K3 for tb frames on `stream`; returns the first error. Input:
-// y (tb, 2, 2, n, cols); sign is -1 with the Q2 flip, else +1. Scratch: b,
-// shaped like y. Outputs: out (tb, 3, n, cols); partials (tb, n / ck_rows)
-// or null for no checksum (which needs cols == n).
+// y (tb, 2, 2, n, cols), n up to 16384; sign is -1 with the Q2 flip, else +1.
+// Scratch: b, as large as y. Outputs: out (tb, 3, n, cols); partials, or
+// null for no checksum (which needs cols == n): (tb, P + Q) per-block sums,
+// P = (n / 128) (cols / 32) of the planes from stage 2 and, with normals,
+// Q = n / ck_rows of the normals' terms.
 int fourstep_col(const float* y, float* b, const float* tw, int tb, int n, int cols,
                  float sign, float* out, float* partials, int ck_rows, float normals_scale,
                  int with_normals, void* stream) {
-  if (!valid_n(n) || tb < 1 || tb > 65535 || cols < kColCols || cols % kColCols != 0 ||
-      (partials != nullptr && (cols != n || ck_rows < 1 || n % ck_rows != 0))) {
+  const bool checksum_ok =
+      cols == n && ck_rows >= 1 && ck_rows % ocean::kSumRows == 0 && n % ck_rows == 0;
+  if (!valid_n(n, kMaxColN) || tb < 1 || tb > 65535 || cols < kColCols || cols % kColCols != 0 ||
+      cols > n || (partials != nullptr && !checksum_ok)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int log2n = log2_of(n);
-  const int n2 = n >> kLog2N1;
-
-  const size_t smem1 = 4 * static_cast<size_t>(kN1) * kColCols * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fourstep_col_stage1, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem1));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fourstep_col_stage1<<<dim3(n2, cols / kColCols, tb), kStage1Threads, smem1, st>>>(
-      y, tw, n, log2n, cols, sign, b);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const size_t smem2 = 4 * static_cast<size_t>(n2) * kColCols * sizeof(float);
-  fourstep_col_stage2<<<dim3(kN1, cols / kColCols, tb), kColThreads, smem2, st>>>(
-      b, tw, n, log2n, cols, out);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  if (partials != nullptr) {
-    ocean::checksum_partials<<<dim3(n / ck_rows, tb), ocean::kSumThreads, 0, st>>>(
-        out, n, ck_rows, normals_scale, with_normals, partials);
-    err = cudaGetLastError();
+  const ColArgs a{y, b, tw, tb, cols, sign, out, partials, ck_rows, normals_scale, with_normals};
+  switch (n) {
+    case 1024: return launch_col<10>(a, st);
+    case 2048: return launch_col<11>(a, st);
+    case 4096: return launch_col<12>(a, st);
+    case 8192: return launch_col<13>(a, st);
+    default: return launch_col<14>(a, st);
   }
-  return static_cast<int>(err);
 }
 
 const char* fourstep_error_string(int err) {

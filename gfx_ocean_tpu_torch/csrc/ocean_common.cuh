@@ -1,7 +1,7 @@
 // Device code shared by the ocean-step kernels (packed_step.cu: K1,
 // fourstep_step.cu: K2 + K3, unpacked_step.cu: K4-K6): the Dekker phase,
-// k-hat, the Hermitian-packed propagate of one element read from the state,
-// the radix-2 Stockham butterfly and the checksum partials. Each .cu
+// k-hat, the Hermitian-packed propagate of one element read from the state
+// and the checksum partials. Each .cu
 // includes it and builds into its own library (gfx_ocean_tpu_torch/kernels.py
 // hashes this header with each source).
 
@@ -117,35 +117,6 @@ __device__ __forceinline__ void khat(float ix, float iy, float np1, float scale,
   khy = mul(ky, inv);
 }
 
-// One radix-2 Stockham stage (decimation in frequency, natural order out):
-// for len = n >> s_log, m = len / 2, stride = 1 << s_log and butterfly
-// b = p * stride + q (p < m, q < stride):
-//   dst[q + stride*2p]       = a + b
-//   dst[q + stride*(2p + 1)] = (a - b) e^{+2 pi i p / len}
-// with a = src[q + stride*p], b = src[q + stride*(p + m)]. Element e of a
-// sequence lives at re[e * step], im[e * step] (step = 1 for rows, the
-// column count for interleaved columns). e^{2 pi i p / len} = tw[p * stride].
-__device__ __forceinline__ void stockham_butterfly(
-    const float* __restrict__ src_re, const float* __restrict__ src_im,
-    float* __restrict__ dst_re, float* __restrict__ dst_im,
-    int b, int s_log, int half_n, int step, float wr, float wi) {
-  const int stride = 1 << s_log;
-  const int m = half_n >> s_log;
-  const int p = b >> s_log;
-  const int q = b & (stride - 1);
-  const int ia = (q + (p << s_log)) * step;
-  const int ib = ia + (m << s_log) * step;
-  const int oa = (q + (p << (s_log + 1))) * step;
-  const int ob = oa + stride * step;
-  const float ar = src_re[ia], ai = src_im[ia];
-  const float br = src_re[ib], bi = src_im[ib];
-  dst_re[oa] = ar + br;
-  dst_im[oa] = ai + bi;
-  const float er = ar - br, ei = ai - bi;
-  dst_re[ob] = er * wr - ei * wi;
-  dst_im[ob] = er * wi + ei * wr;
-}
-
 // The symmetrized height spectrum H = half (S + conj(S o rho)) and the packed
 // choppy spectrum Z = H_dx + i H_dz of one element.
 struct PackedSpectra {
@@ -229,14 +200,22 @@ __device__ __forceinline__ PackedSpectra packed_propagate(
   return packed_propagate_pair(h0, omega, n, y, x, t, scale, wrap, conj_neg, half).e;
 }
 
-// pallas_step._normals_checksum_terms summed with the three planes of
-// out (tb, 3, n, n): one block per (`rows` rows, frame), reduced in a fixed
-// tree order to one partial per block, written to partials (tb, gridDim.x).
-// The caller sums the partials; no float atomics. Neighbours wrap
-// periodically in both axes, so it is right for any n.
+constexpr int kSumRows = 4;  // rows a thread carries down its column at once
+
+// The forcing checksum's terms of out (tb, 3, n, n), one block per (`rows`
+// rows, frame), `rows` a multiple of kSumRows: the three planes
+// (with_planes) and pallas_step._normals_checksum_terms of the height
+// (with_normals), reduced in a fixed tree order to one partial per block,
+// written to partials[frame * stride + block]. The caller sums the
+// partials; no float atomics. Neighbours wrap periodically in both axes, so
+// it is right for any n. A caller that has summed the planes elsewhere
+// (K3's second stage) passes with_planes = 0, and the kernel reads the
+// height alone. A thread walks columns x = tid, tid + 256, ... and holds
+// kSumRows + 2 rows of each in registers: every load of a column's 4 texels
+// is in flight at once, and a texel's vertical neighbours are read once.
 __global__ void __launch_bounds__(kSumThreads) checksum_partials(
-    const float* __restrict__ out, int n, int rows, float hs, int with_normals,
-    float* __restrict__ partials) {
+    const float* __restrict__ out, int n, int rows, float hs, int with_planes, int with_normals,
+    float* __restrict__ partials, int stride) {
   __shared__ float red[kSumThreads];
   const int r0 = blockIdx.x * rows;
   const int frame = blockIdx.y;
@@ -245,21 +224,28 @@ __global__ void __launch_bounds__(kSumThreads) checksum_partials(
   const float* h = of + nn;
   const float diff = 2.0f / static_cast<float>(n);
   float acc = 0.0f;
-  for (int i = threadIdx.x; i < rows * n; i += blockDim.x) {
-    const int r = r0 + i / n;
-    const int x = i % n;
-    const size_t o = static_cast<size_t>(r) * n + x;
-    acc += of[o] + h[o] + of[2 * nn + o];
-    if (with_normals) {
-      const size_t rowo = static_cast<size_t>(r) * n;
-      const float x0 = h[rowo + (x == 0 ? n - 1 : x - 1)];
-      const float x1 = h[rowo + (x == n - 1 ? 0 : x + 1)];
-      const float z0 = h[static_cast<size_t>(r == 0 ? n - 1 : r - 1) * n + x];
-      const float z1 = h[static_cast<size_t>(r == n - 1 ? 0 : r + 1) * n + x];
-      const float cx = ((x1 - x0) / hs) * diff;
-      const float cz = -diff * ((z1 - z0) / hs);
-      const float cy = diff * diff;
-      acc += (cx + cy + cz) / sqrtf(cx * cx + cy * cy + cz * cz);
+  for (int rb = r0; rb < r0 + rows; rb += kSumRows) {
+    const float* up = h + static_cast<size_t>(rb == 0 ? n - 1 : rb - 1) * n;
+    const float* down = h + static_cast<size_t>(rb + kSumRows == n ? 0 : rb + kSumRows) * n;
+    for (int x = threadIdx.x; x < n; x += blockDim.x) {
+      const int xl = x == 0 ? n - 1 : x - 1;
+      const int xr = x == n - 1 ? 0 : x + 1;
+      float c[kSumRows + 2];  // the column from row rb - 1 to rb + kSumRows
+      c[0] = with_normals ? up[x] : 0.0f;
+      c[kSumRows + 1] = with_normals ? down[x] : 0.0f;
+#pragma unroll
+      for (int j = 0; j < kSumRows; ++j) c[j + 1] = h[static_cast<size_t>(rb + j) * n + x];
+#pragma unroll
+      for (int j = 0; j < kSumRows; ++j) {
+        const size_t rowo = static_cast<size_t>(rb + j) * n;
+        if (with_planes) acc += of[rowo + x] + c[j + 1] + of[2 * nn + rowo + x];
+        if (with_normals) {
+          const float cx = ((h[rowo + xr] - h[rowo + xl]) / hs) * diff;
+          const float cz = -diff * ((c[j + 2] - c[j]) / hs);
+          const float cy = diff * diff;
+          acc += (cx + cy + cz) / sqrtf(cx * cx + cy * cy + cz * cz);
+        }
+      }
     }
   }
   red[threadIdx.x] = acc;
@@ -268,7 +254,7 @@ __global__ void __launch_bounds__(kSumThreads) checksum_partials(
     if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
     __syncthreads();
   }
-  if (threadIdx.x == 0) partials[static_cast<size_t>(frame) * gridDim.x + blockIdx.x] = red[0];
+  if (threadIdx.x == 0) partials[static_cast<size_t>(frame) * stride + blockIdx.x] = red[0];
 }
 
 }  // namespace ocean

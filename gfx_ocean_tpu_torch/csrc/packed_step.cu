@@ -271,7 +271,8 @@ int packed_step(const float* h0, const float* omega, const float* tw, const floa
                 int n, float scale, int wrap_k, int conj_neg, float half, float* y, float* out,
                 float* partials, int ck_rows, float normals_scale, int with_normals,
                 void* stream) {
-  if (tb < 1 || tb > 65535 || ck_rows < 1 || n % ck_rows != 0) {
+  if (tb < 1 || tb > 65535 || ck_rows < 1 || ck_rows % ocean::kSumRows != 0 ||
+      n % ck_rows != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -289,7 +290,7 @@ int packed_step(const float* h0, const float* omega, const float* tw, const floa
   if (err != 0) return err;
   if (partials != nullptr) {
     ocean::checksum_partials<<<dim3(n / ck_rows, tb), ocean::kSumThreads, 0, st>>>(
-        out, n, ck_rows, normals_scale, with_normals, partials);
+        out, n, ck_rows, normals_scale, 1, with_normals, partials, n / ck_rows);
     return static_cast<int>(cudaGetLastError());
   }
   return 0;

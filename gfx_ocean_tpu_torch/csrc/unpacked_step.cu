@@ -1,36 +1,48 @@
-// K4, K5 and K6 on Hopper: the unpacked ocean step for N <= 512.
+// K4, K5 and K6 on Hopper: the unpacked ocean step for 16 <= N <= 512.
 //
 // Replace gfx_ocean_tpu/ops/pallas_step.py::_step_kernel (K4),
 // _row_block_kernel (K5) and _col_block_kernel (K6). They compute the same
 // functions as the plain PyTorch versions in ops/unpacked_step.py
 // (unpacked_planes_reference, unpacked_rows_reference,
 // unpacked_cols_reference) with their own algorithm: where the TPU kernels
-// multiply by a dense DFT table on the MXU, these run K1's radix-2 Stockham
-// FFT in shared memory (ocean_common.cuh).
+// multiply by a dense DFT table on the MXU, these run register-resident
+// radix-8 FFTs (fft_reg.cuh), as K1 does.
 //
-//   unpacked_row_pass (K5)  one block per (row, frame): the unpacked propagate
-//                           of the row from h0, and from h0 read at the
-//                           flipped index (sincosf of the Dekker phase, k-hat
-//                           from indices, the Q2 sign g on h), then the
-//                           complex x-transform of the three spectra
-//                           (disp_x, height, disp_z); writes
-//                           Y (tb, 3, 2, N, N).
-//   unpacked_col_pass (K6)  one block per (8 columns, spectrum, frame): the
-//                           y-transform of one spectrum read back from Y, real
-//                           part only; writes (tb, 3, N, N).
+//   unpacked_row_pass (K5)  one block per (8 rows, frame), N / 8 threads a
+//                           row: each thread forms the unpacked propagate of
+//                           its 8 elements x = tid + r N / 8 in registers,
+//                           from h0 and from h0 read at the flipped index
+//                           (sincosf of the Dekker phase, k-hat from indices,
+//                           the Q2 sign g on h), then runs the complex
+//                           x-transform of the three spectra (disp_x, height,
+//                           disp_z) as radix 8, 8, ..., a last 2 or 4 passes
+//                           with padded, conflict-free exchanges, and writes
+//                           Y (tb, 3, 2, N, N) in coalesced rows, (-1)^x
+//                           folded in. disp_z goes first on its own, then
+//                           disp_x and the height together (kRowTogether: all
+//                           three at once).
+//   unpacked_col_pass (K6)  one block per (8 columns, spectrum, frame),
+//                           N / 8 threads a column, lanes over the 8 columns
+//                           first (one 32-byte sector a row): the y-transform
+//                           of one spectrum read back from Y, of which only
+//                           the real part of the last pass is computed;
+//                           writes (tb, 3, N, N).
 //   unpacked_fused (K4)     the whole call in one cooperative launch: a
 //                           persistent grid (occupancy x SMs blocks) walks the
 //                           row items of every frame, synchronizes once
 //                           (cooperative_groups grid sync), then walks the
 //                           column items. The items are K5's and K6's device
-//                           functions, so K4 equals K5 + K6 bit for bit.
+//                           functions and one block shape (8 N / 8 threads)
+//                           serves both, so K4 equals K5 + K6 bit for bit.
+//   checksum_partials       the forcing checksum of the planes
+//                           (ocean_common.cuh), launched behind K4 or K6 when
+//                           the caller asks for it: per-block partials, summed
+//                           by the caller.
 //
 // The TPU's K4 held the whole grid in VMEM; one block here cannot hold the
 // 6 MB of Y a 512^2 frame has. K4 keeps Y in device memory between the two
 // phases, but written and read back within one launch it stays in the 50 MB
-// L2 for a few frames (6 MB a frame). One grid sync a call, not one a frame:
-// a phase over all frames of the call balances 512 rows and 192 column items
-// a frame over ~400 resident blocks.
+// L2 for a few frames (6 MB a frame). One grid sync a call, not one a frame.
 //
 // Both transforms are y[j] = (-1)^j sum_k x[k] e^{+2 pi i j k / N}: the
 // output-alternating inverse DFT of ops/fft._dft_matrix_out_alt_np(n, 1, 0,
@@ -41,11 +53,16 @@
 // propagate is written with round-to-nearest intrinsics (no FMA contraction)
 // in the plain version's operation order.
 //
-// Bounds on the H100 (512^2, per frame): 3 MB of inputs (h0, omega; read once
-// a call), 6 MB of Y written and read back, 3 MB of planes out, ~71 MFLOP of
-// radix-2 FFT. The compulsory bytes bound a frame at ~1.9 us; the barriers
-// between FFT stages and the grid sync bound the kernels. wgmma DFT stages, TMA
-// loads and a cluster-resident Y are later work.
+// What bounds them on the H100 (512^2, a frame): 3 MB of inputs (h0, omega;
+// read once a call), 6 MB of Y written and read back (L2), 3 MB of planes
+// out; ~71 MFLOP. Bytes and latency bound them, not arithmetic (PERF.md has
+// the measured times). The design keeps each thread's points in registers
+// between passes (2 exchanges at 512 in place of 9 barriered radix-2 stages
+// over shared memory), loads one twiddle a point a pass shared by the spectra
+// of a group, and transforms disp_z before the other two spectra (40 live
+// data registers, not 48). The row item still needs more than 64 registers
+// for its propagate, so K4 and K5 run one 512-thread block a SM, K6 two. Not
+// wgmma: see fft_reg.cuh.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (gfx_ocean_tpu_torch/kernels.py). Plain C entry points, bound with ctypes.
@@ -55,19 +72,58 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "fft_reg.cuh"
 #include "ocean_common.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
 using ocean::add;
+using ocean::allow_smem;
+using ocean::kMaxDevices;
 using ocean::mul;
-using ocean::stockham_butterfly;
 using ocean::sub;
+using ocean::reg::ilog2;
+using ocean::reg::RegFft;
+using ocean::reg::static_for;
 
-constexpr int kMaxN = 512;
-constexpr int kThreads = 256;
-constexpr int kColCols = 8;  // columns per column item: one 32 B sector a row
+constexpr int kLog2Radix = 3;
+constexpr int kRadix = 1 << kLog2Radix;
+constexpr int kSeqs = 8;  // rows a row item, columns a column item (one 32 B sector a row)
+// The row item's three spectra in one set of passes (48 data registers a
+// thread), or disp_z first and then disp_x with the height (32, with h and
+// k-hat x held meanwhile). They measure alike; the second takes two thirds
+// of the shared memory.
+constexpr bool kRowTogether = false;
+// Blocks a SM the launch bounds ask of a 512-thread block. The row item
+// (and so K4) takes one: at two, 64 registers a thread, its propagate spills,
+// K4's 384 row items a 6-frame 512^2 call fall on 264 blocks in two uneven
+// rounds, and K4 runs 1.4x slower (tools/torch_kernel_variants.py,
+// k4_two_blocks). The column item fits 64 registers.
+constexpr int kBlocksPerSm = 1;
+constexpr int kColBlocksPerSm = 2;
+
+template <int LOG2N>
+struct Shape {
+  static constexpr int kN = 1 << LOG2N;
+  static constexpr int kT = kN >> kLog2Radix;  // threads a sequence
+  static constexpr int kThreads = kSeqs * kT;
+  static constexpr int kMinBlocks = kThreads >= 512 ? kBlocksPerSm : 1;
+  static constexpr int kColMinBlocks = kThreads >= 512 ? kColBlocksPerSm : 1;
+  // Row items: a warp holds min(T, 32) consecutive j of one row.
+  template <int NP>
+  using RowFft = RegFft<LOG2N, kLog2Radix, ilog2(kT < 32 ? kT : 32), 1, NP>;
+  // A warp spanning 32 / T rows finds them an odd multiple of T banks apart.
+  static constexpr int kStride =
+      kT >= 32 ? RowFft<2>::kLen : (RowFft<2>::kLen + 31) / 32 * 32 + kT;
+  static constexpr int kRowPlanes = kRowTogether ? 6 : 4;
+  static constexpr size_t kRowSmem = static_cast<size_t>(kRowPlanes) * kSeqs * kStride * sizeof(float);
+  // Column items: lanes run over the 8 columns first, 32 / 8 j a warp.
+  static constexpr int kColW = 32 / kSeqs;
+  using ColFft = RegFft<LOG2N, kLog2Radix, ilog2(kT < kColW ? kT : kColW), 1, 2>;
+  static constexpr size_t kColSmem = 2 * static_cast<size_t>(ColFft::kLen) * kSeqs * sizeof(float);
+  static constexpr size_t kSmem = kRowSmem > kColSmem ? kRowSmem : kColSmem;
+};
 
 // What the row items read: the time-invariant inputs and the frame times.
 struct RowArgs {
@@ -75,216 +131,294 @@ struct RowArgs {
   const float* omega;  // (n, n)
   const float* tw;     // (2, n / 2) cos, sin of 2 pi k / n
   const float* ts;     // (tb,)
-  int n;
-  int log2n;
   float scale;         // pi / domain_size
   int wrap_k;
   int conj_neg;
   float g;             // -1 with the reference's Q2 sign, else +1
 };
 
-size_t row_smem(int n) { return 12 * static_cast<size_t>(n) * sizeof(float); }
-size_t col_smem(int n) { return 4 * static_cast<size_t>(n) * kColCols * sizeof(float); }
+// The x-transform of the NP / 2 spectra in v (this thread's 8 points of row
+// rl of the item) and their store to the row's planes yq[q * nn + x].
+template <int LOG2N, int NP>
+__device__ __forceinline__ void row_fft_store(float (&v)[NP][kRadix], int tid, int rl,
+                                              const float* __restrict__ tw, float* smem,
+                                              float* yq) {
+  using S = Shape<LOG2N>;
+  using Fft = typename S::template RowFft<NP>;
+  constexpr size_t nn = static_cast<size_t>(S::kN) * S::kN;
+  auto sm = [&](int q, int, int a) -> float& { return smem[(q * kSeqs + rl) * S::kStride + a]; };
+  Fft::template run<0>(v, tid, tw, sm);
+  static_for<0, kRadix>([&](auto i_) {
+    constexpr int i = decltype(i_)::value;
+    const int x = Fft::out_index(tid, i);
+    const float sg = (x & 1) ? -1.0f : 1.0f;
+    static_for<0, NP>([&](auto q_) {
+      constexpr int q = decltype(q_)::value;
+      yq[q * nn + x] = sg * v[q][i];
+    });
+  });
+}
 
-// Propagate + x-transform of one row of one frame into Y (tb, 3, 2, n, n).
-// smem: 2 ping-pong buffers x (re, im) x 3 spectra x n floats.
-__device__ void row_item(const RowArgs& a, int row, int frame, float* y, float* smem) {
-  const int n = a.n;
-  const size_t nn = static_cast<size_t>(n) * n;
-  const int half_n = n >> 1;
+// Propagate + x-transform of rows 8 item .. 8 item + 7 of one frame into
+// Y (tb, 3, 2, n, n). smem: kRowPlanes x 8 rows x kStride floats.
+template <int LOG2N>
+__device__ __forceinline__ void row_item(const RowArgs& a, int item, int frame, float* y,
+                                         float* smem) {
+  using S = Shape<LOG2N>;
+  constexpr int n = S::kN;
+  constexpr size_t nn = static_cast<size_t>(n) * n;
+  const int tid = threadIdx.x % S::kT;
+  const int rl = threadIdx.x / S::kT;
+  const int row = item * kSeqs + rl;
   const float t = a.ts[frame];
   const float np1 = static_cast<float>(n + 1);
   const float iy = static_cast<float>(row);
   const bool wrap = a.wrap_k != 0;
-  float* src = smem;  // array q = 2 * spectrum + (0: re, 1: im)
-  float* dst = smem + 6 * n;
 
-  for (int x = threadIdx.x; x < n; x += blockDim.x) {
+  float hr[kRadix], hi[kRadix], khx[kRadix], khy[kRadix];
+  static_for<0, kRadix>([&](auto k_) {
+    constexpr int k = decltype(k_)::value;
+    const int x = tid + k * S::kT;
     const size_t idx = static_cast<size_t>(row) * n + x;
     const size_t flip = nn - 1 - idx;  // h0[:, ::-1, ::-1], the [N-1-i] pairing
     float s, c;
-    sincosf(ocean::phase_mod_2pi(a.omega[idx], t), &s, &c);
-    const float h0r = a.h0[idx];
-    const float h0i = a.h0[nn + idx];
-    const float h0nr = a.h0[flip];
-    const float h0ni = a.conj_neg ? -a.h0[nn + flip] : a.h0[nn + flip];
-    const float hr = mul(a.g, add(mul(c, add(h0r, h0nr)), mul(s, sub(h0ni, h0i))));
-    const float hi = mul(a.g, add(mul(s, sub(h0r, h0nr)), mul(c, add(h0i, h0ni))));
-    float khx, khy;
-    ocean::khat(static_cast<float>(x), iy, np1, a.scale, wrap, khx, khy);
-    src[x] = mul(khx, hi);           // disp_x spectrum: -i khx h
-    src[n + x] = mul(-khx, hr);
-    src[2 * n + x] = hr;             // height: h
-    src[3 * n + x] = hi;
-    src[4 * n + x] = mul(khy, hi);   // disp_z spectrum: -i khy h
-    src[5 * n + x] = mul(-khy, hr);
-  }
-  __syncthreads();
+    sincosf(ocean::phase_mod_2pi(__ldg(a.omega + idx), t), &s, &c);
+    const float h0r = __ldg(a.h0 + idx);
+    const float h0i = __ldg(a.h0 + nn + idx);
+    const float h0nr = __ldg(a.h0 + flip);
+    const float h0ni = a.conj_neg ? -__ldg(a.h0 + nn + flip) : __ldg(a.h0 + nn + flip);
+    hr[k] = mul(a.g, add(mul(c, add(h0r, h0nr)), mul(s, sub(h0ni, h0i))));
+    hi[k] = mul(a.g, add(mul(s, sub(h0r, h0nr)), mul(c, add(h0i, h0ni))));
+    ocean::khat(static_cast<float>(x), iy, np1, a.scale, wrap, khx[k], khy[k]);
+  });
 
-  for (int s_log = 0; s_log < a.log2n; ++s_log) {
-    for (int b = threadIdx.x; b < half_n; b += blockDim.x) {
-      const int k = (b >> s_log) << s_log;
-      const float wr = a.tw[k], wi = a.tw[half_n + k];
-      for (int q = 0; q < 6; q += 2) {
-        stockham_butterfly(src + q * n, src + (q + 1) * n, dst + q * n, dst + (q + 1) * n,
-                           b, s_log, half_n, 1, wr, wi);
-      }
-    }
-    __syncthreads();
-    float* tmp = src;
-    src = dst;
-    dst = tmp;
+  // Plane q = 2 * spectrum + (0: re, 1: im); disp_x = -i khx h, height = h,
+  // disp_z = -i khy h.
+  float* yrow = y + static_cast<size_t>(frame) * 6 * nn + static_cast<size_t>(row) * n;
+  if constexpr (kRowTogether) {
+    float v[6][kRadix];
+    static_for<0, kRadix>([&](auto k_) {
+      constexpr int k = decltype(k_)::value;
+      v[0][k] = mul(khx[k], hi[k]);
+      v[1][k] = mul(-khx[k], hr[k]);
+      v[2][k] = hr[k];
+      v[3][k] = hi[k];
+      v[4][k] = mul(khy[k], hi[k]);
+      v[5][k] = mul(-khy[k], hr[k]);
+    });
+    row_fft_store<LOG2N, 6>(v, tid, rl, a.tw, smem, yrow);
+  } else {
+    float z[2][kRadix];
+    static_for<0, kRadix>([&](auto k_) {
+      constexpr int k = decltype(k_)::value;
+      z[0][k] = mul(khy[k], hi[k]);
+      z[1][k] = mul(-khy[k], hr[k]);
+    });
+    row_fft_store<LOG2N, 2>(z, tid, rl, a.tw, smem, yrow + 4 * nn);
+    __syncthreads();  // the next transform reuses the buffer
+    float v[4][kRadix];
+    static_for<0, kRadix>([&](auto k_) {
+      constexpr int k = decltype(k_)::value;
+      v[0][k] = mul(khx[k], hi[k]);
+      v[1][k] = mul(-khx[k], hr[k]);
+      v[2][k] = hr[k];
+      v[3][k] = hi[k];
+    });
+    row_fft_store<LOG2N, 4>(v, tid, rl, a.tw, smem, yrow);
   }
-
-  float* yf = y + static_cast<size_t>(frame) * 6 * nn + static_cast<size_t>(row) * n;
-  for (int x = threadIdx.x; x < n; x += blockDim.x) {
-    const float sg = (x & 1) ? -1.0f : 1.0f;
-    for (int q = 0; q < 6; ++q) yf[q * nn + x] = sg * src[q * n + x];
-  }
-  __syncthreads();  // the next item reuses the buffers
+  __syncthreads();  // the next item reuses the buffer
 }
 
 // Real-output y-transform of columns c0 .. c0 + 7 of one spectrum of one
 // frame: Y (tb, 3, 2, n, n) -> out (tb, 3, n, n). y carries no __restrict__:
-// in K4 the same launch wrote it. smem: 2 ping-pong buffers x (re, im) x n x 8.
-__device__ void col_item(const float* y, const float* __restrict__ tw, int n, int log2n,
-                         int c0, int spec, int frame, float* __restrict__ out, float* smem) {
-  const size_t nn = static_cast<size_t>(n) * n;
-  const int half_n = n >> 1;
-  const int len = n * kColCols;
-  const float* yr = y + (static_cast<size_t>(frame) * 6 + 2 * spec) * nn;
-  const float* yi = yr + nn;
-  float* src = smem;
-  float* dst = smem + 2 * len;
+// in K4 the same launch wrote it. smem: (re, im) x kLen x 8 floats.
+template <int LOG2N>
+__device__ __forceinline__ void col_item(const float* y, const float* __restrict__ tw, int c0,
+                                         int spec, int frame, float* __restrict__ out,
+                                         float* smem) {
+  using S = Shape<LOG2N>;
+  using Fft = typename S::ColFft;
+  constexpr int n = S::kN;
+  constexpr size_t nn = static_cast<size_t>(n) * n;
+  const int c = threadIdx.x % kSeqs;
+  const int tid = threadIdx.x / kSeqs;
+  const float* yr = y + (static_cast<size_t>(frame) * 6 + 2 * spec) * nn + c0 + c;
 
-  for (int i = threadIdx.x; i < len; i += blockDim.x) {
-    const size_t g = static_cast<size_t>(i / kColCols) * n + c0 + i % kColCols;
-    src[i] = yr[g];
-    src[len + i] = yi[g];
-  }
-  __syncthreads();
+  float v[2][kRadix];
+  static_for<0, kRadix>([&](auto k_) {
+    constexpr int k = decltype(k_)::value;
+    const size_t g = static_cast<size_t>(tid + k * S::kT) * n;
+    v[0][k] = yr[g];
+    v[1][k] = yr[nn + g];
+  });
+  auto sm = [&](int q, int, int a) -> float& { return smem[(q * Fft::kLen + a) * kSeqs + c]; };
+  Fft::template run<0>(v, tid, tw, sm);
 
-  for (int s_log = 0; s_log < log2n; ++s_log) {
-    for (int b = threadIdx.x; b < half_n * kColCols; b += blockDim.x) {
-      const int col = b % kColCols;
-      const int bf = b / kColCols;
-      const int k = (bf >> s_log) << s_log;
-      stockham_butterfly(src + col, src + len + col, dst + col, dst + len + col,
-                         bf, s_log, half_n, kColCols, tw[k], tw[half_n + k]);
-    }
-    __syncthreads();
-    float* tmp = src;
-    src = dst;
-    dst = tmp;
-  }
-
-  float* of = out + (static_cast<size_t>(frame) * 3 + spec) * nn;
-  for (int i = threadIdx.x; i < len; i += blockDim.x) {
-    const int r = i / kColCols;
-    const float sg = (r & 1) ? -1.0f : 1.0f;
-    of[static_cast<size_t>(r) * n + c0 + i % kColCols] = sg * src[i];
-  }
-  __syncthreads();  // the next item reuses the buffers
+  // Only v[0] is read: the compiler drops the last pass's imaginary half.
+  float* of = out + (static_cast<size_t>(frame) * 3 + spec) * nn + c0 + c;
+  static_for<0, kRadix>([&](auto i_) {
+    constexpr int i = decltype(i_)::value;
+    const int r = Fft::out_index(tid, i);
+    of[static_cast<size_t>(r) * n] = ((r & 1) ? -1.0f : 1.0f) * v[0][i];
+  });
+  __syncthreads();  // the next item reuses the buffer
 }
 
-__global__ void __launch_bounds__(kThreads) unpacked_row_pass(RowArgs a, float* y) {
+template <int LOG2N>
+__global__ void __launch_bounds__(Shape<LOG2N>::kThreads, Shape<LOG2N>::kMinBlocks)
+    unpacked_row_pass(RowArgs a, float* __restrict__ y) {
   extern __shared__ float smem[];
-  row_item(a, blockIdx.x, blockIdx.y, y, smem);
+  row_item<LOG2N>(a, blockIdx.x, blockIdx.y, y, smem);
 }
 
-__global__ void __launch_bounds__(kThreads) unpacked_col_pass(
-    const float* __restrict__ y, const float* __restrict__ tw, int n, int log2n,
-    float* __restrict__ out) {
+template <int LOG2N>
+__global__ void __launch_bounds__(Shape<LOG2N>::kThreads, Shape<LOG2N>::kColMinBlocks)
+    unpacked_col_pass(const float* __restrict__ y, const float* __restrict__ tw,
+                      float* __restrict__ out) {
   extern __shared__ float smem[];
-  col_item(y, tw, n, log2n, blockIdx.x * kColCols, blockIdx.y, blockIdx.z, out, smem);
+  col_item<LOG2N>(y, tw, blockIdx.x * kSeqs, blockIdx.y, blockIdx.z, out, smem);
 }
 
-__global__ void __launch_bounds__(kThreads) unpacked_fused(RowArgs a, int tb, float* y,
-                                                           float* out) {
+template <int LOG2N>
+__global__ void __launch_bounds__(Shape<LOG2N>::kThreads, Shape<LOG2N>::kMinBlocks)
+    unpacked_fused(RowArgs a, int tb, float* y, float* out) {
   extern __shared__ float smem[];
-  const int n = a.n;
-  for (int i = blockIdx.x; i < tb * n; i += gridDim.x) {
-    row_item(a, i % n, i / n, y, smem);
+  constexpr int groups = Shape<LOG2N>::kN / kSeqs;
+  for (int i = blockIdx.x; i < tb * groups; i += gridDim.x) {
+    row_item<LOG2N>(a, i % groups, i / groups, y, smem);
   }
   cg::this_grid().sync();  // every row of every frame is in Y
-  const int groups = n / kColCols;
   for (int i = blockIdx.x; i < tb * 3 * groups; i += gridDim.x) {
     const int rem = i % (3 * groups);
-    col_item(y, a.tw, n, a.log2n, (rem % groups) * kColCols, rem / groups, i / (3 * groups),
-             out, smem);
+    col_item<LOG2N>(y, a.tw, (rem % groups) * kSeqs, rem / groups, i / (3 * groups), out, smem);
   }
 }
 
-bool valid(int n, int tb) {
-  return n >= 16 && n <= kMaxN && (n & (n - 1)) == 0 && tb >= 1 && tb <= 65535;
-}
-
-int log2_of(int n) {
-  int l = 0;
-  while ((1 << l) < n) ++l;
-  return l;
-}
-
-RowArgs row_args(const float* h0, const float* omega, const float* tw, const float* ts, int n,
-                 float scale, int wrap_k, int conj_neg, float g) {
-  return RowArgs{h0, omega, tw, ts, n, log2_of(n), scale, wrap_k, conj_neg, g};
-}
-
-// Host work that depends only on (device, n) runs once and is kept here:
-// the shared-memory attributes of the two kernels that need more than the
-// default 48 KB (set for the largest N, so once per device), and K4's
-// resident blocks (occupancy x SMs). 0 means not yet known. Concurrent
-// first calls may both compute an entry; they store the same value.
-constexpr int kMaxDevices = 64;
-constexpr int kLogMaxN = 9;
-std::atomic<int> g_attrs_set[kMaxDevices];
-std::atomic<int> g_resident[kMaxDevices][kLogMaxN + 1];
-
-cudaError_t current_device(int* dev) {
-  cudaError_t err = cudaGetDevice(dev);
-  if (err == cudaSuccess && (*dev < 0 || *dev >= kMaxDevices)) err = cudaErrorInvalidDevice;
-  return err;
-}
-
-cudaError_t set_attributes_once(int dev) {
-  if (g_attrs_set[dev].load(std::memory_order_acquire)) return cudaSuccess;
-  const int smem = static_cast<int>(col_smem(kMaxN));  // >= row_smem(kMaxN)
-  cudaError_t err = cudaFuncSetAttribute(unpacked_fused,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(unpacked_col_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+// f.run<log2 n>() for the grids the kernels take.
+template <class F>
+int by_log2n(int n, const F& f) {
+  switch (n) {
+    case 16: return f.template run<4>();
+    case 32: return f.template run<5>();
+    case 64: return f.template run<6>();
+    case 128: return f.template run<7>();
+    case 256: return f.template run<8>();
+    case 512: return f.template run<9>();
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (err == cudaSuccess) g_attrs_set[dev].store(1, std::memory_order_release);
-  return err;
 }
+
+bool valid_tb(int tb) { return tb >= 1 && tb <= 65535; }
 
 // K4's persistent grid: as many blocks as fit on the card at once (a
-// cooperative launch requires it), at most one per row item.
-cudaError_t fused_grid(int tb, int n, int* grid) {
-  if (!valid(n, tb)) return cudaErrorInvalidValue;
+// cooperative launch requires it), at most one per column item. The
+// shared-memory attribute and the occupancy query depend only on (device,
+// N): they run once and are kept (0: not yet known; concurrent first calls
+// store the same value).
+template <int LOG2N>
+cudaError_t fused_grid(int tb, int* grid) {
+  using S = Shape<LOG2N>;
+  static bool ready[kMaxDevices];
+  static std::atomic<int> resident[kMaxDevices];
   int dev = 0;
-  cudaError_t err = current_device(&dev);
-  if (err == cudaSuccess) err = set_attributes_once(dev);
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev < 0 || dev >= kMaxDevices)) err = cudaErrorInvalidDevice;
+  if (err == cudaSuccess) err = allow_smem(unpacked_fused<LOG2N>, S::kSmem, ready);
   if (err != cudaSuccess) return err;
-  std::atomic<int>& cached = g_resident[dev][log2_of(n)];
-  int resident = cached.load(std::memory_order_acquire);
-  if (resident == 0) {
+  int blocks = resident[dev].load(std::memory_order_acquire);
+  if (blocks == 0) {
     int coop = 0, sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
     if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, unpacked_fused, kThreads,
-                                                          col_smem(n));  // >= row_smem(n)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, unpacked_fused<LOG2N>,
+                                                          S::kThreads, S::kSmem);
     }
     if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
     if (err != cudaSuccess) return err;
-    resident = per_sm * sms;
-    cached.store(resident, std::memory_order_release);
+    blocks = per_sm * sms;
+    resident[dev].store(blocks, std::memory_order_release);
   }
-  *grid = resident < tb * n ? resident : tb * n;
+  const int items = tb * 3 * (S::kN / kSeqs);
+  *grid = blocks < items ? blocks : items;
   return cudaSuccess;
+}
+
+// The launches, each a functor for by_log2n.
+struct RowsLaunch {
+  RowArgs a;
+  int tb;
+  float* y;
+  cudaStream_t st;
+  template <int L>
+  int run() const {
+    using S = Shape<L>;
+    static bool ready[kMaxDevices];
+    const cudaError_t err = allow_smem(unpacked_row_pass<L>, S::kRowSmem, ready);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    unpacked_row_pass<L><<<dim3(S::kN / kSeqs, tb), S::kThreads, S::kRowSmem, st>>>(a, y);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+struct ColsLaunch {
+  const float* y;
+  const float* tw;
+  int tb;
+  float* out;
+  cudaStream_t st;
+  template <int L>
+  int run() const {
+    using S = Shape<L>;
+    unpacked_col_pass<L><<<dim3(S::kN / kSeqs, 3, tb), S::kThreads, S::kColSmem, st>>>(y, tw, out);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+struct FusedLaunch {
+  RowArgs a;
+  int tb;
+  float* y;
+  float* out;
+  cudaStream_t st;
+  template <int L>
+  int run() const {
+    int grid = 0;
+    cudaError_t err = fused_grid<L>(tb, &grid);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    RowArgs args_a = a;
+    int args_tb = tb;
+    float* args_y = y;
+    float* args_out = out;
+    void* args[] = {&args_a, &args_tb, &args_y, &args_out};
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(unpacked_fused<L>),
+                                      dim3(grid), dim3(Shape<L>::kThreads), args,
+                                      Shape<L>::kSmem, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+struct FusedGrid {
+  int tb;
+  int* grid;
+  template <int L>
+  int run() const {
+    return static_cast<int>(fused_grid<L>(tb, grid));
+  }
+};
+
+// The checksum partials of out (tb, 3, n, n) behind K4 or K6, when asked for.
+int launch_checksum(const float* out, int tb, int n, float* partials, int ck_rows,
+                    float normals_scale, int with_normals, cudaStream_t st) {
+  if (partials == nullptr) return 0;
+  if (ck_rows < 1 || ck_rows % ocean::kSumRows != 0 || n % ck_rows != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  ocean::checksum_partials<<<dim3(n / ck_rows, tb), ocean::kSumThreads, 0, st>>>(
+      out, n, ck_rows, normals_scale, 1, with_normals, partials, n / ck_rows);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -293,52 +427,48 @@ extern "C" {
 
 // Each entry point launches on `stream` and returns the first CUDA error
 // (0 when all launched). Inputs: h0 (2, n, n); omega (n, n); tw (2, n/2);
-// ts (tb,). y is (tb, 3, 2, n, n), out (tb, 3, n, n).
+// ts (tb,). y is (tb, 3, 2, n, n), out (tb, 3, n, n); partials
+// (tb, n / ck_rows) or null for no checksum.
 
 // K5: the row pass, writes y.
 int unpacked_rows(const float* h0, const float* omega, const float* tw, const float* ts, int tb,
                   int n, float scale, int wrap_k, int conj_neg, float g, float* y,
                   void* stream) {
-  if (!valid(n, tb)) return static_cast<int>(cudaErrorInvalidValue);
-  const RowArgs a = row_args(h0, omega, tw, ts, n, scale, wrap_k, conj_neg, g);
-  unpacked_row_pass<<<dim3(n, tb), kThreads, row_smem(n), static_cast<cudaStream_t>(stream)>>>(
-      a, y);
-  return static_cast<int>(cudaGetLastError());
+  if (!valid_tb(tb)) return static_cast<int>(cudaErrorInvalidValue);
+  const RowArgs a{h0, omega, tw, ts, scale, wrap_k, conj_neg, g};
+  return by_log2n(n, RowsLaunch{a, tb, y, static_cast<cudaStream_t>(stream)});
 }
 
-// K6: the column pass, reads y, writes out.
-int unpacked_cols(const float* y, const float* tw, int tb, int n, float* out, void* stream) {
-  if (!valid(n, tb)) return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0;
-  cudaError_t err = current_device(&dev);
-  if (err == cudaSuccess) err = set_attributes_once(dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  unpacked_col_pass<<<dim3(n / kColCols, 3, tb), kThreads, col_smem(n),
-                      static_cast<cudaStream_t>(stream)>>>(y, tw, n, log2_of(n), out);
-  return static_cast<int>(cudaGetLastError());
+// K6: the column pass, reads y, writes out, then the checksum partials.
+int unpacked_cols(const float* y, const float* tw, int tb, int n, float* out, float* partials,
+                  int ck_rows, float normals_scale, int with_normals, void* stream) {
+  if (!valid_tb(tb)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = by_log2n(n, ColsLaunch{y, tw, tb, out, st});
+  if (err != 0) return err;
+  return launch_checksum(out, tb, n, partials, ck_rows, normals_scale, with_normals, st);
 }
 
-// K4: both passes in one cooperative launch; y is its scratch.
+// K4: both passes in one cooperative launch (y is its scratch), then the
+// checksum partials.
 int unpacked_step(const float* h0, const float* omega, const float* tw, const float* ts, int tb,
                   int n, float scale, int wrap_k, int conj_neg, float g, float* y, float* out,
+                  float* partials, int ck_rows, float normals_scale, int with_normals,
                   void* stream) {
-  int grid = 0;
-  cudaError_t err = fused_grid(tb, n, &grid);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  RowArgs a = row_args(h0, omega, tw, ts, n, scale, wrap_k, conj_neg, g);
-  void* args[] = {&a, &tb, &y, &out};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(unpacked_fused), dim3(grid),
-                                    dim3(kThreads), args, col_smem(n),
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  if (!valid_tb(tb)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const RowArgs a{h0, omega, tw, ts, scale, wrap_k, conj_neg, g};
+  const int err = by_log2n(n, FusedLaunch{a, tb, y, out, st});
+  if (err != 0) return err;
+  return launch_checksum(out, tb, n, partials, ck_rows, normals_scale, with_normals, st);
 }
 
 // The grid K4 launches with for tb frames at n, or minus a CUDA error.
 int unpacked_step_grid(int tb, int n) {
+  if (!valid_tb(tb)) return -static_cast<int>(cudaErrorInvalidValue);
   int grid = 0;
-  const cudaError_t err = fused_grid(tb, n, &grid);
-  return err == cudaSuccess ? grid : -static_cast<int>(err);
+  const int err = by_log2n(n, FusedGrid{tb, &grid});
+  return err == 0 ? grid : -err;
 }
 
 const char* unpacked_error_string(int err) {

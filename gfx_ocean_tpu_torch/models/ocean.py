@@ -156,9 +156,9 @@ def make_rollout(config: OceanConfig, keep_fields: bool = True, time_batch: int 
     when ``compute_foam``), which keeps the output O(steps). Frames run
     ``time_batch`` at a time as one batch axis; ``len(ts)`` must be a
     multiple of it. On the "pallas" route without foam the checksum is
-    reduced from the plane-major planes: by the fused kernels' checksum
-    pass (K1's, or K3's above 512), or, unpacked, by
-    ``checksums_of_planes``; foam needs the channel-last fields, so it
+    reduced from the plane-major planes by the fused kernels' checksum
+    pass (behind K1, K4 or K6, or K3's above 512; on CPU tensors by
+    ``checksums_of_planes``); foam needs the channel-last fields, so it
     takes the fields' sums, as in the JAX package. The checksums stay on
     the state's device.
     """

@@ -31,18 +31,21 @@ Two implementations sit side by side:
   cost ~2 TFLOP a frame at 4096^2; the factored tables ~0.1.
 - ``launch_fourstep_row`` / ``launch_fourstep_col``: the hand-written CUDA
   kernels of ``csrc/fourstep_step.cu`` (K2 a register-resident radix-8
-  FFT a row; K3 radix-4 FFTs in shared memory, the column transform split
-  128 x N/128 with one device-memory round trip).
+  FFT a row; K3 the column transform split 128 x N/128, each stage
+  register-resident passes of 32-column bands, with one device-memory round
+  trip between them).
 
 ``fourstep_planes`` / ``fourstep_checksums`` pick by where the tensors lie:
 CPU tensors take the plain version, CUDA tensors launch the kernels or
-raise. Nothing falls back. N = 16384 raises ``NotImplementedError``: K2's
-row of 4 N floats does not fit one block's shared memory there.
+raise. Nothing falls back. N = 16384 raises ``NotImplementedError``: K2
+runs N / 8 threads a row, 2,048 there, past a block's 1,024 (K3 builds at
+N = 16384).
 
 What bounds K2 + K3 on the H100 at 4096^2 (tb = 1): ~1.5 GB of device
 memory traffic a frame (the 201 MB state, Y and the column pass's scratch
-each written and read once, the planes written and read by the checksum)
-against ~5 GFLOP, so bandwidth; ``PERF.md`` has the measured split.
+each written and read once, the planes written, the height read again by
+the checksum) against ~5 GFLOP, so bandwidth; ``PERF.md`` has the measured
+split.
 """
 
 from __future__ import annotations
@@ -63,7 +66,7 @@ from gfx_ocean_tpu_torch.ops.propagate import (_f32, as_times, gather_packed_pla
                                                packed_spectra)
 
 MIN_N = 1024
-# Largest N the kernels take; 16384 is ROADMAP.md queue 2, "K2 + K3 at 16384".
+# Largest N the step takes (K2's limit); 16384 is ROADMAP.md queue 2, "K2 at 16384".
 MAX_KERNEL_N = 8192
 # Rows of the output reduced by one block of the checksum kernel.
 CHECKSUM_ROWS = 4
@@ -102,8 +105,8 @@ def check_supported(config: OceanConfig, n: int) -> str:
     if n > MAX_KERNEL_N:
         raise NotImplementedError(
             f"N={n} > {MAX_KERNEL_N} on the four-step route is not ported yet: "
-            "K2's row does not fit one block's shared memory "
-            "(ROADMAP.md queue 2, K2 + K3 at 16384)")
+            "K2 runs N / 8 threads a row, more than a block's 1,024 "
+            "(ROADMAP.md queue 2, K2 at 16384)")
     return effective_precision(config.matmul_precision)
 
 
@@ -324,9 +327,12 @@ def launch_fourstep_col(y: torch.Tensor, twiddle: torch.Tensor, config: OceanCon
                         checksum: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch K3 on the current stream: Y (tb, 2, 2, N, C) -> ``(planes,
     partials)``, planes (tb, 3, N, C) and, when ``checksum`` (C = N), the
-    per-block checksum partials (tb, N / CHECKSUM_ROWS), else None.
+    per-block checksum partials, else None: (tb, P + Q), the second stage's
+    P = (N / 128) (C / COL_BAND) sums of the planes and, when the config
+    computes normals, the Q = N / CHECKSUM_ROWS sums of the normals' terms.
+    The caller sums them over the last axis.
 
-    The kernel's first stage writes a scratch shaped like Y. Adds one to
+    The kernel's first stage writes a scratch as large as Y. Adds one to
     ``launch_fourstep_col.launches`` per launch."""
     from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
 
@@ -345,9 +351,10 @@ def launch_fourstep_col(y: torch.Tensor, twiddle: torch.Tensor, config: OceanCon
     _check_tensor("twiddle", twiddle, (2, n // 2), dev)
     scratch = torch.empty_like(y)
     planes = torch.empty((tb, 3, n, c), dtype=torch.float32, device=dev)
-    partials = (torch.empty((tb, n // CHECKSUM_ROWS), dtype=torch.float32, device=dev)
-                if checksum else None)
     nscale = normals_scale(config)
+    n_partials = (n // 128) * (c // COL_BAND) + (n // CHECKSUM_ROWS if nscale is not None else 0)
+    partials = (torch.empty((tb, n_partials), dtype=torch.float32, device=dev)
+                if checksum else None)
     lib = kernels.load("fourstep_step")
     err = lib.fourstep_col(
         y.data_ptr(), scratch.data_ptr(), twiddle.data_ptr(), tb, n, c,

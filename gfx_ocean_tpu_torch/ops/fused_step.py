@@ -213,9 +213,9 @@ def packed_checksums(inputs: FusedInputs, ts, config: OceanConfig) -> torch.Tens
     """Checksums (tb,) for ts (tb,): K1, K4-K6 or K2 + K3 by the type of
     the hoisted inputs; the kernels on CUDA, the plain version on CPU.
 
-    On CUDA the per-block partials of K1 and K3 are summed outside the
-    kernel by ``torch.sum``, in an order fixed by their shape (no float
-    atomics); the unpacked route reduces its planes outside its kernels.
+    On CUDA the per-block partials of K1, K3 and the unpacked route's
+    checksum kernel are summed outside the kernels by ``torch.sum``, in an
+    order fixed by their shape (no float atomics).
     """
     if isinstance(inputs, FourstepInputs):
         return fourstep_step.fourstep_checksums(inputs, ts, config)

@@ -21,8 +21,10 @@ The route is ``pallas_planes``'s predicate (``unpacked_route``): the single
 kernel K4 unless ``matmul_precision == "highest"`` and N > 256, where
 K5 + K6 run. Both routes return (3, N, N) planes and (N, N, 3) fields; the
 JAX blocked route's channel-last planes (fault F2, ``ROADMAP.md`` queue 3)
-are not carried. The checksum has no kernel, as in ``pallas_checksums``:
-``ops/derived.checksums_of_planes`` reduces the planes.
+are not carried. ``pallas_checksums`` reduces this route's planes outside its
+kernels; here the checksum runs on the card behind K4 or K6, as K1's does
+(``ocean::checksum_partials``: per-block partials, summed by the caller),
+and ``ops/derived.checksums_of_planes`` serves CPU tensors only.
 
 Two implementations sit side by side:
 
@@ -32,9 +34,11 @@ Two implementations sit side by side:
   device, and only this version reads it).
 - ``launch_unpacked_step`` (K4), ``launch_unpacked_rows`` (K5),
   ``launch_unpacked_cols`` (K6): the hand-written CUDA kernels of
-  ``csrc/unpacked_step.cu`` (K1's radix-2 Stockham FFT in shared memory; K4
-  is one cooperative launch of a persistent grid that runs K5's and K6's
-  device functions with one grid sync between them).
+  ``csrc/unpacked_step.cu`` (register-resident radix-8 FFT passes,
+  ``csrc/fft_reg.cuh``, 8 rows or 8 columns a block; K4 is one cooperative
+  launch of a persistent grid that runs K5's and K6's device functions with
+  one grid sync between them). ``launch_unpacked_step_checksums`` and
+  ``launch_unpacked_cols_checksums`` launch the checksum kernel behind them.
 
 ``unpacked_planes`` / ``unpacked_checksums`` pick by where the tensors lie:
 CPU tensors take the plain version, CUDA tensors launch the kernels or
@@ -42,24 +46,24 @@ raise. Nothing falls back.
 
 What bounds the kernels on the H100 at 512^2: a frame reads 3 MB of inputs
 (once a call), writes and rereads 6 MB of Y and writes 3 MB of planes,
-against ~71 MFLOP of FFT, so bandwidth and the barriers between FFT stages,
-not arithmetic (``PERF.md`` has the measured split).
+against ~71 MFLOP of FFT, so bytes and latency, not arithmetic (``PERF.md``
+has the measured times).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from gfx_ocean_tpu_torch.config import OceanConfig
-from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes
+from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, normals_scale
 from gfx_ocean_tpu_torch.ops.fft import (_dft_matrix_out_alt_np, effective_precision,
                                          pin_fp32_matmul, twiddle_table)
-from gfx_ocean_tpu_torch.ops.fourstep_step import _check_tensor
+from gfx_ocean_tpu_torch.ops.fourstep_step import CHECKSUM_ROWS, _check_tensor
 from gfx_ocean_tpu_torch.ops.propagate import _f32, _phase_mod_2pi, as_times
 
 MAX_N = 512
@@ -223,9 +227,25 @@ def launch_unpacked_rows(inputs: UnpackedInputs, ts, config: OceanConfig) -> tor
 launch_unpacked_rows.launches = 0
 
 
-def launch_unpacked_cols(y: torch.Tensor, inputs: UnpackedInputs) -> torch.Tensor:
-    """Launch K6 on the current stream: Y (tb, 3, 2, N, N) -> planes
-    (tb, 3, N, N). Adds one to ``launch_unpacked_cols.launches`` per launch."""
+def _checksum_args(config: Optional[OceanConfig], tb: int, n: int, dev) -> tuple:
+    """(partials or None, the C entry points' checksum arguments): per-block
+    partials (tb, N / CHECKSUM_ROWS) when ``config`` is given, else none."""
+    if config is None:
+        return None, (None, CHECKSUM_ROWS, 0.0, 0)
+    partials = torch.empty((tb, n // CHECKSUM_ROWS), dtype=torch.float32, device=dev)
+    nscale = normals_scale(config)
+    return partials, (partials.data_ptr(), CHECKSUM_ROWS,
+                      nscale if nscale is not None else 0.0, int(nscale is not None))
+
+
+def launch_unpacked_cols_checksums(
+        y: torch.Tensor, inputs: UnpackedInputs,
+        config: Optional[OceanConfig]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch K6 on the current stream and, given a config, the checksum
+    kernel behind it: Y (tb, 3, 2, N, N) -> ``(planes, partials)``, planes
+    (tb, 3, N, N) and the per-block checksum partials
+    (tb, N / CHECKSUM_ROWS), or None without a config. Adds one to
+    ``launch_unpacked_cols.launches`` per launch."""
     from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
 
     n = _checked(inputs, "launch_unpacked_cols")
@@ -235,21 +255,31 @@ def launch_unpacked_cols(y: torch.Tensor, inputs: UnpackedInputs) -> torch.Tenso
     tb = y.shape[0]
     _check_tensor("y", y, (tb, 3, 2, n, n), dev)
     planes = torch.empty((tb, 3, n, n), dtype=torch.float32, device=dev)
+    partials, ck_args = _checksum_args(config, tb, n, dev)
     lib = kernels.load("unpacked_step")
     err = lib.unpacked_cols(y.data_ptr(), inputs.twiddle.data_ptr(), tb, n, planes.data_ptr(),
-                            _stream(dev))
+                            *ck_args, _stream(dev))
     _raise_on_error(lib, err, "K6 (unpacked_cols)")
     launch_unpacked_cols.launches += 1
-    return planes
+    return planes, partials
+
+
+def launch_unpacked_cols(y: torch.Tensor, inputs: UnpackedInputs) -> torch.Tensor:
+    """K6 alone: Y (tb, 3, 2, N, N) -> planes (tb, 3, N, N)."""
+    return launch_unpacked_cols_checksums(y, inputs, None)[0]
 
 
 launch_unpacked_cols.launches = 0
 
 
-def launch_unpacked_step(inputs: UnpackedInputs, ts, config: OceanConfig) -> torch.Tensor:
-    """Launch K4 on the current stream: ts (tb,) -> planes (tb, 3, N, N) in
-    one cooperative launch (Y is its scratch). Adds one to
-    ``launch_unpacked_step.launches`` per launch."""
+def launch_unpacked_step_checksums(
+        inputs: UnpackedInputs, ts, config: OceanConfig,
+        checksum: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch K4 on the current stream and, when ``checksum``, the checksum
+    kernel behind it: ts (tb,) -> ``(planes, partials)``, planes
+    (tb, 3, N, N) from one cooperative launch (Y is its scratch) and the
+    per-block checksum partials (tb, N / CHECKSUM_ROWS), or None. Adds one
+    to ``launch_unpacked_step.launches`` per launch."""
     from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
 
     n = _checked(inputs, "launch_unpacked_step")
@@ -259,12 +289,18 @@ def launch_unpacked_step(inputs: UnpackedInputs, ts, config: OceanConfig) -> tor
     tb = ts.shape[0]
     y = torch.empty((tb, 3, 2, n, n), dtype=torch.float32, device=dev)
     planes = torch.empty((tb, 3, n, n), dtype=torch.float32, device=dev)
+    partials, ck_args = _checksum_args(config if checksum else None, tb, n, dev)
     lib = kernels.load("unpacked_step")
     err = lib.unpacked_step(*_propagate_args(inputs, ts, config), y.data_ptr(),
-                            planes.data_ptr(), _stream(dev))
+                            planes.data_ptr(), *ck_args, _stream(dev))
     _raise_on_error(lib, err, "K4 (unpacked_step)")
     launch_unpacked_step.launches += 1
-    return planes
+    return planes, partials
+
+
+def launch_unpacked_step(inputs: UnpackedInputs, ts, config: OceanConfig) -> torch.Tensor:
+    """K4 alone: ts (tb,) -> planes (tb, 3, N, N)."""
+    return launch_unpacked_step_checksums(inputs, ts, config, checksum=False)[0]
 
 
 launch_unpacked_step.launches = 0
@@ -281,7 +317,15 @@ def unpacked_planes(inputs: UnpackedInputs, ts, config: OceanConfig) -> torch.Te
 
 
 def unpacked_checksums(inputs: UnpackedInputs, ts, config: OceanConfig) -> torch.Tensor:
-    """Checksums (tb,) for ts (tb,): ``checksums_of_planes`` of
-    :func:`unpacked_planes`, as ``pallas_checksums`` reduces this route
-    outside its kernels."""
-    return checksums_of_planes(unpacked_planes(inputs, ts, config), config)
+    """Checksums (tb,) for ts (tb,). On CUDA the checksum kernel runs behind
+    K4 (or K6 on the blocked route) and its per-block partials are summed by
+    ``torch.sum``, in an order fixed by their shape; on CPU
+    ``checksums_of_planes`` of the plain version's planes."""
+    if not inputs.omega.is_cuda:
+        return checksums_of_planes(unpacked_planes_reference(inputs, ts, config), config)
+    if unpacked_route(config, inputs.omega.shape[-1]) == "single":
+        partials = launch_unpacked_step_checksums(inputs, ts, config)[1]
+    else:
+        partials = launch_unpacked_cols_checksums(launch_unpacked_rows(inputs, ts, config),
+                                                  inputs, config)[1]
+    return partials.sum(dim=-1)

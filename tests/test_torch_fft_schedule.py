@@ -1,6 +1,6 @@
-"""A numpy emulation of the register-resident FFT passes of K1 and K2
-(``gfx_ocean_tpu_torch/csrc/fft_reg.cuh``, ``packed_step.cu``,
-``fourstep_step.cu``), run here where there is no card.
+"""A numpy emulation of the register-resident FFT passes of K1, K2, K3 and
+K4-K6 (``gfx_ocean_tpu_torch/csrc/fft_reg.cuh``, ``packed_step.cu``,
+``fourstep_step.cu``, ``unpacked_step.cu``), run here where there is no card.
 
 The emulation repeats the CUDA code's per-thread arithmetic, vectorized
 over the threads of one block: which points a thread holds (the pass's
@@ -15,6 +15,12 @@ shared-memory address of every exchange, and the output index with its
 - every warp-wide shared-memory access of every exchange touches 32
   distinct banks (or as many as the warp has threads), i.e. no bank
   conflicts, and the padded addresses of a block never collide.
+
+K3's two stages (a 128-point and an N / 128-point transform with the lanes
+of a warp over 32 columns, twiddles read at a stride from the N-point
+table) are also chained as the kernels chain them, through the sign, the
+twiddle e^{2 pi i n1 m2 / N} and the scratch's layout, against the N-point
+``numpy.fft`` of the column.
 """
 
 from __future__ import annotations
@@ -28,6 +34,11 @@ K1_LOG2RM = 3   # K1: radix 8 (csrc/packed_step.cu, kLog2Radix)
 K2_LOG2RM = 3   # K2: radix 8 (csrc/fourstep_step.cu, kLog2Radix)
 K1_ROW_THREADS = 128  # K1 row pass: threads a block (rows_per_block * T)
 K1_COL_COLS = 8       # K1 column pass: columns a block
+K4_SEQS = 8           # K4-K6: rows a row item, columns a column item (kSeqs)
+K3_COLS = 32          # K3: columns a block (kColCols)
+K3_LOG2N1 = 7         # K3: the column split N = 128 * N2
+K3_THREADS = 512      # K3: threads a block of either stage
+SMEM_LIMIT = 232448   # bytes of shared memory one block can use on the H100
 WARP = 32
 BANKS = 32
 
@@ -53,10 +64,12 @@ def pad(a, p: int, log2n: int, log2rm: int, log2w: int):
 
 
 def twiddle(tw: np.ndarray, m, n: int):
-    """RegFft::twiddle: e^{+2 pi i m / n} from the (2, n/2) table, m < n."""
+    """RegFft::twiddle: e^{+2 pi i m / n}, m < n, from the (2, n_tw / 2)
+    table of a transform of n_tw >= n points, read at the stride n_tw / n."""
     half = n // 2
+    stride = 2 * tw.shape[1] // n
     lo = m < half
-    mm = np.where(lo, m, m - half)
+    mm = np.where(lo, m, m - half) * stride
     sg = np.where(lo, 1.0, -1.0)
     return sg * (tw[0, mm].astype(np.float64) + 1j * tw[1, mm].astype(np.float64))
 
@@ -77,8 +90,9 @@ class Layout:
         n, rm = 1 << log2n, 1 << log2rm
         self.t = n // rm                      # threads a sequence
         self.length = n + n // rm             # padded sequence length (kLen)
-        if kind == "rows":                    # K1's row pass, K2 (one row a block)
-            rows = 1 if log2n >= 10 else min(n, max(1, K1_ROW_THREADS // self.t))
+        if kind in ("rows", "k4rows"):        # K1's row pass, K2 (one row a block), K4 / K5
+            rows = (K4_SEQS if kind == "k4rows"
+                    else 1 if log2n >= 10 else min(n, max(1, K1_ROW_THREADS // self.t)))
             threads = rows * self.t
             self.log2w = min(self.t, WARP).bit_length() - 1
             # row stride: an odd multiple of T mod 32 when a warp spans rows
@@ -89,7 +103,19 @@ class Layout:
             self.nseq = rows
             self.addr = lambda seq, a: seq * self.stride + a
             self.size = rows * self.stride
-        else:                                 # K1's column pass: C columns a block
+        elif kind == "k3":                    # K3: lanes over 32 columns, then tid, then n1
+            c = K3_COLS
+            threads = K3_THREADS
+            groups = threads // (c * self.t)
+            self.length = n                   # LOG2W = 0: no padding
+            self.log2w = 0
+            th = np.arange(threads)
+            grp = th // (c * self.t)
+            self.seq, self.tid = grp * c + th % c, (th // c) % self.t
+            self.nseq = groups * c
+            self.addr = lambda seq, a: ((seq // c) * n + a) * c + seq % c
+            self.size = groups * n * c
+        else:                                 # K1's and K4 / K6's column pass: C columns a block
             c = K1_COL_COLS
             threads = c * self.t
             self.log2w = min(self.t, WARP // c).bit_length() - 1
@@ -110,14 +136,17 @@ def _conflict(addr: np.ndarray, threads: int) -> int:
     return worst
 
 
-def emulate(kind: str, log2n: int, log2rm: int, x: np.ndarray):
-    """Run the passes on x (nseq, n) as the block's threads do. Returns
+def emulate(kind: str, log2n: int, log2rm: int, x: np.ndarray, log2tw: int = 0,
+            alternate: bool = True):
+    """Run the passes on x (nseq, n) as the block's threads do, with the
+    twiddles of a 2^log2tw-point table (default: the transform's own) and
+    the output sign (-1)^x unless ``alternate`` is off. Returns
     (y (nseq, n), worst bank conflict of any exchange access, max padded
     index, whether the block's addresses of each exchange were distinct)."""
     n, rm = 1 << log2n, 1 << log2rm
     lay = Layout(kind, log2n, log2rm)
     t = lay.t
-    tw = twiddle_table(n, "cpu").numpy()
+    tw = twiddle_table(max(n, 1 << log2tw), "cpu").numpy()
     seq, tid = lay.seq, lay.tid
     # first pass: point k of thread tid at x = tid + k T, from the propagate
     v = np.stack([x[seq, tid + k * t] for k in range(rm)], axis=1).astype(np.complex128)
@@ -166,13 +195,15 @@ def emulate(kind: str, log2n: int, log2rm: int, x: np.ndarray):
     for u in range(rm // rl):
         for k in range(rl):
             xo = tid + u * t + k * (n // rl)
-            y[seq, xo] = np.where(xo & 1, -1.0, 1.0) * v[:, u * rl + k]
+            y[seq, xo] = (np.where(xo & 1, -1.0, 1.0) if alternate else 1.0) * v[:, u * rl + k]
     return y, worst, max_index, injective
 
 
 CASES = ([("K1 rows", "rows", ln, K1_LOG2RM) for ln in range(4, 10)]
          + [("K1 cols", "cols", ln, K1_LOG2RM) for ln in range(4, 10)]
-         + [("K2", "rows", ln, K2_LOG2RM) for ln in range(10, 14)])
+         + [("K2", "rows", ln, K2_LOG2RM) for ln in range(10, 14)]
+         + [("K4 rows", "k4rows", ln, K1_LOG2RM) for ln in range(4, 10)]
+         + [("K4 cols", "cols", ln, K1_LOG2RM) for ln in range(4, 10)])
 
 
 @pytest.mark.parametrize("kind,log2n,log2rm", [c[1:] for c in CASES],
@@ -199,3 +230,87 @@ def test_plans(log2n, log2rm, radices):
     where log2 N needs it."""
     got = [1 << log2r(log2n, log2rm, p) for p in range(passes(log2n, log2rm))]
     assert got == radices and np.prod(got) == 1 << log2n
+
+
+@pytest.mark.parametrize("log2n", range(4, 10), ids=lambda ln: f"K4-{1 << ln}")
+@pytest.mark.parametrize("planes", [4, 6], ids=["disp_z-then-two", "three-together"])
+def test_unpacked_items_fit_shared_memory(log2n, planes):
+    """K4's one block shape, 8 N / 8 threads: the row item's buffer (the
+    planes of the spectra transformed together: 4 when disp_z goes first on
+    its own, 6 with all three at once) and the column item's (re, im of one
+    spectrum) fit a block; with disp_z first two blocks' buffers fit a SM,
+    so shared memory never caps the blocks a SM below the registers' cap."""
+    rows, cols = Layout("k4rows", log2n, K1_LOG2RM), Layout("cols", log2n, K1_LOG2RM)
+    assert rows.threads == cols.threads == min(K4_SEQS << log2n >> K1_LOG2RM, 512)
+    row_bytes = planes * rows.size * 4
+    col_bytes = 2 * cols.size * 4
+    assert max(row_bytes, col_bytes) <= SMEM_LIMIT
+    if planes == 4:
+        assert 2 * max(row_bytes, col_bytes) <= SMEM_LIMIT
+
+
+def _k3_column_band(log2n: int, y: np.ndarray, sign: float):
+    """K3's two stages on one band y (N, 32) of one spectrum, as the kernels
+    chain them. Returns (out (N, 32), worst bank conflict)."""
+    n, n1, log2n2 = 1 << log2n, 1 << K3_LOG2N1, log2n - K3_LOG2N1
+    n2 = 1 << log2n2
+    tw = twiddle_table(n, "cpu").numpy()
+    worst = 1
+    # stage 1: a block per m2, sequences over m1 at rows N2 m1 + m2; writes
+    # B[n1][m2][c] with the sign (-1)^n1 and the twiddle e^{2 pi i n1 m2 / N}
+    b = np.empty((n1, n2, K3_COLS), np.complex128)
+    idx = np.arange(n1)
+    for m2 in range(n2):
+        a, w, _, inj = emulate("k3", K3_LOG2N1, K1_LOG2RM, y[m2::n2].T, log2tw=log2n,
+                               alternate=False)
+        assert inj
+        worst = max(worst, w)
+        sg = np.where(idx & 1, -sign, sign)
+        b[:, m2, :] = (a * (sg * twiddle(tw, idx * m2, n))).T
+    # stage 2: a block per group of adjacent n1, sequences over m2; writes
+    # rows n1 + 128 k2
+    lay = Layout("k3", log2n2, K1_LOG2RM)
+    groups = lay.nseq // K3_COLS
+    assert groups * lay.t == n1 >> K1_LOG2RM and groups * n2 == n1
+    out = np.empty((n, K3_COLS), np.complex128)
+    for g0 in range(0, n1, groups):
+        x = b[g0:g0 + groups].transpose(0, 2, 1).reshape(groups * K3_COLS, n2)
+        o, w, _, inj = emulate("k3", log2n2, K1_LOG2RM, x, log2tw=log2n, alternate=False)
+        assert inj
+        worst = max(worst, w)
+        o = o.reshape(groups, K3_COLS, n2)
+        for g in range(groups):
+            out[g0 + g::n1] = o[g].T
+    return out, worst
+
+
+@pytest.mark.parametrize("log2n", range(10, 15), ids=lambda ln: f"K3-{1 << ln}")
+def test_k3_stages_chain_to_the_column_transform(log2n):
+    """Stage 1 (128 points, radix 8 x 8 x 2) and stage 2 (N / 128 = 8 ... 128
+    points; one thread a column and no exchange at 8) with their strided
+    twiddles, chained through the scratch: (-1)^n sign sum_m y[m]
+    e^{+2 pi i n m / N}, without bank conflicts."""
+    n = 1 << log2n
+    rng = np.random.default_rng(log2n)
+    y = rng.standard_normal((n, K3_COLS)) + 1j * rng.standard_normal((n, K3_COLS))
+    for sign in (1.0, -1.0):
+        out, worst = _k3_column_band(log2n, y, sign)
+        want = (sign * np.where(np.arange(n) & 1, -1.0, 1.0))[:, None] * (n * np.fft.ifft(y, axis=0))
+        assert np.abs(out - want).max() <= 1e-6 * np.abs(want).max()
+        assert worst == 1, f"{worst}-way bank conflict"
+
+
+@pytest.mark.parametrize("log2n2", range(3, 8), ids=lambda ln: f"N2-{1 << ln}")
+def test_k3_stage2_alone_equals_numpy_fft(log2n2):
+    """The N2-point stage alone, lanes over 32 columns and 16 / (N2 / 8)
+    adjacent n1 a block, with the twiddles of the 128 N2-point table."""
+    n2 = 1 << log2n2
+    lay = Layout("k3", log2n2, K1_LOG2RM)
+    assert lay.threads == K3_THREADS and lay.size * 4 * 4 <= SMEM_LIMIT // 2
+    rng = np.random.default_rng(log2n2)
+    x = rng.standard_normal((lay.nseq, n2)) + 1j * rng.standard_normal((lay.nseq, n2))
+    y, worst, _, injective = emulate("k3", log2n2, K1_LOG2RM, x, log2tw=log2n2 + K3_LOG2N1,
+                                     alternate=False)
+    want = n2 * np.fft.ifft(x, axis=-1)
+    assert np.abs(y - want).max() <= 1e-6 * np.abs(want).max()
+    assert worst == 1 and injective

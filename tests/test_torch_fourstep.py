@@ -27,8 +27,9 @@ import torch
 import gfx_ocean_tpu as J
 import gfx_ocean_tpu.ops.pallas_step as ps
 import gfx_ocean_tpu_torch as T
-from gfx_ocean_tpu.golden.reference import golden_fields
+from gfx_ocean_tpu.golden.reference import golden_fields, golden_normals
 from gfx_ocean_tpu.ops import fft as jfft
+from gfx_ocean_tpu.ops.derived import finite_difference_normals as jax_normals
 from gfx_ocean_tpu_torch.models.ocean import state_from_numpy
 from gfx_ocean_tpu_torch.ops import fft as tfft
 from gfx_ocean_tpu_torch.ops import fourstep_step as fs
@@ -212,6 +213,40 @@ def test_fused_matches_pallas_and_golden(n, precision):
     scale = _summands(fused_step.packed_planes(inputs, ts, tc), tc)
     tol = CHECKSUM_TOL if precision == "highest" else TOL[precision]
     assert np.all(np.abs(got_ck.numpy() - want_ck) < tol * scale)
+
+
+@pytest.mark.parametrize("n", [1024, 2048])
+def test_normals_are_as_far_from_golden_as_the_jax_package(n):
+    """Where the four-step normals' distance to golden comes from. The port's
+    normals, the JAX package's (its pallas planes in interpret mode through
+    its own ``finite_difference_normals``) and ``golden_normals`` on one
+    state: both float32 implementations sit equally far from golden
+    (measured 8.8e-5 and 8.4e-5 at 1024^2, 1.6e-4 and 1.4e-4 at 2048^2) and
+    about as far from each other, and that distance is their float32 height
+    error (~2.5e-5 of a height of ~35) amplified by the central difference
+    over a 2 / N texel: |dn| <= |dh| N / height_scale. It doubles with N, so
+    it is no fault of K2 / K3's path."""
+    h0, om = _state(n, 11)
+    jc, tc = _configs(n, domain_size=2000.0)
+    t = 11.25
+    port = T.make_step(tc)(state_from_numpy(h0, om, device="cpu"), t)
+    jax_height = _pallas_planes(h0, om, t, jc)[1]
+    jax_n = np.asarray(jax_normals(jnp.asarray(jax_height), jc.normal_height_scale))
+    gold_height = golden_fields(h0[0] + 1j * h0[1], om, t, 2000.0, jc.compat)[..., 1]
+    gold_n = golden_normals(gold_height, jc.normal_height_scale)
+    port_n = port.normals.numpy()
+    port_err = float(np.abs(port_n - gold_n).max())
+    jax_err = float(np.abs(jax_n - gold_n).max())
+    assert 5e-5 < port_err < 1.5 * jax_err and jax_err < 1.5 * port_err
+    assert float(np.abs(port_n - jax_n).max()) < 1.5 * max(port_err, jax_err)
+    amplification = n / jc.normal_height_scale
+    port_dh = float(np.abs(port.displacement.numpy()[..., 1] - gold_height).max())
+    jax_dh = float(np.abs(jax_height - gold_height).max())
+    assert port_err <= port_dh * amplification and jax_err <= jax_dh * amplification
+    # golden's own height rounded to float32 moves its normals by a fifth of that
+    rounded = golden_normals(gold_height.astype(np.float32).astype(np.float64),
+                             jc.normal_height_scale)
+    assert float(np.abs(rounded - gold_n).max()) < 0.3 * port_err
 
 
 def test_unpacked_pallas_config_runs_fourstep_as_jax_does():

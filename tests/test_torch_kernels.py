@@ -12,6 +12,7 @@ no jax it runs on its own:
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import os
 import subprocess
@@ -199,6 +200,40 @@ def test_fourstep_frames_identical_for_every_time_batch(cuda, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1024, 4096])
+def test_fourstep_col_on_a_column_band(cuda, n):
+    """K3 on C < N columns (no checksum): 96 columns, three of its 32-column
+    bands, equal the same columns of the whole pass bit for bit and match
+    the plain version."""
+    cfg, inputs = _fourstep_inputs(n, CompatFlags(), cuda)
+    y = fs.launch_fourstep_row(inputs, [11.25, 1000.0], cfg)
+    whole, _ = fs.launch_fourstep_col(y, inputs.twiddle, cfg, checksum=False)
+    band = y[..., 160:256].contiguous()
+    got, partials = fs.launch_fourstep_col(band, inputs.twiddle, cfg, checksum=False)
+    assert partials is None and got.shape == (2, 3, n, 96)
+    assert torch.equal(got, whole[..., 160:256])
+    assert _rel(got, fs.fourstep_col_reference(band, cfg)) < TOL_PLANES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normals", [True, False], ids=["normals", "no-normals"])
+def test_fourstep_checksum_partials(cuda, normals):
+    """K3's partials: one a block of its second stage (the planes' sums),
+    then one a block of the normals' pass when the config computes normals."""
+    n = 1024
+    cfg, inputs = _fourstep_inputs(n, CompatFlags(), cuda)
+    cfg = dataclasses.replace(cfg, compute_normals=normals)
+    ts = torch.tensor([3.25, 1000.0], device=cuda)
+    planes, partials = fs.launch_fourstep_step(inputs, ts, cfg, checksum=True)
+    stage2 = (n // 128) * (n // fs.COL_BAND)
+    assert partials.shape == (2, stage2 + (n // fs.CHECKSUM_ROWS if normals else 0))
+    summands = planes.abs().sum(dim=(-3, -2, -1))
+    assert float(((partials[:, :stage2].sum(-1) - planes.sum(dim=(-3, -2, -1))).abs()
+                  / summands).max()) < TOL_CHECKSUM
+    assert _checksum_rel(partials.sum(-1), planes, cfg) < TOL_CHECKSUM
+
+
+@pytest.mark.cuda
 def test_fourstep_counts_launches_and_rejects_bad_inputs(cuda):
     cfg, inputs = _fourstep_inputs(1024, CompatFlags(), cuda)
     rows, cols = fs.launch_fourstep_row.launches, fs.launch_fourstep_col.launches
@@ -252,8 +287,10 @@ def _unpacked_inputs(n: int, flags: CompatFlags, device, precision: str = "bf16x
 
 def _checksum_rel(got_ck: torch.Tensor, want: torch.Tensor, cfg) -> float:
     want_ck = fused_step.checksums_of_planes(want, cfg)
-    summands = (want.abs().sum(dim=(-3, -2, -1))
-                + finite_difference_normals_planes(want[:, 1]).abs().sum(dim=(-3, -2, -1)))
+    summands = want.abs().sum(dim=(-3, -2, -1))
+    if cfg.compute_normals:
+        summands = summands + finite_difference_normals_planes(want[:, 1]).abs().sum(
+            dim=(-3, -2, -1))
     return float(((got_ck - want_ck).abs() / summands).max())
 
 
@@ -297,6 +334,27 @@ def test_unpacked_blocked_kernels_match_plain(cuda, n):
         assert _checksum_rel(fused_step.packed_checksums(inputs, ts, cfg), want, cfg) < TOL_CHECKSUM
         assert (us.launch_unpacked_rows.launches, us.launch_unpacked_cols.launches,
                 us.launch_unpacked_step.launches) == (k5 + 2, k6 + 2, k4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["k4", "k5+k6"])
+@pytest.mark.parametrize("n", [16, 64, 512])
+def test_unpacked_checksum_kernel_matches_plain(cuda, n, route):
+    """The checksum kernel behind K4 and behind K6 (fed K5's Y) against
+    ``checksums_of_planes`` of the plain planes, with and without normals;
+    the planes equal those of the launch without a checksum."""
+    cfg, inputs = _unpacked_inputs(n, CompatFlags(), cuda)
+    ts = torch.tensor([0.0, 3.25, 11.25, 1000.0], device=cuda)
+    want = us.unpacked_planes_reference(inputs, ts, cfg)
+    for c in (cfg, dataclasses.replace(cfg, compute_normals=False)):
+        if route == "k4":
+            planes, partials = us.launch_unpacked_step_checksums(inputs, ts, c)
+        else:
+            planes, partials = us.launch_unpacked_cols_checksums(
+                us.launch_unpacked_rows(inputs, ts, c), inputs, c)
+        assert partials.shape == (4, n // fs.CHECKSUM_ROWS)
+        assert torch.equal(planes, us.launch_unpacked_step(inputs, ts, c))
+        assert _checksum_rel(partials.sum(-1), want, c) < TOL_CHECKSUM
 
 
 @pytest.mark.cuda

@@ -265,6 +265,61 @@ def test_cpu_tensors_take_the_plain_version():
                       us.launch_unpacked_cols.launches)
 
 
+@pytest.mark.parametrize("precision,route", [("bf16x3", "single"), ("highest", "blocked")])
+def test_checksums_dispatch_on_the_tensors_device(precision, route, monkeypatch):
+    """``unpacked_checksums`` picks by where the tensors lie. CPU tensors:
+    ``checksums_of_planes`` of the plain version. CUDA tensors: the checksum
+    kernel's partials behind K4 (single route) or behind K6 fed by K5
+    (blocked), summed, and ``checksums_of_planes`` is not called. The
+    launchers are stood in for here (a CUDA kernel has no CPU mode): each
+    returns the plain version's planes and their row sums as partials."""
+    n = 512 if route == "blocked" else 64
+    h0, om = _state(n, 10)
+    _, tc = _configs(n, precision)
+    inputs = _hoist(h0, om, tc)
+    assert us.unpacked_route(tc, n) == route
+    ts = [1.0, 2.5]
+    want = fused_step.checksums_of_planes(us.unpacked_planes_reference(inputs, ts, tc), tc)
+    assert torch.equal(us.unpacked_checksums(inputs, ts, tc), want)
+
+    calls = []
+
+    def partials_of(planes):
+        normals = finite_difference_normals_planes(planes[:, 1], tc.normal_height_scale)
+        return planes.sum(dim=(1, 3)) + normals.sum(dim=(1, 3))
+
+    def fake_step(inp, tt, cfg):
+        calls.append("k4")
+        planes = us.unpacked_planes_reference(inputs, tt, cfg)
+        return planes, partials_of(planes)
+
+    def fake_rows(inp, tt, cfg):
+        calls.append("k5")
+        return us.unpacked_rows_reference(inputs, tt, cfg)
+
+    def fake_cols(y, inp, cfg):
+        calls.append("k6")
+        planes = us.unpacked_cols_reference(y, inputs)
+        return planes, partials_of(planes)
+
+    def no_plain_checksum(*args):
+        raise AssertionError("checksums_of_planes called on the CUDA branch")
+
+    class OnCard:
+        """Hoisted inputs that claim to lie on the card."""
+        omega = type("Omega", (), {"is_cuda": True, "shape": (n, n)})()
+
+    monkeypatch.setattr(us, "launch_unpacked_step_checksums", fake_step)
+    monkeypatch.setattr(us, "launch_unpacked_rows", fake_rows)
+    monkeypatch.setattr(us, "launch_unpacked_cols_checksums", fake_cols)
+    monkeypatch.setattr(us, "checksums_of_planes", no_plain_checksum)
+    got = us.unpacked_checksums(OnCard(), ts, tc)
+    assert calls == (["k4"] if route == "single" else ["k5", "k6"])
+    summands = (us.unpacked_planes_reference(inputs, ts, tc).abs().sum(dim=(-3, -2, -1))
+                + float(3 * n * n))
+    assert float(((got - want).abs() / summands).max()) < 1e-6
+
+
 def test_time_batch_frames_equal_single_frames():
     h0, om = _state(64, 7)
     _, tc = _configs(64, "highest")

@@ -1,20 +1,30 @@
 #!/usr/bin/env python3
-"""Launch-shape and register variants of the port's kernels K1 and K2,
-timed on one NVIDIA GPU.
+"""Launch-shape and register variants of the port's kernels K1-K4, timed
+on one NVIDIA GPU.
 
     python3 tools/torch_kernel_variants.py [variant ...]
 
-Each variant is ``gfx_ocean_tpu_torch/csrc/packed_step.cu`` (K1) or
-``fourstep_step.cu`` (K2) with a few source edits (the radix, the launch
-bounds, the block shape), built with the port's nvcc flags into
-``build/variants/`` and called through its C entry point on the main
-path's shapes: a 6-frame call at 512^2 (K1, with its checksum) and one
-4096^2 frame (K2), on Phillips states from a torch.Generator seeded 0.
+Each variant is ``gfx_ocean_tpu_torch/csrc/packed_step.cu`` (K1),
+``fourstep_step.cu`` (K2, K3) or ``unpacked_step.cu`` (K4) with a few
+source edits (the radix, the launch bounds, the block shape), built with
+the port's nvcc flags into ``build/variants/`` and called through its C
+entry point on the main path's shapes: a 6-frame call at 512^2 (K1 and K4,
+with their checksums) and one 4096^2 frame (K2; K3 on K2's Y, with its
+checksum), on Phillips states from a torch.Generator seeded 0.
 ``k1_unpaired`` computes every element's propagate in its own thread,
 without sharing the reads of a rho pair of rows. The
 ``*_loads_only`` variants cut the packed propagate to loads of the
 element's own h0 and omega: the time of the staging, passes and stores
-alone, so the propagate's share of the kernel. Names on the command line pick variants.
+alone, so the propagate's share of the kernel. ``k3_moves_only`` and
+``k4_moves_only`` drop the FFT passes and keep every load and store (K3's
+twiddle and K4's propagate stay): what the data movement alone costs.
+``k3_cols64`` runs 64-column bands (256 B a row, 1,024 threads a block),
+``k4_together`` the row item's three spectra in one set of passes (six
+planes a thread), ``*_two_blocks`` launch bounds for
+two 512-thread blocks a SM (64 registers a thread). ``k3_fast_checksum``
+swaps the checksum kernel's IEEE divisions and square root for a
+reciprocal and ``rsqrtf``: what its per-texel arithmetic costs. Names on the command line
+pick variants.
 Prints, per variant and repeat, one JSON line: the ptxas register / stack
 lines, the CUDA-event ms of a call, the device ms of the kernels' own
 launches (``chip_smoke.kernel_device_ms``; K1 per kernel) and the largest
@@ -43,6 +53,7 @@ import gfx_ocean_tpu_torch as ot  # noqa: E402
 from gfx_ocean_tpu_torch import kernels  # noqa: E402
 from gfx_ocean_tpu_torch.ops import fourstep_step as fs  # noqa: E402
 from gfx_ocean_tpu_torch.ops import fused_step  # noqa: E402
+from gfx_ocean_tpu_torch.ops import unpacked_step as us  # noqa: E402
 from gfx_ocean_tpu_torch.ops.propagate import _f32  # noqa: E402
 
 OUT = ROOT / "build" / "variants"
@@ -75,6 +86,10 @@ LOADS_ONLY = [("ocean_common.cuh", """  float p[4], q[4];
   float p[4], q[4];
   pre_planes(h0, nn, idx, conj_neg, p);""")]
 
+RUN = "\n  Fft::template run<0>(v, tid, tw, sm);\n"
+K3_ONE_BLOCK = ("constexpr int kColBlocksPerSm = 2;", "constexpr int kColBlocksPerSm = 1;")
+K4_TWO_BLOCKS = ("constexpr int kBlocksPerSm = 1;", "constexpr int kBlocksPerSm = 2;")
+K4_TOGETHER = ("constexpr bool kRowTogether = false;", "constexpr bool kRowTogether = true;")
 K1_ROW = "__launch_bounds__(Shape<LOG2N>::kRows * Shape<LOG2N>::kT)"
 K1_COL = "__launch_bounds__(Shape<LOG2N>::kColThreads)"
 VARIANTS = {
@@ -94,6 +109,26 @@ VARIANTS = {
     "k1_col_min3": ("packed_step", [(K1_COL, K1_COL[:-1] + ", 3)")]),
     "k1_unpaired": ("packed_step", [("rows, side, pair == 0, tid", "rows, side, true, tid")]),
     "k1_loads_only": ("packed_step", LOADS_ONLY),
+    "k3_repo": ("fourstep_step", []),
+    # every plane stays read: stage 2 otherwise drops Im F(H) with its loads
+    "k3_moves_only": ("fourstep_step", [(RUN, "\n"), ("acc += v[0][i] + v[2][i] + v[3][i];",
+                                                    "acc += v[0][i] + v[1][i] + v[2][i] + v[3][i];")]),
+    "k3_one_block": ("fourstep_step", [K3_ONE_BLOCK]),
+    "k3_cols64": ("fourstep_step", [("constexpr int kColCols = 32; ", "constexpr int kColCols = 64; "),
+                                    K3_ONE_BLOCK]),
+    "k4_repo": ("unpacked_step", []),
+    "k4_two_blocks": ("unpacked_step", [K4_TWO_BLOCKS]),
+    "k4_together": ("unpacked_step", [K4_TOGETHER]),
+    "k4_together_two_blocks": ("unpacked_step", [K4_TOGETHER, K4_TWO_BLOCKS]),
+    # reciprocal and rsqrt in place of the checksum's IEEE divisions and sqrt
+    "k3_fast_checksum": ("fourstep_step", [
+        ("ocean_common.cuh", "const float cx = ((h[rowo + xr] - h[rowo + xl]) / hs) * diff;",
+         "const float cx = ((h[rowo + xr] - h[rowo + xl]) * (1.0f / hs)) * diff;"),
+        ("ocean_common.cuh", "const float cz = -diff * ((c[j + 2] - c[j]) / hs);",
+         "const float cz = -diff * ((c[j + 2] - c[j]) * (1.0f / hs));"),
+        ("ocean_common.cuh", "acc += (cx + cy + cz) / sqrtf(cx * cx + cy * cy + cz * cz);",
+         "acc += (cx + cy + cz) * rsqrtf(cx * cx + cy * cy + cz * cz);")]),
+    "k4_moves_only": ("unpacked_step", [(RUN, "\n")]),
 }
 
 
@@ -112,6 +147,8 @@ def build(name: str):
         text = path.read_text()
         if old not in text:
             raise RuntimeError(f"{name}: {old!r} not in {path.name}")
+        if old == RUN and text.count(old) != 2:
+            raise RuntimeError(f"{name}: expected two FFT runs in {path.name}")
         path.write_text(text.replace(old, new))
     so = d / f"lib{name}.so"
     cmd = [kernels.nvcc(), *kernels.NVCC_FLAGS, "-o", str(so), str(d / f"{src}.cu")]
@@ -152,10 +189,45 @@ def main() -> None:
     in1 = fused_step.hoist_packed(st1.h0, st1.omega, c1)
     ts6 = torch.arange(6, dtype=torch.float32, device=dev) / 60.0
     want1, _ = fused_step.launch_packed_step(in1, ts6, c1, checksum=False)
+    want3, _ = fs.launch_fourstep_col(want2, in5.twiddle, c5, checksum=False)
+    c4 = ot.OceanConfig(resolution=512, fft_impl="pallas", hermitian_pack=False,
+                        matmul_precision="bf16x3")
+    in4 = us.hoist_unpacked(st1.h0, st1.omega, c4)
+    want4 = us.launch_unpacked_step(in4, ts6, c4)
 
     for rep in range(REPEATS):
         for name, lib, ptxas in built:
-            if name.startswith("k2"):
+            if name.startswith("k3"):
+                scratch = torch.empty_like(want2)
+                out = torch.empty_like(want3)
+                # room for the partials of either band width
+                partials = torch.empty((1, 32 * 128 + 4096 // fs.CHECKSUM_ROWS), device=dev)
+
+                def call():
+                    err = lib.fourstep_col(
+                        want2.data_ptr(), scratch.data_ptr(), in5.twiddle.data_ptr(), 1, 4096,
+                        4096, -1.0, out.data_ptr(), partials.data_ptr(), fs.CHECKSUM_ROWS,
+                        float(c5.normal_height_scale), 1, stream())
+                    if err:
+                        smoke.fail(f"{name}: CUDA error {err}")
+
+                want, names, calls = want3, smoke.K3_KERNELS, 20
+            elif name.startswith("k4"):
+                y = torch.empty((6, 3, 2, 512, 512), device=dev)
+                out = torch.empty_like(want4)
+                partials = torch.empty((6, 512 // fs.CHECKSUM_ROWS), device=dev)
+
+                def call():
+                    err = lib.unpacked_step(
+                        in4.h0.data_ptr(), in4.omega.data_ptr(), in4.twiddle.data_ptr(),
+                        ts6.data_ptr(), 6, 512, _f32(np.pi / c4.domain_size), 0, 0, -1.0,
+                        y.data_ptr(), out.data_ptr(), partials.data_ptr(), fs.CHECKSUM_ROWS,
+                        float(c4.normal_height_scale), 1, stream())
+                    if err:
+                        smoke.fail(f"{name}: CUDA error {err}")
+
+                want, names, calls = want4, smoke.K4_CHECKSUM_KERNELS, 50
+            elif name.startswith("k2"):
                 out = torch.empty_like(want2)
 
                 def call():
@@ -184,7 +256,8 @@ def main() -> None:
                 want, names, calls = want1, smoke.K1_KERNELS, 50
             event = smoke.event_ms(call, calls)
             torch.cuda.synchronize()
-            rel = float((out - want).abs().max() / want.abs().max())  # large for loads_only
+            # large for loads_only and moves_only
+            rel = float((out - want).abs().max() / want.abs().max())
             print(json.dumps(dict(repeat=rep, variant=name, ptxas=ptxas, event_ms=event,
                                   device_ms=smoke.kernel_device_ms(call, names, calls),
                                   rel_vs_repo=rel)), flush=True)

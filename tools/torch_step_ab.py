@@ -1,0 +1,157 @@
+#!/usr/bin/env python3
+"""Two trees of the port on one NVIDIA GPU in one run: K3, K4 and the paths
+they carry, measured through entry points both trees have.
+
+    python3 tools/torch_step_ab.py PARENT_DIR [CHANGE_DIR]
+
+PARENT_DIR holds a checkout of the commit to compare with (for example
+``git archive <commit> | tar -x -C build/parent``), CHANGE_DIR (default:
+this checkout) the tree under test. Each side runs in a process of its own,
+in the order parent, change, change, parent, so that a drift of the card
+or the host shows as a difference between the two runs of one side. A side
+builds its own kernels (``build/kernels/`` of its tree) and measures, on
+Phillips states from a torch.Generator seeded 0:
+
+- K3 with its checksum on K2's Y of one 4096^2 frame (config 5 of
+  ``benchmarks/run_all.py``): CUDA-event ms a call, torch.profiler's device
+  ms by kernel, and the 120-frame checksum rollout at time batch 1;
+- K4, a 6-frame 512^2 call: event ms and device ms of the launch alone and
+  of the checksums call (``packed_checksums`` of the unpacked inputs), and
+  the 600-frame checksum rollouts of both unpacked routes with
+  torch.profiler's idle share over 60 frames.
+
+Both sides are timed by this checkout's ``chip_smoke`` helpers
+(``event_ms``, ``kernel_device_ms``, ``device_profile``), whatever the
+side's own. Prints one JSON line a side and run. Imports no jax.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+K3_KERNELS = ("fourstep_col_stage1", "fourstep_col_stage2", "checksum_partials")
+FS_STEPS, FS_REPEATS, FS_CALLS = 120, 3, 20
+U_STEPS, U_REPEATS, U_CALLS, U_TIME_BATCH, U_PROFILE_STEPS = 600, 5, 50, 6, 60
+
+
+def device_ms_seen(smoke, fn, names, calls: int) -> dict:
+    """``kernel_device_ms`` for the kernels of ``names`` that ``fn``
+    launches: a side whose checksum has no kernel launches fewer."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    seen = tuple(n for n in names if any(n in e.key for e in prof.key_averages()))
+    return smoke.kernel_device_ms(fn, seen, calls)
+
+
+def measure(root: Path) -> dict:
+    """One side: the package of the tree at ``root``, timed by this
+    checkout's ``chip_smoke``."""
+    sys.path.insert(0, str(root))
+    import dataclasses
+
+    import torch
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    import gfx_ocean_tpu_torch as ot
+    from gfx_ocean_tpu_torch.ops import fourstep_step as fs
+    from gfx_ocean_tpu_torch.ops import fused_step
+    from gfx_ocean_tpu_torch.ops import unpacked_step as us
+    from gfx_ocean_tpu_torch.utils.profiling import time_rollout
+
+    if not torch.cuda.is_available():
+        smoke.fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
+    dev = torch.device("cuda", 0)
+    out = {}
+
+    c5 = ot.OceanConfig(resolution=4096, domain_size=2000.0, fft_impl="pallas",
+                        matmul_precision="high")
+    st5 = ot.ocean_state_from_phillips(c5, ot.PhillipsConfig(),
+                                       generator=torch.Generator().manual_seed(0), device=dev)
+    in5 = fs.hoist_fourstep(st5.h0, st5.omega, c5)
+    ts1 = torch.zeros(1, device=dev)
+    y = fs.launch_fourstep_row(in5, ts1, c5)
+
+    def k3():
+        return fs.launch_fourstep_col(y, in5.twiddle, c5, checksum=True)
+
+    out["k3_ms"] = smoke.event_ms(k3, FS_CALLS)
+    out["k3_device_ms"] = smoke.kernel_device_ms(k3, K3_KERNELS, FS_CALLS)
+    out["fourstep_step_ms"] = smoke.event_ms(lambda: fused_step.packed_checksums(in5, ts1, c5),
+                                             FS_CALLS)
+    del y
+    ts = torch.arange(FS_STEPS, dtype=torch.float32, device=dev) / 60.0
+    rec = time_rollout(ot.make_rollout(c5, keep_fields=False, time_batch=1), st5, ts,
+                       repeats=FS_REPEATS)
+    out["fourstep_steps_per_sec_tb1"] = rec["steps_per_sec"]
+    out["fourstep_repeats_sec"] = rec["repeats_sec"]
+    del st5, in5
+    torch.cuda.empty_cache()
+
+    single = ot.OceanConfig(resolution=512, fft_impl="pallas", hermitian_pack=False,
+                            matmul_precision="bf16x3")
+    blocked = dataclasses.replace(single, matmul_precision="highest")
+    st = ot.ocean_state_from_phillips(single, generator=torch.Generator().manual_seed(0),
+                                      device=dev)
+    inputs = us.hoist_unpacked(st.h0, st.omega, single)
+    ts6 = torch.arange(U_TIME_BATCH, dtype=torch.float32, device=dev) / 60.0
+
+    def k4():
+        return us.launch_unpacked_step(inputs, ts6, single)
+
+    def k4_checksums():
+        return fused_step.packed_checksums(inputs, ts6, single)
+
+    out["k4_ms"] = smoke.event_ms(k4, U_CALLS)
+    out["k4_device_ms"] = smoke.kernel_device_ms(k4, ("unpacked_fused",), U_CALLS)
+    out["k4_checksums_ms"] = smoke.event_ms(k4_checksums, U_CALLS)
+    out["k4_checksums_device_ms"] = device_ms_seen(
+        smoke, k4_checksums, ("unpacked_fused", "checksum_partials"), U_CALLS)
+    ts = torch.arange(U_STEPS, dtype=torch.float32, device=dev) / 60.0
+    for route, cfg in (("single", single), ("blocked", blocked)):
+        rollout = ot.make_rollout(cfg, keep_fields=False, time_batch=U_TIME_BATCH)
+        rec = time_rollout(rollout, st, ts, repeats=U_REPEATS)
+        prof = smoke.device_profile(lambda: rollout(st, ts[:U_PROFILE_STEPS]).cpu(),
+                                    U_PROFILE_STEPS, top=3)
+        out[f"unpacked_{route}"] = dict(steps_per_sec=rec["steps_per_sec"],
+                                        repeats_sec=rec["repeats_sec"],
+                                        idle_share=prof["idle_share"],
+                                        device_busy_ms=prof["device_busy_ms"],
+                                        wall_ms=prof["wall_ms"])
+    return out
+
+
+def main() -> None:
+    if len(sys.argv) >= 3 and sys.argv[1] == "--measure":
+        print(json.dumps(measure(Path(sys.argv[2]).resolve())), flush=True)
+        return
+    if len(sys.argv) < 2:
+        sys.exit(__doc__)
+    parent = Path(sys.argv[1]).resolve()
+    change = Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else Path(__file__).resolve().parent.parent
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+    for run, (side, root) in enumerate((("parent", parent), ("change", change),
+                                        ("change", change), ("parent", parent))):
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--measure", str(root)],
+                              cwd=root, capture_output=True, text=True, timeout=1500)
+        if proc.returncode:
+            sys.exit(f"{side} (run {run}) failed:\n{proc.stdout}\n{proc.stderr}")
+        print(json.dumps(dict(run=run, side=side, **json.loads(proc.stdout.splitlines()[-1]))),
+              flush=True)
+
+
+if __name__ == "__main__":
+    main()
