@@ -22,6 +22,10 @@ package rendered. It imports no jax.
   "pallas", hermitian_pack=False)``) on phase 3's state: through kernel K4
   at ``matmul_precision="bf16x3"`` and through K5 + K6 at "highest",
   600-frame checksum rollouts at time_batch 6.
+- The 16384^2 four-step step, the four-step plan's largest grid
+  (``OceanConfig(resolution=16384, fft_impl="pallas")``), through K2 on a
+  thread-block cluster a row and K3, a 24-frame checksum rollout at
+  time_batch 1.
 
 Phases, one line each:
 
@@ -54,7 +58,7 @@ Phases, one line each:
 14. render_kernel_vs_plain: K7 and K8 on the real inputs of the 1200x700
     frame at the default camera and at a low camera whose giant pass has
     active groups, and K8 on 735,784 synthetic entries with runs that span
-    blocks: bit-equal to their plain versions;
+    tiles: bit-equal to their plain versions;
 15. render_frame: the fused 1200x700 renderer through K1 + K7 + K8 against
     the same pipeline with K7 and K8's plain versions (bit-equal uint8
     frames), the giant-pass tripwire, the pool overflow, the coverage, and
@@ -63,9 +67,10 @@ Phases, one line each:
     (``gfx_ocean_tpu_torch/golden/frame_jax_1200x700.npz``);
 17. render_time: one frame through the kernels and through the plain
     versions, K7 and K8 alone against theirs and K8 against one
-    scatter_reduce("amin") (CUDA events), 60 frames of the main path by wall
-    clock with every launch count, and torch.profiler's top device ops of a
-    frame;
+    scatter_reduce("amin") (CUDA events), K7's and K8's own device time
+    (``k7_device_ms``, ``k8_device_ms``, torch.profiler), 60 frames of the
+    main path by wall clock with every launch count, and torch.profiler's
+    top device ops of a frame;
 18. unpacked_kernel_vs_plain: K4, K5 alone, K6 alone (fed K5's Y) and
     K5 + K6 chained against the plain version, planes and the checksum
     kernel's partial sums behind K4 and behind K6, at 64^2, 256^2 and 512^2
@@ -80,10 +85,25 @@ Phases, one line each:
 21. unpacked_rollout: make_rollout(keep_fields=False, time_batch=6) over
     600 frames for both routes through the kernels (launch counts, finite
     checksums that agree with the plain rollout, steps/s, torch.profiler's
-    device time) and through the plain version.
+    device time) and through the plain version;
+22. big_state: the 16384^2 state synthesized from a torch.Generator seeded
+    0 (on the host, then moved to the card);
+23. big_kernel_vs_plain: one frame of K2 and of K3 on the whole grid; K2's
+    Y on two 16-row bands and K3's planes on two 128-column bands against
+    the plain version on those bands (the whole grid's plain version needs
+    tens of GB), a banded K2 launch bit-equal to the whole pass's rows,
+    and K3's checksum partials against the sums of its own planes;
+24. big_golden: make_step at t = 11.25 (one launch of K2 and of K3) against
+    the float64 golden model on the two row bands, computed on the card
+    (``golden/reference.golden_fields_rows``);
+25. big_time_one_call: K2, K3 and the step at tb 1 (CUDA events), K2's and
+    K3's own device time (torch.profiler), the plain K2 over the whole
+    grid in 1024-row bands, and torch.fft along x, y and both;
+26. big_rollout: make_rollout(keep_fields=False, time_batch=1) over 24
+    frames through the kernels (launch counts, finite checksums, steps/s).
 
-Then one JSON line with the kernels K1-K8 (times, bounds from this run's
-shapes, library yardsticks; K1-K6 also their ``device_ms``), and as
+Then one JSON line with the kernels K1-K8 and K2 at 16384^2 (times,
+bounds from this run's shapes, library yardsticks, ``device_ms``), and as
 the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero with no
 result; so does a machine without CUDA.
@@ -144,7 +164,7 @@ R_PLAIN_TIMING_CALLS = 3
 R_KERNEL_CALLS = 50
 R_PROFILE_FRAMES = 3
 # K8 at the resolve size of the 1200x700 frame (pool 630,784 + 105,000 octs)
-# with one run of 30,000 entries, ~30 of the kernel's 1024-entry blocks.
+# with one run of 30,000 entries, ~30 of the kernel's 1024-entry tiles.
 K8_N, K8_N_OCT, K8_LONG_RUN = 735_784, 105_000, 30_000
 # The stored JAX frame's envelope (tests/test_render.py:259-264): quantized-z
 # near-ties flip a sliver of silhouette pixels between implementations.
@@ -173,6 +193,17 @@ FP32_OPS_PER_S = 67e12
 K7_OPS_PER_PIXEL = 40
 # Operations an entry and key of K8: unpack, compare, select, min.
 K8_OPS_PER_KEY = 4
+
+# The 16384^2 four-step path: K2 on a thread-block cluster a row, K3.
+BIG_N = 16384
+BIG_ROW_BANDS = (BIG_N // 2 - 3, BIG_N - 16)  # first rows of the 16-row bands
+BIG_BAND_ROWS = 16
+BIG_COL_BANDS = (4096 + 32, BIG_N - 128)      # first columns of the 128-column bands
+BIG_BAND_COLS = 128
+BIG_PLAIN_ROWS = 1024  # rows a band of the plain K2 over the whole grid
+BIG_STEPS = 24
+BIG_REPEATS = 2
+BIG_TIMING_CALLS = 10
 
 
 def fail(msg: str) -> None:
@@ -228,30 +259,50 @@ K4_KERNELS = ("unpacked_fused",)
 K4_CHECKSUM_KERNELS = ("unpacked_fused", "checksum_partials")
 K5_KERNELS = ("unpacked_row_pass",)
 K6_KERNELS = ("unpacked_col_pass",)
+K2_CLUSTER_KERNELS = ("fourstep_row_pass_cluster",)
+K7_KERNELS = ("slot_kernel",)
+K8_KERNELS = ("segmin_lookback",)
+
+
+# Profiler sessions a measurement may take: on an H100 machine a session now
+# and then records no kernel at all, after a dozen sessions in the process
+# that recorded every launch.
+PROFILER_ATTEMPTS = 3
 
 
 def kernel_device_ms(fn, names, calls: int) -> dict:
     """torch.profiler's device time of one call of ``fn``: the mean time of
     a launch of each kernel named in ``names`` (each launched once a call),
     and their sum under "total", over ``calls`` calls after one warm-up
-    call. The kernels' time without the wrapper's host work. A mean over
+    call and one call in the profiler's warm-up step (as in
+    ``device_profile``: the tracer can lose the first launches after it
+    starts). The kernels' time without the wrapper's host work. A mean over
     the launches the profiler recorded, since it can drop a record."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
+    for attempt in range(PROFILER_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
             fn()
-        torch.cuda.synchronize()
-    per_launch_us = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.count:
-            for name in names:
-                if name in e.key:
-                    per_launch_us[name] = e.device_time_total / e.count
-    if sorted(per_launch_us) != sorted(names):
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        per_launch_us = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.count:
+                for name in names:
+                    if name in e.key:
+                        per_launch_us[name] = e.device_time_total / e.count
+        if sorted(per_launch_us) == sorted(names):
+            break
+        print(f"torch.profiler saw {sorted(per_launch_us)} of {names} "
+              f"(session {attempt + 1} of {PROFILER_ATTEMPTS})", file=sys.stderr, flush=True)
+    else:
         fail(f"torch.profiler saw {sorted(per_launch_us)} of {names}")
     ms = {name: us / 1e3 for name, us in per_launch_us.items()}
     return {**ms, "total": sum(ms.values())}
@@ -316,6 +367,7 @@ def main() -> None:
     kernels_line += run_fourstep(dev)
     kernels_line += run_render(dev)
     kernels_line += run_unpacked(dev)
+    kernels_line += run_big(dev)
     print(json.dumps({"kernels": sorted(kernels_line, key=lambda k: k["name"])}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
@@ -901,6 +953,10 @@ def run_render(dev) -> list:
                      K7_OPS_PER_PIXEL * 8 * k7_args[0].shape[1])
     k8_bound = bound(nbytes(so, sk, k8_mins, k8_skey), K8_OPS_PER_KEY * 8 * so.shape[0])
     del k7_keys, k7_octs, k8_mins, k8_skey
+    k7_device = kernel_device_ms(lambda: rr.launch_slot_kernel(*k7_args), K7_KERNELS,
+                                 R_KERNEL_CALLS)
+    k8_device = kernel_device_ms(lambda: rr.launch_segmin_kernel(*k8_args), K8_KERNELS,
+                                 R_KERNEL_CALLS)
     stage_ms = render_stages(dev, state, cfg, disp, vp, cp, k7_ms)
 
     ts = [R_T + i / 60.0 for i in range(R_FRAMES)]
@@ -924,6 +980,7 @@ def run_render(dev) -> list:
     phase("render_time", width=R_W, height=R_H, clock="cuda events",
           frame_ms=frame_ms, plain_frame_ms=plain_frame_ms, k7_ms=k7_ms,
           k7_plain_ms=k7_plain_ms, k8_ms=k8_ms, k8_plain_ms=k8_plain_ms,
+          k7_device_ms=k7_device["total"], k8_device_ms=k8_device["total"],
           k8_library_scatter_amin_ms=k8_library_ms, k7_bound=k7_bound, k8_bound=k8_bound,
           stage_ms=stage_ms, frames=R_FRAMES, wall_ms_per_frame=wall_ms,
           frames_per_sec=1e3 / wall_ms, launches=launches,
@@ -936,13 +993,14 @@ def run_render(dev) -> list:
         {"name": "K7 slot_kernel (per-slot oct tile tests, packed keys)", "route": "cuda",
          "source": "gfx_ocean_tpu_torch/csrc/raster.cu",
          "replaces": "gfx_ocean_tpu/render/raster.py:666", "launches": launches["k7"],
-         "max_abs_err": k7_err, "ms": k7_ms, "plain_ms": k7_plain_ms, **k7_bound,
-         "library_ms": None},
-        {"name": "K8 segmin (segmented min over oct runs: block scan, carry, apply)",
+         "max_abs_err": k7_err, "ms": k7_ms, "device_ms": k7_device["total"],
+         "plain_ms": k7_plain_ms, **k7_bound, "library_ms": None},
+        {"name": "K8 segmin_lookback (single-pass segmented min over oct runs, "
+                 "decoupled look-back)",
          "route": "cuda", "source": "gfx_ocean_tpu_torch/csrc/raster.cu",
          "replaces": "gfx_ocean_tpu/render/raster.py:816", "launches": launches["k8"],
-         "max_abs_err": k8_err, "ms": k8_ms, "plain_ms": k8_plain_ms, **k8_bound,
-         "library_ms": k8_library_ms},
+         "max_abs_err": k8_err, "ms": k8_ms, "device_ms": k8_device["total"],
+         "plain_ms": k8_plain_ms, **k8_bound, "library_ms": k8_library_ms},
     ]
 
 
@@ -957,18 +1015,24 @@ def device_profile(fn, frames: int, top: int = 15) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-        fn()
-        torch.cuda.synchronize()
-        prof.step()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_op = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and not e.key.startswith("ProfilerStep")), key=lambda k: -k[1])
+    for _ in range(PROFILER_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_op = sorted(((e.key, e.device_time_total / 1e3, e.count)
+                        for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and not e.key.startswith("ProfilerStep")), key=lambda k: -k[1])
+        if by_op:
+            break
+    else:
+        fail("torch.profiler recorded no device op")
     busy_ms = sum(ms for _, ms, _ in by_op)
     return dict(frames=frames, wall_ms=wall_ms, device_busy_ms=busy_ms,
                 idle_share=1.0 - busy_ms / wall_ms,
@@ -1178,6 +1242,180 @@ def run_unpacked(dev) -> list:
             "library_ms": one_call[f"{key}_library_ms"],
         })
     return entries
+
+
+def run_big(dev) -> list:
+    """Phases 22-26: the 16384^2 four-step path through K2 (a row on a
+    thread-block cluster) and K3; returns K2's kernels entry at 16384^2."""
+    import numpy as np
+    import torch
+
+    import gfx_ocean_tpu_torch as ot
+    from gfx_ocean_tpu_torch.golden.reference import golden_fields_rows
+    from gfx_ocean_tpu_torch.ops import fourstep_step as fs
+    from gfx_ocean_tpu_torch.ops import fused_step
+    from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, finite_difference_normals_planes
+    from gfx_ocean_tpu_torch.utils.profiling import time_rollout
+
+    torch.cuda.empty_cache()
+    cfg = ot.OceanConfig(resolution=BIG_N, fft_impl="pallas")
+    tier = fused_step.check_supported(cfg, BIG_N)
+    counters = (fused_step.launch_packed_step, fs.launch_fourstep_row, fs.launch_fourstep_col)
+
+    def launches() -> dict:
+        return {k: c.launches for k, c in zip(("k1", "k2", "k3"), counters)}
+
+    # --- 22. state ----------------------------------------------------------
+    t0 = time.perf_counter()
+    state = ot.ocean_state_from_phillips(cfg, ot.PhillipsConfig(),
+                                         generator=torch.Generator().manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    phase("big_state", source="phillips synthesize, torch.Generator seed 0", resolution=BIG_N,
+          domain_size=cfg.domain_size, matmul_precision=cfg.matmul_precision,
+          effective_precision=tier, seconds=time.perf_counter() - t0,
+          h0_absmax=float(state.h0.abs().max()), omega_max=float(state.omega.max()))
+
+    # --- 23. K2 and K3 on bands against the plain version --------------------
+    inputs = fused_step.hoist_packed(state.h0, state.omega, cfg)
+    ts = torch.tensor([T_CHECK], dtype=torch.float32, device=dev)
+    y = fs.launch_fourstep_row(inputs, ts, cfg)
+    planes, partials = fs.launch_fourstep_col(y, inputs.twiddle, cfg, checksum=True)
+    torch.cuda.synchronize()
+    k2 = [max_err(y[..., b:b + BIG_BAND_ROWS, :],
+                  fs.fourstep_row_reference(inputs, ts, cfg, row_base=b, rows=BIG_BAND_ROWS))
+          for b in BIG_ROW_BANDS]
+    banded_differ = sum(int((fs.launch_fourstep_row(inputs, ts, cfg, row_base=b,
+                                                    rows=BIG_BAND_ROWS)
+                             != y[..., b:b + BIG_BAND_ROWS, :]).sum()) for b in BIG_ROW_BANDS)
+    k3 = [max_err(planes[..., c:c + BIG_BAND_COLS],
+                  fs.fourstep_col_reference(y[..., c:c + BIG_BAND_COLS].contiguous(), cfg))
+          for c in BIG_COL_BANDS]
+    del y
+    summands = (planes.abs().sum(dim=(-3, -2, -1))
+                + finite_difference_normals_planes(planes[:, 1], cfg.normal_height_scale)
+                .abs().sum(dim=(-3, -2, -1)))
+    ck_rel = float(((partials.sum(dim=-1) - checksums_of_planes(planes, cfg)).abs()
+                    / summands).max())
+    finite = bool(torch.isfinite(planes).all())
+    del planes, partials
+    err = dict(k2=(max(e[0] for e in k2), max(e[1] for e in k2)),
+               k3=(max(e[0] for e in k3), max(e[1] for e in k3)))
+    phase("big_kernel_vs_plain", resolution=BIG_N, t=T_CHECK, row_bands=list(BIG_ROW_BANDS),
+          band_rows=BIG_BAND_ROWS, col_bands=list(BIG_COL_BANDS), band_cols=BIG_BAND_COLS,
+          k2_y_max_abs=err["k2"][0], k2_y_rel=err["k2"][1], k3_planes_max_abs=err["k3"][0],
+          k3_planes_rel=err["k3"][1], k2_banded_launch_differ=banded_differ,
+          checksum_partials_rel_to_summands=ck_rel, planes_finite=finite,
+          tolerance=TOL_KERNEL, checksum_tolerance=TOL_CHECKSUM)
+    for what, (_, rel) in err.items():
+        if not (rel <= TOL_KERNEL):
+            fail(f"{BIG_N}^2 kernel vs plain, {what}: {rel:.3e} > {TOL_KERNEL}")
+    if banded_differ or not finite:
+        fail(f"{BIG_N}^2: banded K2 differs in {banded_differ} values; planes finite {finite}")
+    if not (ck_rel <= TOL_CHECKSUM):
+        fail(f"{BIG_N}^2 checksum partials: {ck_rel:.3e} > {TOL_CHECKSUM}")
+    torch.cuda.empty_cache()
+
+    # --- 24. the step against the golden model on row bands -----------------
+    for c in counters:
+        c.launches = 0
+    fields = ot.make_step(cfg)(state, T_CHECK)
+    step_launches = launches()
+    disp = fields.displacement
+    finite = bool(torch.isfinite(disp).all()) and bool(torch.isfinite(fields.normals).all())
+    shape = list(disp.shape)
+    gold = {b: golden_fields_rows(state.h0, state.omega, T_CHECK, cfg.domain_size, cfg.compat,
+                                  b, BIG_BAND_ROWS) for b in BIG_ROW_BANDS}
+    abs_linf = max(float((disp[b:b + BIG_BAND_ROWS].double() - g).abs().max())
+                   for b, g in gold.items())
+    rel_linf = abs_linf / max(float(g.abs().max()) for g in gold.values())
+    del fields, disp, gold
+    phase("big_golden", resolution=BIG_N, t=T_CHECK, row_bands=list(BIG_ROW_BANDS),
+          band_rows=BIG_BAND_ROWS, shape=shape, rel_linf=rel_linf, abs_linf=abs_linf,
+          finite=finite, launches=step_launches, gate="rel_linf on the bands",
+          gate_limit=GOLDEN_GATE, golden="float64 on the card, golden_fields_rows")
+    if step_launches != dict(k1=0, k2=1, k3=1):
+        fail(f"the {BIG_N}^2 step launched {step_launches}, expected one K2 and one K3")
+    if shape != [BIG_N, BIG_N, 3] or not finite or not (rel_linf <= GOLDEN_GATE):
+        fail(f"{BIG_N}^2 golden gate: shape {shape}, finite {finite}, "
+             f"relative L-inf {rel_linf:.3e} > {GOLDEN_GATE}")
+    torch.cuda.empty_cache()
+
+    # --- 25. one call of K2, K3 and the step ---------------------------------
+    calls = BIG_TIMING_CALLS
+    y = fs.launch_fourstep_row(inputs, ts, cfg)
+    rec = dict(
+        k2_ms=event_ms(lambda: fs.launch_fourstep_row(inputs, ts, cfg), calls),
+        k3_ms=event_ms(lambda: fs.launch_fourstep_col(y, inputs.twiddle, cfg, checksum=True),
+                       calls),
+        step_ms=event_ms(lambda: fused_step.packed_checksums(inputs, ts, cfg), calls),
+        k2_device_ms=kernel_device_ms(lambda: fs.launch_fourstep_row(inputs, ts, cfg),
+                                      K2_CLUSTER_KERNELS, calls),
+        k3_device_ms=kernel_device_ms(
+            lambda: fs.launch_fourstep_col(y, inputs.twiddle, cfg, checksum=True), K3_KERNELS,
+            calls))
+    k3_out = fs.launch_fourstep_col(y, inputs.twiddle, cfg, checksum=True)
+    rec["k2_bound"] = bound(nbytes(state.h0, state.omega, inputs.twiddle, ts, y),
+                            fft_ops(BIG_N, 2 * BIG_N))
+    rec["k3_bound"] = bound(nbytes(y, inputs.twiddle, *k3_out), fft_ops(BIG_N, 2 * BIG_N))
+    del k3_out
+    y_plain = torch.empty_like(y)
+
+    def plain_k2():
+        for r0 in range(0, BIG_N, BIG_PLAIN_ROWS):
+            y_plain[..., r0:r0 + BIG_PLAIN_ROWS, :] = fs.fourstep_row_reference(
+                inputs, ts, cfg, row_base=r0, rows=BIG_PLAIN_ROWS)
+
+    rec["k2_plain_ms"] = event_ms(plain_k2, 1)
+    rec["k2_plain_vs_kernel_rel"] = max_err(y, y_plain)[1]
+    del y, y_plain
+    torch.cuda.empty_cache()
+    spectra = torch.randn((1, 2, BIG_N, BIG_N), dtype=torch.complex64, device=dev)
+    rec.update(k2_library_ms=event_ms(lambda: torch.fft.ifft(spectra, dim=-1), calls),
+               k3_library_ms=event_ms(lambda: torch.fft.ifft(spectra, dim=-2), calls),
+               step_library_ifft2_ms=event_ms(lambda: torch.fft.ifft2(spectra), calls))
+    del spectra
+    torch.cuda.empty_cache()
+    phase("big_time_one_call", resolution=BIG_N, frames=1, calls=calls,
+          plain=f"fourstep_row_reference over the grid in {BIG_PLAIN_ROWS}-row bands, one call",
+          clock="cuda events; device_ms: torch.profiler, the kernels' launches only", **rec)
+    if not (rec["k2_plain_vs_kernel_rel"] <= TOL_KERNEL):
+        fail(f"{BIG_N}^2 K2 vs the banded plain version: {rec['k2_plain_vs_kernel_rel']:.3e}")
+
+    # --- 26. the checksum rollout ---------------------------------------------
+    rollout = ot.make_rollout(cfg, keep_fields=False, time_batch=1)
+    ts_roll = torch.arange(BIG_STEPS, dtype=torch.float32, device=dev) / 60.0
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    roll = time_rollout(rollout, state, ts_roll, repeats=BIG_REPEATS)
+    roll_launches = launches()
+    expected = (BIG_REPEATS + 1) * BIG_STEPS
+    cks = roll["checksums"]
+    phase("big_rollout", resolution=BIG_N, steps=BIG_STEPS, time_batch=1, repeats=BIG_REPEATS,
+          steps_per_sec=roll["steps_per_sec"], repeats_sec=roll["repeats_sec"],
+          launches=roll_launches, expected_launches=expected,
+          checksums_finite=bool(np.isfinite(cks).all()), checksum_first=float(cks[0]),
+          checksum_last=float(cks[-1]), peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if roll_launches != dict(k1=0, k2=expected, k3=expected):
+        fail(f"{BIG_N}^2 rollout launched {roll_launches}, expected {expected} of K2 and K3")
+    if cks.shape != (BIG_STEPS,) or not np.isfinite(cks).all():
+        fail(f"{BIG_N}^2 rollout checksums: shape {cks.shape}, "
+             f"finite {bool(np.isfinite(cks).all())}")
+
+    return [{
+        "name": "K2 fourstep_row_pass_cluster (16384^2: packed propagate + row FFT, "
+                "a row on a two-block cluster)",
+        "route": "cuda",
+        "source": "gfx_ocean_tpu_torch/csrc/fourstep_step.cu",
+        "replaces": "gfx_ocean_tpu/ops/pallas_step.py:614",
+        "launches": roll_launches["k2"],
+        "max_abs_err": err["k2"][0],
+        "ms": rec["k2_ms"],
+        "device_ms": rec["k2_device_ms"]["total"],
+        "plain_ms": rec["k2_plain_ms"],
+        **rec["k2_bound"],
+        "library_ms": rec["k2_library_ms"],
+    }]
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-// K2 + K3 on Hopper: the four-step ocean step for 1024 <= N <= 8192.
+// K2 + K3 on Hopper: the four-step ocean step for 1024 <= N <= 16384.
 //
 // Replaces gfx_ocean_tpu/ops/pallas_step.py::_fourstep_row_kernel (K2) and
 // ::_fourstep_col_kernel (K3). It computes the same function as the plain
@@ -20,7 +20,22 @@
 //                        elsewhere) with padded, conflict-free exchanges,
 //                        at most 64 registers a thread (1,024 threads a SM).
 //                        Writes Y (tb, 2, 2, rows, N) in coalesced rows,
-//                        true x order, (-1)^x folded in.
+//                        true x order, (-1)^x folded in. N <= 8192: a
+//                        block holds at most 1,024 threads.
+//   fourstep_row_pass_cluster
+//                        K2 at N = 16384, the same contract. A row's
+//                        2,048 threads (8 points a spectrum each, as
+//                        above) are split over a thread-block cluster of
+//                        kClusterBlocks blocks on neighbouring SMs, and so
+//                        is the exchange buffer (4 planes x (N + N / 8)
+//                        floats, 295 KB, past one block's 227 KB): padded
+//                        index a lives in block a / (kLen / C) of the
+//                        cluster. Each exchange writes and reads through
+//                        distributed shared memory (mapa +
+//                        ld/st.shared::cluster; half the points of an
+//                        exchange cross SMs at C = 2), and every barrier is
+//                        a cluster barrier, split into arrive and wait so
+//                        that a pass's butterflies run between the two.
 //   fourstep_col_stage1  K3, first half. The column transform is split
 //                        N = 128 * N2, row m = N2 m1 + m2 in, row
 //                        n = n1 + 128 n2 out. One block per (m2, 32 columns,
@@ -54,7 +69,7 @@
 //                        nor cap exists here.
 //
 // K3's transforms are y[j] = sum_k x[k] e^{+2 pi i j k / len}, len = 128
-// and N2 = N / 128 (8 ... 64; 128 builds too, for N = 16384). All twiddles
+// and N2 = N / 128 (8 ... 128). All twiddles
 // come from one table tw (2, N/2) = (cos, sin) of 2 pi j / N, built in
 // float64 on the host; the sub-transforms read it at a stride.
 //
@@ -79,8 +94,15 @@
 // column) does not fit one block's shared memory at N >= 4096. A
 // cluster-resident column pass and TMA loads are later work.
 //
+// Offsets at N = 16384: a plane of Y or of the output holds 2^28 floats and
+// a frame of Y 2^30. K2's and the checksum's offsets are size_t; K3's
+// stage 1 indexes a frame of Y in int (q * plane + g < 2^30 at cols <= N)
+// from a size_t frame base.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (gfx_ocean_tpu_torch/kernels.py). Plain C entry points, bound with ctypes.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -92,8 +114,7 @@ namespace {
 using ocean::reg::static_for;
 
 constexpr int kMinN = 1024;
-constexpr int kMaxN = 8192;      // K2: N / 8 threads a row, at most 1,024
-constexpr int kMaxColN = 16384;  // K3
+constexpr int kMaxN = 16384;  // K2 in one block a row up to 8192, in a cluster at 16384
 constexpr int kLog2Radix = 3;  // K2: radix 8, N / 8 threads a row
 // Threads a SM the launch bounds ask for: 64 registers a thread. Radix 16
 // (16 points a thread) takes 255 registers and runs 8 warps a SM; radix 8
@@ -102,9 +123,16 @@ constexpr int kLog2Radix = 3;  // K2: radix 8, N / 8 threads a row
 constexpr int kSmThreads = 1024;
 constexpr int kRadix = 1 << kLog2Radix;
 // K2's transform: T = N / 8 >= 128 threads a row, so every warp holds 32
-// consecutive j; one shared buffer (73.7 KB at 4096, 147 KB at 8192).
+// consecutive j; one shared buffer (73.7 KB at 4096, 147 KB at 8192; at
+// 16384 295 KB, split over the cluster).
 template <int LOG2N>
 using RowFft = ocean::reg::RegFft<LOG2N, kLog2Radix, 5, 1>;
+// Blocks of K2's cluster at N = 16384: 2 blocks of 1,024 threads (147 KB
+// of the buffer each) or 4 of 512 (74 KB each); tools/torch_kernel_variants.py
+// times both (PERF.md).
+constexpr int kClusterBlocks = 2;
+// cudaOccupancyMaxActiveClusters found no SM group that holds the cluster.
+constexpr int kErrClusterUnschedulable = 100000;
 constexpr int kLog2N1 = 7;          // the column split N = 128 * N2
 constexpr int kN1 = 1 << kLog2N1;
 constexpr int kColCols = 32;        // columns per column block: one 128 B line a row
@@ -203,6 +231,150 @@ int launch_row(const RowArgs& a, cudaStream_t st) {
   const cudaError_t err = ocean::allow_smem(fourstep_row_pass<LOG2N>, smem, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
   fourstep_row_pass<LOG2N><<<a.rows, RowFft<LOG2N>::kT, smem, st>>>(
+      a.h0, a.omega, a.tw, a.ts, a.tb, a.rows, a.row_base, a.scale, a.wrap_k, a.conj_neg, a.y);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The cluster's barrier for RegFft::run: barrier.cluster.arrive has
+// release and barrier.cluster.wait acquire semantics, so the shared-memory
+// writes of every block of the cluster before an arrive are visible after
+// the wait. Each thread alternates arrive and wait.
+struct ClusterBarrier {
+  __device__ static __forceinline__ void arrive() {
+    asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+  }
+  __device__ static __forceinline__ void wait() {
+    asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  }
+  __device__ static __forceinline__ void before_write() { wait(); }
+  __device__ static __forceinline__ void exchange() {
+    arrive();
+    wait();
+  }
+  __device__ static __forceinline__ void after_read() { arrive(); }
+};
+
+// One float of a cluster block's shared memory at a shared::cluster address.
+struct DsmemRef {
+  uint32_t addr;
+  __device__ __forceinline__ operator float() const {
+    float v;
+    asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(addr) : "memory");
+    return v;
+  }
+  __device__ __forceinline__ void operator=(float v) const {
+    asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v) : "memory");
+  }
+};
+
+// The shared::cluster address of this block's shared-memory address
+// `local` in the block of cluster rank `rank`.
+__device__ __forceinline__ uint32_t cluster_address(uint32_t local, int rank) {
+  uint32_t out;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(local), "r"(rank));
+  return out;
+}
+
+// K2 at N = 16384: blockIdx.x = row * kClusterBlocks + cluster rank, N / 8 /
+// kClusterBlocks threads a block; thread tid = rank * kTB + threadIdx.x of
+// the row's N / 8. smem: (Hr, Hi, Zr, Zi) x kLen / kClusterBlocks, the
+// rank's part of the exchange buffer.
+template <int LOG2N>
+__global__ void __cluster_dims__(kClusterBlocks, 1, 1)
+    __launch_bounds__(RowFft<LOG2N>::kT / kClusterBlocks,
+                      kSmThreads / (RowFft<LOG2N>::kT / kClusterBlocks))
+    fourstep_row_pass_cluster(
+    const float* __restrict__ h0, const float* __restrict__ omega,
+    const float* __restrict__ tw, const float* __restrict__ ts, int tb, int rows, int row_base,
+    float scale, int wrap_k, int conj_neg, float* __restrict__ y) {
+  using Fft = RowFft<LOG2N>;
+  constexpr int n = Fft::kN;
+  constexpr int kTB = Fft::kT / kClusterBlocks;
+  constexpr int kRankLen = Fft::kLen / kClusterBlocks;  // a multiple of 32: banks are kept
+  static_assert(Fft::kLen % (32 * kClusterBlocks) == 0, "whole bank rows a rank");
+  extern __shared__ float smem[];
+  const int rank = blockIdx.x % kClusterBlocks;
+  const int tid = rank * kTB + threadIdx.x % kTB;
+  const int row = blockIdx.x / kClusterBlocks;
+  const int gy = row_base + row;
+  const size_t plane = static_cast<size_t>(rows) * n;
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  // A block's shared memory is one window of the cluster's: an offset into
+  // it is an offset from its base's shared::cluster address.
+  auto sm = [&](int q, int, int a) -> DsmemRef {
+    const int r = a / kRankLen;
+    return DsmemRef{cluster_address(base, r) +
+                    static_cast<uint32_t>(q * kRankLen + a - r * kRankLen) * 4u};
+  };
+
+  ClusterBarrier::arrive();  // every block of the cluster runs before any DSMEM access
+  for (int frame = 0; frame < tb; ++frame) {
+    // tid, made opaque each frame: the exchanges' addresses (functions of
+    // tid) are then computed where they are used instead of hoisted out of
+    // the frame loop and held across it, which spills at 64 registers.
+    int ftid;
+    asm volatile("mov.b32 %0, %1;" : "=r"(ftid) : "r"(tid));
+    const float t = ts[frame];
+    float v[4][kRadix];
+    static_for<0, kRadix>([&](auto k_) {
+      constexpr int k = decltype(k_)::value;
+      const ocean::PackedSpectra p = ocean::packed_propagate(
+          h0, omega, n, gy, ftid + k * Fft::kT, t, scale, wrap_k != 0, conj_neg != 0, 0.5f);
+      v[0][k] = p.hr;
+      v[1][k] = p.hi;
+      v[2][k] = p.zr;
+      v[3][k] = p.zi;
+    });
+    ClusterBarrier::wait();  // the cluster runs; the last frame's exchange reads are done
+    Fft::template run<0, ClusterBarrier>(v, ftid, tw, sm);
+
+    float* yf = y + static_cast<size_t>(frame) * 4 * plane + static_cast<size_t>(row) * n;
+    static_for<0, kRadix>([&](auto i_) {
+      constexpr int i = decltype(i_)::value;
+      const int x = Fft::out_index(ftid, i);
+      const float sg = (x & 1) ? -1.0f : 1.0f;
+      yf[x] = sg * v[0][i];
+      yf[plane + x] = sg * v[1][i];
+      yf[2 * plane + x] = sg * v[2][i];
+      yf[3 * plane + x] = sg * v[3][i];
+    });
+  }
+  ClusterBarrier::wait();  // no block leaves while another reads its shared memory
+}
+
+template <int LOG2N>
+int launch_row_cluster(const RowArgs& a, cudaStream_t st) {
+  constexpr int threads = RowFft<LOG2N>::kT / kClusterBlocks;
+  constexpr size_t smem =
+      4 * static_cast<size_t>(RowFft<LOG2N>::kLen / kClusterBlocks) * sizeof(float);
+  static bool ready[ocean::kMaxDevices];
+  static int clusters[ocean::kMaxDevices];  // max active clusters, once a device; 0: not asked
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = ocean::allow_smem(fourstep_row_pass_cluster<LOG2N>, smem, ready);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kClusterBlocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.rows * kClusterBlocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (dev < ocean::kMaxDevices && clusters[dev] == 0) {
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, fourstep_row_pass_cluster<LOG2N>, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    clusters[dev] = n > 0 ? n : -1;
+  }
+  if (dev < ocean::kMaxDevices && clusters[dev] < 0) return kErrClusterUnschedulable;
+  // The cluster shape is the kernel's own (__cluster_dims__): a plain launch.
+  fourstep_row_pass_cluster<LOG2N><<<cfg.gridDim, cfg.blockDim, smem, st>>>(
       a.h0, a.omega, a.tw, a.ts, a.tb, a.rows, a.row_base, a.scale, a.wrap_k, a.conj_neg, a.y);
   return static_cast<int>(cudaGetLastError());
 }
@@ -369,8 +541,9 @@ bool valid_n(int n, int max_n) { return n >= kMinN && n <= max_n && (n & (n - 1)
 extern "C" {
 
 // Launches K2 for tb frames on `stream`; returns the first error (0 when it
-// launched). Inputs: the state h0 (2, n, n), omega (n, n); tw (2, n/2); ts
-// (tb,). Output: y (tb, 2, 2, rows, n), the rows row_base .. row_base +
+// launched; kErrClusterUnschedulable when no SM group holds K2's cluster
+// at n = 16384). Inputs: the state h0 (2, n, n), omega (n, n); tw (2, n/2);
+// ts (tb,). Output: y (tb, 2, 2, rows, n), the rows row_base .. row_base +
 // rows - 1 of the grid.
 int fourstep_row(const float* h0, const float* omega, const float* tw, const float* ts, int tb,
                  int n, int rows, int row_base, float scale, int wrap_k, int conj_neg, float* y,
@@ -384,7 +557,8 @@ int fourstep_row(const float* h0, const float* omega, const float* tw, const flo
     case 1024: return launch_row<10>(a, st);
     case 2048: return launch_row<11>(a, st);
     case 4096: return launch_row<12>(a, st);
-    default: return launch_row<13>(a, st);
+    case 8192: return launch_row<13>(a, st);
+    default: return launch_row_cluster<14>(a, st);
   }
 }
 
@@ -399,7 +573,7 @@ int fourstep_col(const float* y, float* b, const float* tw, int tb, int n, int c
                  int with_normals, void* stream) {
   const bool checksum_ok =
       cols == n && ck_rows >= 1 && ck_rows % ocean::kSumRows == 0 && n % ck_rows == 0;
-  if (!valid_n(n, kMaxColN) || tb < 1 || tb > 65535 || cols < kColCols || cols % kColCols != 0 ||
+  if (!valid_n(n, kMaxN) || tb < 1 || tb > 65535 || cols < kColCols || cols % kColCols != 0 ||
       cols > n || (partials != nullptr && !checksum_ok)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -415,6 +589,10 @@ int fourstep_col(const float* y, float* b, const float* tw, int tb, int n, int c
 }
 
 const char* fourstep_error_string(int err) {
+  if (err == kErrClusterUnschedulable) {
+    return "K2's thread-block cluster cannot be scheduled on this device "
+           "(cudaOccupancyMaxActiveClusters returned 0)";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

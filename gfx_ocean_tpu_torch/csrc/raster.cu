@@ -17,26 +17,41 @@
 //                   round. One rounding per op also keeps a pixel's key the
 //                   same whichever of the 8 sub-pixels evaluates it, which is
 //                   what keeps band and full frames bit-equal.
-//   segmin_block    K8, pass 1. One thread per entry, 1024 entries a block:
-//                   unpack the 8 keys, a segmented inclusive min-scan over
-//                   the block (warp shuffles, then one warp over the 32 warp
-//                   tails), the compaction key, and the block's tail run id
-//                   and tail mins.
-//   segmin_carry    K8, pass 2. One block: the same segmented scan over the
-//                   block tails, in chunks of 1024 with a carried tail, so each
-//                   block tail becomes the min of its run over everything up
-//                   to that block's end (a run may span any number of blocks).
-//   segmin_apply    K8, pass 3. Entries of a block's head run that continues
-//                   the previous block's tail run take that run's carried min.
+//   segmin_lookback K8, one launch a call: a single-pass segmented min-scan
+//                   with decoupled look-back (Merrill & Garland, "Single-pass
+//                   Parallel Prefix Scan with Decoupled Look-back", 2016).
+//                   A block takes the next tile of kSegTile entries by an
+//                   atomic ticket, so tiles start in order and a look-back
+//                   never waits on a tile that has not started. Each thread
+//                   loads kSegItems consecutive entries (16-byte loads of so
+//                   and of each packed key row where n is a multiple of 4),
+//                   unpacks the keys and scans its entries serially in
+//                   registers; warp shuffles and one exchange of the 8 warp
+//                   tails scan the tile. The tile then publishes its tail
+//                   run's mins: as its inclusive prefix when that run starts
+//                   inside the tile, else as an aggregate (the tile lies
+//                   inside one run that began before it). A tile whose first
+//                   entry continues the previous tile's run (so[start - 1] ==
+//                   so[start]) looks back: warp 0 reads 32 predecessors'
+//                   flags at once and folds aggregates down to the nearest
+//                   inclusive prefix; ids ascend, so that walk ends at the
+//                   tile where the run began. The head run's entries take
+//                   the carry and a tile inside the run publishes its
+//                   inclusive prefix. Threads store their mins and
+//                   compaction keys with 16-byte stores, those outside the
+//                   head run while the look-back runs. Flags carry a per-call epoch,
+//                   so a call never reads the last call's flags; the last
+//                   ticket resets the ticket counter for the next call.
 //
 // The TPU kernel carried the open run through the sequential grid's scratch
-// (raster.py:837-859); GPU blocks run in no order, so passes 2 and 3 rebuild
-// that carry. Keys are uint32 here; PyTorch holds their bits in int32.
+// (raster.py:837-859); GPU blocks run in no order, so the look-back carries
+// it between tiles. Keys are uint32 here; PyTorch holds their bits in int32.
 //
 // Bounds on the H100 at 1200x700 (P = 630,784 slots, n = 735,784 resolve
 // entries): K7 reads 76 B and writes 24 B a slot (~63 MB), K8 reads 28 B and
 // writes 36 B an entry (~47 MB); both are bound by device-memory traffic and
-// launch latency, not arithmetic (~20 us and ~15 us at 3.35 TB/s).
+// launch latency, not arithmetic (~20 us and ~15 us at 3.35 TB/s): K8 is one
+// launch, whose blocks each wait at most on their predecessors' flags.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (gfx_ocean_tpu_torch/kernels.py). Plain C entry points, bound with ctypes.
@@ -51,8 +66,13 @@ namespace {
 constexpr int kOctW = 4;
 constexpr int kOctH = 2;
 constexpr int kSlotThreads = 256;
-constexpr int kScanThreads = 1024;  // render/raster.py SEGMIN_BLOCK
-constexpr int kWarps = kScanThreads / 32;
+constexpr int kSegThreads = 256;  // K8: threads a tile
+constexpr int kSegItems = 4;      // K8: consecutive entries a thread
+constexpr int kSegTile = kSegThreads * kSegItems;  // render/raster.py SEGMIN_TILE
+constexpr int kSegWarps = kSegThreads / 32;
+// A tile's look-back flag: epoch << 2 | state.
+constexpr uint32_t kAggregate = 1u;  // the tile's mins of its tail run
+constexpr uint32_t kInclusive = 2u;  // its tail run's mins from the run's start
 constexpr uint32_t kKeyMax = 0xFFFFFFFFu;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
@@ -145,157 +165,293 @@ slot_kernel(const uint32_t* __restrict__ crow, const int* __restrict__ cov, int 
   oct[s] = valid ? oy * octs_w + ox : spill_oct;
 }
 
-// Inclusive segmented min-scan over a block of kScanThreads entries whose run
-// ids ascend: afterwards m is the min over the entry's run up to itself,
-// within the block. Ascending ids make "same run at distance d" a single
-// compare (the log-shift of raster.py:846-853).
-__device__ __forceinline__ void block_segmin_scan(int id, uint32_t (&m)[8], int* s_id,
-                                                  uint32_t (*s_m)[kWarps]) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int oid = __shfl_up_sync(kFull, id, d);
-    const bool take = lane >= d && oid == id;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const uint32_t om = __shfl_up_sync(kFull, m[j], d);
-      if (take) m[j] = min(m[j], om);
-    }
-  }
-  if (lane == 31) {
-    s_id[warp] = id;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s_m[j][warp] = m[j];
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int wid = s_id[lane];
-    uint32_t wm[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) wm[j] = s_m[j][lane];
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int oid = __shfl_up_sync(kFull, wid, d);
-      const bool take = lane >= d && oid == wid;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const uint32_t om = __shfl_up_sync(kFull, wm[j], d);
-        if (take) wm[j] = min(wm[j], om);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s_m[j][lane] = wm[j];
-  }
-  __syncthreads();
-  if (warp > 0 && s_id[warp - 1] == id) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) m[j] = min(m[j], s_m[j][warp - 1]);
-  }
-}
-
-// _zq_unpack_keys for one entry: nk packed rows -> 8 full keys.
-__device__ __forceinline__ void unpack_keys(const uint32_t* __restrict__ sk, size_t n,
-                                            size_t i, int id_bits, uint32_t (&m)[8]) {
+// _zq_unpack_keys for one entry: c[r] its packed rows (5 or 8 of them) ->
+// 8 full keys.
+__device__ __forceinline__ void unpack_keys(const uint32_t (&c)[8], int id_bits,
+                                            uint32_t (&m)[8]) {
   const int z_bits = 32 - id_bits;
   const uint32_t zmax = (1u << z_bits) - 1u;
-  const uint32_t c0 = sk[i];
-  const uint32_t tri = c0 & ((1u << id_bits) - 1u);
+  const uint32_t tri = c[0] & ((1u << id_bits) - 1u);
   uint32_t zq[8];
-  zq[0] = c0 >> id_bits;
+  zq[0] = c[0] >> id_bits;
   if (z_bits <= 16) {
 #pragma unroll
     for (int r = 1; r < 5; ++r) {
-      const uint32_t c = sk[r * n + i];
-      zq[2 * r - 1] = c & zmax;
-      if (2 * r < 8) zq[2 * r] = (c >> 16) & zmax;
+      zq[2 * r - 1] = c[r] & zmax;
+      if (2 * r < 8) zq[2 * r] = (c[r] >> 16) & zmax;
     }
   } else {
 #pragma unroll
-    for (int r = 1; r < 8; ++r) zq[r] = sk[r * n + i] & zmax;
+    for (int r = 1; r < 8; ++r) zq[r] = c[r] & zmax;
   }
 #pragma unroll
   for (int j = 0; j < 8; ++j) m[j] = zq[j] == zmax ? kKeyMax : (zq[j] << id_bits) | tri;
 }
 
-__global__ void __launch_bounds__(kScanThreads)
-segmin_block(const int* __restrict__ so, const uint32_t* __restrict__ sk, int n, int id_bits,
-             int n_oct, int nb, uint32_t* __restrict__ mins, int* __restrict__ skey,
-             int* __restrict__ tail_id, uint32_t* __restrict__ tail_m) {
-  __shared__ int s_id[kWarps];
-  __shared__ uint32_t s_m[8][kWarps];
-  const int i = blockIdx.x * kScanThreads + threadIdx.x;
+__device__ __forceinline__ void min8(uint32_t (&m)[8], const uint32_t (&o)[8]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) m[j] = min(m[j], o[j]);
+}
+
+__device__ __forceinline__ uint32_t load_acquire(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(uint32_t* p, uint32_t v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// Publishes a tile's 8 mins and then its flag: the release orders the data
+// before the flag for a reader that loads the flag with acquire.
+__device__ __forceinline__ void publish(uint32_t* data, uint32_t* flag, const uint32_t (&m)[8],
+                                        uint32_t word) {
+  __stcg(reinterpret_cast<uint4*>(data), make_uint4(m[0], m[1], m[2], m[3]));
+  __stcg(reinterpret_cast<uint4*>(data) + 1, make_uint4(m[4], m[5], m[6], m[7]));
+  store_release(flag, word);
+}
+
+// Stores a thread's entries: their mins, and the run id at a run's last
+// entry (n_oct elsewhere). VEC: one uint4 a mins row and one int4 of skey.
+template <bool VEC>
+__device__ __forceinline__ void store_entries(const uint32_t (&m)[kSegItems][8],
+                                              const int (&id)[kSegItems], int next_id, int i0,
+                                              int n, int n_oct, uint32_t* __restrict__ mins,
+                                              int* __restrict__ skey) {
   const size_t nn = static_cast<size_t>(n);
-  int id = INT_MAX;  // past the end: a run of its own, after every real id
-  uint32_t m[8];
+  int key[kSegItems];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) m[j] = kKeyMax;
-  if (i < n) {
-    id = so[i];
-    unpack_keys(sk, nn, i, id_bits, m);
+  for (int e = 0; e < kSegItems; ++e) {
+    const int nxt = e + 1 < kSegItems ? id[e + 1] : next_id;
+    key[e] = nxt != id[e] ? id[e] : n_oct;
   }
-  block_segmin_scan(id, m, s_id, s_m);
-  if (i < n) {
+  if (VEC) {
+    if (i0 < n) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) mins[j * nn + i] = m[j];
-    const bool run_last = i == n - 1 || so[i + 1] != id;
-    skey[i] = run_last ? id : n_oct;
-    const int last = min(n, (static_cast<int>(blockIdx.x) + 1) * kScanThreads) - 1;
-    if (i == last) {
-      tail_id[blockIdx.x] = id;
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<uint4*>(mins + j * nn + i0) =
+            make_uint4(m[0][j], m[1][j], m[2][j], m[3][j]);
+      }
+      *reinterpret_cast<int4*>(skey + i0) = make_int4(key[0], key[1], key[2], key[3]);
+    }
+  } else {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) tail_m[j * nb + blockIdx.x] = m[j];
+    for (int e = 0; e < kSegItems; ++e) {
+      if (i0 + e < n) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mins[j * nn + i0 + e] = m[e][j];
+        skey[i0 + e] = key[e];
+      }
     }
   }
 }
 
-__global__ void __launch_bounds__(kScanThreads)
-segmin_carry(const int* __restrict__ tail_id, uint32_t* __restrict__ tail_m, int nb) {
-  __shared__ int s_id[kWarps];
-  __shared__ uint32_t s_m[8][kWarps];
-  __shared__ int s_carry_id;
-  __shared__ uint32_t s_carry_m[8];
+// VEC: n % 4 == 0 and every array 16-byte aligned, so a thread's kSegItems
+// entries are one int4 of so and one uint4 of each key row.
+template <bool VEC>
+__global__ void __launch_bounds__(kSegThreads)
+segmin_lookback(const int* __restrict__ so, const uint32_t* __restrict__ sk, int n, int id_bits,
+                int n_oct, int n_tiles, uint32_t epoch, uint32_t* __restrict__ ticket,
+                uint32_t* __restrict__ flags, uint32_t* __restrict__ agg,
+                uint32_t* __restrict__ incl, uint32_t* __restrict__ mins,
+                int* __restrict__ skey) {
+  static_assert(kSegItems == 4, "one int4 / uint4 a thread and row");
+  __shared__ int s_tile, s_head_id, s_continues;
+  __shared__ int s_tail_id[kSegWarps];
+  __shared__ uint32_t s_tail_m[kSegWarps][8];
+  __shared__ uint32_t s_carry[8];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const size_t nn = static_cast<size_t>(n);
+
   if (threadIdx.x == 0) {
-    s_carry_id = INT_MIN;  // no run id is negative
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s_carry_m[j] = kKeyMax;
+    const int t = static_cast<int>(atomicAdd(ticket, 1u));
+    if (t == n_tiles - 1) atomicExch(ticket, 0u);  // every ticket is out: reset for the next call
+    s_tile = t;
   }
   __syncthreads();
-  for (int base = 0; base < nb; base += kScanThreads) {
-    const int b = base + threadIdx.x;
-    int id = INT_MAX;
-    uint32_t m[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) m[j] = b < nb ? tail_m[j * nb + b] : kKeyMax;
-    if (b < nb) id = tail_id[b];
-    block_segmin_scan(id, m, s_id, s_m);
-    if (id == s_carry_id) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) m[j] = min(m[j], s_carry_m[j]);
-    }
-    if (b < nb) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) tail_m[j * nb + b] = m[j];
-    }
-    __syncthreads();  // every thread has read the carry and the scan's shared tails
-    if (threadIdx.x == kScanThreads - 1) {
-      s_carry_id = id;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s_carry_m[j] = m[j];
-    }
-    __syncthreads();
-  }
-}
+  const int tile = s_tile;
+  const int i0 = tile * kSegTile + threadIdx.x * kSegItems;  // this thread's first entry
+  const int nk = 32 - id_bits <= 16 ? 5 : 8;  // packed key rows (_zq_key_rows)
 
-__global__ void __launch_bounds__(kScanThreads)
-segmin_apply(const int* __restrict__ so, int n, const int* __restrict__ tail_id,
-             const uint32_t* __restrict__ tail_m, int nb, uint32_t* __restrict__ mins) {
-  const int b = blockIdx.x + 1;  // block 0 has nothing before it
-  const int i = b * kScanThreads + threadIdx.x;
-  if (i >= n || so[i] != tail_id[b - 1]) return;
-  const size_t nn = static_cast<size_t>(n);
+  // Loads: ids past n are INT_MAX (a run of their own after every real id)
+  // and their keys KEY_MAX.
+  int id[kSegItems];
+  uint32_t c[kSegItems][8];
+  if (VEC) {
+    if (i0 < n) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(so + i0));
+      id[0] = v.x, id[1] = v.y, id[2] = v.z, id[3] = v.w;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) mins[j * nn + i] = min(mins[j * nn + i], tail_m[j * nb + b - 1]);
+      for (int r = 0; r < 8; ++r) {
+        if (r < nk) {
+          const uint4 w = __ldg(reinterpret_cast<const uint4*>(sk + r * nn + i0));
+          c[0][r] = w.x, c[1][r] = w.y, c[2][r] = w.z, c[3][r] = w.w;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kSegItems; ++e) id[e] = INT_MAX;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < kSegItems; ++e) {
+      const int i = i0 + e;
+      id[e] = i < n ? __ldg(so + i) : INT_MAX;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        if (r < nk && i < n) c[e][r] = __ldg(sk + r * nn + i);
+      }
+    }
+  }
+  // The id after this thread's last entry, for its compaction key.
+  int next_id = __shfl_down_sync(kFull, id[0], 1);
+  if (lane == 31) next_id = i0 + kSegItems < n ? __ldg(so + i0 + kSegItems) : INT_MAX;
+  // Does the tile's first entry continue the run of the tile before? Read
+  // while the loads are in flight; the tile scan's barrier publishes it.
+  if (threadIdx.x == 0) {
+    s_head_id = id[0];
+    s_continues = tile > 0 && __ldg(so + i0 - 1) == id[0];
+  }
+
+  // Unpack, and the thread's serial segmented scan.
+  uint32_t m[kSegItems][8];
+#pragma unroll
+  for (int e = 0; e < kSegItems; ++e) {
+    if (i0 + e < n) {
+      unpack_keys(c[e], id_bits, m[e]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) m[e][j] = kKeyMax;
+    }
+    if (e > 0 && id[e] == id[e - 1]) min8(m[e], m[e - 1]);
+  }
+
+  // The thread's tail (its last id and that run's mins within the thread),
+  // scanned over the warp: ids ascend, so "same run at distance d" is one
+  // compare.
+  const int tid_last = id[kSegItems - 1];
+  uint32_t tm[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) tm[j] = m[kSegItems - 1][j];
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int oid = __shfl_up_sync(kFull, tid_last, d);
+    const bool take = lane >= d && oid == tid_last;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t om = __shfl_up_sync(kFull, tm[j], d);
+      if (take) tm[j] = min(tm[j], om);
+    }
+  }
+  if (lane == 31) {
+    s_tail_id[warp] = tid_last;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s_tail_m[warp][j] = tm[j];
+  }
+  __syncthreads();
+  // Every warp scans the 8 warp tails in its lanes 0..7 and takes the
+  // prefix of the warps before it.
+  int wid = lane < kSegWarps ? s_tail_id[lane] : INT_MAX;
+  uint32_t wm[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) wm[j] = lane < kSegWarps ? s_tail_m[lane][j] : kKeyMax;
+#pragma unroll
+  for (int d = 1; d < kSegWarps; d <<= 1) {
+    const int oid = __shfl_up_sync(kFull, wid, d);
+    const bool take = lane >= d && oid == wid;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t om = __shfl_up_sync(kFull, wm[j], d);
+      if (take) wm[j] = min(wm[j], om);
+    }
+  }
+  const int src = warp > 0 ? warp - 1 : 0;
+  const int pid = __shfl_sync(kFull, wid, src);
+  uint32_t pm[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) pm[j] = __shfl_sync(kFull, wm[j], src);
+  if (warp > 0 && pid == tid_last) min8(tm, pm);  // tm: the thread's tail over the tile
+  // The carry into this thread's first run: the previous thread's tail.
+  int cid = __shfl_up_sync(kFull, tid_last, 1);
+  uint32_t cm[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) cm[j] = __shfl_up_sync(kFull, tm[j], 1);
+  if (lane == 0) {
+    cid = warp > 0 ? pid : INT_MIN;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) cm[j] = pm[j];
+  }
+  if (cid == id[0]) {
+#pragma unroll
+    for (int e = 0; e < kSegItems; ++e) {
+      if (id[e] == id[0]) min8(m[e], cm);
+    }
+  }
+
+  // Publish the tile's tail: an inclusive prefix when its run starts here.
+  const bool continues = s_continues != 0;
+  const int head_id = s_head_id;
+  const bool inside = continues && tid_last == head_id;  // last thread: the tile lies in one run
+  if (threadIdx.x == kSegThreads - 1) {
+    publish((inside ? agg : incl) + static_cast<size_t>(tile) * 8, flags + tile, tm,
+            (epoch << 2) | (inside ? kAggregate : kInclusive));
+  }
+  // Entries outside the head run are final: store them while the look-back runs.
+  const bool final_now = !continues || id[0] != head_id;
+  if (final_now) store_entries<VEC>(m, id, next_id, i0, n, n_oct, mins, skey);
+
+  // Look back for the head run's carry: fold the predecessors' aggregates
+  // down to the nearest inclusive prefix, 32 tiles at a time.
+  if (continues && warp == 0) {
+    uint32_t carry[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) carry[j] = kKeyMax;
+    for (int p0 = tile - 1;; p0 -= 32) {
+      const int p = p0 - lane;
+      uint32_t f;
+      do {
+        f = p >= 0 ? load_acquire(flags + p) : ((epoch << 2) | kInclusive);
+      } while (__any_sync(kFull, (f >> 2) != epoch || (f & 3u) == 0u));
+      const bool inclusive = (f & 3u) == kInclusive;
+      const unsigned ballot = __ballot_sync(kFull, inclusive);
+      const int stop = ballot ? __ffs(ballot) - 1 : 31;
+      if (lane <= stop && p >= 0) {
+        const uint4* d = reinterpret_cast<const uint4*>((inclusive ? incl : agg) +
+                                                        static_cast<size_t>(p) * 8);
+        const uint4 lo = __ldcg(d), hi = __ldcg(d + 1);
+        const uint32_t o[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+        min8(carry, o);
+      }
+      if (ballot) break;
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) carry[j] = min(carry[j], __shfl_xor_sync(kFull, carry[j], d));
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s_carry[j] = carry[j];
+    }
+  }
+  __syncthreads();
+  if (continues) {
+    uint32_t carry[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) carry[j] = s_carry[j];
+#pragma unroll
+    for (int e = 0; e < kSegItems; ++e) {
+      if (id[e] == head_id) min8(m[e], carry);
+    }
+    if (inside && threadIdx.x == kSegThreads - 1) {
+      publish(incl + static_cast<size_t>(tile) * 8, flags + tile, m[kSegItems - 1],
+              (epoch << 2) | kInclusive);
+    }
+  }
+
+  if (!final_now) store_entries<VEC>(m, id, next_id, i0, n, n_oct, mins, skey);
 }
 
 }  // namespace
@@ -317,23 +473,33 @@ int slot_stage(const uint32_t* crow, const int* cov, int n_slots, int width, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches K8's three passes on `stream`; returns the first error. Inputs:
+// Launches K8 (one kernel) on `stream`; returns the first error. Inputs:
 // so (n,) ascending run ids; sk (5 or 8, n) packed key rows. Outputs:
-// mins (8, n), skey (n,). Scratch: tail_id (nb,), tail_m (8, nb) with
-// nb = ceil(n / 1024).
+// mins (8, n), skey (n,). Scratch, kept by the caller across calls on one
+// stream: ticket (1,), zero before the first call and left zero by every
+// call; flags (n_tiles,), zero before the first call; agg, incl
+// (n_tiles, 8); n_tiles = ceil(n / kSegTile). epoch: 1 ... 2^30 - 1, new
+// for each call since the flags were zeroed.
 int segmin_stage(const int* so, const uint32_t* sk, int n, int id_bits, int n_oct,
-                 uint32_t* mins, int* skey, int* tail_id, uint32_t* tail_m, void* stream) {
-  if (n < 1 || id_bits < 1 || id_bits > 20) return static_cast<int>(cudaErrorInvalidValue);
+                 uint32_t* mins, int* skey, uint32_t* ticket, uint32_t* flags, uint32_t* agg,
+                 uint32_t* incl, int epoch, void* stream) {
+  if (n < 1 || n > INT_MAX - kSegTile || id_bits < 1 || id_bits > 20 || epoch < 1 ||
+      epoch >= (1 << 30)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nb = (n + kScanThreads - 1) / kScanThreads;
-  segmin_block<<<nb, kScanThreads, 0, st>>>(so, sk, n, id_bits, n_oct, nb, mins, skey, tail_id,
-                                            tail_m);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || nb == 1) return static_cast<int>(err);
-  segmin_carry<<<1, kScanThreads, 0, st>>>(tail_id, tail_m, nb);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  segmin_apply<<<nb - 1, kScanThreads, 0, st>>>(so, n, tail_id, tail_m, nb, mins);
+  const int n_tiles = (n + kSegTile - 1) / kSegTile;
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool vec = n % 4 == 0 && aligned(so) && aligned(sk) && aligned(mins) && aligned(skey);
+  const uint32_t e = static_cast<uint32_t>(epoch);
+  if (vec) {
+    segmin_lookback<true><<<n_tiles, kSegThreads, 0, st>>>(so, sk, n, id_bits, n_oct, n_tiles, e,
+                                                           ticket, flags, agg, incl, mins, skey);
+  } else {
+    segmin_lookback<false><<<n_tiles, kSegThreads, 0, st>>>(so, sk, n, id_bits, n_oct, n_tiles,
+                                                            e, ticket, flags, agg, incl, mins,
+                                                            skey);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,13 +13,18 @@ for bit. Semantics, arrays indexed [y, x]:
 3. Correction: -1 where (x+y) even (``ref_sign``), real part, packed as
    (disp_x, height, disp_z).
 4. Normals: central differences of the height with height_scale 180.
+
+``golden_fields_rows`` computes the same fields on a band of rows, in
+float64 torch on the tensors' device, for grids where a whole numpy golden
+is too slow (16384^2).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from gfx_ocean_tpu_torch.config import CompatFlags
 
@@ -105,6 +110,61 @@ def golden_fields(
     fy = np.real(ifft2_unnorm_np(h)) * sign
     fz = np.real(ifft2_unnorm_np(dz)) * sign
     return np.stack([fx, fy, fz], axis=-1)
+
+
+def golden_fields_rows(
+    h0_pair: torch.Tensor,
+    omega: torch.Tensor,
+    t: float,
+    domain_size: float,
+    compat: CompatFlags = CompatFlags(),
+    row_base: int = 0,
+    rows: Optional[int] = None,
+    col_chunk: int = 2048,
+) -> torch.Tensor:
+    """``golden_fields`` on the rows row_base .. row_base + rows - 1 alone:
+    (rows, N, 3) float64 (disp_x, height, disp_z) on the device of
+    ``h0_pair`` (2, N, N) and ``omega`` (N, N).
+
+    ``golden_propagate`` in float64 torch, ``col_chunk`` columns at a time;
+    the unnormalized inverse DFT along y is evaluated at the band's rows
+    only, a (rows, N) x (N, chunk) complex product with e^{+2 pi i y m / N}
+    (phases reduced mod N in integers), then along x by ``torch.fft.ifft``
+    times N; then the correction sign and the real part."""
+    n = omega.shape[-1]
+    dev = omega.device
+    rows = n - row_base if rows is None else rows
+    ys = torch.arange(row_base, row_base + rows, dtype=torch.int64, device=dev)
+    ms = torch.arange(n, dtype=torch.int64, device=dev)
+    ang = ((ys[:, None] * ms[None, :]) % n).to(torch.float64) * (2.0 * np.pi / n)
+    e_y = torch.polar(torch.ones_like(ang), ang)
+    k = torch.from_numpy(wavenumber_1d(n, domain_size, compat.wrap_k)).to(dev)
+    ky = k[:, None]
+    spec_rows = torch.empty((3, rows, n), dtype=torch.complex128, device=dev)
+    for c0 in range(0, n, col_chunk):
+        c1 = min(n, c0 + col_chunk)
+        h0 = torch.complex(h0_pair[0, :, c0:c1].double(), h0_pair[1, :, c0:c1].double())
+        # h0[::-1, ::-1] at columns c0 .. c1 - 1: rows N-1-y, columns N-1-x
+        flip = h0_pair[:, :, n - c1:n - c0].flip(-2, -1).double()
+        h0_neg = torch.complex(flip[0], flip[1])
+        if compat.conj_neg:
+            h0_neg = h0_neg.conj()
+        phase = omega[:, c0:c1].double() * float(t)
+        e_pos = torch.polar(torch.ones_like(phase), phase)
+        h = h0 * e_pos + h0_neg * e_pos.conj()
+        kx = k[None, c0:c1]
+        k_len = torch.sqrt(kx * kx + ky * ky)
+        safe = k_len > 1.0e-10
+        kxn = torch.where(safe, kx / k_len, torch.zeros_like(k_len))
+        kyn = torch.where(safe, ky / k_len, torch.zeros_like(k_len))
+        spec_rows[0, :, c0:c1] = e_y @ (-1j * kxn * h)
+        spec_rows[1, :, c0:c1] = e_y @ h
+        spec_rows[2, :, c0:c1] = e_y @ (-1j * kyn * h)
+    fields = (torch.fft.ifft(spec_rows, dim=-1) * n).real
+    x = torch.arange(n, device=dev)[None, :]
+    even = (x + ys[:, None]) % 2 == 0
+    sign = torch.where(even, -1.0, 1.0) if compat.ref_sign else torch.where(even, 1.0, -1.0)
+    return torch.movedim(fields * sign.to(torch.float64), 0, -1)
 
 
 def golden_normals(height: np.ndarray, height_scale: float = 180.0) -> np.ndarray:

@@ -10,14 +10,14 @@ Routes through ``step`` / ``make_rollout``, by ``config.fft_impl``:
   ``pallas_planes`` routes it: at N <= 512 kernel K1, or with
   ``hermitian_pack=False`` the unpacked step (``ops/unpacked_step.py``:
   kernel K4, or K5 + K6 at 512 with ``matmul_precision="highest"``);
-  kernels K2 + K3 (``ops/fourstep_step.py``) for 1024 <= N <= 8192
+  kernels K2 + K3 (``ops/fourstep_step.py``) for 1024 <= N <= 16384
   whatever ``hermitian_pack`` says. The hand-written CUDA kernels run for
   CUDA tensors, their plain PyTorch version for CPU tensors.
 - "matmul": the PyTorch matmul DFT (``ops/fft.py``; the four-step split
   above ``direct_dft_max``), packed or unpacked by ``config.hermitian_pack``.
 
-Not ported yet, and raising ``NotImplementedError``: "pallas" at
-N = 16384, the "default" precision tier, "xla" and cascades.
+Not ported yet, and raising ``NotImplementedError``: the "default"
+precision tier, "xla" and cascades.
 ``time_batch`` frames run as one batch axis; the hoisted inputs are
 computed once per rollout call.
 

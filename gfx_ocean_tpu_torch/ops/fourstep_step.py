@@ -1,4 +1,4 @@
-"""The four-step ocean step for 1024 <= N <= 8192 (kernels K2 + K3) on the card.
+"""The four-step ocean step for 1024 <= N <= 16384 (kernels K2 + K3) on the card.
 
 Counterpart of the four-step half of ``gfx_ocean_tpu/ops/pallas_step.py``
 (``:568-1192``). K2 replaces ``_fourstep_row_kernel`` (launched by
@@ -31,15 +31,18 @@ Two implementations sit side by side:
   cost ~2 TFLOP a frame at 4096^2; the factored tables ~0.1.
 - ``launch_fourstep_row`` / ``launch_fourstep_col``: the hand-written CUDA
   kernels of ``csrc/fourstep_step.cu`` (K2 a register-resident radix-8
-  FFT a row; K3 the column transform split 128 x N/128, each stage
-  register-resident passes of 32-column bands, with one device-memory round
-  trip between them).
+  FFT a row, one block a row up to 8192 and a two-block thread-block
+  cluster a row at 16384, where a row's 2,048 threads and 295 KB exchange
+  buffer outgrow one block; K3 the column transform split 128 x N/128,
+  each stage register-resident passes of 32-column bands, with one
+  device-memory round trip between them).
 
 ``fourstep_planes`` / ``fourstep_checksums`` pick by where the tensors lie:
 CPU tensors take the plain version, CUDA tensors launch the kernels or
-raise. Nothing falls back. N = 16384 raises ``NotImplementedError``: K2
-runs N / 8 threads a row, 2,048 there, past a block's 1,024 (K3 builds at
-N = 16384).
+raise. Nothing falls back: where K2's cluster cannot be scheduled the
+launch raises. At 16384^2 the plain version takes a band of rows
+(``fourstep_row_reference``'s ``row_base`` / ``rows``) or of columns (a
+column slice of Y); on the whole grid it would need tens of GB.
 
 What bounds K2 + K3 on the H100 at 4096^2 (tb = 1): ~1.5 GB of device
 memory traffic a frame (the 201 MB state, Y and the column pass's scratch
@@ -66,8 +69,8 @@ from gfx_ocean_tpu_torch.ops.propagate import (_f32, as_times, gather_packed_pla
                                                packed_spectra)
 
 MIN_N = 1024
-# Largest N the step takes (K2's limit); 16384 is ROADMAP.md queue 2, "K2 at 16384".
-MAX_KERNEL_N = 8192
+# Largest N the kernels take: the plan's range.
+MAX_KERNEL_N = 16384
 # Rows of the output reduced by one block of the checksum kernel.
 CHECKSUM_ROWS = 4
 # Columns per K3 block (csrc/fourstep_step.cu, kColCols).
@@ -100,13 +103,9 @@ def fourstep_plan(n: int, config: OceanConfig) -> Tuple[int, int, int, int]:
 
 
 def check_supported(config: OceanConfig, n: int) -> str:
-    """Raise for grids the four-step route does not cover; return the tier."""
+    """Raise for grids the four-step route does not cover (the plan's
+    ``ValueError`` outside [1024, 16384]); return the tier."""
     fourstep_plan(n, config)
-    if n > MAX_KERNEL_N:
-        raise NotImplementedError(
-            f"N={n} > {MAX_KERNEL_N} on the four-step route is not ported yet: "
-            "K2 runs N / 8 threads a row, more than a block's 1,024 "
-            "(ROADMAP.md queue 2, K2 at 16384)")
     return effective_precision(config.matmul_precision)
 
 
@@ -292,6 +291,8 @@ def launch_fourstep_row(inputs: FourstepInputs, ts, config: OceanConfig,
                         row_base: int = 0, rows: Optional[int] = None) -> torch.Tensor:
     """Launch K2 on the current stream: ts (tb,) -> Y (tb, 2, 2, rows, N) on
     ``rows`` rows (default: to the last) from the global row ``row_base``.
+    At N = 16384 the kernel runs a row on a two-block cluster, and raises
+    where the device cannot schedule one.
 
     Adds one to ``launch_fourstep_row.launches`` per launch."""
     from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use

@@ -14,7 +14,9 @@ Two stages are kernels written by hand for Hopper (``csrc/raster.cu``):
   pixels' edge, denominator and z tests and emit the packed key rows
   (``_zq_pack_rows``) and the oct id;
 - K8, the segmented min (``segmin_stage``; replaces ``_segmin_kernel``):
-  the component-wise prefix min over oct-sorted runs and the compaction key.
+  the component-wise prefix min over oct-sorted runs and the compaction key,
+  in one launch: a single-pass scan over 1024-entry tiles whose run carry
+  crosses tiles by decoupled look-back.
 
 Each has its plain PyTorch version beside it (``slot_stage_reference``,
 ``segmin_stage_reference``). CPU tensors take the plain version; CUDA
@@ -431,13 +433,49 @@ def segmin_stage_reference(so: torch.Tensor, sk: torch.Tensor, n_oct: int, id_bi
     return _u32_bits(m), skey.to(torch.int32)
 
 
-SEGMIN_BLOCK = 1024      # entries a block of K8's scan kernel (one a thread)
+SEGMIN_TILE = 1024       # entries a tile of K8 (256 threads x 4 consecutive entries)
+_EPOCHS = 1 << 30        # K8's flags hold epoch << 2 | state in 32 bits
+
+
+class _SegminScratch:
+    """K8's look-back state on one stream: the tile ticket (left zero by
+    every call), the tiles' flags, aggregates and inclusive prefixes, and
+    the epoch of the last call. Grows with n; allocated, zeroed, once."""
+
+    def __init__(self, n_tiles: int, device: torch.device):
+        self.ticket = torch.zeros(1, dtype=torch.int32, device=device)
+        self.flags = torch.zeros(n_tiles, dtype=torch.int32, device=device)
+        self.agg = torch.empty((n_tiles, 8), dtype=torch.int32, device=device)
+        self.incl = torch.empty((n_tiles, 8), dtype=torch.int32, device=device)
+        self.epoch = 0
+
+    def next_epoch(self) -> int:
+        """The epoch of a new call: flags of earlier calls never match it."""
+        self.epoch += 1
+        if self.epoch == _EPOCHS:
+            self.flags.zero_()
+            self.epoch = 1
+        return self.epoch
+
+
+_SEGMIN_SCRATCH: dict = {}
+
+
+def _segmin_scratch(n_tiles: int, device: torch.device) -> _SegminScratch:
+    """The look-back state of the current stream, with room for n_tiles."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    scratch = _SEGMIN_SCRATCH.get(key)
+    if scratch is None or scratch.flags.shape[0] < n_tiles:
+        scratch = _SEGMIN_SCRATCH[key] = _SegminScratch(n_tiles, device)
+    return scratch
 
 
 def launch_segmin_kernel(so: torch.Tensor, sk: torch.Tensor, n_oct: int, id_bits: int):
-    """Launch K8 (``csrc/raster.cu``: ``segmin_block``, ``segmin_carry``,
-    ``segmin_apply``) on the current stream; same arguments and results as
-    ``segmin_stage_reference``. Adds one to
+    """Launch K8 (``csrc/raster.cu``: ``segmin_lookback``, one kernel: a
+    single-pass segmented min-scan over tiles of ``SEGMIN_TILE`` entries
+    with decoupled look-back) on the current stream; same arguments and
+    results as ``segmin_stage_reference``. The look-back state is kept per
+    stream and device and reused by later calls. Adds one to
     ``launch_segmin_kernel.launches`` per launch."""
     from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
 
@@ -451,18 +489,17 @@ def launch_segmin_kernel(so: torch.Tensor, sk: torch.Tensor, n_oct: int, id_bits
         raise ValueError("so: expected a non-empty (n,) tensor")
     _check_tensor("so", so, torch.int32, (n,), dev)
     _check_tensor("sk", sk, torch.int32, (_zq_key_rows(id_bits), n), dev)
-    nb = -(-n // SEGMIN_BLOCK)
     mins = torch.empty((8, n), dtype=torch.int32, device=dev)
     skey = torch.empty((n,), dtype=torch.int32, device=dev)
-    tail_id = torch.empty((nb,), dtype=torch.int32, device=dev)
-    tail_m = torch.empty((8, nb), dtype=torch.int32, device=dev)
+    scratch = _segmin_scratch(-(-n // SEGMIN_TILE), dev)
     lib = kernels.load("raster")
     err = lib.segmin_stage(so.data_ptr(), sk.data_ptr(), n, id_bits, n_oct, mins.data_ptr(),
-                           skey.data_ptr(), tail_id.data_ptr(), tail_m.data_ptr(),
+                           skey.data_ptr(), scratch.ticket.data_ptr(), scratch.flags.data_ptr(),
+                           scratch.agg.data_ptr(), scratch.incl.data_ptr(), scratch.next_epoch(),
                            _cuda_stream(dev))
     if err != 0:
         msg = lib.raster_error_string(err).decode()
-        raise RuntimeError(f"segmented-min kernels (K8) failed to launch: CUDA error {err} ({msg})")
+        raise RuntimeError(f"segmented-min kernel (K8) failed to launch: CUDA error {err} ({msg})")
     launch_segmin_kernel.launches += 1
     return mins, skey
 

@@ -170,6 +170,27 @@ def test_golden_model_bit_equal(flags):
         assert np.array_equal(tgold.correction_sign(n, ref), jgold.correction_sign(n, ref))
 
 
+@pytest.mark.parametrize("flags", FLAGS, ids=["default", "wrap_k", "canonical", "conj_neg"])
+@pytest.mark.parametrize("row_base,rows,col_chunk", [(0, 64, 2048), (7, 16, 24), (48, 16, 64)],
+                         ids=["all-rows", "band-7", "band-48"])
+def test_golden_rows_equal_numpy_golden(flags, row_base, rows, col_chunk):
+    """The float64 torch golden of a band of rows (used at 16384^2 on the
+    card) equals the JAX package's numpy golden on those rows at 64^2,
+    whatever the column chunk: the same propagate, the inverse DFT along y
+    as a product at the band's rows, along x by FFT (rounding only)."""
+    rng = np.random.default_rng(64)
+    n = 64
+    h0 = rng.standard_normal((2, n, n)).astype(np.float32)
+    om = (rng.random((n, n)) * 3).astype(np.float32)
+    for t in (11.25, 1000.0):
+        want = jgold.golden_fields(h0[0] + 1j * h0[1], om, t, 1000.0, J.CompatFlags(**flags))
+        got = tgold.golden_fields_rows(torch.from_numpy(h0), torch.from_numpy(om), t, 1000.0,
+                                       T.CompatFlags(**flags), row_base, rows, col_chunk)
+        assert got.shape == (rows, n, 3) and got.dtype == torch.float64
+        assert (np.abs(got.numpy() - want[row_base:row_base + rows]).max()
+                <= 1e-12 * np.abs(want).max())
+
+
 PHILLIPS = [
     dict(),
     dict(wind_direction=(1.0, 2.0), directional_power=4.0, small_wave_cutoff=0.01),

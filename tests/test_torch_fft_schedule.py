@@ -21,6 +21,13 @@ of a warp over 32 columns, twiddles read at a stride from the N-point
 table) are also chained as the kernels chain them, through the sign, the
 twiddle e^{2 pi i n1 m2 / N} and the scratch's layout, against the N-point
 ``numpy.fft`` of the column.
+
+K2 at N = 16384 runs a row on a thread-block cluster
+(``fourstep_row_pass_cluster``): its 2,048 threads split over C blocks,
+thread tid = rank * (2048 / C) + threadIdx.x, and padded index a of the
+exchange buffer in block rank a // L at local index a % L, L = (N + N / 8)
+/ C, reached through distributed shared memory. The emulation runs the
+transform through that addressing and counts bank conflicts per block.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ K4_SEQS = 8           # K4-K6: rows a row item, columns a column item (kSeqs)
 K3_COLS = 32          # K3: columns a block (kColCols)
 K3_LOG2N1 = 7         # K3: the column split N = 128 * N2
 K3_THREADS = 512      # K3: threads a block of either stage
+K2_CLUSTER = 2        # K2 at 16384: blocks of its cluster (kClusterBlocks)
 SMEM_LIMIT = 232448   # bytes of shared memory one block can use on the H100
 WARP = 32
 BANKS = 32
@@ -82,15 +90,19 @@ def dft(x: np.ndarray) -> np.ndarray:
 
 
 class Layout:
-    """Threads of one block: each thread's sequence, its index tid within
-    the sequence, and the shared-memory address of (sequence, padded index)
-    for one plane of one buffer."""
+    """Threads of one block (of one cluster for K2 at 16384): each thread's
+    sequence, its index tid within the sequence, and the shared-memory
+    address of (sequence, padded index) for one plane of one buffer; with
+    a cluster, ``rank(addr)`` is the block that holds the address."""
 
-    def __init__(self, kind: str, log2n: int, log2rm: int):
+    def __init__(self, kind: str, log2n: int, log2rm: int, cluster: int = 1):
         n, rm = 1 << log2n, 1 << log2rm
         self.t = n // rm                      # threads a sequence
         self.length = n + n // rm             # padded sequence length (kLen)
-        if kind in ("rows", "k4rows"):        # K1's row pass, K2 (one row a block), K4 / K5
+        self.cluster = cluster
+        self.rank_length = self.length // cluster  # the part of a row's buffer a block holds
+        self.rank = lambda addr: addr // self.rank_length
+        if kind in ("rows", "k4rows"):        # K1's row pass, K2 (one row a block or cluster), K4 / K5
             rows = (K4_SEQS if kind == "k4rows"
                     else 1 if log2n >= 10 else min(n, max(1, K1_ROW_THREADS // self.t)))
             threads = rows * self.t
@@ -127,24 +139,26 @@ class Layout:
         self.threads = threads
 
 
-def _conflict(addr: np.ndarray, threads: int) -> int:
-    """Largest number of distinct addresses one bank serves in one warp."""
+def _conflict(addr: np.ndarray, lay: "Layout") -> int:
+    """Largest number of distinct addresses one bank of one block serves in
+    one warp (a cluster's blocks sit on different SMs, each with its banks)."""
     worst = 0
-    for w0 in range(0, threads, WARP):
+    for w0 in range(0, lay.threads, WARP):
         a = np.unique(addr[w0:w0 + WARP])
-        worst = max(worst, int(np.bincount(a % BANKS).max()))
+        local = a - lay.rank(a) * lay.rank_length
+        worst = max(worst, int(np.bincount(lay.rank(a) * BANKS + local % BANKS).max()))
     return worst
 
 
 def emulate(kind: str, log2n: int, log2rm: int, x: np.ndarray, log2tw: int = 0,
-            alternate: bool = True):
+            alternate: bool = True, cluster: int = 1):
     """Run the passes on x (nseq, n) as the block's threads do, with the
     twiddles of a 2^log2tw-point table (default: the transform's own) and
     the output sign (-1)^x unless ``alternate`` is off. Returns
     (y (nseq, n), worst bank conflict of any exchange access, max padded
     index, whether the block's addresses of each exchange were distinct)."""
     n, rm = 1 << log2n, 1 << log2rm
-    lay = Layout(kind, log2n, log2rm)
+    lay = Layout(kind, log2n, log2rm, cluster)
     t = lay.t
     tw = twiddle_table(max(n, 1 << log2tw), "cpu").numpy()
     seq, tid = lay.seq, lay.tid
@@ -175,7 +189,7 @@ def emulate(kind: str, log2n: int, log2rm: int, x: np.ndarray, log2tw: int = 0,
                 a = pad(idx_d + (k << ls), p, log2n, log2rm, lay.log2w)
                 max_index = max(max_index, int(a.max()))
                 ad = lay.addr(seq, a)
-                worst = max(worst, _conflict(ad, lay.threads))
+                worst = max(worst, _conflict(ad, lay))
                 mem[ad] = v[:, u * r + k]
                 written.append(ad)
         written = np.concatenate(written)
@@ -187,7 +201,7 @@ def emulate(kind: str, log2n: int, log2rm: int, x: np.ndarray, log2tw: int = 0,
             for k in range(r2):
                 a = pad(j + (k << (log2n - lr2)), p, log2n, log2rm, lay.log2w)
                 ad = lay.addr(seq, a)
-                worst = max(worst, _conflict(ad, lay.threads))
+                worst = max(worst, _conflict(ad, lay))
                 v[:, u * r2 + k] = mem[ad]
     assert max_index < lay.length
     rl = 1 << log2r(log2n, log2rm, npass - 1)
@@ -201,7 +215,7 @@ def emulate(kind: str, log2n: int, log2rm: int, x: np.ndarray, log2tw: int = 0,
 
 CASES = ([("K1 rows", "rows", ln, K1_LOG2RM) for ln in range(4, 10)]
          + [("K1 cols", "cols", ln, K1_LOG2RM) for ln in range(4, 10)]
-         + [("K2", "rows", ln, K2_LOG2RM) for ln in range(10, 14)]
+         + [("K2", "rows", ln, K2_LOG2RM) for ln in range(10, 15)]
          + [("K4 rows", "k4rows", ln, K1_LOG2RM) for ln in range(4, 10)]
          + [("K4 cols", "cols", ln, K1_LOG2RM) for ln in range(4, 10)])
 
@@ -221,9 +235,44 @@ def test_passes_equal_numpy_fft_without_bank_conflicts(kind, log2n, log2rm):
     assert injective
 
 
+@pytest.mark.parametrize("cluster", [2, 4], ids=["2x1024", "4x512"])
+def test_k2_cluster_passes_through_distributed_shared_memory(cluster):
+    """K2 at 16384 on a cluster of 2 blocks of 1,024 threads or 4 of 512:
+    the transform through the blocks' parts of the buffer equals
+    ``numpy.fft`` with no bank conflict in any block, every padded index
+    lies in a block's part (a block holds L = kLen / C floats of each of
+    the 4 planes, within its shared memory, and C = 4 fits two blocks a
+    SM), and a warp's threads lie in one block. About half the exchanged
+    points cross blocks at C = 2, three quarters at C = 4."""
+    log2n, n = 14, 1 << 14
+    lay = Layout("rows", log2n, K2_LOG2RM, cluster)
+    block_threads = lay.threads // cluster
+    assert lay.threads == 2048 and block_threads % WARP == 0 and block_threads <= 1024
+    assert lay.length % (BANKS * cluster) == 0  # a block's part keeps the banks
+    assert 4 * lay.rank_length * 4 <= SMEM_LIMIT
+    if cluster == 4:
+        assert 2 * 4 * lay.rank_length * 4 <= SMEM_LIMIT
+    rng = np.random.default_rng(cluster)
+    x = rng.standard_normal((1, n)) + 1j * rng.standard_normal((1, n))
+    y, worst, max_index, injective = emulate("rows", log2n, K2_LOG2RM, x, cluster=cluster)
+    want = np.where(np.arange(n) & 1, -1.0, 1.0) * (n * np.fft.ifft(x, axis=-1))
+    assert np.abs(y - want).max() <= 1e-6 * np.abs(want).max()
+    assert worst == 1 and injective
+    assert lay.rank(max_index) < cluster
+    # the share of a pass's exchange that crosses blocks: a thread's block is
+    # tid // block_threads; the reads of pass 0's exchange (pad<0>)
+    tid = np.arange(lay.threads)
+    remote = []
+    for k in range(8):
+        a = pad(tid + (k << (log2n - 3)), 0, log2n, K2_LOG2RM, lay.log2w)
+        remote.append(lay.rank(a) != tid // block_threads)
+    assert abs(np.mean(remote) - (1 - 1 / cluster)) < 0.05  # the padding moves the split
+
+
 @pytest.mark.parametrize("log2n,log2rm,radices", [
     (4, 3, [8, 2]), (5, 3, [8, 4]), (6, 3, [8, 8]), (9, 3, [8, 8, 8]),
     (10, 3, [8, 8, 8, 2]), (12, 3, [8, 8, 8, 8]), (13, 3, [8, 8, 8, 8, 2]),
+    (14, 3, [8, 8, 8, 8, 4]),
     (12, 4, [16, 16, 16]), (13, 4, [16, 16, 16, 2])])
 def test_plans(log2n, log2rm, radices):
     """R = 8 (K1 and K2; 16 was measured slower for K2), a last radix 2 or 4

@@ -94,7 +94,7 @@ def _pallas_planes(h0, om, t, jc):
 # Plan, tables, k-hat band.
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n", [1024, 2048, 8192])
+@pytest.mark.parametrize("n", [1024, 2048, 8192, 16384])
 def test_plan_and_tables_equal_jax(n):
     jc, tc = _configs(n)
     plan = fs.fourstep_plan(n, tc)

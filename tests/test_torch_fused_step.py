@@ -130,12 +130,13 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_unsupported_configurations_raise():
-    # N > 512 takes the four-step route (K2 + K3): the plan's range, and
-    # 16384, which the kernels do not take yet. No state is allocated.
+    # N > 512 takes the four-step route (K2 + K3) over the plan's range:
+    # 16384 returns its tier (K2 runs a row on a cluster there), 32768
+    # raises. No state is allocated.
     with pytest.raises(ValueError, match=r"\[1024, 16384\]"):
         fused_step.check_supported(T.OceanConfig(resolution=32768, fft_impl="pallas"), 32768)
-    with pytest.raises(NotImplementedError, match="16384"):
-        fused_step.check_supported(T.OceanConfig(resolution=16384, fft_impl="pallas"), 16384)
+    assert fused_step.check_supported(
+        T.OceanConfig(resolution=16384, fft_impl="pallas"), 16384) == "fp32"
     # hermitian_pack=False at N <= 512 runs the unpacked step (K4-K6): its
     # hoisted inputs, routes and plane shapes; its "default" tier raises.
     unpacked = T.OceanConfig(resolution=64, fft_impl="pallas", hermitian_pack=False)

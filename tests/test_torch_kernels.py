@@ -1,7 +1,7 @@
 """Kernels K1 (``gfx_ocean_tpu_torch/csrc/packed_step.cu``), K2 + K3
-(``csrc/fourstep_step.cu``), K4-K6 (``csrc/unpacked_step.cu``) and K7 + K8
-(``csrc/raster.cu``) against their plain PyTorch versions, and two checks
-that run anywhere.
+(``csrc/fourstep_step.cu``, up to 16384^2 on bands there), K4-K6
+(``csrc/unpacked_step.cu``) and K7 + K8 (``csrc/raster.cu``) against their
+plain PyTorch versions, and two checks that run anywhere.
 
 The CUDA tests are marked ``cuda`` and skip without a GPU: a CUDA kernel
 has no CPU mode. This file imports no jax, so on a machine with a GPU and
@@ -30,7 +30,7 @@ from gfx_ocean_tpu_torch.ops import unpacked_step as us
 from gfx_ocean_tpu_torch.ops.derived import finite_difference_normals_planes
 from gfx_ocean_tpu_torch.render import raster as rr
 from gfx_ocean_tpu_torch.render.camera import Camera
-from gfx_ocean_tpu_torch.spectra.phillips import synthesize
+from gfx_ocean_tpu_torch.spectra.phillips import dispersion, synthesize
 
 REPO = Path(__file__).resolve().parent.parent
 # Kernel vs plain, |diff| / max |field|: both FP32, FFT against dense matmul,
@@ -213,6 +213,47 @@ def test_fourstep_col_on_a_column_band(cuda, n):
     assert partials is None and got.shape == (2, 3, n, 96)
     assert torch.equal(got, whole[..., 160:256])
     assert _rel(got, fs.fourstep_col_reference(band, cfg)) < TOL_PLANES
+
+
+@functools.lru_cache(maxsize=None)
+def _big_inputs(device):
+    """A 16384^2 state drawn on the card (h0 from a CUDA generator seeded
+    16384, the deep-water dispersion as omega) and its K2 + K3 inputs."""
+    n = 16384
+    gen = torch.Generator(device=device).manual_seed(n)
+    h0 = torch.randn((2, n, n), generator=gen, device=device)
+    omega = torch.from_numpy(dispersion(n, 1000.0)).to(device)
+    cfg = OceanConfig(resolution=n, fft_impl="pallas")
+    return cfg, fused_step.hoist_packed(h0, omega, cfg)
+
+
+@pytest.mark.cuda
+def test_fourstep_16384_on_row_and_column_bands(cuda):
+    """K2 at 16384 (a row on a thread-block cluster) on 16-row bands and
+    K3 on 128-column bands of the whole frame, against the plain version
+    on those bands (the plain version of the whole grid needs tens of GB);
+    a banded K2 launch equals the same rows of the whole pass; the
+    checksum's partials sum the kernel's own planes. One launch each."""
+    cfg, inputs = _big_inputs(cuda)
+    n = cfg.resolution
+    ts = [11.25]
+    rows, cols = fs.launch_fourstep_row.launches, fs.launch_fourstep_col.launches
+    y = fs.launch_fourstep_row(inputs, ts, cfg)
+    planes, partials = fs.launch_fourstep_col(y, inputs.twiddle, cfg, checksum=True)
+    assert fs.launch_fourstep_row.launches == rows + 1
+    assert fs.launch_fourstep_col.launches == cols + 1
+    assert y.shape == (1, 2, 2, n, n) and planes.shape == (1, 3, n, n)
+    for base in (n // 2 - 3, n - 16):
+        want = fs.fourstep_row_reference(inputs, ts, cfg, row_base=base, rows=16)
+        assert _rel(y[..., base:base + 16, :], want) < TOL_PLANES
+        band = fs.launch_fourstep_row(inputs, ts, cfg, row_base=base, rows=16)
+        assert torch.equal(band, y[..., base:base + 16, :])
+    for c0 in (4096 + 32, n - 128):
+        want = fs.fourstep_col_reference(y[..., c0:c0 + 128].contiguous(), cfg)
+        assert _rel(planes[..., c0:c0 + 128], want) < TOL_PLANES
+    del y
+    assert bool(torch.isfinite(planes).all())
+    assert _checksum_rel(partials.sum(-1), planes, cfg) < TOL_CHECKSUM
 
 
 @pytest.mark.cuda
@@ -481,6 +522,72 @@ def test_segmin_kernel_runs_spanning_blocks(cuda, id_bits):
     mins, skey = rr.launch_segmin_kernel(so_t, sk_t, n_oct, id_bits)
     want_mins, want_skey = rr.segmin_stage_reference(so_t, sk_t, n_oct, id_bits)
     assert torch.equal(mins, want_mins) and torch.equal(skey, want_skey)
+
+
+def _segmin_case(kind: str, n: int, rng):
+    """Ascending run ids (n,) and n_oct for K8: runs inside its 1024-entry
+    tiles, runs over many tiles, one run over every tile, a tile wholly
+    inside a run."""
+    tile = rr.SEGMIN_TILE
+    if kind == "short_runs":
+        return np.sort(rng.integers(0, n // 3, n)), n // 3
+    if kind == "spanning_runs":
+        return np.sort(np.concatenate([rng.integers(0, 4000, n - 3 * (n // 4)),
+                                       np.full(n // 4, 50), np.full(n // 4, 2000),
+                                       np.full(n // 4, 3999)])), 4000
+    if kind == "one_run":
+        return np.full(n, 7), 9
+    ids = np.sort(rng.integers(0, 100_000, n))  # tile_inside_run
+    ids[5 * tile - 5:6 * tile + 3] = ids[5 * tile - 5]
+    return ids, 100_000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("id_bits", [17, 10])
+@pytest.mark.parametrize("kind", ["short_runs", "spanning_runs", "one_run", "tile_inside_run"])
+@pytest.mark.parametrize("n", [735_784, 100_003], ids=["frame-size", "ragged"])
+def test_segmin_kernel_lookback_cases(cuda, n, kind, id_bits):
+    """K8's look-back on the cases of tests/test_torch_segmin_lookback.py
+    at the frame's resolve size (16-byte loads) and at an n that is not a
+    multiple of 4 (scalar loads): bit-equal to the plain version, three
+    calls in a row on one stream's look-back state."""
+    rng = np.random.default_rng([n, id_bits])
+    for _ in range(3):
+        so, n_oct = _segmin_case(kind, n, rng)
+        sk = rng.integers(-2**31, 2**31, (rr._zq_key_rows(id_bits), n), dtype=np.int64)
+        so_t = torch.from_numpy(so.astype(np.int32)).to(cuda)
+        sk_t = torch.from_numpy(sk.astype(np.int32)).to(cuda)
+        mins, skey = rr.launch_segmin_kernel(so_t, sk_t, n_oct, id_bits)
+        want_mins, want_skey = rr.segmin_stage_reference(so_t, sk_t, n_oct, id_bits)
+        assert torch.equal(mins, want_mins) and torch.equal(skey, want_skey)
+
+
+@pytest.mark.cuda
+def test_segmin_kernel_is_one_launch_a_call(cuda):
+    """torch.profiler sees one K8 kernel a call and no other device work
+    but at most one memset a call (the look-back state is made by the
+    first call and reused)."""
+    from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
+
+    n, n_oct, calls = 735_784, 105_000, 4
+    rng = np.random.default_rng(3)
+    so = torch.from_numpy(np.sort(rng.integers(0, n_oct + 1, n)).astype(np.int32)).to(cuda)
+    sk = torch.from_numpy(rng.integers(-2**31, 2**31, (5, n), dtype=np.int64)
+                          .astype(np.int32)).to(cuda)
+    rr.launch_segmin_kernel(so, sk, n_oct, 17)
+    torch.cuda.synchronize()
+    before = rr.launch_segmin_kernel.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            rr.launch_segmin_kernel(so, sk, n_oct, 17)
+        torch.cuda.synchronize()
+    assert rr.launch_segmin_kernel.launches == before + calls
+    counts = {e.key: e.count for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.count}
+    k8 = sum(c for k, c in counts.items() if "segmin_lookback" in k)
+    memsets = sum(c for k, c in counts.items() if "memset" in k.lower())
+    assert k8 == calls and memsets <= calls, counts
+    assert all("segmin_lookback" in k or "memset" in k.lower() for k in counts), counts
 
 
 class _PlainRaster:

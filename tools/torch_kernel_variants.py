@@ -23,8 +23,24 @@ twiddle and K4's propagate stay): what the data movement alone costs.
 planes a thread), ``*_two_blocks`` launch bounds for
 two 512-thread blocks a SM (64 registers a thread). ``k3_fast_checksum``
 swaps the checksum kernel's IEEE divisions and square root for a
-reciprocal and ``rsqrtf``: what its per-texel arithmetic costs. Names on the command line
-pick variants.
+reciprocal and ``rsqrtf``: what its per-texel arithmetic costs. The
+``k2c*`` variants are K2 at 16384^2 (``fourstep_row_pass_cluster``, one
+frame on a 16384^2 state drawn on the card): a cluster of 2 blocks of
+1,024 threads or (``k2c4*``) 4 of 512; ``*_noclobber`` drops the memory
+clobber of the distributed-shared-memory loads and stores;
+``*_generic`` reaches the cluster's shared memory through generic pointers
+(``mapa.u64``, plain loads and stores) instead of shared::cluster
+addresses; ``*_one_block`` asks for one block a SM (more registers);
+``k2c_hoisted`` lets the compiler hoist the exchanges' addresses out of the
+frame loop (the thread index is not made opaque each frame). The ``k8*``
+variants are K8 (``raster.cu``, ``segmin_lookback``) on 735,784 synthetic
+entries (ascending ids over 105,000 octs, the frame's resolve size; 5
+packed rows): ``k8_late_stores`` stores every entry after the look-back
+(not those outside the head run before it), ``k8_min4`` asks for four
+blocks a SM (at most 64 registers),
+``k8_blockidx`` takes tile blockIdx.x instead of a ticket (no atomic; it
+relies on blocks starting in index order, which CUDA does not promise).
+Names on the command line pick variants.
 Prints, per variant and repeat, one JSON line: the ptxas register / stack
 lines, the CUDA-event ms of a call, the device ms of the kernels' own
 launches (``chip_smoke.kernel_device_ms``; K1 per kernel) and the largest
@@ -55,11 +71,33 @@ from gfx_ocean_tpu_torch.ops import fourstep_step as fs  # noqa: E402
 from gfx_ocean_tpu_torch.ops import fused_step  # noqa: E402
 from gfx_ocean_tpu_torch.ops import unpacked_step as us  # noqa: E402
 from gfx_ocean_tpu_torch.ops.propagate import _f32  # noqa: E402
+from gfx_ocean_tpu_torch.render import raster as rr  # noqa: E402
+from gfx_ocean_tpu_torch.spectra.phillips import dispersion  # noqa: E402
 
 OUT = ROOT / "build" / "variants"
 REPEATS = 2
 
 K2_BOUNDS = "kSmThreads / RowFft<LOG2N>::kT)"
+K2C_FOUR = ("constexpr int kClusterBlocks = 2;", "constexpr int kClusterBlocks = 4;")
+K2C_NOCLOBBER = [
+    ('asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(addr) : "memory");',
+     'asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(addr));'),
+    ('asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v) : "memory");',
+     'asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v));')]
+K2C_GENERIC = [("""  auto sm = [&](int q, int, int a) -> DsmemRef {
+    const int r = a / kRankLen;
+    return DsmemRef{cluster_address(base, r) +
+                    static_cast<uint32_t>(q * kRankLen + a - r * kRankLen) * 4u};
+  };""", """  (void)base;
+  auto sm = [&](int q, int, int a) -> float& {
+    const int r = a / kRankLen;
+    float* part;
+    asm("mapa.u64 %0, %1, %2;" : "=l"(part) : "l"(smem), "r"(r));
+    return part[q * kRankLen + a - r * kRankLen];
+  };""")]
+K2C_HOISTED = [('    asm volatile("mov.b32 %0, %1;" : "=r"(ftid) : "r"(tid));',
+                "    ftid = tid;")]
+K2C_ONE_BLOCK = ("kSmThreads / (RowFft<LOG2N>::kT / kClusterBlocks))", "1)")
 
 
 def k2(log2_radix: int, sm_threads: int | None) -> list:
@@ -129,6 +167,21 @@ VARIANTS = {
         ("ocean_common.cuh", "acc += (cx + cy + cz) / sqrtf(cx * cx + cy * cy + cz * cz);",
          "acc += (cx + cy + cz) * rsqrtf(cx * cx + cy * cy + cz * cz);")]),
     "k4_moves_only": ("unpacked_step", [(RUN, "\n")]),
+    "k8_repo": ("raster", []),
+    "k8_min4": ("raster", [("__global__ void __launch_bounds__(kSegThreads)\nsegmin_lookback",
+                            "__global__ void __launch_bounds__(kSegThreads, 4)\nsegmin_lookback")]),
+    "k8_late_stores": ("raster", [
+        ("  if (final_now) store_entries<VEC>(m, id, next_id, i0, n, n_oct, mins, skey);\n", ""),
+        ("  if (!final_now) store_entries<VEC>", "  store_entries<VEC>")]),
+    "k8_blockidx": ("raster", [("    const int t = static_cast<int>(atomicAdd(ticket, 1u));",
+                                "    const int t = static_cast<int>(blockIdx.x);")]),
+    "k2c_repo": ("fourstep_step", []),
+    "k2c_hoisted": ("fourstep_step", K2C_HOISTED),
+    "k2c_noclobber": ("fourstep_step", K2C_NOCLOBBER),
+    "k2c_generic": ("fourstep_step", K2C_GENERIC),
+    "k2c4_repo": ("fourstep_step", [K2C_FOUR]),
+    "k2c4_generic": ("fourstep_step", [K2C_FOUR] + K2C_GENERIC),
+    "k2c4_one_block": ("fourstep_step", [K2C_FOUR, K2C_ONE_BLOCK]),
 }
 
 
@@ -177,6 +230,21 @@ def main() -> None:
     def stream():
         return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
+    if any(name.startswith("k2c") for name in names):
+        big = ot.OceanConfig(resolution=16384, fft_impl="pallas")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        in_big = fs.hoist_fourstep(torch.randn((2, 16384, 16384), generator=gen, device=dev),
+                                   torch.from_numpy(dispersion(16384, big.domain_size)).to(dev),
+                                   big)
+        want_big = fs.launch_fourstep_row(in_big, torch.zeros(1, device=dev), big)
+    if any(name.startswith("k8") for name in names):
+        rng = np.random.default_rng(0)
+        n8, oct8 = 735_784, 105_000
+        so8 = torch.from_numpy(np.sort(rng.integers(0, oct8 + 1, n8)).astype(np.int32)).to(dev)
+        sk8 = torch.from_numpy(rng.integers(-2**31, 2**31, (5, n8), dtype=np.int64)
+                               .astype(np.int32)).to(dev)
+        want8 = torch.cat([x.reshape(-1) for x in rr.launch_segmin_kernel(so8, sk8, oct8, 17)])
+        scratch8 = rr._SegminScratch(-(-n8 // rr.SEGMIN_TILE), dev)
     c5 = ot.OceanConfig(resolution=4096, domain_size=2000.0, fft_impl="pallas",
                         matmul_precision="high")
     st5 = ot.ocean_state_from_phillips(c5, ot.PhillipsConfig(),
@@ -227,6 +295,35 @@ def main() -> None:
                         smoke.fail(f"{name}: CUDA error {err}")
 
                 want, names, calls = want4, smoke.K4_CHECKSUM_KERNELS, 50
+            elif name.startswith("k8"):
+                mins8 = torch.empty((8, n8), dtype=torch.int32, device=dev)
+                skey8 = torch.empty((n8,), dtype=torch.int32, device=dev)
+
+                def call():
+                    err = lib.segmin_stage(
+                        so8.data_ptr(), sk8.data_ptr(), n8, 17, oct8, mins8.data_ptr(),
+                        skey8.data_ptr(), scratch8.ticket.data_ptr(), scratch8.flags.data_ptr(),
+                        scratch8.agg.data_ptr(), scratch8.incl.data_ptr(), scratch8.next_epoch(),
+                        stream())
+                    if err:
+                        smoke.fail(f"{name}: CUDA error {err}")
+
+                call()
+                torch.cuda.synchronize()
+                out = torch.cat([mins8.reshape(-1), skey8])
+                want, names, calls = want8, smoke.K8_KERNELS, 50
+            elif name.startswith("k2c"):
+                out = torch.empty_like(want_big)
+
+                def call():
+                    err = lib.fourstep_row(
+                        in_big.h0.data_ptr(), in_big.omega.data_ptr(), in_big.twiddle.data_ptr(),
+                        ts1.data_ptr(), 1, 16384, 16384, 0, _f32(np.pi / big.domain_size), 0, 0,
+                        out.data_ptr(), stream())
+                    if err:
+                        smoke.fail(f"{name}: CUDA error {err}")
+
+                want, names, calls = want_big, smoke.K2_CLUSTER_KERNELS, 10
             elif name.startswith("k2"):
                 out = torch.empty_like(want2)
 
@@ -256,8 +353,11 @@ def main() -> None:
                 want, names, calls = want1, smoke.K1_KERNELS, 50
             event = smoke.event_ms(call, calls)
             torch.cuda.synchronize()
-            # large for loads_only and moves_only
-            rel = float((out - want).abs().max() / want.abs().max())
+            if name.startswith("k8"):
+                out = torch.cat([mins8.reshape(-1), skey8])
+            # large for loads_only and moves_only; K8: entries that differ
+            rel = (float((out != want).sum()) if name.startswith("k8")
+                   else float((out - want).abs().max() / want.abs().max()))
             print(json.dumps(dict(repeat=rep, variant=name, ptxas=ptxas, event_ms=event,
                                   device_ms=smoke.kernel_device_ms(call, names, calls),
                                   rel_vs_repo=rel)), flush=True)
