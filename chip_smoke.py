@@ -23,9 +23,9 @@ package rendered. It imports no jax.
   at ``matmul_precision="bf16x3"`` and through K5 + K6 at "highest",
   600-frame checksum rollouts at time_batch 6.
 - The 16384^2 four-step step, the four-step plan's largest grid
-  (``OceanConfig(resolution=16384, fft_impl="pallas")``), through K2 on a
-  thread-block cluster a row and K3, a 24-frame checksum rollout at
-  time_batch 1.
+  (``OceanConfig(resolution=16384, fft_impl="pallas")``), through K2 (a
+  row split in registers into two 8192-point halves, one a block of a
+  two-block cluster) and K3, a 24-frame checksum rollout at time_batch 1.
 
 Phases, one line each:
 
@@ -194,7 +194,7 @@ K7_OPS_PER_PIXEL = 40
 # Operations an entry and key of K8: unpack, compare, select, min.
 K8_OPS_PER_KEY = 4
 
-# The 16384^2 four-step path: K2 on a thread-block cluster a row, K3.
+# The 16384^2 four-step path: K2 split over a two-block cluster a row, K3.
 BIG_N = 16384
 BIG_ROW_BANDS = (BIG_N // 2 - 3, BIG_N - 16)  # first rows of the 16-row bands
 BIG_BAND_ROWS = 16
@@ -259,7 +259,7 @@ K4_KERNELS = ("unpacked_fused",)
 K4_CHECKSUM_KERNELS = ("unpacked_fused", "checksum_partials")
 K5_KERNELS = ("unpacked_row_pass",)
 K6_KERNELS = ("unpacked_col_pass",)
-K2_CLUSTER_KERNELS = ("fourstep_row_pass_cluster",)
+K2_SPLIT_KERNELS = ("fourstep_row_pass_split",)
 K7_KERNELS = ("slot_kernel",)
 K8_KERNELS = ("segmin_lookback",)
 
@@ -1245,8 +1245,9 @@ def run_unpacked(dev) -> list:
 
 
 def run_big(dev) -> list:
-    """Phases 22-26: the 16384^2 four-step path through K2 (a row on a
-    thread-block cluster) and K3; returns K2's kernels entry at 16384^2."""
+    """Phases 22-26: the 16384^2 four-step path through K2 (a row split
+    into two halves over a two-block cluster) and K3; returns K2's kernels
+    entry at 16384^2."""
     import numpy as np
     import torch
 
@@ -1349,7 +1350,7 @@ def run_big(dev) -> list:
                        calls),
         step_ms=event_ms(lambda: fused_step.packed_checksums(inputs, ts, cfg), calls),
         k2_device_ms=kernel_device_ms(lambda: fs.launch_fourstep_row(inputs, ts, cfg),
-                                      K2_CLUSTER_KERNELS, calls),
+                                      K2_SPLIT_KERNELS, calls),
         k3_device_ms=kernel_device_ms(
             lambda: fs.launch_fourstep_col(y, inputs.twiddle, cfg, checksum=True), K3_KERNELS,
             calls))
@@ -1403,8 +1404,8 @@ def run_big(dev) -> list:
              f"finite {bool(np.isfinite(cks).all())}")
 
     return [{
-        "name": "K2 fourstep_row_pass_cluster (16384^2: packed propagate + row FFT, "
-                "a row on a two-block cluster)",
+        "name": "K2 fourstep_row_pass_split (16384^2: packed propagate, a radix-2 split "
+                "in registers, one cluster swap, two block-local 8192-point row FFTs)",
         "route": "cuda",
         "source": "gfx_ocean_tpu_torch/csrc/fourstep_step.cu",
         "replaces": "gfx_ocean_tpu/ops/pallas_step.py:614",

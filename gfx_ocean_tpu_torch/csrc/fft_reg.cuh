@@ -30,11 +30,6 @@
 // and N/128-point stages) reads the longer transform's (2, 2^LOG2TW / 2)
 // table at a stride.
 //
-// Barriers: run's exchanges wait through a policy, one block's
-// __syncthreads by default (BlockBarrier). K2 at N = 16384 spreads a row
-// over a thread-block cluster and passes a cluster barrier with an
-// accessor into distributed shared memory (fourstep_step.cu).
-//
 // Why not wgmma: these transforms cost ~5 N log2 N FP32 operations, orders
 // below the card's FP32 rate per byte moved, so the kernels are bound by
 // bytes and latency; TF32 tensor cores would break the 1e-5 kernel-vs-plain
@@ -128,16 +123,6 @@ __device__ __forceinline__ void dft(float* re, float* im) {
   });
 }
 
-// The barriers of RegFft::run's exchanges: before_write (one buffer: the
-// last exchange's reads are done), exchange (the writes are visible),
-// after_read (this thread's reads are done). The default emits one block's
-// __syncthreads where run has always placed it.
-struct BlockBarrier {
-  __device__ static __forceinline__ void before_write() { __syncthreads(); }
-  __device__ static __forceinline__ void exchange() { __syncthreads(); }
-  __device__ static __forceinline__ void after_read() {}
-};
-
 // v[q][i]: q < NP the planes (re, im of each spectrum: Hr, Hi, Zr, Zi for
 // K1-K3) of this thread's points; LOG2W = log2 of the run of consecutive j
 // a warp holds (0 where the lanes of a warp run over columns: no padding);
@@ -208,14 +193,14 @@ struct RegFft {
   }
 
   // Passes P.. on v; on return point i = u * kLastR + r of v sits at
-  // x = out_index(tid, i). Barrier: the exchanges' barrier policy.
-  template <int P, class Barrier = BlockBarrier, class Smem>
+  // x = out_index(tid, i).
+  template <int P, class Smem>
   __device__ static __forceinline__ void run(float (&v)[NP][kRM], int tid,
                                              const float* __restrict__ tw, Smem sm) {
     butterflies<P>(v, tid, tw);
     if constexpr (P + 1 < kPasses) {
       constexpr int lr = log2r(P), R = 1 << lr, ls = P * LOG2RM, buf = P % NBUF;
-      if constexpr (NBUF == 1 && P > 0) Barrier::before_write();  // the last exchange's reads are done
+      if constexpr (NBUF == 1 && P > 0) __syncthreads();  // the last exchange's reads are done
       static_for<0, kRM / R>([&](auto u_) {
         constexpr int u = decltype(u_)::value;
         const int j = tid + u * kT;
@@ -229,7 +214,7 @@ struct RegFft {
           });
         });
       });
-      Barrier::exchange();
+      __syncthreads();
       constexpr int lr2 = log2r(P + 1), R2 = 1 << lr2;
       static_for<0, kRM / R2>([&](auto u_) {
         constexpr int u = decltype(u_)::value;
@@ -242,8 +227,7 @@ struct RegFft {
           });
         });
       });
-      Barrier::after_read();
-      run<P + 1, Barrier>(v, tid, tw, sm);
+      run<P + 1>(v, tid, tw, sm);
     }
   }
 

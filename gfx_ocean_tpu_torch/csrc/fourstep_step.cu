@@ -22,20 +22,27 @@
 //                        Writes Y (tb, 2, 2, rows, N) in coalesced rows,
 //                        true x order, (-1)^x folded in. N <= 8192: a
 //                        block holds at most 1,024 threads.
-//   fourstep_row_pass_cluster
+//   fourstep_row_pass_split
 //                        K2 at N = 16384, the same contract. A row's
 //                        2,048 threads (8 points a spectrum each, as
-//                        above) are split over a thread-block cluster of
-//                        kClusterBlocks blocks on neighbouring SMs, and so
-//                        is the exchange buffer (4 planes x (N + N / 8)
-//                        floats, 295 KB, past one block's 227 KB): padded
-//                        index a lives in block a / (kLen / C) of the
-//                        cluster. Each exchange writes and reads through
-//                        distributed shared memory (mapa +
-//                        ld/st.shared::cluster; half the points of an
-//                        exchange cross SMs at C = 2), and every barrier is
-//                        a cluster barrier, split into arrive and wait so
-//                        that a pass's butterflies run between the two.
+//                        above) and its 295 KB exchange buffer outgrow one
+//                        block, so the row is split in registers: thread
+//                        tid holds x = tid + r N / 8, so both k and
+//                        k + N / 2 (r and r + 4), and one radix-2
+//                        decimation in frequency gives a[k] = v[k] +
+//                        v[k + N/2] and b[k] = (v[k] - v[k + N/2])
+//                        e^{2 pi i k / N}, whose N/2-point transforms are
+//                        Y[2m] and Y[2m + 1]. The row runs on a cluster of
+//                        two blocks of 1,024 threads: each thread stores
+//                        its a and b points into the slots of rank 0 and
+//                        rank 1 through distributed shared memory, at the
+//                        place the 8192-point passes want them, then one
+//                        cluster barrier, and each block runs K2's
+//                        8192-point passes on its half locally with
+//                        __syncthreads; its output m is Y[2m + rank],
+//                        stored with the sign (-1)^rank. A persistent grid
+//                        of as many clusters as the card holds walks over
+//                        the rows.
 //   fourstep_col_stage1  K3, first half. The column transform is split
 //                        N = 128 * N2, row m = N2 m1 + m2 in, row
 //                        n = n1 + 128 n2 out. One block per (m2, 32 columns,
@@ -89,6 +96,11 @@
 // 512-thread blocks a SM at 64 registers), writes and reads B in whole
 // 128 B lines of one contiguous chunk a block, and takes the planes' sums
 // out of the checksum's reread. It is not a wgmma DFT: see fft_reg.cuh.
+// K2 at 16384 runs at about 4x its byte bound: each block's 8192-point
+// passes run at one 1,024-thread block a SM (K2 at 8192^2 takes as long for
+// as many elements), and the swap's distributed-shared-memory stores cost
+// about a quarter of the kernel whatever their form (one float or 16 bytes
+// a store, st.async with an mbarrier, a 4-block split; PERF.md).
 // The column transform's device-memory round trip between stage 1 and
 // stage 2 is the price of a simple design: a full column band (4 N floats a
 // column) does not fit one block's shared memory at N >= 4096. A
@@ -102,6 +114,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (gfx_ocean_tpu_torch/kernels.py). Plain C entry points, bound with ctypes.
 
+#include <algorithm>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -114,7 +127,7 @@ namespace {
 using ocean::reg::static_for;
 
 constexpr int kMinN = 1024;
-constexpr int kMaxN = 16384;  // K2 in one block a row up to 8192, in a cluster at 16384
+constexpr int kMaxN = 16384;  // K2 in one block a row up to 8192, split over two at 16384
 constexpr int kLog2Radix = 3;  // K2: radix 8, N / 8 threads a row
 // Threads a SM the launch bounds ask for: 64 registers a thread. Radix 16
 // (16 points a thread) takes 255 registers and runs 8 warps a SM; radix 8
@@ -123,14 +136,17 @@ constexpr int kLog2Radix = 3;  // K2: radix 8, N / 8 threads a row
 constexpr int kSmThreads = 1024;
 constexpr int kRadix = 1 << kLog2Radix;
 // K2's transform: T = N / 8 >= 128 threads a row, so every warp holds 32
-// consecutive j; one shared buffer (73.7 KB at 4096, 147 KB at 8192; at
-// 16384 295 KB, split over the cluster).
+// consecutive j; one shared buffer (73.7 KB at 4096, 147 KB at 8192).
 template <int LOG2N>
 using RowFft = ocean::reg::RegFft<LOG2N, kLog2Radix, 5, 1>;
-// Blocks of K2's cluster at N = 16384: 2 blocks of 1,024 threads (147 KB
-// of the buffer each) or 4 of 512 (74 KB each); tools/torch_kernel_variants.py
-// times both (PERF.md).
-constexpr int kClusterBlocks = 2;
+// K2 at N = 16384: a row split over the kSplit blocks of a cluster, each
+// of which runs the N / kSplit-point passes with the N-point table read at
+// stride kSplit: 2 blocks of 1,024 threads, one a SM (4 blocks of 512, two
+// a SM, measured slower: three quarters of the points cross SMs).
+constexpr int kLog2Split = 1;
+constexpr int kSplit = 1 << kLog2Split;
+template <int LOG2N>
+using PartFft = ocean::reg::RegFft<LOG2N - kLog2Split, kLog2Radix, 5, 1, 4, LOG2N>;
 // cudaOccupancyMaxActiveClusters found no SM group that holds the cluster.
 constexpr int kErrClusterUnschedulable = 100000;
 constexpr int kLog2N1 = 7;          // the column split N = 128 * N2
@@ -235,35 +251,16 @@ int launch_row(const RowArgs& a, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The cluster's barrier for RegFft::run: barrier.cluster.arrive has
-// release and barrier.cluster.wait acquire semantics, so the shared-memory
-// writes of every block of the cluster before an arrive are visible after
-// the wait. Each thread alternates arrive and wait.
+// The cluster's barrier: barrier.cluster.arrive has release and
+// barrier.cluster.wait acquire semantics, so the shared-memory writes of
+// every block of the cluster before an arrive are visible after the wait.
+// Each thread alternates arrive and wait.
 struct ClusterBarrier {
   __device__ static __forceinline__ void arrive() {
     asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
   }
   __device__ static __forceinline__ void wait() {
     asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
-  }
-  __device__ static __forceinline__ void before_write() { wait(); }
-  __device__ static __forceinline__ void exchange() {
-    arrive();
-    wait();
-  }
-  __device__ static __forceinline__ void after_read() { arrive(); }
-};
-
-// One float of a cluster block's shared memory at a shared::cluster address.
-struct DsmemRef {
-  uint32_t addr;
-  __device__ __forceinline__ operator float() const {
-    float v;
-    asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(addr) : "memory");
-    return v;
-  }
-  __device__ __forceinline__ void operator=(float v) const {
-    asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v) : "memory");
   }
 };
 
@@ -275,106 +272,165 @@ __device__ __forceinline__ uint32_t cluster_address(uint32_t local, int rank) {
   return out;
 }
 
-// K2 at N = 16384: blockIdx.x = row * kClusterBlocks + cluster rank, N / 8 /
-// kClusterBlocks threads a block; thread tid = rank * kTB + threadIdx.x of
-// the row's N / 8. smem: (Hr, Hi, Zr, Zi) x kLen / kClusterBlocks, the
-// rank's part of the exchange buffer.
+// Stores v at the shared::cluster address addr + OFF bytes.
+template <int OFF>
+__device__ __forceinline__ void store_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0+%1], %2;" ::"r"(addr), "n"(OFF), "f"(v) : "memory");
+}
+
+// K2 at N = 16384: blocks row * kSplit + rank, T = N / 8 / kSplit threads
+// a block; a persistent grid walks over the rows. Thread t of rank rho is
+// thread tid = rho T + t of the row's N / 8 and holds x = tid + r N / 8,
+// r < 8, so groups of kSplit points x = k + j N / kSplit, j < kSplit, for
+// k = t + (rho + kSplit g) T, g < 8 / kSplit. A radix-kSplit decimation in
+// frequency in registers turns group g into c_q[k] = e^{2 pi i q k / N}
+// sum_j v[k + j N / kSplit] e^{2 pi i q j / kSplit}, whose N / kSplit-point
+// transforms are Y[kSplit m + q]. Block q transforms c_q: thread t of rank
+// rho stores its c_q into the slot of rank q (its own rank too) at the
+// point that thread t of the part's passes holds, r' = rho + kSplit g, then
+// one cluster barrier, and every thread reads its 8 points of the 4 planes
+// from its own slot: slot[(plane 8 + r') T + t], a warp's 32 stores and
+// loads on 32 banks. The slot is the passes' buffer. Output m of rank rho
+// is Y[kSplit m + rho], stored with the sign (-1)^rho.
 template <int LOG2N>
-__global__ void __cluster_dims__(kClusterBlocks, 1, 1)
-    __launch_bounds__(RowFft<LOG2N>::kT / kClusterBlocks,
-                      kSmThreads / (RowFft<LOG2N>::kT / kClusterBlocks))
-    fourstep_row_pass_cluster(
+__global__ void __cluster_dims__(kSplit, 1, 1)
+    __launch_bounds__(PartFft<LOG2N>::kT, kSmThreads / PartFft<LOG2N>::kT)
+    fourstep_row_pass_split(
     const float* __restrict__ h0, const float* __restrict__ omega,
     const float* __restrict__ tw, const float* __restrict__ ts, int tb, int rows, int row_base,
     float scale, int wrap_k, int conj_neg, float* __restrict__ y) {
-  using Fft = RowFft<LOG2N>;
-  constexpr int n = Fft::kN;
-  constexpr int kTB = Fft::kT / kClusterBlocks;
-  constexpr int kRankLen = Fft::kLen / kClusterBlocks;  // a multiple of 32: banks are kept
-  static_assert(Fft::kLen % (32 * kClusterBlocks) == 0, "whole bank rows a rank");
+  using Fft = PartFft<LOG2N>;
+  using FullFft = ocean::reg::RegFft<LOG2N, kLog2Radix, 5, 1>;  // for its twiddle()
+  constexpr int n = 1 << LOG2N;
+  constexpr int kT = Fft::kT;
+  static_assert(Fft::kRM == kRadix && 4 * kRadix * kT <= 4 * Fft::kLen, "the slot fits the buffer");
   extern __shared__ float smem[];
-  const int rank = blockIdx.x % kClusterBlocks;
-  const int tid = rank * kTB + threadIdx.x % kTB;
-  const int row = blockIdx.x / kClusterBlocks;
-  const int gy = row_base + row;
+  const int rank = blockIdx.x % kSplit;
+  const int tid = threadIdx.x % kT;  // as in fourstep_row_pass: the modulo keeps K2's allocation
   const size_t plane = static_cast<size_t>(rows) * n;
-  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  // A block's shared memory is one window of the cluster's: an offset into
-  // it is an offset from its base's shared::cluster address.
-  auto sm = [&](int q, int, int a) -> DsmemRef {
-    const int r = a / kRankLen;
-    return DsmemRef{cluster_address(base, r) +
-                    static_cast<uint32_t>(q * kRankLen + a - r * kRankLen) * 4u};
-  };
+  const uint32_t local = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  auto sm = [&](int q, int, int a) -> float& { return smem[q * Fft::kLen + a]; };
 
-  ClusterBarrier::arrive();  // every block of the cluster runs before any DSMEM access
-  for (int frame = 0; frame < tb; ++frame) {
-    // tid, made opaque each frame: the exchanges' addresses (functions of
-    // tid) are then computed where they are used instead of hoisted out of
-    // the frame loop and held across it, which spills at 64 registers.
-    int ftid;
-    asm volatile("mov.b32 %0, %1;" : "=r"(ftid) : "r"(tid));
-    const float t = ts[frame];
-    float v[4][kRadix];
-    static_for<0, kRadix>([&](auto k_) {
-      constexpr int k = decltype(k_)::value;
-      const ocean::PackedSpectra p = ocean::packed_propagate(
-          h0, omega, n, gy, ftid + k * Fft::kT, t, scale, wrap_k != 0, conj_neg != 0, 0.5f);
-      v[0][k] = p.hr;
-      v[1][k] = p.hi;
-      v[2][k] = p.zr;
-      v[3][k] = p.zi;
-    });
-    ClusterBarrier::wait();  // the cluster runs; the last frame's exchange reads are done
-    Fft::template run<0, ClusterBarrier>(v, ftid, tw, sm);
+  ClusterBarrier::arrive();  // the cluster runs before any swap
+  for (int row = blockIdx.x / kSplit; row < rows; row += gridDim.x / kSplit) {
+    for (int frame = 0; frame < tb; ++frame) {
+      // tid, made opaque each frame: the addresses that are functions of it
+      // are then computed where they are used, not hoisted out of the loops
+      // and held across them, which spills at 64 registers.
+      int ftid;
+      asm volatile("mov.b32 %0, %1;" : "=r"(ftid) : "r"(tid));
+      const float t = ts[frame];
+      auto propagate = [&](int x) {
+        return ocean::packed_propagate(h0, omega, n, row_base + row, x, t, scale, wrap_k != 0,
+                                       conj_neg != 0, 0.5f);
+      };
+      // c[plane][q] of the group at k: the propagate of k + j N / kSplit,
+      // the radix-kSplit step and its twiddles e^{2 pi i q k / N}, q k < N.
+      auto split = [&](int k, float (&c)[4][kSplit]) {
+        static_for<0, kSplit>([&](auto j_) {
+          constexpr int j = decltype(j_)::value;
+          const ocean::PackedSpectra p = propagate(k + j * (n / kSplit));
+          c[0][j] = p.hr;
+          c[1][j] = p.hi;
+          c[2][j] = p.zr;
+          c[3][j] = p.zi;
+        });
+        static_for<0, 4, 2>([&](auto q_) {
+          constexpr int q = decltype(q_)::value;
+          ocean::reg::dft<kSplit>(c[q], c[q + 1]);
+        });
+        static_for<1, kSplit>([&](auto j_) {
+          constexpr int j = decltype(j_)::value;
+          float wr, wi;
+          FullFft::twiddle(tw, j * k, wr, wi);
+          static_for<0, 4, 2>([&](auto q_) {
+            constexpr int q = decltype(q_)::value;
+            const float xr = c[q][j], xi = c[q + 1][j];
+            c[q][j] = xr * wr - xi * wi;
+            c[q + 1][j] = xr * wi + xi * wr;
+          });
+        });
+      };
+      ClusterBarrier::wait();  // every slot of the cluster is free
+      // each group's stores right after its propagates
+      static_for<0, kRadix / kSplit>([&](auto g_) {
+        constexpr int g = decltype(g_)::value;
+        float c[4][kSplit];
+        split(ftid + (rank + kSplit * g) * kT, c);
+        static_for<0, kSplit>([&](auto j_) {
+          constexpr int j = decltype(j_)::value;
+          const uint32_t to = cluster_address(local, j) + 4u * (rank * kT + ftid);
+          static_for<0, 4>([&](auto q_) {
+            constexpr int q = decltype(q_)::value;
+            store_cluster<(q * kRadix + kSplit * g) * kT * 4>(to, c[q][j]);
+          });
+        });
+      });
+      ClusterBarrier::arrive();
+      ClusterBarrier::wait();  // every block's stores into this slot are visible
+      float v[4][kRadix];
+      static_for<0, 4>([&](auto q_) {
+        constexpr int q = decltype(q_)::value;
+        static_for<0, kRadix>([&](auto r_) {
+          constexpr int r = decltype(r_)::value;
+          v[q][r] = smem[(q * kRadix + r) * kT + ftid];
+        });
+      });
+      __syncthreads();  // the slot's reads are done before the passes overwrite it
+      Fft::template run<0>(v, ftid, tw, sm);
+      ClusterBarrier::arrive();  // this block's slot is free
 
-    float* yf = y + static_cast<size_t>(frame) * 4 * plane + static_cast<size_t>(row) * n;
-    static_for<0, kRadix>([&](auto i_) {
-      constexpr int i = decltype(i_)::value;
-      const int x = Fft::out_index(ftid, i);
-      const float sg = (x & 1) ? -1.0f : 1.0f;
-      yf[x] = sg * v[0][i];
-      yf[plane + x] = sg * v[1][i];
-      yf[2 * plane + x] = sg * v[2][i];
-      yf[3 * plane + x] = sg * v[3][i];
-    });
+      float* yf = y + (static_cast<size_t>(frame) * 4 * rows + row) * n;
+      const float sg = rank & 1 ? -1.0f : 1.0f;  // (-1)^x at x = kSplit m + rank
+      static_for<0, kRadix>([&](auto i_) {
+        constexpr int i = decltype(i_)::value;
+        const int x = kSplit * Fft::out_index(ftid, i) + rank;
+        yf[x] = sg * v[0][i];
+        yf[plane + x] = sg * v[1][i];
+        yf[2 * plane + x] = sg * v[2][i];
+        yf[3 * plane + x] = sg * v[3][i];
+      });
+    }
   }
-  ClusterBarrier::wait();  // no block leaves while another reads its shared memory
+  ClusterBarrier::wait();  // no block leaves while another may store into its slot
 }
 
 template <int LOG2N>
-int launch_row_cluster(const RowArgs& a, cudaStream_t st) {
-  constexpr int threads = RowFft<LOG2N>::kT / kClusterBlocks;
-  constexpr size_t smem =
-      4 * static_cast<size_t>(RowFft<LOG2N>::kLen / kClusterBlocks) * sizeof(float);
+int launch_row_split(const RowArgs& a, cudaStream_t st) {
+  constexpr int threads = PartFft<LOG2N>::kT;
+  constexpr size_t smem = 4 * static_cast<size_t>(PartFft<LOG2N>::kLen) * sizeof(float);
   static bool ready[ocean::kMaxDevices];
+  cudaError_t err = ocean::allow_smem(fourstep_row_pass_split<LOG2N>, smem, ready);
+  if (err != cudaSuccess) return static_cast<int>(err);
   static int clusters[ocean::kMaxDevices];  // max active clusters, once a device; 0: not asked
   int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = ocean::allow_smem(fourstep_row_pass_cluster<LOG2N>, smem, ready);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kClusterBlocks;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.rows * kClusterBlocks);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (dev < ocean::kMaxDevices && clusters[dev] == 0) {
+  if (dev >= ocean::kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (clusters[dev] == 0) {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kSplit;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(a.rows * kSplit);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
     int n = 0;
-    err = cudaOccupancyMaxActiveClusters(&n, fourstep_row_pass_cluster<LOG2N>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&n, fourstep_row_pass_split<LOG2N>, &cfg);
     if (err != cudaSuccess) return static_cast<int>(err);
     clusters[dev] = n > 0 ? n : -1;
   }
-  if (dev < ocean::kMaxDevices && clusters[dev] < 0) return kErrClusterUnschedulable;
+  if (clusters[dev] < 0) return kErrClusterUnschedulable;
+  // A persistent grid: as many clusters as the card holds at once, each
+  // walking over rows (3-5% faster than one cluster a row, PERF.md).
+  const dim3 grid(std::min(a.rows, clusters[dev]) * kSplit);
   // The cluster shape is the kernel's own (__cluster_dims__): a plain launch.
-  fourstep_row_pass_cluster<LOG2N><<<cfg.gridDim, cfg.blockDim, smem, st>>>(
+  fourstep_row_pass_split<LOG2N><<<grid, threads, smem, st>>>(
       a.h0, a.omega, a.tw, a.ts, a.tb, a.rows, a.row_base, a.scale, a.wrap_k, a.conj_neg, a.y);
   return static_cast<int>(cudaGetLastError());
 }
@@ -558,7 +614,7 @@ int fourstep_row(const float* h0, const float* omega, const float* tw, const flo
     case 2048: return launch_row<11>(a, st);
     case 4096: return launch_row<12>(a, st);
     case 8192: return launch_row<13>(a, st);
-    default: return launch_row_cluster<14>(a, st);
+    default: return launch_row_split<14>(a, st);
   }
 }
 

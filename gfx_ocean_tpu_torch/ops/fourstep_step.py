@@ -31,9 +31,10 @@ Two implementations sit side by side:
   cost ~2 TFLOP a frame at 4096^2; the factored tables ~0.1.
 - ``launch_fourstep_row`` / ``launch_fourstep_col``: the hand-written CUDA
   kernels of ``csrc/fourstep_step.cu`` (K2 a register-resident radix-8
-  FFT a row, one block a row up to 8192 and a two-block thread-block
-  cluster a row at 16384, where a row's 2,048 threads and 295 KB exchange
-  buffer outgrow one block; K3 the column transform split 128 x N/128,
+  FFT a row, one block a row up to 8192; at 16384, where a row's 2,048
+  threads and 295 KB exchange buffer outgrow one block, a radix-2 split in
+  registers, one swap between the two blocks of a thread-block cluster and
+  an 8192-point FFT in each block; K3 the column transform split 128 x N/128,
   each stage register-resident passes of 32-column bands, with one
   device-memory round trip between them).
 
@@ -291,8 +292,8 @@ def launch_fourstep_row(inputs: FourstepInputs, ts, config: OceanConfig,
                         row_base: int = 0, rows: Optional[int] = None) -> torch.Tensor:
     """Launch K2 on the current stream: ts (tb,) -> Y (tb, 2, 2, rows, N) on
     ``rows`` rows (default: to the last) from the global row ``row_base``.
-    At N = 16384 the kernel runs a row on a two-block cluster, and raises
-    where the device cannot schedule one.
+    At N = 16384 the kernel splits a row over a two-block cluster, and
+    raises where the device cannot schedule one.
 
     Adds one to ``launch_fourstep_row.launches`` per launch."""
     from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use

@@ -22,12 +22,14 @@ table) are also chained as the kernels chain them, through the sign, the
 twiddle e^{2 pi i n1 m2 / N} and the scratch's layout, against the N-point
 ``numpy.fft`` of the column.
 
-K2 at N = 16384 runs a row on a thread-block cluster
-(``fourstep_row_pass_cluster``): its 2,048 threads split over C blocks,
-thread tid = rank * (2048 / C) + threadIdx.x, and padded index a of the
-exchange buffer in block rank a // L at local index a % L, L = (N + N / 8)
-/ C, reached through distributed shared memory. The emulation runs the
-transform through that addressing and counts bank conflicts per block.
+K2 at N = 16384 (``fourstep_row_pass_split``) splits a row over the S
+blocks of a cluster: thread t of rank rho holds x = t + (rho + S r) T
+(T = N / 8 / S), so groups of S points k + j N / S, and a radix-S
+decimation in frequency in registers gives c_q, whose N / S-point
+transforms are the outputs S m + q. Each thread stores its c_q into rank
+q's slot at the point that thread t of the part's passes holds; each block
+transforms its part, and its output m is Y[S m + rank]. The emulation runs
+that schedule, the parts through ``emulate``, and counts the slot's banks.
 """
 
 from __future__ import annotations
@@ -45,7 +47,6 @@ K4_SEQS = 8           # K4-K6: rows a row item, columns a column item (kSeqs)
 K3_COLS = 32          # K3: columns a block (kColCols)
 K3_LOG2N1 = 7         # K3: the column split N = 128 * N2
 K3_THREADS = 512      # K3: threads a block of either stage
-K2_CLUSTER = 2        # K2 at 16384: blocks of its cluster (kClusterBlocks)
 SMEM_LIMIT = 232448   # bytes of shared memory one block can use on the H100
 WARP = 32
 BANKS = 32
@@ -90,19 +91,15 @@ def dft(x: np.ndarray) -> np.ndarray:
 
 
 class Layout:
-    """Threads of one block (of one cluster for K2 at 16384): each thread's
-    sequence, its index tid within the sequence, and the shared-memory
-    address of (sequence, padded index) for one plane of one buffer; with
-    a cluster, ``rank(addr)`` is the block that holds the address."""
+    """Threads of one block: each thread's sequence, its index tid within
+    the sequence, and the shared-memory address of (sequence, padded index)
+    for one plane of one buffer."""
 
-    def __init__(self, kind: str, log2n: int, log2rm: int, cluster: int = 1):
+    def __init__(self, kind: str, log2n: int, log2rm: int):
         n, rm = 1 << log2n, 1 << log2rm
         self.t = n // rm                      # threads a sequence
         self.length = n + n // rm             # padded sequence length (kLen)
-        self.cluster = cluster
-        self.rank_length = self.length // cluster  # the part of a row's buffer a block holds
-        self.rank = lambda addr: addr // self.rank_length
-        if kind in ("rows", "k4rows"):        # K1's row pass, K2 (one row a block or cluster), K4 / K5
+        if kind in ("rows", "k4rows"):        # K1's row pass, K2 (one row a block), K4 / K5
             rows = (K4_SEQS if kind == "k4rows"
                     else 1 if log2n >= 10 else min(n, max(1, K1_ROW_THREADS // self.t)))
             threads = rows * self.t
@@ -139,26 +136,24 @@ class Layout:
         self.threads = threads
 
 
-def _conflict(addr: np.ndarray, lay: "Layout") -> int:
-    """Largest number of distinct addresses one bank of one block serves in
-    one warp (a cluster's blocks sit on different SMs, each with its banks)."""
+def _conflict(addr: np.ndarray, threads: int) -> int:
+    """Largest number of distinct addresses one bank serves in one warp."""
     worst = 0
-    for w0 in range(0, lay.threads, WARP):
+    for w0 in range(0, threads, WARP):
         a = np.unique(addr[w0:w0 + WARP])
-        local = a - lay.rank(a) * lay.rank_length
-        worst = max(worst, int(np.bincount(lay.rank(a) * BANKS + local % BANKS).max()))
+        worst = max(worst, int(np.bincount(a % BANKS).max()))
     return worst
 
 
 def emulate(kind: str, log2n: int, log2rm: int, x: np.ndarray, log2tw: int = 0,
-            alternate: bool = True, cluster: int = 1):
+            alternate: bool = True):
     """Run the passes on x (nseq, n) as the block's threads do, with the
     twiddles of a 2^log2tw-point table (default: the transform's own) and
     the output sign (-1)^x unless ``alternate`` is off. Returns
     (y (nseq, n), worst bank conflict of any exchange access, max padded
     index, whether the block's addresses of each exchange were distinct)."""
     n, rm = 1 << log2n, 1 << log2rm
-    lay = Layout(kind, log2n, log2rm, cluster)
+    lay = Layout(kind, log2n, log2rm)
     t = lay.t
     tw = twiddle_table(max(n, 1 << log2tw), "cpu").numpy()
     seq, tid = lay.seq, lay.tid
@@ -189,7 +184,7 @@ def emulate(kind: str, log2n: int, log2rm: int, x: np.ndarray, log2tw: int = 0,
                 a = pad(idx_d + (k << ls), p, log2n, log2rm, lay.log2w)
                 max_index = max(max_index, int(a.max()))
                 ad = lay.addr(seq, a)
-                worst = max(worst, _conflict(ad, lay))
+                worst = max(worst, _conflict(ad, lay.threads))
                 mem[ad] = v[:, u * r + k]
                 written.append(ad)
         written = np.concatenate(written)
@@ -201,7 +196,7 @@ def emulate(kind: str, log2n: int, log2rm: int, x: np.ndarray, log2tw: int = 0,
             for k in range(r2):
                 a = pad(j + (k << (log2n - lr2)), p, log2n, log2rm, lay.log2w)
                 ad = lay.addr(seq, a)
-                worst = max(worst, _conflict(ad, lay))
+                worst = max(worst, _conflict(ad, lay.threads))
                 v[:, u * r2 + k] = mem[ad]
     assert max_index < lay.length
     rl = 1 << log2r(log2n, log2rm, npass - 1)
@@ -235,38 +230,96 @@ def test_passes_equal_numpy_fft_without_bank_conflicts(kind, log2n, log2rm):
     assert injective
 
 
-@pytest.mark.parametrize("cluster", [2, 4], ids=["2x1024", "4x512"])
-def test_k2_cluster_passes_through_distributed_shared_memory(cluster):
-    """K2 at 16384 on a cluster of 2 blocks of 1,024 threads or 4 of 512:
-    the transform through the blocks' parts of the buffer equals
-    ``numpy.fft`` with no bank conflict in any block, every padded index
-    lies in a block's part (a block holds L = kLen / C floats of each of
-    the 4 planes, within its shared memory, and C = 4 fits two blocks a
-    SM), and a warp's threads lie in one block. About half the exchanged
-    points cross blocks at C = 2, three quarters at C = 4."""
-    log2n, n = 14, 1 << 14
-    lay = Layout("rows", log2n, K2_LOG2RM, cluster)
-    block_threads = lay.threads // cluster
-    assert lay.threads == 2048 and block_threads % WARP == 0 and block_threads <= 1024
-    assert lay.length % (BANKS * cluster) == 0  # a block's part keeps the banks
-    assert 4 * lay.rank_length * 4 <= SMEM_LIMIT
-    if cluster == 4:
-        assert 2 * 4 * lay.rank_length * 4 <= SMEM_LIMIT
-    rng = np.random.default_rng(cluster)
-    x = rng.standard_normal((1, n)) + 1j * rng.standard_normal((1, n))
-    y, worst, max_index, injective = emulate("rows", log2n, K2_LOG2RM, x, cluster=cluster)
-    want = np.where(np.arange(n) & 1, -1.0, 1.0) * (n * np.fft.ifft(x, axis=-1))
-    assert np.abs(y - want).max() <= 1e-6 * np.abs(want).max()
-    assert worst == 1 and injective
-    assert lay.rank(max_index) < cluster
-    # the share of a pass's exchange that crosses blocks: a thread's block is
-    # tid // block_threads; the reads of pass 0's exchange (pad<0>)
-    tid = np.arange(lay.threads)
-    remote = []
-    for k in range(8):
-        a = pad(tid + (k << (log2n - 3)), 0, log2n, K2_LOG2RM, lay.log2w)
-        remote.append(lay.rank(a) != tid // block_threads)
-    assert abs(np.mean(remote) - (1 - 1 / cluster)) < 0.05  # the padding moves the split
+def _k2_split_row(log2n: int, log2s: int, x: np.ndarray):
+    """K2 at N = 16384's schedule (``fourstep_row_pass_split``) on one row
+    x (N,) at N = 2^log2n over S = 2^log2s blocks, as their threads run it.
+    Returns (y (N,), each rank's (slot addresses its threads store into,
+    addresses they read from their own slot), worst bank conflict of the
+    parts' exchanges). Addresses are of plane 0: plane q adds 8 q T."""
+    n, split = 1 << log2n, 1 << log2s
+    part = n // split
+    t = part >> K2_LOG2RM                 # threads a block: the part's T
+    tw = twiddle_table(n, "cpu").numpy()
+    tid = np.arange(t)
+    j = np.arange(split)
+    r8 = np.arange(8)
+    slot = np.full((split, 8 * t), np.nan, np.complex128)  # plane 0 of each rank's slot
+    stores = {rank: [] for rank in range(split)}
+    # thread t of rank rho holds x = t + (rho + S r) T, r < 8: group g is
+    # x = k + j N / S, k = t + (rho + S g) T; c_q = e^{2 pi i q k / N} DFT_S
+    for rank in range(split):
+        for g in range(8 // split):
+            k = tid + (rank + split * g) * t
+            u = x[k[:, None] + j[None, :] * part]                  # (t, S)
+            c = u @ np.exp(2j * np.pi * np.outer(j, j) / split)    # the in-register DFT
+            c *= twiddle(tw, j[None, :] * k[:, None], n)           # e^{2 pi i q k / N}, q k < N
+            addr = (rank + split * g) * t + tid                    # r' = rank + S g of thread t
+            for q in range(split):                                 # into rank q's slot
+                slot[q, addr] = c[:, q]
+            stores[rank].append(addr)
+    y = np.full(n, np.nan, np.complex128)
+    worst = 1
+    last = 1 << log2r(log2n - log2s, K2_LOG2RM, passes(log2n - log2s, K2_LOG2RM) - 1)
+    out = {}
+    for rank in range(split):
+        reads = r8[None, :] * t + tid[:, None]                     # (t, 8): point r' of thread t
+        seq = np.empty(part, np.complex128)
+        seq[tid[:, None] + r8[None, :] * t] = slot[rank, reads]    # x' = t + r' T
+        yp, w, _, injective = emulate("rows", log2n - log2s, K2_LOG2RM, seq[None], log2tw=log2n,
+                                      alternate=False)
+        assert injective
+        worst = max(worst, w)
+        # output i of thread t: m = out_index(t, i), stored at x = S m + rank
+        m = tid[:, None] + (r8[None, :] // last) * t + (r8[None, :] % last) * (part // last)
+        y[split * m + rank] = (-1.0) ** rank * yp[0][m]
+        out[rank] = (np.stack(stores[rank], axis=1), reads)
+    return y, out, worst
+
+
+SPLITS = [(11, 1), (12, 1), (12, 2), (13, 2), (14, 1), (14, 2)]  # parts of >= 1024 points, as K2's
+
+
+@pytest.mark.parametrize("log2n,log2s", SPLITS,
+                         ids=[f"K2-{1 << ln}-split{1 << ls}" for ln, ls in SPLITS])
+def test_k2_split_row_equals_numpy_fft(log2n, log2s):
+    """K2 at 16384 over S = 2 blocks (and S = 4, the variant; the same split
+    at 2048-8192, where index errors show as well): the radix-S step in
+    registers on the groups of x = t + (rank + S r) T, the stores of c_q into
+    rank q's slot at the point r' = rank + S g that thread t of the part's
+    passes holds, the N / S-point parts through K2's passes with the N-point
+    table at stride S, and the stores at x = S m + rank with the sign
+    (-1)^rank equal (-1)^x N ifft, with no bank conflict in the parts'
+    exchanges."""
+    n = 1 << log2n
+    rng = np.random.default_rng(log2n + log2s)
+    x = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    y, _, worst = _k2_split_row(log2n, log2s, x)
+    want = np.where(np.arange(n) & 1, -1.0, 1.0) * (n * np.fft.ifft(x))
+    assert np.isfinite(y).all()
+    assert np.abs(y - want).max() <= 1e-5 * np.abs(want).max()
+    assert worst == 1
+
+
+@pytest.mark.parametrize("log2s", [1, 2], ids=["split2", "split4"])
+def test_k2_split_slot_fits_and_is_conflict_free(log2s):
+    """K2 at 16384's swap slot, slot[(plane 8 + r') T + t] in the part's
+    passes' buffer: the S senders' stores fill each plane of a slot once,
+    each (plane, point) of a warp's 32 stores and 32 loads falls on 32
+    banks, and the buffer fits one block's shared memory, one a SM at S = 2
+    and two at S = 4 (as K2 at 4096)."""
+    log2n, split = 14, 1 << log2s
+    lay = Layout("rows", log2n - log2s, K2_LOG2RM)
+    t = lay.t
+    assert t == 2048 // split and 4 * 8 * t <= 4 * lay.length
+    assert log2s * 4 * lay.length * 4 <= SMEM_LIMIT  # 1 block a SM at S = 2, 2 at S = 4
+    x = np.random.default_rng(0).standard_normal(1 << log2n).astype(np.complex128)
+    _, out, _ = _k2_split_row(log2n, log2s, x)
+    written = np.concatenate([out[rank][0] for rank in range(split)], axis=1)
+    assert np.unique(written).size == written.size == 8 * t
+    for rank in range(split):
+        for acc in out[rank]:
+            for col in range(acc.shape[1]):
+                assert _conflict(acc[:, col], t) == 1
 
 
 @pytest.mark.parametrize("log2n,log2rm,radices", [

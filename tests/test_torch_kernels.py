@@ -229,11 +229,14 @@ def _big_inputs(device):
 
 @pytest.mark.cuda
 def test_fourstep_16384_on_row_and_column_bands(cuda):
-    """K2 at 16384 (a row on a thread-block cluster) on 16-row bands and
-    K3 on 128-column bands of the whole frame, against the plain version
-    on those bands (the plain version of the whole grid needs tens of GB);
-    a banded K2 launch equals the same rows of the whole pass; the
-    checksum's partials sum the kernel's own planes. One launch each."""
+    """K2 at 16384 (a row split into two 8192-point halves over a
+    two-block cluster) on 16-row bands and K3 on 128-column bands of the
+    whole frame, against the plain version on those bands (the plain
+    version of the whole grid needs tens of GB); a banded K2 launch equals
+    the same rows of the whole pass, and so does the first frame of a
+    two-frame banded launch, whose second frame (the cluster's swap slot
+    reused across frames) holds to the plain version too; the checksum's
+    partials sum the kernel's own planes. One launch each."""
     cfg, inputs = _big_inputs(cuda)
     n = cfg.resolution
     ts = [11.25]
@@ -248,6 +251,10 @@ def test_fourstep_16384_on_row_and_column_bands(cuda):
         assert _rel(y[..., base:base + 16, :], want) < TOL_PLANES
         band = fs.launch_fourstep_row(inputs, ts, cfg, row_base=base, rows=16)
         assert torch.equal(band, y[..., base:base + 16, :])
+        two = fs.launch_fourstep_row(inputs, ts + [3.5], cfg, row_base=base, rows=16)
+        assert torch.equal(two[:1], band)
+        want = fs.fourstep_row_reference(inputs, [3.5], cfg, row_base=base, rows=16)
+        assert _rel(two[1:], want) < TOL_PLANES
     for c0 in (4096 + 32, n - 128):
         want = fs.fourstep_col_reference(y[..., c0:c0 + 128].contiguous(), cfg)
         assert _rel(planes[..., c0:c0 + 128], want) < TOL_PLANES

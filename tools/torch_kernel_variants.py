@@ -24,15 +24,19 @@ planes a thread), ``*_two_blocks`` launch bounds for
 two 512-thread blocks a SM (64 registers a thread). ``k3_fast_checksum``
 swaps the checksum kernel's IEEE divisions and square root for a
 reciprocal and ``rsqrtf``: what its per-texel arithmetic costs. The
-``k2c*`` variants are K2 at 16384^2 (``fourstep_row_pass_cluster``, one
-frame on a 16384^2 state drawn on the card): a cluster of 2 blocks of
-1,024 threads or (``k2c4*``) 4 of 512; ``*_noclobber`` drops the memory
-clobber of the distributed-shared-memory loads and stores;
-``*_generic`` reaches the cluster's shared memory through generic pointers
-(``mapa.u64``, plain loads and stores) instead of shared::cluster
-addresses; ``*_one_block`` asks for one block a SM (more registers);
-``k2c_hoisted`` lets the compiler hoist the exchanges' addresses out of the
-frame loop (the thread index is not made opaque each frame). The ``k8*``
+``k2s*`` variants are K2 at 16384^2
+(``fourstep_row_pass_split``, one frame on a 16384^2 state drawn on the
+card): ``k2s_split4`` splits a row over a cluster of 4 blocks of 512
+threads (4096-point quarters, two blocks a SM; three quarters of the
+points cross SMs) in place of 2 of 1,024 (8192-point halves, one a SM),
+``k2s_hoisted`` lets the compiler hoist the thread index's addresses out
+of the loops (not made opaque each frame), ``k2s_no_swap_stores`` drops
+the swap's stores into the slots (the barriers stay; the output is wrong):
+what the distributed-shared-memory traffic costs. ``k2s_8192`` is the
+repository's K2 at 8192^2, one frame (``fourstep_row_pass<13>``, the
+passes each block of the split runs; K2 at 4096^2, ``k2_repo``, runs those
+of ``k2s_split4``): four 8192^2 frames, or sixteen 4096^2 ones, hold as
+many elements as one 16384^2 frame. The ``k8*``
 variants are K8 (``raster.cu``, ``segmin_lookback``) on 735,784 synthetic
 entries (ascending ids over 105,000 octs, the frame's resolve size; 5
 packed rows): ``k8_late_stores`` stores every entry after the look-back
@@ -78,27 +82,8 @@ OUT = ROOT / "build" / "variants"
 REPEATS = 2
 
 K2_BOUNDS = "kSmThreads / RowFft<LOG2N>::kT)"
-K2C_FOUR = ("constexpr int kClusterBlocks = 2;", "constexpr int kClusterBlocks = 4;")
-K2C_NOCLOBBER = [
-    ('asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(addr) : "memory");',
-     'asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(addr));'),
-    ('asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v) : "memory");',
-     'asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v));')]
-K2C_GENERIC = [("""  auto sm = [&](int q, int, int a) -> DsmemRef {
-    const int r = a / kRankLen;
-    return DsmemRef{cluster_address(base, r) +
-                    static_cast<uint32_t>(q * kRankLen + a - r * kRankLen) * 4u};
-  };""", """  (void)base;
-  auto sm = [&](int q, int, int a) -> float& {
-    const int r = a / kRankLen;
-    float* part;
-    asm("mapa.u64 %0, %1, %2;" : "=l"(part) : "l"(smem), "r"(r));
-    return part[q * kRankLen + a - r * kRankLen];
-  };""")]
-K2C_HOISTED = [('    asm volatile("mov.b32 %0, %1;" : "=r"(ftid) : "r"(tid));',
-                "    ftid = tid;")]
-K2C_ONE_BLOCK = ("kSmThreads / (RowFft<LOG2N>::kT / kClusterBlocks))", "1)")
-
+K2S_NO_SWAP_STORES = ("            store_cluster<(q * kRadix + kSplit * g) * kT * 4>(to, c[q][j]);\n",
+                      "")
 
 def k2(log2_radix: int, sm_threads: int | None) -> list:
     """K2 at radix 2^log2_radix, launch bounds for sm_threads threads a SM
@@ -175,13 +160,14 @@ VARIANTS = {
         ("  if (!final_now) store_entries<VEC>", "  store_entries<VEC>")]),
     "k8_blockidx": ("raster", [("    const int t = static_cast<int>(atomicAdd(ticket, 1u));",
                                 "    const int t = static_cast<int>(blockIdx.x);")]),
-    "k2c_repo": ("fourstep_step", []),
-    "k2c_hoisted": ("fourstep_step", K2C_HOISTED),
-    "k2c_noclobber": ("fourstep_step", K2C_NOCLOBBER),
-    "k2c_generic": ("fourstep_step", K2C_GENERIC),
-    "k2c4_repo": ("fourstep_step", [K2C_FOUR]),
-    "k2c4_generic": ("fourstep_step", [K2C_FOUR] + K2C_GENERIC),
-    "k2c4_one_block": ("fourstep_step", [K2C_FOUR, K2C_ONE_BLOCK]),
+    "k2s_repo": ("fourstep_step", []),
+    "k2s_split4": ("fourstep_step", [("constexpr int kLog2Split = 1;",
+                                      "constexpr int kLog2Split = 2;")]),
+    "k2s_hoisted": ("fourstep_step", [('      asm volatile("mov.b32 %0, %1;" : "=r"(ftid) : "r"(tid));',
+                                       "      ftid = tid;")]),
+    "k2s_no_swap_stores": ("fourstep_step", [K2S_NO_SWAP_STORES]),
+    "k2s_loads_only": ("fourstep_step", LOADS_ONLY),
+    "k2s_8192": ("fourstep_step", []),
 }
 
 
@@ -230,13 +216,20 @@ def main() -> None:
     def stream():
         return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
-    if any(name.startswith("k2c") for name in names):
-        big = ot.OceanConfig(resolution=16384, fft_impl="pallas")
+    def drawn(n: int):
+        """A state drawn on the card (h0 from a CUDA generator seeded 0, the
+        deep-water dispersion as omega), its K2 inputs and K2's Y of one frame."""
+        cfg = ot.OceanConfig(resolution=n, fft_impl="pallas")
         gen = torch.Generator(device=dev).manual_seed(0)
-        in_big = fs.hoist_fourstep(torch.randn((2, 16384, 16384), generator=gen, device=dev),
-                                   torch.from_numpy(dispersion(16384, big.domain_size)).to(dev),
-                                   big)
-        want_big = fs.launch_fourstep_row(in_big, torch.zeros(1, device=dev), big)
+        inputs = fs.hoist_fourstep(torch.randn((2, n, n), generator=gen, device=dev),
+                                   torch.from_numpy(dispersion(n, cfg.domain_size)).to(dev), cfg)
+        return n, cfg, inputs, fs.launch_fourstep_row(inputs, torch.zeros(1, device=dev), cfg)
+
+    split = {}  # n -> (n, cfg, inputs, Y) of the k2s variants
+    if any(name.startswith("k2s") and name != "k2s_8192" for name in names):
+        split[16384] = drawn(16384)
+    if "k2s_8192" in names:
+        split[8192] = drawn(8192)
     if any(name.startswith("k8") for name in names):
         rng = np.random.default_rng(0)
         n8, oct8 = 735_784, 105_000
@@ -312,18 +305,20 @@ def main() -> None:
                 torch.cuda.synchronize()
                 out = torch.cat([mins8.reshape(-1), skey8])
                 want, names, calls = want8, smoke.K8_KERNELS, 50
-            elif name.startswith("k2c"):
-                out = torch.empty_like(want_big)
+            elif name.startswith("k2s"):
+                n, cfg, inputs, want = split[8192 if name == "k2s_8192" else 16384]
+                out = torch.empty_like(want)
 
                 def call():
                     err = lib.fourstep_row(
-                        in_big.h0.data_ptr(), in_big.omega.data_ptr(), in_big.twiddle.data_ptr(),
-                        ts1.data_ptr(), 1, 16384, 16384, 0, _f32(np.pi / big.domain_size), 0, 0,
+                        inputs.h0.data_ptr(), inputs.omega.data_ptr(), inputs.twiddle.data_ptr(),
+                        ts1.data_ptr(), 1, n, n, 0, _f32(np.pi / cfg.domain_size), 0, 0,
                         out.data_ptr(), stream())
                     if err:
                         smoke.fail(f"{name}: CUDA error {err}")
 
-                want, names, calls = want_big, smoke.K2_CLUSTER_KERNELS, 10
+                names = smoke.K2_KERNELS if n == 8192 else smoke.K2_SPLIT_KERNELS
+                calls = 10
             elif name.startswith("k2"):
                 out = torch.empty_like(want2)
 

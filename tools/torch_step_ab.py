@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Two trees of the port on one NVIDIA GPU in one run: K3, K4 and the paths
-they carry, measured through entry points both trees have.
+"""Two trees of the port on one NVIDIA GPU in one run: K2 at 16384^2, K3,
+K4 and the paths they carry, measured through entry points both trees have.
 
     python3 tools/torch_step_ab.py PARENT_DIR [CHANGE_DIR]
 
@@ -9,8 +9,16 @@ PARENT_DIR holds a checkout of the commit to compare with (for example
 this checkout) the tree under test. Each side runs in a process of its own,
 in the order parent, change, change, parent, so that a drift of the card
 or the host shows as a difference between the two runs of one side. A side
-builds its own kernels (``build/kernels/`` of its tree) and measures, on
-Phillips states from a torch.Generator seeded 0:
+builds its own kernels (``build/kernels/`` of its tree) and measures:
+
+- K2 at 16384^2, one frame on a state drawn on the card (h0 from a CUDA
+  generator seeded 0, the deep-water dispersion as omega): CUDA-event ms a
+  call and torch.profiler's device ms (the side's K2 kernel at 16384,
+  ``fourstep_row_pass_split`` or the cluster kernel before it), the
+  16384^2 step (K2 + K3 with its checksum) by events, and the 24-frame
+  checksum rollout at time batch 1;
+
+and, on Phillips states from a torch.Generator seeded 0:
 
 - K3 with its checksum on K2's Y of one 4096^2 frame (config 5 of
   ``benchmarks/run_all.py``): CUDA-event ms a call, torch.profiler's device
@@ -34,23 +42,32 @@ import sys
 from pathlib import Path
 
 K3_KERNELS = ("fourstep_col_stage1", "fourstep_col_stage2", "checksum_partials")
+# K2 at 16384 in either tree: the split kernel, or the cluster kernel of
+# the trees before it.
+K2_BIG_KERNELS = ("fourstep_row_pass_split", "fourstep_row_pass_cluster")
+BIG_N, BIG_STEPS, BIG_REPEATS, BIG_CALLS = 16384, 24, 2, 10
 FS_STEPS, FS_REPEATS, FS_CALLS = 120, 3, 20
 U_STEPS, U_REPEATS, U_CALLS, U_TIME_BATCH, U_PROFILE_STEPS = 600, 5, 50, 6, 60
 
 
-def device_ms_seen(smoke, fn, names, calls: int) -> dict:
+def device_ms_seen(smoke, fn, names, calls: int):
     """``kernel_device_ms`` for the kernels of ``names`` that ``fn``
-    launches: a side whose checksum has no kernel launches fewer."""
+    launches (a side whose checksum has no kernel launches fewer); None,
+    with a line on stderr, where no profiler session recorded any of them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    seen = tuple(n for n in names if any(n in e.key for e in prof.key_averages()))
-    return smoke.kernel_device_ms(fn, seen, calls)
+    for _ in range(smoke.PROFILER_ATTEMPTS):  # a session now and then records no kernel
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen = tuple(n for n in names if any(n in e.key for e in prof.key_averages()))
+        if seen:
+            return smoke.kernel_device_ms(fn, seen, calls)
+    print(f"torch.profiler saw none of {names}: not measured", file=sys.stderr, flush=True)
+    return None
 
 
 def measure(root: Path) -> dict:
@@ -69,6 +86,7 @@ def measure(root: Path) -> dict:
     from gfx_ocean_tpu_torch.ops import fourstep_step as fs
     from gfx_ocean_tpu_torch.ops import fused_step
     from gfx_ocean_tpu_torch.ops import unpacked_step as us
+    from gfx_ocean_tpu_torch.spectra.phillips import dispersion
     from gfx_ocean_tpu_torch.utils.profiling import time_rollout
 
     if not torch.cuda.is_available():
@@ -76,12 +94,33 @@ def measure(root: Path) -> dict:
     dev = torch.device("cuda", 0)
     out = {}
 
+    big = ot.OceanConfig(resolution=BIG_N, fft_impl="pallas")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    st_big = ot.OceanState(torch.randn((2, BIG_N, BIG_N), generator=gen, device=dev),
+                           torch.from_numpy(dispersion(BIG_N, big.domain_size)).to(dev))
+    in_big = fs.hoist_fourstep(st_big.h0, st_big.omega, big)
+    ts1 = torch.zeros(1, device=dev)
+
+    def k2_big():
+        return fs.launch_fourstep_row(in_big, ts1, big)
+
+    out["k2_16384_ms"] = smoke.event_ms(k2_big, BIG_CALLS)
+    out["k2_16384_device_ms"] = device_ms_seen(smoke, k2_big, K2_BIG_KERNELS, BIG_CALLS)
+    out["step_16384_ms"] = smoke.event_ms(lambda: fused_step.packed_checksums(in_big, ts1, big),
+                                          BIG_CALLS)
+    ts = torch.arange(BIG_STEPS, dtype=torch.float32, device=dev) / 60.0
+    rec = time_rollout(ot.make_rollout(big, keep_fields=False, time_batch=1), st_big, ts,
+                       repeats=BIG_REPEATS)
+    out["steps_per_sec_16384_tb1"] = rec["steps_per_sec"]
+    out["repeats_sec_16384"] = rec["repeats_sec"]
+    del st_big, in_big, rec
+    torch.cuda.empty_cache()
+
     c5 = ot.OceanConfig(resolution=4096, domain_size=2000.0, fft_impl="pallas",
                         matmul_precision="high")
     st5 = ot.ocean_state_from_phillips(c5, ot.PhillipsConfig(),
                                        generator=torch.Generator().manual_seed(0), device=dev)
     in5 = fs.hoist_fourstep(st5.h0, st5.omega, c5)
-    ts1 = torch.zeros(1, device=dev)
     y = fs.launch_fourstep_row(in5, ts1, c5)
 
     def k3():
