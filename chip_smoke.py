@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's four paths: the three step paths, gated against the
-float64 golden model, and the frame renderer, gated against a frame the JAX
-package rendered. It imports no jax.
+Drives the port's five paths: the three step paths, gated against the
+float64 golden model, the frame renderer, gated against a frame the JAX
+package rendered, and cascades. It imports no jax.
 
 - The 512^2 Hermitian-packed step (``OceanConfig(fft_impl="pallas",
   matmul_precision="bf16x3")``) through kernel K1, a 600-frame checksum
@@ -26,6 +26,11 @@ package rendered. It imports no jax.
   (``OceanConfig(resolution=16384, fft_impl="pallas")``), through K2 (a
   row split in registers into two 8192-point halves, one a block of a
   two-block cluster) and K3, a 24-frame checksum rollout at time_batch 1.
+- Cascades, config 4 of ``benchmarks/run_all.py`` (``OceanConfig(
+  resolution=512, num_cascades=3, compute_foam=True)``, here on "pallas"):
+  three 512^2 cascades with foam through K1's cascade axis, a 200-frame
+  checksum rollout at time_batch 1 and the composited 1200x700 frame
+  through K1, K7 and K8.
 
 Phases, one line each:
 
@@ -100,10 +105,32 @@ Phases, one line each:
     K3's own device time (torch.profiler), the plain K2 over the whole
     grid in 1024-row bands, and torch.fft along x, y and both;
 26. big_rollout: make_rollout(keep_fields=False, time_batch=1) over 24
-    frames through the kernels (launch counts, finite checksums, steps/s).
+    frames through the kernels (launch counts, finite checksums, steps/s);
+27. cascade_state: three 512^2 cascades from one torch.Generator seeded 0
+    (cascade c the c-th draw at domains[c]; cascade 0 equals the
+    single-cascade state);
+28. cascade_kernel_vs_plain, cascade_time_one_call: K1's one launch for
+    3 cascades x 6 frames against its plain version and bit-equal to three
+    single-cascade launches, its checksums; a 3 x 6-frame call by CUDA
+    events and torch.profiler beside the plain version and ifft2 of
+    (18, 2, 512, 512);
+29. cascade_golden: the step at t = 11.25, every cascade against the
+    float64 golden model, foam per cascade;
+30. cascade_rollout: the 200-frame foam rollout at time_batch 1 (5 repeats
+    by CUDA events, their spread), checksums against the plain rollout;
+31. cascade_routes: K2 + K3 (3 x 1024^2) and K4 (3 x 512^2) a cascade a
+    call against their plain versions, with launch counts;
+32. cascade_render: the composited 1200x700 frame with foam through
+    make_frame_renderer: K7 and K8 bit-equal to their plain versions on its
+    tables, the frame bit-equal through the plain versions and to
+    _rasterize_pool, the giant-pass tripwire, its time and device time;
+33. cascade_main_path: the rollout and 10 frames with every launch count;
+34. cascade_query_checkpoint: sample_surface on the card against the CPU,
+    and a checkpoint round trip on the card.
 
 Then one JSON line with the kernels K1-K8 and K2 at 16384^2 (times,
-bounds from this run's shapes, library yardsticks, ``device_ms``), and as
+bounds from this run's shapes, library yardsticks, ``device_ms``; K1's
+entry carries the cascade call's numbers as ``cascade_*``), and as
 the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero with no
 result; so does a machine without CUDA.
@@ -204,6 +231,21 @@ BIG_PLAIN_ROWS = 1024  # rows a band of the plain K2 over the whole grid
 BIG_STEPS = 24
 BIG_REPEATS = 2
 BIG_TIMING_CALLS = 10
+
+# Cascades: config 4 of benchmarks/run_all.py:180-195, three 512^2 cascades
+# at the default ladder of domains (1000, 250, 62.5) with foam, on "pallas"
+# (K1's cascade axis; the benchmark's config runs the default "matmul"), a
+# Phillips state from torch.Generator seed 0, the benchmark's 200-frame
+# checksum rollout at time batch 1.
+C_CASCADES = 3
+C_STEPS = 200
+C_REPEATS = 5
+C_FS_N = 1024          # the four-step route, one cascade a call
+C_FRAMES = 10          # frames of the main path's run with its launch counts
+C_QUERY_POINTS = 4096
+# sample_surface on the card against the CPU: tests/test_torch_query.py's
+# bounds (float32 heights to 2e-5, world x / z to 6e-5, normals to 1e-4).
+C_QUERY_TOL = dict(height=2e-5, base_xz=6e-5, residual=6e-5, normal=1e-4)
 
 
 def fail(msg: str) -> None:
@@ -363,11 +405,13 @@ def main() -> None:
     phase("device", name=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
           torch=torch.__version__, cuda=torch.version.cuda)
     build()
-    kernels_line = [run(dev, N)]
+    k1 = run(dev, N)
+    kernels_line = [k1]
     kernels_line += run_fourstep(dev)
     kernels_line += run_render(dev)
     kernels_line += run_unpacked(dev)
     kernels_line += run_big(dev)
+    k1.update(run_cascades(dev))
     print(json.dumps({"kernels": sorted(kernels_line, key=lambda k: k["name"])}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
@@ -516,7 +560,8 @@ def run(dev, n: int) -> dict:
         fail(f"rollout checksums differ from the plain version by {ck_diff:.3e}")
 
     return {
-        "name": "K1 packed_step (row pass, column pass, checksum partials)",
+        "name": "K1 packed_step (row pass, column pass, checksum partials; "
+                "cascades on grid axis z)",
         "route": "cuda",
         "source": "gfx_ocean_tpu_torch/csrc/packed_step.cu",
         "replaces": "gfx_ocean_tpu/ops/pallas_step.py:352",
@@ -1417,6 +1462,366 @@ def run_big(dev) -> list:
         **rec["k2_bound"],
         "library_ms": rec["k2_library_ms"],
     }]
+
+
+@contextlib.contextmanager
+def plain_k1():
+    """Route ``fused_step.packed_planes``'s K1 inputs to K1's plain version
+    (on the card) inside the block; the other routes stay as they are."""
+    from gfx_ocean_tpu_torch.ops import fused_step
+
+    saved = fused_step.packed_planes
+
+    def planes(inputs, ts, config):
+        if isinstance(inputs, fused_step.PackedInputs):
+            return fused_step.packed_planes_reference(inputs, ts, config)
+        return saved(inputs, ts, config)
+
+    fused_step.packed_planes = planes
+    try:
+        yield
+    finally:
+        fused_step.packed_planes = saved
+
+
+def run_cascades(dev) -> dict:
+    """Phases 27-34: config 4 of benchmarks/run_all.py (three 512^2 cascades
+    with foam) through K1's cascade axis, the per-cascade routes (K2 + K3 at
+    1024^2, K4 at 512^2), the composited 1200x700 frame (K1 -> K7 -> K8),
+    sample_surface and a checkpoint; returns the fields it adds to K1's
+    kernels entry."""
+    import numpy as np
+    import torch
+
+    import gfx_ocean_tpu_torch as ot
+    from gfx_ocean_tpu_torch import checkpoint, query
+    from gfx_ocean_tpu_torch.golden.reference import golden_fields
+    from gfx_ocean_tpu_torch.ops import fourstep_step as fs
+    from gfx_ocean_tpu_torch.ops import fused_step
+    from gfx_ocean_tpu_torch.ops import unpacked_step as us
+    from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, finite_difference_normals_planes
+    from gfx_ocean_tpu_torch.render import raster as rr
+    from gfx_ocean_tpu_torch.render.camera import Camera
+    from gfx_ocean_tpu_torch.utils.complexpair import from_pair_np
+
+    torch.cuda.empty_cache()
+    cc = C_CASCADES
+    cfg = ot.OceanConfig(resolution=N, num_cascades=cc, compute_foam=True, fft_impl="pallas")
+    counters = dict(k1=fused_step.launch_packed_step, k2=fs.launch_fourstep_row,
+                    k3=fs.launch_fourstep_col, k4=us.launch_unpacked_step,
+                    k5=us.launch_unpacked_rows, k6=us.launch_unpacked_cols,
+                    k7=rr.launch_slot_kernel, k8=rr.launch_segmin_kernel)
+
+    def reset() -> None:
+        for c in counters.values():
+            c.launches = 0
+
+    def launches() -> dict:
+        return {k: c.launches for k, c in counters.items()}
+
+    def state_at(n: int, cascades: int = cc):
+        return ot.ocean_state_from_phillips(
+            dataclasses.replace(cfg, resolution=n, num_cascades=cascades), ot.PhillipsConfig(),
+            generator=torch.Generator().manual_seed(0), device=dev)
+
+    def summands_of(planes):
+        """Sum of |summands| of each frame's checksum, (tb, C, 3, N, N) planes."""
+        return (planes.abs().sum(dim=(-4, -3, -2, -1))
+                + finite_difference_normals_planes(planes[:, :, 1], cfg.normal_height_scale)
+                .abs().sum(dim=(-4, -3, -2, -1)))
+
+    # --- 27. state ----------------------------------------------------------
+    t0 = time.perf_counter()
+    state = state_at(N)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    cascade0_is_single = bool(torch.equal(state.h0[0], state_at(N, 1).h0))
+    phase("cascade_state", source="phillips synthesize, torch.Generator seed 0, cascade c "
+          "the c-th draw", resolution=N, cascades=cc, domains=list(cfg.domains),
+          h0_shape=list(state.h0.shape), omega_shape=list(state.omega.shape), seconds=seconds,
+          h0_absmax=[float(h.abs().max()) for h in state.h0],
+          omega_max=[float(o.max()) for o in state.omega],
+          cascade0_equals_single_cascade_state=cascade0_is_single)
+    if tuple(state.h0.shape) != (cc, 2, N, N) or not cascade0_is_single:
+        fail(f"cascade state: shape {tuple(state.h0.shape)}, cascade 0 equals the "
+             f"single-cascade state {cascade0_is_single}")
+
+    # --- 28. K1 on the cascade axis against the plain version --------------
+    inputs = fused_step.hoist_packed(state.h0, state.omega, cfg)
+    ts_cmp = torch.tensor(T_COMPARE, dtype=torch.float32, device=dev)
+    reset()
+    planes, partials = fused_step.launch_packed_step(inputs, ts_cmp, cfg, checksum=True)
+    one_launch = launches()["k1"]
+    want = fused_step.packed_planes_reference(inputs, ts_cmp, cfg)
+    torch.cuda.synchronize()
+    k1_err = max_err(planes.transpose(0, 1), want)
+    singles_differ = 0
+    for c in range(cc):
+        one = fused_step.hoist_packed(state.h0[c], state.omega[c], cfg)
+        singles_differ += int((fused_step.launch_packed_step(one, ts_cmp, cfg, checksum=False)[0]
+                               != planes[c]).sum())
+    summands = summands_of(want)
+    ck_rel = float(((partials.sum(dim=(0, 2)) - checksums_of_planes(want, cfg)).abs()
+                    / summands).max())
+    phase("cascade_kernel_vs_plain", cascades=cc, frames=list(T_COMPARE),
+          launches_for_the_call=one_launch, planes_max_abs=k1_err[0], planes_rel=k1_err[1],
+          values_differing_from_single_cascade_launches=singles_differ,
+          checksum_rel_to_summands=ck_rel, tolerance=TOL_KERNEL,
+          checksum_tolerance=TOL_CHECKSUM)
+    del planes, partials, want
+    if one_launch != 1:
+        fail(f"K1 took {one_launch} launches for {cc} cascades, expected 1")
+    if not (k1_err[1] <= TOL_KERNEL):
+        fail(f"K1 on cascades vs plain: {k1_err[1]:.3e} > {TOL_KERNEL}")
+    if singles_differ:
+        fail(f"K1 on cascades differs from single-cascade launches in {singles_differ} values")
+    if not (ck_rel <= TOL_CHECKSUM):
+        fail(f"K1 cascade checksums vs plain: {ck_rel:.3e} > {TOL_CHECKSUM}")
+
+    ts_tb = torch.arange(TIME_BATCH, dtype=torch.float32, device=dev) / 60.0
+    k1c = dict(
+        kernel_ms=event_ms(lambda: fused_step.packed_checksums(inputs, ts_tb, cfg), TIMING_CALLS),
+        plain_ms=event_ms(lambda: fused_step.packed_checksums_reference(inputs, ts_tb, cfg),
+                          TIMING_CALLS // 5))
+    spectra = torch.randn((cc * TIME_BATCH, 2, N, N), dtype=torch.complex64, device=dev)
+    k1c["library_ifft2_ms"] = event_ms(lambda: torch.fft.ifft2(spectra), TIMING_CALLS)
+    del spectra
+    k1c["device_ms"] = kernel_device_ms(lambda: fused_step.packed_checksums(inputs, ts_tb, cfg),
+                                        K1_KERNELS, TIMING_CALLS)
+    k1c_bound = bound(nbytes(state.h0, state.omega, inputs.twiddle, ts_tb)
+                      + 4 * cc * TIME_BATCH * (3 * N * N + N // fused_step.CHECKSUM_ROWS),
+                      fft_ops(N, cc * TIME_BATCH * 4 * N))
+    phase("cascade_time_one_call", cascades=cc, frames=TIME_BATCH, calls=TIMING_CALLS,
+          library=f"torch.fft.ifft2 of ({cc * TIME_BATCH}, 2, {N}, {N}) c64",
+          clock="cuda events; device_ms: torch.profiler, K1's launches only", **k1c, **k1c_bound)
+
+    # --- 29. every cascade against the golden model ----------------------------
+    fields = ot.make_step(cfg)(state, T_CHECK)
+    disp = fields.displacement.cpu().numpy()
+    h0_np, om_np = state.h0.cpu().numpy(), state.omega.cpu().numpy()
+    per_cascade = []
+    for c in range(cc):
+        gold = golden_fields(from_pair_np(h0_np[c]), om_np[c], T_CHECK, cfg.domain_size,
+                             cfg.compat)
+        abs_linf = float(np.abs(disp[c] - gold).max())
+        per_cascade.append(dict(cascade=c, domain=cfg.domains[c], abs_linf=abs_linf,
+                                rel_linf=abs_linf / float(np.abs(gold).max()),
+                                foam_fraction=float(fields.foam[c].mean())))
+    shapes = [list(fields.displacement.shape), list(fields.normals.shape), list(fields.foam.shape)]
+    finite = bool(np.isfinite(disp).all()) and bool(torch.isfinite(fields.normals).all())
+    phase("cascade_golden", t=T_CHECK, shapes=shapes, finite=finite, cascades=per_cascade,
+          golden=f"float64 per cascade at domain_size {cfg.domain_size} (the propagate's; "
+          "k-hat is scale-free)", gate="rel_linf", gate_limit=GOLDEN_GATE)
+    del fields, disp
+    if shapes != [[cc, N, N, 3], [cc, N, N, 3], [cc, N, N]] or not finite:
+        fail(f"cascade step: shapes {shapes}, finite {finite}")
+    for rec in per_cascade:
+        if not (rec["rel_linf"] <= GOLDEN_GATE):
+            fail(f"cascade {rec['cascade']} golden gate: {rec['rel_linf']:.3e} > {GOLDEN_GATE}")
+
+    # --- 30. the 200-frame checksum rollout through K1 -----------------------
+    rollout = ot.make_rollout(cfg, keep_fields=False, time_batch=1)
+    ts = torch.arange(C_STEPS, dtype=torch.float32, device=dev) / 60.0
+    reset()
+    cks = rollout(state, ts)
+    torch.cuda.synchronize()
+    roll_launches = launches()
+    repeats_ms = []
+    for _ in range(C_REPEATS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        rollout(state, ts)
+        end.record()
+        end.synchronize()
+        repeats_ms.append(start.elapsed_time(end))
+    with plain_k1():
+        plain_cks = rollout(state, ts)
+        plain_ms = event_ms(lambda: rollout(state, ts), 1)
+    # Foam texels within float32 rounding of the threshold may flip between
+    # the kernel's fields and the plain version's: each moves a checksum by 1.
+    kept = ot.make_rollout(cfg, keep_fields=True, time_batch=1)(state, ts)
+    with plain_k1():
+        kept_plain = ot.make_rollout(cfg, keep_fields=True, time_batch=1)(state, ts)
+    foam_flips = (kept.foam != kept_plain.foam).sum(dim=(-3, -2, -1)).double()
+    roll_summands = (kept.displacement.abs().sum(dim=(-4, -3, -2, -1))
+                     + kept.normals.abs().sum(dim=(-4, -3, -2, -1))
+                     + kept.foam.sum(dim=(-3, -2, -1))).double()
+    del kept, kept_plain
+    ck_diff = (cks.double() - plain_cks.double()).abs()
+    ck_excess = float((ck_diff - TOL_CHECKSUM * roll_summands - foam_flips).max())
+    median_ms = float(np.median(repeats_ms))
+    phase("cascade_rollout", steps=C_STEPS, time_batch=1, repeats=C_REPEATS,
+          clock="cuda events", repeats_ms=repeats_ms, median_ms=median_ms,
+          steps_per_sec=C_STEPS / median_ms * 1e3,
+          spread=(max(repeats_ms) - min(repeats_ms)) / median_ms,
+          plain_steps_per_sec=C_STEPS / plain_ms * 1e3, launches=roll_launches,
+          checksums_finite=bool(torch.isfinite(cks).all()),
+          checksum_max_abs_diff_vs_plain=float(ck_diff.max()),
+          foam_texels_flipped_vs_plain=int(foam_flips.sum()),
+          checksum_excess_over_limit=ck_excess, checksum_limit="TOL_CHECKSUM x summands "
+          "+ flipped foam texels",
+          checksum_first=float(cks[0]), checksum_last=float(cks[-1]))
+    if roll_launches != dict({k: 0 for k in counters}, k1=C_STEPS):
+        fail(f"the cascade rollout launched {roll_launches}, expected {C_STEPS} of K1")
+    if cks.shape != (C_STEPS,) or not bool(torch.isfinite(cks).all()):
+        fail(f"cascade rollout checksums: shape {tuple(cks.shape)}, "
+             f"finite {bool(torch.isfinite(cks).all())}")
+    if not (ck_excess <= 0.0):
+        fail(f"cascade rollout checksums exceed the plain version's bound by {ck_excess:.3e}")
+
+    # --- 31. the routes without a cascade axis: K2 + K3 and K4 a cascade a call
+    routes = {}
+    for name, rcfg, rstate, ts_r in (
+            ("k2+k3", dataclasses.replace(cfg, resolution=C_FS_N, compute_foam=False),
+             state_at(C_FS_N), ts_cmp[:2]),
+            ("k4", dataclasses.replace(cfg, hermitian_pack=False, compute_foam=False), state,
+             ts_cmp)):
+        rin = fused_step.hoist_packed(rstate.h0, rstate.omega, rcfg)
+        reset()
+        got = fused_step.packed_planes(rin, ts_r, rcfg)
+        got_ck = fused_step.packed_checksums(rin, ts_r, rcfg)
+        route_launches = launches()
+        plain = (fs.fourstep_planes_reference if name == "k2+k3"
+                 else us.unpacked_planes_reference)
+        want = torch.stack([plain(i, ts_r, rcfg) for i in rin.per_cascade], dim=1)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        rel_ck = float(((got_ck - checksums_of_planes(want, rcfg)).abs()
+                        / summands_of(want)).max())
+        routes[name] = dict(resolution=rcfg.resolution, frames=int(ts_r.shape[0]),
+                            planes_max_abs=err[0], planes_rel=err[1],
+                            checksum_rel_to_summands=rel_ck, launches=route_launches)
+        del rin, got, want
+        torch.cuda.empty_cache()
+    phase("cascade_routes", cascades=cc, routes=routes, tolerance=TOL_KERNEL,
+          checksum_tolerance=TOL_CHECKSUM)
+    expected_routes = {"k2+k3": dict(k2=2 * cc, k3=2 * cc), "k4": dict(k4=2 * cc)}
+    for name, rec in routes.items():
+        if not (rec["planes_rel"] <= TOL_KERNEL and rec["checksum_rel_to_summands"]
+                <= TOL_CHECKSUM):
+            fail(f"cascade route {name} vs plain: {rec}")
+        want_launches = dict({k: 0 for k in counters}, **expected_routes[name])
+        if rec["launches"] != want_launches:
+            fail(f"cascade route {name} launched {rec['launches']}, expected {want_launches}")
+
+    # --- 32. the composited 1200x700 frame with foam ---------------------------
+    cam = Camera()
+    vp = rr._view_proj(cam, R_W, R_H, dev)
+    cp = torch.tensor(cam.position.astype(np.float32), device=dev)
+    fr = rr.make_frame_renderer(cfg, R_W, R_H, R_GIANTS, diag=True)
+    frame, dropped = fr(state, R_T, vp, cp)
+    with plain_raster():
+        plain_frame, plain_dropped = fr(state, R_T, vp, cp)
+    step_cfg = dataclasses.replace(cfg, compute_normals=False)
+    fields = ot.step(state, R_T, step_cfg)
+    disp, foam = fields.displacement, fields.foam
+    tiles, interp = rr._cascade_setup(disp, cfg.domains, cfg.mesh_resolution, dev)
+    positions, uvs, tris = rr._mesh_constants(cfg.mesh_resolution, cfg.num_patches, dev)
+    grid_shape = (cfg.num_patches, cfg.mesh_resolution)
+    pool = rr._auto_pool(R_W, R_H)
+    tabs = rr._slot_tables(disp, positions, uvs, tris, vp, R_W, R_H, pool, interp, grid_shape,
+                           tiles=tiles)
+    n_oct = tabs.octs_w * tabs.octs_h
+    cov = rr._stage_scalars(tabs.total_covered, 0, dev)
+    slot_args = (tabs.crow, cov, R_W, R_H, tabs.octs_w, n_oct, 32 - tabs.id_bits, tabs.id_bits)
+    keys, octs = rr.launch_slot_kernel(*slot_args)
+    want_keys, want_octs = rr.slot_stage_reference(*slot_args)
+    so, sk = rr._oct_sort(keys, octs, n_oct)
+    mins, skey = rr.launch_segmin_kernel(so, sk, n_oct, tabs.id_bits)
+    want_mins, want_skey = rr.segmin_stage_reference(so, sk, n_oct, tabs.id_bits)
+    torch.cuda.synchronize()
+    scales = (float(cfg.height_div), float(cfg.horiz_div), float(cfg.normal_height_scale),
+              float(cfg.pbr_roughness))
+    img, depth = rr._rasterize_pool(disp, positions, uvs, tris, vp, cp, R_W, R_H, pool, R_GIANTS,
+                                    interp, grid_shape, foam, 1, scales, tiles)
+    overflow, demand = rr.pool_overflow(disp, positions, uvs, tris, vp, R_W, R_H,
+                                        return_demand=True, tiles=tiles)
+    rec = dict(k7_keys_differ=key_err(keys, want_keys)[0],
+               k7_octs_differ=int((octs != want_octs).sum()),
+               k8_mins_differ=key_err(mins, want_mins)[0],
+               k8_skey_differ=int((skey != want_skey).sum()),
+               frame_differ_vs_plain=int((frame != plain_frame).sum()),
+               frame_differ_vs_render_pool=int((frame != rr.srgb8(img)).sum()))
+    drops = dict(frame=int(dropped), plain=int(plain_dropped))
+    del keys, octs, want_keys, want_octs, so, sk, mins, skey, want_mins, want_skey, img
+    frame_ms = event_ms(lambda: fr(state, R_T, vp, cp), R_TIMING_CALLS)
+    prof = device_profile(lambda: [fr(state, R_T + i / 60.0, vp, cp)
+                                   for i in range(R_PROFILE_FRAMES)], R_PROFILE_FRAMES)
+    phase("cascade_render", width=R_W, height=R_H, t=R_T, tiles=list(tiles),
+          shape=list(frame.shape), dtype=str(frame.dtype),
+          coverage=float(torch.isfinite(depth).float().mean()), pool=pool,
+          covered_slots=int(tabs.total_covered), pool_overflow=overflow, slot_demand=demand,
+          giants=R_GIANTS, giant_groups=rr._giant_selection(tabs.score, R_GIANTS)[2],
+          dropped=drops, foam_fraction=[float(f.mean()) for f in foam], clock="cuda events",
+          frame_ms=frame_ms, device_busy_ms_per_frame=prof["device_busy_ms"] / R_PROFILE_FRAMES,
+          profile=prof, **rec)
+    del disp, foam, fields, depth, tabs
+    if tuple(frame.shape) != (R_H, R_W, 3) or frame.dtype != torch.uint8:
+        fail(f"cascade frame: shape {tuple(frame.shape)}, {frame.dtype}")
+    if any(rec.values()):
+        fail(f"cascade frame: K7 / K8 or the frame differ from their plain versions: {rec}")
+    if drops["frame"] or drops["plain"]:
+        fail(f"cascade frame: giant-pass candidates dropped: {drops}")
+
+    # --- 33. the main path: the rollout and frames, with every launch count --
+    reset()
+    t0 = time.perf_counter()
+    rollout(state, ts).cpu()
+    roll_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(C_FRAMES):
+        fr(state, R_T + i / 60.0, vp, cp)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / C_FRAMES
+    main_launches = launches()
+    expected = dict({k: 0 for k in counters}, k1=C_STEPS + C_FRAMES, k7=C_FRAMES, k8=C_FRAMES)
+    phase("cascade_main_path", steps=C_STEPS, frames=C_FRAMES, rollout_seconds=roll_s,
+          frame_wall_ms=wall_ms, launches=main_launches, expected_launches=expected)
+    if main_launches != expected:
+        fail(f"the cascade main path launched {main_launches}, expected {expected}")
+
+    # --- 34. sample_surface on the card against the CPU; a checkpoint ---------
+    disp = ot.step(state, T_CHECK, step_cfg).displacement
+    rng = np.random.default_rng(0)
+    span = float(cfg.mesh_resolution - 1) * cfg.num_patches
+    x = rng.uniform(0.0, span, C_QUERY_POINTS).astype(np.float32)
+    z = rng.uniform(0.0, span, C_QUERY_POINTS).astype(np.float32)
+    on_card = query.sample_surface(disp, torch.from_numpy(x).to(dev), torch.from_numpy(z).to(dev),
+                                   tiles=tiles)
+    on_cpu = query.sample_surface(disp.cpu(), x, z, tiles=tiles)
+    q_err = {k: float((getattr(on_card, k).cpu() - getattr(on_cpu, k)).abs().max())
+             for k in C_QUERY_TOL}
+    q_dev = str(on_card.height.device)
+    ck_dir = Path(__file__).resolve().parent / "build" / "smoke"
+    ck_dir.mkdir(parents=True, exist_ok=True)
+    path = checkpoint.save_checkpoint(str(ck_dir / "cascades"), state, T_CHECK, cfg)
+    loaded, t_loaded, cfg_loaded = checkpoint.load_checkpoint(path, device=dev)
+    round_trip = dict(h0_equal=bool(torch.equal(loaded.h0, state.h0)),
+                      omega_equal=bool(torch.equal(loaded.omega, state.omega)),
+                      t_equal=t_loaded == T_CHECK, config_equal=cfg_loaded == cfg,
+                      on_card=loaded.h0.is_cuda, path_suffix=path.endswith(".npz"))
+    os.unlink(path)
+    phase("cascade_query_checkpoint", points=C_QUERY_POINTS, tiles=list(tiles), device=q_dev,
+          card_vs_cpu_max_abs=q_err, tolerance=C_QUERY_TOL,
+          finite=bool(torch.isfinite(on_card.height).all()), checkpoint=round_trip)
+    if q_dev == "cpu" or any(not (q_err[k] <= C_QUERY_TOL[k]) for k in C_QUERY_TOL):
+        fail(f"sample_surface on the card vs the CPU: {q_err} (on {q_dev})")
+    if not all(round_trip.values()):
+        fail(f"checkpoint round trip on the card: {round_trip}")
+
+    return {
+        "cascade_config": "benchmarks/run_all.py config 4: 3 x 512^2, foam, fft_impl pallas",
+        "cascade_launches": main_launches["k1"],
+        "cascade_max_abs_err": k1_err[0],
+        "cascade_frames_a_call": cc * TIME_BATCH,
+        "cascade_ms": k1c["kernel_ms"],
+        "cascade_device_ms": k1c["device_ms"]["total"],
+        "cascade_plain_ms": k1c["plain_ms"],
+        "cascade_bound_ms": k1c_bound["bound_ms"],
+        "cascade_bound_by": k1c_bound["bound_by"],
+        "cascade_library_ms": k1c["library_ifft2_ms"],
+    }
 
 
 if __name__ == "__main__":

@@ -12,11 +12,15 @@ kernel K1, ``ops/fused_step.py`` and ``csrc/packed_step.cu``; unpacked
 (``hermitian_pack=False``) the accuracy tier, kernels K4-K6
 (``ops/unpacked_step.py``, ``csrc/unpacked_step.cu``); above 512 the
 four-step path (K2 + K3). The frame renderer (``render/``, kernels K7 + K8
-in ``csrc/raster.cu``) turns a step into a shaded frame. States are built
-on the card unless a device is given.
+in ``csrc/raster.cu``) turns a step into a shaded frame. Cascades are a
+leading axis of the state through all of it (K1 takes it as a grid axis).
+``query.py`` samples the surface at points, ``checkpoint.py`` saves and
+loads states in the JAX package's format. States are built on the card
+unless a device is given.
 """
 
 from gfx_ocean_tpu_torch.config import CompatFlags, OceanConfig, PhillipsConfig
+from gfx_ocean_tpu_torch.query import SurfaceSample, sample_surface
 from gfx_ocean_tpu_torch.models.ocean import (
     OceanFields,
     OceanState,
@@ -39,5 +43,7 @@ __all__ = [
     "make_step",
     "ocean_state_from_assets",
     "ocean_state_from_phillips",
+    "sample_surface",
     "step",
+    "SurfaceSample",
 ]

@@ -6,7 +6,7 @@
 // algorithm: where the TPU kernel multiplies by a dense DFT table on the MXU,
 // these kernels run register-resident radix-8 FFTs (fft_reg.cuh).
 //
-//   packed_row_pass    one block per (kRows rows, frame), N / 8 threads a
+//   packed_row_pass    one block per (kRows rows, frame, cascade), N / 8 threads a
 //                      row, the rows in rho pairs (y, N - y): each element
 //                      e's state reads (h0 at four places, omega at two)
 //                      and phases give the packed propagate of e and of
@@ -17,13 +17,22 @@
 //                      8, ..., a last 2 or 4), one barrier an exchange, and
 //                      writes Y (tb, 2, 2, N, N) in coalesced rows, (-1)^x
 //                      folded in.
-//   packed_col_pass    one block per (8 columns, frame), N / 8 threads a
+//   packed_col_pass    one block per (8 columns, frame, cascade), N / 8 threads a
 //                      column: the y-transform of H and Z together, read
 //                      from Y in whole 32-byte sectors a row; writes
 //                      (tb, 3, N, N) = (disp_x, height, disp_z).
 //   checksum_partials  one block per (4 rows, frame) (ocean_common.cuh):
 //                      sum of the three planes plus the normal-map terms,
 //                      one partial per block, summed by the caller.
+//
+// Cascades (a leading batch axis C of the state, the JAX package's vmap of
+// the fused step) are grid axis z: cascade c reads h0 + c 2N^2 and
+// omega + c N^2 and writes frame (c tb + frame) of Y and of the planes, so
+// one launch covers C x tb frames; every cascade takes the same frame
+// times ts. gridDim.y stays the time batch. The offsets are a template
+// switch (kCascades): a launch of one cascade runs the kernels without them,
+// which compile as before the axis (the moved base pointers cost the row
+// pass 8 more registers at 512, ptxas).
 //
 // Both transforms are y[j] = (-1)^j sum_k x[k] e^{+2 pi i j k / N}: the
 // output-alternating inverse DFT of ops/fft._dft_matrix_out_alt_np(n, 1, 0,
@@ -146,7 +155,7 @@ __device__ __forceinline__ void propagate_row_pair(
   }
 }
 
-template <int LOG2N>
+template <int LOG2N, bool kCascades>
 __global__ void __launch_bounds__(Shape<LOG2N>::kRows * Shape<LOG2N>::kT) packed_row_pass(
     const float* __restrict__ h0, const float* __restrict__ omega,
     const float* __restrict__ tw, const float* __restrict__ ts, float scale, int wrap_k,
@@ -163,6 +172,10 @@ __global__ void __launch_bounds__(Shape<LOG2N>::kRows * Shape<LOG2N>::kT) packed
   const int row = rows[side];
   const int frame = blockIdx.y;
   const float t = ts[frame];
+  if constexpr (kCascades) {  // cascade blockIdx.z
+    h0 += static_cast<size_t>(blockIdx.z) * 2 * nn;
+    omega += static_cast<size_t>(blockIdx.z) * nn;
+  }
 
   // The propagate stages through buffer 1, which the first exchange leaves.
   float v[4][kRadix];
@@ -176,7 +189,9 @@ __global__ void __launch_bounds__(Shape<LOG2N>::kRows * Shape<LOG2N>::kT) packed
   };
   S::RowFft::template run<0>(v, tid, tw, sm);
 
-  float* yf = y + static_cast<size_t>(frame) * 4 * nn + static_cast<size_t>(row) * n;
+  const size_t fc = kCascades ? static_cast<size_t>(blockIdx.z) * gridDim.y + frame
+                              : static_cast<size_t>(frame);
+  float* yf = y + fc * 4 * nn + static_cast<size_t>(row) * n;
   static_for<0, kRadix>([&](auto i_) {
     constexpr int i = decltype(i_)::value;
     const int x = S::RowFft::out_index(tid, i);
@@ -188,7 +203,7 @@ __global__ void __launch_bounds__(Shape<LOG2N>::kRows * Shape<LOG2N>::kT) packed
   });
 }
 
-template <int LOG2N>
+template <int LOG2N, bool kCascades>
 __global__ void __launch_bounds__(Shape<LOG2N>::kColThreads) packed_col_pass(
     const float* __restrict__ y, const float* __restrict__ tw, float* __restrict__ out) {
   using S = Shape<LOG2N>;
@@ -199,7 +214,9 @@ __global__ void __launch_bounds__(Shape<LOG2N>::kColThreads) packed_col_pass(
   const int tid = threadIdx.x / kColCols;
   const int col = blockIdx.x * kColCols + c;
   const int frame = blockIdx.y;
-  const float* yf = y + static_cast<size_t>(frame) * 4 * nn + col;
+  const size_t fc = kCascades ? static_cast<size_t>(blockIdx.z) * gridDim.y + frame
+                              : static_cast<size_t>(frame);
+  const float* yf = y + fc * 4 * nn + col;
 
   float v[4][kRadix];
   static_for<0, kRadix>([&](auto k_) {
@@ -215,7 +232,7 @@ __global__ void __launch_bounds__(Shape<LOG2N>::kColThreads) packed_col_pass(
   };
   S::ColFft::template run<0>(v, tid, tw, sm);
 
-  float* of = out + static_cast<size_t>(frame) * 3 * nn + col;
+  float* of = out + fc * 3 * nn + col;
   static_for<0, kRadix>([&](auto i_) {
     constexpr int i = decltype(i_)::value;
     const int r = S::ColFft::out_index(tid, i);
@@ -234,6 +251,7 @@ struct StepArgs {
   const float* tw;
   const float* ts;
   int tb;
+  int cascades;
   float scale;
   int wrap_k;
   int conj_neg;
@@ -242,41 +260,49 @@ struct StepArgs {
   float* out;
 };
 
-template <int LOG2N>
-int launch(const StepArgs& a, cudaStream_t st) {
+template <int LOG2N, bool kCascades>
+int launch_passes(const StepArgs& a, cudaStream_t st) {
   using S = Shape<LOG2N>;
   static bool row_ready[kMaxDevices], col_ready[kMaxDevices];
-  cudaError_t err = allow_smem(packed_row_pass<LOG2N>, S::kRowSmem, row_ready);
+  cudaError_t err = allow_smem(packed_row_pass<LOG2N, kCascades>, S::kRowSmem, row_ready);
   if (err != cudaSuccess) return static_cast<int>(err);
-  packed_row_pass<LOG2N><<<dim3(S::kN / S::kRows, a.tb), S::kRows * S::kT, S::kRowSmem, st>>>(
+  packed_row_pass<LOG2N, kCascades><<<dim3(S::kN / S::kRows, a.tb, a.cascades),
+                                      S::kRows * S::kT, S::kRowSmem, st>>>(
       a.h0, a.omega, a.tw, a.ts, a.scale, a.wrap_k, a.conj_neg, a.half, a.y);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = allow_smem(packed_col_pass<LOG2N>, S::kColSmem, col_ready);
+  err = allow_smem(packed_col_pass<LOG2N, kCascades>, S::kColSmem, col_ready);
   if (err != cudaSuccess) return static_cast<int>(err);
-  packed_col_pass<LOG2N><<<dim3(S::kN / kColCols, a.tb), S::kColThreads, S::kColSmem, st>>>(
-      a.y, a.tw, a.out);
+  packed_col_pass<LOG2N, kCascades><<<dim3(S::kN / kColCols, a.tb, a.cascades),
+                                      S::kColThreads, S::kColSmem, st>>>(a.y, a.tw, a.out);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int LOG2N>
+int launch(const StepArgs& a, cudaStream_t st) {
+  return a.cascades > 1 ? launch_passes<LOG2N, true>(a, st) : launch_passes<LOG2N, false>(a, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the K1 kernels for tb frames on `stream` and returns the first
-// error that is not cudaSuccess (0 when all launched). Inputs: h0 (2, n, n);
-// omega (n, n); tw (2, n/2); ts (tb,). Outputs: y (tb, 2, 2, n, n) scratch;
-// out (tb, 3, n, n); partials (tb, n / ck_rows) or null for no checksum.
+// Launches the K1 kernels for tb frames of C cascades on `stream` and returns
+// the first error that is not cudaSuccess (0 when all launched). Inputs: h0
+// (C, 2, n, n); omega (C, n, n); tw (2, n/2); ts (tb,), the same times for
+// every cascade. Outputs: y (C, tb, 2, 2, n, n) scratch; out (C, tb, 3, n, n);
+// partials (C, tb, n / ck_rows) or null for no checksum (then C tb <= 65535).
 int packed_step(const float* h0, const float* omega, const float* tw, const float* ts, int tb,
-                int n, float scale, int wrap_k, int conj_neg, float half, float* y, float* out,
-                float* partials, int ck_rows, float normals_scale, int with_normals,
+                int cascades, int n, float scale, int wrap_k, int conj_neg, float half, float* y,
+                float* out, float* partials, int ck_rows, float normals_scale, int with_normals,
                 void* stream) {
-  if (tb < 1 || tb > 65535 || ck_rows < 1 || ck_rows % ocean::kSumRows != 0 ||
-      n % ck_rows != 0) {
+  if (tb < 1 || tb > 65535 || cascades < 1 || cascades > 65535 || ck_rows < 1 ||
+      ck_rows % ocean::kSumRows != 0 || n % ck_rows != 0 ||
+      (partials != nullptr && static_cast<long long>(tb) * cascades > 65535)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const StepArgs a{h0, omega, tw, ts, tb, scale, wrap_k, conj_neg, half, y, out};
+  const StepArgs a{h0, omega, tw, ts, tb, cascades, scale, wrap_k, conj_neg, half, y, out};
   int err;
   switch (n) {
     case 16: err = launch<4>(a, st); break;
@@ -289,7 +315,7 @@ int packed_step(const float* h0, const float* omega, const float* tw, const floa
   }
   if (err != 0) return err;
   if (partials != nullptr) {
-    ocean::checksum_partials<<<dim3(n / ck_rows, tb), ocean::kSumThreads, 0, st>>>(
+    ocean::checksum_partials<<<dim3(n / ck_rows, tb * cascades), ocean::kSumThreads, 0, st>>>(
         out, n, ck_rows, normals_scale, 1, with_normals, partials, n / ck_rows);
     return static_cast<int>(cudaGetLastError());
   }

@@ -37,7 +37,7 @@ _F = ctypes.c_float
 # argtypes / restype of each library's C entry points.
 SIGNATURES = {
     "packed_step": {
-        "packed_step": ([_P, _P, _P, _P, _I, _I, _F, _I, _I, _F,
+        "packed_step": ([_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _F,
                          _P, _P, _P, _I, _F, _I, _P], _I),
         "packed_step_error_string": ([_I], ctypes.c_char_p),
     },

@@ -17,9 +17,20 @@ Routes through ``step`` / ``make_rollout``, by ``config.fft_impl``:
   above ``direct_dft_max``), packed or unpacked by ``config.hermitian_pack``.
 
 Not ported yet, and raising ``NotImplementedError``: the "default"
-precision tier, "xla" and cascades.
+precision tier and "xla".
 ``time_batch`` frames run as one batch axis; the hoisted inputs are
 computed once per rollout call.
+
+Cascades (BASELINE config 4) are a leading batch axis C of the state:
+h0 (C, 2, N, N), omega (C, N, N). ``step`` returns (C, N, N, 3) fields and
+(C, N, N) foam, ``make_rollout`` (T, C, ...) fields or one checksum a frame
+summed over the cascades. On "pallas" K1 takes the cascade axis in one
+launch and the other kernels run one cascade a call
+(``ops/fused_step.py``); "matmul" broadcasts. As in the JAX package, every
+cascade's propagate uses ``config.domain_size`` (its k-hat is normalized,
+so the domain does not enter it) and only foam takes a cascade's own
+domain, when ``num_cascades > 1`` and the state's cascade axis has
+``num_cascades`` entries.
 
 The state constructors put the state on the card unless the caller asks
 for another device (``device="cpu"``, as the CPU tests do); without a card
@@ -46,7 +57,8 @@ from gfx_ocean_tpu_torch.utils.complexpair import to_pair
 
 class OceanState(NamedTuple):
     """Time-invariant simulation state: h0 as (re, im) float32 planes
-    (2, N, N) and the dispersion omega (N, N), on one device."""
+    (2, N, N) and the dispersion omega (N, N), on one device; a leading
+    cascade axis C makes them (C, 2, N, N) and (C, N, N)."""
 
     h0: torch.Tensor
     omega: torch.Tensor
@@ -67,10 +79,10 @@ class OceanFields(NamedTuple):
 
 
 def _check_supported(state: OceanState, config: OceanConfig) -> None:
-    if config.num_cascades != 1 or state.h0.ndim != 3:
-        raise NotImplementedError(
-            'cascades (batched states) are not ported yet (ROADMAP.md queue 1, '
-            '"models/ocean.py")')
+    lead = tuple(state.h0.shape[:-3])
+    if state.h0.ndim < 3 or tuple(state.omega.shape) != lead + tuple(state.h0.shape[-2:]):
+        raise ValueError(f"state: h0 {tuple(state.h0.shape)} and omega "
+                         f"{tuple(state.omega.shape)} are not (..., 2, N, N) and (..., N, N)")
     if config.fft_impl == "xla":
         raise NotImplementedError(
             'fft_impl="xla" is not ported yet (ROADMAP.md queue 1, "ops/fft.py")')
@@ -89,10 +101,11 @@ def _precompute(state: OceanState, config: OceanConfig):
 
 def _displacement(state: OceanState, ts: torch.Tensor, config: OceanConfig,
                   pre) -> torch.Tensor:
-    """Displacement maps (tb, N, N, 3) for the frame times ts (tb,)."""
+    """Displacement maps (tb, N, N, 3) for the frame times ts (tb,);
+    (tb, C, N, N, 3) for a cascade state."""
     if config.fft_impl == "pallas":
         return torch.movedim(fused_step.packed_planes(pre, ts, config), -3, -1)
-    t = ts[:, None, None]
+    t = ts.reshape((-1,) + (1,) * state.omega.ndim)  # the time axis before the state's
     centered = "ref" if config.compat.ref_sign else "canonical"
     common = dict(impl=config.fft_impl, direct_max=config.direct_dft_max,
                   centered=centered)
@@ -113,11 +126,26 @@ def _displacement(state: OceanState, ts: torch.Tensor, config: OceanConfig,
     return torch.stack([choppy[0], height, choppy[1]], dim=-1)
 
 
-def _fields(disp: torch.Tensor, config: OceanConfig) -> OceanFields:
+def _cascaded(state: OceanState, config: OceanConfig) -> bool:
+    """Whether foam takes each cascade's own domain: the JAX package's rule
+    (``num_cascades > 1`` and ``disp.shape[-4] == num_cascades`` on one
+    frame's fields) read on the state, since a rollout's fields carry a
+    time axis in front."""
+    return (config.num_cascades > 1 and state.h0.ndim >= 4
+            and state.h0.shape[-4] == config.num_cascades)
+
+
+def _fields(disp: torch.Tensor, config: OceanConfig, cascaded: bool) -> OceanFields:
     normals = None
     if config.compute_normals:
         normals = finite_difference_normals(disp[..., 1], config.normal_height_scale)
-    foam = jacobian_foam(disp, config) if config.compute_foam else None
+    foam = None
+    if config.compute_foam:
+        if cascaded:
+            foam = torch.stack([jacobian_foam(disp[..., c, :, :, :], config, domain_size=dom)
+                                for c, dom in enumerate(config.domains)], dim=-3)
+        else:
+            foam = jacobian_foam(disp, config)
     return OceanFields(displacement=disp, normals=normals, foam=foam)
 
 
@@ -132,7 +160,7 @@ def step(state: OceanState, t, config: OceanConfig, pre=None) -> OceanFields:
         pre = _precompute(state, config)
     ts = fused_step.as_times(t, state.omega.device)[:1]
     disp = _displacement(state, ts, config, pre)[0]
-    return _fields(disp, config)
+    return _fields(disp, config, _cascaded(state, config))
 
 
 def make_step(config: OceanConfig, device: torch.device | str | None = None):
@@ -150,10 +178,11 @@ def make_step(config: OceanConfig, device: torch.device | str | None = None):
 def make_rollout(config: OceanConfig, keep_fields: bool = True, time_batch: int = 1):
     """``rollout(state, ts)`` over a vector of frame times.
 
-    Returns OceanFields with a leading time axis, or with
-    ``keep_fields=False`` one float32 checksum per frame (sum of the
-    displacement planes plus sum of the normals, plus sum of the foam mask
-    when ``compute_foam``), which keeps the output O(steps). Frames run
+    Returns OceanFields with a leading time axis (then the cascade axis of a
+    cascade state), or with ``keep_fields=False`` one float32 checksum per
+    frame (sum of the displacement planes plus sum of the normals, plus sum
+    of the foam mask when ``compute_foam``, over every cascade), which keeps
+    the output O(steps). Frames run
     ``time_batch`` at a time as one batch axis; ``len(ts)`` must be a
     multiple of it. On the "pallas" route without foam the checksum is
     reduced from the plane-major planes by the fused kernels' checksum
@@ -172,15 +201,18 @@ def make_rollout(config: OceanConfig, keep_fields: bool = True, time_batch: int 
             raise ValueError(
                 f"len(ts)={ts.shape[0]} not a multiple of time_batch={time_batch}")
         pre = _precompute(state, config)
+        cascaded = _cascaded(state, config)
         chunks = [ts[i:i + time_batch] for i in range(0, ts.shape[0], time_batch)]
         if not keep_fields:
             if config.fft_impl == "pallas" and not config.compute_foam:
                 out = [fused_step.packed_checksums(pre, c, config) for c in chunks]
             else:
-                out = [_checksums(_fields(_displacement(state, c, config, pre), config))
+                out = [_checksums(_fields(_displacement(state, c, config, pre), config,
+                                          cascaded))
                        for c in chunks]
             return torch.cat(out)
-        fields = [_fields(_displacement(state, c, config, pre), config) for c in chunks]
+        fields = [_fields(_displacement(state, c, config, pre), config, cascaded)
+                  for c in chunks]
         return OceanFields(
             displacement=torch.cat([f.displacement for f in fields]),
             normals=(torch.cat([f.normals for f in fields])
@@ -191,12 +223,13 @@ def make_rollout(config: OceanConfig, keep_fields: bool = True, time_batch: int 
 
 
 def _checksums(fields: OceanFields) -> torch.Tensor:
+    """One checksum a frame (the leading axis), summed over the cascades."""
     out = fields.displacement.sum(dim=(-3, -2, -1))
     if fields.normals is not None:
         out = out + fields.normals.sum(dim=(-3, -2, -1))
     if fields.foam is not None:
         out = out + fields.foam.sum(dim=(-2, -1))
-    return out
+    return out.reshape(out.shape[0], -1).sum(dim=-1) if out.ndim > 1 else out
 
 
 def _state_device(device: torch.device | str | None) -> torch.device | str:
@@ -212,11 +245,17 @@ def _state_device(device: torch.device | str | None) -> torch.device | str:
 def state_from_numpy(h0_pair: np.ndarray, omega: np.ndarray,
                      device: torch.device | str | None = None) -> OceanState:
     """An OceanState from numpy arrays in the JAX package's layout:
-    h0 as (2, N, N) float32 planes and omega as (N, N), on ``device`` (the
-    card when None)."""
+    h0 as (2, N, N) float32 planes and omega as (N, N), or a cascade stack
+    (C, 2, N, N) and (C, N, N), on ``device`` (the card when None)."""
     device = _state_device(device)
-    h0 = torch.tensor(np.asarray(h0_pair, dtype=np.float32), device=device)
-    om = torch.tensor(np.asarray(omega, dtype=np.float32), device=device)
+    h0_pair = np.asarray(h0_pair, dtype=np.float32)
+    omega = np.asarray(omega, dtype=np.float32)
+    if (h0_pair.ndim < 3 or h0_pair.shape[-3] != 2
+            or omega.shape != h0_pair.shape[:-3] + h0_pair.shape[-2:]):
+        raise ValueError(f"h0 {h0_pair.shape} and omega {omega.shape} are not "
+                         "(..., 2, N, N) and (..., N, N)")
+    h0 = torch.tensor(h0_pair, device=device)
+    om = torch.tensor(omega, device=device)
     return OceanState(h0=h0, omega=om)
 
 
@@ -244,16 +283,27 @@ def ocean_state_from_phillips(
 ) -> OceanState:
     """Synthesize initial conditions onto ``device`` (the card when None);
     the draw comes from ``generator`` (a CPU generator seeded with
-    ``phillips.seed`` when None)."""
+    ``phillips.seed`` when None).
+
+    With ``num_cascades > 1`` the state is a cascade stack: cascade c is
+    synthesized at ``config.domains[c]`` from the c-th (2, N, N) draw of the
+    one generator, so cascade 0 equals the single-cascade state of the same
+    seed, and each cascade's JONSWAP envelope is normalized at its own
+    domain. The JAX package draws each cascade from its own key of
+    ``jax.random.split``; the two packages give different states from the
+    same seed, as for one cascade."""
     from gfx_ocean_tpu_torch.spectra.phillips import synthesize  # noqa: PLC0415
 
-    if config.num_cascades != 1:
-        raise NotImplementedError(
-            'cascades are not ported yet (ROADMAP.md queue 1, "models/ocean.py")')
     device = _state_device(device)
     phillips = phillips or PhillipsConfig()
-    h0, om = synthesize(config.resolution, config.domain_size, phillips, generator)
-    return OceanState(h0=h0.to(device), omega=om.to(device))
+    if config.num_cascades == 1:
+        h0, om = synthesize(config.resolution, config.domain_size, phillips, generator)
+        return OceanState(h0=h0.to(device), omega=om.to(device))
+    if generator is None:
+        generator = torch.Generator().manual_seed(phillips.seed)
+    draws = [synthesize(config.resolution, dom, phillips, generator) for dom in config.domains]
+    return OceanState(h0=torch.stack([h for h, _ in draws]).to(device),
+                      omega=torch.stack([o for _, o in draws]).to(device))
 
 
 def downsample_state(state: OceanState, resolution: int) -> OceanState:

@@ -55,13 +55,14 @@ def normals_scale(config: OceanConfig) -> Optional[float]:
 
 
 def checksums_of_planes(planes: torch.Tensor, config: OceanConfig) -> torch.Tensor:
-    """Per-frame sum(planes) [+ sum(normal terms)] of (tb, 3, N, N) planes."""
+    """Per-frame sum(planes) [+ sum(normal terms)] of (tb, 3, N, N) planes;
+    of (tb, C, 3, N, N) cascade planes summed over the cascades too."""
     sums = planes.sum(dim=(-3, -2, -1))
     scale = normals_scale(config)
     if scale is not None:
-        normals = finite_difference_normals_planes(planes[:, 1], scale)
+        normals = finite_difference_normals_planes(planes[..., 1, :, :], scale)
         sums = sums + normals.sum(dim=(-3, -2, -1))
-    return sums
+    return sums.sum(dim=-1) if sums.ndim > 1 else sums
 
 
 def jacobian_foam(displacement: torch.Tensor, config: OceanConfig,

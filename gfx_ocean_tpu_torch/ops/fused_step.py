@@ -40,6 +40,17 @@ version, CUDA tensors launch the kernels or raise. Nothing falls back.
 Hoisting copies nothing and launches nothing: the inputs are the state's
 own h0 and omega and the twiddle table made once per N and device.
 
+Cascades (a (C, 2, N, N) state, the JAX package's ``jax.vmap`` of the fused
+step over its leading axis): K1 takes the cascade axis itself, as one more
+grid axis, so one launch covers C x tb frames; its plain version broadcasts
+over C. The other routes (K2 + K3 above 512; K4, or K5 + K6 unpacked) take
+one cascade a call: ``hoist_packed`` hoists one input a cascade
+(``CascadeInputs``), and ``packed_planes`` / ``packed_checksums`` loop over
+them on the same frame times. Every cascade's propagate uses
+``config.domain_size``, as the JAX package's vmap with one config does; only
+foam takes a cascade's own domain (``models/ocean.py``). Cascade planes are
+(tb, C, 3, N, N); cascade checksums (tb,) sum over the cascades.
+
 What bounds K1 on the H100: at 512^2 a frame reads the 3 MB state (once a
 call; later frames find it in the 50 MB L2), writes and rereads the 4 MB
 row-pass planes Y, writes 3 MB of planes and rereads them for the
@@ -50,7 +61,7 @@ kernels, not arithmetic (``PERF.md`` has the measured split).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -70,10 +81,11 @@ CHECKSUM_ROWS = 4
 
 
 class PackedInputs(NamedTuple):
-    """Per-rollout inputs of K1 (all float32, one device): the state itself."""
+    """Per-rollout inputs of K1 (all float32, one device): the state itself,
+    with or without a leading cascade axis C."""
 
-    h0: torch.Tensor       # (2, N, N) re, im
-    omega: torch.Tensor    # (N, N)
+    h0: torch.Tensor       # (2, N, N) or (C, 2, N, N) re, im
+    omega: torch.Tensor    # (N, N) or (C, N, N)
     twiddle: torch.Tensor  # (2, N/2) cos, sin of 2 pi k / N: the kernels' table
 
 
@@ -88,22 +100,34 @@ def check_supported(config: OceanConfig, n: int) -> str:
     return effective_precision(config.matmul_precision)
 
 
-FusedInputs = Union[PackedInputs, UnpackedInputs, FourstepInputs]
+class CascadeInputs(NamedTuple):
+    """The hoisted inputs of a cascade state on a route that takes one
+    cascade a call (K2 + K3, K4, K5 + K6): one entry a cascade."""
+
+    per_cascade: Tuple[Union[UnpackedInputs, FourstepInputs], ...]
+
+
+FusedInputs = Union[PackedInputs, UnpackedInputs, FourstepInputs, CascadeInputs]
 
 
 def hoist_packed(h0_pair: torch.Tensor, omega: torch.Tensor,
                  config: OceanConfig) -> FusedInputs:
     """The time-invariant inputs of the route (per rollout, not per frame):
-    K1's for N <= 512, K4-K6's for N <= 512 unpacked, K2 + K3's above. A
-    float32 contiguous state is passed through as it is."""
-    if h0_pair.ndim != 3:
-        raise ValueError("the fused step takes a single unbatched state")
+    K1's for N <= 512, K4-K6's for N <= 512 unpacked, K2 + K3's above; for a
+    (C, 2, N, N) cascade state K1's with the cascade axis, else one input a
+    cascade. A float32 contiguous state is passed through as it is."""
+    if h0_pair.ndim not in (3, 4) or omega.shape != h0_pair.shape[:-3] + h0_pair.shape[-2:]:
+        raise ValueError("the fused step takes a (2, N, N) state and (N, N) omega, or a "
+                         f"(C, 2, N, N) cascade stack; got {tuple(h0_pair.shape)} and "
+                         f"{tuple(omega.shape)}")
     n = h0_pair.shape[-1]
     check_supported(config, n)
-    if n > MAX_N:
-        return fourstep_step.hoist_fourstep(h0_pair, omega, config)
-    if not config.hermitian_pack:
-        return unpacked_step.hoist_unpacked(h0_pair, omega, config)
+    if n > MAX_N or not config.hermitian_pack:
+        hoist = (fourstep_step.hoist_fourstep if n > MAX_N
+                 else unpacked_step.hoist_unpacked)
+        if h0_pair.ndim == 4:
+            return CascadeInputs(tuple(hoist(h, o, config) for h, o in zip(h0_pair, omega)))
+        return hoist(h0_pair, omega, config)
     dev = h0_pair.device
     return PackedInputs(h0_pair.to(torch.float32).contiguous(),
                         omega.to(device=dev, dtype=torch.float32).contiguous(),
@@ -116,7 +140,8 @@ def hoist_packed(h0_pair: torch.Tensor, omega: torch.Tensor,
 
 def packed_planes_reference(inputs: PackedInputs, ts,
                             config: OceanConfig) -> torch.Tensor:
-    """Plain PyTorch K1: ts (tb,) -> (tb, 3, N, N) (disp_x, height, disp_z)."""
+    """Plain PyTorch K1: ts (tb,) -> (tb, 3, N, N) (disp_x, height, disp_z),
+    or (tb, C, 3, N, N) for a cascade state (broadcast over C)."""
     om = inputs.omega
     pin_fp32_matmul(om)
     pre, pre_rho, _, omq = gather_packed_planes(inputs.h0, om, config.compat.conj_neg)
@@ -137,7 +162,8 @@ def packed_planes_reference(inputs: PackedInputs, ts,
 
 def packed_checksums_reference(inputs: PackedInputs, ts,
                                config: OceanConfig) -> torch.Tensor:
-    """Plain PyTorch K1 checksums: ts (tb,) -> (tb,)."""
+    """Plain PyTorch K1 checksums: ts (tb,) -> (tb,), summed over the
+    cascades of a cascade state."""
     return checksums_of_planes(packed_planes_reference(inputs, ts, config), config)
 
 
@@ -151,11 +177,14 @@ def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
 
 def launch_packed_step(inputs: PackedInputs, ts: torch.Tensor, config: OceanConfig,
                        checksum: bool):
-    """Launch the K1 kernels on the current stream.
+    """Launch the K1 kernels on the current stream: one launch for every
+    cascade of a (C, 2, N, N) state (grid axis z).
 
     Returns ``(planes, partials)``: planes (tb, 3, N, N) and, when
     ``checksum``, the per-block checksum partials (tb, N / CHECKSUM_ROWS),
-    else None. Adds one to ``launch_packed_step.launches`` per launch.
+    else None; for a cascade state (C, tb, 3, N, N) and (C, tb,
+    N / CHECKSUM_ROWS), cascade-major as the kernels write them. Adds one to
+    ``launch_packed_step.launches`` per launch.
     """
     from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
 
@@ -166,7 +195,12 @@ def launch_packed_step(inputs: PackedInputs, ts: torch.Tensor, config: OceanConf
     if n < 16 or n > MAX_N or n & (n - 1):
         raise ValueError(f"K1 takes a power of two N in [16, {MAX_N}], got {n}")
     check_supported(config, n)
-    shapes = dict(h0=(2, n, n), omega=(n, n), twiddle=(2, n // 2))
+    lead = tuple(inputs.omega.shape[:-2])  # () or (C,)
+    cascades = lead[0] if lead else 1
+    if len(lead) > 1 or not 1 <= cascades <= 65535:
+        raise ValueError(f"K1 takes at most one cascade axis of 1 to 65535 cascades, "
+                         f"got omega of shape {tuple(inputs.omega.shape)}")
+    shapes = dict(h0=lead + (2, n, n), omega=lead + (n, n), twiddle=(2, n // 2))
     for name, x in inputs._asdict().items():
         if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"{name}: expected contiguous float32 on {dev}")
@@ -174,14 +208,17 @@ def launch_packed_step(inputs: PackedInputs, ts: torch.Tensor, config: OceanConf
             raise ValueError(f"{name}: expected shape {shapes[name]}, got {tuple(x.shape)}")
     ts = as_times(ts, dev)
     tb = ts.shape[0]
-    y = torch.empty((tb, 2, 2, n, n), dtype=torch.float32, device=dev)
-    planes = torch.empty((tb, 3, n, n), dtype=torch.float32, device=dev)
-    partials = (torch.empty((tb, n // CHECKSUM_ROWS), dtype=torch.float32, device=dev)
+    if checksum and tb * cascades > 65535:
+        raise ValueError(f"K1's checksum takes at most 65535 frames a launch, "
+                         f"got {cascades} cascades x {tb} frames")
+    y = torch.empty(lead + (tb, 2, 2, n, n), dtype=torch.float32, device=dev)
+    planes = torch.empty(lead + (tb, 3, n, n), dtype=torch.float32, device=dev)
+    partials = (torch.empty(lead + (tb, n // CHECKSUM_ROWS), dtype=torch.float32, device=dev)
                 if checksum else None)
     nscale = normals_scale(config)
     lib = kernels.load("packed_step")
     err = lib.packed_step(
-        _ptr(inputs.h0), _ptr(inputs.omega), _ptr(inputs.twiddle), _ptr(ts), tb, n,
+        _ptr(inputs.h0), _ptr(inputs.omega), _ptr(inputs.twiddle), _ptr(ts), tb, cascades, n,
         _f32(np.pi / config.domain_size), int(config.compat.wrap_k),
         int(config.compat.conj_neg), -0.5 if config.compat.ref_sign else 0.5,
         _ptr(y), _ptr(planes), _ptr(partials), CHECKSUM_ROWS,
@@ -198,14 +235,18 @@ launch_packed_step.launches = 0
 
 
 def packed_planes(inputs: FusedInputs, ts, config: OceanConfig) -> torch.Tensor:
-    """Planes (tb, 3, N, N) for ts (tb,): K1, K4-K6 or K2 + K3 by the type
-    of the hoisted inputs; the kernels on CUDA, the plain version on CPU."""
+    """Planes (tb, 3, N, N) for ts (tb,), (tb, C, 3, N, N) for a cascade
+    state: K1, K4-K6 or K2 + K3 by the type of the hoisted inputs; the
+    kernels on CUDA, the plain version on CPU."""
+    if isinstance(inputs, CascadeInputs):
+        return torch.stack([packed_planes(i, ts, config) for i in inputs.per_cascade], dim=1)
     if isinstance(inputs, FourstepInputs):
         return fourstep_step.fourstep_planes(inputs, ts, config)
     if isinstance(inputs, UnpackedInputs):
         return unpacked_step.unpacked_planes(inputs, ts, config)
     if inputs.omega.is_cuda:
-        return launch_packed_step(inputs, ts, config, checksum=False)[0]
+        planes = launch_packed_step(inputs, ts, config, checksum=False)[0]
+        return planes.transpose(0, 1) if planes.ndim == 5 else planes
     return packed_planes_reference(inputs, ts, config)
 
 
@@ -215,15 +256,19 @@ def packed_checksums(inputs: FusedInputs, ts, config: OceanConfig) -> torch.Tens
 
     On CUDA the per-block partials of K1, K3 and the unpacked route's
     checksum kernel are summed outside the kernels by ``torch.sum``, in an
-    order fixed by their shape (no float atomics).
+    order fixed by their shape (no float atomics); a cascade state's
+    checksums sum over its cascades too.
     """
+    if isinstance(inputs, CascadeInputs):
+        return torch.stack([packed_checksums(i, ts, config)
+                            for i in inputs.per_cascade]).sum(dim=0)
     if isinstance(inputs, FourstepInputs):
         return fourstep_step.fourstep_checksums(inputs, ts, config)
     if isinstance(inputs, UnpackedInputs):
         return unpacked_step.unpacked_checksums(inputs, ts, config)
     if inputs.omega.is_cuda:
         _, partials = launch_packed_step(inputs, ts, config, checksum=True)
-        return partials.sum(dim=-1)
+        return partials.sum(dim=(0, 2)) if partials.ndim == 3 else partials.sum(dim=-1)
     return packed_checksums_reference(inputs, ts, config)
 
 
@@ -233,15 +278,16 @@ def packed_checksums(inputs: FusedInputs, ts, config: OceanConfig) -> torch.Tens
 
 def fused_planes(h0_pair: torch.Tensor, omega: torch.Tensor, t,
                  config: OceanConfig) -> torch.Tensor:
-    """(2, N, N) h0 planes + omega + t -> (3, N, N) (disp_x, height, disp_z)."""
+    """(2, N, N) h0 planes + omega + t -> (3, N, N) (disp_x, height, disp_z);
+    (C, 3, N, N) for a (C, 2, N, N) cascade state."""
     inputs = hoist_packed(h0_pair, omega, config)
     return packed_planes(inputs, as_times(t, omega.device), config)[0]
 
 
 def fused_fields(h0_pair: torch.Tensor, omega: torch.Tensor, t,
                  config: OceanConfig) -> torch.Tensor:
-    """Channel-last (N, N, 3) displacement of :func:`fused_planes`."""
-    return torch.movedim(fused_planes(h0_pair, omega, t, config), 0, -1)
+    """Channel-last (..., N, N, 3) displacement of :func:`fused_planes`."""
+    return torch.movedim(fused_planes(h0_pair, omega, t, config), -3, -1)
 
 
 def fused_checksums(h0_pair: torch.Tensor, omega: torch.Tensor, ts,

@@ -181,7 +181,9 @@ def gather_packed_planes(h0_pair: torch.Tensor, omega: torch.Tensor, conj_neg: b
     rho = (-y, -x) and at the flip of rho (y-1, x-1), omega at (y, x) and at
     rho, each P one float add or subtract of those reads. Index arithmetic,
     no flip / roll; bit-equal to the band of the full planes. Returns
-    ``(pre, pre_rho, omega, omega_rho)``: (4, rows, n) and (rows, n)."""
+    ``(pre, pre_rho, omega, omega_rho)``: (4, rows, n) and (rows, n), with
+    the state's leading (cascade) axes after the 4: (4, C, rows, n) and
+    (C, rows, n) for a (C, 2, n, n) state."""
     n = h0_pair.shape[-1]
     rows = n if rows is None else rows
     dev = h0_pair.device
@@ -190,17 +192,19 @@ def gather_packed_planes(h0_pair: torch.Tensor, omega: torch.Tensor, conj_neg: b
     idx = y * n + x
     rho = ((n - y) % n) * n + (n - x) % n
     nn = n * n
-    h0 = h0_pair.reshape(2, nn)
-    om = omega.reshape(nn)
+    lead = tuple(h0_pair.shape[:-3])
+    h0r_all = h0_pair.reshape(lead + (2, nn))[..., 0, :]
+    h0i_all = h0_pair.reshape(lead + (2, nn))[..., 1, :]
+    om = omega.reshape(lead + (nn,))
 
     def planes(i):
-        h0r, h0i = h0[0][i], h0[1][i]
-        h0nr, h0ni = h0[0][nn - 1 - i], h0[1][nn - 1 - i]
+        h0r, h0i = h0r_all[..., i], h0i_all[..., i]
+        h0nr, h0ni = h0r_all[..., nn - 1 - i], h0i_all[..., nn - 1 - i]
         if conj_neg:
             h0ni = -h0ni
         return torch.stack([h0r + h0nr, h0ni - h0i, h0r - h0nr, h0i + h0ni], dim=0)
 
-    return planes(idx), planes(rho), om[idx], om[rho]
+    return planes(idx), planes(rho), om[..., idx], om[..., rho]
 
 
 def propagate_packed_planes(
@@ -288,10 +292,11 @@ def packed_spectra(pre: torch.Tensor, pre_rho: torch.Tensor, omega: torch.Tensor
     of :func:`khat_pair` and the symmetrization's factor ``half`` (K1 folds
     the Q2 flip into it as -0.5; K2 keeps +0.5). The planes hold ``rows``
     rows of the grid from the global row ``row_base``: pre, pre_rho
-    (4, rows, N), omega, omega_rho (rows, N). Returns (h_r, h_i, z_r, z_i),
-    each (tb, rows, N)."""
-    rows, n = omega.shape
-    ts = ts[:, None, None]
+    (4, rows, N), omega, omega_rho (rows, N), or with leading cascade axes
+    (4, C, rows, N) and (C, rows, N). Returns (h_r, h_i, z_r, z_i), each
+    (tb, rows, N) or (tb, C, rows, N)."""
+    rows, n = omega.shape[-2:]
+    ts = ts.reshape((-1,) + (1,) * omega.ndim)
     c, s = _sincos_phase(omega, ts)
     cq, sq = _sincos_phase(omega_rho, ts)
     sr = c * pre[0] + s * pre[1]

@@ -41,8 +41,16 @@ What differs from the JAX package, and why:
   (one device sync a frame) and runs only the active 32-triangle groups;
 - ``make_batch_renderer`` and ``render_frames`` are Python loops over frames.
 
-Not ported (``NotImplementedError``): ``impl="window"``, cascade stacks,
-band-parallel rendering across devices (ROADMAP.md queue 1, item 8).
+Cascade stacks (beyond the reference, as in the JAX package): a (C, N, N, 3)
+displacement is composited as the sum of its cascades, cascade c sampled at
+uv * tiles[c] with repeat wrap, tiles[c] = domains[0] / domains[c]
+(``_cascade_setup``); fragment normals take the chain rule's tile factor and
+foam the union of the per-cascade masks (``render/shade.py``). K7 and K8 see
+only the composited frame's tables.
+
+Not ported (``NotImplementedError``): ``impl="window"`` and meshes other
+than the standard grid (ROADMAP.md queue 1, item 7); band-parallel rendering
+across devices (item 11).
 """
 
 from __future__ import annotations
@@ -66,7 +74,7 @@ _OCT_W = 4               # oct tile width in pixels
 _OCT_H = 2               # oct tile height in pixels
 _MIN_Z_BITS = 12
 _SLOT_ROWS = 19          # 15 edge-table rows (f32 bits) + start, xy, bw|id, xy1
-_NOT_PORTED = "(ROADMAP.md queue 1, item 8: {})"
+_NOT_PORTED = "(ROADMAP.md queue 1, item 7: {})"
 
 
 def _u32_bits(x: torch.Tensor) -> torch.Tensor:
@@ -79,14 +87,8 @@ def _u32_value(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64) & KEY_MAX
 
 
-def _check_single(displacement: torch.Tensor) -> None:
-    if displacement.ndim != 3:
-        raise NotImplementedError(
-            "cascade stacks are not ported yet " + _NOT_PORTED.format("render cascades"))
-
-
 def _vertex_stage(displacement, positions, uvs, view_proj, interp=None,
-                  height_div: float = 3.0, horiz_div: float = 3.5):
+                  height_div: float = 3.0, horiz_div: float = 3.5, tiles=None):
     """``shader/ocean.vert``: displace, offset, project, negate clip y.
 
     With ``interp`` = (Wy, Wx) (``_interp_matrices``) the displacement is
@@ -94,15 +96,28 @@ def _vertex_stage(displacement, positions, uvs, view_proj, interp=None,
     without it, by the bilinear gather. TF32 stays off on the card: clip
     coordinates quantized to TF32 break the homogeneous edge tests into
     pixel speckle.
+
+    A (C, N, N, 3) cascade stack displaces by the sum of its cascades,
+    cascade c sampled at uv * tiles[c] (``interp`` then holds one pair a
+    cascade; without it ``tiles`` defaults to 1 for each).
     """
-    _check_single(displacement)
     pin_fp32_matmul(displacement)
+    cascades = displacement.ndim == 4
     if interp is not None:
-        w_y, w_x = interp
-        h = w_y.shape[0]
-        tmp = torch.einsum("nmc,xm->nxc", displacement, w_x)
-        grid = torch.einsum("yn,nxc->yxc", w_y, tmp)
+        pairs = interp if cascades else (interp,)
+        stacks = displacement if cascades else (displacement,)
+        grid = None
+        for c, (w_y, w_x) in enumerate(pairs):
+            h = w_y.shape[0]
+            tmp = torch.einsum("nmc,xm->nxc", stacks[c], w_x)
+            g = torch.einsum("yn,nxc->yxc", w_y, tmp)
+            grid = g if grid is None else grid + g
         disp = grid.reshape(h * h, 3).repeat(positions.shape[0] // (h * h), 1)
+    elif cascades:
+        tiles = tiles or (1.0,) * displacement.shape[0]
+        disp = sum(sh.sample_displacement(displacement[c], uvs[:, 0] * tiles[c],
+                                          uvs[:, 1] * tiles[c])
+                   for c in range(displacement.shape[0]))
     else:
         disp = sh.sample_displacement(displacement, uvs[:, 0], uvs[:, 1])
     # the ocean.vert:22-23 visual scales
@@ -114,12 +129,14 @@ def _vertex_stage(displacement, positions, uvs, view_proj, interp=None,
 
 
 @functools.lru_cache(maxsize=32)
-def _interp_matrices_np(mesh_resolution: int, n_tex: int) -> np.ndarray:
-    """Bilinear sampling matrix (h, N) for the static mesh UV grid, float32
-    from float64 (``gfx_ocean_tpu/render/raster.py:137-163`` at tile 1);
-    Wy = Wx."""
+def _interp_matrices_np(mesh_resolution: int, n_tex: int, tile: float = 1.0) -> np.ndarray:
+    """Bilinear sampling matrix (h, N) for the static mesh UV grid at
+    u = tile k / (h - 1), float32 from float64
+    (``gfx_ocean_tpu/render/raster.py:137-170``); Wy = Wx. ``tile`` > 1 is a
+    cascade's compositing factor (repeat wrap tiles the texture). Divide,
+    then multiply: tile 1.0 is bit-identical to no tile."""
     h = mesh_resolution
-    u = np.arange(h, dtype=np.float64) / (h - 1)
+    u = np.arange(h, dtype=np.float64) / (h - 1) * float(tile)
     x = u * n_tex - 0.5
     x0 = np.floor(x)
     fx = (x - x0).astype(np.float32)
@@ -133,10 +150,30 @@ def _interp_matrices_np(mesh_resolution: int, n_tex: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=16)
-def _interp_matrices(mesh_resolution: int, n_tex: int, device: torch.device):
-    """(Wy, Wx) on ``device``, uploaded once per (mesh, texture, device)."""
-    w = torch.from_numpy(_interp_matrices_np(mesh_resolution, n_tex)).to(device)
+def _interp_matrices(mesh_resolution: int, n_tex: int, device: torch.device,
+                     tile: float = 1.0):
+    """(Wy, Wx) on ``device``, uploaded once per (mesh, texture, device, tile)."""
+    w = torch.from_numpy(_interp_matrices_np(mesh_resolution, n_tex, tile)).to(device)
     return w, w
+
+
+def _cascade_setup(displacement: torch.Tensor, cascade_domains, mesh_resolution: int,
+                   device: torch.device):
+    """(tiles, interp) for an (N, N, 3) field (tiles None) or a (C, N, N, 3)
+    cascade stack: tiles[c] = domain[0] / domain[c], how many times cascade
+    c's domain repeats across the patch, and one ``_interp_matrices`` pair a
+    cascade. Raises ``ValueError`` when a stack lacks ``cascade_domains`` of
+    length C."""
+    n_tex = displacement.shape[-2]
+    if displacement.ndim == 3:
+        return None, _interp_matrices(mesh_resolution, n_tex, device)
+    c_count = displacement.shape[0]
+    if cascade_domains is None or len(cascade_domains) != c_count:
+        raise ValueError(
+            f"a (C, N, N, 3) cascade stack needs cascade_domains of "
+            f"length {c_count}, got {cascade_domains!r}")
+    tiles = tuple(float(cascade_domains[0] / d) for d in cascade_domains)
+    return tiles, tuple(_interp_matrices(mesh_resolution, n_tex, device, t) for t in tiles)
 
 
 @functools.lru_cache(maxsize=8)
@@ -611,14 +648,14 @@ class SlotTables(NamedTuple):
 def _slot_tables(displacement, positions, uvs, tris, view_proj, width: int,
                  height: int, pool: int, interp=None, grid_shape=None,
                  scales=(3.0, 3.5, 180.0, 0.0), y_origin: int = 0,
-                 full_height: Optional[int] = None) -> SlotTables:
+                 full_height: Optional[int] = None, tiles=None) -> SlotTables:
     """Vertex stage, culling, tight viewport-clamped bboxes in oct units,
     the stable area sort, slot ranges by prefix sum and the per-slot row
     gather (``_rasterize_pool`` up to ``_slot_stage``)."""
     full_height = height if full_height is None else full_height
     dev = displacement.device
     world, clip = _vertex_stage(displacement, positions, uvs, view_proj, interp,
-                                scales[0], scales[1])
+                                scales[0], scales[1], tiles)
     t_count = tris.shape[0]
     v_clip = _tri_corners(clip, tris, grid_shape)          # (T, 3, 4)
     x0, y0, x1, y1, qw, area, crossing, outside = _oct_bounds(
@@ -761,11 +798,12 @@ def _giant_pass(clip, tris, score, key_img, width: int, height: int, giants: int
 def _deferred_shade(displacement, dtab, key_img, camera_pos, width: int, height: int,
                     id_bits: int, grid_shape, foam=None, frag_channel: int = 1,
                     height_scale: float = 180.0, pbr_roughness: float = 0.0,
-                    y_origin: int = 0, full_height: Optional[int] = None):
+                    y_origin: int = 0, full_height: Optional[int] = None, tiles=None):
     """Per-pixel varyings and the exact float32 depth from the winning
     triangle's row of ``dtab`` ([edge table (15) | world corners (9)]),
-    then ``shade_fragments``. Uncovered pixels compute from id 0 and are
-    masked. Returns (color (H, W, 3), depth (H, W), inf where uncovered)."""
+    then ``shade_fragments`` (``tiles`` for a cascade stack). Uncovered
+    pixels compute from id 0 and are masked. Returns (color (H, W, 3),
+    depth (H, W), inf where uncovered)."""
     dev = key_img.device
     covered = key_img != KEY_MAX
     id_img = torch.where(covered, key_img & ((1 << id_bits) - 1), torch.zeros_like(key_img))
@@ -790,17 +828,20 @@ def _deferred_shade(displacement, dtab, key_img, camera_pos, width: int, height:
          for a in range(3)], dim=-1)
     color = sh.shade_fragments(displacement, uv_img[..., 0], uv_img[..., 1], world_img,
                                camera_pos, foam=foam, frag_channel=frag_channel,
-                               height_scale=height_scale, pbr_roughness=pbr_roughness)
+                               height_scale=height_scale, pbr_roughness=pbr_roughness,
+                               tiles=tiles)
     return torch.where(covered[..., None], color, sh._const(sh.CLEAR_COLOR, color)), z_img
 
 
 def _rasterize_pool(displacement, positions, uvs, tris, view_proj, camera_pos,
                     width: int, height: int, pool: int = 1 << 20, giants: int = 512,
                     interp=None, grid_shape=None, foam=None, frag_channel: int = 1,
-                    scales=(3.0, 3.5, 180.0, 0.0), y_origin: int = 0,
+                    scales=(3.0, 3.5, 180.0, 0.0), tiles=None, y_origin: int = 0,
                     full_height: Optional[int] = None, with_diag: bool = False):
     """Exact-area pool rasterizer: slot tables, K7, the resolve with K8,
-    the giant pass and deferred shading. ``y_origin`` / ``full_height``
+    the giant pass and deferred shading. A (C, N, N, 3) cascade stack takes
+    its per-cascade ``interp`` pairs and ``tiles`` (``_cascade_setup``) and
+    (C, N, N) ``foam``. ``y_origin`` / ``full_height``
     render the (height, width) band of a ``full_height``-row frame from
     global row ``y_origin``; stacked bands equal the full frame bit for bit.
     Returns (image (H, W, 3), depth (H, W)) and, with ``with_diag``, the
@@ -812,7 +853,7 @@ def _rasterize_pool(displacement, positions, uvs, tris, view_proj, camera_pos,
             + _NOT_PORTED.format("render"))
     full_height = height if full_height is None else full_height
     tabs = _slot_tables(displacement, positions, uvs, tris, view_proj, width, height, pool,
-                        interp, grid_shape, scales, y_origin, full_height)
+                        interp, grid_shape, scales, y_origin, full_height, tiles)
     n_oct = tabs.octs_w * tabs.octs_h
     keysp, octid = slot_stage(tabs.crow, tabs.total_covered, width, full_height, tabs.octs_w,
                               n_oct, 32 - tabs.id_bits, tabs.id_bits, y_origin)
@@ -823,7 +864,8 @@ def _rasterize_pool(displacement, positions, uvs, tris, view_proj, camera_pos,
     dtab = torch.cat([tabs.ftab, wc.reshape(wc.shape[0], 9)], dim=1)
     img, z_img = _deferred_shade(displacement, dtab, key_img, camera_pos, width, height,
                                  tabs.id_bits, grid_shape, foam, frag_channel, scales[2],
-                                 scales[3] if len(scales) > 3 else 0.0, y_origin, full_height)
+                                 scales[3] if len(scales) > 3 else 0.0, y_origin, full_height,
+                                 tiles)
     if with_diag:
         dropped = ((tabs.score > 0).sum() - min(giants, tris.shape[0])).clamp_min(0)
         return img, z_img, dropped
@@ -833,11 +875,13 @@ def _rasterize_pool(displacement, positions, uvs, tris, view_proj, camera_pos,
 def pool_overflow(displacement, positions, uvs, tris, view_proj, width: int, height: int,
                   pool: Optional[int] = None, y_origin: int = 0,
                   full_height: Optional[int] = None, bands: int = 1,
-                  return_demand: bool = False):
+                  return_demand: bool = False, tiles=None):
     """Diagnostic: how many visible triangles spill past the pool (each
     must win a giant-pass slot for exact coverage); with ``return_demand``
     also the scene's total slot demand. ``y_origin`` / ``full_height`` /
-    ``bands`` check one band of a band split. Eager and host-synchronous,
+    ``bands`` check one band of a band split; a (C, N, N, 3) cascade stack
+    is composited at ``tiles`` (1 for each cascade when None, as the JAX
+    package's diagnostic composites it). Eager and host-synchronous,
     for sizing and debugging, never inside a frame loop. Its area sum runs
     in float64 (the JAX package's float32 cumsum is exact only below 2^24)."""
     dev = displacement.device if isinstance(displacement, torch.Tensor) else torch.device("cpu")
@@ -848,7 +892,8 @@ def pool_overflow(displacement, positions, uvs, tris, view_proj, width: int, hei
 
     # The vertex stage's gather form, as the JAX package's diagnostic uses.
     _, clip = _vertex_stage(on_dev(displacement, np.float32), on_dev(positions, np.float32),
-                            on_dev(uvs, np.float32), on_dev(view_proj, np.float32))
+                            on_dev(uvs, np.float32), on_dev(view_proj, np.float32),
+                            tiles=tiles)
     area = _oct_bounds(clip[on_dev(tris, np.int64)], width, height, full_height or height,
                        y_origin)[5]
     pool = pool or _auto_pool(width, height, bands)
@@ -888,21 +933,19 @@ def render_frame(
     """Render one frame from an (N, N, 3) displacement map along a camera,
     on the displacement's device. Returns the (H, W, 3) float32 image (and
     the depth buffer with ``return_depth``). The arguments are those of
-    ``gfx_ocean_tpu.render.render_frame``; ``samples`` belongs to the
-    window rasterizer, which is not ported (``impl="window"`` raises)."""
+    ``gfx_ocean_tpu.render.render_frame``: a (C, N, N, 3) cascade stack
+    needs ``cascade_domains`` of length C (``ValueError`` without) and takes
+    (C, N, N) ``foam``. ``samples`` belongs to the window rasterizer, which
+    is not ported (``impl="window"`` raises)."""
     if impl == "window":
         raise NotImplementedError(
             'impl="window" is not ported yet ' + _NOT_PORTED.format('impl="window"'))
     if impl != "pool":
         raise ValueError(f"impl must be 'pool' or 'window', got {impl!r}")
     displacement = torch.as_tensor(displacement, dtype=torch.float32)
-    if cascade_domains is not None:
-        raise NotImplementedError(
-            "cascade stacks are not ported yet " + _NOT_PORTED.format("render cascades"))
-    _check_single(displacement)
     dev = _device(displacement.device)
+    tiles, interp = _cascade_setup(displacement, cascade_domains, mesh_resolution, dev)
     positions, uvs, tris = _mesh_constants(mesh_resolution, num_patches, dev)
-    interp = _interp_matrices(mesh_resolution, displacement.shape[-2], dev)
     cam_pos = torch.tensor(camera.position.astype(np.float32), device=dev)
     foam = None if foam is None else torch.as_tensor(foam, dtype=torch.float32, device=dev)
     scales = (float(height_div), float(horiz_div), float(normal_height_scale),
@@ -911,7 +954,7 @@ def render_frame(
                                  _view_proj(camera, width, height, dev), cam_pos, width,
                                  height, pool or _auto_pool(width, height), giants, interp,
                                  (num_patches, mesh_resolution), foam,
-                                 0 if frag_normal_x else 1, scales)
+                                 0 if frag_normal_x else 1, scales, tiles)
     if return_depth:
         return img, depth
     return img
@@ -929,12 +972,11 @@ def make_frame_renderer(config, width: int = 480, height: int = 280, giants: int
     (H, W, 3) uint8`` (step -> rasterize -> sRGB) on the state's device;
     ``view_proj`` is the float32 (4, 4) projection @ view. With
     ``diag=True`` it returns ``(frame, dropped)``, ``dropped`` the count of
-    giant-pass candidates past capacity (0 for exact coverage)."""
+    giant-pass candidates past capacity (0 for exact coverage). With
+    ``config.num_cascades > 1`` the state is a cascade stack and the frame
+    composites its cascades at ``config.domains``."""
     from gfx_ocean_tpu_torch.models.ocean import step as _ocean_step  # noqa: PLC0415
 
-    if config.num_cascades > 1:
-        raise NotImplementedError(
-            "cascades are not ported yet " + _NOT_PORTED.format("render cascades"))
     # Fragment normals come from the displacement texture (shade.py); the
     # step's vertex normals are dead weight here.
     config = dataclasses.replace(config, compute_normals=False)
@@ -946,15 +988,16 @@ def make_frame_renderer(config, width: int = 480, height: int = 280, giants: int
     def fn(state, t, view_proj, camera_pos):
         dev = _device(state.h0.device)
         positions, uvs, tris = _mesh_constants(config.mesh_resolution, config.num_patches, dev)
-        interp = _interp_matrices(config.mesh_resolution, config.resolution, dev)
         fields = _ocean_step(state, t, config)
+        tiles, interp = _cascade_setup(fields.displacement, config.domains,
+                                       config.mesh_resolution, dev)
         out = _rasterize_pool(
             fields.displacement, positions, uvs, tris,
             torch.as_tensor(view_proj, dtype=torch.float32, device=dev),
             torch.as_tensor(camera_pos, dtype=torch.float32, device=dev),
             width, height, pool, giants, interp, grid_shape,
             fields.foam if config.compute_foam else None,
-            0 if config.compat.frag_normal_x else 1, scales, with_diag=diag)
+            0 if config.compat.frag_normal_x else 1, scales, tiles, with_diag=diag)
         srgb = srgb8(out[0])
         if diag:
             return srgb, out[2]          # (frame, dropped-giants tripwire)

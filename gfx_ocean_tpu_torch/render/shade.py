@@ -19,8 +19,10 @@ TPU. The packing and its row fold are gone here; the float16 rounding of
 every tap stays, so that frames agree with the JAX package's to float32
 rounding (without it they drift by up to ~1e-3 of a slope).
 
-Inputs are (...,) pixel tensors; cascade stacks are not ported
-(ROADMAP.md queue 1, "models/ocean.py").
+Inputs are (...,) pixel tensors. A (C, N, N, 3) cascade stack (with its
+per-cascade ``tiles``, ``render/raster._cascade_setup``) shades the
+composite surface: the slopes sum over the cascades with the chain rule's
+tile factor, and foam is the union of the (C, N, N) per-cascade masks.
 """
 
 from __future__ import annotations
@@ -76,13 +78,6 @@ def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1)
 
 
-def _check_single(tex: torch.Tensor, ndim: int) -> None:
-    if tex.ndim != ndim:
-        raise NotImplementedError(
-            "cascade stacks are not ported yet (ROADMAP.md queue 1, item 8: "
-            "render cascades)")
-
-
 def _bilerp_taps(u: torch.Tensor, v: torch.Tensor, n_y: int, n_x: int):
     """Wrap-mod texel indices and lerp weights of GL-style bilinear
     sampling (texel centers at (i + 0.5) / N)."""
@@ -134,7 +129,7 @@ def _bilerp_f16(planes: Sequence[torch.Tensor], u: torch.Tensor, v: torch.Tensor
 
 
 def fragment_normals(displacement: torch.Tensor, u, v, channel: int = 1,
-                     height_scale: float = HEIGHT_SCALE) -> torch.Tensor:
+                     height_scale: float = HEIGHT_SCALE, tiles=None) -> torch.Tensor:
     """textureOffset +-1 taps on one displacement channel (``ocean.frag:54-67``).
 
     ``channel`` 1 taps the height (the intended math, default); 0 taps
@@ -142,14 +137,31 @@ def fragment_normals(displacement: torch.Tensor, u, v, channel: int = 1,
     of the +-1 texel taps equals the bilinear sample of the centered
     difference map, whose slopes are pre-scaled by 1 / height_scale before
     their float16 round.
+
+    A (C, N, N, 3) cascade stack: the composite height is
+    sum_c h_c(uv tiles[c]), so its texel-space slope is
+    sum_c tiles[c] slope_c(uv tiles[c]) (``tiles`` 1 for each when None).
     """
-    _check_single(displacement, 3)
     inv_scale = 1.0 / height_scale
-    h = displacement[..., channel]
-    dxh = (torch.roll(h, -1, dims=1) - torch.roll(h, 1, dims=1)) * inv_scale
-    dzh = (torch.roll(h, -1, dims=0) - torch.roll(h, 1, dims=0)) * inv_scale
-    n_y, n_x = h.shape
-    gx, gz = _bilerp_f16([dxh, dzh], u, v)
+
+    def slope_maps(h):
+        dxh = (torch.roll(h, -1, dims=1) - torch.roll(h, 1, dims=1)) * inv_scale
+        dzh = (torch.roll(h, -1, dims=0) - torch.roll(h, 1, dims=0)) * inv_scale
+        return dxh, dzh
+
+    if displacement.ndim == 4:
+        tiles = tiles or (1.0,) * displacement.shape[0]
+        gx = gz = 0.0
+        for c in range(displacement.shape[0]):
+            gxc, gzc = _bilerp_f16(slope_maps(displacement[c][..., channel]), u * tiles[c],
+                                   v * tiles[c])
+            gx = gx + gxc * tiles[c]
+            gz = gz + gzc * tiles[c]
+        n_y, n_x = displacement.shape[1:3]
+    else:
+        h = displacement[..., channel]
+        n_y, n_x = h.shape
+        gx, gz = _bilerp_f16(slope_maps(h), u, v)
     diff_x = 2.0 / n_x
     diff_y = 2.0 / n_y
     na = _normalize(torch.stack([torch.full_like(gx, -diff_x), gx, torch.zeros_like(gx)], -1))
@@ -178,7 +190,6 @@ def d_ggx(roughness, ndoth):
 def sample_mask_bilinear(mask: torch.Tensor, u, v) -> torch.Tensor:
     """Bilinear-sample an (N, N) scalar mask with repeat wrap, its taps
     rounded through float16 like the normal taps."""
-    _check_single(mask, 2)
     return _bilerp_f16([mask], u, v)[0]
 
 
@@ -186,22 +197,30 @@ def shade_fragments(displacement: torch.Tensor, u, v, world_pos, camera_pos,
                     foam: Optional[torch.Tensor] = None,
                     frag_channel: int = 1,
                     height_scale: float = HEIGHT_SCALE,
-                    pbr_roughness: float = 0.0) -> torch.Tensor:
+                    pbr_roughness: float = 0.0, tiles=None) -> torch.Tensor:
     """Full ``ocean.frag`` color for pixel tensors. Returns (..., 3).
 
     ``foam`` (optional, beyond the reference): an (N, N) [0, 1] coverage
     mask (``ops/derived.jacobian_foam``), bilinear-sampled and mixed into
-    the albedo before lighting. ``pbr_roughness > 0`` (opt-in) adds the
-    Cook-Torrance lobe ``D_GGX * G_Schlick * F / (4 NoL NoV) * NoL``; 0
-    leaves the stylized color unchanged.
+    the albedo before lighting; (C, N, N) per-cascade masks, each sampled at
+    uv * tiles[c], give the union of their coverage. ``pbr_roughness > 0``
+    (opt-in) adds the Cook-Torrance lobe
+    ``D_GGX * G_Schlick * F / (4 NoL NoV) * NoL``; 0 leaves the stylized
+    color unchanged. ``tiles``: a cascade stack's per-cascade uv factors.
     """
     n = fragment_normals(displacement, u, v, channel=frag_channel,
-                         height_scale=height_scale)
+                         height_scale=height_scale, tiles=tiles)
     depth = 1.0 - torch.clamp(_div(world_pos[..., 1] + 10.0, 50.0), 0.0, 1.5) ** 1.2
     depth = depth[..., None]
     albedo = _const(SHALLOW, u) * (1.0 - depth) + _const(DEEP, u) * depth
     if foam is not None:
-        f = torch.clamp(sample_mask_bilinear(foam, u, v), 0.0, 1.0)[..., None]
+        if foam.ndim == 3:      # per-cascade masks: union of coverage
+            c_tiles = tiles or (1.0,) * foam.shape[0]
+            f = sum(sample_mask_bilinear(foam[c], u * c_tiles[c], v * c_tiles[c])
+                    for c in range(foam.shape[0]))
+        else:
+            f = sample_mask_bilinear(foam, u, v)
+        f = torch.clamp(f, 0.0, 1.0)[..., None]
         albedo = albedo * (1.0 - f) + _const(FOAM_COLOR, u) * f
 
     light = _const(LIGHT_DIR, u)

@@ -163,6 +163,11 @@ def test_unsupported_configurations_raise():
         fused_step.check_supported(
             T.OceanConfig(resolution=64, fft_impl="pallas", matmul_precision="fp8"), 64)
     assert fused_step.check_supported(T.OceanConfig(resolution=512, fft_impl="pallas"), 512) == "fp32"
-    with pytest.raises(ValueError, match="unbatched"):
-        fused_step.hoist_packed(torch.zeros(2, 2, 32, 32), torch.zeros(2, 32, 32),
+    # a (C, 2, N, N) cascade stack is hoisted (tests/test_torch_cascades.py);
+    # more leading axes, or an omega that does not match h0, raise
+    with pytest.raises(ValueError, match="cascade stack"):
+        fused_step.hoist_packed(torch.zeros(2, 2, 2, 32, 32), torch.zeros(2, 2, 32, 32),
+                                T.OceanConfig(resolution=32, fft_impl="pallas"))
+    with pytest.raises(ValueError, match="cascade stack"):
+        fused_step.hoist_packed(torch.zeros(2, 2, 32, 32), torch.zeros(32, 32),
                                 T.OceanConfig(resolution=32, fft_impl="pallas"))

@@ -126,6 +126,71 @@ def test_hoist_passes_the_state_through(cuda, n):
     assert again.twiddle.data_ptr() == inputs.twiddle.data_ptr()
 
 
+def _cascade_inputs(n: int, cascades: int, device, **cfg_kw) -> tuple:
+    """A (C, 2, n, n) cascade state on ``device``: cascade c is the numpy
+    Phillips state of seed n + c, and the hoisted inputs of its route."""
+    draws = [synthesize(n, 1000.0, PhillipsConfig(), noise=torch.from_numpy(
+        np.random.default_rng(n + c).standard_normal((2, n, n)).astype(np.float32)))
+        for c in range(cascades)]
+    h0 = torch.stack([h for h, _ in draws]).to(device)
+    omega = torch.stack([o for _, o in draws]).to(device)
+    cfg = OceanConfig(resolution=n, fft_impl="pallas", num_cascades=cascades, **cfg_kw)
+    return cfg, h0, omega, fused_step.hoist_packed(h0, omega, cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 64, 512])
+def test_packed_step_cascade_axis(cuda, n):
+    """K1 on C cascades in one launch (grid axis z): against the plain
+    version, and bit-equal to C single-cascade launches; the checksums sum
+    the cascades."""
+    cfg, h0, omega, inputs = _cascade_inputs(n, 3, cuda)
+    assert isinstance(inputs, fused_step.PackedInputs) and inputs.h0.shape == (3, 2, n, n)
+    ts = torch.tensor([0.0, 3.25, 11.25, 1000.0], device=cuda)
+    before = fused_step.launch_packed_step.launches
+    got = fused_step.packed_planes(inputs, ts, cfg)
+    assert fused_step.launch_packed_step.launches == before + 1
+    assert got.shape == (4, 3, 3, n, n) and torch.isfinite(got).all()
+    want = fused_step.packed_planes_reference(inputs, ts, cfg)
+    assert _rel(got, want) < TOL_PLANES
+    for c in range(3):
+        one = fused_step.hoist_packed(h0[c], omega[c], cfg)
+        assert torch.equal(got[:, c], fused_step.packed_planes(one, ts, cfg))
+    got_ck = fused_step.packed_checksums(inputs, ts, cfg)
+    want_ck = fused_step.checksums_of_planes(want, cfg)
+    summands = (want.abs().sum(dim=(-4, -3, -2, -1))
+                + finite_difference_normals_planes(want[:, :, 1]).abs().sum(dim=(-4, -3, -2, -1)))
+    assert got_ck.shape == (4,)
+    assert float(((got_ck - want_ck).abs() / summands).max()) < TOL_CHECKSUM
+    with pytest.raises(ValueError, match="65535 frames"):
+        fused_step.launch_packed_step(inputs, torch.zeros(21846, device=cuda), cfg,
+                                      checksum=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(resolution=1024), dict(resolution=512, hermitian_pack=False),
+                                dict(resolution=512, hermitian_pack=False,
+                                     matmul_precision="highest")],
+                         ids=["k2+k3", "k4", "k5+k6"])
+def test_cascades_on_the_routes_without_a_cascade_axis(cuda, kw):
+    """K2 + K3, K4 and K5 + K6 run one cascade a call: each cascade's planes
+    equal its single-cascade call bit for bit, one launch a cascade."""
+    n = kw.pop("resolution")
+    cfg, h0, omega, inputs = _cascade_inputs(n, 2, cuda, **kw)
+    assert isinstance(inputs, fused_step.CascadeInputs)
+    ts = torch.tensor([0.5, 11.25], device=cuda)
+    counters = (fs.launch_fourstep_row, us.launch_unpacked_step, us.launch_unpacked_rows)
+    before = [f.launches for f in counters]
+    planes = fused_step.packed_planes(inputs, ts, cfg)
+    assert sum(f.launches - b for f, b in zip(counters, before)) == 2
+    for c in range(2):
+        one = fused_step.hoist_packed(h0[c], omega[c], cfg)
+        assert torch.equal(planes[:, c], fused_step.packed_planes(one, ts, cfg))
+    assert torch.equal(fused_step.packed_checksums(inputs, ts, cfg),
+                       fused_step.packed_checksums(inputs.per_cascade[0], ts, cfg)
+                       + fused_step.packed_checksums(inputs.per_cascade[1], ts, cfg))
+
+
 @functools.lru_cache(maxsize=None)
 def _state(n: int):
     """A Phillips state at n^2 on the CPU, from a numpy draw seeded n."""
@@ -682,7 +747,8 @@ def test_import_leaves_out_jax():
     code = ("import sys, gfx_ocean_tpu_torch, gfx_ocean_tpu_torch.kernels, "
             "gfx_ocean_tpu_torch.ops.fused_step, gfx_ocean_tpu_torch.ops.fourstep_step, "
             "gfx_ocean_tpu_torch.ops.unpacked_step, "
-            "gfx_ocean_tpu_torch.render, gfx_ocean_tpu_torch.render.raster;"
+            "gfx_ocean_tpu_torch.render, gfx_ocean_tpu_torch.render.raster, "
+            "gfx_ocean_tpu_torch.query, gfx_ocean_tpu_torch.checkpoint;"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gfx_ocean_tpu')];"
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -343,10 +343,11 @@ def test_unported_render_paths_raise():
     disp = torch.zeros(16, 16, 3)
     with pytest.raises(NotImplementedError, match='impl="window"'):
         tr.render_frame(disp, tcam.Camera(), 32, 32, mesh_resolution=16, impl="window")
-    with pytest.raises(NotImplementedError, match="cascade"):
+    # cascade stacks are ported (tests/test_torch_cascades.py); a stack
+    # without its domains raises as the JAX package's does
+    with pytest.raises(ValueError, match="cascade_domains"):
         tr.render_frame(torch.zeros(2, 16, 16, 3), tcam.Camera(), 32, 32, mesh_resolution=16)
-    with pytest.raises(NotImplementedError, match="cascade"):
-        tr.make_frame_renderer(T.OceanConfig(resolution=16, num_cascades=2), 32, 32)
+    assert callable(tr.make_frame_renderer(T.OceanConfig(resolution=16, num_cascades=2), 32, 32))
     with pytest.raises(ValueError, match="impl must be"):
         tr.render_frame(disp, tcam.Camera(), 32, 32, mesh_resolution=16, impl="splat")
 

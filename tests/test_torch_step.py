@@ -196,9 +196,10 @@ UNPORTED = [
     # 1024 takes the four-step route (K2 + K3), whose tier check still raises
     (dict(fft_impl="pallas", resolution=1024, matmul_precision="default"), 1024, "default"),
     (dict(fft_impl="xla"), N, "xla"),
-    # foam is ported; its cascade branch is not
-    (dict(fft_impl="matmul", compute_foam=True, num_cascades=2), N, "cascades"),
-    (dict(fft_impl="pallas", num_cascades=2), N, "cascades"),
+    # cascades and their foam are ported; they do not get past the routes
+    # and tiers that are not
+    (dict(fft_impl="xla", compute_foam=True, num_cascades=2), N, "xla"),
+    (dict(fft_impl="pallas", num_cascades=2, matmul_precision="default"), N, "default"),
     (dict(fft_impl="pallas", matmul_precision="default"), N, "default"),
 ]
 
@@ -218,12 +219,17 @@ def test_unported_configurations_raise(kwargs, n, match):
 
 
 def test_batched_state_raises():
-    cfg = T.OceanConfig(resolution=32, fft_impl="pallas")
-    st = T.OceanState(h0=torch.zeros(2, 2, 32, 32), omega=torch.zeros(2, 32, 32))
-    with pytest.raises(NotImplementedError, match="cascades"):
-        T.step(st, 1.0, cfg)
-    with pytest.raises(NotImplementedError, match="cascades"):
-        T.ocean_state_from_phillips(T.OceanConfig(resolution=32, num_cascades=2), device="cpu")
+    """Cascades are ported: a (2, 2, N, N) state steps, and a two-cascade
+    Phillips state is synthesized (tests/test_torch_cascades.py holds both
+    against the JAX package). What still raises is a state whose h0 and
+    omega do not match."""
+    cfg = T.OceanConfig(resolution=32, fft_impl="pallas", num_cascades=2)
+    st = T.ocean_state_from_phillips(cfg, device="cpu")
+    assert st.h0.shape == (2, 2, 32, 32) and st.omega.shape == (2, 32, 32)
+    out = T.step(st, 1.0, cfg)
+    assert out.displacement.shape == (2, 32, 32, 3) and torch.isfinite(out.displacement).all()
+    with pytest.raises(ValueError, match="not"):
+        T.step(T.OceanState(h0=st.h0, omega=st.omega[0]), 1.0, cfg)
 
 
 def test_phillips_state_runs_end_to_end():

@@ -339,7 +339,7 @@ def main() -> None:
                 def call():
                     err = lib.packed_step(
                         in1.h0.data_ptr(), in1.omega.data_ptr(), in1.twiddle.data_ptr(),
-                        ts6.data_ptr(), 6, 512, _f32(np.pi / c1.domain_size), 0, 0, -0.5,
+                        ts6.data_ptr(), 6, 1, 512, _f32(np.pi / c1.domain_size), 0, 0, -0.5,
                         y.data_ptr(), out.data_ptr(), partials.data_ptr(),
                         fused_step.CHECKSUM_ROWS, float(c1.normal_height_scale), 1, stream())
                     if err:
