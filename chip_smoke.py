@@ -5,7 +5,8 @@
 
 Drives the port's five paths: the three step paths, gated against the
 float64 golden model, the frame renderer, gated against a frame the JAX
-package rendered, and cascades. It imports no jax.
+package rendered, and cascades; then its entry points, the CLI and the
+frame server, on those paths. It imports no jax.
 
 - The 512^2 Hermitian-packed step (``OceanConfig(fft_impl="pallas",
   matmul_precision="bf16x3")``) through kernel K1, a 600-frame checksum
@@ -128,6 +129,27 @@ Phases, one line each:
 34. cascade_query_checkpoint: sample_surface on the card against the CPU,
     and a checkpoint round trip on the card.
 
+35. cli: ``gfx_ocean_tpu_torch.cli.main`` in this process, with the
+    kernels each subcommand launched: info, synth at 512^2 into
+    ``build/smoke/cli``, simulate on those files through K1 (600 frames,
+    checksums equal to make_rollout's), through K4 (--no-pack) and on
+    "xla" (cuFFT, within 5e-5 of K1's), simulate --checkpoint then query
+    --resume, bench at 512^2 (tb 6, 600 frames; on "pallas" between two
+    direct rollouts of the same state, and on "xla", which must launch no
+    kernel, with its device profile) and at config 5 (tb 4, 120 frames)
+    beside phases 7 and 12's direct rollouts, render at 1200x700
+    (8 frames, bit-equal to make_batch_renderer), and ``python -m
+    gfx_ocean_tpu_torch info`` without --device in a subprocess;
+36. serve: ``serve(state, OceanConfig(fft_impl="pallas"), port=0)`` on phase
+    3's state in a thread: /health, /config, /metrics, /frame at t = 11.25
+    under phase 5's golden gate, /frame.png at 1200x700 bit-equal to
+    make_frame_renderer (one launch of K1, K7, K8), the 960x540 strip of 4
+    frames bit-equal to make_batch_renderer, /frame.png's latency over 20
+    requests (median and p90 of wall, render, PNG encode and HTTP), and 8
+    threads x 4 frames at distinct t each equal to its frame served alone;
+    any status but 200 fails;
+37. frame_bench: ``utils.profiling.frame_bench_main``'s line.
+
 Then one JSON line with the kernels K1-K8 and K2 at 16384^2 (times,
 bounds from this run's shapes, library yardsticks, ``device_ms``; K1's
 entry carries the cascade call's numbers as ``cascade_*``), and as
@@ -247,6 +269,20 @@ C_QUERY_POINTS = 4096
 # bounds (float32 heights to 2e-5, world x / z to 6e-5, normals to 1e-4).
 C_QUERY_TOL = dict(height=2e-5, base_xz=6e-5, residual=6e-5, normal=1e-4)
 
+# Phases 35-37: the entry points. The CLI at 512^2 on synth's files (a
+# Phillips state from torch.Generator seed 0, the state phase 3 builds where
+# the shipped bins are absent) and at config 5; the server on phase 3's state.
+CLI_STEPS = 600           # the CLI's default --steps
+CLI_CHECK_STEPS = 60      # the unpacked route and the checkpoint's rollout
+CLI_RENDER_FRAMES = 8
+CLI_XLA_TOL = 5e-5        # "xla" (cuFFT) against K1's checksums, relative
+CLI_QUERY_POINTS = ("10.5,20", "100,30.25", "300,-7", "480.5,250")
+S_LATENCY_REQUESTS = 20
+S_THREADS, S_PER_THREAD = 8, 4
+S_STRIP_W, S_STRIP_H, S_STRIP_N = 960, 540, 4
+# The direct rollouts of phases 7 and 12, by (N, time batch), for phase 35.
+DIRECT_ROLLOUTS: dict = {}
+
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
@@ -306,47 +342,26 @@ K7_KERNELS = ("slot_kernel",)
 K8_KERNELS = ("segmin_lookback",)
 
 
-# Profiler sessions a measurement may take: on an H100 machine a session now
-# and then records no kernel at all, after a dozen sessions in the process
-# that recorded every launch.
-PROFILER_ATTEMPTS = 3
-
-
 def kernel_device_ms(fn, names, calls: int) -> dict:
     """torch.profiler's device time of one call of ``fn``: the mean time of
     a launch of each kernel named in ``names`` (each launched once a call),
-    and their sum under "total", over ``calls`` calls after one warm-up
-    call and one call in the profiler's warm-up step (as in
-    ``device_profile``: the tracer can lose the first launches after it
-    starts). The kernels' time without the wrapper's host work. A mean over
-    the launches the profiler recorded, since it can drop a record."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
+    and their sum under "total", over ``calls`` calls in one
+    ``profile_kernels`` window. The kernels' time without the wrapper's host
+    work. A mean over the launches the profiler recorded, since it can drop
+    a record."""
+    from gfx_ocean_tpu_torch.utils.profiling import profile_kernels
 
-    fn()
-    torch.cuda.synchronize()
-    for attempt in range(PROFILER_ATTEMPTS):
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        per_launch_us = {}
-        for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.count:
-                for name in names:
-                    if name in e.key:
-                        per_launch_us[name] = e.device_time_total / e.count
-        if sorted(per_launch_us) == sorted(names):
-            break
-        print(f"torch.profiler saw {sorted(per_launch_us)} of {names} "
-              f"(session {attempt + 1} of {PROFILER_ATTEMPTS})", file=sys.stderr, flush=True)
-    else:
-        fail(f"torch.profiler saw {sorted(per_launch_us)} of {names}")
-    ms = {name: us / 1e3 for name, us in per_launch_us.items()}
+    seen = profile_kernels(fn, calls, names)
+    if seen is None:
+        fail(f"torch.profiler saw none or not all of {names}")
+    return per_launch_ms(seen[0], names)
+
+
+def per_launch_ms(kernels: dict, names) -> dict:
+    """The mean ms a launch of each kernel of ``profile_kernels``' record
+    whose name holds one of ``names``, and their sum under "total"."""
+    ms = {name: total / count for name in names
+          for key, (total, count) in kernels.items() if name in key}
     return {**ms, "total": sum(ms.values())}
 
 
@@ -412,6 +427,9 @@ def main() -> None:
     kernels_line += run_unpacked(dev)
     kernels_line += run_big(dev)
     k1.update(run_cascades(dev))
+    run_cli(dev)
+    run_serve(dev)
+    run_frame_bench()
     print(json.dumps({"kernels": sorted(kernels_line, key=lambda k: k["name"])}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
@@ -542,6 +560,7 @@ def run(dev, n: int) -> dict:
         return torch.cat([fused_step.packed_checksums_reference(pre, tt[i:i + TIME_BATCH], cfg)
                           for i in range(0, tt.shape[0], TIME_BATCH)])
 
+    DIRECT_ROLLOUTS[(n, TIME_BATCH)] = rec
     plain = time_rollout(plain_rollout, state, ts, repeats=REPEATS)
     cks, plain_cks = rec["checksums"], plain["checksums"]
     ck_diff = float(np.abs(cks - plain_cks).max())
@@ -721,6 +740,7 @@ def run_fourstep(dev) -> list:
                         k2=fs.launch_fourstep_row.launches,
                         k3=fs.launch_fourstep_col.launches)
         expected = (FS_REPEATS + 1) * FS_STEPS // tb
+        DIRECT_ROLLOUTS[(FS_N, tb)] = rec
 
         def plain_rollout(st, tt, tb=tb):
             pre = fused_step.hoist_packed(st.h0, st.omega, cfg)
@@ -1050,34 +1070,16 @@ def run_render(dev) -> list:
 
 
 def device_profile(fn, frames: int, top: int = 15) -> dict:
-    """torch.profiler's device time of ``fn()`` by kernel, per frame, and
-    the idle share of its wall clock. One call of ``fn`` runs before the
-    profiler and one inside it as the schedule's warm-up step, whose
-    records are dropped: the tracer loses the first launches after it
-    starts."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
+    """torch.profiler's device time of one call of ``fn()`` (``frames``
+    frames) by kernel, per frame, and the idle share of its wall clock, in
+    one ``profile_kernels`` window with host activity traced."""
+    from gfx_ocean_tpu_torch.utils.profiling import profile_kernels
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(PROFILER_ATTEMPTS):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        by_op = sorted(((e.key, e.device_time_total / 1e3, e.count)
-                        for e in prof.key_averages()
-                        if e.device_type == torch.autograd.DeviceType.CUDA
-                        and not e.key.startswith("ProfilerStep")), key=lambda k: -k[1])
-        if by_op:
-            break
-    else:
+    seen = profile_kernels(fn, 1, cpu=True)
+    if seen is None:
         fail("torch.profiler recorded no device op")
+    kernels, wall_ms = seen
+    by_op = sorted(((k, ms, cnt) for k, (ms, cnt) in kernels.items()), key=lambda k: -k[1])
     busy_ms = sum(ms for _, ms, _ in by_op)
     return dict(frames=frames, wall_ms=wall_ms, device_busy_ms=busy_ms,
                 idle_share=1.0 - busy_ms / wall_ms,
@@ -1822,6 +1824,354 @@ def run_cascades(dev) -> dict:
         "cascade_bound_by": k1c_bound["bound_by"],
         "cascade_library_ms": k1c["library_ifft2_ms"],
     }
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch counter, K1-K8."""
+    from gfx_ocean_tpu_torch.ops import fourstep_step as fs
+    from gfx_ocean_tpu_torch.ops import fused_step
+    from gfx_ocean_tpu_torch.ops import unpacked_step as us
+    from gfx_ocean_tpu_torch.render import raster as rr
+
+    wrappers = dict(k1=fused_step.launch_packed_step, k2=fs.launch_fourstep_row,
+                    k3=fs.launch_fourstep_col, k4=us.launch_unpacked_step,
+                    k5=us.launch_unpacked_rows, k6=us.launch_unpacked_cols,
+                    k7=rr.launch_slot_kernel, k8=rr.launch_segmin_kernel)
+    return {k: w.launches for k, w in wrappers.items()}
+
+
+def launched_since(before: dict) -> dict:
+    """The kernels launched since ``before`` (a ``launch_counts()``), by count."""
+    return {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
+
+
+def cli(argv) -> tuple:
+    """``gfx_ocean_tpu_torch.cli.main(argv)`` in this process with its
+    stdout captured: (stdout, the kernels it launched)."""
+    import contextlib
+    import io
+
+    from gfx_ocean_tpu_torch import cli as port_cli
+
+    before = launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = port_cli.main(argv)
+    if rc != 0:
+        fail(f"cli {argv[0]} exited {rc}")
+    return out.getvalue(), launched_since(before)
+
+
+def last_json(text: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def run_cli(dev) -> None:
+    """Phase 35: the CLI's subcommands in this process, each with the
+    kernels it launched, against the direct API on the same state."""
+    import numpy as np
+    import torch
+
+    import gfx_ocean_tpu_torch as ot
+    from gfx_ocean_tpu_torch.render.camera import Camera, perspective, scripted_camera
+    from gfx_ocean_tpu_torch.render.raster import make_batch_renderer
+    from gfx_ocean_tpu_torch.utils.profiling import time_rollout
+
+    t_start = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    work = Path(__file__).resolve().parent / "build" / "smoke" / "cli"
+    work.mkdir(parents=True, exist_ok=True)
+    sp, op = str(work / "spectrum.bin"), str(work / "omega.bin")
+    files = ["--resolution", str(N), "--spectrum", sp, "--omega", op]
+    rec = {}
+
+    out, launched = cli(["info", *files[:2], "--phillips"])
+    info = json.loads(out)
+    rec["info"] = dict(devices=info["devices"], launches=launched)
+    if not info["devices"] or kind not in info["devices"][0]:
+        fail(f"cli info: devices {info['devices']} do not name the card {kind}")
+
+    _, launched = cli(["synth", "--resolution", str(N), "--out-spectrum", sp, "--out-omega", op])
+    rec["synth"] = dict(files=[os.path.getsize(sp), os.path.getsize(op)], launches=launched)
+
+    # simulate through K1 against make_rollout through K1 on the same state
+    out, launched = cli(["simulate", *files, "--fft-impl", "pallas", "--steps", str(CLI_STEPS)])
+    got = np.array(last_json(out)["checksums_head"])
+    cfg = ot.OceanConfig(resolution=N, fft_impl="pallas")
+    state = ot.ocean_state_from_assets(sp, op, resolution=None, device=dev)
+    ts = np.arange(CLI_STEPS, dtype=np.float32) * (1 / 60)
+    want = ot.make_rollout(cfg, keep_fields=False)(state, ts)[:5].cpu().numpy()
+    rec["simulate_pallas"] = dict(checksums_head=got.tolist(), launches=launched,
+                                  equal_to_make_rollout=bool(np.array_equal(got, want)))
+    if launched != {"k1": CLI_STEPS} or not np.array_equal(got, want):
+        fail(f"cli simulate --fft-impl pallas: {rec['simulate_pallas']}, make_rollout {want}")
+
+    out, launched = cli(["simulate", *files, "--fft-impl", "pallas", "--no-pack", "--steps",
+                         str(CLI_CHECK_STEPS)])
+    unpacked = np.array(last_json(out)["checksums_head"])
+    rel = float((np.abs(unpacked - got) / np.abs(got)).max())
+    rec["simulate_unpacked"] = dict(launches=launched, rel_to_packed=rel)
+    if launched != {"k4": CLI_CHECK_STEPS} or not (rel <= CLI_XLA_TOL):
+        fail(f"cli simulate --no-pack: {rec['simulate_unpacked']}")
+
+    out, launched = cli(["simulate", *files, "--fft-impl", "xla", "--steps", str(CLI_STEPS)])
+    xla = np.array(last_json(out)["checksums_head"])
+    rel = float((np.abs(xla - got) / np.abs(got)).max())
+    rec["simulate_xla"] = dict(launches=launched, rel_to_pallas=rel, tolerance=CLI_XLA_TOL)
+    if launched or not (rel <= CLI_XLA_TOL):
+        fail(f"cli simulate --fft-impl xla: {rec['simulate_xla']}")
+
+    ck = str(work / "state.npz")
+    _, launched_sim = cli(["simulate", *files, "--fft-impl", "pallas", "--steps",
+                           str(CLI_CHECK_STEPS), "--checkpoint", ck])
+    out, launched = cli(["query", *CLI_QUERY_POINTS, "--resume", ck])
+    samples = json.loads(out)["samples"]
+    normals = np.array([s["normal"] for s in samples])
+    rec["checkpoint_query"] = dict(
+        t=json.loads(out)["t"], heights=[s["height"] for s in samples],
+        launches_simulate=launched_sim, launches_query=launched,
+        normals_unit_max_err=float(np.abs(np.linalg.norm(normals, axis=1) - 1).max()))
+    if (launched != {"k1": 1} or not np.isfinite([s["height"] for s in samples]).all()
+            or rec["checkpoint_query"]["normals_unit_max_err"] > 1e-5):
+        fail(f"cli simulate --checkpoint / query --resume: {rec['checkpoint_query']}")
+    os.unlink(ck)
+
+    # bench at 512^2 and at config 5, beside phases 7 and 12's direct rollouts;
+    # at 512^2 (host-bound) also beside the direct rollout of this state just
+    # before and just after it
+    ts_dev = torch.arange(STEPS, dtype=torch.float32, device=dev) / 60.0
+    direct_now = [time_rollout(ot.make_rollout(cfg, keep_fields=False, time_batch=TIME_BATCH),
+                               state, ts_dev, repeats=REPEATS)]
+    out, launched = cli(["bench", *files, "--fft-impl", "pallas", "--time-batch", str(TIME_BATCH),
+                         "--steps", str(STEPS), "--repeats", str(REPEATS)])
+    direct_now.append(time_rollout(ot.make_rollout(cfg, keep_fields=False, time_batch=TIME_BATCH),
+                                   state, ts_dev, repeats=REPEATS))
+    b512 = json.loads(out)
+    direct = DIRECT_ROLLOUTS[(N, TIME_BATCH)]
+    rec["bench_512"] = dict(steps_per_sec=b512["steps_per_sec"], repeats_sec=b512["repeats_sec"],
+                            direct_steps_per_sec=direct["steps_per_sec"],
+                            direct_repeats_sec=direct["repeats_sec"],
+                            adjacent_direct_steps_per_sec=[d["steps_per_sec"] for d in direct_now],
+                            adjacent_direct_repeats_sec=[d["repeats_sec"] for d in direct_now],
+                            launches=launched, effective_precision=b512["effective_precision"],
+                            power_limit=b512.get("power_limit"))
+    if launched != {"k1": (REPEATS + 1) * STEPS // TIME_BATCH} or "checksums" in b512:
+        fail(f"cli bench at {N}^2: {rec['bench_512']}")
+    # the "xla" route (cuFFT, no kernel of the port) at the same size: the
+    # baseline, with torch.profiler's device time by op over 60 frames
+    out, launched = cli(["bench", *files, "--fft-impl", "xla", "--time-batch", str(TIME_BATCH),
+                         "--steps", str(STEPS), "--repeats", str(REPEATS)])
+    bx = json.loads(out)
+    xla_rollout = ot.make_rollout(dataclasses.replace(cfg, fft_impl="xla"), keep_fields=False,
+                                  time_batch=TIME_BATCH)
+    rec["bench_512_xla"] = dict(
+        steps_per_sec=bx["steps_per_sec"], repeats_sec=bx["repeats_sec"], launches=launched,
+        profile=device_profile(lambda: xla_rollout(state, ts_dev[:60]).cpu(), 60, top=8))
+    if launched:
+        fail(f"cli bench --fft-impl xla at {N}^2 launched a kernel: {rec['bench_512_xla']}")
+    out, launched = cli(["bench", "--resolution", str(FS_N), "--domain-size", "2000",
+                         "--precision", "high", "--fft-impl", "pallas", "--phillips",
+                         "--time-batch", "4", "--steps", str(FS_STEPS),
+                         "--repeats", str(FS_REPEATS)])
+    b5 = json.loads(out)
+    direct = DIRECT_ROLLOUTS[(FS_N, 4)]
+    calls = (FS_REPEATS + 1) * FS_STEPS // 4
+    rec["bench_config5"] = dict(steps_per_sec=b5["steps_per_sec"], repeats_sec=b5["repeats_sec"],
+                                direct_steps_per_sec=direct["steps_per_sec"],
+                                direct_repeats_sec=direct["repeats_sec"], launches=launched)
+    if launched != {"k2": calls, "k3": calls}:
+        fail(f"cli bench at config 5: {rec['bench_config5']}")
+
+    # render at 1200x700 against make_batch_renderer on the same poses
+    frames_dir = work / "frames"
+    _, launched = cli(["render", *files, "--fft-impl", "pallas", "--width", str(R_W),
+                       "--height", str(R_H), "--frames", str(CLI_RENDER_FRAMES),
+                       "--out", str(frames_dir)])
+    proj = perspective(R_W / R_H)
+    cams = [c for _, c in scripted_camera([(CLI_RENDER_FRAMES, [])], dt=1 / 60, camera=Camera())]
+    want = make_batch_renderer(cfg, R_W, R_H)(
+        state, torch.tensor((np.arange(CLI_RENDER_FRAMES) / 60).astype(np.float32), device=dev),
+        torch.tensor(np.stack([(proj @ c.view()).astype(np.float32) for c in cams]), device=dev),
+        torch.tensor(np.stack([c.position.astype(np.float32) for c in cams]), device=dev)
+    ).cpu().numpy()
+    got = np.stack([np.load(frames_dir / f"frame_{i:05d}.npy")
+                    for i in range(CLI_RENDER_FRAMES)])
+    pngs = all((frames_dir / f"frame_{i:05d}.png").stat().st_size > 0
+               for i in range(CLI_RENDER_FRAMES))
+    differ = int((got != want).sum())
+    rec["render"] = dict(shape=list(got.shape), differing_values=differ, pngs=pngs,
+                         launches=launched)
+    expected = {k: CLI_RENDER_FRAMES for k in ("k1", "k7", "k8")}
+    if launched != expected or differ or not pngs:
+        fail(f"cli render: {rec['render']}, expected launches {expected}")
+
+    # python -m gfx_ocean_tpu_torch without --device: the card
+    proc = subprocess.run([sys.executable, "-m", "gfx_ocean_tpu_torch", "info", *files],
+                          cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        fail(f"python -m gfx_ocean_tpu_torch info exited {proc.returncode}: {proc.stderr}")
+    rec["python_m_info_devices"] = json.loads(proc.stdout)["devices"]
+    if kind not in rec["python_m_info_devices"][0]:
+        fail(f"python -m gfx_ocean_tpu_torch info: {rec['python_m_info_devices']}")
+    phase("cli", seconds=time.perf_counter() - t_start, **rec)
+
+
+def http_get(url: str) -> bytes:
+    """The body of a GET; any status but 200 fails the smoke."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=120) as r:
+            if r.status != 200:
+                fail(f"GET {url}: HTTP {r.status}")
+            return r.read()
+    except urllib.error.HTTPError as e:
+        fail(f"GET {url}: HTTP {e.code} {e.read()[:300]!r}")
+
+
+def quantiles(xs) -> dict:
+    import numpy as np
+
+    return {"median": float(np.median(xs)), "p90": float(np.percentile(xs, 90))}
+
+
+def run_serve(dev) -> None:
+    """Phase 36: ``serve`` on phase 3's state in a thread: every response a
+    200, ``/frame`` under the golden gate, ``/frame.png`` and the strip
+    bit-equal to the direct renderers, concurrent frames equal to serial
+    ones, and the served frame's latency by wall clock."""
+    import concurrent.futures as cf
+    import io
+    import threading
+
+    import numpy as np
+    import torch
+
+    import gfx_ocean_tpu_torch as ot
+    from gfx_ocean_tpu_torch.golden.reference import golden_fields
+    from gfx_ocean_tpu_torch.render.camera import Camera, perspective
+    from gfx_ocean_tpu_torch.render.raster import make_batch_renderer, make_frame_renderer
+    from gfx_ocean_tpu_torch.serve import serve
+    from gfx_ocean_tpu_torch.utils.complexpair import from_pair_np
+    from gfx_ocean_tpu_torch.utils.png import encode_png
+
+    cfg = ot.OceanConfig(fft_impl="pallas")
+    state, source = main_state(dev, cfg)
+    kind = torch.cuda.get_device_name(0)
+    rec = {"state": source}
+    before = launch_counts()
+    t0 = time.perf_counter()
+    srv = serve(state, cfg, port=0)
+    rec["startup"] = dict(seconds=time.perf_counter() - t0, launches=launched_since(before))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    svc = srv.service
+    try:
+        health = json.loads(http_get(base + "/health"))
+        config = json.loads(http_get(base + "/config"))
+        metrics = json.loads(http_get(base + "/metrics"))
+        rec["health"] = health
+        if kind not in health["device"] or config["fft_impl"] != "pallas" \
+                or kind not in metrics["device"]:
+            fail(f"serve: /health {health}, /config fft_impl {config['fft_impl']}, "
+                 f"/metrics device {metrics['device']}")
+
+        before = launch_counts()
+        with np.load(io.BytesIO(http_get(base + f"/frame?t={T_CHECK}"))) as z:
+            disp = z["displacement"]
+        launched = launched_since(before)
+        gold = golden_fields(from_pair_np(state.h0.cpu().numpy()), state.omega.cpu().numpy(),
+                             T_CHECK, cfg.domain_size, cfg.compat)
+        rel_linf = float(np.abs(disp - gold).max() / np.abs(gold).max())
+        rec["frame_npz"] = dict(t=T_CHECK, rel_linf=rel_linf, gate_limit=GOLDEN_GATE,
+                                launches=launched)
+        if launched != {"k1": 1} or not (np.isfinite(disp).all() and rel_linf <= GOLDEN_GATE):
+            fail(f"serve /frame: {rec['frame_npz']}")
+
+        cam = Camera()
+        vp = (perspective(R_W / R_H) @ cam.view()).astype(np.float32)
+        cp = cam.position.astype(np.float32)
+        direct = make_frame_renderer(cfg, R_W, R_H)
+        before = launch_counts()
+        body = http_get(base + f"/frame.png?t={T_CHECK}&w={R_W}&h={R_H}")
+        launched = launched_since(before)
+        want = direct(state, T_CHECK, vp, cp).cpu().numpy()
+        rec["frame_png"] = dict(bytes=len(body), launches=launched,
+                                equal_to_make_frame_renderer=encode_png(want) == body,
+                                giant_dropped_last=svc.giant_dropped_last)
+        if launched != {"k1": 1, "k7": 1, "k8": 1} or encode_png(want) != body:
+            fail(f"serve /frame.png: {rec['frame_png']}")
+
+        ticks = svc.session.advance_batch(S_STRIP_N, S_STRIP_N / 60)
+        times, cams = [t for t, _ in ticks], [c for _, c in ticks]
+        before = launch_counts()
+        frames = svc.strip_frames(times, cams, S_STRIP_W, S_STRIP_H)
+        launched = launched_since(before)
+        proj = perspective(S_STRIP_W / S_STRIP_H)
+        want = make_batch_renderer(cfg, S_STRIP_W, S_STRIP_H)(
+            state, torch.tensor(times, dtype=torch.float32, device=dev),
+            torch.tensor(np.stack([(proj @ c.view()).astype(np.float32) for c in cams]),
+                         device=dev),
+            torch.tensor(np.stack([c.position.astype(np.float32) for c in cams]), device=dev)
+        ).cpu().numpy()
+        rec["strip"] = dict(shape=list(frames.shape), launches=launched,
+                            differing_values=int((frames != want).sum()))
+        if launched != {k: S_STRIP_N for k in ("k1", "k7", "k8")} or rec["strip"][
+                "differing_values"] or frames.shape != (S_STRIP_N, S_STRIP_H, S_STRIP_W, 3):
+            fail(f"serve strip: {rec['strip']}")
+
+        # latency of /frame.png at 1200x700, serial requests at distinct t
+        wall, render, encode = [], [], []
+        for i in range(S_LATENCY_REQUESTS):
+            t1 = time.perf_counter()
+            http_get(base + f"/frame.png?t={T_CHECK + 0.5 + i / 60}&w={R_W}&h={R_H}")
+            wall.append(time.perf_counter() - t1)
+            render.append(svc.last_render_sec)
+            encode.append(svc.last_encode_sec)
+        http = [w - r - e for w, r, e in zip(wall, render, encode)]
+        rec["frame_png_latency_ms"] = {
+            name: {k: v * 1e3 for k, v in quantiles(xs).items()}
+            for name, xs in (("wall", wall), ("render", render), ("png_encode", encode),
+                             ("http", http))}
+
+        # 8 threads x 4 frames at distinct t against the same frames served alone
+        paths = [f"/frame.png?t={T_CHECK + 1.0 + i / 60}&w={R_W}&h={R_H}"
+                 for i in range(S_THREADS * S_PER_THREAD)]
+        serial = [http_get(base + p) for p in paths]
+        before = launch_counts()
+        with cf.ThreadPoolExecutor(S_THREADS) as ex:
+            concurrent = list(ex.map(lambda p: http_get(base + p), paths))
+        launched = launched_since(before)
+        mismatched = sum(a != b for a, b in zip(serial, concurrent))
+        rec["concurrency"] = dict(threads=S_THREADS, requests=len(paths), mismatched=mismatched,
+                                  distinct_frames=len(set(serial)), launches=launched)
+        if mismatched or launched != {k: len(paths) for k in ("k1", "k7", "k8")}:
+            fail(f"serve concurrency: {rec['concurrency']}")
+        rec["metrics"] = json.loads(http_get(base + "/metrics"))
+        if rec["metrics"]["errors"] or rec["metrics"]["giant_dropped_max"]:
+            fail(f"serve /metrics: {rec['metrics']}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    phase("serve", **rec)
+
+
+def run_frame_bench() -> None:
+    """Phase 37: ``utils.profiling.frame_bench_main``'s JSON line."""
+    import contextlib
+    import io
+
+    from gfx_ocean_tpu_torch.utils.profiling import frame_bench_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        frame_bench_main()
+    rec = last_json(out.getvalue())
+    phase("frame_bench", **rec)
+    if rec["device_ms"] is None or not rec["pipelined_wall_ms"] > 0:
+        fail(f"frame_bench: {rec}")
 
 
 if __name__ == "__main__":

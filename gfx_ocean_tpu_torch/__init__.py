@@ -16,7 +16,9 @@ in ``csrc/raster.cu``) turns a step into a shaded frame. Cascades are a
 leading axis of the state through all of it (K1 takes it as a grid axis).
 ``query.py`` samples the surface at points, ``checkpoint.py`` saves and
 loads states in the JAX package's format. States are built on the card
-unless a device is given.
+unless a device is given. The entry points are the CLI (``cli.py``,
+``python -m gfx_ocean_tpu_torch``; ``--device cpu`` runs it without a card)
+and the HTTP frame server (``serve.py``).
 """
 
 from gfx_ocean_tpu_torch.config import CompatFlags, OceanConfig, PhillipsConfig

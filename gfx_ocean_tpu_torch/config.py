@@ -10,7 +10,7 @@ differently on the port:
 
 - ``fft_impl``: "pallas" selects the hand-written CUDA kernels of
   ``ops/fused_step.py`` (their plain PyTorch version on CPU tensors),
-  "matmul" the PyTorch direct-DFT matmul path. "xla" is not ported.
+  "matmul" the PyTorch direct-DFT matmul path, "xla" ``torch.fft``.
 - ``matmul_precision``: every tier the port runs is plain FP32 on CUDA
   cores or in ``torch.matmul`` with TF32 off (``ops/fft.effective_precision``).
 """

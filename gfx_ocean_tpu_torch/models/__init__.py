@@ -4,6 +4,7 @@ from .ocean import (
     downsample_state,
     make_rollout,
     make_step,
+    make_uniform_rollout,
     ocean_state_from_assets,
     ocean_state_from_phillips,
     state_from_numpy,
@@ -16,6 +17,7 @@ __all__ = [
     "downsample_state",
     "make_rollout",
     "make_step",
+    "make_uniform_rollout",
     "ocean_state_from_assets",
     "ocean_state_from_phillips",
     "state_from_numpy",

@@ -15,11 +15,14 @@ Routes through ``step`` / ``make_rollout``, by ``config.fft_impl``:
   CUDA tensors, their plain PyTorch version for CPU tensors.
 - "matmul": the PyTorch matmul DFT (``ops/fft.py``; the four-step split
   above ``direct_dft_max``), packed or unpacked by ``config.hermitian_pack``.
+- "xla": ``torch.fft`` (cuFFT on the card) in place of the matmul DFT,
+  the same propagate and packing; the eager route and speed baseline.
 
 Not ported yet, and raising ``NotImplementedError``: the "default"
-precision tier and "xla".
+precision tier.
 ``time_batch`` frames run as one batch axis; the hoisted inputs are
-computed once per rollout call.
+computed once per rollout call. ``make_uniform_rollout`` is the
+phase-recurrence rollout of the matmul and xla routes.
 
 Cascades (BASELINE config 4) are a leading batch axis C of the state:
 h0 (C, 2, N, N), omega (C, N, N). ``step`` returns (C, N, N, 3) fields and
@@ -48,11 +51,12 @@ from gfx_ocean_tpu_torch.config import OceanConfig, PhillipsConfig
 from gfx_ocean_tpu_torch.ops import fused_step
 from gfx_ocean_tpu_torch.ops.derived import finite_difference_normals, jacobian_foam
 from gfx_ocean_tpu_torch.ops.fft import ifft2_planes_unnorm, ifft2_real_unnorm
-from gfx_ocean_tpu_torch.ops.propagate import (precompute_propagate,
+from gfx_ocean_tpu_torch.ops.propagate import (_phase_mod_2pi, precompute_propagate,
                                                precompute_propagate_packed,
-                                               propagate_packed_planes,
+                                               propagate_from_cs, propagate_packed_planes,
                                                propagate_planes_pre)
 from gfx_ocean_tpu_torch.utils.complexpair import to_pair
+from gfx_ocean_tpu_torch.utils.device import resolve_device
 
 
 class OceanState(NamedTuple):
@@ -83,9 +87,6 @@ def _check_supported(state: OceanState, config: OceanConfig) -> None:
     if state.h0.ndim < 3 or tuple(state.omega.shape) != lead + tuple(state.h0.shape[-2:]):
         raise ValueError(f"state: h0 {tuple(state.h0.shape)} and omega "
                          f"{tuple(state.omega.shape)} are not (..., 2, N, N) and (..., N, N)")
-    if config.fft_impl == "xla":
-        raise NotImplementedError(
-            'fft_impl="xla" is not ported yet (ROADMAP.md queue 1, "ops/fft.py")')
     if config.fft_impl == "pallas":
         fused_step.check_supported(config, state.h0.shape[-1])
 
@@ -106,23 +107,37 @@ def _displacement(state: OceanState, ts: torch.Tensor, config: OceanConfig,
     if config.fft_impl == "pallas":
         return torch.movedim(fused_step.packed_planes(pre, ts, config), -3, -1)
     t = ts.reshape((-1,) + (1,) * state.omega.ndim)  # the time axis before the state's
-    centered = "ref" if config.compat.ref_sign else "canonical"
-    common = dict(impl=config.fft_impl, direct_max=config.direct_dft_max,
-                  centered=centered)
-    choppy_prec = config.choppy_precision or config.matmul_precision
     if config.hermitian_pack:
         pre_planes, pre_rho, omega_rho = pre
         h_r, h_i, z_r, z_i = propagate_packed_planes(
             pre_planes, pre_rho, state.omega, omega_rho, t,
             config.domain_size, config.compat)
+        common = _transform_args(config)
         height = ifft2_real_unnorm(h_r, h_i, precision=config.matmul_precision, **common)
-        dxf, dzf = ifft2_planes_unnorm(z_r, z_i, precision=choppy_prec, **common)
+        dxf, dzf = ifft2_planes_unnorm(
+            z_r, z_i, precision=config.choppy_precision or config.matmul_precision, **common)
         return torch.stack([dxf, height, dzf], dim=-1)
     specs_r, specs_i = propagate_planes_pre(pre, state.omega, t,
                                             config.domain_size, config.compat)
+    return _fields_from_specs(specs_r, specs_i, config)
+
+
+def _transform_args(config: OceanConfig) -> dict:
+    """The 2-D transforms' route, size split and centering for a config."""
+    return dict(impl=config.fft_impl, direct_max=config.direct_dft_max,
+                centered="ref" if config.compat.ref_sign else "canonical")
+
+
+def _fields_from_specs(specs_r: torch.Tensor, specs_i: torch.Tensor,
+                       config: OceanConfig) -> torch.Tensor:
+    """Unpacked spectra planes (3, ..., N, N), order (h, dx, dz) -> the
+    (..., N, N, 3) displacement map (disp_x, height, disp_z)."""
+    common = _transform_args(config)
     height = ifft2_real_unnorm(specs_r[0], specs_i[0],
                                precision=config.matmul_precision, **common)
-    choppy = ifft2_real_unnorm(specs_r[1:], specs_i[1:], precision=choppy_prec, **common)
+    choppy = ifft2_real_unnorm(specs_r[1:], specs_i[1:],
+                               precision=config.choppy_precision or config.matmul_precision,
+                               **common)
     return torch.stack([choppy[0], height, choppy[1]], dim=-1)
 
 
@@ -222,6 +237,69 @@ def make_rollout(config: OceanConfig, keep_fields: bool = True, time_batch: int 
     return rollout
 
 
+def make_uniform_rollout(config: OceanConfig, steps: int, dt: float,
+                         keep_fields: bool = False, phase_recurrence: bool = True,
+                         resync_every: int = 32):
+    """Rollout over the uniformly spaced frames t0 + i dt with phase recurrence.
+
+    With uniform dt, e^{iw(t+dt)} = e^{iwt} e^{iw dt}: the (cos, sin) phase
+    planes advance by one complex multiply a frame instead of two
+    transcendentals over the grid. Every ``resync_every`` frames (and at
+    frame 0) they are recomputed exactly from the Dekker phase
+    (``_phase_mod_2pi``), which bounds the float32 drift; with
+    ``phase_recurrence=False`` every frame is exact.
+
+    Returns ``rollout(state, t0)``: one checksum a frame (``steps``,), or
+    with ``keep_fields=True`` OceanFields with a leading time axis. The
+    frames run as a Python loop (the JAX function is one ``lax.scan``).
+    Only the matmul and xla routes: "pallas" computes its propagate inside
+    the kernels, and ``hermitian_pack`` is not supported (both raise, as in
+    the JAX package).
+    """
+    if config.fft_impl == "pallas":
+        raise ValueError("uniform rollout applies to the matmul/xla paths, "
+                         "not pallas (its propagate is in-kernel)")
+    if config.hermitian_pack:
+        raise ValueError("uniform rollout does not support hermitian_pack; "
+                         "use make_rollout (phase recurrence is a net loss "
+                         "at large N anyway — see docstring)")
+
+    def one_out(disp: torch.Tensor):
+        normals = (finite_difference_normals(disp[..., 1], config.normal_height_scale)
+                   if config.compute_normals else None)
+        foam = jacobian_foam(disp, config) if config.compute_foam else None
+        if keep_fields:
+            return OceanFields(displacement=disp, normals=normals, foam=foam)
+        return sum(x.sum() for x in (disp, normals, foam) if x is not None)
+
+    def rollout(state: OceanState, t0):
+        _check_supported(state, config)
+        omega = state.omega
+        t0 = torch.as_tensor(t0, dtype=torch.float32, device=omega.device)
+        dt32 = torch.tensor(dt, dtype=torch.float32, device=omega.device)
+        pre = precompute_propagate(state.h0, config.compat)
+        phase_d = omega * dt32
+        cd, sd = torch.cos(phase_d), torch.sin(phase_d)
+        c = s = None
+        out = []
+        for i in range(steps):
+            if phase_recurrence and i % resync_every:
+                c, s = c * cd - s * sd, s * cd + c * sd
+            else:
+                ph = _phase_mod_2pi(omega, t0 + i * dt32)
+                c, s = torch.cos(ph), torch.sin(ph)
+            specs_r, specs_i = propagate_from_cs(pre, c, s, config.domain_size, config.compat)
+            out.append(one_out(_fields_from_specs(specs_r, specs_i, config)))
+        if not keep_fields:
+            return torch.stack(out)
+        return OceanFields(
+            displacement=torch.stack([f.displacement for f in out]),
+            normals=(torch.stack([f.normals for f in out]) if config.compute_normals else None),
+            foam=torch.stack([f.foam for f in out]) if config.compute_foam else None)
+
+    return rollout
+
+
 def _checksums(fields: OceanFields) -> torch.Tensor:
     """One checksum a frame (the leading axis), summed over the cascades."""
     out = fields.displacement.sum(dim=(-3, -2, -1))
@@ -232,22 +310,12 @@ def _checksums(fields: OceanFields) -> torch.Tensor:
     return out.reshape(out.shape[0], -1).sum(dim=-1) if out.ndim > 1 else out
 
 
-def _state_device(device: torch.device | str | None) -> torch.device | str:
-    """``device``, or the card when None; raises when None and there is no card."""
-    if device is not None:
-        return device
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the state goes to the card unless a device "
-                           "is given; pass device='cpu' for a CPU state")
-    return torch.device("cuda")
-
-
 def state_from_numpy(h0_pair: np.ndarray, omega: np.ndarray,
                      device: torch.device | str | None = None) -> OceanState:
     """An OceanState from numpy arrays in the JAX package's layout:
     h0 as (2, N, N) float32 planes and omega as (N, N), or a cascade stack
     (C, 2, N, N) and (C, N, N), on ``device`` (the card when None)."""
-    device = _state_device(device)
+    device = resolve_device(device)
     h0_pair = np.asarray(h0_pair, dtype=np.float32)
     omega = np.asarray(omega, dtype=np.float32)
     if (h0_pair.ndim < 3 or h0_pair.shape[-3] != 2
@@ -269,7 +337,7 @@ def ocean_state_from_assets(
     ``device`` (the card when None)."""
     from gfx_ocean_tpu_torch.assets.bincode import load_omega, load_spectrum  # noqa: PLC0415
 
-    device = _state_device(device)
+    device = resolve_device(device)
     h0 = load_spectrum(spectrum_path, resolution)
     om = load_omega(omega_path, resolution)
     return state_from_numpy(to_pair(h0), om, device)
@@ -294,7 +362,7 @@ def ocean_state_from_phillips(
     same seed, as for one cascade."""
     from gfx_ocean_tpu_torch.spectra.phillips import synthesize  # noqa: PLC0415
 
-    device = _state_device(device)
+    device = resolve_device(device)
     phillips = phillips or PhillipsConfig()
     if config.num_cascades == 1:
         h0, om = synthesize(config.resolution, config.domain_size, phillips, generator)

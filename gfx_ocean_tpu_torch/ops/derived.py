@@ -1,17 +1,59 @@
-"""Finite-difference normals (``shader/ocean.frag:50-67``) and the Jacobian
-whitecap mask in PyTorch.
+"""Correction (``shader/correction.comp``), finite-difference normals
+(``shader/ocean.frag:50-67``) and the Jacobian whitecap mask in PyTorch.
 
-Counterpart of ``gfx_ocean_tpu/ops/derived.py:54-135``.
+Counterpart of ``gfx_ocean_tpu/ops/derived.py``. The step folds the
+correction sign into its DFT tables (or its kernels); ``correction`` is
+the explicit pass, for callers of the plain transforms and the "xla" route.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
 from gfx_ocean_tpu_torch.config import OceanConfig
+from gfx_ocean_tpu_torch.utils.device import resolve_device
+
+
+@functools.lru_cache(maxsize=None)
+def _sign_np(n: int, ref_sign: bool) -> np.ndarray:
+    x = np.arange(n)[None, :]
+    y = np.arange(n)[:, None]
+    even = (x + y) % 2 == 0
+    if ref_sign:  # Q2: the reference flips the canonical convention
+        return np.where(even, np.float32(-1.0), np.float32(1.0))
+    return np.where(even, np.float32(1.0), np.float32(-1.0))
+
+
+def correction_sign(n: int, ref_sign: bool = True,
+                    device: torch.device | str | None = None) -> torch.Tensor:
+    """(N, N) float32 sign grid of ``shader/correction.comp:29`` on ``device``
+    (the card when None; raises when there is none)."""
+    return sign_grid(n, ref_sign, resolve_device(device)).clone()
+
+
+def sign_grid(n: int, ref_sign: bool, device: torch.device | str) -> torch.Tensor:
+    """:func:`correction_sign` on ``device``, made once per (n, ref_sign,
+    device). Read only: every caller shares the one tensor."""
+    return _sign_grid(n, bool(ref_sign), torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _sign_grid(n: int, ref_sign: bool, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_sign_np(n, ref_sign)).to(device)
+
+
+def correction(f_height: torch.Tensor, f_dx: torch.Tensor, f_dz: torch.Tensor,
+               ref_sign: bool = True) -> torch.Tensor:
+    """Take real parts, apply the centering sign, pack (dx, h, dz):
+    ``shader/correction.comp:31-34``'s channel order (disp_x, height,
+    disp_z), on the fields' device. Returns (..., N, N, 3) float32."""
+    sign = sign_grid(f_height.shape[-1], ref_sign, f_height.device)
+    return torch.stack([torch.real(f).to(torch.float32) * sign
+                        for f in (f_dx, f_height, f_dz)], dim=-1)
 
 
 def finite_difference_normals_planes(

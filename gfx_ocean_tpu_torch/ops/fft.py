@@ -10,10 +10,16 @@ matmul, a twiddle, a small DFT matmul. The (-1)^(x+y) correction sign and
 the reference's global Q2 flip are folded into the output side of the
 tables, so the correction pass costs nothing.
 
-Not ported yet (ROADMAP.md queue 1, "ops/fft.py"): ``impl="xla"`` and
-tensor-core precision schemes. Every named tier runs as plain FP32
-(``torch.matmul`` with TF32 off), which is at least as exact as each of
-them; ``effective_precision`` says so.
+``impl="xla"`` is ``torch.fft`` (cuFFT on a CUDA tensor) scaled to the
+unnormalized DFT, the correction sign applied after it: the eager route of
+``fft_impl="xla"`` and the speed baseline, never a stand-in for a kernel.
+The complex-typed helpers ``ifft1d_unnorm`` / ``ifft2_unnorm`` and the
+plane-pair ``ifft1d_real_unnorm`` are the JAX package's public helpers.
+
+Not ported yet (ROADMAP.md queue 1, "ops/fft.py"): tensor-core precision
+schemes. Every named tier runs as plain FP32 (``torch.matmul`` with TF32
+off), which is at least as exact as each of them; ``effective_precision``
+says so.
 """
 
 from __future__ import annotations
@@ -24,14 +30,22 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from gfx_ocean_tpu_torch.ops.derived import sign_grid
+from gfx_ocean_tpu_torch.utils.device import resolve_device
+
 _TIERS = ("bf16x3", "bf16x4", "default", "high", "highest")
 
 
-def effective_precision(precision: str) -> str:
-    """The tier that actually runs on the port for a requested tier.
+def effective_precision(precision: str, n: Optional[int] = None, direct_max: int = 1024,
+                        impl: str = "matmul") -> str:
+    """The tier that actually runs on the port for a requested tier of an
+    n-point transform (the JAX signature; ``n`` and ``direct_max`` do not
+    change the answer here).
 
-    The four f32-grade tiers all run as plain FP32. "default" (single-pass
-    bf16 on the TPU) has no port yet and raises, as an unknown tier does.
+    On "matmul" and "pallas" the four f32-grade tiers all run as plain
+    FP32. On "xla" (cuFFT) the tiers do not apply. "default" (single-pass
+    bf16 on the TPU) has no port yet and raises on every route, as an
+    unknown tier does.
     """
     if precision not in _TIERS:
         raise ValueError(f"unknown matmul precision {precision!r}; options: {list(_TIERS)}")
@@ -39,6 +53,8 @@ def effective_precision(precision: str) -> str:
         raise NotImplementedError(
             'matmul_precision="default" is not ported yet (ROADMAP.md queue 1, '
             '"ops/fft.py": tensor-core precision tiers)')
+    if impl == "xla":
+        return "n/a (torch.fft, cuFFT on the card; precision tiers do not apply)"
     return "fp32"
 
 
@@ -125,12 +141,9 @@ def _table(pair: Tuple[np.ndarray, np.ndarray],
 # --------------------------------------------------------------------------
 
 def _check_impl(impl: str, precision: str) -> None:
-    if impl == "xla":
-        raise NotImplementedError(
-            'impl="xla" is not ported yet (ROADMAP.md queue 1, "ops/fft.py")')
-    if impl != "matmul":
+    if impl not in ("matmul", "xla"):
         raise ValueError(f"unknown impl {impl!r}")
-    effective_precision(precision)
+    effective_precision(precision, impl=impl)
 
 
 def _fold(centered: Optional[str]) -> Tuple[bool, bool]:
@@ -180,11 +193,18 @@ def _foursteps_last(xr: torch.Tensor, xi: torch.Tensor, real_out: bool,
     return yr, yi
 
 
+def _ifft_last(xr: torch.Tensor, xi: torch.Tensor, direct_max: int, real_out: bool,
+               out_alt: bool = False):
+    """DFT along the last axis: dense up to ``direct_max`` points, else the
+    four-step split."""
+    last = _direct_last if xr.shape[-1] <= direct_max else _foursteps_last
+    return last(xr, xi, real_out, out_alt=out_alt)
+
+
 def row_pass_complex(xr: torch.Tensor, xi: torch.Tensor, direct_max: int, fold: bool):
     """Complex DFT along the last axis, the x-half of the centering sign
     optionally folded into the output table."""
-    last = _direct_last if xr.shape[-1] <= direct_max else _foursteps_last
-    return last(xr, xi, real_out=False, out_alt=fold)
+    return _ifft_last(xr, xi, direct_max, real_out=False, out_alt=fold)
 
 
 def _col_pass(ar: torch.Tensor, ai: torch.Tensor, direct_max: int, fold: bool,
@@ -213,6 +233,16 @@ def col_pass_complex(ar: torch.Tensor, ai: torch.Tensor, direct_max: int, fold: 
     return _col_pass(ar, ai, direct_max, fold, negate, real_out=False)
 
 
+def _xla_ifft2(xr: torch.Tensor, xi: torch.Tensor, fold: bool, negate: bool) -> torch.Tensor:
+    """The "xla" route: ``torch.fft.ifft2`` scaled by N M, then the
+    correction sign (``ref_sign=negate``) when ``fold``; complex64."""
+    m, n = xr.shape[-2], xr.shape[-1]
+    y = torch.fft.ifft2(torch.complex(xr, xi)) * (m * n)
+    if fold:
+        y = y * sign_grid(n, negate, y.device)
+    return y
+
+
 def ifft2_real_unnorm(
     xr: torch.Tensor,
     xi: torch.Tensor,
@@ -229,6 +259,8 @@ def ifft2_real_unnorm(
     """
     fold, negate = _fold(centered)
     _check_impl(impl, precision)
+    if impl == "xla":
+        return _xla_ifft2(xr, xi, fold, negate).real
     pin_fp32_matmul(xr)
     ar, ai = row_pass_complex(xr, xi, direct_max, fold)
     return col_pass_real(ar, ai, direct_max, fold, negate)
@@ -246,6 +278,58 @@ def ifft2_planes_unnorm(
     twin of :func:`ifft2_real_unnorm`, used under Hermitian field packing)."""
     fold, negate = _fold(centered)
     _check_impl(impl, precision)
+    if impl == "xla":
+        y = _xla_ifft2(xr, xi, fold, negate)
+        return y.real, y.imag
     pin_fp32_matmul(xr)
     ar, ai = row_pass_complex(xr, xi, direct_max, fold)
     return col_pass_complex(ar, ai, direct_max, fold, negate)
+
+
+# --------------------------------------------------------------------------
+# The JAX package's public helpers: 1-D planes, complex-typed 1-D / 2-D.
+# --------------------------------------------------------------------------
+
+def ifft1d_real_unnorm(xr: torch.Tensor, xi: torch.Tensor, axis: int = -1,
+                       direct_max: int = 1024, precision: str = "highest") -> torch.Tensor:
+    """Re(unnormalized inverse DFT) along ``axis``, plane-pair inputs."""
+    _check_impl("matmul", precision)
+    pin_fp32_matmul(xr)
+    xr, xi = torch.movedim(xr, axis, -1), torch.movedim(xi, axis, -1)
+    return torch.movedim(_ifft_last(xr, xi, direct_max, real_out=True)[0], -1, axis)
+
+
+def _as_complex(x) -> torch.Tensor:
+    """A tensor stays on its device; host input (numpy, lists) goes to the
+    card as complex64, and raises without one (a CPU caller passes a CPU
+    tensor)."""
+    if not isinstance(x, torch.Tensor):
+        return torch.as_tensor(np.asarray(x, dtype=np.complex64), device=resolve_device(None))
+    return x if x.is_complex() else x.to(torch.complex64)
+
+
+def ifft1d_unnorm(x, axis: int = -1, impl: str = "matmul", direct_max: int = 1024,
+                  precision: str = "highest") -> torch.Tensor:
+    """Unnormalized inverse DFT (= N * ifft) along ``axis``; complex64, on
+    the device of a tensor ``x`` and on the card for host input."""
+    x = _as_complex(x)
+    _check_impl(impl, precision)
+    if impl == "xla":
+        return torch.fft.ifft(x, dim=axis) * x.shape[axis]
+    pin_fp32_matmul(x)
+    x = torch.movedim(x, axis, -1)
+    yr, yi = _ifft_last(x.real, x.imag, direct_max, real_out=False)
+    return torch.movedim(torch.complex(yr, yi), -1, axis)
+
+
+def ifft2_unnorm(x, impl: str = "matmul", direct_max: int = 1024,
+                 precision: str = "highest") -> torch.Tensor:
+    """Unnormalized 2-D inverse DFT over the last two axes (= N M * ifft2):
+    the row pass then the column pass, as the reference composes them.
+    Placed as :func:`ifft1d_unnorm` places it."""
+    x = _as_complex(x)
+    if impl == "xla":
+        _check_impl(impl, precision)
+        return torch.fft.ifft2(x) * (x.shape[-2] * x.shape[-1])
+    y = ifft1d_unnorm(x, axis=-1, impl=impl, direct_max=direct_max, precision=precision)
+    return ifft1d_unnorm(y, axis=-2, impl=impl, direct_max=direct_max, precision=precision)

@@ -22,6 +22,7 @@ import torch
 
 from gfx_ocean_tpu_torch.config import CompatFlags
 from gfx_ocean_tpu_torch.golden.reference import wavenumber_1d
+from gfx_ocean_tpu_torch.utils.device import resolve_device
 
 
 def _f32(x: float) -> float:
@@ -47,9 +48,22 @@ def _khat_np(n: int, domain_size: float, wrap: bool) -> Tuple[np.ndarray, np.nda
 
 
 def wavenumber_grid(n: int, domain_size: float, wrap: bool = False,
-                    device: torch.device | str = "cpu"):
-    """(k_hat_x, k_hat_y) as (N, N) float32 tensors on ``device``."""
-    kxn, kyn = _khat_np(n, float(domain_size), bool(wrap))
+                    device: torch.device | str | None = None):
+    """(k_hat_x, k_hat_y) as (N, N) float32 tensors on ``device`` (the card
+    when None; raises when there is none)."""
+    return tuple(k.clone() for k in _khat_grid(n, domain_size, wrap, resolve_device(device)))
+
+
+def _khat_grid(n: int, domain_size: float, wrap: bool, device: torch.device | str):
+    """:func:`wavenumber_grid` on ``device``, made once per (n, domain_size,
+    wrap, device): the eager propagate's tables are not uploaded at every
+    call. Read only: every caller shares the two tensors."""
+    return _khat_grid_cached(n, float(domain_size), bool(wrap), torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _khat_grid_cached(n: int, domain_size: float, wrap: bool, device: torch.device):
+    kxn, kyn = _khat_np(n, domain_size, wrap)
     return torch.from_numpy(kxn).to(device), torch.from_numpy(kyn).to(device)
 
 
@@ -60,6 +74,23 @@ def _as_time(t, like: torch.Tensor) -> torch.Tensor:
 def as_times(ts, device: torch.device) -> torch.Tensor:
     """Frame times (a float, a sequence or a tensor) as a float32 (tb,) tensor."""
     return torch.as_tensor(ts, dtype=torch.float32, device=device).reshape(-1).contiguous()
+
+
+def propagate(h0: torch.Tensor, omega: torch.Tensor, t, domain_size: float,
+              compat: CompatFlags = CompatFlags()):
+    """Evolve the complex initial spectrum h0 (..., N, N) to time ``t``:
+    returns (h_spec, dx_spec, dz_spec), each complex64 (..., N, N). The
+    phase is the plain float32 product omega t, as in the JAX function (the
+    step's routes use the Dekker phase of :func:`_phase_mod_2pi`)."""
+    n = h0.shape[-1]
+    phase = omega * _as_time(t, omega)
+    e_pos = torch.complex(torch.cos(phase), torch.sin(phase))
+    h0_neg = torch.flip(h0, dims=(-2, -1))
+    if compat.conj_neg:
+        h0_neg = torch.conj(h0_neg)
+    h = h0 * e_pos + h0_neg * torch.conj(e_pos)
+    kxn, kyn = _khat_grid(n, domain_size, compat.wrap_k, h0.device)
+    return h, -1j * kxn * h, -1j * kyn * h
 
 
 def precompute_propagate(h0_pair: torch.Tensor,
@@ -145,7 +176,7 @@ def propagate_from_cs(pre: torch.Tensor, c: torch.Tensor, s: torch.Tensor,
     n = pre.shape[-1]
     hr = c * pre[0] + s * pre[1]
     hi = s * pre[2] + c * pre[3]
-    kxn, kyn = wavenumber_grid(n, domain_size, compat.wrap_k, pre.device)
+    kxn, kyn = _khat_grid(n, domain_size, compat.wrap_k, pre.device)
     specs_r = torch.stack([hr, kxn * hi, kyn * hi], dim=0)
     specs_i = torch.stack([hi, -kxn * hr, -kyn * hr], dim=0)
     return specs_r, specs_i
@@ -157,6 +188,14 @@ def propagate_planes_pre(pre: torch.Tensor, omega: torch.Tensor, t,
     phase = _phase_mod_2pi(omega, t)
     return propagate_from_cs(pre, torch.cos(phase), torch.sin(phase),
                              domain_size, compat)
+
+
+def propagate_planes(h0_pair: torch.Tensor, omega: torch.Tensor, t, domain_size: float,
+                     compat: CompatFlags = CompatFlags()):
+    """All-real-plane :func:`propagate` from (re, im) planes h0 (..., 2, N, N):
+    returns (specs_r, specs_i), each (3, ..., N, N) in the order (h, dx, dz)."""
+    return propagate_planes_pre(precompute_propagate(h0_pair, compat), omega, t,
+                                domain_size, compat)
 
 
 def roll_flip(x: torch.Tensor) -> torch.Tensor:
@@ -237,7 +276,7 @@ def propagate_packed_planes(
     h_r = 0.5 * (sr + tr)
     h_i = 0.5 * (si - ti)
 
-    kxn, kyn = wavenumber_grid(n, domain_size, compat.wrap_k, pre.device)
+    kxn, kyn = _khat_grid(n, domain_size, compat.wrap_k, pre.device)
     kxq, kyq = roll_flip(kxn), roll_flip(kyn)
     dx_r = 0.5 * (kxn * si + kxq * ti)
     dx_i = 0.5 * (kxq * tr - kxn * sr)

@@ -94,8 +94,10 @@ def test_unported_and_unknown_options_raise():
         tfft.effective_precision("bf16x9")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfft.effective_precision("default")
-    with pytest.raises(NotImplementedError, match="xla"):
-        tfft.ifft2_real_unnorm(x, x, impl="xla")
+    # "xla" is ported (torch.fft); its tiers do not apply, but "default"
+    # still raises there as on every route
+    with pytest.raises(NotImplementedError, match="default"):
+        tfft.ifft2_real_unnorm(x, x, impl="xla", precision="default")
     with pytest.raises(ValueError, match="unknown impl"):
         tfft.ifft2_real_unnorm(x, x, impl="fft")
     # the four-step route (N > direct_max) has no "default" tier either

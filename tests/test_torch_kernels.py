@@ -748,9 +748,26 @@ def test_import_leaves_out_jax():
             "gfx_ocean_tpu_torch.ops.fused_step, gfx_ocean_tpu_torch.ops.fourstep_step, "
             "gfx_ocean_tpu_torch.ops.unpacked_step, "
             "gfx_ocean_tpu_torch.render, gfx_ocean_tpu_torch.render.raster, "
-            "gfx_ocean_tpu_torch.query, gfx_ocean_tpu_torch.checkpoint;"
+            "gfx_ocean_tpu_torch.query, gfx_ocean_tpu_torch.checkpoint, "
+            "gfx_ocean_tpu_torch.cli, gfx_ocean_tpu_torch.serve, "
+            "gfx_ocean_tpu_torch.utils.profiling, gfx_ocean_tpu_torch.utils.png, importlib.util;"
+            # python -m gfx_ocean_tpu_torch runs __main__, which imports cli
+            "assert importlib.util.find_spec('gfx_ocean_tpu_torch.__main__');"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gfx_ocean_tpu')];"
             "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_import_does_not_initialize_cuda():
+    """Importing the CLI and the server starts nothing on a card: the port's
+    counterpart of tests/test_cli.py::test_import_does_not_initialize_jax_backend
+    (``--device`` is read in ``main``, and a test process must stay free to
+    choose its device)."""
+    code = ("import sys, torch, gfx_ocean_tpu_torch.cli, gfx_ocean_tpu_torch.serve, "
+            "gfx_ocean_tpu_torch.render.raster;"
+            "sys.exit(1 if torch.cuda.is_initialized() else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

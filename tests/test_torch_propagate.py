@@ -120,7 +120,8 @@ def test_unpacked_propagate_matches(flags):
 
 @pytest.mark.parametrize("n,wrap", [(32, False), (32, True), (128, False)])
 def test_wavenumber_grid_equal(n, wrap):
-    for a, b in zip(tp.wavenumber_grid(n, 1000.0, wrap), jp.wavenumber_grid(n, 1000.0, wrap)):
+    for a, b in zip(tp.wavenumber_grid(n, 1000.0, wrap, "cpu"),
+                    jp.wavenumber_grid(n, 1000.0, wrap)):
         assert np.array_equal(a.numpy(), np.asarray(b))
 
 

@@ -195,10 +195,12 @@ UNPORTED = [
     (dict(fft_impl="pallas", hermitian_pack=False, matmul_precision="default"), N, "default"),
     # 1024 takes the four-step route (K2 + K3), whose tier check still raises
     (dict(fft_impl="pallas", resolution=1024, matmul_precision="default"), 1024, "default"),
-    (dict(fft_impl="xla"), N, "xla"),
-    # cascades and their foam are ported; they do not get past the routes
-    # and tiers that are not
-    (dict(fft_impl="xla", compute_foam=True, num_cascades=2), N, "xla"),
+    # "xla" (torch.fft) is ported; its "default" tier is not, as on every route
+    (dict(fft_impl="xla", matmul_precision="default"), N, "default"),
+    # cascades and their foam are ported; they do not get past the tiers
+    # that are not
+    (dict(fft_impl="xla", compute_foam=True, num_cascades=2, matmul_precision="default"),
+     N, "default"),
     (dict(fft_impl="pallas", num_cascades=2, matmul_precision="default"), N, "default"),
     (dict(fft_impl="pallas", matmul_precision="default"), N, "default"),
 ]

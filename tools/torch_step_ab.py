@@ -30,7 +30,9 @@ and, on Phillips states from a torch.Generator seeded 0:
 
 Both sides are timed by this checkout's ``chip_smoke`` helpers
 (``event_ms``, ``kernel_device_ms``, ``device_profile``), whatever the
-side's own. Prints one JSON line a side and run. Imports no jax.
+side's own; their profiler window is the side's
+``utils/profiling.profile_kernels``, so a side must be a tree that has
+it. Prints one JSON line a side and run. Imports no jax.
 """
 
 from __future__ import annotations
@@ -54,18 +56,12 @@ def device_ms_seen(smoke, fn, names, calls: int):
     """``kernel_device_ms`` for the kernels of ``names`` that ``fn``
     launches (a side whose checksum has no kernel launches fewer); None,
     with a line on stderr, where no profiler session recorded any of them."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from gfx_ocean_tpu_torch.utils.profiling import profile_kernels
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(smoke.PROFILER_ATTEMPTS):  # a session now and then records no kernel
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        seen = tuple(n for n in names if any(n in e.key for e in prof.key_averages()))
-        if seen:
-            return smoke.kernel_device_ms(fn, seen, calls)
+    seen = profile_kernels(fn, calls)
+    found = [n for n in names if seen and any(n in k for k in seen[0])]
+    if found:
+        return smoke.per_launch_ms(seen[0], found)
     print(f"torch.profiler saw none of {names}: not measured", file=sys.stderr, flush=True)
     return None
 
