@@ -6,7 +6,9 @@
 Drives the port's five paths: the three step paths, gated against the
 float64 golden model, the frame renderer, gated against a frame the JAX
 package rendered, and cascades; then its entry points, the CLI and the
-frame server, on those paths. It imports no jax.
+frame server, on those paths; then the single-device remainder: the
+precision tiers of the matmul route, the window rasterizer, meshes other
+than the grid and the native bincode loader. It imports no jax.
 
 - The 512^2 Hermitian-packed step (``OceanConfig(fft_impl="pallas",
   matmul_precision="bf16x3")``) through kernel K1, a 600-frame checksum
@@ -148,7 +150,28 @@ Phases, one line each:
     requests (median and p90 of wall, render, PNG encode and HTTP), and 8
     threads x 4 frames at distinct t each equal to its frame served alone;
     any status but 200 fails;
-37. frame_bench: ``utils.profiling.frame_bench_main``'s line.
+37. frame_bench: ``utils.profiling.frame_bench_main``'s line;
+38. precision_tiers: the JAX package's default configuration
+    ``OceanConfig()`` (512^2, "matmul", unpacked) on phase 3's state at
+    each tier ("bf16x3", "bf16x4", "high", "highest", "default"): rel and
+    abs L-inf against golden beside the JAX package's ceiling and beside the
+    same scheme computed exactly on the host (``scheme_rel``), which the
+    card's error must match within the float32 sums' band either way,
+    ``effective_precision``, a 6-frame call (CUDA events) and a 120-frame
+    rollout at tb 6 beside "highest"; choppy_precision="default" under
+    "bf16x3"; "high", "default" and "highest" at config 5 (4096^2, phase 8's
+    state, phase 10's golden), 8 frames each;
+39. window_render: phase 17's 1200x700 frame through K1 and the window
+    rasterizer (32^2 samples, no giant candidate dropped) against the pool
+    frame of the same state (the near-tie envelope of
+    tests/test_render.py:943-978 scaled to the frame) and the stored JAX
+    frame; render_frames(impl="window") equal to render_frame; ms a frame
+    beside the pool frame's;
+40. generic_mesh: the standard grid as a plain triangle list
+    (``grid_shape=None``) bit-equal to the grid path on both rasterizers;
+41. native_loader: the native bincode loader (g++, built in phase 2) on
+    files of phase 8's state: bit-equal to the numpy parser, MB/s of each,
+    write_npy read back; the loaders must take the native parser.
 
 Then one JSON line with the kernels K1-K8 and K2 at 16384^2 (times,
 bounds from this run's shapes, library yardsticks, ``device_ms``; K1's
@@ -282,6 +305,47 @@ S_THREADS, S_PER_THREAD = 8, 4
 S_STRIP_W, S_STRIP_H, S_STRIP_N = 960, 540, 4
 # The direct rollouts of phases 7 and 12, by (N, time batch), for phase 35.
 DIRECT_ROLLOUTS: dict = {}
+# States phases 38-39 reuse: phase 3's 512^2 state ("main"), phase 8's
+# 4096^2 state with phase 10's golden ("fourstep", "fourstep_golden"), and
+# phase 17's frame state ("render").
+STATES: dict = {}
+
+# Phase 38: the precision tiers of the matmul route on the JAX package's
+# default configuration, OceanConfig() (512^2, fft_impl="matmul", unpacked).
+TIERS = ("bf16x3", "bf16x4", "high", "highest", "default")
+# The JAX package's relative L-inf figures for each tier at 512^2
+# (gfx_ocean_tpu/config.py:88-96, measured on a TPU on the shipped bins):
+# error ceilings only, never speed.
+TIER_CEILING = {"bf16x3": 8e-6, "bf16x4": 6e-6, "high": 2.8e-5, "highest": 1e-6,
+                "default": 2.6e-3}
+# FP32 sums of 512 products (a DFT pass) on the tensor cores, relative to
+# the field's scale: how far the card's sums may move the error from the
+# scheme's own, either way.
+# The tensor cores accumulate less exactly than IEEE FP32 (1.27x the error
+# of the CUDA cores' sums on a random 512-term bf16 product:
+# tools/torch_precision_probe.py), so 1.5x the 1e-6 of IEEE sums. One bf16 pass ("default") rounds the row
+# pass's FP32 output to bf16 again, where a sum-order difference can move a
+# value by a bf16 ulp: its field's largest error may move by a percent of
+# itself.
+FP32_SUM_ALLOWANCE = 1.5e-6
+DEFAULT_REROUND = 0.01
+# One bf16 pass: its bound at 4096^2, and the whole 512^2 field at "default".
+DEFAULT_GATE = 1e-2
+TIER_CALLS = 20
+TIER_STEPS = 120
+TIER_BIG_FRAMES = 8
+# Phase 39: the window rasterizer at phase 17's frame. 32^2 samples leave
+# 145 giant candidates at the default camera (counted on the CPU), under
+# R_GIANTS; the pool/window envelope of tests/test_render.py:943-978
+# (64 differing pixels, 8 one-sided flips at 800x448) scaled to 1200x700.
+W_SAMPLES = 32
+W_DIFF_LIMIT = 64 * (R_W * R_H) // (800 * 448)
+W_ONE_SIDED_LIMIT = 8 * (R_W * R_H) // (800 * 448)
+W_TIMING_CALLS = 5
+# Phase 40: the standard grid as a triangle list at a small viewport.
+G_W, G_H = 320, 180
+# Phase 41: the native loader on files of phase 8's 4096^2 state.
+NATIVE_REPEATS = 3
 
 
 def fail(msg: str) -> None:
@@ -430,6 +494,10 @@ def main() -> None:
     run_cli(dev)
     run_serve(dev)
     run_frame_bench()
+    run_precision_tiers(dev)
+    run_window_render(dev)
+    run_generic_mesh(dev)
+    run_native_loader()
     print(json.dumps({"kernels": sorted(kernels_line, key=lambda k: k["name"])}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
@@ -445,8 +513,12 @@ def build() -> None:
     build_s = time.perf_counter() - t0
     for name in libs:
         kernels.load(name)
+    t0 = time.perf_counter()
+    native = kernels.build_host("ocean_native")
+    STATES["native_build_seconds"] = time.perf_counter() - t0
     root = kernels.BUILD_DIR.parent.parent
-    phase("build", seconds=build_s, libraries={
+    phase("build", seconds=build_s, native_library=str(native.relative_to(root)),
+          native_seconds=STATES["native_build_seconds"], libraries={
         name: {"library": str(so.relative_to(root)),
                "ptxas": [ln.strip() for ln in so.with_suffix(".log").read_text().splitlines()
                          if "registers" in ln or "bytes stack frame" in ln]}
@@ -561,6 +633,7 @@ def run(dev, n: int) -> dict:
                           for i in range(0, tt.shape[0], TIME_BATCH)])
 
     DIRECT_ROLLOUTS[(n, TIME_BATCH)] = rec
+    STATES["main"] = state
     plain = time_rollout(plain_rollout, state, ts, repeats=REPEATS)
     cks, plain_cks = rec["checksums"], plain["checksums"]
     ck_diff = float(np.abs(cks - plain_cks).max())
@@ -677,6 +750,7 @@ def run_fourstep(dev) -> list:
     rel_linf = abs_linf / float(np.abs(gold).max())
     nrm_linf = float(np.abs(fields.normals.cpu().numpy()
                             - golden_normals(gold[..., 1], cfg.normal_height_scale)).max())
+    STATES["fourstep"], STATES["fourstep_golden"] = state, gold
     del fields, gold
     phase("fourstep_golden", resolution=FS_N, t=T_CHECK, rel_linf=rel_linf, abs_linf=abs_linf,
           normals_abs_linf=nrm_linf, gate="rel_linf", gate_limit=GOLDEN_GATE,
@@ -888,6 +962,7 @@ def run_render(dev) -> list:
     vp = rr._view_proj(cam, R_W, R_H, dev)
     cp = torch.tensor(cam.position.astype(np.float32), device=dev)
     disp = ot.step(state, R_T, dataclasses.replace(cfg, compute_normals=False)).displacement
+    STATES["render"] = state
     positions, uvs, tris = rr._mesh_constants(cfg.mesh_resolution, cfg.num_patches, dev)
     interp = rr._interp_matrices(cfg.mesh_resolution, R_N, dev)
     grid_shape = (cfg.num_patches, cfg.mesh_resolution)
@@ -2172,6 +2247,344 @@ def run_frame_bench() -> None:
     phase("frame_bench", **rec)
     if rec["device_ms"] is None or not rec["pipelined_wall_ms"] > 0:
         fail(f"frame_bench: {rec}")
+
+
+def scheme_rel(state, cfg, tier: str, gold) -> float:
+    """Relative L-inf against golden of the tier's scheme computed exactly
+    on the host: the step's float32 spectra and float32 DFT tables, each
+    pass's operands rounded to bf16 as the MXU's DEFAULT dot rounds them
+    (the JAX package's explicit split and single pass on the TPU; "high" the
+    port's 3-pass split; "highest" unrounded), products and sums in float64,
+    each complex output of a transform pass rounded once to float32. What
+    the tier's own arithmetic costs on these inputs, before any float32
+    sum."""
+    import numpy as np
+    import torch
+
+    from gfx_ocean_tpu_torch.ops import fft as tfft
+    from gfx_ocean_tpu_torch.ops.propagate import precompute_propagate, propagate_planes_pre
+
+    def bf16(a):
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16).double().numpy()
+
+    def terms(a):
+        a = a.astype(np.float32)
+        if tier == "highest":
+            return {"hi": a.astype(np.float64)}
+        hi = bf16(a)
+        return {"hi": hi, "lo": bf16(a.astype(np.float64) - hi)}
+
+    passes = {"highest": (("hi", "hi"),), "default": (("hi", "hi"),),
+              "high": (("hi", "hi"), ("hi", "lo"), ("lo", "hi")),
+              "bf16x3": (("hi", "hi"), ("hi", "lo"), ("lo", "hi")),
+              "bf16x4": (("hi", "hi"), ("hi", "lo"), ("lo", "hi"), ("lo", "lo"))}[tier]
+
+    def mm(a, b):
+        ta, tb = terms(a), terms(b)
+        return sum(ta[p] @ tb[q] for p, q in passes)
+
+    def f32(a):
+        return a.astype(np.float32)
+
+    n = state.omega.shape[-1]
+    pre = precompute_propagate(state.h0.cpu(), cfg.compat)
+    t = torch.full((1, 1, 1), T_CHECK, dtype=torch.float32)
+    sr, si = propagate_planes_pre(pre, state.omega.cpu(), t, cfg.domain_size, cfg.compat)
+    sr, si = sr[:, 0].numpy(), si[:, 0].numpy()              # (3, N, N): h, dx, dz
+    wr, wi = tfft._dft_matrix_out_alt_np(n, 1, 1, False)
+    cr, ci = tfft._dft_matrix_out_alt_np(n, 1, 0, cfg.compat.ref_sign)
+    fields = []
+    for k in range(3):
+        ar, ai = f32(mm(sr[k], wr) - mm(si[k], wi)), f32(mm(sr[k], wi) + mm(si[k], wr))
+        fields.append(f32(mm(cr, ar) - mm(ci, ai)))
+    disp = np.stack([fields[1], fields[0], fields[2]], axis=-1)
+    return float(np.abs(disp - gold).max() / np.abs(gold).max())
+
+
+def run_precision_tiers(dev) -> None:
+    """Phase 38: every precision tier of the matmul route on the JAX
+    package's default configuration, its error against golden beside the
+    JAX ceiling and beside the same scheme computed exactly on the host, a
+    6-frame call and a 120-frame rollout beside FP32 ("highest");
+    choppy_precision="default"; "high" and "default" at config 5."""
+    import numpy as np
+    import torch
+
+    import gfx_ocean_tpu_torch as ot
+    from gfx_ocean_tpu_torch.golden.reference import golden_fields
+    from gfx_ocean_tpu_torch.ops.fft import effective_precision
+    from gfx_ocean_tpu_torch.utils.complexpair import from_pair_np
+    from gfx_ocean_tpu_torch.utils.profiling import time_rollout
+
+    state = STATES["main"]
+    base = ot.OceanConfig()
+    n = base.resolution
+    gold = golden_fields(from_pair_np(state.h0.cpu().numpy()), state.omega.cpu().numpy(),
+                         T_CHECK, base.domain_size, base.compat)
+    scale = float(np.abs(gold).max())
+    ts6 = torch.arange(TIME_BATCH, dtype=torch.float32, device=dev) / 60.0
+    ts = torch.arange(TIER_STEPS, dtype=torch.float32, device=dev) / 60.0
+    rec, failures = {}, []
+    for tier in TIERS:
+        cfg = dataclasses.replace(base, matmul_precision=tier)
+        disp = ot.step(state, T_CHECK, cfg).displacement.cpu().numpy()
+        err = np.abs(disp - gold)
+        rel = float(err.max()) / scale
+        roll6 = ot.make_rollout(cfg, keep_fields=False, time_batch=TIME_BATCH)
+        roll = time_rollout(roll6, state, ts, repeats=3)
+        own = scheme_rel(state, cfg, tier, gold)
+        # Two-sided: the card's error is its scheme's, give or take the
+        # float32 sums, so a tier that ran another scheme (FP32, or bf16x3
+        # and bf16x4 swapped) fails. Where the scheme itself meets the JAX
+        # figure, so must the card; where it cannot, the scheme bounds (D4).
+        band = FP32_SUM_ALLOWANCE + DEFAULT_REROUND * own * (tier == "default")
+        limit = TIER_CEILING[tier] if own <= TIER_CEILING[tier] else own + band
+        rec[tier] = dict(
+            rel_linf=rel, abs_linf=float(err.max()),
+            rel_linf_by_field={f: float(err[..., i].max()) / scale
+                               for i, f in enumerate(("disp_x", "height", "disp_z"))},
+            jax_ceiling=TIER_CEILING[tier], ceiling_met=rel <= TIER_CEILING[tier],
+            scheme_rel_linf=own, scheme_band=band, limit=limit,
+            effective_precision=effective_precision(tier, n, cfg.direct_dft_max, "matmul"),
+            call_ms=event_ms(lambda: roll6(state, ts6), TIER_CALLS),
+            steps_per_sec=roll["steps_per_sec"],
+            checksums_finite=bool(np.isfinite(roll["checksums"]).all()))
+        if not (np.isfinite(disp).all() and rel <= limit and abs(rel - own) <= band
+                and rec[tier]["checksums_finite"]):
+            failures.append(f"{tier}: rel L-inf {rel:.3e}, limit {limit:.3e}, its exact "
+                            f"scheme {own:.3e} +- {band:.3e}")
+        if not (rel <= (DEFAULT_GATE if tier == "default" else GOLDEN_GATE)):
+            failures.append(f"{tier}: rel L-inf {rel:.3e} past the gate")
+    fp32 = rec["highest"]
+    for tier in TIERS:
+        rec[tier]["call_vs_highest"] = rec[tier]["call_ms"] / fp32["call_ms"]
+        rec[tier]["steps_per_sec_vs_highest"] = rec[tier]["steps_per_sec"] / fp32["steps_per_sec"]
+
+    # choppy_precision="default" under "bf16x3": the height keeps its tier.
+    cfg = dataclasses.replace(base, choppy_precision="default")
+    disp = ot.step(state, T_CHECK, cfg).displacement.cpu().numpy()
+    split = ot.step(state, T_CHECK, base).displacement.cpu().numpy()
+    choppy = dict(height_rel_linf=float(np.abs(disp[..., 1] - gold[..., 1]).max()) / scale,
+                  choppy_rel_linf=float(np.abs(disp[..., ::2] - gold[..., ::2]).max()) / scale,
+                  height_equals_bf16x3=bool(np.array_equal(disp[..., 1], split[..., 1])))
+    roll6 = ot.make_rollout(cfg, keep_fields=False, time_batch=TIME_BATCH)
+    choppy.update(call_ms=event_ms(lambda: roll6(state, ts6), TIER_CALLS),
+                  steps_per_sec=time_rollout(roll6, state, ts, repeats=3)["steps_per_sec"])
+    if not (choppy["height_rel_linf"] <= GOLDEN_GATE and choppy["height_equals_bf16x3"]
+            and choppy["choppy_rel_linf"] <= DEFAULT_GATE):
+        failures.append(f"choppy_precision='default': {choppy}")
+
+    # Config 5 (4096^2) on the matmul route: "high" and "default", FP32 beside.
+    big_state, big_gold = STATES["fourstep"], STATES.pop("fourstep_golden")
+    big_scale = float(np.abs(big_gold).max())
+    big = {}
+    ts_big = torch.arange(TIER_BIG_FRAMES, dtype=torch.float32, device=dev) / 60.0
+    for tier, gate in (("high", GOLDEN_GATE), ("default", DEFAULT_GATE), ("highest", GOLDEN_GATE)):
+        cfg = ot.OceanConfig(resolution=FS_N, domain_size=2000.0, matmul_precision=tier)
+        disp = ot.step(big_state, T_CHECK, cfg).displacement.cpu().numpy()
+        err = float(np.abs(disp - big_gold).max())
+        roll = time_rollout(ot.make_rollout(cfg, keep_fields=False), big_state, ts_big, repeats=3)
+        big[tier] = dict(rel_linf=err / big_scale, abs_linf=err, gate=gate,
+                         effective_precision=effective_precision(tier, FS_N, cfg.direct_dft_max,
+                                                                 "matmul"),
+                         ms_per_frame=roll["ms_per_step"], steps_per_sec=roll["steps_per_sec"])
+        del disp
+        if not (err / big_scale <= gate):
+            failures.append(f"4096^2 {tier}: rel L-inf {err / big_scale:.3e} > {gate}")
+    for tier in big:
+        big[tier]["steps_per_sec_vs_highest"] = (big[tier]["steps_per_sec"]
+                                                 / big["highest"]["steps_per_sec"])
+    del big_gold
+    torch.cuda.empty_cache()
+    phase("precision_tiers", resolution=n, config="OceanConfig() (matmul, unpacked at 512)",
+          t=T_CHECK, frames_a_call=TIME_BATCH, rollout_steps=TIER_STEPS, calls=TIER_CALLS,
+          clock="cuda events (call), host clock over synchronized rollouts (steps/s)",
+          fp32_sum_allowance=FP32_SUM_ALLOWANCE, tiers=rec, choppy_default=choppy,
+          config5={"resolution": FS_N, "frames": TIER_BIG_FRAMES, "tiers": big})
+    if failures:
+        fail(f"precision tiers: {failures}")
+
+
+def run_window_render(dev) -> None:
+    """Phase 39: phase 17's 1200x700 frame through K1 and the window
+    rasterizer, against the pool frame of the same state (the near-tie
+    envelope, no giant candidate dropped) and the stored JAX frame;
+    render_frames(impl="window") equal to render_frame; the time a frame."""
+    import numpy as np
+    import torch
+
+    import gfx_ocean_tpu_torch as ot
+    from gfx_ocean_tpu_torch.ops import fused_step
+    from gfx_ocean_tpu_torch.render import raster as rr
+    from gfx_ocean_tpu_torch.render.camera import Camera
+
+    cfg = ot.OceanConfig(fft_impl="pallas")
+    state = STATES["render"]
+    cam = Camera()
+    fused_step.launch_packed_step.launches = 0
+    disp = ot.step(state, R_T, dataclasses.replace(cfg, compute_normals=False)).displacement
+    k1 = fused_step.launch_packed_step.launches
+    positions, uvs, tris = rr._mesh_constants(cfg.mesh_resolution, cfg.num_patches, dev)
+    interp = rr._interp_matrices(cfg.mesh_resolution, R_N, dev)
+    grid_shape = (cfg.num_patches, cfg.mesh_resolution)
+    vp = rr._view_proj(cam, R_W, R_H, dev)
+    cp = torch.tensor(cam.position.astype(np.float32), device=dev)
+    args = (disp, positions, uvs, tris, vp, cp, R_W, R_H)
+    win, wz, dropped = rr._rasterize(*args, W_SAMPLES, R_GIANTS, interp, grid_shape,
+                                     with_diag=True)
+    frame_kw = dict(width=R_W, height=R_H, giants=R_GIANTS, return_depth=True)
+    rf, rfz = rr.render_frame(disp, cam, impl="window", samples=W_SAMPLES, **frame_kw)
+    pool, pz = rr.render_frame(disp, cam, impl="pool", **frame_kw)
+    torch.cuda.synchronize()
+    a, za, b, zb = (x.cpu().numpy() for x in (pool, pz, win, wz))
+    d = np.argwhere((a != b).any(-1))
+    one_sided = int(sum(np.isinf(za[y, x]) != np.isinf(zb[y, x]) for y, x in d))
+    both = np.isfinite(za) & np.isfinite(zb)
+    quantum = 2.0 / (1 << (32 - rr._id_bits(tris.shape[0])))
+    depth_max = float(np.abs(za[both] - zb[both]).max())
+    score = rr._window_score(rr._tri_corners(rr._vertex_stage(disp, positions, uvs, vp,
+                                                              interp)[1], tris, grid_shape),
+                             R_W, R_H, W_SAMPLES * W_SAMPLES)
+    rec = dict(samples=W_SAMPLES, giants=R_GIANTS, giant_candidates=int((score > 0).sum()),
+               dropped=int(dropped), k1_launches=k1,
+               coverage=float(np.isfinite(zb).mean()),
+               render_frame_equal=bool(torch.equal(rf, win) and torch.equal(rfz, wz)),
+               pixels_differing_vs_pool=len(d), one_sided_vs_pool=one_sided,
+               depth_max_abs_vs_pool=depth_max, depth_limit=2 * quantum,
+               limit_pixels=W_DIFF_LIMIT, limit_one_sided=W_ONE_SIDED_LIMIT)
+
+    stored = np.load(Path(ot.__file__).resolve().parent / "golden" / "frame_jax_1200x700.npz")
+    want = stored["frame"]
+    got = rr.srgb8(win).cpu().numpy()
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    rec.update(jax_values_off_by_more_than_2=float((diff > 2).mean()),
+               jax_pixels_differing=int((diff.max(-1) > 0).sum()),
+               jax_mean_color_diff=float(np.abs(got.reshape(-1, 3).mean(0)
+                                                - want.reshape(-1, 3).mean(0)).max()),
+               jax_limit_off=JAX_FRAME_PIXELS_OFF, jax_limit_mean_color=JAX_FRAME_MEAN_COLOR)
+
+    disps = ot.make_rollout(dataclasses.replace(cfg, compute_normals=False))(
+        state, [R_T, R_T + 1.0 / 60.0]).displacement
+    frames = rr.render_frames(disps, [cam, cam], R_W, R_H, samples=W_SAMPLES, giants=R_GIANTS,
+                              impl="window")
+    rec["render_frames_equal"] = all(
+        torch.equal(frames[i], rr.render_frame(disps[i], cam, R_W, R_H, samples=W_SAMPLES,
+                                               giants=R_GIANTS, impl="window"))
+        for i in range(2))
+    del frames, disps
+
+    rec["window_frame_ms"] = event_ms(
+        lambda: rr.render_frame(disp, cam, R_W, R_H, samples=W_SAMPLES, giants=R_GIANTS,
+                                impl="window"), W_TIMING_CALLS)
+    rec["pool_frame_ms"] = event_ms(
+        lambda: rr.render_frame(disp, cam, R_W, R_H, giants=R_GIANTS), W_TIMING_CALLS)
+    phase("window_render", width=R_W, height=R_H, t=R_T, clock="cuda events, render_frame "
+          "of the step's displacement", timing_calls=W_TIMING_CALLS, **rec)
+    if not (rec["dropped"] == 0 and rec["render_frame_equal"] and rec["render_frames_equal"]
+            and k1 == 1):
+        fail(f"window frame: {rec}")
+    if not (len(d) <= W_DIFF_LIMIT and one_sided <= W_ONE_SIDED_LIMIT
+            and depth_max <= 2 * quantum):
+        fail(f"window frame against the pool frame: {rec}")
+    if not (rec["jax_values_off_by_more_than_2"] < JAX_FRAME_PIXELS_OFF
+            and rec["jax_mean_color_diff"] < JAX_FRAME_MEAN_COLOR):
+        fail(f"window frame against the stored JAX frame: {rec}")
+
+
+def run_generic_mesh(dev) -> None:
+    """Phase 40: the standard grid passed as a plain (T, 3) triangle list
+    (grid_shape=None) renders bit-equal to the grid path on both
+    rasterizers, through K7 and K8 on the pool path."""
+    import numpy as np
+    import torch
+
+    import gfx_ocean_tpu_torch as ot
+    from gfx_ocean_tpu_torch.render import raster as rr
+    from gfx_ocean_tpu_torch.render.camera import Camera
+
+    cfg = ot.OceanConfig(fft_impl="pallas")
+    disp = ot.step(STATES.pop("render"), R_T,
+                   dataclasses.replace(cfg, compute_normals=False)).displacement
+    cam = Camera()
+    positions, uvs, tris = rr._mesh_constants(cfg.mesh_resolution, cfg.num_patches, dev)
+    interp = rr._interp_matrices(cfg.mesh_resolution, R_N, dev)
+    grid_shape = (cfg.num_patches, cfg.mesh_resolution)
+    args = (disp, positions, uvs, tris, rr._view_proj(cam, G_W, G_H, dev),
+            torch.tensor(cam.position.astype(np.float32), device=dev), G_W, G_H)
+    rec = {}
+    for name, fn, extra in (("pool", rr._rasterize_pool, (rr._auto_pool(G_W, G_H), R_GIANTS)),
+                            ("window", rr._rasterize, (W_SAMPLES, R_GIANTS))):
+        k7 = rr.launch_slot_kernel.launches
+        img, z = fn(*args, *extra, interp, grid_shape)
+        listed, lz = fn(*args, *extra, interp, None)
+        rec[name] = dict(color_equal=bool(torch.equal(img, listed)),
+                         depth_equal=bool(torch.equal(z, lz)),
+                         coverage=float(torch.isfinite(z).float().mean()),
+                         k7_launches=rr.launch_slot_kernel.launches - k7)
+    phase("generic_mesh", width=G_W, height=G_H, triangles=int(tris.shape[0]), **rec)
+    if not all(r["color_equal"] and r["depth_equal"] and r["coverage"] > 0
+               for r in rec.values()) or rec["pool"]["k7_launches"] != 2:
+        fail(f"generic mesh: {rec}")
+
+
+def run_native_loader() -> None:
+    """Phase 41: the native bincode loader (built in phase 2) on files of
+    phase 8's 4096^2 state written by the port's writer: bit-equal to the
+    numpy parser, MB/s of each, write_npy read back, and the loaders' parser
+    must be native."""
+    import numpy as np
+
+    from gfx_ocean_tpu_torch import kernels
+    from gfx_ocean_tpu_torch.assets import bincode
+    from gfx_ocean_tpu_torch.native import bincode_native
+
+    out = Path(__file__).resolve().parent / "build" / "smoke" / "native"
+    out.mkdir(parents=True, exist_ok=True)
+    st = STATES.pop("fourstep")
+    h0 = (st.h0[0] + 1j * st.h0[1]).cpu().numpy().astype(np.complex64)
+    omega = st.omega.cpu().numpy()
+    del st
+    spec, om = str(out / "spectrum.bin"), str(out / "omega.bin")
+    bincode.save_spectrum(spec, h0)
+    bincode.save_omega(om, omega)
+
+    def numpy_parse(path, vec2):
+        with open(path, "rb") as f:
+            buf = f.read()
+        return bincode.parse_bincode_vec2f(buf, path) if vec2 else bincode.parse_bincode_f32(buf, path)
+
+    rec = {}
+    for name, path, vec2 in (("spectrum", spec, True), ("omega", om, False)):
+        size = os.path.getsize(path)
+        timed = {}
+        for parser, fn in (("native", bincode_native.parse_vec2f if vec2 else
+                            bincode_native.parse_f32),
+                           ("numpy", lambda p: numpy_parse(p, vec2))):
+            best = math.inf
+            for _ in range(NATIVE_REPEATS):
+                t0 = time.perf_counter()
+                arr = fn(path)
+                best = min(best, time.perf_counter() - t0)
+            timed[parser] = (arr, best)
+        equal = bool(np.array_equal(timed["native"][0].view(np.uint32),
+                                    timed["numpy"][0].view(np.uint32)))
+        rec[name] = dict(bytes=size, bit_equal=equal,
+                         native_mb_per_s=size / 1e6 / timed["native"][1],
+                         numpy_mb_per_s=size / 1e6 / timed["numpy"][1])
+    npy = str(out / "omega.npy")
+    bincode_native.write_npy(npy, omega)
+    rec["write_npy_roundtrip"] = bool(np.array_equal(np.load(npy), omega))
+    rec["loaded_equal"] = bool(np.array_equal(bincode.load_spectrum(spec, FS_N), h0)
+                               and np.array_equal(bincode.load_omega(om, FS_N), omega))
+    rec["loader_in_use"] = bincode.loader_in_use()
+    phase("native_loader", resolution=FS_N, repeats=NATIVE_REPEATS,
+          build_seconds=STATES["native_build_seconds"], clock="host, best of repeats",
+          library=str(kernels.host_library_path("ocean_native")), **rec)
+    if not (rec["spectrum"]["bit_equal"] and rec["omega"]["bit_equal"]
+            and rec["write_npy_roundtrip"] and rec["loaded_equal"]):
+        fail(f"native loader: {rec}")
+    if rec["loader_in_use"] != "native":
+        fail("the bincode loaders fell back to numpy on this machine")
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
-from .bincode import (load_omega, load_spectrum, parse_bincode_f32,
+from .bincode import (load_omega, load_spectrum, loader_in_use, parse_bincode_f32,
                       parse_bincode_vec2f, reference_data_dir)
 
 __all__ = [
     "load_omega",
     "load_spectrum",
+    "loader_in_use",
     "parse_bincode_f32",
     "parse_bincode_vec2f",
     "reference_data_dir",

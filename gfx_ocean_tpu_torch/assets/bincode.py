@@ -1,18 +1,25 @@
 """Loader and saver for the reference's bincode initial conditions.
 
-Counterpart of ``gfx_ocean_tpu/assets/bincode.py`` without the native C++
-loader: pure numpy. The reference embeds ``data/spectrum.bin``
+Counterpart of ``gfx_ocean_tpu/assets/bincode.py``. The reference embeds ``data/spectrum.bin``
 (``Vec<[f32; 2]>``, h0(k)) and ``data/omega.bin`` (``Vec<f32>``, omega(k))
 and reads them with bincode 1.x (``src/render.rs:769-771``, ``:808-810``):
 a u64 little-endian element count, then the packed little-endian payload.
 Flat index ``x + N * y`` (``shader/propagate.comp:42``), so a row-major
 (N, N) reshape yields ``array[y, x]``.
+
+The loaders parse with the native C++ loader (``native/bincode_native.py``:
+the file memory-mapped, the header checked, the payload copied once)
+wherever its library builds, as the JAX loader prefers its native parser;
+the numpy parser below is the fallback where it cannot be built (with a
+warning) and the golden reference for it. ``loader_in_use()`` names the
+parser the loaders take.
 """
 
 from __future__ import annotations
 
 import os
 import struct
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -65,11 +72,33 @@ def _square_side(n2: int, path: str, resolution: int | None) -> int:
     return n
 
 
+def loader_in_use() -> str:
+    """The parser ``load_spectrum`` / ``load_omega`` take: "native" (the C++
+    loader) or "numpy" (the fallback where it cannot be built)."""
+    from gfx_ocean_tpu_torch.native import bincode_native  # noqa: PLC0415
+
+    return "native" if bincode_native.available() else "numpy"
+
+
+def _parse(path: str, components: int) -> np.ndarray:
+    """The payload of a bincode vector of ``components`` f32s an element,
+    through the native loader where it builds; else numpy, with a warning."""
+    if loader_in_use() == "native":
+        from gfx_ocean_tpu_torch.native import bincode_native  # noqa: PLC0415
+
+        return (bincode_native.parse_vec2f(path) if components == 2
+                else bincode_native.parse_f32(path))
+    warnings.warn("the native bincode loader cannot be built here (no g++ or a failed "
+                  "build); parsing with numpy", RuntimeWarning, stacklevel=3)
+    with open(path, "rb") as f:
+        buf = f.read()
+    return parse_bincode_vec2f(buf, path) if components == 2 else parse_bincode_f32(buf, path)
+
+
 def load_spectrum(path: str | None = None, resolution: int | None = 512) -> np.ndarray:
     """Load h0(k) as a complex64 (N, N) array indexed [y, x]."""
     path = path or os.path.join(reference_data_dir(), "spectrum.bin")
-    with open(path, "rb") as f:
-        flat = parse_bincode_vec2f(f.read(), path)
+    flat = _parse(path, 2)
     n = _square_side(flat.shape[0], path, resolution)
     return (flat[:, 0] + 1j * flat[:, 1]).astype(np.complex64).reshape(n, n)
 
@@ -77,8 +106,7 @@ def load_spectrum(path: str | None = None, resolution: int | None = 512) -> np.n
 def load_omega(path: str | None = None, resolution: int | None = 512) -> np.ndarray:
     """Load omega(k) as a float32 (N, N) array indexed [y, x]."""
     path = path or os.path.join(reference_data_dir(), "omega.bin")
-    with open(path, "rb") as f:
-        flat = parse_bincode_f32(f.read(), path)
+    flat = _parse(path, 1)
     n = _square_side(flat.shape[0], path, resolution)
     return np.asarray(flat, dtype=np.float32).reshape(n, n)
 

@@ -40,10 +40,12 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--precision",
                    choices=("bf16x3", "bf16x4", "highest", "high", "default"),
                    default="bf16x3",
-                   help="matmul precision tier. On the port every tier "
-                        "but 'default' (not ported) runs as plain FP32, "
-                        "which is at least as exact; 'xla' (torch.fft) "
-                        "takes none. `bench` reports the tier that "
+                   help="matmul precision tier: on the matmul route bf16 "
+                        "tensor-core passes summed in FP32 ('highest' "
+                        "multiplies in float64 on the card, FP32 on the "
+                        "CPU); the 'pallas' kernels compute in FP32 "
+                        "whatever the tier and 'xla' (torch.fft) takes "
+                        "none. `bench` and `simulate` report the tier that "
                         "actually ran as 'effective_precision'.")
     p.add_argument("--cascades", type=int, default=1)
     p.add_argument("--pack", dest="pack", action="store_true", default=None,
@@ -256,6 +258,14 @@ def cmd_query(args) -> int:
     return 0
 
 
+def _effective_precision(config) -> str:
+    """The tier the run's transforms actually ran at (``ops/fft.effective_precision``)."""
+    from gfx_ocean_tpu_torch.ops.fft import effective_precision  # noqa: PLC0415
+
+    return effective_precision(config.matmul_precision, config.resolution,
+                               config.direct_dft_max, config.fft_impl)
+
+
 def cmd_simulate(args) -> int:
     if args.steps < 1:
         raise SystemExit("--steps must be >= 1")
@@ -296,7 +306,8 @@ def cmd_simulate(args) -> int:
     else:
         sums = make_rollout(config, keep_fields=False)(state, ts).cpu().numpy()
         print(json.dumps({"frames": len(ts), "t0": float(t0),
-                          "t1": float(ts[-1]), "checksums_head": sums[:5].tolist()}))
+                          "t1": float(ts[-1]), "checksums_head": sums[:5].tolist(),
+                          "effective_precision": _effective_precision(config)}))
     if args.checkpoint:
         written = save_checkpoint(args.checkpoint, state, float(ts[-1]) + args.dt, config)
         print(f"checkpoint -> {written}", file=sys.stderr)
@@ -305,7 +316,6 @@ def cmd_simulate(args) -> int:
 
 def cmd_bench(args) -> int:
     from gfx_ocean_tpu_torch import make_rollout  # noqa: PLC0415
-    from gfx_ocean_tpu_torch.ops.fft import effective_precision  # noqa: PLC0415
     from gfx_ocean_tpu_torch.utils.profiling import (  # noqa: PLC0415
         card_name_and_power_limit, time_rollout, trace)
 
@@ -320,9 +330,7 @@ def cmd_bench(args) -> int:
     del stats["checksums"]  # an ndarray, not JSON
     stats.update(resolution=config.resolution, fft_impl=config.fft_impl,
                  precision=config.matmul_precision,
-                 effective_precision=effective_precision(
-                     config.matmul_precision, config.resolution,
-                     config.direct_dft_max, config.fft_impl),
+                 effective_precision=_effective_precision(config),
                  time_batch=args.time_batch)
     if state.h0.is_cuda:
         stats.update(device=torch.cuda.get_device_name(state.h0.device),

@@ -11,8 +11,10 @@ differently on the port:
 - ``fft_impl``: "pallas" selects the hand-written CUDA kernels of
   ``ops/fused_step.py`` (their plain PyTorch version on CPU tensors),
   "matmul" the PyTorch direct-DFT matmul path, "xla" ``torch.fft``.
-- ``matmul_precision``: every tier the port runs is plain FP32 on CUDA
-  cores or in ``torch.matmul`` with TF32 off (``ops/fft.effective_precision``).
+- ``matmul_precision``: on "matmul" each tier is a scheme of bf16
+  tensor-core passes summed in FP32, or for "highest" float64 products
+  on the card and FP32 on the CPU (``ops/fft.full_matmul``); kernels K1-K6 ("pallas") compute in FP32 whatever the
+  tier, and "xla" takes none (``ops/fft.effective_precision``).
 """
 
 from __future__ import annotations

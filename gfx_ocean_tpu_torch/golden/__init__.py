@@ -1,3 +1,5 @@
-from .reference import golden_fields, golden_normals, golden_propagate, ifft2_unnorm_np
+from .reference import (golden_fields, golden_foam, golden_normals, golden_propagate,
+                        golden_step, ifft2_unnorm_np)
 
-__all__ = ["golden_fields", "golden_normals", "golden_propagate", "ifft2_unnorm_np"]
+__all__ = ["golden_fields", "golden_foam", "golden_normals", "golden_propagate",
+           "golden_step", "ifft2_unnorm_np"]

@@ -13,6 +13,8 @@ for bit. Semantics, arrays indexed [y, x]:
 3. Correction: -1 where (x+y) even (``ref_sign``), real part, packed as
    (disp_x, height, disp_z).
 4. Normals: central differences of the height with height_scale 180.
+5. ``golden_step``: the step's outputs as a dict, with the Jacobian foam
+   mask of ``golden_foam`` (BASELINE config 4) when ``compute_foam``.
 
 ``golden_fields_rows`` computes the same fields on a band of rows, in
 float64 torch on the tensors' device, for grids where a whole numpy golden
@@ -26,7 +28,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from gfx_ocean_tpu_torch.config import CompatFlags
+from gfx_ocean_tpu_torch.config import CompatFlags, OceanConfig
 
 
 def wavenumber_1d(n: int, domain_size: float, wrap: bool) -> np.ndarray:
@@ -185,3 +187,42 @@ def golden_normals(height: np.ndarray, height_scale: float = 180.0) -> np.ndarra
     nb = _norm(np.stack([np.zeros_like(height), (z1 - z0) / height_scale,
                          np.full_like(height, diff_y)], axis=-1))
     return _norm(np.cross(na, nb))
+
+
+def golden_step(h0: np.ndarray, omega: np.ndarray, t: float, config: OceanConfig) -> dict:
+    """Golden equivalent of ``step()``'s outputs: displacement, height, and
+    normals / foam as ``config`` asks."""
+    disp = golden_fields(h0, omega, t, config.domain_size, config.compat)
+    out = {
+        "displacement": disp,
+        "height": disp[..., 1],
+    }
+    if config.compute_normals:
+        out["normals"] = golden_normals(disp[..., 1], config.normal_height_scale)
+    if config.compute_foam:
+        out["foam"] = golden_foam(disp, config)
+    return out
+
+
+def golden_foam(disp: np.ndarray, config: OceanConfig) -> np.ndarray:
+    """Jacobian-determinant whitecap mask (BASELINE config 4):
+    J = (1 + lam ddx/dx)(1 + lam ddz/dz) - (lam ddx/dz)(lam ddz/dx), foam
+    where J < threshold; central differences with wrap, grid spacing
+    domain_size / N."""
+    n = disp.shape[0]
+    dx_spacing = config.domain_size / n
+    lam = config.foam_lambda
+
+    def ddx(f):  # d/dx: texture x = axis 1
+        return (np.roll(f, -1, axis=1) - np.roll(f, 1, axis=1)) / (2 * dx_spacing)
+
+    def ddz(f):  # d/dz: texture y = axis 0
+        return (np.roll(f, -1, axis=0) - np.roll(f, 1, axis=0)) / (2 * dx_spacing)
+
+    fx, fz = disp[..., 0], disp[..., 2]
+    jxx = 1.0 + lam * ddx(fx)
+    jzz = 1.0 + lam * ddz(fz)
+    jxz = lam * ddz(fx)
+    jzx = lam * ddx(fz)
+    jac = jxx * jzz - jxz * jzx
+    return (jac < config.foam_threshold).astype(np.float64)

@@ -9,6 +9,10 @@ library is never loaded. The compiler's output (``-Xptxas -v``:
 registers, shared memory and spills a kernel) is kept beside the library as
 ``lib<name>_<hash>.log``.
 
+The host library ``csrc/ocean_native.cpp`` (the native bincode loader,
+``native/bincode_native.py``) is built the same way with g++ into
+``build/native/lib<name>_<hash>.so``: ``g++ -O2 -shared -fPIC -std=c++17``.
+
 Nothing here runs at import: the CPU tests import every module, and this
 host has no nvcc.
 """
@@ -28,8 +32,10 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+NATIVE_DIR = BUILD_DIR.parent / "native"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -84,26 +90,52 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library exists; return its path."""
-    so = library_path(name)
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+def _compile(cmd: Sequence[str], source: Path, so: Path) -> Path:
+    """Compile ``source`` with ``cmd`` into a temporary file beside ``so``
+    and move it into place (atomic: concurrent builds of one source race
+    harmlessly); the compiler's output goes to ``so``'s ``.log``."""
+    so.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
     os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        proc = subprocess.run([*cmd, "-o", tmp, str(source)], capture_output=True, text=True,
+                              timeout=600)
         so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
+            raise RuntimeError(f"{Path(cmd[0]).name} failed on {source.name} "
+                               f"(exit {proc.returncode}):\n"
                                f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, so)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return so
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library exists; return its path."""
+    so = library_path(name)
+    if so.exists():
+        return so
+    return _compile([nvcc(), *NVCC_FLAGS], CSRC / f"{name}.cu", so)
+
+
+def host_library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cpp`` is built to, keyed by the hash of the source."""
+    digest = hashlib.sha256((CSRC / f"{name}.cpp").read_bytes()).hexdigest()[:12]
+    return NATIVE_DIR / f"lib{name}_{digest}.so"
+
+
+def build_host(name: str) -> Path:
+    """Compile the host library ``csrc/<name>.cpp`` with g++ unless it
+    exists; return its path. Raises when there is no g++ or it fails."""
+    so = host_library_path(name)
+    if so.exists():
+        return so
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(f"g++ not found: {name}.cpp cannot be built")
+    return _compile([cxx, *CXX_FLAGS], CSRC / f"{name}.cpp", so)
 
 
 def build_all(names: Sequence[str]) -> Dict[str, Path]:

@@ -18,8 +18,9 @@ Routes through ``step`` / ``make_rollout``, by ``config.fft_impl``:
 - "xla": ``torch.fft`` (cuFFT on the card) in place of the matmul DFT,
   the same propagate and packing; the eager route and speed baseline.
 
-Not ported yet, and raising ``NotImplementedError``: the "default"
-precision tier.
+The precision tiers (``matmul_precision``, ``choppy_precision`` for the
+two choppy fields) apply on the matmul route (``ops/fft.py``); the
+kernels compute in FP32 whatever the tier.
 ``time_batch`` frames run as one batch axis; the hoisted inputs are
 computed once per rollout call. ``make_uniform_rollout`` is the
 phase-recurrence rollout of the matmul and xla routes.
@@ -133,11 +134,13 @@ def _fields_from_specs(specs_r: torch.Tensor, specs_i: torch.Tensor,
     """Unpacked spectra planes (3, ..., N, N), order (h, dx, dz) -> the
     (..., N, N, 3) displacement map (disp_x, height, disp_z)."""
     common = _transform_args(config)
-    height = ifft2_real_unnorm(specs_r[0], specs_i[0],
-                               precision=config.matmul_precision, **common)
-    choppy = ifft2_real_unnorm(specs_r[1:], specs_i[1:],
-                               precision=config.choppy_precision or config.matmul_precision,
-                               **common)
+    tier = config.matmul_precision
+    choppy_tier = config.choppy_precision or tier
+    if choppy_tier == tier:      # one transform call for the three fields
+        fields = ifft2_real_unnorm(specs_r, specs_i, precision=tier, **common)
+        return torch.stack([fields[1], fields[0], fields[2]], dim=-1)
+    height = ifft2_real_unnorm(specs_r[0], specs_i[0], precision=tier, **common)
+    choppy = ifft2_real_unnorm(specs_r[1:], specs_i[1:], precision=choppy_tier, **common)
     return torch.stack([choppy[0], height, choppy[1]], dim=-1)
 
 

@@ -1,14 +1,14 @@
 """Unnormalized inverse 2-D DFT on (re, im) planes, in PyTorch.
 
-Counterpart of ``gfx_ocean_tpu/ops/fft.py:185-333, 393-526``. The reference
-computes ``y[n] = sum_k x[k] e^{+2 pi i n k / N}`` with no 1/N factor
-(SURVEY.md Q3). Here, as in the JAX package's "matmul" route, a transform
-of N <= ``direct_max`` points is a dense matmul against a DFT table built
-in float64 on the host and rounded once to float32; above ``direct_max``
-it is the four-step split N = N1 N2 (``_foursteps_last``): a small DFT
-matmul, a twiddle, a small DFT matmul. The (-1)^(x+y) correction sign and
-the reference's global Q2 flip are folded into the output side of the
-tables, so the correction pass costs nothing.
+Counterpart of ``gfx_ocean_tpu/ops/fft.py``. The reference computes
+``y[n] = sum_k x[k] e^{+2 pi i n k / N}`` with no 1/N factor (SURVEY.md
+Q3). Here, as in the JAX package's "matmul" route, a transform of
+N <= ``direct_max`` points is a dense matmul against a DFT table built in
+float64 on the host and rounded once to float32; above ``direct_max`` it is
+the four-step split N = N1 N2 (``_foursteps_last``): a small DFT matmul, a
+twiddle, a small DFT matmul. The (-1)^(x+y) correction sign and the
+reference's global Q2 flip are folded into the output side of the tables,
+so the correction pass costs nothing.
 
 ``impl="xla"`` is ``torch.fft`` (cuFFT on a CUDA tensor) scaled to the
 unnormalized DFT, the correction sign applied after it: the eager route of
@@ -16,16 +16,39 @@ unnormalized DFT, the correction sign applied after it: the eager route of
 The complex-typed helpers ``ifft1d_unnorm`` / ``ifft2_unnorm`` and the
 plane-pair ``ifft1d_real_unnorm`` are the JAX package's public helpers.
 
-Not ported yet (ROADMAP.md queue 1, "ops/fft.py"): tensor-core precision
-schemes. Every named tier runs as plain FP32 (``torch.matmul`` with TF32
-off), which is at least as exact as each of them; ``effective_precision``
-says so.
+Precision tiers of the matmul route (``gfx_ocean_tpu/ops/fft.py:54-187``,
+``config.py:88-104``). On the TPU they are passes of bf16 on the MXU; on
+the card each pass is a bf16 x bf16 product on the tensor cores,
+accumulated and returned in FP32 (``torch.mm`` / ``torch.bmm`` with
+``out_dtype=torch.float32``), so every product is exact and only the sums
+round:
+
+- "highest": ``full_matmul``: on the card the FP32 inputs multiplied and
+  summed in float64 (DGEMM on the FP64 tensor cores), float32 out, at
+  least as exact as FP32 (where the card's dense FP32 sums of 512 terms
+  lose ~1.3e-6 of the field's scale) and independent of the process's
+  TF32 setting; the JAX package's HIGHEST is FP32, and this one takes
+  1.3x the FP32 time a frame at 4096^2 on an H100 (ROADMAP.md D4). FP32
+  on the CPU;
+- "bf16x4": the explicit split a = hi + lo (``_bf16_terms``), four passes
+  hi.hi + hi.lo + lo.hi + lo.lo;
+- "bf16x3": the same split without lo.lo;
+- "high": the 3-pass split too (XLA's HIGH is a bf16x3-class scheme);
+- "default": one bf16 pass, hi.hi.
+
+``hi`` is ``a`` rounded to nearest-even bf16 and ``lo = a - hi`` rounded
+to bf16 for its pass, as the MXU rounds it. On CPU tensors the same
+bf16-rounded operands are upcast and multiplied in FP32: the products are
+exact there too, so the CPU computes the card's arithmetic and differs
+only in the order of the sums. Above ``direct_max`` the four-step stages
+remap the explicit split as the JAX package's ``_einsum`` does: "bf16x3"
+runs the "high" scheme and "bf16x4" runs "highest".
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,34 +57,122 @@ from gfx_ocean_tpu_torch.ops.derived import sign_grid
 from gfx_ocean_tpu_torch.utils.device import resolve_device
 
 _TIERS = ("bf16x3", "bf16x4", "default", "high", "highest")
+# The (a term, b term) products of each bf16 tier, summed in this order.
+_PASSES = {
+    "default": (("hi", "hi"),),
+    "high": (("hi", "hi"), ("hi", "lo"), ("lo", "hi")),
+    "bf16x3": (("hi", "hi"), ("hi", "lo"), ("lo", "hi")),
+    "bf16x4": (("hi", "hi"), ("hi", "lo"), ("lo", "hi"), ("lo", "lo")),
+}
+# The four-step stages' tier for a requested tier (JAX ``_einsum``).
+_STAGE_TIER = {"bf16x3": "high", "bf16x4": "highest"}
+
+
+def resolve_precision(name: str) -> str:
+    """The tier's name, validated (the JAX function returns the XLA
+    precision object; the port's tiers are named schemes)."""
+    if name not in _TIERS:
+        raise ValueError(f"unknown matmul precision {name!r}; options: {sorted(_TIERS)}")
+    return name
 
 
 def effective_precision(precision: str, n: Optional[int] = None, direct_max: int = 1024,
                         impl: str = "matmul") -> str:
-    """The tier that actually runs on the port for a requested tier of an
-    n-point transform (the JAX signature; ``n`` and ``direct_max`` do not
-    change the answer here).
+    """The tier that actually runs for a requested tier of an n-point
+    transform (the JAX signature), suffixed with the mechanism where it
+    differs from the request:
 
-    On "matmul" and "pallas" the four f32-grade tiers all run as plain
-    FP32. On "xla" (cuFFT) the tiers do not apply. "default" (single-pass
-    bf16 on the TPU) has no port yet and raises on every route, as an
-    unknown tier does.
+    - "matmul": the tier as requested up to ``direct_max``; above it the
+      four-step stages run "bf16x3" as "high" and "bf16x4" as "highest"
+      (``n`` None is read as a direct-size transform);
+    - "pallas": kernels K1-K6 compute in FP32 whatever the tier, "default"
+      included (contract difference D3 in ROADMAP.md: the JAX kernels run
+      bf16 passes in-kernel);
+    - "xla": torch.fft; the tiers do not apply.
     """
-    if precision not in _TIERS:
-        raise ValueError(f"unknown matmul precision {precision!r}; options: {list(_TIERS)}")
-    if precision == "default":
-        raise NotImplementedError(
-            'matmul_precision="default" is not ported yet (ROADMAP.md queue 1, '
-            '"ops/fft.py": tensor-core precision tiers)')
+    resolve_precision(precision)
     if impl == "xla":
         return "n/a (torch.fft, cuFFT on the card; precision tiers do not apply)"
-    return "fp32"
+    if impl == "pallas":
+        return "fp32 (kernels K1-K6 compute in FP32 whatever the tier; ROADMAP.md D3)"
+    if n is not None and n > direct_max and precision in _STAGE_TIER:
+        return ("high (3-pass bf16 split; explicit split remapped above direct_max)"
+                if precision == "bf16x3" else
+                "highest (full_matmul, float64 on the card; explicit split remapped above "
+                "direct_max)")
+    return precision
 
 
-def pin_fp32_matmul(x: torch.Tensor) -> None:
-    """Keep float32 matmuls in full FP32 on the card (no TF32)."""
-    if x.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
+def full_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b (matmul broadcasting) of float32 values in full FP32 or
+    better, float32 out, without reading or writing a process-wide setting:
+    on the card the products and sums run in float64 (a DGEMM on the FP64
+    tensor cores), which TF32 and the float32 matmul precision do not
+    touch; on the CPU, which has no TF32, in FP32 as the JAX package's CPU
+    computes them (under torch's default float32 matmul precision). The
+    port's one full-precision product: the "highest" tier, the kernels'
+    plain versions and the renderer's sampling and projection products."""
+    if a.is_cuda:
+        return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.float32)
+    return a @ b
+
+
+def _bf16_terms(a: torch.Tensor, tier: str) -> dict:
+    """The bf16 operands a tier's passes take: hi, ``a`` rounded to
+    nearest-even bf16, and where a pass uses it lo, the exact float32
+    residual ``a - hi`` rounded to bf16 for its pass (hi and the residual
+    bit for bit the JAX package's ``_split_bf16``)."""
+    hi = a.to(torch.bfloat16)
+    if tier == "default":
+        return {"hi": hi}
+    return {"hi": hi, "lo": (a - hi).to(torch.bfloat16)}  # the difference in float32
+
+
+class Prepared(NamedTuple):
+    """An operand already in a tier's form (``prepare``): the float32
+    tensor for "highest", else the dict of its bf16 terms. The DFT tables
+    are kept so, once per table, device and tier."""
+
+    value: object
+
+
+def prepare(a: torch.Tensor, tier: str) -> Prepared:
+    """``a`` (float32) in the form ``matmul_tier`` multiplies at ``tier``."""
+    return Prepared(a if tier == "highest" else _bf16_terms(a, tier))
+
+
+def _bf16_product(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x @ y of bf16 operands (matmul broadcasting), products exact and
+    sums in FP32, float32 out: on the card a tensor-core product with
+    ``out_dtype=torch.float32``; on the CPU the operands upcast to FP32."""
+    if not x.is_cuda:
+        return x.to(torch.float32) @ y.to(torch.float32)
+    f32 = torch.float32
+    if y.ndim == 2:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), y, out_dtype=f32)
+        return out.reshape(*x.shape[:-1], y.shape[-1])
+    batch = torch.broadcast_shapes(x.shape[:-2], y.shape[:-2])
+    xb = x.expand(*batch, *x.shape[-2:]).reshape(-1, *x.shape[-2:])
+    yb = y.expand(*batch, *y.shape[-2:]).reshape(-1, *y.shape[-2:])
+    out = torch.bmm(xb, yb, out_dtype=f32)
+    return out.reshape(*batch, *out.shape[-2:])
+
+
+def matmul_tier(a, b, tier: str) -> torch.Tensor:
+    """a @ b (float32 tensors or ``Prepared`` operands, matmul
+    broadcasting) at a precision tier, float32 out: for "highest"
+    ``full_matmul`` (float64 on the card), else the tier's bf16 passes
+    summed in FP32 in the JAX package's order (hi.hi, hi.lo, lo.hi, lo.lo).
+    No process-wide matmul setting is read or written."""
+    pa = a.value if isinstance(a, Prepared) else prepare(a, tier).value
+    pb = b.value if isinstance(b, Prepared) else prepare(b, tier).value
+    if tier == "highest":
+        return full_matmul(pa, pb)
+    out = None
+    for p, q in _PASSES[tier]:
+        term = _bf16_product(pa[p], pb[q])
+        out = term if out is None else out + term
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -131,19 +242,65 @@ def _split(n: int) -> Tuple[int, int]:
     return 1 << l1, 1 << (log - l1)
 
 
-def _table(pair: Tuple[np.ndarray, np.ndarray],
-           device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    return tuple(torch.from_numpy(a).to(device) for a in pair)
+_TABLES = {"dft": _dft_matrix_np, "alt": _dft_matrix_out_alt_np, "twiddle": _twiddle_np}
+
+
+@functools.lru_cache(maxsize=64)
+def _table(key: tuple, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (real, imag) float32 table ``key`` = (kind, *args) of ``_TABLES``
+    on ``device``, uploaded once. Read only: every caller shares it."""
+    kind, *args = key
+    return tuple(torch.from_numpy(a).to(device) for a in _TABLES[kind](*args))
+
+
+@functools.lru_cache(maxsize=64)
+def _tier_table(key: tuple, device: torch.device, tier: str) -> Tuple[Prepared, Prepared]:
+    """``_table(key, device)`` prepared for ``tier``, once per table."""
+    return tuple(prepare(a, tier) for a in _table(key, device))
+
+
+def _complex_mm(xr: torch.Tensor, xi: torch.Tensor, key: tuple, tier: str, left: bool,
+                real_out: bool):
+    """X @ W (``left`` False, over the last axis) or W @ X (over axis -2)
+    for complex X = xr + i xi and the table W of ``key``, as the JAX
+    package's four real products (two for ``real_out``): each keeps its
+    sums at N terms, which the card's tensor cores accumulate less exactly
+    than IEEE FP32 (one [Xr | Xi] product a pass, over 2N terms, moves the
+    512^2 step further from golden: ``tools/torch_precision_probe.py``).
+    Each operand is prepared once. Returns (yr, yi), yi None for
+    ``real_out``."""
+    wr, wi = _tier_table(key, xr.device, tier)
+    xr, xi = prepare(xr, tier), prepare(xi, tier)
+
+    def mm(x, w):
+        return matmul_tier(w, x, tier) if left else matmul_tier(x, w, tier)
+
+    yr = mm(xr, wr) - mm(xi, wi)
+    return yr, None if real_out else mm(xr, wi) + mm(xi, wr)
+
+
+def _dft_key(n: int, fold: bool, axis: int, negate: bool = False) -> tuple:
+    """The table of an n-point inverse DFT, with (-1)^(output index) and
+    the Q2 flip folded in when ``fold``."""
+    return ("alt", n, 1, axis, negate) if fold else ("dft", n, 1)
 
 
 # --------------------------------------------------------------------------
 # Plane-pair transforms.
 # --------------------------------------------------------------------------
 
+def dft_matrices(n: int, sign: int = 1,
+                 device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(real, imag) float32 planes of W[j, k] = exp(sign 2 pi i j k / n),
+    built in float64 and rounded once, on ``device`` (the card when None)."""
+    device = resolve_device(device)
+    return tuple(torch.tensor(a, device=device) for a in _dft_matrix_np(n, sign))
+
+
 def _check_impl(impl: str, precision: str) -> None:
     if impl not in ("matmul", "xla"):
         raise ValueError(f"unknown impl {impl!r}")
-    effective_precision(precision, impl=impl)
+    resolve_precision(precision)
 
 
 def _fold(centered: Optional[str]) -> Tuple[bool, bool]:
@@ -152,85 +309,76 @@ def _fold(centered: Optional[str]) -> Tuple[bool, bool]:
     return centered is not None, centered == "ref"
 
 
-def _direct_last(xr: torch.Tensor, xi: torch.Tensor, real_out: bool,
+def _direct_last(xr: torch.Tensor, xi: torch.Tensor, tier: str, real_out: bool,
                  out_alt: bool = False, negate: bool = False):
-    """Dense DFT along the last axis, Y = X @ W; ``out_alt`` folds
-    (-1)^(output index) into W, ``negate`` flips the global sign."""
-    n = xr.shape[-1]
-    pair = (_dft_matrix_out_alt_np(n, 1, 1, negate) if out_alt
-            else _dft_matrix_np(n, 1))
-    wr, wi = _table(pair, xr.device)
-    yr = xr @ wr - xi @ wi
-    return yr, None if real_out else xr @ wi + xi @ wr
+    """Dense DFT along the last axis, Y = X @ W at ``tier``; ``out_alt``
+    folds (-1)^(output index) into W, ``negate`` flips the global sign."""
+    key = _dft_key(xr.shape[-1], out_alt, 1, negate)
+    return _complex_mm(xr, xi, key, tier, left=False, real_out=real_out)
 
 
-def _foursteps_last(xr: torch.Tensor, xi: torch.Tensor, real_out: bool,
+def _foursteps_last(xr: torch.Tensor, xi: torch.Tensor, tier: str, real_out: bool,
                     out_alt: bool = False, negate: bool = False):
-    """Four-step split along the last axis: O(N (N1 + N2)) as batched matmuls.
+    """Four-step split along the last axis: O(N (N1 + N2)) as batched matmuls,
+    both stages at ``tier`` remapped as the JAX ``_einsum`` remaps it.
 
     With k = N2 k1 + k2 and n = n1 + N1 n2:
       y[n1 + N1 n2] = sum_k2 W_N[n1 k2] (sum_k1 X[k1, k2] W_N1[n1 k1]) W_N2[n2 k2].
     ``out_alt`` folds (-1)^n = (-1)^n1 (N1 even) into the rows of W1."""
+    tier = _STAGE_TIER.get(tier, tier)
     n = xr.shape[-1]
     n1, n2 = _split(n)
     batch = xr.shape[:-1]
     xr = xr.reshape(*batch, n1, n2)  # X[k1, k2]
     xi = xi.reshape(*batch, n1, n2)
-    dev = xr.device
-    w1r, w1i = _table(_dft_matrix_out_alt_np(n1, 1, 0, negate) if out_alt
-                      else _dft_matrix_np(n1, 1), dev)
-    w2r, w2i = _table(_dft_matrix_np(n2, 1), dev)
-    tr, ti = _table(_twiddle_np(n1, n2, 1), dev)
-    ar = w1r @ xr - w1i @ xi
-    ai = w1r @ xi + w1i @ xr
+    tr, ti = _table(("twiddle", n1, n2, 1), xr.device)
+    ar, ai = _complex_mm(xr, xi, _dft_key(n1, out_alt, 0, negate), tier, left=True,
+                         real_out=False)
     br = ar * tr - ai * ti
     bi = ar * ti + ai * tr
-    # Y = B @ W2^T over k2, then y_flat[n1 + N1 n2] = Y[n1, n2].
-    yr = (br @ w2r.T - bi @ w2i.T).transpose(-1, -2).reshape(*batch, n)
-    if real_out:
-        return yr, None
-    yi = (br @ w2i.T + bi @ w2r.T).transpose(-1, -2).reshape(*batch, n)
-    return yr, yi
+    # Y = B @ W2^T over k2 (W2 is symmetric), then y_flat[n1 + N1 n2] = Y[n1, n2].
+    yr, yi = _complex_mm(br, bi, ("dft", n2, 1), tier, left=False, real_out=real_out)
+    yr = yr.transpose(-1, -2).reshape(*batch, n)
+    return yr, None if real_out else yi.transpose(-1, -2).reshape(*batch, n)
 
 
 def _ifft_last(xr: torch.Tensor, xi: torch.Tensor, direct_max: int, real_out: bool,
-               out_alt: bool = False):
+               out_alt: bool = False, tier: str = "highest"):
     """DFT along the last axis: dense up to ``direct_max`` points, else the
     four-step split."""
     last = _direct_last if xr.shape[-1] <= direct_max else _foursteps_last
-    return last(xr, xi, real_out, out_alt=out_alt)
+    return last(xr, xi, tier, real_out, out_alt=out_alt)
 
 
-def row_pass_complex(xr: torch.Tensor, xi: torch.Tensor, direct_max: int, fold: bool):
+def row_pass_complex(xr: torch.Tensor, xi: torch.Tensor, direct_max: int, fold: bool,
+                     precision: str = "highest"):
     """Complex DFT along the last axis, the x-half of the centering sign
     optionally folded into the output table."""
-    return _ifft_last(xr, xi, direct_max, real_out=False, out_alt=fold)
+    return _ifft_last(xr, xi, direct_max, real_out=False, out_alt=fold, tier=precision)
 
 
 def _col_pass(ar: torch.Tensor, ai: torch.Tensor, direct_max: int, fold: bool,
-              negate: bool, real_out: bool):
+              negate: bool, real_out: bool, tier: str):
     m = ar.shape[-2]
     if m <= direct_max:
-        pair = _dft_matrix_out_alt_np(m, 1, 0, negate) if fold else _dft_matrix_np(m, 1)
-        wr, wi = _table(pair, ar.device)
-        yr = wr @ ar - wi @ ai
-        return yr, None if real_out else wr @ ai + wi @ ar
-    yr, yi = _foursteps_last(ar.transpose(-1, -2), ai.transpose(-1, -2), real_out,
+        return _complex_mm(ar, ai, _dft_key(m, fold, 0, negate), tier, left=True,
+                           real_out=real_out)
+    yr, yi = _foursteps_last(ar.transpose(-1, -2), ai.transpose(-1, -2), tier, real_out,
                              out_alt=fold, negate=negate)
     return yr.transpose(-1, -2), None if real_out else yi.transpose(-1, -2)
 
 
 def col_pass_real(ar: torch.Tensor, ai: torch.Tensor, direct_max: int, fold: bool,
-                  negate: bool) -> torch.Tensor:
+                  negate: bool, precision: str = "highest") -> torch.Tensor:
     """Real-output DFT along axis -2; folds the y-half of the centering sign
     and the reference's global Q2 flip (``negate``)."""
-    return _col_pass(ar, ai, direct_max, fold, negate, real_out=True)[0]
+    return _col_pass(ar, ai, direct_max, fold, negate, True, precision)[0]
 
 
 def col_pass_complex(ar: torch.Tensor, ai: torch.Tensor, direct_max: int, fold: bool,
-                     negate: bool):
+                     negate: bool, precision: str = "highest"):
     """Complex-output DFT along axis -2, the twin of :func:`col_pass_real`."""
-    return _col_pass(ar, ai, direct_max, fold, negate, real_out=False)
+    return _col_pass(ar, ai, direct_max, fold, negate, False, precision)
 
 
 def _xla_ifft2(xr: torch.Tensor, xi: torch.Tensor, fold: bool, negate: bool) -> torch.Tensor:
@@ -261,9 +409,8 @@ def ifft2_real_unnorm(
     _check_impl(impl, precision)
     if impl == "xla":
         return _xla_ifft2(xr, xi, fold, negate).real
-    pin_fp32_matmul(xr)
-    ar, ai = row_pass_complex(xr, xi, direct_max, fold)
-    return col_pass_real(ar, ai, direct_max, fold, negate)
+    ar, ai = row_pass_complex(xr, xi, direct_max, fold, precision)
+    return col_pass_real(ar, ai, direct_max, fold, negate, precision)
 
 
 def ifft2_planes_unnorm(
@@ -281,9 +428,8 @@ def ifft2_planes_unnorm(
     if impl == "xla":
         y = _xla_ifft2(xr, xi, fold, negate)
         return y.real, y.imag
-    pin_fp32_matmul(xr)
-    ar, ai = row_pass_complex(xr, xi, direct_max, fold)
-    return col_pass_complex(ar, ai, direct_max, fold, negate)
+    ar, ai = row_pass_complex(xr, xi, direct_max, fold, precision)
+    return col_pass_complex(ar, ai, direct_max, fold, negate, precision)
 
 
 # --------------------------------------------------------------------------
@@ -294,9 +440,9 @@ def ifft1d_real_unnorm(xr: torch.Tensor, xi: torch.Tensor, axis: int = -1,
                        direct_max: int = 1024, precision: str = "highest") -> torch.Tensor:
     """Re(unnormalized inverse DFT) along ``axis``, plane-pair inputs."""
     _check_impl("matmul", precision)
-    pin_fp32_matmul(xr)
     xr, xi = torch.movedim(xr, axis, -1), torch.movedim(xi, axis, -1)
-    return torch.movedim(_ifft_last(xr, xi, direct_max, real_out=True)[0], -1, axis)
+    y = _ifft_last(xr, xi, direct_max, real_out=True, tier=precision)[0]
+    return torch.movedim(y, -1, axis)
 
 
 def _as_complex(x) -> torch.Tensor:
@@ -316,9 +462,8 @@ def ifft1d_unnorm(x, axis: int = -1, impl: str = "matmul", direct_max: int = 102
     _check_impl(impl, precision)
     if impl == "xla":
         return torch.fft.ifft(x, dim=axis) * x.shape[axis]
-    pin_fp32_matmul(x)
     x = torch.movedim(x, axis, -1)
-    yr, yi = _ifft_last(x.real, x.imag, direct_max, real_out=False)
+    yr, yi = _ifft_last(x.real, x.imag, direct_max, real_out=False, tier=precision)
     return torch.movedim(torch.complex(yr, yi), -1, axis)
 
 

@@ -64,8 +64,8 @@ import torch
 from gfx_ocean_tpu_torch.config import OceanConfig
 from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, normals_scale
 from gfx_ocean_tpu_torch.ops.fft import (_dft_matrix_np, _dft_matrix_out_alt_np,
-                                         _twiddle_np, effective_precision,
-                                         pin_fp32_matmul, twiddle_table)
+                                         _twiddle_np, effective_precision, full_matmul,
+                                         twiddle_table)
 from gfx_ocean_tpu_torch.ops.propagate import (_f32, as_times, gather_packed_planes,
                                                packed_spectra)
 
@@ -107,7 +107,7 @@ def check_supported(config: OceanConfig, n: int) -> str:
     """Raise for grids the four-step route does not cover (the plan's
     ``ValueError`` outside [1024, 16384]); return the tier."""
     fourstep_plan(n, config)
-    return effective_precision(config.matmul_precision)
+    return effective_precision(config.matmul_precision, n, impl="pallas")
 
 
 def _cat_complex_np(wr, wi):
@@ -195,7 +195,6 @@ def fourstep_row_reference(inputs: FourstepInputs, ts, config: OceanConfig,
     (w1, w2, ttr, tti), _ = _device_tables(n, config.compat.ref_sign, om.device)
     ts = as_times(ts, om.device)
     tb = ts.shape[0]
-    pin_fp32_matmul(om)
     pre, pre_rho, om_band, omq = gather_packed_planes(inputs.h0, om, config.compat.conj_neg,
                                                       rows, row_base)
     h_r, h_i, z_r, z_i = packed_spectra(pre, pre_rho, om_band, omq, ts, config.domain_size,
@@ -205,17 +204,17 @@ def fourstep_row_reference(inputs: FourstepInputs, ts, config: OceanConfig,
         # (tb, rows, N) -> (tb, rows, k2, [k1 of re | k1 of im])
         x = torch.cat([xr.reshape(tb, rows, n1, n2).transpose(-1, -2),
                        xi.reshape(tb, rows, n1, n2).transpose(-1, -2)], dim=-1)
-        a = x @ w1.T                                   # (tb, rows, k2, [n1 | n1])
+        a = full_matmul(x, w1.T)                       # (tb, rows, k2, [n1 | n1])
         ar, ai = a[..., :n1], a[..., n1:]
         return ar * ttr - ai * tti, ar * tti + ai * ttr  # (tb, rows, k2, n1)
 
     bh = stage12(h_r, h_i)
     bz = stage12(z_r, z_i)
     if w2.shape[0] == 4 * n2:
-        parts = (w2 @ torch.cat([*bh, *bz], dim=-2)).split(n2, dim=-2)
+        parts = full_matmul(w2, torch.cat([*bh, *bz], dim=-2)).split(n2, dim=-2)
     else:
-        parts = ((w2 @ torch.cat(bh, dim=-2)).split(n2, dim=-2)
-                 + (w2 @ torch.cat(bz, dim=-2)).split(n2, dim=-2))
+        parts = (full_matmul(w2, torch.cat(bh, dim=-2)).split(n2, dim=-2)
+                 + full_matmul(w2, torch.cat(bz, dim=-2)).split(n2, dim=-2))
     # each (tb, rows, n2, n1) -> (tb, rows, N): x = n2 * 128 + n1
     return torch.stack([p.reshape(tb, rows, n) for p in parts], dim=1).reshape(
         tb, 2, 2, rows, n)
@@ -232,10 +231,10 @@ def fourstep_col_reference(y: torch.Tensor, config: OceanConfig) -> torch.Tensor
     tb, _, _, n, c = y.shape
     n1, n2, _, _ = fourstep_plan(n, config)
     _, (w1, w2, w2top, ttr, tti) = _device_tables(n, config.compat.ref_sign, y.device)
-    pin_fp32_matmul(y)
 
     def stages(yr, yi):
-        a = w1 @ torch.cat([yr.reshape(tb, n1, n2 * c), yi.reshape(tb, n1, n2 * c)], dim=1)
+        a = full_matmul(w1, torch.cat([yr.reshape(tb, n1, n2 * c),
+                                       yi.reshape(tb, n1, n2 * c)], dim=1))
         ar = a[:, :n1].reshape(tb, n1, n2, c)
         ai = a[:, n1:].reshape(tb, n1, n2, c)
         br = ar * ttr[..., None] - ai * tti[..., None]
@@ -246,10 +245,10 @@ def fourstep_col_reference(y: torch.Tensor, config: OceanConfig) -> torch.Tensor
     bh = stages(y[:, 0, 0], y[:, 0, 1])
     bz = stages(y[:, 1, 0], y[:, 1, 1])
     if w2.shape[0] == 3 * n2:
-        h_out, x_out, z_out = (w2 @ torch.cat([*bh, *bz], dim=1)).split(n2, dim=1)
+        h_out, x_out, z_out = full_matmul(w2, torch.cat([*bh, *bz], dim=1)).split(n2, dim=1)
     else:
-        h_out = w2top @ torch.cat(bh, dim=1)
-        x_out, z_out = (w2 @ torch.cat(bz, dim=1)).split(n2, dim=1)
+        h_out = full_matmul(w2top, torch.cat(bh, dim=1))
+        x_out, z_out = full_matmul(w2, torch.cat(bz, dim=1)).split(n2, dim=1)
     # each (tb, n2, n1 * C) -> (tb, N, C): y = n2 * 128 + n1
     return torch.stack([x_out, h_out, z_out], dim=1).reshape(tb, 3, n, c)
 

@@ -69,7 +69,7 @@ import torch
 from gfx_ocean_tpu_torch.config import OceanConfig
 from gfx_ocean_tpu_torch.ops import fourstep_step, unpacked_step
 from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, normals_scale
-from gfx_ocean_tpu_torch.ops.fft import effective_precision, pin_fp32_matmul, twiddle_table
+from gfx_ocean_tpu_torch.ops.fft import effective_precision, full_matmul, twiddle_table
 from gfx_ocean_tpu_torch.ops.fourstep_step import FourstepInputs
 from gfx_ocean_tpu_torch.ops.propagate import (_f32, as_times, gather_packed_planes,
                                                packed_spectra)
@@ -97,7 +97,7 @@ def check_supported(config: OceanConfig, n: int) -> str:
         return fourstep_step.check_supported(config, n)
     if not config.hermitian_pack:
         return unpacked_step.check_supported(config, n)
-    return effective_precision(config.matmul_precision)
+    return effective_precision(config.matmul_precision, n, impl="pallas")
 
 
 class CascadeInputs(NamedTuple):
@@ -143,20 +143,20 @@ def packed_planes_reference(inputs: PackedInputs, ts,
     """Plain PyTorch K1: ts (tb,) -> (tb, 3, N, N) (disp_x, height, disp_z),
     or (tb, C, 3, N, N) for a cascade state (broadcast over C)."""
     om = inputs.omega
-    pin_fp32_matmul(om)
     pre, pre_rho, _, omq = gather_packed_planes(inputs.h0, om, config.compat.conj_neg)
     h_r, h_i, z_r, z_i = packed_spectra(
         pre, pre_rho, om, omq, as_times(ts, om.device), config.domain_size,
         config.compat.wrap_k, -0.5 if config.compat.ref_sign else 0.5)
     ar, ai = dft_table(om.shape[-1], om.device)
     art, ait = ar.T, ai.T
-    yh_r = h_r @ art - h_i @ ait
-    yh_i = h_r @ ait + h_i @ art
-    yz_r = z_r @ art - z_i @ ait
-    yz_i = z_r @ ait + z_i @ art
-    height = ar @ yh_r - ai @ yh_i
-    disp_x = ar @ yz_r - ai @ yz_i
-    disp_z = ar @ yz_i + ai @ yz_r
+    mm = full_matmul
+    yh_r = mm(h_r, art) - mm(h_i, ait)
+    yh_i = mm(h_r, ait) + mm(h_i, art)
+    yz_r = mm(z_r, art) - mm(z_i, ait)
+    yz_i = mm(z_r, ait) + mm(z_i, art)
+    height = mm(ar, yh_r) - mm(ai, yh_i)
+    disp_x = mm(ar, yz_r) - mm(ai, yz_i)
+    disp_z = mm(ar, yz_i) + mm(ai, yz_r)
     return torch.stack([disp_x, height, disp_z], dim=-3)
 
 

@@ -62,7 +62,7 @@ import torch
 from gfx_ocean_tpu_torch.config import OceanConfig
 from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, normals_scale
 from gfx_ocean_tpu_torch.ops.fft import (_dft_matrix_out_alt_np, effective_precision,
-                                         pin_fp32_matmul, twiddle_table)
+                                         full_matmul, twiddle_table)
 from gfx_ocean_tpu_torch.ops.fourstep_step import CHECKSUM_ROWS, _check_tensor
 from gfx_ocean_tpu_torch.ops.propagate import _f32, _phase_mod_2pi, as_times
 
@@ -86,10 +86,10 @@ def unpacked_route(config: OceanConfig, n: int) -> str:
 
 def check_supported(config: OceanConfig, n: int) -> str:
     """Raise for grids the unpacked step does not cover; return the tier.
-    Every f32-grade tier runs as FP32; "default" raises, as on K1."""
+    Every tier runs as FP32, as on K1."""
     if n > MAX_N:
         raise ValueError(f"the unpacked step takes N <= {MAX_N}, got {n}")
-    return effective_precision(config.matmul_precision)
+    return effective_precision(config.matmul_precision, n, impl="pallas")
 
 
 def hoist_unpacked(h0_pair: torch.Tensor, omega: torch.Tensor,
@@ -150,18 +150,17 @@ def _spectra(inputs: UnpackedInputs, ts, config: OceanConfig):
 
 def unpacked_rows_reference(inputs: UnpackedInputs, ts, config: OceanConfig) -> torch.Tensor:
     """Plain PyTorch K5: ts (tb,) -> Y (tb, 3, 2, N, N), Y = X A^T."""
-    pin_fp32_matmul(inputs.omega)
     xr, xi = _spectra(inputs, ts, config)
     a_re, a_im = dft_table(inputs.omega.shape[-1], inputs.omega.device)
     art, ait = a_re.T, a_im.T
-    return torch.stack([xr @ art - xi @ ait, xr @ ait + xi @ art], dim=2)
+    mm = full_matmul
+    return torch.stack([mm(xr, art) - mm(xi, ait), mm(xr, ait) + mm(xi, art)], dim=2)
 
 
 def unpacked_cols_reference(y: torch.Tensor, inputs: UnpackedInputs) -> torch.Tensor:
     """Plain PyTorch K6: Y (tb, 3, 2, N, N) -> (tb, 3, N, N) = Re(A Y)."""
-    pin_fp32_matmul(y)
     a_re, a_im = dft_table(inputs.omega.shape[-1], inputs.omega.device)
-    return a_re @ y[:, :, 0] - a_im @ y[:, :, 1]
+    return full_matmul(a_re, y[:, :, 0]) - full_matmul(a_im, y[:, :, 1])
 
 
 def unpacked_planes_reference(inputs: UnpackedInputs, ts,

@@ -1,11 +1,28 @@
-"""The pool rasterizer in PyTorch, with kernels K7 and K8 on the card.
+"""The rasterizers in PyTorch, with kernels K7 and K8 on the card.
 
-Counterpart of ``gfx_ocean_tpu/render/raster.py`` (``impl="pool"``):
-vertex displacement and projection with the reference's clip-space y
-negation, exact-area slot allocation in 4x2-pixel oct tiles, a sort-based
-visibility resolve of packed (quantized z << id_bits | triangle id) keys,
-the giant pass for eye-plane-crossing and pool-overflow triangles, and
-deferred shading from the winning triangle id. Clear color (0.6, 0.6, 0.6).
+Counterpart of ``gfx_ocean_tpu/render/raster.py``. The pool rasterizer
+(``impl="pool"``, the fast path): vertex displacement and projection with
+the reference's clip-space y negation, exact-area slot allocation in
+4x2-pixel oct tiles, a sort-based visibility resolve of packed (quantized
+z << id_bits | triangle id) keys, the giant pass for eye-plane-crossing and
+pool-overflow triangles, and deferred shading from the winning triangle id.
+Clear color (0.6, 0.6, 0.6).
+
+The window rasterizer (``impl="window"``, ``_rasterize``; the JAX
+package's golden reference for the pool path): every fully-in-front
+triangle gets ``samples``^2 samples that walk row-major through its tight
+pixel-centre bbox, in chunks of ``_TRI_CHUNK`` triangles; the same edge
+tests and ``_pack_key`` decide coverage, and one ``scatter_reduce_``
+("amin", int64 keys: order-independent, so deterministic) into an image
+with an out-of-screen spill cell resolves visibility. Triangles whose bbox
+exceeds the budget, and eye-plane-crossing ones, go to the same giant pass
+and deferred shading as the pool path. The scatter is XLA code in the JAX
+package, not a Pallas kernel, so its counterpart is a PyTorch op.
+
+Meshes: the standard grid (``grid_shape = (patches, h)``: triangle corners
+as shifted slices, uv decoded from the id) or any (T, 3) triangle list
+(``grid_shape=None``: corners gathered, uv corners carried in the deferred
+table), on both rasterizers.
 
 Two stages are kernels written by hand for Hopper (``csrc/raster.cu``):
 
@@ -48,9 +65,8 @@ uv * tiles[c] with repeat wrap, tiles[c] = domains[0] / domains[c]
 foam the union of the per-cascade masks (``render/shade.py``). K7 and K8 see
 only the composited frame's tables.
 
-Not ported (``NotImplementedError``): ``impl="window"`` and meshes other
-than the standard grid (ROADMAP.md queue 1, item 7); band-parallel rendering
-across devices (item 11).
+Not ported: band-parallel rendering across devices (ROADMAP.md queue 1,
+item 11).
 """
 
 from __future__ import annotations
@@ -63,7 +79,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from gfx_ocean_tpu_torch.ops.fft import pin_fp32_matmul
+from gfx_ocean_tpu_torch.ops.fft import full_matmul
 from gfx_ocean_tpu_torch.render import shade as sh
 from gfx_ocean_tpu_torch.render.camera import Camera, perspective
 from gfx_ocean_tpu_torch.render.mesh import build_grid, instantiate
@@ -74,7 +90,7 @@ _OCT_W = 4               # oct tile width in pixels
 _OCT_H = 2               # oct tile height in pixels
 _MIN_Z_BITS = 12
 _SLOT_ROWS = 19          # 15 edge-table rows (f32 bits) + start, xy, bw|id, xy1
-_NOT_PORTED = "(ROADMAP.md queue 1, item 7: {})"
+_TRI_CHUNK = 4096        # window-rasterizer triangles a scatter chunk
 
 
 def _u32_bits(x: torch.Tensor) -> torch.Tensor:
@@ -92,16 +108,16 @@ def _vertex_stage(displacement, positions, uvs, view_proj, interp=None,
     """``shader/ocean.vert``: displace, offset, project, negate clip y.
 
     With ``interp`` = (Wy, Wx) (``_interp_matrices``) the displacement is
-    sampled at the static mesh UVs by two FP32 products (x first, then y);
-    without it, by the bilinear gather. TF32 stays off on the card: clip
-    coordinates quantized to TF32 break the homogeneous edge tests into
-    pixel speckle.
+    sampled at the static mesh UVs by two products (x first, then y);
+    without it, by the bilinear gather. These products and the projection
+    are ``ops/fft.full_matmul`` (float64 products on the card), whatever
+    the process's TF32 setting: clip coordinates quantized to TF32 break
+    the homogeneous edge tests into pixel speckle.
 
     A (C, N, N, 3) cascade stack displaces by the sum of its cascades,
     cascade c sampled at uv * tiles[c] (``interp`` then holds one pair a
     cascade; without it ``tiles`` defaults to 1 for each).
     """
-    pin_fp32_matmul(displacement)
     cascades = displacement.ndim == 4
     if interp is not None:
         pairs = interp if cascades else (interp,)
@@ -109,8 +125,8 @@ def _vertex_stage(displacement, positions, uvs, view_proj, interp=None,
         grid = None
         for c, (w_y, w_x) in enumerate(pairs):
             h = w_y.shape[0]
-            tmp = torch.einsum("nmc,xm->nxc", stacks[c], w_x)
-            g = torch.einsum("yn,nxc->yxc", w_y, tmp)
+            tmp = full_matmul(w_x, stacks[c])                   # (n, x, 3)
+            g = full_matmul(w_y, tmp.reshape(tmp.shape[0], -1)).reshape(h, h, -1)
             grid = g if grid is None else grid + g
         disp = grid.reshape(h * h, 3).repeat(positions.shape[0] // (h * h), 1)
     elif cascades:
@@ -124,7 +140,7 @@ def _vertex_stage(displacement, positions, uvs, view_proj, interp=None,
     scale = sh._const([1.0 / horiz_div, 1.0 / height_div, 1.0 / horiz_div], disp)
     world = positions + disp * scale
     ones = torch.ones((world.shape[0], 1), dtype=world.dtype, device=world.device)
-    clip = torch.cat([world, ones], dim=-1) @ view_proj.T
+    clip = full_matmul(torch.cat([world, ones], dim=-1), view_proj.T)
     return world, clip * sh._const([1.0, -1.0, 1.0, 1.0], clip)  # ocean.vert:27
 
 
@@ -562,6 +578,17 @@ def _edge_table(v_clip) -> torch.Tensor:
     return torch.cat([cr.reshape(v_clip.shape[0], 9), v_clip[..., 2], v_clip[..., 3]], dim=1)
 
 
+def _deferred_table(ftab, world, tris, uvs, grid_shape) -> torch.Tensor:
+    """One per-triangle float32 table for the deferred pass: [edge table (15)
+    | world corners (9) | uv corners (6), only for a mesh that is not the
+    standard grid, whose uvs ``_decode_tri`` computes]."""
+    wc = _tri_corners(world, tris, grid_shape)
+    cols = [ftab, wc.reshape(wc.shape[0], 9)]
+    if grid_shape is None:
+        cols.append(uvs[tris].reshape(-1, 6))
+    return torch.cat(cols, dim=1)
+
+
 def _decode_tri(id_img, grid_shape):
     """Triangle id -> (vertex ids (..., 3), corner uvs (..., 3, 2)) for the
     standard grid mesh, by integer arithmetic (inverts ``build_grid`` /
@@ -597,19 +624,29 @@ def _auto_pool(width: int, height: int, bands: int = 1) -> int:
     return max(1 << 18, -(-want // 8192) * 8192)
 
 
+def _cull(v_clip):
+    """(fully_front, crossing, outside) of a (T, 3, 4) triangle batch: every
+    vertex in front of the eye plane; some but not all; and outside one
+    frustum plane with all three vertices (a conservative cull, valid for
+    any w sign)."""
+    w = v_clip[..., 3]
+    fully_front = (w > 1e-6).all(dim=-1)
+    crossing = (w > 1e-6).any(dim=-1) & ~fully_front
+
+    def all_outside(c):
+        return (c < -w).all(dim=-1) | (c > w).all(dim=-1)
+
+    outside = all_outside(v_clip[..., 0]) | all_outside(v_clip[..., 1]) | all_outside(v_clip[..., 2])
+    return fully_front, crossing, outside
+
+
 def _oct_bounds(v_clip, width: int, height: int, full_height: int, y_origin: int):
     """Culling and the tight viewport-clamped bbox of a (T, 3, 4) triangle
     batch: (x0, y0, x1, y1 int64 pixels, y in band-local rows; qw, the
     width in oct tiles; area int32 in oct tiles, 0 for triangles that are
     culled or cover no pixel center; crossing, outside)."""
     w = v_clip[..., 3]
-    fully_front = (w > 1e-6).all(dim=-1)
-    crossing = (w > 1e-6).any(dim=-1) & ~fully_front
-
-    def all_outside(c):      # conservative frustum cull, valid for any w sign
-        return (c < -w).all(dim=-1) | (c > w).all(dim=-1)
-
-    outside = all_outside(v_clip[..., 0]) | all_outside(v_clip[..., 1]) | all_outside(v_clip[..., 2])
+    fully_front, crossing, outside = _cull(v_clip)
     # Tight pixel-center bbox [ceil(min - 0.5), floor(max - 0.5)], clamped
     # to the viewport. The bounds are also clamped into int32 range before
     # the cast: JAX's conversion saturates, a C cast does not; only
@@ -800,7 +837,7 @@ def _deferred_shade(displacement, dtab, key_img, camera_pos, width: int, height:
                     height_scale: float = 180.0, pbr_roughness: float = 0.0,
                     y_origin: int = 0, full_height: Optional[int] = None, tiles=None):
     """Per-pixel varyings and the exact float32 depth from the winning
-    triangle's row of ``dtab`` ([edge table (15) | world corners (9)]),
+    triangle's row of ``dtab`` (``_deferred_table``),
     then ``shade_fragments`` (``tiles`` for a cascade stack). Uncovered
     pixels compute from id 0 and are masked. Returns (color (H, W, 3),
     depth (H, W), inf where uncovered)."""
@@ -819,9 +856,14 @@ def _deferred_shade(displacement, dtab, key_img, camera_pos, width: int, height:
         lam_w == 0, torch.ones_like(lam_w), lam_w)
     z_img = torch.where(covered, z_pix, torch.full_like(z_pix, float("inf")))
 
-    _, uvc = _decode_tri(id_img, grid_shape)
-    uv_img = (lam0[..., None] * uvc[..., 0, :] + lam1[..., None] * uvc[..., 1, :]
-              + lam2[..., None] * uvc[..., 2, :]) * inv_denom[..., None]
+    if grid_shape is not None:
+        _, uvc = _decode_tri(id_img, grid_shape)
+        uv_img = (lam0[..., None] * uvc[..., 0, :] + lam1[..., None] * uvc[..., 1, :]
+                  + lam2[..., None] * uvc[..., 2, :]) * inv_denom[..., None]
+    else:  # uv corners [u0 v0 u1 v1 u2 v2] at columns 24..29
+        uv_img = torch.stack(
+            [(lam0 * tpl[24 + a] + lam1 * tpl[26 + a] + lam2 * tpl[28 + a]) * inv_denom
+             for a in range(2)], dim=-1)
     # world corners at columns 15..23 as [x0 y0 z0 x1 y1 z1 x2 y2 z2]
     world_img = torch.stack(
         [(lam0 * tpl[15 + a] + lam1 * tpl[18 + a] + lam2 * tpl[21 + a]) * inv_denom
@@ -846,11 +888,8 @@ def _rasterize_pool(displacement, positions, uvs, tris, view_proj, camera_pos,
     global row ``y_origin``; stacked bands equal the full frame bit for bit.
     Returns (image (H, W, 3), depth (H, W)) and, with ``with_diag``, the
     number of giant-pass candidates past capacity (a 0-dim tensor; must be
-    0 for exact coverage)."""
-    if grid_shape is None:
-        raise NotImplementedError(
-            "meshes other than the standard grid are not ported yet "
-            + _NOT_PORTED.format("render"))
+    0 for exact coverage). ``grid_shape`` None takes ``tris`` as any
+    triangle list."""
     full_height = height if full_height is None else full_height
     tabs = _slot_tables(displacement, positions, uvs, tris, view_proj, width, height, pool,
                         interp, grid_shape, scales, y_origin, full_height, tiles)
@@ -860,14 +899,109 @@ def _rasterize_pool(displacement, positions, uvs, tris, view_proj, camera_pos,
     key_img = _resolve(keysp, octid, tabs, width, height)
     key_img = _giant_pass(tabs.clip, tris, tabs.score, key_img, width, height, giants,
                           tabs.id_bits, y_origin, full_height)
-    wc = _tri_corners(tabs.world, tris, grid_shape)
-    dtab = torch.cat([tabs.ftab, wc.reshape(wc.shape[0], 9)], dim=1)
+    dtab = _deferred_table(tabs.ftab, tabs.world, tris, uvs, grid_shape)
     img, z_img = _deferred_shade(displacement, dtab, key_img, camera_pos, width, height,
                                  tabs.id_bits, grid_shape, foam, frag_channel, scales[2],
                                  scales[3] if len(scales) > 3 else 0.0, y_origin, full_height,
                                  tiles)
     if with_diag:
         dropped = ((tabs.score > 0).sum() - min(giants, tris.shape[0])).clamp_min(0)
+        return img, z_img, dropped
+    return img, z_img
+
+
+def _window_score(all_clip, width: int, height: int, budget: int) -> torch.Tensor:
+    """The window rasterizer's giant-pass need, (T,) float32: inf for a
+    visible eye-plane-crossing triangle, the floor-aligned screen bbox
+    area where it exceeds the ``budget`` samples of a fully-in-front,
+    visible, on-screen triangle, else -1 (``_rasterize`` pass 3)."""
+    aw = all_clip[..., 3]
+    fully_front, crossing, outside = _cull(all_clip)
+    aw_safe = torch.where(fully_front[:, None], aw, torch.ones_like(aw))
+    asx = (all_clip[..., 0] / aw_safe * 0.5 + 0.5) * float(width)
+    asy = (all_clip[..., 1] / aw_safe * 0.5 + 0.5) * float(height)
+    bbw = torch.floor(asx.amax(-1)) - torch.floor(asx.amin(-1)) + 1.0
+    bbh = torch.floor(asy.amax(-1)) - torch.floor(asy.amin(-1)) + 1.0
+    area = bbw * bbh
+    overlaps = ((asx.amax(-1) >= 0) & (asx.amin(-1) < width)
+                & (asy.amax(-1) >= 0) & (asy.amin(-1) < height))
+    return torch.where(
+        crossing & ~outside, torch.full_like(area, float("inf")),
+        torch.where(fully_front & ~outside & overlaps & (area > budget), area,
+                    torch.full_like(area, -1.0)))
+
+
+def _window_chunk(keybuf, v, ids, gk, width: int, height: int, id_bits: int) -> None:
+    """Scatter-min one chunk's samples into ``keybuf`` ((H W + 1,) int64, the
+    last cell the spill): ``gk`` (K,) sample indices walk row-major through
+    each (C, 3, 4) triangle's tight pixel-centre bbox, as the pool's slots
+    do; ``ids`` (C,) are the triangles' ids."""
+    w = v[..., 3]
+    fully_front = (w > 1e-6).all(dim=-1)            # else: the giant pass owns it
+    w_safe = torch.where(fully_front[:, None], w, torch.ones_like(w))
+    sx = (v[..., 0] / w_safe * 0.5 + 0.5) * float(width)
+    sy = (v[..., 1] / w_safe * 0.5 + 0.5) * float(height)
+    # The bounds are clamped into int range before the cast: JAX's
+    # conversion saturates, a C cast does not; clamped ones walk off screen.
+    big = float(1 << 30)
+    x_min = torch.clamp(torch.ceil(sx.amin(-1) - 0.5), -big, big).to(torch.int64)[:, None]
+    y_min = torch.clamp(torch.ceil(sy.amin(-1) - 0.5), -big, big).to(torch.int64)[:, None]
+    x_max = torch.clamp(torch.floor(sx.amax(-1) - 0.5), -big, big).to(torch.int64)[:, None]
+    y_max = torch.clamp(torch.floor(sy.amax(-1) - 0.5), -big, big).to(torch.int64)[:, None]
+    bw = (x_max - x_min + 1).clamp_min(1)
+    px = x_min + gk % bw                             # (C, K)
+    py = y_min + gk // bw
+    on_screen = ((px >= 0) & (px < width) & (py >= 0) & (py < height)
+                 & (px <= x_max) & (py <= y_max))
+    pnx = sh._div(2.0 * (px.to(torch.float32) + 0.5), float(width)) - 1.0
+    pny = sh._div(2.0 * (py.to(torch.float32) + 0.5), float(height)) - 1.0
+    lam0, lam1, lam2, _ = _lambdas(v, pnx, pny, 1)
+    denom = lam0 + lam1 + lam2
+    mask = ((lam0 >= 0) & (lam1 >= 0) & (lam2 >= 0) & (denom > 0) & on_screen
+            & fully_front[:, None])
+    lam_w = lam0 * v[:, None, 0, 3] + lam1 * v[:, None, 1, 3] + lam2 * v[:, None, 2, 3]
+    z = (lam0 * v[:, None, 0, 2] + lam1 * v[:, None, 1, 2] + lam2 * v[:, None, 2, 2]) / torch.where(
+        lam_w == 0, torch.ones_like(lam_w), lam_w)
+    mask = mask & (z > -1.0) & (z < 1.0)
+    key = _pack_key(z, ids[:, None], mask, id_bits)
+    flat = torch.where(mask, py * width + px, torch.full_like(px, width * height))
+    keybuf.scatter_reduce_(0, flat.reshape(-1), key.reshape(-1), "amin")
+
+
+def _rasterize(displacement, positions, uvs, tris, view_proj, camera_pos, width: int,
+               height: int, samples: int, giants: int = 512, interp=None, grid_shape=None,
+               foam=None, frag_channel: int = 1, scales=(3.0, 3.5, 180.0, 0.0), tiles=None,
+               with_diag: bool = False):
+    """The window rasterizer (``gfx_ocean_tpu/render/raster.py:1244-1375``):
+    ``samples``^2 samples a fully-in-front triangle scattered by key min in
+    chunks of ``_TRI_CHUNK`` triangles, the giant pass for bboxes past the
+    budget and eye-plane-crossing triangles, and deferred shading. Takes
+    the arguments of ``_rasterize_pool`` with ``samples`` in place of the
+    pool and no bands (the JAX function has none). Returns (image (H, W, 3),
+    depth (H, W)) and, with ``with_diag``, the number of giant-pass
+    candidates past ``giants`` (a 0-dim tensor; 0 for exact coverage)."""
+    world, clip = _vertex_stage(displacement, positions, uvs, view_proj, interp,
+                                scales[0], scales[1], tiles)
+    dev = clip.device
+    t_count = tris.shape[0]
+    id_bits = _id_bits(t_count)
+    budget = samples * samples
+    all_clip = _tri_corners(clip, tris, grid_shape)          # (T, 3, 4)
+    gk = torch.arange(budget, dtype=torch.int64, device=dev)[None, :]
+    ids = torch.arange(t_count, dtype=torch.int64, device=dev)
+    keybuf = torch.full((width * height + 1,), KEY_MAX, dtype=torch.int64, device=dev)
+    for s in range(0, t_count, _TRI_CHUNK):
+        _window_chunk(keybuf, all_clip[s:s + _TRI_CHUNK], ids[s:s + _TRI_CHUNK], gk,
+                      width, height, id_bits)
+    key_img = keybuf[:-1].reshape(height, width)
+    score = _window_score(all_clip, width, height, budget)
+    key_img = _giant_pass(clip, tris, score, key_img, width, height, giants, id_bits)
+    dtab = _deferred_table(_edge_table(all_clip), world, tris, uvs, grid_shape)
+    img, z_img = _deferred_shade(displacement, dtab, key_img, camera_pos, width, height,
+                                 id_bits, grid_shape, foam, frag_channel, scales[2],
+                                 scales[3] if len(scales) > 3 else 0.0, tiles=tiles)
+    if with_diag:
+        dropped = ((score > 0).sum() - min(giants, t_count)).clamp_min(0)
         return img, z_img, dropped
     return img, z_img
 
@@ -935,12 +1069,9 @@ def render_frame(
     the depth buffer with ``return_depth``). The arguments are those of
     ``gfx_ocean_tpu.render.render_frame``: a (C, N, N, 3) cascade stack
     needs ``cascade_domains`` of length C (``ValueError`` without) and takes
-    (C, N, N) ``foam``. ``samples`` belongs to the window rasterizer, which
-    is not ported (``impl="window"`` raises)."""
-    if impl == "window":
-        raise NotImplementedError(
-            'impl="window" is not ported yet ' + _NOT_PORTED.format('impl="window"'))
-    if impl != "pool":
+    (C, N, N) ``foam``. ``impl="window"`` takes the window rasterizer with
+    ``samples``^2 samples a triangle."""
+    if impl not in ("pool", "window"):
         raise ValueError(f"impl must be 'pool' or 'window', got {impl!r}")
     displacement = torch.as_tensor(displacement, dtype=torch.float32)
     dev = _device(displacement.device)
@@ -950,11 +1081,17 @@ def render_frame(
     foam = None if foam is None else torch.as_tensor(foam, dtype=torch.float32, device=dev)
     scales = (float(height_div), float(horiz_div), float(normal_height_scale),
               float(pbr_roughness))
-    img, depth = _rasterize_pool(displacement, positions, uvs, tris,
-                                 _view_proj(camera, width, height, dev), cam_pos, width,
-                                 height, pool or _auto_pool(width, height), giants, interp,
-                                 (num_patches, mesh_resolution), foam,
-                                 0 if frag_normal_x else 1, scales, tiles)
+    vp = _view_proj(camera, width, height, dev)
+    grid_shape = (num_patches, mesh_resolution)
+    chan = 0 if frag_normal_x else 1
+    if impl == "pool":
+        img, depth = _rasterize_pool(displacement, positions, uvs, tris, vp, cam_pos, width,
+                                     height, pool or _auto_pool(width, height), giants, interp,
+                                     grid_shape, foam, chan, scales, tiles)
+    else:
+        img, depth = _rasterize(displacement, positions, uvs, tris, vp, cam_pos, width,
+                                height, samples, giants, interp, grid_shape, foam, chan,
+                                scales, tiles)
     if return_depth:
         return img, depth
     return img
@@ -1025,7 +1162,8 @@ def render_frames(displacements, cameras, width: int = 300, height: int = 175,
                   giants: int = 512, impl: str = "pool",
                   pool: Optional[int] = None) -> torch.Tensor:
     """Frames (F, H, W, 3) float32 from (F, N, N, 3) displacement maps and
-    F cameras, one ``render_frame`` each (the JAX package vmaps it)."""
+    F cameras, one ``render_frame`` each on either rasterizer (the JAX
+    package vmaps it)."""
     return torch.stack([
         render_frame(displacements[i], cam, width, height, mesh_resolution, num_patches,
                      samples, giants, impl=impl, pool=pool)

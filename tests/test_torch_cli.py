@@ -98,7 +98,7 @@ def test_cli_bench(capsys):
     out = json.loads(capsys.readouterr().out)
     assert out["steps_per_sec"] > 0
     assert out["resolution"] == 64 and out["time_batch"] == 2
-    assert out["effective_precision"] == "fp32"
+    assert out["effective_precision"] == "bf16x3"  # the default tier on "matmul"
     assert "checksums" not in out and "device" not in out  # no card, no card fields
 
 

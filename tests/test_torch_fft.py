@@ -79,29 +79,39 @@ def test_ifft2_planes_matches_jax_and_golden(centered, shape):
         assert _rel(g.numpy(), o) < TOL
 
 
-@pytest.mark.parametrize("tier", ["bf16x3", "bf16x4", "high", "highest"])
+@pytest.mark.parametrize("tier", ["bf16x3", "bf16x4", "high", "highest", "default"])
 def test_every_f32_tier_runs_as_fp32(tier):
-    assert tfft.effective_precision(tier) == "fp32"
+    # On the kernels' route every tier, "default" included, computes in FP32
+    # (contract difference D3); the matmul route runs the tier itself, and
+    # "xla" takes none.
+    assert tfft.effective_precision(tier, 32, impl="pallas").startswith("fp32")
+    assert tfft.effective_precision(tier, 32, impl="matmul") == tier
+    assert "do not apply" in tfft.effective_precision(tier, 32, impl="xla")
     xr, xi = _spectrum((32, 32), 3)
     a = tfft.ifft2_real_unnorm(torch.from_numpy(xr), torch.from_numpy(xi), precision=tier)
     b = tfft.ifft2_real_unnorm(torch.from_numpy(xr), torch.from_numpy(xi), precision="highest")
-    assert torch.equal(a, b)
+    # the bf16 tiers' own error (3e-3 for one pass, 3e-5 for the splits)
+    assert _rel(a, b) < (3e-3 if tier == "default" else 3e-5)
+    if tier == "highest":
+        assert torch.equal(a, b)
 
 
 def test_unported_and_unknown_options_raise():
     x = torch.zeros(32, 32)
     with pytest.raises(ValueError, match="unknown matmul precision"):
         tfft.effective_precision("bf16x9")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfft.effective_precision("default")
-    # "xla" is ported (torch.fft); its tiers do not apply, but "default"
-    # still raises there as on every route
-    with pytest.raises(NotImplementedError, match="default"):
-        tfft.ifft2_real_unnorm(x, x, impl="xla", precision="default")
+    with pytest.raises(ValueError, match="unknown matmul precision"):
+        tfft.ifft2_real_unnorm(x, x, precision="bf16x9")
+    # "default" runs on every route: "xla" (torch.fft, where the tiers do
+    # not apply), the direct and the four-step matmul route
+    xr, xi = (torch.from_numpy(a) for a in _spectrum((32, 32), 4))
+    gold = ifft2_unnorm_np(xr.numpy() + 1j * xi.numpy().astype(np.float64))
+    assert _rel(tfft.ifft2_real_unnorm(xr, xi, impl="xla", precision="default"),
+                gold.real) < TOL
+    yr, yi = tfft.ifft2_planes_unnorm(xr, xi, direct_max=16, precision="default")
+    # one bf16 pass in each of the four-step's two stages
+    assert _rel(yr, gold.real) < 1e-2 and _rel(yi, gold.imag) < 1e-2
     with pytest.raises(ValueError, match="unknown impl"):
         tfft.ifft2_real_unnorm(x, x, impl="fft")
-    # the four-step route (N > direct_max) has no "default" tier either
-    with pytest.raises(NotImplementedError, match="default"):
-        tfft.ifft2_planes_unnorm(x, x, direct_max=16, precision="default")
     with pytest.raises(ValueError, match="centered"):
         tfft.ifft2_real_unnorm(x, x, centered="both")

@@ -750,7 +750,9 @@ def test_import_leaves_out_jax():
             "gfx_ocean_tpu_torch.render, gfx_ocean_tpu_torch.render.raster, "
             "gfx_ocean_tpu_torch.query, gfx_ocean_tpu_torch.checkpoint, "
             "gfx_ocean_tpu_torch.cli, gfx_ocean_tpu_torch.serve, "
-            "gfx_ocean_tpu_torch.utils.profiling, gfx_ocean_tpu_torch.utils.png, importlib.util;"
+            "gfx_ocean_tpu_torch.utils.profiling, gfx_ocean_tpu_torch.utils.png, "
+            "gfx_ocean_tpu_torch.native.bincode_native, gfx_ocean_tpu_torch.assets, "
+            "gfx_ocean_tpu_torch.golden, importlib.util;"
             # python -m gfx_ocean_tpu_torch runs __main__, which imports cli
             "assert importlib.util.find_spec('gfx_ocean_tpu_torch.__main__');"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gfx_ocean_tpu')];"
@@ -771,6 +773,140 @@ def test_import_does_not_initialize_cuda():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# --- the precision tiers, the window rasterizer and the native loader on the card
+
+TIER_CASES = [(512, 1024), (64, 16)]   # direct, and the four-step split
+
+
+def _tier_spectra(n: int):
+    rng = np.random.default_rng(n + 1)
+    from gfx_ocean_tpu_torch.spectra.phillips import phillips_spectrum  # noqa: PLC0415
+
+    env = np.sqrt(phillips_spectrum(n, 1000.0, PhillipsConfig()) / 2.0).astype(np.float32)
+    return (torch.from_numpy((rng.standard_normal((3, n, n)) * env).astype(np.float32)),
+            torch.from_numpy((rng.standard_normal((3, n, n)) * env).astype(np.float32)))
+
+
+# The card's tier against the CPU's same tier, |diff| / max |field|: the
+# same exact products summed in another order, where the column pass's
+# bf16 rounding of the row pass's output (its lo for the split tiers, all
+# of it for "default") turns a float32 difference into a bf16 ulp now and
+# then. Measured at 512^2 on an H100: bf16x3 6.5e-6, bf16x4 5.8e-6,
+# "highest" 1.3e-6 (the CPU's FP32 sums), "default" 3.0e-4; the nearest
+# other tier 8.0e-6 or more away from the split tiers.
+TOL_TIER = {"bf16x3": 8e-6, "bf16x4": 8e-6, "high": 8e-6, "highest": 2e-6, "default": 1e-3}
+TIER_SCHEME = {"high": "bf16x3"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,direct_max", TIER_CASES, ids=["512", "64-fourstep"])
+@pytest.mark.parametrize("tier", ["bf16x3", "bf16x4", "high", "highest", "default"])
+def test_tier_on_card_equals_cpu_plain_path(cuda, tier, n, direct_max):
+    """Each tier's card scheme (bf16 tensor-core passes returned in FP32, or
+    float64 for "highest") against the same tier on the CPU, whose products
+    are the same exact values: they differ by summation order only. At the
+    direct size the card's result also lies nearer the CPU's same scheme
+    than any other tier's, so a tier that ran another scheme on the card
+    (FP32 included) fails."""
+    from gfx_ocean_tpu_torch.ops import fft as tfft  # noqa: PLC0415
+
+    xr, xi = _tier_spectra(n)
+
+    def run(t, dev):
+        kw = dict(direct_max=direct_max, precision=t, centered="ref")
+        return [p.cpu() for p in tfft.ifft2_planes_unnorm(xr.to(dev), xi.to(dev), **kw)]
+
+    def dist(a, b):
+        return max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(a, b))
+
+    got = run(tier, cuda)
+    assert all(g.dtype == torch.float32 for g in got)
+    assert dist(got, run(tier, "cpu")) < TOL_TIER[tier]
+    if n <= direct_max:
+        own = TIER_SCHEME.get(tier, tier)
+        d = {t: dist(got, run(t, "cpu")) for t in ("bf16x3", "bf16x4", "highest", "default")}
+        assert all(d[own] < v for t, v in d.items() if t != own), d
+
+
+@pytest.mark.cuda
+def test_matmul_route_leaves_tf32_flag_alone(cuda):
+    """No tier, plain version or renderer product reads or writes the
+    process's TF32 switch: a matmul-route step, K1's plain version and the
+    renderer's vertex stage leave it as the caller set it, either way, and
+    compute the same."""
+    from gfx_ocean_tpu_torch.models.ocean import OceanState, step  # noqa: PLC0415
+
+    h0, omega = _state(64)
+    st = OceanState(h0.to(cuda), omega.to(cuda))
+    cfg1, inputs = _inputs(64, CompatFlags(), cuda)
+    disp = _render_disp(cuda)
+    cam = Camera()
+    positions, uvs, _ = rr._mesh_constants(128, 4, cuda)
+    interp = rr._interp_matrices(128, disp.shape[0], cuda)
+    view_proj = rr._view_proj(cam, 480, 280, cuda)
+    flag = torch.backends.cuda.matmul.allow_tf32
+    outs = {}
+    try:
+        for setting in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = setting
+            for tier in ("bf16x3", "highest", "default"):
+                cfg = OceanConfig(resolution=64, fft_impl="matmul", matmul_precision=tier)
+                outs[setting, tier] = step(st, 11.25, cfg).displacement
+                assert torch.backends.cuda.matmul.allow_tf32 is setting
+            outs[setting, "k1_plain"] = fused_step.packed_planes_reference(
+                inputs, torch.tensor([11.25], device=cuda), cfg1)
+            outs[setting, "vertex"] = torch.cat(
+                rr._vertex_stage(disp, positions, uvs, view_proj, interp), dim=-1)
+            assert torch.backends.cuda.matmul.allow_tf32 is setting
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    for key in ("bf16x3", "highest", "default", "k1_plain", "vertex"):
+        assert torch.equal(outs[False, key], outs[True, key]), key
+
+
+@pytest.mark.cuda
+def test_window_frame_matches_pool_frame_on_card(cuda):
+    """The window rasterizer against the pool rasterizer (K7 + K8) at 480x280,
+    mesh 128 x 4: the near-tie envelope of tests/test_render.py:943-978
+    (two programs), with every giant candidate kept."""
+    disp = _render_disp(cuda)
+    cam = Camera()
+    w, h = 480, 280
+    positions, uvs, tris = rr._mesh_constants(128, 4, cuda)
+    interp = rr._interp_matrices(128, 64, cuda)
+    args = (disp, positions, uvs, tris, rr._view_proj(cam, w, h, cuda),
+            torch.tensor(cam.position.astype(np.float32), device=cuda))
+    pool, pz, p_drop = rr._rasterize_pool(*args, w, h, rr._auto_pool(w, h), 512, interp,
+                                          (4, 128), with_diag=True)
+    win, wz, w_drop = rr._rasterize(*args, w, h, 32, 2048, interp, (4, 128), with_diag=True)
+    assert int(p_drop) == 0 and int(w_drop) == 0
+    pool, pz, win, wz = (x.cpu().numpy() for x in (pool, pz, win, wz))
+    assert 0.2 < np.isfinite(wz).mean() < 1.0
+    d = np.argwhere((pool != win).any(-1))
+    assert len(d) <= 1e-3 * w * h
+    quantum = 2.0 / (1 << (32 - rr._id_bits(tris.shape[0])))
+    one_sided = sum(np.isinf(pz[y, x]) != np.isinf(wz[y, x]) for y, x in d)
+    assert one_sided <= 8
+    both = np.isfinite(pz) & np.isfinite(wz)
+    assert np.abs(pz[both] - wz[both]).max() <= 2 * quantum
+
+
+@pytest.mark.cuda
+def test_native_loader_is_in_use_on_the_card_machine(cuda, tmp_path):
+    """Where the card is, the native parser must be the one the loaders take."""
+    from gfx_ocean_tpu_torch.assets import bincode  # noqa: PLC0415
+    from gfx_ocean_tpu_torch.native import bincode_native  # noqa: PLC0415
+
+    assert bincode.loader_in_use() == "native"
+    omega = np.random.default_rng(2).random((32, 32)).astype(np.float32)
+    path = str(tmp_path / "omega.bin")
+    bincode.save_omega(path, omega)
+    with open(path, "rb") as f:
+        want = bincode.parse_bincode_f32(f.read(), path)
+    assert np.array_equal(bincode_native.parse_f32(path), want)
+    assert np.array_equal(bincode.load_omega(path, 32), omega)
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -116,12 +116,17 @@ def test_xla_route_equals_matmul_and_jax_xla(centered):
 
 
 def test_effective_precision_takes_the_jax_signature():
-    assert tfft.effective_precision("bf16x3") == "fp32"
-    assert tfft.effective_precision("high", 4096, 1024, "matmul") == "fp32"
-    assert tfft.effective_precision("bf16x4", 512, impl="pallas") == "fp32"
+    assert tfft.effective_precision("bf16x3") == "bf16x3"
+    assert tfft.effective_precision("high", 4096, 1024, "matmul") == "high"
+    assert tfft.effective_precision("bf16x3", 4096, 1024, "matmul").startswith("high (")
+    assert tfft.effective_precision("bf16x4", 4096, 1024, "matmul").startswith("highest (")
+    assert tfft.effective_precision("bf16x4", 512, impl="pallas").startswith("fp32")
     assert "do not apply" in tfft.effective_precision("highest", 64, impl="xla")
-    with pytest.raises(NotImplementedError, match="default"):
-        tfft.effective_precision("default", 64, impl="xla")
+    assert "do not apply" in tfft.effective_precision("default", 64, impl="xla")
+    assert tfft.resolve_precision("default") == "default"
+    wr, wi = tfft.dft_matrices(16, -1, device="cpu")
+    for got, want in zip((wr, wi), jfft.dft_matrices(16, -1)):
+        assert np.array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("n", [16, 64])

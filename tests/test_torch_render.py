@@ -341,8 +341,15 @@ def test_batch_renderer_and_render_frames_equal_single_frames():
 
 def test_unported_render_paths_raise():
     disp = torch.zeros(16, 16, 3)
-    with pytest.raises(NotImplementedError, match='impl="window"'):
-        tr.render_frame(disp, tcam.Camera(), 32, 32, mesh_resolution=16, impl="window")
+    # the window rasterizer is ported (tests/test_torch_window.py): a flat
+    # sea renders as the pool path renders it
+    window, wz = tr.render_frame(disp, tcam.Camera(), 96, 64, mesh_resolution=64,
+                                 impl="window", return_depth=True)
+    pool, pz = tr.render_frame(disp, tcam.Camera(), 96, 64, mesh_resolution=64,
+                               return_depth=True, pool=POOL)
+    assert window.shape == (64, 96, 3) and torch.isfinite(wz).float().mean() > 0.2
+    assert torch.equal(torch.isfinite(wz), torch.isfinite(pz))
+    assert (window - pool).abs().max() <= COLOR_TOL
     # cascade stacks are ported (tests/test_torch_cascades.py); a stack
     # without its domains raises as the JAX package's does
     with pytest.raises(ValueError, match="cascade_domains"):

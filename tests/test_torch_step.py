@@ -20,6 +20,7 @@ import gfx_ocean_tpu.ops.pallas_step as ps
 import gfx_ocean_tpu_torch as T
 from gfx_ocean_tpu.golden.reference import golden_fields, golden_normals
 from gfx_ocean_tpu_torch.models.ocean import state_from_numpy
+from gfx_ocean_tpu_torch.ops.fft import effective_precision
 from gfx_ocean_tpu_torch.spectra.phillips import dispersion, phillips_spectrum
 from gfx_ocean_tpu_torch.utils.profiling import time_rollout
 
@@ -89,13 +90,24 @@ def test_make_step_matches_jax_and_golden(route, interpret_pallas):
     got = T.make_step(tc)(tst, t)
     assert got.displacement.shape == (N, N, 3) and got.normals.shape == (N, N, 3)
     assert got.foam is None and torch.equal(got.height, got.displacement[..., 1])
-    assert _rel(got.displacement.numpy(), want.displacement) < TOL[jc.matmul_precision]
+    disp, want_disp = got.displacement.numpy(), np.asarray(want.displacement)
+    scale = np.abs(want_disp).max()
+    # The height at the route's tier; the choppy fields at choppy_precision,
+    # which the port's matmul route runs as a bf16 split ("high") where the
+    # JAX package's CPU dot computes f32: the split's tolerance.
+    choppy_tol = TOL["bf16x3"] if tc.choppy_precision else TOL[jc.matmul_precision]
+    assert np.abs(disp[..., 1] - want_disp[..., 1]).max() / scale < TOL[jc.matmul_precision]
+    assert np.abs(disp[..., ::2] - want_disp[..., ::2]).max() / scale < choppy_tol
     assert (np.abs(got.normals.numpy() - np.asarray(want.normals)).max()
             < NORMALS_TOL[jc.matmul_precision])
 
     gold = golden_fields(np.asarray(jst.h0[0]) + 1j * np.asarray(jst.h0[1]),
                          np.asarray(jst.omega), t, 1000.0, jc.compat)
-    assert _rel(got.displacement.numpy(), gold) < 1e-6
+    gscale = np.abs(gold).max()
+    assert np.abs(disp[..., 1] - gold[..., 1]).max() / gscale < 1e-6
+    # "high"'s ceiling against golden (the JAX package's figure, config.py)
+    assert (np.abs(disp[..., ::2] - gold[..., ::2]).max() / gscale
+            < (2.8e-5 if tc.choppy_precision else 1e-6))
     assert np.abs(got.normals.numpy() - golden_normals(gold[..., 1])).max() < NORMALS_TOL["highest"]
 
 
@@ -191,18 +203,16 @@ def test_foam_and_its_checksum_match_jax(fft_impl, time_batch, interpret_pallas)
 
 
 UNPORTED = [
-    # the unpacked step (K4-K6) is ported; its "default" tier is not, as on K1
-    (dict(fft_impl="pallas", hermitian_pack=False, matmul_precision="default"), N, "default"),
-    # 1024 takes the four-step route (K2 + K3), whose tier check still raises
-    (dict(fft_impl="pallas", resolution=1024, matmul_precision="default"), 1024, "default"),
-    # "xla" (torch.fft) is ported; its "default" tier is not, as on every route
-    (dict(fft_impl="xla", matmul_precision="default"), N, "default"),
-    # cascades and their foam are ported; they do not get past the tiers
-    # that are not
+    # the "default" tier runs on every route: on "pallas" (K1, K4, K2 + K3)
+    # as FP32 in the kernels (contract difference D3), on "xla" as torch.fft,
+    # which takes no tier; either way as the "bf16x3" configuration does
+    (dict(fft_impl="pallas", hermitian_pack=False, matmul_precision="default"), N, "fp32"),
+    (dict(fft_impl="pallas", resolution=1024, matmul_precision="default"), 1024, "fp32"),
+    (dict(fft_impl="xla", matmul_precision="default"), N, "n/a"),
     (dict(fft_impl="xla", compute_foam=True, num_cascades=2, matmul_precision="default"),
-     N, "default"),
-    (dict(fft_impl="pallas", num_cascades=2, matmul_precision="default"), N, "default"),
-    (dict(fft_impl="pallas", matmul_precision="default"), N, "default"),
+     N, "n/a"),
+    (dict(fft_impl="pallas", num_cascades=2, matmul_precision="default"), N, "fp32"),
+    (dict(fft_impl="pallas", matmul_precision="default"), N, "fp32"),
 ]
 
 
@@ -213,11 +223,15 @@ def test_unported_configurations_raise(kwargs, n, match):
     kwargs = dict(kwargs)
     kwargs.setdefault("resolution", n)
     cfg = T.OceanConfig(**kwargs)
-    st = T.OceanState(h0=torch.zeros(2, n, n), omega=torch.zeros(n, n))
-    with pytest.raises(NotImplementedError, match=match):
-        T.step(st, 1.0, cfg)
-    with pytest.raises(NotImplementedError, match=match):
-        T.make_rollout(cfg, keep_fields=False)(st, [1.0])
+    same = T.OceanConfig(**{**kwargs, "matmul_precision": "bf16x3"})
+    assert effective_precision(cfg.matmul_precision, n, cfg.direct_dft_max,
+                               cfg.fft_impl).startswith(match)
+    _, st = _states(n, seed=4)
+    got, want = T.step(st, 1.0, cfg), T.step(st, 1.0, same)
+    assert torch.isfinite(got.displacement).all()
+    assert torch.equal(got.displacement, want.displacement)
+    assert torch.equal(T.make_rollout(cfg, keep_fields=False)(st, [1.0]),
+                       T.make_rollout(same, keep_fields=False)(st, [1.0]))
 
 
 def test_batched_state_raises():
