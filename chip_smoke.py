@@ -8,7 +8,8 @@ float64 golden model, the frame renderer, gated against a frame the JAX
 package rendered, and cascades; then its entry points, the CLI and the
 frame server, on those paths; then the single-device remainder: the
 precision tiers of the matmul route, the window rasterizer, meshes other
-than the grid and the native bincode loader. It imports no jax.
+than the grid and the native bincode loader; then multi-device runs
+(``parallel/``) on meshes of the one card. It imports no jax.
 
 - The 512^2 Hermitian-packed step (``OceanConfig(fft_impl="pallas",
   matmul_precision="bf16x3")``) through kernel K1, a 600-frame checksum
@@ -172,6 +173,34 @@ Phases, one line each:
 41. native_loader: the native bincode loader (g++, built in phase 2) on
     files of phase 8's state: bit-equal to the numpy parser, MB/s of each,
     write_npy read back; the loaders must take the native parser.
+
+42-48 (``run_parallel``): ``parallel/`` on meshes whose positions repeat
+cuda:0, each phase with the launches of K1-K3, K7 and K8 it made:
+42. parallel_fourstep: config 5 (phase 8's state) row-sharded over 1 x 4:
+    K2 on each band's two windows, all_to_all, K3 on each column band,
+    all_to_all back; planes bit-equal to the single-device K2 + K3, normals
+    too, the golden gate on phase 10's golden (rel and abs L-inf), one
+    frame's planes and each all_to_all by CUDA events, and the main path: a
+    24-frame sharded checksum rollout (counts zeroed before it, K2 and K3
+    4 a frame) against the single-device rollout at rtol 1e-4;
+43. parallel_big_windows: K2 at 16384^2 (phase 23's state) on the last
+    shard's 4096-row band from its windows, bit-equal to the whole-state K2
+    on those rows;
+44. parallel_render: phase 17's 1200x700 frame over 4 bands (giants 512),
+    bit-equal to make_frame_renderer with no giant candidate dropped in any
+    band (the main path of the frame: K1, K7, K8 once a band), its time;
+45. parallel_batch_render: 4 frames over a 2 x 2 mesh against
+    make_batch_renderer, at giants 512 and 1024: bit-equal on every frame
+    whose single-device render drops no giant candidate (the renderer's
+    contract), and no frame drops at 1024;
+46. parallel_default_config: ``OceanConfig()`` at 512^2 on a 2 x 4 mesh
+    (phase 3's state tiled over "batch", as the CLI's --mesh does) under
+    both fft names, checksums against the single-device rollout;
+47. parallel_cli: ``simulate --mesh 1,1`` and ``render --mesh 1,1``, and
+    ``--mesh 1,2``: it exits with the JAX CLI's message on one card, runs
+    on two;
+48. parallel_serve: ``serve(mesh=make_mesh([cuda:0] * 4, row=4))``:
+    ``/frame.png`` bytes equal the unsharded server's.
 
 Then one JSON line with the kernels K1-K8 and K2 at 16384^2 (times,
 bounds from this run's shapes, library yardsticks, ``device_ms``; K1's
@@ -346,6 +375,16 @@ W_TIMING_CALLS = 5
 G_W, G_H = 320, 180
 # Phase 41: the native loader on files of phase 8's 4096^2 state.
 NATIVE_REPEATS = 3
+# Phases 42-48: parallel/ on meshes of cuda:0. Config 5 over 1 x 4 rows.
+P_ROWS = 4
+P_STEPS = 24
+P_REPEATS = 3
+P_CALLS = 10
+P_RENDER_CALLS = 3
+P_FRAMES = 4
+# Sharded checksums against the single-device ones: sums of every band's
+# partial in another order (tests/test_parallel.py's rtol).
+P_CHECKSUM_RTOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -498,6 +537,7 @@ def main() -> None:
     run_window_render(dev)
     run_generic_mesh(dev)
     run_native_loader()
+    run_parallel(dev)
     print(json.dumps({"kernels": sorted(kernels_line, key=lambda k: k["name"])}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
@@ -1400,6 +1440,7 @@ def run_big(dev) -> list:
 
     # --- 23. K2 and K3 on bands against the plain version --------------------
     inputs = fused_step.hoist_packed(state.h0, state.omega, cfg)
+    STATES["big"] = (cfg, inputs)   # phase 43's K2 on a shard's windows
     ts = torch.tensor([T_CHECK], dtype=torch.float32, device=dev)
     y = fs.launch_fourstep_row(inputs, ts, cfg)
     planes, partials = fs.launch_fourstep_col(y, inputs.twiddle, cfg, checksum=True)
@@ -2375,7 +2416,7 @@ def run_precision_tiers(dev) -> None:
         failures.append(f"choppy_precision='default': {choppy}")
 
     # Config 5 (4096^2) on the matmul route: "high" and "default", FP32 beside.
-    big_state, big_gold = STATES["fourstep"], STATES.pop("fourstep_golden")
+    big_state, big_gold = STATES["fourstep"], STATES["fourstep_golden"]
     big_scale = float(np.abs(big_gold).max())
     big = {}
     ts_big = torch.arange(TIER_BIG_FRAMES, dtype=torch.float32, device=dev) / 60.0
@@ -2503,7 +2544,7 @@ def run_generic_mesh(dev) -> None:
     from gfx_ocean_tpu_torch.render.camera import Camera
 
     cfg = ot.OceanConfig(fft_impl="pallas")
-    disp = ot.step(STATES.pop("render"), R_T,
+    disp = ot.step(STATES["render"], R_T,
                    dataclasses.replace(cfg, compute_normals=False)).displacement
     cam = Camera()
     positions, uvs, tris = rr._mesh_constants(cfg.mesh_resolution, cfg.num_patches, dev)
@@ -2540,7 +2581,7 @@ def run_native_loader() -> None:
 
     out = Path(__file__).resolve().parent / "build" / "smoke" / "native"
     out.mkdir(parents=True, exist_ok=True)
-    st = STATES.pop("fourstep")
+    st = STATES["fourstep"]
     h0 = (st.h0[0] + 1j * st.h0[1]).cpu().numpy().astype(np.complex64)
     omega = st.omega.cpu().numpy()
     del st
@@ -2585,6 +2626,277 @@ def run_native_loader() -> None:
         fail(f"native loader: {rec}")
     if rec["loader_in_use"] != "native":
         fail("the bincode loaders fell back to numpy on this machine")
+
+
+
+def run_parallel(dev) -> None:
+    """Phases 42-48: ``parallel/`` on meshes whose positions repeat cuda:0
+    (the card's count of positions; distinct cards take the same code with
+    peer copies): the row-sharded K2 + K3 step of config 5 over 1 x 4, K2's
+    windows at 16384^2, band-parallel and batch frames, OceanConfig() over
+    2 x 4 under both fft names, the CLI's --mesh and serve(mesh=). Each
+    phase prints the launches of K1-K3, K7 and K8 it made."""
+    import numpy as np
+    import torch
+
+    import gfx_ocean_tpu_torch as ot
+    from gfx_ocean_tpu_torch.ops import fourstep_step as fs
+    from gfx_ocean_tpu_torch.ops import fused_step
+    from gfx_ocean_tpu_torch.ops.propagate import band_windows
+    from gfx_ocean_tpu_torch.parallel import (make_mesh, make_sharded_batch_renderer,
+                                              make_sharded_frame_renderer, make_sharded_rollout,
+                                              make_sharded_step, shard_state)
+    from gfx_ocean_tpu_torch.parallel import collectives as coll
+    from gfx_ocean_tpu_torch.parallel import distributed_fft as dfft
+    from gfx_ocean_tpu_torch.render import raster as rr
+    from gfx_ocean_tpu_torch.render.camera import Camera, perspective, scripted_camera
+    from gfx_ocean_tpu_torch.utils.profiling import time_rollout
+
+    def path_counts():
+        counts = launch_counts()
+        return {k: counts[k] for k in ("k1", "k2", "k3", "k7", "k8")}
+
+    def zero_counts():
+        for w in (fused_step.launch_packed_step, fs.launch_fourstep_row, fs.launch_fourstep_col,
+                  rr.launch_slot_kernel, rr.launch_segmin_kernel):
+            w.launches = 0
+
+    # --- 42. config 5, row-sharded K2 + K3 over a 1 x 4 mesh ------------------
+    t_phase = time.perf_counter()
+    cfg = ot.OceanConfig(resolution=FS_N, domain_size=2000.0, fft_impl="pallas",
+                         matmul_precision="high")
+    state, gold = STATES.pop("fourstep"), STATES.pop("fourstep_golden")
+    mesh = make_mesh([dev] * P_ROWS, batch=1, row=P_ROWS)
+    sstate = shard_state(state, mesh)
+    ts = torch.tensor([T_CHECK], device=dev)
+    single = fused_step.packed_planes(fused_step.hoist_packed(state.h0, state.omega, cfg), ts,
+                                      cfg)
+    windows = dfft.fourstep_windows_group(list(sstate.h0.shards), list(sstate.omega.shards))
+    zero_counts()
+    planes = dfft.fourstep_planes_group(windows, ts, cfg)
+    launched = path_counts()
+    planes_differ = int((torch.cat(planes, dim=-2) != single).sum())
+    step = make_sharded_step(cfg, mesh, batched=False)
+    fields = step(sstate, T_CHECK)
+    disp = fields.displacement.gather().cpu().numpy()
+    abs_linf = float(np.abs(disp - gold).max())
+    rel_linf = abs_linf / float(np.abs(gold).max())
+    normals_differ = int((fields.normals.gather()
+                          != ot.make_step(cfg)(state, T_CHECK).normals).sum())
+    del fields, disp, gold
+    # the two all_to_alls of a frame, alone, by CUDA events
+    rows = FS_N // P_ROWS
+    y = [fs.launch_fourstep_row(fs.FourstepInputs(None, None, fs.twiddle_table(FS_N, dev)), ts,
+                                cfg, r * rows, rows, w) for r, w in enumerate(windows)]
+    y_cols = coll.all_to_all(y, split_dim=-1, concat_dim=-2)
+    to_cols_ms = event_ms(lambda: coll.all_to_all(y, split_dim=-1, concat_dim=-2), P_CALLS)
+    cols = [fs.fourstep_col(v, fs.twiddle_table(FS_N, dev), cfg) for v in y_cols]
+    to_rows_ms = event_ms(lambda: coll.all_to_all(cols, split_dim=-2, concat_dim=-1), P_CALLS)
+    whole_inputs = fused_step.hoist_packed(state.h0, state.omega, cfg)
+    band_k2_ms = dict(
+        windows=event_ms(lambda: fs.launch_fourstep_row(
+            fs.FourstepInputs(None, None, whole_inputs.twiddle), ts, cfg, rows, rows,
+            windows[1]), P_CALLS),
+        whole_state=event_ms(lambda: fs.launch_fourstep_row(whole_inputs, ts, cfg, rows, rows),
+                             P_CALLS))
+    step_ms = event_ms(lambda: dfft.fourstep_planes_group(windows, ts, cfg), P_CALLS)
+    single_ms = event_ms(lambda: fused_step.packed_planes(
+        fused_step.hoist_packed(state.h0, state.omega, cfg), ts, cfg), P_CALLS)
+    del y, y_cols, cols, planes, single
+    # the main path: a 24-frame sharded checksum rollout beside the single one
+    ts_roll = torch.arange(P_STEPS, dtype=torch.float32, device=dev) / 60.0
+    zero_counts()
+    sharded_roll = time_rollout(make_sharded_rollout(cfg, mesh, batched=False), sstate, ts_roll,
+                                repeats=P_REPEATS)
+    roll_launched = path_counts()
+    single_roll = time_rollout(ot.make_rollout(cfg, keep_fields=False), state, ts_roll,
+                               repeats=P_REPEATS)
+    ck_rel = float(np.max(np.abs(sharded_roll["checksums"] - single_roll["checksums"])
+                          / np.abs(single_roll["checksums"])))
+    expected = (P_REPEATS + 1) * P_STEPS * P_ROWS
+    rec = dict(planes_differ=planes_differ, normals_differ=normals_differ,
+               planes_launches=launched, rel_linf=rel_linf, abs_linf=abs_linf,
+               gate_limit=GOLDEN_GATE, frame_ms=step_ms, single_device_frame_ms=single_ms,
+               all_to_all_ms=dict(rows_to_cols_y=to_cols_ms, cols_to_rows_planes=to_rows_ms),
+               k2_band_ms=band_k2_ms,
+               rollout_steps_per_sec=sharded_roll["steps_per_sec"],
+               rollout_repeats_sec=sharded_roll["repeats_sec"],
+               single_rollout_steps_per_sec=single_roll["steps_per_sec"],
+               checksums_max_rel=ck_rel, checksum_rtol=P_CHECKSUM_RTOL,
+               rollout_launches=roll_launched, expected_launches=expected)
+    phase("parallel_fourstep", resolution=FS_N, mesh="1 x 4 of cuda:0", clock="cuda events",
+          seconds=time.perf_counter() - t_phase, **rec)
+    if planes_differ or normals_differ:
+        fail(f"row-sharded config 5 differs from the single-device K2 + K3: {rec}")
+    if launched != dict(k1=0, k2=P_ROWS, k3=P_ROWS, k7=0, k8=0):
+        fail(f"row-sharded config 5 launched {launched}, expected {P_ROWS} of K2 and K3")
+    if not rel_linf <= GOLDEN_GATE:
+        fail(f"row-sharded config 5 golden gate: {rel_linf:.3e} > {GOLDEN_GATE}")
+    if roll_launched != dict(k1=0, k2=expected, k3=expected, k7=0, k8=0):
+        fail(f"row-sharded rollout launched {roll_launched}, expected {expected} of K2, K3")
+    if not (np.isfinite(sharded_roll["checksums"]).all() and ck_rel <= P_CHECKSUM_RTOL):
+        fail(f"row-sharded rollout checksums: max rel {ck_rel:.3e} > {P_CHECKSUM_RTOL}")
+    del sstate
+
+    # --- 43. K2 at 16384^2 on a shard's two windows ---------------------------
+    t_phase = time.perf_counter()
+    big_cfg, big = STATES.pop("big")
+    base, rows = 3 * BIG_N // P_ROWS, BIG_N // P_ROWS
+    zero_counts()
+    whole = fs.launch_fourstep_row(big, ts, big_cfg, row_base=base, rows=rows)
+    band = fs.launch_fourstep_row(fs.FourstepInputs(None, None, big.twiddle), ts, big_cfg,
+                                  base, rows, band_windows(big.h0, big.omega, base, rows))
+    launched = path_counts()
+    differ = int((band != whole).sum())
+    phase("parallel_big_windows", resolution=BIG_N, row_base=base, rows=rows,
+          differing=differ, launches=launched, seconds=time.perf_counter() - t_phase)
+    if differ or launched["k2"] != 2:
+        fail(f"{BIG_N}^2 K2 on windows differs from the whole-state K2 in {differ} values")
+    del big, whole, band
+    torch.cuda.empty_cache()
+
+    # --- 44. the 1200x700 frame over 4 bands ----------------------------------
+    t_phase = time.perf_counter()
+    rstate = STATES.pop("render")
+    rcfg = ot.OceanConfig(fft_impl="pallas")
+    cam = Camera()
+    vp = rr._view_proj(cam, R_W, R_H, dev)
+    cp = torch.tensor(cam.position.astype(np.float32), device=dev)
+    want = rr.make_frame_renderer(rcfg, R_W, R_H, R_GIANTS)(rstate, R_T, vp, cp)
+    band_fn = make_sharded_frame_renderer(rcfg, mesh, R_W, R_H, R_GIANTS, diag=True)
+    zero_counts()
+    frame, dropped = band_fn(rstate, R_T, vp, cp)
+    launched = path_counts()
+    differ = int((frame.gather() != want).sum())
+    dropped = dropped.gather().tolist()
+    band_ms = event_ms(lambda: band_fn(rstate, R_T, vp, cp), P_RENDER_CALLS)
+    full_ms = event_ms(lambda: rr.make_frame_renderer(rcfg, R_W, R_H, R_GIANTS)(
+        rstate, R_T, vp, cp), P_RENDER_CALLS)
+    phase("parallel_render", width=R_W, height=R_H, bands=P_ROWS, giants=R_GIANTS,
+          differing=differ, dropped=dropped, launches=launched, band_frame_ms=band_ms,
+          single_frame_ms=full_ms, seconds=time.perf_counter() - t_phase)
+    if differ or any(dropped) or launched != dict(k1=P_ROWS, k2=0, k3=0, k7=P_ROWS,
+                                                   k8=P_ROWS):
+        fail(f"4-band frame: {differ} values differ, dropped {dropped}, launched {launched}")
+    del want, frame
+
+    # --- 45. frames over batch x bands over rows (2 x 2) ----------------------
+    # The bands are bit-equal to a frame that drops no giant candidate (the
+    # renderer's contract; ``diag``). At giants 512 the scripted camera's
+    # second pose drops 69 on one device and none in two bands of 350 rows
+    # (the same on the CPU), so that frame is held at twice the giants.
+    t_phase = time.perf_counter()
+    mesh22 = make_mesh([dev] * 4, batch=2, row=2)
+    proj = perspective(R_W / R_H)
+    cams = [c for _, c in scripted_camera([(P_FRAMES, ["w"])], dt=0.2)]
+    vps = torch.tensor(np.stack([(proj @ c.view()).astype(np.float32) for c in cams]),
+                       device=dev)
+    cps = torch.tensor(np.stack([c.position.astype(np.float32) for c in cams]), device=dev)
+    fts = torch.arange(P_FRAMES, dtype=torch.float32, device=dev) * 0.5 + R_T
+    rec = {}
+    for giants in (R_GIANTS, 2 * R_GIANTS):
+        one = rr.make_frame_renderer(rcfg, R_W, R_H, giants, diag=True)
+        dropped = [int(one(rstate, fts[i], vps[i], cps[i])[1]) for i in range(P_FRAMES)]
+        want = rr.make_batch_renderer(rcfg, R_W, R_H, giants)(rstate, fts, vps, cps)
+        zero_counts()
+        got = make_sharded_batch_renderer(rcfg, mesh22, R_W, R_H, giants)(rstate, fts, vps,
+                                                                          cps).gather()
+        rec[giants] = dict(single_device_dropped=dropped, launches=path_counts(),
+                           differing=[int((got[i] != want[i]).sum()) for i in range(P_FRAMES)])
+    phase("parallel_batch_render", width=R_W, height=R_H, mesh="2 x 2 of cuda:0",
+          frames=P_FRAMES, seconds=time.perf_counter() - t_phase,
+          **{f"giants_{g}": r for g, r in rec.items()})
+    for giants, r in rec.items():
+        held = [d for d, drop in zip(r["differing"], r["single_device_dropped"]) if drop == 0]
+        if any(held) or r["launches"]["k7"] != 2 * P_FRAMES:
+            fail(f"2 x 2 batch renderer at giants {giants}: {r}")
+    if any(rec[2 * R_GIANTS]["single_device_dropped"]):
+        fail(f"2 x 2 batch renderer: frames still drop at giants {2 * R_GIANTS}")
+    del want, got
+
+    # --- 46. OceanConfig() at 512^2 over 2 x 4, both fft names ---------------
+    t_phase = time.perf_counter()
+    dcfg = ot.OceanConfig()
+    one = STATES["main"]
+    pair = ot.OceanState(torch.stack([one.h0] * 2), torch.stack([one.omega] * 2))
+    mesh24 = make_mesh([dev] * 8, batch=2, row=4)
+    ts_d = torch.arange(P_STEPS, dtype=torch.float32, device=dev) / 60.0
+    want_ck = ot.make_rollout(dcfg, keep_fields=False)(pair, ts_d).cpu().numpy()
+    rec = {}
+    for fft in ("gspmd", "shard_map"):
+        zero_counts()
+        got_ck = make_sharded_rollout(dcfg, mesh24, fft=fft)(shard_state(pair, mesh24),
+                                                              ts_d).cpu().numpy()
+        rel = float(np.max(np.abs(got_ck - want_ck) / np.abs(want_ck)))
+        rec[fft] = dict(checksums_max_rel=rel, launches=path_counts())
+        if not (np.isfinite(got_ck).all() and rel <= P_CHECKSUM_RTOL):
+            fail(f"OceanConfig() over 2 x 4 ({fft}): checksums max rel {rel:.3e}")
+    phase("parallel_default_config", config="OceanConfig() (matmul, unpacked, bf16x3)",
+          mesh="2 x 4 of cuda:0", steps=P_STEPS, checksum_rtol=P_CHECKSUM_RTOL,
+          seconds=time.perf_counter() - t_phase, **rec)
+
+    # --- 47. the CLI's --mesh ------------------------------------------------
+    t_phase = time.perf_counter()
+    work = Path(__file__).resolve().parent / "build" / "smoke" / "cli"
+    files = ["--resolution", str(N), "--spectrum", str(work / "spectrum.bin"),
+             "--omega", str(work / "omega.bin"), "--fft-impl", "pallas"]
+    out, launched_sim = cli(["simulate", *files, "--steps", str(P_STEPS), "--mesh", "1,1"])
+    sim = last_json(out)
+    plain_sim = last_json(cli(["simulate", *files, "--steps", str(P_STEPS)])[0])
+    render_dir = work / "render_mesh"
+    _, launched_render = cli(["render", *files, "--frames", "2", "--width", str(R_W),
+                              "--height", str(R_H), "--out", str(render_dir), "--mesh", "1,1"])
+    cards = torch.cuda.device_count()
+    two = {}
+    try:
+        out, launched_two = cli(["simulate", *files, "--steps", "4", "--mesh", "1,2"])
+        two = dict(ran=True, launches=launched_two)
+    except SystemExit as e:
+        two = dict(exited=str(e.code))
+    sim_rel = float(np.max(np.abs(np.array(sim["checksums_head"])
+                                  - np.array(plain_sim["checksums_head"]))
+                           / np.abs(np.array(plain_sim["checksums_head"]))))
+    phase("parallel_cli", simulate=dict(launches=launched_sim, checksums_max_rel=sim_rel),
+          render=dict(launches=launched_render), mesh_1_2=two, cards=cards,
+          seconds=time.perf_counter() - t_phase)
+    if sim_rel > P_CHECKSUM_RTOL or launched_sim.get("k1", 0) < 1:
+        fail(f"simulate --mesh 1,1: {sim_rel:.3e} from the unsharded CLI, {launched_sim}")
+    if launched_render.get("k7", 0) != 2:
+        fail(f"render --mesh 1,1 launched {launched_render}")
+    if cards < 2 and two.get("exited") != "--mesh 1,2 wants 2 devices; only 1 visible":
+        fail(f"--mesh 1,2 on one card: {two}")
+    if cards >= 2 and not two.get("ran"):
+        fail(f"--mesh 1,2 on {cards} cards: {two}")
+
+    # --- 48. serve(mesh=) ----------------------------------------------------
+    import threading
+
+    from gfx_ocean_tpu_torch.serve import serve
+
+    t_phase = time.perf_counter()
+    scfg = ot.OceanConfig(fft_impl="pallas")
+    bodies = {}
+    for name, m in (("unsharded", None), ("sharded", mesh)):
+        srv = serve(STATES["main"], scfg, port=0, mesh=m)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        try:
+            base_url = f"http://127.0.0.1:{srv.server_address[1]}"
+            before = launch_counts()
+            bodies[name] = http_get(base_url + f"/frame.png?t={T_CHECK}&w={R_W}&h={R_H}")
+            launched = launched_since(before)
+            metrics = json.loads(http_get(base_url + "/metrics"))
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        bodies[name + "_launches"] = launched
+        bodies[name + "_mesh"] = metrics["mesh"]
+    same = bodies["sharded"] == bodies["unsharded"]
+    phase("parallel_serve", width=R_W, height=R_H, png_bytes_equal=same,
+          png_bytes=len(bodies["sharded"]), launches=bodies["sharded_launches"],
+          unsharded_launches=bodies["unsharded_launches"], mesh=bodies["sharded_mesh"],
+          seconds=time.perf_counter() - t_phase)
+    if not same or bodies["sharded_mesh"] != {"batch": 1, "row": P_ROWS}:
+        fail("serve(mesh=): /frame.png differs from the unsharded server's")
 
 
 if __name__ == "__main__":

@@ -15,8 +15,10 @@
 The subcommands, flags and defaults are the JAX CLI's. One flag is the
 port's own: ``--device {cuda,cpu}`` (default cuda) says where the state
 lives and the step runs; without a card the CLI exits unless it is given
-``--device cpu``, and it never carries on on the CPU by itself. ``--mesh``
-is not ported (ROADMAP.md queue 1, item 11): given, it exits. States drawn
+``--device cpu``, and it never carries on on the CPU by itself. ``--mesh
+B,R`` runs ``simulate``, ``bench``, ``serve`` and ``render`` over a
+(batch, row) mesh (``parallel/``): the first B * R cards, or with
+``--device cpu`` B * R positions on the host. States drawn
 from a seed (``--phillips``, cascades) come from ``torch.Generator`` and
 differ from the JAX package's ``jax.random`` draws of the same seed; share
 a state between the packages through ``synth``'s files or a checkpoint.
@@ -96,13 +98,15 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "waves moving against the wind (1 = classic "
                         "symmetric |k.w|^p, 0 = upwind waves removed)")
     p.add_argument("--mesh", type=str, default=None, metavar="BATCH,ROW",
-                   help="a (batch, row) device mesh, e.g. --mesh 2,4: not "
-                        "ported yet (ROADMAP.md queue 1, item 11); a given "
-                        "--mesh exits")
+                   help="run on a (batch, row) device mesh, e.g. --mesh 2,4: "
+                        "the first BATCH*ROW cards (with --device cpu, "
+                        "BATCH*ROW positions on the host); rows shard the "
+                        "grid, batch shards patches / cascades")
     p.add_argument("--sharded-fft", choices=("gspmd", "shard_map"),
                    default="gspmd",
-                   help="multi-chip FFT strategy: XLA-inserted collectives "
-                        "(gspmd) or the explicit shard_map four-step")
+                   help="the JAX package's multi-chip FFT strategy names; the "
+                        "port runs one explicit all_to_all schedule under "
+                        "both (ROADMAP D7)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the state lives and the step runs: the card "
                         "(default; exits when there is none) or the CPU, "
@@ -180,6 +184,63 @@ def _build(args):
                 raise SystemExit(f"assets are {n}^2; cannot upsample to "
                                  f"{config.resolution}^2 — use --phillips")
     return config, phillips, state
+
+
+def _parse_mesh_arg(args):
+    """``--mesh B,R`` -> (batch, row) ints, or None when not given."""
+    if getattr(args, "mesh", None) is None:
+        return None
+    parts = args.mesh.split(",")
+    if len(parts) != 2:
+        raise SystemExit(f"--mesh wants BATCH,ROW (e.g. 2,4), got {args.mesh!r}")
+    try:
+        batch, row = int(parts[0]), int(parts[1])
+    except ValueError:
+        raise SystemExit(f"--mesh wants integers, got {args.mesh!r}") from None
+    if batch < 1 or row < 1:
+        raise SystemExit("--mesh axes must be >= 1")
+    return batch, row
+
+
+def _mesh_devices(args, count: int) -> list:
+    """The mesh's devices: the first ``count`` cards, or ``count``
+    positions on the host with ``--device cpu``; exits when there are too
+    few cards."""
+    if args.device == "cpu":
+        return [torch.device("cpu")] * count
+    visible = torch.cuda.device_count()
+    if count > visible:
+        batch, row = _parse_mesh_arg(args)
+        raise SystemExit(f"--mesh {batch},{row} wants {count} devices; only {visible} visible")
+    return [torch.device("cuda", i) for i in range(count)]
+
+
+def _mesh_setup(args, config, state):
+    """Build the device mesh and shard the state on it.
+
+    Returns (mesh, state, batched). With ``batch > 1`` and an unbatched
+    state, the state is tiled into ``batch`` independent patches (the
+    reference's 4-instance patch draw, ``src/render.rs:518-559``); with
+    cascades, the cascade axis is the batch axis and must divide evenly.
+    """
+    from gfx_ocean_tpu_torch.models.ocean import OceanState  # noqa: PLC0415
+    from gfx_ocean_tpu_torch.parallel import make_mesh, shard_state  # noqa: PLC0415
+
+    batch, row = _parse_mesh_arg(args)
+    mesh = make_mesh(_mesh_devices(args, batch * row), batch=batch, row=row)
+    batched = state.h0.ndim == 4
+    if batched:
+        if state.h0.shape[0] % batch:
+            raise SystemExit(f"{state.h0.shape[0]} cascades not divisible by "
+                             f"mesh batch={batch}")
+    elif batch > 1:
+        state = OceanState(h0=state.h0.expand(batch, *state.h0.shape),
+                           omega=state.omega.expand(batch, *state.omega.shape))
+        batched = True
+    if config.resolution % row:
+        raise SystemExit(f"grid {config.resolution} not divisible by mesh "
+                         f"row={row}")
+    return mesh, shard_state(state, mesh), batched
 
 
 def _finite(obj):
@@ -281,8 +342,25 @@ def cmd_simulate(args) -> int:
         config, _, state = _build(args)
         t0 = args.t0
 
+    mesh_arg = _parse_mesh_arg(args)
+    if mesh_arg is not None:
+        from gfx_ocean_tpu_torch.parallel import (  # noqa: PLC0415
+            make_sharded_rollout, make_sharded_step)
+
+        mesh, sharded, batched = _mesh_setup(args, config, state)
+
     ts = t0 + np.arange(args.steps, dtype=np.float32) * args.dt
-    if args.save_fields:
+    if args.save_fields and mesh_arg is not None:
+        # One sharded step a frame; its fields gather to the host.
+        os.makedirs(args.save_fields, exist_ok=True)
+        step = make_sharded_step(config, mesh, batched=batched, fft=args.sharded_fft)
+        for i, t in enumerate(ts):
+            out = step(sharded, float(t))
+            host = [None if f is None else f.gather().cpu().numpy() for f in out]
+            save_fields(os.path.join(args.save_fields, f"frame_{i:05d}.npz"), *host,
+                        t=float(t))
+        print(f"saved {len(ts)} frames to {args.save_fields}")
+    elif args.save_fields:
         os.makedirs(args.save_fields, exist_ok=True)
         # A keep_fields rollout in chunks of at most 256 MB of fields, one
         # host copy a chunk.
@@ -304,7 +382,11 @@ def cmd_simulate(args) -> int:
                     None if foam is None else foam[j], t=float(t))
         print(f"saved {len(ts)} frames to {args.save_fields}")
     else:
-        sums = make_rollout(config, keep_fields=False)(state, ts).cpu().numpy()
+        if mesh_arg is not None:
+            rollout = make_sharded_rollout(config, mesh, batched=batched, fft=args.sharded_fft)
+            sums = rollout(sharded, ts).cpu().numpy()
+        else:
+            sums = make_rollout(config, keep_fields=False)(state, ts).cpu().numpy()
         print(json.dumps({"frames": len(ts), "t0": float(t0),
                           "t1": float(ts[-1]), "checksums_head": sums[:5].tolist(),
                           "effective_precision": _effective_precision(config)}))
@@ -320,8 +402,17 @@ def cmd_bench(args) -> int:
         card_name_and_power_limit, time_rollout, trace)
 
     config, _, state = _build(args)
-    rollout = make_rollout(config, keep_fields=False, time_batch=args.time_batch)
-    ts = torch.arange(args.steps, dtype=torch.float32, device=state.h0.device) * args.dt
+    dev = state.h0.device
+    mesh_arg = _parse_mesh_arg(args)
+    if mesh_arg is not None:
+        from gfx_ocean_tpu_torch.parallel import make_sharded_rollout  # noqa: PLC0415
+
+        mesh, state, batched = _mesh_setup(args, config, state)
+        rollout = make_sharded_rollout(config, mesh, batched=batched,
+                                       time_batch=args.time_batch, fft=args.sharded_fft)
+    else:
+        rollout = make_rollout(config, keep_fields=False, time_batch=args.time_batch)
+    ts = torch.arange(args.steps, dtype=torch.float32, device=dev) * args.dt
     if args.trace_dir:
         with trace(args.trace_dir):
             stats = time_rollout(rollout, state, ts, repeats=1)
@@ -332,8 +423,11 @@ def cmd_bench(args) -> int:
                  precision=config.matmul_precision,
                  effective_precision=_effective_precision(config),
                  time_batch=args.time_batch)
-    if state.h0.is_cuda:
-        stats.update(device=torch.cuda.get_device_name(state.h0.device),
+    if mesh_arg is not None:
+        stats.update(mesh={"batch": mesh_arg[0], "row": mesh_arg[1]},
+                     sharded_fft=args.sharded_fft)
+    if dev.type == "cuda":
+        stats.update(device=torch.cuda.get_device_name(dev),
                      power_limit=card_name_and_power_limit())
     print(json.dumps(stats))
     return 0
@@ -357,7 +451,15 @@ def cmd_serve(args) -> int:
     from gfx_ocean_tpu_torch.serve import serve  # noqa: PLC0415
 
     config, _, state = _build(args)
-    server = serve(state, config, host=args.host, port=args.port)
+    mesh = None
+    if _parse_mesh_arg(args) is not None:
+        if state.h0.ndim != 3:
+            raise SystemExit("serve with a device mesh uses a single cascade")
+        if _parse_mesh_arg(args)[0] != 1:
+            raise SystemExit("serve renders one field; use --mesh 1,R")
+        mesh, state, _ = _mesh_setup(args, config, state)
+    server = serve(state, config, host=args.host, port=args.port, mesh=mesh,
+                   sharded_fft=args.sharded_fft)
     print(f"serving ocean frames on http://{args.host}:{args.port} "
           f"(/health /config /frame?t= /frame.png?t= /metrics)", file=sys.stderr)
     try:
@@ -400,10 +502,35 @@ def cmd_render(args) -> int:
     ts = torch.from_numpy(
         (args.t0 + np.arange(args.frames) * args.dt).astype(np.float32)).to(dev)
     chunk = max(1, min(args.frames, 16))
-    renderer = make_batch_renderer(config, width=args.width, height=args.height)
+    mesh_arg = _parse_mesh_arg(args)
+    if mesh_arg is not None:
+        # Frames data-parallel over "batch" x viewport bands over "row"
+        # (parallel/render.py; bit-equal to the single-device renderer).
+        from gfx_ocean_tpu_torch.parallel import make_mesh  # noqa: PLC0415
+        from gfx_ocean_tpu_torch.parallel.render import (  # noqa: PLC0415
+            make_sharded_batch_renderer, replicate_state)
+
+        batch, row = mesh_arg
+        devices = _mesh_devices(args, batch * row)
+        if args.height % row:
+            raise SystemExit(f"--mesh row={row} must divide --height "
+                             f"{args.height} (viewport bands)")
+        mesh = make_mesh(devices, batch=batch, row=row)
+        sharded = make_sharded_batch_renderer(config, mesh, width=args.width,
+                                              height=args.height)
+        state = replicate_state(state, mesh)
+        chunk = -(-chunk // batch) * batch   # the ragged tail pads to a full chunk
+
+        def renderer(state, ts, vps, cps):
+            return sharded(state, ts, vps, cps).gather()
+    else:
+        renderer = make_batch_renderer(config, width=args.width, height=args.height)
     for start in range(0, args.frames, chunk):
-        sl = slice(start, min(start + chunk, args.frames))
-        srgb = renderer(state, ts[sl], vps[sl], cps[sl]).cpu().numpy()
+        end = min(start + chunk, args.frames)
+        idx = torch.arange(start, end, device=dev)
+        if mesh_arg is not None:  # the tail repeats the last frame, cut after the copy
+            idx = torch.arange(start, start + chunk, device=dev).clamp_max(end - 1)
+        srgb = renderer(state, ts[idx], vps[idx], cps[idx]).cpu().numpy()[:end - start]
         for j, frame in enumerate(srgb):
             path = os.path.join(args.out, f"frame_{start + j:05d}")
             np.save(path + ".npy", frame)
@@ -504,9 +631,6 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_query)
 
     args = parser.parse_args(argv)
-    if args.mesh is not None:
-        raise SystemExit(f"--mesh {args.mesh}: a device mesh is not ported yet "
-                         "(ROADMAP.md queue 1, item 11)")
     _device(args)
     return args.fn(args)
 

@@ -13,7 +13,9 @@
 //                        (y, x), its flip, rho and rho's flip; omega at two
 //                        places; the partners of a band's rows lie outside
 //                        it, so K2 takes the whole state and the global
-//                        row), forms the packed propagate (half = +0.5) in
+//                        row, or with kWindows a row band's two windows of
+//                        the state, ocean::StateWindows), forms the packed
+//                        propagate (half = +0.5) in
 //                        registers, and runs the x-transform of H and Z as
 //                        register-resident radix-8 passes (fft_reg.cuh:
 //                        8 x 8 x 8 x 8 at 4096, a last radix 2 / 4
@@ -175,14 +177,29 @@ struct ColShape {
   static constexpr int kBandFloats = 4 * kN * kColCols;  // B of one (frame, band)
 };
 
+// K2's packed propagate of element (y, x) at time t: read from the whole
+// state (h0, omega), or with kWindows from a row band's two windows w.
+template <bool kWindows>
+__device__ __forceinline__ ocean::PackedSpectra row_propagate(
+    const float* __restrict__ h0, const float* __restrict__ omega, const ocean::StateWindows& w,
+    int n, int y, int x, float t, float scale, int wrap_k, int conj_neg) {
+  if constexpr (kWindows) {
+    return ocean::packed_propagate_pair_windows(w, n, y, x, t, scale, wrap_k != 0,
+                                                conj_neg != 0, 0.5f).e;
+  } else {
+    return ocean::packed_propagate(h0, omega, n, y, x, t, scale, wrap_k != 0, conj_neg != 0,
+                                   0.5f);
+  }
+}
+
 // K2: blockIdx.x = row of the band, N / 8 threads, looping over the
 // frames. smem: (Hr, Hi, Zr, Zi) x kLen, one buffer. (Rho pairs of rows in
 // one block, as K1 runs them, measured slower here: 1,024-thread blocks
 // and two more barriers a frame cost more than the shared propagate saves.)
-template <int LOG2N>
+template <int LOG2N, bool kWindows>
 __global__ void __launch_bounds__(RowFft<LOG2N>::kT, kSmThreads / RowFft<LOG2N>::kT)
     fourstep_row_pass(
-    const float* __restrict__ h0, const float* __restrict__ omega,
+    const float* __restrict__ h0, const float* __restrict__ omega, ocean::StateWindows w,
     const float* __restrict__ tw, const float* __restrict__ ts, int tb, int rows, int row_base,
     float scale, int wrap_k, int conj_neg, float* __restrict__ y) {
   using Fft = RowFft<LOG2N>;
@@ -199,11 +216,16 @@ __global__ void __launch_bounds__(RowFft<LOG2N>::kT, kSmThreads / RowFft<LOG2N>:
 
   for (int frame = 0; frame < tb; ++frame) {
     const float t = ts[frame];
+    // With windows the row, made opaque each frame as the split kernel's
+    // tid is: its window addresses are then formed where they are read, not
+    // hoisted out of the frame loop and held across the passes (a spill).
+    int fy = gy;
+    if constexpr (kWindows) asm volatile("mov.b32 %0, %1;" : "=r"(fy) : "r"(gy));
     float v[4][kRadix];
     static_for<0, kRadix>([&](auto k_) {
       constexpr int k = decltype(k_)::value;
-      const ocean::PackedSpectra p = ocean::packed_propagate(
-          h0, omega, n, gy, tid + k * Fft::kT, t, scale, wrap_k != 0, conj_neg != 0, 0.5f);
+      const ocean::PackedSpectra p = row_propagate<kWindows>(
+          h0, omega, w, n, fy, tid + k * Fft::kT, t, scale, wrap_k, conj_neg);
       v[0][k] = p.hr;
       v[1][k] = p.hi;
       v[2][k] = p.zr;
@@ -229,6 +251,7 @@ __global__ void __launch_bounds__(RowFft<LOG2N>::kT, kSmThreads / RowFft<LOG2N>:
 struct RowArgs {
   const float* h0;
   const float* omega;
+  ocean::StateWindows w;  // read in place of h0, omega by the kWindows kernels
   const float* tw;
   const float* ts;
   int tb;
@@ -240,14 +263,15 @@ struct RowArgs {
   float* y;
 };
 
-template <int LOG2N>
+template <int LOG2N, bool kWindows>
 int launch_row(const RowArgs& a, cudaStream_t st) {
   constexpr size_t smem = 4 * static_cast<size_t>(RowFft<LOG2N>::kLen) * sizeof(float);
   static bool ready[ocean::kMaxDevices];
-  const cudaError_t err = ocean::allow_smem(fourstep_row_pass<LOG2N>, smem, ready);
+  const cudaError_t err = ocean::allow_smem(fourstep_row_pass<LOG2N, kWindows>, smem, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fourstep_row_pass<LOG2N><<<a.rows, RowFft<LOG2N>::kT, smem, st>>>(
-      a.h0, a.omega, a.tw, a.ts, a.tb, a.rows, a.row_base, a.scale, a.wrap_k, a.conj_neg, a.y);
+  fourstep_row_pass<LOG2N, kWindows><<<a.rows, RowFft<LOG2N>::kT, smem, st>>>(
+      a.h0, a.omega, a.w, a.tw, a.ts, a.tb, a.rows, a.row_base, a.scale, a.wrap_k, a.conj_neg,
+      a.y);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -292,11 +316,11 @@ __device__ __forceinline__ void store_cluster(uint32_t addr, float v) {
 // from its own slot: slot[(plane 8 + r') T + t], a warp's 32 stores and
 // loads on 32 banks. The slot is the passes' buffer. Output m of rank rho
 // is Y[kSplit m + rho], stored with the sign (-1)^rho.
-template <int LOG2N>
+template <int LOG2N, bool kWindows>
 __global__ void __cluster_dims__(kSplit, 1, 1)
     __launch_bounds__(PartFft<LOG2N>::kT, kSmThreads / PartFft<LOG2N>::kT)
     fourstep_row_pass_split(
-    const float* __restrict__ h0, const float* __restrict__ omega,
+    const float* __restrict__ h0, const float* __restrict__ omega, ocean::StateWindows w,
     const float* __restrict__ tw, const float* __restrict__ ts, int tb, int rows, int row_base,
     float scale, int wrap_k, int conj_neg, float* __restrict__ y) {
   using Fft = PartFft<LOG2N>;
@@ -321,8 +345,8 @@ __global__ void __cluster_dims__(kSplit, 1, 1)
       asm volatile("mov.b32 %0, %1;" : "=r"(ftid) : "r"(tid));
       const float t = ts[frame];
       auto propagate = [&](int x) {
-        return ocean::packed_propagate(h0, omega, n, row_base + row, x, t, scale, wrap_k != 0,
-                                       conj_neg != 0, 0.5f);
+        return row_propagate<kWindows>(h0, omega, w, n, row_base + row, x, t, scale, wrap_k,
+                                       conj_neg);
       };
       // c[plane][q] of the group at k: the propagate of k + j N / kSplit,
       // the radix-kSplit step and its twiddles e^{2 pi i q k / N}, q k < N.
@@ -395,12 +419,12 @@ __global__ void __cluster_dims__(kSplit, 1, 1)
   ClusterBarrier::wait();  // no block leaves while another may store into its slot
 }
 
-template <int LOG2N>
+template <int LOG2N, bool kWindows>
 int launch_row_split(const RowArgs& a, cudaStream_t st) {
   constexpr int threads = PartFft<LOG2N>::kT;
   constexpr size_t smem = 4 * static_cast<size_t>(PartFft<LOG2N>::kLen) * sizeof(float);
   static bool ready[ocean::kMaxDevices];
-  cudaError_t err = ocean::allow_smem(fourstep_row_pass_split<LOG2N>, smem, ready);
+  cudaError_t err = ocean::allow_smem(fourstep_row_pass_split<LOG2N, kWindows>, smem, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
   static int clusters[ocean::kMaxDevices];  // max active clusters, once a device; 0: not asked
   int dev = 0;
@@ -421,7 +445,7 @@ int launch_row_split(const RowArgs& a, cudaStream_t st) {
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     int n = 0;
-    err = cudaOccupancyMaxActiveClusters(&n, fourstep_row_pass_split<LOG2N>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&n, fourstep_row_pass_split<LOG2N, kWindows>, &cfg);
     if (err != cudaSuccess) return static_cast<int>(err);
     clusters[dev] = n > 0 ? n : -1;
   }
@@ -430,8 +454,9 @@ int launch_row_split(const RowArgs& a, cudaStream_t st) {
   // walking over rows (3-5% faster than one cluster a row, PERF.md).
   const dim3 grid(std::min(a.rows, clusters[dev]) * kSplit);
   // The cluster shape is the kernel's own (__cluster_dims__): a plain launch.
-  fourstep_row_pass_split<LOG2N><<<grid, threads, smem, st>>>(
-      a.h0, a.omega, a.tw, a.ts, a.tb, a.rows, a.row_base, a.scale, a.wrap_k, a.conj_neg, a.y);
+  fourstep_row_pass_split<LOG2N, kWindows><<<grid, threads, smem, st>>>(
+      a.h0, a.omega, a.w, a.tw, a.ts, a.tb, a.rows, a.row_base, a.scale, a.wrap_k, a.conj_neg,
+      a.y);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -592,6 +617,21 @@ int launch_col(const ColArgs& a, cudaStream_t st) {
 
 bool valid_n(int n, int max_n) { return n >= kMinN && n <= max_n && (n & (n - 1)) == 0; }
 
+bool valid_rows(int n, int tb, int rows, int row_base) {
+  return valid_n(n, kMaxN) && tb >= 1 && rows >= 1 && row_base >= 0 && row_base + rows <= n;
+}
+
+template <bool kWindows>
+int launch_row_any(const RowArgs& a, int n, cudaStream_t st) {
+  switch (n) {
+    case 1024: return launch_row<10, kWindows>(a, st);
+    case 2048: return launch_row<11, kWindows>(a, st);
+    case 4096: return launch_row<12, kWindows>(a, st);
+    case 8192: return launch_row<13, kWindows>(a, st);
+    default: return launch_row_split<14, kWindows>(a, st);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -604,18 +644,24 @@ extern "C" {
 int fourstep_row(const float* h0, const float* omega, const float* tw, const float* ts, int tb,
                  int n, int rows, int row_base, float scale, int wrap_k, int conj_neg, float* y,
                  void* stream) {
-  if (!valid_n(n, kMaxN) || tb < 1 || rows < 1 || row_base < 0 || row_base + rows > n) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const RowArgs a{h0, omega, tw, ts, tb, rows, row_base, scale, wrap_k, conj_neg, y};
-  switch (n) {
-    case 1024: return launch_row<10>(a, st);
-    case 2048: return launch_row<11>(a, st);
-    case 4096: return launch_row<12>(a, st);
-    case 8192: return launch_row<13>(a, st);
-    default: return launch_row_split<14>(a, st);
-  }
+  if (!valid_rows(n, tb, rows, row_base)) return static_cast<int>(cudaErrorInvalidValue);
+  const RowArgs a{h0, omega, {}, tw, ts, tb, rows, row_base, scale, wrap_k, conj_neg, y};
+  return launch_row_any<false>(a, n, static_cast<cudaStream_t>(stream));
+}
+
+// K2 on the band of `rows` rows from row_base, reading the band's two
+// windows of the state (ocean::StateWindows) in place of the whole state:
+// h0 (2 (rows + 1), 2, n) and omega (2 (rows + 1), n) hold the rows
+// row_base - 1 ... and then n - row_base - rows ... of the grid, mod n.
+// Otherwise as fourstep_row, with the same output bit for bit.
+int fourstep_row_windows(const float* h0, const float* omega, const float* tw, const float* ts,
+                         int tb, int n, int rows, int row_base, float scale, int wrap_k,
+                         int conj_neg, float* y, void* stream) {
+  if (!valid_rows(n, tb, rows, row_base)) return static_cast<int>(cudaErrorInvalidValue);
+  const ocean::StateWindows w{h0, omega, (row_base - 1) & (n - 1),
+                              (n - row_base - rows) & (n - 1), rows + 1};
+  const RowArgs a{nullptr, nullptr, w, tw, ts, tb, rows, row_base, scale, wrap_k, conj_neg, y};
+  return launch_row_any<true>(a, n, static_cast<cudaStream_t>(stream));
 }
 
 // Launches K3 for tb frames on `stream`; returns the first error. Input:

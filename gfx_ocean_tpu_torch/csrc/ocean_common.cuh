@@ -144,28 +144,12 @@ struct PackedPair {
   PackedSpectra e, rho;
 };
 
-// ops/propagate.packed_spectra for element e = (y, x) of the n x n grid at
-// time t, read from the state: h0 at (y, x), at its flip, at rho = (-y, -x)
-// mod n and at rho's flip (y - 1, x - 1), omega at (y, x) and at rho. The
-// ten values the plain version hoists (P1..P4, their rho twins, omega,
-// omega o rho) are formed here in registers with the same roundings.
-// The same reads give rho(e)'s spectra: its S and S o rho are e's swapped,
-// and so are its k-hat pairs, so H(rho e) = conj(H(e)) and Z(rho e) =
-// (dx_r + dz_i) + i (dz_r - dx_i), bit for bit what rho(e)'s own
-// propagate computes (IEEE add is commutative and a - b = -(b - a)).
-__device__ __forceinline__ PackedPair packed_propagate_pair(
-    const float* __restrict__ h0, const float* __restrict__ omega, int n, int y, int x,
-    float t, float scale, bool wrap, bool conj_neg, float half) {
-  const size_t nn = static_cast<size_t>(n) * n;
-  const int m = n - 1;
-  const size_t idx = static_cast<size_t>(y) * n + x;
-  const size_t rho = static_cast<size_t>((n - y) & m) * n + ((n - x) & m);
-  float p[4], q[4];
-  pre_planes(h0, nn, idx, conj_neg, p);
-  pre_planes(h0, nn, rho, conj_neg, q);
-  float c, s, cq, sq;
-  sincos_phase(__ldg(omega + idx), t, c, s);
-  sincos_phase(__ldg(omega + rho), t, cq, sq);
+// The packed spectra of e = (y, x) and of rho(e) from their planes P1..P4
+// (p at e, q at rho) and the (cos, sin) of their phases: the arithmetic of
+// packed_propagate_pair after its reads.
+__device__ __forceinline__ PackedPair packed_spectra_pair(
+    const float (&p)[4], const float (&q)[4], float c, float s, float cq, float sq, int n,
+    int y, int x, float scale, bool wrap, float half) {
   const float sr = add(mul(c, p[0]), mul(s, p[1]));  // S
   const float si = add(mul(s, p[2]), mul(c, p[3]));
   const float tr = add(mul(cq, q[0]), mul(sq, q[1]));  // S o rho
@@ -192,6 +176,88 @@ __device__ __forceinline__ PackedPair packed_propagate_pair(
   r.rho.zr = add(dx_r, dz_i);
   r.rho.zi = sub(dz_r, dx_i);
   return r;
+}
+
+// ops/propagate.packed_spectra for element e = (y, x) of the n x n grid at
+// time t, read from the state: h0 at (y, x), at its flip, at rho = (-y, -x)
+// mod n and at rho's flip (y - 1, x - 1), omega at (y, x) and at rho. The
+// ten values the plain version hoists (P1..P4, their rho twins, omega,
+// omega o rho) are formed here in registers with the same roundings.
+// The same reads give rho(e)'s spectra: its S and S o rho are e's swapped,
+// and so are its k-hat pairs, so H(rho e) = conj(H(e)) and Z(rho e) =
+// (dx_r + dz_i) + i (dz_r - dx_i), bit for bit what rho(e)'s own
+// propagate computes (IEEE add is commutative and a - b = -(b - a)).
+__device__ __forceinline__ PackedPair packed_propagate_pair(
+    const float* __restrict__ h0, const float* __restrict__ omega, int n, int y, int x,
+    float t, float scale, bool wrap, bool conj_neg, float half) {
+  const size_t nn = static_cast<size_t>(n) * n;
+  const int m = n - 1;
+  const size_t idx = static_cast<size_t>(y) * n + x;
+  const size_t rho = static_cast<size_t>((n - y) & m) * n + ((n - x) & m);
+  float p[4], q[4];
+  pre_planes(h0, nn, idx, conj_neg, p);
+  pre_planes(h0, nn, rho, conj_neg, q);
+  float c, s, cq, sq;
+  sincos_phase(__ldg(omega + idx), t, c, s);
+  sincos_phase(__ldg(omega + rho), t, cq, sq);
+  return packed_spectra_pair(p, q, c, s, cq, sq, n, y, x, scale, wrap, half);
+}
+
+// The state rows that a row band [b, b + R) of a row-sharded grid holds
+// for K2 (parallel/distributed_fft.py) in place of the whole state. The
+// reads of output row y fall in two windows of R + 1 rows, each taken mod
+// n: window A holds the rows (base_a + i) mod n, i <= R, with base_a =
+// b - 1 (rows y and y - 1); window B the rows (base_b + i) mod n with
+// base_b = n - b - R (rows n - 1 - y and n - y). h0 is (2 rows, 2, n):
+// A's rows, then B's, each row its real part then its imaginary part;
+// omega (2 rows, n) in the same row order; rows = R + 1. The interleaved
+// planes keep the imaginary part a compile-time n floats from the real
+// one, and two pointers, as for the whole state, keep K2's registers.
+struct StateWindows {
+  const float* h0;
+  const float* omega;
+  int base_a;
+  int base_b;
+  int rows;
+};
+
+// pre_planes from two window rows: e points at h0's real part of the
+// element, f at its flip's, the imaginary parts `im` floats on.
+__device__ __forceinline__ void pre_planes_at(const float* __restrict__ e,
+                                              const float* __restrict__ f, int im,
+                                              bool conj_neg, float* p) {
+  const float h0r = __ldg(e), h0i = __ldg(e + im);
+  const float h0nr = __ldg(f);
+  const float h0ni = conj_neg ? -__ldg(f + im) : __ldg(f + im);
+  p[0] = add(h0r, h0nr);
+  p[1] = sub(h0ni, h0i);
+  p[2] = sub(h0r, h0nr);
+  p[3] = add(h0i, h0ni);
+}
+
+// packed_propagate_pair reading the band's two windows: the same values
+// (h0 at (y, x) and (y - 1, x - 1) from A, at (n - 1 - y, n - 1 - x) and
+// rho = (n - y, n - x) mod n from B; omega at (y, x) and rho), so the same
+// bits.
+__device__ __forceinline__ PackedPair packed_propagate_pair_windows(
+    const StateWindows& w, int n, int y, int x, float t, float scale, bool wrap, bool conj_neg,
+    float half) {
+  const int m = n - 1;
+  const int xq = (n - x) & m;
+  // The window rows of y (in A, >= 1) and of n - y (in B, >= rows + 1);
+  // rows y - 1 and n - 1 - y are the rows before them. Int offsets: the
+  // windows hold 4 rows n floats, < 2^31 up to n = 16384.
+  const int ra = (y - w.base_a) & m;
+  const int rq = w.rows + ((n - y - w.base_b) & m);
+  const float* ha = w.h0 + 2 * ra * n;
+  const float* hq = w.h0 + 2 * rq * n;
+  float p[4], q[4];
+  pre_planes_at(ha + x, hq - 2 * n + (m - x), n, conj_neg, p);
+  pre_planes_at(hq + xq, ha - 2 * n + ((x - 1) & m), n, conj_neg, q);
+  float c, s, cq, sq;
+  sincos_phase(__ldg(w.omega + ra * n + x), t, c, s);
+  sincos_phase(__ldg(w.omega + rq * n + xq), t, cq, sq);
+  return packed_spectra_pair(p, q, c, s, cq, sq, n, y, x, scale, wrap, half);
 }
 
 __device__ __forceinline__ PackedSpectra packed_propagate(

@@ -49,6 +49,7 @@ SIGNATURES = {
     },
     "fourstep_step": {
         "fourstep_row": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P], _I),
+        "fourstep_row_windows": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P], _I),
         "fourstep_col": ([_P, _P, _P, _I, _I, _I, _F, _P, _P, _I, _F, _I, _P], _I),
         "fourstep_error_string": ([_I], ctypes.c_char_p),
     },

@@ -43,6 +43,7 @@ they raise rather than build a CPU state.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -52,12 +53,13 @@ from gfx_ocean_tpu_torch.config import OceanConfig, PhillipsConfig
 from gfx_ocean_tpu_torch.ops import fused_step
 from gfx_ocean_tpu_torch.ops.derived import finite_difference_normals, jacobian_foam
 from gfx_ocean_tpu_torch.ops.fft import ifft2_planes_unnorm, ifft2_real_unnorm
-from gfx_ocean_tpu_torch.ops.propagate import (_phase_mod_2pi, precompute_propagate,
+from gfx_ocean_tpu_torch.ops.propagate import (BandWindows, _phase_mod_2pi,
+                                               gather_packed_planes, precompute_propagate,
                                                precompute_propagate_packed,
                                                propagate_from_cs, propagate_packed_planes,
                                                propagate_planes_pre)
 from gfx_ocean_tpu_torch.utils.complexpair import to_pair
-from gfx_ocean_tpu_torch.utils.device import resolve_device
+from gfx_ocean_tpu_torch.utils.device import each_position as _each, resolve_device
 
 
 class OceanState(NamedTuple):
@@ -92,35 +94,70 @@ def _check_supported(state: OceanState, config: OceanConfig) -> None:
         fused_step.check_supported(config, state.h0.shape[-1])
 
 
-def _precompute(state: OceanState, config: OceanConfig):
-    """The rollout-hoistable time-invariant inputs of the active route."""
+def _precompute(state: OceanState, config: OceanConfig, row_base: int = 0,
+                windows: Optional[BandWindows] = None):
+    """The rollout-hoistable time-invariant inputs of the active route.
+    With ``windows`` (the matmul and xla routes) the state is the row band
+    from the global row ``row_base`` of a row-sharded grid, and the band's
+    inputs are gathered from its two windows (``ops/propagate.BandWindows``),
+    equal to those rows of the whole grid's."""
     if config.fft_impl == "pallas":
         return fused_step.hoist_packed(state.h0, state.omega, config)
+    if windows is not None:
+        pre, pre_rho, _, omega_rho = gather_packed_planes(
+            None, None, config.compat.conj_neg, state.omega.shape[-2], row_base, windows)
+        return (pre, pre_rho, omega_rho) if config.hermitian_pack else pre
     if config.hermitian_pack:
         return precompute_propagate_packed(state.h0, state.omega, config.compat)
     return precompute_propagate(state.h0, config.compat)
 
 
-def _displacement(state: OceanState, ts: torch.Tensor, config: OceanConfig,
-                  pre) -> torch.Tensor:
-    """Displacement maps (tb, N, N, 3) for the frame times ts (tb,);
-    (tb, C, N, N, 3) for a cascade state."""
-    if config.fft_impl == "pallas":
-        return torch.movedim(fused_step.packed_planes(pre, ts, config), -3, -1)
+def _spectra(state: OceanState, ts: torch.Tensor, config: OceanConfig, pre,
+             row_base: int = 0):
+    """The evolved spectra of the matmul and xla routes for the frame times
+    ts on the state's rows from the global row ``row_base``: packed (h_r,
+    h_i, z_r, z_i), each (tb, ..., rows, N), or unpacked (specs_r, specs_i),
+    each (3, tb, ..., rows, N)."""
     t = ts.reshape((-1,) + (1,) * state.omega.ndim)  # the time axis before the state's
     if config.hermitian_pack:
         pre_planes, pre_rho, omega_rho = pre
-        h_r, h_i, z_r, z_i = propagate_packed_planes(
-            pre_planes, pre_rho, state.omega, omega_rho, t,
-            config.domain_size, config.compat)
-        common = _transform_args(config)
-        height = ifft2_real_unnorm(h_r, h_i, precision=config.matmul_precision, **common)
-        dxf, dzf = ifft2_planes_unnorm(
-            z_r, z_i, precision=config.choppy_precision or config.matmul_precision, **common)
-        return torch.stack([dxf, height, dzf], dim=-1)
-    specs_r, specs_i = propagate_planes_pre(pre, state.omega, t,
-                                            config.domain_size, config.compat)
-    return _fields_from_specs(specs_r, specs_i, config)
+        return propagate_packed_planes(pre_planes, pre_rho, state.omega, omega_rho, t,
+                                       config.domain_size, config.compat, row_base)
+    return propagate_planes_pre(pre, state.omega, t, config.domain_size, config.compat,
+                                row_base)
+
+
+def _displacement(state, ts: torch.Tensor, config: OceanConfig, pre, ifft2=None,
+                  ifft2_planes=None, pallas_disp=None, row_base=0):
+    """Displacement maps (tb, N, N, 3) for the frame times ts (tb,);
+    (tb, C, N, N, 3) for a cascade state.
+
+    The hooks of the JAX ``step``: ``ifft2`` / ``ifft2_planes`` replace the
+    real- and complex-output 2-D transforms (``(xr, xi, precision=,
+    centered=)``, as ``ops/fft.ifft2_real_unnorm`` / ``ifft2_planes_unnorm``
+    with the route bound), ``pallas_disp(pre, ts)`` the fused step of the
+    "pallas" route. A row-sharded caller (``parallel/sharding.py``) passes a
+    row group's bands as lists (``state``, ``pre``, ``row_base``, ``ts``:
+    one entry a position) and hooks that take and return such lists."""
+    if config.fft_impl == "pallas":
+        if pallas_disp is not None:
+            return pallas_disp(pre, ts)
+        return torch.movedim(fused_step.packed_planes(pre, ts, config), -3, -1)
+    common = _transform_args(config)
+    ifft2 = ifft2 or functools.partial(ifft2_real_unnorm, **common)
+    ifft2_planes = ifft2_planes or functools.partial(ifft2_planes_unnorm, **common)
+    spectra = _each(lambda st, p, base, t: _spectra(st, t, config, p, base), state, pre,
+                    row_base, ts)
+    if not config.hermitian_pack:
+        return _fields_from_specs(_each(lambda s: s[0], spectra),
+                                  _each(lambda s: s[1], spectra), config, ifft2)
+    part = [_each(lambda s, i=i: s[i], spectra) for i in range(4)]
+    centered = common["centered"]
+    height = ifft2(part[0], part[1], precision=config.matmul_precision, centered=centered)
+    dxf, dzf = ifft2_planes(part[2], part[3],
+                            precision=config.choppy_precision or config.matmul_precision,
+                            centered=centered)
+    return _each(lambda x, h, z: torch.stack([x, h, z], dim=-1), dxf, height, dzf)
 
 
 def _transform_args(config: OceanConfig) -> dict:
@@ -129,19 +166,23 @@ def _transform_args(config: OceanConfig) -> dict:
                 centered="ref" if config.compat.ref_sign else "canonical")
 
 
-def _fields_from_specs(specs_r: torch.Tensor, specs_i: torch.Tensor,
-                       config: OceanConfig) -> torch.Tensor:
+def _fields_from_specs(specs_r, specs_i, config: OceanConfig, ifft2=None):
     """Unpacked spectra planes (3, ..., N, N), order (h, dx, dz) -> the
-    (..., N, N, 3) displacement map (disp_x, height, disp_z)."""
+    (..., N, N, 3) displacement map (disp_x, height, disp_z); ``ifft2``
+    replaces the transform (lists of bands as in :func:`_displacement`)."""
     common = _transform_args(config)
+    ifft2 = ifft2 or functools.partial(ifft2_real_unnorm, **common)
     tier = config.matmul_precision
     choppy_tier = config.choppy_precision or tier
+    centered = common["centered"]
     if choppy_tier == tier:      # one transform call for the three fields
-        fields = ifft2_real_unnorm(specs_r, specs_i, precision=tier, **common)
-        return torch.stack([fields[1], fields[0], fields[2]], dim=-1)
-    height = ifft2_real_unnorm(specs_r[0], specs_i[0], precision=tier, **common)
-    choppy = ifft2_real_unnorm(specs_r[1:], specs_i[1:], precision=choppy_tier, **common)
-    return torch.stack([choppy[0], height, choppy[1]], dim=-1)
+        fields = ifft2(specs_r, specs_i, precision=tier, centered=centered)
+        return _each(lambda f: torch.stack([f[1], f[0], f[2]], dim=-1), fields)
+    height = ifft2(_each(lambda s: s[0], specs_r), _each(lambda s: s[0], specs_i),
+                   precision=tier, centered=centered)
+    choppy = ifft2(_each(lambda s: s[1:], specs_r), _each(lambda s: s[1:], specs_i),
+                   precision=choppy_tier, centered=centered)
+    return _each(lambda c, h: torch.stack([c[0], h, c[1]], dim=-1), choppy, height)
 
 
 def _cascaded(state: OceanState, config: OceanConfig) -> bool:
@@ -153,31 +194,42 @@ def _cascaded(state: OceanState, config: OceanConfig) -> bool:
             and state.h0.shape[-4] == config.num_cascades)
 
 
-def _fields(disp: torch.Tensor, config: OceanConfig, cascaded: bool) -> OceanFields:
+def _fields(disp: torch.Tensor, config: OceanConfig, cascaded: bool,
+            halo: Optional[torch.Tensor] = None, domains=None) -> OceanFields:
+    """The fields of displacement maps (..., N, N, 3). ``halo``: for a row
+    band of a row-sharded grid, its maps with one neighbour row on each side
+    (``parallel/collectives.halo_rows``), which the normals and foam read;
+    ``domains``: the cascades' domains (``config.domains`` when None)."""
+    src = disp if halo is None else halo
     normals = None
     if config.compute_normals:
-        normals = finite_difference_normals(disp[..., 1], config.normal_height_scale)
+        normals = finite_difference_normals(src[..., 1], config.normal_height_scale,
+                                            halo is not None)
     foam = None
     if config.compute_foam:
         if cascaded:
-            foam = torch.stack([jacobian_foam(disp[..., c, :, :, :], config, domain_size=dom)
-                                for c, dom in enumerate(config.domains)], dim=-3)
+            foam = torch.stack([jacobian_foam(src[..., c, :, :, :], config, domain_size=dom,
+                                              halo=halo is not None)
+                                for c, dom in enumerate(domains or config.domains)], dim=-3)
         else:
-            foam = jacobian_foam(disp, config)
+            foam = jacobian_foam(src, config, halo=halo is not None)
     return OceanFields(displacement=disp, normals=normals, foam=foam)
 
 
-def step(state: OceanState, t, config: OceanConfig, pre=None) -> OceanFields:
+def step(state: OceanState, t, config: OceanConfig, pre=None, ifft2=None,
+         ifft2_planes=None, pallas_disp=None) -> OceanFields:
     """One frame: propagate -> 2-D inverse DFT -> correction (+ normals, foam).
 
     ``pre`` optionally passes the hoisted inputs of the active route (what
-    ``make_rollout`` computes once per call).
+    ``make_rollout`` computes once per call). ``ifft2`` / ``ifft2_planes``
+    replace the 2-D transforms and ``pallas_disp(pre, ts)`` the fused step,
+    as in the JAX ``step`` (see :func:`_displacement`).
     """
     _check_supported(state, config)
     if pre is None:
         pre = _precompute(state, config)
     ts = fused_step.as_times(t, state.omega.device)[:1]
-    disp = _displacement(state, ts, config, pre)[0]
+    disp = _displacement(state, ts, config, pre, ifft2, ifft2_planes, pallas_disp)[0]
     return _fields(disp, config, _cascaded(state, config))
 
 

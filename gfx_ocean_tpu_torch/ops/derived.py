@@ -56,23 +56,35 @@ def correction(f_height: torch.Tensor, f_dx: torch.Tensor, f_dz: torch.Tensor,
                         for f in (f_dx, f_height, f_dz)], dim=-1)
 
 
+def _rows_around(f: torch.Tensor, halo: bool):
+    """(f at row y - 1, f, f at row y + 1) over axis -2: periodic, or with
+    ``halo`` from a row band of a row-sharded grid that carries one
+    neighbour row on each side (``parallel/collectives.halo_rows``), whose
+    own rows are returned."""
+    if halo:
+        return f[..., :-2, :], f[..., 1:-1, :], f[..., 2:, :]
+    return torch.roll(f, 1, dims=-2), f, torch.roll(f, -1, dims=-2)
+
+
 def finite_difference_normals_planes(
-        height: torch.Tensor, height_scale: float = 180.0) -> torch.Tensor:
+        height: torch.Tensor, height_scale: float = 180.0, halo: bool = False) -> torch.Tensor:
     """Central-difference normal map in plane-major (..., 3, N, N) layout.
 
     The reference samples +-1 texel with repeat wrap: texture x = axis -1,
     texture y = axis -2. na = normalize(-dx, (x1-x0)/hs, 0), nb =
     normalize(0, (z1-z0)/hs, dy), N = normalize(cross(na, nb)); the two
     inner normalizations scale the cross product uniformly per texel, so
-    only the final one is taken.
+    only the final one is taken. With ``halo`` the height is a row band of
+    a square grid with one neighbour row on each side; the band's own rows
+    come back, equal to those rows of the whole grid's map.
     """
-    n0, n1 = height.shape[-2], height.shape[-1]
+    z0, height, z1 = _rows_around(height, halo)
+    n1 = height.shape[-1]
+    n0 = n1 if halo else height.shape[-2]
     diff_x = 2.0 / n1
     diff_y = 2.0 / n0
     x0 = torch.roll(height, 1, dims=-1)
     x1 = torch.roll(height, -1, dims=-1)
-    z0 = torch.roll(height, 1, dims=-2)
-    z1 = torch.roll(height, -1, dims=-2)
 
     gx = (x1 - x0) / height_scale
     gz = (z1 - z0) / height_scale
@@ -84,11 +96,11 @@ def finite_difference_normals_planes(
     return torch.stack([cx / length, cy / length, cz / length], dim=-3)
 
 
-def finite_difference_normals(height: torch.Tensor,
-                              height_scale: float = 180.0) -> torch.Tensor:
+def finite_difference_normals(height: torch.Tensor, height_scale: float = 180.0,
+                              halo: bool = False) -> torch.Tensor:
     """Central-difference normal map, channel-last (..., N, N, 3)."""
     return torch.movedim(
-        finite_difference_normals_planes(height, height_scale), -3, -1)
+        finite_difference_normals_planes(height, height_scale, halo), -3, -1)
 
 
 def normals_scale(config: OceanConfig) -> Optional[float]:
@@ -108,31 +120,33 @@ def checksums_of_planes(planes: torch.Tensor, config: OceanConfig) -> torch.Tens
 
 
 def jacobian_foam(displacement: torch.Tensor, config: OceanConfig,
-                  domain_size: Optional[float] = None) -> torch.Tensor:
+                  domain_size: Optional[float] = None, halo: bool = False) -> torch.Tensor:
     """Whitecap mask from the Jacobian of the horizontal displacement map.
 
     J = (1 + l dDx/dx)(1 + l dDz/dz) - (l dDx/dz)(l dDz/dx); foam = J < thr,
     as float32. Central differences with wrap; grid spacing L / N (pass
     ``domain_size`` for a cascade's own patch size). Every product and sum
     is rounded separately (XLA on the CPU may contract them, so texels
-    within ~1e-6 of the threshold can differ from the JAX package).
+    within ~1e-6 of the threshold can differ from the JAX package). With
+    ``halo`` the map is a row band with one neighbour row on each side
+    (see :func:`finite_difference_normals_planes`).
     """
     n = displacement.shape[-2]
     spacing = (domain_size if domain_size is not None else config.domain_size) / n
     lam = float(np.float32(config.foam_lambda))
     inv2h = float(np.float32(1.0 / (2.0 * spacing)))
-    fx = displacement[..., 0]
-    fz = displacement[..., 2]
+    up_x, fx, down_x = _rows_around(displacement[..., 0], halo)
+    up_z, fz, down_z = _rows_around(displacement[..., 2], halo)
 
     def ddx(f):  # texture x = axis -1
         return (torch.roll(f, -1, dims=-1) - torch.roll(f, 1, dims=-1)) * inv2h
 
-    def ddz(f):  # texture y = axis -2
-        return (torch.roll(f, -1, dims=-2) - torch.roll(f, 1, dims=-2)) * inv2h
+    def ddz(up, down):  # texture y = axis -2
+        return (down - up) * inv2h
 
     jxx = 1.0 + lam * ddx(fx)
-    jzz = 1.0 + lam * ddz(fz)
-    jxz = lam * ddz(fx)
+    jzz = 1.0 + lam * ddz(up_z, down_z)
+    jxz = lam * ddz(up_x, down_x)
     jzx = lam * ddx(fz)
     jac = jxx * jzz - jxz * jzx
     return (jac < float(np.float32(config.foam_threshold))).to(torch.float32)

@@ -11,7 +11,8 @@ Per frame:
   Y (tb, 2, 2, rows, N) = ((Re, Im) of F_x(H), (Re, Im) of F_x(Z)) in true
   x order, on ``rows`` rows from the global row ``row_base`` (0 on one
   device; the row-sharded caller of ``parallel/distributed_fft.py`` passes
-  its band's base).
+  its band's base, and the band's two windows of the state,
+  ``ops/propagate.BandWindows``, in place of the whole state).
 - K3, the column pass: the y-transform of Y with (-1)^y and the Q2 flip
   folded in: (tb, 3, N, C) = (disp_x, height, disp_z), height = Re F(H),
   disp_x / disp_z = Re / Im F(Z); optionally the forcing checksum.
@@ -19,8 +20,9 @@ Per frame:
 The JAX kernels read x-permuted hoisted planes so that stage 1 is a free
 view on the MXU (``_fourstep_permute_inputs``); that is a TPU layout
 device. Here K2 reads the state itself (h0 and omega of the whole grid: a
-row's partners under the flip and rho lie outside any band), as K1 does,
-and the contract is pinned in true order.
+row's partners under the flip and rho lie outside any band; or, for a band
+of a row-sharded grid, the two windows of R + 1 rows that hold them), as K1
+does, and the contract is pinned in true order.
 
 Two implementations sit side by side:
 
@@ -66,8 +68,9 @@ from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, normals_scale
 from gfx_ocean_tpu_torch.ops.fft import (_dft_matrix_np, _dft_matrix_out_alt_np,
                                          _twiddle_np, effective_precision, full_matmul,
                                          twiddle_table)
-from gfx_ocean_tpu_torch.ops.propagate import (_f32, as_times, gather_packed_planes,
-                                               packed_spectra)
+from gfx_ocean_tpu_torch.ops.propagate import (BandWindows, _f32, as_times,
+                                               gather_packed_planes, packed_spectra)
+from gfx_ocean_tpu_torch.utils.device import check_current_device
 
 MIN_N = 1024
 # Largest N the kernels take: the plan's range.
@@ -80,11 +83,12 @@ COL_BAND = 32
 
 class FourstepInputs(NamedTuple):
     """Per-rollout inputs of K2 + K3 (all float32, one device): the state
-    itself, the whole grid."""
+    itself, the whole grid (None for a row band, whose K2 reads its
+    ``BandWindows``)."""
 
-    h0: torch.Tensor       # (2, N, N) re, im
-    omega: torch.Tensor    # (N, N)
-    twiddle: torch.Tensor  # (2, N/2) cos, sin of 2 pi k / N: the kernels' table
+    h0: Optional[torch.Tensor]     # (2, N, N) re, im
+    omega: Optional[torch.Tensor]  # (N, N)
+    twiddle: torch.Tensor          # (2, N/2) cos, sin of 2 pi k / N: the kernels' table
 
 
 def fourstep_plan(n: int, config: OceanConfig) -> Tuple[int, int, int, int]:
@@ -167,12 +171,16 @@ def hoist_fourstep(h0_pair: torch.Tensor, omega: torch.Tensor,
                           twiddle_table(n, dev))
 
 
-def _band(inputs: FourstepInputs, row_base: int, rows: Optional[int]) -> int:
-    """The band's row count (all rows when None); raises outside the grid."""
-    n = inputs.omega.shape[-1]
+def _band(n: int, row_base: int, rows: Optional[int],
+          windows: Optional[BandWindows] = None) -> int:
+    """The band's row count (all rows when None); raises outside the grid,
+    and for windows of another band."""
     rows = n - row_base if rows is None else rows
     if rows < 1 or not 0 <= row_base <= n - rows:
         raise ValueError(f"rows {row_base}..{row_base + rows - 1} lie outside the {n}-row grid")
+    if windows is not None and tuple(windows.omega.shape) != (2 * rows + 2, n):
+        raise ValueError(f"windows: expected 2 x {rows + 1} rows of {n}, got "
+                         f"{tuple(windows.omega.shape)}")
     return rows
 
 
@@ -181,22 +189,25 @@ def _band(inputs: FourstepInputs, row_base: int, rows: Optional[int]) -> int:
 # --------------------------------------------------------------------------
 
 def fourstep_row_reference(inputs: FourstepInputs, ts, config: OceanConfig,
-                           row_base: int = 0, rows: Optional[int] = None) -> torch.Tensor:
+                           row_base: int = 0, rows: Optional[int] = None,
+                           windows: Optional[BandWindows] = None) -> torch.Tensor:
     """Plain PyTorch K2: ts (tb,) -> Y (tb, 2, 2, rows, N) in true x order,
-    on ``rows`` rows (default: to the last) from the global row ``row_base``.
+    on ``rows`` rows (default: to the last) from the global row ``row_base``,
+    read from the whole state or from the band's ``windows``.
 
     With k = n2 k1 + k2 and x = n1 + 128 n2 (``ops/fft._foursteps_last``):
     stage 1 over k1 against W1cat, the twiddle T[k2, n1], stage 2 over k2
     against W2cat (or diag(W2cat, W2cat), both spectra in one matmul)."""
-    om = inputs.omega
-    n = om.shape[-1]
-    rows = _band(inputs, row_base, rows)
+    dev = inputs.twiddle.device
+    n = 2 * inputs.twiddle.shape[-1]
+    rows = _band(n, row_base, rows, windows)
     n1, n2, _, _ = fourstep_plan(n, config)
-    (w1, w2, ttr, tti), _ = _device_tables(n, config.compat.ref_sign, om.device)
-    ts = as_times(ts, om.device)
+    (w1, w2, ttr, tti), _ = _device_tables(n, config.compat.ref_sign, dev)
+    ts = as_times(ts, dev)
     tb = ts.shape[0]
-    pre, pre_rho, om_band, omq = gather_packed_planes(inputs.h0, om, config.compat.conj_neg,
-                                                      rows, row_base)
+    pre, pre_rho, om_band, omq = gather_packed_planes(inputs.h0, inputs.omega,
+                                                      config.compat.conj_neg, rows, row_base,
+                                                      windows)
     h_r, h_i, z_r, z_i = packed_spectra(pre, pre_rho, om_band, omq, ts, config.domain_size,
                                         config.compat.wrap_k, 0.5, row_base)
 
@@ -288,34 +299,44 @@ def _raise_on_error(lib, err: int, what: str) -> None:
 
 
 def launch_fourstep_row(inputs: FourstepInputs, ts, config: OceanConfig,
-                        row_base: int = 0, rows: Optional[int] = None) -> torch.Tensor:
+                        row_base: int = 0, rows: Optional[int] = None,
+                        windows: Optional[BandWindows] = None) -> torch.Tensor:
     """Launch K2 on the current stream: ts (tb,) -> Y (tb, 2, 2, rows, N) on
-    ``rows`` rows (default: to the last) from the global row ``row_base``.
-    At N = 16384 the kernel splits a row over a two-block cluster, and
-    raises where the device cannot schedule one.
+    ``rows`` rows (default: to the last) from the global row ``row_base``,
+    reading the whole state or, with ``windows``, the band's two windows
+    (``fourstep_row_windows``; the same Y bit for bit). At N = 16384 the
+    kernel splits a row over a two-block cluster, and raises where the
+    device cannot schedule one.
 
     Adds one to ``launch_fourstep_row.launches`` per launch."""
     from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
 
-    dev = inputs.omega.device
+    dev = inputs.twiddle.device
     if dev.type != "cuda":
         raise ValueError(f"launch_fourstep_row needs CUDA tensors, got {dev}")
-    n = inputs.omega.shape[-1]
+    check_current_device(dev, "launch_fourstep_row")
+    n = 2 * inputs.twiddle.shape[-1]
     _check_kernel_n(n, "K2")
     check_supported(config, n)
-    shapes = dict(h0=(2, n, n), omega=(n, n), twiddle=(2, n // 2))
-    for name, x in inputs._asdict().items():
-        _check_tensor(name, x, shapes[name], dev)
-    rows = _band(inputs, row_base, rows)
+    rows = _band(n, row_base, rows, windows)
+    _check_tensor("twiddle", inputs.twiddle, (2, n // 2), dev)
+    if windows is None:
+        _check_tensor("h0", inputs.h0, (2, n, n), dev)
+        _check_tensor("omega", inputs.omega, (n, n), dev)
+    else:
+        _check_tensor("windows.h0", windows.h0, (2 * rows + 2, 2, n), dev)
+        _check_tensor("windows.omega", windows.omega, (2 * rows + 2, n), dev)
     ts = as_times(ts, dev)
     tb = ts.shape[0]
     y = torch.empty((tb, 2, 2, rows, n), dtype=torch.float32, device=dev)
     lib = kernels.load("fourstep_step")
-    err = lib.fourstep_row(
-        inputs.h0.data_ptr(), inputs.omega.data_ptr(), inputs.twiddle.data_ptr(),
-        ts.data_ptr(), tb, n, rows, row_base, _f32(np.pi / config.domain_size),
-        int(config.compat.wrap_k), int(config.compat.conj_neg), y.data_ptr(),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    scalars = (tb, n, rows, row_base, _f32(np.pi / config.domain_size),
+               int(config.compat.wrap_k), int(config.compat.conj_neg), y.data_ptr(),
+               ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    state = inputs if windows is None else windows
+    err = (lib.fourstep_row if windows is None else lib.fourstep_row_windows)(
+        state.h0.data_ptr(), state.omega.data_ptr(), inputs.twiddle.data_ptr(), ts.data_ptr(),
+        *scalars)
     _raise_on_error(lib, err, "K2 (fourstep_row)")
     launch_fourstep_row.launches += 1
     return y
@@ -340,6 +361,7 @@ def launch_fourstep_col(y: torch.Tensor, twiddle: torch.Tensor, config: OceanCon
     dev = y.device
     if dev.type != "cuda":
         raise ValueError(f"launch_fourstep_col needs CUDA tensors, got {dev}")
+    check_current_device(dev, "launch_fourstep_col")
     if y.ndim != 5 or tuple(y.shape[1:3]) != (2, 2):
         raise ValueError(f"y: expected shape (tb, 2, 2, N, C), got {tuple(y.shape)}")
     tb, _, _, n, c = y.shape
@@ -376,6 +398,26 @@ def launch_fourstep_step(inputs: FourstepInputs, ts, config: OceanConfig,
     """K2 then K3 for ts (tb,): ``(planes (tb, 3, N, N), partials or None)``."""
     y = launch_fourstep_row(inputs, ts, config)
     return launch_fourstep_col(y, inputs.twiddle, config, checksum)
+
+
+def fourstep_row(inputs: FourstepInputs, ts, config: OceanConfig, row_base: int = 0,
+                 rows: Optional[int] = None,
+                 windows: Optional[BandWindows] = None) -> torch.Tensor:
+    """K2's Y for ts (tb,) on a band (see :func:`launch_fourstep_row`): the
+    kernel on CUDA, the plain version on CPU."""
+    if inputs.twiddle.is_cuda:
+        return launch_fourstep_row(inputs, ts, config, row_base, rows, windows)
+    return fourstep_row_reference(inputs, ts, config, row_base, rows, windows)
+
+
+def fourstep_col(y: torch.Tensor, twiddle: torch.Tensor, config: OceanConfig) -> torch.Tensor:
+    """K3's planes (tb, 3, N, C) of Y (tb, 2, 2, N, C), without the
+    checksum: the kernel on CUDA, the plain version on CPU. No column's
+    output depends on which columns Y holds, so a column band of a
+    row-sharded grid takes it as it is."""
+    if y.is_cuda:
+        return launch_fourstep_col(y, twiddle, config, checksum=False)[0]
+    return fourstep_col_reference(y, config)
 
 
 def fourstep_planes(inputs: FourstepInputs, ts, config: OceanConfig) -> torch.Tensor:

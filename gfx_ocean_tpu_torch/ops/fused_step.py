@@ -74,6 +74,7 @@ from gfx_ocean_tpu_torch.ops.fourstep_step import FourstepInputs
 from gfx_ocean_tpu_torch.ops.propagate import (_f32, as_times, gather_packed_planes,
                                                packed_spectra)
 from gfx_ocean_tpu_torch.ops.unpacked_step import UnpackedInputs, dft_table
+from gfx_ocean_tpu_torch.utils.device import check_current_device
 
 MAX_N = 512
 # Rows of the output reduced by one block of the checksum kernel.
@@ -191,6 +192,7 @@ def launch_packed_step(inputs: PackedInputs, ts: torch.Tensor, config: OceanConf
     dev = inputs.omega.device
     if dev.type != "cuda":
         raise ValueError(f"launch_packed_step needs CUDA tensors, got {dev}")
+    check_current_device(dev, "launch_packed_step")
     n = inputs.omega.shape[-1]
     if n < 16 or n > MAX_N or n & (n - 1):
         raise ValueError(f"K1 takes a power of two N in [16, {MAX_N}], got {n}")

@@ -15,7 +15,7 @@ against the (N, N) planes, e.g. (tb, 1, 1) for a batch of frames.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -170,24 +170,29 @@ def _sincos_phase(omega: torch.Tensor, t) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def propagate_from_cs(pre: torch.Tensor, c: torch.Tensor, s: torch.Tensor,
-                      domain_size: float, compat: CompatFlags = CompatFlags()):
+                      domain_size: float, compat: CompatFlags = CompatFlags(),
+                      row_base: int = 0):
     """Unpacked propagate from (cos, sin) of the phase: returns (specs_r,
-    specs_i), each (3, ..., N, N) in the order (h, dx, dz)."""
-    n = pre.shape[-1]
+    specs_i), each (3, ..., N, N) in the order (h, dx, dz); for a row band
+    (..., rows, N) of the grid from the global row ``row_base``."""
+    rows, n = pre.shape[-2:]
     hr = c * pre[0] + s * pre[1]
     hi = s * pre[2] + c * pre[3]
-    kxn, kyn = _khat_grid(n, domain_size, compat.wrap_k, pre.device)
+    kxn, kyn = (k[row_base:row_base + rows]
+                for k in _khat_grid(n, domain_size, compat.wrap_k, pre.device))
     specs_r = torch.stack([hr, kxn * hi, kyn * hi], dim=0)
     specs_i = torch.stack([hi, -kxn * hr, -kyn * hr], dim=0)
     return specs_r, specs_i
 
 
 def propagate_planes_pre(pre: torch.Tensor, omega: torch.Tensor, t,
-                         domain_size: float, compat: CompatFlags = CompatFlags()):
-    """Unpacked propagate from :func:`precompute_propagate` planes."""
+                         domain_size: float, compat: CompatFlags = CompatFlags(),
+                         row_base: int = 0):
+    """Unpacked propagate from :func:`precompute_propagate` planes (a row
+    band from the global row ``row_base``: see :func:`propagate_from_cs`)."""
     phase = _phase_mod_2pi(omega, t)
     return propagate_from_cs(pre, torch.cos(phase), torch.sin(phase),
-                             domain_size, compat)
+                             domain_size, compat, row_base)
 
 
 def propagate_planes(h0_pair: torch.Tensor, omega: torch.Tensor, t, domain_size: float,
@@ -212,38 +217,98 @@ def precompute_propagate_packed(h0_pair: torch.Tensor, omega: torch.Tensor,
     return pre, roll_flip(pre), roll_flip(omega)
 
 
-def gather_packed_planes(h0_pair: torch.Tensor, omega: torch.Tensor, conj_neg: bool,
-                         rows: Optional[int] = None, row_base: int = 0):
+class BandWindows(NamedTuple):
+    """The state rows that K2's reads of a row band [b, b + R) of a
+    row-sharded grid touch (``csrc/ocean_common.cuh``,
+    ``ocean::StateWindows``): output row y reads rows y and y - 1 (window
+    A: rows b - 1 ... b + R - 1) and rows n - 1 - y and n - y (window B:
+    rows n - b - R ... n - b), each mod n, R + 1 rows a window. In K2's
+    layout: A's rows then B's, each h0 row its real then its imaginary
+    part."""
+
+    h0: torch.Tensor      # (..., 2 (R + 1), 2, N)
+    omega: torch.Tensor   # (..., 2 (R + 1), N)
+
+
+def window_rows(n: int, row_base: int, rows: int) -> Tuple[int, int]:
+    """The first global rows (mod n) of the band's windows A and B."""
+    return (row_base - 1) % n, (n - row_base - rows) % n
+
+
+def band_windows(h0_pair: torch.Tensor, omega: torch.Tensor, row_base: int,
+                 rows: int) -> BandWindows:
+    """The band's two windows cut from the whole state, contiguous."""
+    n = omega.shape[-1]
+    first_a, first_b = window_rows(n, row_base, rows)
+    span = torch.arange(rows + 1, device=omega.device)
+    idx = torch.cat([(span + first_a) % n, (span + first_b) % n])
+    return windows_of_rows(h0_pair[..., idx, :], omega[..., idx, :])
+
+
+def windows_of_rows(h0_rows: torch.Tensor, omega_rows: torch.Tensor) -> BandWindows:
+    """:class:`BandWindows` of h0 (..., 2, 2 (R + 1), N) and omega
+    (..., 2 (R + 1), N) holding window A's rows then window B's."""
+    return BandWindows(torch.movedim(h0_rows, -3, -2).contiguous(), omega_rows.contiguous())
+
+
+def gather_packed_planes(h0_pair: Optional[torch.Tensor], omega: Optional[torch.Tensor],
+                         conj_neg: bool, rows: Optional[int] = None, row_base: int = 0,
+                         windows: Optional[BandWindows] = None):
     """:func:`precompute_propagate_packed` on ``rows`` rows (default all)
     from the global row ``row_base``, read the way K1 and K2 read the state:
     per element (y, x), mod n, h0 at (y, x), at its flip (n-1-y, n-1-x), at
     rho = (-y, -x) and at the flip of rho (y-1, x-1), omega at (y, x) and at
     rho, each P one float add or subtract of those reads. Index arithmetic,
-    no flip / roll; bit-equal to the band of the full planes. Returns
-    ``(pre, pre_rho, omega, omega_rho)``: (4, rows, n) and (rows, n), with
-    the state's leading (cascade) axes after the 4: (4, C, rows, n) and
+    no flip / roll; bit-equal to the band of the full planes. With
+    ``windows`` (a row band's :class:`BandWindows`; ``h0_pair`` and
+    ``omega`` are then not read) the same values come from the band's two
+    windows, as K2's ``fourstep_row_windows`` reads them. Returns ``(pre,
+    pre_rho, omega, omega_rho)``: (4, rows, n) and (rows, n), with the
+    state's leading (cascade) axes after the 4: (4, C, rows, n) and
     (C, rows, n) for a (C, 2, n, n) state."""
-    n = h0_pair.shape[-1]
+    if windows is None:
+        n = omega.shape[-1]
+        lead = tuple(omega.shape[:-2])
+        h = h0_pair.reshape(lead + (2, n * n))
+        flat = (h[..., 0, :], h[..., 1, :], omega.reshape(lead + (n * n,)))
+        src_a = src_b = flat + (0, 0)  # the whole grid, from row 0
+    else:
+        n = windows.omega.shape[-1]
+        rows = n if rows is None else rows
+        lead = tuple(windows.omega.shape[:-2])
+        span = windows.omega.shape[-2] * n
+        h = windows.h0.reshape(lead + (span // n, 2, n))
+        flat = (h[..., 0, :].reshape(lead + (span,)), h[..., 1, :].reshape(lead + (span,)),
+                windows.omega.reshape(lead + (span,)))
+        first_a, first_b = window_rows(n, row_base, rows)
+        src_a, src_b = flat + (first_a, 0), flat + (first_b, rows + 1)
     rows = n if rows is None else rows
-    dev = h0_pair.device
+    dev = flat[2].device
     y = torch.arange(row_base, row_base + rows, device=dev)[:, None]
     x = torch.arange(n, device=dev)[None, :]
-    idx = y * n + x
-    rho = ((n - y) % n) * n + (n - x) % n
-    nn = n * n
-    lead = tuple(h0_pair.shape[:-3])
-    h0r_all = h0_pair.reshape(lead + (2, nn))[..., 0, :]
-    h0i_all = h0_pair.reshape(lead + (2, nn))[..., 1, :]
-    om = omega.reshape(lead + (nn,))
+    yq, xq = (n - y) % n, (n - x) % n
 
-    def planes(i):
-        h0r, h0i = h0r_all[..., i], h0i_all[..., i]
-        h0nr, h0ni = h0r_all[..., nn - 1 - i], h0i_all[..., nn - 1 - i]
+    def read(src, gy, gx):
+        """(h0 re, h0 im, omega) of ``src`` flattened, and the flat index
+        of the global elements (gy, gx): the window row ``(gy - first) mod
+        n`` from the window's ``offset``-th row."""
+        re, im, om, first, offset = src
+        return re, im, om, (offset + (gy - first) % n) * n + gx
+
+    def planes(e, f):
+        er, ei, _, ie = e
+        fr, fi, _, i_f = f
+        h0r, h0i = er[..., ie], ei[..., ie]
+        h0nr, h0ni = fr[..., i_f], fi[..., i_f]
         if conj_neg:
             h0ni = -h0ni
         return torch.stack([h0r + h0nr, h0ni - h0i, h0r - h0nr, h0i + h0ni], dim=0)
 
-    return planes(idx), planes(rho), om[..., idx], om[..., rho]
+    at_e = read(src_a, y, x)
+    at_rho = read(src_b, yq, xq)
+    pre = planes(at_e, read(src_b, n - 1 - y, n - 1 - x))
+    pre_rho = planes(at_rho, read(src_a, (y - 1) % n, (x - 1) % n))
+    return pre, pre_rho, at_e[2][..., at_e[3]], at_rho[2][..., at_rho[3]]
 
 
 def propagate_packed_planes(
@@ -254,15 +319,19 @@ def propagate_packed_planes(
     t,
     domain_size: float,
     compat: CompatFlags = CompatFlags(),
+    row_base: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Hermitian-symmetrized evolved spectra, packed for 2-for-1 transforms.
 
     With H = (S + conj(S o rho)) / 2, F(H) = Re(F(S)) exactly, and the two
     choppy spectra share one transform: Z = H_dx + i H_dz. Returns
     ``(h_r, h_i, z_r, z_i)``. Uses ``torch.cos``/``torch.sin`` of the
-    Dekker phase and the host k-hat grids, as the JAX function does.
+    Dekker phase and the host k-hat grids, as the JAX function does. For a
+    row band (..., rows, N) of the grid from the global row ``row_base``
+    (``pre_rho`` and ``omega_rho`` that band of the whole grid's) it reads
+    the band's rows of the k-hat grids.
     """
-    n = pre.shape[-1]
+    rows, n = pre.shape[-2:]
     phase = _phase_mod_2pi(omega, t)
     c, s = torch.cos(phase), torch.sin(phase)
     phase_rho = _phase_mod_2pi(omega_rho, t)
@@ -277,7 +346,9 @@ def propagate_packed_planes(
     h_i = 0.5 * (si - ti)
 
     kxn, kyn = _khat_grid(n, domain_size, compat.wrap_k, pre.device)
-    kxq, kyq = roll_flip(kxn), roll_flip(kyn)
+    band = slice(row_base, row_base + rows)
+    kxq, kyq = roll_flip(kxn)[band], roll_flip(kyn)[band]
+    kxn, kyn = kxn[band], kyn[band]
     dx_r = 0.5 * (kxn * si + kxq * ti)
     dx_i = 0.5 * (kxq * tr - kxn * sr)
     dz_r = 0.5 * (kyn * si + kyq * ti)

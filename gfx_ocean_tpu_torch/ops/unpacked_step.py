@@ -65,6 +65,7 @@ from gfx_ocean_tpu_torch.ops.fft import (_dft_matrix_out_alt_np, effective_preci
                                          full_matmul, twiddle_table)
 from gfx_ocean_tpu_torch.ops.fourstep_step import CHECKSUM_ROWS, _check_tensor
 from gfx_ocean_tpu_torch.ops.propagate import _f32, _phase_mod_2pi, as_times
+from gfx_ocean_tpu_torch.utils.device import check_current_device
 
 MAX_N = 512
 
@@ -197,6 +198,8 @@ def _propagate_args(inputs: UnpackedInputs, ts: torch.Tensor, config: OceanConfi
 
 
 def _stream(dev: torch.device) -> ctypes.c_void_p:
+    """The current stream of ``dev``, which must be the current device."""
+    check_current_device(dev, "the unpacked step's kernels (K4-K6)")
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 

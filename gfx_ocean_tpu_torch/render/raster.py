@@ -65,8 +65,10 @@ uv * tiles[c] with repeat wrap, tiles[c] = domains[0] / domains[c]
 foam the union of the per-cascade masks (``render/shade.py``). K7 and K8 see
 only the composited frame's tables.
 
-Not ported: band-parallel rendering across devices (ROADMAP.md queue 1,
-item 11).
+Band-parallel frames across a mesh (``parallel/render.py``) run the frame
+renderer's body with its band parameters (``_frame_fn``): each band is
+rendered from the rows ``y_origin`` of the full viewport, bit-equal to
+those rows of the single-device frame.
 """
 
 from __future__ import annotations
@@ -83,6 +85,7 @@ from gfx_ocean_tpu_torch.ops.fft import full_matmul
 from gfx_ocean_tpu_torch.render import shade as sh
 from gfx_ocean_tpu_torch.render.camera import Camera, perspective
 from gfx_ocean_tpu_torch.render.mesh import build_grid, instantiate
+from gfx_ocean_tpu_torch.utils.device import check_current_device
 
 KEY_MAX = 0xFFFFFFFF     # the no-hit key (all ones)
 _GIANT_GROUP = 32        # giant-pass triangles per group
@@ -406,6 +409,8 @@ def slot_stage_reference(crow: torch.Tensor, cov: torch.Tensor, width: int,
 
 
 def _cuda_stream(device: torch.device) -> ctypes.c_void_p:
+    """The current stream of ``device``, which must be the current device."""
+    check_current_device(device, "the rasterizer's kernels (K7, K8)")
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
@@ -1112,17 +1117,32 @@ def make_frame_renderer(config, width: int = 480, height: int = 280, giants: int
     giant-pass candidates past capacity (0 for exact coverage). With
     ``config.num_cascades > 1`` the state is a cascade stack and the frame
     composites its cascades at ``config.domains``."""
+    return _frame_fn(config, width, height, giants, pool, diag=diag)
+
+
+def _frame_fn(config, width: int, height: int, giants: int, pool: Optional[int],
+              band_axis: Optional[str] = None, n_bands: int = 1, diag: bool = False):
+    """The body of :func:`make_frame_renderer` and of the band renderers of
+    ``parallel/render.py``: with ``band_axis`` set, ``fn(..., band=i)``
+    renders the ``height // n_bands``-row band i of the viewport (rows from
+    ``i * height // n_bands``), bit-equal to those rows of the full frame
+    (the JAX package's ``_fused_frame_fn``)."""
     from gfx_ocean_tpu_torch.models.ocean import step as _ocean_step  # noqa: PLC0415
 
+    if band_axis is not None and height % n_bands:
+        raise ValueError(
+            f"height {height} must divide into mesh axis {band_axis!r} "
+            f"({n_bands} bands); pad the viewport or re-shape the mesh")
+    band_h = height // n_bands if band_axis is not None else height
     # Fragment normals come from the displacement texture (shade.py); the
     # step's vertex normals are dead weight here.
     config = dataclasses.replace(config, compute_normals=False)
     scales = (float(config.height_div), float(config.horiz_div),
               float(config.normal_height_scale), float(config.pbr_roughness))
     grid_shape = (config.num_patches, config.mesh_resolution)
-    pool = pool or _auto_pool(width, height)
+    pool = pool or _auto_pool(width, band_h, n_bands if band_axis is not None else 1)
 
-    def fn(state, t, view_proj, camera_pos):
+    def fn(state, t, view_proj, camera_pos, band: int = 0):
         dev = _device(state.h0.device)
         positions, uvs, tris = _mesh_constants(config.mesh_resolution, config.num_patches, dev)
         fields = _ocean_step(state, t, config)
@@ -1132,9 +1152,10 @@ def make_frame_renderer(config, width: int = 480, height: int = 280, giants: int
             fields.displacement, positions, uvs, tris,
             torch.as_tensor(view_proj, dtype=torch.float32, device=dev),
             torch.as_tensor(camera_pos, dtype=torch.float32, device=dev),
-            width, height, pool, giants, interp, grid_shape,
+            width, band_h, pool, giants, interp, grid_shape,
             fields.foam if config.compute_foam else None,
-            0 if config.compat.frag_normal_x else 1, scales, tiles, with_diag=diag)
+            0 if config.compat.frag_normal_x else 1, scales, tiles, y_origin=band * band_h,
+            full_height=height, with_diag=diag)
         srgb = srgb8(out[0])
         if diag:
             return srgb, out[2]          # (frame, dropped-giants tripwire)

@@ -42,7 +42,12 @@ stateless engine; the browser is the window and only forwards raw events:
                               call, returned as one vertically stacked JPEG
     GET /session/state        -> pose, sim time, frame-time EMA (title bar)
 
-A device mesh (``mesh=``) is not ported (ROADMAP.md queue 1, item 11).
+With a device mesh (``mesh=``, ``parallel.make_mesh`` with batch 1) the
+step runs row-sharded over the mesh (the fields gather to the host for
+``/frame``), and frames whose height the row axis divides render
+band-parallel, one band a position (``parallel/render.py``, bit-equal to
+the single-device frame); other heights take the ``render_frame`` path of
+the gathered fields. ``/metrics`` names the mesh.
 """
 
 from __future__ import annotations
@@ -73,10 +78,6 @@ from gfx_ocean_tpu_torch.utils.profiling import Ema
 # slot pool grows with the area, and the area is the client's to choose.
 _FUSED_MAX_AREA = 1280 * 720
 
-MESH_NOT_PORTED = ("a device mesh is not ported yet (ROADMAP.md queue 1, item 11: "
-                   "parallel/ to torch.distributed)")
-
-
 def device_label(device: torch.device) -> str:
     """``cuda:0 NVIDIA H100 80GB HBM3`` for a card, ``cpu`` for the host."""
     if device.type == "cuda":
@@ -103,14 +104,30 @@ class FrameService:
 
     def __init__(self, state: OceanState, config: OceanConfig, mesh=None,
                  sharded_fft: str = "gspmd"):
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
-        self.state = state
         self.config = config
         self.config_json = json.dumps(dataclasses.asdict(config))
-        self.device = state.h0.device
+        self.mesh = mesh
+        if mesh is not None:
+            from gfx_ocean_tpu_torch.parallel import (  # noqa: PLC0415
+                Mesh, Sharded, make_sharded_step, shard_state)
+            from gfx_ocean_tpu_torch.parallel.render import replicate_state  # noqa: PLC0415
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh: expected a parallel.Mesh (parallel.make_mesh), "
+                                f"got {type(mesh).__name__}")
+            if isinstance(state.h0, Sharded):   # as the CLI's _mesh_setup places it
+                state = OceanState(state.h0.gather(), state.omega.gather())
+            self._step = make_sharded_step(config, mesh, batched=False, fft=sharded_fft)
+            # The band renderers take the state replicated: copied once here,
+            # not at every frame.
+            self._render_state = replicate_state(state, mesh)
+            self.state = shard_state(state, mesh)
+            self.device = mesh.device((0, 0))
+        else:
+            self._step = make_step(config)
+            self.state = self._render_state = state
+            self.device = state.h0.device
         self.device_name = device_label(self.device)
-        self._step = make_step(config)
         self._lock = threading.Lock()          # every launch of device work
         self._meter_lock = threading.Lock()    # counters / EMA
         # (w, h, giants[, n]) -> frame (or n-frame strip) renderer, least
@@ -137,6 +154,8 @@ class FrameService:
         t0 = time.perf_counter()
         with self._lock:
             out = self._step(self.state, float(t))
+        if self.mesh is not None:
+            out = type(out)(*(None if f is None else f.gather() for f in out))
         arrays = {"displacement": out.displacement.cpu().numpy(), "t": np.float64(t)}
         if out.normals is not None:
             arrays["normals"] = out.normals.cpu().numpy()
@@ -153,7 +172,25 @@ class FrameService:
             self._renderers.move_to_end(key)
             return fn
         width, height, giants = key[:3]
-        if len(key) == 4:
+        if self.mesh is not None:
+            # Band-parallel: a horizontal band of the viewport a position,
+            # gathered (parallel/render.py).
+            from gfx_ocean_tpu_torch.parallel import render as prender  # noqa: PLC0415
+
+            if len(key) == 4:
+                sharded = prender.make_sharded_batch_renderer(self.config, self.mesh, width,
+                                                              height, giants=giants)
+
+                def fn(*args):
+                    return sharded(*args).gather()
+            else:
+                sharded = prender.make_sharded_frame_renderer(self.config, self.mesh, width,
+                                                              height, giants=giants, diag=True)
+
+                def fn(*args):
+                    frame, dropped = sharded(*args)
+                    return frame.gather(), dropped.gather().max()
+        elif len(key) == 4:
             fn = raster.make_batch_renderer(self.config, width=width, height=height,
                                             giants=giants)
         else:
@@ -185,10 +222,12 @@ class FrameService:
         camera = camera if camera is not None else Camera()
         t0 = time.perf_counter()
         view_proj = (perspective(width / height) @ camera.view()).astype(np.float32)
-        if width * height <= _FUSED_MAX_AREA:
+        fused_ok = width * height <= _FUSED_MAX_AREA and (
+            self.mesh is None or height % self.mesh.shape["row"] == 0)
+        if fused_ok:
             with self._lock:
                 fn = self._renderer((width, height, giants))
-                srgb_dev, dropped_dev = fn(self.state, float(t), view_proj,
+                srgb_dev, dropped_dev = fn(self._render_state, float(t), view_proj,
                                            camera.position.astype(np.float32))
             srgb = srgb_dev.cpu().numpy()
             dropped = int(dropped_dev)
@@ -241,7 +280,7 @@ class FrameService:
         ts = np.asarray(times, np.float32)
         with self._lock:
             fn = self._renderer((width, height, giants, n))
-            frames_dev = fn(self.state, torch.from_numpy(ts).to(self.device),
+            frames_dev = fn(self._render_state, torch.from_numpy(ts).to(self.device),
                             torch.from_numpy(vps).to(self.device),
                             torch.from_numpy(cps).to(self.device))
         frames = frames_dev.cpu().numpy()
@@ -267,7 +306,7 @@ class FrameService:
                 "last_encode_sec": self.last_encode_sec,
                 "device": self.device_name,
                 "resolution": self.config.resolution,
-                "mesh": None,
+                "mesh": None if self.mesh is None else dict(self.mesh.shape),
             }
 
 
@@ -517,6 +556,9 @@ def _make_handler(service: FrameService):
                     if w * h > _FUSED_MAX_AREA:
                         raise ValueError(
                             "strip viewport exceeds the fused-path area cap")
+                    if service.mesh is not None and n % service.mesh.shape["batch"]:
+                        raise ValueError(f"strip n={n} must divide by the mesh batch axis "
+                                         f"({service.mesh.shape['batch']})")
                     dt = float(q["dt"][0]) if "dt" in q else None
                     ticks = service.session.advance_batch(n, dt)
                     self._send(200, service.strip_jpg(
@@ -543,17 +585,17 @@ def serve(state: OceanState, config: OceanConfig, host: str = "127.0.0.1",
     library (one nvcc each, all at once; a library already built is reused),
     then warms up: one step and the viewer's default strip (960x540, 4
     frames) without the encoder. Every error of the build or the warm-up
-    rises to the caller."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
-    service = FrameService(state, config)
+    rises to the caller. With ``mesh`` the step runs row-sharded over the
+    mesh and frames render band-parallel (see the module's docstring)."""
+    service = FrameService(state, config, mesh=mesh, sharded_fft=sharded_fft)
     if service.device.type == "cuda":
         from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415
 
         for name in kernels.build_all(sorted(kernels.SIGNATURES)):
             kernels.load(name)
     service.fields(0.0)
-    service.strip_frames([0.0] * 4, [Camera()] * 4, 960, 540)
+    if mesh is None or (540 % mesh.shape["row"] == 0 and 4 % mesh.shape["batch"] == 0):
+        service.strip_frames([0.0] * 4, [Camera()] * 4, 960, 540)
     server = ThreadingHTTPServer((host, port), _make_handler(service))
     server.service = service  # for tests/metrics access
     return server

@@ -2,8 +2,8 @@
 CLI on shared files.
 
 Every test of ``tests/test_cli.py`` has its counterpart here, run with
-``--device cpu``, except the mesh runs (one test checks that ``--mesh``
-exits naming the roadmap item) and the TPU compile cache (no counterpart).
+``--device cpu`` (a mesh of B * R positions on the host), except the TPU
+compile cache (no counterpart).
 Same-seed states differ between the packages (``torch.Generator`` against
 ``jax.random``), so the cross-package tests share a state through files:
 ``synth``'s bincode files, read by both CLIs with ``--spectrum/--omega``,
@@ -12,6 +12,7 @@ or a JAX checkpoint read with ``--resume``.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -207,14 +208,91 @@ def test_save_fields_npz(tmp_path):
         assert float(z["t"]) == 1.0
 
 
+MESH_EXITS = {"simulate": "not divisible by mesh row=3",
+              "bench": "not divisible by mesh row=3",
+              "render": "must divide --height",
+              "serve": "use --mesh 1,R"}
+
+
 @pytest.mark.parametrize("cmd", ["simulate", "bench", "render", "serve", "query"])
 def test_cli_mesh_exits_naming_the_roadmap(cmd, capsys):
-    """The mesh runs of tests/test_cli.py (bench/simulate/render --mesh) have
-    no port yet: a given --mesh exits before any work, naming the item."""
-    argv = [cmd, *BASE, "--mesh", "2,4"] + (["1,2"] if cmd == "query" else [])
+    """--mesh runs since the port's parallel/ (the tests below); a mesh the
+    command cannot take exits before any work with the JAX CLI's message
+    (the 64-row grid or 350-row viewport over 3 rows, serve over 2 batch
+    positions), and query, which the JAX CLI runs without a mesh, ignores
+    it."""
+    argv = [cmd, *BASE, "--mesh", "2,3"] + (["1,2"] if cmd == "query" else [])
+    if cmd == "query":
+        assert main(argv) == 0
+        return
     with pytest.raises(SystemExit) as e:
         main(argv)
-    assert "queue 1, item 11" in str(e.value.code)
+    assert MESH_EXITS[cmd] in str(e.value.code)
+
+
+def test_cli_render_mesh(tmp_path, capsys):
+    """tests/test_cli.py::test_cli_render_mesh: frames over batch x bands
+    over rows equal the single-device frames bit for bit (2 x 2 here, the
+    JAX test's 2 x 4 halved: each position runs the 128 x 4-patch vertex
+    stage on the CPU; 3 frames pad the tail)."""
+    out1, outm = str(tmp_path / "f1"), str(tmp_path / "fm")
+    common = ["render", *BASE, "--frames", "3", "--width", "64", "--height", "48",
+              "--keys", "w"]
+    assert main([*common, "--out", out1]) == 0
+    assert main([*common, "--mesh", "2,2", "--out", outm]) == 0
+    for j in range(3):
+        a = np.load(os.path.join(out1, f"frame_{j:05d}.npy"))
+        b = np.load(os.path.join(outm, f"frame_{j:05d}.npy"))
+        assert np.array_equal(a, b)
+
+
+def test_cli_bench_mesh(capsys):
+    assert main(["bench", *BASE, "--steps", "4", "--repeats", "1", "--time-batch", "1",
+                 "--mesh", "2,4"]) == 0
+    out = _last_json(capsys)
+    assert out["steps_per_sec"] > 0
+    assert out["mesh"] == {"batch": 2, "row": 4}
+
+
+def test_cli_bench_mesh_shard_map(capsys):
+    assert main(["bench", *BASE, "--no-pack", "--steps", "2", "--repeats", "1",
+                 "--time-batch", "1", "--mesh", "1,8", "--sharded-fft", "shard_map"]) == 0
+    out = _last_json(capsys)
+    assert out["steps_per_sec"] > 0 and out["sharded_fft"] == "shard_map"
+
+
+def test_cli_simulate_mesh_matches_single_device(capsys):
+    assert main(["simulate", *BASE, "--steps", "3"]) == 0
+    single = _last_json(capsys)
+    assert main(["simulate", *BASE, "--steps", "3", "--mesh", "1,4"]) == 0
+    sharded = _last_json(capsys)
+    # the JAX test's tolerance: the sharded sum adds per-band partials
+    np.testing.assert_allclose(single["checksums_head"], sharded["checksums_head"],
+                               rtol=1e-3, atol=5e-3)
+
+
+def test_cli_simulate_mesh_save_fields(tmp_path, capsys):
+    d = str(tmp_path / "fields")
+    assert main(["simulate", *BASE, "--steps", "1", "--mesh", "1,4", "--save-fields", d]) == 0
+    with np.load(os.path.join(d, "frame_00000.npz")) as z:
+        assert z["displacement"].shape == (64, 64, 3)
+        assert np.isfinite(z["displacement"]).all()
+
+
+def test_cli_mesh_rejects_bad_shapes():
+    with pytest.raises(SystemExit):
+        main(["bench", *BASE, "--steps", "2", "--mesh", "3,5"])
+    with pytest.raises(SystemExit):
+        main(["bench", *BASE, "--steps", "2", "--mesh", "nope"])
+
+
+def test_cli_mesh_wants_enough_cards(monkeypatch):
+    """On the card the mesh takes distinct cards and exits, as the JAX CLI
+    does, when too few are visible."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="wants 2 devices; only 1 visible"):
+        tcli._mesh_devices(argparse.Namespace(device="cuda", mesh="1,2"), 2)
 
 
 def test_cli_render_cascades(tmp_path, capsys):

@@ -28,6 +28,7 @@ from gfx_ocean_tpu_torch.ops import fourstep_step as fs
 from gfx_ocean_tpu_torch.ops import fused_step
 from gfx_ocean_tpu_torch.ops import unpacked_step as us
 from gfx_ocean_tpu_torch.ops.derived import finite_difference_normals_planes
+from gfx_ocean_tpu_torch.ops.propagate import band_windows
 from gfx_ocean_tpu_torch.render import raster as rr
 from gfx_ocean_tpu_torch.render.camera import Camera
 from gfx_ocean_tpu_torch.spectra.phillips import dispersion, synthesize
@@ -280,6 +281,65 @@ def test_fourstep_col_on_a_column_band(cuda, n):
     assert _rel(got, fs.fourstep_col_reference(band, cfg)) < TOL_PLANES
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1024, 4096])
+def test_fourstep_row_windows_equal_the_whole_state(cuda, n):
+    """K2 on a band reading its two windows of the state
+    (``fourstep_row_windows``, as a row-sharded shard does) is bit-equal to
+    the same rows of the whole-state launch, for the first band (row b - 1
+    wraps), a middle one and the last; its plain version matches."""
+    cfg, inputs = _fourstep_inputs(n, CompatFlags(conj_neg=True), cuda)
+    whole = fs.launch_fourstep_row(inputs, [7.5, 1000.0], cfg)
+    band_inputs = fs.FourstepInputs(None, None, inputs.twiddle)
+    rows = n // 8
+    for base in (0, 3 * rows, n - rows):
+        windows = band_windows(inputs.h0, inputs.omega, base, rows)
+        got = fs.launch_fourstep_row(band_inputs, [7.5, 1000.0], cfg, base, rows, windows)
+        assert torch.equal(got, whole[..., base:base + rows, :]), base
+        want = fs.fourstep_row_reference(band_inputs, [7.5, 1000.0], cfg, base, rows, windows)
+        assert _rel(got, want) < TOL_PLANES
+
+
+@pytest.mark.cuda
+def test_launchers_raise_off_their_current_device(cuda, monkeypatch):
+    """A ctypes launch runs on the calling thread's current device, so every
+    launcher raises when that is not its tensors' device (a shard of a mesh
+    of cards runs under its own, ``utils/device.device_guard``)."""
+    cfg, inputs = _fourstep_inputs(1024, CompatFlags(), cuda)
+    pcfg, pinputs = _inputs(64, CompatFlags(), cuda)
+    ucfg = dataclasses.replace(pcfg, hermitian_pack=False)
+    uinputs = us.hoist_unpacked(pinputs.h0, pinputs.omega, ucfg)
+    y = fs.launch_fourstep_row(inputs, [1.0], cfg)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: cuda.index + 1)
+    for launch in (lambda: fs.launch_fourstep_row(inputs, [1.0], cfg),
+                   lambda: fs.launch_fourstep_col(y, inputs.twiddle, cfg, checksum=False),
+                   lambda: fused_step.launch_packed_step(pinputs, torch.zeros(1, device=cuda),
+                                                         pcfg, checksum=False),
+                   lambda: us.launch_unpacked_step(uinputs, [1.0], ucfg),
+                   lambda: rr.launch_segmin_kernel(
+                       torch.zeros(16, dtype=torch.int32, device=cuda),
+                       torch.zeros((5, 16), dtype=torch.int32, device=cuda), 8, 17)):
+        with pytest.raises(RuntimeError, match="current device"):
+            launch()
+
+
+@pytest.mark.cuda
+def test_sharded_fourstep_step_on_one_card(cuda):
+    """The row-sharded K2 + K3 step over a 1 x 4 mesh of cuda:0 (four
+    positions on one card) is bit-equal to the single-device kernels: each
+    row of K2 and each column of K3 computes alone."""
+    from gfx_ocean_tpu_torch.models.ocean import OceanState, make_step
+    from gfx_ocean_tpu_torch.parallel import make_mesh, make_sharded_step, shard_state
+
+    cfg, inputs = _fourstep_inputs(1024, CompatFlags(), cuda)
+    state = OceanState(inputs.h0, inputs.omega)
+    mesh = make_mesh([cuda] * 4, batch=1, row=4)
+    rows = fs.launch_fourstep_row.launches
+    got = make_sharded_step(cfg, mesh, batched=False)(shard_state(state, mesh), 11.25)
+    assert fs.launch_fourstep_row.launches == rows + 4
+    assert torch.equal(got.displacement.gather(), make_step(cfg)(state, 11.25).displacement)
+
+
 @functools.lru_cache(maxsize=None)
 def _big_inputs(device):
     """A 16384^2 state drawn on the card (h0 from a CUDA generator seeded
@@ -323,6 +383,12 @@ def test_fourstep_16384_on_row_and_column_bands(cuda):
     for c0 in (4096 + 32, n - 128):
         want = fs.fourstep_col_reference(y[..., c0:c0 + 128].contiguous(), cfg)
         assert _rel(planes[..., c0:c0 + 128], want) < TOL_PLANES
+    # the split kernel on a band's two windows (a row-sharded shard)
+    base = 3 * (n // 4)
+    windows = band_windows(inputs.h0, inputs.omega, base, 16)
+    band = fs.launch_fourstep_row(fs.FourstepInputs(None, None, inputs.twiddle), ts, cfg,
+                                  base, 16, windows)
+    assert torch.equal(band, y[..., base:base + 16, :])
     del y
     assert bool(torch.isfinite(planes).all())
     assert _checksum_rel(partials.sum(-1), planes, cfg) < TOL_CHECKSUM
@@ -752,7 +818,8 @@ def test_import_leaves_out_jax():
             "gfx_ocean_tpu_torch.cli, gfx_ocean_tpu_torch.serve, "
             "gfx_ocean_tpu_torch.utils.profiling, gfx_ocean_tpu_torch.utils.png, "
             "gfx_ocean_tpu_torch.native.bincode_native, gfx_ocean_tpu_torch.assets, "
-            "gfx_ocean_tpu_torch.golden, importlib.util;"
+            "gfx_ocean_tpu_torch.golden, gfx_ocean_tpu_torch.parallel, "
+            "gfx_ocean_tpu_torch.parallel.render, importlib.util;"
             # python -m gfx_ocean_tpu_torch runs __main__, which imports cli
             "assert importlib.util.find_spec('gfx_ocean_tpu_torch.__main__');"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gfx_ocean_tpu')];"

@@ -2,9 +2,9 @@
 routes, payloads, status codes, the dispatch lock, and agreement with the
 JAX package's ``FrameService`` and with the port's own renderer.
 
-Every test of ``tests/test_serve.py`` has its counterpart here; the mesh
-test becomes a check that ``mesh=`` raises naming the roadmap item. PNGs
-come from the port's standard-library writer and are decoded with Pillow.
+Every test of ``tests/test_serve.py`` has its counterpart here, the mesh
+test on a mesh of four positions on the host. PNGs come from the port's
+standard-library writer and are decoded with Pillow.
 """
 
 from __future__ import annotations
@@ -362,11 +362,46 @@ def test_oversize_viewport_falls_back(server, monkeypatch):
 
 
 def test_serve_with_mesh_raises_naming_the_roadmap():
-    """The sharded service of tests/test_serve.py has no port yet."""
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
+    """``mesh=`` takes the port's mesh (``parallel.make_mesh``), which
+    serves since the port's parallel/ (see test_serve_with_mesh_renders);
+    anything else raises naming what it wants."""
+    with pytest.raises(TypeError, match="make_mesh"):
         serve(_state(), T.OceanConfig(resolution=64), port=0, mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
+    with pytest.raises(TypeError, match="make_mesh"):
         serve_mod.FrameService(_state(), T.OceanConfig(resolution=64), mesh=object())
+
+
+def test_serve_with_mesh_renders():
+    """tests/test_serve.py::test_serve_with_mesh_renders: band-height
+    viewports render band-parallel over a 1 x 4 mesh (bit-equal to the
+    single-device frame), a height the row axis does not divide takes the
+    render_frame path of the gathered fields, /frame equals the unsharded
+    step's fields and /metrics names the mesh."""
+    from gfx_ocean_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh([torch.device("cpu")] * 4, batch=1, row=4)
+    cfg = T.OceanConfig(resolution=64, compute_normals=False)
+    srv = serve(_state(), cfg, host="127.0.0.1", port=0, mesh=mesh)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        code, body, ctype = _get(base + "/frame.png?t=1.0&w=64&h=48")
+        assert code == 200 and ctype == "image/png"
+        assert (64, 48, 512) in srv.service._renderers  # band-parallel path
+        want = raster_mod.make_frame_renderer(cfg, 64, 48)(
+            _state(), 1.0, (perspective(64 / 48) @ Camera().view()).astype(np.float32),
+            Camera().position.astype(np.float32))
+        assert np.array_equal(_png(body), want.numpy())
+        code, body, ctype = _get(base + "/frame.jpg?t=1.0&w=64&h=47")
+        assert code == 200 and body[:2] == b"\xff\xd8"  # 47 % 4 -> render_frame path
+        assert (64, 47, 512) not in srv.service._renderers
+        code, body, _ = _get(base + "/frame?t=2.0")
+        got = np.load(io.BytesIO(body))["displacement"]
+        np.testing.assert_array_equal(got, T.make_step(cfg)(_state(), 2.0).displacement.numpy())
+        m = json.loads(_get(base + "/metrics")[1])
+        assert m["mesh"] == {"batch": 1, "row": 4} and m["giant_dropped_max"] == 0
+    finally:
+        _stop(srv)
 
 
 def test_renderer_cache_churn(monkeypatch):
