@@ -11,13 +11,17 @@ precision tiers of the matmul route, the window rasterizer, meshes other
 than the grid and the native bincode loader; then multi-device runs
 (``parallel/``) on meshes of the one card. It imports no jax.
 
-- The 512^2 Hermitian-packed step (``OceanConfig(fft_impl="pallas",
-  matmul_precision="bf16x3")``) through kernel K1, a 600-frame checksum
-  rollout at time_batch 6.
+- The 512^2 Hermitian-packed step (``OceanConfig(fft_impl="pallas")``)
+  through kernel K1: its FFT body at ``matmul_precision="highest"``
+  (phases 4-7) and its tiered body K1t, the JAX kernel's bf16 passes on the
+  tensor cores, at the default "bf16x3" (``bench.py``'s headline), "bf16x4",
+  "high" and "default" (phase 49); 600-frame checksum rollouts at
+  time_batch 6.
 - The 4096^2 four-step step, config 5 of ``benchmarks/run_all.py``
   (``resolution=4096, domain_size=2000.0, fft_impl="pallas",
-  matmul_precision="high"``), through kernels K2 + K3, 120-frame checksum
-  rollouts at time_batch 1 and 4.
+  matmul_precision="high"``), through kernels K2 + K3: their FFT bodies at
+  "highest" (phases 8-13) and their tiered bodies K2t + K3t at config 5's
+  "high" and the other tiers (phase 50); 120-frame checksum rollouts.
 - The interactive frame renderer at the reference's 1200x700 window
   (``make_frame_renderer(OceanConfig(fft_impl="pallas"), 1200, 700)``,
   mesh 128 x 4, 512^2 state from numpy noise of seed 0, default camera)
@@ -29,7 +33,8 @@ than the grid and the native bincode loader; then multi-device runs
 - The 16384^2 four-step step, the four-step plan's largest grid
   (``OceanConfig(resolution=16384, fft_impl="pallas")``), through K2 (a
   row split in registers into two 8192-point halves, one a block of a
-  two-block cluster) and K3, a 24-frame checksum rollout at time_batch 1.
+  two-block cluster) and K3 at "highest", a 24-frame checksum rollout at
+  time_batch 1; K2t there at the tiers (phase 51).
 - Cascades, config 4 of ``benchmarks/run_all.py`` (``OceanConfig(
   resolution=512, num_cascades=3, compute_foam=True)``, here on "pallas"):
   three 512^2 cascades with foam through K1's cascade axis, a 200-frame
@@ -43,7 +48,8 @@ Phases, one line each:
    once, with the ptxas lines (registers, spills) of each;
 3. state: the 512^2 state from the shipped bins, else synthesized from a
    torch.Generator seeded 0;
-4. kernel vs plain: K1 against its plain PyTorch version on the card;
+4. kernel vs plain: K1 (the FFT body, "highest") against its plain
+   PyTorch version on the card;
 5. golden: the step's fields against the float64 golden model;
 6. time: one K1 call against one plain call and torch.fft.ifft2 of the
    same spectra (CUDA events), and K1's own device time a call
@@ -53,7 +59,8 @@ Phases, one line each:
 8. fourstep_state: the 4096^2 state synthesized from a torch.Generator
    seeded 0 (the shipped bins are 512^2 only);
 9. fourstep_kernel_vs_plain: K2 alone, K3 alone (fed K2's Y) and both
-   chained against the plain version, planes and checksums, at 1024^2 and
+   chained (the FFT bodies, "highest") against the plain version, planes
+   and checksums, at 1024^2 and
    4096^2 over the six frames of T_COMPARE and at 8192^2 over two;
 10. fourstep_golden: the 4096^2 step at t = 11.25 against the golden model;
 11. fourstep_time_one_call: K2, K3 and the whole step at tb 1 and 4 against
@@ -202,9 +209,38 @@ cuda:0, each phase with the launches of K1-K3, K7 and K8 it made:
 48. parallel_serve: ``serve(mesh=make_mesh([cuda:0] * 4, row=4))``:
     ``/frame.png`` bytes equal the unsharded server's.
 
-Then one JSON line with the kernels K1-K8 and K2 at 16384^2 (times,
-bounds from this run's shapes, library yardsticks, ``device_ms``; K1's
-entry carries the cascade call's numbers as ``cascade_*``), and as
+49-51 (run before 42-48, which free the states they read): the tiered
+bodies K1t, K2t, K3t, each against its plain version at the tier (the
+same bf16 products, ``ops/fft.matmul_tier``) and against golden beside its
+exact scheme (``exact_products``: the plain version with float64 sums over
+the same bf16 operands), held by FP32_SUM_ALLOWANCE (+ DEFAULT_REROUND at
+"default") and by the golden gate (DEFAULT_GATE at "default"); "bf16x4"
+and "high" bit-equal to "bf16x3"; ms by CUDA events, ``device_ms`` by
+torch.profiler, the plain version's ms and the matmul route's at the same
+tier (cuBLAS bf16 passes, the library yardstick); the main path's launches
+with the counts at 0 just before it:
+49. tier_k1: K1t at 512^2 on phase 3's state, a 6-frame call, one cascade
+    and three (bit-equal to three single launches), the 600-frame rollout
+    at tb 6 at "bf16x3" and "default" beside "highest" in the same call, and
+    the headline rollout ("bf16x3") as K1t's main path;
+50. tier_fourstep: K2t alone, K3t alone (fed K2t's Y) and chained, with
+    the checksums, at 1024^2 and config 5 (phase 8's state, phase 10's
+    golden); a one-frame call of K2t, K3t and the step at config 5, the
+    120-frame rollouts at "high" and "default" beside "highest", and config
+    5's rollout at "high" as K2t's and K3t's main path;
+51. tier_big: K2t at 16384^2 (phase 22's state): the whole frame, phase
+    23's two 16-row bands against the plain version and bit-equal to the
+    frame's rows, "high" and "bf16x4" bit-equal to "bf16x3", one call's
+    time beside the FFT body's and the matmul route's row passes, its
+    bound; the step through K2t + K3t on those bands against phase 24's
+    golden rows under the gate (its exact scheme would need the plain K3
+    of the whole frame).
+
+Then one JSON line with the kernels K1-K8, K2 at 16384^2 and K1t-K3t
+(times, bounds from this run's shapes, library yardsticks, ``device_ms``;
+K1t's entry carries config 4's cascade call, which runs K1t at
+"bf16x3", as ``cascade_*``, the tiered bodies' their "default" tier's
+under ``default_tier``), and as
 the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero with no
 result; so does a machine without CUDA.
@@ -363,6 +399,21 @@ DEFAULT_GATE = 1e-2
 TIER_CALLS = 20
 TIER_STEPS = 120
 TIER_BIG_FRAMES = 8
+# Phases 49-51: the tiered bodies of K1, K2 and K3 (K1t, K2t, K3t), the JAX
+# kernels' bf16 passes on the tensor cores. K1t at 512^2 (phase 3's state),
+# K2t + K3t at 1024^2 and config 5, K2t at 16384^2 (phase 22's state). Their
+# bound takes the card's dense bf16 rate.
+TIER_K1 = ("bf16x3", "bf16x4", "high", "default")
+TIER_BIG_LIBRARY_CALLS = 2
+TIER_FOURSTEP = ("high", "bf16x3", "bf16x4", "default")
+BF16_OPS_PER_S = 989e12
+# Kernel against plain at a tiered body: the same bf16 products, FP32 sums
+# in another order; a stage's FP32 output split again as the next stage's
+# operand (K1's row pass, K2's and K3's stage 1, Y between K2 and K3) now and
+# then moves by a bf16 ulp of its lo at the split tiers, of itself at
+# "default" (tests/test_torch_kernels.py's TOL_BODY).
+TOL_TIERED = {"bf16x3": 2.5e-5, "default": 4e-3}
+TOL_TIERED_CHECKSUM = {"bf16x3": TOL_CHECKSUM, "default": 1e-3}
 # Phase 39: the window rasterizer at phase 17's frame. 32^2 samples leave
 # 145 giant candidates at the default camera (counted on the CPU), under
 # R_GIANTS; the pool/window envelope of tests/test_render.py:943-978
@@ -405,13 +456,30 @@ def fft_ops(n: int, transforms: int) -> float:
     return 5.0 * n * math.log2(n) * transforms
 
 
-def bound(n_bytes: float, ops: float) -> dict:
+def bound(n_bytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> dict:
     """The least time the card could take: bytes over the HBM rate or
-    operations over the FP32 rate, whichever is larger."""
+    operations over their rate (FP32, or the tensor cores' dense bf16 for
+    the tiered bodies), whichever is larger."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / FP32_OPS_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def kernel_tol(tier: str) -> float:
+    """Kernel against plain: TOL_KERNEL for the FFT bodies ("highest"), the
+    tiered bodies' TOL_TIERED otherwise."""
+    from gfx_ocean_tpu_torch.ops.fft import kernel_tier
+
+    t = kernel_tier(tier)
+    return TOL_KERNEL if t == "highest" else TOL_TIERED[t]
+
+
+def checksum_tol(tier: str) -> float:
+    from gfx_ocean_tpu_torch.ops.fft import kernel_tier
+
+    t = kernel_tier(tier)
+    return TOL_CHECKSUM if t == "highest" else TOL_TIERED_CHECKSUM[t]
 
 
 def event_ms(fn, calls: int) -> float:
@@ -443,6 +511,17 @@ K6_KERNELS = ("unpacked_col_pass",)
 K2_SPLIT_KERNELS = ("fourstep_row_pass_split",)
 K7_KERNELS = ("slot_kernel",)
 K8_KERNELS = ("segmin_lookback",)
+K1T_KERNELS = ("packed_row_tier", "packed_col_tier", "checksum_partials")
+K2T_KERNELS = ("fourstep_row_tier1", "fourstep_row_tier2")
+K3T_KERNELS = ("fourstep_col_tier1", "fourstep_col_tier2", "checksum_partials")
+
+
+def body_kernels(tier: str, fft_names, tiered_names):
+    """The kernels a launch at ``tier`` runs: the FFT body's at "highest",
+    the tiered body's otherwise."""
+    from gfx_ocean_tpu_torch.ops.fft import kernel_tier
+
+    return fft_names if kernel_tier(tier) == "highest" else tiered_names
 
 
 def kernel_device_ms(fn, names, calls: int) -> dict:
@@ -529,7 +608,7 @@ def main() -> None:
     kernels_line += run_render(dev)
     kernels_line += run_unpacked(dev)
     kernels_line += run_big(dev)
-    k1.update(run_cascades(dev))
+    cascades = run_cascades(dev)  # config 4 at "bf16x3": K1's tiered body
     run_cli(dev)
     run_serve(dev)
     run_frame_bench()
@@ -537,6 +616,9 @@ def main() -> None:
     run_window_render(dev)
     run_generic_mesh(dev)
     run_native_loader()
+    kernels_line.append(run_tier_k1(dev) | cascades)
+    kernels_line += run_tier_fourstep(dev)
+    run_tier_big(dev)
     run_parallel(dev)
     print(json.dumps({"kernels": sorted(kernels_line, key=lambda k: k["name"])}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -596,7 +678,8 @@ def run(dev, n: int) -> dict:
     from gfx_ocean_tpu_torch.utils.profiling import time_rollout
 
     # --- 3. state -----------------------------------------------------------
-    cfg = ot.OceanConfig(resolution=n, fft_impl="pallas", matmul_precision="bf16x3")
+    # "highest": the FFT body of K1 (phase 49 holds the tiered body)
+    cfg = ot.OceanConfig(resolution=n, fft_impl="pallas", matmul_precision="highest")
     tier = fused_step.check_supported(cfg, n)
     state, source = main_state(dev, cfg)
     phase("state", source=source, resolution=n, h0_absmax=float(state.h0.abs().max()),
@@ -728,8 +811,10 @@ def run_fourstep(dev) -> list:
     from gfx_ocean_tpu_torch.utils.complexpair import from_pair_np
     from gfx_ocean_tpu_torch.utils.profiling import time_rollout
 
+    # config 5 at "highest": the FFT bodies of K2 and K3 (phase 50 holds the
+    # tiered bodies at config 5's "high")
     cfg = ot.OceanConfig(resolution=FS_N, domain_size=2000.0, fft_impl="pallas",
-                         matmul_precision="high")
+                         matmul_precision="highest")
     tier = fused_step.check_supported(cfg, FS_N)
 
     def state_at(n: int):
@@ -1421,7 +1506,8 @@ def run_big(dev) -> list:
     from gfx_ocean_tpu_torch.utils.profiling import time_rollout
 
     torch.cuda.empty_cache()
-    cfg = ot.OceanConfig(resolution=BIG_N, fft_impl="pallas")
+    # "highest": the FFT bodies (phase 51 holds K2's tiered body here)
+    cfg = ot.OceanConfig(resolution=BIG_N, fft_impl="pallas", matmul_precision="highest")
     tier = fused_step.check_supported(cfg, BIG_N)
     counters = (fused_step.launch_packed_step, fs.launch_fourstep_row, fs.launch_fourstep_col)
 
@@ -1606,8 +1692,9 @@ def run_cascades(dev) -> dict:
     """Phases 27-34: config 4 of benchmarks/run_all.py (three 512^2 cascades
     with foam) through K1's cascade axis, the per-cascade routes (K2 + K3 at
     1024^2, K4 at 512^2), the composited 1200x700 frame (K1 -> K7 -> K8),
-    sample_surface and a checkpoint; returns the fields it adds to K1's
-    kernels entry."""
+    sample_surface and a checkpoint; returns the fields it adds to K1t's
+    kernels entry (config 4 runs at the default "bf16x3": K1's tiered
+    body)."""
     import numpy as np
     import torch
 
@@ -1618,6 +1705,7 @@ def run_cascades(dev) -> dict:
     from gfx_ocean_tpu_torch.ops import fused_step
     from gfx_ocean_tpu_torch.ops import unpacked_step as us
     from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, finite_difference_normals_planes
+    from gfx_ocean_tpu_torch.ops.fft import kernel_passes, kernel_tier, table_fragments
     from gfx_ocean_tpu_torch.render import raster as rr
     from gfx_ocean_tpu_torch.render.camera import Camera
     from gfx_ocean_tpu_torch.utils.complexpair import from_pair_np
@@ -1681,16 +1769,17 @@ def run_cascades(dev) -> dict:
     summands = summands_of(want)
     ck_rel = float(((partials.sum(dim=(0, 2)) - checksums_of_planes(want, cfg)).abs()
                     / summands).max())
+    tol = kernel_tol(cfg.matmul_precision)  # the tiered body at the default "bf16x3"
     phase("cascade_kernel_vs_plain", cascades=cc, frames=list(T_COMPARE),
           launches_for_the_call=one_launch, planes_max_abs=k1_err[0], planes_rel=k1_err[1],
           values_differing_from_single_cascade_launches=singles_differ,
-          checksum_rel_to_summands=ck_rel, tolerance=TOL_KERNEL,
+          checksum_rel_to_summands=ck_rel, tolerance=tol,
           checksum_tolerance=TOL_CHECKSUM)
     del planes, partials, want
     if one_launch != 1:
         fail(f"K1 took {one_launch} launches for {cc} cascades, expected 1")
-    if not (k1_err[1] <= TOL_KERNEL):
-        fail(f"K1 on cascades vs plain: {k1_err[1]:.3e} > {TOL_KERNEL}")
+    if not (k1_err[1] <= tol):
+        fail(f"K1 on cascades vs plain: {k1_err[1]:.3e} > {tol}")
     if singles_differ:
         fail(f"K1 on cascades differs from single-cascade launches in {singles_differ} values")
     if not (ck_rel <= TOL_CHECKSUM):
@@ -1705,10 +1794,15 @@ def run_cascades(dev) -> dict:
     k1c["library_ifft2_ms"] = event_ms(lambda: torch.fft.ifft2(spectra), TIMING_CALLS)
     del spectra
     k1c["device_ms"] = kernel_device_ms(lambda: fused_step.packed_checksums(inputs, ts_tb, cfg),
-                                        K1_KERNELS, TIMING_CALLS)
-    k1c_bound = bound(nbytes(state.h0, state.omega, inputs.twiddle, ts_tb)
+                                        body_kernels(cfg.matmul_precision, K1_KERNELS,
+                                                     K1T_KERNELS), TIMING_CALLS)
+    # config 4 runs K1's tiered body at the default "bf16x3": 3 passes of
+    # 28 N^3 a frame on the tensor cores, the table's fragments read
+    passes = kernel_passes(cfg.matmul_precision)
+    frag = table_fragments(("alt", N, 1, 0, False), dev, kernel_tier(cfg.matmul_precision))
+    k1c_bound = bound(nbytes(state.h0, state.omega, frag, ts_tb)
                       + 4 * cc * TIME_BATCH * (3 * N * N + N // fused_step.CHECKSUM_ROWS),
-                      fft_ops(N, cc * TIME_BATCH * 4 * N))
+                      passes * 28.0 * N ** 3 * cc * TIME_BATCH, BF16_OPS_PER_S)
     phase("cascade_time_one_call", cascades=cc, frames=TIME_BATCH, calls=TIMING_CALLS,
           library=f"torch.fft.ifft2 of ({cc * TIME_BATCH}, 2, {N}, {N}) c64",
           clock="cuda events; device_ms: torch.profiler, K1's launches only", **k1c, **k1c_bound)
@@ -1812,11 +1906,13 @@ def run_cascades(dev) -> dict:
                             checksum_rel_to_summands=rel_ck, launches=route_launches)
         del rin, got, want
         torch.cuda.empty_cache()
-    phase("cascade_routes", cascades=cc, routes=routes, tolerance=TOL_KERNEL,
+    # K2 + K3 run their tiered bodies at the default "bf16x3"; K4 is FP32 (D3)
+    tols = {"k2+k3": kernel_tol(cfg.matmul_precision), "k4": TOL_KERNEL}
+    phase("cascade_routes", cascades=cc, routes=routes, tolerance=tols,
           checksum_tolerance=TOL_CHECKSUM)
     expected_routes = {"k2+k3": dict(k2=2 * cc, k3=2 * cc), "k4": dict(k4=2 * cc)}
     for name, rec in routes.items():
-        if not (rec["planes_rel"] <= TOL_KERNEL and rec["checksum_rel_to_summands"]
+        if not (rec["planes_rel"] <= tols[name] and rec["checksum_rel_to_summands"]
                 <= TOL_CHECKSUM):
             fail(f"cascade route {name} vs plain: {rec}")
         want_launches = dict({k: 0 for k in counters}, **expected_routes[name])
@@ -1883,7 +1979,7 @@ def run_cascades(dev) -> dict:
         fail(f"cascade frame: giant-pass candidates dropped: {drops}")
 
     # --- 33. the main path: the rollout and frames, with every launch count --
-    reset()
+    reset_launches()
     t0 = time.perf_counter()
     rollout(state, ts).cpu()
     roll_s = time.perf_counter() - t0
@@ -1893,11 +1989,14 @@ def run_cascades(dev) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / C_FRAMES
     main_launches = launches()
+    k1t_launches = fused_step.launch_packed_step.tiered_launches
     expected = dict({k: 0 for k in counters}, k1=C_STEPS + C_FRAMES, k7=C_FRAMES, k8=C_FRAMES)
     phase("cascade_main_path", steps=C_STEPS, frames=C_FRAMES, rollout_seconds=roll_s,
-          frame_wall_ms=wall_ms, launches=main_launches, expected_launches=expected)
-    if main_launches != expected:
-        fail(f"the cascade main path launched {main_launches}, expected {expected}")
+          frame_wall_ms=wall_ms, launches=main_launches, k1t_launches=k1t_launches,
+          expected_launches=expected)
+    if main_launches != expected or k1t_launches != C_STEPS + C_FRAMES:
+        fail(f"the cascade main path launched {main_launches} ({k1t_launches} of K1t), "
+             f"expected {expected}, all of K1's through K1t")
 
     # --- 34. sample_surface on the card against the CPU; a checkpoint ---------
     disp = ot.step(state, T_CHECK, step_cfg).displacement
@@ -1930,7 +2029,7 @@ def run_cascades(dev) -> dict:
 
     return {
         "cascade_config": "benchmarks/run_all.py config 4: 3 x 512^2, foam, fft_impl pallas",
-        "cascade_launches": main_launches["k1"],
+        "cascade_launches": k1t_launches,
         "cascade_max_abs_err": k1_err[0],
         "cascade_frames_a_call": cc * TIME_BATCH,
         "cascade_ms": k1c["kernel_ms"],
@@ -2066,7 +2165,7 @@ def run_cli(dev) -> None:
     direct = DIRECT_ROLLOUTS[(N, TIME_BATCH)]
     rec["bench_512"] = dict(steps_per_sec=b512["steps_per_sec"], repeats_sec=b512["repeats_sec"],
                             direct_steps_per_sec=direct["steps_per_sec"],
-                            direct_repeats_sec=direct["repeats_sec"],
+                            direct_repeats_sec=direct["repeats_sec"], direct_tier="highest",
                             adjacent_direct_steps_per_sec=[d["steps_per_sec"] for d in direct_now],
                             adjacent_direct_repeats_sec=[d["repeats_sec"] for d in direct_now],
                             launches=launched, effective_precision=b512["effective_precision"],
@@ -2094,7 +2193,8 @@ def run_cli(dev) -> None:
     calls = (FS_REPEATS + 1) * FS_STEPS // 4
     rec["bench_config5"] = dict(steps_per_sec=b5["steps_per_sec"], repeats_sec=b5["repeats_sec"],
                                 direct_steps_per_sec=direct["steps_per_sec"],
-                                direct_repeats_sec=direct["repeats_sec"], launches=launched)
+                                direct_repeats_sec=direct["repeats_sec"], direct_tier="highest",
+                                launches=launched)
     if launched != {"k2": calls, "k3": calls}:
         fail(f"cli bench at config 5: {rec['bench_config5']}")
 
@@ -2627,6 +2727,479 @@ def run_native_loader() -> None:
     if rec["loader_in_use"] != "native":
         fail("the bincode loaders fell back to numpy on this machine")
 
+
+
+@contextlib.contextmanager
+def exact_products():
+    """Inside the block every product of the plain K1-K3 is its tier's scheme
+    computed exactly: the passes' bf16 products (``ops/fft._PASSES``) summed
+    in float64 (DGEMM on the card) and rounded once to float32, each stage's
+    output then split or rounded again as the kernels do (``scheme_rel``'s
+    arithmetic, for the packed route)."""
+    from gfx_ocean_tpu_torch.ops import fft as tfft
+    from gfx_ocean_tpu_torch.ops import fourstep_step as fs
+    from gfx_ocean_tpu_torch.ops import fused_step
+
+    def exact(a, b, tier):
+        pa = a.value if isinstance(a, tfft.Prepared) else tfft.prepare(a, tier).value
+        pb = b.value if isinstance(b, tfft.Prepared) else tfft.prepare(b, tier).value
+        if tier == "highest":
+            return (pa.double() @ pb.double()).float()
+        return sum(pa[p].double() @ pb[q].double() for p, q in tfft._PASSES[tier]).float()
+
+    saved = fused_step.matmul_tier, fs.matmul_tier
+    fused_step.matmul_tier = fs.matmul_tier = exact
+    try:
+        yield
+    finally:
+        fused_step.matmul_tier, fs.matmul_tier = saved
+
+
+def reset_launches() -> None:
+    """Every wrapper's counters to 0, the tiered bodies' too."""
+    from gfx_ocean_tpu_torch.ops import fourstep_step as fs
+    from gfx_ocean_tpu_torch.ops import fused_step
+    from gfx_ocean_tpu_torch.ops import unpacked_step as us
+    from gfx_ocean_tpu_torch.render import raster as rr
+
+    for w in (fused_step.launch_packed_step, fs.launch_fourstep_row, fs.launch_fourstep_col,
+              us.launch_unpacked_step, us.launch_unpacked_rows, us.launch_unpacked_cols,
+              rr.launch_slot_kernel, rr.launch_segmin_kernel):
+        w.launches = 0
+        if hasattr(w, "tiered_launches"):
+            w.tiered_launches = 0
+
+
+def tiered_counts() -> dict:
+    """The launches of the tiered bodies (K1t, K2t, K3t) and of the FFT
+    bodies (K1, K2, K3): a wrapper's launches less its tiered ones."""
+    from gfx_ocean_tpu_torch.ops import fourstep_step as fs
+    from gfx_ocean_tpu_torch.ops import fused_step
+
+    rec = {}
+    for k, w in (("k1", fused_step.launch_packed_step), ("k2", fs.launch_fourstep_row),
+                 ("k3", fs.launch_fourstep_col)):
+        rec[k] = w.launches - w.tiered_launches
+        rec[k + "t"] = w.tiered_launches
+    return rec
+
+
+def tier_gate(tier: str, rel: float, own: float) -> list:
+    """The failures of a tiered step's rel L-inf against golden: its exact
+    scheme's own error (``exact_products``) give or take FP32_SUM_ALLOWANCE
+    (+ DEFAULT_REROUND of it at "default"), and the golden gate (DEFAULT_GATE
+    at "default")."""
+    band = FP32_SUM_ALLOWANCE + DEFAULT_REROUND * own * (tier == "default")
+    gate = DEFAULT_GATE if tier == "default" else GOLDEN_GATE
+    out = []
+    if not abs(rel - own) <= band:
+        out.append(f"{tier}: rel L-inf {rel:.3e} is not its exact scheme's {own:.3e} +- {band:.3e}")
+    if not rel <= gate:
+        out.append(f"{tier}: rel L-inf {rel:.3e} past the gate {gate}")
+    return out
+
+
+def run_tier_k1(dev) -> dict:
+    """Phase 49: K1's tiered body (K1t) at 512^2 on phase 3's state; returns
+    its kernels entry."""
+    import numpy as np
+    import torch
+
+    import gfx_ocean_tpu_torch as ot
+    from gfx_ocean_tpu_torch.golden.reference import golden_fields
+    from gfx_ocean_tpu_torch.ops import fft as tfft
+    from gfx_ocean_tpu_torch.ops import fused_step
+    from gfx_ocean_tpu_torch.utils.complexpair import from_pair_np
+    from gfx_ocean_tpu_torch.utils.profiling import time_rollout
+
+    state, n = STATES["main"], N
+    gold = golden_fields(from_pair_np(state.h0.cpu().numpy()), state.omega.cpu().numpy(),
+                         T_CHECK, 1000.0, ot.CompatFlags())
+    scale = float(np.abs(gold).max())
+    ts_cmp = torch.tensor(T_COMPARE, dtype=torch.float32, device=dev)
+    ts6 = torch.arange(TIME_BATCH, dtype=torch.float32, device=dev) / 60.0
+    ts = torch.arange(STEPS, dtype=torch.float32, device=dev) / 60.0
+    # three cascades for the cascade axis: the state, and two others made from it
+    h0c = torch.stack([state.h0, 0.5 * state.h0.roll(1, -1), 0.25 * state.h0.flip(-2)])
+    omc = torch.stack([state.omega, state.omega.roll(1, -1), state.omega.flip(-2)])
+    rec, planes, failures = {}, {}, []
+    for tier in ("highest",) + TIER_K1:
+        cfg = ot.OceanConfig(resolution=n, fft_impl="pallas", matmul_precision=tier)
+        inputs = fused_step.hoist_packed(state.h0, state.omega, cfg)
+        got = fused_step.packed_planes(inputs, ts_cmp, cfg)
+        want = fused_step.packed_planes_reference(inputs, ts_cmp, cfg)
+        with exact_products():
+            scheme = fused_step.packed_planes_reference(inputs, ts_cmp[:1], cfg)[0]
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        planes[tier] = got
+        disp = torch.stack([got[0, 0], got[0, 1], got[0, 2]], dim=-1).cpu().numpy()
+        rel = float(np.abs(disp - gold).max()) / scale
+        own = float(np.abs(torch.stack([scheme[0], scheme[1], scheme[2]], -1).cpu().numpy()
+                           - gold).max()) / scale
+        cin = fused_step.hoist_packed(h0c, omc, cfg)
+        cgot = fused_step.packed_planes(cin, ts_cmp, cfg)
+        cerr = max_err(cgot, fused_step.packed_planes_reference(cin, ts_cmp, cfg))
+        singles = sum(int((fused_step.packed_planes(fused_step.hoist_packed(h0c[c], omc[c], cfg),
+                                                    ts_cmp, cfg) != cgot[:, c]).sum())
+                      for c in range(3))
+        tol = kernel_tol(tier)
+        r = dict(kernel_vs_plain_max_abs=err[0], kernel_vs_plain_rel=err[1], tolerance=tol,
+                 cascades3_vs_plain_rel=cerr[1], cascades3_values_differing_from_singles=singles,
+                 rel_linf=rel, scheme_rel_linf=own,
+                 effective_precision=fused_step.check_supported(cfg, n))
+        if not (err[1] <= tol and cerr[1] <= tol and singles == 0):
+            failures.append(f"K1 at {tier}: {r}")
+        failures += tier_gate(tier, rel, own) if tier != "highest" else []
+        calls = TIMING_CALLS
+        r["ms"] = event_ms(lambda: fused_step.packed_checksums(inputs, ts6, cfg), calls)
+        r["plain_ms"] = event_ms(lambda: fused_step.packed_checksums_reference(inputs, ts6, cfg),
+                                 TIER_CALLS)
+        names = body_kernels(tier, K1_KERNELS, K1T_KERNELS)
+        r["device_ms"] = kernel_device_ms(
+            lambda: fused_step.packed_checksums(inputs, ts6, cfg), names, calls)
+        if tier in ("highest", "bf16x3", "default"):
+            roll = time_rollout(ot.make_rollout(cfg, keep_fields=False, time_batch=TIME_BATCH),
+                                state, ts, repeats=REPEATS)
+            r["rollout_steps_per_sec"] = roll["steps_per_sec"]
+            r["rollout_repeats_sec"] = roll["repeats_sec"]
+        rec[tier] = r
+        del got, want, cgot, cin
+    for tier in ("bf16x4", "high"):
+        rec[tier]["bit_equal_to_bf16x3"] = bool(torch.equal(planes[tier], planes["bf16x3"]))
+        if not rec[tier]["bit_equal_to_bf16x3"]:
+            failures.append(f"K1 at {tier} is not bit-equal to bf16x3")
+    for tier in ("bf16x3", "default"):
+        rec[tier]["rollout_vs_highest"] = (rec[tier]["rollout_steps_per_sec"]
+                                           / rec["highest"]["rollout_steps_per_sec"])
+        rec[tier]["call_vs_highest"] = rec[tier]["ms"] / rec["highest"]["ms"]
+    del planes
+
+    # The library yardstick: the matmul route (cuBLAS bf16 passes, ops/fft) of
+    # the same two 2-D transforms a frame (Re F(H), F(Z)) at the same tier.
+    spec = torch.randn((4, TIME_BATCH, n, n), dtype=torch.float32, device=dev)
+    for tier in ("bf16x3", "default"):
+        rec[tier]["library_ms"] = event_ms(lambda: (
+            tfft.ifft2_real_unnorm(spec[0], spec[1], precision=tier, centered="ref"),
+            tfft.ifft2_planes_unnorm(spec[2], spec[3], precision=tier, centered="ref")),
+            TIER_CALLS)
+    del spec
+    cfg = ot.OceanConfig(resolution=n, fft_impl="pallas")  # the headline: bf16x3
+    inputs = fused_step.hoist_packed(state.h0, state.omega, cfg)
+    frag = tfft.table_fragments(("alt", n, 1, 0, False), dev, "bf16x3")
+    ops = {t: tfft.kernel_passes(t) * 28.0 * n ** 3 * TIME_BATCH for t in ("bf16x3", "default")}
+    io = (nbytes(state.h0, state.omega, ts6)
+          + 4 * TIME_BATCH * (3 * n * n + n // fused_step.CHECKSUM_ROWS))
+    for tier in ("bf16x3", "default"):
+        rec[tier].update(bound(io + nbytes(frag) // (2 if tier == "default" else 1),
+                               ops[tier], BF16_OPS_PER_S))
+
+    # The main path: the headline rollout (512^2, tb 6, "bf16x3") with the
+    # counts set to 0 just before it.
+    rollout = ot.make_rollout(cfg, keep_fields=False, time_batch=TIME_BATCH)
+    reset_launches()
+    cks = rollout(state, ts).cpu().numpy()
+    counts = tiered_counts()
+    expected = STEPS // TIME_BATCH
+    phase("tier_k1", resolution=n, frames_a_call=TIME_BATCH, cascades=3, t=T_CHECK,
+          clock="cuda events (ms); device_ms: torch.profiler, the kernels' launches only; "
+                "rollouts: host clock over synchronized calls",
+          fp32_sum_allowance=FP32_SUM_ALLOWANCE, default_reround=DEFAULT_REROUND, tiers=rec,
+          main_path=dict(steps=STEPS, time_batch=TIME_BATCH, launches=counts,
+                         launches_a_frame=counts["k1t"] / STEPS,
+                         checksums_finite=bool(np.isfinite(cks).all())))
+    if counts != dict(k1=0, k1t=expected, k2=0, k2t=0, k3=0, k3t=0) or not np.isfinite(cks).all():
+        failures.append(f"K1t main path launched {counts}, expected {expected} of K1t")
+    if failures:
+        fail(f"tier_k1: {failures}")
+    r = rec["bf16x3"]
+    return {
+        "name": "K1t packed_step tiered body (bf16 tensor-core DFT: 3 passes at "
+                "bf16x3 / high / bf16x4, 1 at default; cascades on grid axis z)",
+        "route": "cuda",
+        "source": "gfx_ocean_tpu_torch/csrc/packed_step.cu",
+        "replaces": "gfx_ocean_tpu/ops/pallas_step.py:352",
+        "launches": counts["k1t"],
+        "max_abs_err": r["kernel_vs_plain_max_abs"],
+        "ms": r["ms"],
+        "device_ms": r["device_ms"]["total"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"],
+        "default_tier": {k: rec["default"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_vs_plain_max_abs")}
+        | {"device_ms": rec["default"]["device_ms"]["total"]},
+    }
+
+
+def fourstep_tier_ops(n: int, rows: int, cols: int, passes: int) -> tuple:
+    """Tensor-core operations of K2t on ``rows`` rows and of K3t on ``cols``
+    columns of an n^2 frame: stage 1 is [Xr | Xi] W1cat^T (256 x 256) on
+    rows x N2 (row, k2) or cols x N2 (m2, column) rows of both spectra, stage
+    2 W2cat^T (2 N2 x 2 N2) on 128 rows a row (K2) or column (K3) of both,
+    the height's real rows only in K3 (zero blocks of the TPU's block-diagonal
+    table are not multiplied)."""
+    n2 = n // 128
+    k2 = 2 * 2 * rows * n2 * 256 * 256 + 2 * 2 * rows * 128 * (2 * n2) ** 2
+    k3 = (2 * 2 * cols * n2 * 256 * 256
+          + 2 * cols * 128 * (2 * n2) * (n2 + 2 * n2))
+    return passes * k2, passes * k3
+
+
+def run_tier_fourstep(dev) -> list:
+    """Phase 50: K2's and K3's tiered bodies (K2t, K3t) at 1024^2 and at
+    config 5 (4096^2, phase 8's state and phase 10's golden); returns their
+    kernels entries."""
+    import numpy as np
+    import torch
+
+    import gfx_ocean_tpu_torch as ot
+    from gfx_ocean_tpu_torch.ops import fft as tfft
+    from gfx_ocean_tpu_torch.ops import fourstep_step as fs
+    from gfx_ocean_tpu_torch.ops import fused_step
+    from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, finite_difference_normals_planes
+    from gfx_ocean_tpu_torch.utils.profiling import time_rollout
+
+    base = ot.OceanConfig(resolution=FS_N, domain_size=2000.0, fft_impl="pallas")
+    rec, failures = {}, []
+    for n in (1024, FS_N):
+        if n == FS_N:
+            state, gold = STATES["fourstep"], STATES["fourstep_golden"]
+        else:
+            state, gold = ot.ocean_state_from_phillips(
+                dataclasses.replace(base, resolution=n), ot.PhillipsConfig(),
+                generator=torch.Generator().manual_seed(0), device=dev), None
+        ts = torch.tensor(T_COMPARE[:2], dtype=torch.float32, device=dev)
+        planes, rec[n] = {}, {}
+        for tier in ("highest",) + TIER_FOURSTEP:
+            cfg = dataclasses.replace(base, resolution=n, matmul_precision=tier)
+            inputs = fused_step.hoist_packed(state.h0, state.omega, cfg)
+            y = fs.launch_fourstep_row(inputs, ts, cfg)
+            got, partials = fs.launch_fourstep_col(y, inputs.twiddle, cfg, checksum=True)
+            y_want = fs.fourstep_row_reference(inputs, ts, cfg)
+            k2 = max_err(y, y_want)
+            k3 = max_err(got, fs.fourstep_col_reference(y, cfg))
+            del y
+            want = fs.fourstep_col_reference(y_want, cfg)
+            del y_want
+            torch.cuda.synchronize()
+            chained = max_err(got, want)
+            summands = (want.abs().sum(dim=(-3, -2, -1))
+                        + finite_difference_normals_planes(want[:, 1], cfg.normal_height_scale)
+                        .abs().sum(dim=(-3, -2, -1)))
+            ck = float(((partials.sum(-1) - checksums_of_planes(want, cfg)).abs()
+                        / summands).max())
+            tol, ck_tol = kernel_tol(tier), checksum_tol(tier)
+            r = dict(k2_y_max_abs=k2[0], k2_y_rel=k2[1], k3_planes_max_abs=k3[0],
+                     k3_planes_rel=k3[1], planes_max_abs=chained[0], planes_rel=chained[1],
+                     checksum_rel_to_summands=ck, tolerance=tol, checksum_tolerance=ck_tol,
+                     effective_precision=fused_step.check_supported(cfg, n))
+            if not (max(k2[1], k3[1], chained[1]) <= tol and ck <= ck_tol):
+                failures.append(f"{n}^2 K2 / K3 at {tier} vs plain: {r}")
+            planes[tier] = got[:1].clone()
+            del got, want, partials
+            if gold is not None:
+                scale = float(np.abs(gold).max())
+                with exact_products():
+                    scheme = fs.fourstep_planes_reference(inputs, ts[:1], cfg)[0]
+                for key, p in (("rel_linf", planes[tier][0]), ("scheme_rel_linf", scheme)):
+                    r[key] = float(np.abs(torch.stack([p[0], p[1], p[2]], -1).cpu().numpy()
+                                          - gold).max()) / scale
+                del scheme
+                if tier != "highest":
+                    failures += tier_gate(tier, r["rel_linf"], r["scheme_rel_linf"])
+            torch.cuda.empty_cache()
+            rec[n][tier] = r
+        for tier in ("bf16x4", "high"):
+            rec[n][tier]["bit_equal_to_bf16x3"] = bool(torch.equal(planes[tier],
+                                                                   planes["bf16x3"]))
+            if not rec[n][tier]["bit_equal_to_bf16x3"]:
+                failures.append(f"{n}^2 K2 + K3 at {tier} is not bit-equal to bf16x3")
+        del planes
+
+    # Config 5: one call of K2t, K3t and the step (tb 1), the plain version,
+    # the matmul route's passes at the same tier, device time; rollouts.
+    state = STATES["fourstep"]
+    ts1 = torch.tensor([T_CHECK], dtype=torch.float32, device=dev)
+    ts_roll = torch.arange(FS_STEPS, dtype=torch.float32, device=dev) / 60.0
+    spec = torch.randn((4, 1, FS_N, FS_N), dtype=torch.float32, device=dev)
+    timing = {}
+    for tier in ("highest", "high", "default"):
+        cfg = dataclasses.replace(base, matmul_precision=tier)
+        inputs = fused_step.hoist_packed(state.h0, state.omega, cfg)
+        y = fs.launch_fourstep_row(inputs, ts1, cfg)
+        t = dict(
+            k2_ms=event_ms(lambda: fs.launch_fourstep_row(inputs, ts1, cfg), FS_TIMING_CALLS),
+            k3_ms=event_ms(lambda: fs.launch_fourstep_col(y, inputs.twiddle, cfg, checksum=True),
+                           FS_TIMING_CALLS),
+            step_ms=event_ms(lambda: fused_step.packed_checksums(inputs, ts1, cfg),
+                             FS_TIMING_CALLS),
+            k2_plain_ms=event_ms(lambda: fs.fourstep_row_reference(inputs, ts1, cfg),
+                                 FS_PLAIN_TIMING_CALLS),
+            k3_plain_ms=event_ms(lambda: checksums_of_planes(fs.fourstep_col_reference(y, cfg),
+                                                             cfg), FS_PLAIN_TIMING_CALLS))
+        k2n = body_kernels(tier, K2_KERNELS, K2T_KERNELS)
+        k3n = body_kernels(tier, K3_KERNELS, K3T_KERNELS)
+        t["k2_device_ms"] = kernel_device_ms(lambda: fs.launch_fourstep_row(inputs, ts1, cfg),
+                                             k2n, FS_TIMING_CALLS)
+        t["k3_device_ms"] = kernel_device_ms(
+            lambda: fs.launch_fourstep_col(y, inputs.twiddle, cfg, checksum=True), k3n,
+            FS_TIMING_CALLS)
+        if tier != "highest":
+            kt = tfft.kernel_tier(tier)
+            t["k2_library_ms"] = event_ms(lambda: tfft.row_pass_complex(
+                spec[0], spec[1], 1024, True, kt) + tfft.row_pass_complex(
+                spec[2], spec[3], 1024, True, kt), FS_TIMING_CALLS)
+            t["k3_library_ms"] = event_ms(lambda: (
+                tfft.col_pass_real(spec[0], spec[1], 1024, True, True, kt),
+                tfft.col_pass_complex(spec[2], spec[3], 1024, True, True, kt)), FS_TIMING_CALLS)
+            passes = tfft.kernel_passes(tier)
+            ops2, ops3 = fourstep_tier_ops(FS_N, FS_N, FS_N, passes)
+            w1 = tfft.table_fragments(("alt", 128, 1, 0, True), dev, kt)
+            w2 = tfft.table_fragments(("cat", FS_N // 128), dev, kt)
+            y_bytes = 4 * 4 * FS_N * FS_N
+            t["k2_bound"] = bound(nbytes(state.h0, state.omega, ts1, w1, w2) + y_bytes, ops2,
+                                  BF16_OPS_PER_S)
+            t["k3_bound"] = bound(y_bytes + nbytes(w1, w2) + 4 * 3 * FS_N * FS_N, ops3,
+                                  BF16_OPS_PER_S)
+        roll = time_rollout(ot.make_rollout(cfg, keep_fields=False), state, ts_roll,
+                            repeats=FS_REPEATS)
+        t.update(rollout_steps_per_sec=roll["steps_per_sec"],
+                 rollout_repeats_sec=roll["repeats_sec"])
+        timing[tier] = t
+        del y
+    del spec
+    torch.cuda.empty_cache()
+    for tier in ("high", "default"):
+        timing[tier]["rollout_vs_highest"] = (timing[tier]["rollout_steps_per_sec"]
+                                              / timing["highest"]["rollout_steps_per_sec"])
+        timing[tier]["step_vs_highest"] = timing[tier]["step_ms"] / timing["highest"]["step_ms"]
+
+    # The main path: config 5's rollout at "high" (tb 1) with the counts at 0.
+    cfg = dataclasses.replace(base, matmul_precision="high")
+    reset_launches()
+    cks = ot.make_rollout(cfg, keep_fields=False)(state, ts_roll).cpu().numpy()
+    counts = tiered_counts()
+    phase("tier_fourstep", resolutions=[1024, FS_N], frames=list(T_COMPARE[:2]), t=T_CHECK,
+          clock="cuda events (ms); device_ms: torch.profiler, the kernels' launches only; "
+                "rollouts: host clock over synchronized calls",
+          fp32_sum_allowance=FP32_SUM_ALLOWANCE, default_reround=DEFAULT_REROUND,
+          tiers={str(n): r for n, r in rec.items()}, config5_timing=timing,
+          main_path=dict(config="config 5 at high", steps=FS_STEPS, time_batch=1,
+                         launches=counts, checksums_finite=bool(np.isfinite(cks).all())))
+    if (counts != dict(k1=0, k1t=0, k2=0, k2t=FS_STEPS, k3=0, k3t=FS_STEPS)
+            or not np.isfinite(cks).all()):
+        failures.append(f"K2t + K3t main path launched {counts}")
+    if failures:
+        fail(f"tier_fourstep: {failures}")
+    t, r = timing["high"], rec[FS_N]["high"]
+    return [{
+        "name": f"{key.upper()}t fourstep_{side} tiered body (bf16 tensor-core four-step: "
+                f"stage 1, FP32 twiddle, stage 2; scratch between)",
+        "route": "cuda",
+        "source": "gfx_ocean_tpu_torch/csrc/fourstep_step.cu",
+        "replaces": f"gfx_ocean_tpu/ops/pallas_step.py:{line}",
+        "launches": counts[key + "t"],
+        "max_abs_err": r[err_key],
+        "ms": t[f"{key}_ms"],
+        "device_ms": t[f"{key}_device_ms"]["total"],
+        "plain_ms": t[f"{key}_plain_ms"],
+        **t[f"{key}_bound"],
+        "library_ms": t[f"{key}_library_ms"],
+        "default_tier": {k: timing["default"][f"{key}_{k}"] for k in ("ms", "plain_ms",
+                                                                     "library_ms")}
+        | {"device_ms": timing["default"][f"{key}_device_ms"]["total"]}
+        | timing["default"][f"{key}_bound"],
+    } for key, side, line, err_key in (("k2", "row", 614, "k2_y_max_abs"),
+                                        ("k3", "col", 757, "k3_planes_max_abs"))]
+
+
+def run_tier_big(dev) -> None:
+    """Phase 51: K2t at 16384^2 on phase 22's state: the whole frame, and
+    phase 23's 16-row bands against the plain version and bit-equal to the
+    whole frame's rows; "high" and "bf16x4" bit-equal to "bf16x3" there;
+    one call's time beside the FFT body's and the matmul route's row passes
+    at the tier, its bound; the step through K2t + K3t against phase 24's
+    golden rows (the exact scheme needs the plain K3 of the whole frame,
+    tens of GB, so only the gate holds it here)."""
+    import torch
+
+    from gfx_ocean_tpu_torch.golden.reference import golden_fields_rows
+    from gfx_ocean_tpu_torch.ops import fft as tfft
+    from gfx_ocean_tpu_torch.ops import fourstep_step as fs
+    from gfx_ocean_tpu_torch.ops import fused_step
+
+    big_cfg, inputs = STATES["big"]
+    ts = torch.tensor([T_CHECK], dtype=torch.float32, device=dev)
+    rec, failures, bands = {}, [], {}
+    gold = {b: golden_fields_rows(inputs.h0, inputs.omega, T_CHECK, big_cfg.domain_size,
+                                  big_cfg.compat, b, BIG_BAND_ROWS) for b in BIG_ROW_BANDS}
+    gold_scale = max(float(g.abs().max()) for g in gold.values())
+    for tier in ("highest", "bf16x3", "high", "bf16x4", "default"):
+        cfg = dataclasses.replace(big_cfg, matmul_precision=tier)
+        if tier in ("highest", "bf16x3", "default"):
+            y = fs.launch_fourstep_row(inputs, ts, cfg)
+            errs, differ = [], 0
+            for b in BIG_ROW_BANDS:
+                band = fs.launch_fourstep_row(inputs, ts, cfg, row_base=b, rows=BIG_BAND_ROWS)
+                differ += int((band != y[..., b:b + BIG_BAND_ROWS, :]).sum())
+                errs.append(max_err(band, fs.fourstep_row_reference(
+                    inputs, ts, cfg, row_base=b, rows=BIG_BAND_ROWS)))
+            del y
+            torch.cuda.empty_cache()
+            names = body_kernels(tier, K2_SPLIT_KERNELS, K2T_KERNELS)
+            r = dict(band_max_abs=max(e[0] for e in errs), band_rel=max(e[1] for e in errs),
+                     tolerance=kernel_tol(tier), banded_values_differing_from_whole=differ,
+                     ms=event_ms(lambda: fs.launch_fourstep_row(inputs, ts, cfg),
+                                 BIG_TIMING_CALLS),
+                     device_ms=kernel_device_ms(lambda: fs.launch_fourstep_row(inputs, ts, cfg),
+                                                names, BIG_TIMING_CALLS))
+            if not (r["band_rel"] <= r["tolerance"] and differ == 0):
+                failures.append(f"{tier}: {r}")
+            if tier != "highest":
+                planes = fused_step.packed_planes(inputs, ts, cfg)[0]
+                r["step_rel_linf_on_bands"] = max(
+                    float((planes[:, b:b + BIG_BAND_ROWS].permute(1, 2, 0).double() - g)
+                          .abs().max()) for b, g in gold.items()) / gold_scale
+                del planes
+                torch.cuda.empty_cache()
+                gate = DEFAULT_GATE if tier == "default" else GOLDEN_GATE
+                r["step_gate"] = gate
+                if not r["step_rel_linf_on_bands"] <= gate:
+                    failures.append(f"{tier}: the step on the bands {r['step_rel_linf_on_bands']}")
+                kt = tfft.kernel_tier(tier)
+                passes = tfft.kernel_passes(tier)
+                w1 = tfft.table_fragments(("alt", 128, 1, 0, False), dev, kt)
+                w2 = tfft.table_fragments(("cat", BIG_N // 128), dev, kt)
+                r.update(bound(nbytes(inputs.h0, inputs.omega, ts, w1, w2) + 4 * 4 * BIG_N ** 2,
+                               fourstep_tier_ops(BIG_N, BIG_N, BIG_N, passes)[0],
+                               BF16_OPS_PER_S))
+                spec = torch.randn((2, 1, BIG_N, BIG_N), dtype=torch.float32, device=dev)
+                r["library_ms"] = event_ms(lambda: tfft.row_pass_complex(
+                    spec[0], spec[1], 1024, True, kt), TIER_BIG_LIBRARY_CALLS) * 2
+                del spec
+                torch.cuda.empty_cache()
+            rec[tier] = r
+        bands[tier] = torch.cat([fs.launch_fourstep_row(inputs, ts, cfg, row_base=b,
+                                                        rows=BIG_BAND_ROWS)
+                                 for b in BIG_ROW_BANDS], dim=-2)
+    for tier in ("high", "bf16x4"):
+        rec[tier] = dict(bands_bit_equal_to_bf16x3=bool(torch.equal(bands[tier],
+                                                                    bands["bf16x3"])))
+        if not rec[tier]["bands_bit_equal_to_bf16x3"]:
+            failures.append(f"{tier} bands differ from bf16x3")
+    for tier in ("bf16x3", "default"):
+        rec[tier]["ms_vs_highest"] = rec[tier]["ms"] / rec["highest"]["ms"]
+    del bands
+    torch.cuda.empty_cache()
+    phase("tier_big", resolution=BIG_N, frames=1, row_bands=list(BIG_ROW_BANDS),
+          band_rows=BIG_BAND_ROWS, calls=BIG_TIMING_CALLS,
+          clock="cuda events; device_ms: torch.profiler, the kernels' launches only",
+          library="the matmul route's row pass at the tier (ops/fft.row_pass_complex), one "
+                  "spectrum a call, times two", tiers=rec)
+    if failures:
+        fail(f"tier_big: {failures}")
 
 
 def run_parallel(dev) -> None:

@@ -324,7 +324,7 @@ def _effective_precision(config) -> str:
     from gfx_ocean_tpu_torch.ops.fft import effective_precision  # noqa: PLC0415
 
     return effective_precision(config.matmul_precision, config.resolution,
-                               config.direct_dft_max, config.fft_impl)
+                               config.direct_dft_max, config.fft_impl, config.hermitian_pack)
 
 
 def cmd_simulate(args) -> int:

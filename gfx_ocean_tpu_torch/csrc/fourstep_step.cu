@@ -123,6 +123,7 @@
 
 #include "fft_reg.cuh"
 #include "ocean_common.cuh"
+#include "tier_mma.cuh"
 
 namespace {
 
@@ -615,6 +616,480 @@ int launch_col(const ColArgs& a, cudaStream_t st) {
   return static_cast<int>(err);
 }
 
+// ---------------------------------------------------------------------------
+// K2's and K3's tiered bodies ("high", "bf16x3", "bf16x4": kTerms = 2;
+// "default": kTerms = 1): the JAX kernels' products (pallas_step.py:698,
+// 739-748, 813, 831-841), bf16 operands on the tensor cores
+// (tier_mma.cuh). Each pass is two kernels with a scratch as large as Y
+// between them, the FP32 twiddle applied to stage 1's output on the way:
+//
+//   fourstep_row_tier1  K2 stage 1. A persistent grid; each block holds the
+//                       128-point table W1 (ops/fft.mma_fragments of
+//                       ("alt", 128, 1, 0, False), 64 KB a term) in shared
+//                       memory and walks over items of 16 (row, k2): the
+//                       packed propagate of their 16 x 128 elements x =
+//                       k1 N2 + k2 (H and Z), split into bf16 tiles
+//                       [Re k1 | Im k1], then [Xr | Xi] W1cat^T with W1cat =
+//                       [[Wr, -Wi], [Wi, Wr]] formed from W1's fragments
+//                       (the JAX kernel's stacked product over 256 terms),
+//                       the twiddle T[k2, n1], and B (FP32) to the scratch
+//                       (tb, rows, 2, 2, N2, 128).
+//   fourstep_row_tier2  K2 stage 2. One block per (row, spectrum, frame):
+//                       the row's B split into a (128 n1) x (2 N2) tile and
+//                       multiplied by W2cat^T (the stacked N2-point table,
+//                       fragments from L2): Y in true x order. The JAX
+//                       kernel's block-diagonal table at N <= 4096 holds the
+//                       same W2cat twice beside zeros; the zero blocks add
+//                       exact zeros and are not multiplied here.
+//   fourstep_col_tier1  K3 stage 1: as K2's, on items of (m2, 16 columns):
+//                       rows m = N2 m1 + m2 of Y split into tiles over
+//                       [Re m1 | Im m1], the table W1 with (-1)^y and the Q2
+//                       flip folded in, the twiddle T[n1, m2]; B (FP32) to
+//                       the scratch (tb, C / 32, 128, 2, 2, N2, 32).
+//   fourstep_col_tier2  K3 stage 2: one block per (n1, 32 columns, frame):
+//                       W2cat^T on the four 16-column tiles (H, Z), the
+//                       height's real rows only (W2top), rows n1 + 128 n2 of
+//                       the planes, and the block's sum as K3's stage 2 sums.
+//
+// What bounds them (4096^2, a frame, the split): ~1.3e11 flops (3 passes of
+// stage 1's 2 x 4096 x 32 x 256 x 256 x 2 and stage 2's products), so the
+// tensor cores, and ~1.7 GB of device memory (the state, Y, the scratches
+// and the planes). A plain design: mma.sync from registers, no wgmma, TMA or
+// pipelining; the scratch round trip is the price of a row's stage-1 output
+// (up to 256 KB at 16384) that does not fit beside the table.
+constexpr int kTierThreads = 256;
+constexpr int kTierWarps = kTierThreads / 32;
+constexpr int kTierRows = 16;     // rows of a stage-1 item (an m-tile)
+constexpr int kLd1 = 132;         // words a stage-1 tile row: 256 bf16 + 8 pad
+constexpr int kW1Frags = 16 * 8 * 32;  // uint4 a term of W1's fragments
+constexpr int kTierCols = 32;     // columns of a K3 stage-2 block
+
+template <int kTerms>
+constexpr size_t stage1_smem() {
+  return static_cast<size_t>(kTerms) * kW1Frags * sizeof(uint4) +
+         static_cast<size_t>(2) * kTerms * kTierRows * kLd1 * sizeof(uint32_t);
+}
+
+// Stage 1's product of both tiles (H, Z: 16 rows each, plane p's term s at
+// data + (p kTerms + s) 16 kLd1) with W1cat^T: warp w takes the output
+// n-tiles j = w and w + 8 of the real half and j + 16 of the imaginary
+// half, so a thread holds Re and Im of the same n1. acc[jj][ri][p].
+template <int kTerms>
+__device__ __forceinline__ void stage1_product(float (&acc)[2][2][2][kTerms][4],
+                                               const uint32_t* data, const uint4* table,
+                                               int warp, int lane) {
+  namespace tr = ocean::tier;
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri)
+#pragma unroll
+      for (int p = 0; p < 2; ++p) tr::zero(acc[jj][ri][p]);
+#pragma unroll
+  for (int ks = 0; ks < 16; ++ks) {
+    uint32_t a[2][kTerms][4];
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int s = 0; s < kTerms; ++s)
+        tr::load_a(a[p][s], data + (p * kTerms + s) * kTierRows * kLd1, kLd1, ks, lane);
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      uint32_t bre[kTerms][2], bim[kTerms][2];
+#pragma unroll
+      for (int s = 0; s < kTerms; ++s) {
+        const uint4 f = table[(((warp + 8 * jj) * 8 + (ks & 7)) * kTerms + s) * 32 + lane];
+        if (ks < 8) {  // Re of the input: W1cat = [Wr; Wi]
+          bre[s][0] = f.x;
+          bre[s][1] = f.y;
+          bim[s][0] = f.z;
+          bim[s][1] = f.w;
+        } else {       // Im of the input: W1cat = [-Wi; Wr]
+          bre[s][0] = tr::neg2(f.z);
+          bre[s][1] = tr::neg2(f.w);
+          bim[s][0] = f.x;
+          bim[s][1] = f.y;
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        tr::mma_tier(acc[jj][0][p], a[p], bre);
+        tr::mma_tier(acc[jj][1][p], a[p], bim);
+      }
+    }
+  }
+}
+
+// Copies W1's fragments into shared memory (every thread of the block).
+template <int kTerms>
+__device__ __forceinline__ void load_table(uint4* table, const uint4* __restrict__ frag) {
+  for (int i = threadIdx.x; i < kTerms * kW1Frags; i += kTierThreads) table[i] = __ldg(frag + i);
+}
+
+// Value v at (plane, row r, column k) of stage 1's tiles, both terms.
+template <int kTerms>
+__device__ __forceinline__ void put_tile(uint32_t* data, int plane, int r, int k, float v) {
+  uint16_t hi, lo;
+  ocean::tier::split1(v, hi, lo);
+  uint16_t* h = reinterpret_cast<uint16_t*>(data + ((plane * kTerms) * kTierRows + r) * kLd1);
+  h[k] = hi;
+  if constexpr (kTerms == 2) h[2 * kTierRows * kLd1 + k] = lo;
+}
+
+// (a_r + i a_i) T, as the plain version's FP32 twiddle rounds it.
+__device__ __forceinline__ float2 twiddled(float ar, float ai, float tr_, float ti_) {
+  return make_float2(__fsub_rn(__fmul_rn(ar, tr_), __fmul_rn(ai, ti_)),
+                     __fadd_rn(__fmul_rn(ar, ti_), __fmul_rn(ai, tr_)));
+}
+
+template <int LOG2N, int kTerms, bool kWindows>
+__global__ void __launch_bounds__(kTierThreads) fourstep_row_tier1(
+    const float* __restrict__ h0, const float* __restrict__ omega, ocean::StateWindows w,
+    const uint4* __restrict__ w1frag, const float* __restrict__ ttr,
+    const float* __restrict__ tti, const float* __restrict__ ts, int tb, int rows, int row_base,
+    float scale, int wrap_k, int conj_neg, float* __restrict__ b) {
+  namespace tr = ocean::tier;
+  constexpr int n = 1 << LOG2N;
+  constexpr int log2n2 = LOG2N - kLog2N1;
+  constexpr int n2 = 1 << log2n2;
+  extern __shared__ uint4 smem4[];
+  uint4* table = smem4;
+  uint32_t* data = reinterpret_cast<uint32_t*>(smem4 + kTerms * kW1Frags);
+  load_table<kTerms>(table, w1frag);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int chunks = (rows * n2 + kTierRows - 1) / kTierRows;
+  for (int item = blockIdx.x; item < chunks * tb; item += gridDim.x) {
+    const int frame = item / chunks;
+    const int f0 = (item % chunks) * kTierRows;  // first (row, k2) = row n2 + k2
+    const float t = ts[frame];
+    for (int e = threadIdx.x; e < kTierRows * kN1; e += kTierThreads) {
+      const int r = e % kTierRows, k1 = e / kTierRows;
+      const int f = f0 + r;
+      ocean::PackedSpectra p{0.0f, 0.0f, 0.0f, 0.0f};
+      if ((f >> log2n2) < rows) {
+        p = row_propagate<kWindows>(h0, omega, w, n, row_base + (f >> log2n2),
+                                    k1 * n2 + (f & (n2 - 1)), t, scale, wrap_k, conj_neg);
+      }
+      put_tile<kTerms>(data, 0, r, k1, p.hr);
+      put_tile<kTerms>(data, 0, r, kN1 + k1, p.hi);
+      put_tile<kTerms>(data, 1, r, k1, p.zr);
+      put_tile<kTerms>(data, 1, r, kN1 + k1, p.zi);
+    }
+    __syncthreads();  // also orders the table's copy before its first read
+    float acc[2][2][2][kTerms][4];
+    stage1_product<kTerms>(acc, data, table, warp, lane);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int f = f0 + lane / 4 + 8 * h;
+      const int row = f >> log2n2, k2 = f & (n2 - 1);
+      if (row >= rows) continue;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int n1 = 8 * (warp + 8 * jj) + 2 * (lane % 4);
+        const float2 c = *reinterpret_cast<const float2*>(ttr + k2 * kN1 + n1);
+        const float2 si = *reinterpret_cast<const float2*>(tti + k2 * kN1 + n1);
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const float2 v0 = twiddled(tr::total(acc[jj][0][p], 2 * h),
+                                     tr::total(acc[jj][1][p], 2 * h), c.x, si.x);
+          const float2 v1 = twiddled(tr::total(acc[jj][0][p], 2 * h + 1),
+                                     tr::total(acc[jj][1][p], 2 * h + 1), c.y, si.y);
+          float* o = b + ((static_cast<size_t>(frame) * rows + row) * 4 + 2 * p) * n +
+                     k2 * kN1 + n1;
+          *reinterpret_cast<float2*>(o) = make_float2(v0.x, v1.x);      // Re
+          *reinterpret_cast<float2*>(o + n) = make_float2(v0.y, v1.y);  // Im
+        }
+      }
+    }
+    __syncthreads();  // the tiles are read before the next item writes them
+  }
+}
+
+// Words a row of a stage-2 tile: 2 N2 bf16 + 8 pad (conflict-free A fragments).
+template <int LOG2N>
+constexpr int kLd2 = (1 << (LOG2N - kLog2N1)) + 4;
+
+template <int LOG2N, int kTerms>
+__global__ void __launch_bounds__(kTierThreads) fourstep_row_tier2(
+    const float* __restrict__ b, const uint2* __restrict__ w2frag, int rows,
+    float* __restrict__ y) {
+  namespace tr = ocean::tier;
+  constexpr int n = 1 << LOG2N;
+  constexpr int n2 = n / kN1;
+  constexpr int ldw = kLd2<LOG2N>;
+  constexpr int ksteps = 2 * n2 / 16;
+  extern __shared__ uint32_t tiles[];  // [term][n1][k2' pairs]
+  const int row = blockIdx.x, plane = blockIdx.y, frame = blockIdx.z;
+  const float* src = b + ((static_cast<size_t>(frame) * rows + row) * 4 + 2 * plane) * n;
+  for (int e = threadIdx.x; e < n2 * kN1; e += kTierThreads) {
+    const int n1 = e % kN1, k = e / kN1;  // k2' = 2 k, 2 k + 1 (Re k2 < N2, then Im)
+    uint32_t hi, lo;
+    tr::split2(src[2 * k * kN1 + n1], src[(2 * k + 1) * kN1 + n1], hi, lo);
+    tiles[n1 * ldw + k] = hi;
+    if constexpr (kTerms == 2) tiles[(kN1 + n1) * ldw + k] = lo;
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* yf = y + (static_cast<size_t>(frame) * 4 + 2 * plane) * rows * n +
+              static_cast<size_t>(row) * n;
+  for (int nt = warp; nt < 2 * n2 / 8; nt += kTierWarps) {
+    float acc[8][kTerms][4];
+#pragma unroll
+    for (int mt = 0; mt < 8; ++mt) tr::zero(acc[mt]);
+    for (int ks = 0; ks < ksteps; ++ks) {
+      uint32_t bf[kTerms][2];
+#pragma unroll
+      for (int s = 0; s < kTerms; ++s) {
+        const uint2 f = __ldg(w2frag + ((nt * ksteps + ks) * kTerms + s) * 32 + lane);
+        bf[s][0] = f.x;
+        bf[s][1] = f.y;
+      }
+#pragma unroll
+      for (int mt = 0; mt < 8; ++mt) {
+        uint32_t a[kTerms][4];
+#pragma unroll
+        for (int s = 0; s < kTerms; ++s)
+          tr::load_a(a[s], tiles + (s * kN1 + 16 * mt) * ldw, ldw, ks, lane);
+        tr::mma_tier(acc[mt], a, bf);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int o = 8 * nt + 2 * (lane % 4) + (i & 1);  // output row of W2cat
+      float* dst = yf + (o >= n2 ? static_cast<size_t>(rows) * n : 0) + (o & (n2 - 1)) * kN1 +
+                   lane / 4 + 8 * (i >> 1);
+#pragma unroll
+      for (int mt = 0; mt < 8; ++mt) dst[16 * mt] = tr::total(acc[mt], i);
+    }
+  }
+}
+
+template <int LOG2N, int kTerms>
+__global__ void __launch_bounds__(kTierThreads) fourstep_col_tier1(
+    const float* __restrict__ y, const uint4* __restrict__ w1frag,
+    const float* __restrict__ ttr, const float* __restrict__ tti, int tb, int cols,
+    float* __restrict__ b) {
+  namespace tr = ocean::tier;
+  constexpr int n = 1 << LOG2N;
+  constexpr int n2 = n / kN1;
+  extern __shared__ uint4 smem4[];
+  uint4* table = smem4;
+  uint32_t* data = reinterpret_cast<uint32_t*>(smem4 + kTerms * kW1Frags);
+  load_table<kTerms>(table, w1frag);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int chunks = cols / kTierRows;
+  const size_t plane_sz = static_cast<size_t>(n) * cols;
+  const int bands = cols / kTierCols;
+  for (int item = blockIdx.x; item < tb * n2 * chunks; item += gridDim.x) {
+    const int frame = item / (n2 * chunks);
+    const int m2 = (item / chunks) % n2;
+    const int c0 = (item % chunks) * kTierRows;
+    const float* yf = y + static_cast<size_t>(frame) * 4 * plane_sz + c0;
+    for (int e = threadIdx.x; e < 4 * (kN1 / 2) * kTierRows; e += kTierThreads) {
+      const int c = e % kTierRows;
+      const int k = (e / kTierRows) % (kN1 / 2);  // m1 = 2 k, 2 k + 1
+      const int q = e / (kTierRows * kN1 / 2);    // plane (H, Z) x (Re, Im)
+      const float* src = yf + q * plane_sz + static_cast<size_t>(2 * k * n2 + m2) * cols + c;
+      uint32_t hi, lo;
+      tr::split2(src[0], src[static_cast<size_t>(n2) * cols], hi, lo);
+      uint32_t* row = data + ((q >> 1) * kTerms * kTierRows + c) * kLd1 + (q & 1) * (kN1 / 2) + k;
+      row[0] = hi;
+      if constexpr (kTerms == 2) row[kTierRows * kLd1] = lo;
+    }
+    __syncthreads();
+    float acc[2][2][2][kTerms][4];
+    stage1_product<kTerms>(acc, data, table, warp, lane);
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int n1 = 8 * (warp + 8 * jj) + 2 * (lane % 4) + (i & 1);
+        const int col = c0 + lane / 4 + 8 * (i >> 1);
+        const float c = ttr[n1 * n2 + m2], si = tti[n1 * n2 + m2];
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const float2 v = twiddled(tr::total(acc[jj][0][p], i), tr::total(acc[jj][1][p], i), c,
+                                    si);
+          float* o = b + ((((static_cast<size_t>(frame) * bands + col / kTierCols) * kN1 + n1) *
+                               2 + p) * 2) * n2 * kTierCols + m2 * kTierCols + col % kTierCols;
+          o[0] = v.x;                   // Re
+          o[n2 * kTierCols] = v.y;      // Im
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <int LOG2N, int kTerms>
+__global__ void __launch_bounds__(kTierThreads) fourstep_col_tier2(
+    const float* __restrict__ b, const uint2* __restrict__ w2frag, int cols,
+    float* __restrict__ out, float* __restrict__ partials, int stride) {
+  namespace tr = ocean::tier;
+  constexpr int n = 1 << LOG2N;
+  constexpr int n2 = n / kN1;
+  constexpr int ldw = kLd2<LOG2N>;
+  constexpr int ksteps = 2 * n2 / 16;
+  extern __shared__ uint32_t tiles[];  // [plane][term][32 columns][k2' pairs]
+  __shared__ float red[kTierWarps];
+  const int n1 = blockIdx.x, band = blockIdx.y, frame = blockIdx.z;
+  const float* src = b + ((static_cast<size_t>(frame) * gridDim.y + band) * kN1 + n1) * 4 * n2 *
+                             kTierCols;
+  for (int e = threadIdx.x; e < 2 * n2 * kTierCols; e += kTierThreads) {
+    const int c = e % kTierCols, k = (e / kTierCols) % n2, p = e / (kTierCols * n2);
+    const float* s = src + (p * 2 * n2 + 2 * k) * kTierCols + c;
+    uint32_t hi, lo;
+    tr::split2(s[0], s[kTierCols], hi, lo);
+    uint32_t* row = tiles + ((p * kTerms) * kTierCols + c) * ldw + k;
+    row[0] = hi;
+    if constexpr (kTerms == 2) row[kTierCols * ldw] = lo;
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t plane = static_cast<size_t>(n) * cols;
+  float* of = out + static_cast<size_t>(frame) * 3 * plane + band * kTierCols + lane / 4;
+  float sum = 0.0f;
+  for (int nt = warp; nt < 2 * n2 / 8; nt += kTierWarps) {
+    const bool height = nt < n2 / 8;  // H's real rows: W2top
+    float acc[4][kTerms][4];          // m-tiles: H columns 0-15, 16-31, Z the same
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) tr::zero(acc[mt]);
+    for (int ks = 0; ks < ksteps; ++ks) {
+      uint32_t bf[kTerms][2];
+#pragma unroll
+      for (int s = 0; s < kTerms; ++s) {
+        const uint2 f = __ldg(w2frag + ((nt * ksteps + ks) * kTerms + s) * 32 + lane);
+        bf[s][0] = f.x;
+        bf[s][1] = f.y;
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        if (mt < 2 && !height) continue;
+        uint32_t a[kTerms][4];
+#pragma unroll
+        for (int s = 0; s < kTerms; ++s)
+          tr::load_a(a[s], tiles + (((mt >> 1) * kTerms + s) * kTierCols + 16 * (mt & 1)) * ldw,
+                     ldw, ks, lane);
+        tr::mma_tier(acc[mt], a, bf);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int o = 8 * nt + 2 * (lane % 4) + (i & 1);  // output row of W2cat
+      const size_t ro = static_cast<size_t>((o & (n2 - 1)) * kN1 + n1) * cols + 8 * (i >> 1);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        if (mt < 2 && !height) continue;
+        const float v = tr::total(acc[mt], i);
+        // H: height = Re; Z: disp_x = Re, disp_z = Im
+        const size_t q = mt < 2 ? plane : (o >= n2 ? 2 * plane : 0);
+        of[q + ro + 16 * (mt & 1)] = v;
+        sum += v;
+      }
+    }
+  }
+  if (partials != nullptr) {
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_down_sync(0xffffffffu, sum, off);
+    if (lane == 0) red[warp] = sum;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float total = 0.0f;
+      for (int i = 0; i < kTierWarps; ++i) total += red[i];
+      partials[static_cast<size_t>(frame) * stride + band * kN1 + n1] = total;
+    }
+  }
+}
+
+// The persistent grid of a stage-1 kernel: as many blocks as fit the card.
+template <class F>
+cudaError_t persistent_blocks(F* f, size_t smem, int items, int& blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, f, kTierThreads, smem);
+  }
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  blocks = std::min(items, sms * per_sm);
+  return cudaSuccess;
+}
+
+// What a tiered launch reads besides K2's or K3's arguments: the tables'
+// fragments (W1 complex, W2cat real), the twiddles and the scratch.
+struct TierArgs {
+  int terms;
+  const void* w1frag;
+  const void* w2frag;
+  const float* ttr;
+  const float* tti;
+  float* scratch;
+};
+
+template <int LOG2N, int kTerms, bool kWindows>
+int launch_row_tier(const RowArgs& a, const TierArgs& t, cudaStream_t st) {
+  constexpr int n2 = 1 << (LOG2N - kLog2N1);
+  constexpr size_t smem1 = stage1_smem<kTerms>();
+  constexpr size_t smem2 = static_cast<size_t>(kTerms) * kN1 * kLd2<LOG2N> * sizeof(uint32_t);
+  static bool ready1[ocean::kMaxDevices], ready2[ocean::kMaxDevices];
+  auto* k1 = fourstep_row_tier1<LOG2N, kTerms, kWindows>;
+  auto* k2 = fourstep_row_tier2<LOG2N, kTerms>;
+  cudaError_t err = ocean::allow_smem(k1, smem1, ready1);
+  if (err == cudaSuccess) err = ocean::allow_smem(k2, smem2, ready2);
+  int blocks = 0;
+  if (err == cudaSuccess) {
+    err = persistent_blocks(k1, smem1, ((a.rows * n2 + kTierRows - 1) / kTierRows) * a.tb, blocks);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k1<<<blocks, kTierThreads, smem1, st>>>(a.h0, a.omega, a.w,
+                                          static_cast<const uint4*>(t.w1frag), t.ttr, t.tti,
+                                          a.ts, a.tb, a.rows, a.row_base, a.scale, a.wrap_k,
+                                          a.conj_neg, t.scratch);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k2<<<dim3(a.rows, 2, a.tb), kTierThreads, smem2, st>>>(
+      t.scratch, static_cast<const uint2*>(t.w2frag), a.rows, a.y);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int LOG2N, bool kWindows>
+int launch_row_tier_any(const RowArgs& a, const TierArgs& t, cudaStream_t st) {
+  return t.terms == 2 ? launch_row_tier<LOG2N, 2, kWindows>(a, t, st)
+                      : launch_row_tier<LOG2N, 1, kWindows>(a, t, st);
+}
+
+template <int LOG2N, int kTerms>
+int launch_col_tier(const float* y, float* scratch, int tb, int cols, float* out,
+                    float* partials, int stride, const TierArgs& t, cudaStream_t st) {
+  constexpr int n2 = 1 << (LOG2N - kLog2N1);
+  constexpr size_t smem1 = stage1_smem<kTerms>();
+  constexpr size_t smem2 =
+      static_cast<size_t>(2) * kTerms * kTierCols * kLd2<LOG2N> * sizeof(uint32_t);
+  static bool ready1[ocean::kMaxDevices], ready2[ocean::kMaxDevices];
+  auto* k1 = fourstep_col_tier1<LOG2N, kTerms>;
+  auto* k2 = fourstep_col_tier2<LOG2N, kTerms>;
+  cudaError_t err = ocean::allow_smem(k1, smem1, ready1);
+  if (err == cudaSuccess) err = ocean::allow_smem(k2, smem2, ready2);
+  int blocks = 0;
+  if (err == cudaSuccess) err = persistent_blocks(k1, smem1, tb * n2 * (cols / kTierRows), blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k1<<<blocks, kTierThreads, smem1, st>>>(y, static_cast<const uint4*>(t.w1frag), t.ttr, t.tti,
+                                          tb, cols, scratch);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k2<<<dim3(kN1, cols / kTierCols, tb), kTierThreads, smem2, st>>>(
+      scratch, static_cast<const uint2*>(t.w2frag), cols, out, partials, stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int LOG2N>
+int launch_col_tier_any(const float* y, float* scratch, int tb, int cols, float* out,
+                        float* partials, int stride, const TierArgs& t, cudaStream_t st) {
+  return t.terms == 2
+             ? launch_col_tier<LOG2N, 2>(y, scratch, tb, cols, out, partials, stride, t, st)
+             : launch_col_tier<LOG2N, 1>(y, scratch, tb, cols, out, partials, stride, t, st);
+}
+
 bool valid_n(int n, int max_n) { return n >= kMinN && n <= max_n && (n & (n - 1)) == 0; }
 
 bool valid_rows(int n, int tb, int rows, int row_base) {
@@ -622,7 +1097,16 @@ bool valid_rows(int n, int tb, int rows, int row_base) {
 }
 
 template <bool kWindows>
-int launch_row_any(const RowArgs& a, int n, cudaStream_t st) {
+int launch_row_any(const RowArgs& a, int n, const TierArgs& t, cudaStream_t st) {
+  if (t.terms != 0) {
+    switch (n) {
+      case 1024: return launch_row_tier_any<10, kWindows>(a, t, st);
+      case 2048: return launch_row_tier_any<11, kWindows>(a, t, st);
+      case 4096: return launch_row_tier_any<12, kWindows>(a, t, st);
+      case 8192: return launch_row_tier_any<13, kWindows>(a, t, st);
+      default: return launch_row_tier_any<14, kWindows>(a, t, st);
+    }
+  }
   switch (n) {
     case 1024: return launch_row<10, kWindows>(a, st);
     case 2048: return launch_row<11, kWindows>(a, st);
@@ -630,6 +1114,16 @@ int launch_row_any(const RowArgs& a, int n, cudaStream_t st) {
     case 8192: return launch_row<13, kWindows>(a, st);
     default: return launch_row_split<14, kWindows>(a, st);
   }
+}
+
+// The tiered body's arguments of a C entry point, checked: passes 0 (the
+// FFT body), 3 (the split, hi and lo fragments) or 1 ("default").
+bool tier_args(int passes, const void* w1frag, const void* w2frag, const float* ttr,
+               const float* tti, float* scratch, TierArgs& t) {
+  t = TierArgs{passes == 3 ? 2 : passes, w1frag, w2frag, ttr, tti, scratch};
+  if (passes == 0) return true;
+  return (passes == 1 || passes == 3) && w1frag != nullptr && w2frag != nullptr &&
+         ttr != nullptr && tti != nullptr && scratch != nullptr;
 }
 
 }  // namespace
@@ -641,12 +1135,23 @@ extern "C" {
 // at n = 16384). Inputs: the state h0 (2, n, n), omega (n, n); tw (2, n/2);
 // ts (tb,). Output: y (tb, 2, 2, rows, n), the rows row_base .. row_base +
 // rows - 1 of the grid.
+//
+// passes selects the body: 0 the FFT body ("highest"), 3 the tiered body of
+// the three-pass split, 1 of one bf16 pass ("default"), which reads
+// w1frag (ops/fft.mma_fragments of ("alt", 128, 1, 0, False)), w2frag (of
+// ("cat", n / 128)), the twiddle ttr, tti (n / 128, 128) and writes the
+// scratch (tb, rows, 2, 2, n / 128, 128); tw is then not read.
 int fourstep_row(const float* h0, const float* omega, const float* tw, const float* ts, int tb,
                  int n, int rows, int row_base, float scale, int wrap_k, int conj_neg, float* y,
-                 void* stream) {
-  if (!valid_rows(n, tb, rows, row_base)) return static_cast<int>(cudaErrorInvalidValue);
+                 int passes, const void* w1frag, const void* w2frag, const float* ttr,
+                 const float* tti, float* scratch, void* stream) {
+  TierArgs t;
+  if (!valid_rows(n, tb, rows, row_base) || !tier_args(passes, w1frag, w2frag, ttr, tti,
+                                                       scratch, t)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const RowArgs a{h0, omega, {}, tw, ts, tb, rows, row_base, scale, wrap_k, conj_neg, y};
-  return launch_row_any<false>(a, n, static_cast<cudaStream_t>(stream));
+  return launch_row_any<false>(a, n, t, static_cast<cudaStream_t>(stream));
 }
 
 // K2 on the band of `rows` rows from row_base, reading the band's two
@@ -656,30 +1161,60 @@ int fourstep_row(const float* h0, const float* omega, const float* tw, const flo
 // Otherwise as fourstep_row, with the same output bit for bit.
 int fourstep_row_windows(const float* h0, const float* omega, const float* tw, const float* ts,
                          int tb, int n, int rows, int row_base, float scale, int wrap_k,
-                         int conj_neg, float* y, void* stream) {
-  if (!valid_rows(n, tb, rows, row_base)) return static_cast<int>(cudaErrorInvalidValue);
+                         int conj_neg, float* y, int passes, const void* w1frag,
+                         const void* w2frag, const float* ttr, const float* tti, float* scratch,
+                         void* stream) {
+  TierArgs t;
+  if (!valid_rows(n, tb, rows, row_base) || !tier_args(passes, w1frag, w2frag, ttr, tti,
+                                                       scratch, t)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const ocean::StateWindows w{h0, omega, (row_base - 1) & (n - 1),
                               (n - row_base - rows) & (n - 1), rows + 1};
   const RowArgs a{nullptr, nullptr, w, tw, ts, tb, rows, row_base, scale, wrap_k, conj_neg, y};
-  return launch_row_any<true>(a, n, static_cast<cudaStream_t>(stream));
+  return launch_row_any<true>(a, n, t, static_cast<cudaStream_t>(stream));
 }
 
 // Launches K3 for tb frames on `stream`; returns the first error. Input:
 // y (tb, 2, 2, n, cols), n up to 16384; sign is -1 with the Q2 flip, else +1.
 // Scratch: b, as large as y. Outputs: out (tb, 3, n, cols); partials, or
 // null for no checksum (which needs cols == n): (tb, P + Q) per-block sums,
-// P = (n / 128) (cols / 32) of the planes from stage 2 and, with normals,
-// Q = n / ck_rows of the normals' terms.
+// P = (n / 128) (cols / 32) of the planes from stage 2 (128 (cols / 32) for
+// the tiered body) and, with normals, Q = n / ck_rows of the normals' terms.
+//
+// passes selects the body as fourstep_row's does; the tiered body reads
+// w1frag of ("alt", 128, 1, 0, Q2 flip) (sign is then not read), w2frag of
+// ("cat", n / 128) and the twiddle ttr, tti (128, n / 128); its scratch is b.
 int fourstep_col(const float* y, float* b, const float* tw, int tb, int n, int cols,
                  float sign, float* out, float* partials, int ck_rows, float normals_scale,
-                 int with_normals, void* stream) {
+                 int with_normals, int passes, const void* w1frag, const void* w2frag,
+                 const float* ttr, const float* tti, void* stream) {
   const bool checksum_ok =
       cols == n && ck_rows >= 1 && ck_rows % ocean::kSumRows == 0 && n % ck_rows == 0;
+  TierArgs t;
   if (!valid_n(n, kMaxN) || tb < 1 || tb > 65535 || cols < kColCols || cols % kColCols != 0 ||
-      cols > n || (partials != nullptr && !checksum_ok)) {
+      cols > n || (partials != nullptr && !checksum_ok) ||
+      !tier_args(passes, w1frag, w2frag, ttr, tti, b, t)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (t.terms != 0) {
+    const int bands = cols / kTierCols;
+    const bool normals = partials != nullptr && with_normals;
+    const int stride = kN1 * bands + (normals ? n / ck_rows : 0);
+    int err;
+    switch (n) {
+      case 1024: err = launch_col_tier_any<10>(y, b, tb, cols, out, partials, stride, t, st); break;
+      case 2048: err = launch_col_tier_any<11>(y, b, tb, cols, out, partials, stride, t, st); break;
+      case 4096: err = launch_col_tier_any<12>(y, b, tb, cols, out, partials, stride, t, st); break;
+      case 8192: err = launch_col_tier_any<13>(y, b, tb, cols, out, partials, stride, t, st); break;
+      default: err = launch_col_tier_any<14>(y, b, tb, cols, out, partials, stride, t, st);
+    }
+    if (err != 0 || !normals) return err;
+    ocean::checksum_partials<<<dim3(n / ck_rows, tb), ocean::kSumThreads, 0, st>>>(
+        out, n, ck_rows, normals_scale, 0, 1, partials + kN1 * bands, stride);
+    return static_cast<int>(cudaGetLastError());
+  }
   const ColArgs a{y, b, tw, tb, cols, sign, out, partials, ck_rows, normals_scale, with_normals};
   switch (n) {
     case 1024: return launch_col<10>(a, st);

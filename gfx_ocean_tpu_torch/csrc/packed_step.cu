@@ -66,6 +66,7 @@
 
 #include "fft_reg.cuh"
 #include "ocean_common.cuh"
+#include "tier_mma.cuh"
 
 namespace {
 
@@ -244,6 +245,256 @@ __global__ void __launch_bounds__(Shape<LOG2N>::kColThreads) packed_col_pass(
   });
 }
 
+// ---------------------------------------------------------------------------
+// K1's tiered body ("high", "bf16x3", "bf16x4": kTerms = 2; "default":
+// kTerms = 1): the JAX kernel's products, bf16 operands on the tensor cores
+// (tier_mma.cuh). Both passes multiply a 16-row bf16 tile in shared memory
+// by B = A^T, A = D_alt W (N x N), whose fragments (ops/fft.mma_fragments
+// of ("alt", n, 1, 0, False)) stream from L2: the row pass's Y = X A^T, and
+// the column pass A Y as its transpose Y^T A^T.
+//
+//   packed_row_tier   one block per (8 rho pairs of rows, frame, cascade),
+//                     8 warps: the packed propagate of the block's 16 rows
+//                     (ocean::packed_propagate_pair, each pair once; rows 0
+//                     and n / 2 pair with themselves), split into bf16 hi
+//                     and lo tiles of Hr, Hi, Zr, Zi; then each warp takes
+//                     8-column tiles of Y and runs the JAX kernel's eight
+//                     real products (pallas_step.py:431-434), and writes Y
+//                     (FP32) as the FFT body does.
+//   packed_col_tier   one block per (16 columns, frame, cascade): reads those
+//                     columns of Y, splits them into 16-row tiles of the
+//                     transposed planes, and runs the six products of
+//                     pallas_step.py:444-450 (height Re only) into the
+//                     planes.
+//
+// What bounds it (512^2, a frame): 28 N^3 flops a pass, 3.8 GFLOP at
+// "default" and 11.3 at the split, against ~13 MB of device memory: the
+// tensor cores, then the table's reads from L2 (each block reads all of A's
+// fragments, 2 MB at the split). A plain design: mma.sync from registers,
+// no wgmma, TMA or pipelining, one block of 16 rows a SM at the split
+// (133 KB of tiles).
+constexpr int kTierThreads = 256;
+constexpr int kTierRows = 16;  // rows (columns) of the tile a block multiplies
+constexpr size_t tier_smem(int n, int terms) {
+  return static_cast<size_t>(4) * terms * kTierRows * (n / 2 + 4) * sizeof(uint32_t);
+}
+
+template <int kTerms, bool kCascades>
+__global__ void __launch_bounds__(kTierThreads) packed_row_tier(
+    const float* __restrict__ h0, const float* __restrict__ omega, const uint4* __restrict__ frag,
+    const float* __restrict__ ts, int n, float scale, int wrap_k, int conj_neg, float half,
+    float* __restrict__ y) {
+  namespace tr = ocean::tier;
+  extern __shared__ uint32_t tiles[];
+  const size_t nn = static_cast<size_t>(n) * n;
+  const int m = n - 1;
+  const int ldw = n / 2 + 4;  // words a tile row: conflict-free A fragments
+  const int frame = blockIdx.y;
+  const float t = ts[frame];
+  if constexpr (kCascades) {
+    h0 += static_cast<size_t>(blockIdx.z) * 2 * nn;
+    omega += static_cast<size_t>(blockIdx.z) * nn;
+  }
+  // Tile (q, term): q = Hr, Hi, Zr, Zi; local row r = 2 j + side holds row
+  // `rows[side]` of pair p = 8 blockIdx.x + j.
+  auto half_at = [&](int q, int term, int r, int x) -> uint16_t& {
+    return reinterpret_cast<uint16_t*>(tiles + ((q * kTerms + term) * kTierRows + r) * ldw)[x];
+  };
+  auto put = [&](int r, int x, const ocean::PackedSpectra& p) {
+    const float v[4] = {p.hr, p.hi, p.zr, p.zi};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint16_t hi, lo;
+      tr::split1(v[q], hi, lo);
+      half_at(q, 0, r, x) = hi;
+      if constexpr (kTerms == 2) half_at(q, 1, r, x) = lo;
+    }
+  };
+  for (int e = threadIdx.x; e < (kTierRows / 2) * n; e += kTierThreads) {
+    const int j = e / n, x = e & m;
+    const int p = (kTierRows / 2) * blockIdx.x + j;
+    if (p == 0) {
+      put(0, x, ocean::packed_propagate(h0, omega, n, 0, x, t, scale, wrap_k != 0,
+                                        conj_neg != 0, half));
+      put(1, x, ocean::packed_propagate(h0, omega, n, n / 2, x, t, scale, wrap_k != 0,
+                                        conj_neg != 0, half));
+    } else {
+      const ocean::PackedPair pp = ocean::packed_propagate_pair(
+          h0, omega, n, p, x, t, scale, wrap_k != 0, conj_neg != 0, half);
+      put(2 * j, x, pp.e);
+      put(2 * j + 1, (n - x) & m, pp.rho);
+    }
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ksteps = n / 16;
+  const size_t fc = kCascades ? static_cast<size_t>(blockIdx.z) * gridDim.y + frame
+                              : static_cast<size_t>(frame);
+  float* yf = y + fc * 4 * nn;
+  int grow[2];  // the global rows of accumulator rows g and g + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = lane / 4 + 8 * h;
+    const int p = (kTierRows / 2) * blockIdx.x + r / 2;
+    grow[h] = (r & 1) ? (p == 0 ? n / 2 : n - p) : p;
+  }
+  for (int nt = warp; nt < n / 8; nt += kTierThreads / 32) {
+    // products: Hr.Ar, Hi.Ai, Hr.Ai, Hi.Ar, Zr.Ar, Zi.Ai, Zr.Ai, Zi.Ar
+    float acc[8][kTerms][4];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) tr::zero(acc[k]);
+    const uint4* fb = frag + static_cast<size_t>(nt) * ksteps * kTerms * 32 + lane;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      uint32_t br[kTerms][2], bi[kTerms][2], a[4][kTerms][4];
+#pragma unroll
+      for (int s = 0; s < kTerms; ++s) {
+        const uint4 f = __ldg(fb + (ks * kTerms + s) * 32);
+        br[s][0] = f.x;
+        br[s][1] = f.y;
+        bi[s][0] = f.z;
+        bi[s][1] = f.w;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          tr::load_a(a[q][s], tiles + (q * kTerms + s) * kTierRows * ldw, ldw, ks, lane);
+        }
+      }
+      tr::mma_tier(acc[0], a[0], br);
+      tr::mma_tier(acc[1], a[1], bi);
+      tr::mma_tier(acc[2], a[0], bi);
+      tr::mma_tier(acc[3], a[1], br);
+      tr::mma_tier(acc[4], a[2], br);
+      tr::mma_tier(acc[5], a[3], bi);
+      tr::mma_tier(acc[6], a[2], bi);
+      tr::mma_tier(acc[7], a[3], br);
+    }
+    const int col = 8 * nt + 2 * (lane % 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float o[4][2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int i = 2 * h + c;
+        o[0][c] = __fsub_rn(tr::total(acc[0], i), tr::total(acc[1], i));  // Re F_x(H)
+        o[1][c] = __fadd_rn(tr::total(acc[2], i), tr::total(acc[3], i));  // Im F_x(H)
+        o[2][c] = __fsub_rn(tr::total(acc[4], i), tr::total(acc[5], i));  // Re F_x(Z)
+        o[3][c] = __fadd_rn(tr::total(acc[6], i), tr::total(acc[7], i));  // Im F_x(Z)
+      }
+      float* row = yf + static_cast<size_t>(grow[h]) * n + col;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        *reinterpret_cast<float2*>(row + q * nn) = make_float2(o[q][0], o[q][1]);
+      }
+    }
+  }
+}
+
+template <int kTerms, bool kCascades>
+__global__ void __launch_bounds__(kTierThreads) packed_col_tier(
+    const float* __restrict__ y, const uint4* __restrict__ frag, int n,
+    float* __restrict__ out) {
+  namespace tr = ocean::tier;
+  extern __shared__ uint32_t tiles[];
+  const size_t nn = static_cast<size_t>(n) * n;
+  const int ldw = n / 2 + 4;
+  const int x0 = kTierRows * blockIdx.x;
+  const int frame = blockIdx.y;
+  const size_t fc = kCascades ? static_cast<size_t>(blockIdx.z) * gridDim.y + frame
+                              : static_cast<size_t>(frame);
+  const float* yf = y + fc * 4 * nn + x0;
+  // Tile (q, term) row c holds column x0 + c of plane q of Y, word k the
+  // rows 2 k and 2 k + 1.
+  const int pairs = n / 2;
+  for (int e = threadIdx.x; e < 4 * pairs * kTierRows; e += kTierThreads) {
+    const int c = e % kTierRows;
+    const int k = (e / kTierRows) % pairs;
+    const int q = e / (kTierRows * pairs);
+    const float* src = yf + q * nn + static_cast<size_t>(2 * k) * n + c;
+    uint32_t hi, lo;
+    tr::split2(src[0], src[n], hi, lo);
+    uint32_t* row = tiles + ((q * kTerms) * kTierRows + c) * ldw + k;
+    row[0] = hi;
+    if constexpr (kTerms == 2) row[kTierRows * ldw] = lo;
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ksteps = n / 16;
+  float* of = out + fc * 3 * nn + x0 + lane / 4;
+  for (int nt = warp; nt < n / 8; nt += kTierThreads / 32) {
+    // products: Yhr.Ar, Yhi.Ai, Yzr.Ar, Yzi.Ai, Yzi.Ar, Yzr.Ai
+    float acc[6][kTerms][4];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) tr::zero(acc[k]);
+    const uint4* fb = frag + static_cast<size_t>(nt) * ksteps * kTerms * 32 + lane;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      uint32_t br[kTerms][2], bi[kTerms][2], a[4][kTerms][4];
+#pragma unroll
+      for (int s = 0; s < kTerms; ++s) {
+        const uint4 f = __ldg(fb + (ks * kTerms + s) * 32);
+        br[s][0] = f.x;
+        br[s][1] = f.y;
+        bi[s][0] = f.z;
+        bi[s][1] = f.w;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          tr::load_a(a[q][s], tiles + (q * kTerms + s) * kTierRows * ldw, ldw, ks, lane);
+        }
+      }
+      tr::mma_tier(acc[0], a[0], br);
+      tr::mma_tier(acc[1], a[1], bi);
+      tr::mma_tier(acc[2], a[2], br);
+      tr::mma_tier(acc[3], a[3], bi);
+      tr::mma_tier(acc[4], a[3], br);
+      tr::mma_tier(acc[5], a[2], bi);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const size_t yo = static_cast<size_t>(8 * nt + 2 * (lane % 4) + (i & 1)) * n + 8 * (i >> 1);
+      of[nn + yo] = __fsub_rn(tr::total(acc[0], i), tr::total(acc[1], i));  // height
+      of[yo] = __fsub_rn(tr::total(acc[2], i), tr::total(acc[3], i));       // disp_x
+      of[2 * nn + yo] = __fadd_rn(tr::total(acc[4], i), tr::total(acc[5], i));  // disp_z
+    }
+  }
+}
+
+template <int kTerms, bool kCascades>
+int launch_tier(const float* h0, const float* omega, const void* frag, const float* ts, int tb,
+                int cascades, int n, float scale, int wrap_k, int conj_neg, float half, float* y,
+                float* out, cudaStream_t st) {
+  static bool row_ready[kMaxDevices], col_ready[kMaxDevices];
+  const size_t most = tier_smem(512, kTerms);  // the attribute covers every n
+  cudaError_t err = allow_smem(packed_row_tier<kTerms, kCascades>, most, row_ready);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = allow_smem(packed_col_tier<kTerms, kCascades>, most, col_ready);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const uint4* f = static_cast<const uint4*>(frag);
+  const size_t smem = tier_smem(n, kTerms);
+  packed_row_tier<kTerms, kCascades><<<dim3(n / kTierRows, tb, cascades), kTierThreads, smem,
+                                       st>>>(h0, omega, f, ts, n, scale, wrap_k, conj_neg, half,
+                                             y);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  packed_col_tier<kTerms, kCascades><<<dim3(n / kTierRows, tb, cascades), kTierThreads, smem,
+                                       st>>>(y, f, n, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_tier_any(int passes, const float* h0, const float* omega, const void* frag,
+                    const float* ts, int tb, int cascades, int n, float scale, int wrap_k,
+                    int conj_neg, float half, float* y, float* out, cudaStream_t st) {
+  if (passes == 3) {
+    return cascades > 1 ? launch_tier<2, true>(h0, omega, frag, ts, tb, cascades, n, scale,
+                                               wrap_k, conj_neg, half, y, out, st)
+                        : launch_tier<2, false>(h0, omega, frag, ts, tb, cascades, n, scale,
+                                                wrap_k, conj_neg, half, y, out, st);
+  }
+  return cascades > 1 ? launch_tier<1, true>(h0, omega, frag, ts, tb, cascades, n, scale, wrap_k,
+                                             conj_neg, half, y, out, st)
+                      : launch_tier<1, false>(h0, omega, frag, ts, tb, cascades, n, scale,
+                                              wrap_k, conj_neg, half, y, out, st);
+}
+
 // What a K1 launch reads and writes.
 struct StepArgs {
   const float* h0;
@@ -292,26 +543,38 @@ extern "C" {
 // (C, 2, n, n); omega (C, n, n); tw (2, n/2); ts (tb,), the same times for
 // every cascade. Outputs: y (C, tb, 2, 2, n, n) scratch; out (C, tb, 3, n, n);
 // partials (C, tb, n / ck_rows) or null for no checksum (then C tb <= 65535).
+//
+// passes selects the body: 0 the FFT body ("highest"), 3 the tiered body of
+// the three-pass split, 1 the tiered body of one bf16 pass ("default");
+// frag is then the table's fragments (ops/fft.mma_fragments of A, hi and lo
+// at 3 passes, hi at 1) and tw is not read.
 int packed_step(const float* h0, const float* omega, const float* tw, const float* ts, int tb,
                 int cascades, int n, float scale, int wrap_k, int conj_neg, float half, float* y,
                 float* out, float* partials, int ck_rows, float normals_scale, int with_normals,
-                void* stream) {
+                int passes, const void* frag, void* stream) {
   if (tb < 1 || tb > 65535 || cascades < 1 || cascades > 65535 || ck_rows < 1 ||
       ck_rows % ocean::kSumRows != 0 || n % ck_rows != 0 ||
-      (partials != nullptr && static_cast<long long>(tb) * cascades > 65535)) {
+      (partials != nullptr && static_cast<long long>(tb) * cascades > 65535) ||
+      (passes != 0 && passes != 1 && passes != 3) || (passes != 0 && frag == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const StepArgs a{h0, omega, tw, ts, tb, cascades, scale, wrap_k, conj_neg, half, y, out};
   int err;
-  switch (n) {
-    case 16: err = launch<4>(a, st); break;
-    case 32: err = launch<5>(a, st); break;
-    case 64: err = launch<6>(a, st); break;
-    case 128: err = launch<7>(a, st); break;
-    case 256: err = launch<8>(a, st); break;
-    case 512: err = launch<9>(a, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (passes != 0) {
+    if (n < 16 || n > 512 || (n & (n - 1)) != 0) return static_cast<int>(cudaErrorInvalidValue);
+    err = launch_tier_any(passes, h0, omega, frag, ts, tb, cascades, n, scale, wrap_k, conj_neg,
+                          half, y, out, st);
+  } else {
+    switch (n) {
+      case 16: err = launch<4>(a, st); break;
+      case 32: err = launch<5>(a, st); break;
+      case 64: err = launch<6>(a, st); break;
+      case 128: err = launch<7>(a, st); break;
+      case 256: err = launch<8>(a, st); break;
+      case 512: err = launch<9>(a, st); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   if (err != 0) return err;
   if (partials != nullptr) {

@@ -44,13 +44,16 @@ _F = ctypes.c_float
 SIGNATURES = {
     "packed_step": {
         "packed_step": ([_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _F,
-                         _P, _P, _P, _I, _F, _I, _P], _I),
+                         _P, _P, _P, _I, _F, _I, _I, _P, _P], _I),
         "packed_step_error_string": ([_I], ctypes.c_char_p),
     },
     "fourstep_step": {
-        "fourstep_row": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P], _I),
-        "fourstep_row_windows": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P], _I),
-        "fourstep_col": ([_P, _P, _P, _I, _I, _I, _F, _P, _P, _I, _F, _I, _P], _I),
+        "fourstep_row": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P,
+                          _I, _P, _P, _P, _P, _P, _P], _I),
+        "fourstep_row_windows": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P,
+                                  _I, _P, _P, _P, _P, _P, _P], _I),
+        "fourstep_col": ([_P, _P, _P, _I, _I, _I, _F, _P, _P, _I, _F, _I,
+                          _I, _P, _P, _P, _P, _P], _I),
         "fourstep_error_string": ([_I], ctypes.c_char_p),
     },
     "unpacked_step": {

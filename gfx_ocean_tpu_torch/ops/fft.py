@@ -77,7 +77,7 @@ def resolve_precision(name: str) -> str:
 
 
 def effective_precision(precision: str, n: Optional[int] = None, direct_max: int = 1024,
-                        impl: str = "matmul") -> str:
+                        impl: str = "matmul", hermitian_pack: bool = True) -> str:
     """The tier that actually runs for a requested tier of an n-point
     transform (the JAX signature), suffixed with the mechanism where it
     differs from the request:
@@ -85,22 +85,43 @@ def effective_precision(precision: str, n: Optional[int] = None, direct_max: int
     - "matmul": the tier as requested up to ``direct_max``; above it the
       four-step stages run "bf16x3" as "high" and "bf16x4" as "highest"
       (``n`` None is read as a direct-size transform);
-    - "pallas": kernels K1-K6 compute in FP32 whatever the tier, "default"
-      included (contract difference D3 in ROADMAP.md: the JAX kernels run
-      bf16 passes in-kernel);
+    - "pallas": the packed kernels K1, K2 and K3 run the JAX kernels'
+      tiers (``pallas_step._make_dot``): "high", "bf16x3" and "bf16x4" the
+      three-pass split, "default" one bf16 pass, "highest" FP32. The
+      unpacked kernels K4-K6 (``hermitian_pack`` False at N <= 512) compute
+      in FP32 whatever the tier (contract difference D3 in ROADMAP.md);
     - "xla": torch.fft; the tiers do not apply.
     """
     resolve_precision(precision)
     if impl == "xla":
         return "n/a (torch.fft, cuFFT on the card; precision tiers do not apply)"
     if impl == "pallas":
-        return "fp32 (kernels K1-K6 compute in FP32 whatever the tier; ROADMAP.md D3)"
+        if not hermitian_pack and (n is None or n <= 512):
+            return ("fp32 (the unpacked kernels K4-K6 compute in FP32 whatever the tier; "
+                    "ROADMAP.md D3)")
+        if precision in ("high", "bf16x4"):
+            return "bf16x3 (in-kernel bf16 split on the tensor cores: hi.hi + hi.lo + lo.hi)"
+        return precision
     if n is not None and n > direct_max and precision in _STAGE_TIER:
         return ("high (3-pass bf16 split; explicit split remapped above direct_max)"
                 if precision == "bf16x3" else
                 "highest (full_matmul, float64 on the card; explicit split remapped above "
                 "direct_max)")
     return precision
+
+
+def kernel_tier(precision: str) -> str:
+    """The scheme the packed kernels K1-K3 and their plain versions run for
+    a requested tier, as ``pallas_step._make_dot`` runs it: "high" and
+    "bf16x4" the three-pass split "bf16x3" (the JAX kernel drops lo.lo)."""
+    resolve_precision(precision)
+    return "bf16x3" if precision in ("high", "bf16x4") else precision
+
+
+def kernel_passes(precision: str) -> int:
+    """The bf16 passes of the packed kernels' tiered bodies: 3 for the
+    split tiers, 1 for "default", 0 for "highest" (the FP32 FFT bodies)."""
+    return {"bf16x3": 3, "default": 1, "highest": 0}[kernel_tier(precision)]
 
 
 def full_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -139,6 +160,39 @@ class Prepared(NamedTuple):
 def prepare(a: torch.Tensor, tier: str) -> Prepared:
     """``a`` (float32) in the form ``matmul_tier`` multiplies at ``tier``."""
     return Prepared(a if tier == "highest" else _bf16_terms(a, tier))
+
+
+def transposed(p: Prepared) -> Prepared:
+    """The prepared form of the transpose of a prepared 2-D operand."""
+    if isinstance(p.value, dict):
+        return Prepared({k: v.T for k, v in p.value.items()})
+    return Prepared(p.value.T)
+
+
+def mma_fragments(planes, tier: str) -> torch.Tensor:
+    """The tables W (R x K float32, one or more planes of equal shape) as
+    the B operand B = W^T of ``mma.sync.m16n8k16.row.col.bf16``, in the
+    order the tiered kernels read it (``csrc/tier_mma.cuh``): int32 of
+    shape (R / 8, K / 16, terms, 32, 2 P). For n-tile nt, k-step ks, term
+    (hi, then lo for the split tiers) and lane l = 4 g + t, plane p holds
+    the two registers b01 = (W[8 nt + g][16 ks + 2 t], W[..][16 ks + 2 t + 1])
+    and b23 = (W[..][16 ks + 2 t + 8], W[..][16 ks + 2 t + 9]), the lower
+    column in the low 16 bits. A warp reads one n-tile's k-step as 32
+    consecutive vectors of 2 P words (a complex table: r01, r23, i01, i23).
+    R must be a multiple of 8, K of 16."""
+    terms = ("hi",) if tier == "default" else ("hi", "lo")
+    stacked = []
+    for term in terms:
+        per_plane = []
+        for w in planes:
+            r, k = w.shape
+            b = _bf16_terms(w, tier)[term]
+            # W[8 nt + g][16 ks + 8 half + 2 t + pair] -> [nt][ks][g][t][half][pair]
+            v = b.reshape(r // 8, 8, k // 16, 2, 4, 2).permute(0, 2, 1, 4, 3, 5)
+            per_plane.append(v.reshape(r // 8, k // 16, 32, 2, 2))
+        stacked.append(torch.stack(per_plane, dim=3))  # (nt, ks, lane, P, half, pair)
+    frag = torch.stack(stacked, dim=2).contiguous()    # (nt, ks, term, lane, P, half, pair)
+    return frag.view(torch.int32).reshape(*frag.shape[:4], -1)
 
 
 def _bf16_product(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -242,7 +296,23 @@ def _split(n: int) -> Tuple[int, int]:
     return 1 << l1, 1 << (log - l1)
 
 
-_TABLES = {"dft": _dft_matrix_np, "alt": _dft_matrix_out_alt_np, "twiddle": _twiddle_np}
+def _cat_complex_np(wr, wi):
+    """[[Wr, -Wi], [Wi, Wr]]: one stacked real matmul = a complex matmul
+    (``pallas_step._cat_complex_np``). Block rows select the (re, im) output,
+    block columns the (re, im) contraction operand."""
+    return np.concatenate([np.concatenate([wr, -wi], axis=1),
+                           np.concatenate([wi, wr], axis=1)], axis=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _cat_dft_np(n: int) -> Tuple[np.ndarray]:
+    """The stacked n-point DFT table (2n x 2n) of ``_dft_matrix_np(n, 1)``,
+    one real plane."""
+    return (_cat_complex_np(*_dft_matrix_np(n, 1)),)
+
+
+_TABLES = {"dft": _dft_matrix_np, "alt": _dft_matrix_out_alt_np, "twiddle": _twiddle_np,
+           "cat": _cat_dft_np}
 
 
 @functools.lru_cache(maxsize=64)
@@ -257,6 +327,13 @@ def _table(key: tuple, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor
 def _tier_table(key: tuple, device: torch.device, tier: str) -> Tuple[Prepared, Prepared]:
     """``_table(key, device)`` prepared for ``tier``, once per table."""
     return tuple(prepare(a, tier) for a in _table(key, device))
+
+
+@functools.lru_cache(maxsize=64)
+def table_fragments(key: tuple, device: torch.device, tier: str) -> torch.Tensor:
+    """``mma_fragments`` of the planes of table ``key`` on ``device``, made
+    once per (table, device, tier): the tiered kernels' B operand."""
+    return mma_fragments(_table(key, device), tier)
 
 
 def _complex_mm(xr: torch.Tensor, xi: torch.Tensor, key: tuple, tier: str, left: bool,

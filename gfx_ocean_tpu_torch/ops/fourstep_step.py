@@ -65,9 +65,10 @@ import torch
 
 from gfx_ocean_tpu_torch.config import OceanConfig
 from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, normals_scale
-from gfx_ocean_tpu_torch.ops.fft import (_dft_matrix_np, _dft_matrix_out_alt_np,
-                                         _twiddle_np, effective_precision, full_matmul,
-                                         twiddle_table)
+from gfx_ocean_tpu_torch.ops.fft import (Prepared, _cat_complex_np, _dft_matrix_np,
+                                         _dft_matrix_out_alt_np, _table, _twiddle_np,
+                                         effective_precision, kernel_passes, kernel_tier,
+                                         matmul_tier, prepare, table_fragments, twiddle_table)
 from gfx_ocean_tpu_torch.ops.propagate import (BandWindows, _f32, as_times,
                                                gather_packed_planes, packed_spectra)
 from gfx_ocean_tpu_torch.utils.device import check_current_device
@@ -114,14 +115,6 @@ def check_supported(config: OceanConfig, n: int) -> str:
     return effective_precision(config.matmul_precision, n, impl="pallas")
 
 
-def _cat_complex_np(wr, wi):
-    """[[Wr, -Wi], [Wi, Wr]]: one stacked real matmul = a complex matmul
-    (``pallas_step._cat_complex_np``). Block rows select the (re, im)
-    output, block columns the (re, im) contraction operand."""
-    return np.concatenate([np.concatenate([wr, -wi], axis=1),
-                           np.concatenate([wi, wr], axis=1)], axis=0)
-
-
 @functools.lru_cache(maxsize=None)
 def fourstep_tables(n: int, n1: int, n2: int, negate: bool):
     """Numpy copy of ``pallas_step._fourstep_tables``.
@@ -150,12 +143,17 @@ def fourstep_tables(n: int, n1: int, n2: int, negate: bool):
 
 
 @functools.lru_cache(maxsize=None)
-def _device_tables(n: int, negate: bool, device: torch.device):
-    """``fourstep_tables`` as float32 tensors on ``device``, made once."""
+def _device_tables(n: int, negate: bool, device: torch.device, tier: str = "highest"):
+    """``fourstep_tables`` on ``device``, made once per tier: the DFT tables
+    ``prepare``d for ``tier`` (W1cat transposed for the row pass's
+    X W1cat^T), the twiddles float32."""
     n1, n2 = 128, n // 128
     row, col = fourstep_tables(n, n1, n2, negate)
-    return (tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in row),
-            tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in col))
+    row, col = ([torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in tabs]
+                for tabs in (row, col))
+    row[0] = row[0].T
+    return (tuple(prepare(a, tier) for a in row[:2]) + tuple(row[2:]),
+            tuple(prepare(a, tier) for a in col[:3]) + tuple(col[3:]))
 
 
 def hoist_fourstep(h0_pair: torch.Tensor, omega: torch.Tensor,
@@ -197,12 +195,16 @@ def fourstep_row_reference(inputs: FourstepInputs, ts, config: OceanConfig,
 
     With k = n2 k1 + k2 and x = n1 + 128 n2 (``ops/fft._foursteps_last``):
     stage 1 over k1 against W1cat, the twiddle T[k2, n1], stage 2 over k2
-    against W2cat (or diag(W2cat, W2cat), both spectra in one matmul)."""
+    against W2cat (or diag(W2cat, W2cat), both spectra in one matmul). Each
+    stacked product is one ``matmul_tier`` at the tier of
+    ``config.matmul_precision`` (``ops/fft.kernel_tier``), as the JAX
+    kernel's ``_make_dot`` runs it; the twiddle is FP32."""
     dev = inputs.twiddle.device
     n = 2 * inputs.twiddle.shape[-1]
     rows = _band(n, row_base, rows, windows)
     n1, n2, _, _ = fourstep_plan(n, config)
-    (w1, w2, ttr, tti), _ = _device_tables(n, config.compat.ref_sign, dev)
+    tier = kernel_tier(config.matmul_precision)
+    (w1t, w2, ttr, tti), _ = _device_tables(n, config.compat.ref_sign, dev, tier)
     ts = as_times(ts, dev)
     tb = ts.shape[0]
     pre, pre_rho, om_band, omq = gather_packed_planes(inputs.h0, inputs.omega,
@@ -215,20 +217,27 @@ def fourstep_row_reference(inputs: FourstepInputs, ts, config: OceanConfig,
         # (tb, rows, N) -> (tb, rows, k2, [k1 of re | k1 of im])
         x = torch.cat([xr.reshape(tb, rows, n1, n2).transpose(-1, -2),
                        xi.reshape(tb, rows, n1, n2).transpose(-1, -2)], dim=-1)
-        a = full_matmul(x, w1.T)                       # (tb, rows, k2, [n1 | n1])
+        a = matmul_tier(x, w1t, tier)                  # (tb, rows, k2, [n1 | n1])
         ar, ai = a[..., :n1], a[..., n1:]
         return ar * ttr - ai * tti, ar * tti + ai * ttr  # (tb, rows, k2, n1)
 
     bh = stage12(h_r, h_i)
     bz = stage12(z_r, z_i)
-    if w2.shape[0] == 4 * n2:
-        parts = full_matmul(w2, torch.cat([*bh, *bz], dim=-2)).split(n2, dim=-2)
+    if _rows_of(w2) == 4 * n2:
+        parts = matmul_tier(w2, torch.cat([*bh, *bz], dim=-2), tier).split(n2, dim=-2)
     else:
-        parts = (full_matmul(w2, torch.cat(bh, dim=-2)).split(n2, dim=-2)
-                 + full_matmul(w2, torch.cat(bz, dim=-2)).split(n2, dim=-2))
+        parts = (matmul_tier(w2, torch.cat(bh, dim=-2), tier).split(n2, dim=-2)
+                 + matmul_tier(w2, torch.cat(bz, dim=-2), tier).split(n2, dim=-2))
     # each (tb, rows, n2, n1) -> (tb, rows, N): x = n2 * 128 + n1
     return torch.stack([p.reshape(tb, rows, n) for p in parts], dim=1).reshape(
         tb, 2, 2, rows, n)
+
+
+def _rows_of(w2: Prepared) -> int:
+    """Rows of a prepared stage-2 table: 4 n2 (row pass) or 3 n2 (column
+    pass) when block diagonal, else 2 n2."""
+    v = w2.value
+    return (v["hi"] if isinstance(v, dict) else v).shape[0]
 
 
 def fourstep_col_reference(y: torch.Tensor, config: OceanConfig) -> torch.Tensor:
@@ -238,14 +247,16 @@ def fourstep_col_reference(y: torch.Tensor, config: OceanConfig) -> torch.Tensor
     With m = n2 m1 + m2 and y = n1 + 128 n2: stage 1 over m1 against W1cat
     (the (-1)^y sign and the Q2 flip folded in), the twiddle T[n1, m2],
     stage 2 over m2: height through W2top, Z through W2cat (or both through
-    diag(W2top, W2cat))."""
+    diag(W2top, W2cat)); each product at the tier, as in
+    :func:`fourstep_row_reference`."""
     tb, _, _, n, c = y.shape
     n1, n2, _, _ = fourstep_plan(n, config)
-    _, (w1, w2, w2top, ttr, tti) = _device_tables(n, config.compat.ref_sign, y.device)
+    tier = kernel_tier(config.matmul_precision)
+    _, (w1, w2, w2top, ttr, tti) = _device_tables(n, config.compat.ref_sign, y.device, tier)
 
     def stages(yr, yi):
-        a = full_matmul(w1, torch.cat([yr.reshape(tb, n1, n2 * c),
-                                       yi.reshape(tb, n1, n2 * c)], dim=1))
+        a = matmul_tier(w1, torch.cat([yr.reshape(tb, n1, n2 * c),
+                                       yi.reshape(tb, n1, n2 * c)], dim=1), tier)
         ar = a[:, :n1].reshape(tb, n1, n2, c)
         ai = a[:, n1:].reshape(tb, n1, n2, c)
         br = ar * ttr[..., None] - ai * tti[..., None]
@@ -255,11 +266,12 @@ def fourstep_col_reference(y: torch.Tensor, config: OceanConfig) -> torch.Tensor
 
     bh = stages(y[:, 0, 0], y[:, 0, 1])
     bz = stages(y[:, 1, 0], y[:, 1, 1])
-    if w2.shape[0] == 3 * n2:
-        h_out, x_out, z_out = full_matmul(w2, torch.cat([*bh, *bz], dim=1)).split(n2, dim=1)
+    if _rows_of(w2) == 3 * n2:
+        h_out, x_out, z_out = matmul_tier(w2, torch.cat([*bh, *bz], dim=1),
+                                          tier).split(n2, dim=1)
     else:
-        h_out = full_matmul(w2top, torch.cat(bh, dim=1))
-        x_out, z_out = full_matmul(w2, torch.cat(bz, dim=1)).split(n2, dim=1)
+        h_out = matmul_tier(w2top, torch.cat(bh, dim=1), tier)
+        x_out, z_out = matmul_tier(w2, torch.cat(bz, dim=1), tier).split(n2, dim=1)
     # each (tb, n2, n1 * C) -> (tb, N, C): y = n2 * 128 + n1
     return torch.stack([x_out, h_out, z_out], dim=1).reshape(tb, 3, n, c)
 
@@ -298,6 +310,28 @@ def _raise_on_error(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed to launch: CUDA error {err} ({msg})")
 
 
+def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
+    return None if x is None else x.data_ptr()
+
+
+def _tier_inputs(n: int, config: OceanConfig, dev: torch.device, side: str) -> tuple:
+    """The tiered body's arguments of a K2 ("row") or K3 ("col") launch:
+    (passes, W1's fragments, W2cat's fragments, Ttr, Tti); passes 0 (the
+    FFT body, at "highest") with null tables. W1 is the 128-point table of
+    ``fourstep_tables`` (the column pass's with the Q2 flip folded in), W2cat
+    the stacked N2-point table, the twiddles ``fourstep_tables``' own."""
+    tier = kernel_tier(config.matmul_precision)
+    passes = kernel_passes(tier)
+    if not passes:
+        return (0, None, None, None, None)
+    n2 = n // 128
+    negate = side == "col" and config.compat.ref_sign
+    twiddle = ("twiddle", n2, 128, 1) if side == "row" else ("twiddle", 128, n2, 1)
+    ttr, tti = _table(twiddle, dev)
+    return (passes, table_fragments(("alt", 128, 1, 0, negate), dev, tier).data_ptr(),
+            table_fragments(("cat", n2), dev, tier).data_ptr(), ttr.data_ptr(), tti.data_ptr())
+
+
 def launch_fourstep_row(inputs: FourstepInputs, ts, config: OceanConfig,
                         row_base: int = 0, rows: Optional[int] = None,
                         windows: Optional[BandWindows] = None) -> torch.Tensor:
@@ -308,7 +342,11 @@ def launch_fourstep_row(inputs: FourstepInputs, ts, config: OceanConfig,
     kernel splits a row over a two-block cluster, and raises where the
     device cannot schedule one.
 
-    Adds one to ``launch_fourstep_row.launches`` per launch."""
+    At "highest" the FFT body runs; at the other tiers the tiered body, the
+    JAX kernel's bf16 passes on the tensor cores (``ops/fft.kernel_tier``).
+    Adds one to ``launch_fourstep_row.launches`` per launch of either body,
+    and one to ``launch_fourstep_row.tiered_launches`` per launch of the
+    tiered body."""
     from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
 
     dev = inputs.twiddle.device
@@ -329,20 +367,24 @@ def launch_fourstep_row(inputs: FourstepInputs, ts, config: OceanConfig,
     ts = as_times(ts, dev)
     tb = ts.shape[0]
     y = torch.empty((tb, 2, 2, rows, n), dtype=torch.float32, device=dev)
+    tier = _tier_inputs(n, config, dev, "row")
+    scratch = torch.empty_like(y) if tier[0] else None
     lib = kernels.load("fourstep_step")
     scalars = (tb, n, rows, row_base, _f32(np.pi / config.domain_size),
                int(config.compat.wrap_k), int(config.compat.conj_neg), y.data_ptr(),
-               ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+               *tier, _ptr(scratch), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     state = inputs if windows is None else windows
     err = (lib.fourstep_row if windows is None else lib.fourstep_row_windows)(
         state.h0.data_ptr(), state.omega.data_ptr(), inputs.twiddle.data_ptr(), ts.data_ptr(),
         *scalars)
     _raise_on_error(lib, err, "K2 (fourstep_row)")
     launch_fourstep_row.launches += 1
+    launch_fourstep_row.tiered_launches += int(tier[0] > 0)
     return y
 
 
 launch_fourstep_row.launches = 0
+launch_fourstep_row.tiered_launches = 0
 
 
 def launch_fourstep_col(y: torch.Tensor, twiddle: torch.Tensor, config: OceanConfig,
@@ -354,8 +396,10 @@ def launch_fourstep_col(y: torch.Tensor, twiddle: torch.Tensor, config: OceanCon
     computes normals, the Q = N / CHECKSUM_ROWS sums of the normals' terms.
     The caller sums them over the last axis.
 
-    The kernel's first stage writes a scratch as large as Y. Adds one to
-    ``launch_fourstep_col.launches`` per launch."""
+    The kernel's first stage writes a scratch as large as Y. The body is
+    chosen by the tier as in :func:`launch_fourstep_row`. Adds one to
+    ``launch_fourstep_col.launches`` per launch of either body, and one to
+    ``launch_fourstep_col.tiered_launches`` per launch of the tiered body."""
     from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
 
     dev = y.device
@@ -375,7 +419,10 @@ def launch_fourstep_col(y: torch.Tensor, twiddle: torch.Tensor, config: OceanCon
     scratch = torch.empty_like(y)
     planes = torch.empty((tb, 3, n, c), dtype=torch.float32, device=dev)
     nscale = normals_scale(config)
-    n_partials = (n // 128) * (c // COL_BAND) + (n // CHECKSUM_ROWS if nscale is not None else 0)
+    tier = _tier_inputs(n, config, dev, "col")
+    # stage 2's sums: one a block, (n / 128) per column band, 128 tiered
+    n_partials = ((128 if tier[0] else n // 128) * (c // COL_BAND)
+                  + (n // CHECKSUM_ROWS if nscale is not None else 0))
     partials = (torch.empty((tb, n_partials), dtype=torch.float32, device=dev)
                 if checksum else None)
     lib = kernels.load("fourstep_step")
@@ -383,14 +430,16 @@ def launch_fourstep_col(y: torch.Tensor, twiddle: torch.Tensor, config: OceanCon
         y.data_ptr(), scratch.data_ptr(), twiddle.data_ptr(), tb, n, c,
         -1.0 if config.compat.ref_sign else 1.0, planes.data_ptr(),
         None if partials is None else partials.data_ptr(), CHECKSUM_ROWS,
-        nscale if nscale is not None else 0.0, int(nscale is not None),
+        nscale if nscale is not None else 0.0, int(nscale is not None), *tier,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _raise_on_error(lib, err, "K3 (fourstep_col)")
     launch_fourstep_col.launches += 1
+    launch_fourstep_col.tiered_launches += int(tier[0] > 0)
     return planes, partials
 
 
 launch_fourstep_col.launches = 0
+launch_fourstep_col.tiered_launches = 0
 
 
 def launch_fourstep_step(inputs: FourstepInputs, ts, config: OceanConfig,

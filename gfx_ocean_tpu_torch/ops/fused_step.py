@@ -69,11 +69,13 @@ import torch
 from gfx_ocean_tpu_torch.config import OceanConfig
 from gfx_ocean_tpu_torch.ops import fourstep_step, unpacked_step
 from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, normals_scale
-from gfx_ocean_tpu_torch.ops.fft import effective_precision, full_matmul, twiddle_table
-from gfx_ocean_tpu_torch.ops.fourstep_step import FourstepInputs
+from gfx_ocean_tpu_torch.ops.fft import (_tier_table, effective_precision, kernel_passes,
+                                         kernel_tier, matmul_tier, prepare, table_fragments,
+                                         transposed, twiddle_table)
+from gfx_ocean_tpu_torch.ops.fourstep_step import FourstepInputs, _ptr
 from gfx_ocean_tpu_torch.ops.propagate import (_f32, as_times, gather_packed_planes,
                                                packed_spectra)
-from gfx_ocean_tpu_torch.ops.unpacked_step import UnpackedInputs, dft_table
+from gfx_ocean_tpu_torch.ops.unpacked_step import UnpackedInputs
 from gfx_ocean_tpu_torch.utils.device import check_current_device
 
 MAX_N = 512
@@ -142,19 +144,31 @@ def hoist_packed(h0_pair: torch.Tensor, omega: torch.Tensor,
 def packed_planes_reference(inputs: PackedInputs, ts,
                             config: OceanConfig) -> torch.Tensor:
     """Plain PyTorch K1: ts (tb,) -> (tb, 3, N, N) (disp_x, height, disp_z),
-    or (tb, C, 3, N, N) for a cascade state (broadcast over C)."""
+    or (tb, C, 3, N, N) for a cascade state (broadcast over C).
+
+    The products run at the tier of ``config.matmul_precision`` as the JAX
+    kernel runs them (``ops/fft.kernel_tier``): every product one
+    ``matmul_tier`` of bf16-rounded operands summed in FP32 (the row pass's
+    FP32 output rounded again as the column pass's operand), "highest"
+    ``full_matmul``. The four real products of each complex output are
+    separate, as in ``_packed_grid_kernel``."""
     om = inputs.omega
     pre, pre_rho, _, omq = gather_packed_planes(inputs.h0, om, config.compat.conj_neg)
     h_r, h_i, z_r, z_i = packed_spectra(
         pre, pre_rho, om, omq, as_times(ts, om.device), config.domain_size,
         config.compat.wrap_k, -0.5 if config.compat.ref_sign else 0.5)
-    ar, ai = dft_table(om.shape[-1], om.device)
-    art, ait = ar.T, ai.T
-    mm = full_matmul
-    yh_r = mm(h_r, art) - mm(h_i, ait)
-    yh_i = mm(h_r, ait) + mm(h_i, art)
-    yz_r = mm(z_r, art) - mm(z_i, ait)
-    yz_i = mm(z_r, ait) + mm(z_i, art)
+    tier = kernel_tier(config.matmul_precision)
+    ar, ai = _tier_table(("alt", om.shape[-1], 1, 0, False), om.device, tier)
+    art, ait = transposed(ar), transposed(ai)
+
+    def mm(a, b):
+        return matmul_tier(a, b, tier)
+
+    h_r, h_i, z_r, z_i = (prepare(x, tier) for x in (h_r, h_i, z_r, z_i))
+    yh_r = prepare(mm(h_r, art) - mm(h_i, ait), tier)
+    yh_i = prepare(mm(h_r, ait) + mm(h_i, art), tier)
+    yz_r = prepare(mm(z_r, art) - mm(z_i, ait), tier)
+    yz_i = prepare(mm(z_r, ait) + mm(z_i, art), tier)
     height = mm(ar, yh_r) - mm(ai, yh_i)
     disp_x = mm(ar, yz_r) - mm(ai, yz_i)
     disp_z = mm(ar, yz_i) + mm(ai, yz_r)
@@ -172,20 +186,19 @@ def packed_checksums_reference(inputs: PackedInputs, ts,
 # The CUDA kernels.
 # --------------------------------------------------------------------------
 
-def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
-    return None if x is None else x.data_ptr()
-
-
 def launch_packed_step(inputs: PackedInputs, ts: torch.Tensor, config: OceanConfig,
                        checksum: bool):
     """Launch the K1 kernels on the current stream: one launch for every
-    cascade of a (C, 2, N, N) state (grid axis z).
+    cascade of a (C, 2, N, N) state (grid axis z). At "highest" the FFT
+    body runs; at the other tiers the tiered body, the JAX kernel's bf16
+    passes on the tensor cores (``ops/fft.kernel_tier``).
 
     Returns ``(planes, partials)``: planes (tb, 3, N, N) and, when
     ``checksum``, the per-block checksum partials (tb, N / CHECKSUM_ROWS),
     else None; for a cascade state (C, tb, 3, N, N) and (C, tb,
     N / CHECKSUM_ROWS), cascade-major as the kernels write them. Adds one to
-    ``launch_packed_step.launches`` per launch.
+    ``launch_packed_step.launches`` per launch of either body, and one to
+    ``launch_packed_step.tiered_launches`` per launch of the tiered body.
     """
     from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
 
@@ -218,22 +231,27 @@ def launch_packed_step(inputs: PackedInputs, ts: torch.Tensor, config: OceanConf
     partials = (torch.empty(lead + (tb, n // CHECKSUM_ROWS), dtype=torch.float32, device=dev)
                 if checksum else None)
     nscale = normals_scale(config)
+    tier = kernel_tier(config.matmul_precision)
+    passes = kernel_passes(tier)
+    frag = table_fragments(("alt", n, 1, 0, False), dev, tier) if passes else None
     lib = kernels.load("packed_step")
     err = lib.packed_step(
         _ptr(inputs.h0), _ptr(inputs.omega), _ptr(inputs.twiddle), _ptr(ts), tb, cascades, n,
         _f32(np.pi / config.domain_size), int(config.compat.wrap_k),
         int(config.compat.conj_neg), -0.5 if config.compat.ref_sign else 0.5,
         _ptr(y), _ptr(planes), _ptr(partials), CHECKSUM_ROWS,
-        nscale if nscale is not None else 0.0, int(nscale is not None),
+        nscale if nscale is not None else 0.0, int(nscale is not None), passes, _ptr(frag),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         msg = lib.packed_step_error_string(err).decode()
         raise RuntimeError(f"packed_step kernels failed to launch: CUDA error {err} ({msg})")
     launch_packed_step.launches += 1
+    launch_packed_step.tiered_launches += int(passes > 0)
     return planes, partials
 
 
 launch_packed_step.launches = 0
+launch_packed_step.tiered_launches = 0
 
 
 def packed_planes(inputs: FusedInputs, ts, config: OceanConfig) -> torch.Tensor:

@@ -86,11 +86,11 @@ def unpacked_route(config: OceanConfig, n: int) -> str:
 
 
 def check_supported(config: OceanConfig, n: int) -> str:
-    """Raise for grids the unpacked step does not cover; return the tier.
-    Every tier runs as FP32, as on K1."""
+    """Raise for grids the unpacked step does not cover; return the tier:
+    every tier runs as FP32 (ROADMAP.md D3)."""
     if n > MAX_N:
         raise ValueError(f"the unpacked step takes N <= {MAX_N}, got {n}")
-    return effective_precision(config.matmul_precision, n, impl="pallas")
+    return effective_precision(config.matmul_precision, n, impl="pallas", hermitian_pack=False)
 
 
 def hoist_unpacked(h0_pair: torch.Tensor, omega: torch.Tensor,

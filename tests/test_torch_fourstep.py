@@ -12,8 +12,11 @@ here is Y and the planes in true order.
 Tolerances, relative to the field's max |value|:
 - "highest": float32 transforms of the same spectra summed in different
   orders (measured ~2e-7 at 1024^2), held to 1e-6;
-- "high": the JAX kernels run an in-kernel bf16x3 split, which is inexact
-  (``tests/test_torch_fused_step.py``); the port stays FP32. Held to 5e-5.
+- "high": both sides run the in-kernel bf16x3 split and differ in the
+  order of the FP32 sums, which each of the three stage outputs split again
+  (K2's stage 1, Y, K3's stage 1) now and then turns into a bf16 ulp of its
+  lo (measured 8.9e-6 at 1024^2; tests/test_torch_tier_kernels.py). Held to
+  2.4e-5, and to 2e-5 against golden (the split tier's own error).
 Checksums nearly cancel, so they are held on the scale of their summands.
 """
 
@@ -38,7 +41,10 @@ from gfx_ocean_tpu_torch.ops.derived import finite_difference_normals_planes
 from gfx_ocean_tpu_torch.ops.propagate import khat_pair
 from gfx_ocean_tpu_torch.spectra.phillips import dispersion, phillips_spectrum
 
-TOL = {"highest": 1e-6, "high": 5e-5}
+TOL = {"highest": 1e-6, "high": 2.4e-5}
+# Against the float64 golden: FP32 at "highest", the split tier's own error
+# at "high" (tests/test_torch_precision.py's SPLIT_GOLDEN).
+GOLDEN = {"highest": 1e-6, "high": 2e-5}
 CHECKSUM_TOL = 1e-6
 FLAGS = {"default": {}, "canonical": dict(ref_sign=False), "wrap_k": dict(wrap_k=True)}
 
@@ -203,7 +209,7 @@ def test_fused_matches_pallas_and_golden(n, precision):
     assert got.shape == (3, n, n) and got.dtype == torch.float32
     assert _rel(got.numpy(), want) < TOL[precision]
     gold = golden_fields(h0[0] + 1j * h0[1], om, ts[0], 1000.0, jc.compat)
-    assert _rel(np.moveaxis(got.numpy(), 0, -1), gold) < 1e-6
+    assert _rel(np.moveaxis(got.numpy(), 0, -1), gold) < GOLDEN[precision]
 
     want_ck = np.asarray(ps.pallas_checksums(jnp.asarray(h0), jnp.asarray(om),
                                              jnp.asarray(ts, jnp.float32), jc, interpret=True))
@@ -255,7 +261,7 @@ def test_unpacked_pallas_config_runs_fourstep_as_jax_does():
     n = 1024
     h0, om = _state(n, 5)
     jc, tc = _configs(n, hermitian_pack=False)
-    assert fused_step.check_supported(tc, n).startswith("fp32")
+    assert fused_step.check_supported(tc, n) == "highest"
     want = _pallas_planes(h0, om, 2.0, jc)
     inputs = fused_step.hoist_packed(torch.from_numpy(h0), torch.from_numpy(om), tc)
     assert isinstance(inputs, fs.FourstepInputs)

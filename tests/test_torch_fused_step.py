@@ -8,9 +8,13 @@ runs its plain version, which is what its wrapper takes for CPU tensors.
 Tolerances, relative to the field's max |value|:
 - "highest": both sides are float32-grade transforms of the same packed
   spectra, summed in different orders; measured ~2.5e-7, held to 1e-6.
-- "bf16x3": the JAX kernel splits each operand into bf16 halves and drops
-  the lo*lo term (``pallas_step._dot3``), ~5e-6 against the float64
-  golden; the port stays FP32. Held to 5e-5, inside the 1e-4 golden gate.
+- "bf16x3": both sides split each operand into bf16 halves and drop the
+  lo*lo term (``pallas_step._dot3``), ~5e-6 against the float64 golden;
+  they differ in the order of the FP32 sums, which the row pass's output,
+  split again for the column pass, turns now and then into a bf16 ulp of
+  its lo (measured 4.3e-6 at 64^2; tests/test_torch_tier_kernels.py). Held
+  to 8e-6, and to 2e-5 against golden (the split tier's own error: the JAX
+  figure 8e-6 of the shipped bins, up to 9.3e-6 on such spectra).
 Checksums nearly cancel, so they are compared on the scale of their
 summands (sum of |planes| and |normals|), as ``tests/test_pallas.py`` does.
 """
@@ -30,7 +34,10 @@ from gfx_ocean_tpu_torch.ops import fused_step, unpacked_step
 from gfx_ocean_tpu_torch.ops.derived import finite_difference_normals_planes
 from gfx_ocean_tpu_torch.spectra.phillips import dispersion, phillips_spectrum
 
-TOL = {"highest": 1e-6, "bf16x3": 5e-5}
+TOL = {"highest": 1e-6, "bf16x3": 8e-6}
+# Against the float64 golden: FP32 at "highest", the split tier's own error
+# at "bf16x3" (tests/test_torch_precision.py's SPLIT_GOLDEN).
+GOLDEN = {"highest": 1e-6, "bf16x3": 2e-5}
 CHECKSUM_TOL = 1e-6
 FLAGS = [dict(), dict(ref_sign=False), dict(wrap_k=True)]
 FLAG_IDS = ["default", "canonical", "wrap_k"]
@@ -67,7 +74,7 @@ def test_plain_k1_matches_pallas_kernel(n, precision, flags):
     assert got.shape == (3, n, n) and got.dtype == torch.float32
     assert _rel(got.numpy(), want) < TOL[precision]
     gold = golden_fields(h0[0] + 1j * h0[1], om, t, 1000.0, jc.compat)
-    assert _rel(np.moveaxis(got.numpy(), 0, -1), gold) < 1e-6
+    assert _rel(np.moveaxis(got.numpy(), 0, -1), gold) < GOLDEN[precision]
 
 
 def test_fused_fields_is_channel_last():
@@ -136,9 +143,9 @@ def test_unsupported_configurations_raise():
     with pytest.raises(ValueError, match=r"\[1024, 16384\]"):
         fused_step.check_supported(T.OceanConfig(resolution=32768, fft_impl="pallas"), 32768)
     assert fused_step.check_supported(
-        T.OceanConfig(resolution=16384, fft_impl="pallas"), 16384).startswith("fp32")
+        T.OceanConfig(resolution=16384, fft_impl="pallas"), 16384) == "bf16x3"
     # hermitian_pack=False at N <= 512 runs the unpacked step (K4-K6): its
-    # hoisted inputs, routes and plane shapes; every tier runs as FP32.
+    # hoisted inputs, routes and plane shapes; every tier runs as FP32 (D3).
     unpacked = T.OceanConfig(resolution=64, fft_impl="pallas", hermitian_pack=False)
     assert fused_step.check_supported(unpacked, 64).startswith("fp32")
     h0, om = _state(64, 6)
@@ -152,18 +159,19 @@ def test_unsupported_configurations_raise():
     assert unpacked_step.unpacked_route(
         T.OceanConfig(resolution=512, fft_impl="pallas", hermitian_pack=False,
                       matmul_precision="highest"), 512) == "blocked"
-    # "default" runs too, as FP32 in the kernels (contract difference D3)
+    # "default" runs too: as FP32 in the unpacked kernels (contract
+    # difference D3), as one bf16 pass in the packed ones
     assert fused_step.check_supported(
         T.OceanConfig(resolution=64, fft_impl="pallas", hermitian_pack=False,
                       matmul_precision="default"), 64).startswith("fp32")
     assert fused_step.check_supported(
         T.OceanConfig(resolution=64, fft_impl="pallas", matmul_precision="default"),
-        64).startswith("fp32")
+        64) == "default"
     with pytest.raises(ValueError, match="unknown matmul precision"):
         fused_step.check_supported(
             T.OceanConfig(resolution=64, fft_impl="pallas", matmul_precision="fp8"), 64)
     assert fused_step.check_supported(T.OceanConfig(resolution=512, fft_impl="pallas"),
-                                      512).startswith("fp32")
+                                      512) == "bf16x3"
     # a (C, 2, N, N) cascade stack is hoisted (tests/test_torch_cascades.py);
     # more leading axes, or an omega that does not match h0, raise
     with pytest.raises(ValueError, match="cascade stack"):

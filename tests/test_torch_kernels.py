@@ -34,9 +34,22 @@ from gfx_ocean_tpu_torch.render.camera import Camera
 from gfx_ocean_tpu_torch.spectra.phillips import dispersion, synthesize
 
 REPO = Path(__file__).resolve().parent.parent
-# Kernel vs plain, |diff| / max |field|: both FP32, FFT against dense matmul,
-# so they differ by summation order only (a few float32 ulps of the scale).
+# Kernel vs plain, |diff| / max |field|: at "highest" both FP32, FFT against
+# dense matmul, so they differ by summation order only (a few float32 ulps
+# of the scale); at the split tiers both take the same bf16 products and
+# differ in the FP32 sums' order too.
 TOL_PLANES = 1e-5
+# Kernel against plain at the tiered bodies, by tier. Both take the same
+# bf16 products and differ in the order of the FP32 sums; where a stage's
+# FP32 output is split again as the next stage's operand (K1's row pass,
+# K2's and K3's stage 1, K2's Y into K3), a one-ulp difference now and then
+# moves the operand by a bf16 ulp: of its lo at the split (measured up to
+# 8.1e-6 of the field through K2 + K3's three re-splits on an H100), of the
+# operand itself at "default" (2^-8 of it; measured up to 1.8e-3).
+TOL_BODY = {"highest": TOL_PLANES, "bf16x3": 2.5e-5, "default": 4e-3}
+# The tiers of the packed kernels' two bodies: the FFT body ("highest") and
+# the tiered body at the split and at one bf16 pass.
+BODIES = ["highest", "bf16x3", "default"]
 # Checksums, |diff| / sum of |summands| (a frame's checksum nearly cancels).
 TOL_CHECKSUM = 1e-5
 
@@ -49,10 +62,10 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _inputs(n: int, flags: CompatFlags, device) -> tuple:
+def _inputs(n: int, flags: CompatFlags, device, precision: str = "bf16x3") -> tuple:
     noise = np.random.default_rng(n).standard_normal((2, n, n)).astype(np.float32)
     h0, omega = synthesize(n, 1000.0, PhillipsConfig(), noise=torch.from_numpy(noise))
-    cfg = OceanConfig(resolution=n, fft_impl="pallas", compat=flags)
+    cfg = OceanConfig(resolution=n, fft_impl="pallas", compat=flags, matmul_precision=precision)
     return cfg, fused_step.hoist_packed(h0.to(device), omega.to(device), cfg)
 
 
@@ -61,19 +74,21 @@ FLAGS = [CompatFlags(), CompatFlags(wrap_k=True), CompatFlags(ref_sign=False),
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", BODIES)
 @pytest.mark.parametrize("n", [16, 32, 64, 128, 256, 512])
 @pytest.mark.parametrize("flags", FLAGS, ids=["default", "wrap_k", "canonical_sign", "conj_neg"])
-def test_packed_step_kernel_matches_plain(cuda, n, flags):
-    """t = 1000 s checks the kernel's Dekker phase: a split that nvcc had
-    contracted into FMAs would be off by ~|w t| 2^-24 ~ 3e-4 rad there,
-    30x the field tolerance."""
-    cfg, inputs = _inputs(n, flags, cuda)
+def test_packed_step_kernel_matches_plain(cuda, n, flags, precision):
+    """Both bodies of K1 against the plain version at their tier. t = 1000 s
+    checks the kernel's Dekker phase: a split that nvcc had contracted into
+    FMAs would be off by ~|w t| 2^-24 ~ 3e-4 rad there, 30x the field
+    tolerance."""
+    cfg, inputs = _inputs(n, flags, cuda, precision)
     ts = torch.tensor([0.0, 3.25, 11.25, 1000.0], device=cuda)
     got = fused_step.packed_planes(inputs, ts, cfg)
     want = fused_step.packed_planes_reference(inputs, ts, cfg)
     assert got.shape == (4, 3, n, n) and torch.isfinite(got).all()
     rel = float((got - want).abs().max() / want.abs().max())
-    assert rel < TOL_PLANES, rel
+    assert rel < TOL_BODY[precision], rel
 
     got_ck = fused_step.packed_checksums(inputs, ts, cfg)
     want_ck = fused_step.checksums_of_planes(want, cfg)
@@ -83,8 +98,9 @@ def test_packed_step_kernel_matches_plain(cuda, n, flags):
 
 
 @pytest.mark.cuda
-def test_packed_step_frames_identical_for_every_time_batch(cuda):
-    cfg, inputs = _inputs(512, CompatFlags(), cuda)
+@pytest.mark.parametrize("precision", BODIES)
+def test_packed_step_frames_identical_for_every_time_batch(cuda, precision):
+    cfg, inputs = _inputs(512, CompatFlags(), cuda, precision)
     ts = torch.arange(6, dtype=torch.float32, device=cuda) * 0.7 + 1.0
     batch = fused_step.packed_planes(inputs, ts, cfg)
     for j in range(6):
@@ -140,12 +156,13 @@ def _cascade_inputs(n: int, cascades: int, device, **cfg_kw) -> tuple:
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", BODIES)
 @pytest.mark.parametrize("n", [16, 64, 512])
-def test_packed_step_cascade_axis(cuda, n):
+def test_packed_step_cascade_axis(cuda, n, precision):
     """K1 on C cascades in one launch (grid axis z): against the plain
     version, and bit-equal to C single-cascade launches; the checksums sum
     the cascades."""
-    cfg, h0, omega, inputs = _cascade_inputs(n, 3, cuda)
+    cfg, h0, omega, inputs = _cascade_inputs(n, 3, cuda, matmul_precision=precision)
     assert isinstance(inputs, fused_step.PackedInputs) and inputs.h0.shape == (3, 2, n, n)
     ts = torch.tensor([0.0, 3.25, 11.25, 1000.0], device=cuda)
     before = fused_step.launch_packed_step.launches
@@ -153,7 +170,7 @@ def test_packed_step_cascade_axis(cuda, n):
     assert fused_step.launch_packed_step.launches == before + 1
     assert got.shape == (4, 3, 3, n, n) and torch.isfinite(got).all()
     want = fused_step.packed_planes_reference(inputs, ts, cfg)
-    assert _rel(got, want) < TOL_PLANES
+    assert _rel(got, want) < TOL_BODY[precision]
     for c in range(3):
         one = fused_step.hoist_packed(h0[c], omega[c], cfg)
         assert torch.equal(got[:, c], fused_step.packed_planes(one, ts, cfg))
@@ -199,9 +216,9 @@ def _state(n: int):
     return synthesize(n, 1000.0, PhillipsConfig(), noise=torch.from_numpy(noise))
 
 
-def _fourstep_inputs(n: int, flags: CompatFlags, device) -> tuple:
+def _fourstep_inputs(n: int, flags: CompatFlags, device, precision: str = "bf16x3") -> tuple:
     h0, omega = _state(n)
-    cfg = OceanConfig(resolution=n, fft_impl="pallas", compat=flags)
+    cfg = OceanConfig(resolution=n, fft_impl="pallas", compat=flags, matmul_precision=precision)
     return cfg, fused_step.hoist_packed(h0.to(device), omega.to(device), cfg)
 
 
@@ -210,26 +227,28 @@ def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", BODIES)
 @pytest.mark.parametrize("n", [1024, 2048, 4096, 8192])
 @pytest.mark.parametrize("flags", FLAGS, ids=["default", "wrap_k", "canonical_sign", "conj_neg"])
-def test_fourstep_kernels_match_plain(cuda, n, flags):
-    """K2 alone (Y), K3 alone (fed the kernel's Y), both chained, and the
-    checksums, at t up to an hour."""
-    cfg, inputs = _fourstep_inputs(n, flags, cuda)
+def test_fourstep_kernels_match_plain(cuda, n, flags, precision):
+    """Both bodies of K2 alone (Y), K3 alone (fed the kernel's Y), both
+    chained, and the checksums, at t up to an hour."""
+    cfg, inputs = _fourstep_inputs(n, flags, cuda, precision)
+    tol = TOL_BODY[precision]
     assert isinstance(inputs, fs.FourstepInputs)
     ts = torch.tensor([3.25, 1000.0] if n == 8192 else [0.0, 3.25, 11.25, 1000.0], device=cuda)
     y = fs.launch_fourstep_row(inputs, ts, cfg)
     y_want = fs.fourstep_row_reference(inputs, ts, cfg)
     assert y.shape == (len(ts), 2, 2, n, n) and torch.isfinite(y).all()
-    assert _rel(y, y_want) < TOL_PLANES
+    assert _rel(y, y_want) < tol
     col_want = fs.fourstep_col_reference(y, cfg)
     col_got, _ = fs.launch_fourstep_col(y, inputs.twiddle, cfg, checksum=False)
-    assert _rel(col_got, col_want) < TOL_PLANES
+    assert _rel(col_got, col_want) < tol
 
     got = fused_step.packed_planes(inputs, ts, cfg)
     want = fs.fourstep_planes_reference(inputs, ts, cfg)
     assert got.shape == (len(ts), 3, n, n) and torch.isfinite(got).all()
-    assert _rel(got, want) < TOL_PLANES
+    assert _rel(got, want) < tol
     got_ck = fused_step.packed_checksums(inputs, ts, cfg)
     want_ck = fused_step.checksums_of_planes(want, cfg)
     summands = (want.abs().sum(dim=(-3, -2, -1))
@@ -238,25 +257,27 @@ def test_fourstep_kernels_match_plain(cuda, n, flags):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", BODIES)
 @pytest.mark.parametrize("n", [1024, 2048, 4096, 8192])
-def test_fourstep_row_band_at_row_base(cuda, n):
+def test_fourstep_row_band_at_row_base(cuda, n, precision):
     """A 16-row band at global row N/2 - 3 (its partners under the flip and
     rho lie outside it) and a 16-row band through row 0, both equal to the
     same rows of the whole pass."""
-    cfg, inputs = _fourstep_inputs(n, CompatFlags(conj_neg=True), cuda)
+    cfg, inputs = _fourstep_inputs(n, CompatFlags(conj_neg=True), cuda, precision)
     whole = fs.launch_fourstep_row(inputs, [7.5, 1000.0], cfg)
     for base in (n // 2 - 3, 0):
         got = fs.launch_fourstep_row(inputs, [7.5, 1000.0], cfg, row_base=base, rows=16)
         assert got.shape == (2, 2, 2, 16, n)
         want = fs.fourstep_row_reference(inputs, [7.5, 1000.0], cfg, row_base=base, rows=16)
-        assert _rel(got, want) < TOL_PLANES
+        assert _rel(got, want) < TOL_BODY[precision]
         assert torch.equal(got, whole[..., base:base + 16, :])
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", BODIES)
 @pytest.mark.parametrize("n", [1024, 4096])
-def test_fourstep_frames_identical_for_every_time_batch(cuda, n):
-    cfg, inputs = _fourstep_inputs(n, CompatFlags(), cuda)
+def test_fourstep_frames_identical_for_every_time_batch(cuda, n, precision):
+    cfg, inputs = _fourstep_inputs(n, CompatFlags(), cuda, precision)
     ts = torch.arange(4, dtype=torch.float32, device=cuda) * 0.7 + 1.0
     batch, partials = fs.launch_fourstep_step(inputs, ts, cfg, checksum=True)
     for j in range(4):
@@ -266,29 +287,31 @@ def test_fourstep_frames_identical_for_every_time_batch(cuda, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", BODIES)
 @pytest.mark.parametrize("n", [1024, 4096])
-def test_fourstep_col_on_a_column_band(cuda, n):
+def test_fourstep_col_on_a_column_band(cuda, n, precision):
     """K3 on C < N columns (no checksum): 96 columns, three of its 32-column
     bands, equal the same columns of the whole pass bit for bit and match
     the plain version."""
-    cfg, inputs = _fourstep_inputs(n, CompatFlags(), cuda)
+    cfg, inputs = _fourstep_inputs(n, CompatFlags(), cuda, precision)
     y = fs.launch_fourstep_row(inputs, [11.25, 1000.0], cfg)
     whole, _ = fs.launch_fourstep_col(y, inputs.twiddle, cfg, checksum=False)
     band = y[..., 160:256].contiguous()
     got, partials = fs.launch_fourstep_col(band, inputs.twiddle, cfg, checksum=False)
     assert partials is None and got.shape == (2, 3, n, 96)
     assert torch.equal(got, whole[..., 160:256])
-    assert _rel(got, fs.fourstep_col_reference(band, cfg)) < TOL_PLANES
+    assert _rel(got, fs.fourstep_col_reference(band, cfg)) < TOL_BODY[precision]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", BODIES)
 @pytest.mark.parametrize("n", [1024, 4096])
-def test_fourstep_row_windows_equal_the_whole_state(cuda, n):
+def test_fourstep_row_windows_equal_the_whole_state(cuda, n, precision):
     """K2 on a band reading its two windows of the state
     (``fourstep_row_windows``, as a row-sharded shard does) is bit-equal to
     the same rows of the whole-state launch, for the first band (row b - 1
     wraps), a middle one and the last; its plain version matches."""
-    cfg, inputs = _fourstep_inputs(n, CompatFlags(conj_neg=True), cuda)
+    cfg, inputs = _fourstep_inputs(n, CompatFlags(conj_neg=True), cuda, precision)
     whole = fs.launch_fourstep_row(inputs, [7.5, 1000.0], cfg)
     band_inputs = fs.FourstepInputs(None, None, inputs.twiddle)
     rows = n // 8
@@ -297,7 +320,7 @@ def test_fourstep_row_windows_equal_the_whole_state(cuda, n):
         got = fs.launch_fourstep_row(band_inputs, [7.5, 1000.0], cfg, base, rows, windows)
         assert torch.equal(got, whole[..., base:base + rows, :]), base
         want = fs.fourstep_row_reference(band_inputs, [7.5, 1000.0], cfg, base, rows, windows)
-        assert _rel(got, want) < TOL_PLANES
+        assert _rel(got, want) < TOL_BODY[precision]
 
 
 @pytest.mark.cuda
@@ -340,20 +363,21 @@ def test_sharded_fourstep_step_on_one_card(cuda):
     assert torch.equal(got.displacement.gather(), make_step(cfg)(state, 11.25).displacement)
 
 
-@functools.lru_cache(maxsize=None)
-def _big_inputs(device):
+@functools.lru_cache(maxsize=1)
+def _big_inputs(device, precision):
     """A 16384^2 state drawn on the card (h0 from a CUDA generator seeded
     16384, the deep-water dispersion as omega) and its K2 + K3 inputs."""
     n = 16384
     gen = torch.Generator(device=device).manual_seed(n)
     h0 = torch.randn((2, n, n), generator=gen, device=device)
     omega = torch.from_numpy(dispersion(n, 1000.0)).to(device)
-    cfg = OceanConfig(resolution=n, fft_impl="pallas")
+    cfg = OceanConfig(resolution=n, fft_impl="pallas", matmul_precision=precision)
     return cfg, fused_step.hoist_packed(h0, omega, cfg)
 
 
 @pytest.mark.cuda
-def test_fourstep_16384_on_row_and_column_bands(cuda):
+@pytest.mark.parametrize("precision", ["highest", "bf16x3"])
+def test_fourstep_16384_on_row_and_column_bands(cuda, precision):
     """K2 at 16384 (a row split into two 8192-point halves over a
     two-block cluster) on 16-row bands and K3 on 128-column bands of the
     whole frame, against the plain version on those bands (the plain
@@ -362,7 +386,7 @@ def test_fourstep_16384_on_row_and_column_bands(cuda):
     two-frame banded launch, whose second frame (the cluster's swap slot
     reused across frames) holds to the plain version too; the checksum's
     partials sum the kernel's own planes. One launch each."""
-    cfg, inputs = _big_inputs(cuda)
+    cfg, inputs = _big_inputs(cuda, precision)
     n = cfg.resolution
     ts = [11.25]
     rows, cols = fs.launch_fourstep_row.launches, fs.launch_fourstep_col.launches
@@ -373,16 +397,16 @@ def test_fourstep_16384_on_row_and_column_bands(cuda):
     assert y.shape == (1, 2, 2, n, n) and planes.shape == (1, 3, n, n)
     for base in (n // 2 - 3, n - 16):
         want = fs.fourstep_row_reference(inputs, ts, cfg, row_base=base, rows=16)
-        assert _rel(y[..., base:base + 16, :], want) < TOL_PLANES
+        assert _rel(y[..., base:base + 16, :], want) < TOL_BODY[precision]
         band = fs.launch_fourstep_row(inputs, ts, cfg, row_base=base, rows=16)
         assert torch.equal(band, y[..., base:base + 16, :])
         two = fs.launch_fourstep_row(inputs, ts + [3.5], cfg, row_base=base, rows=16)
         assert torch.equal(two[:1], band)
         want = fs.fourstep_row_reference(inputs, [3.5], cfg, row_base=base, rows=16)
-        assert _rel(two[1:], want) < TOL_PLANES
+        assert _rel(two[1:], want) < TOL_BODY[precision]
     for c0 in (4096 + 32, n - 128):
         want = fs.fourstep_col_reference(y[..., c0:c0 + 128].contiguous(), cfg)
-        assert _rel(planes[..., c0:c0 + 128], want) < TOL_PLANES
+        assert _rel(planes[..., c0:c0 + 128], want) < TOL_BODY[precision]
     # the split kernel on a band's two windows (a row-sharded shard)
     base = 3 * (n // 4)
     windows = band_windows(inputs.h0, inputs.omega, base, 16)
@@ -395,21 +419,41 @@ def test_fourstep_16384_on_row_and_column_bands(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", BODIES)
 @pytest.mark.parametrize("normals", [True, False], ids=["normals", "no-normals"])
-def test_fourstep_checksum_partials(cuda, normals):
-    """K3's partials: one a block of its second stage (the planes' sums),
-    then one a block of the normals' pass when the config computes normals."""
+def test_fourstep_checksum_partials(cuda, normals, precision):
+    """K3's partials: one a block of its second stage (the planes' sums:
+    N / 128 blocks a 32-column band for the FFT body, 128 for the tiered
+    body), then one a block of the normals' pass when the config computes
+    normals."""
     n = 1024
-    cfg, inputs = _fourstep_inputs(n, CompatFlags(), cuda)
+    cfg, inputs = _fourstep_inputs(n, CompatFlags(), cuda, precision)
     cfg = dataclasses.replace(cfg, compute_normals=normals)
     ts = torch.tensor([3.25, 1000.0], device=cuda)
     planes, partials = fs.launch_fourstep_step(inputs, ts, cfg, checksum=True)
-    stage2 = (n // 128) * (n // fs.COL_BAND)
+    stage2 = (n // 128 if precision == "highest" else 128) * (n // fs.COL_BAND)
     assert partials.shape == (2, stage2 + (n // fs.CHECKSUM_ROWS if normals else 0))
     summands = planes.abs().sum(dim=(-3, -2, -1))
     assert float(((partials[:, :stage2].sum(-1) - planes.sum(dim=(-3, -2, -1))).abs()
                   / summands).max()) < TOL_CHECKSUM
     assert _checksum_rel(partials.sum(-1), planes, cfg) < TOL_CHECKSUM
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [512, 1024])
+def test_split_tiers_run_one_body(cuda, n):
+    """"high" and "bf16x4" run the tiered body of "bf16x3", as the JAX
+    kernels run them (pallas_step._make_dot): bit-equal planes through K1
+    (512) and K2 + K3 (1024), one launch a call each."""
+    ts = torch.tensor([0.5, 11.25], device=cuda)
+    runs = {}
+    for precision in ("bf16x3", "high", "bf16x4"):
+        cfg, inputs = _fourstep_inputs(n, CompatFlags(), cuda, precision)
+        runs[precision] = fused_step.packed_planes(inputs, ts, cfg)
+    assert torch.equal(runs["high"], runs["bf16x3"])
+    assert torch.equal(runs["bf16x4"], runs["bf16x3"])
+    cfg, inputs = _fourstep_inputs(n, CompatFlags(), cuda, "highest")
+    assert not torch.equal(fused_step.packed_planes(inputs, ts, cfg), runs["bf16x3"])
 
 
 @pytest.mark.cuda

@@ -33,6 +33,12 @@ TOL = {"highest": 1e-6, "bf16x3": 5e-5}
 NORMALS_TOL = {"highest": 1e-5, "bf16x3": 1e-4}
 # Checksums nearly cancel; held on the scale of the summands.
 CHECKSUM_TOL = 1e-6
+# Against the float64 golden, by the height's tier: float32 sums at
+# "highest"; at "bf16x3" the split tier's own error (the JAX figure 8e-6 of
+# the shipped bins; the JAX function with the MXU's rounding reads up to
+# 9.3e-6 on such spectra, tests/test_torch_precision.py), which K1 and its
+# plain version compute since the packed kernels run the JAX kernel's tiers.
+GOLDEN = {"highest": 1e-6, "bf16x3": 2e-5}
 
 
 @pytest.fixture
@@ -104,11 +110,12 @@ def test_make_step_matches_jax_and_golden(route, interpret_pallas):
     gold = golden_fields(np.asarray(jst.h0[0]) + 1j * np.asarray(jst.h0[1]),
                          np.asarray(jst.omega), t, 1000.0, jc.compat)
     gscale = np.abs(gold).max()
-    assert np.abs(disp[..., 1] - gold[..., 1]).max() / gscale < 1e-6
+    assert np.abs(disp[..., 1] - gold[..., 1]).max() / gscale < GOLDEN[jc.matmul_precision]
     # "high"'s ceiling against golden (the JAX package's figure, config.py)
     assert (np.abs(disp[..., ::2] - gold[..., ::2]).max() / gscale
-            < (2.8e-5 if tc.choppy_precision else 1e-6))
-    assert np.abs(got.normals.numpy() - golden_normals(gold[..., 1])).max() < NORMALS_TOL["highest"]
+            < (2.8e-5 if tc.choppy_precision else GOLDEN[jc.matmul_precision]))
+    assert (np.abs(got.normals.numpy() - golden_normals(gold[..., 1])).max()
+            < NORMALS_TOL[jc.matmul_precision])
 
 
 @pytest.mark.parametrize("time_batch", [1, 2])
@@ -203,17 +210,22 @@ def test_foam_and_its_checksum_match_jax(fft_impl, time_batch, interpret_pallas)
 
 
 UNPORTED = [
-    # the "default" tier runs on every route: on "pallas" (K1, K4, K2 + K3)
-    # as FP32 in the kernels (contract difference D3), on "xla" as torch.fft,
-    # which takes no tier; either way as the "bf16x3" configuration does
+    # the "default" tier runs on every route: on the unpacked "pallas" route
+    # (K4-K6) as FP32 in the kernels (contract difference D3) and on "xla" as
+    # torch.fft, which takes no tier, both as the "bf16x3" configuration
+    # does; on the packed "pallas" route (K1, K2 + K3) as one bf16 pass, as
+    # the JAX kernels run it, within the tier's bound of "bf16x3"
     (dict(fft_impl="pallas", hermitian_pack=False, matmul_precision="default"), N, "fp32"),
-    (dict(fft_impl="pallas", resolution=1024, matmul_precision="default"), 1024, "fp32"),
+    (dict(fft_impl="pallas", resolution=1024, matmul_precision="default"), 1024, "default"),
     (dict(fft_impl="xla", matmul_precision="default"), N, "n/a"),
     (dict(fft_impl="xla", compute_foam=True, num_cascades=2, matmul_precision="default"),
      N, "n/a"),
-    (dict(fft_impl="pallas", num_cascades=2, matmul_precision="default"), N, "fp32"),
-    (dict(fft_impl="pallas", matmul_precision="default"), N, "fp32"),
+    (dict(fft_impl="pallas", num_cascades=2, matmul_precision="default"), N, "default"),
+    (dict(fft_impl="pallas", matmul_precision="default"), N, "default"),
 ]
+# One bf16 pass against the split, relative to the field's largest value:
+# the "default" tier's bound (tests/test_torch_precision.py, DEFAULT_GOLDEN).
+DEFAULT_TIER_TOL = 1e-2
 
 
 @pytest.mark.parametrize("kwargs,n,match", UNPORTED,
@@ -225,13 +237,20 @@ def test_unported_configurations_raise(kwargs, n, match):
     cfg = T.OceanConfig(**kwargs)
     same = T.OceanConfig(**{**kwargs, "matmul_precision": "bf16x3"})
     assert effective_precision(cfg.matmul_precision, n, cfg.direct_dft_max,
-                               cfg.fft_impl).startswith(match)
+                               cfg.fft_impl, cfg.hermitian_pack).startswith(match)
     _, st = _states(n, seed=4)
     got, want = T.step(st, 1.0, cfg), T.step(st, 1.0, same)
     assert torch.isfinite(got.displacement).all()
-    assert torch.equal(got.displacement, want.displacement)
-    assert torch.equal(T.make_rollout(cfg, keep_fields=False)(st, [1.0]),
-                       T.make_rollout(same, keep_fields=False)(st, [1.0]))
+    rollouts = (T.make_rollout(cfg, keep_fields=False)(st, [1.0]),
+                T.make_rollout(same, keep_fields=False)(st, [1.0]))
+    if match == "default":
+        scale = want.displacement.abs().max()
+        assert 0 < float((got.displacement - want.displacement).abs().max() / scale) < \
+            DEFAULT_TIER_TOL
+        assert torch.isfinite(rollouts[0]).all()
+    else:
+        assert torch.equal(got.displacement, want.displacement)
+        assert torch.equal(*rollouts)
 
 
 def test_batched_state_raises():
