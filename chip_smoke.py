@@ -28,8 +28,10 @@ than the grid and the native bincode loader; then multi-device runs
   through kernels K1, K7 and K8.
 - The unpacked 512^2 step, the accuracy tier (``OceanConfig(fft_impl=
   "pallas", hermitian_pack=False)``) on phase 3's state: through kernel K4
-  at ``matmul_precision="bf16x3"`` and through K5 + K6 at "highest",
-  600-frame checksum rollouts at time_batch 6.
+  (its tiered body K4t at ``matmul_precision="bf16x3"`` and "default",
+  phase 52; its FFT body at "highest", alone at 512^2 and on the route at
+  256^2) and through K5 + K6 at "highest", 600-frame checksum rollouts at
+  time_batch 6.
 - The 16384^2 four-step step, the four-step plan's largest grid
   (``OceanConfig(resolution=16384, fft_impl="pallas")``), through K2 (a
   row split in registers into two 8192-point halves, one a block of a
@@ -94,12 +96,14 @@ Phases, one line each:
     conj_neg;
 19. unpacked_golden: 512^2 at t = 11.25 through K4 and through K5 + K6
     against the golden model (rel and abs L-inf);
-20. unpacked_time_one_call: a 6-frame call of K4, K5, K6, of the checksums
-    through K4 and their plain versions, and torch.fft of the same three
+20. unpacked_time_one_call: a 6-frame call of K4 (its FFT body, at
+    "highest"), K5, K6, of the checksums through K4 and their plain versions, and torch.fft of the same three
     spectra (CUDA events); the kernels' own device time (``k4_device_ms``,
     ``k5_device_ms``, ``k6_device_ms``, torch.profiler);
 21. unpacked_rollout: make_rollout(keep_fields=False, time_batch=6) over
-    600 frames for both routes through the kernels (launch counts, finite
+    600 frames for both routes through the kernels (the single route at
+    "bf16x3", K4t; the blocked route; and K4's FFT body on the single route
+    at 256^2 "highest", K4's main path) (launch counts, finite
     checksums that agree with the plain rollout, steps/s, torch.profiler's
     device time) and through the plain version;
 22. big_state: the 16384^2 state synthesized from a torch.Generator seeded
@@ -232,11 +236,20 @@ with the counts at 0 just before it:
     23's two 16-row bands against the plain version and bit-equal to the
     frame's rows, "high" and "bf16x4" bit-equal to "bf16x3", one call's
     time beside the FFT body's and the matmul route's row passes, its
-    bound; the step through K2t + K3t on those bands against phase 24's
-    golden rows under the gate (its exact scheme would need the plain K3
-    of the whole frame).
+    bound; K3t on the whole frame's Y at "bf16x3" (ms, device ms, bound,
+    the matmul route's column passes); the step through K2t + K3t on those
+    bands against phase 24's golden rows under the gate (its exact scheme
+    would need the plain K3 of the whole frame).
+52. tier_k4 (after 51): K4t, K4's tiered body (the unpacked route,
+    ``hermitian_pack=False``, at every tier but "highest"), at 512^2 on
+    phase 3's state: a 6-frame call against its plain version with the
+    checksums, against golden beside its exact scheme, "high" and "bf16x4"
+    bit-equal to "bf16x3"; at 256^2 "highest" launching K4's FFT body and
+    "bf16x3" K4t; the 600-frame rollouts at tb 6 at "bf16x3" and "default"
+    beside "highest" (K5 + K6); the matmul route's unpacked step at the
+    tier as the library yardstick; the "bf16x3" rollout as K4t's main path.
 
-Then one JSON line with the kernels K1-K8, K2 at 16384^2 and K1t-K3t
+Then one JSON line with the kernels K1-K8, K2 at 16384^2 and K1t-K4t
 (times, bounds from this run's shapes, library yardsticks, ``device_ms``;
 K1t's entry carries config 4's cascade call, which runs K1t at
 "bf16x3", as ``cascade_*``, the tiered bodies' their "default" tier's
@@ -313,6 +326,8 @@ JAX_FRAME_MEAN_COLOR = 0.5
 # K4) and at "highest" (the blocked route, K5 + K6); the kernel-vs-plain
 # check also at the central 64^2 and 256^2 crops of that state.
 U_COMPARE = (64, 256, 512)
+# The grid of K4's FFT body's rollout: "highest" takes K4 up to 256^2.
+U_FFT_ROUTE_N = 256
 U_TIMING_CALLS = 50
 U_PLAIN_TIMING_CALLS = 10
 U_PROFILE_STEPS = 60
@@ -512,8 +527,11 @@ K2_SPLIT_KERNELS = ("fourstep_row_pass_split",)
 K7_KERNELS = ("slot_kernel",)
 K8_KERNELS = ("segmin_lookback",)
 K1T_KERNELS = ("packed_row_tier", "packed_col_tier", "checksum_partials")
-K2T_KERNELS = ("fourstep_row_tier1", "fourstep_row_tier2")
-K3T_KERNELS = ("fourstep_col_tier1", "fourstep_col_tier2", "checksum_partials")
+# K2t's stage 2 runs inside fourstep_row_tier1 at N <= 4096; fourstep_tier2
+# is the stage 2 from the scratch (K2t at N >= 8192, K3t at every N).
+K2T_KERNELS = ("fourstep_row_tier1", "fourstep_tier2")
+K3T_KERNELS = ("fourstep_col_tier1", "fourstep_tier2", "checksum_partials")
+K4T_KERNELS = ("unpacked_row_tier", "unpacked_col_tier", "checksum_partials")
 
 
 def body_kernels(tier: str, fft_names, tiered_names):
@@ -522,6 +540,13 @@ def body_kernels(tier: str, fft_names, tiered_names):
     from gfx_ocean_tpu_torch.ops.fft import kernel_tier
 
     return fft_names if kernel_tier(tier) == "highest" else tiered_names
+
+
+def k2t_kernels(n: int) -> tuple:
+    """K2t's kernels at n: stage 1 alone where it runs stage 2 in the block."""
+    from gfx_ocean_tpu_torch.ops import fourstep_step as fs
+
+    return K2T_KERNELS[:1] if fs.row_stage2_in_block(n) else K2T_KERNELS
 
 
 def kernel_device_ms(fn, names, calls: int) -> dict:
@@ -619,6 +644,7 @@ def main() -> None:
     kernels_line.append(run_tier_k1(dev) | cascades)
     kernels_line += run_tier_fourstep(dev)
     run_tier_big(dev)
+    kernels_line.append(run_tier_k4(dev))
     run_parallel(dev)
     print(json.dumps({"kernels": sorted(kernels_line, key=lambda k: k["name"])}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1313,12 +1339,14 @@ def run_unpacked(dev) -> list:
     state, _ = main_state(dev, single)
 
     # --- 18. K4, K5, K6 and K5 + K6 against the plain version -------------
+    # K4's FFT body runs at "highest" (K4t, its tiered body, is phase 52's);
+    # K4 is called alone at 512^2, where the route at "highest" is K5 + K6.
     ts_cmp = torch.tensor(T_COMPARE, dtype=torch.float32, device=dev)
     errs = {}
     for n in U_COMPARE:
         st = downsample_state(state, n)
         for flags in (ot.CompatFlags(), ot.CompatFlags(conj_neg=True)):
-            cfg = dataclasses.replace(single, resolution=n, compat=flags)
+            cfg = dataclasses.replace(blocked, resolution=n, compat=flags)
             inputs = fused_step.hoist_packed(st.h0, st.omega, cfg)
             k4_planes, k4_partials = us.launch_unpacked_step_checksums(inputs, ts_cmp, cfg)
             y = us.launch_unpacked_rows(inputs, ts_cmp, cfg)
@@ -1380,21 +1408,23 @@ def run_unpacked(dev) -> list:
                  f"relative L-inf {rel_linf:.3e} > {GOLDEN_GATE}")
 
     # --- 20. one call of K4, K5, K6 against the plain version and torch.fft -
-    inputs = fused_step.hoist_packed(state.h0, state.omega, single)
+    # K4's FFT body: the "highest" config, K4 called alone.
+    inputs = fused_step.hoist_packed(state.h0, state.omega, blocked)
     ts_tb = torch.arange(TIME_BATCH, dtype=torch.float32, device=dev) / 60.0
-    y = us.launch_unpacked_rows(inputs, ts_tb, single)
+    y = us.launch_unpacked_rows(inputs, ts_tb, blocked)
     spectra = torch.randn((TIME_BATCH, 3, N, N), dtype=torch.complex64, device=dev)
     calls, plain_calls = U_TIMING_CALLS, U_PLAIN_TIMING_CALLS
     one_call = dict(
-        k4_ms=event_ms(lambda: us.launch_unpacked_step(inputs, ts_tb, single), calls),
-        k5_ms=event_ms(lambda: us.launch_unpacked_rows(inputs, ts_tb, single), calls),
+        k4_ms=event_ms(lambda: us.launch_unpacked_step(inputs, ts_tb, blocked), calls),
+        k5_ms=event_ms(lambda: us.launch_unpacked_rows(inputs, ts_tb, blocked), calls),
         k6_ms=event_ms(lambda: us.launch_unpacked_cols(y, inputs), calls),
-        k4_checksums_ms=event_ms(lambda: us.unpacked_checksums(inputs, ts_tb, single), calls),
+        k4_checksums_ms=event_ms(
+            lambda: us.launch_unpacked_step_checksums(inputs, ts_tb, blocked)[1].sum(-1), calls),
         k4_checksums_plain_ms=event_ms(lambda: checksums_of_planes(
-            us.unpacked_planes_reference(inputs, ts_tb, single), single), plain_calls),
-        k4_plain_ms=event_ms(lambda: us.unpacked_planes_reference(inputs, ts_tb, single),
+            us.unpacked_planes_reference(inputs, ts_tb, blocked), blocked), plain_calls),
+        k4_plain_ms=event_ms(lambda: us.unpacked_planes_reference(inputs, ts_tb, blocked),
                              plain_calls),
-        k5_plain_ms=event_ms(lambda: us.unpacked_rows_reference(inputs, ts_tb, single),
+        k5_plain_ms=event_ms(lambda: us.unpacked_rows_reference(inputs, ts_tb, blocked),
                              plain_calls),
         k6_plain_ms=event_ms(lambda: us.unpacked_cols_reference(y, inputs), plain_calls),
         k4_library_ms=event_ms(lambda: torch.fft.ifft2(spectra), calls),
@@ -1406,23 +1436,44 @@ def run_unpacked(dev) -> list:
                   k5=bound(in_bytes + nbytes(y), fft_ops(N, TIME_BATCH * 3 * N)),
                   k6=bound(nbytes(y) + planes_bytes, fft_ops(N, TIME_BATCH * 3 * N)))
     device_ms = dict(
-        k4=k4_device_ms(state, single, ts_tb, calls),
-        k4_checksums=kernel_device_ms(lambda: us.unpacked_checksums(inputs, ts_tb, single),
-                                      K4_CHECKSUM_KERNELS, calls),
-        k5=kernel_device_ms(lambda: us.launch_unpacked_rows(inputs, ts_tb, single), K5_KERNELS,
+        k4=k4_device_ms(state, blocked, ts_tb, calls),
+        k4_checksums=kernel_device_ms(
+            lambda: us.launch_unpacked_step_checksums(inputs, ts_tb, blocked),
+            K4_CHECKSUM_KERNELS, calls),
+        k5=kernel_device_ms(lambda: us.launch_unpacked_rows(inputs, ts_tb, blocked), K5_KERNELS,
                             calls),
         k6=kernel_device_ms(lambda: us.launch_unpacked_cols(y, inputs), K6_KERNELS, calls))
+    # K4's FFT body at the shape its route gives it ("highest" at N <= 256,
+    # phase 21's "single_fft" rollout): its kernels entry reads these.
+    fft_n = U_FFT_ROUTE_N
+    st_fft = downsample_state(state, fft_n)
+    cfg_fft = dataclasses.replace(blocked, resolution=fft_n)
+    inputs_fft = fused_step.hoist_packed(st_fft.h0, st_fft.omega, cfg_fft)
+    spectra_fft = torch.randn((TIME_BATCH, 3, fft_n, fft_n), dtype=torch.complex64, device=dev)
+    route_n = dict(
+        k4_route_ms=event_ms(lambda: us.launch_unpacked_step(inputs_fft, ts_tb, cfg_fft), calls),
+        k4_route_plain_ms=event_ms(
+            lambda: us.unpacked_planes_reference(inputs_fft, ts_tb, cfg_fft), plain_calls),
+        k4_route_library_ms=event_ms(lambda: torch.fft.ifft2(spectra_fft), calls))
+    device_ms["k4_route"] = k4_device_ms(st_fft, cfg_fft, ts_tb, calls)
+    bounds["k4_route"] = bound(nbytes(inputs_fft.h0, inputs_fft.omega, inputs_fft.twiddle, ts_tb)
+                               + 4 * TIME_BATCH * 3 * fft_n * fft_n,
+                               fft_ops(fft_n, TIME_BATCH * 6 * fft_n))
     phase("unpacked_time_one_call", resolution=N, frames=TIME_BATCH, calls=calls,
           plain_calls=plain_calls,
           clock="cuda events; device_ms: torch.profiler, the kernels' launches only",
           k4_device_ms=device_ms["k4"], k4_checksums_device_ms=device_ms["k4_checksums"],
           k5_device_ms=device_ms["k5"], k6_device_ms=device_ms["k6"],
+          k4_route_resolution=fft_n, k4_route_device_ms=device_ms["k4_route"],
           k4_grid_blocks=kernels.load("unpacked_step").unpacked_step_grid(TIME_BATCH, N),
-          bounds=bounds, **one_call)
-    del y, spectra, inputs
+          bounds=bounds, **one_call, **route_n)
+    one_call.update(route_n)
+    del y, spectra, inputs, spectra_fft, inputs_fft
     torch.cuda.empty_cache()
 
     # --- 21. the 600-frame checksum rollouts --------------------------------
+    # "single" at "bf16x3" runs K4's tiered body K4t (phase 52 holds it);
+    # "single_fft" is the route of K4's FFT body: "highest" at N <= 256.
     counters = (fused_step.launch_packed_step, fs.launch_fourstep_row, fs.launch_fourstep_col,
                 us.launch_unpacked_step, us.launch_unpacked_rows, us.launch_unpacked_cols,
                 rr.launch_slot_kernel, rr.launch_segmin_kernel)
@@ -1430,13 +1481,22 @@ def run_unpacked(dev) -> list:
     ts = torch.arange(STEPS, dtype=torch.float32, device=dev) / 60.0
     calls_per_rollout = STEPS // TIME_BATCH
     main_launches = {}
-    for route, cfg, kernels in (("single", single, ("k4",)), ("blocked", blocked, ("k5", "k6"))):
+    fft_n = U_FFT_ROUTE_N
+    single_fft = dataclasses.replace(blocked, resolution=fft_n)
+    if us.unpacked_route(single_fft, fft_n) != "single":
+        fail(f"the unpacked {fft_n}^2 config at highest does not take the single route")
+    for route, cfg, kernels in (("single", single, ("k4",)), ("blocked", blocked, ("k5", "k6")),
+                                ("single_fft", single_fft, ("k4",))):
+        rstate = state if cfg.resolution == N else downsample_state(state, cfg.resolution)
         rollout = ot.make_rollout(cfg, keep_fields=False, time_batch=TIME_BATCH)
         for c in counters:
             c.launches = 0
-        rec = time_rollout(rollout, state, ts, repeats=REPEATS)
+        us.launch_unpacked_step.tiered_launches = 0
+        rec = time_rollout(rollout, rstate, ts, repeats=REPEATS)
         launches = {k: c.launches for k, c in zip(names, counters)}
         expected = {k: (REPEATS + 1) * calls_per_rollout if k in kernels else 0 for k in names}
+        tiered = us.launch_unpacked_step.tiered_launches
+        want_tiered = launches["k4"] if route == "single" else 0
 
         def plain_rollout(st, tt, cfg=cfg):
             pre = fused_step.hoist_packed(st.h0, st.omega, cfg)
@@ -1444,13 +1504,14 @@ def run_unpacked(dev) -> list:
                 us.unpacked_planes_reference(pre, tt[i:i + TIME_BATCH], cfg), cfg)
                 for i in range(0, tt.shape[0], TIME_BATCH)])
 
-        plain = time_rollout(plain_rollout, state, ts, repeats=REPEATS)
+        plain = time_rollout(plain_rollout, rstate, ts, repeats=REPEATS)
         cks, plain_cks = rec["checksums"], plain["checksums"]
         ck_diff = float(np.abs(cks - plain_cks).max())
-        ck_limit = TOL_CHECKSUM * errs[(N, False)]["summands_max"]
-        prof = device_profile(lambda: rollout(state, ts[:U_PROFILE_STEPS]).cpu(),
+        ck_limit = TOL_CHECKSUM * errs[(cfg.resolution, False)]["summands_max"]
+        prof = device_profile(lambda: rollout(rstate, ts[:U_PROFILE_STEPS]).cpu(),
                               U_PROFILE_STEPS)
         phase("unpacked_rollout", route=route, matmul_precision=cfg.matmul_precision,
+              resolution=cfg.resolution, k4_tiered_launches=tiered,
               steps=STEPS, time_batch=TIME_BATCH, repeats=REPEATS,
               steps_per_sec=rec["steps_per_sec"], repeats_sec=rec["repeats_sec"],
               plain_steps_per_sec=plain["steps_per_sec"], plain_repeats_sec=plain["repeats_sec"],
@@ -1459,34 +1520,41 @@ def run_unpacked(dev) -> list:
               checksums_finite=bool(np.isfinite(cks).all()),
               checksum_max_abs_diff_vs_plain=ck_diff, checksum_limit=ck_limit,
               checksum_first=float(cks[0]), checksum_last=float(cks[-1]), profile=prof)
-        if launches != expected:
-            fail(f"unpacked {route} rollout launched {launches}, expected {expected}")
+        if launches != expected or tiered != want_tiered:
+            fail(f"unpacked {route} rollout launched {launches} ({tiered} of K4t), "
+                 f"expected {expected} ({want_tiered} of K4t)")
         if cks.shape != (STEPS,) or not np.isfinite(cks).all():
             fail(f"unpacked {route} rollout checksums: shape {cks.shape}, "
                  f"finite {bool(np.isfinite(cks).all())}")
         if not (ck_diff <= ck_limit):
             fail(f"unpacked {route} rollout checksums differ from the plain version "
                  f"by {ck_diff:.3e}")
-        main_launches.update({k: launches[k] for k in kernels})
+        if route != "single":  # K4t's main path is phase 52's
+            main_launches.update({k: launches[k] for k in kernels})
 
+    # K4's FFT body runs on the main path only at U_FFT_ROUTE_N ("single_fft"):
+    # its entry reads that shape (time, error, bound); the 512^2 standalone
+    # call stays in phase 20's line.
     entries = []
-    for key, name, line in (
-            ("k4", "K4 unpacked_fused (one cooperative launch: propagate + row FFT, "
-                   "grid sync, column FFT)", 128),
-            ("k5", "K5 unpacked_row_pass (unpacked propagate + row FFT of 3 spectra)", 184),
-            ("k6", "K6 unpacked_col_pass (real-output column FFT)", 241)):
+    for key, at, name, line in (
+            ("k4", "k4_route", "K4 unpacked_fused (one cooperative launch: propagate + row "
+                               "FFT, grid sync, column FFT)", 128),
+            ("k5", "k5", "K5 unpacked_row_pass (unpacked propagate + row FFT of 3 spectra)", 184),
+            ("k6", "k6", "K6 unpacked_col_pass (real-output column FFT)", 241)):
+        n_at = U_FFT_ROUTE_N if key == "k4" else N
         entries.append({
             "name": name,
             "route": "cuda",
             "source": "gfx_ocean_tpu_torch/csrc/unpacked_step.cu",
             "replaces": f"gfx_ocean_tpu/ops/pallas_step.py:{line}",
             "launches": main_launches[key],
-            "max_abs_err": max(errs[(N, c)][key][0] for c in (False, True)),
-            "ms": one_call[f"{key}_ms"],
-            "device_ms": device_ms[key]["total"],
-            "plain_ms": one_call[f"{key}_plain_ms"],
-            **bounds[key],
-            "library_ms": one_call[f"{key}_library_ms"],
+            "resolution": n_at,
+            "max_abs_err": max(errs[(n_at, c)][key][0] for c in (False, True)),
+            "ms": one_call[f"{at}_ms"],
+            "device_ms": device_ms[at]["total"],
+            "plain_ms": one_call[f"{at}_plain_ms"],
+            **bounds[at],
+            "library_ms": one_call[f"{at}_library_ms"],
         })
     return entries
 
@@ -1906,8 +1974,8 @@ def run_cascades(dev) -> dict:
                             checksum_rel_to_summands=rel_ck, launches=route_launches)
         del rin, got, want
         torch.cuda.empty_cache()
-    # K2 + K3 run their tiered bodies at the default "bf16x3"; K4 is FP32 (D3)
-    tols = {"k2+k3": kernel_tol(cfg.matmul_precision), "k4": TOL_KERNEL}
+    # K2 + K3 and K4 run their tiered bodies at the default "bf16x3"
+    tols = {"k2+k3": kernel_tol(cfg.matmul_precision), "k4": kernel_tol(cfg.matmul_precision)}
     phase("cascade_routes", cascades=cc, routes=routes, tolerance=tols,
           checksum_tolerance=TOL_CHECKSUM)
     expected_routes = {"k2+k3": dict(k2=2 * cc, k3=2 * cc), "k4": dict(k4=2 * cc)}
@@ -2731,14 +2799,15 @@ def run_native_loader() -> None:
 
 @contextlib.contextmanager
 def exact_products():
-    """Inside the block every product of the plain K1-K3 is its tier's scheme
+    """Inside the block every product of the plain K1-K4 is its tier's scheme
     computed exactly: the passes' bf16 products (``ops/fft._PASSES``) summed
     in float64 (DGEMM on the card) and rounded once to float32, each stage's
     output then split or rounded again as the kernels do (``scheme_rel``'s
-    arithmetic, for the packed route)."""
+    arithmetic, for the kernels' routes)."""
     from gfx_ocean_tpu_torch.ops import fft as tfft
     from gfx_ocean_tpu_torch.ops import fourstep_step as fs
     from gfx_ocean_tpu_torch.ops import fused_step
+    from gfx_ocean_tpu_torch.ops import unpacked_step as us
 
     def exact(a, b, tier):
         pa = a.value if isinstance(a, tfft.Prepared) else tfft.prepare(a, tier).value
@@ -2747,12 +2816,12 @@ def exact_products():
             return (pa.double() @ pb.double()).float()
         return sum(pa[p].double() @ pb[q].double() for p, q in tfft._PASSES[tier]).float()
 
-    saved = fused_step.matmul_tier, fs.matmul_tier
-    fused_step.matmul_tier = fs.matmul_tier = exact
+    saved = fused_step.matmul_tier, fs.matmul_tier, us.matmul_tier
+    fused_step.matmul_tier = fs.matmul_tier = us.matmul_tier = exact
     try:
         yield
     finally:
-        fused_step.matmul_tier, fs.matmul_tier = saved
+        fused_step.matmul_tier, fs.matmul_tier, us.matmul_tier = saved
 
 
 def reset_launches() -> None:
@@ -2771,14 +2840,15 @@ def reset_launches() -> None:
 
 
 def tiered_counts() -> dict:
-    """The launches of the tiered bodies (K1t, K2t, K3t) and of the FFT
-    bodies (K1, K2, K3): a wrapper's launches less its tiered ones."""
+    """The launches of the tiered bodies (K1t-K4t) and of the FFT bodies
+    (K1-K4): a wrapper's launches less its tiered ones."""
     from gfx_ocean_tpu_torch.ops import fourstep_step as fs
     from gfx_ocean_tpu_torch.ops import fused_step
+    from gfx_ocean_tpu_torch.ops import unpacked_step as us
 
     rec = {}
     for k, w in (("k1", fused_step.launch_packed_step), ("k2", fs.launch_fourstep_row),
-                 ("k3", fs.launch_fourstep_col)):
+                 ("k3", fs.launch_fourstep_col), ("k4", us.launch_unpacked_step)):
         rec[k] = w.launches - w.tiered_launches
         rec[k + "t"] = w.tiered_launches
     return rec
@@ -2908,7 +2978,8 @@ def run_tier_k1(dev) -> dict:
           main_path=dict(steps=STEPS, time_batch=TIME_BATCH, launches=counts,
                          launches_a_frame=counts["k1t"] / STEPS,
                          checksums_finite=bool(np.isfinite(cks).all())))
-    if counts != dict(k1=0, k1t=expected, k2=0, k2t=0, k3=0, k3t=0) or not np.isfinite(cks).all():
+    if (counts != dict(k1=0, k1t=expected, k2=0, k2t=0, k3=0, k3t=0, k4=0, k4t=0)
+            or not np.isfinite(cks).all()):
         failures.append(f"K1t main path launched {counts}, expected {expected} of K1t")
     if failures:
         fail(f"tier_k1: {failures}")
@@ -3039,7 +3110,7 @@ def run_tier_fourstep(dev) -> list:
                                  FS_PLAIN_TIMING_CALLS),
             k3_plain_ms=event_ms(lambda: checksums_of_planes(fs.fourstep_col_reference(y, cfg),
                                                              cfg), FS_PLAIN_TIMING_CALLS))
-        k2n = body_kernels(tier, K2_KERNELS, K2T_KERNELS)
+        k2n = body_kernels(tier, K2_KERNELS, k2t_kernels(FS_N))
         k3n = body_kernels(tier, K3_KERNELS, K3T_KERNELS)
         t["k2_device_ms"] = kernel_device_ms(lambda: fs.launch_fourstep_row(inputs, ts1, cfg),
                                              k2n, FS_TIMING_CALLS)
@@ -3056,12 +3127,13 @@ def run_tier_fourstep(dev) -> list:
                 tfft.col_pass_complex(spec[2], spec[3], 1024, True, True, kt)), FS_TIMING_CALLS)
             passes = tfft.kernel_passes(tier)
             ops2, ops3 = fourstep_tier_ops(FS_N, FS_N, FS_N, passes)
-            w1 = tfft.table_fragments(("alt", 128, 1, 0, True), dev, kt)
-            w2 = tfft.table_fragments(("cat", FS_N // 128), dev, kt)
+            w1 = tfft.table_wgmma(("alt", 128, 1, 0, True), dev, kt)
+            w2_row = tfft.table_wgmma(("cat", FS_N // 128), dev, kt)  # the tables each reads
+            w2_col = tfft.table_wgmma(("dft", FS_N // 128, 1), dev, kt, 16)
             y_bytes = 4 * 4 * FS_N * FS_N
-            t["k2_bound"] = bound(nbytes(state.h0, state.omega, ts1, w1, w2) + y_bytes, ops2,
+            t["k2_bound"] = bound(nbytes(state.h0, state.omega, ts1, w1, w2_row) + y_bytes, ops2,
                                   BF16_OPS_PER_S)
-            t["k3_bound"] = bound(y_bytes + nbytes(w1, w2) + 4 * 3 * FS_N * FS_N, ops3,
+            t["k3_bound"] = bound(y_bytes + nbytes(w1, w2_col) + 4 * 3 * FS_N * FS_N, ops3,
                                   BF16_OPS_PER_S)
         roll = time_rollout(ot.make_rollout(cfg, keep_fields=False), state, ts_roll,
                             repeats=FS_REPEATS)
@@ -3088,7 +3160,7 @@ def run_tier_fourstep(dev) -> list:
           tiers={str(n): r for n, r in rec.items()}, config5_timing=timing,
           main_path=dict(config="config 5 at high", steps=FS_STEPS, time_batch=1,
                          launches=counts, checksums_finite=bool(np.isfinite(cks).all())))
-    if (counts != dict(k1=0, k1t=0, k2=0, k2t=FS_STEPS, k3=0, k3t=FS_STEPS)
+    if (counts != dict(k1=0, k1t=0, k2=0, k2t=FS_STEPS, k3=0, k3t=FS_STEPS, k4=0, k4t=0)
             or not np.isfinite(cks).all()):
         failures.append(f"K2t + K3t main path launched {counts}")
     if failures:
@@ -3096,7 +3168,8 @@ def run_tier_fourstep(dev) -> list:
     t, r = timing["high"], rec[FS_N]["high"]
     return [{
         "name": f"{key.upper()}t fourstep_{side} tiered body (bf16 tensor-core four-step: "
-                f"stage 1, FP32 twiddle, stage 2; scratch between)",
+                f"warp-specialized stage 1 on wgmma, FP32 twiddle, "
+                f"{stage2} stage 2 on wgmma)",
         "route": "cuda",
         "source": "gfx_ocean_tpu_torch/csrc/fourstep_step.cu",
         "replaces": f"gfx_ocean_tpu/ops/pallas_step.py:{line}",
@@ -3111,8 +3184,9 @@ def run_tier_fourstep(dev) -> list:
                                                                      "library_ms")}
         | {"device_ms": timing["default"][f"{key}_device_ms"]["total"]}
         | timing["default"][f"{key}_bound"],
-    } for key, side, line, err_key in (("k2", "row", 614, "k2_y_max_abs"),
-                                        ("k3", "col", 757, "k3_planes_max_abs"))]
+    } for key, side, line, err_key, stage2 in (
+        ("k2", "row", 614, "k2_y_max_abs", "in-block (no scratch at N <= 4096)"),
+        ("k3", "col", 757, "k3_planes_max_abs", "scratch then"))]
 
 
 def run_tier_big(dev) -> None:
@@ -3120,7 +3194,8 @@ def run_tier_big(dev) -> None:
     phase 23's 16-row bands against the plain version and bit-equal to the
     whole frame's rows; "high" and "bf16x4" bit-equal to "bf16x3" there;
     one call's time beside the FFT body's and the matmul route's row passes
-    at the tier, its bound; the step through K2t + K3t against phase 24's
+    at the tier, its bound; K3t on the whole frame at "bf16x3" beside the
+    matmul route's column passes; the step through K2t + K3t against phase 24's
     golden rows (the exact scheme needs the plain K3 of the whole frame,
     tens of GB, so only the gate holds it here)."""
     import torch
@@ -3170,15 +3245,34 @@ def run_tier_big(dev) -> None:
                     failures.append(f"{tier}: the step on the bands {r['step_rel_linf_on_bands']}")
                 kt = tfft.kernel_tier(tier)
                 passes = tfft.kernel_passes(tier)
-                w1 = tfft.table_fragments(("alt", 128, 1, 0, False), dev, kt)
-                w2 = tfft.table_fragments(("cat", BIG_N // 128), dev, kt)
+                w1 = tfft.table_wgmma(("alt", 128, 1, 0, False), dev, kt)
+                w2 = tfft.table_wgmma(("dft", 128, 1), dev, kt)
                 r.update(bound(nbytes(inputs.h0, inputs.omega, ts, w1, w2) + 4 * 4 * BIG_N ** 2,
                                fourstep_tier_ops(BIG_N, BIG_N, BIG_N, passes)[0],
                                BF16_OPS_PER_S))
                 spec = torch.randn((2, 1, BIG_N, BIG_N), dtype=torch.float32, device=dev)
                 r["library_ms"] = event_ms(lambda: tfft.row_pass_complex(
                     spec[0], spec[1], 1024, True, kt), TIER_BIG_LIBRARY_CALLS) * 2
-                del spec
+                if tier == "bf16x3":  # K3t on the whole frame's Y, with its checksum
+                    r["k3t_library_ms"] = event_ms(lambda: tfft.col_pass_complex(
+                        spec[0], spec[1], 1024, True, True, kt), TIER_BIG_LIBRARY_CALLS) * 2
+                    del spec
+                    torch.cuda.empty_cache()
+                    y = fs.launch_fourstep_row(inputs, ts, cfg)
+
+                    def k3t():
+                        return fs.launch_fourstep_col(y, inputs.twiddle, cfg, checksum=True)
+
+                    r["k3t_ms"] = event_ms(k3t, BIG_TIMING_CALLS)
+                    r["k3t_device_ms"] = kernel_device_ms(k3t, K3T_KERNELS, BIG_TIMING_CALLS)
+                    w1c = tfft.table_wgmma(("alt", 128, 1, 0, True), dev, kt)
+                    w2c = tfft.table_wgmma(("dft", 128, 1), dev, kt)
+                    r["k3t_bound"] = bound(
+                        nbytes(y, w1c, w2c) + 4 * (3 * BIG_N ** 2 + BIG_N * 2),
+                        fourstep_tier_ops(BIG_N, BIG_N, BIG_N, passes)[1], BF16_OPS_PER_S)
+                    del y
+                else:
+                    del spec
                 torch.cuda.empty_cache()
             rec[tier] = r
         bands[tier] = torch.cat([fs.launch_fourstep_row(inputs, ts, cfg, row_base=b,
@@ -3197,9 +3291,169 @@ def run_tier_big(dev) -> None:
           band_rows=BIG_BAND_ROWS, calls=BIG_TIMING_CALLS,
           clock="cuda events; device_ms: torch.profiler, the kernels' launches only",
           library="the matmul route's row pass at the tier (ops/fft.row_pass_complex), one "
-                  "spectrum a call, times two", tiers=rec)
+                  "spectrum a call, times two; K3t's: its column pass (col_pass_complex), "
+                  "the same", tiers=rec)
     if failures:
         fail(f"tier_big: {failures}")
+
+
+def run_tier_k4(dev) -> dict:
+    """Phase 52: K4's tiered body (K4t) at 512^2 on phase 3's state, the
+    unpacked route (``hermitian_pack=False``) at every tier but "highest";
+    returns its kernels entry."""
+    import numpy as np
+    import torch
+
+    import gfx_ocean_tpu_torch as ot
+    from gfx_ocean_tpu_torch.golden.reference import golden_fields
+    from gfx_ocean_tpu_torch.models.ocean import downsample_state
+    from gfx_ocean_tpu_torch.ops import fft as tfft
+    from gfx_ocean_tpu_torch.ops import fused_step
+    from gfx_ocean_tpu_torch.ops import unpacked_step as us
+    from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, finite_difference_normals_planes
+    from gfx_ocean_tpu_torch.utils.complexpair import from_pair_np
+    from gfx_ocean_tpu_torch.utils.profiling import time_rollout
+
+    state, n = STATES["main"], N
+    base = ot.OceanConfig(resolution=n, fft_impl="pallas", hermitian_pack=False)
+    gold = golden_fields(from_pair_np(state.h0.cpu().numpy()), state.omega.cpu().numpy(),
+                         T_CHECK, base.domain_size, base.compat)
+    scale = float(np.abs(gold).max())
+    ts_cmp = torch.tensor(T_COMPARE, dtype=torch.float32, device=dev)
+    ts6 = torch.arange(TIME_BATCH, dtype=torch.float32, device=dev) / 60.0
+    ts = torch.arange(STEPS, dtype=torch.float32, device=dev) / 60.0
+    rec, planes, failures = {}, {}, []
+
+    def field_rel(p):
+        return float(np.abs(torch.stack([p[0], p[1], p[2]], -1).cpu().numpy() - gold).max()) / scale
+
+    for tier in TIER_K1:
+        cfg = dataclasses.replace(base, matmul_precision=tier)
+        inputs = fused_step.hoist_packed(state.h0, state.omega, cfg)
+        reset_launches()
+        got = us.unpacked_planes(inputs, ts_cmp, cfg)
+        got_ck = us.unpacked_checksums(inputs, ts_cmp, cfg)
+        counted = tiered_counts()
+        want = us.unpacked_planes_reference(inputs, ts_cmp, cfg)
+        with exact_products():
+            scheme = us.unpacked_planes_reference(inputs, ts_cmp[:1], cfg)[0]
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        summands = (want.abs().sum(dim=(-3, -2, -1))
+                    + finite_difference_normals_planes(want[:, 1], cfg.normal_height_scale)
+                    .abs().sum(dim=(-3, -2, -1)))
+        ck = float(((got_ck - checksums_of_planes(want, cfg)).abs() / summands).max())
+        planes[tier] = got
+        r = dict(kernel_vs_plain_max_abs=err[0], kernel_vs_plain_rel=err[1],
+                 tolerance=kernel_tol(tier), checksum_rel_to_summands=ck,
+                 checksum_tolerance=checksum_tol(tier), launches=counted,
+                 rel_linf=field_rel(got[0]), scheme_rel_linf=field_rel(scheme),
+                 effective_precision=fused_step.check_supported(cfg, n),
+                 route=us.unpacked_route(cfg, n))
+        if not (err[1] <= r["tolerance"] and ck <= r["checksum_tolerance"]
+                and counted["k4t"] == 2 and counted["k4"] == 0 and r["route"] == "single"):
+            failures.append(f"K4t at {tier}: {r}")
+        failures += tier_gate(tier, r["rel_linf"], r["scheme_rel_linf"])
+        r["ms"] = event_ms(lambda: us.unpacked_checksums(inputs, ts6, cfg), TIMING_CALLS)
+        r["plain_ms"] = event_ms(lambda: checksums_of_planes(
+            us.unpacked_planes_reference(inputs, ts6, cfg), cfg), TIER_CALLS)
+        r["device_ms"] = kernel_device_ms(lambda: us.unpacked_checksums(inputs, ts6, cfg),
+                                          K4T_KERNELS, TIMING_CALLS)
+        rec[tier] = r
+        del got, want, scheme
+    for tier in ("bf16x4", "high"):
+        rec[tier]["bit_equal_to_bf16x3"] = bool(torch.equal(planes[tier], planes["bf16x3"]))
+        if not rec[tier]["bit_equal_to_bf16x3"]:
+            failures.append(f"K4t at {tier} is not bit-equal to bf16x3")
+    del planes
+
+    # The route switches on the tier: at 256^2 "highest" is K4's FFT body,
+    # "bf16x3" K4t; both against their plain versions.
+    st256 = downsample_state(state, U_FFT_ROUTE_N)
+    switch = {}
+    for tier in ("highest", "bf16x3"):
+        cfg = dataclasses.replace(base, resolution=U_FFT_ROUTE_N, matmul_precision=tier)
+        inputs = fused_step.hoist_packed(st256.h0, st256.omega, cfg)
+        reset_launches()
+        got = us.unpacked_planes(inputs, ts_cmp, cfg)
+        counted = tiered_counts()
+        err = max_err(got, us.unpacked_planes_reference(inputs, ts_cmp, cfg))
+        switch[tier] = dict(route=us.unpacked_route(cfg, U_FFT_ROUTE_N), launches=counted,
+                            kernel_vs_plain_rel=err[1], tolerance=kernel_tol(tier))
+        fft_body = tier == "highest"
+        if not (counted["k4"] == int(fft_body) and counted["k4t"] == int(not fft_body)
+                and err[1] <= kernel_tol(tier)):
+            failures.append(f"256^2 unpacked at {tier}: {switch[tier]}")
+    del st256
+
+    # The 600-frame rollouts at tb 6: K4t at "bf16x3" and "default" beside
+    # "highest" (K5 + K6 at 512^2) in the same call.
+    for tier in ("highest", "bf16x3", "default"):
+        cfg = dataclasses.replace(base, matmul_precision=tier)
+        roll = time_rollout(ot.make_rollout(cfg, keep_fields=False, time_batch=TIME_BATCH),
+                            state, ts, repeats=REPEATS)
+        rec.setdefault(tier, {}).update(rollout_steps_per_sec=roll["steps_per_sec"],
+                                        rollout_repeats_sec=roll["repeats_sec"])
+    for tier in ("bf16x3", "default"):
+        rec[tier]["rollout_vs_highest"] = (rec[tier]["rollout_steps_per_sec"]
+                                           / rec["highest"]["rollout_steps_per_sec"])
+
+    # The library yardstick: the matmul route's unpacked step (cuBLAS bf16
+    # passes, ops/fft) of the same three real-output 2-D transforms a frame
+    # at the same tier. The bound: 18 products of N^3 multiply-adds a frame
+    # a pass, at the tensor cores' dense bf16 rate.
+    spec = torch.randn((2, TIME_BATCH, 3, n, n), dtype=torch.float32, device=dev)
+    frag = tfft.table_fragments(("alt", n, 1, 0, False), dev, "bf16x3")
+    io = (nbytes(state.h0, state.omega, ts6)
+          + 4 * TIME_BATCH * (3 * n * n + n // us.CHECKSUM_ROWS))
+    for tier in ("bf16x3", "default"):
+        rec[tier]["library_ms"] = event_ms(lambda: tfft.ifft2_real_unnorm(
+            spec[0], spec[1], precision=tier, centered="ref"), TIER_CALLS)
+        ops = tfft.kernel_passes(tier) * 36.0 * n ** 3 * TIME_BATCH
+        rec[tier].update(bound(io + nbytes(frag) // (2 if tier == "default" else 1), ops,
+                               BF16_OPS_PER_S))
+    del spec
+
+    # The main path: the unpacked rollout at "bf16x3" (tb 6) with the counts
+    # at 0 just before it.
+    cfg = dataclasses.replace(base, matmul_precision="bf16x3")
+    rollout = ot.make_rollout(cfg, keep_fields=False, time_batch=TIME_BATCH)
+    reset_launches()
+    cks = rollout(state, ts).cpu().numpy()
+    counts = tiered_counts()
+    expected = STEPS // TIME_BATCH
+    phase("tier_k4", resolution=n, frames_a_call=TIME_BATCH, t=T_CHECK,
+          clock="cuda events (ms); device_ms: torch.profiler, the kernels' launches only; "
+                "rollouts: host clock over synchronized calls",
+          fp32_sum_allowance=FP32_SUM_ALLOWANCE, default_reround=DEFAULT_REROUND, tiers=rec,
+          route_switch_256=switch,
+          main_path=dict(steps=STEPS, time_batch=TIME_BATCH, launches=counts,
+                         launches_a_frame=counts["k4t"] / STEPS,
+                         checksums_finite=bool(np.isfinite(cks).all())))
+    if (counts != dict(k1=0, k1t=0, k2=0, k2t=0, k3=0, k3t=0, k4=0, k4t=expected)
+            or not np.isfinite(cks).all()):
+        failures.append(f"K4t main path launched {counts}, expected {expected} of K4t")
+    if failures:
+        fail(f"tier_k4: {failures}")
+    r = rec["bf16x3"]
+    return {
+        "name": "K4t unpacked_step tiered body (bf16 tensor-core DFT: 3 passes at "
+                "bf16x3 / high / bf16x4, 1 at default; row and column kernels)",
+        "route": "cuda",
+        "source": "gfx_ocean_tpu_torch/csrc/unpacked_step.cu",
+        "replaces": "gfx_ocean_tpu/ops/pallas_step.py:128",
+        "launches": counts["k4t"],
+        "max_abs_err": r["kernel_vs_plain_max_abs"],
+        "ms": r["ms"],
+        "device_ms": r["device_ms"]["total"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"],
+        "default_tier": {k: rec["default"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_vs_plain_max_abs")}
+        | {"device_ms": rec["default"]["device_ms"]["total"]},
+    }
 
 
 def run_parallel(dev) -> None:

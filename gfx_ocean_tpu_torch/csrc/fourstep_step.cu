@@ -619,121 +619,229 @@ int launch_col(const ColArgs& a, cudaStream_t st) {
 // ---------------------------------------------------------------------------
 // K2's and K3's tiered bodies ("high", "bf16x3", "bf16x4": kTerms = 2;
 // "default": kTerms = 1): the JAX kernels' products (pallas_step.py:698,
-// 739-748, 813, 831-841), bf16 operands on the tensor cores
-// (tier_mma.cuh). Each pass is two kernels with a scratch as large as Y
-// between them, the FP32 twiddle applied to stage 1's output on the way:
+// 739-748, 813, 831-841), bf16 operands on the tensor cores with wgmma
+// (tier_mma.cuh), FP32 sums. The transform of length N = 128 N2 is the JAX
+// kernels' four-step split: stage 1 the 128-point product over k1 (row) or
+// m1 (column), the FP32 twiddle on its output, stage 2 the N2-point product.
 //
-//   fourstep_row_tier1  K2 stage 1. A persistent grid; each block holds the
-//                       128-point table W1 (ops/fft.mma_fragments of
-//                       ("alt", 128, 1, 0, False), 64 KB a term) in shared
-//                       memory and walks over items of 16 (row, k2): the
-//                       packed propagate of their 16 x 128 elements x =
-//                       k1 N2 + k2 (H and Z), split into bf16 tiles
-//                       [Re k1 | Im k1], then [Xr | Xi] W1cat^T with W1cat =
-//                       [[Wr, -Wi], [Wi, Wr]] formed from W1's fragments
-//                       (the JAX kernel's stacked product over 256 terms),
-//                       the twiddle T[k2, n1], and B (FP32) to the scratch
-//                       (tb, rows, 2, 2, N2, 128).
-//   fourstep_row_tier2  K2 stage 2. One block per (row, spectrum, frame):
-//                       the row's B split into a (128 n1) x (2 N2) tile and
-//                       multiplied by W2cat^T (the stacked N2-point table,
-//                       fragments from L2): Y in true x order. The JAX
-//                       kernel's block-diagonal table at N <= 4096 holds the
-//                       same W2cat twice beside zeros; the zero blocks add
-//                       exact zeros and are not multiplied here.
-//   fourstep_col_tier1  K3 stage 1: as K2's, on items of (m2, 16 columns):
-//                       rows m = N2 m1 + m2 of Y split into tiles over
-//                       [Re m1 | Im m1], the table W1 with (-1)^y and the Q2
-//                       flip folded in, the twiddle T[n1, m2]; B (FP32) to
-//                       the scratch (tb, C / 32, 128, 2, 2, N2, 32).
-//   fourstep_col_tier2  K3 stage 2: one block per (n1, 32 columns, frame):
-//                       W2cat^T on the four 16-column tiles (H, Z), the
-//                       height's real rows only (W2top), rows n1 + 128 n2 of
-//                       the planes, and the block's sum as K3's stage 2 sums.
+//   fourstep_row_tier1  K2. A persistent grid of one 512-thread block a SM,
+//                       warp-specialized. Two producer warpgroups form the
+//                       packed propagate of items of 32 vectors (row, k2) x
+//                       128 k1 (elements x = k1 N2 + k2), a chunk of 32 k1
+//                       at a time, and write it as the bf16 A operand of 64
+//                       rows (H's 32 vectors, then Z's) in three parts, Xr,
+//                       Xi and -Xi, hi (and lo), into a ring of slots. Two
+//                       consumer warpgroups, 64 n1 each (m64n64k16), multiply
+//                       each chunk that has arrived by W1 (ops/fft
+//                       .wgmma_table of ("alt", 128, 1, 0, False): Wr, Wi) in
+//                       shared memory: [Xr | Xi] W1cat^T with W1cat = [[Wr,
+//                       -Wi], [Wi, Wr]] (the JAX kernel's stacked product
+//                       over 256 terms) as Yr = Xr Wr^T + (-Xi) Wi^T and Yi =
+//                       Xr Wi^T + Xi Wr^T (complex_kstep), then apply the
+//                       twiddle T[k2, n1] in registers. At N <= 4096 an item
+//                       holds whole rows (32 / N2 of them), so the consumers
+//                       run stage 2 in the block (row_stage2): the twiddled
+//                       values as bf16 hi (and lo) in a tile of their own,
+//                       multiplied by W2cat^T (2 N2 x 2 N2, the stacked
+//                       N2-point table, wgmma_table of ("cat", N2)) into Y
+//                       in true x order; no scratch. At N >= 8192 an item
+//                       is part of a row: B (FP32) goes to the scratch (tb,
+//                       rows, 2, 2, N2, 128) and fourstep_tier2 runs stage 2.
+//   fourstep_col_tier1  K3 stage 1, as K2's on items of (m2, 32 columns):
+//                       the producers load rows m = N2 m1 + m2 of Y (a warp a
+//                       128-byte line) into the parts over m1; W1 with
+//                       (-1)^y and the Q2 flip folded in; the twiddle
+//                       T[n1, m2]; B (FP32) to the scratch (tb, C / 32, 128,
+//                       2, 2, N2, 32). Its stage 2 needs the N2 items of a
+//                       column band (at N = 4096 64 KB a column as bf16 hi /
+//                       lo beside the 128 KB table, and a warp would read
+//                       single columns, 4 of each 32-byte sector), so K3t
+//                       keeps the scratch at every N.
+//   fourstep_tier2      stage 2 from the scratch (K2t at N >= 8192, K3t at
+//                       every N). A persistent grid; each block holds W2
+//                       (wgmma_table of ("dft", N2, 1), K zero-padded to 16
+//                       at N2 = 8: the zero products add exact zeros) and
+//                       walks over items of (row, 32 n1) or (n1, 32
+//                       columns): A's 64 rows are H's 32, then Z's, over k2
+//                       (m2) as Xr, Xi, -Xi, the product complex_kstep's.
+//                       K3t's writes the planes' rows n1 + 128 n2 (the height
+//                       from H's real part, disp_x and disp_z from Z's) and,
+//                       with partials, the item's sum in a fixed order.
 //
 // What bounds them (4096^2, a frame, the split): ~1.3e11 flops (3 passes of
 // stage 1's 2 x 4096 x 32 x 256 x 256 x 2 and stage 2's products), so the
-// tensor cores, and ~1.7 GB of device memory (the state, Y, the scratches
-// and the planes). A plain design: mma.sync from registers, no wgmma, TMA or
-// pipelining; the scratch round trip is the price of a row's stage-1 output
-// (up to 256 KB at 16384) that does not fit beside the table.
-constexpr int kTierThreads = 256;
-constexpr int kTierWarps = kTierThreads / 32;
-constexpr int kTierRows = 16;     // rows of a stage-1 item (an m-tile)
-constexpr int kLd1 = 132;         // words a stage-1 tile row: 256 bf16 + 8 pad
-constexpr int kW1Frags = 16 * 8 * 32;  // uint4 a term of W1's fragments
-constexpr int kTierCols = 32;     // columns of a K3 stage-2 block
+// tensor cores, and ~1.2 GB of device memory (the state, Y, K3t's scratch
+// and the planes).
+//
+// Stage 1's design. Its earlier forms ran the phases of an item one after
+// another in every warp (the propagate or Y's loads; the parts' stores; the
+// product; the epilogue), so nothing hid the propagate's latency at the 8 or
+// 16 warps a SM that the table leaves room for. Here the producers run
+// ahead of the consumers by the ring's slots (mbarriers full / empty a
+// slot), and the consumers' products run asynchronously while the next
+// chunk is awaited (wgmma_wait<1> frees the slot before). Shared memory at
+// the split: W1 128 KB; a slot holds one chunk's parts (64 rows x 32 k, 3
+// parts, hi and lo: 24 KB), so the ring takes a quarter of an item's A at a
+// time, and four slots fit beside W1 (224 KB); K2t's stage 2 in the block
+// adds W2cat (16 KB at N = 4096) and the consumers' tiles (16 KB each: one
+// half of their 64 n1 at a time), leaving room for two slots. "default"
+// halves each. The -Xi part keeps the table W1 (Wr, Wi) where W1cat would
+// take 256 KB. Registers: 512 threads a block leave 128 a thread;
+// setmaxnreg moves them from the producers to the consumers
+// (Stage1Smem::kProducerRegs: the consumers hold two 64 x 64 accumulators
+// of each term, 128 at the split), and a launch whose kernel was compiled
+// to fewer than 128 registers is refused (kErrStage1Registers), since the
+// consumers' setmaxnreg.inc would wait for registers that do not exist.
+// The producers' propagate limits K2t (k2t_loads_only; one producer
+// warpgroup, k2t_producers1, runs twice as long). They take 80 registers
+// where stage 2 runs in the block (with its consumers at 160 K2t ran
+// slower, k2t_p96) and in K3t, 96 at N >= 8192 (k2tw_p80 ran slower); 112
+// at "default" ran K2t slower than 80 (k2t_default_p112;
+// tools/torch_kernel_variants.py, PERF.md). The consumers' products are
+// batches of asynchronous wgmma, the accumulators pinned around each
+// (tier::fence_operand: without it ptxas serialized the products).
+constexpr int kItemVecs = 32;                  // 128-point vectors of an item: (row, k2) or (m2, column)
+constexpr int kItemRows = 2 * kItemVecs;       // the product's M: H's vectors, then Z's
+constexpr int kTablePlane = kN1 * kN1;         // bf16 of one W1 plane and term (128 x 128)
+constexpr int kParts = 3;                      // Xr, Xi, -Xi
+constexpr int kTierCols = 32;                  // columns of a K3t item
+constexpr int kConsumers = 2;                  // consumer warpgroups of stage 1, 64 n1 each
+constexpr int kProducers = 2;                  // producer warpgroups of stage 1
+constexpr int kStage1Threads = 128 * (kConsumers + kProducers);
+constexpr int kConsumerThreads = 128 * kConsumers;
+constexpr int kProducerThreads = 128 * kProducers;
+constexpr int kStage1Regs = (65536 / kStage1Threads) / 8 * 8;  // the launch's, a thread
+constexpr int kProducerTasks = 256;            // a chunk's (vector or column, 4 k1) a slot
+constexpr int kChunkK = 32;                    // k1 (m1) of a ring slot
+constexpr int kChunks = kN1 / kChunkK;         // slots an item
+constexpr int kChunkPart = kItemRows * kChunkK;  // bf16 of one part and term of a slot
+constexpr int kMaxStages = 4;
+constexpr size_t kSmemLimit = 232448;          // dynamic shared memory a block may take
+// A stage-1 launch whose kernel has fewer registers than kStage1Regs.
+constexpr int kErrStage1Registers = 100001;
+static_assert(kProducerTasks % kProducerThreads == 0 && kProducerTasks == 8 * kChunkK,
+              "the producers' tasks of a chunk: 32 vectors x 8 groups of 4 k1");
 
-template <int kTerms>
-constexpr size_t stage1_smem() {
-  return static_cast<size_t>(kTerms) * kW1Frags * sizeof(uint4) +
-         static_cast<size_t>(2) * kTerms * kTierRows * kLd1 * sizeof(uint32_t);
-}
+// Stage 1's shared memory, in bf16 units and then the mbarriers: W1; where
+// K2t runs stage 2 in the block (N <= 4096), W2cat and the consumers'
+// stage-2 tiles (64 x 64 a term: 32 / N2 sub-rows of 64 rows x 2 N2); the
+// ring of kStages slots.
+template <int LOG2N, int kTerms, bool kRow>
+struct Stage1Smem {
+  static constexpr int kN2 = 1 << (LOG2N - kLog2N1);
+  static constexpr bool kFused = kRow && LOG2N <= 12;
+  static constexpr int kTable = 2 * kTerms * kTablePlane;
+  static constexpr int kW2 = kFused ? 4 * kN2 * kN2 * kTerms : 0;
+  static constexpr int kTile = kItemRows * 2 * kN2 * (kItemVecs / kN2);  // a term, all sub-rows
+  static constexpr int kTiles = kFused ? kConsumers * kTerms * kTile : 0;
+  static constexpr int kSlot = kParts * kTerms * kChunkPart;
+  static constexpr size_t kFixed = 2 * static_cast<size_t>(kTable + kW2 + kTiles);
+  static constexpr int kFit =
+      static_cast<int>((kSmemLimit - kFixed - 2 * kMaxStages * sizeof(uint64_t)) / (2 * kSlot));
+  static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
+  static constexpr size_t kBytes =
+      kFixed + 2 * static_cast<size_t>(kSlot) * kStages + 2 * kStages * sizeof(uint64_t);
+  static_assert(kStages >= 2 && kBytes <= kSmemLimit, "stage 1 holds a ring of two slots");
+  // setmaxnreg's split of the launch's registers: the producers' a thread
+  // (the propagate or Y's loads, the parts' stores), the consumers' the
+  // rest (at the split two 64 x 64 accumulators of each term, 128; with
+  // stage 2 in the block its accumulators beside them).
+  static constexpr int kProducerRegs = kRow && !kFused ? 96 : 80;
+  static constexpr int kConsumerRegs =
+      (kStage1Regs * kStage1Threads - kProducerThreads * kProducerRegs) / kConsumerThreads;
+  static_assert(kProducerRegs % 8 == 0 && kConsumerRegs % 8 == 0 && kConsumerRegs <= 256 &&
+                    kProducerThreads * kProducerRegs + kConsumerThreads * kConsumerRegs <=
+                        kStage1Regs * kStage1Threads,
+                "setmaxnreg's budget: the launch's registers, shared out");
+};
 
-// Stage 1's product of both tiles (H, Z: 16 rows each, plane p's term s at
-// data + (p kTerms + s) 16 kLd1) with W1cat^T: warp w takes the output
-// n-tiles j = w and w + 8 of the real half and j + 16 of the imaginary
-// half, so a thread holds Re and Im of the same n1. acc[jj][ri][p].
-template <int kTerms>
-__device__ __forceinline__ void stage1_product(float (&acc)[2][2][2][kTerms][4],
-                                               const uint32_t* data, const uint4* table,
-                                               int warp, int lane) {
+// Four values v[0..3] at k = kl .. kl + 3 (kl % 4 == 0) of row r of an A
+// operand (64 rows, tier::core_at order) in parts [part][term], kPart bf16
+// apart: a real value into Xr, an imaginary one into Xi and -Xi, hi (and
+// lo), one 8-byte store a part and term.
+template <int kTerms, int kPart>
+__device__ __forceinline__ void put4(uint16_t* parts, int r, int kl, const float (&v)[4],
+                                     bool imag) {
   namespace tr = ocean::tier;
-#pragma unroll
-  for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-    for (int ri = 0; ri < 2; ++ri)
-#pragma unroll
-      for (int p = 0; p < 2; ++p) tr::zero(acc[jj][ri][p]);
-#pragma unroll
-  for (int ks = 0; ks < 16; ++ks) {
-    uint32_t a[2][kTerms][4];
-#pragma unroll
-    for (int p = 0; p < 2; ++p)
-#pragma unroll
-      for (int s = 0; s < kTerms; ++s)
-        tr::load_a(a[p][s], data + (p * kTerms + s) * kTierRows * kLd1, kLd1, ks, lane);
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      uint32_t bre[kTerms][2], bim[kTerms][2];
-#pragma unroll
-      for (int s = 0; s < kTerms; ++s) {
-        const uint4 f = table[(((warp + 8 * jj) * 8 + (ks & 7)) * kTerms + s) * 32 + lane];
-        if (ks < 8) {  // Re of the input: W1cat = [Wr; Wi]
-          bre[s][0] = f.x;
-          bre[s][1] = f.y;
-          bim[s][0] = f.z;
-          bim[s][1] = f.w;
-        } else {       // Im of the input: W1cat = [-Wi; Wr]
-          bre[s][0] = tr::neg2(f.z);
-          bre[s][1] = tr::neg2(f.w);
-          bim[s][0] = f.x;
-          bim[s][1] = f.y;
-        }
-      }
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        tr::mma_tier(acc[jj][0][p], a[p], bre);
-        tr::mma_tier(acc[jj][1][p], a[p], bim);
-      }
-    }
+  uint32_t hi[2], lo[2];
+  tr::split2(v[0], v[1], hi[0], lo[0]);
+  tr::split2(v[2], v[3], hi[1], lo[1]);
+  constexpr int kStep = kPart / 4;  // uint2 a part and term
+  uint2* w = reinterpret_cast<uint2*>(parts + tr::core_at(r, kl, kItemRows)) +
+             (imag ? kTerms * kStep : 0);
+  w[0] = make_uint2(hi[0], hi[1]);
+  if constexpr (kTerms == 2) w[kStep] = make_uint2(lo[0], lo[1]);
+  if (imag) {  // -Xi: the same bf16, negated (exact)
+    w[kTerms * kStep] = make_uint2(tr::neg2(hi[0]), tr::neg2(hi[1]));
+    if constexpr (kTerms == 2) w[(kTerms + 1) * kStep] = make_uint2(tr::neg2(lo[0]), tr::neg2(lo[1]));
   }
 }
 
-// Copies W1's fragments into shared memory (every thread of the block).
-template <int kTerms>
-__device__ __forceinline__ void load_table(uint4* table, const uint4* __restrict__ frag) {
-  for (int i = threadIdx.x; i < kTerms * kW1Frags; i += kTierThreads) table[i] = __ldg(frag + i);
+// One k-step (16 terms) of the complex product into acc[0] = Yr and acc[1]
+// = Yi, each as tier::wgmma_tier's terms: Re k (A = Xr: Yr with Wr, Yi with
+// Wi), then Im k (Yr: -Xi with Wi; Yi: Xi with Wr): W1cat's products, each
+// exact. a: the descriptor of Xr hi at the k-step, b: of Wr hi; the other
+// operands lie kPartA / kTermA (A's parts and terms) and kPlaneB / kTermB
+// (B's planes and terms) 16-byte units on.
+template <int kN, int kTerms, int kPartA, int kTermA, int kPlaneB, int kTermB>
+__device__ __forceinline__ void complex_kstep(float (&acc)[2][kTerms][kN / 2], uint64_t a,
+                                              uint64_t b) {
+  namespace tr = ocean::tier;
+  uint64_t xr[kTerms], xi[kTerms], nxi[kTerms], wr[kTerms], wi[kTerms];
+#pragma unroll
+  for (int s = 0; s < kTerms; ++s) {
+    xr[s] = a + s * kTermA;
+    xi[s] = xr[s] + kPartA;
+    nxi[s] = xr[s] + 2 * kPartA;
+    wr[s] = b + s * kTermB;
+    wi[s] = wr[s] + kPlaneB;
+  }
+  tr::wgmma_tier<kN>(acc[0], xr, wr);
+  tr::wgmma_tier<kN>(acc[1], xr, wi);
+  tr::wgmma_tier<kN>(acc[0], nxi, wi);
+  tr::wgmma_tier<kN>(acc[1], xi, wr);
 }
 
-// Value v at (plane, row r, column k) of stage 1's tiles, both terms.
+template <int kTerms, int L>
+__device__ __forceinline__ void pin(float (&acc)[2][kTerms][L]) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int s = 0; s < kTerms; ++s) ocean::tier::fence_operand(acc[c][s]);
+}
+
+// Consumer warpgroup wg's products of one ring slot (chunk c: k1 = 32 c ..
+// 32 c + 31) into acc, its n1 = 64 wg .. 64 wg + 63 the product's N: two
+// k-steps of complex_kstep, one commit group, not awaited.
 template <int kTerms>
-__device__ __forceinline__ void put_tile(uint32_t* data, int plane, int r, int k, float v) {
-  uint16_t hi, lo;
-  ocean::tier::split1(v, hi, lo);
-  uint16_t* h = reinterpret_cast<uint16_t*>(data + ((plane * kTerms) * kTierRows + r) * kLd1);
-  h[k] = hi;
-  if constexpr (kTerms == 2) h[2 * kTierRows * kLd1 + k] = lo;
+__device__ __forceinline__ void chunk_product(float (&acc)[2][kTerms][kN1 / kConsumers / 2],
+                                              const uint16_t* table, const uint16_t* slot, int c,
+                                              int wg) {
+  namespace tr = ocean::tier;
+  constexpr int kC = kN1 / kConsumers;
+  // Bytes between an operand's two core matrices of a k-step (along K) and
+  // between neighbours along M or N.
+  constexpr uint32_t kAk = (kItemRows / 8) * 128, kBk = (kN1 / 8) * 128, kMn = 128;
+  const uint64_t a0 = tr::smem_desc(slot, kAk, kMn);
+  const uint64_t b0 = tr::smem_desc(table + kC / 8 * wg * 64, kBk, kMn);
+  pin(acc);
+  tr::wgmma_fence();
+#pragma unroll
+  for (int q = 0; q < kChunkK / 16; ++q) {  // offsets in 16-byte units: bf16 / 8
+    complex_kstep<kC, kTerms, kTerms * kChunkPart / 8, kChunkPart / 8, kTablePlane / 8,
+                  2 * kTablePlane / 8>(acc, a0 + tr::core_at(0, 16 * q, kItemRows) / 8,
+                                       b0 + tr::core_at(0, kChunkK * c + 16 * q, kN1) / 8);
+  }
+  tr::wgmma_commit();
+}
+
+// Copies `count` bf16 of a wgmma table into shared memory (every thread of
+// the block) and makes them visible to wgmma.
+__device__ __forceinline__ void load_table(uint16_t* table, const uint4* __restrict__ tab,
+                                           int count) {
+  uint4* t = reinterpret_cast<uint4*>(table);
+  for (int i = threadIdx.x; i < count / 8; i += blockDim.x) t[i] = __ldg(tab + i);
+  ocean::tier::fence_async_smem();
 }
 
 // (a_r + i a_i) T, as the plain version's FP32 twiddle rounds it.
@@ -742,272 +850,518 @@ __device__ __forceinline__ float2 twiddled(float ar, float ai, float tr_, float 
                      __fadd_rn(__fmul_rn(ar, ti_), __fmul_rn(ai, tr_)));
 }
 
-template <int LOG2N, int kTerms, bool kWindows>
-__global__ void __launch_bounds__(kTierThreads) fourstep_row_tier1(
-    const float* __restrict__ h0, const float* __restrict__ omega, ocean::StateWindows w,
-    const uint4* __restrict__ w1frag, const float* __restrict__ ttr,
-    const float* __restrict__ tti, const float* __restrict__ ts, int tb, int rows, int row_base,
-    float scale, int wrap_k, int conj_neg, float* __restrict__ b) {
+// The ring: slot k % S holds the k-th chunk a block hands over (counted over
+// its items), in use k / S of the slot. full[s] completes when the
+// producers' kProducerThreads have written slot s, empty[s] when the
+// consumers' kConsumerThreads are done reading it.
+template <int kStages>
+struct Ring {
+  uint16_t* slots;
+  uint64_t* full;
+  uint64_t* empty;
+  int slot_size;
+
+  __device__ uint16_t* producer_acquire(uint32_t k) const {
+    ocean::tier::mbar_wait(empty + k % kStages, ((k / kStages) & 1) ^ 1);
+    return slots + (k % kStages) * slot_size;
+  }
+  __device__ void producer_commit(uint32_t k) const {
+    ocean::tier::fence_async_smem();  // the parts' stores, seen by wgmma
+    ocean::tier::mbar_arrive(full + k % kStages);
+  }
+  __device__ const uint16_t* consumer_wait(uint32_t k) const {
+    ocean::tier::mbar_wait(full + k % kStages, (k / kStages) & 1);
+    return slots + (k % kStages) * slot_size;
+  }
+  __device__ void consumer_release(uint32_t k) const {
+    ocean::tier::mbar_arrive(empty + k % kStages);
+  }
+};
+
+// The start of a stage-1 kernel: shared memory carved as Stage1Smem says,
+// W1 (and W2cat) copied in, the ring's mbarriers set up.
+template <class S>
+__device__ __forceinline__ Ring<S::kStages> stage1_setup(uint16_t* smem, const uint4* w1tab,
+                                                         const uint4* w2tab) {
+  load_table(smem, w1tab, S::kTable);
+  if constexpr (S::kFused) load_table(smem + S::kTable, w2tab, S::kW2);
+  uint16_t* slots = smem + S::kTable + S::kW2 + S::kTiles;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(slots + S::kStages * S::kSlot);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::kStages; ++s) {
+      ocean::tier::mbar_init(bars + s, kProducerThreads);
+      ocean::tier::mbar_init(bars + S::kStages + s, kConsumerThreads);
+    }
+  }
+  __syncthreads();  // the tables' copies and the barriers, before any role reads them
+  return Ring<S::kStages>{slots, bars, bars + S::kStages, S::kSlot};
+}
+
+// A consumer warpgroup's item: the four chunks' products, each slot freed
+// once the products that read it are done; acc holds the item's Yr, Yi.
+template <int kTerms, int kStages>
+__device__ __forceinline__ void consume_item(float (&acc)[2][kTerms][kN1 / kConsumers / 2],
+                                             const uint16_t* table, const Ring<kStages>& ring,
+                                             uint32_t& k, int wg) {
+  namespace tr = ocean::tier;
+  tr::zero(acc[0]);
+  tr::zero(acc[1]);
+#pragma unroll 1
+  for (int c = 0; c < kChunks; ++c, ++k) {
+    chunk_product<kTerms>(acc, table, ring.consumer_wait(k), c, wg);
+    if (c > 0) {
+      tr::wgmma_wait<1>();  // the previous chunk's products are done
+      pin(acc);
+      ring.consumer_release(k - 1);
+    }
+  }
+  tr::wgmma_wait<0>();
+  pin(acc);
+  ring.consumer_release(k - 1);
+}
+
+// K2t's stage 2 in the block (N <= 4096) on consumer warpgroup wg's 64 n1
+// of an item, 32 at a time: the twiddled stage-1 values (acc) as bf16 hi
+// (and lo) into the warpgroup's tile, [term][sub-row][core_at(32 p + n1 %
+// 32, k, 64)] with k = k2 (Re) and N2 + k2 (Im); then for each of the
+// item's 32 / N2 rows the product by W2cat^T (m64 nN k16 over at most 32
+// outputs o at a time: rows (p, n1), output o < N2 Re n2 = o, else Im) into
+// Y at x = n1 + 128 n2. warp: the warp of the warpgroup (0 .. 3).
+template <int LOG2N, int kTerms>
+__device__ __forceinline__ void row_stage2(const float (&acc)[2][kTerms][kN1 / kConsumers / 2],
+                                           uint16_t* tile, const uint16_t* w2,
+                                           const float* __restrict__ ttr,
+                                           const float* __restrict__ tti, int wg, int warp,
+                                           int lane, int frame, int f0, int rows,
+                                           float* __restrict__ y) {
   namespace tr = ocean::tier;
   constexpr int n = 1 << LOG2N;
   constexpr int log2n2 = LOG2N - kLog2N1;
   constexpr int n2 = 1 << log2n2;
-  extern __shared__ uint4 smem4[];
-  uint4* table = smem4;
-  uint32_t* data = reinterpret_cast<uint32_t*>(smem4 + kTerms * kW1Frags);
-  load_table<kTerms>(table, w1frag);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int chunks = (rows * n2 + kTierRows - 1) / kTierRows;
-  for (int item = blockIdx.x; item < chunks * tb; item += gridDim.x) {
-    const int frame = item / chunks;
-    const int f0 = (item % chunks) * kTierRows;  // first (row, k2) = row n2 + k2
-    const float t = ts[frame];
-    for (int e = threadIdx.x; e < kTierRows * kN1; e += kTierThreads) {
-      const int r = e % kTierRows, k1 = e / kTierRows;
-      const int f = f0 + r;
-      ocean::PackedSpectra p{0.0f, 0.0f, 0.0f, 0.0f};
-      if ((f >> log2n2) < rows) {
-        p = row_propagate<kWindows>(h0, omega, w, n, row_base + (f >> log2n2),
-                                    k1 * n2 + (f & (n2 - 1)), t, scale, wrap_k, conj_neg);
-      }
-      put_tile<kTerms>(data, 0, r, k1, p.hr);
-      put_tile<kTerms>(data, 0, r, kN1 + k1, p.hi);
-      put_tile<kTerms>(data, 1, r, k1, p.zr);
-      put_tile<kTerms>(data, 1, r, kN1 + k1, p.zi);
-    }
-    __syncthreads();  // also orders the table's copy before its first read
-    float acc[2][2][2][kTerms][4];
-    stage1_product<kTerms>(acc, data, table, warp, lane);
+  constexpr int kSub = kItemVecs / n2;       // rows an item
+  constexpr int kK2 = 2 * n2;                // stage 2's K and N
+  constexpr int kBlock = kItemRows * kK2;    // bf16 of a sub-row's operand, a term
+  constexpr int kTile = kSub * kBlock;       // a term
+  // The product's N: at most 32 outputs at a time (all 64 at N2 = 32 with
+  // the rest of stage 1's accumulators spilled at the consumers' 176).
+  constexpr int kN = kK2 < 32 ? kK2 : 32;
+  constexpr int kC = kN1 / kConsumers;
+  const int g = lane / 4, t4 = lane % 4;
+  const int p = warp / 2;  // stage 1's rows 16 warp + g + 8 h: H's vectors, then Z's
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int f = f0 + lane / 4 + 8 * h;
-      const int row = f >> log2n2, k2 = f & (n2 - 1);
-      if (row >= rows) continue;
+      const int vec = 16 * (warp % 2) + g + 8 * h;
+      const int k2 = vec & (n2 - 1);
+      uint16_t* block = tile + (vec >> log2n2) * kBlock;
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int n1 = 8 * (warp + 8 * jj) + 2 * (lane % 4);
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = 4 * half + jj;
+        const int n1 = kC * wg + 8 * j + 2 * t4;
         const float2 c = *reinterpret_cast<const float2*>(ttr + k2 * kN1 + n1);
         const float2 si = *reinterpret_cast<const float2*>(tti + k2 * kN1 + n1);
+        const int i = 4 * j + 2 * h;
 #pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          const float2 v0 = twiddled(tr::total(acc[jj][0][p], 2 * h),
-                                     tr::total(acc[jj][1][p], 2 * h), c.x, si.x);
-          const float2 v1 = twiddled(tr::total(acc[jj][0][p], 2 * h + 1),
-                                     tr::total(acc[jj][1][p], 2 * h + 1), c.y, si.y);
-          float* o = b + ((static_cast<size_t>(frame) * rows + row) * 4 + 2 * p) * n +
-                     k2 * kN1 + n1;
-          *reinterpret_cast<float2*>(o) = make_float2(v0.x, v1.x);      // Re
-          *reinterpret_cast<float2*>(o + n) = make_float2(v0.y, v1.y);  // Im
+        for (int e = 0; e < 2; ++e) {
+          const float2 v = twiddled(tr::total(acc[0], i + e), tr::total(acc[1], i + e),
+                                    e ? c.y : c.x, e ? si.y : si.x);
+          const int r = 32 * p + 8 * jj + 2 * t4 + e;
+          uint16_t hi, lo;
+          tr::split1(v.x, hi, lo);
+          block[tr::core_at(r, k2, kItemRows)] = hi;
+          if constexpr (kTerms == 2) block[kTile + tr::core_at(r, k2, kItemRows)] = lo;
+          tr::split1(v.y, hi, lo);
+          block[tr::core_at(r, n2 + k2, kItemRows)] = hi;
+          if constexpr (kTerms == 2) block[kTile + tr::core_at(r, n2 + k2, kItemRows)] = lo;
         }
       }
     }
-    __syncthreads();  // the tiles are read before the next item writes them
+    tr::fence_async_smem();
+    tr::bar_sync(1 + wg, 128);  // the warpgroup's tile is written
+#pragma unroll 1
+    for (int part = 0; part < kSub * (kK2 / kN); ++part) {  // (sub-row, 32 outputs)
+      const int sub = part / (kK2 / kN), o0 = kN * (part % (kK2 / kN));
+      float acc2[kTerms][kN / 2];
+      tr::zero(acc2);
+#pragma unroll
+      for (int s = 0; s < kTerms; ++s) tr::fence_operand(acc2[s]);
+      tr::wgmma_fence();
+      const uint64_t a0 = tr::smem_desc(tile + sub * kBlock, (kItemRows / 8) * 128, 128);
+      const uint64_t b0 = tr::smem_desc(w2 + tr::core_at(o0, 0, kK2), (kK2 / 8) * 128, 128);
+#pragma unroll
+      for (int q = 0; q < kK2 / 16; ++q) {
+        uint64_t a[kTerms], b[kTerms];
+#pragma unroll
+        for (int s = 0; s < kTerms; ++s) {
+          a[s] = a0 + (s * kTile + tr::core_at(0, 16 * q, kItemRows)) / 8;
+          b[s] = b0 + (s * kK2 * kK2 + tr::core_at(0, 16 * q, kK2)) / 8;
+        }
+        tr::wgmma_tier<kN>(acc2, a, b);
+      }
+      tr::wgmma_commit();
+      tr::wgmma_wait<0>();
+#pragma unroll
+      for (int s = 0; s < kTerms; ++s) tr::fence_operand(acc2[s]);
+      const int row = (f0 >> log2n2) + sub;
+      if (row < rows) {
+#pragma unroll
+        for (int j2 = 0; j2 < kN / 8; ++j2) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int o = o0 + 8 * j2 + 2 * t4 + (i & 1);
+            const int r = 16 * warp + g + 8 * (i >> 1);
+            const int n1 = kC * wg + 32 * half + (r & 31);
+            const size_t at = (((static_cast<size_t>(frame) * 2 + (r >> 5)) * 2 + (o >> log2n2)) *
+                                   rows + row) * n + n1 + kN1 * (o & (n2 - 1));
+            y[at] = tr::total(acc2, 4 * j2 + i);
+          }
+        }
+      }
+    }
+    tr::bar_sync(1 + wg, 128);  // the tile is read before the next half writes it
   }
 }
 
-// Words a row of a stage-2 tile: 2 N2 bf16 + 8 pad (conflict-free A fragments).
-template <int LOG2N>
-constexpr int kLd2 = (1 << (LOG2N - kLog2N1)) + 4;
-
-template <int LOG2N, int kTerms>
-__global__ void __launch_bounds__(kTierThreads) fourstep_row_tier2(
-    const float* __restrict__ b, const uint2* __restrict__ w2frag, int rows,
-    float* __restrict__ y) {
+template <int LOG2N, int kTerms, bool kWindows>
+__global__ void __launch_bounds__(kStage1Threads, 1) fourstep_row_tier1(
+    const float* __restrict__ h0, const float* __restrict__ omega, ocean::StateWindows w,
+    const uint4* __restrict__ w1tab, const uint4* __restrict__ w2tab,
+    const float* __restrict__ ttr, const float* __restrict__ tti, const float* __restrict__ ts,
+    int tb, int rows, int row_base, float scale, int wrap_k, int conj_neg,
+    float* __restrict__ out) {
   namespace tr = ocean::tier;
+  using S = Stage1Smem<LOG2N, kTerms, true>;
   constexpr int n = 1 << LOG2N;
-  constexpr int n2 = n / kN1;
-  constexpr int ldw = kLd2<LOG2N>;
-  constexpr int ksteps = 2 * n2 / 16;
-  extern __shared__ uint32_t tiles[];  // [term][n1][k2' pairs]
-  const int row = blockIdx.x, plane = blockIdx.y, frame = blockIdx.z;
-  const float* src = b + ((static_cast<size_t>(frame) * rows + row) * 4 + 2 * plane) * n;
-  for (int e = threadIdx.x; e < n2 * kN1; e += kTierThreads) {
-    const int n1 = e % kN1, k = e / kN1;  // k2' = 2 k, 2 k + 1 (Re k2 < N2, then Im)
-    uint32_t hi, lo;
-    tr::split2(src[2 * k * kN1 + n1], src[(2 * k + 1) * kN1 + n1], hi, lo);
-    tiles[n1 * ldw + k] = hi;
-    if constexpr (kTerms == 2) tiles[(kN1 + n1) * ldw + k] = lo;
-  }
-  __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* yf = y + (static_cast<size_t>(frame) * 4 + 2 * plane) * rows * n +
-              static_cast<size_t>(row) * n;
-  for (int nt = warp; nt < 2 * n2 / 8; nt += kTierWarps) {
-    float acc[8][kTerms][4];
+  constexpr int log2n2 = LOG2N - kLog2N1;
+  constexpr int n2 = 1 << log2n2;
+  extern __shared__ uint4 smem4[];
+  uint16_t* table = reinterpret_cast<uint16_t*>(smem4);
+  const auto ring = stage1_setup<S>(table, w1tab, w2tab);
+  const int chunks = (rows * n2 + kItemVecs - 1) / kItemVecs;  // items a frame
+  const int wg = threadIdx.x / 128;
+  uint32_t k = 0;  // chunks handed over
+  if (wg >= kConsumers) {
+    // Producer: task u of a chunk forms vector u % 32 at k1 = 32 c + 4 (u /
+    // 32) + i; thread pt takes the tasks pt, pt + kProducerThreads, ...
+    tr::setmaxnreg_dec<S::kProducerRegs>();
+    const int pt = threadIdx.x - kConsumerThreads;
+    const int vec = pt % 32;
+    for (int item = blockIdx.x; item < chunks * tb; item += gridDim.x) {
+      const int frame = item / chunks;
+      const int f = (item % chunks) * kItemVecs + vec;  // (row, k2) = row n2 + k2
+      const int row = f >> log2n2, k2 = f & (n2 - 1);
+      const float t = ts[frame];
+#pragma unroll 1
+      for (int c = 0; c < kChunks; ++c, ++k) {
+        constexpr int kTasks = kProducerTasks / kProducerThreads;
+        float hr[kTasks][4], hi[kTasks][4], zr[kTasks][4], zi[kTasks][4];
 #pragma unroll
-    for (int mt = 0; mt < 8; ++mt) tr::zero(acc[mt]);
-    for (int ks = 0; ks < ksteps; ++ks) {
-      uint32_t bf[kTerms][2];
+        for (int u = 0; u < kTasks; ++u) {
+          const int kl = 4 * ((pt + u * kProducerThreads) / 32);
 #pragma unroll
-      for (int s = 0; s < kTerms; ++s) {
-        const uint2 f = __ldg(w2frag + ((nt * ksteps + ks) * kTerms + s) * 32 + lane);
-        bf[s][0] = f.x;
-        bf[s][1] = f.y;
-      }
+          for (int i = 0; i < 4; ++i) {
+            ocean::PackedSpectra e{0.0f, 0.0f, 0.0f, 0.0f};
+            if (row < rows) {
+              e = row_propagate<kWindows>(h0, omega, w, n, row_base + row,
+                                          (kChunkK * c + kl + i) * n2 + k2, t, scale, wrap_k,
+                                          conj_neg);
+            }
+            hr[u][i] = e.hr;
+            hi[u][i] = e.hi;
+            zr[u][i] = e.zr;
+            zi[u][i] = e.zi;
+          }
+        }
+        uint16_t* slot = ring.producer_acquire(k);
 #pragma unroll
-      for (int mt = 0; mt < 8; ++mt) {
-        uint32_t a[kTerms][4];
-#pragma unroll
-        for (int s = 0; s < kTerms; ++s)
-          tr::load_a(a[s], tiles + (s * kN1 + 16 * mt) * ldw, ldw, ks, lane);
-        tr::mma_tier(acc[mt], a, bf);
+        for (int u = 0; u < kTasks; ++u) {
+          const int kl = 4 * ((pt + u * kProducerThreads) / 32);
+          put4<kTerms, kChunkPart>(slot, vec, kl, hr[u], false);
+          put4<kTerms, kChunkPart>(slot, vec, kl, hi[u], true);
+          put4<kTerms, kChunkPart>(slot, kItemVecs + vec, kl, zr[u], false);
+          put4<kTerms, kChunkPart>(slot, kItemVecs + vec, kl, zi[u], true);
+        }
+        ring.producer_commit(k);
       }
     }
+    return;
+  }
+  tr::setmaxnreg_inc<S::kConsumerRegs>();
+  constexpr int kC = kN1 / kConsumers;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  for (int item = blockIdx.x; item < chunks * tb; item += gridDim.x) {
+    const int frame = item / chunks;
+    const int f0 = (item % chunks) * kItemVecs;  // the item's first (row, k2)
+    float acc[2][kTerms][kC / 2];
+    consume_item<kTerms>(acc, table, ring, k, wg);
+    if constexpr (S::kFused) {
+      uint16_t* tile = table + S::kTable + S::kW2 + wg * kTerms * S::kTile;
+      row_stage2<LOG2N, kTerms>(acc, tile, table + S::kTable, ttr, tti, wg, warp, lane, frame,
+                                f0, rows, out);
+    } else {
+      // B to the scratch (tb, rows, 2, 2, N2, 128). Warp w of the warpgroup
+      // holds rows 16 w + g + 8 h: plane w / 2.
+      const int p = warp / 2;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int o = 8 * nt + 2 * (lane % 4) + (i & 1);  // output row of W2cat
-      float* dst = yf + (o >= n2 ? static_cast<size_t>(rows) * n : 0) + (o & (n2 - 1)) * kN1 +
-                   lane / 4 + 8 * (i >> 1);
+      for (int h = 0; h < 2; ++h) {
+        const int f = f0 + 16 * (warp % 2) + lane / 4 + 8 * h;
+        const int row = f >> log2n2, k2 = f & (n2 - 1);
+        if (row >= rows) continue;
+        float* o = out + ((static_cast<size_t>(frame) * rows + row) * 4 + 2 * p) * n + k2 * kN1;
 #pragma unroll
-      for (int mt = 0; mt < 8; ++mt) dst[16 * mt] = tr::total(acc[mt], i);
+        for (int j = 0; j < kC / 8; ++j) {
+          const int n1 = kC * wg + 8 * j + 2 * (lane % 4);
+          const float2 c = *reinterpret_cast<const float2*>(ttr + k2 * kN1 + n1);
+          const float2 si = *reinterpret_cast<const float2*>(tti + k2 * kN1 + n1);
+          const int i = 4 * j + 2 * h;
+          const float2 v0 = twiddled(tr::total(acc[0], i), tr::total(acc[1], i), c.x, si.x);
+          const float2 v1 =
+              twiddled(tr::total(acc[0], i + 1), tr::total(acc[1], i + 1), c.y, si.y);
+          *reinterpret_cast<float2*>(o + n1) = make_float2(v0.x, v1.x);      // Re
+          *reinterpret_cast<float2*>(o + n + n1) = make_float2(v0.y, v1.y);  // Im
+        }
+      }
     }
   }
 }
 
 template <int LOG2N, int kTerms>
-__global__ void __launch_bounds__(kTierThreads) fourstep_col_tier1(
-    const float* __restrict__ y, const uint4* __restrict__ w1frag,
+__global__ void __launch_bounds__(kStage1Threads, 1) fourstep_col_tier1(
+    const float* __restrict__ y, const uint4* __restrict__ w1tab,
     const float* __restrict__ ttr, const float* __restrict__ tti, int tb, int cols,
     float* __restrict__ b) {
   namespace tr = ocean::tier;
+  using S = Stage1Smem<LOG2N, kTerms, false>;
   constexpr int n = 1 << LOG2N;
   constexpr int n2 = n / kN1;
   extern __shared__ uint4 smem4[];
-  uint4* table = smem4;
-  uint32_t* data = reinterpret_cast<uint32_t*>(smem4 + kTerms * kW1Frags);
-  load_table<kTerms>(table, w1frag);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int chunks = cols / kTierRows;
+  uint16_t* table = reinterpret_cast<uint16_t*>(smem4);
+  const auto ring = stage1_setup<S>(table, w1tab, nullptr);
+  const int bands = cols / kItemVecs;
   const size_t plane_sz = static_cast<size_t>(n) * cols;
-  const int bands = cols / kTierCols;
-  for (int item = blockIdx.x; item < tb * n2 * chunks; item += gridDim.x) {
-    const int frame = item / (n2 * chunks);
-    const int m2 = (item / chunks) % n2;
-    const int c0 = (item % chunks) * kTierRows;
-    const float* yf = y + static_cast<size_t>(frame) * 4 * plane_sz + c0;
-    for (int e = threadIdx.x; e < 4 * (kN1 / 2) * kTierRows; e += kTierThreads) {
-      const int c = e % kTierRows;
-      const int k = (e / kTierRows) % (kN1 / 2);  // m1 = 2 k, 2 k + 1
-      const int q = e / (kTierRows * kN1 / 2);    // plane (H, Z) x (Re, Im)
-      const float* src = yf + q * plane_sz + static_cast<size_t>(2 * k * n2 + m2) * cols + c;
-      uint32_t hi, lo;
-      tr::split2(src[0], src[static_cast<size_t>(n2) * cols], hi, lo);
-      uint32_t* row = data + ((q >> 1) * kTerms * kTierRows + c) * kLd1 + (q & 1) * (kN1 / 2) + k;
-      row[0] = hi;
-      if constexpr (kTerms == 2) row[kTierRows * kLd1] = lo;
-    }
-    __syncthreads();
-    float acc[2][2][2][kTerms][4];
-    stage1_product<kTerms>(acc, data, table, warp, lane);
+  const int wg = threadIdx.x / 128;
+  uint32_t k = 0;
+  if (wg >= kConsumers) {
+    // Producer: task u of a chunk loads column u % 32 of the 4 planes at m1
+    // = 32 c + 4 (u / 32) + i (a warp a 128-byte line a row); thread pt takes
+    // the tasks pt, pt + kProducerThreads, ...
+    tr::setmaxnreg_dec<S::kProducerRegs>();
+    const int pt = threadIdx.x - kConsumerThreads;
+    const int col = pt % 32;
+    for (int item = blockIdx.x; item < tb * n2 * bands; item += gridDim.x) {
+      const int frame = item / (n2 * bands);
+      const int m2 = (item / bands) % n2;
+      const int band = item % bands;
+      const float* yf = y + static_cast<size_t>(frame) * 4 * plane_sz + band * kItemVecs + col;
+#pragma unroll 1
+      for (int c = 0; c < kChunks; ++c, ++k) {
+        constexpr int kTasks = kProducerTasks / kProducerThreads;
+        float v[kTasks][4][4];  // task, plane (H, Z) x (Re, Im), m1
 #pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
+        for (int u = 0; u < kTasks; ++u) {
+          const int kl = 4 * ((pt + u * kProducerThreads) / 32);
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              v[u][q][i] = __ldg(yf + q * plane_sz +
+                                 static_cast<size_t>((kChunkK * c + kl + i) * n2 + m2) * cols);
+        }
+        uint16_t* slot = ring.producer_acquire(k);
+#pragma unroll
+        for (int u = 0; u < kTasks; ++u) {
+          const int kl = 4 * ((pt + u * kProducerThreads) / 32);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            put4<kTerms, kChunkPart>(slot, kItemVecs * (q >> 1) + col, kl, v[u][q], (q & 1) != 0);
+          }
+        }
+        ring.producer_commit(k);
+      }
+    }
+    return;
+  }
+  tr::setmaxnreg_inc<S::kConsumerRegs>();
+  constexpr int kC = kN1 / kConsumers;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int p = warp / 2;
+  for (int item = blockIdx.x; item < tb * n2 * bands; item += gridDim.x) {
+    const int frame = item / (n2 * bands);
+    const int m2 = (item / bands) % n2;
+    const int band = item % bands;
+    float acc[2][kTerms][kC / 2];
+    consume_item<kTerms>(acc, table, ring, k, wg);
+#pragma unroll
+    for (int j = 0; j < kC / 8; ++j) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int n1 = 8 * (warp + 8 * jj) + 2 * (lane % 4) + (i & 1);
-        const int col = c0 + lane / 4 + 8 * (i >> 1);
-        const float c = ttr[n1 * n2 + m2], si = tti[n1 * n2 + m2];
+        const int n1 = kC * wg + 8 * j + 2 * (lane % 4) + (i & 1);
+        const int c = 16 * (warp % 2) + lane / 4 + 8 * (i >> 1);
+        const float2 v = twiddled(tr::total(acc[0], 4 * j + i), tr::total(acc[1], 4 * j + i),
+                                  ttr[n1 * n2 + m2], tti[n1 * n2 + m2]);
+        float* o = b + ((((static_cast<size_t>(frame) * bands + band) * kN1 + n1) * 2 + p) * 2) *
+                           n2 * kTierCols + m2 * kTierCols + c;
+        o[0] = v.x;                   // Re
+        o[n2 * kTierCols] = v.y;      // Im
+      }
+    }
+  }
+}
+
+// Stage 2 from the scratch at N2 = 2^LOG2N2: the product's K a half (N2, at
+// least one 16-term k-step), its warpgroups (two at N2 = 128, each 64 n2,
+// else one) and N a warpgroup, the shared memory (W2's planes, then the A
+// parts).
+template <int LOG2N2, int kTerms>
+struct Tier2 {
+  static constexpr int kN2 = 1 << LOG2N2;
+  static constexpr int kK = kN2 < 16 ? 16 : kN2;
+  static constexpr int kGroups = kN2 == kN1 ? 2 : 1;
+  static constexpr int kN = kN2 / kGroups;
+  static constexpr int kPlane = kN2 * kK;        // bf16 of a W2 plane and term
+  static constexpr int kPart = kItemRows * kK;   // bf16 of an A part and term
+  static constexpr int kTable = 2 * kTerms * kPlane;
+  static constexpr size_t kBytes = 2 * static_cast<size_t>(kTable + kParts * kTerms * kPart);
+};
+
+// fourstep_tier2: K2t's (kRow) or K3t's stage 2 from the scratch.
+template <int LOG2N, int kTerms, bool kRow>
+__global__ void __launch_bounds__(128 * Tier2<LOG2N - kLog2N1, kTerms>::kGroups) fourstep_tier2(
+    const float* __restrict__ b, const uint4* __restrict__ w2tab, int tb, int count, int cols,
+    float* __restrict__ out, float* __restrict__ partials, int stride) {
+  namespace tr = ocean::tier;
+  using W = Tier2<LOG2N - kLog2N1, kTerms>;
+  constexpr int n = 1 << LOG2N;
+  constexpr int n2 = W::kN2;
+  constexpr int kThreads = 128 * W::kGroups;
+  extern __shared__ uint4 smem4[];
+  __shared__ float red[4 * W::kGroups];
+  uint16_t* table = reinterpret_cast<uint16_t*>(smem4);
+  uint16_t* parts = table + W::kTable;
+  if constexpr (W::kK > n2) {  // the padded k of the parts stay zero
+    for (int i = threadIdx.x; i < kParts * kTerms * W::kPart / 8; i += kThreads) {
+      reinterpret_cast<uint4*>(parts)[i] = make_uint4(0, 0, 0, 0);
+    }
+  }
+  load_table(table, w2tab, W::kTable);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  // items: (row, 32 n1) for K2t, count = rows; (n1, 32 columns) for K3t,
+  // count = column bands
+  const int items = tb * count * (kRow ? kN1 / kItemVecs : kN1);
+  const size_t plane = static_cast<size_t>(n) * cols;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    int frame, unit, sub;  // K2t: row, first n1; K3t: band, n1
+    if constexpr (kRow) {
+      frame = item / (count * (kN1 / kItemVecs));
+      unit = (item / (kN1 / kItemVecs)) % count;
+      sub = (item % (kN1 / kItemVecs)) * kItemVecs;
+    } else {
+      frame = item / (count * kN1);
+      unit = (item / kN1) % count;
+      sub = item % kN1;
+    }
+    __syncthreads();  // the previous item's parts are read
+    // The loader: task (p, 4 k2, vector v): re and im of 4 k2, 8 loads; a
+    // fixed count a thread, unrolled by 4, so that 4 tasks' loads are in
+    // flight together.
+    constexpr int kTasks = 2 * (n2 / 4) * kItemVecs;
+    static_assert(kTasks % kThreads == 0, "whole rounds of the loader's tasks");
+#pragma unroll 4
+    for (int round = 0; round < kTasks / kThreads; ++round) {
+      const int e = threadIdx.x + round * kThreads;
+      const int v = e % kItemVecs, kq = (e / kItemVecs) % (n2 / 4), p = e / (kItemVecs * n2 / 4);
+      float re[4], im[4];
 #pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          const float2 v = twiddled(tr::total(acc[jj][0][p], i), tr::total(acc[jj][1][p], i), c,
-                                    si);
-          float* o = b + ((((static_cast<size_t>(frame) * bands + col / kTierCols) * kN1 + n1) *
-                               2 + p) * 2) * n2 * kTierCols + m2 * kTierCols + col % kTierCols;
-          o[0] = v.x;                   // Re
-          o[n2 * kTierCols] = v.y;      // Im
+      for (int i = 0; i < 4; ++i) {
+        const int k2 = 4 * kq + i;
+        if constexpr (kRow) {  // scratch (tb, rows, 2, 2, N2, 128)
+          const float* s = b + ((static_cast<size_t>(frame) * count + unit) * 4 + 2 * p) * n +
+                           k2 * kN1 + sub + v;
+          re[i] = __ldg(s);
+          im[i] = __ldg(s + n);
+        } else {  // scratch (tb, bands, 128, 2, 2, N2, 32)
+          const float* s =
+              b + ((((static_cast<size_t>(frame) * count + unit) * kN1 + sub) * 2 + p) * 2) * n2 *
+                      kTierCols + k2 * kTierCols + v;
+          re[i] = __ldg(s);
+          im[i] = __ldg(s + n2 * kTierCols);
+        }
+      }
+      put4<kTerms, W::kPart>(parts, kItemVecs * p + v, 4 * kq, re, false);
+      put4<kTerms, W::kPart>(parts, kItemVecs * p + v, 4 * kq, im, true);
+    }
+    tr::fence_async_smem();
+    __syncthreads();
+    float acc[2][kTerms][W::kN / 2];
+    tr::zero(acc[0]);
+    tr::zero(acc[1]);
+    pin(acc);
+    tr::wgmma_fence();
+    {
+      const uint64_t a0 = tr::smem_desc(parts, (kItemRows / 8) * 128, 128);
+      const uint64_t b0 = tr::smem_desc(table + tr::core_at(W::kN * wg, 0, n2), (n2 / 8) * 128, 128);
+#pragma unroll
+      for (int q = 0; q < W::kK / 16; ++q) {
+        complex_kstep<W::kN, kTerms, kTerms * W::kPart / 8, W::kPart / 8, W::kPlane / 8,
+                      2 * W::kPlane / 8>(acc, a0 + tr::core_at(0, 16 * q, kItemRows) / 8,
+                                         b0 + tr::core_at(0, 16 * q, n2) / 8);
+      }
+    }
+    tr::wgmma_commit();
+    tr::wgmma_wait<0>();
+    pin(acc);
+    const int p = (warp % 4) / 2;  // 0: H, 1: Z
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < W::kN / 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int o = W::kN * wg + 8 * j + 2 * (lane % 4) + (i & 1);  // n2
+        const int v = 16 * (warp % 2) + lane / 4 + 8 * (i >> 1);
+        const float re = tr::total(acc[0], 4 * j + i);
+        const float im = tr::total(acc[1], 4 * j + i);
+        if constexpr (kRow) {  // Y (tb, 2, 2, rows, N) at x = n1 + 128 n2
+          float* yp = out + ((static_cast<size_t>(frame) * 4 + 2 * p) * count + unit) * n + sub +
+                      v + kN1 * o;
+          yp[0] = re;
+          yp[static_cast<size_t>(count) * n] = im;
+        } else {  // the planes (tb, 3, N, cols) at row n1 + 128 n2
+          float* of = out + static_cast<size_t>(frame) * 3 * plane +
+                      static_cast<size_t>(sub + kN1 * o) * cols + unit * kTierCols + v;
+          if (p == 0) {
+            of[plane] = re;  // height
+            sum += re;
+          } else {
+            of[0] = re;          // disp_x
+            of[2 * plane] = im;  // disp_z
+            sum += re + im;
+          }
         }
       }
     }
-    __syncthreads();
-  }
-}
-
-template <int LOG2N, int kTerms>
-__global__ void __launch_bounds__(kTierThreads) fourstep_col_tier2(
-    const float* __restrict__ b, const uint2* __restrict__ w2frag, int cols,
-    float* __restrict__ out, float* __restrict__ partials, int stride) {
-  namespace tr = ocean::tier;
-  constexpr int n = 1 << LOG2N;
-  constexpr int n2 = n / kN1;
-  constexpr int ldw = kLd2<LOG2N>;
-  constexpr int ksteps = 2 * n2 / 16;
-  extern __shared__ uint32_t tiles[];  // [plane][term][32 columns][k2' pairs]
-  __shared__ float red[kTierWarps];
-  const int n1 = blockIdx.x, band = blockIdx.y, frame = blockIdx.z;
-  const float* src = b + ((static_cast<size_t>(frame) * gridDim.y + band) * kN1 + n1) * 4 * n2 *
-                             kTierCols;
-  for (int e = threadIdx.x; e < 2 * n2 * kTierCols; e += kTierThreads) {
-    const int c = e % kTierCols, k = (e / kTierCols) % n2, p = e / (kTierCols * n2);
-    const float* s = src + (p * 2 * n2 + 2 * k) * kTierCols + c;
-    uint32_t hi, lo;
-    tr::split2(s[0], s[kTierCols], hi, lo);
-    uint32_t* row = tiles + ((p * kTerms) * kTierCols + c) * ldw + k;
-    row[0] = hi;
-    if constexpr (kTerms == 2) row[kTierCols * ldw] = lo;
-  }
-  __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t plane = static_cast<size_t>(n) * cols;
-  float* of = out + static_cast<size_t>(frame) * 3 * plane + band * kTierCols + lane / 4;
-  float sum = 0.0f;
-  for (int nt = warp; nt < 2 * n2 / 8; nt += kTierWarps) {
-    const bool height = nt < n2 / 8;  // H's real rows: W2top
-    float acc[4][kTerms][4];          // m-tiles: H columns 0-15, 16-31, Z the same
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) tr::zero(acc[mt]);
-    for (int ks = 0; ks < ksteps; ++ks) {
-      uint32_t bf[kTerms][2];
-#pragma unroll
-      for (int s = 0; s < kTerms; ++s) {
-        const uint2 f = __ldg(w2frag + ((nt * ksteps + ks) * kTerms + s) * 32 + lane);
-        bf[s][0] = f.x;
-        bf[s][1] = f.y;
+    if (!kRow && partials != nullptr) {
+      for (int off = 16; off > 0; off >>= 1) sum += __shfl_down_sync(0xffffffffu, sum, off);
+      if (lane == 0) red[warp] = sum;
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        float total = 0.0f;
+        for (int i = 0; i < 4 * W::kGroups; ++i) total += red[i];
+        partials[static_cast<size_t>(frame) * stride + unit * kN1 + sub] = total;
       }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        if (mt < 2 && !height) continue;
-        uint32_t a[kTerms][4];
-#pragma unroll
-        for (int s = 0; s < kTerms; ++s)
-          tr::load_a(a[s], tiles + (((mt >> 1) * kTerms + s) * kTierCols + 16 * (mt & 1)) * ldw,
-                     ldw, ks, lane);
-        tr::mma_tier(acc[mt], a, bf);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int o = 8 * nt + 2 * (lane % 4) + (i & 1);  // output row of W2cat
-      const size_t ro = static_cast<size_t>((o & (n2 - 1)) * kN1 + n1) * cols + 8 * (i >> 1);
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        if (mt < 2 && !height) continue;
-        const float v = tr::total(acc[mt], i);
-        // H: height = Re; Z: disp_x = Re, disp_z = Im
-        const size_t q = mt < 2 ? plane : (o >= n2 ? 2 * plane : 0);
-        of[q + ro + 16 * (mt & 1)] = v;
-        sum += v;
-      }
-    }
-  }
-  if (partials != nullptr) {
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_down_sync(0xffffffffu, sum, off);
-    if (lane == 0) red[warp] = sum;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float total = 0.0f;
-      for (int i = 0; i < kTierWarps; ++i) total += red[i];
-      partials[static_cast<size_t>(frame) * stride + band * kN1 + n1] = total;
     }
   }
 }
 
-// The persistent grid of a stage-1 kernel: as many blocks as fit the card.
+// The persistent grid of a kernel: as many blocks as fit the card.
 template <class F>
-cudaError_t persistent_blocks(F* f, size_t smem, int items, int& blocks) {
+cudaError_t persistent_blocks(F* f, int threads, size_t smem, int items, int& blocks) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, f, kTierThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, f, threads, smem);
   }
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
@@ -1015,41 +1369,69 @@ cudaError_t persistent_blocks(F* f, size_t smem, int items, int& blocks) {
   return cudaSuccess;
 }
 
-// What a tiered launch reads besides K2's or K3's arguments: the tables'
-// fragments (W1 complex, W2cat real), the twiddles and the scratch.
+// A stage-1 kernel's shared-memory limit raised and its registers checked:
+// setmaxnreg moves registers between warpgroups of the launch's allocation,
+// so the kernel must have been compiled to kStage1Regs a thread.
+template <class F>
+int stage1_ready(F* f, size_t smem, bool (&done)[ocean::kMaxDevices]) {
+  cudaError_t err = ocean::allow_smem(f, smem, done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr{};
+  err = cudaFuncGetAttributes(&attr, f);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return attr.numRegs < kStage1Regs ? kErrStage1Registers : 0;
+}
+
+// What a tiered launch reads besides K2's or K3's arguments: W1's and W2's
+// wgmma tables, the twiddles and the scratch.
 struct TierArgs {
   int terms;
-  const void* w1frag;
-  const void* w2frag;
+  const void* w1tab;
+  const void* w2tab;
   const float* ttr;
   const float* tti;
   float* scratch;
 };
 
-template <int LOG2N, int kTerms, bool kWindows>
-int launch_row_tier(const RowArgs& a, const TierArgs& t, cudaStream_t st) {
-  constexpr int n2 = 1 << (LOG2N - kLog2N1);
-  constexpr size_t smem1 = stage1_smem<kTerms>();
-  constexpr size_t smem2 = static_cast<size_t>(kTerms) * kN1 * kLd2<LOG2N> * sizeof(uint32_t);
-  static bool ready1[ocean::kMaxDevices], ready2[ocean::kMaxDevices];
-  auto* k1 = fourstep_row_tier1<LOG2N, kTerms, kWindows>;
-  auto* k2 = fourstep_row_tier2<LOG2N, kTerms>;
-  cudaError_t err = ocean::allow_smem(k1, smem1, ready1);
-  if (err == cudaSuccess) err = ocean::allow_smem(k2, smem2, ready2);
+template <int LOG2N, int kTerms>
+int launch_tier2(const float* scratch, const void* w2tab, int tb, int count, int cols, float* out,
+                 float* partials, int stride, bool row, cudaStream_t st) {
+  using W = Tier2<LOG2N - kLog2N1, kTerms>;
+  static bool ready[2][ocean::kMaxDevices];
+  auto* f = row ? fourstep_tier2<LOG2N, kTerms, true> : fourstep_tier2<LOG2N, kTerms, false>;
+  cudaError_t err = ocean::allow_smem(f, W::kBytes, ready[row]);
   int blocks = 0;
   if (err == cudaSuccess) {
-    err = persistent_blocks(k1, smem1, ((a.rows * n2 + kTierRows - 1) / kTierRows) * a.tb, blocks);
+    err = persistent_blocks(f, 128 * W::kGroups, W::kBytes,
+                            tb * count * (row ? kN1 / kItemVecs : kN1), blocks);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  k1<<<blocks, kTierThreads, smem1, st>>>(a.h0, a.omega, a.w,
-                                          static_cast<const uint4*>(t.w1frag), t.ttr, t.tti,
-                                          a.ts, a.tb, a.rows, a.row_base, a.scale, a.wrap_k,
-                                          a.conj_neg, t.scratch);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  k2<<<dim3(a.rows, 2, a.tb), kTierThreads, smem2, st>>>(
-      t.scratch, static_cast<const uint2*>(t.w2frag), a.rows, a.y);
+  f<<<blocks, 128 * W::kGroups, W::kBytes, st>>>(scratch, static_cast<const uint4*>(w2tab), tb,
+                                                 count, cols, out, partials, stride);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int LOG2N, int kTerms, bool kWindows>
+int launch_row_tier(const RowArgs& a, const TierArgs& t, cudaStream_t st) {
+  using S = Stage1Smem<LOG2N, kTerms, true>;
+  constexpr int n2 = 1 << (LOG2N - kLog2N1);
+  static bool ready[ocean::kMaxDevices];
+  auto* k1 = fourstep_row_tier1<LOG2N, kTerms, kWindows>;
+  int err = stage1_ready(k1, S::kBytes, ready);
+  int blocks = 0;
+  if (err == 0) {
+    err = static_cast<int>(persistent_blocks(
+        k1, kStage1Threads, S::kBytes, ((a.rows * n2 + kItemVecs - 1) / kItemVecs) * a.tb, blocks));
+  }
+  if (err != 0) return err;
+  k1<<<blocks, kStage1Threads, S::kBytes, st>>>(
+      a.h0, a.omega, a.w, static_cast<const uint4*>(t.w1tab), static_cast<const uint4*>(t.w2tab),
+      t.ttr, t.tti, a.ts, a.tb, a.rows, a.row_base, a.scale, a.wrap_k, a.conj_neg,
+      S::kFused ? a.y : t.scratch);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || S::kFused) return err;
+  return launch_tier2<LOG2N, kTerms>(t.scratch, t.w2tab, a.tb, a.rows, 0, a.y, nullptr, 0, true,
+                                     st);
 }
 
 template <int LOG2N, bool kWindows>
@@ -1061,25 +1443,23 @@ int launch_row_tier_any(const RowArgs& a, const TierArgs& t, cudaStream_t st) {
 template <int LOG2N, int kTerms>
 int launch_col_tier(const float* y, float* scratch, int tb, int cols, float* out,
                     float* partials, int stride, const TierArgs& t, cudaStream_t st) {
+  using S = Stage1Smem<LOG2N, kTerms, false>;
   constexpr int n2 = 1 << (LOG2N - kLog2N1);
-  constexpr size_t smem1 = stage1_smem<kTerms>();
-  constexpr size_t smem2 =
-      static_cast<size_t>(2) * kTerms * kTierCols * kLd2<LOG2N> * sizeof(uint32_t);
-  static bool ready1[ocean::kMaxDevices], ready2[ocean::kMaxDevices];
+  static bool ready[ocean::kMaxDevices];
   auto* k1 = fourstep_col_tier1<LOG2N, kTerms>;
-  auto* k2 = fourstep_col_tier2<LOG2N, kTerms>;
-  cudaError_t err = ocean::allow_smem(k1, smem1, ready1);
-  if (err == cudaSuccess) err = ocean::allow_smem(k2, smem2, ready2);
+  int err = stage1_ready(k1, S::kBytes, ready);
   int blocks = 0;
-  if (err == cudaSuccess) err = persistent_blocks(k1, smem1, tb * n2 * (cols / kTierRows), blocks);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  k1<<<blocks, kTierThreads, smem1, st>>>(y, static_cast<const uint4*>(t.w1frag), t.ttr, t.tti,
-                                          tb, cols, scratch);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  k2<<<dim3(kN1, cols / kTierCols, tb), kTierThreads, smem2, st>>>(
-      scratch, static_cast<const uint2*>(t.w2frag), cols, out, partials, stride);
-  return static_cast<int>(cudaGetLastError());
+  if (err == 0) {
+    err = static_cast<int>(persistent_blocks(k1, kStage1Threads, S::kBytes,
+                                             tb * n2 * (cols / kItemVecs), blocks));
+  }
+  if (err != 0) return err;
+  k1<<<blocks, kStage1Threads, S::kBytes, st>>>(y, static_cast<const uint4*>(t.w1tab), t.ttr,
+                                                t.tti, tb, cols, scratch);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  return launch_tier2<LOG2N, kTerms>(scratch, t.w2tab, tb, cols / kTierCols, cols, out, partials,
+                                     stride, false, st);
 }
 
 template <int LOG2N>
@@ -1117,13 +1497,14 @@ int launch_row_any(const RowArgs& a, int n, const TierArgs& t, cudaStream_t st) 
 }
 
 // The tiered body's arguments of a C entry point, checked: passes 0 (the
-// FFT body), 3 (the split, hi and lo fragments) or 1 ("default").
-bool tier_args(int passes, const void* w1frag, const void* w2frag, const float* ttr,
-               const float* tti, float* scratch, TierArgs& t) {
-  t = TierArgs{passes == 3 ? 2 : passes, w1frag, w2frag, ttr, tti, scratch};
+// FFT body), 3 (the split, hi and lo terms) or 1 ("default"); the scratch
+// where stage 2 reads one (`scratch_needed`).
+bool tier_args(int passes, const void* w1tab, const void* w2tab, const float* ttr,
+               const float* tti, float* scratch, bool scratch_needed, TierArgs& t) {
+  t = TierArgs{passes == 3 ? 2 : passes, w1tab, w2tab, ttr, tti, scratch};
   if (passes == 0) return true;
-  return (passes == 1 || passes == 3) && w1frag != nullptr && w2frag != nullptr &&
-         ttr != nullptr && tti != nullptr && scratch != nullptr;
+  return (passes == 1 || passes == 3) && w1tab != nullptr && w2tab != nullptr &&
+         ttr != nullptr && tti != nullptr && (scratch != nullptr || !scratch_needed);
 }
 
 }  // namespace
@@ -1132,22 +1513,25 @@ extern "C" {
 
 // Launches K2 for tb frames on `stream`; returns the first error (0 when it
 // launched; kErrClusterUnschedulable when no SM group holds K2's cluster
-// at n = 16384). Inputs: the state h0 (2, n, n), omega (n, n); tw (2, n/2);
+// at n = 16384; kErrStage1Registers when a tiered stage 1 was compiled to
+// too few registers). Inputs: the state h0 (2, n, n), omega (n, n); tw (2, n/2);
 // ts (tb,). Output: y (tb, 2, 2, rows, n), the rows row_base .. row_base +
 // rows - 1 of the grid.
 //
 // passes selects the body: 0 the FFT body ("highest"), 3 the tiered body of
 // the three-pass split, 1 of one bf16 pass ("default"), which reads
-// w1frag (ops/fft.mma_fragments of ("alt", 128, 1, 0, False)), w2frag (of
-// ("cat", n / 128)), the twiddle ttr, tti (n / 128, 128) and writes the
-// scratch (tb, rows, 2, 2, n / 128, 128); tw is then not read.
+// w1tab (ops/fft.wgmma_table of ("alt", 128, 1, 0, False)), w2tab (the
+// wgmma_table of ("cat", n / 128) at n <= 4096, where stage 2 runs in the
+// same kernel, else of ("dft", n / 128, 1)), the twiddle ttr, tti (n / 128,
+// 128) and, at n >= 8192, writes and rereads the scratch (tb, rows, 2, 2,
+// n / 128, 128) (null at n <= 4096); tw is then not read.
 int fourstep_row(const float* h0, const float* omega, const float* tw, const float* ts, int tb,
                  int n, int rows, int row_base, float scale, int wrap_k, int conj_neg, float* y,
-                 int passes, const void* w1frag, const void* w2frag, const float* ttr,
+                 int passes, const void* w1tab, const void* w2tab, const float* ttr,
                  const float* tti, float* scratch, void* stream) {
   TierArgs t;
-  if (!valid_rows(n, tb, rows, row_base) || !tier_args(passes, w1frag, w2frag, ttr, tti,
-                                                       scratch, t)) {
+  if (!valid_rows(n, tb, rows, row_base) ||
+      !tier_args(passes, w1tab, w2tab, ttr, tti, scratch, n > 4096, t)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const RowArgs a{h0, omega, {}, tw, ts, tb, rows, row_base, scale, wrap_k, conj_neg, y};
@@ -1161,12 +1545,12 @@ int fourstep_row(const float* h0, const float* omega, const float* tw, const flo
 // Otherwise as fourstep_row, with the same output bit for bit.
 int fourstep_row_windows(const float* h0, const float* omega, const float* tw, const float* ts,
                          int tb, int n, int rows, int row_base, float scale, int wrap_k,
-                         int conj_neg, float* y, int passes, const void* w1frag,
-                         const void* w2frag, const float* ttr, const float* tti, float* scratch,
+                         int conj_neg, float* y, int passes, const void* w1tab,
+                         const void* w2tab, const float* ttr, const float* tti, float* scratch,
                          void* stream) {
   TierArgs t;
-  if (!valid_rows(n, tb, rows, row_base) || !tier_args(passes, w1frag, w2frag, ttr, tti,
-                                                       scratch, t)) {
+  if (!valid_rows(n, tb, rows, row_base) ||
+      !tier_args(passes, w1tab, w2tab, ttr, tti, scratch, n > 4096, t)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const ocean::StateWindows w{h0, omega, (row_base - 1) & (n - 1),
@@ -1183,18 +1567,19 @@ int fourstep_row_windows(const float* h0, const float* omega, const float* tw, c
 // the tiered body) and, with normals, Q = n / ck_rows of the normals' terms.
 //
 // passes selects the body as fourstep_row's does; the tiered body reads
-// w1frag of ("alt", 128, 1, 0, Q2 flip) (sign is then not read), w2frag of
-// ("cat", n / 128) and the twiddle ttr, tti (128, n / 128); its scratch is b.
+// w1tab of ("alt", 128, 1, 0, Q2 flip) (sign is then not read), w2tab (the
+// wgmma_table of ("dft", n / 128, 1), K padded to 16 at n = 1024) and the
+// twiddle ttr, tti (128, n / 128); its scratch is b.
 int fourstep_col(const float* y, float* b, const float* tw, int tb, int n, int cols,
                  float sign, float* out, float* partials, int ck_rows, float normals_scale,
-                 int with_normals, int passes, const void* w1frag, const void* w2frag,
+                 int with_normals, int passes, const void* w1tab, const void* w2tab,
                  const float* ttr, const float* tti, void* stream) {
   const bool checksum_ok =
       cols == n && ck_rows >= 1 && ck_rows % ocean::kSumRows == 0 && n % ck_rows == 0;
   TierArgs t;
   if (!valid_n(n, kMaxN) || tb < 1 || tb > 65535 || cols < kColCols || cols % kColCols != 0 ||
       cols > n || (partials != nullptr && !checksum_ok) ||
-      !tier_args(passes, w1frag, w2frag, ttr, tti, b, t)) {
+      !tier_args(passes, w1tab, w2tab, ttr, tti, b, true, t)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1229,6 +1614,10 @@ const char* fourstep_error_string(int err) {
   if (err == kErrClusterUnschedulable) {
     return "K2's thread-block cluster cannot be scheduled on this device "
            "(cudaOccupancyMaxActiveClusters returned 0)";
+  }
+  if (err == kErrStage1Registers) {
+    return "a tiered stage-1 kernel was compiled to fewer registers than its "
+           "warpgroups' setmaxnreg budget (128 a thread)";
   }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

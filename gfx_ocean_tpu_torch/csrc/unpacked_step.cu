@@ -74,6 +74,7 @@
 
 #include "fft_reg.cuh"
 #include "ocean_common.cuh"
+#include "tier_mma.cuh"
 
 namespace {
 
@@ -137,6 +138,26 @@ struct RowArgs {
   float g;             // -1 with the reference's Q2 sign, else +1
 };
 
+// The unpacked propagate of element (row, x) of an n x n frame at time t:
+// h = hr + i hi with the Q2 sign g, and k-hat at (x, iy = row).
+__device__ __forceinline__ void unpacked_propagate(const RowArgs& a, int n, int row, int x,
+                                                   float t, float np1, float iy, bool wrap,
+                                                   float& hr, float& hi, float& khx,
+                                                   float& khy) {
+  const size_t nn = static_cast<size_t>(n) * n;
+  const size_t idx = static_cast<size_t>(row) * n + x;
+  const size_t flip = nn - 1 - idx;  // h0[:, ::-1, ::-1], the [N-1-i] pairing
+  float s, c;
+  sincosf(ocean::phase_mod_2pi(__ldg(a.omega + idx), t), &s, &c);
+  const float h0r = __ldg(a.h0 + idx);
+  const float h0i = __ldg(a.h0 + nn + idx);
+  const float h0nr = __ldg(a.h0 + flip);
+  const float h0ni = a.conj_neg ? -__ldg(a.h0 + nn + flip) : __ldg(a.h0 + nn + flip);
+  hr = mul(a.g, add(mul(c, add(h0r, h0nr)), mul(s, sub(h0ni, h0i))));
+  hi = mul(a.g, add(mul(s, sub(h0r, h0nr)), mul(c, add(h0i, h0ni))));
+  ocean::khat(static_cast<float>(x), iy, np1, a.scale, wrap, khx, khy);
+}
+
 // The x-transform of the NP / 2 spectra in v (this thread's 8 points of row
 // rl of the item) and their store to the row's planes yq[q * nn + x].
 template <int LOG2N, int NP>
@@ -178,18 +199,8 @@ __device__ __forceinline__ void row_item(const RowArgs& a, int item, int frame, 
   float hr[kRadix], hi[kRadix], khx[kRadix], khy[kRadix];
   static_for<0, kRadix>([&](auto k_) {
     constexpr int k = decltype(k_)::value;
-    const int x = tid + k * S::kT;
-    const size_t idx = static_cast<size_t>(row) * n + x;
-    const size_t flip = nn - 1 - idx;  // h0[:, ::-1, ::-1], the [N-1-i] pairing
-    float s, c;
-    sincosf(ocean::phase_mod_2pi(__ldg(a.omega + idx), t), &s, &c);
-    const float h0r = __ldg(a.h0 + idx);
-    const float h0i = __ldg(a.h0 + nn + idx);
-    const float h0nr = __ldg(a.h0 + flip);
-    const float h0ni = a.conj_neg ? -__ldg(a.h0 + nn + flip) : __ldg(a.h0 + nn + flip);
-    hr[k] = mul(a.g, add(mul(c, add(h0r, h0nr)), mul(s, sub(h0ni, h0i))));
-    hi[k] = mul(a.g, add(mul(s, sub(h0r, h0nr)), mul(c, add(h0i, h0ni))));
-    ocean::khat(static_cast<float>(x), iy, np1, a.scale, wrap, khx[k], khy[k]);
+    unpacked_propagate(a, n, row, tid + k * S::kT, t, np1, iy, wrap, hr[k], hi[k], khx[k],
+                       khy[k]);
   });
 
   // Plane q = 2 * spectrum + (0: re, 1: im); disp_x = -i khx h, height = h,
@@ -292,6 +303,225 @@ __global__ void __launch_bounds__(Shape<LOG2N>::kThreads, Shape<LOG2N>::kMinBloc
     const int rem = i % (3 * groups);
     col_item<LOG2N>(y, a.tw, (rem % groups) * kSeqs, rem / groups, i / (3 * groups), out, smem);
   }
+}
+
+// ---------------------------------------------------------------------------
+// K4's tiered body, K4t ("high", "bf16x3", "bf16x4": kTerms = 2; "default":
+// kTerms = 1): _step_kernel's 18 real products a frame (pallas_step.py:
+// 170-181, each built by _make_dot) as bf16 passes on the tensor cores
+// (tier_mma.cuh), as K1t runs K1's. Both kernels multiply a 16-row bf16 tile
+// in shared memory by B = A^T, A = D_alt W (N x N), whose fragments
+// (ops/fft.mma_fragments of ("alt", n, 1, 0, False), the table K1t reads)
+// stream from L2: the row pass's Y = X A^T, the column pass's A Y as its
+// transpose Y^T A^T.
+//
+//   unpacked_row_tier  one block per (16 rows, frame), 8 warps: the
+//                      unpacked propagate of the block's 16 x N elements
+//                      (unpacked_propagate, K4's arithmetic), split into
+//                      bf16 hi and lo tiles of the three spectra's planes
+//                      (disp_x: khx hi, -khx hr; height: hr, hi; disp_z:
+//                      khy hi, -khy hr); then each warp takes 8-column tiles
+//                      of Y and runs the four real products of each
+//                      spectrum's row pass (yr = xr.Ar - xi.Ai, yi = xr.Ai +
+//                      xi.Ar), FP32 out to Y (tb, 3, 2, N, N).
+//   unpacked_col_tier  one block per (16 columns, spectrum, frame): those
+//                      columns of the spectrum's Y split into 16-row tiles of
+//                      the transposed planes, and Re(A Y) = Ar.yr - Ai.yi,
+//                      the real output only, into the planes.
+//
+// Each product keeps hi.hi in one accumulator and hi.lo + lo.hi in another,
+// added once (tier::total); the outputs' differences are single roundings
+// (__fsub_rn / __fadd_rn), in the plain version's order.
+//
+// What bounds it (512^2, a frame): 18 N^3 multiply-adds, 4.8 GFLOP at the
+// split's three passes and 1.6 at "default", against ~12 MB of device memory
+// (Y stays in L2): the tensor cores, then the table's reads from L2 (each
+// block reads all of A's fragments, 2 MB at the split). A plain design
+// after K1t: mma.sync from registers, two launches with Y between them (no
+// grid sync), one block of 16 rows a SM at the split (195 KB of tiles at
+// 512).
+constexpr int kTierThreads = 256;
+constexpr int kTierRows = 16;  // rows (columns) of the tile a block multiplies
+constexpr int kSpectra = 3;
+// Words a tile row: N bf16 + 8 pad, so an A fragment's 8 rows fall on
+// distinct banks.
+__host__ __device__ constexpr int tier_ldw(int n) { return n / 2 + 4; }
+constexpr size_t row_tier_smem(int n, int terms) {
+  return static_cast<size_t>(2 * kSpectra) * terms * kTierRows * tier_ldw(n) * sizeof(uint32_t);
+}
+constexpr size_t col_tier_smem(int n, int terms) {
+  return static_cast<size_t>(2) * terms * kTierRows * tier_ldw(n) * sizeof(uint32_t);
+}
+
+template <int kTerms>
+__global__ void __launch_bounds__(kTierThreads) unpacked_row_tier(RowArgs a, int n,
+                                                                  const uint4* __restrict__ frag,
+                                                                  float* __restrict__ y) {
+  namespace tr = ocean::tier;
+  extern __shared__ uint32_t tiles[];
+  const size_t nn = static_cast<size_t>(n) * n;
+  const int ldw = tier_ldw(n);
+  const int r0 = kTierRows * blockIdx.x;
+  const int frame = blockIdx.y;
+  const float t = a.ts[frame];
+  const float np1 = static_cast<float>(n + 1);
+  const bool wrap = a.wrap_k != 0;
+  // Tile (q, term), q = 2 spectrum + (0: re, 1: im): local row r holds grid
+  // row r0 + r, element x at bf16 x.
+  for (int e = threadIdx.x; e < kTierRows * n; e += kTierThreads) {
+    const int r = e / n, x = e % n;
+    float hr, hi, khx, khy;
+    unpacked_propagate(a, n, r0 + r, x, t, np1, static_cast<float>(r0 + r), wrap, hr, hi, khx,
+                       khy);
+    const float v[2 * kSpectra] = {mul(khx, hi), mul(-khx, hr), hr, hi, mul(khy, hi),
+                                   mul(-khy, hr)};
+#pragma unroll
+    for (int q = 0; q < 2 * kSpectra; ++q) {
+      uint16_t h, l;
+      tr::split1(v[q], h, l);
+      uint16_t* row = reinterpret_cast<uint16_t*>(tiles + ((q * kTerms) * kTierRows + r) * ldw);
+      row[x] = h;
+      if constexpr (kTerms == 2) row[2 * kTierRows * ldw + x] = l;
+    }
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ksteps = n / 16;
+  float* yf = y + static_cast<size_t>(frame) * 2 * kSpectra * nn;
+  for (int nt = warp; nt < n / 8; nt += kTierThreads / 32) {
+    // acc[spectrum]: xr.Ar, xi.Ai, xr.Ai, xi.Ar
+    float acc[kSpectra][4][kTerms][4];
+#pragma unroll
+    for (int s = 0; s < kSpectra; ++s)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) tr::zero(acc[s][k]);
+    const uint4* fb = frag + static_cast<size_t>(nt) * ksteps * kTerms * 32 + lane;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      uint32_t br[kTerms][2], bi[kTerms][2];
+#pragma unroll
+      for (int term = 0; term < kTerms; ++term) {
+        const uint4 f = __ldg(fb + (ks * kTerms + term) * 32);
+        br[term][0] = f.x;
+        br[term][1] = f.y;
+        bi[term][0] = f.z;
+        bi[term][1] = f.w;
+      }
+#pragma unroll
+      for (int s = 0; s < kSpectra; ++s) {
+        uint32_t xr[kTerms][4], xi[kTerms][4];
+#pragma unroll
+        for (int term = 0; term < kTerms; ++term) {
+          tr::load_a(xr[term], tiles + ((2 * s) * kTerms + term) * kTierRows * ldw, ldw, ks,
+                     lane);
+          tr::load_a(xi[term], tiles + ((2 * s + 1) * kTerms + term) * kTierRows * ldw, ldw,
+                     ks, lane);
+        }
+        tr::mma_tier(acc[s][0], xr, br);
+        tr::mma_tier(acc[s][1], xi, bi);
+        tr::mma_tier(acc[s][2], xr, bi);
+        tr::mma_tier(acc[s][3], xi, br);
+      }
+    }
+    const int col = 8 * nt + 2 * (lane % 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const size_t row = static_cast<size_t>(r0 + lane / 4 + 8 * h) * n + col;
+#pragma unroll
+      for (int s = 0; s < kSpectra; ++s) {
+        float yr[2], yi[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int i = 2 * h + c;
+          yr[c] = __fsub_rn(tr::total(acc[s][0], i), tr::total(acc[s][1], i));
+          yi[c] = __fadd_rn(tr::total(acc[s][2], i), tr::total(acc[s][3], i));
+        }
+        *reinterpret_cast<float2*>(yf + 2 * s * nn + row) = make_float2(yr[0], yr[1]);
+        *reinterpret_cast<float2*>(yf + (2 * s + 1) * nn + row) = make_float2(yi[0], yi[1]);
+      }
+    }
+  }
+}
+
+template <int kTerms>
+__global__ void __launch_bounds__(kTierThreads, 1) unpacked_col_tier(
+    const float* __restrict__ y, const uint4* __restrict__ frag, int n, float* __restrict__ out) {
+  namespace tr = ocean::tier;
+  extern __shared__ uint32_t tiles[];
+  const size_t nn = static_cast<size_t>(n) * n;
+  const int ldw = tier_ldw(n);
+  const int x0 = kTierRows * blockIdx.x;
+  const int spec = blockIdx.y, frame = blockIdx.z;
+  const float* yf = y + (static_cast<size_t>(frame) * kSpectra + spec) * 2 * nn + x0;
+  // Tile (q, term), q = 0: Re, 1: Im of the spectrum's Y; row c holds column
+  // x0 + c, word k the rows 2 k and 2 k + 1.
+  const int pairs = n / 2;
+  for (int e = threadIdx.x; e < 2 * pairs * kTierRows; e += kTierThreads) {
+    const int c = e % kTierRows;
+    const int k = (e / kTierRows) % pairs;
+    const int q = e / (kTierRows * pairs);
+    const float* src = yf + q * nn + static_cast<size_t>(2 * k) * n + c;
+    uint32_t hi, lo;
+    tr::split2(src[0], src[n], hi, lo);
+    uint32_t* row = tiles + ((q * kTerms) * kTierRows + c) * ldw + k;
+    row[0] = hi;
+    if constexpr (kTerms == 2) row[kTierRows * ldw] = lo;
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ksteps = n / 16;
+  float* of = out + (static_cast<size_t>(frame) * kSpectra + spec) * nn + x0 + lane / 4;
+  for (int nt = warp; nt < n / 8; nt += kTierThreads / 32) {
+    // products: yr.Ar, yi.Ai
+    float acc[2][kTerms][4];
+    tr::zero(acc[0]);
+    tr::zero(acc[1]);
+    const uint4* fb = frag + static_cast<size_t>(nt) * ksteps * kTerms * 32 + lane;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      uint32_t br[kTerms][2], bi[kTerms][2], a[2][kTerms][4];
+#pragma unroll
+      for (int term = 0; term < kTerms; ++term) {
+        const uint4 f = __ldg(fb + (ks * kTerms + term) * 32);
+        br[term][0] = f.x;
+        br[term][1] = f.y;
+        bi[term][0] = f.z;
+        bi[term][1] = f.w;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          tr::load_a(a[q][term], tiles + (q * kTerms + term) * kTierRows * ldw, ldw, ks, lane);
+        }
+      }
+      tr::mma_tier(acc[0], a[0], br);
+      tr::mma_tier(acc[1], a[1], bi);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const size_t yo = static_cast<size_t>(8 * nt + 2 * (lane % 4) + (i & 1)) * n + 8 * (i >> 1);
+      of[yo] = __fsub_rn(tr::total(acc[0], i), tr::total(acc[1], i));
+    }
+  }
+}
+
+// K4t: the row and the column kernel, Y between them.
+template <int kTerms>
+int launch_tier(const RowArgs& a, int tb, int n, const void* frag, float* y, float* out,
+                cudaStream_t st) {
+  static bool row_ready[kMaxDevices], col_ready[kMaxDevices];
+  // The attributes cover every n.
+  cudaError_t err = allow_smem(unpacked_row_tier<kTerms>, row_tier_smem(512, kTerms), row_ready);
+  if (err == cudaSuccess) {
+    err = allow_smem(unpacked_col_tier<kTerms>, col_tier_smem(512, kTerms), col_ready);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const uint4* f = static_cast<const uint4*>(frag);
+  unpacked_row_tier<kTerms><<<dim3(n / kTierRows, tb), kTierThreads, row_tier_smem(n, kTerms),
+                              st>>>(a, n, f, y);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  unpacked_col_tier<kTerms><<<dim3(n / kTierRows, kSpectra, tb), kTierThreads,
+                              col_tier_smem(n, kTerms), st>>>(y, f, n, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // f.run<log2 n>() for the grids the kernels take.
@@ -451,14 +681,30 @@ int unpacked_cols(const float* y, const float* tw, int tb, int n, float* out, fl
 
 // K4: both passes in one cooperative launch (y is its scratch), then the
 // checksum partials.
+//
+// passes selects the body: 0 the FFT body ("highest"), 3 the tiered body
+// K4t of the three-pass split, 1 of one bf16 pass ("default"); frag is then
+// the table's fragments (ops/fft.mma_fragments of ("alt", n, 1, 0, False),
+// hi and lo at 3 passes, hi at 1), tw is not read and y is the scratch
+// between K4t's two kernels.
 int unpacked_step(const float* h0, const float* omega, const float* tw, const float* ts, int tb,
                   int n, float scale, int wrap_k, int conj_neg, float g, float* y, float* out,
                   float* partials, int ck_rows, float normals_scale, int with_normals,
-                  void* stream) {
-  if (!valid_tb(tb)) return static_cast<int>(cudaErrorInvalidValue);
+                  int passes, const void* frag, void* stream) {
+  if (!valid_tb(tb) || (passes != 0 && passes != 1 && passes != 3) ||
+      (passes != 0 && frag == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const RowArgs a{h0, omega, tw, ts, scale, wrap_k, conj_neg, g};
-  const int err = by_log2n(n, FusedLaunch{a, tb, y, out, st});
+  int err;
+  if (passes != 0) {
+    if (n < 16 || n > 512 || (n & (n - 1)) != 0) return static_cast<int>(cudaErrorInvalidValue);
+    err = passes == 3 ? launch_tier<2>(a, tb, n, frag, y, out, st)
+                      : launch_tier<1>(a, tb, n, frag, y, out, st);
+  } else {
+    err = by_log2n(n, FusedLaunch{a, tb, y, out, st});
+  }
   if (err != 0) return err;
   return launch_checksum(out, tb, n, partials, ck_rows, normals_scale, with_normals, st);
 }

@@ -60,7 +60,7 @@ SIGNATURES = {
         "unpacked_rows": ([_P, _P, _P, _P, _I, _I, _F, _I, _I, _F, _P, _P], _I),
         "unpacked_cols": ([_P, _P, _I, _I, _P, _P, _I, _F, _I, _P], _I),
         "unpacked_step": ([_P, _P, _P, _P, _I, _I, _F, _I, _I, _F, _P, _P,
-                           _P, _I, _F, _I, _P], _I),
+                           _P, _I, _F, _I, _I, _P, _P], _I),
         "unpacked_step_grid": ([_I, _I], _I),
         "unpacked_error_string": ([_I], ctypes.c_char_p),
     },

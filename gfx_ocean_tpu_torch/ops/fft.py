@@ -85,20 +85,18 @@ def effective_precision(precision: str, n: Optional[int] = None, direct_max: int
     - "matmul": the tier as requested up to ``direct_max``; above it the
       four-step stages run "bf16x3" as "high" and "bf16x4" as "highest"
       (``n`` None is read as a direct-size transform);
-    - "pallas": the packed kernels K1, K2 and K3 run the JAX kernels'
-      tiers (``pallas_step._make_dot``): "high", "bf16x3" and "bf16x4" the
+    - "pallas": the kernels run the JAX kernels' tiers
+      (``pallas_step._make_dot``): "high", "bf16x3" and "bf16x4" the
       three-pass split, "default" one bf16 pass, "highest" FP32. The
-      unpacked kernels K4-K6 (``hermitian_pack`` False at N <= 512) compute
-      in FP32 whatever the tier (contract difference D3 in ROADMAP.md);
+      unpacked route (``hermitian_pack`` False at N <= 512: K4, or K5 + K6
+      at "highest" above 256) runs the same tiers as the packed one, so
+      ``hermitian_pack`` does not change the answer;
     - "xla": torch.fft; the tiers do not apply.
     """
     resolve_precision(precision)
     if impl == "xla":
         return "n/a (torch.fft, cuFFT on the card; precision tiers do not apply)"
     if impl == "pallas":
-        if not hermitian_pack and (n is None or n <= 512):
-            return ("fp32 (the unpacked kernels K4-K6 compute in FP32 whatever the tier; "
-                    "ROADMAP.md D3)")
         if precision in ("high", "bf16x4"):
             return "bf16x3 (in-kernel bf16 split on the tensor cores: hi.hi + hi.lo + lo.hi)"
         return precision
@@ -111,7 +109,7 @@ def effective_precision(precision: str, n: Optional[int] = None, direct_max: int
 
 
 def kernel_tier(precision: str) -> str:
-    """The scheme the packed kernels K1-K3 and their plain versions run for
+    """The scheme the kernels K1-K4 and their plain versions run for
     a requested tier, as ``pallas_step._make_dot`` runs it: "high" and
     "bf16x4" the three-pass split "bf16x3" (the JAX kernel drops lo.lo)."""
     resolve_precision(precision)
@@ -119,7 +117,7 @@ def kernel_tier(precision: str) -> str:
 
 
 def kernel_passes(precision: str) -> int:
-    """The bf16 passes of the packed kernels' tiered bodies: 3 for the
+    """The bf16 passes of the kernels' tiered bodies (K1t-K4t): 3 for the
     split tiers, 1 for "default", 0 for "highest" (the FP32 FFT bodies)."""
     return {"bf16x3": 3, "default": 1, "highest": 0}[kernel_tier(precision)]
 
@@ -193,6 +191,31 @@ def mma_fragments(planes, tier: str) -> torch.Tensor:
         stacked.append(torch.stack(per_plane, dim=3))  # (nt, ks, lane, P, half, pair)
     frag = torch.stack(stacked, dim=2).contiguous()    # (nt, ks, term, lane, P, half, pair)
     return frag.view(torch.int32).reshape(*frag.shape[:4], -1)
+
+
+def wgmma_table(planes, tier: str, min_k: int = 0) -> torch.Tensor:
+    """The tables W (R x K float32, one or more planes of equal shape) as
+    wgmma's shared-memory B operand B = W^T, K-major without swizzle, in the
+    order K2t's and K3t's wgmma stages copy into shared memory
+    (``csrc/tier_mma.cuh``, ``core_at``): bf16 bits as int16 of shape
+    (terms, P, K / 8, R / 8, 8, 8). For term (hi, then lo for the split
+    tiers), plane p and core matrix (k / 8, r / 8), row r % 8 holds
+    W[r][k - k % 8 .. k - k % 8 + 7]: 8 bf16, 16 bytes. R and K must be
+    multiples of 8. With K < ``min_k`` the planes are padded with zero
+    columns to K = ``min_k`` (a wgmma k-step takes 16 terms)."""
+    terms = ("hi",) if tier == "default" else ("hi", "lo")
+    stacked = []
+    for term in terms:
+        per_plane = []
+        for w in planes:
+            if w.shape[1] < min_k:
+                w = torch.nn.functional.pad(w, (0, min_k - w.shape[1]))
+            r, k = w.shape
+            b = _bf16_terms(w, tier)[term]
+            # W[8 rg + r8][8 kc + k8] -> [kc][rg][r8][k8]
+            per_plane.append(b.reshape(r // 8, 8, k // 8, 8).permute(2, 0, 1, 3))
+        stacked.append(torch.stack(per_plane))
+    return torch.stack(stacked).contiguous().view(torch.int16)
 
 
 def _bf16_product(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -334,6 +357,14 @@ def table_fragments(key: tuple, device: torch.device, tier: str) -> torch.Tensor
     """``mma_fragments`` of the planes of table ``key`` on ``device``, made
     once per (table, device, tier): the tiered kernels' B operand."""
     return mma_fragments(_table(key, device), tier)
+
+
+@functools.lru_cache(maxsize=64)
+def table_wgmma(key: tuple, device: torch.device, tier: str, min_k: int = 0) -> torch.Tensor:
+    """``wgmma_table`` of the planes of table ``key`` on ``device`` (K padded
+    to ``min_k``), made once per (table, device, tier, min_k): K2t's and
+    K3t's wgmma B operand."""
+    return wgmma_table(_table(key, device), tier, min_k)
 
 
 def _complex_mm(xr: torch.Tensor, xi: torch.Tensor, key: tuple, tier: str, left: bool,

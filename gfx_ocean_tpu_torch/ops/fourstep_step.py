@@ -38,7 +38,11 @@ Two implementations sit side by side:
   registers, one swap between the two blocks of a thread-block cluster and
   an 8192-point FFT in each block; K3 the column transform split 128 x N/128,
   each stage register-resident passes of 32-column bands, with one
-  device-memory round trip between them).
+  device-memory round trip between them). At the tiers other than
+  "highest" the tiered bodies K2t and K3t run the JAX kernels' bf16
+  products on the tensor cores (wgmma, a warp-specialized stage 1); K2t
+  runs its stage 2 in the same kernel at N <= 4096 and both go through a
+  scratch otherwise.
 
 ``fourstep_planes`` / ``fourstep_checksums`` pick by where the tensors lie:
 CPU tensors take the plain version, CUDA tensors launch the kernels or
@@ -68,7 +72,8 @@ from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, normals_scale
 from gfx_ocean_tpu_torch.ops.fft import (Prepared, _cat_complex_np, _dft_matrix_np,
                                          _dft_matrix_out_alt_np, _table, _twiddle_np,
                                          effective_precision, kernel_passes, kernel_tier,
-                                         matmul_tier, prepare, table_fragments, twiddle_table)
+                                         matmul_tier, prepare, table_wgmma,
+                                         twiddle_table)
 from gfx_ocean_tpu_torch.ops.propagate import (BandWindows, _f32, as_times,
                                                gather_packed_planes, packed_spectra)
 from gfx_ocean_tpu_torch.utils.device import check_current_device
@@ -316,10 +321,13 @@ def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
 
 def _tier_inputs(n: int, config: OceanConfig, dev: torch.device, side: str) -> tuple:
     """The tiered body's arguments of a K2 ("row") or K3 ("col") launch:
-    (passes, W1's fragments, W2cat's fragments, Ttr, Tti); passes 0 (the
-    FFT body, at "highest") with null tables. W1 is the 128-point table of
-    ``fourstep_tables`` (the column pass's with the Q2 flip folded in), W2cat
-    the stacked N2-point table, the twiddles ``fourstep_tables``' own."""
+    (passes, W1's wgmma table, W2's, Ttr, Tti); passes 0 (the FFT body, at
+    "highest") with null tables. W1 is the 128-point table of
+    ``fourstep_tables`` (the column pass's with the Q2 flip folded in), the
+    twiddles ``fourstep_tables``' own. W2 is the stacked N2-point table
+    W2cat where K2's stage 2 runs in its stage-1 kernel (N <= 4096,
+    ``row_stage2_in_block``), else the N2-point table's two planes, K
+    padded to one 16-term k-step."""
     tier = kernel_tier(config.matmul_precision)
     passes = kernel_passes(tier)
     if not passes:
@@ -328,8 +336,17 @@ def _tier_inputs(n: int, config: OceanConfig, dev: torch.device, side: str) -> t
     negate = side == "col" and config.compat.ref_sign
     twiddle = ("twiddle", n2, 128, 1) if side == "row" else ("twiddle", 128, n2, 1)
     ttr, tti = _table(twiddle, dev)
-    return (passes, table_fragments(("alt", 128, 1, 0, negate), dev, tier).data_ptr(),
-            table_fragments(("cat", n2), dev, tier).data_ptr(), ttr.data_ptr(), tti.data_ptr())
+    w2 = (table_wgmma(("cat", n2), dev, tier) if side == "row" and row_stage2_in_block(n)
+          else table_wgmma(("dft", n2, 1), dev, tier, 16))
+    return (passes, table_wgmma(("alt", 128, 1, 0, negate), dev, tier).data_ptr(),
+            w2.data_ptr(), ttr.data_ptr(), tti.data_ptr())
+
+
+def row_stage2_in_block(n: int) -> bool:
+    """Whether K2's tiered body runs its stage 2 in its stage-1 kernel (a
+    stage-1 item holds whole rows, and the stage-2 tiles fit beside W1),
+    with no scratch: N <= 4096 (``csrc/fourstep_step.cu``, Stage1Smem)."""
+    return n <= 4096
 
 
 def launch_fourstep_row(inputs: FourstepInputs, ts, config: OceanConfig,
@@ -368,7 +385,7 @@ def launch_fourstep_row(inputs: FourstepInputs, ts, config: OceanConfig,
     tb = ts.shape[0]
     y = torch.empty((tb, 2, 2, rows, n), dtype=torch.float32, device=dev)
     tier = _tier_inputs(n, config, dev, "row")
-    scratch = torch.empty_like(y) if tier[0] else None
+    scratch = torch.empty_like(y) if tier[0] and not row_stage2_in_block(n) else None
     lib = kernels.load("fourstep_step")
     scalars = (tb, n, rows, row_base, _f32(np.pi / config.domain_size),
                int(config.compat.wrap_k), int(config.compat.conj_neg), y.data_ptr(),

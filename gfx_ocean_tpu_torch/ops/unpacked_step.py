@@ -19,9 +19,13 @@ column-blocked pair of ``_blocked_fields``). Per frame:
 
 The route is ``pallas_planes``'s predicate (``unpacked_route``): the single
 kernel K4 unless ``matmul_precision == "highest"`` and N > 256, where
-K5 + K6 run. Both routes return (3, N, N) planes and (N, N, 3) fields; the
-JAX blocked route's channel-last planes (fault F2, ``ROADMAP.md`` queue 3)
-are not carried. ``pallas_checksums`` reduces this route's planes outside its
+K5 + K6 run. K4 has two bodies, as K1 has: at "highest" the FFT body, at
+the other tiers the tiered body K4t, ``_step_kernel``'s products as the JAX
+kernel builds them (``pallas_step._make_dot``): three bf16 passes at "high",
+"bf16x3" and "bf16x4", one at "default" (``ops/fft.kernel_tier``). K5 and
+K6 serve only "highest" and run FP32 there. Both routes return (3, N, N)
+planes and (N, N, 3) fields; the JAX blocked route's channel-last planes
+(fault F2, ``ROADMAP.md`` queue 3) are not carried. ``pallas_checksums`` reduces this route's planes outside its
 kernels; here the checksum runs on the card behind K4 or K6, as K1's does
 (``ocean::checksum_partials``: per-block partials, summed by the caller),
 and ``ops/derived.checksums_of_planes`` serves CPU tensors only.
@@ -30,15 +34,19 @@ Two implementations sit side by side:
 
 - ``unpacked_planes_reference`` / ``unpacked_rows_reference`` /
   ``unpacked_cols_reference``: the plain PyTorch version, written as K4's
-  arithmetic (FP32 matmuls against A, TF32 off; A is made once per N and
-  device, and only this version reads it).
-- ``launch_unpacked_step`` (K4), ``launch_unpacked_rows`` (K5),
+  arithmetic: each real product one ``ops/fft.matmul_tier`` against A at
+  the tier (``full_matmul`` at "highest"), A prepared once per N, device
+  and tier.
+- ``launch_unpacked_step`` (K4 and K4t), ``launch_unpacked_rows`` (K5),
   ``launch_unpacked_cols`` (K6): the hand-written CUDA kernels of
-  ``csrc/unpacked_step.cu`` (register-resident radix-8 FFT passes,
-  ``csrc/fft_reg.cuh``, 8 rows or 8 columns a block; K4 is one cooperative
-  launch of a persistent grid that runs K5's and K6's device functions with
-  one grid sync between them). ``launch_unpacked_step_checksums`` and
-  ``launch_unpacked_cols_checksums`` launch the checksum kernel behind them.
+  ``csrc/unpacked_step.cu``. K4's FFT body, K5 and K6 run register-resident
+  radix-8 FFT passes (``csrc/fft_reg.cuh``, 8 rows or 8 columns a block;
+  K4 is one cooperative launch of a persistent grid that runs K5's and K6's
+  device functions with one grid sync between them); K4t is a row and a
+  column kernel of bf16 ``mma.sync`` products over 16-row tiles
+  (``csrc/tier_mma.cuh``) with Y between them.
+  ``launch_unpacked_step_checksums`` and ``launch_unpacked_cols_checksums``
+  launch the checksum kernel behind them.
 
 ``unpacked_planes`` / ``unpacked_checksums`` pick by where the tensors lie:
 CPU tensors take the plain version, CUDA tensors launch the kernels or
@@ -46,14 +54,14 @@ raise. Nothing falls back.
 
 What bounds the kernels on the H100 at 512^2: a frame reads 3 MB of inputs
 (once a call), writes and rereads 6 MB of Y and writes 3 MB of planes,
-against ~71 MFLOP of FFT, so bytes and latency, not arithmetic (``PERF.md``
-has the measured times).
+against ~71 MFLOP of FFT, so bytes and latency, not arithmetic; K4t's 18
+products of N^3 multiply-adds a frame (4.8 GFLOP at the split) are bound by
+the tensor cores (``PERF.md`` has the measured times).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -61,8 +69,9 @@ import torch
 
 from gfx_ocean_tpu_torch.config import OceanConfig
 from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, normals_scale
-from gfx_ocean_tpu_torch.ops.fft import (_dft_matrix_out_alt_np, effective_precision,
-                                         full_matmul, twiddle_table)
+from gfx_ocean_tpu_torch.ops.fft import (_tier_table, effective_precision, kernel_passes,
+                                         kernel_tier, matmul_tier, prepare, table_fragments,
+                                         transposed, twiddle_table)
 from gfx_ocean_tpu_torch.ops.fourstep_step import CHECKSUM_ROWS, _check_tensor
 from gfx_ocean_tpu_torch.ops.propagate import _f32, _phase_mod_2pi, as_times
 from gfx_ocean_tpu_torch.utils.device import check_current_device
@@ -86,8 +95,8 @@ def unpacked_route(config: OceanConfig, n: int) -> str:
 
 
 def check_supported(config: OceanConfig, n: int) -> str:
-    """Raise for grids the unpacked step does not cover; return the tier:
-    every tier runs as FP32 (ROADMAP.md D3)."""
+    """Raise for grids the unpacked step does not cover; return the
+    effective tier, the packed route's (``ops/fft.effective_precision``)."""
     if n > MAX_N:
         raise ValueError(f"the unpacked step takes N <= {MAX_N}, got {n}")
     return effective_precision(config.matmul_precision, n, impl="pallas", hermitian_pack=False)
@@ -107,13 +116,6 @@ def hoist_unpacked(h0_pair: torch.Tensor, omega: torch.Tensor,
 # --------------------------------------------------------------------------
 # The plain PyTorch version.
 # --------------------------------------------------------------------------
-
-@functools.lru_cache(maxsize=None)
-def dft_table(n: int, device: torch.device) -> tuple:
-    """(Re, Im) of A = D_alt W, each (N, N) float32 on ``device``, made
-    once: the plain version's table (the kernels run an FFT instead)."""
-    return tuple(torch.from_numpy(a).to(device) for a in _dft_matrix_out_alt_np(n, 1, 0, False))
-
 
 def khat_grid(n: int, domain_size: float, wrap: bool, device) -> tuple:
     """(khx, khy), each (N, N), as ``pallas_step._khat_in_kernel`` computes
@@ -150,24 +152,40 @@ def _spectra(inputs: UnpackedInputs, ts, config: OceanConfig):
 
 
 def unpacked_rows_reference(inputs: UnpackedInputs, ts, config: OceanConfig) -> torch.Tensor:
-    """Plain PyTorch K5: ts (tb,) -> Y (tb, 3, 2, N, N), Y = X A^T."""
-    xr, xi = _spectra(inputs, ts, config)
-    a_re, a_im = dft_table(inputs.omega.shape[-1], inputs.omega.device)
-    art, ait = a_re.T, a_im.T
-    mm = full_matmul
+    """Plain PyTorch row pass of K4 (and K5 at "highest"): ts (tb,) ->
+    Y (tb, 3, 2, N, N), Y = X A^T as ``_step_kernel``'s four real products
+    (yr = xr Ar^T - xi Ai^T, yi = xr Ai^T + xi Ar^T), each one
+    ``matmul_tier`` at the tier of ``config.matmul_precision``."""
+    tier = kernel_tier(config.matmul_precision)
+    xr, xi = (prepare(x, tier) for x in _spectra(inputs, ts, config))
+    a_re, a_im = _tier_table(("alt", inputs.omega.shape[-1], 1, 0, False), inputs.omega.device,
+                             tier)  # A = D_alt W, prepared once per N, device and tier
+    art, ait = transposed(a_re), transposed(a_im)
+
+    def mm(a, b):
+        return matmul_tier(a, b, tier)
+
     return torch.stack([mm(xr, art) - mm(xi, ait), mm(xr, ait) + mm(xi, art)], dim=2)
 
 
-def unpacked_cols_reference(y: torch.Tensor, inputs: UnpackedInputs) -> torch.Tensor:
-    """Plain PyTorch K6: Y (tb, 3, 2, N, N) -> (tb, 3, N, N) = Re(A Y)."""
-    a_re, a_im = dft_table(inputs.omega.shape[-1], inputs.omega.device)
-    return full_matmul(a_re, y[:, :, 0]) - full_matmul(a_im, y[:, :, 1])
+def unpacked_cols_reference(y: torch.Tensor, inputs: UnpackedInputs,
+                            precision: str = "highest") -> torch.Tensor:
+    """Plain PyTorch column pass of K4 (and K6 at "highest"): Y (tb, 3, 2,
+    N, N) -> (tb, 3, N, N) = Re(A Y) = Ar yr - Ai yi, Y split again for the
+    tier of ``precision``."""
+    tier = kernel_tier(precision)
+    a_re, a_im = _tier_table(("alt", inputs.omega.shape[-1], 1, 0, False), inputs.omega.device,
+                             tier)
+    yr, yi = prepare(y[:, :, 0], tier), prepare(y[:, :, 1], tier)
+    return matmul_tier(a_re, yr, tier) - matmul_tier(a_im, yi, tier)
 
 
 def unpacked_planes_reference(inputs: UnpackedInputs, ts,
                               config: OceanConfig) -> torch.Tensor:
-    """Plain PyTorch K4: ts (tb,) -> (tb, 3, N, N) (disp_x, height, disp_z)."""
-    return unpacked_cols_reference(unpacked_rows_reference(inputs, ts, config), inputs)
+    """Plain PyTorch K4: ts (tb,) -> (tb, 3, N, N) (disp_x, height, disp_z)
+    at the tier of ``config.matmul_precision``."""
+    return unpacked_cols_reference(unpacked_rows_reference(inputs, ts, config), inputs,
+                                   config.matmul_precision)
 
 
 # --------------------------------------------------------------------------
@@ -209,13 +227,24 @@ def _raise_on_error(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed to launch: CUDA error {err} ({msg})")
 
 
+def _fft_only(config: OceanConfig, who: str) -> None:
+    """K5 and K6 run FP32 FFTs: the blocked route takes them at "highest"
+    only, so another tier raises rather than computing another function
+    than its plain version."""
+    if kernel_tier(config.matmul_precision) != "highest":
+        raise ValueError(f"{who} runs the FP32 FFT body (the blocked route's \"highest\"), "
+                         f"not the {config.matmul_precision!r} tier")
+
+
 def launch_unpacked_rows(inputs: UnpackedInputs, ts, config: OceanConfig) -> torch.Tensor:
-    """Launch K5 on the current stream: ts (tb,) -> Y (tb, 3, 2, N, N).
-    Adds one to ``launch_unpacked_rows.launches`` per launch."""
+    """Launch K5 on the current stream: ts (tb,) -> Y (tb, 3, 2, N, N), at
+    "highest" only. Adds one to ``launch_unpacked_rows.launches`` per
+    launch."""
     from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
 
     n = _checked(inputs, "launch_unpacked_rows")
     check_supported(config, n)
+    _fft_only(config, "launch_unpacked_rows (K5)")
     dev = inputs.omega.device
     ts = as_times(ts, dev)
     y = torch.empty((ts.shape[0], 3, 2, n, n), dtype=torch.float32, device=dev)
@@ -279,9 +308,12 @@ def launch_unpacked_step_checksums(
         checksum: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch K4 on the current stream and, when ``checksum``, the checksum
     kernel behind it: ts (tb,) -> ``(planes, partials)``, planes
-    (tb, 3, N, N) from one cooperative launch (Y is its scratch) and the
-    per-block checksum partials (tb, N / CHECKSUM_ROWS), or None. Adds one
-    to ``launch_unpacked_step.launches`` per launch."""
+    (tb, 3, N, N) and the per-block checksum partials (tb, N / CHECKSUM_ROWS),
+    or None. At "highest" the FFT body (one cooperative launch, Y its
+    scratch); at the other tiers the tiered body K4t (a row and a column
+    kernel, Y between them). Adds one to ``launch_unpacked_step.launches``
+    per launch of either body, and one to
+    ``launch_unpacked_step.tiered_launches`` per launch of K4t."""
     from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
 
     n = _checked(inputs, "launch_unpacked_step")
@@ -292,11 +324,16 @@ def launch_unpacked_step_checksums(
     y = torch.empty((tb, 3, 2, n, n), dtype=torch.float32, device=dev)
     planes = torch.empty((tb, 3, n, n), dtype=torch.float32, device=dev)
     partials, ck_args = _checksum_args(config if checksum else None, tb, n, dev)
+    tier = kernel_tier(config.matmul_precision)
+    passes = kernel_passes(tier)
+    frag = table_fragments(("alt", n, 1, 0, False), dev, tier) if passes else None
     lib = kernels.load("unpacked_step")
     err = lib.unpacked_step(*_propagate_args(inputs, ts, config), y.data_ptr(),
-                            planes.data_ptr(), *ck_args, _stream(dev))
-    _raise_on_error(lib, err, "K4 (unpacked_step)")
+                            planes.data_ptr(), *ck_args, passes,
+                            frag.data_ptr() if passes else None, _stream(dev))
+    _raise_on_error(lib, err, "K4t (unpacked_step, tiered)" if passes else "K4 (unpacked_step)")
     launch_unpacked_step.launches += 1
+    launch_unpacked_step.tiered_launches += int(passes > 0)
     return planes, partials
 
 
@@ -306,6 +343,7 @@ def launch_unpacked_step(inputs: UnpackedInputs, ts, config: OceanConfig) -> tor
 
 
 launch_unpacked_step.launches = 0
+launch_unpacked_step.tiered_launches = 0
 
 
 def unpacked_planes(inputs: UnpackedInputs, ts, config: OceanConfig) -> torch.Tensor:

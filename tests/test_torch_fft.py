@@ -81,13 +81,12 @@ def test_ifft2_planes_matches_jax_and_golden(centered, shape):
 
 @pytest.mark.parametrize("tier", ["bf16x3", "bf16x4", "high", "highest", "default"])
 def test_every_f32_tier_runs_as_fp32(tier):
-    # On the kernels' route the packed kernels K1-K3 run the JAX kernels'
-    # tier ("high" and "bf16x4" as "bf16x3"), the unpacked kernels K4-K6
-    # compute every tier, "default" included, in FP32 (contract difference
-    # D3); the matmul route runs the tier itself, and "xla" takes none.
+    # On the kernels' route, packed (K1-K3) or unpacked (K4), the kernels run
+    # the JAX kernels' tier ("high" and "bf16x4" as "bf16x3"); the matmul
+    # route runs the tier itself, and "xla" takes none.
     assert tfft.effective_precision(tier, 32, impl="pallas").split()[0] == tfft.kernel_tier(tier)
-    assert tfft.effective_precision(tier, 32, impl="pallas",
-                                    hermitian_pack=False).startswith("fp32")
+    assert tfft.effective_precision(tier, 32, impl="pallas", hermitian_pack=False) == \
+        tfft.effective_precision(tier, 32, impl="pallas")
     assert tfft.effective_precision(tier, 32, impl="matmul") == tier
     assert "do not apply" in tfft.effective_precision(tier, 32, impl="xla")
     xr, xi = _spectrum((32, 32), 3)

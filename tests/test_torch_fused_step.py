@@ -145,9 +145,10 @@ def test_unsupported_configurations_raise():
     assert fused_step.check_supported(
         T.OceanConfig(resolution=16384, fft_impl="pallas"), 16384) == "bf16x3"
     # hermitian_pack=False at N <= 512 runs the unpacked step (K4-K6): its
-    # hoisted inputs, routes and plane shapes; every tier runs as FP32 (D3).
+    # hoisted inputs, routes and plane shapes; it runs the tier as the packed
+    # route does (K4's tiered body at the default "bf16x3").
     unpacked = T.OceanConfig(resolution=64, fft_impl="pallas", hermitian_pack=False)
-    assert fused_step.check_supported(unpacked, 64).startswith("fp32")
+    assert fused_step.check_supported(unpacked, 64) == "bf16x3"
     h0, om = _state(64, 6)
     inputs = fused_step.hoist_packed(torch.from_numpy(h0), torch.from_numpy(om), unpacked)
     assert isinstance(inputs, fused_step.UnpackedInputs)
@@ -159,11 +160,10 @@ def test_unsupported_configurations_raise():
     assert unpacked_step.unpacked_route(
         T.OceanConfig(resolution=512, fft_impl="pallas", hermitian_pack=False,
                       matmul_precision="highest"), 512) == "blocked"
-    # "default" runs too: as FP32 in the unpacked kernels (contract
-    # difference D3), as one bf16 pass in the packed ones
+    # "default" runs too: as one bf16 pass, unpacked (K4t) and packed
     assert fused_step.check_supported(
         T.OceanConfig(resolution=64, fft_impl="pallas", hermitian_pack=False,
-                      matmul_precision="default"), 64).startswith("fp32")
+                      matmul_precision="default"), 64) == "default"
     assert fused_step.check_supported(
         T.OceanConfig(resolution=64, fft_impl="pallas", matmul_precision="default"),
         64) == "default"

@@ -518,20 +518,29 @@ def _checksum_rel(got_ck: torch.Tensor, want: torch.Tensor, cfg) -> float:
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", BODIES)
 @pytest.mark.parametrize("n", [16, 64, 128, 512])
 @pytest.mark.parametrize("flags", FLAGS, ids=["default", "wrap_k", "canonical_sign", "conj_neg"])
-def test_unpacked_step_kernel_matches_plain(cuda, n, flags):
-    """K4 (the single route) against its plain version, t up to 1000 s."""
-    cfg, inputs = _unpacked_inputs(n, flags, cuda)
-    assert isinstance(inputs, us.UnpackedInputs) and us.unpacked_route(cfg, n) == "single"
+def test_unpacked_step_kernel_matches_plain(cuda, n, flags, precision):
+    """K4 against its plain version, t up to 1000 s: the FFT body at
+    "highest" (alone at 512, where the route is K5 + K6), the tiered body K4t
+    at the split and at "default" (the single route)."""
+    cfg, inputs = _unpacked_inputs(n, flags, cuda, precision)
+    single = us.unpacked_route(cfg, n) == "single"
+    assert isinstance(inputs, us.UnpackedInputs) and single == (precision != "highest" or n < 512)
     ts = torch.tensor([0.0, 3.25, 11.25, 1000.0], device=cuda)
-    before = us.launch_unpacked_step.launches
-    got = fused_step.packed_planes(inputs, ts, cfg)
-    assert us.launch_unpacked_step.launches == before + 1
+    before = us.launch_unpacked_step.launches, us.launch_unpacked_step.tiered_launches
+    got = (fused_step.packed_planes(inputs, ts, cfg) if single
+           else us.launch_unpacked_step(inputs, ts, cfg))
+    assert (us.launch_unpacked_step.launches, us.launch_unpacked_step.tiered_launches) == (
+        before[0] + 1, before[1] + int(precision != "highest"))
     want = us.unpacked_planes_reference(inputs, ts, cfg)
     assert got.shape == (4, 3, n, n) and torch.isfinite(got).all()
-    assert _rel(got, want) < TOL_PLANES
-    assert _checksum_rel(fused_step.packed_checksums(inputs, ts, cfg), want, cfg) < TOL_CHECKSUM
+    assert _rel(got, want) < TOL_BODY[precision]
+    got_ck = (fused_step.packed_checksums(inputs, ts, cfg) if single
+              else us.launch_unpacked_step_checksums(inputs, ts, cfg)[1].sum(-1))
+    tol_ck = TOL_CHECKSUM if precision != "default" else 1e-3
+    assert _checksum_rel(got_ck, want, cfg) < tol_ck
 
 
 @pytest.mark.cuda
@@ -566,7 +575,9 @@ def test_unpacked_checksum_kernel_matches_plain(cuda, n, route):
     """The checksum kernel behind K4 and behind K6 (fed K5's Y) against
     ``checksums_of_planes`` of the plain planes, with and without normals;
     the planes equal those of the launch without a checksum."""
-    cfg, inputs = _unpacked_inputs(n, CompatFlags(), cuda)
+    # K5 + K6 serve "highest" only; K4 runs its tiered body at "bf16x3"
+    cfg, inputs = _unpacked_inputs(n, CompatFlags(), cuda,
+                                   "bf16x3" if route == "k4" else "highest")
     ts = torch.tensor([0.0, 3.25, 11.25, 1000.0], device=cuda)
     want = us.unpacked_planes_reference(inputs, ts, cfg)
     for c in (cfg, dataclasses.replace(cfg, compute_normals=False)):
@@ -595,8 +606,10 @@ def test_unpacked_counts_launches_and_rejects_bad_inputs(cuda):
     cfg, inputs = _unpacked_inputs(64, CompatFlags(), cuda)
     counts = (us.launch_unpacked_step.launches, us.launch_unpacked_rows.launches,
               us.launch_unpacked_cols.launches)
+    tiered = us.launch_unpacked_step.tiered_launches
     fused_step.packed_checksums(inputs, [1.0, 2.0], cfg)
     assert us.launch_unpacked_step.launches == counts[0] + 1
+    assert us.launch_unpacked_step.tiered_launches == tiered + 1  # K4t at "bf16x3"
     k1 = fused_step.launch_packed_step.launches
 
     def rejected(match, fn):
@@ -618,6 +631,7 @@ def test_unpacked_counts_launches_and_rejects_bad_inputs(cuda):
     big = us.UnpackedInputs(torch.zeros(2, 1024, 1024, device=cuda),
                             torch.zeros(1024, 1024, device=cuda), torch.zeros(2, 512, device=cuda))
     rejected("power of two N", lambda: us.launch_unpacked_step(big, [1.0], cfg))
+    rejected("FP32 FFT body", lambda: us.launch_unpacked_rows(inputs, [1.0], cfg))
     assert (us.launch_unpacked_step.launches, us.launch_unpacked_rows.launches,
             us.launch_unpacked_cols.launches) == (counts[0] + 1, counts[1], counts[2])
     assert fused_step.launch_packed_step.launches == k1

@@ -122,7 +122,7 @@ def test_effective_precision_takes_the_jax_signature():
     assert tfft.effective_precision("bf16x4", 4096, 1024, "matmul").startswith("highest (")
     assert tfft.effective_precision("bf16x4", 512, impl="pallas").startswith("bf16x3 (")
     assert tfft.effective_precision("bf16x4", 512, impl="pallas",
-                                    hermitian_pack=False).startswith("fp32")
+                                    hermitian_pack=False).startswith("bf16x3 (")
     assert "do not apply" in tfft.effective_precision("highest", 64, impl="xla")
     assert "do not apply" in tfft.effective_precision("default", 64, impl="xla")
     assert tfft.resolve_precision("default") == "default"

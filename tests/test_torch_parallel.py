@@ -415,8 +415,8 @@ def test_sharded_pallas_small_grid_under_gspmd(meshes, interpret_pallas):
     """"pallas" at 64^2 under "gspmd": each position runs K1's plain version
     on the gathered state and keeps its rows, bit-equal to the single-device
     step; the JAX package's gspmd step on the same state agrees within 1e-6
-    at "highest" (the JAX kernel runs a lower tier's bf16 passes in-kernel,
-    the port's kernels FP32: ROADMAP D3)."""
+    at "highest" (at a bf16 tier the two sides' sums run in another order,
+    and a split's rounding then differs now and then)."""
     mesh, jmesh = meshes
     state, jstate = _state(26, 64)
     cfg = T.OceanConfig(resolution=64, fft_impl="pallas", compute_normals=True,

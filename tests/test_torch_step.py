@@ -210,12 +210,11 @@ def test_foam_and_its_checksum_match_jax(fft_impl, time_batch, interpret_pallas)
 
 
 UNPORTED = [
-    # the "default" tier runs on every route: on the unpacked "pallas" route
-    # (K4-K6) as FP32 in the kernels (contract difference D3) and on "xla" as
-    # torch.fft, which takes no tier, both as the "bf16x3" configuration
-    # does; on the packed "pallas" route (K1, K2 + K3) as one bf16 pass, as
-    # the JAX kernels run it, within the tier's bound of "bf16x3"
-    (dict(fft_impl="pallas", hermitian_pack=False, matmul_precision="default"), N, "fp32"),
+    # the "default" tier runs on every route: on "xla" as torch.fft, which
+    # takes no tier, as the "bf16x3" configuration does; on the "pallas"
+    # route, unpacked (K4) or packed (K1, K2 + K3), as one bf16 pass, as the
+    # JAX kernels run it, within the tier's bound of "bf16x3"
+    (dict(fft_impl="pallas", hermitian_pack=False, matmul_precision="default"), N, "default"),
     (dict(fft_impl="pallas", resolution=1024, matmul_precision="default"), 1024, "default"),
     (dict(fft_impl="xla", matmul_precision="default"), N, "n/a"),
     (dict(fft_impl="xla", compute_foam=True, num_cascades=2, matmul_precision="default"),

@@ -1,8 +1,9 @@
-"""The precision tiers of the packed kernels K1, K2 and K3: their plain
+"""The precision tiers of the kernels K1, K2, K3 and K4: their plain
 PyTorch versions (``ops/fused_step.packed_planes_reference``,
-``ops/fourstep_step.fourstep_row_reference`` / ``fourstep_col_reference``)
-against the JAX package's Pallas kernels on the same numpy inputs, and the
-B operand layout the tiered CUDA bodies read (``ops/fft.mma_fragments``).
+``ops/fourstep_step.fourstep_row_reference`` / ``fourstep_col_reference``,
+``ops/unpacked_step.unpacked_planes_reference``) against the JAX package's
+Pallas kernels on the same numpy inputs, and the B operand layout the
+tiered CUDA bodies read (``ops/fft.mma_fragments``).
 
 The JAX kernels build every product with ``pallas_step._make_dot``: the
 three-pass split ``_dot3`` at "high", "bf16x3" and "bf16x4", one DEFAULT
@@ -14,7 +15,7 @@ of ``tests/test_torch_precision.py``'s ``mxu_rounding``), in this test only.
 
 Tolerances, relative to the field's largest |value|, for a route whose
 stages split their FP32 output again as the next stage's operand r times
-(K1's row pass and K2's stage 1: r = 1; K2 + K3: r = 3):
+(K1's and K4's row pass and K2's stage 1: r = 1; K2 + K3: r = 3):
 - the three-pass tiers, port against JAX: 8e-6 r. Both take the same bf16
   operands and exact products and differ in the order of the FP32 sums; a
   one-ulp difference in a stage's output now and then moves its lo by a bf16
@@ -37,6 +38,8 @@ the JAX kernel).
 from __future__ import annotations
 
 import functools
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -51,12 +54,16 @@ from gfx_ocean_tpu.golden.reference import golden_fields
 from gfx_ocean_tpu_torch.ops import fft as tfft
 from gfx_ocean_tpu_torch.ops import fourstep_step as fs
 from gfx_ocean_tpu_torch.ops import fused_step
+from gfx_ocean_tpu_torch.ops import unpacked_step as us
 from gfx_ocean_tpu_torch.ops.derived import finite_difference_normals_planes
 from gfx_ocean_tpu_torch.ops.propagate import band_windows
 from gfx_ocean_tpu_torch.spectra.phillips import dispersion, phillips_spectrum
 
 TIERS = ["bf16x3", "bf16x4", "high", "highest", "default"]
-FLAGS = {"default": {}, "canonical": dict(ref_sign=False), "wrap_k": dict(wrap_k=True)}
+FLAGS = {"default": {}, "canonical": dict(ref_sign=False), "wrap_k": dict(wrap_k=True),
+         "conj_neg": dict(conj_neg=True)}
+# K1's cases: the flags that change the packed propagate's arithmetic.
+K1_FLAGS = ["default", "canonical", "wrap_k"]
 # Port against JAX for one stage whose output is split again (module docstring).
 TOL = {"bf16x3": 8e-6, "bf16x4": 8e-6, "high": 8e-6, "highest": 1e-6, "default": 1e-3}
 # "default" against golden: within 1% of the exact scheme's own error.
@@ -102,6 +109,8 @@ def _state(n: int, seed: int = 0):
 
 
 def _configs(n: int, precision: str, flags: str = "default", **kwargs):
+    """(JAX, port) configs of the "pallas" route; ``hermitian_pack=False``
+    in ``kwargs`` takes the unpacked step (K4)."""
     common = dict(resolution=n, fft_impl="pallas", matmul_precision=precision, **kwargs)
     return (J.OceanConfig(compat=J.CompatFlags(**FLAGS[flags]), **common),
             T.OceanConfig(compat=T.CompatFlags(**FLAGS[flags]), **common))
@@ -123,11 +132,13 @@ def _exact_matmul(a, b, tier: str) -> torch.Tensor:
 
 
 def _exact_scheme(h0, om, tc, t: float, monkeypatch) -> np.ndarray:
-    """The plain version of the route (K1, or K2 + K3) with every product
-    computed by ``_exact_matmul``: (N, N, 3), as golden is laid out."""
+    """The plain version of the route (K1, K2 + K3, or K4) with every
+    product computed by ``_exact_matmul``: (N, N, 3), as golden is laid
+    out."""
     with monkeypatch.context() as m:
         m.setattr(fused_step, "matmul_tier", _exact_matmul)
         m.setattr(fs, "matmul_tier", _exact_matmul)
+        m.setattr(us, "matmul_tier", _exact_matmul)
         planes = fused_step.fused_planes(torch.from_numpy(h0), torch.from_numpy(om), t, tc)
     return np.moveaxis(planes.numpy(), 0, -1)
 
@@ -172,7 +183,7 @@ def _summands(planes: torch.Tensor, cfg) -> np.ndarray:
 # K1 (N <= 512).
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("flags", list(FLAGS))
+@pytest.mark.parametrize("flags", K1_FLAGS)
 @pytest.mark.parametrize("tier", TIERS)
 @pytest.mark.parametrize("n", [64, 128])
 def test_plain_k1_tier_matches_pallas_kernel(n, tier, flags, request, monkeypatch):
@@ -211,6 +222,55 @@ def test_split_tiers_share_one_scheme():
     assert torch.equal(runs["bf16x4"], runs["bf16x3"])
     assert not torch.equal(runs["highest"], runs["bf16x3"])
     assert [tfft.kernel_passes(t) for t in TIERS] == [3, 3, 3, 0, 1]
+
+
+# --------------------------------------------------------------------------
+# K4 (N <= 512, hermitian_pack=False).
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("flags", list(FLAGS))
+@pytest.mark.parametrize("tier", ["bf16x3", "default"])
+@pytest.mark.parametrize("n", [64, 128])
+def test_plain_k4_tier_matches_pallas_kernel(n, tier, flags, request, monkeypatch):
+    """The plain K4 (``unpacked_planes_reference``, the function of K4's
+    tiered body K4t) against ``_step_kernel`` at the tier, and its
+    checksums; the split under the golden gate, "default" beside its exact
+    scheme. Before K4t the port's K4 computed FP32 at every tier, 4e-3 of
+    the field from the JAX kernel at "default"."""
+    if tier == "default":
+        request.getfixturevalue("mxu_default")
+    h0, om = _state(n, 8)
+    jc, tc = _configs(n, tier, flags, hermitian_pack=False)
+    want = np.asarray(ps.pallas_planes(jnp.asarray(h0), jnp.asarray(om), jnp.float32(T_CHECK),
+                                       jc, interpret=True))
+    h0_t, om_t = torch.from_numpy(h0), torch.from_numpy(om)
+    inputs = fused_step.hoist_packed(h0_t, om_t, tc)
+    assert isinstance(inputs, us.UnpackedInputs) and us.unpacked_route(tc, n) == "single"
+    got = us.unpacked_planes(inputs, [T_CHECK], tc)[0].numpy()
+    assert got.shape == want.shape == (3, n, n)
+    if tier == "default":
+        _hold_default(got, want, h0, om, tc, jc, monkeypatch)
+    else:
+        assert _rel(got, want) < TOL[tier]
+        gold = golden_fields(h0[0] + 1j * h0[1], om, T_CHECK, 1000.0, jc.compat)
+        assert _rel(np.moveaxis(got, 0, -1), gold) < 1e-4
+    got_ck = us.unpacked_checksums(inputs, [T_CHECK], tc).numpy()
+    want_ck = fused_step.checksums_of_planes(torch.from_numpy(want.copy())[None], tc).numpy()
+    scale = _summands(torch.from_numpy(got)[None], tc)
+    tol = CHECKSUM_TOL if tier != "default" else TOL["default"]
+    assert np.all(np.abs(got_ck - want_ck) < tol * scale)
+
+
+def test_k4_split_tiers_share_one_scheme():
+    """"high" and "bf16x4" run K4's plain version bit-equal to "bf16x3", as
+    ``_step_kernel`` builds all three with ``_dot3``; "highest" differs."""
+    h0, om = (torch.from_numpy(a) for a in _state(64, 9))
+    runs = {tier: fused_step.fused_planes(h0, om, T_CHECK,
+                                          _configs(64, tier, hermitian_pack=False)[1])
+            for tier in ("bf16x3", "high", "bf16x4", "highest")}
+    assert torch.equal(runs["high"], runs["bf16x3"])
+    assert torch.equal(runs["bf16x4"], runs["bf16x3"])
+    assert not torch.equal(runs["highest"], runs["bf16x3"])
 
 
 # --------------------------------------------------------------------------
@@ -289,3 +349,381 @@ def test_mma_fragments_hold_the_transposed_table(tier):
                         b[k, 8 * nt + g] = (word << 16).view(np.float32)
                         b[k + 1, 8 * nt + g] = ((word >> 16) << 16).view(np.float32)
             assert np.array_equal(b, terms[name].float().numpy().T)
+
+
+# --------------------------------------------------------------------------
+# K2t's and K3t's products on wgmma: the table's layout, stage 1's ring of
+# slots, K2t's stage 2 in the block and the stage 2 from the scratch,
+# emulated (shared-memory addressing, descriptors, index maps).
+# --------------------------------------------------------------------------
+
+SOURCE = Path(T.__file__).resolve().parent / "csrc" / "fourstep_step.cu"
+N1 = 128
+SMEM_LIMIT = 232448   # bytes of shared memory one block can use on the H100
+ROWS = 64             # an A operand's rows: H's 32 vectors, then Z's
+
+
+def _constant(name: str) -> int:
+    """A constant of the source: ``constexpr int name = v;``."""
+    return int(re.search(rf"constexpr int {name} = (\d+);", SOURCE.read_text()).group(1))
+
+
+def _core_at(r, k, rows):
+    """``tier::core_at``: element (r, k) of a K-major operand of ``rows`` rows."""
+    return ((k >> 3) * (rows >> 3) + (r >> 3)) * 64 + (r & 7) * 8 + (k & 7)
+
+
+def _bf16_bits(x: np.ndarray) -> np.ndarray:
+    """float values of bf16 bit patterns (int16)."""
+    return (x.astype(np.uint16).astype(np.uint32) << 16).view(np.float32).astype(np.float64)
+
+
+def _read(smem: np.ndarray, start: int, k_step: int, mn_step: int, rows: int) -> np.ndarray:
+    """The (rows x 16) operand a wgmma descriptor reads from ``smem`` (bf16
+    values, one a 2-byte slot): element (r, k) at start + (k // 8) k_step +
+    (r // 8) mn_step + 16 (r % 8) + 2 (k % 8) bytes, the semantics of the
+    leading and stride byte offsets without swizzle (K-major)."""
+    r, k = np.arange(rows)[:, None], np.arange(16)[None, :]
+    return smem[(start + (k // 8) * k_step + (r // 8) * mn_step + 16 * (r % 8) + 2 * (k % 8)) // 2]
+
+
+def _terms(a, tier):
+    """The bf16 terms of a float32 array, as float64 arrays."""
+    return [t.double().numpy() for t in tfft._bf16_terms(torch.as_tensor(a), tier).values()]
+
+
+def _put4(parts, written, part, nt, r, kl, v, imag, tier):
+    """``put4``: four values at k = kl .. kl + 3 of row r into the parts
+    [part][term] (``part`` bf16 apart): re into Xr, im into Xi and -Xi."""
+    at = _core_at(r, kl, ROWS) + np.arange(4)
+    for s, t in enumerate(_terms(np.asarray(v, np.float32), tier)):
+        for q, sign in ((1, 1), (2, -1)) if imag else ((0, 1),):
+            idx = (q * nt + s) * part + at
+            parts[idx] = sign * t
+            written[idx] += 1
+
+
+def _complex_kstep(smem, got, a, b, part_a, term_a, plane_b, term_b, k_a, k_b, n, nt):
+    """``complex_kstep`` at byte addresses a (Xr hi) and b (Wr hi): got[c][s]
+    (64 x n) accumulates Yr / Yi's hi.hi (s = 0) and hi.lo + lo.hi (s = 1)."""
+    def op(start, k_step, rows):
+        return _read(smem, start, k_step, 128, rows)
+
+    for c, (xa, wb) in enumerate(((0, 0), (0, 1))):      # Re k: Yr = Xr Wr, Yi = Xr Wi
+        for xpart, wplane in (((xa, wb),) + (((2, 1),) if c == 0 else ((1, 0),))):
+            a_hi = op(a + 2 * xpart * part_a, k_a, ROWS)
+            b_hi = op(b + 2 * wplane * plane_b, k_b, n)
+            got[c, 0] += a_hi @ b_hi.T
+            if nt == 2:
+                a_lo = op(a + 2 * (xpart * part_a + term_a), k_a, ROWS)
+                b_lo = op(b + 2 * (wplane * plane_b + term_b), k_b, n)
+                got[c, 1] += a_hi @ b_lo.T + a_lo @ b_hi.T
+
+
+def _stage1_smem(n: int, tier: str, row: bool) -> tuple:
+    """``Stage1Smem``: (stages, bytes) of a stage-1 block."""
+    nt = 1 if tier == "default" else 2
+    n2, consumers, chunk = n // N1, _constant("kConsumers"), _constant("kChunkK")
+    fused = row and n <= 4096
+    table = 2 * nt * N1 * N1
+    w2 = 4 * n2 * n2 * nt if fused else 0
+    tiles = consumers * nt * ROWS * 64 if fused else 0
+    slot = 3 * nt * ROWS * chunk
+    fixed = 2 * (table + w2 + tiles)
+    stages = min(_constant("kMaxStages"), (SMEM_LIMIT - fixed - 2 * 4 * 8) // (2 * slot))
+    return stages, fixed + 2 * slot * stages + 2 * stages * 8
+
+
+@pytest.mark.parametrize("tier", ["bf16x3", "default"])
+def test_wgmma_table_holds_the_transposed_table(tier):
+    """``wgmma_table`` decodes, by ``tier::core_at``'s layout of 8 x 8 core
+    matrices, to each plane's bf16 terms: row r of B^T = W is W[r]; with
+    ``min_k`` the planes are padded with zero columns."""
+    rng = np.random.default_rng(11)
+    planes = [torch.from_numpy(rng.standard_normal((24, 48)).astype(np.float32))
+              for _ in range(2)]
+    tab = tfft.wgmma_table(planes, tier).numpy()
+    names = ("hi",) if tier == "default" else ("hi", "lo")
+    assert tab.shape == (len(names), 2, 6, 3, 8, 8)
+    r, k = np.meshgrid(np.arange(24), np.arange(48), indexing="ij")
+    for s, name in enumerate(names):
+        for p, w in enumerate(planes):
+            flat = tab[s, p].reshape(-1)
+            got = _bf16_bits(flat[_core_at(r, k, 24)])
+            assert np.array_equal(got, tfft._bf16_terms(w, tier)[name].double().numpy())
+    padded = tfft.wgmma_table([p[:, :8] for p in planes], tier, 16).numpy()
+    assert padded.shape == (len(names), 2, 2, 3, 8, 8)
+    assert (padded[:, :, 1] == 0).all()  # k 8 .. 15
+    assert np.array_equal(padded[:, :, :1], tfft.wgmma_table([p[:, :8] for p in planes],
+                                                             tier).numpy())
+
+
+@pytest.mark.parametrize("side", ["row", "col"])
+@pytest.mark.parametrize("tier", ["bf16x3", "default"])
+def test_stage1_wgmma_addressing_emulated(tier, side):
+    """Stage 1's shared memory as ``fourstep_row_tier1`` (side "row") or
+    ``fourstep_col_tier1`` fills it: the table copied from ``wgmma_table``;
+    each ring slot a chunk of 32 k1 of the item's A (64 rows, H's 32
+    vectors then Z's) in the parts Xr, Xi, -Xi, written by the producers'
+    ``put4`` (task u: vector or column u % 32, k1 = 32 c + 4 (u / 32) + i;
+    K2t the propagate's H and Z, K3t the four planes of Y), every slot
+    value once; read by ``chunk_product``'s descriptors (two k-steps a
+    chunk) on each consumer warpgroup's 64 n1 and summed as its accumulators
+    (hi.hi apart from hi.lo + lo.hi), against [Xr | Xi] W1cat^T of the same
+    bf16 terms in float64. The epilogue's (warp, lane, register) -> (plane,
+    vector, n1) map covers the item's outputs once, and every form's shared
+    memory (``Stage1Smem``) holds at least two slots within the limit."""
+    vecs, consumers = _constant("kItemVecs"), _constant("kConsumers")
+    chunk, tasks = _constant("kChunkK"), _constant("kProducerTasks")
+    assert tasks % (128 * _constant("kProducers")) == 0  # whole tasks a producer thread
+    kc_n = N1 // consumers  # the n1 of a consumer warpgroup, the product's N
+    part, plane = ROWS * chunk, N1 * N1
+    nt = 1 if tier == "default" else 2
+    for n in (1024, 2048, 4096, 8192, 16384):
+        stages, nbytes = _stage1_smem(n, tier, side == "row")
+        assert stages >= 2 and nbytes <= SMEM_LIMIT
+    rng = np.random.default_rng(12)
+    w1 = [torch.from_numpy(a) for a in tfft._dft_matrix_out_alt_np(N1, 1, 0, False)]
+    x = rng.standard_normal((2, 2, vecs, N1)).astype(np.float32)  # p, re/im, vector, k1
+    table = _bf16_bits(tfft.wgmma_table(w1, tier).numpy().reshape(-1))
+    got = np.zeros((2, nt, ROWS, N1))                 # wg-assembled acc[re/im][term]
+    for c in range(N1 // chunk):
+        slot = np.zeros(3 * nt * part)
+        written = np.zeros(3 * nt * part, int)
+        for u in range(tasks):  # task u: vector or column u % 32, k1 = 32 c + 4 (u / 32) + i
+            lane, kl = u % 32, 4 * (u // 32)
+            k1 = chunk * c + kl + np.arange(4)
+            if side == "row":
+                for p in range(2):
+                    for imag in (False, True):
+                        _put4(slot, written, part, nt, vecs * p + lane, kl, x[p, int(imag), lane, k1],
+                              imag, tier)
+            else:
+                for q in range(4):
+                    _put4(slot, written, part, nt, vecs * (q >> 1) + lane, kl,
+                          x[q >> 1, q & 1, lane, k1], bool(q & 1), tier)
+        assert (written == 1).all()
+        smem = np.concatenate([table, slot])
+        slot0 = 2 * table.size
+        for wg in range(consumers):
+            cols = slice(kc_n * wg, kc_n * (wg + 1))
+            acc = np.zeros((2, nt, ROWS, kc_n))
+            for q in range(chunk // 16):
+                a = slot0 + 2 * _core_at(0, 16 * q, ROWS)
+                b = 2 * (_core_at(kc_n * wg, 0, N1) + _core_at(0, chunk * c + 16 * q, N1))
+                _complex_kstep(smem, acc, a, b, nt * part, part, plane, 2 * plane,
+                               (ROWS // 8) * 128, (N1 // 8) * 128, kc_n, nt)
+            got[:, :, :, cols] += acc
+    got = got.sum(axis=1)                              # tier::total
+
+    want = np.zeros((2, ROWS, N1))
+    pairs = tfft._PASSES["default" if tier == "default" else "bf16x3"]
+    t = {name: dict(zip(("hi", "lo"), _terms(a, tier)))
+         for name, a in (("xr", x[:, 0]), ("xi", x[:, 1]), ("wr", w1[0].numpy()),
+                         ("wi", w1[1].numpy()))}
+    for p in range(2):
+        rows = slice(vecs * p, vecs * (p + 1))
+        for s1, s2 in pairs:
+            xr, xi = t["xr"][s1][p], t["xi"][s1][p]
+            wr, wi = t["wr"][s2], t["wi"][s2]
+            want[0, rows] += xr @ wr.T - xi @ wi.T
+            want[1, rows] += xr @ wi.T + xi @ wr.T
+    assert np.allclose(got, want, rtol=0, atol=1e-9 * np.abs(want).max())
+
+    # the epilogue: consumer thread (warp, lane) of warpgroup wg, register 4 j + i
+    seen = np.zeros((2, vecs, N1), int)
+    for warp in range(4 * consumers):
+        for lane in range(32):
+            for j in range(kc_n // 8):
+                for i in range(4):
+                    p = (warp % 4) // 2
+                    v = 16 * (warp % 2) + lane // 4 + 8 * (i >> 1)
+                    n1 = kc_n * (warp // 4) + 8 * j + 2 * (lane % 4) + (i & 1)
+                    assert 16 * (warp % 4) + lane // 4 + 8 * (i >> 1) == vecs * p + v
+                    seen[p, v, n1] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("n", [1024, 2048, 4096])
+@pytest.mark.parametrize("tier", ["bf16x3", "default"])
+def test_row_stage2_in_block_emulated(tier, n):
+    """K2t's stage 2 in its stage-1 kernel (``row_stage2``, N <= 4096): each
+    consumer warpgroup writes its 64 n1 of an item's twiddled stage-1
+    values, 32 at a time, as bf16 terms into its tile ([term][sub-row]
+    [core_at(32 p + n1 % 32, k, 64)], k = k2 for Re, N2 + k2 for Im), every
+    tile value once a half; the descriptors read each of the item's 32 / N2
+    rows as A and W2cat (``wgmma_table`` of ("cat", N2)) as B, at most 32
+    outputs at a time, which equals
+    the stacked product [Br | Bi] W2cat^T of the same bf16 terms; the
+    output map (warp, lane, register) -> Y (2, 2, rows, N) covers each of
+    the item's Y values once, at x = n1 + 128 n2."""
+    n2, vecs, consumers = n // N1, _constant("kItemVecs"), _constant("kConsumers")
+    sub_rows, kk = vecs // n2, 2 * n2
+    kc_n = N1 // consumers
+    nt = 1 if tier == "default" else 2
+    block = ROWS * kk
+    tile = sub_rows * block
+    rng = np.random.default_rng(13)
+    # B: the twiddled stage-1 output of an item, (p, row of the item, re/im, k2, n1)
+    bval = rng.standard_normal((2, sub_rows, 2, n2, N1)).astype(np.float32)
+    w2cat = tfft._cat_dft_np(n2)[0]
+    table = _bf16_bits(tfft.wgmma_table([torch.from_numpy(w2cat)], tier).numpy().reshape(-1))
+    out = np.zeros((2, 2, sub_rows, n))
+    hit = np.zeros((2, 2, sub_rows, n), int)
+    for wg in range(consumers):
+        for half in range(2):
+            tiles = np.zeros(nt * tile)
+            written = np.zeros(nt * tile, int)
+            for warp in range(4):
+                p = warp // 2
+                for lane in range(32):
+                    g, t4 = lane // 4, lane % 4
+                    for h in range(2):
+                        vec = 16 * (warp % 2) + g + 8 * h
+                        sub, k2 = vec // n2, vec % n2
+                        for jj in range(4):
+                            for e in range(2):
+                                n1 = kc_n * wg + 8 * (4 * half + jj) + 2 * t4 + e
+                                r = 32 * p + 8 * jj + 2 * t4 + e
+                                for ri in range(2):
+                                    v = bval[p, sub, ri, k2, n1]
+                                    for s, term in enumerate(_terms(np.float32([v]), tier)):
+                                        at = s * tile + sub * block + _core_at(r, ri * n2 + k2, ROWS)
+                                        tiles[at] = term[0]
+                                        written[at] += 1
+            assert (written == 1).all()
+            smem = np.concatenate([table, tiles])
+            t0 = 2 * table.size
+            kn = min(kk, 32)  # the product's N: at most 32 outputs at a time
+            for sub in range(sub_rows):
+                acc = np.zeros((nt, ROWS, kk))
+                for o0 in range(0, kk, kn):
+                    for q in range(kk // 16):
+                        ops = []
+                        for s in range(nt):
+                            a = t0 + 2 * (s * tile + sub * block + _core_at(0, 16 * q, ROWS))
+                            b = 2 * (_core_at(o0, 0, kk) + s * kk * kk + _core_at(0, 16 * q, kk))
+                            ops.append((_read(smem, a, (ROWS // 8) * 128, 128, ROWS),
+                                        _read(smem, b, (kk // 8) * 128, 128, kn)))
+                        cols = slice(o0, o0 + kn)
+                        acc[0, :, cols] += ops[0][0] @ ops[0][1].T
+                        if nt == 2:
+                            acc[1, :, cols] += ops[0][0] @ ops[1][1].T + ops[1][0] @ ops[0][1].T
+                acc = acc.sum(axis=0)
+                # want: rows (p, n1 of the half), A = [Br | Bi] of the same terms
+                n1s = kc_n * wg + 32 * half + np.arange(32)
+                want = np.zeros((ROWS, kk))
+                wt = dict(zip(("hi", "lo"), _terms(w2cat, tier)))
+                for p in range(2):
+                    a32 = np.concatenate([bval[p, sub, 0][:, n1s].T, bval[p, sub, 1][:, n1s].T], 1)
+                    at = dict(zip(("hi", "lo"), _terms(a32, tier)))
+                    for s1, s2 in tfft._PASSES["default" if tier == "default" else "bf16x3"]:
+                        want[32 * p:32 * (p + 1)] += at[s1] @ wt[s2].T
+                assert np.allclose(acc, want, rtol=0, atol=1e-9 * np.abs(want).max())
+                for warp, lane, o0 in np.ndindex(4, 32, kk // kn):
+                    g, t4 = lane // 4, lane % 4
+                    for j2 in range(kn // 8):
+                        for i in range(4):
+                            o = kn * o0 + 8 * j2 + 2 * t4 + (i & 1)
+                            r = 16 * warp + g + 8 * (i >> 1)
+                            n1 = kc_n * wg + 32 * half + (r & 31)
+                            x = n1 + N1 * (o % n2)
+                            out[r >> 5, o // n2, sub, x] = acc[r, o]
+                            hit[r >> 5, o // n2, sub, x] += 1
+    assert (hit == 1).all()
+
+
+@pytest.mark.parametrize("side", ["row", "col"])
+def test_stage2_wide_index_maps_cover_their_items(side):
+    """``fourstep_tier2``, stage 2 from the scratch (K2t at N >= 8192, K3t at
+    every N), at each N2 it serves: over one frame of a small band (2 rows,
+    or 2 column bands), the loader's tasks (p, 4 k2, vector) read each value
+    of the scratch once and ``put4`` writes each A part element (plane,
+    vector, k) of an item once, the k padded to 16 at N2 = 8 left zero; the
+    descriptors (K per half max(N2, 16), the warpgroups' N = N2 / groups)
+    read W2 (``wgmma_table`` of ("dft", N2, 1), padded) against the product
+    of the same terms; the epilogue's (warp, lane, register) -> output
+    offsets write each output once. The layouts: the row scratch (rows, 2,
+    2, N2, 128) into Y (2, 2, rows, N) at x = n1 + 128 n2; the column scratch
+    (bands, 128, 2, 2, N2, 32) into the planes (3, N, cols) at row n1 + 128
+    n2 (the height from H's real part only)."""
+    vecs, cols32, count, tier, nt = _constant("kItemVecs"), 32, 2, "bf16x3", 2
+    rng = np.random.default_rng(14)
+    for n2 in ((64, 128) if side == "row" else (8, 16, 32, 64, 128)):
+        n = N1 * n2
+        kk = max(n2, 16)
+        groups = 2 if n2 == N1 else 1
+        kn = n2 // groups
+        part = ROWS * kk
+        # the loader and put4 on one item: every A element once, padding untouched
+        e = np.arange(2 * (n2 // 4) * vecs)
+        v, kq, p = e % vecs, (e // vecs) % (n2 // 4), e // (vecs * (n2 // 4))
+        parts = np.zeros(3 * nt * part)
+        written = np.zeros(3 * nt * part, int)
+        x = rng.standard_normal((2, 2, vecs, n2)).astype(np.float32)  # p, re/im, v, k2
+        for vv, qq, pp in zip(v, kq, p):
+            k2 = 4 * qq + np.arange(4)
+            _put4(parts, written, part, nt, vecs * pp + vv, 4 * qq, x[pp, 0, vv, k2], False, tier)
+            _put4(parts, written, part, nt, vecs * pp + vv, 4 * qq, x[pp, 1, vv, k2], True, tier)
+        r, k = np.meshgrid(np.arange(ROWS), np.arange(kk), indexing="ij")
+        real = _core_at(r, k, ROWS)[:, :n2].ravel()
+        pad = _core_at(r, k, ROWS)[:, n2:].ravel()
+        for q in range(3 * nt):
+            assert (written[q * part + real] == 1).all()
+            assert (written[q * part + pad] == 0).all()
+        # the descriptors against the product
+        w2 = [torch.from_numpy(a) for a in tfft._dft_matrix_np(n2, 1)]
+        plane = n2 * kk
+        table = _bf16_bits(tfft.wgmma_table(w2, tier, 16).numpy().reshape(-1))
+        smem = np.concatenate([table, parts])
+        got = np.zeros((2, nt, ROWS, n2))
+        for wg in range(groups):
+            acc = np.zeros((2, nt, ROWS, kn))
+            for q in range(kk // 16):
+                a = 2 * table.size + 2 * _core_at(0, 16 * q, ROWS)
+                b = 2 * (_core_at(kn * wg, 0, n2) + _core_at(0, 16 * q, n2))
+                _complex_kstep(smem, acc, a, b, nt * part, part, plane, 2 * plane,
+                               (ROWS // 8) * 128, (n2 // 8) * 128, kn, nt)
+            got[:, :, :, kn * wg:kn * (wg + 1)] = acc
+        got = got.sum(axis=1)
+        want = np.zeros((2, ROWS, n2))
+        t = {name: dict(zip(("hi", "lo"), _terms(a, tier)))
+             for name, a in (("xr", x[:, 0]), ("xi", x[:, 1]), ("wr", w2[0].numpy()),
+                             ("wi", w2[1].numpy()))}
+        for pp in range(2):
+            for s1, s2 in tfft._PASSES["bf16x3"]:
+                xr, xi, wr, wi = t["xr"][s1][pp], t["xi"][s1][pp], t["wr"][s2], t["wi"][s2]
+                want[0, vecs * pp:vecs * (pp + 1)] += xr @ wr.T - xi @ wi.T
+                want[1, vecs * pp:vecs * (pp + 1)] += xr @ wi.T + xi @ wr.T
+        assert np.allclose(got, want, rtol=0, atol=1e-9 * np.abs(want).max())
+
+        # the index maps over every item of the frame
+        warp, lane, j, i = np.meshgrid(np.arange(4 * groups), np.arange(32), np.arange(kn // 8),
+                                       np.arange(4), indexing="ij")
+        ep = ((warp % 4) // 2).ravel()
+        o = (kn * (warp // 4) + 8 * j + 2 * (lane % 4) + (i & 1)).ravel()
+        c = (16 * (warp % 2) + lane // 4 + 8 * (i >> 1)).ravel()
+        reads, writes = [], []
+        k2s = 4 * kq[:, None] + np.arange(4)[None, :]
+        vs, ps = v[:, None], p[:, None]
+        if side == "row":
+            for item in range(count * (N1 // vecs)):
+                row, sub = item // (N1 // vecs), (item % (N1 // vecs)) * vecs
+                s0 = ((row * 4 + 2 * ps) * n + k2s * N1 + sub + vs).ravel()
+                reads += [s0, s0 + n]
+                xo = sub + c + N1 * o
+                writes += [((2 * ep) * count + row) * n + xo, ((2 * ep + 1) * count + row) * n + xo]
+            size, outputs = count * 4 * n, 4 * count * n
+        else:
+            for item in range(count * N1):
+                band, n1 = item // N1, item % N1
+                s0 = (((((band * N1 + n1) * 2 + ps) * 2) * n2) * cols32 + k2s * cols32 + vs).ravel()
+                reads += [s0, s0 + n2 * cols32]
+                at = (n1 + N1 * o) * (count * cols32) + band * cols32 + c
+                plane_sz = count * cols32 * n
+                writes += [np.where(ep == 0, plane_sz + at, at), (2 * plane_sz + at)[ep == 1]]
+            size, outputs = count * N1 * 4 * n2 * cols32, 3 * n * count * cols32
+        read = np.bincount(np.concatenate(reads), minlength=size)
+        wrote = np.bincount(np.concatenate(writes), minlength=outputs)
+        assert read.size == size and (read == 1).all()
+        assert wrote.size == outputs and (wrote == 1).all()

@@ -9,9 +9,12 @@ runs its plain versions, which its wrappers take for CPU tensors.
 Tolerances, relative to the field's max |value|:
 - "highest": float32 transforms of the same spectra summed in different
   orders, held to 1e-6;
-- "bf16x3": the JAX kernel splits each operand into bf16 halves
-  (``pallas_step._dot3``); the port stays FP32 and does not carry that
-  split. Held to 5e-5, inside the 1e-4 golden gate.
+- "bf16x3": both sides split each operand into bf16 halves
+  (``pallas_step._dot3``; K4's tiered body) and sum the exact products in
+  FP32 in another order; the row pass's output is split again, where a
+  one-ulp difference now and then moves its lo by a bf16 ulp. Held to
+  5e-5, inside the 1e-4 golden gate (``tests/test_torch_tier_kernels.py``
+  holds the plain K4 to the JAX kernel within 8e-6 at the split).
 Checksums nearly cancel, so they are held on the scale of their summands.
 """
 
@@ -46,6 +49,11 @@ TOL_512 = 5e-6
 # Normals (unit vectors, absolute): at 512^2 a height difference is divided
 # by a texel of 2/512, so the same float32 noise moves them by 9.5e-5.
 NORMALS_TOL = {64: 1e-5, 512: 2e-4}
+# The slice at "bf16x3" against the JAX kernel at the same tier: the split's
+# one-resplit tolerance (tests/test_torch_tier_kernels.py) on the
+# displacement, and on the normals as NORMALS_TOL[64] scales with it.
+SPLIT_SLICE_TOL = 8e-6
+SPLIT_NORMALS_TOL = 8e-5
 CHECKSUM_TOL = 1e-6
 GOLDEN_TOL = 1e-5
 FLAGS = [dict(), dict(wrap_k=True), dict(ref_sign=False), dict(conj_neg=True)]
@@ -197,22 +205,33 @@ SLICE_IDS = ["k4-tb1", "k4-tb3", "k4-highest-tb3", "k5k6-512-tb3"]
 
 
 @pytest.mark.parametrize("n,precision,time_batch", SLICE_CASES, ids=SLICE_IDS)
-def test_slice_matches_jax_matmul_rollout(n, precision, time_batch):
+def test_slice_matches_jax_matmul_rollout(n, precision, time_batch, monkeypatch):
     """``step`` and ``make_rollout`` (both modes) on the unpacked "pallas"
-    route against JAX ``make_rollout`` on the unpacked matmul route at
-    "highest" (``tests/test_pallas.py:40-49`` holds that equal to K4)."""
+    route against JAX ``make_rollout``: at "highest" on the unpacked matmul
+    route (``tests/test_pallas.py:40-49`` holds that equal to K4); at
+    "bf16x3" on the same unpacked "pallas" route, ``_step_kernel`` at the
+    tier in interpret mode (the port's K4 runs the JAX kernel's tier)."""
     h0, om = _state(n, 4)
-    jc = J.OceanConfig(resolution=n, fft_impl="matmul", hermitian_pack=False,
-                       matmul_precision="highest")
+    if precision == "highest":
+        jc = J.OceanConfig(resolution=n, fft_impl="matmul", hermitian_pack=False,
+                           matmul_precision="highest")
+        tol, normals_tol = (TOL["highest"] if n < 512 else TOL_512), NORMALS_TOL[n]
+    else:
+        jc = _configs(n, precision)[0]
+        tol, normals_tol = SPLIT_SLICE_TOL, SPLIT_NORMALS_TOL
+        fields, cks = ps.pallas_fields, ps.pallas_checksums
+        monkeypatch.setattr(ps, "pallas_fields",
+                            lambda h, o, t, cfg, interpret=False: fields(h, o, t, cfg, True))
+        monkeypatch.setattr(ps, "pallas_checksums",
+                            lambda h, o, ts, cfg, interpret=False: cks(h, o, ts, cfg, True))
     _, tc = _configs(n, precision)
     jst, tst = _jax_state(h0, om), state_from_numpy(h0, om, device="cpu")
     ts = np.asarray([0.5, 11.25, 1000.0], np.float32)
     want = J.make_rollout(jc, keep_fields=True, time_batch=time_batch)(jst, jnp.asarray(ts))
     got = T.make_rollout(tc, keep_fields=True, time_batch=time_batch)(tst, torch.from_numpy(ts))
-    tol = TOL["highest"] if n < 512 else TOL_512
     assert got.displacement.shape == (3, n, n, 3) and got.normals.shape == (3, n, n, 3)
     assert _rel(got.displacement.numpy(), want.displacement) < tol
-    assert np.abs(got.normals.numpy() - np.asarray(want.normals)).max() < NORMALS_TOL[n]
+    assert np.abs(got.normals.numpy() - np.asarray(want.normals)).max() < normals_tol
     one = T.step(tst, float(ts[1]), tc)
     assert _rel(one.displacement.numpy(), np.asarray(want.displacement)[1]) < tol
 
@@ -350,8 +369,8 @@ def test_state_constructors_default_to_the_card(maker, monkeypatch):
 
 def test_unpacked_configs_keep_their_limits():
     _, tc = _configs(64, "default")
-    # "default" runs as FP32 in the kernels (contract difference D3)
-    assert fused_step.check_supported(tc, 64).startswith("fp32")
+    # "default" runs as one bf16 pass, K4's tiered body
+    assert fused_step.check_supported(tc, 64) == "default"
     with pytest.raises(ValueError, match="N <= 512"):
         us.check_supported(dataclasses.replace(tc, matmul_precision="highest"), 1024)
     # N > 512 takes the four-step route whatever hermitian_pack says

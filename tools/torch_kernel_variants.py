@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Launch-shape and register variants of the port's kernels K1-K4, timed
-on one NVIDIA GPU.
+"""Launch-shape and register variants of the port's kernels K1-K4 and of
+the tiered bodies K2t and K3t, timed on one NVIDIA GPU.
 
     python3 tools/torch_kernel_variants.py [variant ...]
 
@@ -44,6 +44,20 @@ packed rows): ``k8_late_stores`` stores every entry after the look-back
 blocks a SM (at most 64 registers),
 ``k8_blockidx`` takes tile blockIdx.x instead of a ticket (no atomic; it
 relies on blocks starting in index order, which CUDA does not promise).
+The ``k2t*`` and ``k3t*`` variants are K2's and K3's tiered bodies at
+config 5 "high" (one 4096^2 frame; K3t on K2t's Y, with its checksum), the
+``k2tw*`` variants K2t at 16384^2 "bf16x3" (one frame on the state of the
+``k2s`` variants): ``k2t_scratch`` runs K2t's stage 2 from the scratch
+(``fourstep_tier2``, as at N >= 8192) in place of in its stage-1 kernel,
+``*_default`` run "default", ``*_loads_only`` cut K2t's propagate to the
+element's own loads (so the producers' propagate's share of stage 1),
+``k2t_p96`` gives stage 1's producers 96 registers a thread where stage 2
+runs in the block (the consumers 160) in place of 80 (176), ``k3t_p64``
+64 (192), ``k2tw_p80`` 80 at 16384^2 in place of 96, ``*_default_p112``
+112 at "default" in place of 80, ``*_producers1`` runs
+one producer warpgroup in place of two (each thread two tasks a chunk;
+producers 120 registers, consumers 192), ``*_tier2_rolled`` runs
+the stage-2 loader's rounds one task at a time. The FFT-body variants run at "highest".
 Names on the command line pick variants.
 Prints, per variant and repeat, one JSON line: the ptxas register / stack
 lines, the CUDA-event ms of a call, the device ms of the kernels' own
@@ -55,6 +69,7 @@ Imports no jax.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -71,6 +86,7 @@ import torch  # noqa: E402
 import chip_smoke as smoke  # noqa: E402
 import gfx_ocean_tpu_torch as ot  # noqa: E402
 from gfx_ocean_tpu_torch import kernels  # noqa: E402
+from gfx_ocean_tpu_torch.ops import fft as tfft  # noqa: E402
 from gfx_ocean_tpu_torch.ops import fourstep_step as fs  # noqa: E402
 from gfx_ocean_tpu_torch.ops import fused_step  # noqa: E402
 from gfx_ocean_tpu_torch.ops import unpacked_step as us  # noqa: E402
@@ -79,6 +95,9 @@ from gfx_ocean_tpu_torch.render import raster as rr  # noqa: E402
 from gfx_ocean_tpu_torch.spectra.phillips import dispersion  # noqa: E402
 
 OUT = ROOT / "build" / "variants"
+# The C entry points' tiered-body arguments for the FFT body: passes 0,
+# no tables or twiddles.
+NO_TIER = (0, None, None, None, None)
 REPEATS = 2
 
 K2_BOUNDS = "kSmThreads / RowFft<LOG2N>::kT)"
@@ -115,6 +134,30 @@ K4_TWO_BLOCKS = ("constexpr int kBlocksPerSm = 1;", "constexpr int kBlocksPerSm 
 K4_TOGETHER = ("constexpr bool kRowTogether = false;", "constexpr bool kRowTogether = true;")
 K1_ROW = "__launch_bounds__(Shape<LOG2N>::kRows * Shape<LOG2N>::kT)"
 K1_COL = "__launch_bounds__(Shape<LOG2N>::kColThreads)"
+# K2t's stage 2 from the scratch at 4096^2 (fourstep_tier2), as at N >= 8192,
+# in place of in its stage-1 kernel
+K2T_SCRATCH = ("static constexpr bool kFused = kRow && LOG2N <= 12;",
+               "static constexpr bool kFused = false;")
+
+
+REGS = "static constexpr int kProducerRegs = kRow && !kFused ? 96 : 80;"
+
+
+def regs(split: int, wide: int, default: int) -> tuple:
+    """Stage 1's setmaxnreg split: the producers' registers a thread where
+    K2t runs stage 2 in the block and in K3t (split), in K2t at N >= 8192
+    (wide), each at "default" (default; the consumers take the rest of 128
+    x 2)."""
+    return (REGS, f"static constexpr int kProducerRegs = kTerms == 1 ? {default} : "
+                  f"(kRow && !kFused ? {wide} : {split});")
+
+
+# Stage 1 with one producer warpgroup (384 threads, 168 registers a thread
+# at launch): producers 120, consumers 192
+PRODUCERS1 = [("constexpr int kProducers = 2;", "constexpr int kProducers = 1;"),
+              regs(120, 120, 120)]
+# The stage-2 loader's rounds not unrolled (one task's 8 loads at a time)
+TIER2_ROLLED = ("#pragma unroll 4\n    for (int round = 0;", "#pragma unroll 1\n    for (int round = 0;")
 VARIANTS = {
     "k2_repo": ("fourstep_step", []),
     "k2_r16": ("fourstep_step", k2(4, None)),
@@ -168,6 +211,23 @@ VARIANTS = {
     "k2s_no_swap_stores": ("fourstep_step", [K2S_NO_SWAP_STORES]),
     "k2s_loads_only": ("fourstep_step", LOADS_ONLY),
     "k2s_8192": ("fourstep_step", []),
+    "k2t_repo": ("fourstep_step", []),
+    "k2t_scratch": ("fourstep_step", [K2T_SCRATCH]),
+    "k2t_loads_only": ("fourstep_step", LOADS_ONLY),
+    "k2t_p96": ("fourstep_step", [regs(96, 96, 96)]),
+    "k2t_producers1": ("fourstep_step", PRODUCERS1),
+    "k3t_repo": ("fourstep_step", []),
+    "k3t_tier2_rolled": ("fourstep_step", [TIER2_ROLLED]),
+    "k3t_p64": ("fourstep_step", [regs(64, 96, 64)]),
+    "k2t_default": ("fourstep_step", []),
+    "k2t_default_p112": ("fourstep_step", [regs(80, 96, 112)]),
+    "k3t_default": ("fourstep_step", []),
+    "k3t_default_p112": ("fourstep_step", [regs(80, 96, 112)]),
+    "k2tw_repo": ("fourstep_step", []),
+    "k2tw_loads_only": ("fourstep_step", LOADS_ONLY),
+    "k2tw_p80": ("fourstep_step", [regs(80, 80, 80)]),
+    "k2tw_producers1": ("fourstep_step", PRODUCERS1),
+    "k2tw_tier2_rolled": ("fourstep_step", [TIER2_ROLLED]),
 }
 
 
@@ -194,8 +254,11 @@ def build(name: str):
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if proc.returncode:
         raise RuntimeError(f"{name}: nvcc failed\n{proc.stderr}")
+    # ptxas's register and stack lines, and its notes where it serialized
+    # wgmma (C7515-C7520: waits injected around the accumulators)
     ptxas = [ln.split(":", 1)[-1].strip() for ln in proc.stderr.splitlines()
-             if "registers" in ln or "stack frame" in ln]
+             if "Used" in ln and "registers" in ln or "stack frame" in ln
+             or "warpgroup" in ln and "injected" in ln]
     lib = ctypes.CDLL(str(so))
     for fn, (argtypes, restype) in kernels.SIGNATURES[src].items():
         getattr(lib, fn).argtypes = argtypes
@@ -219,14 +282,15 @@ def main() -> None:
     def drawn(n: int):
         """A state drawn on the card (h0 from a CUDA generator seeded 0, the
         deep-water dispersion as omega), its K2 inputs and K2's Y of one frame."""
-        cfg = ot.OceanConfig(resolution=n, fft_impl="pallas")
+        cfg = ot.OceanConfig(resolution=n, fft_impl="pallas", matmul_precision="highest")
         gen = torch.Generator(device=dev).manual_seed(0)
         inputs = fs.hoist_fourstep(torch.randn((2, n, n), generator=gen, device=dev),
                                    torch.from_numpy(dispersion(n, cfg.domain_size)).to(dev), cfg)
         return n, cfg, inputs, fs.launch_fourstep_row(inputs, torch.zeros(1, device=dev), cfg)
 
     split = {}  # n -> (n, cfg, inputs, Y) of the k2s variants
-    if any(name.startswith("k2s") and name != "k2s_8192" for name in names):
+    if any((name.startswith("k2s") and name != "k2s_8192") or name.startswith("k2tw")
+           for name in names):
         split[16384] = drawn(16384)
     if "k2s_8192" in names:
         split[8192] = drawn(8192)
@@ -238,27 +302,89 @@ def main() -> None:
                                .astype(np.int32)).to(dev)
         want8 = torch.cat([x.reshape(-1) for x in rr.launch_segmin_kernel(so8, sk8, oct8, 17)])
         scratch8 = rr._SegminScratch(-(-n8 // rr.SEGMIN_TILE), dev)
-    c5 = ot.OceanConfig(resolution=4096, domain_size=2000.0, fft_impl="pallas",
-                        matmul_precision="high")
+    c5t = ot.OceanConfig(resolution=4096, domain_size=2000.0, fft_impl="pallas",
+                         matmul_precision="high")
+    c5 = dataclasses.replace(c5t, matmul_precision="highest")
     st5 = ot.ocean_state_from_phillips(c5, ot.PhillipsConfig(),
                                        generator=torch.Generator().manual_seed(0), device=dev)
     in5 = fs.hoist_fourstep(st5.h0, st5.omega, c5)
     ts1 = torch.zeros(1, device=dev)
     want2 = fs.launch_fourstep_row(in5, ts1, c5)
-    c1 = ot.OceanConfig(resolution=512, fft_impl="pallas", matmul_precision="bf16x3")
+    wide = {}  # K2t's Y at 16384^2 "bf16x3" from the repository's kernel
+    tiered = {}  # the tier's config, K2t's Y, K3t's planes, row and column tables
+    for tier in ("high", "default"):
+        ct = dataclasses.replace(c5t, matmul_precision=tier)
+        yt = fs.launch_fourstep_row(in5, ts1, ct)
+        tiered[tier] = (ct, yt, fs.launch_fourstep_col(yt, in5.twiddle, ct, checksum=False)[0],
+                        fs._tier_inputs(4096, ct, dev, "row"),
+                        fs._tier_inputs(4096, ct, dev, "col"))
+    c1 = ot.OceanConfig(resolution=512, fft_impl="pallas", matmul_precision="highest")
     st1 = ot.ocean_state_from_phillips(c1, generator=torch.Generator().manual_seed(0), device=dev)
     in1 = fused_step.hoist_packed(st1.h0, st1.omega, c1)
     ts6 = torch.arange(6, dtype=torch.float32, device=dev) / 60.0
     want1, _ = fused_step.launch_packed_step(in1, ts6, c1, checksum=False)
     want3, _ = fs.launch_fourstep_col(want2, in5.twiddle, c5, checksum=False)
     c4 = ot.OceanConfig(resolution=512, fft_impl="pallas", hermitian_pack=False,
-                        matmul_precision="bf16x3")
+                        matmul_precision="highest")
     in4 = us.hoist_unpacked(st1.h0, st1.omega, c4)
     want4 = us.launch_unpacked_step(in4, ts6, c4)
 
     for rep in range(REPEATS):
         for name, lib, ptxas in built:
-            if name.startswith("k3"):
+            c5t, want2t, want3t, tier_row, tier_col = tiered[
+                "default" if "_default" in name else "high"]
+            if name.startswith("k3t"):
+                scratch = torch.empty_like(want2t)
+                out = torch.empty_like(want3t)
+                partials = torch.empty((1, 128 * 128 + 4096 // fs.CHECKSUM_ROWS), device=dev)
+
+                def call():
+                    err = lib.fourstep_col(
+                        want2t.data_ptr(), scratch.data_ptr(), in5.twiddle.data_ptr(), 1, 4096,
+                        4096, -1.0, out.data_ptr(), partials.data_ptr(), fs.CHECKSUM_ROWS,
+                        float(c5t.normal_height_scale), 1, *tier_col, stream())
+                    if err:
+                        smoke.fail(f"{name}: CUDA error {err}")
+
+                want, names, calls = want3t, smoke.K3T_KERNELS, 20
+            elif name.startswith("k2tw"):
+                n, cfg, inputs, _ = split[16384]
+                cw = dataclasses.replace(cfg, matmul_precision="bf16x3")
+                tier_w = fs._tier_inputs(n, cw, dev, "row")
+                if "k2tw" not in wide:
+                    wide["k2tw"] = fs.launch_fourstep_row(inputs, ts1, cw)
+                want = wide["k2tw"]
+                out = torch.empty_like(want)
+                scratch = torch.empty_like(want)
+
+                def call(inputs=inputs, tier_w=tier_w, n=n, cfg=cfg):
+                    err = lib.fourstep_row(
+                        inputs.h0.data_ptr(), inputs.omega.data_ptr(), inputs.twiddle.data_ptr(),
+                        ts1.data_ptr(), 1, n, n, 0, _f32(np.pi / cfg.domain_size), 0, 0,
+                        out.data_ptr(), *tier_w, scratch.data_ptr(), stream())
+                    if err:
+                        smoke.fail(f"{name}: CUDA error {err}")
+
+                names, calls = smoke.K2T_KERNELS, 3
+            elif name.startswith("k2t"):
+                out = torch.empty_like(want2t)
+                scratch = torch.empty_like(want2t)
+                if name == "k2t_scratch":  # stage 2 from the scratch reads W2's planes
+                    tier_row = (*tier_row[:2], tfft.table_wgmma(
+                        ("dft", 32, 1), dev, fs.kernel_tier(c5t.matmul_precision), 16).data_ptr(),
+                        *tier_row[3:])
+
+                def call(tier_row=tier_row):
+                    err = lib.fourstep_row(
+                        in5.h0.data_ptr(), in5.omega.data_ptr(), in5.twiddle.data_ptr(),
+                        ts1.data_ptr(), 1, 4096, 4096, 0, _f32(np.pi / c5t.domain_size), 0, 0,
+                        out.data_ptr(), *tier_row, scratch.data_ptr(), stream())
+                    if err:
+                        smoke.fail(f"{name}: CUDA error {err}")
+
+                want, calls = want2t, 20
+                names = smoke.K2T_KERNELS if name == "k2t_scratch" else smoke.K2T_KERNELS[:1]
+            elif name.startswith("k3"):
                 scratch = torch.empty_like(want2)
                 out = torch.empty_like(want3)
                 # room for the partials of either band width
@@ -268,7 +394,7 @@ def main() -> None:
                     err = lib.fourstep_col(
                         want2.data_ptr(), scratch.data_ptr(), in5.twiddle.data_ptr(), 1, 4096,
                         4096, -1.0, out.data_ptr(), partials.data_ptr(), fs.CHECKSUM_ROWS,
-                        float(c5.normal_height_scale), 1, stream())
+                        float(c5.normal_height_scale), 1, *NO_TIER, stream())
                     if err:
                         smoke.fail(f"{name}: CUDA error {err}")
 
@@ -283,7 +409,7 @@ def main() -> None:
                         in4.h0.data_ptr(), in4.omega.data_ptr(), in4.twiddle.data_ptr(),
                         ts6.data_ptr(), 6, 512, _f32(np.pi / c4.domain_size), 0, 0, -1.0,
                         y.data_ptr(), out.data_ptr(), partials.data_ptr(), fs.CHECKSUM_ROWS,
-                        float(c4.normal_height_scale), 1, stream())
+                        float(c4.normal_height_scale), 1, 0, None, stream())
                     if err:
                         smoke.fail(f"{name}: CUDA error {err}")
 
@@ -313,7 +439,7 @@ def main() -> None:
                     err = lib.fourstep_row(
                         inputs.h0.data_ptr(), inputs.omega.data_ptr(), inputs.twiddle.data_ptr(),
                         ts1.data_ptr(), 1, n, n, 0, _f32(np.pi / cfg.domain_size), 0, 0,
-                        out.data_ptr(), stream())
+                        out.data_ptr(), *NO_TIER, None, stream())
                     if err:
                         smoke.fail(f"{name}: CUDA error {err}")
 
@@ -326,7 +452,7 @@ def main() -> None:
                     err = lib.fourstep_row(
                         in5.h0.data_ptr(), in5.omega.data_ptr(), in5.twiddle.data_ptr(),
                         ts1.data_ptr(), 1, 4096, 4096, 0, _f32(np.pi / c5.domain_size), 0, 0,
-                        out.data_ptr(), stream())
+                        out.data_ptr(), *NO_TIER, None, stream())
                     if err:
                         smoke.fail(f"{name}: CUDA error {err}")
 
@@ -341,7 +467,8 @@ def main() -> None:
                         in1.h0.data_ptr(), in1.omega.data_ptr(), in1.twiddle.data_ptr(),
                         ts6.data_ptr(), 6, 1, 512, _f32(np.pi / c1.domain_size), 0, 0, -0.5,
                         y.data_ptr(), out.data_ptr(), partials.data_ptr(),
-                        fused_step.CHECKSUM_ROWS, float(c1.normal_height_scale), 1, stream())
+                        fused_step.CHECKSUM_ROWS, float(c1.normal_height_scale), 1, 0, None,
+                        stream())
                     if err:
                         smoke.fail(f"{name}: CUDA error {err}")
 

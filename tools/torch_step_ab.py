@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Two trees of the port on one NVIDIA GPU in one run: K2 at 16384^2, K3,
-K4 and the paths they carry, measured through entry points both trees have.
+"""Two trees of the port on one NVIDIA GPU in one run: the tiered bodies
+K2t, K3t and K4t and the paths they carry, measured through entry points
+both trees have.
 
     python3 tools/torch_step_ab.py PARENT_DIR [CHANGE_DIR]
 
@@ -11,28 +12,26 @@ in the order parent, change, change, parent, so that a drift of the card
 or the host shows as a difference between the two runs of one side. A side
 builds its own kernels (``build/kernels/`` of its tree) and measures:
 
-- K2 at 16384^2, one frame on a state drawn on the card (h0 from a CUDA
-  generator seeded 0, the deep-water dispersion as omega): CUDA-event ms a
-  call and torch.profiler's device ms (the side's K2 kernel at 16384,
-  ``fourstep_row_pass_split`` or the cluster kernel before it), the
-  16384^2 step (K2 + K3 with its checksum) by events, and the 24-frame
-  checksum rollout at time batch 1;
+- K2t at 16384^2 ("bf16x3", the default tier), one frame on a state drawn
+  on the card (h0 from a CUDA generator seeded 0, the deep-water dispersion
+  as omega): CUDA-event ms a call and torch.profiler's device ms by stage;
 
 and, on Phillips states from a torch.Generator seeded 0:
 
-- K3 with its checksum on K2's Y of one 4096^2 frame (config 5 of
-  ``benchmarks/run_all.py``): CUDA-event ms a call, torch.profiler's device
-  ms by kernel, and the 120-frame checksum rollout at time batch 1;
-- K4, a 6-frame 512^2 call: event ms and device ms of the launch alone and
-  of the checksums call (``packed_checksums`` of the unpacked inputs), and
-  the 600-frame checksum rollouts of both unpacked routes with
+- config 5 of ``benchmarks/run_all.py`` (4096^2, "high"): K2t one frame,
+  K3t with its checksum on K2t's Y, each by events and by device ms a
+  stage, the step (K2t + K3t with the checksum) by events, and the
+  120-frame checksum rollout at time batch 1;
+- the unpacked 512^2 step at "bf16x3" (K4, its tiered body K4t where the
+  side has one), a 6-frame call by events and device ms of its kernels,
+  and the 600-frame checksum rollouts of both unpacked routes with
   torch.profiler's idle share over 60 frames.
 
 Both sides are timed by this checkout's ``chip_smoke`` helpers
-(``event_ms``, ``kernel_device_ms``, ``device_profile``), whatever the
-side's own; their profiler window is the side's
-``utils/profiling.profile_kernels``, so a side must be a tree that has
-it. Prints one JSON line a side and run. Imports no jax.
+(``event_ms``, ``device_profile``), whatever the side's own; their
+profiler window is the side's ``utils/profiling.profile_kernels``, so a
+side must be a tree that has it. Prints one JSON line a side and run.
+Imports no jax.
 """
 
 from __future__ import annotations
@@ -43,19 +42,23 @@ import subprocess
 import sys
 from pathlib import Path
 
-K3_KERNELS = ("fourstep_col_stage1", "fourstep_col_stage2", "checksum_partials")
-# K2 at 16384 in either tree: the split kernel, or the cluster kernel of
-# the trees before it.
-K2_BIG_KERNELS = ("fourstep_row_pass_split", "fourstep_row_pass_cluster")
-BIG_N, BIG_STEPS, BIG_REPEATS, BIG_CALLS = 16384, 24, 2, 10
+# The stage-2 kernels under the names of either side: fourstep_row_tier2 /
+# fourstep_col_tier2 (and their _wide forms) in the trees before the
+# warp-specialized stage 1, fourstep_tier2 after it (K2t's stage 2 then runs
+# inside fourstep_row_tier1 at N <= 4096).
+K2T_KERNELS = ("fourstep_row_tier1", "fourstep_row_tier2", "fourstep_tier2")
+K3T_KERNELS = ("fourstep_col_tier1", "fourstep_col_tier2", "fourstep_tier2", "checksum_partials")
+# K4 at "bf16x3": the FFT body in the trees before K4t, else K4t's kernels.
+K4_KERNELS = ("unpacked_fused", "unpacked_row_tier", "unpacked_col_tier")
+BIG_N, BIG_CALLS = 16384, 5
 FS_STEPS, FS_REPEATS, FS_CALLS = 120, 3, 20
 U_STEPS, U_REPEATS, U_CALLS, U_TIME_BATCH, U_PROFILE_STEPS = 600, 5, 50, 6, 60
 
 
 def device_ms_seen(smoke, fn, names, calls: int):
     """``kernel_device_ms`` for the kernels of ``names`` that ``fn``
-    launches (a side whose checksum has no kernel launches fewer); None,
-    with a line on stderr, where no profiler session recorded any of them."""
+    launches (a side that lacks one launches fewer); None, with a line on
+    stderr, where no profiler session recorded any of them."""
     from gfx_ocean_tpu_torch.utils.profiling import profile_kernels
 
     seen = profile_kernels(fn, calls)
@@ -90,26 +93,18 @@ def measure(root: Path) -> dict:
     dev = torch.device("cuda", 0)
     out = {}
 
-    big = ot.OceanConfig(resolution=BIG_N, fft_impl="pallas")
+    big = ot.OceanConfig(resolution=BIG_N, fft_impl="pallas", matmul_precision="bf16x3")
     gen = torch.Generator(device=dev).manual_seed(0)
-    st_big = ot.OceanState(torch.randn((2, BIG_N, BIG_N), generator=gen, device=dev),
-                           torch.from_numpy(dispersion(BIG_N, big.domain_size)).to(dev))
-    in_big = fs.hoist_fourstep(st_big.h0, st_big.omega, big)
+    in_big = fs.hoist_fourstep(torch.randn((2, BIG_N, BIG_N), generator=gen, device=dev),
+                               torch.from_numpy(dispersion(BIG_N, big.domain_size)).to(dev), big)
     ts1 = torch.zeros(1, device=dev)
 
     def k2_big():
         return fs.launch_fourstep_row(in_big, ts1, big)
 
-    out["k2_16384_ms"] = smoke.event_ms(k2_big, BIG_CALLS)
-    out["k2_16384_device_ms"] = device_ms_seen(smoke, k2_big, K2_BIG_KERNELS, BIG_CALLS)
-    out["step_16384_ms"] = smoke.event_ms(lambda: fused_step.packed_checksums(in_big, ts1, big),
-                                          BIG_CALLS)
-    ts = torch.arange(BIG_STEPS, dtype=torch.float32, device=dev) / 60.0
-    rec = time_rollout(ot.make_rollout(big, keep_fields=False, time_batch=1), st_big, ts,
-                       repeats=BIG_REPEATS)
-    out["steps_per_sec_16384_tb1"] = rec["steps_per_sec"]
-    out["repeats_sec_16384"] = rec["repeats_sec"]
-    del st_big, in_big, rec
+    out["k2t_16384_ms"] = smoke.event_ms(k2_big, BIG_CALLS)
+    out["k2t_16384_device_ms"] = device_ms_seen(smoke, k2_big, K2T_KERNELS, BIG_CALLS)
+    del in_big
     torch.cuda.empty_cache()
 
     c5 = ot.OceanConfig(resolution=4096, domain_size=2000.0, fft_impl="pallas",
@@ -119,11 +114,16 @@ def measure(root: Path) -> dict:
     in5 = fs.hoist_fourstep(st5.h0, st5.omega, c5)
     y = fs.launch_fourstep_row(in5, ts1, c5)
 
+    def k2():
+        return fs.launch_fourstep_row(in5, ts1, c5)
+
     def k3():
         return fs.launch_fourstep_col(y, in5.twiddle, c5, checksum=True)
 
-    out["k3_ms"] = smoke.event_ms(k3, FS_CALLS)
-    out["k3_device_ms"] = smoke.kernel_device_ms(k3, K3_KERNELS, FS_CALLS)
+    out["k2t_ms"] = smoke.event_ms(k2, FS_CALLS)
+    out["k2t_device_ms"] = device_ms_seen(smoke, k2, K2T_KERNELS, FS_CALLS)
+    out["k3t_ms"] = smoke.event_ms(k3, FS_CALLS)
+    out["k3t_device_ms"] = device_ms_seen(smoke, k3, K3T_KERNELS, FS_CALLS)
     out["fourstep_step_ms"] = smoke.event_ms(lambda: fused_step.packed_checksums(in5, ts1, c5),
                                              FS_CALLS)
     del y
@@ -146,14 +146,8 @@ def measure(root: Path) -> dict:
     def k4():
         return us.launch_unpacked_step(inputs, ts6, single)
 
-    def k4_checksums():
-        return fused_step.packed_checksums(inputs, ts6, single)
-
     out["k4_ms"] = smoke.event_ms(k4, U_CALLS)
-    out["k4_device_ms"] = smoke.kernel_device_ms(k4, ("unpacked_fused",), U_CALLS)
-    out["k4_checksums_ms"] = smoke.event_ms(k4_checksums, U_CALLS)
-    out["k4_checksums_device_ms"] = device_ms_seen(
-        smoke, k4_checksums, ("unpacked_fused", "checksum_partials"), U_CALLS)
+    out["k4_device_ms"] = device_ms_seen(smoke, k4, K4_KERNELS, U_CALLS)
     ts = torch.arange(U_STEPS, dtype=torch.float32, device=dev) / 60.0
     for route, cfg in (("single", single), ("blocked", blocked)):
         rollout = ot.make_rollout(cfg, keep_fields=False, time_batch=U_TIME_BATCH)
