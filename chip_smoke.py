@@ -162,7 +162,6 @@ Phases, one line each:
     requests (median and p90 of wall, render, PNG encode and HTTP), and 8
     threads x 4 frames at distinct t each equal to its frame served alone;
     any status but 200 fails;
-37. frame_bench: ``utils.profiling.frame_bench_main``'s line;
 38. precision_tiers: the JAX package's default configuration
     ``OceanConfig()`` (512^2, "matmul", unpacked) on phase 3's state at
     each tier ("bf16x3", "bf16x4", "high", "highest", "default"): rel and
@@ -372,7 +371,7 @@ C_QUERY_POINTS = 4096
 # bounds (float32 heights to 2e-5, world x / z to 6e-5, normals to 1e-4).
 C_QUERY_TOL = dict(height=2e-5, base_xz=6e-5, residual=6e-5, normal=1e-4)
 
-# Phases 35-37: the entry points. The CLI at 512^2 on synth's files (a
+# Phases 35-36: the entry points. The CLI at 512^2 on synth's files (a
 # Phillips state from torch.Generator seed 0, the state phase 3 builds where
 # the shipped bins are absent) and at config 5; the server on phase 3's state.
 CLI_STEPS = 600           # the CLI's default --steps
@@ -636,7 +635,6 @@ def main() -> None:
     cascades = run_cascades(dev)  # config 4 at "bf16x3": K1's tiered body
     run_cli(dev)
     run_serve(dev)
-    run_frame_bench()
     run_precision_tiers(dev)
     run_window_render(dev)
     run_generic_mesh(dev)
@@ -2440,22 +2438,6 @@ def run_serve(dev) -> None:
         srv.shutdown()
         srv.server_close()
     phase("serve", **rec)
-
-
-def run_frame_bench() -> None:
-    """Phase 37: ``utils.profiling.frame_bench_main``'s JSON line."""
-    import contextlib
-    import io
-
-    from gfx_ocean_tpu_torch.utils.profiling import frame_bench_main
-
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        frame_bench_main()
-    rec = last_json(out.getvalue())
-    phase("frame_bench", **rec)
-    if rec["device_ms"] is None or not rec["pipelined_wall_ms"] > 0:
-        fail(f"frame_bench: {rec}")
 
 
 def scheme_rel(state, cfg, tier: str, gold) -> float:

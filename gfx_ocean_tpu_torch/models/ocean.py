@@ -58,6 +58,7 @@ from gfx_ocean_tpu_torch.ops.propagate import (BandWindows, _phase_mod_2pi,
                                                precompute_propagate_packed,
                                                propagate_from_cs, propagate_packed_planes,
                                                propagate_planes_pre)
+from gfx_ocean_tpu_torch.utils import profiling
 from gfx_ocean_tpu_torch.utils.complexpair import to_pair
 from gfx_ocean_tpu_torch.utils.device import each_position as _each, resolve_device
 
@@ -260,19 +261,34 @@ def make_rollout(config: OceanConfig, keep_fields: bool = True, time_batch: int 
     ``checksums_of_planes``); foam needs the channel-last fields, so it
     takes the fields' sums, as in the JAX package. The checksums stay on
     the state's device.
+
+    A call is the span ``rollout`` (attributes ``frames`` and
+    ``time_batch``) around ``rollout.times`` (the times' upload),
+    ``rollout.precompute`` and ``rollout.launches`` (the loop over the
+    chunks of ``time_batch`` frames, counted by ``rollout.chunks``);
+    ``utils/profiling.py``.
     """
     if time_batch < 1:
         raise ValueError(f"time_batch must be >= 1, got {time_batch}")
 
     def rollout(state: OceanState, ts):
-        _check_supported(state, config)
-        ts = fused_step.as_times(ts, state.omega.device)
-        if ts.shape[0] % time_batch:
-            raise ValueError(
-                f"len(ts)={ts.shape[0]} not a multiple of time_batch={time_batch}")
-        pre = _precompute(state, config)
-        cascaded = _cascaded(state, config)
-        chunks = [ts[i:i + time_batch] for i in range(0, ts.shape[0], time_batch)]
+        with profiling.span("rollout", time_batch=time_batch):
+            _check_supported(state, config)
+            with profiling.span("rollout.times"):
+                ts = fused_step.as_times(ts, state.omega.device)
+            profiling.annotate(frames=ts.shape[0])
+            if ts.shape[0] % time_batch:
+                raise ValueError(
+                    f"len(ts)={ts.shape[0]} not a multiple of time_batch={time_batch}")
+            with profiling.span("rollout.precompute"):
+                pre = _precompute(state, config)
+            cascaded = _cascaded(state, config)
+            chunks = [ts[i:i + time_batch] for i in range(0, ts.shape[0], time_batch)]
+            profiling.count("rollout.chunks", len(chunks))
+            with profiling.span("rollout.launches"):
+                return _chunks_out(state, chunks, pre, cascaded)
+
+    def _chunks_out(state, chunks, pre, cascaded):
         if not keep_fields:
             if config.fft_impl == "pallas" and not config.compute_foam:
                 out = [fused_step.packed_checksums(pre, c, config) for c in chunks]

@@ -85,6 +85,7 @@ from gfx_ocean_tpu_torch.ops.fft import full_matmul
 from gfx_ocean_tpu_torch.render import shade as sh
 from gfx_ocean_tpu_torch.render.camera import Camera, perspective
 from gfx_ocean_tpu_torch.render.mesh import build_grid, instantiate
+from gfx_ocean_tpu_torch.utils import profiling
 from gfx_ocean_tpu_torch.utils.device import check_current_device
 
 KEY_MAX = 0xFFFFFFFF     # the no-hit key (all ones)
@@ -780,7 +781,8 @@ def _giant_selection(score: torch.Tensor, giants: int):
     """The ``giants`` highest-scored triangles (ties to the lower index, as
     ``lax.top_k``), in 32-triangle groups: (ids (G, 32), ok (G, 32), the
     number of groups holding a positive score). The count is read to the
-    host: one device sync a frame."""
+    host: one device sync a frame (the span ``frame.giant_sync``; counters
+    ``host_syncs``, ``giant.candidates`` and ``giant.groups``)."""
     k = min(giants, score.shape[0])
     ix = torch.sort(score, descending=True, stable=True).indices[:k]
     ok = score[ix] > 0
@@ -788,9 +790,13 @@ def _giant_selection(score: torch.Tensor, giants: int):
     pad = groups * _GIANT_GROUP - k
     ix = torch.cat([ix, torch.zeros(pad, dtype=ix.dtype, device=ix.device)])
     ok = torch.cat([ok, torch.zeros(pad, dtype=torch.bool, device=ok.device)])
-    n_active = int(ok.sum())
-    return (ix.reshape(groups, _GIANT_GROUP), ok.reshape(groups, _GIANT_GROUP),
-            -(-n_active // _GIANT_GROUP))
+    with profiling.span("frame.giant_sync"):
+        n_active = int(ok.sum())
+    needed = -(-n_active // _GIANT_GROUP)
+    profiling.count("host_syncs")
+    profiling.count("giant.candidates", n_active)
+    profiling.count("giant.groups", needed)
+    return ix.reshape(groups, _GIANT_GROUP), ok.reshape(groups, _GIANT_GROUP), needed
 
 
 def _giant_pass(clip, tris, score, key_img, width: int, height: int, giants: int,
@@ -894,21 +900,29 @@ def _rasterize_pool(displacement, positions, uvs, tris, view_proj, camera_pos,
     Returns (image (H, W, 3), depth (H, W)) and, with ``with_diag``, the
     number of giant-pass candidates past capacity (a 0-dim tensor; must be
     0 for exact coverage). ``grid_shape`` None takes ``tris`` as any
-    triangle list."""
+    triangle list. Each stage is a span (``frame.slot_tables``,
+    ``frame.slots``, ``frame.resolve``, ``frame.giant_pass``,
+    ``frame.shade``; ``utils/profiling.py``)."""
     full_height = height if full_height is None else full_height
-    tabs = _slot_tables(displacement, positions, uvs, tris, view_proj, width, height, pool,
-                        interp, grid_shape, scales, y_origin, full_height, tiles)
+    dev = displacement.device
+    with profiling.span("frame.slot_tables", device=dev):
+        tabs = _slot_tables(displacement, positions, uvs, tris, view_proj, width, height, pool,
+                            interp, grid_shape, scales, y_origin, full_height, tiles)
     n_oct = tabs.octs_w * tabs.octs_h
-    keysp, octid = slot_stage(tabs.crow, tabs.total_covered, width, full_height, tabs.octs_w,
-                              n_oct, 32 - tabs.id_bits, tabs.id_bits, y_origin)
-    key_img = _resolve(keysp, octid, tabs, width, height)
-    key_img = _giant_pass(tabs.clip, tris, tabs.score, key_img, width, height, giants,
-                          tabs.id_bits, y_origin, full_height)
-    dtab = _deferred_table(tabs.ftab, tabs.world, tris, uvs, grid_shape)
-    img, z_img = _deferred_shade(displacement, dtab, key_img, camera_pos, width, height,
-                                 tabs.id_bits, grid_shape, foam, frag_channel, scales[2],
-                                 scales[3] if len(scales) > 3 else 0.0, y_origin, full_height,
-                                 tiles)
+    with profiling.span("frame.slots", device=dev):
+        keysp, octid = slot_stage(tabs.crow, tabs.total_covered, width, full_height,
+                                  tabs.octs_w, n_oct, 32 - tabs.id_bits, tabs.id_bits, y_origin)
+    with profiling.span("frame.resolve", device=dev):
+        key_img = _resolve(keysp, octid, tabs, width, height)
+    with profiling.span("frame.giant_pass", device=dev):
+        key_img = _giant_pass(tabs.clip, tris, tabs.score, key_img, width, height, giants,
+                              tabs.id_bits, y_origin, full_height)
+    with profiling.span("frame.shade", device=dev):
+        dtab = _deferred_table(tabs.ftab, tabs.world, tris, uvs, grid_shape)
+        img, z_img = _deferred_shade(displacement, dtab, key_img, camera_pos, width, height,
+                                     tabs.id_bits, grid_shape, foam, frag_channel, scales[2],
+                                     scales[3] if len(scales) > 3 else 0.0, y_origin,
+                                     full_height, tiles)
     if with_diag:
         dropped = ((tabs.score > 0).sum() - min(giants, tris.shape[0])).clamp_min(0)
         return img, z_img, dropped
@@ -1126,7 +1140,9 @@ def _frame_fn(config, width: int, height: int, giants: int, pool: Optional[int],
     ``parallel/render.py``: with ``band_axis`` set, ``fn(..., band=i)``
     renders the ``height // n_bands``-row band i of the viewport (rows from
     ``i * height // n_bands``), bit-equal to those rows of the full frame
-    (the JAX package's ``_fused_frame_fn``)."""
+    (the JAX package's ``_fused_frame_fn``). A frame is the span ``frame``
+    (attributes ``t`` and ``band``), with ``frame.step``, the stages of
+    ``_rasterize_pool`` and ``frame.srgb`` inside it."""
     from gfx_ocean_tpu_torch.models.ocean import step as _ocean_step  # noqa: PLC0415
 
     if band_axis is not None and height % n_bands:
@@ -1143,23 +1159,27 @@ def _frame_fn(config, width: int, height: int, giants: int, pool: Optional[int],
     pool = pool or _auto_pool(width, band_h, n_bands if band_axis is not None else 1)
 
     def fn(state, t, view_proj, camera_pos, band: int = 0):
-        dev = _device(state.h0.device)
-        positions, uvs, tris = _mesh_constants(config.mesh_resolution, config.num_patches, dev)
-        fields = _ocean_step(state, t, config)
-        tiles, interp = _cascade_setup(fields.displacement, config.domains,
-                                       config.mesh_resolution, dev)
-        out = _rasterize_pool(
-            fields.displacement, positions, uvs, tris,
-            torch.as_tensor(view_proj, dtype=torch.float32, device=dev),
-            torch.as_tensor(camera_pos, dtype=torch.float32, device=dev),
-            width, band_h, pool, giants, interp, grid_shape,
-            fields.foam if config.compute_foam else None,
-            0 if config.compat.frag_normal_x else 1, scales, tiles, y_origin=band * band_h,
-            full_height=height, with_diag=diag)
-        srgb = srgb8(out[0])
-        if diag:
-            return srgb, out[2]          # (frame, dropped-giants tripwire)
-        return srgb
+        with profiling.span("frame", t=t, band=band):
+            dev = _device(state.h0.device)
+            positions, uvs, tris = _mesh_constants(config.mesh_resolution, config.num_patches,
+                                                   dev)
+            with profiling.span("frame.step", device=dev):
+                fields = _ocean_step(state, t, config)
+            tiles, interp = _cascade_setup(fields.displacement, config.domains,
+                                           config.mesh_resolution, dev)
+            out = _rasterize_pool(
+                fields.displacement, positions, uvs, tris,
+                torch.as_tensor(view_proj, dtype=torch.float32, device=dev),
+                torch.as_tensor(camera_pos, dtype=torch.float32, device=dev),
+                width, band_h, pool, giants, interp, grid_shape,
+                fields.foam if config.compute_foam else None,
+                0 if config.compat.frag_normal_x else 1, scales, tiles, y_origin=band * band_h,
+                full_height=height, with_diag=diag)
+            with profiling.span("frame.srgb", device=dev):
+                srgb = srgb8(out[0])
+            if diag:
+                return srgb, out[2]          # (frame, dropped-giants tripwire)
+            return srgb
 
     return fn
 

@@ -6,17 +6,46 @@
   by a synchronize and a host copy of the checksums.
 - ``profile_kernels()``: the CUDA kernels of a few calls in one
   ``torch.profiler`` window, by kernel, with the window's wall clock.
-- ``traced_device_ms()``: a call's device time, the sum of the CUDA
-  kernels' own durations in that window.
-- ``frame_bench_main()``: the 1200x700 frame record, one JSON line.
 - ``Ema``: the reference's title-bar smoothing (avg = avg*0.9 + dt*0.1).
+- The recorder: ``span()``, ``count()`` and ``annotate()`` inside the
+  program (a frame of ``render/raster.py``, a call of
+  ``models/ocean.make_rollout``), kept in memory by window (``windows()``,
+  ``largest_window()``).
+
+The recorder. A span is a named interval of the host's clock
+(``time.perf_counter_ns``) with its parent span, its attributes and its
+unit: the outermost span open on the thread (one frame, one rollout call),
+whose id every span inside it shares. A span given a CUDA ``device`` also
+records a pair of ``torch.cuda.Event(enable_timing=True)`` on that device's
+current stream, resolved into its device time only when read. ``count``
+adds to a counter of the current unit; each unit also counts the growth of
+the kernel wrappers' ``launches`` / ``tiered_launches`` (``launches.<fn>``,
+``tiered_launches.<fn>``) and of the misses of the port's ``lru_cache``
+tables (``misses.<module>.<fn>``) between its start and its end.
+
+Recording is on while a ``torch.profiler`` session records (not in its
+warm-up steps), and inside ``with recording():``. A span with no recorded
+span open on its thread asks (``torch.autograd._profiler_enabled()``); the
+spans inside a recorded unit follow it without asking. Off, ``span`` makes
+one module-level test and that query and returns one shared object that
+does nothing, and ``count`` returns after the test. Under a profiler session each span also enters
+``torch.profiler.record_function(name)``, so its range lands in the
+session's trace on the clock of the kernels it launched.
+
+Units are kept in windows: a window opens at the first unit recorded after
+one that was not, and at the first after the start or the end of a
+``recording()`` block. At most
+``MAX_UNITS`` units are kept; past it the oldest windows go.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import os
 import sys
+import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -115,20 +144,6 @@ def profile_kernels(fn: Callable[[], object], calls: int = 1, names: Sequence[st
     return None
 
 
-def traced_device_ms(fn: Callable, args: tuple, frames: int = 10) -> float:
-    """Per-call device time (ms) of ``fn(*args)``: the CUDA kernels' own
-    durations in a :func:`profile_kernels` window of ``frames`` calls,
-    summed and divided by ``frames``. NaN ("not measured") where there is
-    no card or no session recorded a kernel.
-    """
-    if not torch.cuda.is_available():
-        return float("nan")
-    seen = profile_kernels(lambda: fn(*args), frames)
-    if seen is None:
-        return float("nan")
-    return sum(ms for ms, _ in seen[0].values()) / frames
-
-
 def card_name_and_power_limit() -> str:
     """The card's name and power limit, as ``nvidia-smi --query-gpu=
     name,power.limit --format=csv,noheader`` gives them."""
@@ -137,91 +152,6 @@ def card_name_and_power_limit() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-
-
-def frame_bench_main() -> None:
-    """The fused-frame record on the card: step -> rasterize -> sRGB at the
-    reference's 1200x700 window (``GFX_OCEAN_FRAME_W`` / ``_H`` override
-    it), ``OceanConfig(fft_impl="pallas")``, the default camera, t = 11.25.
-
-    Prints ONE JSON line: ``pipelined_wall_ms`` (25 frames back to back,
-    one download at the end), ``device_ms`` (``traced_device_ms``),
-    ``strip_batch`` / ``strip_wall_ms_per_frame`` (the batch renderer,
-    ``GFX_OCEAN_FRAME_BATCH`` frames a call, as ``/session/strip.jpg``
-    renders them), ``frame_download_ms`` / ``download_mb_per_s`` (the uint8
-    frame's device-to-host copy), the state's source and the card's name and
-    power limit. The state is the shipped bins where they are, else a
-    Phillips state from ``torch.Generator`` seed 0. Raises without a card.
-    """
-    import json  # noqa: PLC0415
-
-    import gfx_ocean_tpu_torch as ot  # noqa: PLC0415
-    from gfx_ocean_tpu_torch.assets.bincode import reference_data_dir  # noqa: PLC0415
-    from gfx_ocean_tpu_torch.render.camera import Camera, perspective  # noqa: PLC0415
-    from gfx_ocean_tpu_torch.render.raster import (make_batch_renderer,  # noqa: PLC0415
-                                                   make_frame_renderer)
-
-    if not torch.cuda.is_available():
-        raise RuntimeError("frame_bench_main measures the card: no CUDA device")
-    dev = torch.device("cuda")
-    w = int(os.environ.get("GFX_OCEAN_FRAME_W", "1200"))
-    h = int(os.environ.get("GFX_OCEAN_FRAME_H", "700"))
-    batch = int(os.environ.get("GFX_OCEAN_FRAME_BATCH", "6"))
-    config = ot.OceanConfig(fft_impl="pallas")
-    data = reference_data_dir()
-    if all(os.path.exists(os.path.join(data, f)) for f in ("spectrum.bin", "omega.bin")):
-        state, source = ot.ocean_state_from_assets(device=dev), f"bincode files in {data}"
-    else:
-        state = ot.ocean_state_from_phillips(
-            config, generator=torch.Generator().manual_seed(0), device=dev)
-        source = "phillips synthesize, torch.Generator seed 0"
-    cam = Camera()
-    vp = torch.tensor((perspective(w / h) @ cam.view()).astype(np.float32), device=dev)
-    cp = torch.tensor(cam.position.astype(np.float32), device=dev)
-    fr = make_frame_renderer(config, width=w, height=h)
-    args = (state, 11.25, vp, cp)
-    fr(*args).cpu()  # warm: kernel build, allocator
-    depth = 25
-    t0 = time.perf_counter()
-    for _ in range(depth):
-        out = fr(*args)
-    out.cpu()
-    wall_ms = (time.perf_counter() - t0) / depth * 1e3
-    dev_ms = traced_device_ms(fr, args, frames=10)
-
-    bfr = make_batch_renderer(config, width=w, height=h)
-    bargs = (state, torch.arange(batch, dtype=torch.float32, device=dev) / 60.0,
-             vp.expand(batch, 4, 4), cp.expand(batch, 3))
-    bfr(*bargs).cpu()
-    strips = 4
-    t0 = time.perf_counter()
-    for _ in range(strips):
-        out = bfr(*bargs)
-    out.cpu()
-    strip_wall_ms = (time.perf_counter() - t0) / (strips * batch) * 1e3
-
-    # The uint8 frame's device-to-host copy, on distinct frames computed
-    # before the clock starts.
-    reps = 4
-    outs = [fr(state, 11.25 + 0.01 * i, vp, cp) for i in range(reps)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for o in outs:
-        o.cpu()
-    xfer_ms = (time.perf_counter() - t0) / reps * 1e3
-
-    print(json.dumps({
-        "viewport": f"{w}x{h}",
-        "pipelined_wall_ms": wall_ms,
-        "device_ms": None if np.isnan(dev_ms) else dev_ms,
-        "strip_batch": batch,
-        "strip_wall_ms_per_frame": strip_wall_ms,
-        "frame_download_ms": xfer_ms,
-        "download_mb_per_s": w * h * 3 / 1e6 / xfer_ms * 1e3,
-        "state": source,
-        "device": torch.cuda.get_device_name(0),
-        "nvidia_smi": card_name_and_power_limit(),
-    }), flush=True)
 
 
 class Ema:
@@ -234,3 +164,265 @@ class Ema:
     def update(self, dt: float) -> float:
         self.value = self.value * (1.0 - self.alpha) + dt * self.alpha
         return self.value
+
+
+# --------------------------------------------------------------------------
+# The recorder.
+# --------------------------------------------------------------------------
+
+MAX_UNITS = 16384       # units kept over every window
+
+# The kernel wrappers whose ``launches`` / ``tiered_launches`` a unit
+# counts, and the port's lru_cache tables whose misses it counts, by module;
+# a module not yet imported has launched and built nothing.
+_LAUNCHERS = (
+    ("gfx_ocean_tpu_torch.ops.fused_step", ("launch_packed_step",)),
+    ("gfx_ocean_tpu_torch.ops.fourstep_step", ("launch_fourstep_row", "launch_fourstep_col")),
+    ("gfx_ocean_tpu_torch.ops.unpacked_step",
+     ("launch_unpacked_step", "launch_unpacked_rows", "launch_unpacked_cols")),
+    ("gfx_ocean_tpu_torch.render.raster", ("launch_slot_kernel", "launch_segmin_kernel")),
+)
+_CACHES = (
+    ("gfx_ocean_tpu_torch.kernels", ("load",)),
+    ("gfx_ocean_tpu_torch.ops.fft",
+     ("_table", "_tier_table", "table_fragments", "table_wgmma", "_twiddle_table")),
+    ("gfx_ocean_tpu_torch.ops.fourstep_step", ("_device_tables",)),
+    ("gfx_ocean_tpu_torch.ops.propagate", ("_khat_grid_cached",)),
+    ("gfx_ocean_tpu_torch.ops.derived", ("_sign_grid",)),
+    ("gfx_ocean_tpu_torch.render.raster", ("_mesh_constants", "_interp_matrices")),
+    ("gfx_ocean_tpu_torch.render.shade", ("_device_const",)),
+)
+
+_live = 0               # recorded units open on any thread, plus open recording() blocks
+_explicit = 0           # open recording() blocks
+_between = True         # a unit ran unrecorded since the last recorded one
+_lock = threading.Lock()
+_tls = threading.local()  # .top: the innermost recorded span open on the thread
+_ids = itertools.count(1)
+_windows: "collections.deque[Window]" = collections.deque()
+_kept = 0               # units in _windows
+
+
+def _marks() -> Dict[str, int]:
+    """The launch counters and cache misses so far, by counter name."""
+    out = {}
+    for module, names in _LAUNCHERS:
+        mod = sys.modules.get(module)
+        for name in names if mod is not None else ():
+            fn = getattr(mod, name)
+            out["launches." + name] = fn.launches
+            if hasattr(fn, "tiered_launches"):
+                out["tiered_launches." + name] = fn.tiered_launches
+    for module, names in _CACHES:
+        mod = sys.modules.get(module)
+        for name in names if mod is not None else ():
+            out[f"misses.{module.rsplit('.', 1)[1]}.{name}"] = getattr(mod, name).cache_info().misses
+    return out
+
+
+class Unit:
+    """One recorded frame or call: its spans in the order they opened (its
+    own first), its counters."""
+
+    __slots__ = ("id", "name", "attrs", "spans", "counters", "traced", "_marks")
+
+    def __init__(self, name: str, attrs: dict, traced: bool):
+        self.id = next(_ids)
+        self.name, self.attrs, self.traced = name, attrs, traced
+        self.spans: List[Span] = []
+        self.counters: Dict[str, int] = {}
+        self._marks = _marks()
+
+    def _close(self) -> None:
+        before = self._marks
+        for name, value in _marks().items():
+            grew = value - before.get(name, 0)
+            if grew:
+                self.counters[name] = self.counters.get(name, 0) + grew
+
+    def named(self, name: str) -> list:
+        return [s for s in self.spans if s.name == name]
+
+    def host_ms(self, name: str) -> float:
+        """The host time of the unit's spans named ``name``, summed (0 where
+        there is none)."""
+        return sum(s.host_ms for s in self.named(name))
+
+    def device_ms(self, name: str) -> Optional[float]:
+        """The device time of the unit's spans named ``name``, summed; None
+        where one has none (a CPU device) or there is none."""
+        times = [s.device_ms for s in self.named(name)]
+        return sum(times) if times and None not in times else None
+
+
+class Window:
+    """The units recorded one after another, with no unrecorded unit
+    between them."""
+
+    __slots__ = ("units",)
+
+    def __init__(self):
+        self.units: "collections.deque[Unit]" = collections.deque()
+
+
+class Span:
+    """A recorded span (see the module's docstring); ``span()`` makes it and
+    ``with`` opens and closes it."""
+
+    __slots__ = ("name", "attrs", "parent", "unit", "start_ns", "end_ns", "_device",
+                 "_events", "_device_ms", "_rf")
+
+    def __init__(self, name: str, device, attrs: dict, parent: Optional["Span"]):
+        self.name, self.attrs, self.parent = name, attrs, parent
+        self._device = device
+        self._events = self._device_ms = self._rf = None
+        self.start_ns = self.end_ns = None
+
+    def __enter__(self) -> "Span":
+        global _live, _between, _kept
+        if self.parent is None:
+            self.unit = Unit(self.name, self.attrs, torch.autograd._profiler_enabled())
+            with _lock:
+                _live += 1
+                if _between or not _windows:
+                    _windows.append(Window())
+                    _between = False
+                _windows[-1].units.append(self.unit)
+                _kept += 1
+                while _kept > MAX_UNITS:      # the oldest window goes, or the oldest unit
+                    if len(_windows) > 1:
+                        _kept -= len(_windows.popleft().units)
+                    else:
+                        _windows[0].units.popleft()
+                        _kept -= 1
+        else:
+            self.unit = self.parent.unit
+        self.unit.spans.append(self)
+        _tls.top = self
+        if self.unit.traced:
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
+        dev = self._device
+        if dev is not None and torch.device(dev).type == "cuda":
+            stream = torch.cuda.current_stream(dev)
+            self._events = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True), stream)
+            self._events[0].record(stream)
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        global _live
+        self.end_ns = time.perf_counter_ns()
+        if self._events is not None:
+            self._events[1].record(self._events[2])
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+            self._rf = None
+        _tls.top = self.parent
+        if self.parent is None:
+            self.unit._close()
+            with _lock:
+                _live -= 1
+        return False
+
+    @property
+    def host_ms(self) -> float:
+        return (self.end_ns - self.start_ns) * 1e-6
+
+    @property
+    def device_ms(self) -> Optional[float]:
+        """The device time between the span's two CUDA events (waiting for
+        the second), None for a span without them."""
+        if self._events is not None:
+            start, end, _ = self._events
+            end.synchronize()
+            self._device_ms = start.elapsed_time(end)
+            self._events = None
+        return self._device_ms
+
+
+class _Off:
+    """The span of a unit that is not recorded: one object for every call."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_Off":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_OFF = _Off()
+
+
+def span(name: str, device=None, **attrs):
+    """A span named ``name`` with ``attrs`` (see the module's docstring),
+    for a ``with`` statement; ``device``, a CUDA device, times it with a
+    pair of CUDA events on that device's current stream."""
+    global _between
+    if _live:
+        parent = getattr(_tls, "top", None)
+        if parent is not None or _explicit:
+            return Span(name, device, attrs, parent)
+    if torch.autograd._profiler_enabled():
+        return Span(name, device, attrs, None)
+    _between = True
+    return _OFF
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` of the recorded unit open on this
+    thread, if there is one."""
+    if _live:
+        top = getattr(_tls, "top", None)
+        if top is not None:
+            counters = top.unit.counters
+            counters[name] = counters.get(name, 0) + n
+
+
+def annotate(**attrs) -> None:
+    """Add ``attrs`` to the innermost recorded span open on this thread, if
+    there is one."""
+    if _live:
+        top = getattr(_tls, "top", None)
+        if top is not None:
+            top.attrs.update(attrs)
+
+
+@contextlib.contextmanager
+def recording():
+    """Record every unit the block runs, in a window of their own (a new
+    one, unless the block is inside another)."""
+    global _live, _explicit, _between
+    with _lock:
+        if not _explicit:
+            _between = True
+        _explicit += 1
+        _live += 1
+    try:
+        yield
+    finally:
+        with _lock:
+            _explicit -= 1
+            _live -= 1
+            if not _explicit:
+                _between = True
+
+
+def windows() -> List[Window]:
+    """The windows kept, oldest first."""
+    with _lock:
+        return list(_windows)
+
+
+def largest_window(name: str) -> Optional[List[Unit]]:
+    """The units named ``name`` of the window that holds most of them, in
+    order; None where no window holds one."""
+    best: List[Unit] = []
+    for window in windows():
+        units = [u for u in list(window.units) if u.name == name]
+        if len(units) > len(best):
+            best = units
+    return best or None

@@ -307,7 +307,7 @@ class _Event:
 
 def test_profile_kernels_reads_one_window_and_profiles_again(monkeypatch, capsys):
     """``profile_kernels`` (the one profiler window of the port, behind
-    ``traced_device_ms`` and the smoke's device times) on a stand-in
+    the smoke's device times) on a stand-in
     profiler: a session missing a wanted kernel is profiled again with a
     line on stderr, host ops and the step marker are left out, and the
     calls are one warm-up, then one warm-up step and ``calls`` a session."""
@@ -348,13 +348,6 @@ def test_profile_kernels_reads_one_window_and_profiles_again(monkeypatch, capsys
 
     sessions = iter([[]] * profiling.PROFILER_ATTEMPTS)
     assert profiling.profile_kernels(lambda: None) is None
-
-
-def test_traced_device_ms_not_measured_without_a_card(monkeypatch):
-    from gfx_ocean_tpu_torch.utils import profiling
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert np.isnan(profiling.traced_device_ms(lambda: None, (), frames=2))
 
 
 def test_ema_and_trace_match_jax(tmp_path):
