@@ -25,7 +25,7 @@ than the grid and the native bincode loader; then multi-device runs
 - The interactive frame renderer at the reference's 1200x700 window
   (``make_frame_renderer(OceanConfig(fft_impl="pallas"), 1200, 700)``,
   mesh 128 x 4, 512^2 state from numpy noise of seed 0, default camera)
-  through kernels K1, K7 and K8.
+  through kernels K1, K7, K8 and K9.
 - The unpacked 512^2 step, the accuracy tier (``OceanConfig(fft_impl=
   "pallas", hermitian_pack=False)``) on phase 3's state: through kernel K4
   (its tiered body K4t at ``matmul_precision="bf16x3"`` and "default",
@@ -77,18 +77,23 @@ Phases, one line each:
     frame at the default camera and at a low camera whose giant pass has
     active groups, and K8 on 735,784 synthetic entries with runs that span
     tiles: bit-equal to their plain versions;
-15. render_frame: the fused 1200x700 renderer through K1 + K7 + K8 against
-    the same pipeline with K7 and K8's plain versions (bit-equal uint8
-    frames), the giant-pass tripwire, the pool overflow, the coverage, and
-    a 4-band stack bit-equal to the full frame through the kernels;
+14b. render_giant_vs_plain: K9 on the giant passes of those two frames,
+    and of the default camera's with its 512 highest-scored triangles all
+    active: bit-equal to its plain version;
+15. render_frame: the fused 1200x700 renderer through K1 + K7 + K8 + K9
+    against the same pipeline with K7, K8 and K9's plain versions
+    (bit-equal uint8 frames), the giant-pass tripwire, the pool overflow,
+    the coverage, and a 4-band stack bit-equal to the full frame through
+    the kernels;
 16. render_vs_jax: the frame against the stored JAX frame
     (``gfx_ocean_tpu_torch/golden/frame_jax_1200x700.npz``);
 17. render_time: one frame through the kernels and through the plain
-    versions, K7 and K8 alone against theirs and K8 against one
-    scatter_reduce("amin") (CUDA events), K7's and K8's own device time
-    (``k7_device_ms``, ``k8_device_ms``, torch.profiler), 60 frames of the
-    main path by wall clock with every launch count, and torch.profiler's
-    top device ops of a frame;
+    versions, K7, K8 and K9 alone against theirs and K8 against one
+    scatter_reduce("amin") (CUDA events), K7's, K8's and K9's own device
+    time (``k7_device_ms``, ``k8_device_ms``, ``k9_device_ms``, K9's also
+    at 512 candidates; torch.profiler), 60 frames of the main path by wall
+    clock with every launch count (K9 once on each recorded frame with an
+    active giant group), and torch.profiler's top device ops of a frame;
 18. unpacked_kernel_vs_plain: K4, K5 alone, K6 alone (fed K5's Y) and
     K5 + K6 chained against the plain version, planes and the checksum
     kernel's partial sums behind K4 and behind K6, at 64^2, 256^2 and 512^2
@@ -248,7 +253,7 @@ with the counts at 0 just before it:
     beside "highest" (K5 + K6); the matmul route's unpacked step at the
     tier as the library yardstick; the "bf16x3" rollout as K4t's main path.
 
-Then one JSON line with the kernels K1-K8, K2 at 16384^2 and K1t-K4t
+Then one JSON line with the kernels K1-K9, K2 at 16384^2 and K1t-K4t
 (times, bounds from this run's shapes, library yardsticks, ``device_ms``;
 K1t's entry carries config 4's cascade call, which runs K1t at
 "bf16x3", as ``cascade_*``, the tiered bodies' their "default" tier's
@@ -344,6 +349,9 @@ FP32_OPS_PER_S = 67e12
 K7_OPS_PER_PIXEL = 40
 # Operations an entry and key of K8: unpack, compare, select, min.
 K8_OPS_PER_KEY = 4
+# Operations a pixel and candidate of K9 (three edge functions 12, the
+# denominator 2, w and z 11, the key 5, tests 10), counted from csrc/raster.cu.
+K9_OPS_PER_PIXEL_CANDIDATE = 40
 
 # The 16384^2 four-step path: K2 split over a two-block cluster a row, K3.
 BIG_N = 16384
@@ -525,6 +533,7 @@ K6_KERNELS = ("unpacked_col_pass",)
 K2_SPLIT_KERNELS = ("fourstep_row_pass_split",)
 K7_KERNELS = ("slot_kernel",)
 K8_KERNELS = ("segmin_lookback",)
+K9_KERNELS = ("giant_kernel",)
 K1T_KERNELS = ("packed_row_tier", "packed_col_tier", "checksum_partials")
 # K2t's stage 2 runs inside fourstep_row_tier1 at N <= 4096; fourstep_tier2
 # is the stage 2 from the scratch (K2t at N >= 8192, K3t at every N).
@@ -1062,11 +1071,11 @@ def render_stages(dev, state, cfg, disp, vp, cp, k7_ms: float) -> dict:
 
 @contextlib.contextmanager
 def plain_raster():
-    """Route the rasterizer's K7 and K8 dispatchers to their plain versions
-    (on the card) inside the block."""
+    """Route the rasterizer's K7, K8 and K9 dispatchers to their plain
+    versions (on the card) inside the block."""
     from gfx_ocean_tpu_torch.render import raster as rr
 
-    saved = rr.slot_stage, rr.segmin_stage
+    saved = rr.slot_stage, rr.segmin_stage, rr.giant_stage
 
     def slot(crow, total_covered, width, full_height, octs_w, spill_oct, bw_bits, id_bits,
              y_origin=0):
@@ -1075,10 +1084,48 @@ def plain_raster():
                                        bw_bits, id_bits)
 
     rr.slot_stage, rr.segmin_stage = slot, rr.segmin_stage_reference
+    rr.giant_stage = rr.giant_pass_reference
     try:
         yield
     finally:
-        rr.slot_stage, rr.segmin_stage = saved
+        rr.slot_stage, rr.segmin_stage, rr.giant_stage = saved
+
+
+def giant_args(tabs, tris, key_img, forced: bool = False) -> tuple:
+    """K9's arguments on a 1200x700 frame's key image: its giant
+    selection's active groups, or with ``forced`` every one of the
+    ``R_GIANTS`` highest-scored triangles as active (the 512-candidate
+    giant frame)."""
+    import torch
+
+    from gfx_ocean_tpu_torch.render import raster as rr
+
+    ids, ok, groups = rr._giant_selection(tabs.score, R_GIANTS)
+    if forced:
+        groups, ok = ids.shape[0], torch.ones_like(ok)
+    return (ids[:groups], ok[:groups], tabs.clip, tris, tabs.score, key_img, R_W, R_H, R_H, 0,
+            tabs.id_bits)
+
+
+def k9_bound(args, out) -> dict:
+    """K9's bound: each active candidate tested at the pixels it needs (a
+    crossing one at every pixel, another at its pixel-centre bbox within
+    the image), against the key image read and written once and the
+    candidates' inputs (id, flag, corners' ids and clip rows, score)."""
+    import torch
+
+    ids, ok, clip, tris, score = args[:5]
+    active = ids[ok]
+    v = clip[tris[active]].double()                     # (n, 3, 4)
+    sx = (v[..., 0] / v[..., 3] * 0.5 + 0.5) * R_W
+    sy = (v[..., 1] / v[..., 3] * 0.5 + 0.5) * R_H
+    cols = (torch.floor(sx.amax(-1) - 0.5).clamp(max=R_W - 1)
+            - torch.ceil(sx.amin(-1) - 0.5).clamp(min=0) + 1).clamp(min=0)
+    rows = (torch.floor(sy.amax(-1) - 0.5).clamp(max=R_H - 1)
+            - torch.ceil(sy.amin(-1) - 0.5).clamp(min=0) + 1).clamp(min=0)
+    pixels = torch.where(torch.isinf(score[active]), float(R_W * R_H), cols * rows)
+    ops = K9_OPS_PER_PIXEL_CANDIDATE * float(pixels.sum())
+    return bound(nbytes(args[5], out) + active.numel() * (8 + 1 + 3 * 8 + 3 * 16 + 4), ops)
 
 
 def key_err(got, want) -> tuple:
@@ -1090,8 +1137,8 @@ def key_err(got, want) -> tuple:
 
 
 def run_render(dev) -> list:
-    """Phases 14-17: the 1200x700 frame renderer through K1 + K7 + K8;
-    returns the entries of K7 and K8."""
+    """Phases 14-17: the 1200x700 frame renderer through K1 + K7 + K8 + K9;
+    returns the entries of K7, K8 and K9."""
     import numpy as np
     import torch
 
@@ -1101,6 +1148,7 @@ def run_render(dev) -> list:
     from gfx_ocean_tpu_torch.render import raster as rr
     from gfx_ocean_tpu_torch.render.camera import Camera
     from gfx_ocean_tpu_torch.spectra.phillips import synthesize
+    from gfx_ocean_tpu_torch.utils import profiling
 
     cfg = ot.OceanConfig(fft_impl="pallas")
     noise = np.random.default_rng(R_SEED).standard_normal((2, R_N, R_N)).astype(np.float32)
@@ -1169,6 +1217,37 @@ def run_render(dev) -> list:
             fail(f"K8 differs from its plain version on synthetic runs: {rec}")
         k8_err = max(k8_err, k8[1])
     del so_s, sk_s, mins, skey, want_mins, want_skey
+
+    # --- 14b. K9 against its plain version on the frames' giant passes ----
+    k9_err = 0
+    for name, camera, forced in (("default", cam, False), ("low", low, False),
+                                 ("default, 512 active", cam, True)):
+        tabs = rr._slot_tables(disp, positions, uvs, tris, rr._view_proj(camera, R_W, R_H, dev),
+                               R_W, R_H, pool, interp, grid_shape)
+        n_oct = tabs.octs_w * tabs.octs_h
+        keys, octs = rr.slot_stage(tabs.crow, tabs.total_covered, R_W, R_H, tabs.octs_w, n_oct,
+                                   32 - tabs.id_bits, tabs.id_bits)
+        key_img = rr._resolve(keys, octs, tabs, R_W, R_H)
+        args = giant_args(tabs, tris, key_img, forced)
+        got = rr.launch_giant_kernel(*args)
+        want = rr.giant_pass_reference(*args)
+        torch.cuda.synchronize()
+        differ, max_abs = key_err(got, want)
+        active = args[1]
+        phase("render_giant_vs_plain", camera=name, width=R_W, height=R_H, giants=R_GIANTS,
+              groups=args[0].shape[0], active=int(active.sum()),
+              crossing=int(torch.isinf(tabs.score[args[0][active]]).sum()),
+              pixels_merged=int((want != key_img).sum()), k9_keys_differ=differ,
+              k9_max_abs=max_abs)
+        if differ or args[0].shape[0] == 0:
+            fail(f"K9 differs from its plain version ({differ} keys) or had no active group "
+                 f"at the {name} camera")
+        k9_err = max(k9_err, max_abs)
+        if name == "default":
+            k9_args = args
+        if forced:
+            k9_512_args = args
+    del keys, octs, key_img, got, want
 
     # --- 15. the fused frame through the kernels and through the plain versions
     fr = rr.make_frame_renderer(cfg, R_W, R_H, R_GIANTS, diag=True)
@@ -1246,6 +1325,17 @@ def run_render(dev) -> list:
                                  R_KERNEL_CALLS)
     k8_device = kernel_device_ms(lambda: rr.launch_segmin_kernel(*k8_args), K8_KERNELS,
                                  R_KERNEL_CALLS)
+    k9_ms = event_ms(lambda: rr.launch_giant_kernel(*k9_args), R_KERNEL_CALLS)
+    k9_plain_ms = event_ms(lambda: rr.giant_pass_reference(*k9_args), R_PLAIN_TIMING_CALLS)
+    k9_device = kernel_device_ms(lambda: rr.launch_giant_kernel(*k9_args), K9_KERNELS,
+                                 R_KERNEL_CALLS)
+    k9_512_device = kernel_device_ms(lambda: rr.launch_giant_kernel(*k9_512_args), K9_KERNELS,
+                                     R_KERNEL_CALLS)
+    k9_512_plain_ms = event_ms(lambda: rr.giant_pass_reference(*k9_512_args),
+                               R_PLAIN_TIMING_CALLS)
+    k9_out = rr.launch_giant_kernel(*k9_args)
+    k9_b, k9_512_b = k9_bound(k9_args, k9_out), k9_bound(k9_512_args, k9_out)
+    del k9_out
     stage_ms = render_stages(dev, state, cfg, disp, vp, cp, k7_ms)
 
     ts = [R_T + i / 60.0 for i in range(R_FRAMES)]
@@ -1254,6 +1344,7 @@ def run_render(dev) -> list:
     fs.launch_fourstep_col.launches = 0
     rr.launch_slot_kernel.launches = 0
     rr.launch_segmin_kernel.launches = 0
+    rr.launch_giant_kernel.launches = 0
     t0 = time.perf_counter()
     for t in ts:
         fr(state, t, vp, cp)
@@ -1261,7 +1352,20 @@ def run_render(dev) -> list:
     wall_ms = (time.perf_counter() - t0) * 1e3 / R_FRAMES
     launches = dict(k1=fused_step.launch_packed_step.launches,
                     k2=fs.launch_fourstep_row.launches, k3=fs.launch_fourstep_col.launches,
-                    k7=rr.launch_slot_kernel.launches, k8=rr.launch_segmin_kernel.launches)
+                    k7=rr.launch_slot_kernel.launches, k8=rr.launch_segmin_kernel.launches,
+                    k9=rr.launch_giant_kernel.launches)
+    # The same frames recorded: K9 once on each frame whose giant pass has an
+    # active group, never on another.
+    with profiling.recording():
+        for t in ts:
+            fr(state, t, vp, cp)
+    units = list(profiling.windows()[-1].units)
+    giant_frames = sum(u.counters.get("giant.groups", 0) > 0 for u in units)
+    k9_per_frame = [u.counters.get("launches.launch_giant_kernel", 0) for u in units]
+    if len(units) != R_FRAMES or k9_per_frame != [int(u.counters.get("giant.groups", 0) > 0)
+                                                  for u in units]:
+        fail(f"K9 launches a recorded frame {k9_per_frame} against giant groups "
+             f"{[u.counters.get('giant.groups', 0) for u in units]}")
 
     prof = device_profile(lambda: [fr(state, t, vp, cp) for t in ts[:R_PROFILE_FRAMES]],
                           R_PROFILE_FRAMES)
@@ -1270,13 +1374,18 @@ def run_render(dev) -> list:
           frame_ms=frame_ms, plain_frame_ms=plain_frame_ms, k7_ms=k7_ms,
           k7_plain_ms=k7_plain_ms, k8_ms=k8_ms, k8_plain_ms=k8_plain_ms,
           k7_device_ms=k7_device["total"], k8_device_ms=k8_device["total"],
+          k9_ms=k9_ms, k9_plain_ms=k9_plain_ms, k9_device_ms=k9_device["total"],
+          k9_candidates=int(k9_args[1].sum()), k9_bound=k9_b,
+          k9_512_device_ms=k9_512_device["total"], k9_512_plain_ms=k9_512_plain_ms,
+          k9_512_bound=k9_512_b, giant_frames=giant_frames,
           k8_library_scatter_amin_ms=k8_library_ms, k7_bound=k7_bound, k8_bound=k8_bound,
           stage_ms=stage_ms, frames=R_FRAMES, wall_ms_per_frame=wall_ms,
           frames_per_sec=1e3 / wall_ms, launches=launches,
           device_busy_ms_per_frame=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
           profile=prof)
-    if launches != dict(k1=R_FRAMES, k2=0, k3=0, k7=R_FRAMES, k8=R_FRAMES):
-        fail(f"the {R_FRAMES}-frame run launched {launches}, expected {R_FRAMES} of K1, K7, K8")
+    if launches != dict(k1=R_FRAMES, k2=0, k3=0, k7=R_FRAMES, k8=R_FRAMES, k9=giant_frames):
+        fail(f"the {R_FRAMES}-frame run launched {launches}, expected {R_FRAMES} of K1, K7, K8 "
+             f"and {giant_frames} of K9")
 
     return [
         {"name": "K7 slot_kernel (per-slot oct tile tests, packed keys)", "route": "cuda",
@@ -1290,6 +1399,15 @@ def run_render(dev) -> list:
          "replaces": "gfx_ocean_tpu/render/raster.py:816", "launches": launches["k8"],
          "max_abs_err": k8_err, "ms": k8_ms, "device_ms": k8_device["total"],
          "plain_ms": k8_plain_ms, **k8_bound, "library_ms": k8_library_ms},
+        {"name": "K9 giant_kernel (the giant pass: every active candidate merged into the "
+                 "key image, tile-local candidate lists)",
+         "route": "cuda", "source": "gfx_ocean_tpu_torch/csrc/raster.cu",
+         "replaces": "gfx_ocean_tpu/render/raster.py:436 (a lax.while_loop of jnp ops)",
+         "launches": launches["k9"], "max_abs_err": k9_err, "ms": k9_ms,
+         "device_ms": k9_device["total"], "plain_ms": k9_plain_ms, **k9_b,
+         "candidates": int(k9_args[1].sum()), "device_ms_512": k9_512_device["total"],
+         "plain_ms_512": k9_512_plain_ms, "bound_ms_512": k9_512_b["bound_ms"],
+         "library_ms": None},
     ]
 
 

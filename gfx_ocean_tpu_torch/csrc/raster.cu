@@ -1,9 +1,12 @@
-// K7 + K8 on Hopper: the pool rasterizer's slot stage and segmented min.
+// K7 + K8 + K9 on Hopper: the pool rasterizer's slot stage, segmented min
+// and giant pass.
 //
 // K7 replaces gfx_ocean_tpu/render/raster.py::_slot_kernel, K8 replaces
-// ::_segmin_kernel. Both compute the same function as their plain PyTorch
-// versions in render/raster.py (slot_stage_reference,
-// segmin_stage_reference), bit for bit.
+// ::_segmin_kernel; K9 has no TPU kernel to replace (the JAX package runs
+// the giant pass as a lax.while_loop of jnp ops, raster.py:436). Each
+// computes the same function as its plain PyTorch version in
+// render/raster.py (slot_stage_reference, segmin_stage_reference,
+// giant_pass_reference), bit for bit.
 //
 //   slot_kernel     K7. One thread per pool slot. Reads the slot's column of
 //                   the (19, P) packed slot table (each row coalesced across
@@ -43,20 +46,53 @@
 //                   so a call never reads the last call's flags; the last
 //                   ticket resets the ticket counter for the next call.
 //
+//   giant_kernel    K9, one launch a frame that has active giant candidates:
+//                   the giant pass (render/raster.py giant_pass_reference,
+//                   the per-group loop of eager ops it replaces). Each block
+//                   owns a tile of kGiantTileW x kGiantTileH pixels, each
+//                   thread kGiantCols pixels of one row (kGiantThreadsX apart,
+//                   so a warp's loads and stores of the key image coalesce).
+//                   The block's threads first form up to kGiantChunk
+//                   candidates at once in shared memory: the triangle's
+//                   corners from clip[tris[id]], the sign-folded edge
+//                   coefficients, z and w, and the pixel-centre bbox (the
+//                   whole plane for a crossing candidate, whose score is
+//                   inf). A candidate that is inactive, or whose bbox misses
+//                   the tile, is left out of the tile's list; the per-pixel
+//                   bbox test of the plain version excludes the same pixels,
+//                   so results do not change. Then each thread walks the list
+//                   with its pixels' running min key in registers, and reads
+//                   and writes each pixel of the key image once; it forms
+//                   its pixels' centre NDC itself, as K7 does. A min over
+//                   keys is order-free, so the list's order (shared-memory
+//                   atomics) does not matter and one pass over every
+//                   candidate equals the plain version's group loop. The
+//                   arithmetic is the plain version's, op for op, each
+//                   rounded once.
+//
 // The TPU kernel carried the open run through the sequential grid's scratch
 // (raster.py:837-859); GPU blocks run in no order, so the look-back carries
 // it between tiles. Keys are uint32 here; PyTorch holds their bits in int32.
+// The giant pass's key image is int64 values in [0, 2^32), as the renderer
+// holds it.
 //
 // Bounds on the H100 at 1200x700 (P = 630,784 slots, n = 735,784 resolve
 // entries): K7 reads 76 B and writes 24 B a slot (~63 MB), K8 reads 28 B and
 // writes 36 B an entry (~47 MB); both are bound by device-memory traffic and
 // launch latency, not arithmetic (~20 us and ~15 us at 3.35 TB/s): K8 is one
-// launch, whose blocks each wait at most on their predecessors' flags.
+// launch, whose blocks each wait at most on their predecessors' flags. K9 is
+// bound by arithmetic: ~40 FP32 operations a pixel and candidate where every
+// candidate is tested everywhere (three edge functions 12, the denominator 2,
+// w and z 11, the key 5, tests 10), 840,000 pixels x 55.4 candidates (an
+// average giant frame of the 1200x700 cell) ~1.9 GFLOP, ~28 us at 67 TFLOP/s,
+// against ~4 us to read and write the 6.7 MB key image once at 3.35 TB/s;
+// the tile lists cut the pool-overflow candidates' share to their bboxes.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // (gfx_ocean_tpu_torch/kernels.py). Plain C entry points, bound with ctypes.
 
 #include <climits>
+#include <cmath>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -75,6 +111,12 @@ constexpr uint32_t kAggregate = 1u;  // the tile's mins of its tail run
 constexpr uint32_t kInclusive = 2u;  // its tail run's mins from the run's start
 constexpr uint32_t kKeyMax = 0xFFFFFFFFu;
 constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kGiantThreadsX = 16;  // K9: threads along a tile row
+constexpr int kGiantTileH = 16;     // K9: tile rows, one a thread row
+constexpr int kGiantCols = 4;       // K9: pixels a thread, kGiantThreadsX apart
+constexpr int kGiantTileW = kGiantThreadsX * kGiantCols;
+constexpr int kGiantThreads = kGiantThreadsX * kGiantTileH;
+constexpr int kGiantChunk = kGiantThreads;  // K9: candidates formed at once, one a thread
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -454,6 +496,173 @@ segmin_lookback(const int* __restrict__ so, const uint32_t* __restrict__ sk, int
   if (!final_now) store_entries<VEC>(m, id, next_id, i0, n, n_oct, mins, skey);
 }
 
+// torch.amin / amax of three: NaN wins, as in the plain version.
+__device__ __forceinline__ float nan_min3(float a, float b, float c) {
+  const float m = (a < b || isnan(a)) ? a : b;
+  return (m < c || isnan(m)) ? m : c;
+}
+
+__device__ __forceinline__ float nan_max3(float a, float b, float c) {
+  const float m = (a > b || isnan(a)) ? a : b;
+  return (m > c || isnan(m)) ? m : c;
+}
+
+// One giant candidate as K9 keeps it in shared memory: the sign-folded edge
+// coefficients cr (row-major 3 x 3), w and z of the corners, the triangle
+// id's bits, and the pixel-centre bbox [x0, x1] x [y0, y1] in global rows.
+struct GiantCand {
+  float4 e0;   // cr00 cr01 cr02 cr10
+  float4 e1;   // cr11 cr12 cr20 cr21
+  float4 e2;   // cr22 w0 w1 w2
+  float4 e3;   // z0 z1 z2 id
+  float4 box;  // x0 x1 y0 y1
+};
+
+// _edge_coeffs, the bbox of _giant_pass's sx / sy, and the isinf(score)
+// rule for candidate c: false where it is inactive or its bbox misses the
+// tile [tx0, tx1] x [ty0, ty1] (global rows).
+__device__ __forceinline__ bool giant_candidate(
+    int c, const long long* __restrict__ ids, const unsigned char* __restrict__ ok,
+    const float* __restrict__ score, const float* __restrict__ clip,
+    const long long* __restrict__ tris, float fw, float ffh, float tx0, float tx1, float ty0,
+    float ty1, GiantCand& out) {
+  if (!ok[c]) return false;
+  const long long id = ids[c];
+  float4 v[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float* p = clip + 4 * tris[3 * id + k];
+    v[k] = make_float4(p[0], p[1], p[2], p[3]);
+  }
+  float4 box;
+  if (isinf(score[id])) {
+    box = make_float4(-INFINITY, INFINITY, -INFINITY, INFINITY);
+  } else {
+    float sx[3], sy[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      sx[k] = mul(add(mul(div(v[k].x, v[k].w), 0.5f), 0.5f), fw);
+      sy[k] = mul(add(mul(div(v[k].y, v[k].w), 0.5f), 0.5f), ffh);
+    }
+    box = make_float4(ceilf(sub(nan_min3(sx[0], sx[1], sx[2]), 0.5f)),
+                      floorf(sub(nan_max3(sx[0], sx[1], sx[2]), 0.5f)),
+                      ceilf(sub(nan_min3(sy[0], sy[1], sy[2]), 0.5f)),
+                      floorf(sub(nan_max3(sy[0], sy[1], sy[2]), 0.5f)));
+    if (box.y < tx0 || box.x > tx1 || box.w < ty0 || box.z > ty1) return false;
+  }
+  // Row i: corner i+1 x corner i+2 over (x, y, w) (sh._cross), then the
+  // sign of det = row 0 . corner 0 folded in (torch.sign: NaN and 0 give 0).
+  float cr[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float4 a = v[(i + 1) % 3], b = v[(i + 2) % 3];
+    cr[i][0] = sub(mul(a.y, b.w), mul(a.w, b.y));
+    cr[i][1] = sub(mul(a.w, b.x), mul(a.x, b.w));
+    cr[i][2] = sub(mul(a.x, b.y), mul(a.y, b.x));
+  }
+  const float det = add(add(mul(cr[0][0], v[0].x), mul(cr[0][1], v[0].y)), mul(cr[0][2], v[0].w));
+  const float s = static_cast<float>((0.0f < det) - (det < 0.0f));
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) cr[i][j] = mul(cr[i][j], s);
+  }
+  out.e0 = make_float4(cr[0][0], cr[0][1], cr[0][2], cr[1][0]);
+  out.e1 = make_float4(cr[1][1], cr[1][2], cr[2][0], cr[2][1]);
+  out.e2 = make_float4(cr[2][2], v[0].w, v[1].w, v[2].w);
+  out.e3 = make_float4(v[0].z, v[1].z, v[2].z, __uint_as_float(static_cast<uint32_t>(id)));
+  out.box = box;
+  return true;
+}
+
+__global__ void __launch_bounds__(kGiantThreads)
+giant_kernel(const long long* __restrict__ ids, const unsigned char* __restrict__ ok, int n,
+             const float* __restrict__ score, const float* __restrict__ clip,
+             const long long* __restrict__ tris, int width, int height, int full_height,
+             int y_origin, int id_bits, const long long* __restrict__ key_in,
+             long long* __restrict__ key_out) {
+  __shared__ GiantCand s_cand[kGiantChunk];
+  __shared__ int s_count;
+  const int tx = static_cast<int>(threadIdx.x) % kGiantThreadsX;
+  const int x_first = static_cast<int>(blockIdx.x) * kGiantTileW;
+  const int y_first = static_cast<int>(blockIdx.y) * kGiantTileH;
+  const int y = y_first + static_cast<int>(threadIdx.x) / kGiantThreadsX;
+  // The tile's pixels, rows global: a bbox that misses them is skipped.
+  const float tx0 = static_cast<float>(x_first);
+  const float tx1 = static_cast<float>(min(x_first + kGiantTileW, width) - 1);
+  const float ty0 = static_cast<float>(y_first + y_origin);
+  const float ty1 = static_cast<float>(min(y_first + kGiantTileH, height) - 1 + y_origin);
+  const int z_bits = 32 - id_bits;
+  const int top = static_cast<int>((1u << z_bits) - 2u);
+  const float zscale = static_cast<float>(1u << z_bits);
+  const float ftop = static_cast<float>(top);
+
+  // This thread's pixels: the row's and each column's pixel-centre NDC
+  // (_pixel_ndc's arithmetic, as K7 forms it) and index as a float (the
+  // plain version's jy / jx), and each pixel's running min key.
+  const bool row_live = y < height;
+  const float jy = static_cast<float>(y + y_origin);
+  const float py = sub(div(mul(2.0f, add(jy, 0.5f)), static_cast<float>(full_height)), 1.0f);
+  float px[kGiantCols], jx[kGiantCols];
+  bool live[kGiantCols];
+  long long best[kGiantCols];
+  const size_t row = static_cast<size_t>(row_live ? y : 0) * static_cast<size_t>(width);
+#pragma unroll
+  for (int j = 0; j < kGiantCols; ++j) {
+    const int x = x_first + tx + j * kGiantThreadsX;
+    live[j] = row_live && x < width;
+    jx[j] = static_cast<float>(x);
+    px[j] = sub(div(mul(2.0f, add(jx[j], 0.5f)), static_cast<float>(width)), 1.0f);
+    best[j] = live[j] ? key_in[row + x] : 0;
+  }
+
+  for (int base = 0; base < n; base += kGiantChunk) {
+    if (threadIdx.x == 0) s_count = 0;
+    __syncthreads();
+    GiantCand cand;
+    const int c = base + static_cast<int>(threadIdx.x);
+    if (c < n && giant_candidate(c, ids, ok, score, clip, tris, static_cast<float>(width),
+                                 static_cast<float>(full_height), tx0, tx1, ty0, ty1, cand)) {
+      s_cand[atomicAdd(&s_count, 1)] = cand;
+    }
+    __syncthreads();
+    const int count = s_count;
+    for (int k = 0; k < count && row_live; ++k) {
+      const GiantCand& g = s_cand[k];
+      const float4 box = g.box;
+      if (!(jy >= box.z && jy <= box.w)) continue;
+      const float4 e0 = g.e0, e1 = g.e1, e2 = g.e2, e3 = g.e3;
+      const float r0 = mul(e0.y, py), r1 = mul(e1.x, py), r2 = mul(e1.w, py);
+      const long long tri = static_cast<long long>(__float_as_uint(e3.w));
+#pragma unroll
+      for (int j = 0; j < kGiantCols; ++j) {
+        if (!(live[j] && jx[j] >= box.x && jx[j] <= box.y)) continue;
+        // _lambdas: (cr_i0 * pnx + cr_i1 * pny) + cr_i2.
+        const float lam0 = add(add(mul(e0.x, px[j]), r0), e0.z);
+        const float lam1 = add(add(mul(e0.w, px[j]), r1), e1.y);
+        const float lam2 = add(add(mul(e1.z, px[j]), r2), e2.x);
+        const float denom = add(add(lam0, lam1), lam2);
+        if (!(lam0 >= 0.0f && lam1 >= 0.0f && lam2 >= 0.0f && denom > 0.0f)) continue;
+        const float lam_w = add(add(mul(lam0, e2.y), mul(lam1, e2.z)), mul(lam2, e2.w));
+        const float znum = add(add(mul(lam0, e3.x), mul(lam1, e3.y)), mul(lam2, e3.z));
+        const float z = div(znum, lam_w == 0.0f ? 1.0f : lam_w);
+        if (!(z > -1.0f && z < 1.0f)) continue;
+        // _pack_key: quantize over (-1, 1), float clamp, truncate, integer clamp.
+        const float q = fminf(fmaxf(mul(add(mul(z, 0.5f), 0.5f), zscale), 0.0f), ftop);
+        const long long key = (static_cast<long long>(min(static_cast<int>(q), top)) << id_bits) |
+                              tri;
+        best[j] = min(best[j], key);
+      }
+    }
+    __syncthreads();  // the next chunk overwrites s_cand
+  }
+
+#pragma unroll
+  for (int j = 0; j < kGiantCols; ++j) {
+    if (live[j]) key_out[row + x_first + tx + j * kGiantThreadsX] = best[j];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -500,6 +709,25 @@ int segmin_stage(const int* so, const uint32_t* sk, int n, int id_bits, int n_oc
                                                             e, ticket, flags, agg, incl, mins,
                                                             skey);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches K9 on `stream`; returns the first error. ids (n,) int64 and ok
+// (n,) bool: the active groups of the giant selection; score (T,) float32;
+// clip (V, 4) float32; tris (T, 3) int64; key_in, key_out (height, width)
+// int64 key images of the rows from y_origin of a full_height-row viewport.
+int giant_pass(const long long* ids, const unsigned char* ok, int n, const float* score,
+               const float* clip, const long long* tris, int width, int height,
+               int full_height, int y_origin, int id_bits, const long long* key_in,
+               long long* key_out, void* stream) {
+  if (n < 1 || width < 1 || height < 1 || full_height < 1 || id_bits < 1 || id_bits > 20) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((width + kGiantTileW - 1) / kGiantTileW,
+                  (height + kGiantTileH - 1) / kGiantTileH);
+  giant_kernel<<<grid, kGiantThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      ids, ok, n, score, clip, tris, width, height, full_height, y_origin, id_bits, key_in,
+      key_out);
   return static_cast<int>(cudaGetLastError());
 }
 

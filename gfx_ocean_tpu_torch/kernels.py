@@ -67,6 +67,7 @@ SIGNATURES = {
     "raster": {
         "slot_stage": ([_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P], _I),
         "segmin_stage": ([_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P], _I),
+        "giant_pass": ([_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P], _I),
         "raster_error_string": ([_I], ctypes.c_char_p),
     },
 }

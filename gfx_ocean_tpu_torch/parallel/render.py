@@ -4,7 +4,7 @@ Counterpart of ``gfx_ocean_tpu/parallel/render.py``. The viewport is split
 into horizontal bands, one a position along a mesh axis, and each position
 runs the frame renderer's own body on its band (``render/raster._frame_fn``
 with ``y_origin`` / ``full_height``): step (K1 at 512^2), the band's pool
-rasterizer (K7, K8), sRGB. Band pixels sample the same float32 NDC centres
+rasterizer (K7, K8, K9), sRGB. Band pixels sample the same float32 NDC centres
 as the full frame, so the bands stack into the single-device frame bit for
 bit. The step runs on every position (replicated, as in the JAX package):
 it is a small share of a frame and saves gathering the displacement.

@@ -1,4 +1,4 @@
-"""The rasterizers in PyTorch, with kernels K7 and K8 on the card.
+"""The rasterizers in PyTorch, with kernels K7, K8 and K9 on the card.
 
 Counterpart of ``gfx_ocean_tpu/render/raster.py``. The pool rasterizer
 (``impl="pool"``, the fast path): vertex displacement and projection with
@@ -24,7 +24,7 @@ as shifted slices, uv decoded from the id) or any (T, 3) triangle list
 (``grid_shape=None``: corners gathered, uv corners carried in the deferred
 table), on both rasterizers.
 
-Two stages are kernels written by hand for Hopper (``csrc/raster.cu``):
+Three stages are kernels written by hand for Hopper (``csrc/raster.cu``):
 
 - K7, the slot stage (``slot_stage``; replaces ``_slot_kernel``): for each
   pool slot, decode its row of the packed slot table, evaluate the 8 oct
@@ -33,14 +33,18 @@ Two stages are kernels written by hand for Hopper (``csrc/raster.cu``):
 - K8, the segmented min (``segmin_stage``; replaces ``_segmin_kernel``):
   the component-wise prefix min over oct-sorted runs and the compaction key,
   in one launch: a single-pass scan over 1024-entry tiles whose run carry
-  crosses tiles by decoupled look-back.
+  crosses tiles by decoupled look-back;
+- K9, the giant pass (``giant_stage``; the JAX package's ``lax.while_loop``
+  of jnp ops over 32-triangle groups, ``_giant_pass``): every active
+  candidate edge-tested against the image's pixels and merged into the key
+  image in one launch, with tile-local candidate lists.
 
 Each has its plain PyTorch version beside it (``slot_stage_reference``,
-``segmin_stage_reference``). CPU tensors take the plain version; CUDA
-tensors launch the kernel or raise. The kernels and their plain versions
-agree bit for bit on the card: integer arithmetic, and float products,
-sums and divisions each rounded once (no FMA contraction, no reciprocal
-multiply; see ``shade._div``).
+``segmin_stage_reference``, ``giant_pass_reference``). CPU tensors take the
+plain version; CUDA tensors launch the kernel or raise. The kernels and
+their plain versions agree bit for bit on the card: integer arithmetic, and
+float products, sums and divisions each rounded once (no FMA contraction,
+no reciprocal multiply; see ``shade._div``).
 
 Keys. Visibility keys are uint32 in the JAX package. PyTorch has almost
 no uint32 kernels on CUDA, so the key image and the plain versions carry
@@ -55,15 +59,16 @@ What differs from the JAX package, and why:
   index gather of the payload; the area sort is stable, as JAX's is;
 - ``lax.top_k`` is a stable descending sort, so ties keep the lower index;
 - the giant pass's ``lax.while_loop`` reads its trip count to the host
-  (one device sync a frame) and runs only the active 32-triangle groups;
+  (one device sync a frame) and runs only the active 32-triangle groups,
+  in one launch of K9 on the card;
 - ``make_batch_renderer`` and ``render_frames`` are Python loops over frames.
 
 Cascade stacks (beyond the reference, as in the JAX package): a (C, N, N, 3)
 displacement is composited as the sum of its cascades, cascade c sampled at
 uv * tiles[c] with repeat wrap, tiles[c] = domains[0] / domains[c]
 (``_cascade_setup``); fragment normals take the chain rule's tile factor and
-foam the union of the per-cascade masks (``render/shade.py``). K7 and K8 see
-only the composited frame's tables.
+foam the union of the per-cascade masks (``render/shade.py``). K7, K8 and
+K9 see only the composited frame's tables.
 
 Band-parallel frames across a mesh (``parallel/render.py``) run the frame
 renderer's body with its band parameters (``_frame_fn``): each band is
@@ -411,7 +416,7 @@ def slot_stage_reference(crow: torch.Tensor, cov: torch.Tensor, width: int,
 
 def _cuda_stream(device: torch.device) -> ctypes.c_void_p:
     """The current stream of ``device``, which must be the current device."""
-    check_current_device(device, "the rasterizer's kernels (K7, K8)")
+    check_current_device(device, "the rasterizer's kernels (K7, K8, K9)")
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
@@ -574,7 +579,99 @@ def segmin_stage(so: torch.Tensor, sk: torch.Tensor, n_oct: int, id_bits: int):
 
 
 # --------------------------------------------------------------------------
-# The frame around K7 and K8.
+# K9: the giant pass.
+# --------------------------------------------------------------------------
+
+def giant_pass_reference(ids, ok, clip, tris, score, key_img, width: int, height: int,
+                         full_height: int, y_origin: int, id_bits: int):
+    """Plain PyTorch K9: edge-test the giant candidates against every pixel
+    of the (H, W) int64 key image (rows from ``y_origin`` of a
+    ``full_height``-row viewport), one 32-candidate group at a time,
+    merging their keys into it. ``ids`` / ``ok`` (G, 32): the candidates'
+    triangle ids and whether each is active (``_giant_selection``'s active
+    groups). Finite-score (pool overflow) candidates keep the tight
+    pixel-center bbox mask of the slot walk; crossing ones (score inf) have
+    no finite bbox and are tested everywhere."""
+    dev = key_img.device
+    pnx, pny = _pixel_ndc(width, height, dev, y_origin, full_height)
+    jx = torch.arange(width, dtype=torch.float32, device=dev)[None, None, :]
+    jy = (torch.arange(height, dtype=torch.int32, device=dev) + y_origin).to(torch.float32)
+    jy = jy[None, :, None]
+    for g in range(ids.shape[0]):
+        ix, on = ids[g], ok[g]
+        v = clip[tris[ix]]                                  # (32, 3, 4)
+        lam0, lam1, lam2, _ = _lambdas(v, pnx[None], pny[None], 2)
+        denom = lam0 + lam1 + lam2
+        hit = (lam0 >= 0) & (lam1 >= 0) & (lam2 >= 0) & (denom > 0) & on[:, None, None]
+        wv = v[..., 3]
+        sxg = (v[..., 0] / wv * 0.5 + 0.5) * float(width)
+        syg = (v[..., 1] / wv * 0.5 + 0.5) * float(full_height)
+        x0g = torch.ceil(sxg.amin(-1) - 0.5)[:, None, None]
+        x1g = torch.floor(sxg.amax(-1) - 0.5)[:, None, None]
+        y0g = torch.ceil(syg.amin(-1) - 0.5)[:, None, None]
+        y1g = torch.floor(syg.amax(-1) - 0.5)[:, None, None]
+        in_box = (jx >= x0g) & (jx <= x1g) & (jy >= y0g) & (jy <= y1g)
+        hit = hit & (torch.isinf(score[ix])[:, None, None] | in_box)
+        lam_w = (lam0 * v[:, None, None, 0, 3] + lam1 * v[:, None, None, 1, 3]
+                 + lam2 * v[:, None, None, 2, 3])
+        z = (lam0 * v[:, None, None, 0, 2] + lam1 * v[:, None, None, 1, 2]
+             + lam2 * v[:, None, None, 2, 2]) / torch.where(
+                 lam_w == 0, torch.ones_like(lam_w), lam_w)
+        hit = hit & (z > -1.0) & (z < 1.0)
+        key = _pack_key(z, ix[:, None, None], hit, id_bits)
+        key_img = torch.minimum(key_img, key.amin(dim=0))
+    return key_img
+
+
+def launch_giant_kernel(ids, ok, clip, tris, score, key_img, width: int, height: int,
+                        full_height: int, y_origin: int, id_bits: int):
+    """Launch K9 (``csrc/raster.cu``, ``giant_kernel``: every candidate
+    merged into the key image in one launch, the pixel centres' NDC formed
+    in the kernel) on the current stream; same arguments and result as
+    ``giant_pass_reference``, which it returns as a new tensor. Adds one to
+    ``launch_giant_kernel.launches`` per launch."""
+    from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
+
+    dev = key_img.device
+    if dev.type != "cuda":
+        raise ValueError(f"launch_giant_kernel needs CUDA tensors, got {dev}")
+    g = ids.shape[0] if ids.ndim == 2 else -1
+    if g < 1:
+        raise ValueError("ids: expected a non-empty (G, 32) tensor")
+    _check_tensor("ids", ids, torch.int64, (g, _GIANT_GROUP), dev)
+    _check_tensor("ok", ok, torch.bool, (g, _GIANT_GROUP), dev)
+    _check_tensor("clip", clip, torch.float32, (clip.shape[0], 4), dev)
+    _check_tensor("tris", tris, torch.int64, (tris.shape[0], 3), dev)
+    _check_tensor("score", score, torch.float32, (tris.shape[0],), dev)
+    _check_tensor("key_img", key_img, torch.int64, (height, width), dev)
+    if not 1 <= id_bits <= 32 - _MIN_Z_BITS:
+        raise ValueError(f"id_bits {id_bits} out of range")
+    out = torch.empty_like(key_img)
+    lib = kernels.load("raster")
+    err = lib.giant_pass(ids.data_ptr(), ok.data_ptr(), g * _GIANT_GROUP, score.data_ptr(),
+                         clip.data_ptr(), tris.data_ptr(), width, height, full_height, y_origin,
+                         id_bits, key_img.data_ptr(), out.data_ptr(), _cuda_stream(dev))
+    if err != 0:
+        msg = lib.raster_error_string(err).decode()
+        raise RuntimeError(f"giant-pass kernel (K9) failed to launch: CUDA error {err} ({msg})")
+    launch_giant_kernel.launches += 1
+    return out
+
+
+launch_giant_kernel.launches = 0
+
+
+def giant_stage(ids, ok, clip, tris, score, key_img, width: int, height: int,
+                full_height: int, y_origin: int, id_bits: int):
+    """K9: the kernel for CUDA tensors, the plain version for CPU tensors."""
+    args = (ids, ok, clip, tris, score, key_img, width, height, full_height, y_origin, id_bits)
+    if key_img.is_cuda:
+        return launch_giant_kernel(*args)
+    return giant_pass_reference(*args)
+
+
+# --------------------------------------------------------------------------
+# The frame around K7, K8 and K9.
 # --------------------------------------------------------------------------
 
 def _edge_table(v_clip) -> torch.Tensor:
@@ -802,45 +899,16 @@ def _giant_selection(score: torch.Tensor, giants: int):
 def _giant_pass(clip, tris, score, key_img, width: int, height: int, giants: int,
                 id_bits: int, y_origin: int = 0, full_height: Optional[int] = None):
     """Edge-test the highest-scored triangles against every pixel of the
-    image, one 32-triangle group at a time, merging keys into ``key_img``.
-    Only groups with an active triangle run. Finite-score (pool overflow)
-    triangles keep the tight pixel-center bbox mask of the slot walk;
-    crossing ones (score inf) have no finite bbox and are tested everywhere."""
+    image, merging keys into ``key_img``: the selection, then K9 over the
+    active groups (none run where no group is active)."""
     if min(giants, tris.shape[0]) == 0:
         return key_img
     giant_ix, giant_ok, groups_needed = _giant_selection(score, giants)
     if groups_needed == 0:
         return key_img
-    dev = key_img.device
-    fh = height if full_height is None else full_height
-    pnx, pny = _pixel_ndc(width, height, dev, y_origin, full_height)
-    jx = torch.arange(width, dtype=torch.float32, device=dev)[None, None, :]
-    jy = (torch.arange(height, dtype=torch.int32, device=dev) + y_origin).to(torch.float32)
-    jy = jy[None, :, None]
-    for g in range(groups_needed):
-        ix, ok = giant_ix[g], giant_ok[g]
-        v = clip[tris[ix]]                                  # (G, 3, 4)
-        lam0, lam1, lam2, _ = _lambdas(v, pnx[None], pny[None], 2)
-        denom = lam0 + lam1 + lam2
-        hit = (lam0 >= 0) & (lam1 >= 0) & (lam2 >= 0) & (denom > 0) & ok[:, None, None]
-        wv = v[..., 3]
-        sxg = (v[..., 0] / wv * 0.5 + 0.5) * float(width)
-        syg = (v[..., 1] / wv * 0.5 + 0.5) * float(fh)
-        x0g = torch.ceil(sxg.amin(-1) - 0.5)[:, None, None]
-        x1g = torch.floor(sxg.amax(-1) - 0.5)[:, None, None]
-        y0g = torch.ceil(syg.amin(-1) - 0.5)[:, None, None]
-        y1g = torch.floor(syg.amax(-1) - 0.5)[:, None, None]
-        in_box = (jx >= x0g) & (jx <= x1g) & (jy >= y0g) & (jy <= y1g)
-        hit = hit & (torch.isinf(score[ix])[:, None, None] | in_box)
-        lam_w = (lam0 * v[:, None, None, 0, 3] + lam1 * v[:, None, None, 1, 3]
-                 + lam2 * v[:, None, None, 2, 3])
-        z = (lam0 * v[:, None, None, 0, 2] + lam1 * v[:, None, None, 1, 2]
-             + lam2 * v[:, None, None, 2, 2]) / torch.where(
-                 lam_w == 0, torch.ones_like(lam_w), lam_w)
-        hit = hit & (z > -1.0) & (z < 1.0)
-        key = _pack_key(z, ix[:, None, None], hit, id_bits)
-        key_img = torch.minimum(key_img, key.amin(dim=0))
-    return key_img
+    return giant_stage(giant_ix[:groups_needed], giant_ok[:groups_needed], clip, tris, score,
+                       key_img, width, height, height if full_height is None else full_height,
+                       y_origin, id_bits)
 
 
 def _deferred_shade(displacement, dtab, key_img, camera_pos, width: int, height: int,

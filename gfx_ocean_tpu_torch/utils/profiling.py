@@ -180,7 +180,8 @@ _LAUNCHERS = (
     ("gfx_ocean_tpu_torch.ops.fourstep_step", ("launch_fourstep_row", "launch_fourstep_col")),
     ("gfx_ocean_tpu_torch.ops.unpacked_step",
      ("launch_unpacked_step", "launch_unpacked_rows", "launch_unpacked_cols")),
-    ("gfx_ocean_tpu_torch.render.raster", ("launch_slot_kernel", "launch_segmin_kernel")),
+    ("gfx_ocean_tpu_torch.render.raster",
+     ("launch_slot_kernel", "launch_segmin_kernel", "launch_giant_kernel")),
 )
 _CACHES = (
     ("gfx_ocean_tpu_torch.kernels", ("load",)),

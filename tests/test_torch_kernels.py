@@ -1,6 +1,6 @@
 """Kernels K1 (``gfx_ocean_tpu_torch/csrc/packed_step.cu``), K2 + K3
 (``csrc/fourstep_step.cu``, up to 16384^2 on bands there), K4-K6
-(``csrc/unpacked_step.cu``) and K7 + K8 (``csrc/raster.cu``) against their
+(``csrc/unpacked_step.cu``) and K7 + K8 + K9 (``csrc/raster.cu``) against their
 plain PyTorch versions, and two checks that run anywhere.
 
 The CUDA tests are marked ``cuda`` and skip without a GPU: a CUDA kernel
@@ -653,7 +653,7 @@ NEAR = (np.array([10.0, 4.0, 25.0]), np.array([-0.3, 0.0, 0.0]))     # in view o
 
 
 def _slot_tables(device, width, height, mesh=(128, 4), pose=None, y_origin=0,
-                 full_height=None):
+                 full_height=None, pool=None):
     disp = _render_disp(device)
     cam = Camera()
     if pose is not None:
@@ -664,7 +664,7 @@ def _slot_tables(device, width, height, mesh=(128, 4), pose=None, y_origin=0,
     fh = full_height or height
     bands = fh // height
     tabs = rr._slot_tables(disp, positions, uvs, tris, rr._view_proj(cam, width, fh, device),
-                           width, height, rr._auto_pool(width, height, bands), interp,
+                           width, height, pool or rr._auto_pool(width, height, bands), interp,
                            (patches, res), y_origin=y_origin, full_height=fh)
     return tabs, fh
 
@@ -787,11 +787,11 @@ def test_segmin_kernel_is_one_launch_a_call(cuda):
 
 
 class _PlainRaster:
-    """Routes the rasterizer's K7 / K8 dispatchers to their plain versions
-    (on the card) for the duration of a ``with`` block."""
+    """Routes the rasterizer's K7 / K8 / K9 dispatchers to their plain
+    versions (on the card) for the duration of a ``with`` block."""
 
     def __enter__(self):
-        self.saved = rr.slot_stage, rr.segmin_stage
+        self.saved = rr.slot_stage, rr.segmin_stage, rr.giant_stage
 
         def slot(crow, total_covered, width, full_height, octs_w, spill_oct, bw_bits,
                  id_bits, y_origin=0):
@@ -800,17 +800,20 @@ class _PlainRaster:
                                            bw_bits, id_bits)
 
         rr.slot_stage, rr.segmin_stage = slot, rr.segmin_stage_reference
+        rr.giant_stage = rr.giant_pass_reference
         return self
 
     def __exit__(self, *exc):
-        rr.slot_stage, rr.segmin_stage = self.saved
+        rr.slot_stage, rr.segmin_stage, rr.giant_stage = self.saved
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("pose", [None, SKIMMING], ids=["default", "skimming"])
 def test_frame_through_kernels_equals_plain_and_bands(cuda, pose):
-    """A 96x64 frame through K7 + K8 equals the plain-version frame bit for
-    bit, and 4 bands stack to it; each frame launches K7 and K8 once."""
+    """A 96x64 frame through K7 + K8 + K9 equals the plain-version frame bit
+    for bit, and 4 bands stack to it; each frame launches K7 and K8 once,
+    and K9 once where the giant pass has an active group (the skimming
+    pose)."""
     disp = _render_disp(cuda)
     cam = Camera()
     if pose is not None:
@@ -822,9 +825,11 @@ def test_frame_through_kernels_equals_plain_and_bands(cuda, pose):
     cp = torch.tensor(cam.position.astype(np.float32), device=cuda)
     args = (disp, positions, uvs, tris, vp, cp)
     k7, k8 = rr.launch_slot_kernel.launches, rr.launch_segmin_kernel.launches
+    k9 = rr.launch_giant_kernel.launches
     full, fz = rr._rasterize_pool(*args, w, h, rr._auto_pool(w, h), 512, interp, (patches, res))
     assert rr.launch_slot_kernel.launches == k7 + 1
     assert rr.launch_segmin_kernel.launches == k8 + 1
+    assert rr.launch_giant_kernel.launches == k9 + (pose is not None)
     with _PlainRaster():
         plain, pz = rr._rasterize_pool(*args, w, h, rr._auto_pool(w, h), 512, interp,
                                        (patches, res))
@@ -865,6 +870,118 @@ def test_raster_kernels_reject_bad_inputs(cuda):
         so.cpu(), torch.zeros((5, 16), dtype=torch.int32), 8, 17))
     assert rr.launch_slot_kernel.launches == k7
     assert rr.launch_segmin_kernel.launches == k8
+
+
+# (width, height, mesh, pose, y_origin, full_height, pool, crossing): K9's
+# cases. "starved": a pool below the scene's slot demand, so hundreds of
+# triangles overflow it and several groups are active (all 512 giant slots,
+# 16 groups, but in the band); crossing: an active candidate crosses the eye
+# plane (score inf).
+GIANT_CASES = [
+    (96, 64, (32, 4), SKIMMING, 0, None, None, True),
+    (96, 64, (32, 4), SKIMMING, 0, None, 2_000, True),
+    (480, 280, (128, 4), LOW, 0, None, None, True),
+    (480, 280, (128, 4), LOW, 0, None, 60_000, True),
+    (480, 70, (128, 4), LOW, 140, 280, 20_000, True),
+    (1200, 700, (128, 4), LOW, 0, None, None, True),
+    (1200, 700, (128, 4), None, 0, None, 300_000, False),
+    (1200, 175, (128, 4), None, 175, 700, 80_000, False),
+]
+GIANT_IDS = ["96x64-skim", "96x64-skim-starved", "480x280-low", "480x280-low-starved",
+             "480x70-low-band-140-starved", "1200x700-low", "1200x700-starved",
+             "1200x175-band-175-starved"]
+
+
+def _giant_inputs(tabs, tris, key_img, width, height, fh, y_origin):
+    """The active groups of the frame's giant selection and the other
+    arguments of K9 / its plain version."""
+    ids, ok, groups = rr._giant_selection(tabs.score, 512)
+    return (ids[:groups], ok[:groups], tabs.clip, tris, tabs.score, key_img, width, height, fh,
+            y_origin, tabs.id_bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,height,mesh,pose,y_origin,full_height,pool,crossing",
+                         GIANT_CASES, ids=GIANT_IDS)
+def test_giant_kernel_matches_plain(cuda, width, height, mesh, pose, y_origin, full_height,
+                                    pool, crossing):
+    """K9 on the frame's real key image and giant selection, bands
+    included: bit-equal to the plain version's group loop."""
+    tabs, fh = _slot_tables(cuda, width, height, mesh, pose, y_origin, full_height, pool)
+    tris = rr._mesh_constants(mesh[0], mesh[1], cuda)[2]
+    n_oct = tabs.octs_w * tabs.octs_h
+    keys, octs = rr.slot_stage(tabs.crow, tabs.total_covered, width, fh, tabs.octs_w, n_oct,
+                               32 - tabs.id_bits, tabs.id_bits, y_origin)
+    key_img = rr._resolve(keys, octs, tabs, width, height)
+    args = _giant_inputs(tabs, tris, key_img, width, height, fh, y_origin)
+    ids, ok = args[0], args[1]
+    assert ids.shape[0] > (1 if pool else 0)            # several groups where starved
+    assert bool(torch.isinf(tabs.score[ids[ok]]).any()) == crossing
+    before = key_img.clone()
+    got = rr.launch_giant_kernel(*args)
+    want = rr.giant_pass_reference(*args)
+    assert torch.equal(key_img, before)                 # K9 writes a new image
+    assert got.shape == (height, width) and got.dtype == torch.int64
+    assert torch.equal(got, want)
+    assert bool((want != key_img).any())
+
+
+@pytest.mark.cuda
+def test_giant_kernel_whole_frame_equals_plain(cuda):
+    """Whole 1200x700 frames at giants=512 through K7 + K8 + K9 equal the
+    plain-version frames bit for bit, image and depth: the low pose (a
+    crossing group) and the default pose on a starved pool (16 groups).
+    K9 is launched once a frame with an active group, never on a frame
+    without one (the default pose at the frame's pool)."""
+    disp = _render_disp(cuda)
+    w, h = 1200, 700
+    positions, uvs, tris = rr._mesh_constants(128, 4, cuda)
+    interp = rr._interp_matrices(128, 64, cuda)
+    for pose, pool, active in ((LOW, None, True), (None, 300_000, True), (None, None, False)):
+        cam = Camera()
+        if pose is not None:
+            cam.position, cam.rotation = pose[0].copy(), pose[1].copy()
+        args = (disp, positions, uvs, tris, rr._view_proj(cam, w, h, cuda),
+                torch.tensor(cam.position.astype(np.float32), device=cuda), w, h,
+                pool or rr._auto_pool(w, h), 512, interp, (4, 128))
+        k9 = rr.launch_giant_kernel.launches
+        img, z, dropped = rr._rasterize_pool(*args, with_diag=True)
+        assert rr.launch_giant_kernel.launches == k9 + active
+        with _PlainRaster():
+            plain, pz = rr._rasterize_pool(*args)
+        assert rr.launch_giant_kernel.launches == k9 + active
+        assert torch.equal(img, plain) and torch.equal(z, pz)
+        assert (int(dropped) > 0) == (pool is not None)
+
+
+@pytest.mark.cuda
+def test_giant_kernel_rejects_bad_inputs(cuda):
+    tabs, fh = _slot_tables(cuda, 96, 64, (32, 4), SKIMMING)
+    tris = rr._mesh_constants(32, 4, cuda)[2]
+    key_img = torch.full((64, 96), rr.KEY_MAX, dtype=torch.int64, device=cuda)
+    args = list(_giant_inputs(tabs, tris, key_img, 96, 64, fh, 0))
+    k9 = rr.launch_giant_kernel.launches
+
+    def rejected(match, **swap):
+        names = ("ids", "ok", "clip", "tris", "score", "key_img")
+        bad = [swap.get(n, a) for n, a in zip(names, args)] + args[len(names):]
+        with pytest.raises(ValueError, match=match):
+            rr.launch_giant_kernel(*bad)
+
+    rejected("contiguous", key_img=key_img.to(torch.int32))
+    rejected("contiguous", key_img=key_img.t().contiguous().t())
+    rejected("contiguous", ok=args[1].to(torch.uint8))
+    rejected("contiguous", ids=args[0].to(torch.int32))
+    rejected("contiguous", clip=args[2].to(torch.float64))
+    rejected("expected shape", key_img=key_img[:32].contiguous())
+    rejected("expected shape", ids=torch.cat([args[0], args[0]], 1))
+    rejected("expected shape", score=args[4][:-1].contiguous())
+    rejected("non-empty", ids=args[0][:0], ok=args[1][:0])
+    rejected("needs CUDA tensors", key_img=key_img.cpu())
+    rejected("contiguous", clip=args[2].cpu())
+    with pytest.raises(ValueError, match="out of range"):
+        rr.launch_giant_kernel(*args[:-1], 25)
+    assert rr.launch_giant_kernel.launches == k9
 
 
 def test_import_leaves_out_jax():

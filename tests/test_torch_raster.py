@@ -1,6 +1,6 @@
 """The rasterizer's building blocks and the plain versions of kernels K7
 and K8 (``gfx_ocean_tpu_torch/render/raster.py``) against the JAX
-package's on the CPU, on the same inputs.
+package's on the CPU, on the same inputs; K9's dispatch on the CPU.
 
 The JAX slot and segmented-min stages run their Pallas kernels in
 interpret mode on the CPU (``_slot_stage`` / ``_segmin_stage`` pick it
@@ -244,6 +244,36 @@ def test_giant_selection_breaks_ties_like_top_k():
     want = np.asarray(jax.lax.top_k(jnp.asarray(score), 6)[1])
     assert np.array_equal(ix.reshape(-1)[:6].numpy(), want) and groups == 1
     assert ok.reshape(-1)[:6].all() and not ok.reshape(-1)[6:].any()
+
+
+def test_giant_pass_takes_the_plain_version_on_cpu(monkeypatch):
+    """K9's dispatcher sends CPU tensors to its plain version (no launch), and
+    on a skimming pose the giant pass merges its crossing triangles into the
+    key image as the group loop always did: one group at a time."""
+    pose = (np.array([20.0, 1.5, 45.0]), np.zeros(3))      # crossing at mesh 32 x 4
+    tabs, fh = _tables(_disp64(), pose, width=80, height=48, mesh=(32, 4))
+    tris = tr._mesh_constants(32, 4, CPU)[2]
+    n_oct = tabs.octs_w * tabs.octs_h
+    keys, octs = tr.slot_stage(tabs.crow, tabs.total_covered, 80, fh, tabs.octs_w, n_oct,
+                               32 - tabs.id_bits, tabs.id_bits)
+    key_img = tr._resolve(keys, octs, tabs, 80, 48)
+    calls = []
+    plain = tr.giant_pass_reference
+    monkeypatch.setattr(tr, "giant_pass_reference",
+                        lambda *a: calls.append(a[0].shape[0]) or plain(*a))
+    k9 = tr.launch_giant_kernel.launches
+    got = tr._giant_pass(tabs.clip, tris, tabs.score, key_img, 80, 48, 64, tabs.id_bits)
+    ids, ok, groups = tr._giant_selection(tabs.score, 64)
+    assert calls == [groups] and groups > 0 and tr.launch_giant_kernel.launches == k9
+    assert torch.isinf(tabs.score[ids[ok]]).any()
+    want = key_img
+    for g in range(groups):
+        want = plain(ids[g:g + 1], ok[g:g + 1], tabs.clip, tris, tabs.score, want, 80, 48, 48, 0,
+                     tabs.id_bits)
+    assert torch.equal(got, want) and (got < key_img).sum() > 100 and (got <= key_img).all()
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tr.launch_giant_kernel(ids[:groups], ok[:groups], tabs.clip, tris, tabs.score, key_img,
+                               80, 48, 48, 0, tabs.id_bits)
 
 
 def test_wrappers_take_plain_versions_on_cpu():

@@ -217,6 +217,23 @@ def test_launch_counters_grow_inside_a_unit():
                                  "launches.launch_segmin_kernel": 1}
 
 
+def test_giant_kernel_launches_count_in_a_unit():
+    """K9's wrapper is among those whose launches a unit counts, so a frame
+    whose giant pass runs reads ``launches.launch_giant_kernel`` 1; a CPU
+    frame, whose giant pass takes the plain version, reads none."""
+    assert "launch_giant_kernel" in dict(profiling._LAUNCHERS)["gfx_ocean_tpu_torch.render.raster"]
+    with profiling.recording():
+        with profiling.span("unit") as top:
+            tr.launch_giant_kernel.launches += 1
+    tr.launch_giant_kernel.launches -= 1
+    assert top.unit.counters == {"launches.launch_giant_kernel": 1}
+    draw = _frame(pool=64, giants=32)              # the giant pass runs
+    draw(0.0)
+    _, (unit,) = _recorded(lambda: draw(1.0))
+    assert unit.counters["giant.groups"] > 0
+    assert not [k for k in unit.counters if k.startswith("launches.")], unit.counters
+
+
 def test_windows_split_at_unrecorded_units_and_keep_at_most_the_cap(monkeypatch):
     from torch.profiler import ProfilerActivity, profile
 
