@@ -1052,7 +1052,7 @@ def render_stages(dev, state, cfg, disp, vp, cp, k7_ms: float) -> dict:
                                  32 - tabs.id_bits, tabs.id_bits)
     key_img = rr._resolve(keysp, octid, tabs, R_W, R_H)
     key_img = rr._giant_pass(tabs.clip, tris, tabs.score, key_img, R_W, R_H, R_GIANTS,
-                             tabs.id_bits)
+                             tabs.id_bits)[0]
     wc = rr._tri_corners(tabs.world, tris, grid_shape)
     dtab = torch.cat([tabs.ftab, wc.reshape(wc.shape[0], 9)], dim=1)
     calls = R_TIMING_CALLS
@@ -1066,7 +1066,7 @@ def render_stages(dev, state, cfg, disp, vp, cp, k7_ms: float) -> dict:
                                                    R_H, R_GIANTS, tabs.id_bits), calls),
         deferred_shade=event_ms(lambda: rr._deferred_shade(disp, dtab, key_img, cp, R_W, R_H,
                                                            tabs.id_bits, grid_shape), calls),
-        giant_groups=rr._giant_selection(tabs.score, R_GIANTS)[2])
+        giant_groups=giant_groups(tabs))
 
 
 @contextlib.contextmanager
@@ -1091,6 +1091,14 @@ def plain_raster():
         rr.slot_stage, rr.segmin_stage, rr.giant_stage = saved
 
 
+def giant_groups(tabs) -> int:
+    """The groups of a 1200x700 frame's giant selection that hold an
+    active candidate."""
+    from gfx_ocean_tpu_torch.render import raster as rr
+
+    return -(-int(rr._giant_selection(tabs.score, R_GIANTS)[2]) // 32)
+
+
 def giant_args(tabs, tris, key_img, forced: bool = False) -> tuple:
     """K9's arguments on a 1200x700 frame's key image: its giant
     selection's active groups, or with ``forced`` every one of the
@@ -1100,7 +1108,8 @@ def giant_args(tabs, tris, key_img, forced: bool = False) -> tuple:
 
     from gfx_ocean_tpu_torch.render import raster as rr
 
-    ids, ok, groups = rr._giant_selection(tabs.score, R_GIANTS)
+    ids, ok, _ = rr._giant_selection(tabs.score, R_GIANTS)
+    groups = giant_groups(tabs)
     if forced:
         groups, ok = ids.shape[0], torch.ones_like(ok)
     return (ids[:groups], ok[:groups], tabs.clip, tris, tabs.score, key_img, R_W, R_H, R_H, 0,
@@ -1182,7 +1191,7 @@ def run_render(dev) -> list:
         mins, skey = rr.launch_segmin_kernel(so, sk, n_oct, tabs.id_bits)
         want_mins, want_skey = rr.segmin_stage_reference(so, sk, n_oct, tabs.id_bits)
         torch.cuda.synchronize()
-        groups = rr._giant_selection(tabs.score, R_GIANTS)[2]
+        groups = giant_groups(tabs)
         k7 = key_err(keys, want_keys)
         k8 = key_err(mins, want_mins)
         rec = dict(k7_keys_differ=k7[0], k7_octs_differ=int((octs != want_octs).sum()),
@@ -1251,9 +1260,11 @@ def run_render(dev) -> list:
 
     # --- 15. the fused frame through the kernels and through the plain versions
     fr = rr.make_frame_renderer(cfg, R_W, R_H, R_GIANTS, diag=True)
+    fr(state, R_T, vp, cp)                  # eager; it captures the stages' CUDA graphs
     frame, dropped = fr(state, R_T, vp, cp)
-    with plain_raster():
-        plain_frame, plain_dropped = fr(state, R_T, vp, cp)
+    with plain_raster():                    # a new renderer: its first frame is eager
+        plain_fr = rr.make_frame_renderer(cfg, R_W, R_H, R_GIANTS, diag=True)
+        plain_frame, plain_dropped = plain_fr(state, R_T, vp, cp)
     img, depth = rr._rasterize_pool(disp, positions, uvs, tris, vp, cp, R_W, R_H, pool,
                                     R_GIANTS, interp, grid_shape)
     overflow, demand = rr.pool_overflow(disp, positions, uvs, tris, vp, R_W, R_H,
@@ -1300,8 +1311,8 @@ def run_render(dev) -> list:
 
     # --- 17. time --------------------------------------------------------------
     frame_ms = event_ms(lambda: fr(state, R_T, vp, cp), R_TIMING_CALLS)
-    with plain_raster():
-        plain_frame_ms = event_ms(lambda: fr(state, R_T, vp, cp), R_PLAIN_TIMING_CALLS)
+    with plain_raster():                    # its graphs hold the plain versions
+        plain_frame_ms = event_ms(lambda: plain_fr(state, R_T, vp, cp), R_PLAIN_TIMING_CALLS)
     k7_ms = event_ms(lambda: rr.launch_slot_kernel(*k7_args), R_KERNEL_CALLS)
     k7_plain_ms = event_ms(lambda: rr.slot_stage_reference(*k7_args), R_PLAIN_TIMING_CALLS)
     k8_ms = event_ms(lambda: rr.launch_segmin_kernel(*k8_args), R_KERNEL_CALLS)
@@ -1354,18 +1365,16 @@ def run_render(dev) -> list:
                     k2=fs.launch_fourstep_row.launches, k3=fs.launch_fourstep_col.launches,
                     k7=rr.launch_slot_kernel.launches, k8=rr.launch_segmin_kernel.launches,
                     k9=rr.launch_giant_kernel.launches)
-    # The same frames recorded: K9 once on each frame whose giant pass has an
-    # active group, never on another.
+    # The same frames recorded: K9 once on every frame, inside its stage's
+    # graph, whether a group is active or not.
     with profiling.recording():
         for t in ts:
             fr(state, t, vp, cp)
     units = list(profiling.windows()[-1].units)
     giant_frames = sum(u.counters.get("giant.groups", 0) > 0 for u in units)
     k9_per_frame = [u.counters.get("launches.launch_giant_kernel", 0) for u in units]
-    if len(units) != R_FRAMES or k9_per_frame != [int(u.counters.get("giant.groups", 0) > 0)
-                                                  for u in units]:
-        fail(f"K9 launches a recorded frame {k9_per_frame} against giant groups "
-             f"{[u.counters.get('giant.groups', 0) for u in units]}")
+    if len(units) != R_FRAMES or k9_per_frame != [1] * R_FRAMES:
+        fail(f"K9 launches a recorded frame {k9_per_frame}, one expected on each")
 
     prof = device_profile(lambda: [fr(state, t, vp, cp) for t in ts[:R_PROFILE_FRAMES]],
                           R_PROFILE_FRAMES)
@@ -1383,9 +1392,9 @@ def run_render(dev) -> list:
           frames_per_sec=1e3 / wall_ms, launches=launches,
           device_busy_ms_per_frame=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
           profile=prof)
-    if launches != dict(k1=R_FRAMES, k2=0, k3=0, k7=R_FRAMES, k8=R_FRAMES, k9=giant_frames):
+    if launches != dict(k1=R_FRAMES, k2=0, k3=0, k7=R_FRAMES, k8=R_FRAMES, k9=R_FRAMES):
         fail(f"the {R_FRAMES}-frame run launched {launches}, expected {R_FRAMES} of K1, K7, K8 "
-             f"and {giant_frames} of K9")
+             f"and K9")
 
     return [
         {"name": "K7 slot_kernel (per-slot oct tile tests, packed keys)", "route": "cuda",
@@ -2108,9 +2117,11 @@ def run_cascades(dev) -> dict:
     vp = rr._view_proj(cam, R_W, R_H, dev)
     cp = torch.tensor(cam.position.astype(np.float32), device=dev)
     fr = rr.make_frame_renderer(cfg, R_W, R_H, R_GIANTS, diag=True)
+    fr(state, R_T, vp, cp)                  # eager; it captures the stages' CUDA graphs
     frame, dropped = fr(state, R_T, vp, cp)
-    with plain_raster():
-        plain_frame, plain_dropped = fr(state, R_T, vp, cp)
+    with plain_raster():                    # a new renderer: its first frame is eager
+        plain_frame, plain_dropped = rr.make_frame_renderer(cfg, R_W, R_H, R_GIANTS, diag=True)(
+            state, R_T, vp, cp)
     step_cfg = dataclasses.replace(cfg, compute_normals=False)
     fields = ot.step(state, R_T, step_cfg)
     disp, foam = fields.displacement, fields.foam
@@ -2150,7 +2161,7 @@ def run_cascades(dev) -> dict:
           shape=list(frame.shape), dtype=str(frame.dtype),
           coverage=float(torch.isfinite(depth).float().mean()), pool=pool,
           covered_slots=int(tabs.total_covered), pool_overflow=overflow, slot_demand=demand,
-          giants=R_GIANTS, giant_groups=rr._giant_selection(tabs.score, R_GIANTS)[2],
+          giants=R_GIANTS, giant_groups=giant_groups(tabs),
           dropped=drops, foam_fraction=[float(f.mean()) for f in foam], clock="cuda events",
           frame_ms=frame_ms, device_busy_ms_per_frame=prof["device_busy_ms"] / R_PROFILE_FRAMES,
           profile=prof, **rec)

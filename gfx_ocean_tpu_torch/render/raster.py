@@ -58,10 +58,16 @@ What differs from the JAX package, and why:
 - ``lax.sort`` with payload operands is ``torch.sort`` of the key and an
   index gather of the payload; the area sort is stable, as JAX's is;
 - ``lax.top_k`` is a stable descending sort, so ties keep the lower index;
-- the giant pass's ``lax.while_loop`` reads its trip count to the host
-  (one device sync a frame) and runs only the active 32-triangle groups,
-  in one launch of K9 on the card;
+- the giant pass's ``lax.while_loop`` over the active 32-triangle groups
+  is one launch of K9 over every group of the selection, which skips the
+  inactive candidates: nothing is read to the host;
 - ``make_batch_renderer`` and ``render_frames`` are Python loops over frames.
+
+CUDA graphs. No stage after the step reads a device value to the host, so
+on the card the frame renderers (``_frame_fn``) replay those stages as
+CUDA graphs (``_StageGraphs``), one a stage span, in place of ~300 eager
+launches a frame: each (device, band, input shapes) is rendered eagerly on
+its first call, which then captures the graphs.
 
 Cascade stacks (beyond the reference, as in the JAX package): a (C, N, N, 3)
 displacement is composited as the sum of its cascades, cascade c sampled at
@@ -245,8 +251,10 @@ def _edge_coeffs(v_clip):
     (cr (..., 3, 3), det). lam_i(p) = cr_i . (pnx, pny, 1) over clip
     (x, y, w); det = (v1 x v2) . v0. With the fold, the hit test is
     ``all lam_i >= 0 and sum lam_i > 0`` in every pass."""
-    v3 = v_clip[..., (0, 1, 3)]
-    cr = sh._cross(v3[..., (1, 2, 0), :], v3[..., (2, 0, 1), :])
+    # Slices and rolls, not tuple indices: a tuple index is uploaded to the
+    # card as an index tensor at every call, which no CUDA graph can hold.
+    v3 = torch.cat([v_clip[..., 0:2], v_clip[..., 3:4]], dim=-1)     # (x, y, w)
+    cr = sh._cross(torch.roll(v3, -1, dims=-2), torch.roll(v3, 1, dims=-2))  # corners i+1, i+2
     det = (cr[..., 0, 0] * v3[..., 0, 0] + cr[..., 0, 1] * v3[..., 0, 1]
            + cr[..., 0, 2] * v3[..., 0, 2])
     return cr * torch.sign(det)[..., None, None], det
@@ -539,7 +547,8 @@ def launch_segmin_kernel(so: torch.Tensor, sk: torch.Tensor, n_oct: int, id_bits
     single-pass segmented min-scan over tiles of ``SEGMIN_TILE`` entries
     with decoupled look-back) on the current stream; same arguments and
     results as ``segmin_stage_reference``. The look-back state is kept per
-    stream and device and reused by later calls. Adds one to
+    stream and device and reused by later calls; a launch captured into a
+    CUDA graph has its own, zeroed at each replay. Adds one to
     ``launch_segmin_kernel.launches`` per launch."""
     from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
 
@@ -555,7 +564,13 @@ def launch_segmin_kernel(so: torch.Tensor, sk: torch.Tensor, n_oct: int, id_bits
     _check_tensor("sk", sk, torch.int32, (_zq_key_rows(id_bits), n), dev)
     mins = torch.empty((8, n), dtype=torch.int32, device=dev)
     skey = torch.empty((n,), dtype=torch.int32, device=dev)
-    scratch = _segmin_scratch(-(-n // SEGMIN_TILE), dev)
+    if torch.cuda.is_current_stream_capturing():
+        # A graph replays the epoch it was captured with, so a captured launch
+        # takes look-back state of its own, made and zeroed inside the graph:
+        # every replay starts from zero flags and a zero ticket.
+        scratch = _SegminScratch(-(-n // SEGMIN_TILE), dev)
+    else:
+        scratch = _segmin_scratch(-(-n // SEGMIN_TILE), dev)
     lib = kernels.load("raster")
     err = lib.segmin_stage(so.data_ptr(), sk.data_ptr(), n, id_bits, n_oct, mins.data_ptr(),
                            skey.data_ptr(), scratch.ticket.data_ptr(), scratch.flags.data_ptr(),
@@ -588,10 +603,11 @@ def giant_pass_reference(ids, ok, clip, tris, score, key_img, width: int, height
     of the (H, W) int64 key image (rows from ``y_origin`` of a
     ``full_height``-row viewport), one 32-candidate group at a time,
     merging their keys into it. ``ids`` / ``ok`` (G, 32): the candidates'
-    triangle ids and whether each is active (``_giant_selection``'s active
-    groups). Finite-score (pool overflow) candidates keep the tight
-    pixel-center bbox mask of the slot walk; crossing ones (score inf) have
-    no finite bbox and are tested everywhere."""
+    triangle ids and whether each is active (``_giant_selection``'s
+    groups); an inactive candidate hits no pixel. Finite-score (pool
+    overflow) candidates keep the tight pixel-center bbox mask of the slot
+    walk; crossing ones (score inf) have no finite bbox and are tested
+    everywhere."""
     dev = key_img.device
     pnx, pny = _pixel_ndc(width, height, dev, y_origin, full_height)
     jx = torch.arange(width, dtype=torch.float32, device=dev)[None, None, :]
@@ -625,11 +641,12 @@ def giant_pass_reference(ids, ok, clip, tris, score, key_img, width: int, height
 
 def launch_giant_kernel(ids, ok, clip, tris, score, key_img, width: int, height: int,
                         full_height: int, y_origin: int, id_bits: int):
-    """Launch K9 (``csrc/raster.cu``, ``giant_kernel``: every candidate
-    merged into the key image in one launch, the pixel centres' NDC formed
-    in the kernel) on the current stream; same arguments and result as
-    ``giant_pass_reference``, which it returns as a new tensor. Adds one to
-    ``launch_giant_kernel.launches`` per launch."""
+    """Launch K9 (``csrc/raster.cu``, ``giant_kernel``: every active
+    candidate merged into the key image in one launch, inactive ones
+    skipped, the pixel centres' NDC formed in the kernel) on the current
+    stream; same arguments and result as ``giant_pass_reference``, which
+    it returns as a new tensor. Adds one to ``launch_giant_kernel.launches``
+    per launch."""
     from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
 
     dev = key_img.device
@@ -663,11 +680,15 @@ launch_giant_kernel.launches = 0
 
 def giant_stage(ids, ok, clip, tris, score, key_img, width: int, height: int,
                 full_height: int, y_origin: int, id_bits: int):
-    """K9: the kernel for CUDA tensors, the plain version for CPU tensors."""
-    args = (ids, ok, clip, tris, score, key_img, width, height, full_height, y_origin, id_bits)
+    """K9: the kernel for CUDA tensors, the plain version for CPU tensors.
+    On the CPU the groups after the last active one, which change nothing,
+    are left out: the active count is read on the host, which waits for
+    nothing there."""
+    args = (clip, tris, score, key_img, width, height, full_height, y_origin, id_bits)
     if key_img.is_cuda:
-        return launch_giant_kernel(*args)
-    return giant_pass_reference(*args)
+        return launch_giant_kernel(ids, ok, *args)
+    needed = -(-int(ok.sum()) // _GIANT_GROUP)
+    return giant_pass_reference(ids[:needed], ok[:needed], *args)
 
 
 # --------------------------------------------------------------------------
@@ -877,9 +898,9 @@ def _resolve(keysp, octid, tabs: SlotTables, width: int, height: int) -> torch.T
 def _giant_selection(score: torch.Tensor, giants: int):
     """The ``giants`` highest-scored triangles (ties to the lower index, as
     ``lax.top_k``), in 32-triangle groups: (ids (G, 32), ok (G, 32), the
-    number of groups holding a positive score). The count is read to the
-    host: one device sync a frame (the span ``frame.giant_sync``; counters
-    ``host_syncs``, ``giant.candidates`` and ``giant.groups``)."""
+    number of active candidates, a 0-dim int64 tensor on the device). The
+    active candidates (positive score) come first, so the groups that hold
+    one are the first ceil(active / 32). Nothing is read to the host."""
     k = min(giants, score.shape[0])
     ix = torch.sort(score, descending=True, stable=True).indices[:k]
     ok = score[ix] > 0
@@ -887,28 +908,32 @@ def _giant_selection(score: torch.Tensor, giants: int):
     pad = groups * _GIANT_GROUP - k
     ix = torch.cat([ix, torch.zeros(pad, dtype=ix.dtype, device=ix.device)])
     ok = torch.cat([ok, torch.zeros(pad, dtype=torch.bool, device=ok.device)])
-    with profiling.span("frame.giant_sync"):
-        n_active = int(ok.sum())
-    needed = -(-n_active // _GIANT_GROUP)
-    profiling.count("host_syncs")
-    profiling.count("giant.candidates", n_active)
-    profiling.count("giant.groups", needed)
-    return ix.reshape(groups, _GIANT_GROUP), ok.reshape(groups, _GIANT_GROUP), needed
+    return ix.reshape(groups, _GIANT_GROUP), ok.reshape(groups, _GIANT_GROUP), ok.sum()
 
 
 def _giant_pass(clip, tris, score, key_img, width: int, height: int, giants: int,
                 id_bits: int, y_origin: int = 0, full_height: Optional[int] = None):
     """Edge-test the highest-scored triangles against every pixel of the
-    image, merging keys into ``key_img``: the selection, then K9 over the
-    active groups (none run where no group is active)."""
+    image, merging keys into ``key_img``: the selection, then K9 over all
+    of its groups (one launch, whatever the number of active candidates).
+    Returns (key image, (2,) int64 on the device: the active candidates
+    and the groups that hold one, for ``_count_giants``)."""
+    dev = key_img.device
     if min(giants, tris.shape[0]) == 0:
-        return key_img
-    giant_ix, giant_ok, groups_needed = _giant_selection(score, giants)
-    if groups_needed == 0:
-        return key_img
-    return giant_stage(giant_ix[:groups_needed], giant_ok[:groups_needed], clip, tris, score,
-                       key_img, width, height, height if full_height is None else full_height,
-                       y_origin, id_bits)
+        return key_img, torch.zeros(2, dtype=torch.int64, device=dev)
+    giant_ix, giant_ok, active = _giant_selection(score, giants)
+    counts = torch.stack([active, (active + _GIANT_GROUP - 1) // _GIANT_GROUP])
+    return giant_stage(giant_ix, giant_ok, clip, tris, score, key_img, width, height,
+                       height if full_height is None else full_height, y_origin,
+                       id_bits), counts
+
+
+def _count_giants(counts: torch.Tensor) -> None:
+    """Add ``_giant_pass``'s counts to the recorded unit's counters
+    ``giant.candidates`` and ``giant.groups``. They stay on the device until
+    the unit closes, so no frame waits for them."""
+    profiling.count("giant.candidates", counts[0])
+    profiling.count("giant.groups", counts[1])
 
 
 def _deferred_shade(displacement, dtab, key_img, camera_pos, width: int, height: int,
@@ -954,17 +979,73 @@ def _deferred_shade(displacement, dtab, key_img, camera_pos, width: int, height:
     return torch.where(covered[..., None], color, sh._const(sh.CLEAR_COLOR, color)), z_img
 
 
+def _pool_stages(positions, uvs, tris, width: int, height: int, pool: int, giants: int,
+                 interp, grid_shape, frag_channel: int, scales, tiles, y_origin: int,
+                 full_height: int, with_diag: bool):
+    """The pool rasterizer as (span name, stage) pairs, in order. A stage
+    takes the frame's dict of values, reads what the stages before it
+    added and adds its own. Inputs: "displacement", "view_proj",
+    "camera_pos" and "foam" (None without foam); then "tabs"
+    (``frame.slot_tables``), "keys" and "octs" (``frame.slots``, K7),
+    "resolved" (``frame.resolve``, K8), "key_img", "giant_counts" and with
+    ``with_diag`` "dropped" (``frame.giant_pass``, K9), "image" and "depth"
+    (``frame.shade``). No stage reads a device value to the host, so each
+    can be captured as a CUDA graph (``_StageGraphs``)."""
+
+    def slot_tables(v):
+        v["tabs"] = _slot_tables(v["displacement"], positions, uvs, tris, v["view_proj"], width,
+                                 height, pool, interp, grid_shape, scales, y_origin,
+                                 full_height, tiles)
+
+    def slots(v):
+        tabs = v["tabs"]
+        v["keys"], v["octs"] = slot_stage(tabs.crow, tabs.total_covered, width, full_height,
+                                          tabs.octs_w, tabs.octs_w * tabs.octs_h,
+                                          32 - tabs.id_bits, tabs.id_bits, y_origin)
+
+    def resolve(v):
+        v["resolved"] = _resolve(v["keys"], v["octs"], v["tabs"], width, height)
+
+    def giant_pass(v):
+        tabs = v["tabs"]
+        v["key_img"], v["giant_counts"] = _giant_pass(tabs.clip, tris, tabs.score, v["resolved"],
+                                                      width, height, giants, tabs.id_bits,
+                                                      y_origin, full_height)
+        if with_diag:
+            v["dropped"] = ((tabs.score > 0).sum() - min(giants, tris.shape[0])).clamp_min(0)
+
+    def shade(v):
+        tabs = v["tabs"]
+        dtab = _deferred_table(tabs.ftab, tabs.world, tris, uvs, grid_shape)
+        v["image"], v["depth"] = _deferred_shade(
+            v["displacement"], dtab, v["key_img"], v["camera_pos"], width, height, tabs.id_bits,
+            grid_shape, v["foam"], frag_channel, scales[2], scales[3] if len(scales) > 3 else 0.0,
+            y_origin, full_height, tiles)
+
+    return [("frame.slot_tables", slot_tables), ("frame.slots", slots),
+            ("frame.resolve", resolve), ("frame.giant_pass", giant_pass), ("frame.shade", shade)]
+
+
+def _run_stages(stages, values: dict, dev) -> dict:
+    """Run ``stages`` eagerly on ``values``, each inside its span."""
+    for name, stage in stages:
+        with profiling.span(name, device=dev):
+            stage(values)
+    return values
+
+
 def _rasterize_pool(displacement, positions, uvs, tris, view_proj, camera_pos,
                     width: int, height: int, pool: int = 1 << 20, giants: int = 512,
                     interp=None, grid_shape=None, foam=None, frag_channel: int = 1,
                     scales=(3.0, 3.5, 180.0, 0.0), tiles=None, y_origin: int = 0,
                     full_height: Optional[int] = None, with_diag: bool = False):
     """Exact-area pool rasterizer: slot tables, K7, the resolve with K8,
-    the giant pass and deferred shading. A (C, N, N, 3) cascade stack takes
-    its per-cascade ``interp`` pairs and ``tiles`` (``_cascade_setup``) and
-    (C, N, N) ``foam``. ``y_origin`` / ``full_height``
-    render the (height, width) band of a ``full_height``-row frame from
-    global row ``y_origin``; stacked bands equal the full frame bit for bit.
+    the giant pass and deferred shading, run eagerly (``_pool_stages``). A
+    (C, N, N, 3) cascade stack takes its per-cascade ``interp`` pairs and
+    ``tiles`` (``_cascade_setup``) and (C, N, N) ``foam``. ``y_origin`` /
+    ``full_height`` render the (height, width) band of a ``full_height``-row
+    frame from global row ``y_origin``; stacked bands equal the full frame
+    bit for bit.
     Returns (image (H, W, 3), depth (H, W)) and, with ``with_diag``, the
     number of giant-pass candidates past capacity (a 0-dim tensor; must be
     0 for exact coverage). ``grid_shape`` None takes ``tris`` as any
@@ -972,29 +1053,15 @@ def _rasterize_pool(displacement, positions, uvs, tris, view_proj, camera_pos,
     ``frame.slots``, ``frame.resolve``, ``frame.giant_pass``,
     ``frame.shade``; ``utils/profiling.py``)."""
     full_height = height if full_height is None else full_height
-    dev = displacement.device
-    with profiling.span("frame.slot_tables", device=dev):
-        tabs = _slot_tables(displacement, positions, uvs, tris, view_proj, width, height, pool,
-                            interp, grid_shape, scales, y_origin, full_height, tiles)
-    n_oct = tabs.octs_w * tabs.octs_h
-    with profiling.span("frame.slots", device=dev):
-        keysp, octid = slot_stage(tabs.crow, tabs.total_covered, width, full_height,
-                                  tabs.octs_w, n_oct, 32 - tabs.id_bits, tabs.id_bits, y_origin)
-    with profiling.span("frame.resolve", device=dev):
-        key_img = _resolve(keysp, octid, tabs, width, height)
-    with profiling.span("frame.giant_pass", device=dev):
-        key_img = _giant_pass(tabs.clip, tris, tabs.score, key_img, width, height, giants,
-                              tabs.id_bits, y_origin, full_height)
-    with profiling.span("frame.shade", device=dev):
-        dtab = _deferred_table(tabs.ftab, tabs.world, tris, uvs, grid_shape)
-        img, z_img = _deferred_shade(displacement, dtab, key_img, camera_pos, width, height,
-                                     tabs.id_bits, grid_shape, foam, frag_channel, scales[2],
-                                     scales[3] if len(scales) > 3 else 0.0, y_origin,
-                                     full_height, tiles)
+    stages = _pool_stages(positions, uvs, tris, width, height, pool, giants, interp,
+                          grid_shape, frag_channel, scales, tiles, y_origin, full_height,
+                          with_diag)
+    v = _run_stages(stages, {"displacement": displacement, "view_proj": view_proj,
+                             "camera_pos": camera_pos, "foam": foam}, displacement.device)
+    _count_giants(v["giant_counts"])
     if with_diag:
-        dropped = ((tabs.score > 0).sum() - min(giants, tris.shape[0])).clamp_min(0)
-        return img, z_img, dropped
-    return img, z_img
+        return v["image"], v["depth"], v["dropped"]
+    return v["image"], v["depth"]
 
 
 def _window_score(all_clip, width: int, height: int, budget: int) -> torch.Tensor:
@@ -1082,7 +1149,8 @@ def _rasterize(displacement, positions, uvs, tris, view_proj, camera_pos, width:
                       width, height, id_bits)
     key_img = keybuf[:-1].reshape(height, width)
     score = _window_score(all_clip, width, height, budget)
-    key_img = _giant_pass(clip, tris, score, key_img, width, height, giants, id_bits)
+    key_img, counts = _giant_pass(clip, tris, score, key_img, width, height, giants, id_bits)
+    _count_giants(counts)
     dtab = _deferred_table(_edge_table(all_clip), world, tris, uvs, grid_shape)
     img, z_img = _deferred_shade(displacement, dtab, key_img, camera_pos, width, height,
                                  id_bits, grid_shape, foam, frag_channel, scales[2],
@@ -1198,8 +1266,80 @@ def make_frame_renderer(config, width: int = 480, height: int = 280, giants: int
     ``diag=True`` it returns ``(frame, dropped)``, ``dropped`` the count of
     giant-pass candidates past capacity (0 for exact coverage). With
     ``config.num_cascades > 1`` the state is a cascade stack and the frame
-    composites its cascades at ``config.domains``."""
+    composites its cascades at ``config.domains``. On the card the stages
+    after the step replay as CUDA graphs from the second call on; a
+    renderer serves one call at a time (``_frame_fn``)."""
     return _frame_fn(config, width, height, giants, pool, diag=diag)
+
+
+def _srgb_stage(values: dict) -> None:
+    values["srgb"] = srgb8(values["image"])
+
+
+# The kernel wrappers a stage graph may hold: a replay adds the launches its
+# capture made to their ``launches`` counters.
+_KERNEL_WRAPPERS = (launch_slot_kernel, launch_segmin_kernel, launch_giant_kernel)
+
+
+class _StageGraphs:
+    """A frame's stages after the step on one device, captured once as CUDA
+    graphs, one a stage, in one memory pool, and replayed in order, each
+    inside its stage's span (whose CUDA events lie outside the graphs).
+
+    ``replay(inputs)`` copies the inputs (the step's displacement and
+    foam, ``view_proj``, ``camera_pos``) into the graphs' static inputs and
+    returns the dict of the stages' values: the tensors the captures made,
+    which every replay overwrites. Not reentrant: one frame at a time on an
+    instance. A capture that fails raises; there is no eager fallback.
+
+    Counters of the recorded unit: ``graph.captures`` (a capture's graphs)
+    and ``graph.replays`` (the graphs a replay ran). The kernel wrappers'
+    ``launches`` grow by the launches a replay runs; the set-up (a warm-up
+    pass and the captures) leaves them as it found them."""
+
+    def __init__(self, stages, inputs: dict, dev: torch.device):
+        self.device = dev
+        self.stages = stages            # holds the constants the graphs read
+        self.values = {k: None if x is None else x.clone() for k, x in inputs.items()}
+        stream = torch.cuda.Stream(dev)     # captures need a side stream
+        before = [f.launches for f in _KERNEL_WRAPPERS]
+        # One eager pass on the capture stream first, so that no lazy set-up
+        # of that stream (cuBLAS's workspace) falls inside a capture.
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            warm = dict(self.values)
+            for _, stage in stages:
+                stage(warm)
+            del warm
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        pool = torch.cuda.graph_pool_handle()
+        self.graphs = []
+        for name, stage in stages:
+            graph = torch.cuda.CUDAGraph()
+            held = [f.launches for f in _KERNEL_WRAPPERS]
+            # "thread_local": a server's other threads may copy a finished
+            # frame to the host while this one captures.
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                stage(self.values)
+            self.graphs.append((name, graph, [f.launches - h for f, h in
+                                              zip(_KERNEL_WRAPPERS, held)]))
+        # Set-up launches nothing a frame counts: each replay counts its own.
+        for f, b in zip(_KERNEL_WRAPPERS, before):
+            f.launches = b
+        profiling.count("graph.captures", len(self.graphs))
+
+    def replay(self, inputs: dict) -> dict:
+        for name, x in inputs.items():
+            if x is not None:
+                self.values[name].copy_(x)
+        for name, graph, launched in self.graphs:
+            with profiling.span(name, device=self.device):
+                graph.replay()
+            for f, n in zip(_KERNEL_WRAPPERS, launched):
+                f.launches += n
+        profiling.count("graph.replays", len(self.graphs))
+        return self.values
 
 
 def _frame_fn(config, width: int, height: int, giants: int, pool: Optional[int],
@@ -1210,7 +1350,14 @@ def _frame_fn(config, width: int, height: int, giants: int, pool: Optional[int],
     ``i * height // n_bands``), bit-equal to those rows of the full frame
     (the JAX package's ``_fused_frame_fn``). A frame is the span ``frame``
     (attributes ``t`` and ``band``), with ``frame.step``, the stages of
-    ``_rasterize_pool`` and ``frame.srgb`` inside it."""
+    ``_pool_stages`` and ``frame.srgb`` inside it.
+
+    The step runs eagerly. On a CUDA device the stages after it are CUDA
+    graphs (``_StageGraphs``), captured by the first call for a (device,
+    band, input shapes), which renders eagerly; later calls replay them.
+    The frame returned is a copy, which later calls leave alone. A renderer
+    is not reentrant: one call at a time (``serve.py`` holds one dispatch
+    lock over every launch). CPU frames run eagerly."""
     from gfx_ocean_tpu_torch.models.ocean import step as _ocean_step  # noqa: PLC0415
 
     if band_axis is not None and height % n_bands:
@@ -1224,30 +1371,41 @@ def _frame_fn(config, width: int, height: int, giants: int, pool: Optional[int],
     scales = (float(config.height_div), float(config.horiz_div),
               float(config.normal_height_scale), float(config.pbr_roughness))
     grid_shape = (config.num_patches, config.mesh_resolution)
+    chan = 0 if config.compat.frag_normal_x else 1
     pool = pool or _auto_pool(width, band_h, n_bands if band_axis is not None else 1)
+    outputs = ("srgb", "dropped") if diag else ("srgb",)
+    captured = {}       # (device, band, the inputs' shapes) -> _StageGraphs
+
+    def stages(dev, band, displacement):
+        positions, uvs, tris = _mesh_constants(config.mesh_resolution, config.num_patches, dev)
+        tiles, interp = _cascade_setup(displacement, config.domains, config.mesh_resolution, dev)
+        return _pool_stages(positions, uvs, tris, width, band_h, pool, giants, interp,
+                            grid_shape, chan, scales, tiles, band * band_h, height,
+                            diag) + [("frame.srgb", _srgb_stage)]
 
     def fn(state, t, view_proj, camera_pos, band: int = 0):
         with profiling.span("frame", t=t, band=band):
             dev = _device(state.h0.device)
-            positions, uvs, tris = _mesh_constants(config.mesh_resolution, config.num_patches,
-                                                   dev)
             with profiling.span("frame.step", device=dev):
                 fields = _ocean_step(state, t, config)
-            tiles, interp = _cascade_setup(fields.displacement, config.domains,
-                                           config.mesh_resolution, dev)
-            out = _rasterize_pool(
-                fields.displacement, positions, uvs, tris,
-                torch.as_tensor(view_proj, dtype=torch.float32, device=dev),
-                torch.as_tensor(camera_pos, dtype=torch.float32, device=dev),
-                width, band_h, pool, giants, interp, grid_shape,
-                fields.foam if config.compute_foam else None,
-                0 if config.compat.frag_normal_x else 1, scales, tiles, y_origin=band * band_h,
-                full_height=height, with_diag=diag)
-            with profiling.span("frame.srgb", device=dev):
-                srgb = srgb8(out[0])
-            if diag:
-                return srgb, out[2]          # (frame, dropped-giants tripwire)
-            return srgb
+            inputs = {"displacement": fields.displacement,
+                      "view_proj": torch.as_tensor(view_proj, dtype=torch.float32, device=dev),
+                      "camera_pos": torch.as_tensor(camera_pos, dtype=torch.float32, device=dev),
+                      "foam": fields.foam if config.compute_foam else None}
+            key = (dev, band) + tuple(None if x is None else tuple(x.shape)
+                                      for x in inputs.values())
+            graphs = captured.get(key)
+            if graphs is not None:
+                values = graphs.replay(inputs)
+                out = tuple(values[k].clone() for k in outputs)
+            else:
+                body = stages(dev, band, fields.displacement)
+                values = _run_stages(body, dict(inputs), dev)
+                out = tuple(values[k] for k in outputs)
+                if dev.type == "cuda":
+                    captured[key] = _StageGraphs(body, inputs, dev)
+            _count_giants(values["giant_counts"])
+            return out if diag else out[0]         # diag: (frame, dropped-giants tripwire)
 
     return fn
 

@@ -42,8 +42,10 @@ CLEAR_COLOR = np.array([0.6, 0.6, 0.6], dtype=np.float32)
 FOAM_COLOR = np.array([0.92, 0.96, 0.98], dtype=np.float32)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _device_const(values: tuple, device: torch.device) -> torch.Tensor:
+    """Kept for the process: a frame captured as a CUDA graph
+    (``render/raster._StageGraphs``) reads these tensors by address."""
     return torch.tensor(values, dtype=torch.float32, device=device)
 
 

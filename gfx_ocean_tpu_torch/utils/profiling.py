@@ -18,7 +18,9 @@ unit: the outermost span open on the thread (one frame, one rollout call),
 whose id every span inside it shares. A span given a CUDA ``device`` also
 records a pair of ``torch.cuda.Event(enable_timing=True)`` on that device's
 current stream, resolved into its device time only when read. ``count``
-adds to a counter of the current unit; each unit also counts the growth of
+adds to a counter of the current unit (a count held in a device tensor is
+read when the unit closes, so nothing waits for the device before then);
+each unit also counts the growth of
 the kernel wrappers' ``launches`` / ``tiered_launches`` (``launches.<fn>``,
 ``tiered_launches.<fn>``) and of the misses of the port's ``lru_cache``
 tables (``misses.<module>.<fn>``) between its start and its end.
@@ -225,7 +227,7 @@ class Unit:
     """One recorded frame or call: its spans in the order they opened (its
     own first), its counters."""
 
-    __slots__ = ("id", "name", "attrs", "spans", "counters", "traced", "_marks")
+    __slots__ = ("id", "name", "attrs", "spans", "counters", "traced", "_marks", "_pending")
 
     def __init__(self, name: str, attrs: dict, traced: bool):
         self.id = next(_ids)
@@ -233,13 +235,20 @@ class Unit:
         self.spans: List[Span] = []
         self.counters: Dict[str, int] = {}
         self._marks = _marks()
+        self._pending: List[Tuple[str, torch.Tensor]] = []   # device counts, read at the close
+
+    def _add(self, name: str, n: int) -> None:
+        self.counters[name] = self.counters.get(name, 0) + n
 
     def _close(self) -> None:
+        for name, value in self._pending:
+            self._add(name, int(value))
+        self._pending = []
         before = self._marks
         for name, value in _marks().items():
             grew = value - before.get(name, 0)
             if grew:
-                self.counters[name] = self.counters.get(name, 0) + grew
+                self._add(name, grew)
 
     def named(self, name: str) -> list:
         return [s for s in self.spans if s.name == name]
@@ -373,14 +382,17 @@ def span(name: str, device=None, **attrs):
     return _OFF
 
 
-def count(name: str, n: int = 1) -> None:
+def count(name: str, n=1) -> None:
     """Add ``n`` to the counter ``name`` of the recorded unit open on this
-    thread, if there is one."""
+    thread, if there is one. ``n`` may be a 0-dim tensor: a copy of it is
+    read when the unit closes."""
     if _live:
         top = getattr(_tls, "top", None)
         if top is not None:
-            counters = top.unit.counters
-            counters[name] = counters.get(name, 0) + n
+            if isinstance(n, torch.Tensor):
+                top.unit._pending.append((name, n.detach().clone()))
+            else:
+                top.unit._add(name, n)
 
 
 def annotate(**attrs) -> None:

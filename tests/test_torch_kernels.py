@@ -811,9 +811,9 @@ class _PlainRaster:
 @pytest.mark.parametrize("pose", [None, SKIMMING], ids=["default", "skimming"])
 def test_frame_through_kernels_equals_plain_and_bands(cuda, pose):
     """A 96x64 frame through K7 + K8 + K9 equals the plain-version frame bit
-    for bit, and 4 bands stack to it; each frame launches K7 and K8 once,
-    and K9 once where the giant pass has an active group (the skimming
-    pose)."""
+    for bit, and 4 bands stack to it; each frame launches K7, K8 and K9
+    once, K9 over the whole giant selection whether a group is active (the
+    skimming pose) or not."""
     disp = _render_disp(cuda)
     cam = Camera()
     if pose is not None:
@@ -829,7 +829,7 @@ def test_frame_through_kernels_equals_plain_and_bands(cuda, pose):
     full, fz = rr._rasterize_pool(*args, w, h, rr._auto_pool(w, h), 512, interp, (patches, res))
     assert rr.launch_slot_kernel.launches == k7 + 1
     assert rr.launch_segmin_kernel.launches == k8 + 1
-    assert rr.launch_giant_kernel.launches == k9 + (pose is not None)
+    assert rr.launch_giant_kernel.launches == k9 + 1
     with _PlainRaster():
         plain, pz = rr._rasterize_pool(*args, w, h, rr._auto_pool(w, h), 512, interp,
                                        (patches, res))
@@ -893,11 +893,11 @@ GIANT_IDS = ["96x64-skim", "96x64-skim-starved", "480x280-low", "480x280-low-sta
 
 
 def _giant_inputs(tabs, tris, key_img, width, height, fh, y_origin):
-    """The active groups of the frame's giant selection and the other
-    arguments of K9 / its plain version."""
-    ids, ok, groups = rr._giant_selection(tabs.score, 512)
-    return (ids[:groups], ok[:groups], tabs.clip, tris, tabs.score, key_img, width, height, fh,
-            y_origin, tabs.id_bits)
+    """The frame's whole giant selection (16 groups, the active ones
+    first) and the other arguments of K9 / its plain version."""
+    ids, ok, _ = rr._giant_selection(tabs.score, 512)
+    return (ids, ok, tabs.clip, tris, tabs.score, key_img, width, height, fh, y_origin,
+            tabs.id_bits)
 
 
 @pytest.mark.cuda
@@ -905,7 +905,7 @@ def _giant_inputs(tabs, tris, key_img, width, height, fh, y_origin):
                          GIANT_CASES, ids=GIANT_IDS)
 def test_giant_kernel_matches_plain(cuda, width, height, mesh, pose, y_origin, full_height,
                                     pool, crossing):
-    """K9 on the frame's real key image and giant selection, bands
+    """K9 on the frame's real key image and whole giant selection, bands
     included: bit-equal to the plain version's group loop."""
     tabs, fh = _slot_tables(cuda, width, height, mesh, pose, y_origin, full_height, pool)
     tris = rr._mesh_constants(mesh[0], mesh[1], cuda)[2]
@@ -915,7 +915,8 @@ def test_giant_kernel_matches_plain(cuda, width, height, mesh, pose, y_origin, f
     key_img = rr._resolve(keys, octs, tabs, width, height)
     args = _giant_inputs(tabs, tris, key_img, width, height, fh, y_origin)
     ids, ok = args[0], args[1]
-    assert ids.shape[0] > (1 if pool else 0)            # several groups where starved
+    active_groups = int(ok.any(dim=1).sum())
+    assert ids.shape[0] == 16 and active_groups > (1 if pool else 0)  # several where starved
     assert bool(torch.isinf(tabs.score[ids[ok]]).any()) == crossing
     before = key_img.clone()
     got = rr.launch_giant_kernel(*args)
@@ -930,14 +931,14 @@ def test_giant_kernel_matches_plain(cuda, width, height, mesh, pose, y_origin, f
 def test_giant_kernel_whole_frame_equals_plain(cuda):
     """Whole 1200x700 frames at giants=512 through K7 + K8 + K9 equal the
     plain-version frames bit for bit, image and depth: the low pose (a
-    crossing group) and the default pose on a starved pool (16 groups).
-    K9 is launched once a frame with an active group, never on a frame
-    without one (the default pose at the frame's pool)."""
+    crossing group), the default pose on a starved pool (16 groups) and at
+    the frame's pool (no active group). K9 is launched once on every frame,
+    over the whole selection."""
     disp = _render_disp(cuda)
     w, h = 1200, 700
     positions, uvs, tris = rr._mesh_constants(128, 4, cuda)
     interp = rr._interp_matrices(128, 64, cuda)
-    for pose, pool, active in ((LOW, None, True), (None, 300_000, True), (None, None, False)):
+    for pose, pool in ((LOW, None), (None, 300_000), (None, None)):
         cam = Camera()
         if pose is not None:
             cam.position, cam.rotation = pose[0].copy(), pose[1].copy()
@@ -946,10 +947,10 @@ def test_giant_kernel_whole_frame_equals_plain(cuda):
                 pool or rr._auto_pool(w, h), 512, interp, (4, 128))
         k9 = rr.launch_giant_kernel.launches
         img, z, dropped = rr._rasterize_pool(*args, with_diag=True)
-        assert rr.launch_giant_kernel.launches == k9 + active
+        assert rr.launch_giant_kernel.launches == k9 + 1
         with _PlainRaster():
             plain, pz = rr._rasterize_pool(*args)
-        assert rr.launch_giant_kernel.launches == k9 + active
+        assert rr.launch_giant_kernel.launches == k9 + 1
         assert torch.equal(img, plain) and torch.equal(z, pz)
         assert (int(dropped) > 0) == (pool is not None)
 
@@ -982,6 +983,259 @@ def test_giant_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="out of range"):
         rr.launch_giant_kernel(*args[:-1], 25)
     assert rr.launch_giant_kernel.launches == k9
+
+
+# --- the frame's stages as CUDA graphs (render/raster._StageGraphs) ---------
+
+CELL = OceanConfig(resolution=512, fft_impl="pallas")    # the benchmark's frame: K1t at bf16x3
+CELL_W, CELL_H = 1200, 700
+SMALL = OceanConfig(resolution=64, fft_impl="matmul", mesh_resolution=32, num_patches=4)
+
+
+def _card_state(cfg, device, seed: int = 0):
+    from gfx_ocean_tpu_torch.models.ocean import ocean_state_from_phillips  # noqa: PLC0415
+
+    return ocean_state_from_phillips(cfg, generator=torch.Generator().manual_seed(seed),
+                                     device=device)
+
+
+def _view(pose, width, height, device):
+    cam = Camera()
+    if pose is not None:
+        cam.position, cam.rotation = pose[0].copy(), pose[1].copy()
+    return (rr._view_proj(cam, width, height, device),
+            torch.tensor(cam.position.astype(np.float32), device=device))
+
+
+def _scales(cfg):
+    return (float(cfg.height_div), float(cfg.horiz_div), float(cfg.normal_height_scale),
+            float(cfg.pbr_roughness))
+
+
+def _eager_frame(cfg, state, t, vp, cp, width, height, giants=512, band=0, n_bands=1):
+    """The frame renderer's body run eagerly, one launch at a time: the
+    step, ``_rasterize_pool`` and sRGB. Returns (frame, depth, the count
+    of giant-pass candidates past capacity)."""
+    from gfx_ocean_tpu_torch.models.ocean import step  # noqa: PLC0415
+
+    cfg = dataclasses.replace(cfg, compute_normals=False)
+    fields = step(state, t, cfg)
+    dev = vp.device
+    positions, uvs, tris = rr._mesh_constants(cfg.mesh_resolution, cfg.num_patches, dev)
+    tiles, interp = rr._cascade_setup(fields.displacement, cfg.domains, cfg.mesh_resolution,
+                                      dev)
+    bh = height // n_bands
+    img, depth, dropped = rr._rasterize_pool(
+        fields.displacement, positions, uvs, tris, vp, cp, width, bh,
+        rr._auto_pool(width, bh, n_bands), giants, interp, (cfg.num_patches, cfg.mesh_resolution),
+        fields.foam if cfg.compute_foam else None, 0 if cfg.compat.frag_normal_x else 1,
+        _scales(cfg), tiles, y_origin=band * bh, full_height=height, with_diag=True)
+    return rr.srgb8(img), depth, dropped
+
+
+@pytest.mark.cuda
+def test_graph_frames_equal_the_eager_body(cuda):
+    """The benchmark's 1200x700 frame at 48 poses over its 8-s cycle (every
+    10th frame at 60 Hz), the camera switching between the default and the
+    low pose: the stages replayed as CUDA graphs equal the eager body bit
+    for bit, image and depth, on giant and other frames (45 and 3 on an
+    H100); the renderer's frames equal the eager frames."""
+    from gfx_ocean_tpu_torch.models.ocean import step  # noqa: PLC0415
+
+    state = _card_state(CELL, cuda)
+    cfg = dataclasses.replace(CELL, compute_normals=False)
+    positions, uvs, tris = rr._mesh_constants(128, 4, cuda)
+    interp = rr._interp_matrices(128, 512, cuda)
+    stages = rr._pool_stages(positions, uvs, tris, CELL_W, CELL_H,
+                             rr._auto_pool(CELL_W, CELL_H), 512, interp, (4, 128), 1,
+                             _scales(cfg), None, 0, CELL_H, False)
+    views = [_view(None, CELL_W, CELL_H, cuda), _view(LOW, CELL_W, CELL_H, cuda)]
+
+    def inputs(t, k):
+        vp, cp = views[k % 2]
+        return {"displacement": step(state, t, cfg).displacement, "view_proj": vp,
+                "camera_pos": cp, "foam": None}
+
+    graphs = rr._StageGraphs(stages, inputs(0.0, 0), cuda)
+    fn = rr.make_frame_renderer(CELL, CELL_W, CELL_H)
+    kinds = {True: 0, False: 0}
+    for k in range(48):
+        t = 10 * k / 60.0
+        values = graphs.replay(inputs(t, k))
+        eager, eager_depth, _ = _eager_frame(CELL, state, t, *views[k % 2], CELL_W, CELL_H)
+        assert torch.equal(rr.srgb8(values["image"]), eager), k
+        assert torch.equal(values["depth"], eager_depth), k
+        assert torch.equal(fn(state, t, *views[k % 2]), eager), k
+        kinds[int(values["giant_counts"][1]) > 0] += 1
+    assert kinds[True] and kinds[False], kinds
+
+
+@pytest.mark.cuda
+def test_graph_frames_follow_the_camera(cuda):
+    """The camera moves between calls, as the served and CLI renderers move
+    it: each replayed frame equals the eager frame at its own camera, and
+    a returned frame is not overwritten by later calls."""
+    state = _card_state(SMALL, cuda)
+    fn = rr.make_frame_renderer(SMALL, 96, 64)
+    poses = [None, SKIMMING, LOW, None, SKIMMING]
+    got, want = [], []
+    for k, pose in enumerate(poses):
+        vp, cp = _view(pose, 96, 64, cuda)
+        got.append(fn(state, 0.5 * k, vp, cp))
+        want.append(_eager_frame(SMALL, state, 0.5 * k, vp, cp, 96, 64)[0])
+        assert torch.equal(got[-1], want[-1]), k
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert not torch.equal(got[0], got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bands", [2, 4])
+def test_graph_band_frames_stack_to_the_full_frame(cuda, n_bands):
+    """2- and 4-band renderers, each band replayed from its own graphs,
+    stack to the full renderer's 1200x700 frame bit for bit."""
+    state = _card_state(CELL, cuda)
+    full = rr.make_frame_renderer(CELL, CELL_W, CELL_H)
+    bands = rr._frame_fn(CELL, CELL_W, CELL_H, 512, None, band_axis="row", n_bands=n_bands)
+    for t, pose in ((1.0, None), (2.0, LOW), (3.0, None)):   # the first call captures
+        vp, cp = _view(pose, CELL_W, CELL_H, cuda)
+        want = full(state, t, vp, cp)
+        got = torch.cat([bands(state, t, vp, cp, band=b) for b in range(n_bands)])
+        assert torch.equal(got, want), t
+    assert torch.equal(want, _eager_frame(CELL, state, 3.0, vp, cp, CELL_W, CELL_H)[0])
+
+
+@pytest.mark.cuda
+def test_graph_cascade_frame_matches(cuda):
+    """Config 4's composited frame (three 512^2 cascades with foam) replayed
+    as graphs equals its eager frame, with the tripwire's count."""
+    cfg = OceanConfig(resolution=512, num_cascades=3, compute_foam=True, fft_impl="pallas")
+    state = _card_state(cfg, cuda)
+    fn = rr.make_frame_renderer(cfg, CELL_W, CELL_H, diag=True)
+    for t, pose in ((0.0, None), (1.5, LOW), (4.0, None)):   # the first call captures
+        vp, cp = _view(pose, CELL_W, CELL_H, cuda)
+        frame, dropped = fn(state, t, vp, cp)
+        want, _, want_dropped = _eager_frame(cfg, state, t, vp, cp, CELL_W, CELL_H)
+        assert torch.equal(frame, want) and int(dropped) == int(want_dropped), t
+
+
+@pytest.mark.cuda
+def test_graph_batch_frames_are_distinct_and_equal_single_frames(cuda):
+    """make_batch_renderer stacks copies: its frames differ from one another
+    and each equals the eager frame of its time and camera."""
+    state = _card_state(SMALL, cuda)
+    strip = rr.make_batch_renderer(SMALL, 96, 64)
+    poses = [None, SKIMMING, LOW, None]
+    views = [_view(p, 96, 64, cuda) for p in poses]
+    ts = [0.0, 1.0, 2.0, 3.0]
+    for _ in range(2):                                       # the first call captures
+        frames = strip(state, ts, torch.stack([v[0] for v in views]),
+                       torch.stack([v[1] for v in views]))
+    for i in range(len(ts)):
+        assert torch.equal(frames[i], _eager_frame(SMALL, state, ts[i], *views[i], 96, 64)[0])
+        assert not any(torch.equal(frames[i], frames[j]) for j in range(i))
+
+
+@pytest.mark.cuda
+def test_segmin_kernel_replayed_from_a_graph(cuda):
+    """K8 captured once in a CUDA graph and replayed 200 times over four
+    input sets at the frame's resolve size: every replay bit-equal to the
+    plain version (a replay repeats its captured epoch, so its look-back
+    state is zeroed inside the graph)."""
+    n, n_oct = 735_784, 105_000
+    rng = np.random.default_rng(5)
+    cases = []
+    for kind in ("short_runs", "spanning_runs", "one_run", "tile_inside_run"):
+        so, k_oct = _segmin_case(kind, n, rng)
+        so = torch.from_numpy(np.minimum(so, n_oct - 1).astype(np.int32)).to(cuda)
+        sk = torch.from_numpy(rng.integers(-2**31, 2**31, (5, n), dtype=np.int64)
+                              .astype(np.int32)).to(cuda)
+        cases.append((so, sk, rr.segmin_stage_reference(so, sk, n_oct, 17)))
+    so_in, sk_in = cases[0][0].clone(), cases[0][1].clone()
+    rr.launch_segmin_kernel(so_in, sk_in, n_oct, 17)
+    stream = torch.cuda.Stream(cuda)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        mins, skey = rr.launch_segmin_kernel(so_in, sk_in, n_oct, 17)
+    for k in range(200):
+        so, sk, (want_mins, want_skey) = cases[k % 4]
+        so_in.copy_(so)
+        sk_in.copy_(sk)
+        graph.replay()
+        assert torch.equal(mins, want_mins) and torch.equal(skey, want_skey), k
+
+
+@pytest.mark.cuda
+def test_graph_counters_after_the_warm_up(cuda):
+    """The first call captures six graphs (``graph.captures`` 6); every
+    later frame replays them (``graph.replays`` 6, no capture), launches
+    K1t by its wrapper and K7, K8 and K9 once each inside the graphs, and
+    counts the giant selection as the eager frame does."""
+    from gfx_ocean_tpu_torch.utils import profiling  # noqa: PLC0415
+
+    state = _card_state(SMALL, cuda)
+    fn = rr.make_frame_renderer(SMALL, 96, 64)
+    vp, cp = _view(SKIMMING, 96, 64, cuda)
+    with profiling.recording():
+        fn(state, 0.0, vp, cp)
+    (first,) = list(profiling.windows()[-1].units)
+    assert first.counters["graph.captures"] == 6 and "graph.replays" not in first.counters
+    with profiling.recording():
+        for t in (1.0, 2.0, 3.0):
+            fn(state, t, vp, cp)
+    units = list(profiling.windows()[-1].units)
+    assert len(units) == 3
+    for unit in units:
+        assert unit.counters["graph.replays"] == 6 and "graph.captures" not in unit.counters
+        for name in ("launch_slot_kernel", "launch_segmin_kernel", "launch_giant_kernel"):
+            assert unit.counters["launches." + name] == 1, unit.counters
+        assert unit.counters["giant.groups"] > 0 and "host_syncs" not in unit.counters
+        assert all(unit.device_ms(s) > 0 for s in ("frame.slot_tables", "frame.slots",
+                                                  "frame.resolve", "frame.giant_pass",
+                                                  "frame.shade", "frame.srgb"))
+    eager = rr.make_frame_renderer(SMALL, 96, 64)            # its first call: eager
+    with profiling.recording():
+        eager(state, 3.0, vp, cp)
+    (unit,) = list(profiling.windows()[-1].units)
+    assert (units[-1].counters["giant.candidates"], units[-1].counters["giant.groups"]) == (
+        unit.counters["giant.candidates"], unit.counters["giant.groups"])
+
+
+@pytest.mark.cuda
+def test_raster_stages_make_no_host_sync(cuda, monkeypatch):
+    """With CUDA's sync check set to raise, the rasterizer's stages run
+    eagerly (``_rasterize_pool``) and replayed as graphs (an unrecorded
+    frame of the renderer, its step outside the check) without waiting for
+    the device."""
+    from gfx_ocean_tpu_torch.models import ocean  # noqa: PLC0415
+
+    state = _card_state(SMALL, cuda)
+    vp, cp = _view(SKIMMING, 96, 64, cuda)
+    real_step = ocean.step
+
+    def step_unchecked(*a, **k):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return real_step(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    monkeypatch.setattr(ocean, "step", step_unchecked)
+    fn = rr.make_frame_renderer(SMALL, 96, 64)
+    fn(state, 0.0, vp, cp)                                   # eager, then the captures
+    disp = real_step(state, 1.0, dataclasses.replace(SMALL, compute_normals=False)).displacement
+    positions, uvs, tris = rr._mesh_constants(32, 4, cuda)
+    interp = rr._interp_matrices(32, 64, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rr._rasterize_pool(disp, positions, uvs, tris, vp, cp, 96, 64, rr._auto_pool(96, 64),
+                           512, interp, (4, 32))
+        frame = fn(state, 1.0, vp, cp)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert frame.shape == (64, 96, 3)
 
 
 def test_import_leaves_out_jax():

@@ -45,7 +45,8 @@ def _u32(x: torch.Tensor) -> np.ndarray:
         else x.numpy().view(np.uint32)
 
 
-def _tables(disp, pose=None, width=96, height=64, mesh=(64, 4), y_origin=0, full_height=None):
+def _tables(disp, pose=None, width=96, height=64, mesh=(64, 4), y_origin=0, full_height=None,
+            pool=POOL):
     cam = Camera()
     if pose is not None:
         cam.position, cam.rotation = pose[0].copy(), pose[1].copy()
@@ -53,7 +54,7 @@ def _tables(disp, pose=None, width=96, height=64, mesh=(64, 4), y_origin=0, full
     fh = full_height or height
     positions, uvs, tris = tr._mesh_constants(res, patches, CPU)
     tabs = tr._slot_tables(torch.from_numpy(disp), positions, uvs, tris,
-                           tr._view_proj(cam, width, fh, CPU), width, height, POOL,
+                           tr._view_proj(cam, width, fh, CPU), width, height, pool,
                            tr._interp_matrices(res, disp.shape[0], CPU), (patches, res),
                            y_origin=y_origin, full_height=fh)
     return tabs, fh
@@ -240,16 +241,19 @@ def test_giant_selection_breaks_ties_like_top_k():
     score = np.full(200, -1.0, np.float32)
     score[[5, 17, 40, 41, 90, 150, 151, 199]] = np.inf
     score[[3, 60]] = 7.0
-    ix, ok, groups = tr._giant_selection(torch.from_numpy(score), 6)
+    ix, ok, active = tr._giant_selection(torch.from_numpy(score), 6)
     want = np.asarray(jax.lax.top_k(jnp.asarray(score), 6)[1])
-    assert np.array_equal(ix.reshape(-1)[:6].numpy(), want) and groups == 1
+    assert np.array_equal(ix.reshape(-1)[:6].numpy(), want) and ix.shape == (1, 32)
+    assert active.ndim == 0 and int(active) == 6
     assert ok.reshape(-1)[:6].all() and not ok.reshape(-1)[6:].any()
 
 
 def test_giant_pass_takes_the_plain_version_on_cpu(monkeypatch):
-    """K9's dispatcher sends CPU tensors to its plain version (no launch), and
-    on a skimming pose the giant pass merges its crossing triangles into the
-    key image as the group loop always did: one group at a time."""
+    """K9's dispatcher sends CPU tensors to its plain version (no launch),
+    leaving out the groups after the last active one, and on a skimming pose
+    the giant pass merges its crossing triangles into the key image as the
+    group loop always did: one group at a time. Its counts are the
+    selection's active candidates and groups."""
     pose = (np.array([20.0, 1.5, 45.0]), np.zeros(3))      # crossing at mesh 32 x 4
     tabs, fh = _tables(_disp64(), pose, width=80, height=48, mesh=(32, 4))
     tris = tr._mesh_constants(32, 4, CPU)[2]
@@ -262,8 +266,10 @@ def test_giant_pass_takes_the_plain_version_on_cpu(monkeypatch):
     monkeypatch.setattr(tr, "giant_pass_reference",
                         lambda *a: calls.append(a[0].shape[0]) or plain(*a))
     k9 = tr.launch_giant_kernel.launches
-    got = tr._giant_pass(tabs.clip, tris, tabs.score, key_img, 80, 48, 64, tabs.id_bits)
-    ids, ok, groups = tr._giant_selection(tabs.score, 64)
+    got, counts = tr._giant_pass(tabs.clip, tris, tabs.score, key_img, 80, 48, 64, tabs.id_bits)
+    ids, ok, active = tr._giant_selection(tabs.score, 64)
+    groups = -(-int(active) // 32)
+    assert counts.tolist() == [int(active), groups] and ids.shape == (2, 32)
     assert calls == [groups] and groups > 0 and tr.launch_giant_kernel.launches == k9
     assert torch.isinf(tabs.score[ids[ok]]).any()
     want = key_img
@@ -272,8 +278,35 @@ def test_giant_pass_takes_the_plain_version_on_cpu(monkeypatch):
                      tabs.id_bits)
     assert torch.equal(got, want) and (got < key_img).sum() > 100 and (got <= key_img).all()
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        tr.launch_giant_kernel(ids[:groups], ok[:groups], tabs.clip, tris, tabs.score, key_img,
+        tr.launch_giant_kernel(ids, ok, tabs.clip, tris, tabs.score, key_img,
                                80, 48, 48, 0, tabs.id_bits)
+
+
+# (pose, pool, giants): a natural pose whose crossing triangles fill part of
+# the first group, and a pool starved below the slot demand (1,232 slots at
+# the default camera), whose 229 overflowing triangles fill 8 of 10 groups.
+WHOLE_CASES = [((np.array([20.0, 1.5, 45.0]), np.zeros(3)), POOL, 128),
+               (None, 800, 320)]
+
+
+@pytest.mark.parametrize("pose, pool, giants", WHOLE_CASES, ids=["natural", "starved"])
+def test_giant_pass_reference_whole_selection_equals_the_active_groups(pose, pool, giants):
+    """K9's plain version over the whole selection, inactive groups and
+    all, is bit-equal to the call over its active groups alone: an inactive
+    candidate leaves every key as it was."""
+    tabs, fh = _tables(_disp64(), pose, width=80, height=48, mesh=(32, 4), pool=pool)
+    tris = tr._mesh_constants(32, 4, CPU)[2]
+    n_oct = tabs.octs_w * tabs.octs_h
+    keys, octs = tr.slot_stage(tabs.crow, tabs.total_covered, 80, fh, tabs.octs_w, n_oct,
+                               32 - tabs.id_bits, tabs.id_bits)
+    key_img = tr._resolve(keys, octs, tabs, 80, 48)
+    ids, ok, active = tr._giant_selection(tabs.score, giants)
+    groups = -(-int(active) // 32)
+    assert 0 < groups < ids.shape[0] and not ok[groups:].any()
+    args = (tabs.clip, tris, tabs.score, key_img, 80, 48, 48, 0, tabs.id_bits)
+    whole = tr.giant_pass_reference(ids, ok, *args)
+    sliced = tr.giant_pass_reference(ids[:groups], ok[:groups], *args)
+    assert torch.equal(whole, sliced) and (whole < key_img).any()
 
 
 def test_wrappers_take_plain_versions_on_cpu():

@@ -9,8 +9,9 @@ for bit, and every stage span appears once under its frame; under a
 ``torch.profiler`` session the warm-up step records nothing and each span's
 ``record_function`` range lands in the session's trace.
 
-The ``cuda`` test checks on the card that K7 and K8 are launched inside
-the spans of their stages, and that the stage spans carry device times:
+The ``cuda`` test checks on the card that K7, K8 and K9, replayed from the
+stages' CUDA graphs, are launched inside the spans of their stages, and
+that the stage spans carry device times:
 
     python -m pytest --noconftest -m cuda tests/test_torch_tracing.py -q
 """
@@ -115,9 +116,8 @@ def test_every_stage_span_once_under_its_frame(pool, giants):
             (stage,) = unit.named(name)
             assert stage.parent is top and stage.unit is unit
             assert top.start_ns <= stage.start_ns <= stage.end_ns <= top.end_ns
-        (sync,) = unit.named("frame.giant_sync")
-        assert sync.parent is unit.named("frame.giant_pass")[0] and sync.unit.id == unit.id
-        assert len(unit.spans) == 1 + len(STAGES) + 1
+        assert not unit.named("frame.giant_sync")             # the giant count stays on the device
+        assert len(unit.spans) == 1 + len(STAGES)
         assert all(s.device_ms is None for s in unit.spans)     # no device clock on the CPU
     assert units[0].id != units[1].id
 
@@ -127,10 +127,11 @@ def test_giant_counters_equal_the_selection(monkeypatch, pool, giants, grouped):
     seen = []
     select = tr._giant_selection
 
-    def spy(score, k):
+    def spy(score, k):                             # what the host read of the count gave
         out = select(score, k)
-        seen.append((int((score[torch.sort(score, descending=True, stable=True).indices[:k]]
-                              > 0).sum()), out[2]))
+        candidates = int((score[torch.sort(score, descending=True, stable=True).indices[:k]]
+                          > 0).sum())
+        seen.append((candidates, -(-candidates // 32)))
         return out
 
     monkeypatch.setattr(tr, "_giant_selection", spy)
@@ -142,8 +143,42 @@ def test_giant_counters_equal_the_selection(monkeypatch, pool, giants, grouped):
     for unit, (candidates, groups) in zip(units, seen):
         assert unit.counters["giant.candidates"] == candidates
         assert unit.counters["giant.groups"] == groups
-        assert unit.counters["host_syncs"] == 1
+        assert "host_syncs" not in unit.counters and not unit.named("frame.giant_sync")
         assert (groups > 0) == grouped
+
+
+def test_cpu_frames_run_eagerly(monkeypatch):
+    """On the CPU the renderer dispatches every stage, on every frame: no
+    graph is captured or replayed, and no frame counts one."""
+    def no_graphs(*a, **k):
+        raise AssertionError("a CUDA graph on the CPU")
+
+    monkeypatch.setattr(tr, "_StageGraphs", no_graphs)
+    draw = _frame(pool=64, giants=32)
+    off = draw(0.5)
+    on, units = _recorded(lambda: [draw(0.5), draw(1.5)])
+    assert torch.equal(on[0], off) and len(units) == 2
+    for unit in units:
+        assert not {"graph.replays", "graph.captures"} & set(unit.counters), unit.counters
+
+
+def test_device_counts_are_read_when_the_unit_closes():
+    """A count held in a tensor is copied when counted and read when its
+    unit closes; off, it is neither copied nor read."""
+    n = torch.tensor(3)
+    with profiling.recording():
+        with profiling.span("unit") as top:
+            profiling.count("c", n)
+            profiling.count("c", 2)
+            n += 4                                 # after the count: not counted
+            assert top.unit.counters == {"c": 2}
+    assert top.unit.counters == {"c": 5}
+
+    class Unreadable(torch.Tensor):
+        def clone(self, *a, **k):
+            raise AssertionError("copied while recording is off")
+
+    profiling.count("c", torch.tensor(1).as_subclass(Unreadable))
 
 
 def test_rollout_spans_and_chunks():
@@ -318,9 +353,11 @@ def cuda():
 
 @pytest.mark.cuda
 def test_kernels_launch_inside_their_stage_spans_on_the_card(cuda, tmp_path):
-    """One traced 1200 x 700 frame: K7 (``slot_kernel``) is launched inside
-    ``frame.slots`` and K8 (``segmin_lookback``) inside ``frame.resolve``,
-    on the profiler's clock; every stage span has a device time."""
+    """One traced 1200 x 700 frame, its stages replayed from the graphs the
+    first call captured: K7 (``slot_kernel``) is launched inside
+    ``frame.slots``, K8 (``segmin_lookback``) inside ``frame.resolve`` and
+    K9 (``giant_kernel``) inside ``frame.giant_pass``, on the profiler's
+    clock; every stage span has a device time."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn = tr.make_frame_renderer(T.OceanConfig(resolution=512, fft_impl="pallas"), 1200, 700)
@@ -343,7 +380,9 @@ def test_kernels_launch_inside_their_stage_spans_on_the_card(cuda, tmp_path):
     events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
     launch_at = {e["args"]["correlation"]: e["ts"] for e in events
                  if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
-    for kernel, stage in (("slot_kernel", "frame.slots"), ("segmin_lookback", "frame.resolve")):
+    assert unit.counters["graph.replays"] == 6
+    for kernel, stage in (("slot_kernel", "frame.slots"), ("segmin_lookback", "frame.resolve"),
+                          ("giant_kernel", "frame.giant_pass")):
         (rng,) = [e for e in events if e.get("cat") == "user_annotation" and e["name"] == stage]
         (k,) = [e for e in events if e.get("cat") == "kernel" and kernel in e["name"]]
         assert rng["ts"] <= launch_at[k["args"]["correlation"]] <= rng["ts"] + rng["dur"]
