@@ -778,9 +778,9 @@ def run(dev, n: int) -> dict:
     # --- 7. rollout ---------------------------------------------------------
     rollout = ot.make_rollout(cfg, keep_fields=False, time_batch=TIME_BATCH)
     ts = torch.arange(STEPS, dtype=torch.float32, device=dev) / 60.0
-    fused_step.launch_packed_step.launches = 0
+    reset_launches()
     rec = time_rollout(rollout, state, ts, repeats=REPEATS)
-    launches = fused_step.launch_packed_step.launches
+    launches = launch_count("k1")
     expected = (REPEATS + 1) * STEPS // TIME_BATCH
 
     def plain_rollout(st, tt):
@@ -964,13 +964,9 @@ def run_fourstep(dev) -> list:
     main_launches = None
     for tb in FS_TIME_BATCHES:
         rollout = ot.make_rollout(cfg, keep_fields=False, time_batch=tb)
-        fused_step.launch_packed_step.launches = 0
-        fs.launch_fourstep_row.launches = 0
-        fs.launch_fourstep_col.launches = 0
+        reset_launches()
         rec = time_rollout(rollout, state, ts, repeats=FS_REPEATS)
-        launches = dict(k1=fused_step.launch_packed_step.launches,
-                        k2=fs.launch_fourstep_row.launches,
-                        k3=fs.launch_fourstep_col.launches)
+        launches = {k: launch_count(k) for k in ("k1", "k2", "k3")}
         expected = (FS_REPEATS + 1) * FS_STEPS // tb
         DIRECT_ROLLOUTS[(FS_N, tb)] = rec
 
@@ -1152,8 +1148,6 @@ def run_render(dev) -> list:
     import torch
 
     import gfx_ocean_tpu_torch as ot
-    from gfx_ocean_tpu_torch.ops import fourstep_step as fs
-    from gfx_ocean_tpu_torch.ops import fused_step
     from gfx_ocean_tpu_torch.render import raster as rr
     from gfx_ocean_tpu_torch.render.camera import Camera
     from gfx_ocean_tpu_torch.spectra.phillips import synthesize
@@ -1350,21 +1344,13 @@ def run_render(dev) -> list:
     stage_ms = render_stages(dev, state, cfg, disp, vp, cp, k7_ms)
 
     ts = [R_T + i / 60.0 for i in range(R_FRAMES)]
-    fused_step.launch_packed_step.launches = 0
-    fs.launch_fourstep_row.launches = 0
-    fs.launch_fourstep_col.launches = 0
-    rr.launch_slot_kernel.launches = 0
-    rr.launch_segmin_kernel.launches = 0
-    rr.launch_giant_kernel.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     for t in ts:
         fr(state, t, vp, cp)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / R_FRAMES
-    launches = dict(k1=fused_step.launch_packed_step.launches,
-                    k2=fs.launch_fourstep_row.launches, k3=fs.launch_fourstep_col.launches,
-                    k7=rr.launch_slot_kernel.launches, k8=rr.launch_segmin_kernel.launches,
-                    k9=rr.launch_giant_kernel.launches)
+    launches = {k: launch_count(k) for k in ("k1", "k2", "k3", "k7", "k8", "k9")}
     # The same frames recorded: K9 once on every frame, inside its stage's
     # graph, whether a group is active or not.
     with profiling.recording():
@@ -1448,11 +1434,9 @@ def run_unpacked(dev) -> list:
     from gfx_ocean_tpu_torch import kernels
     from gfx_ocean_tpu_torch.golden.reference import golden_fields, golden_normals
     from gfx_ocean_tpu_torch.models.ocean import downsample_state
-    from gfx_ocean_tpu_torch.ops import fourstep_step as fs
     from gfx_ocean_tpu_torch.ops import fused_step
     from gfx_ocean_tpu_torch.ops import unpacked_step as us
     from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, finite_difference_normals_planes
-    from gfx_ocean_tpu_torch.render import raster as rr
     from gfx_ocean_tpu_torch.utils.complexpair import from_pair_np
     from gfx_ocean_tpu_torch.utils.profiling import time_rollout
 
@@ -1599,9 +1583,6 @@ def run_unpacked(dev) -> list:
     # --- 21. the 600-frame checksum rollouts --------------------------------
     # "single" at "bf16x3" runs K4's tiered body K4t (phase 52 holds it);
     # "single_fft" is the route of K4's FFT body: "highest" at N <= 256.
-    counters = (fused_step.launch_packed_step, fs.launch_fourstep_row, fs.launch_fourstep_col,
-                us.launch_unpacked_step, us.launch_unpacked_rows, us.launch_unpacked_cols,
-                rr.launch_slot_kernel, rr.launch_segmin_kernel)
     names = ("k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8")
     ts = torch.arange(STEPS, dtype=torch.float32, device=dev) / 60.0
     calls_per_rollout = STEPS // TIME_BATCH
@@ -1614,13 +1595,11 @@ def run_unpacked(dev) -> list:
                                 ("single_fft", single_fft, ("k4",))):
         rstate = state if cfg.resolution == N else downsample_state(state, cfg.resolution)
         rollout = ot.make_rollout(cfg, keep_fields=False, time_batch=TIME_BATCH)
-        for c in counters:
-            c.launches = 0
-        us.launch_unpacked_step.tiered_launches = 0
+        reset_launches()
         rec = time_rollout(rollout, rstate, ts, repeats=REPEATS)
-        launches = {k: c.launches for k, c in zip(names, counters)}
+        launches = {k: launch_count(k) for k in names}
         expected = {k: (REPEATS + 1) * calls_per_rollout if k in kernels else 0 for k in names}
-        tiered = us.launch_unpacked_step.tiered_launches
+        tiered = launch_count("k4", "tiered_launches")
         want_tiered = launches["k4"] if route == "single" else 0
 
         def plain_rollout(st, tt, cfg=cfg):
@@ -1702,10 +1681,8 @@ def run_big(dev) -> list:
     # "highest": the FFT bodies (phase 51 holds K2's tiered body here)
     cfg = ot.OceanConfig(resolution=BIG_N, fft_impl="pallas", matmul_precision="highest")
     tier = fused_step.check_supported(cfg, BIG_N)
-    counters = (fused_step.launch_packed_step, fs.launch_fourstep_row, fs.launch_fourstep_col)
-
     def launches() -> dict:
-        return {k: c.launches for k, c in zip(("k1", "k2", "k3"), counters)}
+        return {k: launch_count(k) for k in ("k1", "k2", "k3")}
 
     # --- 22. state ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -1759,8 +1736,7 @@ def run_big(dev) -> list:
     torch.cuda.empty_cache()
 
     # --- 24. the step against the golden model on row bands -----------------
-    for c in counters:
-        c.launches = 0
+    reset_launches()
     fields = ot.make_step(cfg)(state, T_CHECK)
     step_launches = launches()
     disp = fields.displacement
@@ -1828,8 +1804,7 @@ def run_big(dev) -> list:
     rollout = ot.make_rollout(cfg, keep_fields=False, time_batch=1)
     ts_roll = torch.arange(BIG_STEPS, dtype=torch.float32, device=dev) / 60.0
     torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
+    reset_launches()
     roll = time_rollout(rollout, state, ts_roll, repeats=BIG_REPEATS)
     roll_launches = launches()
     expected = (BIG_REPEATS + 1) * BIG_STEPS
@@ -1906,17 +1881,8 @@ def run_cascades(dev) -> dict:
     torch.cuda.empty_cache()
     cc = C_CASCADES
     cfg = ot.OceanConfig(resolution=N, num_cascades=cc, compute_foam=True, fft_impl="pallas")
-    counters = dict(k1=fused_step.launch_packed_step, k2=fs.launch_fourstep_row,
-                    k3=fs.launch_fourstep_col, k4=us.launch_unpacked_step,
-                    k5=us.launch_unpacked_rows, k6=us.launch_unpacked_cols,
-                    k7=rr.launch_slot_kernel, k8=rr.launch_segmin_kernel)
-
-    def reset() -> None:
-        for c in counters.values():
-            c.launches = 0
-
-    def launches() -> dict:
-        return {k: c.launches for k, c in counters.items()}
+    counters = ("k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8")
+    reset, launches = reset_launches, launch_counts
 
     def state_at(n: int, cascades: int = cc):
         return ot.ocean_state_from_phillips(
@@ -2184,7 +2150,7 @@ def run_cascades(dev) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / C_FRAMES
     main_launches = launches()
-    k1t_launches = fused_step.launch_packed_step.tiered_launches
+    k1t_launches = launch_count("k1", "tiered_launches")
     expected = dict({k: 0 for k in counters}, k1=C_STEPS + C_FRAMES, k7=C_FRAMES, k8=C_FRAMES)
     phase("cascade_main_path", steps=C_STEPS, frames=C_FRAMES, rollout_seconds=roll_s,
           frame_wall_ms=wall_ms, launches=main_launches, k1t_launches=k1t_launches,
@@ -2236,18 +2202,36 @@ def run_cascades(dev) -> dict:
     }
 
 
-def launch_counts() -> dict:
-    """Every kernel wrapper's launch counter, K1-K8."""
-    from gfx_ocean_tpu_torch.ops import fourstep_step as fs
-    from gfx_ocean_tpu_torch.ops import fused_step
-    from gfx_ocean_tpu_torch.ops import unpacked_step as us
-    from gfx_ocean_tpu_torch.render import raster as rr
+# Each kernel wrapper by its kernel's key.
+WRAPPERS = dict(k1="launch_packed_step", k2="launch_fourstep_row", k3="launch_fourstep_col",
+                k4="launch_unpacked_step", k5="launch_unpacked_rows", k6="launch_unpacked_cols",
+                k7="launch_slot_kernel", k8="launch_segmin_kernel", k9="launch_giant_kernel")
+# The recorder's table (``utils/profiling.tallies``) at the last
+# ``reset_launches()``: the launch counts read from there.
+_LAUNCH_ZERO: dict = {}
 
-    wrappers = dict(k1=fused_step.launch_packed_step, k2=fs.launch_fourstep_row,
-                    k3=fs.launch_fourstep_col, k4=us.launch_unpacked_step,
-                    k5=us.launch_unpacked_rows, k6=us.launch_unpacked_cols,
-                    k7=rr.launch_slot_kernel, k8=rr.launch_segmin_kernel)
-    return {k: w.launches for k, w in wrappers.items()}
+
+def reset_launches() -> None:
+    """Every wrapper's launch counts, the tiered bodies' too, to 0."""
+    from gfx_ocean_tpu_torch.utils import profiling
+
+    global _LAUNCH_ZERO
+    _LAUNCH_ZERO = profiling.tallies()
+
+
+def launch_count(key: str, kind: str = "launches") -> int:
+    """``<kind>.<wrapper>`` of the kernel ``key`` (``WRAPPERS``) since the
+    last ``reset_launches()``; ``kind`` "tiered_launches" counts the tiered
+    body's."""
+    from gfx_ocean_tpu_torch.utils import profiling
+
+    name = f"{kind}.{WRAPPERS[key]}"
+    return profiling.tallies().get(name, 0) - _LAUNCH_ZERO.get(name, 0)
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count, K1-K8."""
+    return {k: launch_count(k) for k in ("k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8")}
 
 
 def launched_since(before: dict) -> dict:
@@ -2734,16 +2718,15 @@ def run_window_render(dev) -> None:
     import torch
 
     import gfx_ocean_tpu_torch as ot
-    from gfx_ocean_tpu_torch.ops import fused_step
     from gfx_ocean_tpu_torch.render import raster as rr
     from gfx_ocean_tpu_torch.render.camera import Camera
 
     cfg = ot.OceanConfig(fft_impl="pallas")
     state = STATES["render"]
     cam = Camera()
-    fused_step.launch_packed_step.launches = 0
+    reset_launches()
     disp = ot.step(state, R_T, dataclasses.replace(cfg, compute_normals=False)).displacement
-    k1 = fused_step.launch_packed_step.launches
+    k1 = launch_count("k1")
     positions, uvs, tris = rr._mesh_constants(cfg.mesh_resolution, cfg.num_patches, dev)
     interp = rr._interp_matrices(cfg.mesh_resolution, R_N, dev)
     grid_shape = (cfg.num_patches, cfg.mesh_resolution)
@@ -2834,13 +2817,13 @@ def run_generic_mesh(dev) -> None:
     rec = {}
     for name, fn, extra in (("pool", rr._rasterize_pool, (rr._auto_pool(G_W, G_H), R_GIANTS)),
                             ("window", rr._rasterize, (W_SAMPLES, R_GIANTS))):
-        k7 = rr.launch_slot_kernel.launches
+        k7 = launch_count("k7")
         img, z = fn(*args, *extra, interp, grid_shape)
         listed, lz = fn(*args, *extra, interp, None)
         rec[name] = dict(color_equal=bool(torch.equal(img, listed)),
                          depth_equal=bool(torch.equal(z, lz)),
                          coverage=float(torch.isfinite(z).float().mean()),
-                         k7_launches=rr.launch_slot_kernel.launches - k7)
+                         k7_launches=launch_count("k7") - k7)
     phase("generic_mesh", width=G_W, height=G_H, triangles=int(tris.shape[0]), **rec)
     if not all(r["color_equal"] and r["depth_equal"] and r["coverage"] > 0
                for r in rec.values()) or rec["pool"]["k7_launches"] != 2:
@@ -2935,33 +2918,14 @@ def exact_products():
         fused_step.matmul_tier, fs.matmul_tier, us.matmul_tier = saved
 
 
-def reset_launches() -> None:
-    """Every wrapper's counters to 0, the tiered bodies' too."""
-    from gfx_ocean_tpu_torch.ops import fourstep_step as fs
-    from gfx_ocean_tpu_torch.ops import fused_step
-    from gfx_ocean_tpu_torch.ops import unpacked_step as us
-    from gfx_ocean_tpu_torch.render import raster as rr
-
-    for w in (fused_step.launch_packed_step, fs.launch_fourstep_row, fs.launch_fourstep_col,
-              us.launch_unpacked_step, us.launch_unpacked_rows, us.launch_unpacked_cols,
-              rr.launch_slot_kernel, rr.launch_segmin_kernel):
-        w.launches = 0
-        if hasattr(w, "tiered_launches"):
-            w.tiered_launches = 0
-
-
 def tiered_counts() -> dict:
     """The launches of the tiered bodies (K1t-K4t) and of the FFT bodies
     (K1-K4): a wrapper's launches less its tiered ones."""
-    from gfx_ocean_tpu_torch.ops import fourstep_step as fs
-    from gfx_ocean_tpu_torch.ops import fused_step
-    from gfx_ocean_tpu_torch.ops import unpacked_step as us
-
     rec = {}
-    for k, w in (("k1", fused_step.launch_packed_step), ("k2", fs.launch_fourstep_row),
-                 ("k3", fs.launch_fourstep_col), ("k4", us.launch_unpacked_step)):
-        rec[k] = w.launches - w.tiered_launches
-        rec[k + "t"] = w.tiered_launches
+    for k in ("k1", "k2", "k3", "k4"):
+        tiered = launch_count(k, "tiered_launches")
+        rec[k] = launch_count(k) - tiered
+        rec[k + "t"] = tiered
     return rec
 
 
@@ -3594,10 +3558,7 @@ def run_parallel(dev) -> None:
         counts = launch_counts()
         return {k: counts[k] for k in ("k1", "k2", "k3", "k7", "k8")}
 
-    def zero_counts():
-        for w in (fused_step.launch_packed_step, fs.launch_fourstep_row, fs.launch_fourstep_col,
-                  rr.launch_slot_kernel, rr.launch_segmin_kernel):
-            w.launches = 0
+    zero_counts = reset_launches
 
     # --- 42. config 5, row-sharded K2 + K3 over a 1 x 4 mesh ------------------
     t_phase = time.perf_counter()

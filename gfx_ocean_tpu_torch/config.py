@@ -13,8 +13,11 @@ differently on the port:
   "matmul" the PyTorch direct-DFT matmul path, "xla" ``torch.fft``.
 - ``matmul_precision``: on "matmul" each tier is a scheme of bf16
   tensor-core passes summed in FP32, or for "highest" float64 products
-  on the card and FP32 on the CPU (``ops/fft.full_matmul``); kernels K1-K6 ("pallas") compute in FP32 whatever the
-  tier, and "xla" takes none (``ops/fft.effective_precision``).
+  on the card and FP32 on the CPU (``ops/fft.full_matmul``). On "pallas"
+  kernels K1-K4 run the JAX kernels' bf16 tiers in their tiered bodies
+  K1t-K4t (``ops/fft.kernel_tier``: bf16 tensor-core passes summed in
+  FP32) and their FP32 FFT bodies at "highest" only; K5 and K6 are
+  "highest" only. "xla" takes none (``ops/fft.effective_precision``).
 """
 
 from __future__ import annotations

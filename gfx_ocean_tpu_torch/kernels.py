@@ -13,6 +13,17 @@ The host library ``csrc/ocean_native.cpp`` (the native bincode loader,
 ``native/bincode_native.py``) is built the same way with g++ into
 ``build/native/lib<name>_<hash>.so``: ``g++ -O2 -shared -fPIC -std=c++17``.
 
+The launch boundary. Every kernel wrapper of the port (``ops/fused_step``,
+``ops/fourstep_step``, ``ops/unpacked_step``, ``render/raster``) calls its C
+entry point through :func:`launch`, which checks that the tensors' card is
+the current device, appends that device's current stream, raises with the
+library's own error text on a nonzero code and counts the launch in the
+recorder's table (``utils/profiling.tally``: ``launches.<wrapper>`` and, for
+a tiered body, ``tiered_launches.<wrapper>``). A wrapper keeps only its own
+argument checks (:func:`cuda_device`, :func:`check_tensor`), its outputs'
+allocation and its C arguments (:func:`ptr`). A new kernel is its ``.cu``
+file, its entry in ``SIGNATURES`` and its wrapper: nothing else lists it.
+
 Nothing here runs at import: the CPU tests import every module, and this
 host has no nvcc.
 """
@@ -20,7 +31,6 @@ host has no nvcc.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
@@ -28,7 +38,11 @@ import subprocess
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
+
+import torch
+
+from gfx_ocean_tpu_torch.utils import profiling
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -40,7 +54,8 @@ CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# argtypes / restype of each library's C entry points.
+# argtypes / restype of each library's C entry points; each library has one
+# ``*_error_string`` entry, the text of its error codes.
 SIGNATURES = {
     "packed_step": {
         "packed_step": ([_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _F,
@@ -149,7 +164,7 @@ def build_all(names: Sequence[str]) -> Dict[str, Path]:
         return dict(zip(names, pool.map(build, names)))
 
 
-@functools.lru_cache(maxsize=None)
+@profiling.counted_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """Build (first use) and load ``csrc/<name>.cu``, with its entry points typed."""
     lib = ctypes.CDLL(str(build(name)))
@@ -157,3 +172,53 @@ def load(name: str) -> ctypes.CDLL:
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype
     return lib
+
+
+def cuda_device(x: torch.Tensor, who: str) -> torch.device:
+    """The device of ``x``; raises ``ValueError`` unless it is a card."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{who} needs CUDA tensors, got {x.device}")
+    return x.device
+
+
+def check_tensor(name: str, x: torch.Tensor, dtype: torch.dtype, shape: Sequence[int],
+                 device: torch.device) -> None:
+    """Raise ``ValueError`` unless ``x`` is a contiguous ``dtype`` tensor of
+    ``shape`` on ``device``."""
+    if x.device != device or x.dtype != dtype or not x.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous {str(dtype).removeprefix('torch.')} "
+                         f"on {device}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(x.shape)}")
+
+
+def ptr(x: Optional[torch.Tensor]) -> Optional[int]:
+    """The device address of ``x``, None (a null pointer) for None."""
+    return None if x is None else x.data_ptr()
+
+
+def launch(counter: str, library: str, entry: str, *args, device: torch.device,
+           tiered: bool = False) -> None:
+    """Call ``entry`` of ``csrc/<library>.cu`` with ``args`` and ``device``'s
+    current stream, then count one ``launches.<counter>`` (and one
+    ``tiered_launches.<counter>`` where ``tiered``) in the recorder's table.
+
+    A launch through ctypes goes to the current device's context, whatever
+    device its tensors lie on, so ``device`` must be the current device
+    (a shard of a mesh runs under its own, ``utils/device.device_guard``):
+    ``RuntimeError`` otherwise. A nonzero code raises ``RuntimeError`` with
+    the library's own text of it and counts nothing."""
+    current = torch.cuda.current_device()
+    if device.index != current:
+        raise RuntimeError(f"{counter}: tensors on {device} but the current device is "
+                           f"cuda:{current}; run under torch.cuda.device({device})")
+    lib = load(library)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    err = getattr(lib, entry)(*args, stream)
+    if err != 0:
+        text = next(f for f in SIGNATURES[library] if f.endswith("_error_string"))
+        raise RuntimeError(f"{counter}: {entry}{' (tiered)' if tiered else ''} failed to launch: "
+                           f"CUDA error {err} ({getattr(lib, text)(err).decode()})")
+    profiling.tally("launches." + counter)
+    if tiered:
+        profiling.tally("tiered_launches." + counter)

@@ -19,8 +19,10 @@ Routes through ``step`` / ``make_rollout``, by ``config.fft_impl``:
   the same propagate and packing; the eager route and speed baseline.
 
 The precision tiers (``matmul_precision``, ``choppy_precision`` for the
-two choppy fields) apply on the matmul route (``ops/fft.py``); the
-kernels compute in FP32 whatever the tier.
+two choppy fields) apply on the matmul route (``ops/fft.py``) and on the
+kernels: K1-K4 run the JAX kernels' bf16 tiers as K1t-K4t and their FP32
+FFT bodies at "highest" only, K5 and K6 "highest" only
+(``ops/fft.kernel_tier``).
 ``time_batch`` frames run as one batch axis; the hoisted inputs are
 computed once per rollout call. ``make_uniform_rollout`` is the
 phase-recurrence rollout of the matmul and xla routes.

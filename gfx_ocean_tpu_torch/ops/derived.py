@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from gfx_ocean_tpu_torch.config import OceanConfig
+from gfx_ocean_tpu_torch.utils import profiling
 from gfx_ocean_tpu_torch.utils.device import resolve_device
 
 
@@ -41,7 +42,7 @@ def sign_grid(n: int, ref_sign: bool, device: torch.device | str) -> torch.Tenso
     return _sign_grid(n, bool(ref_sign), torch.device(device))
 
 
-@functools.lru_cache(maxsize=None)
+@profiling.counted_cache(maxsize=None)
 def _sign_grid(n: int, ref_sign: bool, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_sign_np(n, ref_sign)).to(device)
 

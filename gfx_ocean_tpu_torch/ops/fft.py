@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from gfx_ocean_tpu_torch.ops.derived import sign_grid
+from gfx_ocean_tpu_torch.utils import profiling
 from gfx_ocean_tpu_torch.utils.device import resolve_device
 
 _TIERS = ("bf16x3", "bf16x4", "default", "high", "highest")
@@ -306,7 +307,7 @@ def twiddle_table(n: int, device) -> torch.Tensor:
     return _twiddle_table(n, torch.device(device))
 
 
-@functools.lru_cache(maxsize=None)
+@profiling.counted_cache(maxsize=None)
 def _twiddle_table(n: int, device: torch.device) -> torch.Tensor:
     theta = (2.0 * np.pi / n) * np.arange(n // 2, dtype=np.float64)
     return torch.from_numpy(np.stack([np.cos(theta), np.sin(theta)]).astype(np.float32)).to(device)
@@ -338,7 +339,7 @@ _TABLES = {"dft": _dft_matrix_np, "alt": _dft_matrix_out_alt_np, "twiddle": _twi
            "cat": _cat_dft_np}
 
 
-@functools.lru_cache(maxsize=64)
+@profiling.counted_cache(maxsize=64)
 def _table(key: tuple, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """The (real, imag) float32 table ``key`` = (kind, *args) of ``_TABLES``
     on ``device``, uploaded once. Read only: every caller shares it."""
@@ -346,20 +347,20 @@ def _table(key: tuple, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor
     return tuple(torch.from_numpy(a).to(device) for a in _TABLES[kind](*args))
 
 
-@functools.lru_cache(maxsize=64)
+@profiling.counted_cache(maxsize=64)
 def _tier_table(key: tuple, device: torch.device, tier: str) -> Tuple[Prepared, Prepared]:
     """``_table(key, device)`` prepared for ``tier``, once per table."""
     return tuple(prepare(a, tier) for a in _table(key, device))
 
 
-@functools.lru_cache(maxsize=64)
+@profiling.counted_cache(maxsize=64)
 def table_fragments(key: tuple, device: torch.device, tier: str) -> torch.Tensor:
     """``mma_fragments`` of the planes of table ``key`` on ``device``, made
     once per (table, device, tier): the tiered kernels' B operand."""
     return mma_fragments(_table(key, device), tier)
 
 
-@functools.lru_cache(maxsize=64)
+@profiling.counted_cache(maxsize=64)
 def table_wgmma(key: tuple, device: torch.device, tier: str, min_k: int = 0) -> torch.Tensor:
     """``wgmma_table`` of the planes of table ``key`` on ``device`` (K padded
     to ``min_k``), made once per (table, device, tier, min_k): K2t's and

@@ -60,13 +60,13 @@ split.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from gfx_ocean_tpu_torch import kernels
 from gfx_ocean_tpu_torch.config import OceanConfig
 from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, normals_scale
 from gfx_ocean_tpu_torch.ops.fft import (Prepared, _cat_complex_np, _dft_matrix_np,
@@ -76,7 +76,7 @@ from gfx_ocean_tpu_torch.ops.fft import (Prepared, _cat_complex_np, _dft_matrix_
                                          twiddle_table)
 from gfx_ocean_tpu_torch.ops.propagate import (BandWindows, _f32, as_times,
                                                gather_packed_planes, packed_spectra)
-from gfx_ocean_tpu_torch.utils.device import check_current_device
+from gfx_ocean_tpu_torch.utils import profiling
 
 MIN_N = 1024
 # Largest N the kernels take: the plan's range.
@@ -147,7 +147,7 @@ def fourstep_tables(n: int, n1: int, n2: int, negate: bool):
             (w1_col, w2_col, w2top, ttr, tti))
 
 
-@functools.lru_cache(maxsize=None)
+@profiling.counted_cache(maxsize=None)
 def _device_tables(n: int, negate: bool, device: torch.device, tier: str = "highest"):
     """``fourstep_tables`` on ``device``, made once per tier: the DFT tables
     ``prepare``d for ``tier`` (W1cat transposed for the row pass's
@@ -302,23 +302,6 @@ def _check_kernel_n(n: int, who: str) -> None:
         raise ValueError(f"{who} takes a power of two N in [{MIN_N}, {MAX_KERNEL_N}], got {n}")
 
 
-def _check_tensor(name: str, x: torch.Tensor, shape: tuple, dev: torch.device) -> None:
-    if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"{name}: expected contiguous float32 on {dev}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"{name}: expected shape {shape}, got {tuple(x.shape)}")
-
-
-def _raise_on_error(lib, err: int, what: str) -> None:
-    if err != 0:
-        msg = lib.fourstep_error_string(err).decode()
-        raise RuntimeError(f"{what} failed to launch: CUDA error {err} ({msg})")
-
-
-def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
-    return None if x is None else x.data_ptr()
-
-
 def _tier_inputs(n: int, config: OceanConfig, dev: torch.device, side: str) -> tuple:
     """The tiered body's arguments of a K2 ("row") or K3 ("col") launch:
     (passes, W1's wgmma table, W2's, Ttr, Tti); passes 0 (the FFT body, at
@@ -361,47 +344,36 @@ def launch_fourstep_row(inputs: FourstepInputs, ts, config: OceanConfig,
 
     At "highest" the FFT body runs; at the other tiers the tiered body, the
     JAX kernel's bf16 passes on the tensor cores (``ops/fft.kernel_tier``).
-    Adds one to ``launch_fourstep_row.launches`` per launch of either body,
-    and one to ``launch_fourstep_row.tiered_launches`` per launch of the
-    tiered body."""
-    from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
-
-    dev = inputs.twiddle.device
-    if dev.type != "cuda":
-        raise ValueError(f"launch_fourstep_row needs CUDA tensors, got {dev}")
-    check_current_device(dev, "launch_fourstep_row")
+    Counts ``launches.launch_fourstep_row`` per launch of either body and
+    ``tiered_launches.launch_fourstep_row`` per launch of the tiered body
+    (``kernels.launch``)."""
+    dev = kernels.cuda_device(inputs.twiddle, "launch_fourstep_row")
     n = 2 * inputs.twiddle.shape[-1]
     _check_kernel_n(n, "K2")
     check_supported(config, n)
     rows = _band(n, row_base, rows, windows)
-    _check_tensor("twiddle", inputs.twiddle, (2, n // 2), dev)
+    kernels.check_tensor("twiddle", inputs.twiddle, torch.float32, (2, n // 2), dev)
     if windows is None:
-        _check_tensor("h0", inputs.h0, (2, n, n), dev)
-        _check_tensor("omega", inputs.omega, (n, n), dev)
+        kernels.check_tensor("h0", inputs.h0, torch.float32, (2, n, n), dev)
+        kernels.check_tensor("omega", inputs.omega, torch.float32, (n, n), dev)
     else:
-        _check_tensor("windows.h0", windows.h0, (2 * rows + 2, 2, n), dev)
-        _check_tensor("windows.omega", windows.omega, (2 * rows + 2, n), dev)
+        kernels.check_tensor("windows.h0", windows.h0, torch.float32, (2 * rows + 2, 2, n), dev)
+        kernels.check_tensor("windows.omega", windows.omega, torch.float32, (2 * rows + 2, n),
+                             dev)
     ts = as_times(ts, dev)
     tb = ts.shape[0]
     y = torch.empty((tb, 2, 2, rows, n), dtype=torch.float32, device=dev)
     tier = _tier_inputs(n, config, dev, "row")
     scratch = torch.empty_like(y) if tier[0] and not row_stage2_in_block(n) else None
-    lib = kernels.load("fourstep_step")
-    scalars = (tb, n, rows, row_base, _f32(np.pi / config.domain_size),
-               int(config.compat.wrap_k), int(config.compat.conj_neg), y.data_ptr(),
-               *tier, _ptr(scratch), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     state = inputs if windows is None else windows
-    err = (lib.fourstep_row if windows is None else lib.fourstep_row_windows)(
+    kernels.launch(
+        "launch_fourstep_row", "fourstep_step",
+        "fourstep_row" if windows is None else "fourstep_row_windows",
         state.h0.data_ptr(), state.omega.data_ptr(), inputs.twiddle.data_ptr(), ts.data_ptr(),
-        *scalars)
-    _raise_on_error(lib, err, "K2 (fourstep_row)")
-    launch_fourstep_row.launches += 1
-    launch_fourstep_row.tiered_launches += int(tier[0] > 0)
+        tb, n, rows, row_base, _f32(np.pi / config.domain_size), int(config.compat.wrap_k),
+        int(config.compat.conj_neg), y.data_ptr(), *tier, kernels.ptr(scratch),
+        device=dev, tiered=tier[0] > 0)
     return y
-
-
-launch_fourstep_row.launches = 0
-launch_fourstep_row.tiered_launches = 0
 
 
 def launch_fourstep_col(y: torch.Tensor, twiddle: torch.Tensor, config: OceanConfig,
@@ -414,15 +386,11 @@ def launch_fourstep_col(y: torch.Tensor, twiddle: torch.Tensor, config: OceanCon
     The caller sums them over the last axis.
 
     The kernel's first stage writes a scratch as large as Y. The body is
-    chosen by the tier as in :func:`launch_fourstep_row`. Adds one to
-    ``launch_fourstep_col.launches`` per launch of either body, and one to
-    ``launch_fourstep_col.tiered_launches`` per launch of the tiered body."""
-    from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
-
-    dev = y.device
-    if dev.type != "cuda":
-        raise ValueError(f"launch_fourstep_col needs CUDA tensors, got {dev}")
-    check_current_device(dev, "launch_fourstep_col")
+    chosen by the tier as in :func:`launch_fourstep_row`. Counts
+    ``launches.launch_fourstep_col`` per launch of either body and
+    ``tiered_launches.launch_fourstep_col`` per launch of the tiered body
+    (``kernels.launch``)."""
+    dev = kernels.cuda_device(y, "launch_fourstep_col")
     if y.ndim != 5 or tuple(y.shape[1:3]) != (2, 2):
         raise ValueError(f"y: expected shape (tb, 2, 2, N, C), got {tuple(y.shape)}")
     tb, _, _, n, c = y.shape
@@ -431,8 +399,8 @@ def launch_fourstep_col(y: torch.Tensor, twiddle: torch.Tensor, config: OceanCon
     if c % COL_BAND or (checksum and c != n):
         raise ValueError(f"K3 takes a multiple of {COL_BAND} columns, all N of them "
                          f"for the checksum; got {c} of {n}")
-    _check_tensor("y", y, (tb, 2, 2, n, c), dev)
-    _check_tensor("twiddle", twiddle, (2, n // 2), dev)
+    kernels.check_tensor("y", y, torch.float32, (tb, 2, 2, n, c), dev)
+    kernels.check_tensor("twiddle", twiddle, torch.float32, (2, n // 2), dev)
     scratch = torch.empty_like(y)
     planes = torch.empty((tb, 3, n, c), dtype=torch.float32, device=dev)
     nscale = normals_scale(config)
@@ -442,21 +410,13 @@ def launch_fourstep_col(y: torch.Tensor, twiddle: torch.Tensor, config: OceanCon
                   + (n // CHECKSUM_ROWS if nscale is not None else 0))
     partials = (torch.empty((tb, n_partials), dtype=torch.float32, device=dev)
                 if checksum else None)
-    lib = kernels.load("fourstep_step")
-    err = lib.fourstep_col(
+    kernels.launch(
+        "launch_fourstep_col", "fourstep_step", "fourstep_col",
         y.data_ptr(), scratch.data_ptr(), twiddle.data_ptr(), tb, n, c,
-        -1.0 if config.compat.ref_sign else 1.0, planes.data_ptr(),
-        None if partials is None else partials.data_ptr(), CHECKSUM_ROWS,
-        nscale if nscale is not None else 0.0, int(nscale is not None), *tier,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _raise_on_error(lib, err, "K3 (fourstep_col)")
-    launch_fourstep_col.launches += 1
-    launch_fourstep_col.tiered_launches += int(tier[0] > 0)
+        -1.0 if config.compat.ref_sign else 1.0, planes.data_ptr(), kernels.ptr(partials),
+        CHECKSUM_ROWS, nscale if nscale is not None else 0.0, int(nscale is not None), *tier,
+        device=dev, tiered=tier[0] > 0)
     return planes, partials
-
-
-launch_fourstep_col.launches = 0
-launch_fourstep_col.tiered_launches = 0
 
 
 def launch_fourstep_step(inputs: FourstepInputs, ts, config: OceanConfig,

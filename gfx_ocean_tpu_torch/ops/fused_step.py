@@ -60,23 +60,22 @@ kernels, not arithmetic (``PERF.md`` has the measured split).
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from gfx_ocean_tpu_torch import kernels
 from gfx_ocean_tpu_torch.config import OceanConfig
 from gfx_ocean_tpu_torch.ops import fourstep_step, unpacked_step
 from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, normals_scale
 from gfx_ocean_tpu_torch.ops.fft import (_tier_table, effective_precision, kernel_passes,
                                          kernel_tier, matmul_tier, prepare, table_fragments,
                                          transposed, twiddle_table)
-from gfx_ocean_tpu_torch.ops.fourstep_step import FourstepInputs, _ptr
+from gfx_ocean_tpu_torch.ops.fourstep_step import FourstepInputs
 from gfx_ocean_tpu_torch.ops.propagate import (_f32, as_times, gather_packed_planes,
                                                packed_spectra)
 from gfx_ocean_tpu_torch.ops.unpacked_step import UnpackedInputs
-from gfx_ocean_tpu_torch.utils.device import check_current_device
 
 MAX_N = 512
 # Rows of the output reduced by one block of the checksum kernel.
@@ -196,16 +195,12 @@ def launch_packed_step(inputs: PackedInputs, ts: torch.Tensor, config: OceanConf
     Returns ``(planes, partials)``: planes (tb, 3, N, N) and, when
     ``checksum``, the per-block checksum partials (tb, N / CHECKSUM_ROWS),
     else None; for a cascade state (C, tb, 3, N, N) and (C, tb,
-    N / CHECKSUM_ROWS), cascade-major as the kernels write them. Adds one to
-    ``launch_packed_step.launches`` per launch of either body, and one to
-    ``launch_packed_step.tiered_launches`` per launch of the tiered body.
+    N / CHECKSUM_ROWS), cascade-major as the kernels write them. Counts
+    ``launches.launch_packed_step`` per launch of either body and
+    ``tiered_launches.launch_packed_step`` per launch of the tiered body
+    (``kernels.launch``).
     """
-    from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
-
-    dev = inputs.omega.device
-    if dev.type != "cuda":
-        raise ValueError(f"launch_packed_step needs CUDA tensors, got {dev}")
-    check_current_device(dev, "launch_packed_step")
+    dev = kernels.cuda_device(inputs.omega, "launch_packed_step")
     n = inputs.omega.shape[-1]
     if n < 16 or n > MAX_N or n & (n - 1):
         raise ValueError(f"K1 takes a power of two N in [16, {MAX_N}], got {n}")
@@ -217,10 +212,7 @@ def launch_packed_step(inputs: PackedInputs, ts: torch.Tensor, config: OceanConf
                          f"got omega of shape {tuple(inputs.omega.shape)}")
     shapes = dict(h0=lead + (2, n, n), omega=lead + (n, n), twiddle=(2, n // 2))
     for name, x in inputs._asdict().items():
-        if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"{name}: expected contiguous float32 on {dev}")
-        if tuple(x.shape) != shapes[name]:
-            raise ValueError(f"{name}: expected shape {shapes[name]}, got {tuple(x.shape)}")
+        kernels.check_tensor(name, x, torch.float32, shapes[name], dev)
     ts = as_times(ts, dev)
     tb = ts.shape[0]
     if checksum and tb * cascades > 65535:
@@ -234,24 +226,16 @@ def launch_packed_step(inputs: PackedInputs, ts: torch.Tensor, config: OceanConf
     tier = kernel_tier(config.matmul_precision)
     passes = kernel_passes(tier)
     frag = table_fragments(("alt", n, 1, 0, False), dev, tier) if passes else None
-    lib = kernels.load("packed_step")
-    err = lib.packed_step(
-        _ptr(inputs.h0), _ptr(inputs.omega), _ptr(inputs.twiddle), _ptr(ts), tb, cascades, n,
+    ptr = kernels.ptr
+    kernels.launch(
+        "launch_packed_step", "packed_step", "packed_step",
+        ptr(inputs.h0), ptr(inputs.omega), ptr(inputs.twiddle), ptr(ts), tb, cascades, n,
         _f32(np.pi / config.domain_size), int(config.compat.wrap_k),
         int(config.compat.conj_neg), -0.5 if config.compat.ref_sign else 0.5,
-        _ptr(y), _ptr(planes), _ptr(partials), CHECKSUM_ROWS,
-        nscale if nscale is not None else 0.0, int(nscale is not None), passes, _ptr(frag),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    if err != 0:
-        msg = lib.packed_step_error_string(err).decode()
-        raise RuntimeError(f"packed_step kernels failed to launch: CUDA error {err} ({msg})")
-    launch_packed_step.launches += 1
-    launch_packed_step.tiered_launches += int(passes > 0)
+        ptr(y), ptr(planes), ptr(partials), CHECKSUM_ROWS,
+        nscale if nscale is not None else 0.0, int(nscale is not None), passes, ptr(frag),
+        device=dev, tiered=passes > 0)
     return planes, partials
-
-
-launch_packed_step.launches = 0
-launch_packed_step.tiered_launches = 0
 
 
 def packed_planes(inputs: FusedInputs, ts, config: OceanConfig) -> torch.Tensor:

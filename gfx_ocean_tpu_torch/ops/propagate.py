@@ -22,6 +22,7 @@ import torch
 
 from gfx_ocean_tpu_torch.config import CompatFlags
 from gfx_ocean_tpu_torch.golden.reference import wavenumber_1d
+from gfx_ocean_tpu_torch.utils import profiling
 from gfx_ocean_tpu_torch.utils.device import resolve_device
 
 
@@ -61,7 +62,7 @@ def _khat_grid(n: int, domain_size: float, wrap: bool, device: torch.device | st
     return _khat_grid_cached(n, float(domain_size), bool(wrap), torch.device(device))
 
 
-@functools.lru_cache(maxsize=None)
+@profiling.counted_cache(maxsize=None)
 def _khat_grid_cached(n: int, domain_size: float, wrap: bool, device: torch.device):
     kxn, kyn = _khat_np(n, domain_size, wrap)
     return torch.from_numpy(kxn).to(device), torch.from_numpy(kyn).to(device)

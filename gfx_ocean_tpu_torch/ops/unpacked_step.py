@@ -61,20 +61,19 @@ the tensor cores (``PERF.md`` has the measured times).
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from gfx_ocean_tpu_torch import kernels
 from gfx_ocean_tpu_torch.config import OceanConfig
 from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, normals_scale
 from gfx_ocean_tpu_torch.ops.fft import (_tier_table, effective_precision, kernel_passes,
                                          kernel_tier, matmul_tier, prepare, table_fragments,
                                          transposed, twiddle_table)
-from gfx_ocean_tpu_torch.ops.fourstep_step import CHECKSUM_ROWS, _check_tensor
+from gfx_ocean_tpu_torch.ops.fourstep_step import CHECKSUM_ROWS
 from gfx_ocean_tpu_torch.ops.propagate import _f32, _phase_mod_2pi, as_times
-from gfx_ocean_tpu_torch.utils.device import check_current_device
 
 MAX_N = 512
 
@@ -194,15 +193,13 @@ def unpacked_planes_reference(inputs: UnpackedInputs, ts,
 
 def _checked(inputs: UnpackedInputs, who: str) -> int:
     """Check the hoisted inputs for a launch; return N."""
-    dev = inputs.omega.device
-    if dev.type != "cuda":
-        raise ValueError(f"{who} needs CUDA tensors, got {dev}")
+    dev = kernels.cuda_device(inputs.omega, who)
     n = inputs.omega.shape[-1]
     if n < 16 or n > MAX_N or n & (n - 1):
         raise ValueError(f"{who} takes a power of two N in [16, {MAX_N}], got {n}")
     shapes = dict(h0=(2, n, n), omega=(n, n), twiddle=(2, n // 2))
     for name, x in inputs._asdict().items():
-        _check_tensor(name, x, shapes[name], dev)
+        kernels.check_tensor(name, x, torch.float32, shapes[name], dev)
     return n
 
 
@@ -213,18 +210,6 @@ def _propagate_args(inputs: UnpackedInputs, ts: torch.Tensor, config: OceanConfi
             inputs.twiddle.data_ptr(), ts.data_ptr(), ts.shape[0], n,
             _f32(np.pi / config.domain_size), int(config.compat.wrap_k),
             int(config.compat.conj_neg), -1.0 if config.compat.ref_sign else 1.0)
-
-
-def _stream(dev: torch.device) -> ctypes.c_void_p:
-    """The current stream of ``dev``, which must be the current device."""
-    check_current_device(dev, "the unpacked step's kernels (K4-K6)")
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-
-
-def _raise_on_error(lib, err: int, what: str) -> None:
-    if err != 0:
-        msg = lib.unpacked_error_string(err).decode()
-        raise RuntimeError(f"{what} failed to launch: CUDA error {err} ({msg})")
 
 
 def _fft_only(config: OceanConfig, who: str) -> None:
@@ -238,24 +223,17 @@ def _fft_only(config: OceanConfig, who: str) -> None:
 
 def launch_unpacked_rows(inputs: UnpackedInputs, ts, config: OceanConfig) -> torch.Tensor:
     """Launch K5 on the current stream: ts (tb,) -> Y (tb, 3, 2, N, N), at
-    "highest" only. Adds one to ``launch_unpacked_rows.launches`` per
-    launch."""
-    from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
-
+    "highest" only. Counts ``launches.launch_unpacked_rows`` per launch
+    (``kernels.launch``)."""
     n = _checked(inputs, "launch_unpacked_rows")
     check_supported(config, n)
     _fft_only(config, "launch_unpacked_rows (K5)")
     dev = inputs.omega.device
     ts = as_times(ts, dev)
     y = torch.empty((ts.shape[0], 3, 2, n, n), dtype=torch.float32, device=dev)
-    lib = kernels.load("unpacked_step")
-    err = lib.unpacked_rows(*_propagate_args(inputs, ts, config), y.data_ptr(), _stream(dev))
-    _raise_on_error(lib, err, "K5 (unpacked_rows)")
-    launch_unpacked_rows.launches += 1
+    kernels.launch("launch_unpacked_rows", "unpacked_step", "unpacked_rows",
+                   *_propagate_args(inputs, ts, config), y.data_ptr(), device=dev)
     return y
-
-
-launch_unpacked_rows.launches = 0
 
 
 def _checksum_args(config: Optional[OceanConfig], tb: int, n: int, dev) -> tuple:
@@ -275,32 +253,25 @@ def launch_unpacked_cols_checksums(
     """Launch K6 on the current stream and, given a config, the checksum
     kernel behind it: Y (tb, 3, 2, N, N) -> ``(planes, partials)``, planes
     (tb, 3, N, N) and the per-block checksum partials
-    (tb, N / CHECKSUM_ROWS), or None without a config. Adds one to
-    ``launch_unpacked_cols.launches`` per launch."""
-    from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
-
+    (tb, N / CHECKSUM_ROWS), or None without a config. Counts
+    ``launches.launch_unpacked_cols`` per launch (``kernels.launch``)."""
     n = _checked(inputs, "launch_unpacked_cols")
     dev = inputs.omega.device
     if y.ndim != 5:
         raise ValueError(f"y: expected shape (tb, 3, 2, N, N), got {tuple(y.shape)}")
     tb = y.shape[0]
-    _check_tensor("y", y, (tb, 3, 2, n, n), dev)
+    kernels.check_tensor("y", y, torch.float32, (tb, 3, 2, n, n), dev)
     planes = torch.empty((tb, 3, n, n), dtype=torch.float32, device=dev)
     partials, ck_args = _checksum_args(config, tb, n, dev)
-    lib = kernels.load("unpacked_step")
-    err = lib.unpacked_cols(y.data_ptr(), inputs.twiddle.data_ptr(), tb, n, planes.data_ptr(),
-                            *ck_args, _stream(dev))
-    _raise_on_error(lib, err, "K6 (unpacked_cols)")
-    launch_unpacked_cols.launches += 1
+    kernels.launch("launch_unpacked_cols", "unpacked_step", "unpacked_cols",
+                   y.data_ptr(), inputs.twiddle.data_ptr(), tb, n, planes.data_ptr(), *ck_args,
+                   device=dev)
     return planes, partials
 
 
 def launch_unpacked_cols(y: torch.Tensor, inputs: UnpackedInputs) -> torch.Tensor:
     """K6 alone: Y (tb, 3, 2, N, N) -> planes (tb, 3, N, N)."""
     return launch_unpacked_cols_checksums(y, inputs, None)[0]
-
-
-launch_unpacked_cols.launches = 0
 
 
 def launch_unpacked_step_checksums(
@@ -311,11 +282,9 @@ def launch_unpacked_step_checksums(
     (tb, 3, N, N) and the per-block checksum partials (tb, N / CHECKSUM_ROWS),
     or None. At "highest" the FFT body (one cooperative launch, Y its
     scratch); at the other tiers the tiered body K4t (a row and a column
-    kernel, Y between them). Adds one to ``launch_unpacked_step.launches``
-    per launch of either body, and one to
-    ``launch_unpacked_step.tiered_launches`` per launch of K4t."""
-    from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
-
+    kernel, Y between them). Counts ``launches.launch_unpacked_step`` per
+    launch of either body and ``tiered_launches.launch_unpacked_step`` per
+    launch of K4t (``kernels.launch``)."""
     n = _checked(inputs, "launch_unpacked_step")
     check_supported(config, n)
     dev = inputs.omega.device
@@ -327,23 +296,15 @@ def launch_unpacked_step_checksums(
     tier = kernel_tier(config.matmul_precision)
     passes = kernel_passes(tier)
     frag = table_fragments(("alt", n, 1, 0, False), dev, tier) if passes else None
-    lib = kernels.load("unpacked_step")
-    err = lib.unpacked_step(*_propagate_args(inputs, ts, config), y.data_ptr(),
-                            planes.data_ptr(), *ck_args, passes,
-                            frag.data_ptr() if passes else None, _stream(dev))
-    _raise_on_error(lib, err, "K4t (unpacked_step, tiered)" if passes else "K4 (unpacked_step)")
-    launch_unpacked_step.launches += 1
-    launch_unpacked_step.tiered_launches += int(passes > 0)
+    kernels.launch("launch_unpacked_step", "unpacked_step", "unpacked_step",
+                   *_propagate_args(inputs, ts, config), y.data_ptr(), planes.data_ptr(),
+                   *ck_args, passes, kernels.ptr(frag), device=dev, tiered=passes > 0)
     return planes, partials
 
 
 def launch_unpacked_step(inputs: UnpackedInputs, ts, config: OceanConfig) -> torch.Tensor:
     """K4 alone: ts (tb,) -> planes (tb, 3, N, N)."""
     return launch_unpacked_step_checksums(inputs, ts, config, checksum=False)[0]
-
-
-launch_unpacked_step.launches = 0
-launch_unpacked_step.tiered_launches = 0
 
 
 def unpacked_planes(inputs: UnpackedInputs, ts, config: OceanConfig) -> torch.Tensor:

@@ -84,7 +84,6 @@ those rows of the single-device frame.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 from typing import NamedTuple, Optional
@@ -92,12 +91,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from gfx_ocean_tpu_torch import kernels
 from gfx_ocean_tpu_torch.ops.fft import full_matmul
 from gfx_ocean_tpu_torch.render import shade as sh
 from gfx_ocean_tpu_torch.render.camera import Camera, perspective
 from gfx_ocean_tpu_torch.render.mesh import build_grid, instantiate
 from gfx_ocean_tpu_torch.utils import profiling
-from gfx_ocean_tpu_torch.utils.device import check_current_device
 
 KEY_MAX = 0xFFFFFFFF     # the no-hit key (all ones)
 _GIANT_GROUP = 32        # giant-pass triangles per group
@@ -180,7 +179,7 @@ def _interp_matrices_np(mesh_resolution: int, n_tex: int, tile: float = 1.0) -> 
     return w
 
 
-@functools.lru_cache(maxsize=16)
+@profiling.counted_cache(maxsize=16)
 def _interp_matrices(mesh_resolution: int, n_tex: int, device: torch.device,
                      tile: float = 1.0):
     """(Wy, Wx) on ``device``, uploaded once per (mesh, texture, device, tile)."""
@@ -207,7 +206,7 @@ def _cascade_setup(displacement: torch.Tensor, cascade_domains, mesh_resolution:
     return tiles, tuple(_interp_matrices(mesh_resolution, n_tex, device, t) for t in tiles)
 
 
-@functools.lru_cache(maxsize=8)
+@profiling.counted_cache(maxsize=8)
 def _mesh_constants(mesh_resolution: int, num_patches: int, device: torch.device):
     """Mesh build and upload, once per (mesh, patches, device):
     positions (V, 3) f32, uvs (V, 2) f32, tris (T, 3) int64."""
@@ -422,49 +421,24 @@ def slot_stage_reference(crow: torch.Tensor, cov: torch.Tensor, width: int,
     return keys, octs.to(torch.int32)
 
 
-def _cuda_stream(device: torch.device) -> ctypes.c_void_p:
-    """The current stream of ``device``, which must be the current device."""
-    check_current_device(device, "the rasterizer's kernels (K7, K8, K9)")
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _check_tensor(name: str, x: torch.Tensor, dtype, shape, device) -> None:
-    if x.device != device or x.dtype != dtype or not x.is_contiguous():
-        raise ValueError(f"{name}: expected contiguous {dtype} on {device}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(x.shape)}")
-
-
 def launch_slot_kernel(crow: torch.Tensor, cov: torch.Tensor, width: int,
                        full_height: int, octs_w: int, spill_oct: int,
                        bw_bits: int, id_bits: int):
     """Launch K7 (``csrc/raster.cu``, ``slot_kernel``) on the current
-    stream; same arguments and results as ``slot_stage_reference``. Adds
-    one to ``launch_slot_kernel.launches`` per launch."""
-    from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
-
-    dev = crow.device
-    if dev.type != "cuda":
-        raise ValueError(f"launch_slot_kernel needs CUDA tensors, got {dev}")
+    stream; same arguments and results as ``slot_stage_reference``. Counts
+    ``launches.launch_slot_kernel`` per launch (``kernels.launch``)."""
+    dev = kernels.cuda_device(crow, "launch_slot_kernel")
     n_slots = crow.shape[1] if crow.ndim == 2 else -1
-    _check_tensor("crow", crow, torch.int32, (_SLOT_ROWS, n_slots), dev)
-    _check_tensor("cov", cov, torch.int32, (2,), dev)
+    kernels.check_tensor("crow", crow, torch.int32, (_SLOT_ROWS, n_slots), dev)
+    kernels.check_tensor("cov", cov, torch.int32, (2,), dev)
     if not 1 <= id_bits <= 32 - _MIN_Z_BITS or bw_bits != 32 - id_bits:
         raise ValueError(f"id_bits {id_bits} / bw_bits {bw_bits} out of range")
     keys = torch.empty((_zq_key_rows(id_bits), n_slots), dtype=torch.int32, device=dev)
     octs = torch.empty((n_slots,), dtype=torch.int32, device=dev)
-    lib = kernels.load("raster")
-    err = lib.slot_stage(crow.data_ptr(), cov.data_ptr(), n_slots, width, full_height,
-                         octs_w, spill_oct, id_bits, keys.data_ptr(), octs.data_ptr(),
-                         _cuda_stream(dev))
-    if err != 0:
-        msg = lib.raster_error_string(err).decode()
-        raise RuntimeError(f"slot kernel (K7) failed to launch: CUDA error {err} ({msg})")
-    launch_slot_kernel.launches += 1
+    kernels.launch("launch_slot_kernel", "raster", "slot_stage",
+                   crow.data_ptr(), cov.data_ptr(), n_slots, width, full_height, octs_w,
+                   spill_oct, id_bits, keys.data_ptr(), octs.data_ptr(), device=dev)
     return keys, octs
-
-
-launch_slot_kernel.launches = 0
 
 
 def slot_stage(crow: torch.Tensor, total_covered: torch.Tensor, width: int,
@@ -548,20 +522,16 @@ def launch_segmin_kernel(so: torch.Tensor, sk: torch.Tensor, n_oct: int, id_bits
     with decoupled look-back) on the current stream; same arguments and
     results as ``segmin_stage_reference``. The look-back state is kept per
     stream and device and reused by later calls; a launch captured into a
-    CUDA graph has its own, zeroed at each replay. Adds one to
-    ``launch_segmin_kernel.launches`` per launch."""
-    from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
-
-    dev = so.device
-    if dev.type != "cuda":
-        raise ValueError(f"launch_segmin_kernel needs CUDA tensors, got {dev}")
+    CUDA graph has its own, zeroed at each replay. Counts
+    ``launches.launch_segmin_kernel`` per launch (``kernels.launch``)."""
+    dev = kernels.cuda_device(so, "launch_segmin_kernel")
     if not 1 <= id_bits <= 32 - _MIN_Z_BITS:
         raise ValueError(f"id_bits {id_bits} out of range")
     n = so.shape[0] if so.ndim == 1 else -1
     if n < 1:
         raise ValueError("so: expected a non-empty (n,) tensor")
-    _check_tensor("so", so, torch.int32, (n,), dev)
-    _check_tensor("sk", sk, torch.int32, (_zq_key_rows(id_bits), n), dev)
+    kernels.check_tensor("so", so, torch.int32, (n,), dev)
+    kernels.check_tensor("sk", sk, torch.int32, (_zq_key_rows(id_bits), n), dev)
     mins = torch.empty((8, n), dtype=torch.int32, device=dev)
     skey = torch.empty((n,), dtype=torch.int32, device=dev)
     if torch.cuda.is_current_stream_capturing():
@@ -571,19 +541,12 @@ def launch_segmin_kernel(so: torch.Tensor, sk: torch.Tensor, n_oct: int, id_bits
         scratch = _SegminScratch(-(-n // SEGMIN_TILE), dev)
     else:
         scratch = _segmin_scratch(-(-n // SEGMIN_TILE), dev)
-    lib = kernels.load("raster")
-    err = lib.segmin_stage(so.data_ptr(), sk.data_ptr(), n, id_bits, n_oct, mins.data_ptr(),
-                           skey.data_ptr(), scratch.ticket.data_ptr(), scratch.flags.data_ptr(),
-                           scratch.agg.data_ptr(), scratch.incl.data_ptr(), scratch.next_epoch(),
-                           _cuda_stream(dev))
-    if err != 0:
-        msg = lib.raster_error_string(err).decode()
-        raise RuntimeError(f"segmented-min kernel (K8) failed to launch: CUDA error {err} ({msg})")
-    launch_segmin_kernel.launches += 1
+    kernels.launch("launch_segmin_kernel", "raster", "segmin_stage",
+                   so.data_ptr(), sk.data_ptr(), n, id_bits, n_oct, mins.data_ptr(),
+                   skey.data_ptr(), scratch.ticket.data_ptr(), scratch.flags.data_ptr(),
+                   scratch.agg.data_ptr(), scratch.incl.data_ptr(), scratch.next_epoch(),
+                   device=dev)
     return mins, skey
-
-
-launch_segmin_kernel.launches = 0
 
 
 def segmin_stage(so: torch.Tensor, sk: torch.Tensor, n_oct: int, id_bits: int):
@@ -645,37 +608,26 @@ def launch_giant_kernel(ids, ok, clip, tris, score, key_img, width: int, height:
     candidate merged into the key image in one launch, inactive ones
     skipped, the pixel centres' NDC formed in the kernel) on the current
     stream; same arguments and result as ``giant_pass_reference``, which
-    it returns as a new tensor. Adds one to ``launch_giant_kernel.launches``
-    per launch."""
-    from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415 - builds on first use
-
-    dev = key_img.device
-    if dev.type != "cuda":
-        raise ValueError(f"launch_giant_kernel needs CUDA tensors, got {dev}")
+    it returns as a new tensor. Counts ``launches.launch_giant_kernel`` per
+    launch (``kernels.launch``)."""
+    dev = kernels.cuda_device(key_img, "launch_giant_kernel")
     g = ids.shape[0] if ids.ndim == 2 else -1
     if g < 1:
         raise ValueError("ids: expected a non-empty (G, 32) tensor")
-    _check_tensor("ids", ids, torch.int64, (g, _GIANT_GROUP), dev)
-    _check_tensor("ok", ok, torch.bool, (g, _GIANT_GROUP), dev)
-    _check_tensor("clip", clip, torch.float32, (clip.shape[0], 4), dev)
-    _check_tensor("tris", tris, torch.int64, (tris.shape[0], 3), dev)
-    _check_tensor("score", score, torch.float32, (tris.shape[0],), dev)
-    _check_tensor("key_img", key_img, torch.int64, (height, width), dev)
+    kernels.check_tensor("ids", ids, torch.int64, (g, _GIANT_GROUP), dev)
+    kernels.check_tensor("ok", ok, torch.bool, (g, _GIANT_GROUP), dev)
+    kernels.check_tensor("clip", clip, torch.float32, (clip.shape[0], 4), dev)
+    kernels.check_tensor("tris", tris, torch.int64, (tris.shape[0], 3), dev)
+    kernels.check_tensor("score", score, torch.float32, (tris.shape[0],), dev)
+    kernels.check_tensor("key_img", key_img, torch.int64, (height, width), dev)
     if not 1 <= id_bits <= 32 - _MIN_Z_BITS:
         raise ValueError(f"id_bits {id_bits} out of range")
     out = torch.empty_like(key_img)
-    lib = kernels.load("raster")
-    err = lib.giant_pass(ids.data_ptr(), ok.data_ptr(), g * _GIANT_GROUP, score.data_ptr(),
-                         clip.data_ptr(), tris.data_ptr(), width, height, full_height, y_origin,
-                         id_bits, key_img.data_ptr(), out.data_ptr(), _cuda_stream(dev))
-    if err != 0:
-        msg = lib.raster_error_string(err).decode()
-        raise RuntimeError(f"giant-pass kernel (K9) failed to launch: CUDA error {err} ({msg})")
-    launch_giant_kernel.launches += 1
+    kernels.launch("launch_giant_kernel", "raster", "giant_pass",
+                   ids.data_ptr(), ok.data_ptr(), g * _GIANT_GROUP, score.data_ptr(),
+                   clip.data_ptr(), tris.data_ptr(), width, height, full_height, y_origin,
+                   id_bits, key_img.data_ptr(), out.data_ptr(), device=dev)
     return out
-
-
-launch_giant_kernel.launches = 0
 
 
 def giant_stage(ids, ok, clip, tris, score, key_img, width: int, height: int,
@@ -1276,11 +1228,6 @@ def _srgb_stage(values: dict) -> None:
     values["srgb"] = srgb8(values["image"])
 
 
-# The kernel wrappers a stage graph may hold: a replay adds the launches its
-# capture made to their ``launches`` counters.
-_KERNEL_WRAPPERS = (launch_slot_kernel, launch_segmin_kernel, launch_giant_kernel)
-
-
 class _StageGraphs:
     """A frame's stages after the step on one device, captured once as CUDA
     graphs, one a stage, in one memory pool, and replayed in order, each
@@ -1293,16 +1240,17 @@ class _StageGraphs:
     instance. A capture that fails raises; there is no eager fallback.
 
     Counters of the recorded unit: ``graph.captures`` (a capture's graphs)
-    and ``graph.replays`` (the graphs a replay ran). The kernel wrappers'
-    ``launches`` grow by the launches a replay runs; the set-up (a warm-up
-    pass and the captures) leaves them as it found them."""
+    and ``graph.replays`` (the graphs a replay ran). A replay adds to the
+    recorder's table (``profiling.tally``) what each graph's capture added
+    to it, the kernels' launches; the set-up (a warm-up pass and the
+    captures) leaves the table as it found it."""
 
     def __init__(self, stages, inputs: dict, dev: torch.device):
         self.device = dev
         self.stages = stages            # holds the constants the graphs read
         self.values = {k: None if x is None else x.clone() for k, x in inputs.items()}
         stream = torch.cuda.Stream(dev)     # captures need a side stream
-        before = [f.launches for f in _KERNEL_WRAPPERS]
+        before = profiling.tallies()
         # One eager pass on the capture stream first, so that no lazy set-up
         # of that stream (cuBLAS's workspace) falls inside a capture.
         stream.wait_stream(torch.cuda.current_stream(dev))
@@ -1316,17 +1264,16 @@ class _StageGraphs:
         self.graphs = []
         for name, stage in stages:
             graph = torch.cuda.CUDAGraph()
-            held = [f.launches for f in _KERNEL_WRAPPERS]
+            held = profiling.tallies()
             # "thread_local": a server's other threads may copy a finished
             # frame to the host while this one captures.
             with torch.cuda.graph(graph, pool=pool, stream=stream,
                                   capture_error_mode="thread_local"):
                 stage(self.values)
-            self.graphs.append((name, graph, [f.launches - h for f, h in
-                                              zip(_KERNEL_WRAPPERS, held)]))
+            self.graphs.append((name, graph, profiling.grown(held)))
         # Set-up launches nothing a frame counts: each replay counts its own.
-        for f, b in zip(_KERNEL_WRAPPERS, before):
-            f.launches = b
+        for key, n in profiling.grown(before).items():
+            profiling.tally(key, -n)
         profiling.count("graph.captures", len(self.graphs))
 
     def replay(self, inputs: dict) -> dict:
@@ -1336,8 +1283,8 @@ class _StageGraphs:
         for name, graph, launched in self.graphs:
             with profiling.span(name, device=self.device):
                 graph.replay()
-            for f, n in zip(_KERNEL_WRAPPERS, launched):
-                f.launches += n
+            for key, n in launched.items():
+                profiling.tally(key, n)
         profiling.count("graph.replays", len(self.graphs))
         return self.values
 

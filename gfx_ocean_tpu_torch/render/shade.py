@@ -27,11 +27,12 @@ tile factor, and foam is the union of the (C, N, N) per-cascade masks.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from gfx_ocean_tpu_torch.utils import profiling
 
 SHALLOW = np.array([0.0, 0.86, 0.79], dtype=np.float32)
 DEEP = np.array([0.03, 0.08, 0.18], dtype=np.float32)
@@ -42,7 +43,7 @@ CLEAR_COLOR = np.array([0.6, 0.6, 0.6], dtype=np.float32)
 FOAM_COLOR = np.array([0.92, 0.96, 0.98], dtype=np.float32)
 
 
-@functools.lru_cache(maxsize=None)
+@profiling.counted_cache(maxsize=None)
 def _device_const(values: tuple, device: torch.device) -> torch.Tensor:
     """Kept for the process: a frame captured as a CUDA graph
     (``render/raster._StageGraphs``) reads these tensors by address."""

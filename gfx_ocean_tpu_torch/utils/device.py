@@ -25,16 +25,6 @@ def device_guard(device: torch.device):
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
-def check_current_device(device: torch.device, who: str) -> None:
-    """Raise unless ``device`` (a card) is the current device: a launch
-    through ctypes goes to the current device's context, whatever device
-    its tensors lie on."""
-    if torch.cuda.current_device() != device.index:
-        raise RuntimeError(f"{who}: tensors on {device} but the current device is "
-                           f"cuda:{torch.cuda.current_device()}; run under "
-                           f"torch.cuda.device({device})")
-
-
 def each_position(fn, *args):
     """``fn(*args)`` of tensors, or, when ``args[0]`` is a list (one entry a
     position of a mesh, ``parallel/``), ``fn`` position by position over

@@ -7,6 +7,8 @@
 - ``profile_kernels()``: the CUDA kernels of a few calls in one
   ``torch.profiler`` window, by kernel, with the window's wall clock.
 - ``Ema``: the reference's title-bar smoothing (avg = avg*0.9 + dt*0.1).
+- ``tally()`` / ``tallies()``: the process-wide table of counts, and
+  ``counted_cache``, an ``lru_cache`` whose misses it counts.
 - The recorder: ``span()``, ``count()`` and ``annotate()`` inside the
   program (a frame of ``render/raster.py``, a call of
   ``models/ocean.make_rollout``), kept in memory by window (``windows()``,
@@ -20,10 +22,11 @@ records a pair of ``torch.cuda.Event(enable_timing=True)`` on that device's
 current stream, resolved into its device time only when read. ``count``
 adds to a counter of the current unit (a count held in a device tensor is
 read when the unit closes, so nothing waits for the device before then);
-each unit also counts the growth of
-the kernel wrappers' ``launches`` / ``tiered_launches`` (``launches.<fn>``,
-``tiered_launches.<fn>``) and of the misses of the port's ``lru_cache``
-tables (``misses.<module>.<fn>``) between its start and its end.
+each unit also counts the growth of the process-wide table of counts
+between its start and its end. The table (``tally()``, ``tallies()``) holds
+the kernels' launches, which ``kernels.launch`` adds to
+(``launches.<wrapper>``, ``tiered_launches.<wrapper>``), and the misses
+of the tables declared with ``counted_cache`` (``misses.<module>.<fn>``).
 
 Recording is on while a ``torch.profiler`` session records (not in its
 warm-up steps), and inside ``with recording():``. A span with no recorded
@@ -44,6 +47,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import itertools
 import os
 import sys
@@ -174,27 +178,46 @@ class Ema:
 
 MAX_UNITS = 16384       # units kept over every window
 
-# The kernel wrappers whose ``launches`` / ``tiered_launches`` a unit
-# counts, and the port's lru_cache tables whose misses it counts, by module;
-# a module not yet imported has launched and built nothing.
-_LAUNCHERS = (
-    ("gfx_ocean_tpu_torch.ops.fused_step", ("launch_packed_step",)),
-    ("gfx_ocean_tpu_torch.ops.fourstep_step", ("launch_fourstep_row", "launch_fourstep_col")),
-    ("gfx_ocean_tpu_torch.ops.unpacked_step",
-     ("launch_unpacked_step", "launch_unpacked_rows", "launch_unpacked_cols")),
-    ("gfx_ocean_tpu_torch.render.raster",
-     ("launch_slot_kernel", "launch_segmin_kernel", "launch_giant_kernel")),
-)
-_CACHES = (
-    ("gfx_ocean_tpu_torch.kernels", ("load",)),
-    ("gfx_ocean_tpu_torch.ops.fft",
-     ("_table", "_tier_table", "table_fragments", "table_wgmma", "_twiddle_table")),
-    ("gfx_ocean_tpu_torch.ops.fourstep_step", ("_device_tables",)),
-    ("gfx_ocean_tpu_torch.ops.propagate", ("_khat_grid_cached",)),
-    ("gfx_ocean_tpu_torch.ops.derived", ("_sign_grid",)),
-    ("gfx_ocean_tpu_torch.render.raster", ("_mesh_constants", "_interp_matrices")),
-    ("gfx_ocean_tpu_torch.render.shade", ("_device_const",)),
-)
+_tallies: Dict[str, int] = {}   # the process-wide counts, by name
+_tallies_lock = threading.Lock()  # a server's threads launch and close units at once
+
+
+def tally(name: str, n: int = 1) -> None:
+    """Add ``n`` to the process-wide count ``name``: a recorded unit counts
+    its growth between the unit's start and its end."""
+    with _tallies_lock:
+        _tallies[name] = _tallies.get(name, 0) + n
+
+
+def tallies() -> Dict[str, int]:
+    """A copy of the process-wide counts, by name; a count never added to is
+    absent."""
+    with _tallies_lock:
+        return dict(_tallies)
+
+
+def grown(before: Dict[str, int]) -> Dict[str, int]:
+    """The counts that changed since ``before`` (a copy of ``tallies()``),
+    by how much."""
+    return {k: v - before.get(k, 0) for k, v in tallies().items() if v != before.get(k, 0)}
+
+
+def counted_cache(maxsize: Optional[int]):
+    """``functools.lru_cache(maxsize=maxsize)`` whose misses add to the
+    count ``misses.<the module's last name>.<fn>`` (``cache_info()`` and
+    ``cache_clear()`` as ``lru_cache``'s)."""
+    def decorate(fn: Callable) -> Callable:
+        name = f"misses.{fn.__module__.rsplit('.', 1)[-1]}.{fn.__name__}"
+
+        @functools.wraps(fn)
+        def missed(*args, **kwargs):
+            tally(name)
+            return fn(*args, **kwargs)
+
+        return functools.lru_cache(maxsize=maxsize)(missed)
+
+    return decorate
+
 
 _live = 0               # recorded units open on any thread, plus open recording() blocks
 _explicit = 0           # open recording() blocks
@@ -204,23 +227,6 @@ _tls = threading.local()  # .top: the innermost recorded span open on the thread
 _ids = itertools.count(1)
 _windows: "collections.deque[Window]" = collections.deque()
 _kept = 0               # units in _windows
-
-
-def _marks() -> Dict[str, int]:
-    """The launch counters and cache misses so far, by counter name."""
-    out = {}
-    for module, names in _LAUNCHERS:
-        mod = sys.modules.get(module)
-        for name in names if mod is not None else ():
-            fn = getattr(mod, name)
-            out["launches." + name] = fn.launches
-            if hasattr(fn, "tiered_launches"):
-                out["tiered_launches." + name] = fn.tiered_launches
-    for module, names in _CACHES:
-        mod = sys.modules.get(module)
-        for name in names if mod is not None else ():
-            out[f"misses.{module.rsplit('.', 1)[1]}.{name}"] = getattr(mod, name).cache_info().misses
-    return out
 
 
 class Unit:
@@ -234,7 +240,7 @@ class Unit:
         self.name, self.attrs, self.traced = name, attrs, traced
         self.spans: List[Span] = []
         self.counters: Dict[str, int] = {}
-        self._marks = _marks()
+        self._marks = tallies()
         self._pending: List[Tuple[str, torch.Tensor]] = []   # device counts, read at the close
 
     def _add(self, name: str, n: int) -> None:
@@ -244,11 +250,8 @@ class Unit:
         for name, value in self._pending:
             self._add(name, int(value))
         self._pending = []
-        before = self._marks
-        for name, value in _marks().items():
-            grew = value - before.get(name, 0)
-            if grew:
-                self._add(name, grew)
+        for name, n in grown(self._marks).items():
+            self._add(name, n)
 
     def named(self, name: str) -> list:
         return [s for s in self.spans if s.name == name]

@@ -40,6 +40,7 @@ from gfx_ocean_tpu_torch.ops import fused_step
 from gfx_ocean_tpu_torch.ops.derived import finite_difference_normals_planes
 from gfx_ocean_tpu_torch.ops.propagate import khat_pair
 from gfx_ocean_tpu_torch.spectra.phillips import dispersion, phillips_spectrum
+from gfx_ocean_tpu_torch.utils import profiling
 
 TOL = {"highest": 1e-6, "high": 2.4e-5}
 # Against the float64 golden: FP32 at "highest", the split tier's own error
@@ -47,6 +48,11 @@ TOL = {"highest": 1e-6, "high": 2.4e-5}
 GOLDEN = {"highest": 1e-6, "high": 2e-5}
 CHECKSUM_TOL = 1e-6
 FLAGS = {"default": {}, "canonical": dict(ref_sign=False), "wrap_k": dict(wrap_k=True)}
+
+
+def _launches(wrapper: str, kind: str = "launches") -> int:
+    """The process-wide count ``<kind>.<wrapper>`` (``profiling.tallies``)."""
+    return profiling.tallies().get(f"{kind}.{wrapper}", 0)
 
 
 def _state(n: int, seed: int = 0):
@@ -298,14 +304,14 @@ def test_cpu_tensors_take_the_plain_version():
     h0, om = _state(n, 7)
     _, tc = _configs(n)
     inputs = fs.hoist_fourstep(torch.from_numpy(h0), torch.from_numpy(om), tc)
-    rows, cols = fs.launch_fourstep_row.launches, fs.launch_fourstep_col.launches
+    rows, cols = _launches("launch_fourstep_row"), _launches("launch_fourstep_col")
     got = fused_step.packed_checksums(inputs, [1.0], tc)
     assert torch.equal(got, fs.fourstep_checksums_reference(inputs, [1.0], tc))
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         fs.launch_fourstep_row(inputs, [1.0], tc)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         fs.launch_fourstep_col(torch.zeros(1, 2, 2, n, n), inputs.twiddle, tc, checksum=True)
-    assert (fs.launch_fourstep_row.launches, fs.launch_fourstep_col.launches) == (rows, cols)
+    assert (_launches("launch_fourstep_row"), _launches("launch_fourstep_col")) == (rows, cols)
     # frames of a batch equal single frames (the plain version's matmuls may
     # block differently by batch; the kernels' frames are bit-identical)
     batch = fs.fourstep_planes_reference(inputs, [1.0, 2.5], tc)

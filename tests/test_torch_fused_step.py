@@ -33,6 +33,7 @@ from gfx_ocean_tpu.ops.pallas_step import pallas_checksums, pallas_fields, palla
 from gfx_ocean_tpu_torch.ops import fused_step, unpacked_step
 from gfx_ocean_tpu_torch.ops.derived import finite_difference_normals_planes
 from gfx_ocean_tpu_torch.spectra.phillips import dispersion, phillips_spectrum
+from gfx_ocean_tpu_torch.utils import profiling
 
 TOL = {"highest": 1e-6, "bf16x3": 8e-6}
 # Against the float64 golden: FP32 at "highest", the split tier's own error
@@ -41,6 +42,11 @@ GOLDEN = {"highest": 1e-6, "bf16x3": 2e-5}
 CHECKSUM_TOL = 1e-6
 FLAGS = [dict(), dict(ref_sign=False), dict(wrap_k=True)]
 FLAG_IDS = ["default", "canonical", "wrap_k"]
+
+
+def _launches(wrapper: str, kind: str = "launches") -> int:
+    """The process-wide count ``<kind>.<wrapper>`` (``profiling.tallies``)."""
+    return profiling.tallies().get(f"{kind}.{wrapper}", 0)
 
 
 def _state(n: int, seed: int = 0):
@@ -127,13 +133,13 @@ def test_cpu_tensors_take_the_plain_version():
     h0, om = _state(32, 5)
     _, tc = _configs(32, "bf16x3")
     inputs = fused_step.hoist_packed(torch.from_numpy(h0), torch.from_numpy(om), tc)
-    before = fused_step.launch_packed_step.launches
+    before = _launches("launch_packed_step")
     got = fused_step.packed_checksums(inputs, [1.0, 2.0], tc)
     assert torch.equal(got, fused_step.packed_checksums_reference(inputs, [1.0, 2.0], tc))
-    assert fused_step.launch_packed_step.launches == before
+    assert _launches("launch_packed_step") == before
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         fused_step.launch_packed_step(inputs, torch.tensor([1.0]), tc, checksum=False)
-    assert fused_step.launch_packed_step.launches == before
+    assert _launches("launch_packed_step") == before
 
 
 def test_unsupported_configurations_raise():

@@ -17,12 +17,14 @@ import functools
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from gfx_ocean_tpu_torch import kernels
 from gfx_ocean_tpu_torch.config import CompatFlags, OceanConfig, PhillipsConfig
 from gfx_ocean_tpu_torch.ops import fourstep_step as fs
 from gfx_ocean_tpu_torch.ops import fused_step
@@ -32,6 +34,7 @@ from gfx_ocean_tpu_torch.ops.propagate import band_windows
 from gfx_ocean_tpu_torch.render import raster as rr
 from gfx_ocean_tpu_torch.render.camera import Camera
 from gfx_ocean_tpu_torch.spectra.phillips import dispersion, synthesize
+from gfx_ocean_tpu_torch.utils import profiling
 
 REPO = Path(__file__).resolve().parent.parent
 # Kernel vs plain, |diff| / max |field|: at "highest" both FP32, FFT against
@@ -52,6 +55,11 @@ TOL_BODY = {"highest": TOL_PLANES, "bf16x3": 2.5e-5, "default": 4e-3}
 BODIES = ["highest", "bf16x3", "default"]
 # Checksums, |diff| / sum of |summands| (a frame's checksum nearly cancels).
 TOL_CHECKSUM = 1e-5
+
+
+def _launches(wrapper: str, kind: str = "launches") -> int:
+    """The process-wide count ``<kind>.<wrapper>`` (``profiling.tallies``)."""
+    return profiling.tallies().get(f"{kind}.{wrapper}", 0)
 
 
 @pytest.fixture
@@ -111,9 +119,9 @@ def test_packed_step_frames_identical_for_every_time_batch(cuda, precision):
 @pytest.mark.cuda
 def test_packed_step_counts_launches_and_rejects_bad_inputs(cuda):
     cfg, inputs = _inputs(64, CompatFlags(), cuda)
-    before = fused_step.launch_packed_step.launches
+    before = _launches("launch_packed_step")
     fused_step.packed_checksums(inputs, [1.0, 2.0], cfg)
-    assert fused_step.launch_packed_step.launches == before + 1
+    assert _launches("launch_packed_step") == before + 1
     with pytest.raises(ValueError, match="contiguous float32"):
         fused_step.launch_packed_step(inputs._replace(h0=inputs.h0.double()),
                                       [1.0], cfg, checksum=False)
@@ -124,7 +132,7 @@ def test_packed_step_counts_launches_and_rejects_bad_inputs(cuda):
         fused_step.launch_packed_step(
             inputs._replace(h0=inputs.h0[:, :32, :32].contiguous()),
             [1.0], cfg, checksum=False)
-    assert fused_step.launch_packed_step.launches == before + 1
+    assert _launches("launch_packed_step") == before + 1
 
 
 @pytest.mark.cuda
@@ -165,9 +173,9 @@ def test_packed_step_cascade_axis(cuda, n, precision):
     cfg, h0, omega, inputs = _cascade_inputs(n, 3, cuda, matmul_precision=precision)
     assert isinstance(inputs, fused_step.PackedInputs) and inputs.h0.shape == (3, 2, n, n)
     ts = torch.tensor([0.0, 3.25, 11.25, 1000.0], device=cuda)
-    before = fused_step.launch_packed_step.launches
+    before = _launches("launch_packed_step")
     got = fused_step.packed_planes(inputs, ts, cfg)
-    assert fused_step.launch_packed_step.launches == before + 1
+    assert _launches("launch_packed_step") == before + 1
     assert got.shape == (4, 3, 3, n, n) and torch.isfinite(got).all()
     want = fused_step.packed_planes_reference(inputs, ts, cfg)
     assert _rel(got, want) < TOL_BODY[precision]
@@ -197,10 +205,10 @@ def test_cascades_on_the_routes_without_a_cascade_axis(cuda, kw):
     cfg, h0, omega, inputs = _cascade_inputs(n, 2, cuda, **kw)
     assert isinstance(inputs, fused_step.CascadeInputs)
     ts = torch.tensor([0.5, 11.25], device=cuda)
-    counters = (fs.launch_fourstep_row, us.launch_unpacked_step, us.launch_unpacked_rows)
-    before = [f.launches for f in counters]
+    counters = ("launch_fourstep_row", "launch_unpacked_step", "launch_unpacked_rows")
+    before = [_launches(f) for f in counters]
     planes = fused_step.packed_planes(inputs, ts, cfg)
-    assert sum(f.launches - b for f, b in zip(counters, before)) == 2
+    assert sum(_launches(f) - b for f, b in zip(counters, before)) == 2
     for c in range(2):
         one = fused_step.hoist_packed(h0[c], omega[c], cfg)
         assert torch.equal(planes[:, c], fused_step.packed_planes(one, ts, cfg))
@@ -357,9 +365,9 @@ def test_sharded_fourstep_step_on_one_card(cuda):
     cfg, inputs = _fourstep_inputs(1024, CompatFlags(), cuda)
     state = OceanState(inputs.h0, inputs.omega)
     mesh = make_mesh([cuda] * 4, batch=1, row=4)
-    rows = fs.launch_fourstep_row.launches
+    rows = _launches("launch_fourstep_row")
     got = make_sharded_step(cfg, mesh, batched=False)(shard_state(state, mesh), 11.25)
-    assert fs.launch_fourstep_row.launches == rows + 4
+    assert _launches("launch_fourstep_row") == rows + 4
     assert torch.equal(got.displacement.gather(), make_step(cfg)(state, 11.25).displacement)
 
 
@@ -389,11 +397,11 @@ def test_fourstep_16384_on_row_and_column_bands(cuda, precision):
     cfg, inputs = _big_inputs(cuda, precision)
     n = cfg.resolution
     ts = [11.25]
-    rows, cols = fs.launch_fourstep_row.launches, fs.launch_fourstep_col.launches
+    rows, cols = _launches("launch_fourstep_row"), _launches("launch_fourstep_col")
     y = fs.launch_fourstep_row(inputs, ts, cfg)
     planes, partials = fs.launch_fourstep_col(y, inputs.twiddle, cfg, checksum=True)
-    assert fs.launch_fourstep_row.launches == rows + 1
-    assert fs.launch_fourstep_col.launches == cols + 1
+    assert _launches("launch_fourstep_row") == rows + 1
+    assert _launches("launch_fourstep_col") == cols + 1
     assert y.shape == (1, 2, 2, n, n) and planes.shape == (1, 3, n, n)
     for base in (n // 2 - 3, n - 16):
         want = fs.fourstep_row_reference(inputs, ts, cfg, row_base=base, rows=16)
@@ -459,13 +467,13 @@ def test_split_tiers_run_one_body(cuda, n):
 @pytest.mark.cuda
 def test_fourstep_counts_launches_and_rejects_bad_inputs(cuda):
     cfg, inputs = _fourstep_inputs(1024, CompatFlags(), cuda)
-    rows, cols = fs.launch_fourstep_row.launches, fs.launch_fourstep_col.launches
-    k1 = fused_step.launch_packed_step.launches
+    rows, cols = _launches("launch_fourstep_row"), _launches("launch_fourstep_col")
+    k1 = _launches("launch_packed_step")
     fused_step.packed_checksums(inputs, [1.0, 2.0], cfg)
     fused_step.packed_planes(inputs, [1.0], cfg)
-    assert fs.launch_fourstep_row.launches == rows + 2
-    assert fs.launch_fourstep_col.launches == cols + 2
-    assert fused_step.launch_packed_step.launches == k1
+    assert _launches("launch_fourstep_row") == rows + 2
+    assert _launches("launch_fourstep_col") == cols + 2
+    assert _launches("launch_packed_step") == k1
 
     def rejected(match, fn):
         with pytest.raises(ValueError, match=match):
@@ -497,8 +505,8 @@ def test_fourstep_counts_launches_and_rejects_bad_inputs(cuda):
         y.double(), inputs.twiddle, cfg, checksum=False))
     rejected("needs CUDA tensors", lambda: fs.launch_fourstep_col(
         y.cpu(), inputs.twiddle, cfg, checksum=False))
-    assert fs.launch_fourstep_row.launches == rows + 2
-    assert fs.launch_fourstep_col.launches == cols + 2
+    assert _launches("launch_fourstep_row") == rows + 2
+    assert _launches("launch_fourstep_col") == cols + 2
 
 
 def _unpacked_inputs(n: int, flags: CompatFlags, device, precision: str = "bf16x3") -> tuple:
@@ -529,10 +537,11 @@ def test_unpacked_step_kernel_matches_plain(cuda, n, flags, precision):
     single = us.unpacked_route(cfg, n) == "single"
     assert isinstance(inputs, us.UnpackedInputs) and single == (precision != "highest" or n < 512)
     ts = torch.tensor([0.0, 3.25, 11.25, 1000.0], device=cuda)
-    before = us.launch_unpacked_step.launches, us.launch_unpacked_step.tiered_launches
+    before = _launches("launch_unpacked_step"), _launches("launch_unpacked_step", "tiered_launches")
     got = (fused_step.packed_planes(inputs, ts, cfg) if single
            else us.launch_unpacked_step(inputs, ts, cfg))
-    assert (us.launch_unpacked_step.launches, us.launch_unpacked_step.tiered_launches) == (
+    assert (_launches("launch_unpacked_step"),
+            _launches("launch_unpacked_step", "tiered_launches")) == (
         before[0] + 1, before[1] + int(precision != "highest"))
     want = us.unpacked_planes_reference(inputs, ts, cfg)
     assert got.shape == (4, 3, n, n) and torch.isfinite(got).all()
@@ -560,12 +569,12 @@ def test_unpacked_blocked_kernels_match_plain(cuda, n):
     assert torch.equal(us.launch_unpacked_step(inputs, ts, cfg), planes)
     if n == 512:
         assert us.unpacked_route(cfg, n) == "blocked"
-        k5, k6 = us.launch_unpacked_rows.launches, us.launch_unpacked_cols.launches
-        k4 = us.launch_unpacked_step.launches
+        k5, k6 = _launches("launch_unpacked_rows"), _launches("launch_unpacked_cols")
+        k4 = _launches("launch_unpacked_step")
         assert torch.equal(fused_step.packed_planes(inputs, ts, cfg), planes)
         assert _checksum_rel(fused_step.packed_checksums(inputs, ts, cfg), want, cfg) < TOL_CHECKSUM
-        assert (us.launch_unpacked_rows.launches, us.launch_unpacked_cols.launches,
-                us.launch_unpacked_step.launches) == (k5 + 2, k6 + 2, k4)
+        assert (_launches("launch_unpacked_rows"), _launches("launch_unpacked_cols"),
+                _launches("launch_unpacked_step")) == (k5 + 2, k6 + 2, k4)
 
 
 @pytest.mark.cuda
@@ -604,13 +613,13 @@ def test_unpacked_frames_identical_for_every_time_batch(cuda, precision):
 @pytest.mark.cuda
 def test_unpacked_counts_launches_and_rejects_bad_inputs(cuda):
     cfg, inputs = _unpacked_inputs(64, CompatFlags(), cuda)
-    counts = (us.launch_unpacked_step.launches, us.launch_unpacked_rows.launches,
-              us.launch_unpacked_cols.launches)
-    tiered = us.launch_unpacked_step.tiered_launches
+    counts = (_launches("launch_unpacked_step"), _launches("launch_unpacked_rows"),
+              _launches("launch_unpacked_cols"))
+    tiered = _launches("launch_unpacked_step", "tiered_launches")
     fused_step.packed_checksums(inputs, [1.0, 2.0], cfg)
-    assert us.launch_unpacked_step.launches == counts[0] + 1
-    assert us.launch_unpacked_step.tiered_launches == tiered + 1  # K4t at "bf16x3"
-    k1 = fused_step.launch_packed_step.launches
+    assert _launches("launch_unpacked_step") == counts[0] + 1
+    assert _launches("launch_unpacked_step", "tiered_launches") == tiered + 1  # K4t at "bf16x3"
+    k1 = _launches("launch_packed_step")
 
     def rejected(match, fn):
         with pytest.raises(ValueError, match=match):
@@ -632,9 +641,9 @@ def test_unpacked_counts_launches_and_rejects_bad_inputs(cuda):
                             torch.zeros(1024, 1024, device=cuda), torch.zeros(2, 512, device=cuda))
     rejected("power of two N", lambda: us.launch_unpacked_step(big, [1.0], cfg))
     rejected("FP32 FFT body", lambda: us.launch_unpacked_rows(inputs, [1.0], cfg))
-    assert (us.launch_unpacked_step.launches, us.launch_unpacked_rows.launches,
-            us.launch_unpacked_cols.launches) == (counts[0] + 1, counts[1], counts[2])
-    assert fused_step.launch_packed_step.launches == k1
+    assert (_launches("launch_unpacked_step"), _launches("launch_unpacked_rows"),
+            _launches("launch_unpacked_cols")) == (counts[0] + 1, counts[1], counts[2])
+    assert _launches("launch_packed_step") == k1
 
 
 def _render_disp(device) -> torch.Tensor:
@@ -772,12 +781,12 @@ def test_segmin_kernel_is_one_launch_a_call(cuda):
                           .astype(np.int32)).to(cuda)
     rr.launch_segmin_kernel(so, sk, n_oct, 17)
     torch.cuda.synchronize()
-    before = rr.launch_segmin_kernel.launches
+    before = _launches("launch_segmin_kernel")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             rr.launch_segmin_kernel(so, sk, n_oct, 17)
         torch.cuda.synchronize()
-    assert rr.launch_segmin_kernel.launches == before + calls
+    assert _launches("launch_segmin_kernel") == before + calls
     counts = {e.key: e.count for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA and e.count}
     k8 = sum(c for k, c in counts.items() if "segmin_lookback" in k)
@@ -824,12 +833,12 @@ def test_frame_through_kernels_equals_plain_and_bands(cuda, pose):
     vp = rr._view_proj(cam, w, h, cuda)
     cp = torch.tensor(cam.position.astype(np.float32), device=cuda)
     args = (disp, positions, uvs, tris, vp, cp)
-    k7, k8 = rr.launch_slot_kernel.launches, rr.launch_segmin_kernel.launches
-    k9 = rr.launch_giant_kernel.launches
+    k7, k8 = _launches("launch_slot_kernel"), _launches("launch_segmin_kernel")
+    k9 = _launches("launch_giant_kernel")
     full, fz = rr._rasterize_pool(*args, w, h, rr._auto_pool(w, h), 512, interp, (patches, res))
-    assert rr.launch_slot_kernel.launches == k7 + 1
-    assert rr.launch_segmin_kernel.launches == k8 + 1
-    assert rr.launch_giant_kernel.launches == k9 + 1
+    assert _launches("launch_slot_kernel") == k7 + 1
+    assert _launches("launch_segmin_kernel") == k8 + 1
+    assert _launches("launch_giant_kernel") == k9 + 1
     with _PlainRaster():
         plain, pz = rr._rasterize_pool(*args, w, h, rr._auto_pool(w, h), 512, interp,
                                        (patches, res))
@@ -847,7 +856,7 @@ def test_raster_kernels_reject_bad_inputs(cuda):
     tabs, _ = _slot_tables(cuda, 96, 64)
     cov = rr._stage_scalars(tabs.total_covered, 0, cuda)
     ib = tabs.id_bits
-    k7, k8 = rr.launch_slot_kernel.launches, rr.launch_segmin_kernel.launches
+    k7, k8 = _launches("launch_slot_kernel"), _launches("launch_segmin_kernel")
 
     def rejected(match, fn):
         with pytest.raises(ValueError, match=match):
@@ -868,8 +877,8 @@ def test_raster_kernels_reject_bad_inputs(cuda):
         so.to(torch.int64), torch.zeros((5, 16), dtype=torch.int32, device=cuda), 8, 17))
     rejected("needs CUDA tensors", lambda: rr.launch_segmin_kernel(
         so.cpu(), torch.zeros((5, 16), dtype=torch.int32), 8, 17))
-    assert rr.launch_slot_kernel.launches == k7
-    assert rr.launch_segmin_kernel.launches == k8
+    assert _launches("launch_slot_kernel") == k7
+    assert _launches("launch_segmin_kernel") == k8
 
 
 # (width, height, mesh, pose, y_origin, full_height, pool, crossing): K9's
@@ -945,12 +954,12 @@ def test_giant_kernel_whole_frame_equals_plain(cuda):
         args = (disp, positions, uvs, tris, rr._view_proj(cam, w, h, cuda),
                 torch.tensor(cam.position.astype(np.float32), device=cuda), w, h,
                 pool or rr._auto_pool(w, h), 512, interp, (4, 128))
-        k9 = rr.launch_giant_kernel.launches
+        k9 = _launches("launch_giant_kernel")
         img, z, dropped = rr._rasterize_pool(*args, with_diag=True)
-        assert rr.launch_giant_kernel.launches == k9 + 1
+        assert _launches("launch_giant_kernel") == k9 + 1
         with _PlainRaster():
             plain, pz = rr._rasterize_pool(*args)
-        assert rr.launch_giant_kernel.launches == k9 + 1
+        assert _launches("launch_giant_kernel") == k9 + 1
         assert torch.equal(img, plain) and torch.equal(z, pz)
         assert (int(dropped) > 0) == (pool is not None)
 
@@ -961,7 +970,7 @@ def test_giant_kernel_rejects_bad_inputs(cuda):
     tris = rr._mesh_constants(32, 4, cuda)[2]
     key_img = torch.full((64, 96), rr.KEY_MAX, dtype=torch.int64, device=cuda)
     args = list(_giant_inputs(tabs, tris, key_img, 96, 64, fh, 0))
-    k9 = rr.launch_giant_kernel.launches
+    k9 = _launches("launch_giant_kernel")
 
     def rejected(match, **swap):
         names = ("ids", "ok", "clip", "tris", "score", "key_img")
@@ -982,7 +991,7 @@ def test_giant_kernel_rejects_bad_inputs(cuda):
     rejected("contiguous", clip=args[2].cpu())
     with pytest.raises(ValueError, match="out of range"):
         rr.launch_giant_kernel(*args[:-1], 25)
-    assert rr.launch_giant_kernel.launches == k9
+    assert _launches("launch_giant_kernel") == k9
 
 
 # --- the frame's stages as CUDA graphs (render/raster._StageGraphs) ---------
@@ -1171,8 +1180,6 @@ def test_graph_counters_after_the_warm_up(cuda):
     later frame replays them (``graph.replays`` 6, no capture), launches
     K1t by its wrapper and K7, K8 and K9 once each inside the graphs, and
     counts the giant selection as the eager frame does."""
-    from gfx_ocean_tpu_torch.utils import profiling  # noqa: PLC0415
-
     state = _card_state(SMALL, cuda)
     fn = rr.make_frame_renderer(SMALL, 96, 64)
     vp, cp = _view(SKIMMING, 96, 64, cuda)
@@ -1256,6 +1263,74 @@ def test_import_leaves_out_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# --- the launch boundary (kernels.launch) on the CPU, against a stand-in library
+
+STAND_IN_CARD = torch.device("cuda", 0)
+
+
+class _StandInLibrary:
+    """A kernel library's stand-in: ``slot_stage`` records its arguments and
+    returns ``code``; ``raster_error_string`` is the library's text."""
+
+    def __init__(self):
+        self.code, self.calls = 0, []
+
+    def slot_stage(self, *args):
+        self.calls.append(args)
+        return self.code
+
+    def raster_error_string(self, err):
+        return f"stand-in error text {err}".encode()
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    """``kernels.load`` hands out a stand-in library, card 0 is the current
+    device and its current stream is 7."""
+    lib = _StandInLibrary()
+    monkeypatch.setattr(kernels, "load", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=7))
+    return lib
+
+
+@pytest.mark.parametrize("tiered", [False, True])
+def test_launch_counts_one_launch_and_a_tiered_one_where_asked(stand_in, tiered):
+    """One call: the entry point gets the arguments and the current stream,
+    the table one ``launches.<counter>``, and one ``tiered_launches.<counter>``
+    where asked."""
+    before = profiling.tallies()
+    kernels.launch("launch_stand_in", "raster", "slot_stage", 3, None, device=STAND_IN_CARD,
+                   tiered=tiered)
+    ((three, null, stream),) = stand_in.calls
+    assert (three, null, stream.value) == (3, None, 7)
+    want = {"launches.launch_stand_in": 1}
+    if tiered:
+        want["tiered_launches.launch_stand_in"] = 1
+    assert profiling.grown(before) == want
+
+
+def test_launch_raises_with_the_library_message_and_counts_nothing(stand_in):
+    stand_in.code = 700
+    before = profiling.tallies()
+    with pytest.raises(RuntimeError, match=r"launch_stand_in: slot_stage \(tiered\) failed to "
+                                           r"launch: CUDA error 700 \(stand-in error text 700\)"):
+        kernels.launch("launch_stand_in", "raster", "slot_stage", 3, device=STAND_IN_CARD,
+                       tiered=True)
+    assert len(stand_in.calls) == 1 and profiling.grown(before) == {}
+
+
+def test_launch_raises_off_the_current_device(stand_in, monkeypatch):
+    """A ctypes launch goes to the current device's context: a card that is
+    not the current device raises before the call, and counts nothing."""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    before = profiling.tallies()
+    with pytest.raises(RuntimeError, match="current device is cuda:1"):
+        kernels.launch("launch_stand_in", "raster", "slot_stage", device=STAND_IN_CARD)
+    assert stand_in.calls == [] and profiling.grown(before) == {}
 
 
 def test_import_does_not_initialize_cuda():

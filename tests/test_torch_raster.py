@@ -23,12 +23,18 @@ import gfx_ocean_tpu_torch as T
 from gfx_ocean_tpu_torch.render import raster as tr
 from gfx_ocean_tpu_torch.render.camera import Camera
 from gfx_ocean_tpu_torch.spectra.phillips import dispersion, phillips_spectrum
+from gfx_ocean_tpu_torch.utils import profiling
 
 CPU = torch.device("cpu")
 SKIMMING = (np.array([31.0, 2.5, 55.0]), np.zeros(3))
 # Slot pool of the small frames (the default's 2^18-slot floor is ~250K dead
 # slots at 96x64, which the plain versions would pay for on the CPU).
 POOL = 32_768
+
+
+def _launches(wrapper: str, kind: str = "launches") -> int:
+    """The process-wide count ``<kind>.<wrapper>`` (``profiling.tallies``)."""
+    return profiling.tallies().get(f"{kind}.{wrapper}", 0)
 
 
 def _disp64() -> np.ndarray:
@@ -265,12 +271,12 @@ def test_giant_pass_takes_the_plain_version_on_cpu(monkeypatch):
     plain = tr.giant_pass_reference
     monkeypatch.setattr(tr, "giant_pass_reference",
                         lambda *a: calls.append(a[0].shape[0]) or plain(*a))
-    k9 = tr.launch_giant_kernel.launches
+    k9 = _launches("launch_giant_kernel")
     got, counts = tr._giant_pass(tabs.clip, tris, tabs.score, key_img, 80, 48, 64, tabs.id_bits)
     ids, ok, active = tr._giant_selection(tabs.score, 64)
     groups = -(-int(active) // 32)
     assert counts.tolist() == [int(active), groups] and ids.shape == (2, 32)
-    assert calls == [groups] and groups > 0 and tr.launch_giant_kernel.launches == k9
+    assert calls == [groups] and groups > 0 and _launches("launch_giant_kernel") == k9
     assert torch.isinf(tabs.score[ids[ok]]).any()
     want = key_img
     for g in range(groups):
@@ -313,11 +319,11 @@ def test_wrappers_take_plain_versions_on_cpu():
     """CPU tensors go through the plain versions: no kernel is launched."""
     disp = _disp64()
     tabs, _ = _tables(disp)
-    k7, k8 = tr.launch_slot_kernel.launches, tr.launch_segmin_kernel.launches
+    k7, k8 = _launches("launch_slot_kernel"), _launches("launch_segmin_kernel")
     img = tr.render_frame(torch.from_numpy(disp), Camera(), 96, 64, mesh_resolution=64,
                           pool=POOL)
     assert img.device.type == "cpu" and torch.isfinite(img).all()
-    assert (tr.launch_slot_kernel.launches, tr.launch_segmin_kernel.launches) == (k7, k8)
+    assert (_launches("launch_slot_kernel"), _launches("launch_segmin_kernel")) == (k7, k8)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         tr.launch_slot_kernel(tabs.crow, torch.zeros(2, dtype=torch.int32), 96, 64,
                               tabs.octs_w, 0, 32 - tabs.id_bits, tabs.id_bits)

@@ -18,7 +18,9 @@ that the stage spans carry device times:
 
 from __future__ import annotations
 
+import functools
 import json
+import sys
 import threading
 
 import numpy as np
@@ -84,7 +86,7 @@ def test_off_by_default_records_nothing_and_hands_out_one_object(monkeypatch):
 
     monkeypatch.setattr(torch.profiler, "record_function", no_call)
     monkeypatch.setattr(torch.cuda, "Event", no_call)
-    monkeypatch.setattr(profiling, "_marks", no_call)
+    monkeypatch.setattr(profiling, "tallies", no_call)
     draw(2.0)
     rollout(state, np.arange(6) / 60.0)
     assert [list(w.units) for w in profiling.windows()] == before
@@ -241,27 +243,108 @@ def test_second_frame_and_call_build_nothing():
         assert not [k for k in unit.counters if k.startswith("misses.")], unit.counters
 
 
+def test_counted_cache_misses_count_in_a_unit():
+    """A table declared with ``counted_cache`` counts its misses in a
+    recorded unit as ``misses.<module>.<fn>`` and keeps ``lru_cache``'s
+    ``cache_info`` and ``cache_clear``; an ``lru_cache`` table without it
+    adds no counter."""
+    @profiling.counted_cache(maxsize=4)
+    def doubled(x):
+        return 2 * x
+
+    @functools.lru_cache(maxsize=4)
+    def tripled(x):
+        return 3 * x
+
+    with profiling.recording():
+        with profiling.span("unit") as top:
+            got = [doubled(1), doubled(1), doubled(2), tripled(1), tripled(2)]
+    assert got == [2, 2, 4, 3, 6]
+    assert top.unit.counters == {f"misses.{__name__.rsplit('.', 1)[-1]}.doubled": 2}
+    info = doubled.cache_info()
+    assert (info.hits, info.misses, info.maxsize, info.currsize) == (1, 2, 4, 2)
+    doubled.cache_clear()
+    assert doubled.cache_info().currsize == 0
+
+
+def test_tallies_lose_no_update_across_threads(monkeypatch):
+    """Threads adding to one count and to counts of their own, and reading
+    the table's growth meanwhile, at a short switch interval: no update is
+    lost and no reader fails."""
+    monkeypatch.setattr(profiling, "_tallies", {})
+    workers, reps = 8, 2000
+    errors = []
+
+    def work(k):
+        try:
+            for i in range(reps):
+                profiling.tally("launches.shared")
+                if i % 50 == 0:
+                    profiling.tally(f"launches.own{k}.{i}")
+                profiling.grown({})
+        except Exception as e:  # noqa: BLE001 - reported by the assertion below
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(k,)) for k in range(workers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and errors == []
+    counts = profiling.tallies()
+    assert counts.pop("launches.shared") == workers * reps
+    assert counts == {f"launches.own{k}.{i}": 1 for k in range(workers)
+                      for i in range(0, reps, 50)}
+
+
 def test_launch_counters_grow_inside_a_unit():
     with profiling.recording():
         with profiling.span("unit") as top:
-            tr.launch_slot_kernel.launches += 2
-            tr.launch_segmin_kernel.launches += 1
-    tr.launch_slot_kernel.launches -= 2
-    tr.launch_segmin_kernel.launches -= 1
+            profiling.tally("launches.launch_slot_kernel", 2)
+            profiling.tally("launches.launch_segmin_kernel")
+    profiling.tally("launches.launch_slot_kernel", -2)
+    profiling.tally("launches.launch_segmin_kernel", -1)
     assert top.unit.counters == {"launches.launch_slot_kernel": 2,
                                  "launches.launch_segmin_kernel": 1}
 
 
-def test_giant_kernel_launches_count_in_a_unit():
-    """K9's wrapper is among those whose launches a unit counts, so a frame
-    whose giant pass runs reads ``launches.launch_giant_kernel`` 1; a CPU
-    frame, whose giant pass takes the plain version, reads none."""
-    assert "launch_giant_kernel" in dict(profiling._LAUNCHERS)["gfx_ocean_tpu_torch.render.raster"]
+def test_giant_kernel_launches_count_in_a_unit(monkeypatch):
+    """K9's wrapper counts through ``kernels.launch``, so a frame whose
+    giant pass runs reads ``launches.launch_giant_kernel`` 1; a CPU frame,
+    whose giant pass takes the plain version, reads none. The launch runs
+    here against a stand-in library, with the card's device and stream
+    stubbed, on CPU tensors."""
+    from gfx_ocean_tpu_torch import kernels  # noqa: PLC0415
+
+    calls = []
+
+    class Library:
+        def giant_pass(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(kernels, "load", lambda name: Library())
+    monkeypatch.setattr(kernels, "cuda_device", lambda x, who: x.device)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: type("S", (), {"cuda_stream": 7}))
+    g, n_tris = 2, 6
+    ids = torch.zeros((g, 32), dtype=torch.int64)
+    key_img = torch.zeros((4, 8), dtype=torch.int64)
     with profiling.recording():
         with profiling.span("unit") as top:
-            tr.launch_giant_kernel.launches += 1
-    tr.launch_giant_kernel.launches -= 1
+            out = tr.launch_giant_kernel(ids, torch.zeros((g, 32), dtype=torch.bool),
+                                         torch.zeros((3, 4)), torch.zeros((n_tris, 3),
+                                                                         dtype=torch.int64),
+                                         torch.zeros(n_tris), key_img, 8, 4, 4, 0, 17)
     assert top.unit.counters == {"launches.launch_giant_kernel": 1}
+    (args,) = calls
+    assert out.shape == key_img.shape and args[2] == g * 32 and args[-1].value == 7
+    monkeypatch.undo()
     draw = _frame(pool=64, giants=32)              # the giant pass runs
     draw(0.0)
     _, (unit,) = _recorded(lambda: draw(1.0))

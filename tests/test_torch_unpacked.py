@@ -41,6 +41,7 @@ from gfx_ocean_tpu_torch.ops.derived import finite_difference_normals_planes
 from gfx_ocean_tpu_torch.render import camera as tcam
 from gfx_ocean_tpu_torch.render import raster as tr
 from gfx_ocean_tpu_torch.spectra.phillips import dispersion, phillips_spectrum
+from gfx_ocean_tpu_torch.utils import profiling
 
 TOL = {"highest": 1e-6, "bf16x3": 5e-5}
 # At 512^2 against the JAX matmul route, which sums in another order and
@@ -59,6 +60,11 @@ GOLDEN_TOL = 1e-5
 FLAGS = [dict(), dict(wrap_k=True), dict(ref_sign=False), dict(conj_neg=True)]
 FLAG_IDS = ["default", "wrap_k", "canonical", "conj_neg"]
 TIERS = ["bf16x3", "bf16x4", "high", "highest", "default"]
+
+
+def _launches(wrapper: str, kind: str = "launches") -> int:
+    """The process-wide count ``<kind>.<wrapper>`` (``profiling.tallies``)."""
+    return profiling.tallies().get(f"{kind}.{wrapper}", 0)
 
 
 def _state(n: int, seed: int = 0):
@@ -270,8 +276,8 @@ def test_cpu_tensors_take_the_plain_version():
     h0, om = _state(32, 6)
     _, tc = _configs(32, "bf16x3")
     inputs = _hoist(h0, om, tc)
-    counts = (us.launch_unpacked_step.launches, us.launch_unpacked_rows.launches,
-              us.launch_unpacked_cols.launches)
+    counts = (_launches("launch_unpacked_step"), _launches("launch_unpacked_rows"),
+              _launches("launch_unpacked_cols"))
     got = fused_step.packed_checksums(inputs, [1.0, 2.0], tc)
     assert torch.equal(got, fused_step.checksums_of_planes(
         us.unpacked_planes_reference(inputs, [1.0, 2.0], tc), tc))
@@ -280,8 +286,8 @@ def test_cpu_tensors_take_the_plain_version():
                    lambda: us.launch_unpacked_cols(torch.zeros(1, 3, 2, 32, 32), inputs)):
         with pytest.raises(ValueError, match="needs CUDA tensors"):
             launch()
-    assert counts == (us.launch_unpacked_step.launches, us.launch_unpacked_rows.launches,
-                      us.launch_unpacked_cols.launches)
+    assert counts == (_launches("launch_unpacked_step"), _launches("launch_unpacked_rows"),
+                      _launches("launch_unpacked_cols"))
 
 
 @pytest.mark.parametrize("precision,route", [("bf16x3", "single"), ("highest", "blocked")])

@@ -47,8 +47,6 @@ def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    import gfx_ocean_tpu_torch.ops.fused_step  # noqa: F401  (the counters a unit reads)
-    import gfx_ocean_tpu_torch.render.raster  # noqa: F401
     from gfx_ocean_tpu_torch.utils import profiling
 
     if not torch.cuda.is_available():
