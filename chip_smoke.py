@@ -534,7 +534,7 @@ K2_SPLIT_KERNELS = ("fourstep_row_pass_split",)
 K7_KERNELS = ("slot_kernel",)
 K8_KERNELS = ("segmin_lookback",)
 K9_KERNELS = ("giant_kernel",)
-K1T_KERNELS = ("packed_row_tier", "packed_col_tier", "checksum_partials")
+K1T_KERNELS = ("packed_spectra_tier", "packed_row_tier", "packed_col_tier", "checksum_partials")
 # K2t's stage 2 runs inside fourstep_row_tier1 at N <= 4096; fourstep_tier2
 # is the stage 2 from the scratch (K2t at N >= 8192, K3t at every N).
 K2T_KERNELS = ("fourstep_row_tier1", "fourstep_tier2")
@@ -1873,7 +1873,7 @@ def run_cascades(dev) -> dict:
     from gfx_ocean_tpu_torch.ops import fused_step
     from gfx_ocean_tpu_torch.ops import unpacked_step as us
     from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, finite_difference_normals_planes
-    from gfx_ocean_tpu_torch.ops.fft import kernel_passes, kernel_tier, table_fragments
+    from gfx_ocean_tpu_torch.ops.fft import kernel_passes, kernel_tier, table_slots
     from gfx_ocean_tpu_torch.render import raster as rr
     from gfx_ocean_tpu_torch.render.camera import Camera
     from gfx_ocean_tpu_torch.utils.complexpair import from_pair_np
@@ -1956,9 +1956,9 @@ def run_cascades(dev) -> dict:
                                         body_kernels(cfg.matmul_precision, K1_KERNELS,
                                                      K1T_KERNELS), TIMING_CALLS)
     # config 4 runs K1's tiered body at the default "bf16x3": 3 passes of
-    # 28 N^3 a frame on the tensor cores, the table's fragments read
+    # 28 N^3 a frame on the tensor cores, the table's slots read
     passes = kernel_passes(cfg.matmul_precision)
-    frag = table_fragments(("alt", N, 1, 0, False), dev, kernel_tier(cfg.matmul_precision))
+    frag = table_slots(("alt", N, 1, 0, False), dev, kernel_tier(cfg.matmul_precision))
     k1c_bound = bound(nbytes(state.h0, state.omega, frag, ts_tb)
                       + 4 * cc * TIME_BATCH * (3 * N * N + N // fused_step.CHECKSUM_ROWS),
                       passes * 28.0 * N ** 3 * cc * TIME_BATCH, BF16_OPS_PER_S)
@@ -3031,7 +3031,7 @@ def run_tier_k1(dev) -> dict:
     del spec
     cfg = ot.OceanConfig(resolution=n, fft_impl="pallas")  # the headline: bf16x3
     inputs = fused_step.hoist_packed(state.h0, state.omega, cfg)
-    frag = tfft.table_fragments(("alt", n, 1, 0, False), dev, "bf16x3")
+    frag = tfft.table_slots(("alt", n, 1, 0, False), dev, "bf16x3")
     ops = {t: tfft.kernel_passes(t) * 28.0 * n ** 3 * TIME_BATCH for t in ("bf16x3", "default")}
     io = (nbytes(state.h0, state.omega, ts6)
           + 4 * TIME_BATCH * (3 * n * n + n // fused_step.CHECKSUM_ROWS))
@@ -3061,7 +3061,8 @@ def run_tier_k1(dev) -> dict:
     r = rec["bf16x3"]
     return {
         "name": "K1t packed_step tiered body (bf16 tensor-core DFT: 3 passes at "
-                "bf16x3 / high / bf16x4, 1 at default; cascades on grid axis z)",
+                "bf16x3 / high / bf16x4, 1 at default; wgmma, persistent product passes over "
+                "work items of time batch x cascades)",
         "route": "cuda",
         "source": "gfx_ocean_tpu_torch/csrc/packed_step.cu",
         "replaces": "gfx_ocean_tpu/ops/pallas_step.py:352",

@@ -248,251 +248,473 @@ __global__ void __launch_bounds__(Shape<LOG2N>::kColThreads) packed_col_pass(
 // ---------------------------------------------------------------------------
 // K1's tiered body ("high", "bf16x3", "bf16x4": kTerms = 2; "default":
 // kTerms = 1): the JAX kernel's products, bf16 operands on the tensor cores
-// (tier_mma.cuh). Both passes multiply a 16-row bf16 tile in shared memory
-// by B = A^T, A = D_alt W (N x N), whose fragments (ops/fft.mma_fragments
-// of ("alt", n, 1, 0, False)) stream from L2: the row pass's Y = X A^T, and
-// the column pass A Y as its transpose Y^T A^T.
+// (tier_mma.cuh). Both passes multiply by the table W = D_alt W0 (N x N,
+// ops/fft._table(("alt", n, 1, 0, False))): the row pass Y[y][x] = sum_k
+// X[y][k] W[x][k], the column pass out[y][x] = sum_k W[y][k] Y[k][x]. Each
+// runs in the transposed form on wgmma: the table as the 64-row operand
+// (M: 64 outputs, a "group"), a tile's 16 rows (columns) of four planes as
+// N, so that the products a complex output combines lie in one thread.
 //
-//   packed_row_tier   one block per (8 rho pairs of rows, frame, cascade),
-//                     8 warps: the packed propagate of the block's 16 rows
-//                     (ocean::packed_propagate_pair, each pair once; rows 0
-//                     and n / 2 pair with themselves), split into bf16 hi
-//                     and lo tiles of Hr, Hi, Zr, Zi; then each warp takes
-//                     8-column tiles of Y and runs the JAX kernel's eight
-//                     real products (pallas_step.py:431-434), and writes Y
-//                     (FP32) as the FFT body does.
-//   packed_col_tier   one block per (16 columns, frame, cascade): reads those
-//                     columns of Y, splits them into 16-row tiles of the
-//                     transposed planes, and runs the six products of
-//                     pallas_step.py:444-450 (height Re only) into the
-//                     planes.
+//   packed_spectra_tier  the packed propagate (ocean::packed_propagate_pair,
+//                        each rho pair once; rows 0 and n / 2 pair with
+//                        themselves), one thread a pair of elements, split
+//                        into bf16 hi and lo and stored in the row pass's
+//                        tiles: rows 16 tf .. 16 tf + 15 as the operand Hr |
+//                        Hi | Zr | Zi, [term][core_at(16 q + y % 16, x, 64)].
+//   packed_row_tier      for each group of a tile, Wr X and Wi X (m64n64k16:
+//                        the JAX kernel's eight real products,
+//                        pallas_step.py:431-434); Y out, split into bf16 hi
+//                        and lo as the column pass's tiles: columns 16 tc ..
+//                        16 tc + 15 as the operand Yhr | Yzr | Yzi | Yhi,
+//                        [term][core_at(16 s + x % 16, y, 64)], a quad's four
+//                        words one 16-byte core row, a warp's store 128 B.
+//   packed_col_tier      Wr times the first three planes of a column tile and
+//                        Wi times the last three (m64n48k16, the second window
+//                        16 rows on: the six products of pallas_step.py:
+//                        444-450, height Re only); the planes out.
 //
-// What bounds it (512^2, a frame): 28 N^3 flops a pass, 3.8 GFLOP at
-// "default" and 11.3 at the split, against ~13 MB of device memory: the
-// tensor cores, then the table's reads from L2 (each block reads all of A's
-// fragments, 2 MB at the split). A plain design: mma.sync from registers,
-// no wgmma, TMA or pipelining, one block of 16 rows a SM at the split
-// (133 KB of tiles).
-constexpr int kTierThreads = 256;
-constexpr int kTierRows = 16;  // rows (columns) of the tile a block multiplies
-constexpr size_t tier_smem(int n, int terms) {
-  return static_cast<size_t>(4) * terms * kTierRows * (n / 2 + 4) * sizeof(uint32_t);
-}
+// The product passes are warp-specialized persistent kernels of 352
+// threads, one block a SM: two consumer warpgroups and three producer
+// warps. A work item ("unit") is a tile and a pair of groups, one a consumer
+// warpgroup (one group, the first warpgroup's, at N <= 64; the table padded
+// with zero rows to 64 below that): a pass has frames x N / 16 x max(1, N /
+// 128) units (frames = time batch x cascades, frame-major), and block b of
+// G = min(units, SMs) takes units [b U / G, (b + 1) U / G), so every SM gets
+// within one unit of the same work at any time batch: at 512^2 and time
+// batch 6, 768 units, 5 or 6 a block (a block a tile, 192 blocks, would run
+// 1.45 waves); at time batch 1, the frame's step, 128 blocks of one unit.
+// A block's units run in order. Producer warp 2 copies a
+// unit's tile (stored whole by the kernel before) into shared memory with
+// the bulk copy engine when it differs from the last one's, once the
+// consumers have released the last (mbarriers tile_full / tile_empty);
+// producer warp w < 2 streams the table into warpgroup w's ring: each slot
+// two k-steps of its group (Wr, Wi, hi and lo: 16 KB at the split;
+// ops/fft.wgmma_slots lays the table out so that they are contiguous), 3
+// slots at the split, 6 at "default" (mbarriers full / empty a slot). A
+// consumer waits for a slot, issues its products (12 asynchronous wgmma),
+// and frees the slot before once the products before it are done
+// (wgmma_wait<1>). The tile (64 x N, hi and lo: 128 KB at N = 512 and the
+// split) and the rings (96 KB) take 229,488 B of the 232,448. No split-K:
+// every output's sum runs over K in k-step order whatever the plan, so a
+// frame is bit-equal at every time batch.
+//
+// What bounds it (512^2, a 6-frame call, NVIDIA H100 80GB HBM3 at 700 W,
+// tools/torch_kernel_variants.py, PERF.md §6): 0.175 ms of device time
+// (spectra 0.034, row pass 0.066, column pass 0.064, checksum 0.010); an
+// mma.sync body reading its table from L2 took 0.43. The product passes'
+// operations (28 N^3 multiply-adds a pass and product term) take 0.039 and
+// 0.029 ms at the tensor cores' peak; what keeps them above it is the
+// ring's depth: each warpgroup holds two of its three slots while its
+// products run, so one copy is in flight. A ring of two slots ran 21-25%
+// slower (k1t_stages2), while copying half of each slot saved 2-3 us a pass
+// (k1t_half_copy): the copies' latency, not L2's bandwidth, paces the
+// passes, and the tile leaves no room for a fourth slot at the split. A
+// ring shared by both warpgroups (slots of two groups and the tile's
+// k-steps, no resident tile, five slots) ran 30% slower: the warpgroups
+// then run in lockstep. Slots of one k-step ran 18% slower than of two
+// (k1t_slot1): the hand-over a slot costs. The spectra kernel runs at full
+// occupancy (80 registers) once a tile; forming each tile in the product
+// passes took half of each pass (each block formed a tile again for each of
+// its tiles, 256 threads a SM). Why wgmma and not mma.sync: the mma.sync
+// body ran as fast with its products taken out as with them (loads of the
+// table from L2 and of A from shared memory for every 8-column n-tile);
+// wgmma reads both operands from shared memory and keeps an output's 16
+// (12) accumulators in 128 (96) registers of a consumer thread: 164 (142)
+// registers, no spills (ptxas).
+constexpr int kTierTile = 16;           // rows (columns) of a tile
+constexpr int kTierGroup = 64;          // outputs of a group: wgmma's M
+constexpr int kTierN = 4 * kTierTile;   // the tile's operand rows: four planes
+constexpr int kTierConsumers = 2;       // consumer warpgroups, a group of a unit each
+constexpr int kTierConsumerThreads = 128 * kTierConsumers;
+// and a producer warp a ring, and one for the tiles
+constexpr int kTierThreads = kTierConsumerThreads + 32 * (kTierConsumers + 1);
+constexpr int kSpectraThreads = 256;    // pairs of elements a block of the spectra
+constexpr uint32_t kTileCopy = 32768;   // bytes a bulk copy of a tile
+constexpr size_t kTierSmemLimit = 232448;  // dynamic shared memory a block may take
 
-template <int kTerms, bool kCascades>
-__global__ void __launch_bounds__(kTierThreads) packed_row_tier(
-    const float* __restrict__ h0, const float* __restrict__ omega, const uint4* __restrict__ frag,
-    const float* __restrict__ ts, int n, float scale, int wrap_k, int conj_neg, float half,
-    float* __restrict__ y) {
+// A product pass's shared memory: the tile ([term][core_at(n, k, 64)]), a
+// ring a consumer warpgroup ([slot][plane][term][core_at(m, k, 64)], 16
+// k), the rings' full and empty mbarriers, the tile's.
+template <int kTerms>
+struct TierSmem {
+  static constexpr int kStep = 2 * kTerms * kTierGroup * 16 * 2;  // bytes a k-step: Wr, Wi, terms
+  static constexpr int kSlotSteps = 2;                             // k-steps a slot (1 at N = 16)
+  static constexpr int kSlot = kSlotSteps * kStep;
+  static constexpr int kStages = kTerms == 2 ? 3 : 6;
+  static constexpr int kRings = kTierConsumers * kStages * kSlot;
+  static constexpr int kBars = 2 * kTierConsumers * kStages + 2;
+  __host__ __device__ static constexpr size_t tile(int n) {
+    return static_cast<size_t>(kTerms) * kTierN * n * 2;
+  }
+  __host__ __device__ static constexpr size_t bytes(int n) {
+    return tile(n) + kRings + kBars * sizeof(uint64_t);
+  }
+  static_assert(bytes(512) <= kTierSmemLimit, "the tile and the rings fit at N = 512");
+};
+
+// The plan of a pass: `groups` of 64 outputs (1 below N = 64), `pairs`
+// units a tile, N / 16 k-steps, N / 16 tiles a frame.
+struct TierPlan {
+  int groups, pairs, ksteps, tiles;
+  long long units;
+  __host__ __device__ TierPlan(int n, int frames)
+      : groups(n >= kTierGroup ? n / kTierGroup : 1),
+        pairs((groups + kTierConsumers - 1) / kTierConsumers),
+        ksteps(n / 16),
+        tiles(n / kTierTile),
+        units(static_cast<long long>(frames) * tiles * pairs) {}
+};
+
+// What a tiered launch reads and writes: the state (h0, omega), the times
+// and the table; the spectra's tiles xs and Y's (yt), each (frames, N / 16,
+// terms, 64 N) bf16; the planes.
+struct TierArgs {
+  const float* h0;
+  const float* omega;
+  const uint8_t* table;  // ops/fft.wgmma_slots: [group][k-step][slot]
+  const float* ts;
+  int tb;
+  int frames;  // tb x cascades
+  int n;
+  float scale;
+  int wrap_k;
+  int conj_neg;
+  float half;
+  uint16_t* xs;
+  uint16_t* yt;
+  float* out;
+};
+
+// The spectra's tiles: thread e takes the rho pair p = e / n (rows p and
+// n - p; rows 0 and n / 2 for p = 0) at x = e % n, its rho element at
+// (n - x) % n, for every frame; each element goes to its row's tile.
+template <int kTerms>
+__global__ void __launch_bounds__(kSpectraThreads) packed_spectra_tier(const TierArgs a) {
   namespace tr = ocean::tier;
-  extern __shared__ uint32_t tiles[];
+  const int n = a.n, m = n - 1;
   const size_t nn = static_cast<size_t>(n) * n;
-  const int m = n - 1;
-  const int ldw = n / 2 + 4;  // words a tile row: conflict-free A fragments
-  const int frame = blockIdx.y;
-  const float t = ts[frame];
-  if constexpr (kCascades) {
-    h0 += static_cast<size_t>(blockIdx.z) * 2 * nn;
-    omega += static_cast<size_t>(blockIdx.z) * nn;
-  }
-  // Tile (q, term): q = Hr, Hi, Zr, Zi; local row r = 2 j + side holds row
-  // `rows[side]` of pair p = 8 blockIdx.x + j.
-  auto half_at = [&](int q, int term, int r, int x) -> uint16_t& {
-    return reinterpret_cast<uint16_t*>(tiles + ((q * kTerms + term) * kTierRows + r) * ldw)[x];
-  };
-  auto put = [&](int r, int x, const ocean::PackedSpectra& p) {
-    const float v[4] = {p.hr, p.hi, p.zr, p.zi};
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      uint16_t hi, lo;
-      tr::split1(v[q], hi, lo);
-      half_at(q, 0, r, x) = hi;
-      if constexpr (kTerms == 2) half_at(q, 1, r, x) = lo;
-    }
-  };
-  for (int e = threadIdx.x; e < (kTierRows / 2) * n; e += kTierThreads) {
-    const int j = e / n, x = e & m;
-    const int p = (kTierRows / 2) * blockIdx.x + j;
-    if (p == 0) {
-      put(0, x, ocean::packed_propagate(h0, omega, n, 0, x, t, scale, wrap_k != 0,
-                                        conj_neg != 0, half));
-      put(1, x, ocean::packed_propagate(h0, omega, n, n / 2, x, t, scale, wrap_k != 0,
-                                        conj_neg != 0, half));
-    } else {
-      const ocean::PackedPair pp = ocean::packed_propagate_pair(
-          h0, omega, n, p, x, t, scale, wrap_k != 0, conj_neg != 0, half);
-      put(2 * j, x, pp.e);
-      put(2 * j + 1, (n - x) & m, pp.rho);
-    }
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int ksteps = n / 16;
-  const size_t fc = kCascades ? static_cast<size_t>(blockIdx.z) * gridDim.y + frame
-                              : static_cast<size_t>(frame);
-  float* yf = y + fc * 4 * nn;
-  int grow[2];  // the global rows of accumulator rows g and g + 8
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = lane / 4 + 8 * h;
-    const int p = (kTierRows / 2) * blockIdx.x + r / 2;
-    grow[h] = (r & 1) ? (p == 0 ? n / 2 : n - p) : p;
-  }
-  for (int nt = warp; nt < n / 8; nt += kTierThreads / 32) {
-    // products: Hr.Ar, Hi.Ai, Hr.Ai, Hi.Ar, Zr.Ar, Zi.Ai, Zr.Ai, Zi.Ar
-    float acc[8][kTerms][4];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) tr::zero(acc[k]);
-    const uint4* fb = frag + static_cast<size_t>(nt) * ksteps * kTerms * 32 + lane;
-    for (int ks = 0; ks < ksteps; ++ks) {
-      uint32_t br[kTerms][2], bi[kTerms][2], a[4][kTerms][4];
-#pragma unroll
-      for (int s = 0; s < kTerms; ++s) {
-        const uint4 f = __ldg(fb + (ks * kTerms + s) * 32);
-        br[s][0] = f.x;
-        br[s][1] = f.y;
-        bi[s][0] = f.z;
-        bi[s][1] = f.w;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          tr::load_a(a[q][s], tiles + (q * kTerms + s) * kTierRows * ldw, ldw, ks, lane);
-        }
-      }
-      tr::mma_tier(acc[0], a[0], br);
-      tr::mma_tier(acc[1], a[1], bi);
-      tr::mma_tier(acc[2], a[0], bi);
-      tr::mma_tier(acc[3], a[1], br);
-      tr::mma_tier(acc[4], a[2], br);
-      tr::mma_tier(acc[5], a[3], bi);
-      tr::mma_tier(acc[6], a[2], bi);
-      tr::mma_tier(acc[7], a[3], br);
-    }
-    const int col = 8 * nt + 2 * (lane % 4);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float o[4][2];
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int i = 2 * h + c;
-        o[0][c] = __fsub_rn(tr::total(acc[0], i), tr::total(acc[1], i));  // Re F_x(H)
-        o[1][c] = __fadd_rn(tr::total(acc[2], i), tr::total(acc[3], i));  // Im F_x(H)
-        o[2][c] = __fsub_rn(tr::total(acc[4], i), tr::total(acc[5], i));  // Re F_x(Z)
-        o[3][c] = __fadd_rn(tr::total(acc[6], i), tr::total(acc[7], i));  // Im F_x(Z)
-      }
-      float* row = yf + static_cast<size_t>(grow[h]) * n + col;
+  const int e = blockIdx.x * kSpectraThreads + threadIdx.x;
+  if (e >= (n / 2) * n) return;
+  const int p = e / n, x = e & m;
+  const bool wrap = a.wrap_k != 0, conj_neg = a.conj_neg != 0;
+  for (int fc = blockIdx.y; fc < a.frames; fc += gridDim.y) {
+    const int c = fc / a.tb;
+    const float* h0 = a.h0 + static_cast<size_t>(c) * 2 * nn;
+    const float* omega = a.omega + static_cast<size_t>(c) * nn;
+    const float t = a.ts[fc % a.tb];
+    uint16_t* frame = a.xs + static_cast<size_t>(fc) * kTerms * 4 * nn;
+    // Row y's tile y / 16 holds it at operand rows 16 q + y % 16.
+    auto put = [&](int y, int xr, const ocean::PackedSpectra& sp) {
+      uint16_t* tile = frame + static_cast<size_t>(y / kTierTile) * kTerms * kTierN * n;
+      const float v[4] = {sp.hr, sp.hi, sp.zr, sp.zi};
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        *reinterpret_cast<float2*>(row + q * nn) = make_float2(o[q][0], o[q][1]);
+        uint16_t hi, lo;
+        tr::split1(v[q], hi, lo);
+        const int at = tr::core_at(kTierTile * q + y % kTierTile, xr, kTierN);
+        tile[at] = hi;
+        if constexpr (kTerms == 2) tile[kTierN * n + at] = lo;
       }
+    };
+    if (p == 0) {
+      put(0, x, ocean::packed_propagate(h0, omega, n, 0, x, t, a.scale, wrap, conj_neg, a.half));
+      put(n / 2, x,
+          ocean::packed_propagate(h0, omega, n, n / 2, x, t, a.scale, wrap, conj_neg, a.half));
+    } else {
+      const ocean::PackedPair pp =
+          ocean::packed_propagate_pair(h0, omega, n, p, x, t, a.scale, wrap, conj_neg, a.half);
+      put(p, x, pp.e);
+      put(n - p, (n - x) & m, pp.rho);
     }
   }
 }
 
-template <int kTerms, bool kCascades>
-__global__ void __launch_bounds__(kTierThreads) packed_col_tier(
-    const float* __restrict__ y, const uint4* __restrict__ frag, int n,
-    float* __restrict__ out) {
+template <int N, int kTerms>
+__device__ __forceinline__ void wgmma_terms(float (&acc)[kTerms][N / 2],
+                                            const uint64_t (&a)[kTerms],
+                                            const uint64_t (&b)[kTerms]) {
   namespace tr = ocean::tier;
-  extern __shared__ uint32_t tiles[];
+  if constexpr (N == 64) {
+    tr::wgmma_tier<64, kTerms>(acc, a, b);
+  } else {
+    static_assert(N == 48, "K1t's products are m64n64 or m64n48");
+    tr::wgmma_m64n48(acc[0], a[0], b[0]);
+    if constexpr (kTerms == 2) {
+      tr::wgmma_m64n48(acc[1], a[0], b[1]);  // hi.lo
+      tr::wgmma_m64n48(acc[1], a[1], b[0]);  // lo.hi
+    }
+  }
+}
+
+template <int kTerms, int L>
+__device__ __forceinline__ void pin_tier(float (&acc)[2][kTerms][L]) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int s = 0; s < kTerms; ++s) ocean::tier::fence_operand(acc[c][s]);
+}
+
+// A slot's products (k-steps ks0 .. ks0 + steps - 1 of a group), one commit
+// group, not awaited: acc[0] += Wr X, acc[1] += Wi X (kRow: X the tile's 64
+// rows; else Wr the rows 0-47, Wi the rows 16-63), each as
+// tier::wgmma_tier's terms.
+template <int kTerms, bool kRow>
+__device__ __forceinline__ void slot_products(float (&acc)[2][kTerms][kRow ? 32 : 24],
+                                              const uint8_t* slot, const uint16_t* tile,
+                                              int ks0, int steps, int n) {
+  namespace tr = ocean::tier;
+  pin_tier(acc);
+  tr::wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < TierSmem<kTerms>::kSlotSteps; ++s) {
+    if (s == steps) break;
+    // 1,024 B between the two core matrices of a k-step along K, 128 B
+    // between neighbours along M or N; offsets below in 16-byte units.
+    const uint64_t a0 = tr::smem_desc(slot + s * TierSmem<kTerms>::kStep, 1024, 128);
+    const uint64_t b0 = tr::smem_desc(tile + 1024 * (ks0 + s), 1024, 128);
+    uint64_t wr[kTerms], wi[kTerms], xr[kTerms], xi[kTerms];
+#pragma unroll
+    for (int t = 0; t < kTerms; ++t) {
+      wr[t] = a0 + t * 128;                  // 2,048 B a plane and term
+      wi[t] = a0 + (kTerms + t) * 128;
+      xr[t] = b0 + t * 8 * n;                // 64 n bf16 a term
+      xi[t] = xr[t] + (kRow ? 0 : 16);       // 16 rows on: 2 core matrices
+    }
+    wgmma_terms<kRow ? 64 : 48, kTerms>(acc[0], wr, xr);
+    wgmma_terms<kRow ? 64 : 48, kTerms>(acc[1], wi, xi);
+  }
+  tr::wgmma_commit();
+}
+
+// A product pass: the row pass (kRow) from the spectra's tiles into Y's,
+// the column pass from Y's tiles into the planes.
+template <int kTerms, bool kRow>
+__device__ __forceinline__ void tier_pass(const TierArgs& a) {
+  namespace tr = ocean::tier;
+  using S = TierSmem<kTerms>;
+  extern __shared__ __align__(128) uint8_t tier_smem[];
+  const int n = a.n;
   const size_t nn = static_cast<size_t>(n) * n;
-  const int ldw = n / 2 + 4;
-  const int x0 = kTierRows * blockIdx.x;
-  const int frame = blockIdx.y;
-  const size_t fc = kCascades ? static_cast<size_t>(blockIdx.z) * gridDim.y + frame
-                              : static_cast<size_t>(frame);
-  const float* yf = y + fc * 4 * nn + x0;
-  // Tile (q, term) row c holds column x0 + c of plane q of Y, word k the
-  // rows 2 k and 2 k + 1.
-  const int pairs = n / 2;
-  for (int e = threadIdx.x; e < 4 * pairs * kTierRows; e += kTierThreads) {
-    const int c = e % kTierRows;
-    const int k = (e / kTierRows) % pairs;
-    const int q = e / (kTierRows * pairs);
-    const float* src = yf + q * nn + static_cast<size_t>(2 * k) * n + c;
-    uint32_t hi, lo;
-    tr::split2(src[0], src[n], hi, lo);
-    uint32_t* row = tiles + ((q * kTerms) * kTierRows + c) * ldw + k;
-    row[0] = hi;
-    if constexpr (kTerms == 2) row[kTierRows * ldw] = lo;
+  const size_t tile_size = static_cast<size_t>(kTerms) * kTierN * n;  // bf16
+  uint16_t* tile = reinterpret_cast<uint16_t*>(tier_smem);
+  uint8_t* rings = tier_smem + S::tile(n);
+  uint64_t* full = reinterpret_cast<uint64_t*>(rings + S::kRings);  // [ring][slot]
+  uint64_t* empty = full + kTierConsumers * S::kStages;
+  uint64_t* tile_full = empty + kTierConsumers * S::kStages;
+  uint64_t* tile_empty = tile_full + 1;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kTierConsumers * S::kStages; ++i) {
+      tr::mbar_init(full + i, 1);      // the producer's arrival with the slot's bytes
+      tr::mbar_init(empty + i, 128);   // a consumer warpgroup
+    }
+    tr::mbar_init(tile_full, 1);
+    tr::mbar_init(tile_empty, kTierConsumerThreads);
+    tr::mbar_init_fence();
   }
   __syncthreads();
-
+  const TierPlan plan(n, a.frames);
+  const long long u0 = plan.units * blockIdx.x / gridDim.x;
+  const long long u1 = plan.units * (blockIdx.x + 1) / gridDim.x;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int ksteps = n / 16;
-  float* of = out + fc * 3 * nn + x0 + lane / 4;
-  for (int nt = warp; nt < n / 8; nt += kTierThreads / 32) {
-    // products: Yhr.Ar, Yhi.Ai, Yzr.Ar, Yzi.Ai, Yzi.Ar, Yzr.Ai
-    float acc[6][kTerms][4];
-#pragma unroll
-    for (int k = 0; k < 6; ++k) tr::zero(acc[k]);
-    const uint4* fb = frag + static_cast<size_t>(nt) * ksteps * kTerms * 32 + lane;
-    for (int ks = 0; ks < ksteps; ++ks) {
-      uint32_t br[kTerms][2], bi[kTerms][2], a[4][kTerms][4];
-#pragma unroll
-      for (int s = 0; s < kTerms; ++s) {
-        const uint4 f = __ldg(fb + (ks * kTerms + s) * 32);
-        br[s][0] = f.x;
-        br[s][1] = f.y;
-        bi[s][0] = f.z;
-        bi[s][1] = f.w;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          tr::load_a(a[q][s], tiles + (q * kTerms + s) * kTierRows * ldw, ldw, ks, lane);
+
+  const int steps = plan.ksteps < S::kSlotSteps ? plan.ksteps : S::kSlotSteps;
+  if (warp >= kTierConsumerThreads / 32) {
+    // Producer warp w: one thread fills ring w, or (w = 2) the tile.
+    const int w = warp - kTierConsumerThreads / 32;
+    if (lane != 0) return;
+    if (w == kTierConsumers) {
+      const uint16_t* tiles = kRow ? a.xs : a.yt;
+      uint32_t tile_phase = 0;
+      for (long long t = u0 / plan.pairs; t * plan.pairs < u1; ++t) {
+        tr::mbar_wait(tile_empty, tile_phase ^ 1);  // the consumers are done with the last
+        tile_phase ^= 1;
+        const uint32_t bytes = static_cast<uint32_t>(S::tile(n));
+        tr::mbar_expect_tx(tile_full, bytes);
+        const uint8_t* src = reinterpret_cast<const uint8_t*>(tiles + t * tile_size);
+        for (uint32_t off = 0; off < bytes; off += kTileCopy) {
+          const uint32_t size = bytes - off < kTileCopy ? bytes - off : kTileCopy;
+          tr::bulk_load(tier_smem + off, src + off, size, tile_full);
         }
       }
-      tr::mma_tier(acc[0], a[0], br);
-      tr::mma_tier(acc[1], a[1], bi);
-      tr::mma_tier(acc[2], a[2], br);
-      tr::mma_tier(acc[3], a[3], bi);
-      tr::mma_tier(acc[4], a[3], br);
-      tr::mma_tier(acc[5], a[2], bi);
+      return;
     }
+    int slot = 0;
+    uint32_t phase = 0;
+    for (long long u = u0; u < u1; ++u) {
+      const int g = kTierConsumers * static_cast<int>(u % plan.pairs) + w;
+      if (g >= plan.groups) continue;
+      for (int ks = 0; ks < plan.ksteps; ks += steps) {
+        const int i = w * S::kStages + slot;
+        tr::mbar_wait(empty + i, phase ^ 1);
+        tr::mbar_expect_tx(full + i, steps * S::kStep);
+        tr::bulk_load(rings + static_cast<size_t>(i) * S::kSlot,
+                      a.table + (static_cast<size_t>(g) * plan.ksteps + ks) * S::kStep,
+                      steps * S::kStep, full + i);
+        if (++slot == S::kStages) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4;
+  const int wl = warp % 4, gq = lane / 4, tq = lane % 4;
+  const uint8_t* ring = rings + wg * S::kStages * S::kSlot;
+  uint64_t* ring_full = full + wg * S::kStages;
+  uint64_t* ring_empty = empty + wg * S::kStages;
+  int slot = 0;
+  uint32_t phase = 0, tile_phase = 0;
+  long long held = -1;
+  for (long long u = u0; u < u1; ++u) {
+    const long long t = u / plan.pairs;  // the unit's tile, frame-major
+    if (t != held) {
+      if (held >= 0) tr::mbar_arrive(tile_empty);  // every product of the last tile is done
+      tr::mbar_wait(tile_full, tile_phase);
+      tile_phase ^= 1;
+      held = t;
+    }
+    const int g = kTierConsumers * static_cast<int>(u % plan.pairs) + wg;
+    if (g >= plan.groups) continue;
+    float acc[2][kTerms][kRow ? 32 : 24];
+    tr::zero(acc[0]);
+    tr::zero(acc[1]);
+    int prev = 0;
+#pragma unroll 1
+    for (int ks = 0; ks < plan.ksteps; ks += steps) {
+      tr::mbar_wait(ring_full + slot, phase);
+      slot_products<kTerms, kRow>(acc, ring + slot * S::kSlot, tile, ks, steps, n);
+      if (ks > 0) {
+        tr::wgmma_wait<1>();  // the slot before is done: free it
+        pin_tier(acc);
+        tr::mbar_arrive(ring_empty + prev);
+      }
+      prev = slot;
+      if (++slot == S::kStages) {
+        slot = 0;
+        phase ^= 1;
+      }
+    }
+    tr::wgmma_wait<0>();
+    pin_tier(acc);
+    tr::mbar_arrive(ring_empty + prev);
+
+    // Accumulator register 4 j + 2 h + e: output o = 64 g + 16 wl + gq + 8 h,
+    // operand row 8 j + 2 tq + e.
+    const int fc = static_cast<int>(t / plan.tiles);
+    const int tf = static_cast<int>(t % plan.tiles);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const size_t yo = static_cast<size_t>(8 * nt + 2 * (lane % 4) + (i & 1)) * n + 8 * (i >> 1);
-      of[nn + yo] = __fsub_rn(tr::total(acc[0], i), tr::total(acc[1], i));  // height
-      of[yo] = __fsub_rn(tr::total(acc[2], i), tr::total(acc[3], i));       // disp_x
-      of[2 * nn + yo] = __fadd_rn(tr::total(acc[4], i), tr::total(acc[5], i));  // disp_z
+    for (int h = 0; h < 2; ++h) {
+      const int o = kTierGroup * g + 16 * wl + gq + 8 * h;  // x (row pass) or y
+      if (o >= n) continue;
+      if constexpr (kRow) {
+        // Y's tile o / 16 holds plane s (Yhr | Yzr | Yzi | Yhi) at operand
+        // rows 16 s + o % 16, K = y; this thread's rows y = 16 tf + 8 jj + 2
+        // tq + e, two a 32-bit word, and the quad's four words a core row.
+        uint16_t* yt = a.yt + (static_cast<size_t>(fc) * plan.tiles + o / kTierTile) * tile_size;
+        const int c = o % kTierTile;
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          auto at = [&](int j, int e) { return 4 * j + 2 * h + e; };
+          float v[4][2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            // Re F_x(H) = Hr.Wr - Hi.Wi, Im F_x(H) = Hr.Wi + Hi.Wr, and Z's
+            v[0][e] = __fsub_rn(tr::total(acc[0], at(jj, e)), tr::total(acc[1], at(2 + jj, e)));
+            v[1][e] = __fadd_rn(tr::total(acc[1], at(jj, e)), tr::total(acc[0], at(2 + jj, e)));
+            v[2][e] = __fsub_rn(tr::total(acc[0], at(4 + jj, e)), tr::total(acc[1], at(6 + jj, e)));
+            v[3][e] = __fadd_rn(tr::total(acc[1], at(4 + jj, e)), tr::total(acc[0], at(6 + jj, e)));
+          }
+          const int y = kTierTile * tf + 8 * jj + 2 * tq;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            uint32_t hi, lo;
+            tr::split2(v[q][0], v[q][1], hi, lo);
+            const int s = q == 0 ? 0 : (q == 1 ? 3 : q - 1);
+            const int w = tr::core_at(kTierTile * s + c, y, kTierN) / 2;
+            reinterpret_cast<uint32_t*>(yt)[w] = hi;
+            if constexpr (kTerms == 2) reinterpret_cast<uint32_t*>(yt)[kTierN * n / 2 + w] = lo;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          float o3[3][2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            auto at = [&](int j) { return 4 * j + 2 * h + e; };
+            // acc[0]: Wr Yhr, Wr Yzr, Wr Yzi; acc[1]: Wi Yzr, Wi Yzi, Wi Yhi
+            o3[1][e] = __fsub_rn(tr::total(acc[0], at(jj)), tr::total(acc[1], at(4 + jj)));
+            o3[0][e] = __fsub_rn(tr::total(acc[0], at(2 + jj)), tr::total(acc[1], at(2 + jj)));
+            o3[2][e] = __fadd_rn(tr::total(acc[0], at(4 + jj)), tr::total(acc[1], at(jj)));
+          }
+          float* of = a.out + static_cast<size_t>(fc) * 3 * nn + static_cast<size_t>(o) * n +
+                      kTierTile * tf + 8 * jj + 2 * tq;
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {  // disp_x, height, disp_z
+            *reinterpret_cast<float2*>(of + q * nn) = make_float2(o3[q][0], o3[q][1]);
+          }
+        }
+      }
     }
   }
 }
 
-template <int kTerms, bool kCascades>
-int launch_tier(const float* h0, const float* omega, const void* frag, const float* ts, int tb,
-                int cascades, int n, float scale, int wrap_k, int conj_neg, float half, float* y,
-                float* out, cudaStream_t st) {
+template <int kTerms>
+__global__ void __launch_bounds__(kTierThreads, 1) packed_row_tier(const TierArgs a) {
+  tier_pass<kTerms, true>(a);
+}
+
+template <int kTerms>
+__global__ void __launch_bounds__(kTierThreads, 1) packed_col_tier(const TierArgs a) {
+  tier_pass<kTerms, false>(a);
+}
+
+// The SMs of the current device, read once a device.
+cudaError_t tier_sms(int& sms) {
+  static int known[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && known[dev] > 0) {
+    sms = known[dev];
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < kMaxDevices) known[dev] = sms;
+  return err;
+}
+
+template <int kTerms>
+int launch_tier(const TierArgs& a, cudaStream_t st) {
+  using S = TierSmem<kTerms>;
   static bool row_ready[kMaxDevices], col_ready[kMaxDevices];
-  const size_t most = tier_smem(512, kTerms);  // the attribute covers every n
-  cudaError_t err = allow_smem(packed_row_tier<kTerms, kCascades>, most, row_ready);
+  const size_t most = S::bytes(512);  // the attribute covers every n
+  cudaError_t err = allow_smem(packed_row_tier<kTerms>, most, row_ready);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = allow_smem(packed_col_tier<kTerms, kCascades>, most, col_ready);
+  err = allow_smem(packed_col_tier<kTerms>, most, col_ready);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const uint4* f = static_cast<const uint4*>(frag);
-  const size_t smem = tier_smem(n, kTerms);
-  packed_row_tier<kTerms, kCascades><<<dim3(n / kTierRows, tb, cascades), kTierThreads, smem,
-                                       st>>>(h0, omega, f, ts, n, scale, wrap_k, conj_neg, half,
-                                             y);
+  int sms = 0;
+  err = tier_sms(sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 spectra(((a.n / 2) * a.n + kSpectraThreads - 1) / kSpectraThreads,
+                     a.frames < 65535 ? a.frames : 65535);
+  packed_spectra_tier<kTerms><<<spectra, kSpectraThreads, 0, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  packed_col_tier<kTerms, kCascades><<<dim3(n / kTierRows, tb, cascades), kTierThreads, smem,
-                                       st>>>(y, f, n, out);
+  const TierPlan plan(a.n, a.frames);
+  const int grid = static_cast<int>(plan.units < sms ? plan.units : sms);
+  const size_t smem = S::bytes(a.n);
+  packed_row_tier<kTerms><<<grid, kTierThreads, smem, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  packed_col_tier<kTerms><<<grid, kTierThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_tier_any(int passes, const float* h0, const float* omega, const void* frag,
-                    const float* ts, int tb, int cascades, int n, float scale, int wrap_k,
-                    int conj_neg, float half, float* y, float* out, cudaStream_t st) {
-  if (passes == 3) {
-    return cascades > 1 ? launch_tier<2, true>(h0, omega, frag, ts, tb, cascades, n, scale,
-                                               wrap_k, conj_neg, half, y, out, st)
-                        : launch_tier<2, false>(h0, omega, frag, ts, tb, cascades, n, scale,
-                                                wrap_k, conj_neg, half, y, out, st);
-  }
-  return cascades > 1 ? launch_tier<1, true>(h0, omega, frag, ts, tb, cascades, n, scale, wrap_k,
-                                             conj_neg, half, y, out, st)
-                      : launch_tier<1, false>(h0, omega, frag, ts, tb, cascades, n, scale,
-                                              wrap_k, conj_neg, half, y, out, st);
+int launch_tier_any(int passes, const TierArgs& a, cudaStream_t st) {
+  return passes == 3 ? launch_tier<2>(a, st) : launch_tier<1>(a, st);
 }
 
 // What a K1 launch reads and writes.
@@ -541,13 +763,15 @@ extern "C" {
 // Launches the K1 kernels for tb frames of C cascades on `stream` and returns
 // the first error that is not cudaSuccess (0 when all launched). Inputs: h0
 // (C, 2, n, n); omega (C, n, n); tw (2, n/2); ts (tb,), the same times for
-// every cascade. Outputs: y (C, tb, 2, 2, n, n) scratch; out (C, tb, 3, n, n);
-// partials (C, tb, n / ck_rows) or null for no checksum (then C tb <= 65535).
+// every cascade. Outputs: y (C, tb, 2, 2, n, n) scratch, twice that for the
+// tiered body; out (C, tb, 3, n, n); partials (C, tb, n / ck_rows) or null for
+// no checksum (then C tb <= 65535).
 //
 // passes selects the body: 0 the FFT body ("highest"), 3 the tiered body of
 // the three-pass split, 1 the tiered body of one bf16 pass ("default");
-// frag is then the table's fragments (ops/fft.mma_fragments of A, hi and lo
-// at 3 passes, hi at 1) and tw is not read.
+// frag is then the table's slots (ops/fft.wgmma_slots of the table, hi and
+// lo at 3 passes, hi at 1), tw is not read, and y holds the spectra's
+// tiles, then Y's.
 int packed_step(const float* h0, const float* omega, const float* tw, const float* ts, int tb,
                 int cascades, int n, float scale, int wrap_k, int conj_neg, float half, float* y,
                 float* out, float* partials, int ck_rows, float normals_scale, int with_normals,
@@ -555,7 +779,8 @@ int packed_step(const float* h0, const float* omega, const float* tw, const floa
   if (tb < 1 || tb > 65535 || cascades < 1 || cascades > 65535 || ck_rows < 1 ||
       ck_rows % ocean::kSumRows != 0 || n % ck_rows != 0 ||
       (partials != nullptr && static_cast<long long>(tb) * cascades > 65535) ||
-      (passes != 0 && passes != 1 && passes != 3) || (passes != 0 && frag == nullptr)) {
+      (passes != 0 && passes != 1 && passes != 3) ||
+      (passes != 0 && (frag == nullptr || static_cast<long long>(tb) * cascades > 0x7fffffff))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -563,8 +788,12 @@ int packed_step(const float* h0, const float* omega, const float* tw, const floa
   int err;
   if (passes != 0) {
     if (n < 16 || n > 512 || (n & (n - 1)) != 0) return static_cast<int>(cudaErrorInvalidValue);
-    err = launch_tier_any(passes, h0, omega, frag, ts, tb, cascades, n, scale, wrap_k, conj_neg,
-                          half, y, out, st);
+    // y: the spectra's tiles, then Y's, 4 N^2 bf16 a frame and term each
+    uint16_t* xs = reinterpret_cast<uint16_t*>(y);
+    const size_t tiles = static_cast<size_t>(tb) * cascades * 4 * n * n * (passes == 3 ? 2 : 1);
+    const TierArgs ta{h0, omega, static_cast<const uint8_t*>(frag), ts, tb, tb * cascades, n,
+                      scale, wrap_k, conj_neg, half, xs, xs + tiles, out};
+    err = launch_tier_any(passes, ta, st);
   } else {
     switch (n) {
       case 16: err = launch<4>(a, st); break;

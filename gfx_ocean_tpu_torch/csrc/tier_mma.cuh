@@ -36,6 +36,12 @@
 // and consumer warpgroups multiply, handing slots over by mbarrier
 // (mbar_*); setmaxnreg moves registers from the producers to the
 // consumers, and bar_sync is a named barrier of a subset of the block.
+// K1t's products run on wgmma too, both passes in the transposed form (the
+// table as the 64-row operand, a 16-row tile's four planes as N = 64, or
+// three of them as N = 48: wgmma_m64n48); its producer warps copy the
+// table's slices into rings of slots, and the tiles, with the bulk copy
+// engine (bulk_load, completing an mbarrier's transaction count:
+// mbar_expect_tx; mbar_init_fence before the first copy).
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): with g = lane / 4
 // and t = lane % 4, A registers {a01, a23, a45, a67} hold rows (g, g + 8,
@@ -290,6 +296,47 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 // Named barrier `id` (1 .. 15; 0 is __syncthreads) of `threads` threads.
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// d += A B on a warpgroup: m64n48k16, as wgmma_m64 (24 accumulators a
+// thread: registers 4 j .. 4 j + 3 of each 8 columns j).
+__device__ __forceinline__ void wgmma_m64n48(float (&d)[24], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// Makes the mbarriers' initialization visible to the bulk copy engine (the
+// async proxy) before any copy completes on them.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// Arrives on an mbarrier and adds `bytes` to the transaction count its
+// phase waits for (the bulk copies that complete it).
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .b64 state;\nmbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n" ::
+          "r"(smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// Copies `bytes` (a multiple of 16, both addresses 16-byte aligned) from
+// device memory into shared memory on the bulk copy engine; the copy
+// completes its bytes on `bar`'s transaction count.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
 }  // namespace tier

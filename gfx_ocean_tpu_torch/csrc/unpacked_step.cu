@@ -309,9 +309,9 @@ __global__ void __launch_bounds__(Shape<LOG2N>::kThreads, Shape<LOG2N>::kMinBloc
 // K4's tiered body, K4t ("high", "bf16x3", "bf16x4": kTerms = 2; "default":
 // kTerms = 1): _step_kernel's 18 real products a frame (pallas_step.py:
 // 170-181, each built by _make_dot) as bf16 passes on the tensor cores
-// (tier_mma.cuh), as K1t runs K1's. Both kernels multiply a 16-row bf16 tile
+// (tier_mma.cuh). Both kernels multiply a 16-row bf16 tile
 // in shared memory by B = A^T, A = D_alt W (N x N), whose fragments
-// (ops/fft.mma_fragments of ("alt", n, 1, 0, False), the table K1t reads)
+// (ops/fft.mma_fragments of ("alt", n, 1, 0, False))
 // stream from L2: the row pass's Y = X A^T, the column pass's A Y as its
 // transpose Y^T A^T.
 //

@@ -219,6 +219,31 @@ def wgmma_table(planes, tier: str, min_k: int = 0) -> torch.Tensor:
     return torch.stack(stacked).contiguous().view(torch.int16)
 
 
+def wgmma_slots(planes, tier: str) -> torch.Tensor:
+    """The tables W (R x K float32, two planes of equal shape) as K1t's
+    wgmma A operand, W itself (M the rows, K-major without swizzle), cut into
+    the slots its producers copy (``csrc/packed_step.cu``): bf16 bits as
+    int16 of shape (G, K / 16, P, terms, 2, 8, 8, 8). Slot (g, ks) holds
+    rows 64 g .. 64 g + 63 at k = 16 ks .. 16 ks + 15, for each plane p and
+    term (hi, then lo for the split tiers) the 64 x 16 operand in
+    ``tier::core_at``'s order: core matrix (k / 8, r / 8), row r % 8 holding
+    W[64 g + r][16 ks + k - k % 8 ..] (8 bf16). One slot is contiguous, one
+    bulk copy. R below 64 is padded with zero rows to 64 (G = 1); else R
+    must be a multiple of 64, K of 16."""
+    terms = ("hi",) if tier == "default" else ("hi", "lo")
+    r, k = planes[0].shape
+    rows = max(r, 64)
+    per_plane = []
+    for w in planes:
+        per_term = []
+        for term in terms:
+            b = torch.nn.functional.pad(_bf16_terms(w, tier)[term], (0, 0, 0, rows - r))
+            # W[64 g + 8 rg + r8][16 ks + 8 kc + k8] -> [g][ks][kc][rg][r8][k8]
+            per_term.append(b.reshape(rows // 64, 8, 8, k // 16, 2, 8).permute(0, 3, 4, 1, 2, 5))
+        per_plane.append(torch.stack(per_term, dim=2))   # (g, ks, term, kc, rg, r8, k8)
+    return torch.stack(per_plane, dim=2).contiguous().view(torch.int16)
+
+
 def _bf16_product(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """x @ y of bf16 operands (matmul broadcasting), products exact and
     sums in FP32, float32 out: on the card a tensor-core product with
@@ -366,6 +391,13 @@ def table_wgmma(key: tuple, device: torch.device, tier: str, min_k: int = 0) -> 
     to ``min_k``), made once per (table, device, tier, min_k): K2t's and
     K3t's wgmma B operand."""
     return wgmma_table(_table(key, device), tier, min_k)
+
+
+@profiling.counted_cache(maxsize=64)
+def table_slots(key: tuple, device: torch.device, tier: str) -> torch.Tensor:
+    """``wgmma_slots`` of the planes of table ``key`` on ``device``, made
+    once per (table, device, tier): K1t's A operand."""
+    return wgmma_slots(_table(key, device), tier)
 
 
 def _complex_mm(xr: torch.Tensor, xi: torch.Tensor, key: tuple, tier: str, left: bool,

@@ -70,16 +70,28 @@ from gfx_ocean_tpu_torch.config import OceanConfig
 from gfx_ocean_tpu_torch.ops import fourstep_step, unpacked_step
 from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, normals_scale
 from gfx_ocean_tpu_torch.ops.fft import (_tier_table, effective_precision, kernel_passes,
-                                         kernel_tier, matmul_tier, prepare, table_fragments,
+                                         kernel_tier, matmul_tier, prepare, table_slots,
                                          transposed, twiddle_table)
 from gfx_ocean_tpu_torch.ops.fourstep_step import FourstepInputs
 from gfx_ocean_tpu_torch.ops.propagate import (_f32, as_times, gather_packed_planes,
                                                packed_spectra)
 from gfx_ocean_tpu_torch.ops.unpacked_step import UnpackedInputs
+from gfx_ocean_tpu_torch.utils import profiling
 
 MAX_N = 512
 # Rows of the output reduced by one block of the checksum kernel.
 CHECKSUM_ROWS = 4
+# K1t's work items (csrc/packed_step.cu): a tile of 16 rows (columns) and a
+# pair of 64-output groups, one a consumer warpgroup.
+TIER_TILE, TIER_GROUP, TIER_CONSUMERS = 16, 64, 2
+
+
+def tier_items(n: int, frames: int) -> int:
+    """The work items of a K1t pass over ``frames`` frames (time batch x
+    cascades) at N: a tile of 16 rows and a pair of 64-output groups each
+    (one group below N = 128), as ``csrc/packed_step.cu``'s ``TierPlan``."""
+    groups = max(1, n // TIER_GROUP)
+    return frames * (n // TIER_TILE) * -(-groups // TIER_CONSUMERS)
 
 
 class PackedInputs(NamedTuple):
@@ -198,7 +210,8 @@ def launch_packed_step(inputs: PackedInputs, ts: torch.Tensor, config: OceanConf
     N / CHECKSUM_ROWS), cascade-major as the kernels write them. Counts
     ``launches.launch_packed_step`` per launch of either body and
     ``tiered_launches.launch_packed_step`` per launch of the tiered body
-    (``kernels.launch``).
+    (``kernels.launch``), and adds a tiered launch's work items
+    (``tier_items``, each pass) to ``tiered_items.launch_packed_step``.
     """
     dev = kernels.cuda_device(inputs.omega, "launch_packed_step")
     n = inputs.omega.shape[-1]
@@ -218,14 +231,16 @@ def launch_packed_step(inputs: PackedInputs, ts: torch.Tensor, config: OceanConf
     if checksum and tb * cascades > 65535:
         raise ValueError(f"K1's checksum takes at most 65535 frames a launch, "
                          f"got {cascades} cascades x {tb} frames")
-    y = torch.empty(lead + (tb, 2, 2, n, n), dtype=torch.float32, device=dev)
+    tier = kernel_tier(config.matmul_precision)
+    passes = kernel_passes(tier)
+    # the FFT body's Y; the tiered body's spectra's tiles, then Y's
+    y = torch.empty(lead + (tb,) + (2,) * (3 if passes else 2) + (n, n), dtype=torch.float32,
+                    device=dev)
     planes = torch.empty(lead + (tb, 3, n, n), dtype=torch.float32, device=dev)
     partials = (torch.empty(lead + (tb, n // CHECKSUM_ROWS), dtype=torch.float32, device=dev)
                 if checksum else None)
     nscale = normals_scale(config)
-    tier = kernel_tier(config.matmul_precision)
-    passes = kernel_passes(tier)
-    frag = table_fragments(("alt", n, 1, 0, False), dev, tier) if passes else None
+    table = table_slots(("alt", n, 1, 0, False), dev, tier) if passes else None
     ptr = kernels.ptr
     kernels.launch(
         "launch_packed_step", "packed_step", "packed_step",
@@ -233,8 +248,10 @@ def launch_packed_step(inputs: PackedInputs, ts: torch.Tensor, config: OceanConf
         _f32(np.pi / config.domain_size), int(config.compat.wrap_k),
         int(config.compat.conj_neg), -0.5 if config.compat.ref_sign else 0.5,
         ptr(y), ptr(planes), ptr(partials), CHECKSUM_ROWS,
-        nscale if nscale is not None else 0.0, int(nscale is not None), passes, ptr(frag),
+        nscale if nscale is not None else 0.0, int(nscale is not None), passes, ptr(table),
         device=dev, tiered=passes > 0)
+    if passes:
+        profiling.tally("tiered_items.launch_packed_step", tier_items(n, tb * cascades))
     return planes, partials
 
 

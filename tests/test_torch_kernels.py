@@ -194,6 +194,46 @@ def test_packed_step_cascade_axis(cuda, n, precision):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bf16x3", "default"])
+@pytest.mark.parametrize("n", [16, 64, 256, 512])
+@pytest.mark.parametrize("frames", [(1, 1), (6, 1), (6, 3)], ids=["tb1", "tb6", "3x6"])
+def test_k1t_persistent_plan_matches_plain(cuda, n, precision, frames):
+    """K1t's persistent passes at every plan the launches give them: one
+    frame (the renderers' step), a time batch of 6 (the rollout) and 3
+    cascades x 6 frames (config 4), against the plain version at the body
+    tolerance, the checksums on the scale of their summands; each launch adds
+    its work items to ``tiered_items.launch_packed_step``."""
+    tb, cascades = frames
+    if cascades == 1:
+        cfg, inputs = _inputs(n, CompatFlags(), cuda, precision)
+    else:
+        cfg, _, _, inputs = _cascade_inputs(n, cascades, cuda, matmul_precision=precision)
+    ts = torch.arange(tb, dtype=torch.float32, device=cuda) * 0.7 + 1.0
+    before = _launches("launch_packed_step", "tiered_items")
+    got = fused_step.packed_planes(inputs, ts, cfg)
+    items = fused_step.tier_items(n, tb * cascades)
+    assert _launches("launch_packed_step", "tiered_items") == before + items
+    want = fused_step.packed_planes_reference(inputs, ts, cfg)
+    assert got.shape == want.shape and _rel(got, want) < TOL_BODY[precision]
+    got_ck = fused_step.packed_checksums(inputs, ts, cfg)
+    want_ck = fused_step.checksums_of_planes(want, cfg)
+    summands = (want.abs().flatten(1).sum(1)
+                + finite_difference_normals_planes(want.select(-3, 1)).abs().flatten(1).sum(1))
+    assert float(((got_ck - want_ck).abs() / summands).max()) < TOL_CHECKSUM
+
+
+@pytest.mark.cuda
+def test_k1t_items_of_the_rollout_and_the_frame(cuda):
+    """At 512^2 a rollout call (time batch 6) runs 768 work items a pass,
+    5 or 6 a block on 132 SMs, and the frame's step (time batch 1) 128."""
+    cfg, inputs = _inputs(512, CompatFlags(), cuda)
+    for tb, items in ((6, 768), (1, 128)):
+        before = _launches("launch_packed_step", "tiered_items")
+        fused_step.packed_checksums(inputs, torch.zeros(tb, device=cuda), cfg)
+        assert _launches("launch_packed_step", "tiered_items") == before + items
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kw", [dict(resolution=1024), dict(resolution=512, hermitian_pack=False),
                                 dict(resolution=512, hermitian_pack=False,
                                      matmul_precision="highest")],

@@ -727,3 +727,202 @@ def test_stage2_wide_index_maps_cover_their_items(side):
         wrote = np.bincount(np.concatenate(writes), minlength=outputs)
         assert read.size == size and (read == 1).all()
         assert wrote.size == outputs and (wrote == 1).all()
+
+
+# --------------------------------------------------------------------------
+# K1t's products on wgmma (csrc/packed_step.cu): the table's slots, the
+# tile, the descriptors, the epilogue's index maps and the work items,
+# emulated.
+# --------------------------------------------------------------------------
+
+K1T_SOURCE = Path(T.__file__).resolve().parent / "csrc" / "packed_step.cu"
+# The column pass's tile rows of Y's planes (Re H, Im H, Re Z, Im Z): the
+# operand Yhr | Yzr | Yzi | Yhi.
+K1T_COL_SLOT = (0, 3, 1, 2)
+
+
+def _k1t_constant(name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", K1T_SOURCE.read_text()).group(1))
+
+
+def _k1t_spectra_cells(n: int) -> np.ndarray:
+    """The (row, x) cells ``packed_spectra_tier``'s threads write: thread e
+    takes rho pair p = e / n at x = e % n, rows p and n - p at x and (n - x)
+    % n (rows 0 and n / 2 at x for p = 0)."""
+    p, x = np.divmod(np.arange(n * n // 2), n)
+    rho_row = np.where(p == 0, n // 2, n - p)
+    rho_x = np.where(p == 0, x, (n - x) % n)
+    return np.concatenate([p * n + x, rho_row * n + rho_x])
+
+
+@pytest.mark.parametrize("tier", ["bf16x3", "default"])
+def test_wgmma_slots_hold_the_table(tier):
+    """``wgmma_slots`` decodes, slot by slot, by ``tier::core_at``'s layout
+    of a 64-row K-major operand, to each plane's bf16 terms W[64 g + m][16
+    ks + k]; rows below 64 are padded with zeros."""
+    rng = np.random.default_rng(15)
+    names = ("hi",) if tier == "default" else ("hi", "lo")
+    for rows, cols in ((128, 48), (16, 16)):
+        planes = [torch.from_numpy(rng.standard_normal((rows, cols)).astype(np.float32))
+                  for _ in range(2)]
+        slots = tfft.wgmma_slots(planes, tier).numpy()
+        groups = max(1, rows // 64)
+        assert slots.shape == (groups, cols // 16, 2, len(names), 2, 8, 8, 8)
+        m, k = np.meshgrid(np.arange(64), np.arange(16), indexing="ij")
+        for p, w in enumerate(planes):
+            for s, name in enumerate(names):
+                want = np.zeros((64 * groups, cols))
+                want[:rows] = tfft._bf16_terms(w, tier)[name].double().numpy()
+                for g in range(groups):
+                    for ks in range(cols // 16):
+                        flat = _bf16_bits(slots[g, ks, p, s].reshape(-1))
+                        got = flat[_core_at(m, k, 64)]
+                        assert np.array_equal(got, want[64 * g:64 * (g + 1), 16 * ks:16 * (ks + 1)])
+
+
+@pytest.mark.parametrize("side", ["row", "col"])
+@pytest.mark.parametrize("tier", ["bf16x3", "default"])
+def test_k1t_products_emulated(tier, side):
+    """A K1t unit's products as ``tier_pass`` forms and reads them, at N 16
+    (one group, the table padded to 64 rows), 64 and 128: the tile (the
+    row pass's planes Hr | Hi | Zr | Zi at operand rows 16 q + r, the
+    column pass's Yhr | Yzr | Yzi | Yhi) at ``core_at(row, k, 64)`` per term;
+    each group's k-step from its slot (``wgmma_slots``) by the descriptors of
+    ``kstep_products`` (1,024 B along K, 128 B along M or N; the column
+    pass's Wi window 256 B on); the accumulators summed as ``tier::total``
+    and combined by the epilogue's (h, jj, e) map. Against the products of
+    the same bf16 terms in float64: Y = X W^T (Re and Im of F_x(H), F_x(Z))
+    and the planes W Y (height Re only, disp_x, disp_z)."""
+    row = side == "row"
+    nterms = 1 if tier == "default" else 2
+    tile_rows, group = _k1t_constant("kTierTile"), _k1t_constant("kTierGroup")
+    width = 64 if row else 48
+    rng = np.random.default_rng(16)
+    for n in (16, 64, 128):
+        w = [torch.from_numpy(a) for a in tfft._dft_matrix_out_alt_np(n, 1, 0, False)]
+        slots = _bf16_bits(tfft.wgmma_slots(w, tier).numpy().reshape(-1))
+        groups, ksteps = max(1, n // group), n // 16
+        x = rng.standard_normal((4, tile_rows, n)).astype(np.float32)  # plane, row (column), k
+        xt = _terms(x, tier)
+        tile = np.zeros(nterms * 64 * n)
+        r, k = np.meshgrid(np.arange(tile_rows), np.arange(n), indexing="ij")
+        for s in range(nterms):
+            for q in range(4):
+                at = (q if row else K1T_COL_SLOT[q]) * tile_rows
+                tile[s * 64 * n + _core_at(at + r, k, 64)] = xt[s][q]
+        wt = {name: dict(zip(("hi", "lo"), _terms(a.numpy(), tier)))
+              for name, a in zip(("wr", "wi"), w)}
+        xs = [dict(zip(("hi", "lo"), [t[q] for t in xt])) for q in range(4)]
+        pairs = tfft._PASSES["default" if tier == "default" else "bf16x3"]
+
+        def prod(wname, q):  # sum over k of W[o][k] X_q[c][k], o by c
+            return sum(wt[wname][s2] @ xs[q][s1].T for s1, s2 in pairs)
+
+        for g in range(groups):
+            acc = np.zeros((2, nterms, 64, width))
+            for ks in range(ksteps):
+                base = 2 * (g * ksteps + ks) * 2 * nterms * 1024   # bytes of the slot
+                for p in range(2):
+                    a = [_read(slots, base + 2048 * (p * nterms + s), 1024, 128, 64)
+                         for s in range(nterms)]
+                    off = 0 if row or p == 0 else 256
+                    b = [_read(tile, 2 * (s * 64 * n + 1024 * ks) + off, 1024, 128, width)
+                         for s in range(nterms)]
+                    acc[p, 0] += a[0] @ b[0].T
+                    if nterms == 2:
+                        acc[p, 1] += a[0] @ b[1].T
+                        acc[p, 1] += a[1] @ b[0].T
+            tot = acc.sum(axis=1)                           # (plane, m, operand row)
+            outs = 64 if n >= 64 else n
+            o = np.arange(outs)
+            got = np.zeros((4 if row else 3, outs, tile_rows))
+            seen = np.zeros(got.shape, int)
+            for h in range(2):
+                for jj in range(2):
+                    for tq in range(4):
+                        for e in range(2):
+                            c = 8 * jj + 2 * tq + e
+
+                            def at(j):  # the operand row of register 4 j + 2 h + e
+                                return 8 * j + 2 * tq + e
+
+                            for wl in range(4):
+                                mm = 16 * wl + np.arange(8) + 8 * h
+                                mm = mm[mm < outs]
+                                if row:
+                                    vals = (tot[0, mm, at(jj)] - tot[1, mm, at(2 + jj)],
+                                            tot[1, mm, at(jj)] + tot[0, mm, at(2 + jj)],
+                                            tot[0, mm, at(4 + jj)] - tot[1, mm, at(6 + jj)],
+                                            tot[1, mm, at(4 + jj)] + tot[0, mm, at(6 + jj)])
+                                else:  # disp_x, height, disp_z
+                                    vals = (tot[0, mm, at(2 + jj)] - tot[1, mm, at(2 + jj)],
+                                            tot[0, mm, at(jj)] - tot[1, mm, at(4 + jj)],
+                                            tot[0, mm, at(4 + jj)] + tot[1, mm, at(jj)])
+                                for q, v in enumerate(vals):
+                                    got[q, mm, c] = v
+                                    seen[q, mm, c] += 1
+            assert (seen == 1).all()
+            rows_g = slice(64 * g, 64 * g + outs)
+            if row:  # Y[q][r][x] = (X W^T)[r][x]: Re, Im of F_x(H), F_x(Z)
+                want = [prod("wr", 0) - prod("wi", 1), prod("wi", 0) + prod("wr", 1),
+                        prod("wr", 2) - prod("wi", 3), prod("wi", 2) + prod("wr", 3)]
+            else:    # planes[q][y][c] = (W Y)[y][c]: disp_x, height, disp_z
+                want = [prod("wr", 2) - prod("wi", 3), prod("wr", 0) - prod("wi", 1),
+                        prod("wr", 3) + prod("wi", 2)]
+            want = np.stack([wq[rows_g] for wq in want])
+            assert np.allclose(got, want, rtol=0, atol=1e-9 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("tb, cascades", [(1, 1), (6, 1), (18, 1), (6, 3)])
+def test_k1t_work_items_cover_every_output_once(tb, cascades):
+    """``TierPlan`` and the persistent grid of ``launch_tier`` on 132 SMs: for
+    N 16 .. 512 and tb x cascades frames, block b's units [b U / G, (b + 1) U
+    / G) (unit u: tile u / pairs, frame-major; groups 2 (u % pairs) + w of
+    the two consumer warpgroups, those below max(1, N / 64)) cover every
+    (frame, cascade, row, column) of the row pass and of the column pass
+    exactly once (a row tile: rows 16 tf .. 16 tf + 15): the row pass's as
+    Y's tiles, x / 16 at ``core_at(16 s + x % 16, y, 64)`` for each plane
+    s, every word of them once; the spectra kernel's threads cover every
+    cell of a frame once; every block takes within one unit of the same
+    count; ``fused_step.tier_items`` is U, and its constants are the
+    kernel's."""
+    tile, group = _k1t_constant("kTierTile"), _k1t_constant("kTierGroup")
+    consumers = _k1t_constant("kTierConsumers")
+    assert (fused_step.TIER_TILE, fused_step.TIER_GROUP, fused_step.TIER_CONSUMERS) == (
+        tile, group, consumers)
+    frames, sms = tb * cascades, 132
+    for n in (16, 32, 64, 128, 256, 512):
+        groups = max(1, n // group)
+        pairs = -(-groups // consumers)
+        tiles = n // tile
+        units = frames * tiles * pairs
+        assert fused_step.tier_items(n, frames) == units
+        grid = min(units, sms)
+        starts = [units * b // grid for b in range(grid + 1)]
+        counts = np.diff(starts)
+        assert counts.max() - counts.min() <= 1 and counts.sum() == units
+        # every unit of every block, then its warpgroups' groups
+        u = np.concatenate([np.arange(starts[b], starts[b + 1]) for b in range(grid)])
+        t, pair = np.divmod(u, pairs)
+        fc, tf = np.divmod(t, tiles)
+        g = (consumers * pair[:, None] + np.arange(consumers)[None, :]).ravel()
+        fc, tf = np.repeat(fc, consumers), np.repeat(tf, consumers)
+        keep = g < groups
+        g, fc, tf = g[keep], fc[keep], tf[keep]
+        o = (group * g[:, None] + np.arange(group)[None, :])            # (items, 64) outputs
+        live = o < n
+        rows = tile * tf[:, None] + np.arange(tile)[None, :]             # (items, 16)
+        # the row pass: Y's tile o / 16, word core_at(16 s + o % 16, y, 64), a frame's
+        at = _core_at(tile * np.arange(4)[None, None, None, :] + (o % tile)[:, :, None, None],
+                      rows[:, None, :, None], 64)
+        word = ((fc[:, None, None, None] * tiles + (o // tile)[:, :, None, None]) * 64 * n + at)
+        row_seen = np.bincount(word[np.broadcast_to(live[:, :, None, None], word.shape)],
+                               minlength=frames * tiles * 64 * n)
+        # the column pass: planes (frame, y = o, x = 16 tf + c)
+        x = tile * tf[:, None, None] + np.arange(tile)[None, None, :]
+        cell = (fc[:, None, None] * n + o[:, :, None]) * n + x
+        col_seen = np.bincount(cell[np.broadcast_to(live[:, :, None], cell.shape)],
+                               minlength=frames * n * n)
+        assert (row_seen == 1).all() and (col_seen == 1).all()
+        # the spectra: every cell of a frame once, in row y's tile y / 16
+        assert (np.bincount(_k1t_spectra_cells(n), minlength=n * n) == 1).all()

@@ -57,8 +57,24 @@ runs in the block (the consumers 160) in place of 80 (176), ``k3t_p64``
 112 at "default" in place of 80, ``*_producers1`` runs
 one producer warpgroup in place of two (each thread two tasks a chunk;
 producers 120 registers, consumers 192), ``*_tier2_rolled`` runs
-the stage-2 loader's rounds one task at a time. The FFT-body variants run at "highest".
-Names on the command line pick variants.
+the stage-2 loader's rounds one task at a time. The ``k1t*`` variants are
+K1's tiered body at "bf16x3" (a 6-frame 512^2 call with its checksum, 3
+cascades x 6 frames for ``k1t_cascades``): ``k1t_no_table`` has the
+producers copy the table's first slot (16 KB, L2-resident) in place of
+each slot, so the table's reads beyond L2; ``k1t_no_copy`` hands the slots
+over without copying them, so the table's transfer from L2;
+``k1t_no_products`` hands every slot over but issues no product, so the
+products' share; ``k1t_no_epilogue`` stores no output of the product
+passes; ``k1t_one_tile`` copies only a block's first tile, so the others'
+copies; ``k1t_loads_only`` cuts the spectra kernel's propagate to the
+element's own loads (as ``k1_loads_only``); ``k1t_slot1`` runs ring slots
+of one k-step (6 a ring) in place of two (3); ``k1t_half_copy`` copies
+half of each slot (the L2 traffic a two-block multicast would leave a
+block); ``k1t_stages2`` rings of 2 slots in place of 3; ``k1t_one_wave``
+runs the 512^2 call at time batch 4, ``k1t_tb1`` one frame (the frame
+renderer's call): the plan at other time batches. The outputs of the
+variants that take work out are wrong. The FFT-body variants run at
+"highest". Names on the command line pick variants.
 Prints, per variant and repeat, one JSON line: the ptxas register / stack
 lines, the CUDA-event ms of a call, the device ms of the kernels' own
 launches (``chip_smoke.kernel_device_ms``; K1 per kernel) and the largest
@@ -136,6 +152,37 @@ K1_ROW = "__launch_bounds__(Shape<LOG2N>::kRows * Shape<LOG2N>::kT)"
 K1_COL = "__launch_bounds__(Shape<LOG2N>::kColThreads)"
 # K2t's stage 2 from the scratch at 4096^2 (fourstep_tier2), as at N >= 8192,
 # in place of in its stage-1 kernel
+# K1t's producer copying the table's first slot (L2-resident) in place of
+# each slot: the table's reads beyond L2 taken out.
+K1T_NO_TABLE = ("a.table + (static_cast<size_t>(g) * plan.ksteps + ks) * S::kStep,", "a.table,")
+# K1t's producers handing the slots over without copying them: the table's
+# transfer from L2 taken out.
+K1T_NO_COPY = ("""        tr::mbar_expect_tx(full + i, steps * S::kStep);
+        tr::bulk_load(rings + static_cast<size_t>(i) * S::kSlot,
+                      a.table + (static_cast<size_t>(g) * plan.ksteps + ks) * S::kStep,
+                      steps * S::kStep, full + i);
+""", "        tr::mbar_arrive(full + i);\n")
+# K1t's product passes storing nothing (no epilogue).
+K1T_NO_EPILOGUE = ("      if (o >= n) continue;", "      if (o >= 0) continue;")
+# K1t's consumers issuing no products (the slots still handed over).
+K1T_NO_PRODUCTS = (
+    "      slot_products<kTerms, kRow>(acc, ring + slot * S::kSlot, tile, ks, steps, n);\n", "")
+# K1t's product passes copying a block's first tile only: the tiles'
+# copies after the first taken out.
+K1T_ONE_TILE = [("      for (long long t = u0 / plan.pairs; t * plan.pairs < u1; ++t) {",
+                 "      for (long long t = u0 / plan.pairs; t == u0 / plan.pairs; ++t) {"),
+                ("    if (t != held) {", "    if (held == -1) {")]
+# K1t's producers copying half of each slot: the traffic a 2-block multicast
+# would leave each block.
+K1T_HALF_COPY = [("        tr::mbar_expect_tx(full + i, steps * S::kStep);",
+                  "        tr::mbar_expect_tx(full + i, steps * S::kStep / 2);"),
+                 ("                      steps * S::kStep, full + i);",
+                  "                      steps * S::kStep / 2, full + i);")]
+# K1t's rings of 2 slots in place of 3 at the split.
+K1T_STAGES2 = ("kTerms == 2 ? 3 : 6;", "kTerms == 2 ? 2 : 6;")
+# K1t's ring slots of one k-step (6 a ring at the split) in place of two (3).
+K1T_SLOT1 = [("static constexpr int kSlotSteps = 2;", "static constexpr int kSlotSteps = 1;"),
+             ("kTerms == 2 ? 3 : 6;", "kTerms == 2 ? 6 : 12;")]
 K2T_SCRATCH = ("static constexpr bool kFused = kRow && LOG2N <= 12;",
                "static constexpr bool kFused = false;")
 
@@ -228,7 +275,22 @@ VARIANTS = {
     "k2tw_p80": ("fourstep_step", [regs(80, 80, 80)]),
     "k2tw_producers1": ("fourstep_step", PRODUCERS1),
     "k2tw_tier2_rolled": ("fourstep_step", [TIER2_ROLLED]),
+    "k1t_repo": ("packed_step", []),
+    "k1t_no_table": ("packed_step", [K1T_NO_TABLE]),
+    "k1t_no_products": ("packed_step", [K1T_NO_PRODUCTS]),
+    "k1t_one_tile": ("packed_step", K1T_ONE_TILE),
+    "k1t_no_copy": ("packed_step", [K1T_NO_COPY]),
+    "k1t_no_epilogue": ("packed_step", [K1T_NO_EPILOGUE]),
+    "k1t_loads_only": ("packed_step", LOADS_ONLY),
+    "k1t_slot1": ("packed_step", K1T_SLOT1),
+    "k1t_half_copy": ("packed_step", K1T_HALF_COPY),
+    "k1t_stages2": ("packed_step", [K1T_STAGES2]),
+    "k1t_one_wave": ("packed_step", []),
+    "k1t_tb1": ("packed_step", []),
+    "k1t_cascades": ("packed_step", []),
 }
+# The time batch of each k1t variant (6 where not named).
+K1T_FRAMES = {"k1t_one_wave": 4, "k1t_tb1": 1}
 
 
 def build(name: str):
@@ -323,6 +385,11 @@ def main() -> None:
     in1 = fused_step.hoist_packed(st1.h0, st1.omega, c1)
     ts6 = torch.arange(6, dtype=torch.float32, device=dev) / 60.0
     want1, _ = fused_step.launch_packed_step(in1, ts6, c1, checksum=False)
+    c1t = dataclasses.replace(c1, matmul_precision="bf16x3")
+    slots1t = tfft.table_slots(("alt", 512, 1, 0, False), dev, "bf16x3")
+    st3 = ot.ocean_state_from_phillips(dataclasses.replace(c1t, num_cascades=3),
+                                       generator=torch.Generator().manual_seed(0), device=dev)
+    in3 = fused_step.hoist_packed(st3.h0, st3.omega, c1t)
     want3, _ = fs.launch_fourstep_col(want2, in5.twiddle, c5, checksum=False)
     c4 = ot.OceanConfig(resolution=512, fft_impl="pallas", hermitian_pack=False,
                         matmul_precision="highest")
@@ -384,6 +451,26 @@ def main() -> None:
 
                 want, calls = want2t, 20
                 names = smoke.K2T_KERNELS if name == "k2t_scratch" else smoke.K2T_KERNELS[:1]
+            elif name.startswith("k1t"):
+                tb = K1T_FRAMES.get(name, 6)
+                cas = in3 if name.endswith("_cascades") else in1
+                casc = cas.omega.shape[0] if cas.omega.ndim == 3 else 1
+                want = fused_step.launch_packed_step(cas, ts6[:tb], c1t, checksum=False)[0]
+                y = torch.empty((casc, tb, 2, 2, 2, 512, 512), device=dev)
+                out = torch.empty_like(want)
+                partials = torch.empty((casc, tb, 512 // fused_step.CHECKSUM_ROWS), device=dev)
+
+                def call(tb=tb, cas=cas, casc=casc, y=y, out=out, partials=partials):
+                    err = lib.packed_step(
+                        cas.h0.data_ptr(), cas.omega.data_ptr(), cas.twiddle.data_ptr(),
+                        ts6.data_ptr(), tb, casc, 512, _f32(np.pi / c1t.domain_size), 0, 0, -0.5,
+                        y.data_ptr(), out.data_ptr(), partials.data_ptr(),
+                        fused_step.CHECKSUM_ROWS, float(c1t.normal_height_scale), 1, 3,
+                        slots1t.data_ptr(), stream())
+                    if err:
+                        smoke.fail(f"{name}: CUDA error {err}")
+
+                names, calls = smoke.K1T_KERNELS, 50
             elif name.startswith("k3"):
                 scratch = torch.empty_like(want2)
                 out = torch.empty_like(want3)
@@ -480,7 +567,9 @@ def main() -> None:
             # large for loads_only and moves_only; K8: entries that differ
             rel = (float((out != want).sum()) if name.startswith("k8")
                    else float((out - want).abs().max() / want.abs().max()))
+            frames = K1T_FRAMES.get(name, 6) if name.startswith("k1t") else None
             print(json.dumps(dict(repeat=rep, variant=name, ptxas=ptxas, event_ms=event,
+                                  frames=frames,
                                   device_ms=smoke.kernel_device_ms(call, names, calls),
                                   rel_vs_repo=rel)), flush=True)
 

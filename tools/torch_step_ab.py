@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Two trees of the port on one NVIDIA GPU in one run: the tiered bodies
-K2t, K3t and K4t and the paths they carry, measured through entry points
-both trees have.
+K1t, K2t, K3t and K4t and the paths they carry, measured through entry
+points both trees have.
 
     python3 tools/torch_step_ab.py PARENT_DIR [CHANGE_DIR]
 
@@ -12,6 +12,10 @@ in the order parent, change, change, parent, so that a drift of the card
 or the host shows as a difference between the two runs of one side. A side
 builds its own kernels (``build/kernels/`` of its tree) and measures:
 
+- K1t, the packed 512^2 step at "bf16x3" on a Phillips state from a
+  torch.Generator seeded 0: a call of time batch 6 (the rollout's) and of
+  time batch 1 (the frame's), with its checksum, by events and device ms a
+  kernel, and the 600-frame checksum rollout at time batch 6;
 - K2t at 16384^2 ("bf16x3", the default tier), one frame on a state drawn
   on the card (h0 from a CUDA generator seeded 0, the deep-water dispersion
   as omega): CUDA-event ms a call and torch.profiler's device ms by stage;
@@ -48,6 +52,10 @@ from pathlib import Path
 # inside fourstep_row_tier1 at N <= 4096).
 K2T_KERNELS = ("fourstep_row_tier1", "fourstep_row_tier2", "fourstep_tier2")
 K3T_KERNELS = ("fourstep_col_tier1", "fourstep_col_tier2", "fourstep_tier2", "checksum_partials")
+# K1t's kernels under the names of either side: packed_spectra_tier only in
+# the trees with the persistent product passes.
+K1T_KERNELS = ("packed_spectra_tier", "packed_row_tier", "packed_col_tier", "checksum_partials")
+K1T_CALLS = 50
 # K4 at "bf16x3": the FFT body in the trees before K4t, else K4t's kernels.
 K4_KERNELS = ("unpacked_fused", "unpacked_row_tier", "unpacked_col_tier")
 BIG_N, BIG_CALLS = 16384, 5
@@ -92,6 +100,25 @@ def measure(root: Path) -> dict:
         smoke.fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
     dev = torch.device("cuda", 0)
     out = {}
+
+    packed = ot.OceanConfig(resolution=512, fft_impl="pallas", matmul_precision="bf16x3")
+    st = ot.ocean_state_from_phillips(packed, generator=torch.Generator().manual_seed(0),
+                                      device=dev)
+    inputs = fused_step.hoist_packed(st.h0, st.omega, packed)
+    for tb in (6, 1):
+        ts_tb = torch.arange(tb, dtype=torch.float32, device=dev) / 60.0
+
+        def k1t(ts_tb=ts_tb):
+            return fused_step.launch_packed_step(inputs, ts_tb, packed, checksum=True)
+
+        out[f"k1t_tb{tb}_ms"] = smoke.event_ms(k1t, K1T_CALLS)
+        out[f"k1t_tb{tb}_device_ms"] = device_ms_seen(smoke, k1t, K1T_KERNELS, K1T_CALLS)
+    ts = torch.arange(U_STEPS, dtype=torch.float32, device=dev) / 60.0
+    rec = time_rollout(ot.make_rollout(packed, keep_fields=False, time_batch=U_TIME_BATCH), st,
+                       ts, repeats=U_REPEATS)
+    out["packed_steps_per_sec_tb6"] = rec["steps_per_sec"]
+    out["packed_repeats_sec"] = rec["repeats_sec"]
+    del st, inputs
 
     big = ot.OceanConfig(resolution=BIG_N, fft_impl="pallas", matmul_precision="bf16x3")
     gen = torch.Generator(device=dev).manual_seed(0)
