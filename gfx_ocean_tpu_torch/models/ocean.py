@@ -268,7 +268,12 @@ def make_rollout(config: OceanConfig, keep_fields: bool = True, time_batch: int 
     ``time_batch``) around ``rollout.times`` (the times' upload),
     ``rollout.precompute`` and ``rollout.launches`` (the loop over the
     chunks of ``time_batch`` frames, counted by ``rollout.chunks``);
-    ``utils/profiling.py``.
+    ``utils/profiling.py``. Where the checksums are the fields' sums (foam,
+    or a route without the fused checksum pass), each chunk is the span
+    ``rollout.step`` (the displacement: on "pallas" one K1 launch for
+    every cascade) and then ``rollout.derived`` (normals, foam and sums),
+    both timed by CUDA events on the state's device, and the counter
+    ``foam.texels`` adds the texels the foam mask set.
     """
     if time_batch < 1:
         raise ValueError(f"time_batch must be >= 1, got {time_batch}")
@@ -295,9 +300,7 @@ def make_rollout(config: OceanConfig, keep_fields: bool = True, time_batch: int 
             if config.fft_impl == "pallas" and not config.compute_foam:
                 out = [fused_step.packed_checksums(pre, c, config) for c in chunks]
             else:
-                out = [_checksums(_fields(_displacement(state, c, config, pre), config,
-                                          cascaded))
-                       for c in chunks]
+                out = [_derived_checksums(state, c, pre, cascaded) for c in chunks]
             return torch.cat(out)
         fields = [_fields(_displacement(state, c, config, pre), config, cascaded)
                   for c in chunks]
@@ -306,6 +309,14 @@ def make_rollout(config: OceanConfig, keep_fields: bool = True, time_batch: int 
             normals=(torch.cat([f.normals for f in fields])
                      if config.compute_normals else None),
             foam=torch.cat([f.foam for f in fields]) if config.compute_foam else None)
+
+    def _derived_checksums(state, ts, pre, cascaded):
+        dev = state.omega.device
+        with profiling.span("rollout.step", device=dev):
+            disp = _displacement(state, ts, config, pre)
+        with profiling.span("rollout.derived", device=dev) as derived:
+            return _checksums(_fields(disp, config, cascaded),
+                              count_foam=isinstance(derived, profiling.Span))
 
     return rollout
 
@@ -373,13 +384,18 @@ def make_uniform_rollout(config: OceanConfig, steps: int, dt: float,
     return rollout
 
 
-def _checksums(fields: OceanFields) -> torch.Tensor:
-    """One checksum a frame (the leading axis), summed over the cascades."""
+def _checksums(fields: OceanFields, count_foam: bool = False) -> torch.Tensor:
+    """One checksum a frame (the leading axis), summed over the cascades;
+    with ``count_foam`` the texels the mask set, over every frame and
+    cascade, are added to the recorded unit's counter ``foam.texels``."""
     out = fields.displacement.sum(dim=(-3, -2, -1))
     if fields.normals is not None:
         out = out + fields.normals.sum(dim=(-3, -2, -1))
     if fields.foam is not None:
-        out = out + fields.foam.sum(dim=(-2, -1))
+        foam = fields.foam.sum(dim=(-2, -1))
+        if count_foam:
+            profiling.count("foam.texels", foam.sum())
+        out = out + foam
     return out.reshape(out.shape[0], -1).sum(dim=-1) if out.ndim > 1 else out
 
 
