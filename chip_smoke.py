@@ -147,6 +147,15 @@ Phases, one line each:
 33. cascade_main_path: the rollout and 10 frames with every launch count;
 34. cascade_query_checkpoint: sample_surface on the card against the CPU,
     and a checkpoint round trip on the card.
+53. derived_kernel (after 34): K10, the derived stage of a foam rollout
+    (``ops/derived.derived_checksums``), at ocean512_cascades.rollout's
+    shapes, 3 cascades x 20 frames of K1t's 512^2 planes (phase 27's state):
+    against its plain version, the eager chain on the card, in both layouts
+    of the planes (K1's cascade-major and a frame-major stack): the foam
+    texels of every (frame, cascade) equal, the checksums within
+    TOL_CHECKSUM of their summands; a call by CUDA events and torch.profiler
+    against its bound (``portbench/roofline_derived.py``) beside the plain
+    version; a 200-frame rollout at time batch 20 with its launch counts.
 
 35. cli: ``gfx_ocean_tpu_torch.cli.main`` in this process, with the
     kernels each subcommand launched: info, synth at 512^2 into
@@ -253,7 +262,7 @@ with the counts at 0 just before it:
     beside "highest" (K5 + K6); the matmul route's unpacked step at the
     tier as the library yardstick; the "bf16x3" rollout as K4t's main path.
 
-Then one JSON line with the kernels K1-K9, K2 at 16384^2 and K1t-K4t
+Then one JSON line with the kernels K1-K10, K2 at 16384^2 and K1t-K4t
 (times, bounds from this run's shapes, library yardsticks, ``device_ms``;
 K1t's entry carries config 4's cascade call, which runs K1t at
 "bf16x3", as ``cascade_*``, the tiered bodies' their "default" tier's
@@ -378,6 +387,12 @@ C_QUERY_POINTS = 4096
 # sample_surface on the card against the CPU: tests/test_torch_query.py's
 # bounds (float32 heights to 2e-5, world x / z to 6e-5, normals to 1e-4).
 C_QUERY_TOL = dict(height=2e-5, base_xz=6e-5, residual=6e-5, normal=1e-4)
+
+# Phase 53: K10 at the cell ocean512_cascades.rollout's time batch; calls
+# timed by CUDA events and torch.profiler.
+D_TIME_BATCH = 20
+D_CALLS = 50
+D_PLAIN_CALLS = 3
 
 # Phases 35-36: the entry points. The CLI at 512^2 on synth's files (a
 # Phillips state from torch.Generator seed 0, the state phase 3 builds where
@@ -540,6 +555,7 @@ K1T_KERNELS = ("packed_spectra_tier", "packed_row_tier", "packed_col_tier", "che
 K2T_KERNELS = ("fourstep_row_tier1", "fourstep_tier2")
 K3T_KERNELS = ("fourstep_col_tier1", "fourstep_tier2", "checksum_partials")
 K4T_KERNELS = ("unpacked_row_tier", "unpacked_col_tier", "checksum_partials")
+K10_KERNELS = ("derived_partials",)
 
 
 def body_kernels(tier: str, fft_names, tiered_names):
@@ -642,6 +658,7 @@ def main() -> None:
     kernels_line += run_unpacked(dev)
     kernels_line += run_big(dev)
     cascades = run_cascades(dev)  # config 4 at "bf16x3": K1's tiered body
+    kernels_line.append(run_derived(dev))
     run_cli(dev)
     run_serve(dev)
     run_precision_tiers(dev)
@@ -2202,10 +2219,90 @@ def run_cascades(dev) -> dict:
     }
 
 
+def run_derived(dev) -> dict:
+    """Phase 53 (after 34): K10 at ocean512_cascades.rollout's shapes
+    against its plain version, its time against its bound, and the
+    cell's rollout through it; returns K10's entry of the kernels line."""
+    import torch
+
+    import gfx_ocean_tpu_torch as ot
+    from gfx_ocean_tpu_torch.ops import derived, fused_step
+    from gfx_ocean_tpu_torch.ops.derived import finite_difference_normals_planes
+    from portbench.roofline_derived import derived_bound
+
+    torch.cuda.empty_cache()
+    cc, tb = C_CASCADES, D_TIME_BATCH
+    cfg = ot.OceanConfig(resolution=N, num_cascades=cc, compute_foam=True, fft_impl="pallas")
+    doms = cfg.domains
+    state = ot.ocean_state_from_phillips(cfg, ot.PhillipsConfig(),
+                                         generator=torch.Generator().manual_seed(0), device=dev)
+    inputs = fused_step.hoist_packed(state.h0, state.omega, cfg)
+    ts = torch.arange(tb, dtype=torch.float32, device=dev) / 60.0 + T_CHECK
+    planes = fused_step.packed_planes(inputs, ts, cfg)  # (tb, C, 3, N, N), cascade-major
+    want = derived.derived_checksums_reference(planes, cfg, doms)
+    want_texels = derived.foam_of(torch.movedim(planes, -3, -1), cfg, doms).sum(dim=(-2, -1))
+    summands = (planes.abs().sum(dim=(-4, -3, -2, -1))
+                + finite_difference_normals_planes(planes[:, :, 1], cfg.normal_height_scale)
+                .abs().sum(dim=(-4, -3, -2, -1)) + want_texels.sum(dim=-1)).double()
+    plain_ms = event_ms(lambda: derived.derived_checksums_reference(planes, cfg, doms),
+                        D_PLAIN_CALLS)
+    b = derived_bound({"ocean": {"resolution": N, "num_cascades": cc, "compute_normals": True,
+                                 "compute_foam": True}})
+    call_bound = bound(b["bytes"] * tb, b["flops"] * tb)
+    rec, failures = {}, []
+    for name, p in (("cascade_major", planes), ("frame_major", planes.contiguous())):
+        _, counts = derived.launch_derived_partials(p, cfg, doms)
+        got = derived.derived_checksums(p, cfg, doms)
+        texels = counts.sum(dim=-1).double()
+        rel = float(((got.double() - want.double()).abs() / summands).max())
+        ms = event_ms(lambda: derived.derived_checksums(p, cfg, doms), D_CALLS)
+        device = kernel_device_ms(lambda: derived.launch_derived_partials(p, cfg, doms),
+                                  K10_KERNELS, D_CALLS)
+        rec[name] = dict(strides=list(p.stride()), foam_texels_equal=bool(
+            torch.equal(texels, want_texels.double())), foam_texels=int(texels.sum()),
+            checksum_rel_to_summands=rel, ms=ms, device_ms=device["total"],
+            share_of_bound=call_bound["bound_ms"] / device["total"])
+        if not rec[name]["foam_texels_equal"] or not rel <= TOL_CHECKSUM:
+            failures.append(f"K10 on {name} planes: {rec[name]}")
+    del planes, want, want_texels, summands
+
+    rollout = ot.make_rollout(cfg, keep_fields=False, time_batch=tb)
+    steps = torch.arange(C_STEPS, dtype=torch.float32, device=dev) / 60.0
+    rollout(state, steps)
+    reset_launches()
+    t0 = time.perf_counter()
+    cks = rollout(state, steps).cpu()
+    roll_s = time.perf_counter() - t0
+    counts = dict(k1=launch_count("k1"), k10=launch_count("k10"))
+    expected = dict(k1=C_STEPS // tb, k10=C_STEPS // tb)
+    phase("derived_kernel", cascades=cc, frames=tb, domains=list(doms), t0=T_CHECK,
+          clock="cuda events (ms, a call); device_ms: torch.profiler, K10's launch only",
+          layouts=rec, plain_ms=plain_ms, tolerance=TOL_CHECKSUM, bound=call_bound,
+          bound_a_frame_ms=b["seconds"] * 1e3,
+          rollout=dict(steps=C_STEPS, time_batch=tb, seconds=roll_s,
+                       steps_per_sec=C_STEPS / roll_s, launches=counts,
+                       checksums_finite=bool(torch.isfinite(cks).all())))
+    if counts != expected or not bool(torch.isfinite(cks).all()):
+        failures.append(f"the cascade rollout launched {counts}, expected {expected}")
+    if failures:
+        fail(f"derived_kernel: {failures}")
+    r = rec["cascade_major"]
+    return {
+        "name": "K10 derived_partials (a foam rollout's derived stage: planes, normals and "
+                "each cascade's Jacobian foam summed in one launch)",
+        "route": "cuda", "source": "gfx_ocean_tpu_torch/csrc/derived.cu",
+        "replaces": "models/ocean.py's eager chain of normals, foam and sums "
+                    "(no TPU kernel: jnp ops)",
+        "launches": counts["k10"], "max_abs_err": None, "ms": r["ms"],
+        "device_ms": r["device_ms"], "plain_ms": plain_ms, **call_bound, "library_ms": None,
+    }
+
+
 # Each kernel wrapper by its kernel's key.
 WRAPPERS = dict(k1="launch_packed_step", k2="launch_fourstep_row", k3="launch_fourstep_col",
                 k4="launch_unpacked_step", k5="launch_unpacked_rows", k6="launch_unpacked_cols",
-                k7="launch_slot_kernel", k8="launch_segmin_kernel", k9="launch_giant_kernel")
+                k7="launch_slot_kernel", k8="launch_segmin_kernel", k9="launch_giant_kernel",
+                k10="launch_derived_partials")
 # The recorder's table (``utils/profiling.tallies``) at the last
 # ``reset_launches()``: the launch counts read from there.
 _LAUNCH_ZERO: dict = {}

@@ -14,15 +14,16 @@ The host library ``csrc/ocean_native.cpp`` (the native bincode loader,
 ``build/native/lib<name>_<hash>.so``: ``g++ -O2 -shared -fPIC -std=c++17``.
 
 The launch boundary. Every kernel wrapper of the port (``ops/fused_step``,
-``ops/fourstep_step``, ``ops/unpacked_step``, ``render/raster``) calls its C
-entry point through :func:`launch`, which checks that the tensors' card is
-the current device, appends that device's current stream, raises with the
-library's own error text on a nonzero code and counts the launch in the
-recorder's table (``utils/profiling.tally``: ``launches.<wrapper>`` and, for
-a tiered body, ``tiered_launches.<wrapper>``). A wrapper keeps only its own
-argument checks (:func:`cuda_device`, :func:`check_tensor`), its outputs'
-allocation and its C arguments (:func:`ptr`). A new kernel is its ``.cu``
-file, its entry in ``SIGNATURES`` and its wrapper: nothing else lists it.
+``ops/fourstep_step``, ``ops/unpacked_step``, ``ops/derived``,
+``render/raster``) calls its C entry point through :func:`launch`, which
+checks that the tensors' card is the current device, appends that device's
+current stream, raises with the library's own error text on a nonzero code
+and counts the launch in the recorder's table (``utils/profiling.tally``:
+``launches.<wrapper>`` and, for a tiered body, ``tiered_launches.<wrapper>``).
+A wrapper keeps only its own argument checks (:func:`cuda_device`,
+:func:`check_tensor`), its outputs' allocation and its C arguments
+(:func:`ptr`). A new kernel is its ``.cu`` file, its entry in ``SIGNATURES``
+and its wrapper: nothing else lists it.
 
 Nothing here runs at import: the CPU tests import every module, and this
 host has no nvcc.
@@ -54,6 +55,7 @@ CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # argtypes / restype of each library's C entry points; each library has one
 # ``*_error_string`` entry, the text of its error codes.
 SIGNATURES = {
@@ -78,6 +80,11 @@ SIGNATURES = {
                            _P, _I, _F, _I, _I, _P, _P], _I),
         "unpacked_step_grid": ([_I, _I], _I),
         "unpacked_error_string": ([_I], ctypes.c_char_p),
+    },
+    "derived": {
+        "derived_partials": ([_P, _I, _I, _L, _L, _I, ctypes.POINTER(_F), _F, _F, _F, _I, _I,
+                              _P, _P, _I, _P], _I),
+        "derived_error_string": ([_I], ctypes.c_char_p),
     },
     "raster": {
         "slot_stage": ([_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P], _I),

@@ -53,7 +53,9 @@ import torch
 
 from gfx_ocean_tpu_torch.config import OceanConfig, PhillipsConfig
 from gfx_ocean_tpu_torch.ops import fused_step
-from gfx_ocean_tpu_torch.ops.derived import finite_difference_normals, jacobian_foam
+from gfx_ocean_tpu_torch.ops.derived import (checksums_of_fields, derived_checksums,
+                                             finite_difference_normals, foam_of,
+                                             jacobian_foam)
 from gfx_ocean_tpu_torch.ops.fft import ifft2_planes_unnorm, ifft2_real_unnorm
 from gfx_ocean_tpu_torch.ops.propagate import (BandWindows, _phase_mod_2pi,
                                                gather_packed_planes, precompute_propagate,
@@ -210,12 +212,8 @@ def _fields(disp: torch.Tensor, config: OceanConfig, cascaded: bool,
                                             halo is not None)
     foam = None
     if config.compute_foam:
-        if cascaded:
-            foam = torch.stack([jacobian_foam(src[..., c, :, :, :], config, domain_size=dom,
-                                              halo=halo is not None)
-                                for c, dom in enumerate(domains or config.domains)], dim=-3)
-        else:
-            foam = jacobian_foam(src, config, halo=halo is not None)
+        foam = foam_of(src, config, (domains or config.domains) if cascaded else None,
+                       halo is not None)
     return OceanFields(displacement=disp, normals=normals, foam=foam)
 
 
@@ -260,9 +258,11 @@ def make_rollout(config: OceanConfig, keep_fields: bool = True, time_batch: int 
     multiple of it. On the "pallas" route without foam the checksum is
     reduced from the plane-major planes by the fused kernels' checksum
     pass (behind K1, K4 or K6, or K3's above 512; on CPU tensors by
-    ``checksums_of_planes``); foam needs the channel-last fields, so it
-    takes the fields' sums, as in the JAX package. The checksums stay on
-    the state's device.
+    ``checksums_of_planes``); with foam the plane-major planes go to K10
+    (``ops/derived.derived_checksums``: normals, each cascade's foam and the
+    sums in one launch; on CPU tensors the eager chain below). The "matmul"
+    and "xla" routes take the fields' sums, as in the JAX package. The
+    checksums stay on the state's device.
 
     A call is the span ``rollout`` (attributes ``frames`` and
     ``time_batch``) around ``rollout.times`` (the times' upload),
@@ -271,9 +271,10 @@ def make_rollout(config: OceanConfig, keep_fields: bool = True, time_batch: int 
     ``utils/profiling.py``. Where the checksums are the fields' sums (foam,
     or a route without the fused checksum pass), each chunk is the span
     ``rollout.step`` (the displacement: on "pallas" one K1 launch for
-    every cascade) and then ``rollout.derived`` (normals, foam and sums),
-    both timed by CUDA events on the state's device, and the counter
-    ``foam.texels`` adds the texels the foam mask set.
+    every cascade) and then ``rollout.derived`` (normals, foam and sums: on
+    "pallas" one K10 launch for every cascade), both timed by CUDA events
+    on the state's device, and the counter ``foam.texels`` adds the texels
+    the foam mask set.
     """
     if time_batch < 1:
         raise ValueError(f"time_batch must be >= 1, got {time_batch}")
@@ -312,11 +313,16 @@ def make_rollout(config: OceanConfig, keep_fields: bool = True, time_batch: int 
 
     def _derived_checksums(state, ts, pre, cascaded):
         dev = state.omega.device
+        plane_major = config.fft_impl == "pallas"   # K10 takes the planes as K1 wrote them
         with profiling.span("rollout.step", device=dev):
-            disp = _displacement(state, ts, config, pre)
+            out = (fused_step.packed_planes(pre, ts, config) if plane_major
+                   else _displacement(state, ts, config, pre))
         with profiling.span("rollout.derived", device=dev) as derived:
-            return _checksums(_fields(disp, config, cascaded),
-                              count_foam=isinstance(derived, profiling.Span))
+            count = isinstance(derived, profiling.Span)
+            if plane_major:
+                return derived_checksums(out, config, config.domains if cascaded else None,
+                                         count_foam=count)
+            return _checksums(_fields(out, config, cascaded), count_foam=count)
 
     return rollout
 
@@ -385,18 +391,9 @@ def make_uniform_rollout(config: OceanConfig, steps: int, dt: float,
 
 
 def _checksums(fields: OceanFields, count_foam: bool = False) -> torch.Tensor:
-    """One checksum a frame (the leading axis), summed over the cascades;
-    with ``count_foam`` the texels the mask set, over every frame and
-    cascade, are added to the recorded unit's counter ``foam.texels``."""
-    out = fields.displacement.sum(dim=(-3, -2, -1))
-    if fields.normals is not None:
-        out = out + fields.normals.sum(dim=(-3, -2, -1))
-    if fields.foam is not None:
-        foam = fields.foam.sum(dim=(-2, -1))
-        if count_foam:
-            profiling.count("foam.texels", foam.sum())
-        out = out + foam
-    return out.reshape(out.shape[0], -1).sum(dim=-1) if out.ndim > 1 else out
+    """One checksum a frame (the leading axis), summed over the cascades
+    (``ops/derived.checksums_of_fields``)."""
+    return checksums_of_fields(fields.displacement, fields.normals, fields.foam, count_foam)
 
 
 def state_from_numpy(h0_pair: np.ndarray, omega: np.ndarray,
