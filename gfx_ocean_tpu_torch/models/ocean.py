@@ -274,7 +274,10 @@ def make_rollout(config: OceanConfig, keep_fields: bool = True, time_batch: int 
     every cascade) and then ``rollout.derived`` (normals, foam and sums: on
     "pallas" one K10 launch for every cascade), both timed by CUDA events
     on the state's device, and the counter ``foam.texels`` adds the texels
-    the foam mask set.
+    the foam mask set. On "pallas" above 512^2 each chunk's K2 and K3 are
+    the spans ``fourstep.rows`` and ``fourstep.cols``, and the counter
+    ``fourstep.row_scratch`` counts K2's launches whose stage 2 ran from a
+    scratch (``ops/fourstep_step.py``).
     """
     if time_batch < 1:
         raise ValueError(f"time_batch must be >= 1, got {time_batch}")

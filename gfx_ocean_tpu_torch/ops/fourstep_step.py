@@ -47,7 +47,12 @@ Two implementations sit side by side:
 ``fourstep_planes`` / ``fourstep_checksums`` pick by where the tensors lie:
 CPU tensors take the plain version, CUDA tensors launch the kernels or
 raise. Nothing falls back: where K2's cluster cannot be scheduled the
-launch raises. At 16384^2 the plain version takes a band of rows
+launch raises. Each call is two spans of ``utils/profiling.py``, timed by
+CUDA events on the state's device: ``fourstep.rows`` (K2, or its plain
+version) and ``fourstep.cols`` (K3 and the partials' sum, or their plain
+versions); each K2 launch whose tiered stage 2 runs from the scratch
+(``row_stage2_in_block`` false) adds one to the counter
+``fourstep.row_scratch``. At 16384^2 the plain version takes a band of rows
 (``fourstep_row_reference``'s ``row_base`` / ``rows``) or of columns (a
 column slice of Y); on the whole grid it would need tens of GB.
 
@@ -346,7 +351,8 @@ def launch_fourstep_row(inputs: FourstepInputs, ts, config: OceanConfig,
     JAX kernel's bf16 passes on the tensor cores (``ops/fft.kernel_tier``).
     Counts ``launches.launch_fourstep_row`` per launch of either body and
     ``tiered_launches.launch_fourstep_row`` per launch of the tiered body
-    (``kernels.launch``)."""
+    (``kernels.launch``), and ``fourstep.row_scratch`` in the recorded unit
+    per launch whose tiered stage 2 runs from the scratch."""
     dev = kernels.cuda_device(inputs.twiddle, "launch_fourstep_row")
     n = 2 * inputs.twiddle.shape[-1]
     _check_kernel_n(n, "K2")
@@ -373,6 +379,8 @@ def launch_fourstep_row(inputs: FourstepInputs, ts, config: OceanConfig,
         tb, n, rows, row_base, _f32(np.pi / config.domain_size), int(config.compat.wrap_k),
         int(config.compat.conj_neg), y.data_ptr(), *tier, kernels.ptr(scratch),
         device=dev, tiered=tier[0] > 0)
+    if scratch is not None:
+        profiling.count("fourstep.row_scratch")
     return y
 
 
@@ -446,18 +454,31 @@ def fourstep_col(y: torch.Tensor, twiddle: torch.Tensor, config: OceanConfig) ->
     return fourstep_col_reference(y, config)
 
 
+def _rows_then_cols(inputs: FourstepInputs, ts, config: OceanConfig,
+                    checksum: bool) -> torch.Tensor:
+    """K2 in the span ``fourstep.rows``, then K3 and, with ``checksum``, the
+    partials' sum in ``fourstep.cols`` (the plain versions on CPU tensors):
+    the planes (tb, 3, N, N) or the checksums (tb,)."""
+    dev = inputs.twiddle.device
+    with profiling.span("fourstep.rows", device=dev):
+        y = fourstep_row(inputs, ts, config)
+    with profiling.span("fourstep.cols", device=dev):
+        if not checksum:
+            return fourstep_col(y, inputs.twiddle, config)
+        if y.is_cuda:
+            return launch_fourstep_col(y, inputs.twiddle, config, checksum=True)[1].sum(dim=-1)
+        return checksums_of_planes(fourstep_col_reference(y, config), config)
+
+
 def fourstep_planes(inputs: FourstepInputs, ts, config: OceanConfig) -> torch.Tensor:
-    """K2 + K3 planes for ts (tb,): the kernels on CUDA, the plain version on CPU."""
-    if inputs.omega.is_cuda:
-        return launch_fourstep_step(inputs, ts, config, checksum=False)[0]
-    return fourstep_planes_reference(inputs, ts, config)
+    """K2 + K3 planes for ts (tb,): the kernels on CUDA, the plain version
+    on CPU, in the spans ``fourstep.rows`` and ``fourstep.cols``."""
+    return _rows_then_cols(inputs, ts, config, checksum=False)
 
 
 def fourstep_checksums(inputs: FourstepInputs, ts, config: OceanConfig) -> torch.Tensor:
     """K2 + K3 checksums for ts (tb,): the kernels on CUDA, the plain
-    version on CPU. On CUDA the per-block partials are summed outside the
-    kernel by ``torch.sum``, in an order fixed by their shape."""
-    if inputs.omega.is_cuda:
-        _, partials = launch_fourstep_step(inputs, ts, config, checksum=True)
-        return partials.sum(dim=-1)
-    return fourstep_checksums_reference(inputs, ts, config)
+    version on CPU, in the spans ``fourstep.rows`` and ``fourstep.cols``.
+    On CUDA the per-block partials are summed outside the kernel by
+    ``torch.sum``, in an order fixed by their shape."""
+    return _rows_then_cols(inputs, ts, config, checksum=True)
