@@ -554,7 +554,8 @@ K1T_KERNELS = ("packed_spectra_tier", "packed_row_tier", "packed_col_tier", "che
 # is the stage 2 from the scratch (K2t at N >= 8192, K3t at every N).
 K2T_KERNELS = ("fourstep_row_tier1", "fourstep_tier2")
 K3T_KERNELS = ("fourstep_col_tier1", "fourstep_tier2", "checksum_partials")
-K4T_KERNELS = ("unpacked_row_tier", "unpacked_col_tier", "checksum_partials")
+K4T_KERNELS = ("unpacked_spectra_tier", "unpacked_row_wgmma", "unpacked_col_wgmma",
+               "checksum_partials")
 K10_KERNELS = ("derived_partials",)
 
 
@@ -3576,14 +3577,14 @@ def run_tier_k4(dev) -> dict:
     # at the same tier. The bound: 18 products of N^3 multiply-adds a frame
     # a pass, at the tensor cores' dense bf16 rate.
     spec = torch.randn((2, TIME_BATCH, 3, n, n), dtype=torch.float32, device=dev)
-    frag = tfft.table_fragments(("alt", n, 1, 0, False), dev, "bf16x3")
+    table = tfft.table_slots(("alt", n, 1, 0, False), dev, "bf16x3")
     io = (nbytes(state.h0, state.omega, ts6)
           + 4 * TIME_BATCH * (3 * n * n + n // us.CHECKSUM_ROWS))
     for tier in ("bf16x3", "default"):
         rec[tier]["library_ms"] = event_ms(lambda: tfft.ifft2_real_unnorm(
             spec[0], spec[1], precision=tier, centered="ref"), TIER_CALLS)
         ops = tfft.kernel_passes(tier) * 36.0 * n ** 3 * TIME_BATCH
-        rec[tier].update(bound(io + nbytes(frag) // (2 if tier == "default" else 1), ops,
+        rec[tier].update(bound(io + nbytes(table) // (2 if tier == "default" else 1), ops,
                                BF16_OPS_PER_S))
     del spec
 
@@ -3611,7 +3612,8 @@ def run_tier_k4(dev) -> dict:
     r = rec["bf16x3"]
     return {
         "name": "K4t unpacked_step tiered body (bf16 tensor-core DFT: 3 passes at "
-                "bf16x3 / high / bf16x4, 1 at default; row and column kernels)",
+                "bf16x3 / high / bf16x4, 1 at default; the spectra, then persistent "
+                "wgmma row and column passes)",
         "route": "cuda",
         "source": "gfx_ocean_tpu_torch/csrc/unpacked_step.cu",
         "replaces": "gfx_ocean_tpu/ops/pallas_step.py:128",

@@ -5,52 +5,40 @@
 // The JAX kernels build every DFT product with pallas_step._make_dot: at
 // "high", "bf16x3" and "bf16x4" the three-pass split _dot3, hi.hi + hi.lo +
 // lo.hi of bf16 operands summed in FP32; at "default" one bf16 pass hi.hi.
-// Here a product is mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 on
-// those operands: each bf16 x bf16 product is exact and the sums are FP32
-// (the tensor cores' accumulation). kTerms is 2 for the split (hi, lo) and
-// 1 for "default" (hi).
+// Here a product is wgmma on those operands: each bf16 x bf16 product is
+// exact and the sums are FP32 (the tensor cores' accumulation). kTerms is 2
+// for the split (hi, lo) and 1 for "default" (hi).
 //
 //   split2        two FP32 values into their bf16 hi pair and lo pair:
 //                 hi = the value rounded to nearest even, lo = the exact
 //                 FP32 residual rounded the same way (ops/fft._bf16_terms).
-//   mma_tier      one k-step (16 terms) of a tier's product into two
+//   wgmma_tier    one k-step (16 terms) of a tier's product into two
 //                 accumulators: acc[0] += hi.hi and, for the split,
 //                 acc[1] += hi.lo + lo.hi. The small passes keep their own
 //                 sum, so the hi.hi sum takes as many additions as a plain
 //                 product; total() adds them once at the end.
-//   load_a        the A fragment (16 rows x 16 k) of a bf16 tile in shared
-//                 memory, rows `ldw` 32-bit words apart.
 //
-// B operands are tables B = W^T prepared once on the host in the order the
-// fragments are read (ops/fft.mma_fragments): for n-tile nt and k-step ks a
-// warp reads 32 consecutive vectors, lane l = 4 g + t holding b01 =
-// (W[8 nt + g][16 ks + 2 t], W[..][.. + 1]) and b23 (the same 8 columns on),
-// one pair a plane (a complex table: r01, r23, i01, i23).
+// Every product runs on a warpgroup with wgmma: A and B both in shared
+// memory, K-major without swizzle, in core matrices of 8 rows x 8 bf16 (16
+// bytes a row, 128 contiguous bytes). The tables are prepared on the host
+// in that layout (ops/fft.wgmma_table for K2t and K3t, wgmma_slots for K1t
+// and K4t); core_at gives an element's place, smem_desc a matrix
+// descriptor. K2t's and K3t's stage 1 is warp-specialized: producer
+// warpgroups fill a ring of shared-memory slots and consumer warpgroups
+// multiply, handing slots over by mbarrier (mbar_*); setmaxnreg moves
+// registers from the producers to the consumers, and bar_sync is a named
+// barrier of a subset of the block. K1t's and K4t's products run in the
+// transposed form (the table as the 64-row operand, a 16-row tile's planes
+// as N: four as N = 64, or three as N = 48, wgmma_m64n48; K4t's six as N =
+// 96, wgmma_m64n96); their producer warps copy the table's slices into
+// rings of slots, and the tiles, with the bulk copy engine (bulk_load,
+// completing an mbarrier's transaction count: mbar_expect_tx;
+// mbar_init_fence before the first copy).
 //
-// K2t's and K3t's products run on a warpgroup with wgmma (wgmma_tier): A
-// and B both in shared memory, K-major without swizzle, in core matrices of
-// 8 rows x 8 bf16 (16 bytes a row, 128 contiguous bytes). The B tables are
-// prepared on the host in that layout (ops/fft.wgmma_table); core_at gives
-// an element's place, smem_desc a matrix descriptor. Their stage 1 is
-// warp-specialized: producer warpgroups fill a ring of shared-memory slots
-// and consumer warpgroups multiply, handing slots over by mbarrier
-// (mbar_*); setmaxnreg moves registers from the producers to the
-// consumers, and bar_sync is a named barrier of a subset of the block.
-// K1t's products run on wgmma too, both passes in the transposed form (the
-// table as the 64-row operand, a 16-row tile's four planes as N = 64, or
-// three of them as N = 48: wgmma_m64n48); its producer warps copy the
-// table's slices into rings of slots, and the tiles, with the bulk copy
-// engine (bulk_load, completing an mbarrier's transaction count:
-// mbar_expect_tx; mbar_init_fence before the first copy).
-//
-// Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): with g = lane / 4
-// and t = lane % 4, A registers {a01, a23, a45, a67} hold rows (g, g + 8,
-// g, g + 8) at columns (2 t, 2 t, 2 t + 8, 2 t + 8) and the next; B
-// registers {b01, b23} rows 2 t and 2 t + 8 (and the next) of column g; the
-// accumulator {c0, c1, c2, c3} rows (g, g, g + 8, g + 8) at columns
-// (2 t, 2 t + 1, 2 t, 2 t + 1). A wgmma m64nNk16 accumulator holds, in warp
-// w of the warpgroup, rows 16 w + (g, g + 8) of the 64, and for each 8
-// columns j the four registers 4 j .. 4 j + 3 laid out as mma's.
+// A wgmma m64nNk16 accumulator holds, in warp w of the warpgroup, rows
+// 16 w + (g, g + 8) of the 64 (g = lane / 4, t = lane % 4), and for each 8
+// columns j the four registers 4 j .. 4 j + 3: rows (g, g, g + 8, g + 8) at
+// columns 8 j + (2 t, 2 t + 1, 2 t, 2 t + 1).
 
 #pragma once
 
@@ -85,27 +73,6 @@ __device__ __forceinline__ void split1(float v, uint16_t& hi, uint16_t& lo) {
 // Both bf16 of a fragment word negated (exact).
 __device__ __forceinline__ uint32_t neg2(uint32_t w) { return w ^ 0x80008000u; }
 
-// d += a b on the tensor cores, FP32 accumulators.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b01,
-                                    uint32_t b23) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b01), "r"(b23));
-}
-
-// One k-step of a tier's product: a[term] and b[term] the hi (and lo)
-// fragments.
-template <int kTerms>
-__device__ __forceinline__ void mma_tier(float (&acc)[kTerms][4], const uint32_t (&a)[kTerms][4],
-                                         const uint32_t (&b)[kTerms][2]) {
-  mma(acc[0], a[0], b[0][0], b[0][1]);
-  if constexpr (kTerms == 2) {
-    mma(acc[1], a[0], b[1][0], b[1][1]);  // hi.lo
-    mma(acc[1], a[1], b[0][0], b[0][1]);  // lo.hi
-  }
-}
-
 // The product's value at accumulator register i.
 template <int kTerms, int L>
 __device__ __forceinline__ float total(const float (&acc)[kTerms][L], int i) {
@@ -114,17 +81,6 @@ __device__ __forceinline__ float total(const float (&acc)[kTerms][L], int i) {
   } else {
     return acc[0][i];
   }
-}
-
-// The A fragment of k-step ks of a 16-row bf16 tile (row r at word
-// r * ldw; k-step ks at words 8 ks .. 8 ks + 7).
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint32_t* tile, int ldw, int ks,
-                                       int lane) {
-  const uint32_t* p = tile + (lane >> 2) * ldw + ks * 8 + (lane & 3);
-  a[0] = p[0];
-  a[1] = p[8 * ldw];
-  a[2] = p[4];
-  a[3] = p[8 * ldw + 4];
 }
 
 template <int kTerms, int L>
@@ -232,7 +188,7 @@ __device__ __forceinline__ void wgmma_m64(float (&d)[N / 2], uint64_t a, uint64_
   }
 }
 
-// One k-step of a tier's product on a warpgroup, as mma_tier: acc[0] +=
+// One k-step of a tier's product on a warpgroup: acc[0] +=
 // A_hi B_hi and, for the split, acc[1] += A_hi B_lo + A_lo B_hi; a[term],
 // b[term] the descriptors of the hi (and lo) operands.
 template <int N, int kTerms>
@@ -310,6 +266,27 @@ __device__ __forceinline__ void wgmma_m64n48(float (&d)[24], uint64_t a, uint64_
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
         "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
         "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d += A B on a warpgroup: m64n96k16, as wgmma_m64 (48 accumulators a
+// thread: registers 4 j .. 4 j + 3 of each 8 columns j).
+__device__ __forceinline__ void wgmma_m64n96(float (&d)[48], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "l"(a), "l"(b), "r"(1));
 }
 

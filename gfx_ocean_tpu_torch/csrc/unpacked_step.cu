@@ -308,219 +308,553 @@ __global__ void __launch_bounds__(Shape<LOG2N>::kThreads, Shape<LOG2N>::kMinBloc
 // ---------------------------------------------------------------------------
 // K4's tiered body, K4t ("high", "bf16x3", "bf16x4": kTerms = 2; "default":
 // kTerms = 1): _step_kernel's 18 real products a frame (pallas_step.py:
-// 170-181, each built by _make_dot) as bf16 passes on the tensor cores
-// (tier_mma.cuh). Both kernels multiply a 16-row bf16 tile
-// in shared memory by B = A^T, A = D_alt W (N x N), whose fragments
-// (ops/fft.mma_fragments of ("alt", n, 1, 0, False))
-// stream from L2: the row pass's Y = X A^T, the column pass's A Y as its
-// transpose Y^T A^T.
+// 170-181, each built by _make_dot), bf16 operands on the tensor cores
+// (tier_mma.cuh). Both product passes multiply by K1t's table A = D_alt W
+// (N x N, ops/fft._table(("alt", n, 1, 0, False))): the row pass Y[y][x] =
+// sum_k X[y][k] A[x][k] of each spectrum, the column pass out[y][x] = Re
+// sum_k A[y][k] Y[k][x]. Each runs in the transposed form on wgmma, as K1t's
+// passes do: the table as the 64-row operand (M: 64 outputs, a "group"), a
+// tile's 16 rows (columns) of the three spectra's six planes as N = 96.
 //
-//   unpacked_row_tier  one block per (16 rows, frame), 8 warps: the
-//                      unpacked propagate of the block's 16 x N elements
-//                      (unpacked_propagate, K4's arithmetic), split into
-//                      bf16 hi and lo tiles of the three spectra's planes
-//                      (disp_x: khx hi, -khx hr; height: hr, hi; disp_z:
-//                      khy hi, -khy hr); then each warp takes 8-column tiles
-//                      of Y and runs the four real products of each
-//                      spectrum's row pass (yr = xr.Ar - xi.Ai, yi = xr.Ai +
-//                      xi.Ar), FP32 out to Y (tb, 3, 2, N, N).
-//   unpacked_col_tier  one block per (16 columns, spectrum, frame): those
-//                      columns of the spectrum's Y split into 16-row tiles of
-//                      the transposed planes, and Re(A Y) = Ar.yr - Ai.yi,
-//                      the real output only, into the planes.
+//   unpacked_spectra_tier  the unpacked propagate (unpacked_propagate, K4's
+//                          arithmetic), two neighbouring elements a thread;
+//                          their six planes q (disp_x: khx hi, -khx hr;
+//                          height: hr, hi; disp_z: khy hi, -khy hr) split
+//                          into bf16 hi and lo and stored in the row pass's
+//                          tiles: rows 16 tf .. 16 tf + 15 as the operand
+//                          rows 16 q + y % 16, [term][core_at(16 q + y % 16,
+//                          x, 96)].
+//   unpacked_row_wgmma     for each group of a tile, Ar X and Ai X
+//                          (m64n96k16: the twelve real products of the three
+//                          spectra's row passes, yr = Ar xr - Ai xi, yi = Ar
+//                          xi + Ai xr); Y out, split into bf16 hi and lo as
+//                          the column pass's tiles: columns 16 tc .. 16 tc +
+//                          15 as the operand Yr0 | Yr1 | Yr2 | Yi0 | Yi1 |
+//                          Yi2, [term][core_at(16 p + x % 16, y, 96)], a
+//                          quad's four words one 16-byte core row.
+//   unpacked_col_wgmma     Ar times the first three planes of a column tile
+//                          and Ai times the last three (m64n48k16 each, the
+//                          second window 48 rows on): out = Re(A Y) = Ar yr -
+//                          Ai yi of each spectrum, the planes out.
+//
+// The product passes are warp-specialized persistent kernels of 384
+// threads, one block a SM: two consumer warpgroups and a producer
+// warpgroup; setmaxnreg gives the consumers 232 registers a thread (the row
+// pass's accumulators are 2 x 2 x 48 at the split) and the producers 40,
+// and a launch whose kernel was compiled to fewer than 168 registers is
+// refused (kErrTierRegisters: the consumers' setmaxnreg.inc would wait for
+// registers that do not exist). A work item ("unit") is a tile and a pair
+// of groups, one a consumer warpgroup, as K1t's (TierPlan: one group, the
+// first warpgroup's, at N <= 64, the table padded with zero rows to 64
+// below that); block b of G = min(units, SMs) takes units [b U / G, (b +
+// 1) U / G): at 512^2 and time batch 6, 768 units, 5 or 6 a block. Producer
+// warp w < 2 streams the table into warpgroup w's ring
+// (ops/fft.wgmma_slots, K1t's slots: two k-steps of a group, Wr, Wi, hi and
+// lo, 16 KB at the split; 3 slots, 6 at "default"); warp 2 copies a tile's hi
+// terms into shared memory with the bulk copy engine when the unit's tile
+// differs from the last one's, once the consumers have released the last;
+// warp 3 streams the tile's lo terms, two k-steps (6 KB) a slot, into a
+// ring of 5 slots that both consumer warpgroups read, for every unit (the
+// lo terms are read once a pair of groups: ~19% over the table's bytes at
+// 512^2). A consumer waits for its table slot and the lo slot, starts its
+// products (six wgmma a k-step at the split), and frees both slots before
+// once the products before them are done (wgmma_wait<1>).
+//
+// The shared-memory budget at N = 512 and the split: the hi tile 96 KB, the
+// table's rings 96 KB, the lo ring 30 KB and the mbarriers, 227,520 B of the
+// 232,448 a block may take. K1t keeps its whole tile (hi and lo, 128 KB);
+// six planes would take 192 KB and leave no room for the rings, and 8-row
+// tiles would double the table's slots an output, whose hand-over paces the
+// passes (below). No split-K: every output's sum runs over K in k-step order
+// whatever the plan, so a frame is bit-equal at every time batch.
 //
 // Each product keeps hi.hi in one accumulator and hi.lo + lo.hi in another,
 // added once (tier::total); the outputs' differences are single roundings
 // (__fsub_rn / __fadd_rn), in the plain version's order.
 //
-// What bounds it (512^2, a frame): 18 N^3 multiply-adds, 4.8 GFLOP at the
-// split's three passes and 1.6 at "default", against ~12 MB of device memory
-// (Y stays in L2): the tensor cores, then the table's reads from L2 (each
-// block reads all of A's fragments, 2 MB at the split). A plain design
-// after K1t: mma.sync from registers, two launches with Y between them (no
-// grid sync), one block of 16 rows a SM at the split (195 KB of tiles at
-// 512).
-constexpr int kTierThreads = 256;
-constexpr int kTierRows = 16;  // rows (columns) of the tile a block multiplies
+// What bounds it (512^2, a 6-frame call at the split, NVIDIA H100 80GB HBM3
+// at 700 W, tools/torch_kernel_variants.py k4t_*, PERF.md §6): 0.190 ms of
+// device time (spectra 0.019, row pass 0.091, column pass 0.071, checksum
+// 0.011); the mma.sync body it replaced took 0.49. The product passes'
+// operations (3 x 36 N^3 multiply-adds) take 0.059 and 0.029 ms at the
+// tensor cores' peak. A pass that copies nothing and multiplies nothing
+// (k4t_floor: the slots' hand-over by mbarrier, the tiles and the epilogue)
+// takes 0.035 and 0.032 ms, and the products add to it rather than hide it:
+// each warpgroup holds two of its three table slots while its products
+// run, so one or two copies are in flight, and the hi tile leaves no room
+// for a fourth slot. Half of each table slot copied (the L2 traffic a
+// two-block cluster's multicast would leave a block) saved 2-3 us a pass,
+// the lo terms' stream 3-4, the tiles' copies after a block's first 2-5,
+// the epilogue 3-9; slots of one k-step ran 26% slower, a lo ring of 3
+// slots 8% slower. The spectra kernel takes two elements a thread, a warp
+// an 8 x 8 patch, so that each store of a plane and term is one whole core
+// matrix: one element a thread (a warp's 32 elements one row, four 16-byte
+// pieces a store) took 0.040-0.053 ms.
 constexpr int kSpectra = 3;
-// Words a tile row: N bf16 + 8 pad, so an A fragment's 8 rows fall on
-// distinct banks.
-__host__ __device__ constexpr int tier_ldw(int n) { return n / 2 + 4; }
-constexpr size_t row_tier_smem(int n, int terms) {
-  return static_cast<size_t>(2 * kSpectra) * terms * kTierRows * tier_ldw(n) * sizeof(uint32_t);
-}
-constexpr size_t col_tier_smem(int n, int terms) {
-  return static_cast<size_t>(2) * terms * kTierRows * tier_ldw(n) * sizeof(uint32_t);
-}
+constexpr int kTierTile = 16;                    // rows (columns) of a tile
+constexpr int kTierGroup = 64;                   // outputs of a group: wgmma's M
+constexpr int kTierPlanes = 2 * kSpectra;        // re and im of each spectrum
+constexpr int kTierN = kTierPlanes * kTierTile;  // the tile's operand rows: six planes
+constexpr int kTierConsumers = 2;                // consumer warpgroups, a group of a unit each
+constexpr int kTierConsumerThreads = 128 * kTierConsumers;
+constexpr int kTierThreads = kTierConsumerThreads + 128;  // and a producer warpgroup
+constexpr int kTierRegs = (65536 / kTierThreads) / 8 * 8;  // the launch's registers, a thread
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs =
+    (kTierRegs * kTierThreads - 128 * kProducerRegs) / kTierConsumerThreads / 8 * 8;
+static_assert(kConsumerRegs <= 256 &&
+                  128 * kProducerRegs + kTierConsumerThreads * kConsumerRegs <=
+                      kTierRegs * kTierThreads,
+              "setmaxnreg's budget: the launch's registers, shared out");
+constexpr int kSpectraThreads = 256;             // elements a block of the spectra
+constexpr uint32_t kTileCopy = 32768;            // bytes a bulk copy of a tile
+constexpr size_t kTierSmemLimit = 232448;        // dynamic shared memory a block may take
+// A product pass whose kernel has fewer registers than kTierRegs.
+constexpr int kErrTierRegisters = 100001;
 
+// A product pass's shared memory: the tile's hi terms ([core_at(n, k, 96)]),
+// a ring a consumer warpgroup of the table's slots ([slot][plane][term]
+// [core_at(m, k, 64)], 16 k), the ring of the tile's lo terms ([slot]
+// [core_at(n, k, 96)], both warpgroups'), the rings' full and empty
+// mbarriers, the tile's.
 template <int kTerms>
-__global__ void __launch_bounds__(kTierThreads) unpacked_row_tier(RowArgs a, int n,
-                                                                  const uint4* __restrict__ frag,
-                                                                  float* __restrict__ y) {
+struct TierSmem {
+  static constexpr int kStep = 2 * kTerms * kTierGroup * 16 * 2;  // bytes a k-step: Wr, Wi, terms
+  static constexpr int kSlotSteps = 2;                             // k-steps a slot (1 at N = 16)
+  static constexpr int kSlot = kSlotSteps * kStep;
+  static constexpr int kStages = kTerms == 2 ? 3 : 6;
+  static constexpr int kRings = kTierConsumers * kStages * kSlot;
+  static constexpr int kTileStep = kTierN * 16 * 2;                // bytes a k-step of a tile's term
+  static constexpr int kLoSlot = kSlotSteps * kTileStep;
+  static constexpr int kLoStages = kTerms == 2 ? 5 : 0;
+  static constexpr int kLo = kLoStages * kLoSlot;
+  static constexpr int kBars = 2 * kTierConsumers * kStages + 2 * kLoStages + 2;
+  __host__ __device__ static constexpr size_t tile(int n) {
+    return static_cast<size_t>(kTierN) * n * 2;
+  }
+  __host__ __device__ static constexpr size_t bytes(int n) {
+    return tile(n) + kRings + kLo + kBars * sizeof(uint64_t);
+  }
+  static_assert(bytes(512) <= kTierSmemLimit, "the hi tile and the rings fit at N = 512");
+};
+
+// The plan of a pass: `groups` of 64 outputs (1 below N = 64), `pairs`
+// units a tile, N / 16 k-steps, N / 16 tiles a frame.
+struct TierPlan {
+  int groups, pairs, ksteps, tiles;
+  long long units;
+  __host__ __device__ TierPlan(int n, int frames)
+      : groups(n >= kTierGroup ? n / kTierGroup : 1),
+        pairs((groups + kTierConsumers - 1) / kTierConsumers),
+        ksteps(n / 16),
+        tiles(n / kTierTile),
+        units(static_cast<long long>(frames) * tiles * pairs) {}
+};
+
+// What a tiered launch reads and writes: the propagate's inputs (r.tw is
+// not read) and the table; the spectra's tiles xs and Y's (yt), each
+// (frames, N / 16, terms, 96 N) bf16; the planes.
+struct TierArgs {
+  RowArgs r;
+  const uint8_t* table;  // ops/fft.wgmma_slots: [group][k-step][slot]
+  int frames;
+  int n;
+  uint16_t* xs;
+  uint16_t* yt;
+  float* out;
+};
+
+// The spectra's tiles: a warp takes an 8 x 8 patch of every frame, lane l
+// the elements (y, x) and (y, x + 1) at y = 8 (p / (n / 8)) + l % 8, x = 8
+// (p % (n / 8)) + 2 (l / 8) of patch p = e / 32; each pair goes to its row's
+// tile y / 16 as one 32-bit word a plane and term, so that a warp stores
+// each plane's term as one whole core matrix (128 B).
+template <int kTerms>
+__global__ void __launch_bounds__(kSpectraThreads) unpacked_spectra_tier(const TierArgs a) {
   namespace tr = ocean::tier;
-  extern __shared__ uint32_t tiles[];
-  const size_t nn = static_cast<size_t>(n) * n;
-  const int ldw = tier_ldw(n);
-  const int r0 = kTierRows * blockIdx.x;
-  const int frame = blockIdx.y;
-  const float t = a.ts[frame];
+  const int n = a.n;
+  const int e = blockIdx.x * kSpectraThreads + threadIdx.x;
+  if (e >= n * n / 2) return;
+  const int lane = e % 32, patch = e / 32, across = n / 8;
+  const int y = 8 * (patch / across) + lane % 8;
+  const int x = 8 * (patch % across) + 2 * (lane / 8);
+  const size_t tile_size = static_cast<size_t>(kTerms) * kTierN * n;  // bf16
   const float np1 = static_cast<float>(n + 1);
-  const bool wrap = a.wrap_k != 0;
-  // Tile (q, term), q = 2 spectrum + (0: re, 1: im): local row r holds grid
-  // row r0 + r, element x at bf16 x.
-  for (int e = threadIdx.x; e < kTierRows * n; e += kTierThreads) {
-    const int r = e / n, x = e % n;
-    float hr, hi, khx, khy;
-    unpacked_propagate(a, n, r0 + r, x, t, np1, static_cast<float>(r0 + r), wrap, hr, hi, khx,
-                       khy);
-    const float v[2 * kSpectra] = {mul(khx, hi), mul(-khx, hr), hr, hi, mul(khy, hi),
-                                   mul(-khy, hr)};
+  const bool wrap = a.r.wrap_k != 0;
+  const int at = tr::core_at(y % kTierTile, x, kTierN) / 2;  // plane q at 16 q rows on
+  for (int fc = blockIdx.y; fc < a.frames; fc += gridDim.y) {
+    float v[2][kTierPlanes];
 #pragma unroll
-    for (int q = 0; q < 2 * kSpectra; ++q) {
-      uint16_t h, l;
-      tr::split1(v[q], h, l);
-      uint16_t* row = reinterpret_cast<uint16_t*>(tiles + ((q * kTerms) * kTierRows + r) * ldw);
-      row[x] = h;
-      if constexpr (kTerms == 2) row[2 * kTierRows * ldw + x] = l;
+    for (int i = 0; i < 2; ++i) {
+      float hr, hi, khx, khy;
+      unpacked_propagate(a.r, n, y, x + i, a.r.ts[fc], np1, static_cast<float>(y), wrap, hr, hi,
+                         khx, khy);
+      v[i][0] = mul(khx, hi);
+      v[i][1] = mul(-khx, hr);
+      v[i][2] = hr;
+      v[i][3] = hi;
+      v[i][4] = mul(khy, hi);
+      v[i][5] = mul(-khy, hr);
     }
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int ksteps = n / 16;
-  float* yf = y + static_cast<size_t>(frame) * 2 * kSpectra * nn;
-  for (int nt = warp; nt < n / 8; nt += kTierThreads / 32) {
-    // acc[spectrum]: xr.Ar, xi.Ai, xr.Ai, xi.Ar
-    float acc[kSpectra][4][kTerms][4];
+    uint32_t* tile = reinterpret_cast<uint32_t*>(
+        a.xs + (static_cast<size_t>(fc) * (n / kTierTile) + y / kTierTile) * tile_size);
 #pragma unroll
-    for (int s = 0; s < kSpectra; ++s)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) tr::zero(acc[s][k]);
-    const uint4* fb = frag + static_cast<size_t>(nt) * ksteps * kTerms * 32 + lane;
-    for (int ks = 0; ks < ksteps; ++ks) {
-      uint32_t br[kTerms][2], bi[kTerms][2];
-#pragma unroll
-      for (int term = 0; term < kTerms; ++term) {
-        const uint4 f = __ldg(fb + (ks * kTerms + term) * 32);
-        br[term][0] = f.x;
-        br[term][1] = f.y;
-        bi[term][0] = f.z;
-        bi[term][1] = f.w;
-      }
-#pragma unroll
-      for (int s = 0; s < kSpectra; ++s) {
-        uint32_t xr[kTerms][4], xi[kTerms][4];
-#pragma unroll
-        for (int term = 0; term < kTerms; ++term) {
-          tr::load_a(xr[term], tiles + ((2 * s) * kTerms + term) * kTierRows * ldw, ldw, ks,
-                     lane);
-          tr::load_a(xi[term], tiles + ((2 * s + 1) * kTerms + term) * kTierRows * ldw, ldw,
-                     ks, lane);
-        }
-        tr::mma_tier(acc[s][0], xr, br);
-        tr::mma_tier(acc[s][1], xi, bi);
-        tr::mma_tier(acc[s][2], xr, bi);
-        tr::mma_tier(acc[s][3], xi, br);
-      }
-    }
-    const int col = 8 * nt + 2 * (lane % 4);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const size_t row = static_cast<size_t>(r0 + lane / 4 + 8 * h) * n + col;
-#pragma unroll
-      for (int s = 0; s < kSpectra; ++s) {
-        float yr[2], yi[2];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int i = 2 * h + c;
-          yr[c] = __fsub_rn(tr::total(acc[s][0], i), tr::total(acc[s][1], i));
-          yi[c] = __fadd_rn(tr::total(acc[s][2], i), tr::total(acc[s][3], i));
-        }
-        *reinterpret_cast<float2*>(yf + 2 * s * nn + row) = make_float2(yr[0], yr[1]);
-        *reinterpret_cast<float2*>(yf + (2 * s + 1) * nn + row) = make_float2(yi[0], yi[1]);
-      }
+    for (int q = 0; q < kTierPlanes; ++q) {
+      uint32_t h, l;
+      tr::split2(v[0][q], v[1][q], h, l);
+      const int w = at + tr::core_at(kTierTile * q, 0, kTierN) / 2;
+      tile[w] = h;
+      if constexpr (kTerms == 2) tile[kTierN * n / 2 + w] = l;
     }
   }
 }
 
-template <int kTerms>
-__global__ void __launch_bounds__(kTierThreads, 1) unpacked_col_tier(
-    const float* __restrict__ y, const uint4* __restrict__ frag, int n, float* __restrict__ out) {
+template <int kTerms, int L>
+__device__ __forceinline__ void pin_tier(float (&acc)[2][kTerms][L]) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int s = 0; s < kTerms; ++s) ocean::tier::fence_operand(acc[c][s]);
+}
+
+// One k-step of a tier's product on a warpgroup, N = 96 (the row pass) or
+// 48 (the column pass), as tier::wgmma_tier.
+template <int kTerms, int L>
+__device__ __forceinline__ void wgmma_terms(float (&acc)[kTerms][L], const uint64_t (&a)[kTerms],
+                                            const uint64_t (&b)[kTerms]) {
   namespace tr = ocean::tier;
-  extern __shared__ uint32_t tiles[];
+  if constexpr (L == 48) {
+    tr::wgmma_m64n96(acc[0], a[0], b[0]);
+    if constexpr (kTerms == 2) {
+      tr::wgmma_m64n96(acc[1], a[0], b[1]);  // hi.lo
+      tr::wgmma_m64n96(acc[1], a[1], b[0]);  // lo.hi
+    }
+  } else {
+    static_assert(L == 24, "K4t's products are m64n96 or m64n48");
+    tr::wgmma_m64n48(acc[0], a[0], b[0]);
+    if constexpr (kTerms == 2) {
+      tr::wgmma_m64n48(acc[1], a[0], b[1]);  // hi.lo
+      tr::wgmma_m64n48(acc[1], a[1], b[0]);  // lo.hi
+    }
+  }
+}
+
+// A slot's products (k-steps ks0 .. ks0 + steps - 1 of a group), one commit
+// group, not awaited: acc[0] += Ar X, acc[1] += Ai X (kRow: X the tile's 96
+// rows; else Ar the rows 0-47, Ai the rows 48-95), X's hi terms from the
+// resident tile and its lo terms from the lo slot.
+template <int kTerms, bool kRow>
+__device__ __forceinline__ void slot_products(float (&acc)[2][kTerms][kRow ? 48 : 24],
+                                              const uint8_t* slot, const uint8_t* tile,
+                                              const uint8_t* lo, int ks0, int steps) {
+  namespace tr = ocean::tier;
+  using S = TierSmem<kTerms>;
+  pin_tier(acc);
+  tr::wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < S::kSlotSteps; ++s) {
+    if (s == steps) break;
+    // Along K 1,024 B (the table) and 1,536 B (a tile) between the two core
+    // matrices of a k-step, 128 B between neighbours along M or N; offsets
+    // below in 16-byte units.
+    const uint64_t a0 = tr::smem_desc(slot + s * S::kStep, 1024, 128);
+    uint64_t ar[kTerms], ai[kTerms], xr[kTerms], xi[kTerms];
+    xr[0] = tr::smem_desc(tile + S::kTileStep * (ks0 + s), 1536, 128);
+    if constexpr (kTerms == 2) xr[1] = tr::smem_desc(lo + S::kTileStep * s, 1536, 128);
+#pragma unroll
+    for (int t = 0; t < kTerms; ++t) {
+      ar[t] = a0 + t * 128;                  // 2,048 B a plane and term
+      ai[t] = a0 + (kTerms + t) * 128;
+      xi[t] = xr[t] + (kRow ? 0 : 48);       // 48 rows on: 6 core matrices
+    }
+    wgmma_terms(acc[0], ar, xr);
+    wgmma_terms(acc[1], ai, xi);
+  }
+  tr::wgmma_commit();
+}
+
+// A product pass: the row pass (kRow) from the spectra's tiles into Y's,
+// the column pass from Y's tiles into the planes.
+template <int kTerms, bool kRow>
+__device__ __forceinline__ void tier_pass(const TierArgs& a) {
+  namespace tr = ocean::tier;
+  using S = TierSmem<kTerms>;
+  extern __shared__ __align__(128) uint8_t tier_smem[];
+  const int n = a.n;
   const size_t nn = static_cast<size_t>(n) * n;
-  const int ldw = tier_ldw(n);
-  const int x0 = kTierRows * blockIdx.x;
-  const int spec = blockIdx.y, frame = blockIdx.z;
-  const float* yf = y + (static_cast<size_t>(frame) * kSpectra + spec) * 2 * nn + x0;
-  // Tile (q, term), q = 0: Re, 1: Im of the spectrum's Y; row c holds column
-  // x0 + c, word k the rows 2 k and 2 k + 1.
-  const int pairs = n / 2;
-  for (int e = threadIdx.x; e < 2 * pairs * kTierRows; e += kTierThreads) {
-    const int c = e % kTierRows;
-    const int k = (e / kTierRows) % pairs;
-    const int q = e / (kTierRows * pairs);
-    const float* src = yf + q * nn + static_cast<size_t>(2 * k) * n + c;
-    uint32_t hi, lo;
-    tr::split2(src[0], src[n], hi, lo);
-    uint32_t* row = tiles + ((q * kTerms) * kTierRows + c) * ldw + k;
-    row[0] = hi;
-    if constexpr (kTerms == 2) row[kTierRows * ldw] = lo;
+  const size_t tile_size = static_cast<size_t>(kTerms) * kTierN * n;  // bf16
+  uint8_t* tile = tier_smem;
+  uint8_t* rings = tier_smem + S::tile(n);
+  uint8_t* lo = rings + S::kRings;
+  uint64_t* full = reinterpret_cast<uint64_t*>(lo + S::kLo);  // [ring][slot]
+  uint64_t* empty = full + kTierConsumers * S::kStages;
+  uint64_t* lo_full = empty + kTierConsumers * S::kStages;
+  uint64_t* lo_empty = lo_full + S::kLoStages;
+  uint64_t* tile_full = lo_empty + S::kLoStages;
+  uint64_t* tile_empty = tile_full + 1;
+  const TierPlan plan(n, a.frames);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kTierConsumers * S::kStages; ++i) {
+      tr::mbar_init(full + i, 1);      // the producer's arrival with the slot's bytes
+      tr::mbar_init(empty + i, 128);   // a consumer warpgroup
+    }
+    // every warpgroup that has a group in each unit: both from N = 128
+    const int readers = plan.groups < kTierConsumers ? plan.groups : kTierConsumers;
+    for (int i = 0; i < S::kLoStages; ++i) {
+      tr::mbar_init(lo_full + i, 1);
+      tr::mbar_init(lo_empty + i, 128 * readers);
+    }
+    tr::mbar_init(tile_full, 1);
+    tr::mbar_init(tile_empty, kTierConsumerThreads);
+    tr::mbar_init_fence();
   }
   __syncthreads();
-
+  const long long u0 = plan.units * blockIdx.x / gridDim.x;
+  const long long u1 = plan.units * (blockIdx.x + 1) / gridDim.x;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int ksteps = n / 16;
-  float* of = out + (static_cast<size_t>(frame) * kSpectra + spec) * nn + x0 + lane / 4;
-  for (int nt = warp; nt < n / 8; nt += kTierThreads / 32) {
-    // products: yr.Ar, yi.Ai
-    float acc[2][kTerms][4];
+  const int steps = plan.ksteps < S::kSlotSteps ? plan.ksteps : S::kSlotSteps;
+  const uint16_t* tiles = kRow ? a.xs : a.yt;
+
+  if (warp >= kTierConsumerThreads / 32) {
+    // Producer warp w: one thread fills ring w (w < 2), the hi tile (2) or
+    // the lo ring (3).
+    tr::setmaxnreg_dec<kProducerRegs>();
+    const int w = warp - kTierConsumerThreads / 32;
+    if (lane != 0) return;
+    if (w == kTierConsumers) {
+      uint32_t tile_phase = 0;
+      for (long long t = u0 / plan.pairs; t * plan.pairs < u1; ++t) {
+        tr::mbar_wait(tile_empty, tile_phase ^ 1);  // the consumers are done with the last
+        tile_phase ^= 1;
+        const uint32_t bytes = static_cast<uint32_t>(S::tile(n));
+        tr::mbar_expect_tx(tile_full, bytes);
+        const uint8_t* src = reinterpret_cast<const uint8_t*>(tiles + t * tile_size);
+        for (uint32_t off = 0; off < bytes; off += kTileCopy) {
+          const uint32_t size = bytes - off < kTileCopy ? bytes - off : kTileCopy;
+          tr::bulk_load(tile + off, src + off, size, tile_full);
+        }
+      }
+      return;
+    }
+    int slot = 0;
+    uint32_t phase = 0;
+    if (w == kTierConsumers + 1) {
+      if constexpr (kTerms == 2) {
+        for (long long u = u0; u < u1; ++u) {
+          const uint8_t* src = reinterpret_cast<const uint8_t*>(
+              tiles + (u / plan.pairs) * tile_size + kTierN * n);  // the unit's tile's lo terms
+          for (int ks = 0; ks < plan.ksteps; ks += steps) {
+            tr::mbar_wait(lo_empty + slot, phase ^ 1);
+            tr::mbar_expect_tx(lo_full + slot, steps * S::kTileStep);
+            tr::bulk_load(lo + slot * S::kLoSlot, src + ks * S::kTileStep, steps * S::kTileStep,
+                          lo_full + slot);
+            if (++slot == S::kLoStages) {
+              slot = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
+      return;
+    }
+    for (long long u = u0; u < u1; ++u) {
+      const int g = kTierConsumers * static_cast<int>(u % plan.pairs) + w;
+      if (g >= plan.groups) continue;
+      for (int ks = 0; ks < plan.ksteps; ks += steps) {
+        const int i = w * S::kStages + slot;
+        tr::mbar_wait(empty + i, phase ^ 1);
+        tr::mbar_expect_tx(full + i, steps * S::kStep);
+        tr::bulk_load(rings + static_cast<size_t>(i) * S::kSlot,
+                      a.table + (static_cast<size_t>(g) * plan.ksteps + ks) * S::kStep,
+                      steps * S::kStep, full + i);
+        if (++slot == S::kStages) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  tr::setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp / 4;
+  const int wl = warp % 4, gq = lane / 4, tq = lane % 4;
+  const uint8_t* ring = rings + wg * S::kStages * S::kSlot;
+  uint64_t* ring_full = full + wg * S::kStages;
+  uint64_t* ring_empty = empty + wg * S::kStages;
+  int slot = 0, lslot = 0;
+  uint32_t phase = 0, lphase = 0, tile_phase = 0;
+  long long held = -1;
+  for (long long u = u0; u < u1; ++u) {
+    const long long t = u / plan.pairs;  // the unit's tile, frame-major
+    if (t != held) {
+      if (held >= 0) tr::mbar_arrive(tile_empty);  // every product of the last tile is done
+      tr::mbar_wait(tile_full, tile_phase);
+      tile_phase ^= 1;
+      held = t;
+    }
+    const int g = kTierConsumers * static_cast<int>(u % plan.pairs) + wg;
+    if (g >= plan.groups) continue;
+    float acc[2][kTerms][kRow ? 48 : 24];
     tr::zero(acc[0]);
     tr::zero(acc[1]);
-    const uint4* fb = frag + static_cast<size_t>(nt) * ksteps * kTerms * 32 + lane;
-    for (int ks = 0; ks < ksteps; ++ks) {
-      uint32_t br[kTerms][2], bi[kTerms][2], a[2][kTerms][4];
-#pragma unroll
-      for (int term = 0; term < kTerms; ++term) {
-        const uint4 f = __ldg(fb + (ks * kTerms + term) * 32);
-        br[term][0] = f.x;
-        br[term][1] = f.y;
-        bi[term][0] = f.z;
-        bi[term][1] = f.w;
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          tr::load_a(a[q][term], tiles + (q * kTerms + term) * kTierRows * ldw, ldw, ks, lane);
+    int prev = 0, lprev = 0;
+#pragma unroll 1
+    for (int ks = 0; ks < plan.ksteps; ks += steps) {
+      tr::mbar_wait(ring_full + slot, phase);
+      if constexpr (kTerms == 2) tr::mbar_wait(lo_full + lslot, lphase);
+      slot_products<kTerms, kRow>(acc, ring + slot * S::kSlot, tile, lo + lslot * S::kLoSlot, ks,
+                                  steps);
+      if (ks > 0) {
+        tr::wgmma_wait<1>();  // the slots before are done: free them
+        pin_tier(acc);
+        tr::mbar_arrive(ring_empty + prev);
+        if constexpr (kTerms == 2) tr::mbar_arrive(lo_empty + lprev);
+      }
+      prev = slot;
+      if (++slot == S::kStages) {
+        slot = 0;
+        phase ^= 1;
+      }
+      if constexpr (kTerms == 2) {
+        lprev = lslot;
+        if (++lslot == S::kLoStages) {
+          lslot = 0;
+          lphase ^= 1;
         }
       }
-      tr::mma_tier(acc[0], a[0], br);
-      tr::mma_tier(acc[1], a[1], bi);
     }
+    tr::wgmma_wait<0>();
+    pin_tier(acc);
+    tr::mbar_arrive(ring_empty + prev);
+    if constexpr (kTerms == 2) tr::mbar_arrive(lo_empty + lprev);
+
+    // Accumulator register 4 j + 2 h + e: output o = 64 g + 16 wl + gq + 8 h,
+    // operand row 8 j + 2 tq + e, of plane j / 2.
+    const int fc = static_cast<int>(t / plan.tiles);
+    const int tf = static_cast<int>(t % plan.tiles);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const size_t yo = static_cast<size_t>(8 * nt + 2 * (lane % 4) + (i & 1)) * n + 8 * (i >> 1);
-      of[yo] = __fsub_rn(tr::total(acc[0], i), tr::total(acc[1], i));
+    for (int h = 0; h < 2; ++h) {
+      const int o = kTierGroup * g + 16 * wl + gq + 8 * h;  // x (row pass) or y
+      if (o >= n) continue;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        auto at = [&](int q, int e) { return 4 * (2 * q + jj) + 2 * h + e; };
+        if constexpr (kRow) {
+          // Y's tile o / 16 holds plane p (Yr0 | Yr1 | Yr2 | Yi0 | Yi1 |
+          // Yi2) at operand rows 16 p + o % 16, K = y; this thread's rows y =
+          // 16 tf + 8 jj + 2 tq + e, two a 32-bit word, the quad's four words
+          // a core row.
+          uint32_t* yt = reinterpret_cast<uint32_t*>(
+              a.yt + (static_cast<size_t>(fc) * plan.tiles + o / kTierTile) * tile_size);
+          const int y = kTierTile * tf + 8 * jj + 2 * tq;
+#pragma unroll
+          for (int s = 0; s < kSpectra; ++s) {
+            float yr[2], yi[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              // yr = xr.Ar - xi.Ai, yi = xr.Ai + xi.Ar
+              yr[e] = __fsub_rn(tr::total(acc[0], at(2 * s, e)), tr::total(acc[1], at(2 * s + 1, e)));
+              yi[e] = __fadd_rn(tr::total(acc[1], at(2 * s, e)), tr::total(acc[0], at(2 * s + 1, e)));
+            }
+            uint32_t hi, lw;
+            const int wr = tr::core_at(kTierTile * s + o % kTierTile, y, kTierN) / 2;
+            tr::split2(yr[0], yr[1], hi, lw);
+            yt[wr] = hi;
+            if constexpr (kTerms == 2) yt[kTierN * n / 2 + wr] = lw;
+            const int wi = tr::core_at(kTierTile * (kSpectra + s) + o % kTierTile, y, kTierN) / 2;
+            tr::split2(yi[0], yi[1], hi, lw);
+            yt[wi] = hi;
+            if constexpr (kTerms == 2) yt[kTierN * n / 2 + wi] = lw;
+          }
+        } else {
+          // acc[0]: Ar Yr0, Ar Yr1, Ar Yr2; acc[1]: Ai Yi0, Ai Yi1, Ai Yi2
+          float* of = a.out + static_cast<size_t>(fc) * kSpectra * nn + static_cast<size_t>(o) * n +
+                      kTierTile * tf + 8 * jj + 2 * tq;
+#pragma unroll
+          for (int s = 0; s < kSpectra; ++s) {  // disp_x, height, disp_z
+            float v[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              v[e] = __fsub_rn(tr::total(acc[0], at(s, e)), tr::total(acc[1], at(s, e)));
+            }
+            *reinterpret_cast<float2*>(of + s * nn) = make_float2(v[0], v[1]);
+          }
+        }
+      }
     }
   }
 }
 
-// K4t: the row and the column kernel, Y between them.
 template <int kTerms>
-int launch_tier(const RowArgs& a, int tb, int n, const void* frag, float* y, float* out,
-                cudaStream_t st) {
-  static bool row_ready[kMaxDevices], col_ready[kMaxDevices];
-  // The attributes cover every n.
-  cudaError_t err = allow_smem(unpacked_row_tier<kTerms>, row_tier_smem(512, kTerms), row_ready);
-  if (err == cudaSuccess) {
-    err = allow_smem(unpacked_col_tier<kTerms>, col_tier_smem(512, kTerms), col_ready);
+__global__ void __launch_bounds__(kTierThreads, 1) unpacked_row_wgmma(const TierArgs a) {
+  tier_pass<kTerms, true>(a);
+}
+
+template <int kTerms>
+__global__ void __launch_bounds__(kTierThreads, 1) unpacked_col_wgmma(const TierArgs a) {
+  tier_pass<kTerms, false>(a);
+}
+
+// A product pass's shared-memory limit raised and its registers checked,
+// once a device: setmaxnreg moves registers between warpgroups of the
+// launch's allocation, so the kernel must have been compiled to kTierRegs a
+// thread.
+template <class F>
+int tier_ready(F* f, size_t smem, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < kMaxDevices && done[dev]) return 0;
+  err = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  cudaFuncAttributes attr{};
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, f);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (attr.numRegs < kTierRegs) return kErrTierRegisters;
+  if (dev < kMaxDevices) done[dev] = true;
+  return 0;
+}
+
+// The SMs of the current device, read once a device.
+cudaError_t tier_sms(int& sms) {
+  static int known[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && known[dev] > 0) {
+    sms = known[dev];
+    return cudaSuccess;
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const uint4* f = static_cast<const uint4*>(frag);
-  unpacked_row_tier<kTerms><<<dim3(n / kTierRows, tb), kTierThreads, row_tier_smem(n, kTerms),
-                              st>>>(a, n, f, y);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  unpacked_col_tier<kTerms><<<dim3(n / kTierRows, kSpectra, tb), kTierThreads,
-                              col_tier_smem(n, kTerms), st>>>(y, f, n, out);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < kMaxDevices) known[dev] = sms;
+  return err;
+}
+
+// K4t: the spectra, then the row and the column pass, the tiles between them.
+template <int kTerms>
+int launch_tier(const TierArgs& a, cudaStream_t st) {
+  using S = TierSmem<kTerms>;
+  static bool row_ready[kMaxDevices], col_ready[kMaxDevices];
+  const size_t most = S::bytes(512);  // the attribute covers every n
+  int err = tier_ready(unpacked_row_wgmma<kTerms>, most, row_ready);
+  if (err == 0) err = tier_ready(unpacked_col_wgmma<kTerms>, most, col_ready);
+  if (err != 0) return err;
+  int sms = 0;
+  cudaError_t cerr = tier_sms(sms);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  const dim3 spectra((a.n * a.n / 2 + kSpectraThreads - 1) / kSpectraThreads,
+                     a.frames < 65535 ? a.frames : 65535);
+  unpacked_spectra_tier<kTerms><<<spectra, kSpectraThreads, 0, st>>>(a);
+  cerr = cudaGetLastError();
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  const TierPlan plan(a.n, a.frames);
+  const int grid = static_cast<int>(plan.units < sms ? plan.units : sms);
+  const size_t smem = S::bytes(a.n);
+  unpacked_row_wgmma<kTerms><<<grid, kTierThreads, smem, st>>>(a);
+  cerr = cudaGetLastError();
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  unpacked_col_wgmma<kTerms><<<grid, kTierThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -684,9 +1018,10 @@ int unpacked_cols(const float* y, const float* tw, int tb, int n, float* out, fl
 //
 // passes selects the body: 0 the FFT body ("highest"), 3 the tiered body
 // K4t of the three-pass split, 1 of one bf16 pass ("default"); frag is then
-// the table's fragments (ops/fft.mma_fragments of ("alt", n, 1, 0, False),
-// hi and lo at 3 passes, hi at 1), tw is not read and y is the scratch
-// between K4t's two kernels.
+// the table's slots (ops/fft.wgmma_slots of ("alt", n, 1, 0, False), hi and
+// lo at 3 passes, hi at 1), tw is not read, and y holds the spectra's
+// tiles, then Y's: 2 x 6 n^2 bf16 a frame and term, (tb x terms, 3, 2, n, n)
+// float32 in all.
 int unpacked_step(const float* h0, const float* omega, const float* tw, const float* ts, int tb,
                   int n, float scale, int wrap_k, int conj_neg, float g, float* y, float* out,
                   float* partials, int ck_rows, float normals_scale, int with_normals,
@@ -700,8 +1035,10 @@ int unpacked_step(const float* h0, const float* omega, const float* tw, const fl
   int err;
   if (passes != 0) {
     if (n < 16 || n > 512 || (n & (n - 1)) != 0) return static_cast<int>(cudaErrorInvalidValue);
-    err = passes == 3 ? launch_tier<2>(a, tb, n, frag, y, out, st)
-                      : launch_tier<1>(a, tb, n, frag, y, out, st);
+    uint16_t* xs = reinterpret_cast<uint16_t*>(y);
+    const size_t tiles = static_cast<size_t>(tb) * kTierPlanes * n * n * (passes == 3 ? 2 : 1);
+    const TierArgs ta{a, static_cast<const uint8_t*>(frag), tb, n, xs, xs + tiles, out};
+    err = passes == 3 ? launch_tier<2>(ta, st) : launch_tier<1>(ta, st);
   } else {
     err = by_log2n(n, FusedLaunch{a, tb, y, out, st});
   }
@@ -718,6 +1055,10 @@ int unpacked_step_grid(int tb, int n) {
 }
 
 const char* unpacked_error_string(int err) {
+  if (err == kErrTierRegisters) {
+    return "a K4t product pass was compiled to fewer registers than its "
+           "warpgroups' setmaxnreg budget (168 a thread)";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -168,32 +168,6 @@ def transposed(p: Prepared) -> Prepared:
     return Prepared(p.value.T)
 
 
-def mma_fragments(planes, tier: str) -> torch.Tensor:
-    """The tables W (R x K float32, one or more planes of equal shape) as
-    the B operand B = W^T of ``mma.sync.m16n8k16.row.col.bf16``, in the
-    order the tiered kernels read it (``csrc/tier_mma.cuh``): int32 of
-    shape (R / 8, K / 16, terms, 32, 2 P). For n-tile nt, k-step ks, term
-    (hi, then lo for the split tiers) and lane l = 4 g + t, plane p holds
-    the two registers b01 = (W[8 nt + g][16 ks + 2 t], W[..][16 ks + 2 t + 1])
-    and b23 = (W[..][16 ks + 2 t + 8], W[..][16 ks + 2 t + 9]), the lower
-    column in the low 16 bits. A warp reads one n-tile's k-step as 32
-    consecutive vectors of 2 P words (a complex table: r01, r23, i01, i23).
-    R must be a multiple of 8, K of 16."""
-    terms = ("hi",) if tier == "default" else ("hi", "lo")
-    stacked = []
-    for term in terms:
-        per_plane = []
-        for w in planes:
-            r, k = w.shape
-            b = _bf16_terms(w, tier)[term]
-            # W[8 nt + g][16 ks + 8 half + 2 t + pair] -> [nt][ks][g][t][half][pair]
-            v = b.reshape(r // 8, 8, k // 16, 2, 4, 2).permute(0, 2, 1, 4, 3, 5)
-            per_plane.append(v.reshape(r // 8, k // 16, 32, 2, 2))
-        stacked.append(torch.stack(per_plane, dim=3))  # (nt, ks, lane, P, half, pair)
-    frag = torch.stack(stacked, dim=2).contiguous()    # (nt, ks, term, lane, P, half, pair)
-    return frag.view(torch.int32).reshape(*frag.shape[:4], -1)
-
-
 def wgmma_table(planes, tier: str, min_k: int = 0) -> torch.Tensor:
     """The tables W (R x K float32, one or more planes of equal shape) as
     wgmma's shared-memory B operand B = W^T, K-major without swizzle, in the
@@ -220,16 +194,16 @@ def wgmma_table(planes, tier: str, min_k: int = 0) -> torch.Tensor:
 
 
 def wgmma_slots(planes, tier: str) -> torch.Tensor:
-    """The tables W (R x K float32, two planes of equal shape) as K1t's
-    wgmma A operand, W itself (M the rows, K-major without swizzle), cut into
-    the slots its producers copy (``csrc/packed_step.cu``): bf16 bits as
-    int16 of shape (G, K / 16, P, terms, 2, 8, 8, 8). Slot (g, ks) holds
-    rows 64 g .. 64 g + 63 at k = 16 ks .. 16 ks + 15, for each plane p and
-    term (hi, then lo for the split tiers) the 64 x 16 operand in
-    ``tier::core_at``'s order: core matrix (k / 8, r / 8), row r % 8 holding
-    W[64 g + r][16 ks + k - k % 8 ..] (8 bf16). One slot is contiguous, one
-    bulk copy. R below 64 is padded with zero rows to 64 (G = 1); else R
-    must be a multiple of 64, K of 16."""
+    """The tables W (R x K float32, two planes of equal shape) as K1t's and
+    K4t's wgmma A operand, W itself (M the rows, K-major without swizzle), cut
+    into the slots their producers copy (``csrc/packed_step.cu``,
+    ``csrc/unpacked_step.cu``): bf16 bits as int16 of shape (G, K / 16, P,
+    terms, 2, 8, 8, 8). Slot (g, ks) holds rows 64 g .. 64 g + 63 at k =
+    16 ks .. 16 ks + 15, for each plane p and term (hi, then lo for the split
+    tiers) the 64 x 16 operand in ``tier::core_at``'s order: core matrix
+    (k / 8, r / 8), row r % 8 holding W[64 g + r][16 ks + k - k % 8 ..] (8
+    bf16). One slot is contiguous, one bulk copy. R below 64 is padded with
+    zero rows to 64 (G = 1); else R must be a multiple of 64, K of 16."""
     terms = ("hi",) if tier == "default" else ("hi", "lo")
     r, k = planes[0].shape
     rows = max(r, 64)
@@ -379,13 +353,6 @@ def _tier_table(key: tuple, device: torch.device, tier: str) -> Tuple[Prepared, 
 
 
 @profiling.counted_cache(maxsize=64)
-def table_fragments(key: tuple, device: torch.device, tier: str) -> torch.Tensor:
-    """``mma_fragments`` of the planes of table ``key`` on ``device``, made
-    once per (table, device, tier): the tiered kernels' B operand."""
-    return mma_fragments(_table(key, device), tier)
-
-
-@profiling.counted_cache(maxsize=64)
 def table_wgmma(key: tuple, device: torch.device, tier: str, min_k: int = 0) -> torch.Tensor:
     """``wgmma_table`` of the planes of table ``key`` on ``device`` (K padded
     to ``min_k``), made once per (table, device, tier, min_k): K2t's and
@@ -396,7 +363,7 @@ def table_wgmma(key: tuple, device: torch.device, tier: str, min_k: int = 0) -> 
 @profiling.counted_cache(maxsize=64)
 def table_slots(key: tuple, device: torch.device, tier: str) -> torch.Tensor:
     """``wgmma_slots`` of the planes of table ``key`` on ``device``, made
-    once per (table, device, tier): K1t's A operand."""
+    once per (table, device, tier): K1t's and K4t's A operand."""
     return wgmma_slots(_table(key, device), tier)
 
 

@@ -42,9 +42,12 @@ Two implementations sit side by side:
   ``csrc/unpacked_step.cu``. K4's FFT body, K5 and K6 run register-resident
   radix-8 FFT passes (``csrc/fft_reg.cuh``, 8 rows or 8 columns a block;
   K4 is one cooperative launch of a persistent grid that runs K5's and K6's
-  device functions with one grid sync between them); K4t is a row and a
-  column kernel of bf16 ``mma.sync`` products over 16-row tiles
-  (``csrc/tier_mma.cuh``) with Y between them.
+  device functions with one grid sync between them); K4t is K1t's design
+  on the three spectra: a spectra kernel that stores the propagate in
+  16-row bf16 tiles, then persistent, warp-specialized row and column
+  passes of ``wgmma`` products (``csrc/tier_mma.cuh``), the table
+  (``ops/fft.table_slots``, K1t's) and the tiles streamed into shared memory
+  by bulk copies, Y between them as the column pass's tiles.
   ``launch_unpacked_step_checksums`` and ``launch_unpacked_cols_checksums``
   launch the checksum kernel behind them.
 
@@ -55,8 +58,9 @@ raise. Nothing falls back.
 What bounds the kernels on the H100 at 512^2: a frame reads 3 MB of inputs
 (once a call), writes and rereads 6 MB of Y and writes 3 MB of planes,
 against ~71 MFLOP of FFT, so bytes and latency, not arithmetic; K4t's 18
-products of N^3 multiply-adds a frame (4.8 GFLOP at the split) are bound by
-the tensor cores (``PERF.md`` has the measured times).
+products of N^3 multiply-adds a frame (4.8 GFLOP at the split) are paced by
+the hand-over of its rings of table slots rather than by the tensor cores
+(``csrc/unpacked_step.cu``'s note; ``PERF.md`` has the measured times).
 """
 
 from __future__ import annotations
@@ -70,7 +74,7 @@ from gfx_ocean_tpu_torch import kernels
 from gfx_ocean_tpu_torch.config import OceanConfig
 from gfx_ocean_tpu_torch.ops.derived import checksums_of_planes, normals_scale
 from gfx_ocean_tpu_torch.ops.fft import (_tier_table, effective_precision, kernel_passes,
-                                         kernel_tier, matmul_tier, prepare, table_fragments,
+                                         kernel_tier, matmul_tier, prepare, table_slots,
                                          transposed, twiddle_table)
 from gfx_ocean_tpu_torch.ops.fourstep_step import CHECKSUM_ROWS
 from gfx_ocean_tpu_torch.ops.propagate import _f32, _phase_mod_2pi, as_times
@@ -281,24 +285,28 @@ def launch_unpacked_step_checksums(
     kernel behind it: ts (tb,) -> ``(planes, partials)``, planes
     (tb, 3, N, N) and the per-block checksum partials (tb, N / CHECKSUM_ROWS),
     or None. At "highest" the FFT body (one cooperative launch, Y its
-    scratch); at the other tiers the tiered body K4t (a row and a column
-    kernel, Y between them). Counts ``launches.launch_unpacked_step`` per
-    launch of either body and ``tiered_launches.launch_unpacked_step`` per
-    launch of K4t (``kernels.launch``)."""
+    scratch); at the other tiers the tiered body K4t (the spectra kernel,
+    then the row and the column pass; its scratch holds the spectra's and
+    Y's bf16 tiles, as large as Y for each bf16 term). Counts
+    ``launches.launch_unpacked_step`` per launch of either body and
+    ``tiered_launches.launch_unpacked_step`` per launch of K4t
+    (``kernels.launch``)."""
     n = _checked(inputs, "launch_unpacked_step")
     check_supported(config, n)
     dev = inputs.omega.device
     ts = as_times(ts, dev)
     tb = ts.shape[0]
-    y = torch.empty((tb, 3, 2, n, n), dtype=torch.float32, device=dev)
-    planes = torch.empty((tb, 3, n, n), dtype=torch.float32, device=dev)
-    partials, ck_args = _checksum_args(config if checksum else None, tb, n, dev)
     tier = kernel_tier(config.matmul_precision)
     passes = kernel_passes(tier)
-    frag = table_fragments(("alt", n, 1, 0, False), dev, tier) if passes else None
+    # the FFT body's Y; the tiered body's tiles of the spectra, then Y's
+    terms = 2 if passes == 3 else 1
+    y = torch.empty((tb * terms, 3, 2, n, n), dtype=torch.float32, device=dev)
+    planes = torch.empty((tb, 3, n, n), dtype=torch.float32, device=dev)
+    partials, ck_args = _checksum_args(config if checksum else None, tb, n, dev)
+    table = table_slots(("alt", n, 1, 0, False), dev, tier) if passes else None
     kernels.launch("launch_unpacked_step", "unpacked_step", "unpacked_step",
                    *_propagate_args(inputs, ts, config), y.data_ptr(), planes.data_ptr(),
-                   *ck_args, passes, kernels.ptr(frag), device=dev, tiered=passes > 0)
+                   *ck_args, passes, kernels.ptr(table), device=dev, tiered=passes > 0)
     return planes, partials
 
 

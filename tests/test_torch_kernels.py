@@ -593,6 +593,29 @@ def test_unpacked_step_kernel_matches_plain(cuda, n, flags, precision):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bf16x3", "default"])
+@pytest.mark.parametrize("n", [16, 64, 128, 512])
+@pytest.mark.parametrize("tb", [1, 6])
+def test_k4t_persistent_plan_matches_plain(cuda, tb, n, precision):
+    """K4t's persistent passes at the plans of one frame and of a time
+    batch of 6 (the rollout), from one group at N <= 64 (the table padded to
+    64 rows) to the lo ring's every slot at 512: against the plain version
+    at the body tolerance, the checksums on the scale of their summands; one
+    tiered launch a call."""
+    cfg, inputs = _unpacked_inputs(n, CompatFlags(), cuda, precision)
+    ts = torch.arange(tb, dtype=torch.float32, device=cuda) * 0.7 + 1.0
+    before = _launches("launch_unpacked_step", "tiered_launches")
+    got = us.launch_unpacked_step(inputs, ts, cfg)
+    assert _launches("launch_unpacked_step", "tiered_launches") == before + 1
+    want = us.unpacked_planes_reference(inputs, ts, cfg)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert _rel(got, want) < TOL_BODY[precision]
+    got_ck = us.launch_unpacked_step_checksums(inputs, ts, cfg)[1].sum(-1)
+    tol_ck = TOL_CHECKSUM if precision != "default" else 1e-3
+    assert _checksum_rel(got_ck, want, cfg) < tol_ck
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [128, 256, 512])
 def test_unpacked_blocked_kernels_match_plain(cuda, n):
     """K5 alone (Y), K6 alone (fed K5's Y), both chained, and K4, which

@@ -2,8 +2,9 @@
 PyTorch versions (``ops/fused_step.packed_planes_reference``,
 ``ops/fourstep_step.fourstep_row_reference`` / ``fourstep_col_reference``,
 ``ops/unpacked_step.unpacked_planes_reference``) against the JAX package's
-Pallas kernels on the same numpy inputs, and the B operand layout the
-tiered CUDA bodies read (``ops/fft.mma_fragments``).
+Pallas kernels on the same numpy inputs, and the tiered CUDA bodies' wgmma
+operands, descriptors and work items, emulated (``ops/fft.wgmma_table``,
+``wgmma_slots``).
 
 The JAX kernels build every product with ``pallas_step._make_dot``: the
 three-pass split ``_dot3`` at "high", "bf16x3" and "bf16x4", one DEFAULT
@@ -317,38 +318,6 @@ def test_plain_k2_tier_on_a_row_band_from_windows():
     assert got.shape == (1, 2, 2, rows, n)
     assert _rel(got[0].numpy(), want) < TOL["bf16x3"]
     assert torch.equal(got, fs.fourstep_row(whole, [3.5], tc, base, rows))
-
-
-# --------------------------------------------------------------------------
-# The tiered bodies' B operand.
-# --------------------------------------------------------------------------
-
-@pytest.mark.parametrize("tier", ["bf16x3", "default"])
-def test_mma_fragments_hold_the_transposed_table(tier):
-    """Each lane's words of ``mma_fragments`` decode, by the fragment layout
-    of mma.m16n8k16's B operand (b01: rows 2t, 2t + 1 of column g; b23: rows
-    2t + 8, 2t + 9; the lower row in the low 16 bits), to B = W^T of each
-    plane's bf16 terms."""
-    rng = np.random.default_rng(7)
-    planes = [torch.from_numpy(rng.standard_normal((24, 48)).astype(np.float32))
-              for _ in range(2)]
-    frag = tfft.mma_fragments(planes, tier).numpy().view(np.uint32)
-    names = ("hi",) if tier == "default" else ("hi", "lo")
-    assert frag.shape == (3, 3, len(names), 32, 4)
-    lane = np.arange(32)
-    g, t = lane // 4, lane % 4
-    for p, w in enumerate(planes):
-        terms = tfft._bf16_terms(w, tier)
-        for s, name in enumerate(names):
-            b = np.zeros((48, 24), np.float32)
-            for nt in range(3):
-                for ks in range(3):
-                    for half in range(2):
-                        word = frag[nt, ks, s, :, 2 * p + half]
-                        k = 16 * ks + 8 * half + 2 * t
-                        b[k, 8 * nt + g] = (word << 16).view(np.float32)
-                        b[k + 1, 8 * nt + g] = ((word >> 16) << 16).view(np.float32)
-            assert np.array_equal(b, terms[name].float().numpy().T)
 
 
 # --------------------------------------------------------------------------
@@ -926,3 +895,200 @@ def test_k1t_work_items_cover_every_output_once(tb, cascades):
         assert (row_seen == 1).all() and (col_seen == 1).all()
         # the spectra: every cell of a frame once, in row y's tile y / 16
         assert (np.bincount(_k1t_spectra_cells(n), minlength=n * n) == 1).all()
+
+
+# --------------------------------------------------------------------------
+# K4t's products on wgmma (csrc/unpacked_step.cu): the spectra's tiles, the
+# resident hi terms and the ring of lo terms, the table's slots (K1t's),
+# the descriptors, the epilogue's index maps and the work items, emulated.
+# --------------------------------------------------------------------------
+
+K4T_SOURCE = Path(T.__file__).resolve().parent / "csrc" / "unpacked_step.cu"
+K4T_SLOT_STEPS, K4T_LO_STAGES = 2, 5   # TierSmem's kSlotSteps, kLoStages at the split
+
+
+def _k4t_constant(name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", K4T_SOURCE.read_text()).group(1))
+
+
+def _k4t_shape() -> tuple:
+    """(tile, group, consumers, operand rows) of the source: a tile's six
+    planes of 16 rows are the operand's 96 rows."""
+    tile = _k4t_constant("kTierTile")
+    return (tile, _k4t_constant("kTierGroup"), _k4t_constant("kTierConsumers"),
+            2 * _k4t_constant("kSpectra") * tile)
+
+
+@pytest.mark.parametrize("side", ["row", "col"])
+@pytest.mark.parametrize("tier", ["bf16x3", "default"])
+def test_k4t_products_emulated(tier, side):
+    """A K4t unit's products as ``tier_pass`` forms and reads them, at N 16
+    (one group, the table padded to 64 rows), 64 and 128: the tile in device
+    memory (the row pass's planes dx_r | dx_i | h_r | h_i | dz_r | dz_i at
+    operand rows 16 q + r, the column pass's Yr0 | Yr1 | Yr2 | Yi0 | Yi1 |
+    Yi2) at ``core_at(row, k, 96)`` per term; its hi terms copied whole into
+    shared memory, its lo terms streamed a slot of two k-steps at a time into
+    a ring of 5; each group's k-step from its slot (``wgmma_slots``) by the
+    descriptors of ``slot_products`` (1,024 B along K for the table, 1,536 B
+    for the tile, 128 B along M or N; the column pass's Ai window 768 B on);
+    the accumulators summed as ``tier::total`` and combined by the epilogue's
+    (h, jj, e) map. Against the products of the same bf16 terms in float64:
+    Y = X A^T (Re and Im of the three spectra's row transforms) and the
+    planes Re(A Y)."""
+    row = side == "row"
+    nterms = 1 if tier == "default" else 2
+    tile_rows, group, _, rows = _k4t_shape()
+    width = rows if row else rows // 2
+    tile_step = rows * 16 * 2                                   # bytes a k-step of a term
+    rng = np.random.default_rng(27)
+    for n in (16, 64, 128):
+        w = [torch.from_numpy(a) for a in tfft._dft_matrix_out_alt_np(n, 1, 0, False)]
+        slots = _bf16_bits(tfft.wgmma_slots(w, tier).numpy().reshape(-1))
+        groups, ksteps = max(1, n // group), n // 16
+        steps = min(ksteps, K4T_SLOT_STEPS)
+        x = rng.standard_normal((6, tile_rows, n)).astype(np.float32)  # plane, row (column), k
+        xt = _terms(x, tier)
+        dev_tile = np.zeros(nterms * rows * n)                 # the tile in device memory
+        r, k = np.meshgrid(np.arange(tile_rows), np.arange(n), indexing="ij")
+        for s in range(nterms):
+            for q in range(6):
+                dev_tile[s * rows * n + _core_at(tile_rows * q + r, k, rows)] = xt[s][q]
+        hi_tile = dev_tile[:rows * n]                          # the resident hi terms
+        lo_ring = np.zeros(K4T_LO_STAGES * steps * tile_step // 2)
+        wt = {name: dict(zip(("hi", "lo"), _terms(a.numpy(), tier)))
+              for name, a in zip(("ar", "ai"), w)}
+        xs = [dict(zip(("hi", "lo"), [t[q] for t in xt])) for q in range(6)]
+        pairs = tfft._PASSES["default" if tier == "default" else "bf16x3"]
+
+        def prod(wname, q):  # sum over k of A[o][k] X_q[c][k], o by c
+            return sum(wt[wname][s2] @ xs[q][s1].T for s1, s2 in pairs)
+
+        chunk = 0                                              # lo slots streamed
+        for g in range(groups):
+            acc = np.zeros((2, nterms, 64, width))
+            for ks0 in range(0, ksteps, steps):
+                lo_slot = chunk % K4T_LO_STAGES
+                if nterms == 2:                                # warp 3's bulk copy
+                    src = rows * n + ks0 * tile_step // 2
+                    at = lo_slot * steps * tile_step // 2
+                    lo_ring[at:at + steps * tile_step // 2] = dev_tile[src:src + steps * tile_step // 2]
+                chunk += 1
+                for ks in range(ks0, ks0 + steps):
+                    base = 2 * (g * ksteps + ks) * 2 * nterms * 1024   # bytes of the slot
+                    for p in range(2):
+                        a = [_read(slots, base + 2048 * (p * nterms + s), 1024, 128, 64)
+                             for s in range(nterms)]
+                        off = 0 if row or p == 0 else 128 * (rows // 2) // 8
+                        b = [_read(hi_tile, tile_step * ks + off, 1536, 128, width)]
+                        if nterms == 2:
+                            b.append(_read(lo_ring, (lo_slot * steps + ks - ks0) * tile_step + off,
+                                           1536, 128, width))
+                        acc[p, 0] += a[0] @ b[0].T
+                        if nterms == 2:
+                            acc[p, 1] += a[0] @ b[1].T
+                            acc[p, 1] += a[1] @ b[0].T
+            tot = acc.sum(axis=1)                           # (plane, m, operand row)
+            outs = 64 if n >= 64 else n
+            got = np.zeros((6 if row else 3, outs, tile_rows))
+            seen = np.zeros(got.shape, int)
+            for h in range(2):
+                for jj in range(2):
+                    for tq in range(4):
+                        for e in range(2):
+                            c = 8 * jj + 2 * tq + e
+
+                            def at(q):  # the operand row of register 4 (2 q + jj) + 2 h + e
+                                return 8 * (2 * q + jj) + 2 * tq + e
+
+                            for wl in range(4):
+                                mm = 16 * wl + np.arange(8) + 8 * h
+                                mm = mm[mm < outs]
+                                if row:  # (Yr0, Yr1, Yr2, Yi0, Yi1, Yi2)
+                                    vals = [tot[0, mm, at(2 * s)] - tot[1, mm, at(2 * s + 1)]
+                                            for s in range(3)]
+                                    vals += [tot[1, mm, at(2 * s)] + tot[0, mm, at(2 * s + 1)]
+                                             for s in range(3)]
+                                else:    # disp_x, height, disp_z
+                                    vals = [tot[0, mm, at(s)] - tot[1, mm, at(s)] for s in range(3)]
+                                for q, v in enumerate(vals):
+                                    got[q, mm, c] = v
+                                    seen[q, mm, c] += 1
+            assert (seen == 1).all()
+            rows_g = slice(64 * g, 64 * g + outs)
+            if row:  # Y[r][x] = (X A^T)[r][x] of each spectrum
+                want = [prod("ar", 2 * s) - prod("ai", 2 * s + 1) for s in range(3)]
+                want += [prod("ai", 2 * s) + prod("ar", 2 * s + 1) for s in range(3)]
+            else:    # planes[s][y][c] = (Ar Yr_s - Ai Yi_s)[y][c]
+                want = [prod("ar", s) - prod("ai", 3 + s) for s in range(3)]
+            want = np.stack([wq[rows_g] for wq in want])
+            assert np.allclose(got, want, rtol=0, atol=1e-9 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("tb", [1, 6, 18])
+def test_k4t_work_items_cover_every_output_once(tb):
+    """K4t's ``TierPlan`` and the persistent grid of ``launch_tier`` on 132
+    SMs (one cascade a call, so tb frames): for N 16 .. 512, block b's units
+    [b U / G, (b + 1) U / G) (unit u: tile u / pairs, frame-major; groups 2
+    (u % pairs) + w of the two consumer warpgroups, those below max(1, N /
+    64)) cover every (frame, spectrum, row, column) of the row pass and of
+    the column pass exactly once: the row pass's as Y's tiles, x / 16 at
+    ``core_at(16 p + x % 16, y, 96)`` for each of the six planes p, every
+    element of them once; every block takes within one unit of the same
+    count; each unit's lo slots (two k-steps, one at N = 16) cover its
+    tile's lo terms once; the spectra kernel's threads, two elements each,
+    cover every element of a frame's tiles once, at ``core_at(16 q + y %
+    16, x, 96)``, a warp's store of a plane one core matrix."""
+    tile, group, consumers, rows = _k4t_shape()
+    frames, sms = tb, 132
+    for n in (16, 32, 64, 128, 256, 512):
+        groups = max(1, n // group)
+        pairs = -(-groups // consumers)
+        tiles = n // tile
+        units = frames * tiles * pairs
+        grid = min(units, sms)
+        starts = [units * b // grid for b in range(grid + 1)]
+        counts = np.diff(starts)
+        assert counts.max() - counts.min() <= 1 and counts.sum() == units
+        u = np.concatenate([np.arange(starts[b], starts[b + 1]) for b in range(grid)])
+        t, pair = np.divmod(u, pairs)
+        fc, tf = np.divmod(t, tiles)
+        g = (consumers * pair[:, None] + np.arange(consumers)[None, :]).ravel()
+        fc, tf = np.repeat(fc, consumers), np.repeat(tf, consumers)
+        keep = g < groups
+        g, fc, tf = g[keep], fc[keep], tf[keep]
+        o = group * g[:, None] + np.arange(group)[None, :]             # (items, 64) outputs
+        live = o < n
+        y = tile * tf[:, None] + np.arange(tile)[None, :]               # (items, 16)
+        # the row pass: Y's tile o / 16, element core_at(16 p + o % 16, y, 96), a frame's
+        at = _core_at(tile * np.arange(6)[None, None, None, :] + (o % tile)[:, :, None, None],
+                      y[:, None, :, None], rows)
+        elem = (fc[:, None, None, None] * tiles + (o // tile)[:, :, None, None]) * rows * n + at
+        row_seen = np.bincount(elem[np.broadcast_to(live[:, :, None, None], elem.shape)],
+                               minlength=frames * tiles * rows * n)
+        # the column pass: planes (frame, spectrum, y = o, x = 16 tf + c)
+        x = tile * tf[:, None, None, None] + np.arange(tile)[None, None, None, :]
+        cell = ((fc[:, None, None, None] * 3 + np.arange(3)[None, None, :, None]) * n
+                + o[:, :, None, None]) * n + x
+        col_seen = np.bincount(cell[np.broadcast_to(live[:, :, None, None], cell.shape)],
+                               minlength=frames * 3 * n * n)
+        assert (row_seen == 1).all() and (col_seen == 1).all()
+        # a unit's lo slots: k-steps ks .. ks + steps - 1 of 96 x 16 bf16 each
+        steps = min(n // 16, K4T_SLOT_STEPS)
+        lo = np.concatenate([np.arange(ks * rows * 16, (ks + steps) * rows * 16)
+                             for ks in range(0, n // 16, steps)])
+        assert (np.bincount(lo, minlength=rows * n) == 1).all()
+        # the spectra: thread e of patch p = e / 32 takes (y, x) and (y, x + 1),
+        # y = 8 (p / (n / 8)) + l % 8, x = 8 (p % (n / 8)) + 2 (l / 8), plane q
+        # of its row's tile at core_at(16 q + y % 16, x, 96) as one word; each
+        # warp's store of a plane and term is one whole core matrix
+        e = np.arange(n * n // 2)
+        lane, patch = e % 32, e // 32
+        ey = 8 * (patch // (n // 8)) + lane % 8
+        ex = 8 * (patch % (n // 8)) + 2 * (lane // 8)
+        word = ((ey // tile)[:, None] * rows * n
+                + _core_at(tile * np.arange(6)[None, :] + (ey % tile)[:, None], ex[:, None], rows))
+        assert (word % 2 == 0).all()
+        spec = np.concatenate([word, word + 1])
+        assert (np.bincount(spec.ravel(), minlength=tiles * rows * n) == 1).all()
+        lines = word.reshape(-1, 32, 6) // 64                   # a warp's 128-byte core matrices
+        assert (lines == lines[:, :1]).all()

@@ -72,7 +72,15 @@ of one k-step (6 a ring) in place of two (3); ``k1t_half_copy`` copies
 half of each slot (the L2 traffic a two-block multicast would leave a
 block); ``k1t_stages2`` rings of 2 slots in place of 3; ``k1t_one_wave``
 runs the 512^2 call at time batch 4, ``k1t_tb1`` one frame (the frame
-renderer's call): the plan at other time batches. The outputs of the
+renderer's call): the plan at other time batches. The ``k4t*`` variants
+are K4's tiered body at "bf16x3" (``k4t_default`` at "default"; a 6-frame
+512^2 call with its checksum), as the ``k1t*`` ones: ``k4t_half_copy``
+(the table's L2 traffic a two-block multicast would leave a block),
+``k4t_no_copy``, ``k4t_no_products``, ``k4t_one_tile``,
+``k4t_no_epilogue``, ``k4t_slot1``; ``k4t_no_lo`` hands the lo ring's
+slots over without copying them, ``k4t_lo3`` runs a lo ring of 3 slots in
+place of 5, ``k4t_floor`` copies nothing and multiplies nothing (the
+hand-over and the epilogue alone). The outputs of the
 variants that take work out are wrong. The FFT-body variants run at
 "highest". Names on the command line pick variants.
 Prints, per variant and repeat, one JSON line: the ptxas register / stack
@@ -183,6 +191,23 @@ K1T_STAGES2 = ("kTerms == 2 ? 3 : 6;", "kTerms == 2 ? 2 : 6;")
 # K1t's ring slots of one k-step (6 a ring at the split) in place of two (3).
 K1T_SLOT1 = [("static constexpr int kSlotSteps = 2;", "static constexpr int kSlotSteps = 1;"),
              ("kTerms == 2 ? 3 : 6;", "kTerms == 2 ? 6 : 12;")]
+# K4t's lo producer handing its slots over without copying them: the lo
+# terms' stream taken out.
+K4T_NO_LO = ("""            tr::mbar_expect_tx(lo_full + slot, steps * S::kTileStep);
+            tr::bulk_load(lo + slot * S::kLoSlot, src + ks * S::kTileStep, steps * S::kTileStep,
+                          lo_full + slot);
+""", "            tr::mbar_arrive(lo_full + slot);\n")
+# K4t's consumers issuing no products (the slots still handed over).
+K4T_NO_PRODUCTS = ("""      slot_products<kTerms, kRow>(acc, ring + slot * S::kSlot, tile, lo + lslot * S::kLoSlot, ks,
+                                  steps);
+""", "")
+# K4t's lo ring of 3 slots in place of 5.
+K4T_LO3 = ("kLoStages = kTerms == 2 ? 5 : 0;", "kLoStages = kTerms == 2 ? 3 : 0;")
+# K4t's ring slots of one k-step (6 a ring at the split, the lo ring 10) in
+# place of two (3, 5).
+K4T_SLOT1 = [("static constexpr int kSlotSteps = 2;", "static constexpr int kSlotSteps = 1;"),
+             ("kTerms == 2 ? 3 : 6;", "kTerms == 2 ? 6 : 12;"),
+             ("kLoStages = kTerms == 2 ? 5 : 0;", "kLoStages = kTerms == 2 ? 10 : 0;")]
 K2T_SCRATCH = ("static constexpr bool kFused = kRow && LOG2N <= 12;",
                "static constexpr bool kFused = false;")
 
@@ -288,6 +313,17 @@ VARIANTS = {
     "k1t_one_wave": ("packed_step", []),
     "k1t_tb1": ("packed_step", []),
     "k1t_cascades": ("packed_step", []),
+    "k4t_repo": ("unpacked_step", []),
+    "k4t_default": ("unpacked_step", []),
+    "k4t_half_copy": ("unpacked_step", K1T_HALF_COPY),
+    "k4t_no_copy": ("unpacked_step", [K1T_NO_COPY]),
+    "k4t_no_lo": ("unpacked_step", [K4T_NO_LO]),
+    "k4t_no_products": ("unpacked_step", [K4T_NO_PRODUCTS]),
+    "k4t_lo3": ("unpacked_step", [K4T_LO3]),
+    "k4t_one_tile": ("unpacked_step", K1T_ONE_TILE),
+    "k4t_no_epilogue": ("unpacked_step", [K1T_NO_EPILOGUE]),
+    "k4t_slot1": ("unpacked_step", K4T_SLOT1),
+    "k4t_floor": ("unpacked_step", [K1T_NO_COPY, K4T_NO_LO, K4T_NO_PRODUCTS]),
 }
 # The time batch of each k1t variant (6 where not named).
 K1T_FRAMES = {"k1t_one_wave": 4, "k1t_tb1": 1}
@@ -471,6 +507,29 @@ def main() -> None:
                         smoke.fail(f"{name}: CUDA error {err}")
 
                 names, calls = smoke.K1T_KERNELS, 50
+            elif name.startswith("k4t"):
+                c4t = dataclasses.replace(c4, matmul_precision="default" if "_default" in name
+                                          else "bf16x3")
+                tier4t = tfft.kernel_tier(c4t.matmul_precision)
+                passes4t = tfft.kernel_passes(tier4t)
+                slots4t = tfft.table_slots(("alt", 512, 1, 0, False), dev, tier4t)
+                want = us.launch_unpacked_step(in4, ts6, c4t)
+                y = torch.empty((6 * (2 if passes4t == 3 else 1), 3, 2, 512, 512), device=dev)
+                out = torch.empty_like(want)
+                partials = torch.empty((6, 512 // fs.CHECKSUM_ROWS), device=dev)
+
+                def call(y=y, out=out, partials=partials, passes4t=passes4t, slots4t=slots4t,
+                         c4t=c4t):
+                    err = lib.unpacked_step(
+                        in4.h0.data_ptr(), in4.omega.data_ptr(), in4.twiddle.data_ptr(),
+                        ts6.data_ptr(), 6, 512, _f32(np.pi / c4t.domain_size), 0, 0, -1.0,
+                        y.data_ptr(), out.data_ptr(), partials.data_ptr(), fs.CHECKSUM_ROWS,
+                        float(c4t.normal_height_scale), 1, passes4t, slots4t.data_ptr(),
+                        stream())
+                    if err:
+                        smoke.fail(f"{name}: CUDA error {err}")
+
+                names, calls = smoke.K4T_KERNELS, 50
             elif name.startswith("k3"):
                 scratch = torch.empty_like(want2)
                 out = torch.empty_like(want3)

@@ -56,8 +56,11 @@ K3T_KERNELS = ("fourstep_col_tier1", "fourstep_col_tier2", "fourstep_tier2", "ch
 # the trees with the persistent product passes.
 K1T_KERNELS = ("packed_spectra_tier", "packed_row_tier", "packed_col_tier", "checksum_partials")
 K1T_CALLS = 50
-# K4 at "bf16x3": the FFT body in the trees before K4t, else K4t's kernels.
-K4_KERNELS = ("unpacked_fused", "unpacked_row_tier", "unpacked_col_tier")
+# K4 at "bf16x3": the FFT body in the trees before K4t, else K4t's kernels
+# (the mma.sync row and column kernels, or the spectra kernel and the
+# persistent wgmma passes).
+K4_KERNELS = ("unpacked_fused", "unpacked_row_tier", "unpacked_col_tier", "unpacked_spectra_tier",
+              "unpacked_row_wgmma", "unpacked_col_wgmma")
 BIG_N, BIG_CALLS = 16384, 5
 FS_STEPS, FS_REPEATS, FS_CALLS = 120, 3, 20
 U_STEPS, U_REPEATS, U_CALLS, U_TIME_BATCH, U_PROFILE_STEPS = 600, 5, 50, 6, 60
