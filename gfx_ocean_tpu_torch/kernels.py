@@ -208,7 +208,8 @@ def launch(counter: str, library: str, entry: str, *args, device: torch.device,
            tiered: bool = False) -> None:
     """Call ``entry`` of ``csrc/<library>.cu`` with ``args`` and ``device``'s
     current stream, then count one ``launches.<counter>`` (and one
-    ``tiered_launches.<counter>`` where ``tiered``) in the recorder's table.
+    ``tiered_launches.<counter>`` where ``tiered``) in the recorder's table
+    and mark the launch on the recorder's timeline (``profiling.mark``).
 
     A launch through ctypes goes to the current device's context, whatever
     device its tensors lie on, so ``device`` must be the current device
@@ -229,3 +230,4 @@ def launch(counter: str, library: str, entry: str, *args, device: torch.device,
     profiling.tally("launches." + counter)
     if tiered:
         profiling.tally("tiered_launches." + counter)
+    profiling.mark()

@@ -1233,10 +1233,11 @@ class _StageGraphs:
     graphs, one a stage, in one memory pool, and replayed in order, each
     inside its stage's span (whose CUDA events lie outside the graphs).
 
-    ``replay(inputs)`` copies the inputs (the step's displacement and
-    foam, ``view_proj``, ``camera_pos``) into the graphs' static inputs and
-    returns the dict of the stages' values: the tensors the captures made,
-    which every replay overwrites. Not reentrant: one frame at a time on an
+    ``load(inputs)`` copies the inputs (the step's displacement and foam,
+    ``view_proj``, ``camera_pos``) into the graphs' static inputs;
+    ``replay()`` runs the graphs on them and returns the dict of the
+    stages' values: the tensors the captures made, which every replay
+    overwrites. Not reentrant: one frame at a time on an
     instance. A capture that fails raises; there is no eager fallback.
 
     Counters of the recorded unit: ``graph.captures`` (a capture's graphs)
@@ -1276,10 +1277,13 @@ class _StageGraphs:
             profiling.tally(key, -n)
         profiling.count("graph.captures", len(self.graphs))
 
-    def replay(self, inputs: dict) -> dict:
+    def load(self, inputs: dict) -> None:
+        """Copy ``inputs`` into the graphs' static inputs."""
         for name, x in inputs.items():
             if x is not None:
                 self.values[name].copy_(x)
+
+    def replay(self) -> dict:
         for name, graph, launched in self.graphs:
             with profiling.span(name, device=self.device):
                 graph.replay()
@@ -1296,8 +1300,13 @@ def _frame_fn(config, width: int, height: int, giants: int, pool: Optional[int],
     renders the ``height // n_bands``-row band i of the viewport (rows from
     ``i * height // n_bands``), bit-equal to those rows of the full frame
     (the JAX package's ``_fused_frame_fn``). A frame is the span ``frame``
-    (attributes ``t`` and ``band``), with ``frame.step``, the stages of
-    ``_pool_stages`` and ``frame.srgb`` inside it.
+    (attributes ``t`` and ``band``; CUDA events on the state's device, its
+    start event the unit's anchor) with ``frame.step``, ``frame.inputs``
+    (the inputs' uploads, and on the card their copies into the graphs'
+    static inputs), the stages of ``_pool_stages``, ``frame.srgb`` and
+    ``frame.output`` (the image's copy out of the graphs, the giant
+    counts' copies) inside it: every launch of a frame lies in one of
+    these, its leaves (``utils/profiling.Timeline``).
 
     The step runs eagerly. On a CUDA device the stages after it are CUDA
     graphs (``_StageGraphs``), captured by the first call for a (device,
@@ -1331,27 +1340,34 @@ def _frame_fn(config, width: int, height: int, giants: int, pool: Optional[int],
                             diag) + [("frame.srgb", _srgb_stage)]
 
     def fn(state, t, view_proj, camera_pos, band: int = 0):
-        with profiling.span("frame", t=t, band=band):
-            dev = _device(state.h0.device)
+        dev = _device(state.h0.device)
+        with profiling.span("frame", device=dev, t=t, band=band):
             with profiling.span("frame.step", device=dev):
                 fields = _ocean_step(state, t, config)
-            inputs = {"displacement": fields.displacement,
-                      "view_proj": torch.as_tensor(view_proj, dtype=torch.float32, device=dev),
-                      "camera_pos": torch.as_tensor(camera_pos, dtype=torch.float32, device=dev),
-                      "foam": fields.foam if config.compute_foam else None}
-            key = (dev, band) + tuple(None if x is None else tuple(x.shape)
-                                      for x in inputs.values())
-            graphs = captured.get(key)
+            with profiling.span("frame.inputs", device=dev):
+                inputs = {"displacement": fields.displacement,
+                          "view_proj": torch.as_tensor(view_proj, dtype=torch.float32,
+                                                       device=dev),
+                          "camera_pos": torch.as_tensor(camera_pos, dtype=torch.float32,
+                                                        device=dev),
+                          "foam": fields.foam if config.compute_foam else None}
+                key = (dev, band) + tuple(None if x is None else tuple(x.shape)
+                                          for x in inputs.values())
+                graphs = captured.get(key)
+                if graphs is not None:
+                    graphs.load(inputs)
             if graphs is not None:
-                values = graphs.replay(inputs)
-                out = tuple(values[k].clone() for k in outputs)
+                values = graphs.replay()
             else:
                 body = stages(dev, band, fields.displacement)
                 values = _run_stages(body, dict(inputs), dev)
-                out = tuple(values[k] for k in outputs)
                 if dev.type == "cuda":
                     captured[key] = _StageGraphs(body, inputs, dev)
-            _count_giants(values["giant_counts"])
+            with profiling.span("frame.output", device=dev):
+                # The graphs' outputs are overwritten by the next replay.
+                out = tuple(values[k].clone() if graphs is not None else values[k]
+                            for k in outputs)
+                _count_giants(values["giant_counts"])
             return out if diag else out[0]         # diag: (frame, dropped-giants tripwire)
 
     return fn

@@ -19,7 +19,10 @@ The recorder. A span is a named interval of the host's clock
 unit: the outermost span open on the thread (one frame, one rollout call),
 whose id every span inside it shares. A span given a CUDA ``device`` also
 records a pair of ``torch.cuda.Event(enable_timing=True)`` on that device's
-current stream, resolved into its device time only when read. ``count``
+current stream, taken from a pool of the device's events. Their times are
+read only when a reader asks for them (``device_ms``, ``Unit.timeline``),
+after the recorded window, and the events then go back to the pool: a
+read costs the host more than a new event (PERF.md, PR 28). ``count``
 adds to a counter of the current unit (a count held in a device tensor is
 read when the unit closes, so nothing waits for the device before then);
 each unit also counts the growth of the process-wide table of counts
@@ -41,6 +44,29 @@ Units are kept in windows: a window opens at the first unit recorded after
 one that was not, and at the first after the start or the end of a
 ``recording()`` block. At most
 ``MAX_UNITS`` units are kept; past it the oldest windows go.
+
+One clock. A unit given a CUDA ``device`` asks its stream whether it is
+drained (``Stream.query()``, which does not wait) before it records its own
+start event, the anchor. On a drained stream the anchor completes as soon
+as it is submitted, so the unit is anchored: each event of the unit on that
+device maps onto the host's clock as the unit's ``start_ns`` plus
+``elapsed_time(anchor, event)``. A unit whose stream was busy is not
+anchored, and has no timeline. ``Unit.timeline()`` charges an anchored
+unit's device time (:class:`Timeline`): its leaves are the innermost spans
+with CUDA events, which should hold every launch of the unit; the device
+interval between two leaves, and between the anchor or the unit's end and
+its nearest leaf, is idle and goes to the innermost span open on the host
+then that is no leaf (the parent's own time); inside a leaf, the part of
+its interval before the host left it is idle and charged to the leaf, the
+rest is its busy time. ``mark()`` (``kernels.launch`` calls it after each
+launch) records one more event on the innermost open span with events, if
+it is a leaf of an anchored unit so far, with the host's time: it cuts the
+leaf in two, and each piece's wait runs to the host's time at its end.
+What no event on the host's side sees: the gaps between the kernels of one
+piece (a CUDA graph's nodes, kernels queued behind each other), which the
+timeline counts busy, and a graph's first nodes, which may start before
+its launch call returns, which it counts idle. ``outside_ms`` gives the
+stretches between consecutive units, the caller's time.
 """
 
 from __future__ import annotations
@@ -122,7 +148,8 @@ def profile_kernels(fn: Callable[[], object], calls: int = 1, names: Sequence[st
     of the window). A session that records no kernel, or not one whose name
     holds each of ``names``, is profiled again, up to ``PROFILER_ATTEMPTS``
     sessions, with a line on stderr; None after the last. ``cpu`` traces
-    host activity too.
+    host activity too. The ``record_function`` ranges (the recorder's spans
+    and any other user annotation) are left out: kernels alone.
     """
     from torch.profiler import ProfilerActivity, profile, schedule  # noqa: PLC0415
 
@@ -142,7 +169,8 @@ def profile_kernels(fn: Callable[[], object], calls: int = 1, names: Sequence[st
             wall_ms = (time.perf_counter() - t0) * 1e3
         kernels = {e.key: (e.device_time_total / 1e3, e.count) for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA and e.count
-                   and not e.key.startswith("ProfilerStep")}
+                   and not e.key.startswith("ProfilerStep")
+                   and not getattr(e, "is_user_annotation", False)}
         if kernels and all(any(n in k for k in kernels) for n in names):
             return kernels, wall_ms
         print(f"torch.profiler saw {len(kernels)} kernels, wanted {list(names)} "
@@ -227,17 +255,35 @@ _tls = threading.local()  # .top: the innermost recorded span open on the thread
 _ids = itertools.count(1)
 _windows: "collections.deque[Window]" = collections.deque()
 _kept = 0               # units in _windows
+_pools: Dict[torch.device, list] = {}   # each device's timing events whose times were read
+_events_lock = threading.Lock()         # reads the events of a unit and returns them once
+
+
+def _stream(device: torch.device):
+    """The current stream of a CUDA ``device``."""
+    return torch.cuda.current_stream(device)
+
+
+def _event(device: torch.device):
+    """A timing event of ``device``: one of its pool, or a new one."""
+    try:
+        return _pools[device].pop()
+    except (KeyError, IndexError):
+        return torch.cuda.Event(enable_timing=True)
 
 
 class Unit:
     """One recorded frame or call: its spans in the order they opened (its
-    own first), its counters."""
+    own first), its counters; ``anchored`` where its own start event was
+    recorded on a drained stream (see the module's docstring)."""
 
-    __slots__ = ("id", "name", "attrs", "spans", "counters", "traced", "_marks", "_pending")
+    __slots__ = ("id", "name", "attrs", "spans", "counters", "traced", "anchored",
+                 "_marks", "_pending")
 
     def __init__(self, name: str, attrs: dict, traced: bool):
         self.id = next(_ids)
         self.name, self.attrs, self.traced = name, attrs, traced
+        self.anchored = False
         self.spans: List[Span] = []
         self.counters: Dict[str, int] = {}
         self._marks = tallies()
@@ -253,6 +299,36 @@ class Unit:
         for name, n in grown(self._marks).items():
             self._add(name, n)
 
+    def _read(self) -> None:
+        """Wait for the unit's closed spans' CUDA events, read their times
+        and return the events to their pools. Call under ``_events_lock``."""
+        timed = [s for s in self.spans if s._events is not None and s._events[1] is not None]
+        if not timed:
+            return
+        top = self.spans[0]
+        # The unit's own end event is recorded after every other on its
+        # stream: where it is complete, so are they.
+        last = [top] if timed[0] is top and len({s._events[3] for s in timed}) == 1 else timed
+        for s in last:
+            s._events[1].synchronize()
+        anchor = top._events if self.anchored and top._events is not None else None
+        read = []
+        for s in timed:
+            start, end, device, _ = s._events
+            read.append((device, [start, end, *(e for _, e in s._marks or ())]))
+            if anchor is not None and device == anchor[2]:
+                s._at = (0.0 if s is top else anchor[0].elapsed_time(start),
+                         anchor[0].elapsed_time(end))
+                s._device_ms = s._at[1] - s._at[0]
+                if s._marks:
+                    s._marks = [(ns, anchor[0].elapsed_time(e)) for ns, e in s._marks]
+            else:
+                s._device_ms = start.elapsed_time(end)
+                s._marks = None
+            s._events = None
+        for device, events in read:       # once every time is read
+            _pools.setdefault(device, []).extend(events)
+
     def named(self, name: str) -> list:
         return [s for s in self.spans if s.name == name]
 
@@ -266,6 +342,108 @@ class Unit:
         where one has none (a CPU device) or there is none."""
         times = [s.device_ms for s in self.named(name)]
         return sum(times) if times and None not in times else None
+
+    def timeline(self) -> Optional["Timeline"]:
+        """The unit's device time charged to its spans on the host's clock
+        (waiting for its events), or None where it is not anchored or still
+        open."""
+        if not self.anchored or self.spans[0].end_ns is None:
+            return None
+        with _events_lock:
+            self._read()
+        return Timeline(self)
+
+
+class Timeline:
+    """An anchored unit's device time on the host's clock (``Unit.timeline``,
+    the module's docstring): ``idle_ms``, the idle time by the name of the
+    span it is charged to; ``busy_ms``, the busy time by leaf name (spans of
+    one name summed); ``start_ns`` and ``end_ns``, the unit's anchor and its
+    last event on the host's clock."""
+
+    __slots__ = ("idle_ms", "busy_ms", "start_ns", "end_ns")
+
+    def __init__(self, unit: Unit):
+        top = unit.spans[0]
+        self.start_ns = top.start_ns
+        self.end_ns = top.start_ns + top._at[1] * 1e6
+        self.idle_ms: Dict[str, float] = {}
+        self.busy_ms: Dict[str, float] = {}
+        timed = [s for s in unit.spans if s._at is not None]
+        parents = set()
+        for s in timed:
+            p = s.parent
+            while p is not None and id(p) not in parents:
+                parents.add(id(p))
+                p = p.parent
+        leaves = sorted((s for s in timed if id(s) not in parents), key=lambda s: s._at[0])
+        between = leaves[0] is not top      # else the unit's own interval is its one leaf
+        segments = _host_segments(unit.spans, {id(s) for s in leaves}) if between else []
+        cursor = self.start_ns
+        for leaf in leaves:
+            begin, end = (top.start_ns + t * 1e6 for t in leaf._at)
+            if between and begin > cursor:
+                self._charge_gap(cursor, begin, segments, top.name)
+            cursor = max(cursor, end)
+            marks = leaf._marks or ()
+            edges = [begin, *(top.start_ns + t * 1e6 for _, t in marks), end]
+            hosts = [*(ns for ns, _ in marks), leaf.end_ns]
+            for a, b, host in zip(edges, edges[1:], hosts):
+                wait = min(max(host - a, 0.0), b - a)
+                self._add(self.idle_ms, leaf.name, wait)
+                self._add(self.busy_ms, leaf.name, b - a - wait)
+        if between and self.end_ns > cursor:
+            self._charge_gap(cursor, self.end_ns, segments, top.name)
+
+    @staticmethod
+    def _add(table: Dict[str, float], name: str, ns: float) -> None:
+        table[name] = table.get(name, 0.0) + ns * 1e-6
+
+    def _charge_gap(self, a: float, b: float, segments, top: str) -> None:
+        """Charge the idle interval [a, b) to the spans open on the host then;
+        what lies outside the unit's host interval, to the unit."""
+        left = b - a
+        for lo, hi, name in segments:
+            part = min(b, hi) - max(a, lo)
+            if part > 0:
+                self._add(self.idle_ms, name, part)
+                left -= part
+        if left > 0:
+            self._add(self.idle_ms, top, left)
+
+    @property
+    def idle_total_ms(self) -> float:
+        return sum(self.idle_ms.values())
+
+
+def _host_segments(spans: list, leaves: set) -> list:
+    """The host's clock over the unit cut into ``(start_ns, end_ns, name)``
+    pieces, each named by the innermost span open then that is neither a
+    leaf nor inside one (spans nest on the unit's thread, so the innermost
+    is the open span that opened last)."""
+    hosts = []
+    for s in spans:
+        p = s
+        while p is not None and id(p) not in leaves:
+            p = p.parent
+        if p is None:
+            hosts.append(s)
+    edges = sorted({t for s in hosts for t in (s.start_ns, s.end_ns)})
+    segments = []
+    for lo, hi in zip(edges, edges[1:]):
+        open_ = [s for s in hosts if s.start_ns <= lo and hi <= s.end_ns]
+        if open_:
+            segments.append((lo, hi, open_[-1].name))
+    return segments
+
+
+def outside_ms(units: Sequence[Unit]) -> List[float]:
+    """The device intervals between consecutive anchored units of ``units``
+    (in the order they ran, as a window holds them), from one unit's last
+    event to the next one's anchor, in ms: the caller's time."""
+    lines = [u.timeline() for u in units]
+    return [max(0.0, (b.start_ns - a.end_ns) * 1e-6)
+            for a, b in zip(lines, lines[1:]) if a is not None and b is not None]
 
 
 class Window:
@@ -283,12 +461,14 @@ class Span:
     ``with`` opens and closes it."""
 
     __slots__ = ("name", "attrs", "parent", "unit", "start_ns", "end_ns", "_device",
-                 "_events", "_device_ms", "_rf")
+                 "_events", "_device_ms", "_at", "_rf", "_marks", "_timed_child")
 
     def __init__(self, name: str, device, attrs: dict, parent: Optional["Span"]):
         self.name, self.attrs, self.parent = name, attrs, parent
         self._device = device
-        self._events = self._device_ms = self._rf = None
+        self._events = self._device_ms = self._at = self._rf = None
+        self._marks: Optional[list] = None     # (host ns, event), then (host ns, device ms)
+        self._timed_child = False
         self.start_ns = self.end_ns = None
 
     def __enter__(self) -> "Span":
@@ -316,11 +496,19 @@ class Span:
             self._rf = torch.profiler.record_function(self.name)
             self._rf.__enter__()
         dev = self._device
-        if dev is not None and torch.device(dev).type == "cuda":
-            stream = torch.cuda.current_stream(dev)
-            self._events = (torch.cuda.Event(enable_timing=True),
-                            torch.cuda.Event(enable_timing=True), stream)
-            self._events[0].record(stream)
+        if dev is not None:
+            dev = torch.device(dev)
+            if dev.type == "cuda":
+                if dev.index is None:
+                    dev = torch.device("cuda", torch.cuda.current_device())
+                stream = _stream(dev)
+                if self.parent is None:
+                    self.unit.anchored = stream.query()
+                else:
+                    self.parent._timed_child = True
+                start = _event(dev)
+                start.record(stream)
+                self._events = (start, None, dev, stream)
         self.start_ns = time.perf_counter_ns()
         return self
 
@@ -328,7 +516,10 @@ class Span:
         global _live
         self.end_ns = time.perf_counter_ns()
         if self._events is not None:
-            self._events[1].record(self._events[2])
+            start, _, dev, stream = self._events
+            end = _event(dev)
+            end.record(stream)
+            self._events = (start, end, dev, stream)
         if self._rf is not None:
             self._rf.__exit__(None, None, None)
             self._rf = None
@@ -348,10 +539,8 @@ class Span:
         """The device time between the span's two CUDA events (waiting for
         the second), None for a span without them."""
         if self._events is not None:
-            start, end, _ = self._events
-            end.synchronize()
-            self._device_ms = start.elapsed_time(end)
-            self._events = None
+            with _events_lock:
+                self.unit._read()
         return self._device_ms
 
 
@@ -396,6 +585,24 @@ def count(name: str, n=1) -> None:
                 top.unit._pending.append((name, n.detach().clone()))
             else:
                 top.unit._add(name, n)
+
+
+def mark() -> None:
+    """After a launch: cut the innermost recorded span open on this thread
+    with one more CUDA event, where that span has events, no child with
+    events so far, and its unit is anchored (see the module's docstring);
+    nothing while a graph is being captured on the current stream."""
+    if _live:
+        top = getattr(_tls, "top", None)
+        if (top is not None and top._events is not None and not top._timed_child
+                and top.unit.anchored and not torch.cuda.is_current_stream_capturing()):
+            ns = time.perf_counter_ns()
+            _, _, dev, stream = top._events
+            event = _event(dev)
+            event.record(stream)
+            if top._marks is None:
+                top._marks = []
+            top._marks.append((ns, event))
 
 
 def annotate(**attrs) -> None:

@@ -1133,7 +1133,8 @@ def test_graph_frames_equal_the_eager_body(cuda):
     kinds = {True: 0, False: 0}
     for k in range(48):
         t = 10 * k / 60.0
-        values = graphs.replay(inputs(t, k))
+        graphs.load(inputs(t, k))
+        values = graphs.replay()
         eager, eager_depth, _ = _eager_frame(CELL, state, t, *views[k % 2], CELL_W, CELL_H)
         assert torch.equal(rr.srgb8(values["image"]), eager), k
         assert torch.equal(values["depth"], eager_depth), k

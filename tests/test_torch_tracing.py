@@ -9,9 +9,11 @@ for bit, and every stage span appears once under its frame; under a
 ``torch.profiler`` session the warm-up step records nothing and each span's
 ``record_function`` range lands in the session's trace.
 
-The ``cuda`` test checks on the card that K7, K8 and K9, replayed from the
+The ``cuda`` tests check on the card that K7, K8 and K9, replayed from the
 stages' CUDA graphs, are launched inside the spans of their stages, and
-that the stage spans carry device times:
+that the stage spans carry device times; that the device timeline of two
+frames agrees with ``torch.profiler``'s trace of them; and that
+``profile_kernels`` returns kernels alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_tracing.py -q
 """
@@ -37,6 +39,8 @@ from gfx_ocean_tpu_torch.utils import profiling
 POOL = 32_768            # a pool the 96 x 64 frame fits (tests/test_torch_render.py)
 STAGES = ("frame.step", "frame.slot_tables", "frame.slots", "frame.resolve",
           "frame.giant_pass", "frame.shade", "frame.srgb")
+# A frame's spans inside its own, in order: its leaves.
+FRAME_SPANS = ("frame.step", "frame.inputs") + STAGES[1:] + ("frame.output",)
 W, H = 96, 64
 
 
@@ -114,12 +118,12 @@ def test_every_stage_span_once_under_its_frame(pool, giants):
     for unit, t in zip(units, (1.0, 2.0)):
         top = unit.spans[0]
         assert top.name == "frame" and top.parent is None and unit.attrs == {"t": t, "band": 0}
-        for name in STAGES:
+        for name in FRAME_SPANS:
             (stage,) = unit.named(name)
             assert stage.parent is top and stage.unit is unit
             assert top.start_ns <= stage.start_ns <= stage.end_ns <= top.end_ns
         assert not unit.named("frame.giant_sync")             # the giant count stays on the device
-        assert len(unit.spans) == 1 + len(STAGES)
+        assert [s.name for s in unit.spans] == ["frame", *FRAME_SPANS]
         assert all(s.device_ms is None for s in unit.spans)     # no device clock on the CPU
     assert units[0].id != units[1].id
 
@@ -469,3 +473,125 @@ def test_kernels_launch_inside_their_stage_spans_on_the_card(cuda, tmp_path):
         (rng,) = [e for e in events if e.get("cat") == "user_annotation" and e["name"] == stage]
         (k,) = [e for e in events if e.get("cat") == "kernel" and kernel in e["name"]]
         assert rng["ts"] <= launch_at[k["args"]["correlation"]] <= rng["ts"] + rng["dur"]
+
+
+def _card_frame(cuda):
+    """The cell ``ocean512.frame``'s renderer on a 512^2 Phillips state,
+    run once (its stages captured)."""
+    config = T.OceanConfig(resolution=512, fft_impl="pallas")
+    fn = tr.make_frame_renderer(config, 1200, 700)
+    state = T.ocean_state_from_phillips(T.OceanConfig(resolution=512),
+                                        generator=torch.Generator().manual_seed(0), device=cuda)
+    cam = tcam.Camera()
+    vp = torch.tensor((tcam.perspective(1200 / 700) @ cam.view()).astype(np.float32),
+                      device=cuda)
+    cp = torch.tensor(cam.position.astype(np.float32), device=cuda)
+
+    def frame(t):
+        return fn(state, t, vp, cp).cpu()
+
+    frame(0.5)
+    return frame
+
+
+def _union_us(intervals) -> float:
+    """The length of the union of ``(start, end)`` intervals."""
+    total, cursor = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        a = max(a, cursor)
+        if b > a:
+            total += b - a
+            cursor = b
+    return total
+
+
+class _Trace:
+    """A Chrome trace's host ranges (``record_function``), the host's CUDA
+    event records and the device operations (kernels, copies, fills), each
+    with the runtime call that launched it, in us on the profiler's clock."""
+
+    def __init__(self, events):
+        self.ranges = sorted((e for e in events if e.get("cat") == "user_annotation"),
+                             key=lambda e: e["ts"])
+        runtime = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+        self.records = sorted((e["ts"], e["ts"] + e["dur"]) for e in runtime
+                              if e["name"].startswith("cudaEventRecord"))
+        calls = {e["args"]["correlation"]: e for e in runtime
+                 if "correlation" in e.get("args", {})}
+        self.ops = [(calls[e["args"]["correlation"]]["ts"], e["ts"], e["ts"] + e["dur"])
+                    for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                    and e.get("args", {}).get("correlation") in calls]
+
+    def launched(self, rng) -> list:
+        """The ``(start, end)`` of the operations launched inside the range
+        ``rng``."""
+        lo, hi = rng["ts"], rng["ts"] + rng["dur"]
+        return [(a, b) for at, a, b in self.ops if lo <= at <= hi]
+
+    def idle_us(self, rng) -> float:
+        """The device's idle time in a unit: its interval, from the end of
+        its anchor's record call to the later of its last record call's end
+        and its last operation's end, less the union of the operations it
+        launched."""
+        lo, hi = rng["ts"], rng["ts"] + rng["dur"]
+        records = [r for r in self.records if lo <= r[0] <= hi]
+        ops = self.launched(rng)
+        start = records[0][1]
+        end = max([records[-1][1]] + [b for _, b in ops])
+        return (end - start) - _union_us((max(a, start), min(b, end)) for a, b in ops)
+
+
+@pytest.mark.cuda
+def test_timeline_agrees_with_the_profiler_on_the_card(cuda, tmp_path):
+    """Two traced 1200 x 700 frames under ``torch.profiler`` with host and
+    device activity. Each frame and each leaf is cut out of the trace by
+    its ``record_function`` range. The recorder's idle time in a frame is
+    the device's (the frame's interval less the union of the operations it
+    launched, ``_Trace.idle_us``) within 10% or 20 us, whichever is larger;
+    each leaf's busy time is the union of the operations launched inside
+    its range within 10%."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    frame = _card_frame(cuda)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        frame(1.0)
+        prof.step()
+        frame(2.0)
+        frame(3.0)
+    units = list(profiling.windows()[-1].units)
+    assert [u.name for u in units] == ["frame", "frame"]
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    trace = _Trace([e for e in json.loads(path.read_text())["traceEvents"]
+                    if e.get("ph") == "X"])
+    tops = [e for e in trace.ranges if e["name"] == "frame"]
+    report, wrong = [], []
+    for unit, rng in zip(units, tops):
+        line = unit.timeline()
+        assert line is not None, "a unit on a drained stream is anchored"
+        lo, hi = rng["ts"], rng["ts"] + rng["dur"]
+        inside = [e for e in trace.ranges if lo <= e["ts"] and e["ts"] + e["dur"] <= hi]
+        busy = {name: sum(_union_us(trace.launched(e)) for e in inside if e["name"] == name)
+                for name in line.busy_ms}
+        idle_us = trace.idle_us(rng)
+        report.append({"unit": unit.name, "idle_us": [line.idle_total_ms * 1e3, idle_us],
+                       "busy_us": {k: [line.busy_ms[k] * 1e3, v] for k, v in busy.items()}})
+        if abs(line.idle_total_ms * 1e3 - idle_us) > max(0.1 * idle_us, 20.0):
+            wrong.append((unit.name, "idle"))
+        wrong += [(unit.name, k) for k, v in busy.items()
+                  if abs(line.busy_ms[k] * 1e3 - v) > 0.1 * v]
+    print(json.dumps(report))
+    assert not wrong, (wrong, report)
+
+
+@pytest.mark.cuda
+def test_profile_kernels_counts_kernels_alone_on_the_card(cuda):
+    """``profile_kernels`` over a recorded frame returns its kernels (K7
+    among them) and none of the frame's spans, whose ranges the profiler
+    also lays on the device's timeline."""
+    frame = _card_frame(cuda)
+    seen = profiling.profile_kernels(lambda: frame(1.5), 1, ("slot_kernel",), cpu=True)
+    assert seen is not None
+    kernels, _ = seen
+    assert not set(kernels) & {"frame", *FRAME_SPANS}, sorted(kernels)

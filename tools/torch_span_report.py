@@ -11,7 +11,20 @@ the run's largest window (``utils/profiling.largest_window``): every unit,
 and for frames those that ran the giant pass and those that did not. A
 group holds its unit count, each span's mean host ms and mean device ms a
 unit (CUDA events; a span that is absent in a unit counts 0) and each
-counter's mean a unit. Exits non-zero without a card.
+counter's mean a unit. Where the program has the device timeline
+(``Unit.timeline``), a group also holds its anchored units' count, their
+mean idle ms a unit, and each span's mean idle ms charged to it and its
+mean busy ms (leaves) a unit.
+
+The last line (``timeline``, where a unit is anchored: frames) sets the
+timeline beside the trace over the
+whole window: the stretches between units, charged to "outside" (the
+caller's time), and their share of all the idle time the recorder saw; the
+trace's idle seconds (``window_s`` less ``busy_s``) beside the recorder's
+(the idle inside the anchored units plus the outside stretches), less the
+device time of the copies to the host (which lie outside the units), and
+their ratio; the leaves' busy ms a unit beside ``frame_device_ms``, where
+the line has it. Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -38,9 +51,50 @@ def group(units) -> dict:
             "host_ms": statistics.fmean(u.host_ms(name) for u in units),
             "device_ms": (statistics.fmean(d or 0.0 for d in device)
                           if any(d is not None for d in device) else None)}
-    return {"units": len(units), "spans": spans,
-            "counters": {k: statistics.fmean(u.counters.get(k, 0) for u in units)
-                         for k in keys}}
+    out = {"units": len(units), "spans": spans,
+           "counters": {k: statistics.fmean(u.counters.get(k, 0) for u in units)
+                        for k in keys}}
+    lines = [line for line in (u.timeline() for u in units if hasattr(u, "timeline"))
+             if line is not None]
+    if lines:
+        out["anchored"] = len(lines)
+        out["idle_ms"] = statistics.fmean(t.idle_total_ms for t in lines)
+        for name in names:
+            spans[name]["idle_ms"] = statistics.fmean(t.idle_ms.get(name, 0.0) for t in lines)
+            if any(name in t.busy_ms for t in lines):
+                spans[name]["busy_ms"] = statistics.fmean(t.busy_ms.get(name, 0.0)
+                                                          for t in lines)
+    return out
+
+
+def against_trace(units, line: dict) -> dict:
+    """The window's idle time by the timeline beside the trace's (see the
+    module's docstring)."""
+    from gfx_ocean_tpu_torch.utils import profiling
+
+    lines = [t for t in (u.timeline() for u in units) if t is not None]
+    outside = profiling.outside_ms(units)
+    inside_s = sum(t.idle_total_ms for t in lines) * 1e-3
+    outside_s = sum(outside) * 1e-3
+    dev = line["device"]
+    trace_s = dev["window_s"] - dev["busy_s"] if "busy_s" in dev else None
+    copies_s = sum(s for name, s in line.get("breakdown", {}).get("device_ops", [])
+                   if "DtoH" in name)
+    out = {"units": len(units), "anchored": len(lines), "inside_idle_s": inside_s,
+           "outside_s": outside_s, "outside_share": outside_s / (inside_s + outside_s or 1.0),
+           "outside_ms_mean": statistics.fmean(outside) if outside else None,
+           "recorder_idle_s": inside_s + outside_s, "copies_to_host_s": copies_s,
+           "recorder_idle_less_copies_s": inside_s + outside_s - copies_s,
+           "trace_idle_s": trace_s,
+           "leaves_busy_ms": statistics.fmean(sum(t.busy_ms.values()) for t in lines)
+           if lines else None}
+    if trace_s:
+        out["recorder_over_trace"] = out["recorder_idle_less_copies_s"] / trace_s
+    device_ms = line["metrics"].get("frame_device_ms", {}).get("value")
+    if device_ms and lines:
+        out["frame_device_ms"] = device_ms
+        out["leaves_over_frame_device_ms"] = out["leaves_busy_ms"] / device_ms
+    return out
 
 
 def main() -> int:
@@ -64,7 +118,8 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
     line = harness.run(args.workload, args.seed, args.seconds, True)
     print(json.dumps({"correct": line["correct"], "metrics": line["metrics"],
-                      "device": line["device"]}), flush=True)
+                      "device": line["device"], "breakdown": line.get("breakdown")}),
+          flush=True)
     name = "frame" if args.workload.endswith(".frame") else "rollout"
     units = profiling.largest_window(name) or []
     groups = {"all": units}
@@ -74,6 +129,8 @@ def main() -> int:
     for label, members in groups.items():
         if members:
             print(json.dumps({"group": label, **group(members)}), flush=True)
+    if any(getattr(u, "anchored", False) for u in units):
+        print(json.dumps({"timeline": against_trace(units, line)}), flush=True)
     return 0
 
 
